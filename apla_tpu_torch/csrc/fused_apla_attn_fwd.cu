@@ -43,82 +43,22 @@
 //  * the projection: the two groups take alternate 64-column tiles of w,
 //    streamed through shared memory, with o_cat as the A operand.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "mma_sm90.cuh"
 
 namespace {
+
+using namespace mma;
 
 constexpr int BM = 64;               // query rows per block
 constexpr int BN = 64;               // key rows per tile
 constexpr int DH = 64;               // head dim (every ViT builder)
 constexpr int NT = 256;              // 8 warps = 2 groups of 4
 constexpr int GT = 128;              // threads per group
-constexpr int LDT = DH + 8;          // tile row stride (elements); the +8
-                                     // keeps ldmatrix rows on distinct banks
-constexpr int TILE = BM * LDT;       // elements per 64x64 tile
 constexpr int TILES_PER_GROUP = 5;   // q, k[2], v[2]
-constexpr float LOG2E = 1.4426950408889634f;
 
 __host__ __device__ inline size_t smem_bytes_for(int C) {
   return (size_t)BM * (C + 8) * sizeof(bf16)                    // o_cat
        + 2 * (size_t)TILES_PER_GROUP * TILE * sizeof(bf16);      // tiles
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1,
-                                        uint32_t& r2, uint32_t& r3,
-                                        const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1,
-                                          uint32_t& r2, uint32_t& r3,
-                                          const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 16-byte async copy; src_bytes = 0 writes zeros (rows past N)
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // barrier over the 4 warps of group grp (ids 1 and 2; 0 is __syncthreads)
@@ -126,60 +66,11 @@ __device__ __forceinline__ void group_sync(int grp) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(grp + 1), "r"(GT) : "memory");
 }
 
-// Queue the copy of 64 rows x 64 columns (row-major source, row stride
-// `stride` elements) into a [64][LDT] tile; rows at or past n_rows -> 0.
+// a group's 64-row tile copy (see mma::issue_tile)
 __device__ __forceinline__ void issue_tile(bf16* dst, const bf16* src,
                                            long stride, int row0, int n_rows,
                                            int gtid) {
-#pragma unroll
-  for (int i = gtid; i < 64 * 8; i += GT) {
-    const int r = i >> 3, c8 = (i & 7) * 8;
-    const bool ok = row0 + r < n_rows;
-    cp_async16(dst + r * LDT + c8,
-               ok ? src + (long)(row0 + r) * stride + c8 : src, ok);
-  }
-}
-
-// s[j] (keys 8j..8j+7 of the tile) = this warp's 16 query rows . keys
-__device__ __forceinline__ void warp_scores(const uint32_t (&qa)[4][4],
-                                            const bf16* ks, int lane,
-                                            float (&s)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    uint32_t b[8];
-    const bf16* row = ks + (8 * j + (lane & 7)) * LDT + (lane >> 3) * 8;
-    ldsm_x4(b[0], b[1], b[2], b[3], row);
-    ldsm_x4(b[4], b[5], b[6], b[7], row + 32);
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_bf16(s[j], qa[kk], b[2 * kk], b[2 * kk + 1]);
-  }
-}
-
-// scores -> log2 units, -inf outside [lo, hi) of the fragment's row
-__device__ __forceinline__ void scale_mask(float (&s)[8][4], int key0,
-                                           float scale_log2, int lo0, int hi0,
-                                           int lo1, int hi1) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = key0 + 8 * j + e;
-      s[j][e] = (key >= lo0 && key < hi0) ? s[j][e] * scale_log2 : -INFINITY;
-      s[j][2 + e] =
-          (key >= lo1 && key < hi1) ? s[j][2 + e] * scale_log2 : -INFINITY;
-    }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  mma::issue_tile<GT>(dst, src, stride, row0, n_rows, gtid);
 }
 
 __global__ void __launch_bounds__(NT, 1)
@@ -418,7 +309,7 @@ int fused_apla_attn_fwd(const void* qkv, const void* w, void* out, int B,
   dim3 grid((N + BM - 1) / BM, B);
   fused_apla_attn_fwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(w),
-      static_cast<bf16*>(out), N, C, H, scale * LOG2E, seg);
+      static_cast<bf16*>(out), N, C, H, scale * mma::LOG2E, seg);
   return (int)cudaGetLastError();
 }
 

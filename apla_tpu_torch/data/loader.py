@@ -1,0 +1,124 @@
+"""Batched data loading on `torch.utils.data`.
+
+Counterpart of `apla_tpu/data/loader.py`, with the same batching contract:
+`batch_size`, `shuffle` (deterministic in (seed, epoch), `set_epoch`),
+`drop_last`, and one `np.random.Generator` per (seed, epoch, sample index),
+so a record's augmentation does not depend on the worker count.  Worker
+processes (`num_workers`, capped at the host's cores, started with `spawn`:
+the trainer's process has threads, and a fork of it may deadlock) each load
+and collate whole batches; a collate gets a generator keyed by (seed,
+epoch, batch index).  The workers start at the first pass and serve every
+later one (the epoch travels in the batch keys), so each is spawned once.
+Batches come out as dicts of CPU tensors: 'image' NHWC (uint8 when the
+dataset is in raw mode, else float32) and 'label' (int64, or float32 soft
+targets).
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import os
+
+import numpy as np
+import torch
+
+
+def default_collate(samples, rng=None):
+    """Stack {'image', 'label'} records into numpy batch arrays (uint8
+    images pass through untouched)."""
+    del rng
+    images = np.stack([s["image"] for s in samples])
+    if images.dtype != np.uint8:
+        images = images.astype(np.float32)
+    lab0 = np.asarray(samples[0]["label"])
+    if lab0.ndim > 0:
+        labels = np.stack([np.asarray(s["label"]) for s in samples]).astype(
+            np.float32)
+    else:
+        labels = np.asarray([s["label"] for s in samples], dtype=np.int64)
+    return {"image": images, "label": labels}
+
+
+class _Batches(torch.utils.data.Dataset):
+    """Map-style view whose items are whole batches, keyed by (epoch, batch
+    index, sample indices)."""
+
+    def __init__(self, dataset, collate_fn, seed):
+        self.dataset, self.collate_fn, self.seed = dataset, collate_fn, seed
+
+    def __getitem__(self, key):
+        epoch, bi, idxs = key
+        samples = [self.dataset.__getitem__(
+            int(i), rng=np.random.default_rng((self.seed, epoch, int(i))))
+            for i in idxs]
+        batch = self.collate_fn(
+            samples, rng=np.random.default_rng((self.seed, epoch, bi, 1)))
+        return {k: torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in batch.items()}
+
+
+class _BatchKeys:
+    """The loader's batch keys for its current epoch, anew at each pass."""
+
+    def __init__(self, loader):
+        self.loader = loader
+
+    def __iter__(self):
+        epoch = self.loader.epoch
+        return iter([(epoch, bi, idxs) for bi, idxs in
+                     enumerate(self.loader._index_batches())])
+
+    def __len__(self):
+        return len(self.loader)
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_size=32, shuffle=False, drop_last=False,
+                 num_workers=8, prefetch_factor=4, seed=0, collate_fn=None,
+                 pin_memory=False):
+        self.dataset = dataset
+        self.batch_size = int(batch_size)
+        self.shuffle = bool(shuffle)
+        self.drop_last = bool(drop_last)
+        self.num_workers = max(0, min(int(num_workers or 0),
+                                      os.cpu_count() or 1))
+        self.prefetch = max(int(prefetch_factor or 2), 1)
+        self.seed = seed
+        self.epoch = 0
+        self.collate_fn = collate_fn or default_collate
+        self.pin_memory = bool(pin_memory)
+        self._loader = None
+
+    def set_epoch(self, epoch: int):
+        """Reseeds the shuffle."""
+        self.epoch = int(epoch)
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _index_batches(self):
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            rng = np.random.default_rng((self.seed, self.epoch))
+            rng.shuffle(order)
+        end = (n // self.batch_size) * self.batch_size if self.drop_last \
+            else n
+        for start in range(0, end, self.batch_size):
+            yield order[start:min(start + self.batch_size, n)]
+
+    def __iter__(self):
+        if self._loader is None:
+            workers = min(self.num_workers, len(self))
+            self._loader = torch.utils.data.DataLoader(
+                _Batches(self.dataset, self.collate_fn, self.seed),
+                batch_size=None, sampler=_BatchKeys(self),
+                num_workers=workers,
+                prefetch_factor=self.prefetch if workers else None,
+                pin_memory=self.pin_memory, persistent_workers=workers > 0,
+                multiprocessing_context=multiprocessing.get_context("spawn")
+                if workers else None)
+        yield from self._loader

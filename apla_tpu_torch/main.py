@@ -1,0 +1,170 @@
+"""Command line: train and test a supervised recipe with the port.
+
+  python -m apla_tpu_torch.main --params_path params/.../apla.yml [--test]
+         [--epochs N] [--batch_size N] [--lr X] ...
+
+Mirrors the JAX package's `main.py:144-170`, with copies of its
+`parse_arguments` and `update_params_from_args` (that file lives outside
+both packages).  Flags for paths the port does not have yet raise
+`NotImplementedError` naming their ROADMAP item: SSL (`--byol`,
+`--simsiam`, `--dino`, `--dinov2`), `--knn`, and the mesh flags
+(`--n_devices`/`--gpu` above one device, `--param_sharding` other than
+replicated, `--tensor_parallel`, `--pipeline_parallel`,
+`--sequence_parallel`, through `DefaultWrapper`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from .utils.config import load_merged_params
+
+
+def parse_arguments(argv=None):
+    p = argparse.ArgumentParser(allow_abbrev=False)
+    p.add_argument("--params_path", type=str, required=True)
+    p.add_argument("--n_devices", type=int, help="devices to train on")
+    p.add_argument("--gpu", type=str,
+                   help="comma list of device ids ('0,1') -> device count")
+    p.add_argument("--param_sharding", type=str,
+                   choices=["replicated", "fsdp", "tp", "pp"])
+    p.add_argument("--tensor_parallel", type=int)
+    p.add_argument("--pipeline_parallel", type=int)
+    p.add_argument("--pp_microbatches", type=int)
+    p.add_argument("--sequence_parallel", action="store_true", default=False)
+    p.add_argument("--batch_size", type=int)
+    p.add_argument("--val_every", type=float)
+    p.add_argument("--log_every", type=int)
+    p.add_argument("--mixed_precision", action="store_true", default=False)
+    p.add_argument("--num_workers", type=str)
+    p.add_argument("--prefetch_factor", type=str)
+    p.add_argument("--lr", type=float)
+    p.add_argument("--warmup", type=int)
+    p.add_argument("--epochs", type=int)
+    p.add_argument("--wd", type=float)
+    p.add_argument("--dpr", type=float)   # drop path rate
+    p.add_argument("--dr", type=float)    # drop rate
+    p.add_argument("--adr", type=float)   # attn drop rate
+    p.add_argument("--model_name", type=str)
+    p.add_argument("--pretrained_path", type=str)
+    p.add_argument("--save_dir", type=str)
+    p.add_argument("--debug", action="store_true", default=False)
+    p.add_argument("--dry", action="store_true", default=False)
+    p.add_argument("--job_id", type=str)
+    p.add_argument("--offline", action="store_true", default=False)
+    p.add_argument("--test", action="store_true", default=False)
+    p.add_argument("--knn", action="store_true", default=False)
+    p.add_argument("--byol", action="store_true", default=False)
+    p.add_argument("--simsiam", action="store_true", default=False)
+    p.add_argument("--dino", action="store_true", default=False)
+    p.add_argument("--dinov2", action="store_true", default=False)
+    return p.parse_args(argv)
+
+
+def update_params_from_args(params, args):
+    """CLI overrides of YAML keys (the JAX `main.py:74-141`)."""
+    if args.warmup:
+        params.optimization_params.default.scheduler.params.LinearWarmup\
+            .warmup_iters = args.warmup
+    if args.epochs:
+        params.training_params.epochs = args.epochs
+    loaders = ("trainloader", "valloader", "testloader")
+    if args.num_workers:
+        for ld in loaders:
+            params.dataloader_params[ld].num_workers = int(args.num_workers)
+    if args.prefetch_factor:
+        pf = None if args.prefetch_factor == "None" \
+            else int(args.prefetch_factor)
+        for ld in loaders:
+            params.dataloader_params[ld].prefetch_factor = pf
+    if args.pretrained_path:
+        params.transfer_learning_params.pretrained_path = args.pretrained_path
+    if args.lr:
+        params.optimization_params.default.optimizer.params.lr = args.lr
+    if args.wd is not None:
+        params.optimization_params.default.optimizer.params.weight_decay = \
+            args.wd
+    tp = params.model_params.transformers_params
+    if args.dpr is not None:
+        tp.drop_path_rate = args.dpr
+    if args.dr is not None:
+        tp.drop_rate = args.dr
+    if args.adr is not None:
+        tp.attn_drop_rate = args.adr
+    sp = params.system_params
+    if args.n_devices:
+        sp.n_devices = args.n_devices
+    elif args.gpu:
+        sp.n_devices = len([g for g in str(args.gpu).split(",") if g.strip()])
+    if args.param_sharding:
+        sp.param_sharding = args.param_sharding
+    if args.tensor_parallel:
+        sp.tensor_parallel = args.tensor_parallel
+    if args.pipeline_parallel:
+        sp.pipeline_parallel = args.pipeline_parallel
+    if args.pp_microbatches:
+        sp.pp_microbatches = args.pp_microbatches
+    if args.sequence_parallel:
+        sp.sequence_parallel = True
+    if args.model_name:
+        params.training_params.model_name = args.model_name
+    if args.save_dir:
+        params.training_params.save_dir = args.save_dir
+    if args.batch_size:
+        for ld in loaders:
+            params.dataloader_params[ld].batch_size = args.batch_size
+    if args.val_every is not None:
+        params.training_params.val_every = args.val_every
+    if args.log_every is not None:
+        params.training_params.log_every = args.log_every
+    if args.job_id is not None:
+        params.training_params.job_id = args.job_id
+    if args.mixed_precision:
+        params.training_params.use_mixed_precision = True
+    params.training_params.is_dry = args.dry
+    params.training_params.is_debug = args.debug
+    params.training_params.offline = args.offline
+    if args.knn:
+        if not args.test:
+            raise ValueError("--knn goes with --test")
+        for ld in loaders:
+            params.dataloader_params[ld].shuffle = False
+        params.training_params.knn_eval = True
+        params.model_params.freeze_backbone = True
+    return params
+
+
+def main(parameters, args):
+    if args.byol or args.simsiam or args.dino or args.dinov2:
+        raise NotImplementedError(
+            "SSL wrappers are not ported yet (ROADMAP queue A: SSL slice)")
+    from .train.trainer import Trainer
+    from .wrapper import DefaultWrapper
+    wrapper = DefaultWrapper(parameters)
+    wrapper.instantiate()
+    trainer = Trainer(wrapper)
+    if args.test:
+        if not args.pretrained_path:
+            raise ValueError("--test needs --pretrained_path")
+        return trainer.test(chpt_path=args.pretrained_path)
+    trainer.train()
+    if trainer._preempted:
+        print("Preempted: checkpoint saved, skipping test.")
+        return None
+    return trainer.test()
+
+
+def run_cli(argv=None):
+    args = parse_arguments(argv)
+    print(f"USING PARAMS FROM PATH: {os.path.abspath(args.params_path)}")
+    parameters = update_params_from_args(
+        load_merged_params(args.params_path), args)
+    if args.test and args.pretrained_path:
+        # --test reads the checkpoint, not a transfer source
+        parameters.transfer_learning_params.pretrained_path = ""
+    return main(parameters, args)
+
+
+if __name__ == "__main__":
+    run_cli()

@@ -68,10 +68,13 @@ def classifier_from_state(vit_cfg: ViTConfig, trainable: dict, frozen: dict,
 
 
 def classifier_forward(model: Classifier, x, vit_cfg: ViTConfig,
-                       return_embedding: bool = False):
+                       return_embedding: bool = False,
+                       deterministic: bool = True, generator=None):
     """[B, H, W, C] NHWC -> logits [B, n_classes] (and the embedding).  The
-    head runs in the compute dtype."""
-    emb = vit_features(model.backbone, x, vit_cfg)
+    head runs in the compute dtype.  `deterministic` / `generator`: see
+    `vit_features`."""
+    emb = vit_features(model.backbone, x, vit_cfg,
+                       deterministic=deterministic, generator=generator)
     fc = model.fc
     logits = torch.matmul(emb, fc.kernel.to(emb.dtype)) + fc.bias.to(emb.dtype)
     if return_embedding:

@@ -1,4 +1,4 @@
-"""Vision Transformer, inference path.
+"""Vision Transformer.
 
 Counterpart of `apla_tpu/models/vit.py`.  The parameters live in
 `nn.Module`s named after the JAX tree (`blocks.{i}.attn.qkv.kernel`, ...),
@@ -8,8 +8,10 @@ embedding kernel is HWIO `[P, P, 3, D]`; images are NHWC.  Parameters are
 float32 and every op casts them to `cfg.compute_dtype`, as the JAX forward
 does; LayerNorm statistics are taken in float32.
 
-Deterministic only: dropout and drop-path rates are carried in the config
-but the forward applies neither.  Not ported yet: `pack_segments`,
+With `deterministic=False` and a `torch.Generator` the forward applies the
+JAX package's token, attention, projection and MLP dropout (`drop_rate`,
+`attn_drop_rate`) and drop-path at the per-block rates
+`linspace(0, drop_path_rate, depth)`.  Not ported yet: `pack_segments`,
 `pipeline`, `token_sharding`, remat, `vit_intermediate_layers`.
 """
 
@@ -23,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import apla_attention, multi_head_attention
+from ..ops.attention import apla_attention, dropout, multi_head_attention
 from ..ops.quant import maybe_quantized_dot
 
 
@@ -228,37 +230,68 @@ def layer_norm(x, scale, bias, eps=1e-6):
     return y.to(x.dtype)
 
 
-def _mlp(x, p: Mlp, cfg: ViTConfig):
+def _mlp(x, p: Mlp, cfg: ViTConfig, generator, deterministic):
     if cfg.use_swiglu:
         x12 = maybe_quantized_dot(x, p.w12.kernel, p.w12.bias)
         x1, x2 = x12.chunk(2, dim=-1)
         return maybe_quantized_dot(F.silu(x1) * x2, p.w3.kernel, p.w3.bias)
     h = maybe_quantized_dot(x, p.fc1.kernel, p.fc1.bias)
     h = F.gelu(h, approximate="tanh" if cfg.gelu_tanh else "none")
-    return maybe_quantized_dot(h, p.fc2.kernel, p.fc2.bias)
+    h = dropout(h, cfg.drop_rate, generator, deterministic)
+    h = maybe_quantized_dot(h, p.fc2.kernel, p.fc2.bias)
+    return dropout(h, cfg.drop_rate, generator, deterministic)
 
 
-def _block_forward(x, blk: Block, cfg: ViTConfig):
+def drop_path(x, rate: float, generator, deterministic: bool,
+              segment_len: int = 0):
+    """Stochastic depth on a residual branch: each sample (each packed
+    segment when `segment_len` > 0) is kept with probability 1 - rate and
+    scaled by 1 / (1 - rate) (`apla_tpu/models/vit.py:_drop_path`)."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    if segment_len:
+        n_seg = x.shape[1] // segment_len
+        mask = torch.rand((x.shape[0], n_seg), generator=generator,
+                          device=x.device) < keep
+        mask = mask.repeat_interleave(segment_len, dim=1)[..., None]
+    else:
+        mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
+                          generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def drop_path_rates(cfg: ViTConfig) -> list[float]:
+    """Per-block drop-path rates, rising linearly from 0 to
+    `drop_path_rate` over the depth (`apla_tpu/models/vit.py:378`)."""
+    return torch.linspace(0.0, cfg.drop_path_rate, cfg.depth).tolist()
+
+
+def _block_forward(x, blk: Block, cfg: ViTConfig, dp_rate: float = 0.0,
+                   generator=None, deterministic: bool = True):
     """Pre-norm transformer block (APLA attention when the block has it)."""
     y = layer_norm(x, blk.norm1.scale, blk.norm1.bias, cfg.norm_eps)
+    attn_kw = dict(scale=cfg.scale, attn_drop=cfg.attn_drop_rate,
+                   proj_drop=cfg.drop_rate, generator=generator,
+                   deterministic=deterministic, use_flash=cfg.use_flash,
+                   logits_f32=cfg.attn_logits_f32,
+                   segment_len=cfg.attn_segment_len)
     if blk.attn.inds is not None:
-        y = apla_attention(
-            y, blk.attn, cfg.num_heads, scale=cfg.scale,
-            use_flash=cfg.use_flash, logits_f32=cfg.attn_logits_f32,
-            use_fused=cfg.use_fused_apla, segment_len=cfg.attn_segment_len)
+        y = apla_attention(y, blk.attn, cfg.num_heads,
+                           use_fused=cfg.use_fused_apla, **attn_kw)
     else:
-        y = multi_head_attention(
-            y, blk.attn, cfg.num_heads, scale=cfg.scale,
-            use_flash=cfg.use_flash, logits_f32=cfg.attn_logits_f32,
-            segment_len=cfg.attn_segment_len)
+        y = multi_head_attention(y, blk.attn, cfg.num_heads, **attn_kw)
     if blk.ls1 is not None:
         y = y * blk.ls1.gamma.to(y.dtype)
-    x = x + y
+    x = x + drop_path(y, dp_rate, generator, deterministic,
+                      cfg.attn_segment_len)
     y = layer_norm(x, blk.norm2.scale, blk.norm2.bias, cfg.norm_eps)
-    y = _mlp(y, blk.mlp, cfg)
+    y = _mlp(y, blk.mlp, cfg, generator, deterministic)
     if blk.ls2 is not None:
         y = y * blk.ls2.gamma.to(y.dtype)
-    return x + y
+    return x + drop_path(y, dp_rate, generator, deterministic,
+                         cfg.attn_segment_len)
 
 
 def _keys_cubic(x):
@@ -305,9 +338,10 @@ def interpolate_pos_embed(pos_embed, npatch: int, num_prefix: int = 1):
     return torch.cat([prefix, resized], dim=1)
 
 
-def _prepare_tokens(vit: ViT, x, cfg: ViTConfig):
+def _prepare_tokens(vit: ViT, x, cfg: ViTConfig, generator=None,
+                    deterministic: bool = True):
     """Patchify (NHWC in), prepend cls (+ register) tokens, add the
-    (interpolated) pos embed."""
+    (interpolated) pos embed, token dropout."""
     dt = cfg.compute_dtype
     B = x.shape[0]
     x = x.to(dt).permute(0, 3, 1, 2)                          # NCHW
@@ -324,14 +358,18 @@ def _prepare_tokens(vit: ViT, x, cfg: ViTConfig):
     if cfg.num_register_tokens and vit.register_tokens is not None:
         reg = vit.register_tokens.to(dt).expand(B, cfg.num_register_tokens, D)
         x = torch.cat([x[:, :1], reg, x[:, 1:]], dim=1)
-    return x
+    return dropout(x, cfg.drop_rate, generator, deterministic)
 
 
-def vit_features(vit: ViT, x, cfg: ViTConfig, return_all_tokens=False):
+def vit_features(vit: ViT, x, cfg: ViTConfig, return_all_tokens=False,
+                 deterministic: bool = True, generator=None):
     """Run the ViT trunk on NHWC images [B, H, W, C].  Returns the
-    final-norm cls token [B, d], or all tokens [B, N, d]."""
-    x = _prepare_tokens(vit, x, cfg)
-    for blk in vit.blocks:
-        x = _block_forward(x, blk, cfg)
+    final-norm cls token [B, d], or all tokens [B, N, d].
+
+    `deterministic=False` with a `torch.Generator` (on the images' device)
+    draws dropout and drop-path masks from it."""
+    x = _prepare_tokens(vit, x, cfg, generator, deterministic)
+    for blk, dp_rate in zip(vit.blocks, drop_path_rates(cfg)):
+        x = _block_forward(x, blk, cfg, dp_rate, generator, deterministic)
     x = layer_norm(x, vit.norm.scale, vit.norm.bias, cfg.norm_eps)
     return x if return_all_tokens else x[:, 0]

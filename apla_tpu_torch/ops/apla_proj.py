@@ -1,10 +1,13 @@
-"""APLA partial-trainable output projection, forward only.
+"""APLA partial-trainable output projection.
 
 Counterpart of `apla_tpu/ops/apla_proj.py`.  Weights keep the JAX layout:
 kernel `[d_in, d_out]`, and `inds` ([k], int64) index the trainable OUTPUT
 columns, so `W = W_frozen` with `W_t` written into columns `inds`, then
-`out = x @ W + b`.  The autograd `Function` (dW_t = x^T g[..., inds], no
-gradient for the frozen matrix) comes with the training slice.
+`out = x @ W + b`.
+
+`AplaProj` is the JAX custom VJP as an autograd `Function`: dx = g W^T,
+dW_t = x^T g[..., inds] and db_t = sum g[..., inds] in float32; the frozen
+matrix gets no gradient, so the `[d, d]` weight gradient is never formed.
 """
 
 from __future__ import annotations
@@ -21,7 +24,29 @@ def assemble(w_t: torch.Tensor, b_t: torch.Tensor, w_frozen: torch.Tensor,
     return w, b
 
 
+class AplaProj(torch.autograd.Function):
+    """`apla_tpu/ops/apla_proj.py:56-80` as an autograd `Function`."""
+
+    @staticmethod
+    def forward(ctx, x, w_t, b_t, w_frozen, b_frozen, inds):
+        w, b = assemble(w_t, b_t, w_frozen, b_frozen, inds)
+        ctx.save_for_backward(x, w, inds)
+        ctx.dtypes = (w_t.dtype, b_t.dtype)
+        return torch.matmul(x, w.to(x.dtype)) + b.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, inds = ctx.saved_tensors
+        wt_dtype, bt_dtype = ctx.dtypes
+        dx = torch.matmul(g, w.to(g.dtype).t())
+        g2 = g.index_select(-1, inds).reshape(-1, inds.numel()).float()
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        dw_t = torch.matmul(x2.t(), g2).to(wt_dtype)
+        db_t = g2.sum(dim=0).to(bt_dtype)
+        return dx, dw_t, db_t, None, None, None
+
+
 def apla_proj(x, w_t, b_t, w_frozen, b_frozen, inds):
-    """[..., d_in] -> [..., d_out] in x.dtype (bias added in x.dtype)."""
-    w, b = assemble(w_t, b_t, w_frozen, b_frozen, inds)
-    return torch.matmul(x, w.to(x.dtype)) + b.to(x.dtype)
+    """[..., d_in] -> [..., d_out] in x.dtype (bias added in x.dtype).
+    Differentiable in (x, w_t, b_t)."""
+    return AplaProj.apply(x, w_t, b_t, w_frozen, b_frozen, inds)

@@ -1,13 +1,18 @@
-"""Multi-head self-attention ops, inference only.
+"""Multi-head self-attention ops.
 
 Counterpart of `apla_tpu/ops/attention.py`.  The QKV projection is always
-frozen under APLA.  No dropout yet: the port's forward is deterministic.
+frozen under APLA.  Dropout follows the JAX package: attention dropout on the
+softmaxed weights and projection dropout on the block output, both only when
+`deterministic` is False, drawn from an explicit `torch.Generator` (the JAX
+package splits a PRNG key; the two streams differ, the distributions match).
 
 `apla_attention(..., use_fused=True)` runs attention and the partial
 projection through `fused_apla_attention`.  On a CUDA tensor that is the
 hand-written kernel, which raises (bad dtype, head dim, shared memory)
 rather than falling back: the JAX package's warn-and-fall-back ladder exists
-for Mosaic's VMEM limits and has no counterpart on the card.
+for Mosaic's VMEM limits and has no counterpart on the card.  The kernel
+applies no dropout to p, in JAX or here, so training with `attn_drop > 0`
+on the fused path raises; inference ignores `attn_drop`.
 """
 
 from __future__ import annotations
@@ -20,7 +25,19 @@ from .fused_apla_attn import fused_apla_attention
 from .quant import maybe_quantized_dot
 
 
+def dropout(x, rate: float, generator, deterministic: bool):
+    """Elementwise dropout: keep with probability 1 - rate, scale kept
+    values by 1 / (1 - rate) (`apla_tpu/ops/attention.py:_dropout`)."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 def qkv_and_attend(x, qkv_kernel, qkv_bias, num_heads, scale=None,
+                   attn_drop=0.0, generator=None, deterministic=True,
                    use_flash=False, logits_f32=True, segment_len=0):
     """QKV projection + scaled dot-product attention.  Returns [B, N, C].
 
@@ -34,50 +51,66 @@ def qkv_and_attend(x, qkv_kernel, qkv_bias, num_heads, scale=None,
     qkv = qkv.reshape(B, N, 3, num_heads, head_dim)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B, N, H, Dh]
 
-    if use_flash:
+    if use_flash and attn_drop == 0.0:
         out = flash_mha(q, k, v, scale=scale, segment_len=segment_len)
         return out.reshape(B, N, C)
 
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))    # [B, H, N, Dh]
-    out = plain_mha(q, k, v, scale, segment_len=segment_len,
-                    logits_f32=logits_f32)
+    out = plain_mha(
+        q, k, v, scale, segment_len=segment_len, logits_f32=logits_f32,
+        attn_dropout=lambda a: dropout(a, attn_drop, generator,
+                                       deterministic))
     return out.transpose(1, 2).reshape(B, N, C)
 
 
-def multi_head_attention(x, params, num_heads, scale=None, use_flash=False,
-                         logits_f32=True, segment_len=0):
+def multi_head_attention(x, params, num_heads, scale=None, attn_drop=0.0,
+                         proj_drop=0.0, generator=None, deterministic=True,
+                         use_flash=False, logits_f32=True, segment_len=0):
     """Standard attention block: QKV, attend, dense output projection.
 
     `params`: an `Attention` module (or dict) with `qkv.kernel`, `qkv.bias`
     (may be None), `proj.kernel`, `proj.bias`."""
     out = qkv_and_attend(x, params.qkv.kernel, params.qkv.bias, num_heads,
-                         scale=scale, use_flash=use_flash,
-                         logits_f32=logits_f32, segment_len=segment_len)
+                         scale=scale, attn_drop=attn_drop,
+                         generator=generator, deterministic=deterministic,
+                         use_flash=use_flash, logits_f32=logits_f32,
+                         segment_len=segment_len)
     proj = params.proj
-    return torch.matmul(out, proj.kernel.to(x.dtype)) + proj.bias.to(x.dtype)
+    out = torch.matmul(out, proj.kernel.to(x.dtype)) + proj.bias.to(x.dtype)
+    return dropout(out, proj_drop, generator, deterministic)
 
 
-def apla_attention(x, attn, num_heads, scale=None, use_flash=False,
-                   logits_f32=True, use_fused=False, segment_len=0):
+def apla_attention(x, attn, num_heads, scale=None, attn_drop=0.0,
+                   proj_drop=0.0, generator=None, deterministic=True,
+                   use_flash=False, logits_f32=True, use_fused=False,
+                   segment_len=0):
     """APLA attention: frozen QKV + attention, partial-trainable projection.
 
     `attn`: an `Attention` module carrying the frozen `qkv`, `proj` and
     `inds`, and the trainable `proj_wt` [d, k] / `proj_bt` [k].
     `use_fused`: attention + the partial projection as one kernel (the
-    attention output never reaches device memory).  The forward applies no
-    attention dropout on any path, so a config's `attn_drop_rate` does not
-    turn the fused path off."""
+    attention output never reaches device memory)."""
     if use_fused:
+        if attn_drop > 0.0 and not deterministic:
+            raise ValueError(
+                f"attn_drop_rate={attn_drop} while training on the fused APLA "
+                "path: the kernel applies no dropout to the attention "
+                "weights (neither does the TPU kernel); set attn_drop_rate 0 "
+                "or use_fused_apla false")
         C = x.shape[-1]
         head_dim = C // num_heads
         qkv = maybe_quantized_dot(x, attn.qkv.kernel, attn.qkv.bias)
-        return fused_apla_attention(
+        out = fused_apla_attention(
             qkv, attn.proj_wt, attn.proj_bt, attn.proj.kernel, attn.proj.bias,
             attn.inds, num_heads,
             float(scale if scale is not None else head_dim ** -0.5),
             int(segment_len))
+        return dropout(out, proj_drop, generator, deterministic)
     out = qkv_and_attend(x, attn.qkv.kernel, attn.qkv.bias, num_heads,
-                         scale=scale, use_flash=use_flash,
-                         logits_f32=logits_f32, segment_len=segment_len)
-    return apla_proj(out, attn.proj_wt, attn.proj_bt, attn.proj.kernel,
-                     attn.proj.bias, attn.inds)
+                         scale=scale, attn_drop=attn_drop,
+                         generator=generator, deterministic=deterministic,
+                         use_flash=use_flash, logits_f32=logits_f32,
+                         segment_len=segment_len)
+    out = apla_proj(out, attn.proj_wt, attn.proj_bt, attn.proj.kernel,
+                    attn.proj.bias, attn.inds)
+    return dropout(out, proj_drop, generator, deterministic)

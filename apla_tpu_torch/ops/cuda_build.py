@@ -4,9 +4,12 @@ into shared libraries with a plain C interface, and load them with ctypes.
 A library is built at its first CUDA use, never at import: the CPU tests
 import every module on hosts with no `nvcc`.  The output lands in
 `apla_tpu_torch/_build/<hash>/` (listed in `.gitignore`), keyed by a hash
-of the source and the compiler flags, so a changed source rebuilds and an
-unchanged one is reused within a checkout.  `nvcc` is found on `PATH`, under
-`$CUDA_HOME/bin`, or at `/usr/local/cuda/bin`.
+of the source, the shared headers (`csrc/*.cuh`) and the compiler flags, so
+a changed source rebuilds and an unchanged one is reused within a checkout.
+The compiler's resource report (`-Xptxas=-v`: registers, spills, shared
+memory per kernel) is kept beside the library as `<stem>.ptxas.txt`.
+`nvcc` is found on `PATH`, under `$CUDA_HOME/bin`, or at
+`/usr/local/cuda/bin`.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def find_nvcc() -> str:
@@ -42,8 +45,11 @@ def find_nvcc() -> str:
 def library_path(source: str) -> Path:
     """Where the library for `csrc/<source>` lives once built."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_ROOT / digest / (src.stem + ".so")
 
 
@@ -59,8 +65,15 @@ def build_library(source: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source}:\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)      # atomic: a concurrent builder never sees half
     return out
+
+
+def resource_report(source: str) -> str:
+    """The compiler's per-kernel resource lines for a built `source`."""
+    report = library_path(source).with_suffix(".ptxas.txt")
+    return report.read_text() if report.exists() else ""
 
 
 @functools.cache

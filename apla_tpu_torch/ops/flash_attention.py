@@ -13,10 +13,12 @@ from __future__ import annotations
 import torch
 
 
-def plain_mha(q, k, v, scale, segment_len: int = 0, logits_f32: bool = True):
+def plain_mha(q, k, v, scale, segment_len: int = 0, logits_f32: bool = True,
+              attn_dropout=None):
     """q, k, v [B, H, N, Dh] -> [B, H, N, Dh]: logits in f32 (or rounded to
     q.dtype first when `logits_f32` is off, as the JAX path does), f32
-    softmax cast to q.dtype, then attn @ v in q.dtype.
+    softmax cast to q.dtype, `attn_dropout` (if given) on the weights, then
+    attn @ v in q.dtype.
 
     `segment_len` > 0: block-diagonal attention (tokens attend only inside
     their own segment of that length)."""
@@ -29,6 +31,8 @@ def plain_mha(q, k, v, scale, segment_len: int = 0, logits_f32: bool = True):
         seg = torch.arange(n, device=q.device) // segment_len
         logits = logits.masked_fill(seg[:, None] != seg[None, :], -1e9)
     attn = torch.softmax(logits, dim=-1).to(q.dtype)
+    if attn_dropout is not None:
+        attn = attn_dropout(attn)
     return torch.matmul(attn, v)
 
 

@@ -1,17 +1,23 @@
 """Fused APLA attention: softmax(q k^T) v and the partial-trainable output
-projection in one kernel.
+projection in one kernel, and its backward.
 
-Counterpart of `apla_tpu/ops/pallas_apla_attn.py` (`fused_apla_attention`,
-forward only).  The kernel, `csrc/fused_apla_attn_fwd.cu`, replaces the TPU
-kernel `pallas_apla_attn.py:_fwd_kernel`: per head, f32 scores masked to the
-row's segment, p rounded to the input dtype, p v, the heads concatenated and
-multiplied by the assembled `[C, C]` projection without the attention output
-leaving the chip.  The bias is added outside the kernel.
+Counterpart of `apla_tpu/ops/pallas_apla_attn.py` (`fused_apla_attention`
+and its custom VJP).  Two hand-written CUDA kernels replace the TPU kernels:
 
-`fused_apla_attn_fwd` is the wrapper: on a CPU tensor it runs the plain
-PyTorch version below (`fused_apla_attn_fwd_reference`), on a CUDA tensor it
-launches the kernel or raises.  `fused_apla_attn_fwd.launches` counts kernel
-launches (and nothing else).
+- `csrc/fused_apla_attn_fwd.cu` replaces `pallas_apla_attn.py:_fwd_kernel`:
+  per head, f32 scores masked to the row's segment, p rounded to the input
+  dtype, p v, the heads concatenated and multiplied by the assembled
+  `[C, C]` projection without the attention output leaving the chip.  The
+  bias is added outside the kernel.
+- `csrc/fused_apla_attn_bwd.cu` replaces `pallas_apla_attn.py:_bwd_kernel`:
+  p recomputed, `dO = g W^T`, `dq/dk/dv` packed `[B, N, 3C]`, and
+  `dW_t = o_cat^T g[..., inds]` summed over the batch, in f32.
+
+`fused_apla_attn_fwd` / `fused_apla_attn_bwd` are the wrappers: on a CPU
+tensor they run the plain PyTorch versions below (`*_reference`), on a CUDA
+tensor they launch the kernel or raise.  Each wrapper's `launches` counts its
+kernel launches (one per call, and nothing else).  `FusedAplaAttention` is
+the autograd `Function` over both, with the JAX custom VJP's contract.
 """
 
 from __future__ import annotations
@@ -25,28 +31,74 @@ from .apla_proj import assemble
 from .cuda_build import load_library
 
 _SOURCE = "fused_apla_attn_fwd.cu"
-HEAD_DIM = 64          # the kernel's head dim (every ViT builder's)
+_BWD_SOURCE = "fused_apla_attn_bwd.cu"
+HEAD_DIM = 64          # the kernels' head dim (every ViT builder's)
+_KP = 64               # the backward pads the trainable columns to this
+
+
+def _heads(t, num_heads):
+    """[B, N, C] -> [B, H, N, Dh] in float32."""
+    B, N, C = t.shape
+    return t.reshape(B, N, num_heads, C // num_heads).transpose(1, 2).float()
+
+
+def _merge_heads(t):
+    """[B, H, N, Dh] -> [B, N, C]."""
+    B, H, N, dh = t.shape
+    return t.transpose(1, 2).reshape(B, N, H * dh)
+
+
+def _softmax_f32(q, k, scale, segment_len):
+    """f32 softmax of the masked scores q k^T * scale ([B, H, N, N])."""
+    N = q.shape[2]
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if segment_len:
+        seg = torch.arange(N, device=q.device) // segment_len
+        s = s.masked_fill(seg[:, None] != seg[None, :], float("-inf"))
+    return torch.softmax(s, dim=-1)
 
 
 def fused_apla_attn_fwd_reference(qkv, w, num_heads: int, scale: float,
                                   segment_len: int = 0):
-    """Plain version of the kernel, rounding where the TPU kernel rounds.
+    """Plain version of the forward kernel, rounding where the TPU kernel
+    rounds.
 
     qkv [B, N, 3C], w [C, C] -> [B, N, C] in qkv.dtype.  Products are taken
     in f32 on the upcast inputs (as `preferred_element_type=f32` does)."""
-    B, N, C3 = qkv.shape
-    C = C3 // 3
-    dh = C // num_heads
     dt = qkv.dtype
-    q, k, v = (t.reshape(B, N, num_heads, dh).transpose(1, 2).float()
-               for t in qkv.split(C, dim=-1))                 # [B, H, N, Dh]
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale          # f32 scores
-    if segment_len:
-        seg = torch.arange(N, device=qkv.device) // segment_len
-        s = s.masked_fill(seg[:, None] != seg[None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1).to(dt).float()
-    o = torch.matmul(p, v).transpose(1, 2).reshape(B, N, C).to(dt)
+    q, k, v = (_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    p = _softmax_f32(q, k, scale, segment_len).to(dt).float()
+    o = _merge_heads(torch.matmul(p, v)).to(dt)
     return torch.matmul(o.float(), w.to(dt).float()).to(dt)
+
+
+def fused_apla_attn_bwd_reference(qkv, w, g, inds, num_heads: int,
+                                  scale: float, segment_len: int = 0):
+    """Plain version of the backward kernel, rounding where the TPU kernel
+    rounds (`pallas_apla_attn.py:_bwd_kernel`).
+
+    qkv [B, N, 3C], w [C, C] (assembled), g [B, N, C] (cotangent of the
+    projected output), inds [k] -> (dqkv [B, N, 3C] in qkv.dtype,
+    dW_t [C, k] float32 summed over the batch)."""
+    dt = qkv.dtype
+    C = qkv.shape[-1] // 3
+    g = g.to(dt)
+    d_o = torch.matmul(g.float(), w.to(dt).float().t()).to(dt)
+    q, k, v = (_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    d_o = _heads(d_o, num_heads)
+    p = _softmax_f32(q, k, scale, segment_len)
+    pb = p.to(dt).float()
+    o = torch.matmul(pb, v).to(dt)
+    dv = torch.matmul(pb.transpose(-1, -2), d_o)
+    dp = torch.matmul(d_o, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (ds * scale).to(dt).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dqkv = torch.cat([_merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(dt)
+    o_cat = _merge_heads(o).reshape(-1, C).float()
+    g_t = g.index_select(-1, inds).reshape(-1, inds.numel()).float()
+    return dqkv, torch.matmul(o_cat.t(), g_t)
 
 
 def _check_cuda_args(qkv, w, num_heads, segment_len):
@@ -77,6 +129,24 @@ def _check_cuda_args(qkv, w, num_heads, segment_len):
     return B, N, C
 
 
+def _check_bwd_args(qkv, w, g, inds, num_heads, segment_len):
+    B, N, C = _check_cuda_args(qkv, w, num_heads, segment_len)
+    if g.dtype != qkv.dtype or tuple(g.shape) != (B, N, C):
+        raise ValueError(f"g must be [{B}, {N}, {C}] {qkv.dtype}, got "
+                         f"{tuple(g.shape)} {g.dtype}")
+    if g.device != qkv.device or inds.device != qkv.device:
+        raise ValueError(f"qkv on {qkv.device}, g on {g.device}, inds on "
+                         f"{inds.device}")
+    if not g.is_contiguous() or g.data_ptr() % 16:
+        raise ValueError("g must be contiguous and 16-byte aligned")
+    if inds.dim() != 1 or not 0 < inds.numel() <= C:
+        raise ValueError(f"inds must be [k] with 0 < k <= {C}, got "
+                         f"{tuple(inds.shape)}")
+    if B * N > 65535 * 64:
+        raise ValueError(f"batch x length {B * N} outside the kernel's grid")
+    return B, N, C
+
+
 @functools.cache
 def _library():
     lib = load_library(_SOURCE)
@@ -93,34 +163,52 @@ def _library():
 
 
 @functools.cache
-def _smem_bytes(C: int) -> int:
-    """Dynamic shared memory one block needs at width C."""
-    return _library().fused_apla_attn_fwd_smem_bytes(C)
+def _bwd_library():
+    lib = load_library(_BWD_SOURCE)
+    lib.fused_apla_attn_bwd.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
+    lib.fused_apla_attn_bwd.restype = ctypes.c_int
+    lib.fused_apla_attn_bwd_smem_bytes.argtypes = []
+    lib.fused_apla_attn_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_apla_attn_bwd_prepare.argtypes = [ctypes.c_int]
+    lib.fused_apla_attn_bwd_prepare.restype = ctypes.c_int
+    return lib
 
 
 @functools.cache
-def _device_smem(dev: int) -> int:
-    """Opts the kernel in to device `dev`'s largest dynamic shared memory,
-    once per device, and returns that size in bytes."""
+def _device_smem(library, prepare: str, dev: int) -> int:
+    """Runs `library()`'s function `prepare` (opts its kernels in to the
+    device's dynamic shared memory) once per device; returns the device's
+    limit."""
     with torch.cuda.device(dev):
-        have = _library().fused_apla_attn_fwd_prepare(dev)
+        have = getattr(library(), prepare)(dev)
     if have < 0:
         raise RuntimeError(f"could not set the kernel's shared memory limit "
                            f"on cuda:{dev}")
     return have
 
 
+def _device_index(t) -> int:
+    return t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+
+
+def _check_smem(need: int, have: int, what: str):
+    if need > have:
+        raise ValueError(
+            f"shared memory too small: {what} needs {need} bytes of dynamic "
+            f"shared memory per block, the device allows {have}")
+
+
 def _launch(qkv, w, num_heads, scale, segment_len):
     B, N, C = _check_cuda_args(qkv, w, num_heads, segment_len)
     lib = _library()
-    dev = qkv.device.index if qkv.device.index is not None \
-        else torch.cuda.current_device()
-    need = _smem_bytes(C)
-    have = _device_smem(dev)
-    if need > have:
-        raise ValueError(
-            f"shared memory too small: C={C} needs {need} bytes of dynamic "
-            f"shared memory per block, the device allows {have}")
+    dev = _device_index(qkv)
+    _check_smem(lib.fused_apla_attn_fwd_smem_bytes(C),
+                _device_smem(_library, "fused_apla_attn_fwd_prepare", dev),
+                f"the forward at C={C}")
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -151,13 +239,106 @@ def fused_apla_attn_fwd(qkv, w, num_heads: int, scale: float,
 fused_apla_attn_fwd.launches = 0
 
 
+def dw_chunks(m: int, c: int, kp: int, n_sm: int):
+    """(rows per chunk, number of chunks) for the dW_t partials: chunks of
+    64-row steps, about four blocks per SM over the (C/64) x (Kp/64)
+    output tiles, every chunk non-empty."""
+    steps = -(-m // 64)
+    target = max(1, (4 * n_sm) // ((c // 64) * (kp // 64)))
+    rows = 64 * -(-steps // min(target, steps))
+    return rows, -(-m // rows)
+
+
+def _launch_bwd(qkv, w, g, inds, num_heads, scale, segment_len):
+    B, N, C = _check_bwd_args(qkv, w, g, inds, num_heads, segment_len)
+    lib = _bwd_library()
+    dev = _device_index(qkv)
+    _check_smem(lib.fused_apla_attn_bwd_smem_bytes(),
+                _device_smem(_bwd_library, "fused_apla_attn_bwd_prepare",
+                             dev),
+                "the backward")
+    k = inds.numel()
+    kp = -(-k // _KP) * _KP
+    g_t = torch.nn.functional.pad(g.index_select(-1, inds),
+                                  (0, kp - k)).contiguous()
+    rows, n_chunks = dw_chunks(B * N, C, kp, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    dqkv = torch.empty_like(qkv)
+    dwt = torch.empty((C, kp), dtype=torch.float32, device=qkv.device)
+    d_o = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    o_cat = torch.empty_like(d_o)
+    stats = torch.empty((3, B, num_heads, N), dtype=torch.float32,
+                        device=qkv.device)
+    part = torch.empty((n_chunks, C, kp), dtype=torch.float32,
+                       device=qkv.device)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_apla_attn_bwd(
+            qkv.data_ptr(), w.data_ptr(), g.data_ptr(), g_t.data_ptr(),
+            dqkv.data_ptr(), dwt.data_ptr(), d_o.data_ptr(), o_cat.data_ptr(),
+            stats.data_ptr(), part.data_ptr(), B, N, C, num_heads, kp,
+            float(scale), int(segment_len), rows, n_chunks, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_apla_attn_bwd launch failed: "
+                           f"cudaError {err}")
+    fused_apla_attn_bwd.launches += 1
+    return dqkv, dwt[:, :k]
+
+
+def fused_apla_attn_bwd(qkv, w, g, inds, num_heads: int, scale: float,
+                        segment_len: int = 0):
+    """Backward of `fused_apla_attn_fwd` with the trainable columns `inds`:
+    -> (dqkv [B, N, 3C] in qkv.dtype, dW_t [C, k] float32).
+
+    CPU tensor: the plain version.  CUDA tensor: the kernel, or an error
+    naming why it cannot run (dtype, head dim, shapes, shared memory)."""
+    if qkv.device.type == "cpu":
+        return fused_apla_attn_bwd_reference(qkv, w, g, inds, num_heads,
+                                             scale, segment_len)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no fused APLA attention for device {qkv.device}")
+    return _launch_bwd(qkv, w, g, inds, num_heads, scale, segment_len)
+
+
+fused_apla_attn_bwd.launches = 0
+
+
+class FusedAplaAttention(torch.autograd.Function):
+    """The JAX custom VJP (`pallas_apla_attn.py:507-564`) as an autograd
+    `Function`.  Forward: the forward kernel; it saves qkv, the assembled
+    W (in qkv.dtype) and `inds`, and nothing else: the backward recomputes
+    p.  Backward: dqkv and dW_t from the backward kernel, db_t = sum of
+    g[..., inds] in float32 outside it; no gradient for the frozen matrix,
+    bias or `inds`."""
+
+    @staticmethod
+    def forward(ctx, qkv, w_t, b_t, w_frozen, b_frozen, inds, num_heads,
+                scale, segment_len):
+        w, b = assemble(w_t, b_t, w_frozen, b_frozen, inds)
+        w = w.to(qkv.dtype)
+        out = fused_apla_attn_fwd(qkv, w, num_heads, scale, segment_len)
+        ctx.save_for_backward(qkv, w, inds)
+        ctx.args = (num_heads, scale, segment_len, w_t.dtype, b_t.dtype)
+        return out + b.to(out.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, w, inds = ctx.saved_tensors
+        num_heads, scale, segment_len, wt_dtype, bt_dtype = ctx.args
+        dqkv, dw_t = fused_apla_attn_bwd(
+            qkv, w, g.to(qkv.dtype).contiguous(), inds, num_heads, scale,
+            segment_len)
+        db_t = g.index_select(-1, inds).float().sum(dim=(0, 1))
+        return (dqkv, dw_t.to(wt_dtype), db_t.to(bt_dtype), None, None, None,
+                None, None, None)
+
+
 def fused_apla_attention(qkv, w_t, b_t, w_frozen, b_frozen, inds,
                          num_heads: int, scale: float, segment_len: int = 0):
     """qkv [B, N, 3C] packed activations -> [B, N, C] projected output.
 
     `w_t` [C, k] / `b_t` [k] are the trainable columns written into the
-    frozen `w_frozen` [C, C] / `b_frozen` [C] at `inds` [k]."""
-    w, b = assemble(w_t, b_t, w_frozen, b_frozen, inds)
-    out = fused_apla_attn_fwd(qkv, w.to(qkv.dtype), num_heads,
-                              float(scale), int(segment_len))
-    return out + b.to(out.dtype)
+    frozen `w_frozen` [C, C] / `b_frozen` [C] at `inds` [k].
+    Differentiable in (qkv, w_t, b_t)."""
+    return FusedAplaAttention.apply(qkv, w_t, b_t, w_frozen, b_frozen, inds,
+                                    num_heads, float(scale), int(segment_len))

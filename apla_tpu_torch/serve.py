@@ -179,9 +179,8 @@ def load_predictor(path: str, device) -> Predictor:
 # ------------------------------------------------------------------ #
 
 def _build_from_params(params_path: str, n_classes: int, seed: int):
-    from apla_tpu.utils.config import load_merged_params
-
     from .models.classifier import init_classifier
+    from .utils.config import load_merged_params
     from .wrapper import build_apla_config, build_vit_config
 
     params = load_merged_params(params_path)

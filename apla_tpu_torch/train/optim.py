@@ -1,0 +1,121 @@
+"""Optimizer construction over the trainable parameters only.
+
+Counterpart of `apla_tpu/train/optim.py`.  Two param groups carry the JAX
+`wd_mask` rule: leaves named `bias`, `proj_bt`, `scale` or `gamma` are not
+decayed, any other leaf is decayed if it has two or more dimensions.  The
+updates are `torch.optim`'s, each the same update as the JAX package's optax
+chain:
+
+- AdamW: decoupled decay (optax.adamw with the mask);
+- Adam: decay coupled into the gradient (add_decayed_weights + adam);
+- SGD: coupled decay, momentum as a trace, optional Nesterov;
+- RMSprop: coupled decay, eps outside the sqrt, the momentum buffer taking
+  the unscaled updates and lr applied last (torch's RMSprop is exactly that
+  chain).
+
+Clipping is optax's `clip_by_global_norm` (`(g / norm) * max` once the norm
+reaches `max`, no epsilon; `torch.nn.utils.clip_grad_norm_` adds 1e-6 to the
+norm).  `set_lr` writes the lr (and optionally wd) into the param groups
+before each step, as the JAX package injects them as hyperparameters.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_NO_WD_NAMES = frozenset({"bias", "proj_bt", "scale", "gamma"})
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """The JAX `wd_mask` rule for one named parameter."""
+    if name.rsplit(".", 1)[-1] in _NO_WD_NAMES:
+        return False
+    return p.dim() >= 2
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+
+
+def clip_by_global_norm_(grads, max_norm: float, g_norm: torch.Tensor):
+    """In place, optax's rule: unchanged while g_norm < max_norm, else each
+    g becomes (g / g_norm) * max_norm.  No host sync."""
+    keep = g_norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_norm))
+
+
+class Optimizer:
+    """A `torch.optim` optimizer over the decayed and the not-decayed group,
+    with the global-norm clip and the injected lr / wd."""
+
+    def __init__(self, opt: torch.optim.Optimizer, grad_clip: float | None):
+        self.opt = opt
+        self.grad_clip = float(grad_clip) if grad_clip else None
+
+    @property
+    def params(self):
+        return [p for group in self.opt.param_groups for p in group["params"]]
+
+    def set_lr(self, lr: float, wd: float | None = None) -> None:
+        for group in self.opt.param_groups:
+            group["lr"] = float(lr)
+            if wd is not None and group["decay"]:
+                group["weight_decay"] = float(wd)
+
+    def get_lr(self) -> float:
+        return self.opt.param_groups[0]["lr"]
+
+    def step(self, g_norm: torch.Tensor) -> None:
+        """Clip the gradients held in `.grad` (by `g_norm`, their global
+        norm) and apply one update."""
+        if self.grad_clip:
+            clip_by_global_norm_([p.grad for p in self.params],
+                                 self.grad_clip, g_norm)
+        self.opt.step()
+
+    def state_dict(self) -> dict:
+        return self.opt.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.opt.load_state_dict(state)
+
+
+def build_optimizer(opt_type: str, opt_params: dict, named_params,
+                    grad_clip: float | None = None) -> Optimizer:
+    """`opt_type` in 'AdamW', 'Adam', 'SGD', 'RMSprop' over `named_params`
+    ((name, parameter) pairs, the trainable ones); `opt_params` follows the
+    YAML schema ({'lr', 'weight_decay', betas/eps/momentum/alpha/nesterov})."""
+    opt_params = dict(opt_params)
+    lr = float(opt_params.pop("lr", 1e-3))
+    wd = float(opt_params.pop("weight_decay", 0.0))
+    betas = tuple(opt_params.pop("betas", (0.9, 0.999)))
+    eps = float(opt_params.pop("eps", 1e-8))
+    momentum = float(opt_params.pop("momentum", 0.0))
+    alpha = float(opt_params.pop("alpha", 0.99))
+    nesterov = bool(opt_params.pop("nesterov", False))
+    named_params = list(named_params)
+    groups = [
+        {"params": [p for n, p in named_params if decays(n, p)],
+         "weight_decay": wd, "decay": True},
+        {"params": [p for n, p in named_params if not decays(n, p)],
+         "weight_decay": 0.0, "decay": False},
+    ]
+    groups = [g for g in groups if g["params"]]
+    if opt_type == "AdamW":
+        opt = torch.optim.AdamW(groups, lr=lr, betas=betas, eps=eps)
+    elif opt_type == "Adam":
+        opt = torch.optim.Adam(groups, lr=lr, betas=betas, eps=eps)
+    elif opt_type == "SGD":
+        opt = torch.optim.SGD(groups, lr=lr, momentum=momentum,
+                              nesterov=nesterov)
+    elif opt_type == "RMSprop":
+        opt = torch.optim.RMSprop(groups, lr=lr, alpha=alpha, eps=eps,
+                                  momentum=momentum)
+    elif opt_type == "LAMB":
+        raise NotImplementedError(
+            "LAMB is not ported yet (ROADMAP queue A: LAMB)")
+    else:
+        raise NotImplementedError(f"optimizer {opt_type}")
+    return Optimizer(opt, grad_clip)

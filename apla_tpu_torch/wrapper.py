@@ -1,19 +1,36 @@
-"""Model configs from a recipe's params dict.
+"""DefaultWrapper: builds data, model, optimizer, schedule, loss and metric
+class from a recipe's params; the trainer consumes them.
 
-Counterpart of `apla_tpu/wrapper.py:DefaultWrapper.build_vit_config` and
-`build_apla_config`, as plain functions of the merged params dict (what
-`apla_tpu.utils.config.load_merged_params` returns, or an equivalent plain
-dict).  The rest of the wrapper (data, optimizer, mesh) comes with training.
-TPU-only knobs (`fused_vmem_mb`, `remat`) have no meaning here and are not
-read.
+Counterpart of `apla_tpu/wrapper.py:31-334`, without the mesh: the port
+trains on one device (`system_params.device`, else the first CUDA card,
+else the CPU).  `build_vit_config` / `build_apla_config` are plain
+functions of the merged params dict (what `utils.config.load_merged_params`
+returns, or an equivalent plain dict).  TPU-only knobs (`fused_vmem_mb`,
+`remat`) have no meaning here and are not read.  What the port does not
+have yet raises `NotImplementedError` naming its ROADMAP item: the mesh and
+parallel knobs, `pretrained` import, `transfer_learning_params.
+pretrained_path`, `quantize_frozen`, kNN eval, and multi-label data.
 """
 
 from __future__ import annotations
 
+from copy import deepcopy
+
 import torch
 
 from .apla.core import AplaConfig
+from .data import datasets as datasets_mod
+from .data.loader import DataLoader
+from .models.classifier import init_classifier
 from .models.vit import VIT_BUILDERS, ViTConfig
+from .train.losses import get_criterion
+from .train.metrics import ClassificationMetrics
+from .train.optim import build_optimizer
+from .train.schedules import LRScheduler
+from .train.train_state import TrainState
+from .utils.config import EDict
+
+_ROADMAP_PARALLEL = "ROADMAP queue A: parallel modes"
 
 
 def build_vit_config(params: dict) -> ViTConfig:
@@ -49,3 +66,150 @@ def build_apla_config(params: dict) -> AplaConfig | None:
     return AplaConfig(partial_size=p.get("partial_size", 32),
                       inds_path=p.get("inds_path"),
                       seed=int(p.get("seed", 0)))
+
+
+class DefaultWrapper:
+    def __init__(self, parameters: dict):
+        parameters = EDict(deepcopy(dict(parameters)))
+        self.parameters = parameters
+        self.dataset_params = parameters.dataset_params
+        self.dataloader_params = parameters.dataloader_params
+        self.model_params = parameters.model_params
+        self.optimization_params = parameters.optimization_params
+        self.training_params = parameters.training_params
+        self.system_params = parameters.get("system_params") or EDict()
+        self.transfer_learning_params = parameters.get(
+            "transfer_learning_params") or EDict()
+        self.device = torch.device(
+            self.system_params.get("device")
+            or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self._check_unported()
+
+    def _check_unported(self):
+        sp, mp = self.system_params, self.model_params
+        for knob in ("tensor_parallel", "pipeline_parallel", "n_devices"):
+            if int(sp.get(knob) or 1) > 1:
+                raise NotImplementedError(
+                    f"system_params.{knob}={sp[knob]} ({_ROADMAP_PARALLEL})")
+        if sp.get("sequence_parallel"):
+            raise NotImplementedError(
+                f"system_params.sequence_parallel ({_ROADMAP_PARALLEL})")
+        if sp.get("param_sharding") not in (None, "replicated"):
+            raise NotImplementedError(
+                f"param_sharding {sp['param_sharding']!r} "
+                f"({_ROADMAP_PARALLEL})")
+        if mp.get("pretrained"):
+            raise NotImplementedError(
+                "model_params.pretrained: the dinov2 .pth / HF importers are "
+                "not ported yet (ROADMAP queue A: rest of serving, importers)")
+        if self.transfer_learning_params.get("pretrained_path"):
+            raise NotImplementedError(
+                "transfer_learning_params.pretrained_path is not ported yet "
+                "(ROADMAP queue A: rest of serving, importers)")
+        if mp.get("quantize_frozen"):
+            raise NotImplementedError(
+                "quantize_frozen: W8A8 is not ported yet (ROADMAP B6)")
+        if self.training_params.get("knn_eval"):
+            raise NotImplementedError(
+                "knn_eval is not ported yet (ROADMAP queue A: kNN eval)")
+
+    # ------------------------------------------------------------------ #
+    def instantiate(self, seed: int = 0):
+        self.dataloaders = self.init_dataloaders()
+        trainset = self.dataloaders.trainloader.dataset
+        self.task = trainset.task
+        self.is_multiclass = trainset.is_multiclass
+        self.model_params.n_classes = trainset.n_classes
+        self.model_params.knn_nhood = trainset.knn_nhood
+        self.model_params.target_metric = trainset.target_metric
+        self.init_model(seed)
+        self.init_optimization()
+        self.criterion = get_criterion(self.task, self.is_multiclass)
+        self.metric_class = ClassificationMetrics
+
+    # ------------------------------------------------------------------ #
+    def init_dataloaders(self) -> EDict:
+        DataSet = datasets_mod.get_dataset_class(self.dataset_params.dataset)
+        trainset = DataSet(self.dataset_params, mode="train")
+        valset = DataSet(self.dataset_params, mode="val")
+        testset = DataSet(self.dataset_params, mode="test")
+
+        # device-side augmentation: the host ships resized uint8 images; the
+        # geometric/photometric tail runs on the device inside the step
+        self.device_aug_cfg = None
+        if self.dataset_params.get("device_augment"):
+            from .data.device_augs import DeviceAugConfig
+            tt = self.dataset_params.get("train_transforms", {})
+            rrc = tt.get("RandomResizedCrop", {})
+            cj = tt.get("ColorJitter", {})
+            rs = tt.get("Resize", {})
+            flip = tt.get("HorizontalFlip", {})
+            gray = tt.get("RandomGrayscale", {})
+            trainset.raw_mode = True
+            trainset.raw_size = int(rs.get("height", 256)) \
+                if rs.get("apply") else 256
+            self.device_aug_cfg = DeviceAugConfig(
+                out_size=int(rrc.get("size", 224)),
+                crop_scale=tuple(rrc.get("scale", (0.8, 1.2))),
+                hflip_p=float(flip.get("p", 0.5)) if flip.get("apply")
+                else 0.0,
+                jitter_p=float(cj.get("p", 0.8) if cj.get("apply") else 0.0),
+                brightness=float(cj.get("brightness", 0.2)),
+                contrast=float(cj.get("contrast", 0.2)),
+                saturation=float(cj.get("saturation", 0.1)),
+                hue=float(cj.get("hue", 0.0)),
+                grayscale_p=float(gray.get("p", 0.0)) if gray.get("apply")
+                else 0.0,
+                mean=tuple(trainset.mean), std=tuple(trainset.std))
+
+        # mixup/cutmix collate
+        train_collate = None
+        tt = self.dataset_params.get("train_transforms")
+        if isinstance(tt, dict) and tt.get("advanced_aug"):
+            from .data.mixup import AdvancedAugCollate
+            aug_params = dict(tt.get("advanced_aug_params", {}))
+            aug_params["num_classes"] = trainset.n_classes
+            train_collate = AdvancedAugCollate(aug_params)
+
+        pin = self.device.type == "cuda"
+        trainloader = DataLoader(trainset, collate_fn=train_collate,
+                                 pin_memory=pin,
+                                 **self.dataloader_params["trainloader"])
+        testloader = DataLoader(testset, pin_memory=pin,
+                                **self.dataloader_params["testloader"])
+        valloader = DataLoader(valset, pin_memory=pin,
+                               **self.dataloader_params["valloader"]) \
+            if len(valset) > 0 else testloader
+        return EDict(trainloader=trainloader, valloader=valloader,
+                     testloader=testloader)
+
+    def init_model(self, seed: int = 0):
+        self.vit_cfg = build_vit_config(self.parameters)
+        self.model = init_classifier(
+            self.vit_cfg, int(self.model_params.n_classes),
+            apla_cfg=build_apla_config(self.parameters),
+            freeze_backbone=bool(self.model_params.get("freeze_backbone",
+                                                       False)),
+            generator=torch.Generator().manual_seed(seed), device=self.device)
+        n_train = sum(p.numel() for p in self.model.parameters()
+                      if p.requires_grad)
+        n_total = sum(p.numel() for p in self.model.parameters()) \
+            + sum(b.numel() for b in self.model.buffers())
+        print(f"Model: {self.model_params.backbone_type} "
+              f"trainable={n_train:,} / total={n_total:,} "
+              f"({100.0 * n_train / max(n_total, 1):.2f}%)")
+
+    def init_optimization(self):
+        opt = self.optimization_params.default
+        self.optimizer = build_optimizer(
+            opt.optimizer.type, dict(opt.optimizer.params),
+            [(n, p) for n, p in self.model.named_parameters()
+             if p.requires_grad],
+            grad_clip=self.training_params.get("grad_clipping"))
+        self.scheduler = LRScheduler(
+            opt.scheduler.type, opt.scheduler.get("params", {}),
+            max_lr=opt.optimizer.params.lr,
+            steps_per_epoch=len(self.dataloaders.trainloader),
+            epochs=self.training_params.epochs)
+        self.state = TrainState(step=0, model=self.model,
+                                optimizer=self.optimizer)

@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/H100 port (`apla_tpu_torch`).
 
-Drives the port's serving path once on one CUDA card, in phases that each
-print a line and raise on failure:
+Drives the port's serving path and its training path once on one CUDA
+card, in phases that each print a line and raise on failure:
 
-  1. build   — compile the hand-written kernel from `apla_tpu_torch/csrc`.
-  2. kernel  — the fused APLA attention kernel against its plain PyTorch
-               version on the card, bf16, at the served length (N=257), the
-               518-crop length (N=1370) and a segmented case.
+  1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`,
+               one nvcc per source, all started together.
+  2. kernel  — the fused APLA attention forward kernel against its plain
+               PyTorch version on the card, bf16, at the served length
+               (N=257), the 518-crop length (N=1370) and a segmented case.
   3. slice   — the ViT-B/14 APLA-128 ImageNet classifier (random weights from
                a seed, the shipped rank-128 index file) exported at batch
                sizes 1/8/64, reloaded, and asked for 1, 9 and 100 images.
                Every block of every call must have run the kernel; outputs
                must be finite and agree with the same model on the plain
                attention path; b64 throughput of both arms is timed.
+  4. bwd     — the backward kernel against its plain version, dq, dk, dv
+               and dW_t each, at the training shapes, N=1370, a segmented
+               case and the shipped block-0 indices; b64 timed.
+  5. train   — the recipe's supervised fine-tune (ViT-B/14 APLA-128, AdamW,
+               warmup + cosine, clip 1.0, accum 8, device augmentation,
+               mixup/cutmix) on the hermetic Synthetic dataset through
+               DefaultWrapper -> Trainer.train() -> Trainer.test(): both
+               kernels in every block of every micro-step, finite losses,
+               frozen weights unchanged bit for bit, every trainable tensor
+               moved, a checkpoint that reloads; the first step's loss and
+               gradients of the fused arm against the plain arm; train-step
+               img/s and peak memory of both arms at accum 8 and 1.
 
-Phases 2 and 3 also run negative controls: the kernel made to compute what
-a broken one would (output zeroed or halved, uniform attention, half the
-heads dropped).  Each must fail the phase's bound, so the bounds are shown
-to catch a broken kernel in every run.
+Phases 2-5 also run negative controls: the kernels made to compute what
+broken ones would (output zeroed or halved, uniform attention, half the
+heads dropped; dqkv halved, dW_t from the wrong columns or zeroed).  Each
+must fail the phase's bound, so the bounds are shown to catch a broken
+kernel in every run.
 
 Then it prints the card's name and power limit, a JSON line describing the
-kernel, and the contract line `{"ok": true, "device": {...}}` last.
+kernels, and the contract line `{"ok": true, "device": {...}}` last.
 
 Run from the repository root:  python3 chip_smoke.py
 Exits non-zero, printing no result, without a CUDA device.
@@ -29,9 +43,11 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -42,11 +58,60 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# The model fields of params/finetune/dinov2/ImageNet/vit_b/apla.yml merged
-# over its __common__.yml (the card's machine has no PyYAML; a CPU test holds
-# this dict against the YAML).  The pos-embed grid is the recipe's 518; the
-# model is served at the 224 test crop.
+# params/finetune/dinov2/ImageNet/vit_b/apla.yml merged over its
+# __common__.yml, every field the port reads (the card's machine has no
+# PyYAML; a CPU test holds this dict against the YAML: every value here is
+# the YAML's).  Left out: the dinov2 checkpoint (`pretrained`, not in the
+# repository; the weights are random from a seed) and the host-side
+# transforms that raw mode never runs.  The pos-embed grid is the recipe's
+# 518; the model is served and trained at the 224 crop.  `SMOKE_CUTS` below
+# says what the training phase changes.
+_EVAL_TRANSFORMS = {"Resize": {"apply": True, "height": 256, "width": 256},
+                    "CenterCrop": {"apply": True, "height": 224,
+                                   "width": 224},
+                    "Normalize": True}
+_LOADER = {"batch_size": 64, "num_workers": 8, "prefetch_factor": 4}
 RECIPE = {
+    "dataset_params": {
+        "dataset": "ImageNet",
+        "device_augment": True,
+        "train_transforms": {
+            "Resize": {"apply": True, "height": 256, "width": 256},
+            "HorizontalFlip": {"apply": True, "p": 0.5},
+            "ColorJitter": {"apply": False, "brightness": 0.2,
+                            "contrast": 0.2, "saturation": 0.1, "hue": 0.1,
+                            "p": 0.8},
+            "RandomResizedCrop": {"apply": True, "size": 224,
+                                  "scale": [0.8, 1.2]},
+            "RandomGrayscale": {"apply": False},
+            "Normalize": True,
+            "advanced_aug": True,
+            "advanced_aug_params": {"mixup_alpha": 0.8, "cutmix_alpha": 1,
+                                    "prob": 0.4, "label_smoothing": 0.1},
+        },
+        "val_transforms": _EVAL_TRANSFORMS,
+        "test_transforms": _EVAL_TRANSFORMS,
+    },
+    "dataloader_params": {
+        "trainloader": {**_LOADER, "shuffle": True, "drop_last": True},
+        "valloader": {**_LOADER, "shuffle": False, "drop_last": False},
+        "testloader": {**_LOADER, "shuffle": False, "drop_last": False},
+    },
+    "optimization_params": {"default": {
+        "optimizer": {"type": "AdamW",
+                      "params": {"lr": 1e-4, "weight_decay": 1e-5}},
+        "scheduler": {
+            "type": ["LinearWarmup", "CosineAnnealingLR"],
+            "params": {
+                "ReduceLROnPlateau": {"mode": "max", "factor": 0.1,
+                                      "patience": 2},
+                "OneCycleLR": {"anneal_strategy": "linear",
+                               "final_div_factor": 1e-4},
+                "MultiStepLR": {"milestones": [], "gamma": 0.1},
+                "CosineAnnealingLR": {"eta_min": 1e-6},
+                "LinearWarmup": {"warmup_epochs": 0, "warmup_iters": 500},
+            }},
+    }},
     "model_params": {
         "backbone_type": "vit_base",
         "transformers_params": {
@@ -67,7 +132,28 @@ RECIPE = {
             },
         },
     },
-    "training_params": {"use_mixed_precision": True},
+    "training_params": {
+        "accum_steps": 8,
+        "model_name": "imagenet_vitb_apla",
+        "epochs": 100,
+        "val_every": 0.2,
+        "log_every": 25,
+        "save_best_model": True,
+        "knn_eval": False,
+        "grad_clipping": 1.0,
+        "use_mixed_precision": True,
+    },
+}
+# What the training phase changes, and why: the dataset (ImageNet is not in
+# the repository) becomes the hermetic Synthetic set at the recipe's raw
+# 256 and 1000 classes, a few hundred images; one short epoch with one
+# validation; every step logged (each loss is checked).
+TRAIN_IMAGES = 256
+SMOKE_CUTS = {
+    "dataset_params": {"dataset": "Synthetic", "synthetic_classes": 1000,
+                       "synthetic_size": TRAIN_IMAGES,
+                       "synthetic_img_size": 256},
+    "training_params": {"epochs": 1, "val_every": 1.0, "log_every": 1},
 }
 SERVE_IMG = 224
 N_CLASSES = 1000
@@ -83,6 +169,12 @@ KERNEL_CASES = (((1, 257, 2304), 0), ((8, 257, 2304), 0),
 # the online max/sum of the softmax, i.e. by a bf16 rounding of p, o or the
 # output here and there.  Bound: 2e-2 of the reference's largest magnitude.
 KERNEL_REL_TOL = 2e-2
+# (qkv shape, segment_len, trainable columns) for the backward phase: the
+# training micro-batch (b8) and others; "block0" takes the shipped block-0
+# indices.  Same bound, per output (dq, dk, dv, dW_t).
+BWD_CASES = (((1, 257, 2304), 0, 128), ((8, 257, 2304), 0, 128),
+             ((64, 257, 2304), 0, 128), ((2, 1370, 2304), 0, 128),
+             ((8, 200, 2304), 50, 128), ((8, 257, 2304), 0, "block0"))
 # Served model, fused arm vs plain arm (bf16 end to end through 12 blocks;
 # the plain arm also rounds its attention logits to bf16): per-image
 # embedding cosine, and max |delta logits| relative to max |logits|.  On an
@@ -92,6 +184,14 @@ KERNEL_REL_TOL = 2e-2
 # script checks every run that each fault still fails them.
 MIN_COSINE = 0.9995
 LOGITS_REL_TOL = 3e-2
+# Training phase, fused arm vs plain arm on the first step (8 micro-batches
+# of 8 images, bf16 through 12 blocks forward and back): |delta loss| and the
+# worst per-tensor ||g_fused - g_plain|| / ||g_plain|| over every trainable
+# tensor.  On an H100 the fused arm reads 8.3e-6 and 0.0103 (fc.kernel);
+# the bounds sit about 5x above, and the backward faults in `_phase_train`
+# (dW_t zeroed, dqkv halved) must fail them in every run.
+LOSS_TOL = 5e-5
+GRAD_REL_TOL = 0.05
 
 
 def _gpu_line() -> str:
@@ -100,6 +200,11 @@ def _gpu_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _time_ms(fn, iters=20, warmup=3) -> float:
@@ -115,14 +220,48 @@ def _time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _resources(report: str) -> list[str]:
+    """'kernel: N registers, S bytes spilled, M bytes smem' per kernel of a
+    `-Xptxas=-v` report."""
+    out, name = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            # _ZN..._<file>_cu_<8 hex><len><name>E...: the demangled name
+            name = line.split("'")[1]
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)
+            if m:
+                name = name[m.end():m.end() + int(m.group(1))]
+        elif "spill stores" in line and name:
+            spill = line.split(",")[1].split()[0]
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used")[1].split()[0]
+            smem = line.split("bytes smem")[0].split(",")[-1].strip() \
+                if "smem" in line else "0"
+            out.append(f"{name}: {regs} registers, {spill} bytes spilled, "
+                       f"{smem} bytes static smem")
+            name = None
+    return out
+
+
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from apla_tpu_torch.ops import cuda_build
-    from apla_tpu_torch.ops.fused_apla_attn import _SOURCE
+    from apla_tpu_torch.ops.fused_apla_attn import _BWD_SOURCE, _SOURCE
+    sources = (_SOURCE, _BWD_SOURCE)
     t0 = time.perf_counter()
-    cuda_build.load_library(_SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(cuda_build.build_library, sources))
+    for src in sources:
+        cuda_build.load_library(src)
     secs = time.perf_counter() - t0
-    print(f"[1 build] {_SOURCE} built and loaded in {secs:.2f} s "
-          f"-> {cuda_build.library_path(_SOURCE).relative_to(ROOT)}")
+    for src in sources:
+        print(f"[1 build] {src} -> "
+              f"{cuda_build.library_path(src).relative_to(ROOT)}")
+        for line in _resources(cuda_build.resource_report(src)):
+            print(f"[1 build]   {line}")
+    print(f"[1 build] {len(sources)} kernels built (in parallel) and loaded "
+          f"in {secs:.2f} s")
     return secs
 
 
@@ -310,6 +449,308 @@ def phase_slice(device):
     return launches, fused_rate, plain_rate
 
 
+def _bwd_errors(got, ref):
+    """{output: (max|err|, bound)} for dq, dk, dv (slices of dqkv) and
+    dW_t of a backward call against the plain version's."""
+    (dqkv, dwt), (r_dqkv, r_dwt) = got, ref
+    c = dqkv.shape[-1] // 3
+    out = {}
+    for name, a, r in (("dq", dqkv[..., :c], r_dqkv[..., :c]),
+                       ("dk", dqkv[..., c:2 * c], r_dqkv[..., c:2 * c]),
+                       ("dv", dqkv[..., 2 * c:], r_dqkv[..., 2 * c:]),
+                       ("dW_t", dwt, r_dwt)):
+        a, r = a.float(), r.float()
+        ok = bool(torch.isfinite(a).all())
+        err = (a - r).abs().max().item() if ok else float("inf")
+        out[name] = (err, KERNEL_REL_TOL * r.abs().max().item())
+    return out
+
+
+def _bwd_controls():
+    """Input changes under which the working backward computes what a
+    broken one would, and the outputs each must break: (qkv, w, inds,
+    scale) -> the same four."""
+    return {
+        # dO = g w^T halves, so dq, dk, dv halve; dW_t = o^T g_t is right
+        "dqkv halved (w x 0.5)": (
+            lambda qkv, w, inds, sc: (qkv, w * 0.5, inds, sc),
+            ("dq", "dk", "dv"), ("dW_t",)),
+        # g_t gathered from the neighbouring columns: dW_t wrong, dqkv right
+        "dW_t from the wrong columns (inds + 1)": (
+            lambda qkv, w, inds, sc: (qkv, w, (inds + 1) % w.shape[0], sc),
+            ("dW_t",), ("dq", "dk", "dv")),
+        "uniform p (scale 0)": (
+            lambda qkv, w, inds, sc: (qkv, w, inds, 0.0),
+            ("dq", "dk", "dv", "dW_t"), ()),
+    }
+
+
+def phase_bwd(device):
+    from apla_tpu_torch.apla.core import load_indices
+    from apla_tpu_torch.ops.fused_apla_attn import (
+        fused_apla_attn_bwd, fused_apla_attn_bwd_reference)
+    gen = torch.Generator().manual_seed(SEED + 1)
+    heads, scale = 12, 64 ** -0.5
+    worst = 0.0
+    block0 = load_indices(os.path.join(ROOT, RECIPE["model_params"][
+        "adaptation"]["params"]["inds_path"]), 12, 768)[0]
+    for shape, seg, k in BWD_CASES:
+        c = shape[-1] // 3
+        qkv = torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+        w = (torch.randn((c, c), generator=gen) * c ** -0.5).to(
+            device, torch.bfloat16)
+        g = torch.randn(shape[:2] + (c,), generator=gen).to(device,
+                                                            torch.bfloat16)
+        inds = (torch.as_tensor(block0, dtype=torch.int64) if k == "block0"
+                else torch.randperm(c, generator=gen)[:k]).to(device)
+        got = fused_apla_attn_bwd(qkv, w, g, inds, heads, scale, seg)
+        torch.cuda.synchronize()
+        ref = fused_apla_attn_bwd_reference(qkv, w, g, inds, heads, scale,
+                                            seg)
+        errs = _bwd_errors(got, ref)
+        ok = all(e <= b for e, b in errs.values())
+        print(f"[4 bwd] qkv {list(shape)} seg={seg} k={k}: " + ", ".join(
+            f"{n} max|err| {e:.6g} (bound {b:.6g})"
+            for n, (e, b) in errs.items()) + f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"backward kernel disagrees with its plain "
+                             f"version at {shape} seg={seg} k={k}")
+        worst = max(worst, max(e for e, _ in errs.values()))
+        if k != "block0":
+            continue
+        for name, (change, broken, intact) in _bwd_controls().items():
+            f_qkv, f_w, f_inds, f_scale = change(qkv, w, inds, scale)
+            c_errs = _bwd_errors(
+                fused_apla_attn_bwd(f_qkv, f_w, g, f_inds, heads, f_scale,
+                                    seg), ref)
+            caught = all(c_errs[n][0] > c_errs[n][1] for n in broken)
+            specific = all(c_errs[n][0] <= c_errs[n][1] for n in intact)
+            print(f"[4 bwd] control {name}: " + ", ".join(
+                f"{n} {e:.6g}" for n, (e, _) in c_errs.items())
+                + f" -> {'caught' if caught else 'NOT CAUGHT'} in "
+                f"{list(broken)}"
+                + (f", {list(intact)} within the bound" if intact and specific
+                   else ""))
+            if not caught:
+                raise SystemExit(f"the backward bound misses a broken "
+                                 f"kernel ({name})")
+            if not specific:
+                raise SystemExit(f"control {name} broke {list(intact)} too")
+    qkv = torch.randn((64, 257, 2304), generator=gen).to(device,
+                                                         torch.bfloat16)
+    w = (torch.randn((768, 768), generator=gen) * 768 ** -0.5).to(
+        device, torch.bfloat16)
+    g = torch.randn((64, 257, 768), generator=gen).to(device, torch.bfloat16)
+    inds = torch.as_tensor(block0, dtype=torch.int64).to(device)
+    ms = _time_ms(lambda: fused_apla_attn_bwd(qkv, w, g, inds, heads, scale))
+    plain_ms = _time_ms(lambda: fused_apla_attn_bwd_reference(
+        qkv, w, g, inds, heads, scale))
+    print(f"[4 bwd] b64 N=257 C=768 k=128: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    return worst, ms, plain_ms
+
+
+def _trainables(model):
+    return {n: p for n, p in model.named_parameters() if p.requires_grad}
+
+
+def _step_grads(model, cfg, images, labels, criterion, accum):
+    """Loss and float32 gradients of one recipe step (accum micro-batches,
+    averaged) on already augmented images; no update."""
+    from apla_tpu_torch.models.classifier import classifier_forward
+    params = _trainables(model)
+    for p in params.values():
+        p.grad = None
+    mb = images.shape[0] // accum
+    loss = 0.0
+    for i in range(accum):
+        sl = slice(i * mb, (i + 1) * mb)
+        loss_i = criterion(classifier_forward(model, images[sl], cfg,
+                                              deterministic=False),
+                           labels[sl])
+        loss_i.backward()
+        loss = loss + float(loss_i.detach()) / accum
+    return loss, {n: p.grad.detach().clone() / accum
+                  for n, p in params.items()}
+
+
+def _grad_agreement(name, got, ref):
+    """(|loss delta|, worst per-tensor ||g - g_ref|| / ||g_ref||, tensor)."""
+    (loss, grads), (r_loss, r_grads) = got, ref
+    rel = {n: (torch.linalg.vector_norm(grads[n] - r_grads[n])
+               / torch.linalg.vector_norm(r_grads[n])).item()
+           for n in r_grads}
+    worst = max(rel, key=rel.get)
+    ok = abs(loss - r_loss) <= LOSS_TOL and rel[worst] <= GRAD_REL_TOL
+    print(f"[5 train] {name} vs plain arm: |dloss| {abs(loss - r_loss):.6g} "
+          f"(bound {LOSS_TOL}), worst per-tensor gradient "
+          f"||dg||/||g|| {rel[worst]:.6g} at {worst} (bound {GRAD_REL_TOL})"
+          f" -> {'within' if ok else 'outside'} the bounds")
+    return ok
+
+
+def _with_bwd_fault(fault, fn):
+    """fn() with `fault` applied to every backward kernel call's outputs."""
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    real = fa.fused_apla_attn_bwd
+
+    def faulty(*args, **kwargs):
+        return fault(*real(*args, **kwargs))
+
+    # the wrapper counts its launches on the module's fused_apla_attn_bwd,
+    # here the stand-in: control launches are not the main path's
+    faulty.launches = 0
+    fa.fused_apla_attn_bwd = faulty
+    try:
+        return fn()
+    finally:
+        fa.fused_apla_attn_bwd = real
+
+
+def _train_rate(wrapper, cfg, accum, batch):
+    """Train-step img/s and peak device memory (GB) of `cfg` at `accum`
+    on a device batch, after one warm-up step (a copy of the optimizer
+    state moves; the model's weights move too)."""
+    from apla_tpu_torch.train.optim import build_optimizer
+    from apla_tpu_torch.train.steps import make_train_step
+    from apla_tpu_torch.train.train_state import TrainState
+    opt = build_optimizer("AdamW", {"lr": 1e-9, "weight_decay": 1e-5},
+                          _trainables(wrapper.model).items(), grad_clip=1.0)
+    step = make_train_step(cfg, opt, wrapper.criterion,
+                           device_aug_cfg=wrapper.device_aug_cfg,
+                           accum_steps=accum)
+    state = TrainState(0, wrapper.model, opt)
+    gen = torch.Generator(device=batch["image"].device).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(lambda: step(state, batch, 1e-9, gen), iters=4, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return batch["image"].shape[0] * 1000.0 / ms, peak
+
+
+def phase_train(device):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        return _phase_train(device, tmp)
+
+
+def _phase_train(device, tmp):
+    from apla_tpu_torch.data.device_augs import device_augment
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.train.checkpoint import load_checkpoint
+    from apla_tpu_torch.train.trainer import Trainer
+    from apla_tpu_torch.utils.config import update_nested_values
+    from apla_tpu_torch.wrapper import DefaultWrapper
+
+    params = update_nested_values(copy.deepcopy(RECIPE),
+                                  copy.deepcopy(SMOKE_CUTS))
+    params["training_params"]["save_dir"] = tmp
+    apla = params["model_params"]["adaptation"]["params"]
+    if apla.get("inds_path"):
+        apla["inds_path"] = os.path.join(ROOT, apla["inds_path"])
+    t0 = time.perf_counter()
+    wrapper = DefaultWrapper(params)
+    wrapper.instantiate(seed=SEED)
+    trainer = Trainer(wrapper)
+    model, cfg = wrapper.model, wrapper.vit_cfg
+    depth = cfg.depth
+    accum = int(params["training_params"]["accum_steps"])
+    steps = len(wrapper.dataloaders.trainloader)
+    evals = len(wrapper.dataloaders.valloader) \
+        + len(wrapper.dataloaders.testloader)
+    print(f"[5 train] wrapper instantiated on {wrapper.device} in "
+          f"{time.perf_counter() - t0:.1f} s: {steps} steps of "
+          f"{accum} x b{64 // accum}, {evals} eval batches")
+
+    # the fused arm against the plain arm: first step's batch, one set of
+    # augmentation draws, the same weights
+    batch = next(iter(wrapper.dataloaders.trainloader))
+    batch = {k: v.to(device) for k, v in batch.items()}
+    images = device_augment(batch["image"], torch.Generator(
+        device=device).manual_seed(SEED), wrapper.device_aug_cfg,
+        compute_dtype=cfg.compute_dtype)
+    plain_cfg = dataclasses.replace(cfg, use_fused_apla=False,
+                                    use_flash=False)
+    args = (images, batch["label"], wrapper.criterion, accum)
+    ref = _step_grads(model, plain_cfg, *args)
+    fused = _step_grads(model, cfg, *args)
+    ok = _grad_agreement("fused arm", fused, ref)
+    controls = {
+        "dW_t zeroed": lambda dqkv, dwt: (dqkv, dwt * 0),
+        "dqkv halved": lambda dqkv, dwt: (dqkv * 0.5, dwt),
+    }
+    caught = all([not _grad_agreement(
+        f"control: {name}",
+        _with_bwd_fault(fault, lambda: _step_grads(model, cfg, *args)), ref)
+        for name, fault in controls.items()])
+    if not ok:
+        raise SystemExit("fused arm's gradients disagree with the plain arm")
+    if not caught:
+        raise SystemExit("a broken backward kernel passes the gradient "
+                         "bounds")
+    for p in model.parameters():
+        p.grad = None
+
+    frozen = {n: t.detach().clone() for n, t in trainer.state.frozen().items()}
+    trainable = {n: t.detach().clone()
+                 for n, t in trainer.state.trainable().items()}
+    fa.fused_apla_attn_fwd.launches = 0
+    fa.fused_apla_attn_bwd.launches = 0
+    trainer.train()
+    results = trainer.test()
+    _sync(device)
+    launches = (fa.fused_apla_attn_fwd.launches,
+                fa.fused_apla_attn_bwd.launches)
+    expect = (depth * (steps * accum + evals), depth * steps * accum)
+    print(f"[5 train] trained {trainer.iters} steps and tested in "
+          f"{time.perf_counter() - t0:.1f} s; launches forward "
+          f"{launches[0]} (expected {expect[0]} = {depth} x ({steps} x "
+          f"{accum} micro-steps + {evals} eval calls)), backward "
+          f"{launches[1]} (expected {expect[1]})")
+    if launches != expect:
+        raise SystemExit("the training path did not run both kernels in "
+                         "every block of every micro-step")
+    losses = [r["train_loss"] for _, r in trainer.history
+              if "train_loss" in r]
+    print(f"[5 train] losses {losses}; test {dict(results)}")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise SystemExit(f"missing or non-finite training losses {losses}")
+    moved = {n: not torch.equal(trainable[n], t)
+             for n, t in trainer.state.trainable().items()}
+    kept = {n: torch.equal(frozen[n], t)
+            for n, t in trainer.state.frozen().items()}
+    print(f"[5 train] {sum(moved.values())}/{len(moved)} trainable tensors "
+          f"moved, {sum(kept.values())}/{len(kept)} frozen tensors "
+          f"unchanged bit for bit")
+    if not all(moved.values()) or not all(kept.values()):
+        raise SystemExit(f"trainable not moved "
+                         f"{[n for n, m in moved.items() if not m]}, frozen "
+                         f"changed {[n for n, k in kept.items() if not k]}")
+    after = {n: t.detach().clone()
+             for n, t in trainer.state.trainable().items()}
+    manifest, _ = load_checkpoint(trainer.checkpoint_path, trainer.state)
+    reloaded = all(torch.equal(after[n], t)
+                   for n, t in trainer.state.trainable().items())
+    print(f"[5 train] checkpoint {sorted(os.listdir(trainer.checkpoint_path))}"
+          f" reloads at iter {manifest['iters']}: "
+          f"{'same weights' if reloaded else 'DIFFERENT weights'}")
+    if manifest["iters"] != trainer.iters or not reloaded:
+        raise SystemExit("the checkpoint does not reload the trained state")
+
+    # train-step throughput of both arms at the recipe's accum and at 1, in
+    # turns (plain, fused, fused, plain), best of two
+    rates = {}
+    for name, arm in (("plain", plain_cfg), ("fused", cfg),
+                      ("fused", cfg), ("plain", plain_cfg)):
+        for acc in (accum, 1):
+            rate, peak = _train_rate(wrapper, arm, acc, batch)
+            best = rates.get((name, acc), (0.0, 0.0))
+            rates[(name, acc)] = (max(best[0], rate), max(best[1], peak))
+    for (name, acc), (rate, peak) in sorted(rates.items()):
+        print(f"[5 train] train step b{batch['image'].shape[0]} accum {acc} "
+              f"{name} arm: "
+              f"{rate:.1f} img/s, peak {peak:.2f} GB")
+    return launches, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -321,19 +762,33 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     build_s = phase_build()
     max_err, ms, plain_ms = phase_kernel(device)
-    launches, fused_rate, plain_rate = phase_slice(device)
-    print(f"summary: build {build_s:.2f} s; b64 img/s fused {fused_rate:.1f} "
-          f"plain {plain_rate:.1f}")
+    serve_launches, fused_rate, plain_rate = phase_slice(device)
+    bwd_err, bwd_ms, bwd_plain_ms = phase_bwd(device)
+    (fwd_launches, bwd_launches), rates = phase_train(device)
+    print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
+          f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
+          f"forward launches); train b64 img/s " + ", ".join(
+              f"{name} accum {acc} {r:.1f}"
+              for (name, acc), (r, _) in sorted(rates.items())))
     print(_gpu_line())
     print(json.dumps({"kernels": [{
         "name": "fused_apla_attn_fwd",
         "route": "cuda",
         "source": "apla_tpu_torch/csrc/fused_apla_attn_fwd.cu",
         "replaces": "apla_tpu/ops/pallas_apla_attn.py:105",
-        "launches": launches,
+        "launches": fwd_launches,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "fused_apla_attn_bwd",
+        "route": "cuda",
+        "source": "apla_tpu_torch/csrc/fused_apla_attn_bwd.cu",
+        "replaces": "apla_tpu/ops/pallas_apla_attn.py:131",
+        "launches": bwd_launches,
+        "max_abs_err": bwd_err,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

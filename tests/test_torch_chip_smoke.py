@@ -1,24 +1,39 @@
-"""chip_smoke.py holds the shipped recipe's model and refuses to run here.
+"""chip_smoke.py holds the shipped recipe and refuses to run here.
 
-The script builds its model from a Python dict (the card's machine has no
-PyYAML); that dict must agree with the ImageNet ViT-B APLA-128 recipe's model
-fields as `load_merged_params` reads them.  Without a CUDA device the script
-must exit non-zero and print no `"ok": true` line.
+The script builds its model and its training run from a Python dict (the
+card's machine has no PyYAML); every value in that dict must be the ImageNet
+ViT-B APLA-128 recipe's as `load_merged_params` reads it.  Without a CUDA
+device the script must exit non-zero and print no `"ok": true` line.  Its
+training phase is rehearsed here on a tiny model, with the kernels' plain
+versions counted as launches.
 """
 
+import copy
 import importlib.util
 import os
 import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
 
 from apla_tpu.utils.config import load_merged_params
 from apla_tpu_torch.wrapper import build_apla_config, build_vit_config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPE_YML = "params/finetune/dinov2/ImageNet/vit_b/apla.yml"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in several worker processes at once; torch's default
+    of one thread per core in each of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _chip_smoke():
@@ -57,6 +72,88 @@ def test_recipe_dict_matches_yaml():
         (768, 12, 12, 14)
     assert (smoke.SERVE_IMG // cfg.patch_size) ** 2 + 1 == 257
     assert cfg.img_size == 518
+
+
+def _subdict_mismatches(part, whole, path=""):
+    """Paths where `part` is not a sub-dict of `whole` (lists as values)."""
+    if isinstance(part, dict):
+        if not isinstance(whole, dict):
+            return [path]
+        return [p for k, v in part.items()
+                for p in _subdict_mismatches(v, whole.get(k, _MISSING),
+                                             f"{path}.{k}")]
+    if isinstance(part, (list, tuple)):
+        return [] if list(part) == list(whole) else [path]
+    return [] if part == whole else [path]
+
+
+_MISSING = object()
+
+
+def test_recipe_dict_is_the_yaml():
+    """Every field of RECIPE, the training fields included (optimizer,
+    schedule, clip, accum, batch, loaders, device augmentation, mixup), has
+    the YAML's value; the training phase's changes are only in
+    SMOKE_CUTS."""
+    smoke = _chip_smoke()
+    yml = load_merged_params(os.path.join(ROOT, RECIPE_YML))
+    assert _subdict_mismatches(smoke.RECIPE, yml) == []
+    tp = smoke.RECIPE["training_params"]
+    assert (tp["accum_steps"], tp["grad_clipping"]) == (8, 1.0)
+    assert smoke.RECIPE["dataset_params"]["device_augment"] is True
+    assert set(smoke.SMOKE_CUTS) == {"dataset_params", "training_params"}
+    assert smoke.SMOKE_CUTS["dataset_params"]["synthetic_classes"] == 1000
+
+
+def test_training_phase_rehearsal(monkeypatch):
+    """Phase 5 on a 12-block ViT-Ti at 32 px (b16, accum 8): counts,
+    finite losses, frozen/trainable checks, the checkpoint, the fused-vs-
+    plain gradient bounds and their controls, on the CPU."""
+    smoke = _chip_smoke()
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    tiny = copy.deepcopy(smoke.RECIPE)
+    mp = tiny["model_params"]
+    mp["backbone_type"] = "vit_tiny"
+    mp["transformers_params"].update(img_size=[32], patch_size=8)
+    mp["adaptation"]["params"] = {"partial_size": 16}
+    dp = tiny["dataset_params"]
+    resize = {"apply": True, "height": 40, "width": 40}
+    dp["train_transforms"]["Resize"] = resize
+    dp["train_transforms"]["RandomResizedCrop"]["size"] = 32
+    dp["val_transforms"] = dp["test_transforms"] = {
+        "Resize": resize, "CenterCrop": {"apply": True, "height": 32,
+                                         "width": 32}, "Normalize": True}
+    for ld in tiny["dataloader_params"].values():
+        ld.update(batch_size=16, num_workers=0)
+    monkeypatch.setattr(smoke, "RECIPE", tiny)
+    monkeypatch.setattr(smoke, "SMOKE_CUTS", {
+        "dataset_params": {"dataset": "Synthetic", "synthetic_classes": 10,
+                           "synthetic_size": 64, "synthetic_img_size": 40},
+        "training_params": {"epochs": 1, "val_every": 1.0, "log_every": 1}})
+
+    def counting(fn, wrapper):
+        def counted(*args, **kwargs):
+            wrapper.launches += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    # on CPU tensors the wrappers run the plain versions, which count here
+    monkeypatch.setattr(fa, "fused_apla_attn_fwd_reference", counting(
+        fa.fused_apla_attn_fwd_reference, fa.fused_apla_attn_fwd))
+    monkeypatch.setattr(fa, "fused_apla_attn_bwd_reference", counting(
+        fa.fused_apla_attn_bwd_reference, fa.fused_apla_attn_bwd))
+    monkeypatch.setattr(smoke, "_train_rate", lambda *a: (1.0, 0.0))
+    # the script's gradient bounds are set from ViT-B's readings on the
+    # card; this model on the CPU reads |dloss| 6.6e-4 and a worst
+    # per-tensor gradient error of 0.0156, so the rehearsal holds it about
+    # 5x above those (the controls read 1.0 and 0.75 and must still fail)
+    monkeypatch.setattr(smoke, "LOSS_TOL", 3e-3)
+    monkeypatch.setattr(smoke, "GRAD_REL_TOL", 0.08)
+    launches, rates = smoke.phase_train(torch.device("cpu"))
+    assert launches == (12 * (4 * 8 + 8), 12 * 4 * 8)
+    assert set(rates) == {("plain", 8), ("plain", 1), ("fused", 8),
+                          ("fused", 1)}
+    assert np.isfinite([r for r, _ in rates.values()]).all()
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -6,8 +6,9 @@ PyTorch; there, skip tests/conftest.py (it sets up JAX):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda -q
 
 Each kernel is held against its plain PyTorch version on the same bf16
-tensors.  Bound: 2e-2 of the reference's largest magnitude (the two round
-p, o and the output to bf16 after f32 sums taken in different orders).
+tensors.  Bound: 2e-2 of the reference's largest magnitude, per output
+(the two round p, o, dO, ds and the outputs to bf16 after f32 sums taken
+in different orders).
 """
 
 import pytest
@@ -69,3 +70,94 @@ def test_fused_apla_attn_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="head dim 64"):
         tfa.fused_apla_attn_fwd(qkv, w, 6, 0.125)
     assert tfa.fused_apla_attn_fwd.launches == before
+
+
+def _bwd_errors(got, ref):
+    (dqkv, dwt), (r_dqkv, r_dwt) = got, ref
+    c = dqkv.shape[-1] // 3
+    out = {}
+    for name, a, r in (("dq", dqkv[..., :c], r_dqkv[..., :c]),
+                       ("dk", dqkv[..., c:2 * c], r_dqkv[..., c:2 * c]),
+                       ("dv", dqkv[..., 2 * c:], r_dqkv[..., 2 * c:]),
+                       ("dW_t", dwt, r_dwt)):
+        assert torch.isfinite(a).all(), name
+        out[name] = ((a.float() - r.float()).abs().max().item(),
+                     REL_TOL * r.float().abs().max().item())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,seg,c,k", [
+    (8, 257, 0, 768, 128),    # the recipe's training micro-batch
+    (64, 257, 0, 768, 128),   # a b64 step without accumulation
+    (2, 1370, 0, 768, 128),   # ViT-B/14 at 518
+    (8, 200, 50, 768, 128),   # packed segments
+    (2, 100, 64, 768, 16),    # last segment cut by N; k below one tile
+    (3, 17, 0, 768, 100),     # N below one tile; k padded to 128
+    (1, 1, 0, 768, 768),      # full-width trainable projection
+    (2, 257, 0, 192, 32),     # ViT-Ti: 3 heads
+    (4, 65, 13, 384, 64),     # ViT-S
+    (2, 300, 0, 1024, 128),   # ViT-L
+])
+def test_fused_apla_attn_bwd_matches_plain(cuda_device, b, n, seg, c, k):
+    qkv, w = _qkv_w(cuda_device, b, n, c, seed=n + seg + c + k)
+    gen = torch.Generator().manual_seed(k)
+    g = torch.randn((b, n, c), generator=gen).to(cuda_device, torch.bfloat16)
+    inds = torch.randperm(c, generator=gen)[:k].to(cuda_device)
+    heads = c // 64
+    before = tfa.fused_apla_attn_bwd.launches
+    got = tfa.fused_apla_attn_bwd(qkv, w, g, inds, heads, 0.125, seg)
+    torch.cuda.synchronize()
+    assert tfa.fused_apla_attn_bwd.launches == before + 1
+    assert got[0].shape == qkv.shape and got[0].dtype == torch.bfloat16
+    assert got[1].shape == (c, k) and got[1].dtype == torch.float32
+    ref = tfa.fused_apla_attn_bwd_reference(qkv, w, g, inds, heads, 0.125,
+                                            seg)
+    for name, (err, bound) in _bwd_errors(got, ref).items():
+        assert err <= bound, (name, err, bound)
+
+
+@pytest.mark.cuda
+def test_fused_apla_attn_bwd_is_deterministic(cuda_device):
+    """dW_t sums per-chunk partials in a fixed order: reruns are equal."""
+    qkv, w = _qkv_w(cuda_device, 8, 257, 768, seed=1)
+    g = torch.randn((8, 257, 768), device=cuda_device).to(torch.bfloat16)
+    inds = torch.arange(0, 768, 6, device=cuda_device)
+    a = tfa.fused_apla_attn_bwd(qkv, w, g, inds, 12, 0.125)
+    b = tfa.fused_apla_attn_bwd(qkv, w, g, inds, 12, 0.125)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_autograd_function_runs_both_kernels(cuda_device):
+    qkv, w = _qkv_w(cuda_device, 2, 257, 768, seed=2)
+    qkv.requires_grad_()
+    w_t = torch.randn((768, 128), device=cuda_device, requires_grad=True)
+    b_t = torch.zeros(128, device=cuda_device, requires_grad=True)
+    inds = torch.arange(128, device=cuda_device)
+    fwd, bwd = tfa.fused_apla_attn_fwd.launches, tfa.fused_apla_attn_bwd.launches
+    out = tfa.fused_apla_attention(qkv, w_t, b_t, w.float(),
+                                   torch.zeros(768, device=cuda_device),
+                                   inds, 12, 0.125)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert tfa.fused_apla_attn_fwd.launches == fwd + 1
+    assert tfa.fused_apla_attn_bwd.launches == bwd + 1
+    assert qkv.grad.dtype == torch.bfloat16 and w_t.grad.dtype == torch.float32
+    assert torch.isfinite(w_t.grad).all() and torch.isfinite(b_t.grad).all()
+
+
+@pytest.mark.cuda
+def test_fused_apla_attn_bwd_raises_instead_of_falling_back(cuda_device):
+    qkv, w = _qkv_w(cuda_device, 2, 17, 768, seed=0)
+    g = torch.zeros((2, 17, 768), device=cuda_device, dtype=torch.bfloat16)
+    inds = torch.arange(16, device=cuda_device)
+    before = tfa.fused_apla_attn_bwd.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa.fused_apla_attn_bwd(qkv.float(), w.float(), g.float(), inds, 12,
+                                0.125)
+    with pytest.raises(ValueError, match="g must be"):
+        tfa.fused_apla_attn_bwd(qkv, w, g[:, :16], inds, 12, 0.125)
+    with pytest.raises(ValueError, match="inds"):
+        tfa.fused_apla_attn_bwd(qkv, w, g, inds.cpu(), 12, 0.125)
+    assert tfa.fused_apla_attn_bwd.launches == before

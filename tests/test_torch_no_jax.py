@@ -1,8 +1,11 @@
-"""`apla_tpu_torch` imports no jax, flax or optax.
+"""`apla_tpu_torch` imports no jax, flax or optax, and none of the packages
+the card's machine lacks (PIL, sklearn, yaml, pandas).
 
 A fresh interpreter with a `sys.meta_path` blocker on those packages imports
 every module of the port, runs a tiny APLA classifier forward through the
-fused path, and round-trips it through a serving artifact.
+fused path, round-trips it through a serving artifact, and takes one
+training step (device augmentation, mixup targets, accumulation) through
+`make_train_step`.
 """
 
 import os
@@ -12,15 +15,27 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = r"""
-import importlib, pkgutil, sys, tempfile
+import importlib, importlib.abc, importlib.machinery, pkgutil, sys, tempfile
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "PIL", "sklearn", "yaml",
+           "pandas")
+
+
+# Fails every import of a blocked package, as if it were not there (a
+# find_spec probe, which torch makes for optional packages, still gets a
+# spec and goes on).
+class Absent(importlib.abc.Loader):
+    def create_module(self, spec):
+        raise ModuleNotFoundError(f"blocked import of {spec.name}")
+
+    def exec_module(self, module):
+        pass
 
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
-            raise ImportError(f"blocked import of {name}")
+            return importlib.machinery.ModuleSpec(name, Absent())
         return None
 
 
@@ -53,6 +68,26 @@ with tempfile.TemporaryDirectory() as tmp:
     export_classifier(tmp, model, cfg, batch_sizes=(1, 2))
     served = load_predictor(tmp, "cpu").predict(x)
 assert np.array_equal(served, logits.float().numpy())
+
+from apla_tpu_torch.data.device_augs import DeviceAugConfig
+from apla_tpu_torch.train.losses import cross_entropy
+from apla_tpu_torch.train.optim import build_optimizer
+from apla_tpu_torch.train.steps import make_train_step
+from apla_tpu_torch.train.train_state import TrainState
+
+opt = build_optimizer("AdamW", {"lr": 1e-3, "weight_decay": 1e-5},
+                      [(n, p) for n, p in model.named_parameters()
+                       if p.requires_grad], grad_clip=1.0)
+step = make_train_step(cfg, opt, cross_entropy,
+                       device_aug_cfg=DeviceAugConfig(out_size=32),
+                       accum_steps=2)
+before = model.fc.kernel.detach().clone()
+batch = {"image": torch.randint(0, 256, (4, 40, 40, 3), dtype=torch.uint8),
+         "label": torch.softmax(torch.randn(4, 10), -1)}
+state, m = step(TrainState(0, model, opt), batch, 1e-3,
+                torch.Generator().manual_seed(0))
+assert state.step == 1 and torch.isfinite(m["loss"])
+assert not torch.equal(model.fc.kernel, before)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("MODULES", len(names))
@@ -60,9 +95,9 @@ print("MODULES", len(names))
 
 
 def test_port_imports_and_runs_without_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split("MODULES")[-1])
-    assert n_modules >= 14, proc.stdout
+    assert n_modules >= 32, proc.stdout

@@ -1,0 +1,196 @@
+"""The port's DefaultWrapper + Trainer end to end on the CPU.
+
+The hermetic synthetic recipe (`params/synthetic/vit_tiny/apla.yml`, merged
+by the JAX package's config loader) trains a tiny APLA ViT for two epochs:
+the loss falls, frozen weights stay bit for bit, every trainable tensor
+moves, the checkpoint reloads, the test table prints.  Then: a run stopped
+by SIGTERM mid-epoch leaves a checkpoint, and resuming from it finishes
+with exactly the weights of an uninterrupted run (the shuffle and the
+per-step draws are deterministic, so the skipped batches replay); the
+`python -m apla_tpu_torch.main` entry; and every knob the port does not
+have yet raises naming its ROADMAP item.
+"""
+
+import copy
+import os
+import signal
+
+import numpy as np
+import pytest
+import torch
+
+from apla_tpu.utils.config import load_merged_params
+from apla_tpu_torch import main as tmain
+from apla_tpu_torch.train.checkpoint import load_checkpoint
+from apla_tpu_torch.train.trainer import Trainer
+from apla_tpu_torch.wrapper import DefaultWrapper
+
+PARAMS = os.path.join(os.path.dirname(__file__), "..", "params", "synthetic",
+                      "vit_tiny", "apla.yml")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in several worker processes at once; torch's default
+    of one thread per core in each of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _params(save_dir, epochs=2, size=256, **training):
+    params = load_merged_params(PARAMS)
+    params.training_params.update(epochs=epochs, log_every=1,
+                                  save_dir=str(save_dir), **training)
+    params.dataset_params.synthetic_size = size
+    for ld in params.dataloader_params.values():
+        ld.num_workers = 0
+    return params
+
+
+def _snapshot(tensors):
+    return {n: t.detach().clone() for n, t in tensors.items()}
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    wrapper = DefaultWrapper(_params(tmp_path_factory.mktemp("ckpt")))
+    wrapper.instantiate()
+    trainer = Trainer(wrapper)
+    frozen = _snapshot(trainer.state.frozen())
+    trainable = _snapshot(trainer.state.trainable())
+    trainer.train()
+    return trainer, frozen, trainable
+
+
+def test_loss_falls_over_two_epochs(trained):
+    trainer, _, _ = trained
+    losses = [r["train_loss"] for _, r in trainer.history
+              if "train_loss" in r]
+    assert len(losses) == 8 and np.isfinite(losses).all()
+    assert np.mean(losses[4:]) < np.mean(losses[:4]), losses
+
+
+def test_frozen_unchanged_and_trainables_moved(trained):
+    trainer, frozen, trainable = trained
+    for name, t in trainer.state.frozen().items():
+        assert torch.equal(t, frozen[name]), name
+    for name, t in trainer.state.trainable().items():
+        assert not torch.equal(t, trainable[name]), name
+    assert all(not p.requires_grad for p in trainer.state.frozen().values())
+
+
+def test_checkpoint_reloads(trained, tmp_path):
+    trainer, _, _ = trained
+    path = trainer.checkpoint_path
+    assert sorted(os.listdir(path)) == ["frozen.pt", "manifest.json",
+                                        "parameters.pkl", "state.pt"]
+    wrapper = DefaultWrapper(_params(tmp_path))
+    wrapper.instantiate(seed=1)          # other weights, replaced on load
+    manifest, best = load_checkpoint(path, wrapper.state)
+    assert manifest["iters"] == trainer.iters == wrapper.state.step
+    assert set(manifest) >= {"iters", "epoch", "best_val_target",
+                             "scheduler"}
+    assert best is not None
+    for name, t in trainer.state.trainable().items():
+        assert torch.equal(wrapper.state.trainable()[name], t), name
+    for name, t in trainer.state.frozen().items():
+        assert torch.equal(wrapper.state.frozen()[name], t), name
+
+
+def test_test_table(trained, capsys):
+    trainer, _, _ = trained
+    results = trainer.test()
+    out = capsys.readouterr().out
+    assert "TEST RESULTS" in out and "test_accuracy" in out
+    assert results["test_accuracy"] > 0.3          # chance is 0.1
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trainer.knn_evaluate(trainer.wrapper.dataloaders.testloader)
+
+
+def _run(save_dir, stop_at=None, restore=False):
+    """One epoch of 4 steps; SIGTERM delivered during step `stop_at`."""
+    wrapper = DefaultWrapper(_params(save_dir, epochs=1,
+                                     restore_session=restore))
+    wrapper.instantiate()
+    trainer = Trainer(wrapper)
+    step, calls = trainer.train_step, []
+
+    def counting(*args):
+        calls.append(1)
+        if len(calls) == stop_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return step(*args)
+
+    trainer.train_step = counting
+    trainer.train()
+    return trainer, len(calls)
+
+
+def test_sigterm_checkpoint_and_mid_epoch_resume(tmp_path):
+    handler = signal.getsignal(signal.SIGTERM)
+    full, _ = _run(tmp_path / "full")
+    stopped, n = _run(tmp_path / "split", stop_at=2)
+    assert n == 2 and stopped._preempted
+    manifest = load_checkpoint(stopped.checkpoint_path, stopped.state)[0]
+    assert manifest["iters"] == 2
+    # train() put the previous handler back
+    assert signal.getsignal(signal.SIGTERM) == handler
+    resumed, n = _run(tmp_path / "split", restore=True)
+    assert n == 2 and resumed.iters == full.iters == 4
+    for name, t in full.state.trainable().items():
+        assert torch.equal(resumed.state.trainable()[name], t), name
+
+
+def test_cli_tests_a_checkpoint(trained, capsys):
+    trainer, _, _ = trained
+    results = tmain.run_cli(["--params_path", PARAMS, "--test",
+                             "--pretrained_path", trainer.checkpoint_path,
+                             "--num_workers", "0"])
+    assert "TEST RESULTS" in capsys.readouterr().out
+    # the YAML's own test set (512 images): the trained weights, not chance
+    assert results["test_accuracy"] > 0.3
+
+
+@pytest.mark.parametrize("where,key,value", [
+    ("system_params", "tensor_parallel", 2),
+    ("system_params", "pipeline_parallel", 2),
+    ("system_params", "sequence_parallel", True),
+    ("system_params", "n_devices", 4),
+    ("system_params", "param_sharding", "fsdp"),
+    ("model_params", "pretrained", True),
+    ("model_params", "quantize_frozen", True),
+    ("training_params", "knn_eval", True),
+    ("transfer_learning_params", "pretrained_path", "/some/ckpt"),
+    ("dataset_params", "dataset", "ImageNet"),
+    ("optimization_params", "LAMB", None),
+])
+def test_unported_knobs_raise(tmp_path, where, key, value):
+    params = _params(tmp_path)
+    if where == "optimization_params":
+        params.optimization_params.default.optimizer.type = "LAMB"
+    else:
+        params[where][key] = value
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        DefaultWrapper(params).instantiate()
+
+
+@pytest.mark.parametrize("flag", ["--byol", "--simsiam", "--dino",
+                                  "--dinov2"])
+def test_cli_ssl_flags_raise(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmain.main(copy.deepcopy(load_merged_params(PARAMS)),
+                   tmain.parse_arguments(["--params_path", PARAMS, flag]))
+
+
+def test_profile_dir_traces_steps_10_to_20(tmp_path, capsys):
+    params = _params(tmp_path / "ckpt", epochs=1, size=168,
+                     profile_dir=str(tmp_path / "prof"))
+    for ld in params.dataloader_params.values():
+        ld.batch_size = 8               # 21 steps
+    wrapper = DefaultWrapper(params)
+    wrapper.instantiate()
+    Trainer(wrapper).train()
+    assert (tmp_path / "prof" / "train_trace.json").stat().st_size > 0
+    assert "profiler trace of steps 10..20" in capsys.readouterr().out
