@@ -1,18 +1,21 @@
 """Device-side batched augmentation (the supervised `device_augment` tail).
 
-Counterpart of `apla_tpu/data/device_augs.py:29-101,149-188`: the host ships
-resized images (uint8, or float 0..255 after the mixup collate) and the
-train step runs, on the device and vectorised over the batch: random
-resized crop, horizontal flip, brightness/contrast/saturation jitter with
-the YIQ hue rotation, grayscale, normalize.
+Counterpart of `apla_tpu/data/device_augs.py`: the host ships resized
+images (uint8, or float 0..255 after the mixup collate) and the train step
+runs, on the device and vectorised over the batch: random resized crop,
+horizontal flip, brightness/contrast/saturation jitter with the YIQ hue
+rotation, grayscale, and for the SSL crops a per-image-sigma Gaussian blur
+and solarize, then normalize.  `device_multicrop` builds every crop of an
+SSL multi-crop strategy from one raw batch, crop-major.
 
 The crop is `jax.image.scale_and_translate(..., "bilinear")` with its
 default antialiasing, written out as separable per-image resampling weights
 (`scale_translate_weights`): `F.interpolate` and `grid_sample` do not
 antialias a downscale.  Random draws come from a `torch.Generator`
 (`sample_aug_params`) and are applied by `apply_device_augment`, so a test
-can feed both packages the same draws.  Blur, solarize and multi-crop are
-SSL-only and come with the SSL slice.
+can feed both packages the same draws.  The blur is the JAX package's
+9-tap separable kernel with "SAME" zero padding, as two grouped `conv2d`
+calls (one group per image channel).
 """
 
 from __future__ import annotations
@@ -36,6 +39,11 @@ class DeviceAugConfig:
     saturation: float = 0.1
     hue: float = 0.0                     # YIQ chroma rotation, in turns
     grayscale_p: float = 0.0
+    # SSL extras (reference multi-crop recipes): gaussian blur + solarize
+    blur_p: float = 0.0
+    blur_radius: tuple = (0.1, 2.0)
+    solarize_p: float = 0.0
+    solarize_threshold: float = 128.0    # on the 0..255 scale
     mean: Sequence[float] = (0.485, 0.456, 0.406)
     std: Sequence[float] = (0.229, 0.224, 0.225)
 
@@ -44,11 +52,12 @@ def sample_aug_params(batch: int, cfg: DeviceAugConfig,
                       generator: torch.Generator, device) -> dict:
     """Per-image random draws, each [batch]: crop area fraction, log aspect
     ratio and position (uniforms in [0, 1)), flip, jitter apply and
-    factors, hue angle (radians), grayscale."""
+    factors, hue angle (radians), grayscale; blur sigma and apply, and
+    solarize apply, where the config has them."""
     def u(lo=0.0, hi=1.0):
         return lo + (hi - lo) * torch.rand(batch, generator=generator,
                                            device=device)
-    return {
+    p = {
         "area": u(*cfg.crop_scale),
         "log_ratio": u(math.log(cfg.crop_ratio[0]),
                        math.log(cfg.crop_ratio[1])),
@@ -61,6 +70,12 @@ def sample_aug_params(batch: int, cfg: DeviceAugConfig,
         "theta": 2.0 * math.pi * u(-cfg.hue, cfg.hue),
         "gray": u() < cfg.grayscale_p,
     }
+    if cfg.blur_p > 0:
+        p["blur_sigma"] = u(*cfg.blur_radius)
+        p["blur"] = u() < cfg.blur_p
+    if cfg.solarize_p > 0:
+        p["solarize"] = u() < cfg.solarize_p
+    return p
 
 
 def scale_translate_weights(n_in: int, n_out: int, scale, translation):
@@ -110,6 +125,27 @@ def _jitter(imgs, p: dict, cfg: DeviceAugConfig):
     return torch.where(col(p["jitter"]), y, imgs)
 
 
+BLUR_TAPS = 9  # static kernel width; covers sigma up to ~2 (radius_max)
+
+
+def gaussian_blur(imgs, sigma):
+    """Separable Gaussian blur of [B, H, W, C] with one sigma per image
+    ([B]), 9 taps, "SAME" zero padding: H then W, as the JAX package's
+    depthwise `conv_general_dilated` pair."""
+    B, H, W, C = imgs.shape
+    x = torch.arange(BLUR_TAPS, dtype=torch.float32, device=imgs.device) \
+        - (BLUR_TAPS - 1) / 2
+    w = torch.exp(-0.5 * (x[None, :] / sigma.float()[:, None]) ** 2)
+    w = (w / w.sum(dim=1, keepdim=True)).repeat_interleave(C, dim=0)
+    y = imgs.permute(0, 3, 1, 2).reshape(1, B * C, H, W)
+    pad = (BLUR_TAPS - 1) // 2
+    y = torch.nn.functional.conv2d(y, w.reshape(B * C, 1, BLUR_TAPS, 1),
+                                   padding=(pad, 0), groups=B * C)
+    y = torch.nn.functional.conv2d(y, w.reshape(B * C, 1, 1, BLUR_TAPS),
+                                   padding=(0, pad), groups=B * C)
+    return y.reshape(B, C, H, W).permute(0, 2, 3, 1)
+
+
 def apply_device_augment(images, p: dict, cfg: DeviceAugConfig,
                          compute_dtype=torch.bfloat16):
     """images [B, H, W, C] (0..255) and the draws `p` of `sample_aug_params`
@@ -132,6 +168,13 @@ def apply_device_augment(images, p: dict, cfg: DeviceAugConfig,
     if cfg.grayscale_p > 0:
         gray = imgs.mean(dim=-1, keepdim=True).expand_as(imgs)
         imgs = torch.where(p["gray"][:, None, None, None], gray, imgs)
+    if cfg.blur_p > 0:
+        imgs = torch.where(p["blur"][:, None, None, None],
+                           gaussian_blur(imgs, p["blur_sigma"]), imgs)
+    if cfg.solarize_p > 0:
+        t = cfg.solarize_threshold / 255.0
+        sol = torch.where(imgs >= t, 1.0 - imgs, imgs)
+        imgs = torch.where(p["solarize"][:, None, None, None], sol, imgs)
     mean = torch.tensor(cfg.mean, dtype=torch.float32, device=imgs.device)
     std = torch.tensor(cfg.std, dtype=torch.float32, device=imgs.device)
     return ((imgs - mean) / std).to(compute_dtype)
@@ -143,3 +186,64 @@ def device_augment(images, generator: torch.Generator, cfg: DeviceAugConfig,
     in compute_dtype, with fresh draws from `generator`."""
     p = sample_aug_params(images.shape[0], cfg, generator, images.device)
     return apply_device_augment(images, p, cfg, compute_dtype)
+
+
+# --------------------------------------------------------------------------- #
+# SSL multi-crop on the device: one raw image per sample, every crop of the
+# strategy (n_global global + the local ones) built inside the train step
+# --------------------------------------------------------------------------- #
+
+def crop_cfgs_from_strategy(strategy_spec: dict, mean, std,
+                            g_size=None, l_size=None):
+    """One DeviceAugConfig per crop of a multi-crop strategy spec
+    (`ssl/multicrop.py`), with the host pipeline's transform parameters."""
+    cfgs = []
+    for kind, crop in strategy_spec["crops"]:
+        rrc = crop.get("RandomResizedCrop", {})
+        cj = crop.get("ColorJitter", {})
+        blur = crop.get("RandomGaussianBlur", {})
+        sol = crop.get("RandomSolarize", {})
+        size = int(rrc.get("size", 224))
+        if kind == "global" and g_size:
+            size = int(g_size)
+        if kind == "local" and l_size:
+            size = int(l_size)
+        cfgs.append(DeviceAugConfig(
+            out_size=size,
+            crop_scale=tuple(rrc.get("scale", (0.4, 1.0))),
+            hflip_p=float(crop.get("HorizontalFlip", {}).get("p", 0.5)),
+            jitter_p=float(cj.get("p", 0.8)) if cj.get("apply") else 0.0,
+            brightness=float(cj.get("brightness", 0.4)),
+            contrast=float(cj.get("contrast", 0.4)),
+            saturation=float(cj.get("saturation", 0.2)),
+            hue=float(cj.get("hue", 0.0)),
+            grayscale_p=float(crop.get("RandomGrayscale", {}).get("p", 0.0)),
+            blur_p=float(blur.get("p", 0.0)) if blur.get("apply",
+                                                         True) else 0.0,
+            blur_radius=(float(blur.get("radius_min", 0.1)),
+                         float(blur.get("radius_max", 2.0))),
+            solarize_p=float(sol.get("p", 0.0)) if sol else 0.0,
+            solarize_threshold=float(sol.get("threshold", 128)),
+            mean=tuple(mean), std=tuple(std)))
+    return cfgs
+
+
+def apply_device_multicrop(images, draws, crop_cfgs, n_global: int,
+                           compute_dtype=torch.bfloat16):
+    """images [B, H, W, C] and one `sample_aug_params` dict per crop ->
+    (global crops [n_global*B, g, g, C], local crops [n_local*B, l, l, C]
+    or None), crop-major as the iBOT collate stacks them."""
+    outs = [apply_device_augment(images, p, cfg, compute_dtype)
+            for p, cfg in zip(draws, crop_cfgs)]
+    glob = torch.cat(outs[:n_global], dim=0)
+    loc = torch.cat(outs[n_global:], dim=0) if len(outs) > n_global else None
+    return glob, loc
+
+
+def device_multicrop(images, generator: torch.Generator, crop_cfgs,
+                     n_global: int, compute_dtype=torch.bfloat16):
+    """`apply_device_multicrop` with fresh draws from `generator`."""
+    draws = [sample_aug_params(images.shape[0], cfg, generator, images.device)
+             for cfg in crop_cfgs]
+    return apply_device_multicrop(images, draws, crop_cfgs, n_global,
+                                  compute_dtype)

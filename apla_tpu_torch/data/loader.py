@@ -7,7 +7,8 @@ so a record's augmentation does not depend on the worker count.  Worker
 processes (`num_workers`, capped at the host's cores, started with `spawn`:
 the trainer's process has threads, and a fork of it may deadlock) each load
 and collate whole batches; a collate gets a generator keyed by (seed,
-epoch, batch index).  The workers start at the first pass and serve every
+epoch, batch index) and `batch_key=(epoch, batch index)` (the iBOT mask
+collate seeds its masks from the key; the others ignore it).  The workers start at the first pass and serve every
 later one (the epoch travels in the batch keys), so each is spawned once.
 Batches come out as dicts of CPU tensors: 'image' NHWC (uint8 when the
 dataset is in raw mode, else float32) and 'label' (int64, or float32 soft
@@ -23,10 +24,10 @@ import numpy as np
 import torch
 
 
-def default_collate(samples, rng=None):
+def default_collate(samples, rng=None, batch_key=None):
     """Stack {'image', 'label'} records into numpy batch arrays (uint8
     images pass through untouched)."""
-    del rng
+    del rng, batch_key
     images = np.stack([s["image"] for s in samples])
     if images.dtype != np.uint8:
         images = images.astype(np.float32)
@@ -52,9 +53,10 @@ class _Batches(torch.utils.data.Dataset):
             int(i), rng=np.random.default_rng((self.seed, epoch, int(i))))
             for i in idxs]
         batch = self.collate_fn(
-            samples, rng=np.random.default_rng((self.seed, epoch, bi, 1)))
+            samples, rng=np.random.default_rng((self.seed, epoch, bi, 1)),
+            batch_key=(epoch, bi))
         return {k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in batch.items()}
+                for k, v in batch.items() if v is not None}
 
 
 class _BatchKeys:

@@ -41,7 +41,9 @@ class AdvancedAugCollate:
         self.num_classes = int(p.get("num_classes", 1000))
         self.rng = np.random.default_rng(p.get("seed", 0))
 
-    def __call__(self, samples, rng: np.random.Generator | None = None):
+    def __call__(self, samples, rng: np.random.Generator | None = None,
+                 batch_key=None):
+        del batch_key
         rng = self.rng if rng is None else rng
         images = np.stack([s["image"] for s in samples]).astype(np.float32)
         labels = np.asarray([s["label"] for s in samples], dtype=np.int64)

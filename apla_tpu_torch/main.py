@@ -1,16 +1,18 @@
-"""Command line: train and test a supervised recipe with the port.
+"""Command line: train and test a recipe with the port.
 
   python -m apla_tpu_torch.main --params_path params/.../apla.yml [--test]
-         [--epochs N] [--batch_size N] [--lr X] ...
+         [--knn] [--dinov2] [--device cpu] [--epochs N] [--batch_size N] ...
 
 Mirrors the JAX package's `main.py:144-170`, with copies of its
 `parse_arguments` and `update_params_from_args` (that file lives outside
-both packages).  Flags for paths the port does not have yet raise
-`NotImplementedError` naming their ROADMAP item: SSL (`--byol`,
-`--simsiam`, `--dino`, `--dinov2`), `--knn`, and the mesh flags
-(`--n_devices`/`--gpu` above one device, `--param_sharding` other than
-replicated, `--tensor_parallel`, `--pipeline_parallel`,
-`--sequence_parallel`, through `DefaultWrapper`).
+both packages).  The run is on the CUDA card; `--device cpu` (or
+`system_params.device`) is the only way to the CPU.  `--dinov2` trains the
+DINOv2 objective (`ssl/dinov2.py`); `--test` then runs its kNN test table
+on a checkpoint.  Flags for paths the port does not have yet raise
+`NotImplementedError` naming their ROADMAP item: `--byol`, `--simsiam`,
+`--dino`, and the mesh flags (`--n_devices`/`--gpu` above one device,
+`--param_sharding` other than replicated, `--tensor_parallel`,
+`--pipeline_parallel`, `--sequence_parallel`, through `DefaultWrapper`).
 """
 
 from __future__ import annotations
@@ -59,6 +61,8 @@ def parse_arguments(argv=None):
     p.add_argument("--simsiam", action="store_true", default=False)
     p.add_argument("--dino", action="store_true", default=False)
     p.add_argument("--dinov2", action="store_true", default=False)
+    p.add_argument("--device", type=str,
+                   help="torch device (default cuda; 'cpu' to run there)")
     return p.parse_args(argv)
 
 
@@ -93,6 +97,8 @@ def update_params_from_args(params, args):
     if args.adr is not None:
         tp.attn_drop_rate = args.adr
     sp = params.system_params
+    if args.device:
+        sp.device = args.device
     if args.n_devices:
         sp.n_devices = args.n_devices
     elif args.gpu:
@@ -136,14 +142,17 @@ def update_params_from_args(params, args):
 
 
 def main(parameters, args):
+    if args.byol and args.simsiam:
+        raise ValueError("BYOL or SimSiam can be on but not both")
     if args.byol or args.simsiam or args.dino or args.dinov2:
-        raise NotImplementedError(
-            "SSL wrappers are not ported yet (ROADMAP queue A: SSL slice)")
-    from .train.trainer import Trainer
-    from .wrapper import DefaultWrapper
-    wrapper = DefaultWrapper(parameters)
+        from .ssl import get_ssl_wrapper_and_trainer
+        wrapper_cls, trainer_cls = get_ssl_wrapper_and_trainer(args)
+    else:
+        from .train.trainer import Trainer as trainer_cls
+        from .wrapper import DefaultWrapper as wrapper_cls
+    wrapper = wrapper_cls(parameters)
     wrapper.instantiate()
-    trainer = Trainer(wrapper)
+    trainer = trainer_cls(wrapper)
     if args.test:
         if not args.pretrained_path:
             raise ValueError("--test needs --pretrained_path")
@@ -152,7 +161,9 @@ def main(parameters, args):
     if trainer._preempted:
         print("Preempted: checkpoint saved, skipping test.")
         return None
-    return trainer.test()
+    # as in the JAX package, an SSL run trains and checkpoints; its kNN
+    # test table comes from --test on the checkpoint
+    return trainer.test() if wrapper.is_supervised else None
 
 
 def run_cli(argv=None):

@@ -11,8 +11,11 @@ does; LayerNorm statistics are taken in float32.
 With `deterministic=False` and a `torch.Generator` the forward applies the
 JAX package's token, attention, projection and MLP dropout (`drop_rate`,
 `attn_drop_rate`) and drop-path at the per-block rates
-`linspace(0, drop_path_rate, depth)`.  Not ported yet: `pack_segments`,
-`pipeline`, `token_sharding`, remat, `vit_intermediate_layers`.
+`linspace(0, drop_path_rate, depth)`.  `masks` puts the iBOT mask token
+(`mask_token`, a frozen parameter that only the DINOv2 model sets) in place
+of masked patch embeddings; `pack_segments` runs the crops of each image as
+one block-diagonal sequence.  Not ported yet: `pipeline`, `token_sharding`,
+remat, `vit_intermediate_layers`.
 """
 
 from __future__ import annotations
@@ -191,6 +194,7 @@ class ViT(nn.Module):
         self.pos_embed = _param(1, num_pos_tokens or cfg.num_patches + 1, d)
         self.register_tokens = _param(1, cfg.num_register_tokens, d) \
             if cfg.num_register_tokens else None
+        self.register_parameter("mask_token", None)   # iBOT, [1, 1, d]
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
         self.norm = Norm(d)
 
@@ -339,9 +343,10 @@ def interpolate_pos_embed(pos_embed, npatch: int, num_prefix: int = 1):
 
 
 def _prepare_tokens(vit: ViT, x, cfg: ViTConfig, generator=None,
-                    deterministic: bool = True):
-    """Patchify (NHWC in), prepend cls (+ register) tokens, add the
-    (interpolated) pos embed, token dropout."""
+                    deterministic: bool = True, masks=None):
+    """Patchify (NHWC in), put the mask token at `masks` ([B, npatch]
+    bool), prepend cls (+ register) tokens, add the (interpolated) pos
+    embed, token dropout."""
     dt = cfg.compute_dtype
     B = x.shape[0]
     x = x.to(dt).permute(0, 3, 1, 2)                          # NCHW
@@ -351,6 +356,11 @@ def _prepare_tokens(vit: ViT, x, cfg: ViTConfig, generator=None,
     _, H, W, D = x.shape
     npatch = H * W
     x = x.reshape(B, npatch, D)
+    if masks is not None:
+        token = vit.mask_token if vit.mask_token is not None \
+            else torch.zeros((1, 1, D))
+        x = torch.where(masks[..., None], token.to(device=x.device, dtype=dt),
+                        x)
     cls = vit.cls_token.to(dt).expand(B, 1, D)
     x = torch.cat([cls, x], dim=1)
     pos = interpolate_pos_embed(vit.pos_embed, npatch, num_prefix=1)
@@ -362,14 +372,31 @@ def _prepare_tokens(vit: ViT, x, cfg: ViTConfig, generator=None,
 
 
 def vit_features(vit: ViT, x, cfg: ViTConfig, return_all_tokens=False,
-                 deterministic: bool = True, generator=None):
+                 deterministic: bool = True, generator=None, masks=None,
+                 pack_segments: int = 0):
     """Run the ViT trunk on NHWC images [B, H, W, C].  Returns the
     final-norm cls token [B, d], or all tokens [B, N, d].
 
     `deterministic=False` with a `torch.Generator` (on the images' device)
-    draws dropout and drop-path masks from it."""
-    x = _prepare_tokens(vit, x, cfg, generator, deterministic)
+    draws dropout and drop-path masks from it.  `masks` [B, npatch] bool:
+    the iBOT mask token replaces those patch embeddings.  `pack_segments`
+    = s > 1: `x` holds s crops stacked crop-major ([s*B, h, w, C]); after
+    token prep the s crops of each image run as one [B, s*T] sequence with
+    block-diagonal attention, and come back as [s*B, ...]."""
+    x = _prepare_tokens(vit, x, cfg, generator, deterministic, masks)
+    if pack_segments > 1:
+        sB, T, D = x.shape
+        if sB % pack_segments:
+            raise ValueError(f"{sB} crops do not split into {pack_segments} "
+                             "segments per image")
+        x = x.reshape(pack_segments, sB // pack_segments, T, D) \
+            .transpose(0, 1).reshape(sB // pack_segments, pack_segments * T, D)
+        cfg = dataclasses.replace(cfg, attn_segment_len=T)
     for blk, dp_rate in zip(vit.blocks, drop_path_rates(cfg)):
         x = _block_forward(x, blk, cfg, dp_rate, generator, deterministic)
     x = layer_norm(x, vit.norm.scale, vit.norm.bias, cfg.norm_eps)
+    if pack_segments > 1:
+        Bb, _, D = x.shape
+        x = x.reshape(Bb, pack_segments, -1, D).transpose(0, 1) \
+            .reshape(Bb * pack_segments, -1, D)
     return x if return_all_tokens else x[:, 0]

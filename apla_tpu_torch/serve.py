@@ -238,7 +238,7 @@ def main(argv=None):
                          "normalized), or image files (decoded, resized, "
                          "normalized with --mean/--std)")
     pr.add_argument("--device", default=None,
-                    help="torch device (default: cuda if available, else cpu)")
+                    help="torch device (default cuda; 'cpu' to run there)")
     pr.add_argument("--top_k", type=int, default=5)
     pr.add_argument("--embed", action="store_true",
                     help="print/save embeddings instead of logits")
@@ -254,9 +254,8 @@ def main(argv=None):
         return
 
     if args.cmd == "predict":
-        device = args.device or ("cuda" if torch.cuda.is_available()
-                                 else "cpu")
-        pred = load_predictor(args.artifact, device)
+        from .wrapper import resolve_device
+        pred = load_predictor(args.artifact, resolve_device(args.device))
         x = _load_inputs(args.inputs, pred.meta["img_size"], args.mean,
                          args.std)
         out = pred.embed(x) if args.embed else pred.predict(x)

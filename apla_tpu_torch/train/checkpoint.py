@@ -2,8 +2,9 @@
 
 Counterpart of `apla_tpu/train/checkpoint.py`: a directory holding
 
-- `state.pt`: the trainable parameters, the optimizer state and, when
-  there is one, the best-model trainable snapshot (`torch.save`);
+- `state.pt`: the trainable parameters, the optimizer state, when there is
+  one the best-model trainable snapshot, and for an SSL run its auxiliary
+  state (the EMA teacher and the centers; `torch.save`);
 - `frozen.pt`: the frozen parameters and buffers, written once per
   directory (they never change), so a checkpoint's per-save size scales
   with the APLA rank;
@@ -33,12 +34,18 @@ def save_checkpoint(path: str, *, state: TrainState, epoch: int = 0,
                     parameters: dict | None = None,
                     best_val_target: float | None = None,
                     best_trainable: dict | None = None,
+                    aux_state: dict | None = None,
                     extra: dict | None = None) -> None:
+    """`state`: anything with `step`, `optimizer`, `trainable()` and
+    `frozen()` (a `TrainState` or the SSL states).  `aux_state`: name ->
+    tensor saved beside the trainable tensors (`load_aux_state`)."""
     os.makedirs(path, exist_ok=True)
     payload = {"trainable": _cpu(state.trainable()),
                "optimizer": state.optimizer.state_dict()}
     if best_trainable is not None:
         payload["best_trainable"] = best_trainable
+    if aux_state is not None:
+        payload["aux"] = _cpu(aux_state)
     torch.save(payload, os.path.join(path, "state.pt"))
     frozen_path = os.path.join(path, "frozen.pt")
     if not os.path.exists(frozen_path):
@@ -52,6 +59,14 @@ def save_checkpoint(path: str, *, state: TrainState, epoch: int = 0,
     if parameters is not None:
         with open(os.path.join(path, "parameters.pkl"), "wb") as f:
             pickle.dump(dict(parameters), f)
+
+
+def load_aux_state(path: str) -> dict | None:
+    """The `aux_state` a checkpoint was saved with (CPU tensors), or
+    None."""
+    payload = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
+                         weights_only=False)
+    return payload.get("aux")
 
 
 def load_checkpoint(path: str, state: TrainState, weights_only: bool = False):

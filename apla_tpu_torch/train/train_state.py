@@ -8,6 +8,7 @@ train step updates model and optimizer in place.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -32,3 +33,25 @@ class TrainState:
                if not p.requires_grad}
         out.update(self.model.named_buffers())
         return out
+
+
+@contextlib.contextmanager
+def weights_swapped(params: dict, values: dict | None):
+    """Parameters `params` (name -> parameter) hold `values` (name ->
+    tensor of the same shape) inside the block, and their own data again
+    after it; `values` None changes nothing.  The data are swapped, not
+    copied (an SSL teacher runs on the student's modules this way); use it
+    under `torch.no_grad()`."""
+    if values is None:
+        yield
+        return
+    saved = {}
+    try:
+        for name, v in values.items():
+            p = params[name]
+            saved[name] = p.data
+            p.data = v.to(device=p.device, dtype=p.dtype)
+        yield
+    finally:
+        for name, d in saved.items():
+            params[name].data = d

@@ -6,10 +6,10 @@ tracking by the dataset's `target_metric`, the plateau schedule fed once per
 epoch, checkpoint save and resume (a resume inside an epoch skips the
 batches already trained: the shuffle is deterministic in (seed, epoch)),
 a checkpoint on SIGTERM/SIGINT at the next step boundary, and the test
-table.  `training_params.profile_dir` traces steps 10..20 with
-`torch.profiler` (a chrome trace plus the by-kernel table).  Logged records
-are kept in `history` and printed; JSONL/wandb logging is ROADMAP queue A
-(logging).  kNN eval is ROADMAP queue A (kNN eval).
+table, with the kNN rows when `training_params.knn_eval` is set (`--knn`).
+`training_params.profile_dir` traces steps 10..20 with `torch.profiler` (a
+chrome trace plus the by-kernel table).  Logged records are kept in
+`history` and printed; JSONL/wandb logging is ROADMAP queue A (logging).
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from .checkpoint import load_checkpoint, save_checkpoint
-from .steps import make_eval_step, make_train_step
+from .knn import knn_evaluate
+from .steps import make_embed_step, make_eval_step, make_train_step
 
 
 class Trainer:
@@ -42,6 +43,8 @@ class Trainer:
         self.is_debug = bool(tp.get("is_debug", False))
         self.is_dry = bool(tp.get("is_dry", False))
         self.seed = int(tp.get("seed", 0))
+        self.knn_eval = bool(tp.get("knn_eval", False))
+        self.knn_nhood = int(wrapper.model_params.get("knn_nhood", 200))
 
         self.device = wrapper.device
         self.vit_cfg = wrapper.vit_cfg
@@ -57,6 +60,7 @@ class Trainer:
             accum_steps=int(tp.get("accum_steps", 1)),
             skip_nonfinite=bool(tp.get("skip_nonfinite_updates", False)))
         self.eval_step = make_eval_step(self.vit_cfg, self.criterion)
+        self.embed_step = make_embed_step(self.vit_cfg)
 
         self.iters = 0
         self.epoch0 = 0
@@ -283,6 +287,9 @@ class Trainer:
             trainable = best
         results = self.evaluate(self.wrapper.dataloaders.testloader,
                                 prefix="test", trainable=trainable)
+        if self.knn_eval and self.wrapper.dataloaders.fbank_loader is not None:
+            results.update(self.knn_evaluate(
+                self.wrapper.dataloaders.testloader, trainable, prefix="test"))
         print("TEST RESULTS")
         width = max(len(k) for k in results)
         for k, v in results.items():
@@ -291,5 +298,18 @@ class Trainer:
         return results
 
     def knn_evaluate(self, loader, trainable=None, prefix="val"):
-        raise NotImplementedError(
-            "kNN evaluation is not ported yet (ROADMAP queue A: kNN eval)")
+        """kNN metrics of `loader` against the feature bank (the training
+        images through the eval transforms), temperature 0.07, with the
+        weights `trainable` (name -> tensor) or the live ones."""
+        if not self.wrapper.is_multiclass:
+            raise NotImplementedError(
+                "multi-label kNN evaluation is not ported yet (ROADMAP "
+                "queue A: multi-label kNN)")
+        model = self.state.model
+        with self._trainable_swapped(trainable):
+            return knn_evaluate(
+                lambda x: self.embed_step(model, x),
+                self.wrapper.dataloaders.fbank_loader, loader,
+                self.wrapper.metric_class(self.n_classes,
+                                          mode=f"knn_{prefix}", raw=False),
+                self.n_classes, self.knn_nhood, 0.07, self.device)

@@ -63,6 +63,11 @@ def load_param_file(path: str) -> dict:
     raise NotImplementedError(f"Unsupported param file type: {path}")
 
 
+def load_json(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
 def update_nested_values(base: dict, target: dict) -> dict:
     """Merge `target` into `base` in place: leaves of `target` override,
     missing subtrees are added whole.  Returns `base`."""

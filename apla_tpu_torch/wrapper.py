@@ -2,14 +2,15 @@
 class from a recipe's params; the trainer consumes them.
 
 Counterpart of `apla_tpu/wrapper.py:31-334`, without the mesh: the port
-trains on one device (`system_params.device`, else the first CUDA card,
-else the CPU).  `build_vit_config` / `build_apla_config` are plain
+trains on one device, `system_params.device` (default "cuda": the first
+card; without one the wrapper raises unless the caller asked for "cpu").
+`build_vit_config` / `build_apla_config` are plain
 functions of the merged params dict (what `utils.config.load_merged_params`
 returns, or an equivalent plain dict).  TPU-only knobs (`fused_vmem_mb`,
 `remat`) have no meaning here and are not read.  What the port does not
 have yet raises `NotImplementedError` naming its ROADMAP item: the mesh and
 parallel knobs, `pretrained` import, `transfer_learning_params.
-pretrained_path`, `quantize_frozen`, kNN eval, and multi-label data.
+pretrained_path`, `quantize_frozen`, and multi-label data.
 """
 
 from __future__ import annotations
@@ -68,9 +69,24 @@ def build_apla_config(params: dict) -> AplaConfig | None:
                       seed=int(p.get("seed", 0)))
 
 
+def resolve_device(name) -> torch.device:
+    """The entry points' device: `name` (default "cuda").  A CUDA device
+    that is not there raises: a run never moves to the CPU unasked."""
+    device = torch.device(name or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but torch sees no CUDA card; "
+            "set system_params.device to 'cpu' (--device cpu) to run on the "
+            "CPU")
+    return device
+
+
 class DefaultWrapper:
+    is_supervised = True
+
     def __init__(self, parameters: dict):
         parameters = EDict(deepcopy(dict(parameters)))
+        parameters = self.update_augmentation_strategy(parameters)
         self.parameters = parameters
         self.dataset_params = parameters.dataset_params
         self.dataloader_params = parameters.dataloader_params
@@ -80,10 +96,12 @@ class DefaultWrapper:
         self.system_params = parameters.get("system_params") or EDict()
         self.transfer_learning_params = parameters.get(
             "transfer_learning_params") or EDict()
-        self.device = torch.device(
-            self.system_params.get("device")
-            or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(self.system_params.get("device"))
         self._check_unported()
+
+    # overridden by the SSL wrappers (the multi-crop strategy)
+    def update_augmentation_strategy(self, parameters):
+        return parameters
 
     def _check_unported(self):
         sp, mp = self.system_params, self.model_params
@@ -109,9 +127,6 @@ class DefaultWrapper:
         if mp.get("quantize_frozen"):
             raise NotImplementedError(
                 "quantize_frozen: W8A8 is not ported yet (ROADMAP B6)")
-        if self.training_params.get("knn_eval"):
-            raise NotImplementedError(
-                "knn_eval is not ported yet (ROADMAP queue A: kNN eval)")
 
     # ------------------------------------------------------------------ #
     def instantiate(self, seed: int = 0):
@@ -134,10 +149,16 @@ class DefaultWrapper:
         valset = DataSet(self.dataset_params, mode="val")
         testset = DataSet(self.dataset_params, mode="test")
 
+        # kNN feature bank: the training images through the eval transforms
+        fbank_set = None
+        if self.training_params.get("knn_eval") or not self.is_supervised:
+            fbank_set = DataSet(self.dataset_params, mode="train")
+            fbank_set.train_transforms = fbank_set.val_transforms
+
         # device-side augmentation: the host ships resized uint8 images; the
         # geometric/photometric tail runs on the device inside the step
         self.device_aug_cfg = None
-        if self.dataset_params.get("device_augment"):
+        if self.dataset_params.get("device_augment") and self.is_supervised:
             from .data.device_augs import DeviceAugConfig
             tt = self.dataset_params.get("train_transforms", {})
             rrc = tt.get("RandomResizedCrop", {})
@@ -180,8 +201,13 @@ class DefaultWrapper:
         valloader = DataLoader(valset, pin_memory=pin,
                                **self.dataloader_params["valloader"]) \
             if len(valset) > 0 else testloader
+        fbank_loader = None
+        if fbank_set is not None:
+            fb_params = dict(self.dataloader_params["valloader"])
+            fb_params["shuffle"] = False
+            fbank_loader = DataLoader(fbank_set, pin_memory=pin, **fb_params)
         return EDict(trainloader=trainloader, valloader=valloader,
-                     testloader=testloader)
+                     testloader=testloader, fbank_loader=fbank_loader)
 
     def init_model(self, seed: int = 0):
         self.vit_cfg = build_vit_config(self.parameters)

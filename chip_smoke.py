@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/H100 port (`apla_tpu_torch`).
 
-Drives the port's serving path and its training path once on one CUDA
-card, in phases that each print a line and raise on failure:
+Drives the port's serving path, its supervised training path and its
+DINOv2 self-supervised path once on one CUDA card, in phases that each
+print a line and raise on failure:
 
   1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`,
                one nvcc per source, all started together.
   2. kernel  — the fused APLA attention forward kernel against its plain
                PyTorch version on the card, bf16, at the served length
-               (N=257), the 518-crop length (N=1370) and a segmented case.
+               (N=257), the SSL local crops (N=50), the 518-crop length
+               (N=1370) and a segmented case; timed at three of them beside
+               its bound and a two-call library yardstick.
   3. slice   — the ViT-B/14 APLA-128 ImageNet classifier (random weights from
                a seed, the shipped rank-128 index file) exported at batch
                sizes 1/8/64, reloaded, and asked for 1, 9 and 100 images.
@@ -27,12 +30,27 @@ card, in phases that each print a line and raise on failure:
                moved, a checkpoint that reloads; the first step's loss and
                gradients of the fused arm against the plain arm; train-step
                img/s and peak memory of both arms at accum 8 and 1.
+  6a. proto_ce — the three prototype cross-entropy kernels (forward, dxs,
+               dws) against their plain versions at the DINOv2 recipe's
+               sites (iBOT R=16384, DINO global R=128, pair-expanded local
+               R=1024; K=65536) and a ragged case, at two teacher
+               temperatures; timed at the iBOT site.
+  6b. ssl    — the ISIC2019 DINOv2 recipe (ViT-B/14 APLA-128, DINO + iBOT
+               heads over 65536 prototypes, KoLeo, device multi-crop) on
+               Synthetic data through DINOv2Wrapper -> Dinov2Trainer.train()
+               -> test(): the fused APLA kernels on every crop and the
+               prototype-CE kernels at the iBOT site in every step, finite
+               loss terms, frozen weights unchanged, a teacher and centers
+               that moved, a checkpoint that reloads; the first step's loss
+               terms and gradients of the fused arm against the plain arm;
+               train-step img/s and peak memory of both arms; a profile.
 
-Phases 2-5 also run negative controls: the kernels made to compute what
+Phases 2-6 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
-heads dropped; dqkv halved, dW_t from the wrong columns or zeroed).  Each
-must fail the phase's bound, so the bounds are shown to catch a broken
-kernel in every run.
+heads dropped; dqkv halved, dW_t from the wrong columns or zeroed; the
+teacher temperature taken as 1, dws zeroed, dxs halved, p_t dropped from
+ds).  Each must fail the phase's bound, so the bounds are shown to catch a
+broken kernel in every run.
 
 Then it prints the card's name and power limit, a JSON line describing the
 kernels, and the contract line `{"ok": true, "device": {...}}` last.
@@ -155,6 +173,133 @@ SMOKE_CUTS = {
                        "synthetic_img_size": 256},
     "training_params": {"epochs": 1, "val_every": 1.0, "log_every": 1},
 }
+
+# params/pretrain/dinov2/ISIC2019/vit_b/apla.yml merged over its
+# __common__.yml, every field the port reads (a CPU test holds it against
+# the YAML, value by value).  `SSL_CUTS` says what phase 6b changes.
+_SSL_EVAL = {"Resize": {"apply": True, "height": 256, "width": 256},
+             "CenterCrop": {"apply": True, "height": 224, "width": 224},
+             "Normalize": True}
+_SSL_HEAD = {"head_n_prototypes": 65536, "head_bottleneck_dim": 256,
+             "head_nlayers": 3, "head_hidden_dim": 2048}
+SSL_RECIPE = {
+    "dataset_params": {
+        "dataset": "ISIC2019",
+        "train_transforms": {"Resize": {"apply": True, "height": 256,
+                                        "width": 256},
+                             "Normalize": True},
+        "val_transforms": _SSL_EVAL,
+        "test_transforms": _SSL_EVAL,
+    },
+    "dataloader_params": {
+        "trainloader": {**_LOADER, "shuffle": True, "drop_last": True},
+        "valloader": {**_LOADER, "shuffle": False, "drop_last": True},
+        "testloader": {**_LOADER, "shuffle": False, "drop_last": False},
+    },
+    "model_params": {
+        "backbone_type": "vit_base",
+        "transformers_params": {
+            "student": {"pre_img_size": 518, "patch_size": 14,
+                        "drop_path_rate": 0, "layerscale": 1.0e-5,
+                        "ffn_layer": "mlp", "gelu_tanh": True,
+                        "use_fused_apla": True, "num_register_tokens": 0},
+            "teacher": {"momentum_teacher": 0.994,
+                        "final_momentum_teacher": 1,
+                        "warmup_teacher_temp": 0.04, "teacher_temp": 0.07,
+                        "warmup_teacher_temp_epochs": 30},
+        },
+        "pretrained": True,
+        "freeze_backbone": False,
+        "adaptation": {
+            "mode": "apla",
+            "params": {"partial_size": "full",
+                       "inds_path": "params/pretrain/dinov2/ISIC2019/vit_b/"
+                                    "inds-vit_b-rand_128.json"},
+        },
+        "dinov2": {
+            "fused_proto_ce": "ibot",
+            "dino": {"loss_weight": 1.0, **_SSL_HEAD,
+                     "koleo_loss_weight": 0.1},
+            "ibot": {"loss_weight": 1.0, "mask_sample_probability": 0.5,
+                     "mask_ratio_min_max": [0.1, 0.5],
+                     "separate_head": False, **_SSL_HEAD},
+            "centering": "centering",
+        },
+    },
+    "optimization_params": {"default": {
+        "optimizer": {"type": "AdamW",
+                      "params": {"lr": 0.001, "weight_decay": 1.0e-5}},
+        "scheduler": {
+            "type": ["LinearWarmup", "CosineAnnealingLR"],
+            "params": {"CosineAnnealingLR": {"eta_min": 1.0e-6},
+                       "LinearWarmup": {"warmup_epochs": 10,
+                                        "warmup_iters": 0,
+                                        "eta_min": 1.0e-8}}},
+    }},
+    "training_params": {
+        "model_name": "isic2019_dinov2_apla",
+        "epochs": 100,
+        "val_every": 1.0,
+        "log_every": 25,
+        "save_best_model": True,
+        "knn_eval": True,
+        "grad_clipping": 3.0,
+        "restore_session": False,
+        "use_mixed_precision": True,
+        "freeze_last_layer_epochs": 1,
+    },
+    "system_params": {},
+}
+# What phase 6b changes, and why: the data (ISIC2019 is not in the
+# repository) is the hermetic Synthetic set with ISIC2019's 8 classes at the
+# raw 256 that device multi-crop cuts its 224 and 98 crops from, made on the
+# device (the card's machine has no Pillow); the dinov2 checkpoint is not in
+# the repository, so the weights are random from a seed; APLA rank 128 from
+# the shipped index file, the variant the recipe's header documents ("full"
+# mode runs no fused APLA kernel); one epoch of 4 steps, every step logged.
+SSL_CUTS = {
+    "dataset_params": {"dataset": "Synthetic", "synthetic_classes": 8,
+                       "synthetic_size": 256, "synthetic_img_size": 256,
+                       "device_augment": True},
+    "model_params": {"pretrained": False,
+                     "adaptation": {"params": {
+                         "partial_size": 128,
+                         "inds_path": "params/pretrain/dinov2/ISIC2019/"
+                                      "vit_b/inds-vit_b-rand_128.json"}}},
+    "training_params": {"epochs": 1, "log_every": 1},
+}
+# Phase 6a: (R, K) of the recipe's prototype-CE sites at b64 (iBOT: 2 x 64
+# x 128 masked-patch rows; DINO global: 2 x 64; the local pairs: 8 x 2 x 64)
+# and a ragged case; each at two teacher temperatures.  Kernel vs plain:
+# the same bf16 inputs and f32 logits, sums in another order and exp2 for
+# exp; ds is rounded to bf16 on both sides.  Bound per output: 2e-2 of the
+# reference's largest magnitude for dxs and dws, as the other phases; 1e-3
+# for ce, lse_s and lse_t, f32 values near log K on both sides (read on an
+# H100: 2.4e-7 of max|ref|), where 2e-2 of log K would pass a teacher
+# temperature taken as 1 (4.4e-3 of max|ref| at the iBOT site).
+PROTO_CASES = ((16384, 65536), (128, 65536), (1024, 65536), (1000, 1000))
+PROTO_FWD_REL_TOL = 1e-3
+PROTO_TEMPS = (0.04, 0.07)
+STUDENT_TEMP = 0.1
+# Phase 6b, fused arm vs plain arm on the first step (b64, bf16 through 12
+# blocks forward and back, the iBOT loss through the kernels or the dense
+# [16384, 65536] logits): per loss term |delta| / |term|, and the worst
+# per-tensor ||g_fused - g_plain|| / ||g_plain||.  Both arms run with the
+# KoLeo weight at 0: at the seeded random init with LayerScale 1e-5 the
+# images' cls tokens are a few bf16 roundings apart (the training run's
+# koleo_loss of ~1.0 is 0.1 x -log of nearest-neighbour distances near
+# 4e-5 of the unit norm), and KoLeo's gradient, diff / dist^2, then follows
+# where the roundings fall; with it on, the arms read 2.15 at
+# blocks.5.attn.proj_bt on an H100 whatever the kernels do.  Without it the fused arm reads 8.6e-7
+# (ibot_loss) and 1.4e-3 (dino_head.mlp.1.bias); the bounds sit about 5x
+# above, and two backward faults at the iBOT site (dws zeroed, dxs halved)
+# must fail them in every run.  The training run keeps KoLeo on.
+SSL_LOSS_REL_TOL = 5e-6
+SSL_GRAD_REL_TOL = 7.5e-3
+SSL_LOSS_TERMS = ("dino_local_crops_loss", "dino_global_crops_loss",
+                  "koleo_loss", "ibot_loss")
+SSL_AGREE_TERMS = ("dino_local_crops_loss", "dino_global_crops_loss",
+                   "ibot_loss")
 SERVE_IMG = 224
 N_CLASSES = 1000
 SEED = 0
@@ -164,7 +309,17 @@ REQUESTS = (1, 9, 100)
 # at b1, b8 and b64, the 518-crop length, and packed segments
 KERNEL_CASES = (((1, 257, 2304), 0), ((8, 257, 2304), 0),
                 ((64, 257, 2304), 0), ((2, 1370, 2304), 0),
-                ((8, 200, 2304), 50))
+                ((8, 200, 2304), 50), ((512, 50, 2304), 0))
+# (batch, tokens) at which both attention kernels are timed: the served and
+# trained b64 global crops, the SSL step's 8 x 64 local crops (one ragged
+# 64-row tile per image), and the 518-crop length of TPU kernel rows 5-7
+TIMED_SHAPES = ((64, 257), (512, 50), (2, 1370))
+# Published dense peaks of one H100 SXM (NVIDIA data sheet): the bf16 tensor
+# cores and HBM3.  A kernel's bound is the larger of its operations over the
+# first and its bytes (each input read once, each output written once) over
+# the second.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_S = 3.35e12
 # Kernel vs plain, both bf16 out: they differ by the order of f32 sums and
 # the online max/sum of the softmax, i.e. by a bf16 rounding of p, o or the
 # output here and there.  Bound: 2e-2 of the reference's largest magnitude.
@@ -174,7 +329,8 @@ KERNEL_REL_TOL = 2e-2
 # indices.  Same bound, per output (dq, dk, dv, dW_t).
 BWD_CASES = (((1, 257, 2304), 0, 128), ((8, 257, 2304), 0, 128),
              ((64, 257, 2304), 0, 128), ((2, 1370, 2304), 0, 128),
-             ((8, 200, 2304), 50, 128), ((8, 257, 2304), 0, "block0"))
+             ((8, 200, 2304), 50, 128), ((512, 50, 2304), 0, 128),
+             ((8, 257, 2304), 0, "block0"))
 # Served model, fused arm vs plain arm (bf16 end to end through 12 blocks;
 # the plain arm also rounds its attention logits to bf16): per-image
 # embedding cosine, and max |delta logits| relative to max |logits|.  On an
@@ -248,7 +404,8 @@ def phase_build():
 
     from apla_tpu_torch.ops import cuda_build
     from apla_tpu_torch.ops.fused_apla_attn import _BWD_SOURCE, _SOURCE
-    sources = (_SOURCE, _BWD_SOURCE)
+    from apla_tpu_torch.ops.proto_ce import BWD_SOURCE, FWD_SOURCE
+    sources = (_SOURCE, _BWD_SOURCE, FWD_SOURCE, BWD_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cuda_build.build_library, sources))
@@ -263,6 +420,43 @@ def phase_build():
     print(f"[1 build] {len(sources)} kernels built (in parallel) and loaded "
           f"in {secs:.2f} s")
     return secs
+
+
+def _bound(flops, nbytes):
+    """(least ms the card could take, what bounds it) for work of `flops`
+    bf16 tensor-core operations moving `nbytes` bytes."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _attn_fwd_bound(b, n, c):
+    """Fused forward of [b, n, 3c] bf16 qkv and a [c, c] bf16 W: per image
+    q k^T and p v over all heads (2 n^2 c each) and the projection
+    (2 n c^2); reads qkv and W, writes [b, n, c] bf16."""
+    return _bound(b * (4 * n * n * c + 2 * n * c * c),
+                  2 * (3 * b * n * c + c * c + b * n * c))
+
+
+def _attn_bwd_bound(b, n, c, k):
+    """Its backward: dO = g W^T (2 n c^2), the scores and o recomputed, dv,
+    dp, dq, dk (six 2 n^2 c products) and dW_t = o^T g_t (2 n c k); reads
+    qkv, W and g, writes dqkv bf16 and dW_t f32."""
+    return _bound(b * (12 * n * n * c + 2 * n * c * c + 2 * n * c * k),
+                  2 * (3 * b * n * c + c * c + b * n * c + 3 * b * n * c)
+                  + 4 * c * k)
+
+
+def _library_attn(qkv, w, heads, scale):
+    """The yardstick: F.scaled_dot_product_attention and one torch.matmul
+    (and the head-merge copy between them).  No single PyTorch call
+    computes the fused function; the port never calls these."""
+    b, n, c3 = qkv.shape
+    q, k, v = qkv.unflatten(-1, (3, heads, c3 // (3 * heads))) \
+        .permute(2, 0, 3, 1, 4)
+    o = torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                         scale=scale)
+    return torch.matmul(o.transpose(1, 2).reshape(b, n, c3 // 3), w)
 
 
 def phase_kernel(device):
@@ -300,17 +494,25 @@ def phase_kernel(device):
                 if b_err <= bound:
                     raise SystemExit(f"the kernel bound misses a broken "
                                      f"kernel ({name})")
-    # times at the served b64 call's shape (N=257, ViT-B)
-    qkv = torch.randn((64, 257, 2304), generator=gen).to(device,
-                                                         torch.bfloat16)
-    w = (torch.randn((768, 768), generator=gen) * 768 ** -0.5).to(
-        device, torch.bfloat16)
-    ms = _time_ms(lambda: fused_apla_attn_fwd(qkv, w, heads, scale, 0))
-    plain_ms = _time_ms(
-        lambda: fused_apla_attn_fwd_reference(qkv, w, heads, scale, 0))
-    print(f"[2 kernel] b64 N=257 C=768: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    return worst, ms, plain_ms
+    times = {}
+    for b, n in TIMED_SHAPES:
+        qkv = torch.randn((b, n, 2304), generator=gen).to(device,
+                                                          torch.bfloat16)
+        w = (torch.randn((768, 768), generator=gen) * 768 ** -0.5).to(
+            device, torch.bfloat16)
+        t = {"ms": _time_ms(lambda: fused_apla_attn_fwd(qkv, w, heads,
+                                                        scale, 0)),
+             "plain_ms": _time_ms(lambda: fused_apla_attn_fwd_reference(
+                 qkv, w, heads, scale, 0)),
+             "library_two_calls_ms": _time_ms(
+                 lambda: _library_attn(qkv, w, heads, scale))}
+        t["bound_ms"], t["bound_by"] = _attn_fwd_bound(b, n, 768)
+        times[(b, n)] = t
+        print(f"[2 kernel] b{b} N={n} C=768: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, two library calls (SDPA + matmul) "
+              f"{t['library_two_calls_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return worst, times
 
 
 def _agrees(name, outs, ref_outs) -> bool:
@@ -536,18 +738,31 @@ def phase_bwd(device):
                                  f"kernel ({name})")
             if not specific:
                 raise SystemExit(f"control {name} broke {list(intact)} too")
-    qkv = torch.randn((64, 257, 2304), generator=gen).to(device,
-                                                         torch.bfloat16)
-    w = (torch.randn((768, 768), generator=gen) * 768 ** -0.5).to(
-        device, torch.bfloat16)
-    g = torch.randn((64, 257, 768), generator=gen).to(device, torch.bfloat16)
     inds = torch.as_tensor(block0, dtype=torch.int64).to(device)
-    ms = _time_ms(lambda: fused_apla_attn_bwd(qkv, w, g, inds, heads, scale))
-    plain_ms = _time_ms(lambda: fused_apla_attn_bwd_reference(
-        qkv, w, g, inds, heads, scale))
-    print(f"[4 bwd] b64 N=257 C=768 k=128: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    return worst, ms, plain_ms
+    times = {}
+    for b, n in TIMED_SHAPES:
+        qkv = torch.randn((b, n, 2304), generator=gen).to(device,
+                                                          torch.bfloat16)
+        w = (torch.randn((768, 768), generator=gen) * 768 ** -0.5).to(
+            device, torch.bfloat16)
+        g = torch.randn((b, n, 768), generator=gen).to(device, torch.bfloat16)
+        # the yardstick's backward: autograd through its two calls
+        lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
+        lout = _library_attn(lq, lw, heads, scale)
+        t = {"ms": _time_ms(lambda: fused_apla_attn_bwd(qkv, w, g, inds,
+                                                        heads, scale)),
+             "plain_ms": _time_ms(lambda: fused_apla_attn_bwd_reference(
+                 qkv, w, g, inds, heads, scale)),
+             "library_two_calls_ms": _time_ms(lambda: torch.autograd.grad(
+                 lout, (lq, lw), g, retain_graph=True))}
+        del lq, lw, lout
+        t["bound_ms"], t["bound_by"] = _attn_bwd_bound(b, n, 768, len(block0))
+        times[(b, n)] = t
+        print(f"[4 bwd] b{b} N={n} C=768 k={len(block0)}: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, autograd "
+              f"of the two library calls {t['library_two_calls_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return worst, times
 
 
 def _trainables(model):
@@ -589,22 +804,22 @@ def _grad_agreement(name, got, ref):
     return ok
 
 
-def _with_bwd_fault(fault, fn):
-    """fn() with `fault` applied to every backward kernel call's outputs."""
-    from apla_tpu_torch.ops import fused_apla_attn as fa
-    real = fa.fused_apla_attn_bwd
+def _with_output_fault(module, name, fault, fn):
+    """fn() with `fault` applied to the outputs of every call of the kernel
+    wrapper `module.name`."""
+    real = getattr(module, name)
 
     def faulty(*args, **kwargs):
-        return fault(*real(*args, **kwargs))
+        return fault(real(*args, **kwargs))
 
-    # the wrapper counts its launches on the module's fused_apla_attn_bwd,
-    # here the stand-in: control launches are not the main path's
+    # the wrapper counts its launches on the module's attribute, here the
+    # stand-in: control launches are not the main path's
     faulty.launches = 0
-    fa.fused_apla_attn_bwd = faulty
+    setattr(module, name, faulty)
     try:
         return fn()
     finally:
-        fa.fused_apla_attn_bwd = real
+        setattr(module, name, real)
 
 
 def _train_rate(wrapper, cfg, accum, batch):
@@ -627,6 +842,19 @@ def _train_rate(wrapper, cfg, accum, batch):
     return batch["image"].shape[0] * 1000.0 / ms, peak
 
 
+def _run_params(recipe, cuts, save_dir, device):
+    """The recipe with its cuts, saving under `save_dir`, on `device`, the
+    index file found from the repository root."""
+    from apla_tpu_torch.utils.config import update_nested_values
+    params = update_nested_values(copy.deepcopy(recipe), copy.deepcopy(cuts))
+    params["training_params"]["save_dir"] = save_dir
+    params.setdefault("system_params", {})["device"] = str(device)
+    apla = params["model_params"]["adaptation"]["params"]
+    if apla.get("inds_path"):
+        apla["inds_path"] = os.path.join(ROOT, apla["inds_path"])
+    return params
+
+
 def phase_train(device):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         return _phase_train(device, tmp)
@@ -637,15 +865,9 @@ def _phase_train(device, tmp):
     from apla_tpu_torch.ops import fused_apla_attn as fa
     from apla_tpu_torch.train.checkpoint import load_checkpoint
     from apla_tpu_torch.train.trainer import Trainer
-    from apla_tpu_torch.utils.config import update_nested_values
     from apla_tpu_torch.wrapper import DefaultWrapper
 
-    params = update_nested_values(copy.deepcopy(RECIPE),
-                                  copy.deepcopy(SMOKE_CUTS))
-    params["training_params"]["save_dir"] = tmp
-    apla = params["model_params"]["adaptation"]["params"]
-    if apla.get("inds_path"):
-        apla["inds_path"] = os.path.join(ROOT, apla["inds_path"])
+    params = _run_params(RECIPE, SMOKE_CUTS, tmp, device)
     t0 = time.perf_counter()
     wrapper = DefaultWrapper(params)
     wrapper.instantiate(seed=SEED)
@@ -673,13 +895,14 @@ def _phase_train(device, tmp):
     ref = _step_grads(model, plain_cfg, *args)
     fused = _step_grads(model, cfg, *args)
     ok = _grad_agreement("fused arm", fused, ref)
-    controls = {
-        "dW_t zeroed": lambda dqkv, dwt: (dqkv, dwt * 0),
-        "dqkv halved": lambda dqkv, dwt: (dqkv * 0.5, dwt),
+    controls = {  # on the backward's (dqkv, dW_t)
+        "dW_t zeroed": lambda out: (out[0], out[1] * 0),
+        "dqkv halved": lambda out: (out[0] * 0.5, out[1]),
     }
     caught = all([not _grad_agreement(
-        f"control: {name}",
-        _with_bwd_fault(fault, lambda: _step_grads(model, cfg, *args)), ref)
+        f"control: {name}", _with_output_fault(
+            fa, "fused_apla_attn_bwd", fault,
+            lambda: _step_grads(model, cfg, *args)), ref)
         for name, fault in controls.items()])
     if not ok:
         raise SystemExit("fused arm's gradients disagree with the plain arm")
@@ -751,6 +974,435 @@ def _phase_train(device, tmp):
     return launches, rates
 
 
+def _proto_inputs(r, k, gen, device):
+    """Unit-norm bottleneck rows xs, xt [r, 256], column-normalised
+    prototype layers ws, wt [256, k] (bf16, as the head hands them over), a
+    center [k] and per-row cotangents g [r] (the iBOT masked-patch
+    weights' scale)."""
+    def unit(shape, dim):
+        x = torch.randn(shape, generator=gen)
+        return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+
+    bf = torch.bfloat16
+    return (unit((r, 256), -1).to(device, bf), unit((256, k), 0).to(device, bf),
+            unit((r, 256), -1).to(device, bf), unit((256, k), 0).to(device, bf),
+            (0.1 * torch.randn(k, generator=gen)).to(device),
+            torch.rand(r, generator=gen).to(device) / 64)
+
+
+def _proto_errors(got, ref):
+    """{output: (max|err|, bound)}, per output, the bound a share of
+    max|ref| (PROTO_FWD_REL_TOL for the forward's outputs)."""
+    out = {}
+    for name, a, r in zip(("ce", "lse_s", "lse_t", "dxs", "dws"), got, ref):
+        ok = bool(torch.isfinite(a).all())
+        err = (a.float() - r.float()).abs().max().item() if ok \
+            else float("inf")
+        tol = KERNEL_REL_TOL if name in ("dxs", "dws") else PROTO_FWD_REL_TOL
+        out[name] = (err, tol * r.float().abs().max().item())
+    return out
+
+
+def _proto_all(pc, args, tt, lse_t=None):
+    """(ce, lse_s, lse_t, dxs, dws) of the kernels (or, through `pc`'s
+    references, the plain versions) on one input set; the backward takes
+    the forward's lse unless `lse_t` replaces the teacher's."""
+    xs, ws, xt, wt, c, g = args
+    fwd, dxs, dws = pc
+    ce, ls, lt = fwd(xs, ws, xt, wt, c, tt, STUDENT_TEMP)
+    bargs = (xs, ws, xt, wt, c, tt, STUDENT_TEMP, ls,
+             lt if lse_t is None else lse_t, g)
+    return ce, ls, lt, dxs(*bargs), dws(*bargs)
+
+
+def phase_proto_ce(device):
+    from apla_tpu_torch.ops import proto_ce as pc
+    kernels = (pc.proto_ce_fwd, pc.proto_ce_dxs, pc.proto_ce_dws)
+    plain = (pc.proto_ce_fwd_reference, pc.proto_ce_dxs_reference,
+             pc.proto_ce_dws_reference)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    worst = {"fwd": 0.0, "dxs": 0.0, "dws": 0.0}
+    for r, k in PROTO_CASES:
+        args = _proto_inputs(r, k, gen, device)
+        for tt in PROTO_TEMPS:
+            got = _proto_all(kernels, args, tt)
+            torch.cuda.synchronize()
+            ref = _proto_all(plain, args, tt)
+            errs = _proto_errors(got, ref)
+            ok = all(e <= b for e, b in errs.values())
+            print(f"[6a proto_ce] R={r} K={k} tau_t={tt}: " + ", ".join(
+                f"{n} max|err| {e:.6g} (bound {b:.6g})"
+                for n, (e, b) in errs.items())
+                + f" -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"prototype-CE kernels disagree with their "
+                                 f"plain versions at R={r} K={k} tau_t={tt}")
+            worst["fwd"] = max(worst["fwd"], *(errs[n][0] for n in
+                                               ("ce", "lse_s", "lse_t")))
+            worst["dxs"] = max(worst["dxs"], errs["dxs"][0])
+            worst["dws"] = max(worst["dws"], errs["dws"][0])
+        if (r, k) != PROTO_CASES[0]:
+            del ref
+            continue
+        # Fault controls at the iBOT site, against the reference at the
+        # last tau_t: each changes an input or an output of the working
+        # kernels so that they compute what a broken kernel would.
+        tt = PROTO_TEMPS[-1]
+        huge = torch.full_like(ref[2], 1e30)       # exp(t - 1e30) = 0
+        controls = {
+            "tau_t taken as 1": (lambda: _proto_all(kernels, args, 1.0),
+                                 ("ce", "dxs", "dws")),
+            "dws zeroed": (lambda: got[:4] + (got[4] * 0,), ("dws",)),
+            "dxs halved": (lambda: got[:3] + (got[3] * 0.5, got[4]),
+                           ("dxs",)),
+            "p_t dropped from ds (lse_t = 1e30)": (
+                lambda: _proto_all(kernels, args, tt, lse_t=huge),
+                ("dxs", "dws")),
+        }
+        for name, (fault, broken) in controls.items():
+            c_errs = _proto_errors(fault(), ref)
+            caught = all(c_errs[n][0] > c_errs[n][1] for n in broken)
+            print(f"[6a proto_ce] control {name}: " + ", ".join(
+                f"{n} {e:.6g}" for n, (e, _) in c_errs.items())
+                + f" -> {'caught' if caught else 'NOT CAUGHT'} in "
+                f"{list(broken)}")
+            if not caught:
+                raise SystemExit(f"the prototype-CE bound misses a broken "
+                                 f"kernel ({name})")
+        del ref, got
+    # times at the iBOT site: kernels, plain versions, bounds
+    r, k = PROTO_CASES[0]
+    xs, ws, xt, wt, c, g = _proto_inputs(r, k, gen, device)
+    tt = PROTO_TEMPS[0]
+    _, ls, lt = pc.proto_ce_fwd(xs, ws, xt, wt, c, tt, STUDENT_TEMP)
+    bargs = (xs, ws, xt, wt, c, tt, STUDENT_TEMP, ls, lt, g)
+    rdk = r * 256 * k
+    in_bytes = 2 * (2 * r * 256 + 2 * 256 * k) + 4 * k
+    work = {"fwd": (4 * rdk, in_bytes + 3 * 4 * r),
+            "dxs": (6 * rdk, in_bytes + 3 * 4 * r + 4 * r * 256),
+            "dws": (6 * rdk, in_bytes + 3 * 4 * r + 4 * 256 * k)}
+    calls = {"fwd": (lambda: pc.proto_ce_fwd(xs, ws, xt, wt, c, tt,
+                                             STUDENT_TEMP),
+                     lambda: pc.proto_ce_fwd_reference(xs, ws, xt, wt, c, tt,
+                                                       STUDENT_TEMP)),
+             "dxs": (lambda: pc.proto_ce_dxs(*bargs),
+                     lambda: pc.proto_ce_dxs_reference(*bargs)),
+             "dws": (lambda: pc.proto_ce_dws(*bargs),
+                     lambda: pc.proto_ce_dws_reference(*bargs))}
+    times = {}
+    for name, (kernel, ref_fn) in calls.items():
+        t = {"ms": _time_ms(kernel, iters=10, warmup=2),
+             "plain_ms": _time_ms(ref_fn, iters=3, warmup=1),
+             "max_abs_err": worst[name]}
+        t["bound_ms"], t["bound_by"] = _bound(*work[name])
+        times[name] = t
+        print(f"[6a proto_ce] {name} R={r} D=256 K={k}: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+    return times
+
+
+class _NoUpdate:
+    """An optimizer stand-in that leaves the weights as they are: the step
+    computes and keeps the gradients, and nothing moves."""
+
+    def __init__(self, params):
+        self.params = list(params)
+
+    def set_lr(self, lr, wd=None):
+        pass
+
+    def step(self, g_norm):
+        pass
+
+
+def _ssl_step(wrapper, vit_cfg, fused_mode, optimizer, koleo=None):
+    """A DINOv2 train step of the wrapper's recipe with `vit_cfg` and
+    `fused_proto_ce` set to `fused_mode` (and the KoLeo weight to `koleo`
+    if given), prototype layer not frozen, and a state of its own around
+    the wrapper's model and teacher (the centers copied)."""
+    from apla_tpu_torch.ssl.dinov2 import (DINOv2TrainState,
+                                           make_dinov2_train_step)
+    d2 = copy.deepcopy(wrapper.model_params.dinov2)
+    d2["fused_proto_ce"] = fused_mode
+    if koleo is not None:
+        d2["dino"]["koleo_loss_weight"] = koleo
+    cp = wrapper.crops_params
+    step = make_dinov2_train_step(
+        vit_cfg, optimizer, d2, cp.n_global_crops, cp.n_local_crops,
+        freeze_last_layer=False,
+        device_crop_cfgs=wrapper.ssl_device_crop_cfgs)
+    s = wrapper.state
+    state = DINOv2TrainState(step=0, model=s.model, optimizer=optimizer,
+                             teacher=s.teacher,
+                             dino_center=s.dino_center.clone(),
+                             ibot_center=s.ibot_center.clone())
+    return step, state
+
+
+def _ssl_grads(wrapper, vit_cfg, fused_mode, batch):
+    """Loss terms and f32 gradients of one step on `batch` (crops drawn
+    from a fixed seed) without KoLeo (see SSL_GRAD_REL_TOL); momentum 1 and
+    no update, so nothing moves."""
+    params = _trainables(wrapper.model)
+    step, state = _ssl_step(wrapper, vit_cfg, fused_mode,
+                            _NoUpdate(params.values()), koleo=0.0)
+    gen = torch.Generator(device=wrapper.device).manual_seed(SEED)
+    _, m = step(state, batch, 0.0, 0.0, 1.0, PROTO_TEMPS[0], gen)
+    losses = {k: float(m[k]) for k in SSL_AGREE_TERMS}
+    grads = {n: p.grad.detach().float().clone() for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    return losses, grads
+
+
+def _ssl_agreement(name, got, ref):
+    (losses, grads), (r_losses, r_grads) = got, ref
+    d_loss = {k: abs(losses[k] - r_losses[k]) / max(abs(r_losses[k]), 1e-12)
+              for k in SSL_AGREE_TERMS}
+    rel = {n: (torch.linalg.vector_norm(grads[n] - r_grads[n])
+               / torch.linalg.vector_norm(r_grads[n])).item()
+           for n in r_grads}
+    worst = max(rel, key=rel.get)
+    ok = max(d_loss.values()) <= SSL_LOSS_REL_TOL \
+        and rel[worst] <= SSL_GRAD_REL_TOL
+    print(f"[6b ssl] {name} vs plain arm: |dloss|/|loss| " + ", ".join(
+        f"{k} {v:.3g}" for k, v in d_loss.items())
+        + f" (bound {SSL_LOSS_REL_TOL}); worst per-tensor ||dg||/||g|| "
+        f"{rel[worst]:.6g} at {worst} (bound {SSL_GRAD_REL_TOL}); "
+        f"dino_head.last_v {rel['dino_head.last_v']:.6g} -> "
+        f"{'within' if ok else 'outside'} the bounds")
+    return ok
+
+
+def _ssl_rate(wrapper, vit_cfg, fused_mode, batch):
+    """Train-step img/s and peak device memory (GB) of one arm (AdamW at
+    lr 1e-9, momentum 1), after a warm-up step."""
+    from apla_tpu_torch.train.optim import build_optimizer
+    opt = build_optimizer("AdamW", {"lr": 1e-9, "weight_decay": 1e-5},
+                          _trainables(wrapper.model).items(), grad_clip=3.0)
+    step, state = _ssl_step(wrapper, vit_cfg, fused_mode, opt)
+    gen = torch.Generator(device=wrapper.device).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(lambda: step(state, batch, 1e-9, 1e-5, 1.0,
+                               PROTO_TEMPS[0], gen), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return batch["raw_images"].shape[0] * 1000.0 / ms, peak, (step, state,
+                                                              gen)
+
+
+def _device_kernels(prof) -> dict:
+    """name -> device microseconds summed over a profile's kernels."""
+    out = {}
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if events:
+        for e in events:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
+    else:
+        for e in prof.events():
+            for kern in e.kernels:
+                out[kern.name] = out.get(kern.name, 0.0) + kern.duration
+    return out
+
+
+_KERNEL_GROUPS = (
+    ("proto-CE kernels", ("proto_ce_", "sum_partials_kernel")),
+    ("fused APLA attention forward kernel", ("fused_apla_attn_fwd_kernel",)),
+    ("fused APLA attention backward kernels",
+     ("bwd_query_kernel", "bwd_key_kernel", "gemm_nt_kernel",
+      "dw_partial_kernel", "dw_reduce_kernel")),
+    ("gathers / index backward", ("index",)),
+    ("GEMMs (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "ampere", "nvjet")),
+    ("resampling / blur (multi-crop)", ("conv", "upsample", "grid")),
+    ("softmax / log-softmax / reductions", ("softmax", "reduce")),
+    ("elementwise (adds, muls, casts, where)",
+     ("elementwise", "vectorized", "unrolled")))
+
+
+def _profile_step(fn, steps=2):
+    """Wall and device-busy ms per call of fn() over `steps` profiled
+    calls after one warm-up, device ms per kernel group, the top kernels
+    and the top PyTorch ops by their own device ms."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = _device_kernels(prof)
+    busy = sum(kernels.values()) / 1e3 / steps
+    groups = {}
+    for name, us in kernels.items():
+        low = name.lower()
+        group = next((g for g, keys in _KERNEL_GROUPS
+                      if any(k in low for k in keys)), "other")
+        groups[group] = groups.get(group, 0.0) + us / 1e3 / steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    ops = sorted(((e.key, e.self_device_time_total / 1e3 / steps)
+                  for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda kv: -kv[1])[:10]
+    return wall, busy, groups, [(n, us / 1e3 / steps) for n, us in top], ops
+
+
+def phase_ssl(device):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssl_") as tmp:
+        return _phase_ssl(device, tmp)
+
+
+def _phase_ssl(device, tmp):
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.ops import proto_ce as pc
+    from apla_tpu_torch.ssl.dinov2 import DINOv2Wrapper, Dinov2Trainer
+    from apla_tpu_torch.train.checkpoint import load_aux_state, \
+        load_checkpoint
+
+    params = _run_params(SSL_RECIPE, SSL_CUTS, tmp, device)
+    t0 = time.perf_counter()
+    wrapper = DINOv2Wrapper(params)
+    wrapper.instantiate(seed=SEED)
+    trainer = Dinov2Trainer(wrapper)
+    cfg, depth = wrapper.vit_cfg, wrapper.vit_cfg.depth
+    loaders = wrapper.dataloaders
+    steps = len(loaders.trainloader)
+    embed_calls = 2 * len(loaders.fbank_loader) + len(loaders.valloader) \
+        + len(loaders.testloader)
+    cp = wrapper.crops_params
+    print(f"[6b ssl] wrapper instantiated on {wrapper.device} in "
+          f"{time.perf_counter() - t0:.1f} s: {steps} steps of b"
+          f"{loaders.trainloader.batch_size}, {cp.n_global_crops} x "
+          f"{cp.global_crops_size} + {cp.n_local_crops} x "
+          f"{cp.local_crops_size} crops, {wrapper.n_prototypes} prototypes, "
+          f"{embed_calls} kNN embed calls")
+
+    # fused arm against plain arm on the first step's batch, same draws
+    batch = next(iter(loaders.trainloader))
+    batch = {k: v.to(device) for k, v in batch.items()
+             if k not in ("label", "n_masked_patches")}
+    print(f"[6b ssl] iBOT buffer: {batch['mask_indices_list'].shape[0]} rows"
+          f", {int(batch['mask_valid'].sum())} of them masked patches")
+    plain_cfg = dataclasses.replace(cfg, use_fused_apla=False,
+                                    use_flash=False)
+    mode = wrapper.model_params.dinov2.fused_proto_ce
+    ref = _ssl_grads(wrapper, plain_cfg, False, batch)
+    ok = _ssl_agreement("fused arm", _ssl_grads(wrapper, cfg, mode, batch),
+                        ref)
+    controls = {"proto-CE dws zeroed": ("proto_ce_dws", lambda d: d * 0),
+                "proto-CE dxs halved": ("proto_ce_dxs", lambda d: d * 0.5)}
+    caught = all([not _ssl_agreement(
+        f"control: {name}", _with_output_fault(
+            pc, which, fault, lambda: _ssl_grads(wrapper, cfg, mode, batch)),
+        ref) for name, (which, fault) in controls.items()])
+    if not ok:
+        raise SystemExit("the SSL fused arm disagrees with the plain arm")
+    if not caught:
+        raise SystemExit("a broken prototype-CE backward passes the SSL "
+                         "bounds")
+    del ref
+
+    state = trainer.state
+    frozen = {n: t.detach().clone() for n, t in state.frozen().items()}
+    trainable = {n: t.detach().clone() for n, t in state.trainable().items()}
+    teacher = {n: t.clone() for n, t in state.teacher.items()}
+    counters = (fa.fused_apla_attn_fwd, fa.fused_apla_attn_bwd,
+                pc.proto_ce_fwd, pc.proto_ce_dxs, pc.proto_ce_dws)
+    for c in counters:
+        c.launches = 0
+    trainer.train()
+    results = trainer.test()
+    _sync(device)
+    launches = tuple(c.launches for c in counters)
+    expect = (depth * (3 * steps + embed_calls), depth * 2 * steps,
+              steps, steps, steps)
+    print(f"[6b ssl] trained {trainer.iters} steps and tested in "
+          f"{time.perf_counter() - t0:.1f} s; launches: fused forward "
+          f"{launches[0]} (expected {expect[0]} = {depth} x (3 x {steps} "
+          f"steps + {embed_calls} embed calls)), fused backward {launches[1]}"
+          f" (expected {expect[1]}), proto_ce fwd/dxs/dws {launches[2:]} "
+          f"(expected {expect[2:]})")
+    if launches != expect:
+        raise SystemExit("the SSL path did not run every kernel where it "
+                         "should")
+    records = [r for _, r in trainer.history if "train_loss" in r]
+    print("[6b ssl] loss terms per step: " + "; ".join(
+        ", ".join(f"{k} {r[k]:.5g}" for k in ("train_loss",)
+                  + SSL_LOSS_TERMS) for r in records))
+    print(f"[6b ssl] kNN test: {dict(results)}")
+    if len(records) != steps or not all(
+            np.isfinite([r[k] for k in ("train_loss",) + SSL_LOSS_TERMS]).all()
+            for r in records):
+        raise SystemExit("missing or non-finite SSL loss terms")
+    kept = all(torch.equal(frozen[n], t) for n, t in state.frozen().items())
+    moved = {n: not torch.equal(trainable[n], t)
+             for n, t in state.trainable().items()}
+    must_move = [n for n in moved if ".attn.proj_" in n
+                 or n.startswith("dino_head.mlp.")]
+    t_moved = sum(not torch.equal(teacher[n], t)
+                  for n, t in state.teacher.items())
+    centers = (float(state.dino_center.abs().max()),
+               float(state.ibot_center.abs().max()))
+    print(f"[6b ssl] frozen ({len(frozen)} tensors, mask_token among them) "
+          f"{'unchanged bit for bit' if kept else 'CHANGED'}; "
+          f"{sum(moved.values())}/{len(moved)} trainable tensors moved "
+          f"({sum(moved[n] for n in must_move)}/{len(must_move)} APLA "
+          f"columns and head MLP); {t_moved}/{len(teacher)} teacher tensors "
+          f"moved; max |center| dino {centers[0]:.4g}, ibot {centers[1]:.4g}")
+    if not kept or not all(moved[n] for n in must_move) or not t_moved \
+            or min(centers) == 0.0:
+        raise SystemExit("SSL training left the weights, the teacher or the "
+                         "centers where they should not be")
+    after = ({n: t.detach().clone() for n, t in state.trainable().items()},
+             {n: t.clone() for n, t in state.teacher.items()},
+             state.dino_center.clone(), state.ibot_center.clone())
+    manifest, _ = load_checkpoint(trainer.checkpoint_path, state)
+    state.load_aux(load_aux_state(trainer.checkpoint_path))
+    reloaded = all(torch.equal(after[0][n], t)
+                   for n, t in state.trainable().items()) \
+        and all(torch.equal(after[1][n], t) for n, t in state.teacher.items()) \
+        and torch.equal(after[2], state.dino_center) \
+        and torch.equal(after[3], state.ibot_center)
+    print(f"[6b ssl] checkpoint {sorted(os.listdir(trainer.checkpoint_path))}"
+          f" reloads at iter {manifest['iters']}: "
+          f"{'same weights, teacher and centers' if reloaded else 'DIFFERENT'}")
+    if manifest["iters"] != trainer.iters or not reloaded:
+        raise SystemExit("the SSL checkpoint does not reload the trained "
+                         "state")
+
+    # train-step img/s and peak memory, in turns (plain, fused, fused,
+    # plain), best of two; then a profile of the fused arm's step
+    rates = {}
+    for name, arm, arm_mode in (("plain", plain_cfg, False),
+                                ("fused", cfg, mode), ("fused", cfg, mode),
+                                ("plain", plain_cfg, False)):
+        rate, peak, last = _ssl_rate(wrapper, arm, arm_mode, batch)
+        best = rates.get(name, (0.0, 0.0))
+        rates[name] = (max(best[0], rate), max(best[1], peak))
+        if name == "fused":
+            fused_call = last
+    for name, (rate, peak) in sorted(rates.items()):
+        print(f"[6b ssl] train step b{batch['raw_images'].shape[0]} {name} "
+              f"arm: {rate:.1f} img/s, peak {peak:.2f} GB")
+    step, st, gen = fused_call
+    wall, busy, groups, top, ops = _profile_step(
+        lambda: step(st, batch, 1e-9, 1e-5, 1.0, PROTO_TEMPS[0], gen))
+    print(f"[6b ssl] profile, fused arm: {wall:.2f} ms wall per step "
+          f"(under the profiler), {busy:.2f} ms device busy, idle "
+          f"{max(0.0, 1 - busy / wall):.1%}")
+    print("[6b ssl] profile by group (device ms per step): " + ", ".join(
+        f"{g} {ms:.2f}" for g, ms in sorted(groups.items(),
+                                            key=lambda kv: -kv[1])))
+    for name, ms in top:
+        print(f"[6b ssl] profile top kernel {ms:8.3f} ms  {name[:100]}")
+    print("[6b ssl] profile top ops (own device ms per step): " + ", ".join(
+        f"{name} {ms:.2f}" for name, ms in ops))
+    return launches, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -760,36 +1412,53 @@ def main() -> int:
     device = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
     build_s = phase_build()
-    max_err, ms, plain_ms = phase_kernel(device)
+    max_err, fwd_times = phase_kernel(device)
     serve_launches, fused_rate, plain_rate = phase_slice(device)
-    bwd_err, bwd_ms, bwd_plain_ms = phase_bwd(device)
+    bwd_err, bwd_times = phase_bwd(device)
     (fwd_launches, bwd_launches), rates = phase_train(device)
+    proto_times = phase_proto_ce(device)
+    ssl_launches, ssl_rates = phase_ssl(device)
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
           f"forward launches); train b64 img/s " + ", ".join(
               f"{name} accum {acc} {r:.1f}"
-              for (name, acc), (r, _) in sorted(rates.items())))
+              for (name, acc), (r, _) in sorted(rates.items()))
+          + "; SSL train b64 img/s " + ", ".join(
+              f"{name} {r:.1f}" for name, (r, _) in sorted(ssl_rates.items()))
+          + f"; whole run {time.perf_counter() - t0:.1f} s")
     print(_gpu_line())
+    main_shape = TIMED_SHAPES[0]
+    kernels = [
+        ("fused_apla_attn_fwd", "fused_apla_attn_fwd.cu",
+         "pallas_apla_attn.py:105",
+         serve_launches + fwd_launches + ssl_launches[0],
+         {**fwd_times[main_shape], "max_abs_err": max_err}),
+        ("fused_apla_attn_bwd", "fused_apla_attn_bwd.cu",
+         "pallas_apla_attn.py:131", bwd_launches + ssl_launches[1],
+         {**bwd_times[main_shape], "max_abs_err": bwd_err}),
+        ("proto_ce_fwd", "proto_ce_fwd.cu", "pallas_proto_ce.py:73",
+         ssl_launches[2], proto_times["fwd"]),
+        ("proto_ce_dxs", "proto_ce_bwd.cu", "pallas_proto_ce.py:130",
+         ssl_launches[3], proto_times["dxs"]),
+        ("proto_ce_dws", "proto_ce_bwd.cu", "pallas_proto_ce.py:150",
+         ssl_launches[4], proto_times["dws"]),
+    ]
+    # library_ms: no single PyTorch call computes any of these functions;
+    # the attention kernels' two-call yardstick is reported beside it
     print(json.dumps({"kernels": [{
-        "name": "fused_apla_attn_fwd",
-        "route": "cuda",
-        "source": "apla_tpu_torch/csrc/fused_apla_attn_fwd.cu",
-        "replaces": "apla_tpu/ops/pallas_apla_attn.py:105",
-        "launches": fwd_launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "fused_apla_attn_bwd",
-        "route": "cuda",
-        "source": "apla_tpu_torch/csrc/fused_apla_attn_bwd.cu",
-        "replaces": "apla_tpu/ops/pallas_apla_attn.py:131",
-        "launches": bwd_launches,
-        "max_abs_err": bwd_err,
-        "ms": bwd_ms,
-        "plain_ms": bwd_plain_ms,
-    }]}))
+        "name": name, "route": "cuda",
+        "source": f"apla_tpu_torch/csrc/{src}",
+        "replaces": f"apla_tpu/ops/{tpu}",
+        "launches": launches,
+        "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None,
+        **({"library_two_calls_ms": t["library_two_calls_ms"]}
+           if "library_two_calls_ms" in t else {}),
+    } for name, src, tpu, launches, t in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,13 @@
-"""chip_smoke.py holds the shipped recipe and refuses to run here.
+"""chip_smoke.py holds the shipped recipes and refuses to run here.
 
-The script builds its model and its training run from a Python dict (the
-card's machine has no PyYAML); every value in that dict must be the ImageNet
-ViT-B APLA-128 recipe's as `load_merged_params` reads it.  Without a CUDA
-device the script must exit non-zero and print no `"ok": true` line.  Its
-training phase is rehearsed here on a tiny model, with the kernels' plain
-versions counted as launches.
+The script builds its models and its training runs from Python dicts (the
+card's machine has no PyYAML); every value in them must be the ImageNet
+ViT-B APLA-128 recipe's and the ISIC2019 DINOv2 recipe's as
+`load_merged_params` reads them, and every change the script makes is in
+its cuts dicts.  Without a CUDA device the script must exit non-zero and
+print no `"ok": true` line.  Its supervised and SSL training phases are
+rehearsed here on tiny models, with the kernels' plain versions counted as
+launches.
 """
 
 import copy
@@ -24,6 +26,7 @@ from apla_tpu_torch.wrapper import build_apla_config, build_vit_config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPE_YML = "params/finetune/dinov2/ImageNet/vit_b/apla.yml"
+SSL_YML = "params/pretrain/dinov2/ISIC2019/vit_b/apla.yml"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -103,6 +106,122 @@ def test_recipe_dict_is_the_yaml():
     assert smoke.RECIPE["dataset_params"]["device_augment"] is True
     assert set(smoke.SMOKE_CUTS) == {"dataset_params", "training_params"}
     assert smoke.SMOKE_CUTS["dataset_params"]["synthetic_classes"] == 1000
+
+
+def test_ssl_recipe_dict_is_the_yaml():
+    """Every field of SSL_RECIPE has the ISIC2019 DINOv2 recipe's value;
+    phase 6b's changes are all in SSL_CUTS, and the run they give is the
+    ViT-B/14 APLA-128 DINO + iBOT recipe the script claims."""
+    from apla_tpu_torch.ssl.dinov2 import DINOv2Wrapper
+    smoke = _chip_smoke()
+    yml = load_merged_params(os.path.join(ROOT, SSL_YML))
+    assert _subdict_mismatches(smoke.SSL_RECIPE, yml) == []
+    cuts = smoke.SSL_CUTS
+    assert cuts["dataset_params"] == {
+        "dataset": "Synthetic", "synthetic_classes": 8,
+        "synthetic_size": 256, "synthetic_img_size": 256,
+        "device_augment": True}
+    assert cuts["model_params"]["pretrained"] is False
+    apla = cuts["model_params"]["adaptation"]["params"]
+    assert apla["partial_size"] == 128
+    assert apla["inds_path"] == yml.model_params.adaptation.params.inds_path
+    assert cuts["training_params"] == {"epochs": 1, "log_every": 1}
+    assert set(cuts) == {"dataset_params", "model_params",
+                         "training_params"}
+    # what the port builds from the recipe with its cuts
+    params = smoke._run_params(smoke.SSL_RECIPE, cuts, "/nonexistent",
+                               torch.device("cpu"))
+    w = DINOv2Wrapper(params)
+    cfg = w.build_vit_config()
+    assert (cfg.embed_dim, cfg.depth, cfg.num_heads, cfg.patch_size,
+            cfg.img_size) == (768, 12, 12, 14, 518)
+    assert cfg.gelu_tanh and cfg.use_fused_apla and cfg.has_layerscale
+    assert cfg.layerscale_init == 1e-5
+    w.set_crops_params()
+    assert dict(w.crops_params) == {"n_global_crops": 2, "n_local_crops": 8,
+                                    "global_crops_size": 224,
+                                    "local_crops_size": 98}
+    d2 = params["model_params"]["dinov2"]
+    assert d2["fused_proto_ce"] == "ibot"
+    assert d2["dino"]["head_n_prototypes"] == 65536
+    assert (224 // 14) ** 2 + 1 == 257 and (98 // 14) ** 2 + 1 == 50
+    # the iBOT buffer at b64: 2 global crops x 64 x ceil(256 * 0.5)
+    assert 2 * 64 * 128 == smoke.PROTO_CASES[0][0]
+
+
+def _tiny_ssl(smoke, monkeypatch):
+    """SSL_RECIPE cut to the tiny synthetic DINOv2 model (ViT-Ti/8 at 32 px,
+    1024 prototypes of 64), b16, 4 steps, in-process loaders."""
+    tiny = copy.deepcopy(smoke.SSL_RECIPE)
+    mp = tiny["model_params"]
+    mp["backbone_type"] = "vit_tiny"
+    mp["transformers_params"]["student"].update(pre_img_size=32,
+                                                patch_size=8)
+    for h in ("dino", "ibot"):
+        mp["dinov2"][h].update(head_n_prototypes=1024,
+                               head_bottleneck_dim=64, head_hidden_dim=256)
+    dp = tiny["dataset_params"]
+    dp.update(ssl_global_size=32, ssl_local_size=16)
+    resize = {"apply": True, "height": 32, "width": 32}
+    dp["train_transforms"]["Resize"] = resize
+    dp["val_transforms"] = dp["test_transforms"] = {
+        "Resize": resize, "CenterCrop": {"apply": True, "height": 32,
+                                         "width": 32}, "Normalize": True}
+    for ld in tiny["dataloader_params"].values():
+        ld.update(batch_size=16, num_workers=0)
+    cuts = copy.deepcopy(smoke.SSL_CUTS)
+    cuts["dataset_params"].update(synthetic_size=64, synthetic_img_size=32)
+    cuts["model_params"]["adaptation"]["params"] = {"partial_size": 16}
+    del tiny["model_params"]["adaptation"]["params"]["inds_path"]
+    monkeypatch.setattr(smoke, "SSL_RECIPE", tiny)
+    monkeypatch.setattr(smoke, "SSL_CUTS", cuts)
+
+
+def _count_plain_versions(monkeypatch):
+    """On CPU tensors the wrappers run the plain versions, which count
+    here as the kernels' launches."""
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.ops import proto_ce as pc
+
+    def counting(module, ref, wrapper):
+        fn = getattr(module, ref)
+
+        def counted(*args, **kwargs):
+            getattr(module, wrapper).launches += 1
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(module, ref, counted)
+
+    for module, names in ((fa, ("fused_apla_attn_fwd",
+                                "fused_apla_attn_bwd")),
+                          (pc, ("proto_ce_fwd", "proto_ce_dxs",
+                                "proto_ce_dws"))):
+        for name in names:
+            counting(module, f"{name}_reference", name)
+
+
+def test_ssl_phase_rehearsal(monkeypatch):
+    """Phase 6b on the tiny DINOv2 model on the CPU: the launch counts
+    (36 fused forwards, 24 backwards and one of each prototype-CE kernel
+    per step, 12 forwards per kNN embed call), finite loss terms, frozen
+    weights kept, the teacher and centers moved, the checkpoint, and the
+    fused-vs-plain bounds with their two backward faults."""
+    smoke = _chip_smoke()
+    _tiny_ssl(smoke, monkeypatch)
+    _count_plain_versions(monkeypatch)
+    monkeypatch.setattr(smoke, "_ssl_rate",
+                        lambda *a: (1.0, 0.0, (lambda *b: None, None, None)))
+    monkeypatch.setattr(smoke, "_profile_step",
+                        lambda fn: (1.0, 1.0, {}, [], []))
+    # the script's bounds are set from ViT-B's readings on the card; this
+    # model on the CPU reads |dloss|/|loss| 4.4e-5 (ibot_loss) and a worst
+    # per-tensor gradient error of 0.0020, so the rehearsal holds it about
+    # 5x above those (the controls read 0.27 and 0.32 and must still fail)
+    monkeypatch.setattr(smoke, "SSL_LOSS_REL_TOL", 2.5e-4)
+    monkeypatch.setattr(smoke, "SSL_GRAD_REL_TOL", 0.01)
+    launches, rates = smoke.phase_ssl(torch.device("cpu"))
+    embed_calls = 2 * 4 + 4 + 4
+    assert launches == (12 * (3 * 4 + embed_calls), 12 * 2 * 4, 4, 4, 4)
+    assert set(rates) == {"plain", "fused"}
 
 
 def test_training_phase_rehearsal(monkeypatch):

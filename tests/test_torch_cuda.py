@@ -8,13 +8,15 @@ PyTorch; there, skip tests/conftest.py (it sets up JAX):
 Each kernel is held against its plain PyTorch version on the same bf16
 tensors.  Bound: 2e-2 of the reference's largest magnitude, per output
 (the two round p, o, dO, ds and the outputs to bf16 after f32 sums taken
-in different orders).
+in different orders; the prototype-CE kernels round ds to bf16 as their
+plain versions do).
 """
 
 import pytest
 import torch
 
 from apla_tpu_torch.ops import fused_apla_attn as tfa
+from apla_tpu_torch.ops import proto_ce as tpc
 
 REL_TOL = 2e-2
 
@@ -161,3 +163,92 @@ def test_fused_apla_attn_bwd_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="inds"):
         tfa.fused_apla_attn_bwd(qkv, w, g, inds.cpu(), 12, 0.125)
     assert tfa.fused_apla_attn_bwd.launches == before
+
+
+def _proto_inputs(device, r, k, seed):
+    gen = torch.Generator().manual_seed(seed)
+
+    def unit(shape, dim):
+        x = torch.randn(shape, generator=gen)
+        return (x / torch.linalg.vector_norm(x, dim=dim, keepdim=True)).to(
+            device, torch.bfloat16)
+
+    return (unit((r, 256), -1), unit((256, k), 0), unit((r, 256), -1),
+            unit((256, k), 0), (0.1 * torch.randn(k, generator=gen)).to(device),
+            torch.rand(r, generator=gen).to(device))
+
+
+def _proto_outputs(fns, args, tt):
+    xs, ws, xt, wt, c, g = args
+    ce, ls, lt = fns[0](xs, ws, xt, wt, c, tt, 0.1)
+    b = (xs, ws, xt, wt, c, tt, 0.1, ls, lt, g)
+    return ce, ls, lt, fns[1](*b), fns[2](*b)
+
+
+_PROTO_KERNELS = (tpc.proto_ce_fwd, tpc.proto_ce_dxs, tpc.proto_ce_dws)
+_PROTO_PLAIN = (tpc.proto_ce_fwd_reference, tpc.proto_ce_dxs_reference,
+                tpc.proto_ce_dws_reference)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k", [
+    (2048, 65536),    # an iBOT site (many row tiles, no K split)
+    (128, 65536),     # the DINO global site (K split over blocks)
+    (1024, 4096),     # dws with row chunks
+    (1000, 1000),     # ragged R and K
+    (70, 136),        # one row tile, ragged
+    (1, 8),           # one row, one 16-byte column chunk
+])
+def test_proto_ce_kernels_match_plain(cuda_device, r, k):
+    args = _proto_inputs(cuda_device, r, k, seed=r + k)
+    before = [f.launches for f in _PROTO_KERNELS]
+    for tt in (0.04, 0.07):
+        got = _proto_outputs(_PROTO_KERNELS, args, tt)
+        torch.cuda.synchronize()
+        ref = _proto_outputs(_PROTO_PLAIN, args, tt)
+        for name, a, b in zip(("ce", "lse_s", "lse_t", "dxs", "dws"), got,
+                              ref):
+            assert a.shape == b.shape and a.dtype == torch.float32, name
+            assert torch.isfinite(a).all(), name
+            err = (a - b).abs().max().item()
+            assert err <= REL_TOL * b.abs().max().item(), (name, err)
+    assert [f.launches for f in _PROTO_KERNELS] == [n + 2 for n in before]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k", [(128, 65536), (1024, 4096), (2048, 8192)])
+def test_proto_ce_kernels_are_deterministic(cuda_device, r, k):
+    """Partials are merged in a fixed order, no atomics: reruns are
+    equal."""
+    args = _proto_inputs(cuda_device, r, k, seed=1)
+    a = _proto_outputs(_PROTO_KERNELS, args, 0.05)
+    b = _proto_outputs(_PROTO_KERNELS, args, 0.05)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_proto_ce_autograd_runs_the_kernels(cuda_device):
+    xs, ws, xt, wt, c, g = _proto_inputs(cuda_device, 300, 2048, seed=2)
+    xs, ws = xs.float().requires_grad_(), ws.float().requires_grad_()
+    counts = [f.launches for f in _PROTO_KERNELS]
+    ce = tpc.proto_ce(xs, ws, xt, wt, c, 0.04, 0.1)
+    (ce * g).sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in _PROTO_KERNELS] == [n + 1 for n in counts]
+    assert xs.grad.dtype == ws.grad.dtype == torch.float32
+    assert torch.isfinite(xs.grad).all() and torch.isfinite(ws.grad).all()
+
+
+@pytest.mark.cuda
+def test_proto_ce_raises_instead_of_falling_back(cuda_device):
+    xs, ws, xt, wt, c, g = _proto_inputs(cuda_device, 16, 64, seed=3)
+    before = [f.launches for f in _PROTO_KERNELS]
+    with pytest.raises(ValueError, match="bottleneck dim 256"):
+        tpc.proto_ce_fwd(xs[:, :128], ws[:128], xt[:, :128], wt[:128], c,
+                         0.04, 0.1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tpc.proto_ce_fwd(xs, ws[:, :60], xt, wt[:, :60], c[:60], 0.04, 0.1)
+    with pytest.raises(ValueError, match="xs on"):
+        tpc.proto_ce_fwd(xs, ws, xt.cpu(), wt, c, 0.04, 0.1)
+    assert [f.launches for f in _PROTO_KERNELS] == before

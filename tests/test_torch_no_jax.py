@@ -3,9 +3,11 @@ the card's machine lacks (PIL, sklearn, yaml, pandas).
 
 A fresh interpreter with a `sys.meta_path` blocker on those packages imports
 every module of the port, runs a tiny APLA classifier forward through the
-fused path, round-trips it through a serving artifact, and takes one
-training step (device augmentation, mixup targets, accumulation) through
-`make_train_step`.
+fused path, round-trips it through a serving artifact, takes one training
+step (device augmentation, mixup targets, accumulation) through
+`make_train_step`, and runs the SSL pieces: device multi-crop with blur and
+solarize, the iBOT mask collate, the DINO head and the prototype CE with
+its backward.
 """
 
 import os
@@ -88,6 +90,35 @@ state, m = step(TrainState(0, model, opt), batch, 1e-3,
                 torch.Generator().manual_seed(0))
 assert state.step == 1 and torch.isfinite(m["loss"])
 assert not torch.equal(model.fc.kernel, before)
+
+from apla_tpu_torch.data.device_augs import (crop_cfgs_from_strategy,
+                                             device_multicrop)
+from apla_tpu_torch.ops.proto_ce import proto_ce
+from apla_tpu_torch.ssl.dinov2 import IBotCollate, MaskingGenerator
+from apla_tpu_torch.ssl.heads import (dino_head_bottleneck, dino_head_last_w,
+                                      init_dino_head)
+from apla_tpu_torch.ssl.multicrop import STRATEGIES
+
+cfgs = crop_cfgs_from_strategy(STRATEGIES["dinov2"], (0.5,) * 3, (0.25,) * 3,
+                               g_size=32, l_size=16)
+raw = torch.randint(0, 256, (2, 36, 36, 3), dtype=torch.uint8)
+g_crops, l_crops = device_multicrop(raw, torch.Generator().manual_seed(0),
+                                    cfgs, 2, torch.float32)
+assert g_crops.shape == (4, 32, 32, 3) and l_crops.shape == (16, 16, 16, 3)
+collate = IBotCollate(2, 8, (0.1, 0.5), 0.5, 16,
+                      MaskingGenerator((4, 4), max_num_patches=8),
+                      raw_mode=True, seed=0, batches_per_epoch=1)
+out = collate([{"image": raw[i].numpy(), "label": i} for i in range(2)],
+              batch_key=(0, 0))
+assert out["collated_masks"].shape == (4, 16)
+head = init_dino_head(128, 64, hidden_dim=32, bottleneck_dim=16,
+                      generator=torch.Generator().manual_seed(0))
+emb = torch.randn(5, 128, requires_grad=True)
+xs = dino_head_bottleneck(emb, head)
+ce = proto_ce(xs, dino_head_last_w(head, False), xs.detach(),
+              dino_head_last_w(head), torch.zeros(64), 0.05, 0.1)
+ce.sum().backward()
+assert torch.isfinite(emb.grad).all() and head.last_v.grad is not None
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("MODULES", len(names))
@@ -100,4 +131,4 @@ def test_port_imports_and_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n_modules = int(proc.stdout.split("MODULES")[-1])
-    assert n_modules >= 32, proc.stdout
+    assert n_modules >= 40, proc.stdout

@@ -1,0 +1,144 @@
+"""The port's prototype CE (`apla_tpu_torch/ops/proto_ce.py`) against the
+JAX package's Pallas kernel (`apla_tpu.ops.pallas_proto_ce.proto_ce`), run
+in interpret mode as the JAX package's own tests run it on the CPU.
+
+On CPU tensors the port's wrappers run the plain versions, so this holds
+the plain forward, `ProtoCE`'s custom backward and the wrappers' contract
+(the teacher side gets no gradient, the teacher temperature changes from
+call to call) against the TPU kernel's function.  Inputs are numpy draws
+from a seed.  Tolerance: both sides round the inputs to bf16 and take f32
+products and logits, so they differ by the order of f32 sums: 1e-4
+relative to the largest magnitude of each output (ce, dxs, dws; ds is
+rounded to bf16 on both sides from f32 values that agree to ~1e-6).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apla_tpu.ops import pallas_proto_ce as ppc
+from apla_tpu_torch.ops import proto_ce as tpc
+
+TOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _interpret():
+    old = ppc.INTERPRET
+    ppc.INTERPRET = True
+    yield
+    ppc.INTERPRET = old
+
+
+def _inputs(seed, R, D, K):
+    rng = np.random.default_rng(seed)
+
+    def unit(shape, axis):
+        x = rng.standard_normal(shape).astype(np.float32)
+        return x / np.linalg.norm(x, axis=axis, keepdims=True)
+
+    return (unit((R, D), -1), unit((D, K), 0), unit((R, D), -1),
+            unit((D, K), 0), (0.1 * rng.standard_normal(K)).astype(np.float32),
+            rng.uniform(size=R).astype(np.float32))
+
+
+def _jax(xs, ws, xt, wt, c, w_rows, tt):
+    def loss(xs, ws):
+        ce = ppc.proto_ce(xs, ws, xt, wt, c, jnp.float32(tt), 0.1)
+        return jnp.sum(ce * w_rows), ce
+
+    (_, ce), (dxs, dws) = jax.value_and_grad(loss, argnums=(0, 1),
+                                              has_aux=True)(xs, ws)
+    return [np.asarray(a) for a in (ce, dxs, dws)]
+
+
+def _torch(xs, ws, xt, wt, c, w_rows, tt):
+    xs_t = torch.from_numpy(xs).requires_grad_()
+    ws_t = torch.from_numpy(ws).requires_grad_()
+    ce = tpc.proto_ce(xs_t, ws_t, torch.from_numpy(xt), torch.from_numpy(wt),
+                      torch.from_numpy(c), tt, 0.1)
+    (ce * torch.from_numpy(w_rows)).sum().backward()
+    return [a.detach().numpy() for a in (ce, xs_t.grad, ws_t.grad)]
+
+
+def _close(got, ref, names=("ce", "dxs", "dws")):
+    for name, a, b in zip(names, got, ref):
+        assert a.shape == b.shape, name
+        err = np.abs(a - b).max()
+        assert err <= TOL * np.abs(b).max(), (name, err, np.abs(b).max())
+
+
+@pytest.mark.parametrize("R,D,K", [
+    (10, 16, 300),       # one block, ragged in every dim
+    (24, 256, 512),      # the recipe's bottleneck width
+    (37, 64, 1000),      # ragged R and K
+])
+def test_matches_jax_kernel(R, D, K):
+    args = _inputs(R + K, R, D, K)
+    for tt in (0.04, 0.07):       # the teacher temperature changes per call
+        _close(_torch(*args, tt), _jax(*args, tt))
+
+
+def test_matches_jax_on_a_multi_block_grid(monkeypatch):
+    """Rows and prototypes over several of the TPU kernel's tiles (its
+    online rescaling and both accumulator revisits)."""
+    monkeypatch.setattr(ppc, "_BR", 16)
+    monkeypatch.setattr(ppc, "_BK", 256)
+    args = _inputs(7, 50, 32, 900)
+    _close(_torch(*args, 0.04), _jax(*args, 0.04))
+
+
+def test_wrappers_match_the_plain_versions_and_each_other():
+    xs, ws, xt, wt, c, g = (torch.from_numpy(a)
+                            for a in _inputs(3, 20, 32, 200))
+    ce, lse_s, lse_t = tpc.proto_ce_fwd(xs, ws, xt, wt, c, 0.05, 0.1)
+    bf = torch.bfloat16
+    s = xs.to(bf).float() @ ws.to(bf).float() / 0.1
+    t = (xt.to(bf).float() @ wt.to(bf).float() - c) / 0.05
+    assert torch.allclose(lse_s, torch.logsumexp(s, -1), rtol=1e-6)
+    assert torch.allclose(lse_t, torch.logsumexp(t, -1), rtol=1e-6)
+    ref = -(torch.softmax(t, -1) * torch.log_softmax(s, -1)).sum(-1)
+    assert torch.allclose(ce, ref, rtol=1e-5, atol=1e-5)
+    dxs = tpc.proto_ce_dxs(xs, ws, xt, wt, c, 0.05, 0.1, lse_s, lse_t, g)
+    dws = tpc.proto_ce_dws(xs, ws, xt, wt, c, 0.05, 0.1, lse_s, lse_t, g)
+    assert dxs.shape == (20, 32) and dws.shape == (32, 200)
+    assert dxs.dtype == dws.dtype == torch.float32
+    # CPU calls run the plain versions and launch nothing
+    assert tpc.proto_ce_fwd.launches == tpc.proto_ce_dxs.launches == \
+        tpc.proto_ce_dws.launches == 0
+
+
+def test_teacher_side_gets_no_gradient():
+    xs, ws, xt, wt, c, _ = (torch.from_numpy(a).requires_grad_()
+                            for a in _inputs(4, 8, 16, 256))
+    ce = tpc.ProtoCE.apply(xs, ws, xt, wt, c, 0.07, 0.1)
+    ce.sum().backward()
+    assert xs.grad is not None and ws.grad is not None
+    assert xt.grad is None and wt.grad is None and c.grad is None
+    # the public entry detaches the teacher side outright
+    out = tpc.proto_ce(xs, ws, xt, wt, c, 0.07, 0.1)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), ce.detach())
+
+
+def test_split_work_covers_every_tile_without_empty_splits():
+    for n_own, n_loop in ((256, 1024), (2, 1024), (16, 1024), (16, 16),
+                          (1, 1), (3, 5), (1024, 256)):
+        per, n = tpc.split_work(n_own, n_loop, 132)
+        assert per * n >= n_loop and per * (n - 1) < n_loop
+        assert n_own * n <= max(132, n_own) + n_own
+
+
+@pytest.mark.parametrize("bad,match", [
+    ((10, 128, 256), "bottleneck dim 256"),
+    ((10, 256, 260), "multiple of 8"),
+])
+def test_cuda_contract_is_checked_before_any_launch(bad, match):
+    """The checks the CUDA path makes run on any tensors: what the kernels
+    cannot take raises instead of falling back."""
+    R, D, K = bad
+    xs, ws, xt, wt, c, _ = (torch.from_numpy(a) for a in _inputs(5, R, D, K))
+    with pytest.raises(ValueError, match=match):
+        tpc._cuda_inputs(xs, ws, xt, wt, c)

@@ -7,7 +7,8 @@ moves, the checkpoint reloads, the test table prints.  Then: a run stopped
 by SIGTERM mid-epoch leaves a checkpoint, and resuming from it finishes
 with exactly the weights of an uninterrupted run (the shuffle and the
 per-step draws are deterministic, so the skipped batches replay); the
-`python -m apla_tpu_torch.main` entry; and every knob the port does not
+`python -m apla_tpu_torch.main` entry; the kNN rows of the test table
+(`knn_eval`); the CPU only when asked for; and every knob the port does not
 have yet raises naming its ROADMAP item.
 """
 
@@ -44,6 +45,7 @@ def _params(save_dir, epochs=2, size=256, **training):
     params.training_params.update(epochs=epochs, log_every=1,
                                   save_dir=str(save_dir), **training)
     params.dataset_params.synthetic_size = size
+    params.system_params.device = "cpu"
     for ld in params.dataloader_params.values():
         ld.num_workers = 0
     return params
@@ -55,7 +57,8 @@ def _snapshot(tensors):
 
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
-    wrapper = DefaultWrapper(_params(tmp_path_factory.mktemp("ckpt")))
+    wrapper = DefaultWrapper(_params(tmp_path_factory.mktemp("ckpt"),
+                                     knn_eval=True))
     wrapper.instantiate()
     trainer = Trainer(wrapper)
     frozen = _snapshot(trainer.state.frozen())
@@ -105,8 +108,9 @@ def test_test_table(trained, capsys):
     out = capsys.readouterr().out
     assert "TEST RESULTS" in out and "test_accuracy" in out
     assert results["test_accuracy"] > 0.3          # chance is 0.1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.knn_evaluate(trainer.wrapper.dataloaders.testloader)
+    # knn_eval: the kNN rows from the feature bank of the training images
+    assert "knn_test_accuracy" in out
+    assert results["knn_test_accuracy"] > 0.3
 
 
 def _run(save_dir, stop_at=None, restore=False):
@@ -147,7 +151,7 @@ def test_cli_tests_a_checkpoint(trained, capsys):
     trainer, _, _ = trained
     results = tmain.run_cli(["--params_path", PARAMS, "--test",
                              "--pretrained_path", trainer.checkpoint_path,
-                             "--num_workers", "0"])
+                             "--num_workers", "0", "--device", "cpu"])
     assert "TEST RESULTS" in capsys.readouterr().out
     # the YAML's own test set (512 images): the trained weights, not chance
     assert results["test_accuracy"] > 0.3
@@ -161,7 +165,6 @@ def test_cli_tests_a_checkpoint(trained, capsys):
     ("system_params", "param_sharding", "fsdp"),
     ("model_params", "pretrained", True),
     ("model_params", "quantize_frozen", True),
-    ("training_params", "knn_eval", True),
     ("transfer_learning_params", "pretrained_path", "/some/ckpt"),
     ("dataset_params", "dataset", "ImageNet"),
     ("optimization_params", "LAMB", None),
@@ -176,12 +179,28 @@ def test_unported_knobs_raise(tmp_path, where, key, value):
         DefaultWrapper(params).instantiate()
 
 
-@pytest.mark.parametrize("flag", ["--byol", "--simsiam", "--dino",
-                                  "--dinov2"])
+@pytest.mark.parametrize("flag", ["--byol", "--simsiam", "--dino"])
 def test_cli_ssl_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmain.main(copy.deepcopy(load_merged_params(PARAMS)),
                    tmain.parse_arguments(["--params_path", PARAMS, flag]))
+
+
+def test_a_missing_card_raises_unless_the_cpu_is_asked_for(tmp_path,
+                                                           monkeypatch):
+    """The entry points run on the card; without one they raise, and the
+    CPU is taken only when `system_params.device` (`--device`) says so."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = _params(tmp_path)
+    del params.system_params["device"]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        DefaultWrapper(params)
+    params.system_params.device = "cuda:0"
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        DefaultWrapper(params)
+    args = tmain.parse_arguments(["--params_path", PARAMS, "--device", "cpu"])
+    params = tmain.update_params_from_args(_params(tmp_path), args)
+    assert DefaultWrapper(params).device == torch.device("cpu")
 
 
 def test_profile_dir_traces_steps_10_to_20(tmp_path, capsys):

@@ -148,6 +148,43 @@ def test_vit_features_all_tokens_matches_jax():
     _close(got, ref, "float32")
 
 
+@pytest.mark.parametrize("fused", [True, False])
+def test_masks_and_packed_segments_match_jax(fused):
+    """float32: the iBOT mask token in place of masked patch embeddings,
+    and 3 crops of each of 2 images (crop-major) packed into one
+    block-diagonal sequence per image, which also equals running the crops
+    one by one."""
+    jcfg, tcfg = _configs("float32", use_fused_apla=fused)
+    trainable, frozen, model = _pair(jcfg, tcfg)
+    rng = np.random.default_rng(7)
+    token = rng.standard_normal((1, 1, 128)).astype(np.float32)
+    frozen["backbone"]["mask_token"] = token
+    model.backbone.mask_token = torch.nn.Parameter(torch.from_numpy(token),
+                                                   requires_grad=False)
+    x = _images(n=6, seed=8)
+    masks = rng.uniform(size=(6, 16)) < 0.4
+    ref = jvit.vit_features(frozen["backbone"], jnp.asarray(x), jcfg,
+                            trainable=trainable["backbone"],
+                            return_all_tokens=True, masks=jnp.asarray(masks))
+    with torch.no_grad():
+        got = tvit.vit_features(model.backbone, torch.from_numpy(x), tcfg,
+                                return_all_tokens=True,
+                                masks=torch.from_numpy(masks))
+        unmasked = tvit.vit_features(model.backbone, torch.from_numpy(x),
+                                     tcfg, return_all_tokens=True)
+    _close(got, ref, "float32")
+    assert not torch.allclose(got, unmasked)
+    ref = jvit.vit_features(frozen["backbone"], jnp.asarray(x), jcfg,
+                            trainable=trainable["backbone"], pack_segments=3)
+    with torch.no_grad():
+        got = tvit.vit_features(model.backbone, torch.from_numpy(x), tcfg,
+                                pack_segments=3)
+        alone = tvit.vit_features(model.backbone, torch.from_numpy(x), tcfg)
+    assert got.shape == (6, 128)
+    _close(got, ref, "float32")
+    _close(got, alone, "float32")
+
+
 def test_served_at_another_grid_matches_jax():
     """pos_embed trained on a 64-px grid (8x8 patches), served at 32 px:
     both forwards interpolate it the same way."""
