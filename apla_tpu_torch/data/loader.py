@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import multiprocessing
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -60,10 +61,16 @@ class _Batches(torch.utils.data.Dataset):
 
 
 class _BatchKeys:
-    """The loader's batch keys for its current epoch, anew at each pass."""
+    """The loader's batch keys for its current epoch, anew at each pass.
+
+    It holds the loader weakly: the loader owns the torch loader that owns
+    this sampler, and with that cycle a dropped loader was left to the
+    cyclic collector, whose teardown of the workers waited out torch's 5 s
+    join timeout for each of them.  Without it the workers stop as soon as
+    the loader is dropped."""
 
     def __init__(self, loader):
-        self.loader = loader
+        self.loader = weakref.proxy(loader)
 
     def __iter__(self):
         epoch = self.loader.epoch

@@ -13,6 +13,11 @@ rather than falling back: the JAX package's warn-and-fall-back ladder exists
 for Mosaic's VMEM limits and has no counterpart on the card.  The kernel
 applies no dropout to p, in JAX or here, so training with `attn_drop > 0`
 on the fused path raises; inference ignores `attn_drop`.
+
+`use_flash` (the recipes' `is_memory_efficient`) sends the attention of
+`qkv_and_attend` through `ops.mha`, the hand-written memory-efficient
+attention kernels on a CUDA tensor, unless `attn_drop` > 0 (the JAX package
+then takes the plain path too).
 """
 
 from __future__ import annotations
@@ -20,8 +25,9 @@ from __future__ import annotations
 import torch
 
 from .apla_proj import apla_proj
-from .flash_attention import flash_mha, plain_mha
+from .flash_attention import plain_mha
 from .fused_apla_attn import fused_apla_attention
+from .mha import mha
 from .quant import maybe_quantized_dot
 
 
@@ -48,14 +54,13 @@ def qkv_and_attend(x, qkv_kernel, qkv_bias, num_heads, scale=None,
     if scale is None:
         scale = head_dim ** -0.5
     qkv = maybe_quantized_dot(x, qkv_kernel, qkv_bias)
-    qkv = qkv.reshape(B, N, 3, num_heads, head_dim)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B, N, H, Dh]
-
     if use_flash and attn_drop == 0.0:
-        out = flash_mha(q, k, v, scale=scale, segment_len=segment_len)
-        return out.reshape(B, N, C)
+        # the packed [B, N, 3C] qkv as the kernels take it (flash_mha's
+        # function without its packing copy); dqkv comes back packed
+        return mha(qkv, num_heads, scale, segment_len)
 
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))    # [B, H, N, Dh]
+    qkv = qkv.reshape(B, N, 3, num_heads, head_dim)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B,H,N,Dh]
     out = plain_mha(
         q, k, v, scale, segment_len=segment_len, logits_f32=logits_f32,
         attn_dropout=lambda a: dropout(a, attn_drop, generator,

@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
@@ -80,3 +82,28 @@ def resource_report(source: str) -> str:
 def load_library(source: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<source>`; one handle per process."""
     return ctypes.CDLL(str(build_library(source)))
+
+
+def device_index(t: torch.Tensor) -> int:
+    """The CUDA device index of tensor `t` (the current device if unset)."""
+    return t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+
+
+@functools.cache
+def device_smem(library, prepare: str, dev: int) -> int:
+    """Runs `library()`'s function `prepare` (opts its kernels in to their
+    dynamic shared memory) once per device; returns the device's limit."""
+    with torch.cuda.device(dev):
+        have = getattr(library(), prepare)(dev)
+    if have < 0:
+        raise RuntimeError(f"could not set the kernel's shared memory limit "
+                           f"on cuda:{dev}")
+    return have
+
+
+def check_smem(need: int, have: int, what: str) -> None:
+    if need > have:
+        raise ValueError(
+            f"shared memory too small: {what} needs {need} bytes of dynamic "
+            f"shared memory per block, the device allows {have}")

@@ -1,16 +1,19 @@
 """Memory-efficient attention entry point.
 
-Counterpart of `apla_tpu/ops/flash_attention.py`.  Only the plain softmax
-path (`_jnp_mha`) is ported, as `plain_mha`, for CPU tensors; it is also the
-plain attention of `ops.attention.qkv_and_attend`.  On the TPU `flash_mha`
-runs the repo's `pallas_mha` kernel (ROADMAP B5) or JAX's library flash
-kernel; the Hopper kernel for it is not written yet, so a CUDA tensor raises
-rather than silently taking a plain path.
+Counterpart of `apla_tpu/ops/flash_attention.py`.  `flash_mha` runs
+`ops.mha` for every N: on a CUDA tensor the hand-written kernels
+(`csrc/mha_{fwd,bwd}.cu`, the port of `pallas_mha.py`), which tile the keys,
+so the port needs no counterpart of the TPU's library flash kernel for
+N > 512; on a CPU tensor their plain versions.  `plain_mha` is the plain
+softmax attention of `ops.attention.qkv_and_attend` for `use_flash=False`
+(`_jnp_mha` in the JAX package).
 """
 
 from __future__ import annotations
 
 import torch
+
+from .mha import mha
 
 
 def plain_mha(q, k, v, scale, segment_len: int = 0, logits_f32: bool = True,
@@ -37,11 +40,11 @@ def plain_mha(q, k, v, scale, segment_len: int = 0, logits_f32: bool = True,
 
 
 def flash_mha(q, k, v, scale: float = 1.0, segment_len: int = 0):
-    """q, k, v [B, N, H, Dh] -> [B, N, H, Dh]."""
-    if q.device.type != "cpu":
-        raise NotImplementedError(
-            "use_flash on a CUDA tensor needs the pallas_mha Hopper kernel, "
-            "not yet ported (ROADMAP B5); run with use_flash=False")
-    out = plain_mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    scale, segment_len=segment_len)
-    return out.transpose(1, 2)
+    """q, k, v [B, N, H, Dh] -> [B, N, H, Dh], differentiable in all three.
+
+    They are packed into one `[B, N, 3C]` tensor for the kernels;
+    `ops.attention.qkv_and_attend` hands `ops.mha.mha` the qkv matmul's
+    output directly and skips that copy."""
+    B, N, H, Dh = q.shape
+    qkv = torch.stack((q, k, v), dim=2).reshape(B, N, 3 * H * Dh)
+    return mha(qkv, H, scale, segment_len).reshape(B, N, H, Dh)

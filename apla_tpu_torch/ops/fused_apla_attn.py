@@ -28,34 +28,14 @@ import functools
 import torch
 
 from .apla_proj import assemble
-from .cuda_build import load_library
+from .cuda_build import check_smem, device_index, device_smem, \
+    load_library
+from .mha import (HEAD_DIM, attention_grads, merge_heads, mha_fwd_reference,
+                  split_heads)
 
 _SOURCE = "fused_apla_attn_fwd.cu"
 _BWD_SOURCE = "fused_apla_attn_bwd.cu"
-HEAD_DIM = 64          # the kernels' head dim (every ViT builder's)
 _KP = 64               # the backward pads the trainable columns to this
-
-
-def _heads(t, num_heads):
-    """[B, N, C] -> [B, H, N, Dh] in float32."""
-    B, N, C = t.shape
-    return t.reshape(B, N, num_heads, C // num_heads).transpose(1, 2).float()
-
-
-def _merge_heads(t):
-    """[B, H, N, Dh] -> [B, N, C]."""
-    B, H, N, dh = t.shape
-    return t.transpose(1, 2).reshape(B, N, H * dh)
-
-
-def _softmax_f32(q, k, scale, segment_len):
-    """f32 softmax of the masked scores q k^T * scale ([B, H, N, N])."""
-    N = q.shape[2]
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    if segment_len:
-        seg = torch.arange(N, device=q.device) // segment_len
-        s = s.masked_fill(seg[:, None] != seg[None, :], float("-inf"))
-    return torch.softmax(s, dim=-1)
 
 
 def fused_apla_attn_fwd_reference(qkv, w, num_heads: int, scale: float,
@@ -63,12 +43,12 @@ def fused_apla_attn_fwd_reference(qkv, w, num_heads: int, scale: float,
     """Plain version of the forward kernel, rounding where the TPU kernel
     rounds.
 
-    qkv [B, N, 3C], w [C, C] -> [B, N, C] in qkv.dtype.  Products are taken
-    in f32 on the upcast inputs (as `preferred_element_type=f32` does)."""
+    qkv [B, N, 3C], w [C, C] -> [B, N, C] in qkv.dtype: the attention of
+    `mha_fwd_reference` (rounded to qkv.dtype), then the projection with
+    products in f32 on the upcast inputs (as `preferred_element_type=f32`
+    does)."""
     dt = qkv.dtype
-    q, k, v = (_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
-    p = _softmax_f32(q, k, scale, segment_len).to(dt).float()
-    o = _merge_heads(torch.matmul(p, v)).to(dt)
+    o = mha_fwd_reference(qkv, num_heads, scale, segment_len)
     return torch.matmul(o.float(), w.to(dt).float()).to(dt)
 
 
@@ -84,19 +64,12 @@ def fused_apla_attn_bwd_reference(qkv, w, g, inds, num_heads: int,
     C = qkv.shape[-1] // 3
     g = g.to(dt)
     d_o = torch.matmul(g.float(), w.to(dt).float().t()).to(dt)
-    q, k, v = (_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
-    d_o = _heads(d_o, num_heads)
-    p = _softmax_f32(q, k, scale, segment_len)
-    pb = p.to(dt).float()
+    q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    dq, dk, dv, pb = attention_grads(q, k, v, split_heads(d_o, num_heads),
+                                     scale, segment_len, dt)
     o = torch.matmul(pb, v).to(dt)
-    dv = torch.matmul(pb.transpose(-1, -2), d_o)
-    dp = torch.matmul(d_o, v.transpose(-1, -2))
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    ds = (ds * scale).to(dt).float()
-    dq = torch.matmul(ds, k)
-    dk = torch.matmul(ds.transpose(-1, -2), q)
-    dqkv = torch.cat([_merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(dt)
-    o_cat = _merge_heads(o).reshape(-1, C).float()
+    dqkv = torch.cat([merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(dt)
+    o_cat = merge_heads(o).reshape(-1, C).float()
     g_t = g.index_select(-1, inds).reshape(-1, inds.numel()).float()
     return dqkv, torch.matmul(o_cat.t(), g_t)
 
@@ -177,38 +150,13 @@ def _bwd_library():
     return lib
 
 
-@functools.cache
-def _device_smem(library, prepare: str, dev: int) -> int:
-    """Runs `library()`'s function `prepare` (opts its kernels in to the
-    device's dynamic shared memory) once per device; returns the device's
-    limit."""
-    with torch.cuda.device(dev):
-        have = getattr(library(), prepare)(dev)
-    if have < 0:
-        raise RuntimeError(f"could not set the kernel's shared memory limit "
-                           f"on cuda:{dev}")
-    return have
-
-
-def _device_index(t) -> int:
-    return t.device.index if t.device.index is not None \
-        else torch.cuda.current_device()
-
-
-def _check_smem(need: int, have: int, what: str):
-    if need > have:
-        raise ValueError(
-            f"shared memory too small: {what} needs {need} bytes of dynamic "
-            f"shared memory per block, the device allows {have}")
-
-
 def _launch(qkv, w, num_heads, scale, segment_len):
     B, N, C = _check_cuda_args(qkv, w, num_heads, segment_len)
     lib = _library()
-    dev = _device_index(qkv)
-    _check_smem(lib.fused_apla_attn_fwd_smem_bytes(C),
-                _device_smem(_library, "fused_apla_attn_fwd_prepare", dev),
-                f"the forward at C={C}")
+    dev = device_index(qkv)
+    check_smem(lib.fused_apla_attn_fwd_smem_bytes(C),
+               device_smem(_library, "fused_apla_attn_fwd_prepare", dev),
+               f"the forward at C={C}")
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -252,11 +200,11 @@ def dw_chunks(m: int, c: int, kp: int, n_sm: int):
 def _launch_bwd(qkv, w, g, inds, num_heads, scale, segment_len):
     B, N, C = _check_bwd_args(qkv, w, g, inds, num_heads, segment_len)
     lib = _bwd_library()
-    dev = _device_index(qkv)
-    _check_smem(lib.fused_apla_attn_bwd_smem_bytes(),
-                _device_smem(_bwd_library, "fused_apla_attn_bwd_prepare",
-                             dev),
-                "the backward")
+    dev = device_index(qkv)
+    check_smem(lib.fused_apla_attn_bwd_smem_bytes(),
+               device_smem(_bwd_library, "fused_apla_attn_bwd_prepare",
+                           dev),
+               "the backward")
     k = inds.numel()
     kp = -(-k // _KP) * _KP
     g_t = torch.nn.functional.pad(g.index_select(-1, inds),

@@ -1,0 +1,247 @@
+"""Memory-efficient multi-head attention, softmax(q k^T * scale) v, and its
+backward.
+
+Counterpart of `apla_tpu/ops/pallas_mha.py` (`vmem_mha` and the custom VJP
+of `_vmem_mha_padded`).  Two hand-written CUDA kernels replace the TPU
+kernels:
+
+- `csrc/mha_fwd.cu` replaces `pallas_mha.py:_fwd_kernel`: per head, f32
+  scores masked past N and outside the row's segment, p normalised in f32
+  and rounded to the input dtype, p v accumulated in f32 and rounded once.
+- `csrc/mha_bwd.cu` replaces `pallas_mha.py:_bwd_kernel`: p recomputed,
+  `dv = bf16(p)^T dO`, `dp = dO v^T`, `ds = bf16(p (dp - rowsum(dp p))
+  scale)` on the f32 p, `dq = ds k`, `dk = ds^T q`, each rounded once.
+
+Both take q, k and v packed as the qkv matmul emits them, `[B, N, 3C]` with
+head h at columns `h*64 .. h*64+63` of each third, and mask the ragged edge
+of N themselves: the transpose and 16-row padding copies of `vmem_mha`'s
+`prep` are TPU layout choices, not part of the function.  The backward
+returns `dqkv` packed the same way.
+
+`mha_fwd` / `mha_bwd` are the wrappers: on a CPU tensor they run the plain
+PyTorch versions below (`*_reference`), on a CUDA tensor they launch the
+kernel or raise.  Each wrapper's `launches` counts its kernel launches (one
+per call, and nothing else).  `MemEffAttention` is the autograd `Function`
+over both, with the JAX custom VJP's contract: it saves qkv only and the
+backward recomputes p.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .cuda_build import check_smem, device_index, device_smem, \
+    load_library
+
+FWD_SOURCE = "mha_fwd.cu"
+BWD_SOURCE = "mha_bwd.cu"
+HEAD_DIM = 64          # the kernels' head dim (every ViT builder's)
+
+
+def split_heads(t, num_heads):
+    """[B, N, C] -> [B, H, N, Dh] in float32."""
+    B, N, C = t.shape
+    return t.reshape(B, N, num_heads, C // num_heads).transpose(1, 2).float()
+
+
+def merge_heads(t):
+    """[B, H, N, Dh] -> [B, N, C]."""
+    B, H, N, dh = t.shape
+    return t.transpose(1, 2).reshape(B, N, H * dh)
+
+
+def softmax_f32(q, k, scale, segment_len):
+    """f32 softmax of the masked scores q k^T * scale ([B, H, N, N]); with
+    `segment_len` > 0 a row sees only the columns of its own segment."""
+    N = q.shape[2]
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if segment_len:
+        seg = torch.arange(N, device=q.device) // segment_len
+        s = s.masked_fill(seg[:, None] != seg[None, :], float("-inf"))
+    return torch.softmax(s, dim=-1)
+
+
+def attention_grads(q, k, v, d_o, scale, segment_len, dt):
+    """The TPU backward's arithmetic on [B, H, N, Dh] float32 q, k, v, dO:
+    (dq, dk, dv, pb) in float32, with p recomputed, pb = p rounded to `dt`,
+    and ds = p (dp - rowsum(dp p)) scale on the f32 p, rounded to `dt`."""
+    p = softmax_f32(q, k, scale, segment_len)
+    pb = p.to(dt).float()
+    dv = torch.matmul(pb.transpose(-1, -2), d_o)
+    dp = torch.matmul(d_o, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (ds * scale).to(dt).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    return dq, dk, dv, pb
+
+
+def mha_fwd_reference(qkv, num_heads: int, scale: float,
+                      segment_len: int = 0):
+    """Plain version of the forward kernel, rounding where the TPU kernel
+    rounds: qkv [B, N, 3C] -> [B, N, C] in qkv.dtype.  Products are taken in
+    f32 on the upcast inputs (as `preferred_element_type=f32` does)."""
+    dt = qkv.dtype
+    q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    p = softmax_f32(q, k, scale, segment_len).to(dt).float()
+    return merge_heads(torch.matmul(p, v)).to(dt)
+
+
+def mha_bwd_reference(qkv, d_o, num_heads: int, scale: float,
+                      segment_len: int = 0):
+    """Plain version of the backward kernel (`pallas_mha.py:_bwd_kernel`'s
+    rounding points): qkv [B, N, 3C], d_o [B, N, C] (cotangent of the
+    forward's output) -> dqkv [B, N, 3C] in qkv.dtype."""
+    dt = qkv.dtype
+    q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    dq, dk, dv, _ = attention_grads(q, k, v, split_heads(d_o.to(dt),
+                                                         num_heads),
+                                    scale, segment_len, dt)
+    return torch.cat([merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(dt)
+
+
+def _check_qkv(qkv, num_heads, segment_len):
+    if qkv.dtype != torch.bfloat16:
+        raise ValueError(
+            f"attention kernel takes bfloat16 qkv, got {qkv.dtype} (run the "
+            "model in bf16 or with use_flash=False)")
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be [B, N, 3C], got {tuple(qkv.shape)}")
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    if C % num_heads or C // num_heads != HEAD_DIM:
+        raise ValueError(f"kernel supports head dim {HEAD_DIM} only, got "
+                         f"C={C} over {num_heads} heads")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("qkv must be contiguous and 16-byte aligned")
+    if segment_len < 0:
+        raise ValueError(f"segment_len must be >= 0, got {segment_len}")
+    if N == 0 or B == 0 or B > 65535 or num_heads > 65535:
+        raise ValueError(f"batch {B} x length {N} x {num_heads} heads "
+                         "outside the kernel's grid")
+    return B, N, C
+
+
+@functools.cache
+def _fwd_library():
+    lib = load_library(FWD_SOURCE)
+    lib.mha_fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p] \
+        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                ctypes.c_void_p]
+    lib.mha_fwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _bwd_library():
+    lib = load_library(BWD_SOURCE)
+    lib.mha_bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.mha_bwd.restype = ctypes.c_int
+    lib.mha_bwd_smem_bytes.argtypes = []
+    lib.mha_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.mha_bwd_prepare.argtypes = [ctypes.c_int]
+    lib.mha_bwd_prepare.restype = ctypes.c_int
+    return lib
+
+
+def _launch_fwd(qkv, num_heads, scale, segment_len):
+    B, N, C = _check_qkv(qkv, num_heads, segment_len)
+    lib = _fwd_library()
+    dev = device_index(qkv)
+    out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mha_fwd(qkv.data_ptr(), out.data_ptr(), B, N, C, num_heads,
+                          float(scale), int(segment_len), stream)
+    if err != 0:
+        raise RuntimeError(f"mha_fwd launch failed: cudaError {err}")
+    mha_fwd.launches += 1
+    return out
+
+
+def mha_fwd(qkv, num_heads: int, scale: float, segment_len: int = 0):
+    """qkv [B, N, 3C] -> attention output [B, N, C] (heads merged).
+
+    CPU tensor: the plain version.  CUDA tensor: the kernel, or an error
+    naming why it cannot run (dtype, head dim, layout)."""
+    if qkv.device.type == "cpu":
+        return mha_fwd_reference(qkv, num_heads, scale, segment_len)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {qkv.device}")
+    return _launch_fwd(qkv, num_heads, scale, segment_len)
+
+
+mha_fwd.launches = 0
+
+
+def _launch_bwd(qkv, d_o, num_heads, scale, segment_len):
+    B, N, C = _check_qkv(qkv, num_heads, segment_len)
+    if d_o.dtype != qkv.dtype or tuple(d_o.shape) != (B, N, C):
+        raise ValueError(f"d_o must be [{B}, {N}, {C}] {qkv.dtype}, got "
+                         f"{tuple(d_o.shape)} {d_o.dtype}")
+    if d_o.device != qkv.device:
+        raise ValueError(f"qkv on {qkv.device}, d_o on {d_o.device}")
+    if not d_o.is_contiguous() or d_o.data_ptr() % 16:
+        raise ValueError("d_o must be contiguous and 16-byte aligned")
+    lib = _bwd_library()
+    dev = device_index(qkv)
+    check_smem(lib.mha_bwd_smem_bytes(),
+               device_smem(_bwd_library, "mha_bwd_prepare", dev),
+               "the backward")
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, B, num_heads, N), dtype=torch.float32,
+                        device=qkv.device)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mha_bwd(qkv.data_ptr(), d_o.data_ptr(), dqkv.data_ptr(),
+                          stats.data_ptr(), B, N, C, num_heads, float(scale),
+                          int(segment_len), stream)
+    if err != 0:
+        raise RuntimeError(f"mha_bwd launch failed: cudaError {err}")
+    mha_bwd.launches += 1
+    return dqkv
+
+
+def mha_bwd(qkv, d_o, num_heads: int, scale: float, segment_len: int = 0):
+    """Backward of `mha_fwd`: qkv [B, N, 3C], d_o [B, N, C] -> dqkv
+    [B, N, 3C] in qkv.dtype.
+
+    CPU tensor: the plain version.  CUDA tensor: the kernel, or an error
+    naming why it cannot run (dtype, head dim, shapes, shared memory)."""
+    if qkv.device.type == "cpu":
+        return mha_bwd_reference(qkv, d_o, num_heads, scale, segment_len)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no attention kernel for device {qkv.device}")
+    return _launch_bwd(qkv, d_o, num_heads, scale, segment_len)
+
+
+mha_bwd.launches = 0
+
+
+class MemEffAttention(torch.autograd.Function):
+    """The JAX custom VJP (`pallas_mha.py:157-172`) as an autograd
+    `Function`.  Forward: the forward kernel; it saves qkv and nothing else.
+    Backward: the backward kernel recomputes p and returns dqkv packed."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale, segment_len):
+        ctx.save_for_backward(qkv)
+        ctx.args = (num_heads, scale, segment_len)
+        return mha_fwd(qkv, num_heads, scale, segment_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, = ctx.saved_tensors
+        dqkv = mha_bwd(qkv, g.to(qkv.dtype).contiguous(), *ctx.args)
+        return dqkv, None, None, None
+
+
+def mha(qkv, num_heads: int, scale: float, segment_len: int = 0):
+    """qkv [B, N, 3C] packed activations -> attention output [B, N, C].
+    Differentiable in qkv."""
+    return MemEffAttention.apply(qkv, num_heads, float(scale),
+                                 int(segment_len))

@@ -33,7 +33,8 @@ import functools
 
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import check_smem, device_index, device_smem, \
+    load_library
 
 FWD_SOURCE = "proto_ce_fwd.cu"
 BWD_SOURCE = "proto_ce_bwd.cu"
@@ -122,25 +123,6 @@ def _bwd_library():
     return lib
 
 
-@functools.cache
-def _device_smem(library, prepare: str, dev: int) -> int:
-    """Runs `library()`'s `prepare` (opts its kernels in to their dynamic
-    shared memory) once per device; returns the device's limit."""
-    with torch.cuda.device(dev):
-        have = getattr(library(), prepare)(dev)
-    if have < 0:
-        raise RuntimeError(f"could not set the kernel's shared memory limit "
-                           f"on cuda:{dev}")
-    return have
-
-
-def _check_smem(need: int, have: int, what: str):
-    if need > have:
-        raise ValueError(
-            f"shared memory too small: {what} needs {need} bytes of dynamic "
-            f"shared memory per block, the device allows {have}")
-
-
 def split_work(n_own: int, n_loop: int, n_sm: int):
     """(tiles per split, splits) of a loop of `n_loop` tiles when `n_own`
     blocks alone would leave SMs idle: about one block per SM, no split
@@ -148,11 +130,6 @@ def split_work(n_own: int, n_loop: int, n_sm: int):
     want = max(1, min(n_loop, -(-n_sm // n_own)))
     per = -(-n_loop // want)
     return per, -(-n_loop // per)
-
-
-def _device_index(t) -> int:
-    return t.device.index if t.device.index is not None \
-        else torch.cuda.current_device()
 
 
 def _cuda_inputs(xs, ws, xt, wt, center, rows=()):
@@ -201,10 +178,10 @@ def _raise_on(err: int, what: str):
 def _launch_fwd(xs, ws, xt, wt, center, teacher_temp, student_temp):
     xs, ws, xt, wt, c = _cuda_inputs(xs, ws, xt, wt, center)
     lib = _fwd_library()
-    dev = _device_index(xs)
-    _check_smem(lib.proto_ce_fwd_smem_bytes(),
-                _device_smem(_fwd_library, "proto_ce_fwd_prepare", dev),
-                "the forward")
+    dev = device_index(xs)
+    check_smem(lib.proto_ce_fwd_smem_bytes(),
+               device_smem(_fwd_library, "proto_ce_fwd_prepare", dev),
+               "the forward")
     R, K = xs.shape[0], ws.shape[1]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     per, n_split = split_work(-(-R // _TILE), -(-K // _TILE), n_sm)
@@ -228,11 +205,11 @@ def _launch_bwd(fn_name, xs, ws, xt, wt, center, teacher_temp, student_temp,
     xs, ws, xt, wt, c, lse_s, lse_t, g = _cuda_inputs(
         xs, ws, xt, wt, center, rows=(lse_s, lse_t, g))
     lib = _bwd_library()
-    dev = _device_index(xs)
+    dev = device_index(xs)
     which = 0 if fn_name == "proto_ce_dxs" else 1
-    _check_smem(lib.proto_ce_bwd_smem_bytes(which),
-                _device_smem(_bwd_library, "proto_ce_bwd_prepare", dev),
-                fn_name)
+    check_smem(lib.proto_ce_bwd_smem_bytes(which),
+               device_smem(_bwd_library, "proto_ce_bwd_prepare", dev),
+               fn_name)
     R, D = xs.shape
     K = ws.shape[1]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count

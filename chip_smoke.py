@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/H100 port (`apla_tpu_torch`).
 
-Drives the port's serving path, its supervised training path and its
-DINOv2 self-supervised path once on one CUDA card, in phases that each
-print a line and raise on failure:
+Drives the port's serving path, its supervised training path, its
+DINOv2 self-supervised path and its full-projection path once on one CUDA
+card, in phases that each print a line and raise on failure:
 
-  1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`,
-               one nvcc per source, all started together.
+  1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`
+               (six sources), one nvcc per source, all started together.
   2. kernel  — the fused APLA attention forward kernel against its plain
                PyTorch version on the card, bf16, at the served length
                (N=257), the SSL local crops (N=50), the 518-crop length
@@ -44,10 +44,20 @@ print a line and raise on failure:
                that moved, a checkpoint that reloads; the first step's loss
                terms and gradients of the fused arm against the plain arm;
                train-step img/s and peak memory of both arms; a profile.
+  7a. mha    — the memory-efficient attention kernels (forward, backward)
+               against their plain versions at N=257 (b1, b8, b64), N=50
+               (b512), N=1370, a segmented and a ragged case; timed at b64
+               N=257 beside the bound and F.scaled_dot_product_attention.
+  7b. full   — the ImageNet recipe at `partial_size: "full"` (FULL_RECIPE:
+               the whole projection of every block trainable, the recipe's
+               `is_memory_efficient: true`) served as in phase 3 and trained
+               as in phase 5, through the memory-efficient attention
+               kernels in every block; a profile of the kernel arm's step.
 
-Phases 2-6 also run negative controls: the kernels made to compute what
+Phases 2-7 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
-heads dropped; dqkv halved, dW_t from the wrong columns or zeroed; the
+heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
+from the wrong columns or zeroed, rowsum(dp * p) dropped from ds; the
 teacher temperature taken as 1, dws zeroed, dxs halved, p_t dropped from
 ds).  Each must fail the phase's bound, so the bounds are shown to catch a
 broken kernel in every run.
@@ -63,6 +73,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -340,14 +351,43 @@ BWD_CASES = (((1, 257, 2304), 0, 128), ((8, 257, 2304), 0, 128),
 # script checks every run that each fault still fails them.
 MIN_COSINE = 0.9995
 LOGITS_REL_TOL = 3e-2
-# Training phase, fused arm vs plain arm on the first step (8 micro-batches
-# of 8 images, bf16 through 12 blocks forward and back): |delta loss| and the
-# worst per-tensor ||g_fused - g_plain|| / ||g_plain|| over every trainable
-# tensor.  On an H100 the fused arm reads 8.3e-6 and 0.0103 (fc.kernel);
-# the bounds sit about 5x above, and the backward faults in `_phase_train`
-# (dW_t zeroed, dqkv halved) must fail them in every run.
+# Training phases, kernel arm vs plain arm on the first step (8
+# micro-batches of 8 images, bf16 through 12 blocks forward and back):
+# |delta loss| and the worst per-tensor ||g_kernel - g_plain|| / ||g_plain||
+# over every trainable tensor.  On an H100 phase 5's fused arm reads 8.3e-6
+# and 0.0103 (fc.kernel), and phase 7b's kernel arm the same two numbers:
+# the plain arm's bf16 logits set both.  The bounds sit about 5x above, and
+# the backward faults of phase 5 (dW_t zeroed, dqkv halved) and of phase 7b
+# (dv zeroed, dqkv halved) must fail them in every run.
 LOSS_TOL = 5e-5
 GRAD_REL_TOL = 0.05
+# Phase 7b: the ImageNet recipe above at APLA's headline mode, the whole
+# output projection of every block trainable: `partial_size: "full"`, the
+# value of params/pretrain/dinov2/ISIC2019/vit_b/apla.yml:9 (no index
+# file).  Everything else is RECIPE's, `is_memory_efficient: true` and
+# `use_fused_apla: true` included: the fused kernel serves rank-k blocks
+# only (as in JAX), so every block's attention runs the memory-efficient
+# attention kernels (TPU rows 8, 9).  Trained with SMOKE_CUTS; a CPU test
+# holds this dict against the two YAMLs, value by value.
+FULL_RECIPE = copy.deepcopy(RECIPE)
+FULL_RECIPE["model_params"]["adaptation"]["params"] = {"partial_size": "full"}
+# What phase 7b's training changes beyond SMOKE_CUTS: the loaders run in
+# the trainer's process (num_workers 0).  Phase 5 drives the recipe's
+# spawned workers on the same data; here their start-up, most of the
+# phase's time on the card's 8-core host, would time the host again and
+# nothing the kernels see.
+FULL_CUTS = {**copy.deepcopy(SMOKE_CUTS), "dataloader_params": {
+    name: {"num_workers": 0}
+    for name in ("trainloader", "valloader", "testloader")}}
+# Phase 7a: (batch, tokens, segment_len) of the memory-efficient attention
+# kernels against their plain versions: b1 and b64 served calls and the b8
+# training micro-batch at N=257, the SSL local crops (N=50), the 518-crop
+# length (keys over 22 tiles), packed segments, and a ragged N.  Bound per
+# output (o; dq, dk, dv): KERNEL_REL_TOL of the reference's largest
+# magnitude.  The controls run at the b8 case.
+MHA_CASES = ((1, 257, 0), (8, 257, 0), (64, 257, 0), (512, 50, 0),
+             (2, 1370, 0), (8, 200, 50), (3, 100, 0))
+MHA_TIMED = (64, 257)
 
 
 def _gpu_line() -> str:
@@ -382,11 +422,14 @@ def _resources(report: str) -> list[str]:
     out, name = [], None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            # _ZN..._<file>_cu_<8 hex><len><name>E...: the demangled name
+            # _ZN<len><anonymous namespace><len><name>...: the kernel's name
             name = line.split("'")[1]
-            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)
+            m = re.match(r"_ZN(\d+)", name)
             if m:
-                name = name[m.end():m.end() + int(m.group(1))]
+                i = m.end() + int(m.group(1))
+                n = re.match(r"\d+", name[i:])
+                if n:
+                    name = name[i + n.end():i + n.end() + int(n.group())]
         elif "spill stores" in line and name:
             spill = line.split(",")[1].split()[0]
         elif "Used" in line and "registers" in line and name:
@@ -403,9 +446,10 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from apla_tpu_torch.ops import cuda_build
+    from apla_tpu_torch.ops import mha, proto_ce
     from apla_tpu_torch.ops.fused_apla_attn import _BWD_SOURCE, _SOURCE
-    from apla_tpu_torch.ops.proto_ce import BWD_SOURCE, FWD_SOURCE
-    sources = (_SOURCE, _BWD_SOURCE, FWD_SOURCE, BWD_SOURCE)
+    sources = (_SOURCE, _BWD_SOURCE, proto_ce.FWD_SOURCE,
+               proto_ce.BWD_SOURCE, mha.FWD_SOURCE, mha.BWD_SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cuda_build.build_library, sources))
@@ -515,7 +559,7 @@ def phase_kernel(device):
     return worst, times
 
 
-def _agrees(name, outs, ref_outs) -> bool:
+def _agrees(tag, name, outs, ref_outs) -> bool:
     """Prints and checks `outs` against `ref_outs`, per request (logits,
     embedding) pairs: per-image embedding cosine and max |delta logits|."""
     worst_cos, worst_dl, max_l = 1.0, 0.0, 0.0
@@ -526,7 +570,7 @@ def _agrees(name, outs, ref_outs) -> bool:
         worst_dl = max(worst_dl, float(np.abs(logits - r_logits).max()))
         max_l = max(max_l, float(np.abs(r_logits).max()))
     ok = worst_cos >= MIN_COSINE and worst_dl <= LOGITS_REL_TOL * max_l
-    print(f"[3 slice] {name} vs plain arm: min embedding cosine "
+    print(f"[{tag}] {name} vs plain arm: min embedding cosine "
           f"{worst_cos:.6f} (bound {MIN_COSINE}), max|dlogits| "
           f"{worst_dl:.6g} (bound {LOGITS_REL_TOL * max_l:.6g}) -> "
           f"{'within' if ok else 'outside'} the bounds")
@@ -551,9 +595,18 @@ def _faults():
     }
 
 
-def _with_fault(fault, pred, requests):
-    """The predictor's answers with `fault` applied to every block's
-    kernel call."""
+def _with_patch(module, name, replacement, fn):
+    """fn() with `module.name` replaced by `replacement`."""
+    real = getattr(module, name)
+    setattr(module, name, replacement)
+    try:
+        return fn()
+    finally:
+        setattr(module, name, real)
+
+
+def _with_fused_fault(fault, fn):
+    """fn() with `fault` applied to every block's fused kernel call."""
     from apla_tpu_torch.ops import attention
     real = attention.fused_apla_attention
 
@@ -563,25 +616,35 @@ def _with_fault(fault, pred, requests):
         return real(qkv, w_t * f, b_t, w_frozen * f, b_frozen, inds,
                     num_heads, scale, segment_len)
 
-    attention.fused_apla_attention = faulty
-    try:
-        return [pred.predict_and_embed(x) for x in requests]
-    finally:
-        attention.fused_apla_attention = real
+    return _with_patch(attention, "fused_apla_attention", faulty, fn)
 
 
 def phase_slice(device):
+    from apla_tpu_torch.ops.fused_apla_attn import fused_apla_attn_fwd
+    faults = {name: functools.partial(_with_fused_fault, fault)
+              for name, fault in _faults().items()}
+    return _serve_phase(device, RECIPE, "3 slice", fused_apla_attn_fwd,
+                        faults)
+
+
+def _serve_phase(device, recipe, tag, counter, faults):
+    """`recipe`'s classifier (random weights from SEED) exported at
+    BATCH_SIZES, reloaded, and asked for REQUESTS: every block of every
+    call launches the kernel that `counter` (a wrapper) counts; finite
+    outputs of the expected shapes that agree with the plain arm (the
+    kernels' paths off); each of `faults` (name -> fn(run), running `run()`
+    with a kernel fault) fails those bounds; b64 img/s of both arms."""
     from apla_tpu_torch.models.classifier import (classifier_forward,
                                                   init_classifier)
-    from apla_tpu_torch.ops.fused_apla_attn import fused_apla_attn_fwd
     from apla_tpu_torch.serve import Predictor, export_classifier, \
         load_predictor
     from apla_tpu_torch.wrapper import build_apla_config, build_vit_config
 
-    grid_cfg = build_vit_config(RECIPE)
-    apla_cfg = build_apla_config(RECIPE)
-    apla_cfg = dataclasses.replace(
-        apla_cfg, inds_path=os.path.join(ROOT, apla_cfg.inds_path))
+    grid_cfg = build_vit_config(recipe)
+    apla_cfg = build_apla_config(recipe)
+    if apla_cfg.inds_path:
+        apla_cfg = dataclasses.replace(
+            apla_cfg, inds_path=os.path.join(ROOT, apla_cfg.inds_path))
     t0 = time.perf_counter()
     model = init_classifier(grid_cfg, N_CLASSES, apla_cfg,
                             generator=torch.Generator().manual_seed(SEED),
@@ -589,9 +652,10 @@ def phase_slice(device):
     serve_cfg = dataclasses.replace(grid_cfg, img_size=SERVE_IMG)
     depth = serve_cfg.depth
     n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
-    print(f"[3 slice] {RECIPE['model_params']['backbone_type']}/"
+    print(f"[{tag}] {recipe['model_params']['backbone_type']}/"
           f"{serve_cfg.patch_size} APLA-{apla_cfg.partial_size} classifier "
-          f"({depth} blocks, {n_train:,} trainable) built on {device} in "
+          f"({depth} blocks, {n_train:,} trainable, use_flash "
+          f"{serve_cfg.use_flash}) built on {device} in "
           f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(SEED)
@@ -601,13 +665,16 @@ def phase_slice(device):
         export_classifier(tmp, model, serve_cfg, batch_sizes=BATCH_SIZES)
         pred = load_predictor(tmp, device)
     del model
+    if pred.vit_cfg != serve_cfg:
+        raise SystemExit(f"the artifact reloads another config: "
+                         f"{pred.vit_cfg}")
     n_calls = sum(1 for x in requests for _ in pred._iter_chunks(x))
 
-    fused_apla_attn_fwd.launches = 0
+    counter.launches = 0
     outs = [pred.predict_and_embed(x) for x in requests]
-    torch.cuda.synchronize()
-    launches = fused_apla_attn_fwd.launches
-    print(f"[3 slice] answered {list(REQUESTS)} images in {n_calls} calls; "
+    _sync(device)
+    launches = counter.launches
+    print(f"[{tag}] answered {list(REQUESTS)} images in {n_calls} calls; "
           f"kernel launches {launches} (expected {depth} x {n_calls})")
     if launches != depth * n_calls:
         raise SystemExit("the served path did not run the kernel in every "
@@ -623,32 +690,32 @@ def phase_slice(device):
                                     use_flash=False)
     plain = Predictor(pred.meta, pred.model, plain_cfg, device)
     plain_outs = [plain.predict_and_embed(x) for x in requests]
-    ok = _agrees("fused arm", outs, plain_outs)
-    # Negative controls: the fused arm with a kernel fault made on purpose.
+    ok = _agrees(tag, "kernel arm", outs, plain_outs)
+    # Negative controls: the kernel arm with a kernel fault made on purpose.
     # Each must fail the bounds, or the bounds could not tell a broken
     # kernel from a working one.
-    caught = all([not _agrees(f"control: {name}",
-                              _with_fault(fault, pred, requests), plain_outs)
-                  for name, fault in _faults().items()])
+    caught = all([not _agrees(tag, f"control: {name}", run(
+        lambda: [pred.predict_and_embed(x) for x in requests]), plain_outs)
+        for name, run in faults.items()])
     if not ok:
-        raise SystemExit("fused arm disagrees with the plain arm")
+        raise SystemExit("kernel arm disagrees with the plain arm")
     if not caught:
         raise SystemExit("a broken kernel passes the slice's bounds")
 
     x64 = torch.from_numpy(requests[-1][:64]).to(device)
     rates = {}
     with torch.inference_mode():
-        for name, cfg in (("plain", plain_cfg), ("fused", serve_cfg),
-                          ("fused", serve_cfg), ("plain", plain_cfg)):
+        for name, cfg in (("plain", plain_cfg), ("kernel", serve_cfg),
+                          ("kernel", serve_cfg), ("plain", plain_cfg)):
             ms = _time_ms(lambda: classifier_forward(pred.model, x64, cfg),
                           iters=10)
             rates.setdefault(name, []).append(64 * 1000.0 / ms)
-    fused_rate = max(rates["fused"])
+    kernel_rate = max(rates["kernel"])
     plain_rate = max(rates["plain"])
-    print(f"[3 slice] b64 forward: fused {fused_rate:.1f} img/s, plain "
-          f"{plain_rate:.1f} img/s (best of 2 turns each: fused "
-          f"{rates['fused']}, plain {rates['plain']})")
-    return launches, fused_rate, plain_rate
+    print(f"[{tag}] b64 forward: kernel arm {kernel_rate:.1f} img/s, plain "
+          f"{plain_rate:.1f} img/s (best of 2 turns each: kernel "
+          f"{rates['kernel']}, plain {rates['plain']})")
+    return launches, kernel_rate, plain_rate
 
 
 def _bwd_errors(got, ref):
@@ -765,6 +832,180 @@ def phase_bwd(device):
     return worst, times
 
 
+def _mha_errors(got, ref):
+    """{output: (max|err|, bound)} for o and dq, dk, dv (slices of dqkv)
+    of an (o, dqkv) pair against the plain versions'."""
+    (out, dqkv), (r_out, r_dqkv) = got, ref
+    c = out.shape[-1]
+    pairs = {"o": (out, r_out)}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        pairs[name] = (dqkv[..., i * c:(i + 1) * c],
+                       r_dqkv[..., i * c:(i + 1) * c])
+    errs = {}
+    for name, (a, r) in pairs.items():
+        a, r = a.float(), r.float()
+        ok = bool(torch.isfinite(a).all())
+        errs[name] = ((a - r).abs().max().item() if ok else float("inf"),
+                      KERNEL_REL_TOL * r.abs().max().item())
+    return errs
+
+
+def _zero_third(dqkv, i):
+    """dqkv [..., 3C] with its i-th third (0 dq, 1 dk, 2 dv) zeroed."""
+    out = dqkv.clone()
+    c = dqkv.shape[-1] // 3
+    out[..., i * c:(i + 1) * c] = 0
+    return out
+
+
+def _rowsum_dropped(qkv, d_o, dqkv, heads, scale, seg):
+    """dqkv as a backward that drops rowsum(dp * p) from ds would return
+    it: the working kernel's dqkv plus that term's share of dq and dk
+    (ds gains p * rowsum(dp * p)), computed in f32 from the plain pieces."""
+    from apla_tpu_torch.ops import mha as tmha
+    q, k, v = (tmha.split_heads(t, heads) for t in qkv.chunk(3, dim=-1))
+    d = tmha.split_heads(d_o, heads)
+    p = tmha.softmax_f32(q, k, scale, seg)
+    pd = p * (torch.matmul(d, v.transpose(-1, -2)) * p).sum(-1, keepdim=True)
+    extra = torch.cat([tmha.merge_heads(torch.matmul(pd, k) * scale),
+                       tmha.merge_heads(torch.matmul(pd.transpose(-1, -2), q)
+                                        * scale),
+                       torch.zeros_like(d_o, dtype=torch.float32)], dim=-1)
+    return (dqkv.float() + extra).to(dqkv.dtype)
+
+
+def phase_mha(device):
+    """7a: the memory-efficient attention kernels against their plain
+    versions at MHA_CASES, five fault controls, and times at MHA_TIMED."""
+    from apla_tpu_torch.ops import mha as tmha
+    gen = torch.Generator().manual_seed(SEED + 3)
+    heads, c, scale = 12, 768, 64 ** -0.5
+    worst = {"fwd": 0.0, "bwd": 0.0}
+
+    def inputs(b, n):
+        return (torch.randn((b, n, 3 * c), generator=gen).to(device,
+                                                            torch.bfloat16),
+                torch.randn((b, n, c), generator=gen).to(device,
+                                                         torch.bfloat16))
+
+    def both(fwd, bwd, qkv, d_o, sc, seg):
+        return fwd(qkv, heads, sc, seg), bwd(qkv, d_o, heads, sc, seg)
+
+    for b, n, seg in MHA_CASES:
+        qkv, d_o = inputs(b, n)
+        got = both(tmha.mha_fwd, tmha.mha_bwd, qkv, d_o, scale, seg)
+        torch.cuda.synchronize()
+        ref = both(tmha.mha_fwd_reference, tmha.mha_bwd_reference, qkv, d_o,
+                   scale, seg)
+        errs = _mha_errors(got, ref)
+        ok = all(e <= bd for e, bd in errs.values())
+        print(f"[7a mha] qkv [{b}, {n}, {3 * c}] seg={seg}: " + ", ".join(
+            f"{name} max|err| {e:.6g} (bound {bd:.6g})"
+            for name, (e, bd) in errs.items()) + f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"mha kernels disagree with their plain versions "
+                             f"at [{b}, {n}] seg={seg}")
+        worst["fwd"] = max(worst["fwd"], errs["o"][0])
+        worst["bwd"] = max(worst["bwd"], *(errs[k][0] for k in
+                                           ("dq", "dk", "dv")))
+        if (b, n, seg) != (8, 257, 0):
+            continue
+        # Fault controls: the working kernels made to compute what broken
+        # ones would, each against this case's plain versions.
+        out, dqkv = got
+        pad = 64 * -(-n // 64) - n
+        controls = {
+            "output halved": (lambda: (out * 0.5, dqkv), ("o",)),
+            "uniform p (scale 0)": (
+                lambda: both(tmha.mha_fwd, tmha.mha_bwd, qkv, d_o, 0.0, seg),
+                ("o", "dq", "dk", "dv")),
+            # the zero-filled rows of the last 64-row key tile counted as
+            # keys, as a kernel that forgot the column mask would
+            f"padding columns left unmasked (N {n} -> {n + pad})": (
+                lambda: (tmha.mha_fwd(torch.nn.functional.pad(
+                    qkv, (0, 0, 0, pad)), heads, scale, seg)[:, :n], dqkv),
+                ("o",)),
+            "dq zeroed": (lambda: (out, _zero_third(dqkv, 0)), ("dq",)),
+            "rowsum(dp * p) dropped from ds": (
+                lambda: (out, _rowsum_dropped(qkv, d_o, dqkv, heads, scale,
+                                              seg)), ("dq", "dk")),
+        }
+        for name, (fault, broken) in controls.items():
+            c_errs = _mha_errors(fault(), ref)
+            caught = all(c_errs[k][0] > c_errs[k][1] for k in broken)
+            print(f"[7a mha] control {name}: " + ", ".join(
+                f"{k} {e:.6g}" for k, (e, _) in c_errs.items())
+                + f" -> {'caught' if caught else 'NOT CAUGHT'} in "
+                f"{list(broken)}")
+            if not caught:
+                raise SystemExit(f"the mha bound misses a broken kernel "
+                                 f"({name})")
+
+    # times at the served b64 shape: kernels, plain versions, SDPA (its
+    # backward: autograd through it, into the packed qkv), bounds
+    b, n = MHA_TIMED
+    qkv, d_o = inputs(b, n)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lq = qkv.clone().requires_grad_()
+    lout = sdpa(*lq.unflatten(-1, (3, heads, 64)).permute(2, 0, 3, 1, 4),
+                scale=scale)
+    lg = d_o.unflatten(-1, (heads, 64)).transpose(1, 2)
+    q, k, v = qkv.unflatten(-1, (3, heads, 64)).permute(2, 0, 3, 1, 4)
+    work = {"fwd": (4 * b * n * n * c, 2 * 4 * b * n * c),
+            "bwd": (10 * b * n * n * c, 2 * 7 * b * n * c)}
+    calls = {
+        "fwd": (lambda: tmha.mha_fwd(qkv, heads, scale),
+                lambda: tmha.mha_fwd_reference(qkv, heads, scale),
+                lambda: sdpa(q, k, v, scale=scale)),
+        "bwd": (lambda: tmha.mha_bwd(qkv, d_o, heads, scale),
+                lambda: tmha.mha_bwd_reference(qkv, d_o, heads, scale),
+                lambda: torch.autograd.grad(lout, lq, lg, retain_graph=True)),
+    }
+    times = {}
+    for name, (kernel, plain, library) in calls.items():
+        t = {"ms": _time_ms(kernel), "plain_ms": _time_ms(plain, iters=5),
+             "library_ms": _time_ms(library), "max_abs_err": worst[name]}
+        t["bound_ms"], t["bound_by"] = _bound(*work[name])
+        times[name] = t
+        print(f"[7a mha] {name} b{b} N={n} C={c}: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+    return times
+
+
+def phase_full(device):
+    """7b: FULL_RECIPE served (as phase 3) and trained (as phase 5) through
+    the memory-efficient attention kernels."""
+    from apla_tpu_torch.ops import attention
+    from apla_tpu_torch.ops import mha as tmha
+    real = attention.mha
+    faults = {
+        "output halved": lambda run: _with_output_fault(
+            attention, "mha", lambda o: o * 0.5, run),
+        "uniform p (scale 0)": lambda run: _with_patch(
+            attention, "mha", lambda qkv, h, sc, seg=0: real(qkv, h, 0.0, seg),
+            run),
+    }
+    serve = _serve_phase(device, FULL_RECIPE, "7b full serve", tmha.mha_fwd,
+                         faults)
+    # on the backward's dqkv; dq zeroed is no control here: at this random
+    # init p is near uniform and the loss barely feels q (phase 7a holds dq)
+    controls = {
+        "dv zeroed": (tmha, "mha_bwd", lambda d: _zero_third(d, 2)),
+        "dqkv halved": (tmha, "mha_bwd", lambda d: d * 0.5),
+    }
+    # blocks_without_bwd=1: block 0's attention sees the frozen patch
+    # embedding through the frozen qkv, so nothing upstream of it needs a
+    # gradient, and autograd (as XLA in JAX) runs no attention backward there
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_full_") as tmp:
+        train = _train_phase(
+            device, tmp, FULL_RECIPE, FULL_CUTS, "7b full train", "kernel",
+            (tmha.mha_fwd, tmha.mha_bwd), 1, controls,
+            (LOSS_TOL, GRAD_REL_TOL), profile=True)
+    return serve, train
+
+
 def _trainables(model):
     return {n: p for n, p in model.named_parameters() if p.requires_grad}
 
@@ -789,17 +1030,18 @@ def _step_grads(model, cfg, images, labels, criterion, accum):
                   for n, p in params.items()}
 
 
-def _grad_agreement(name, got, ref):
-    """(|loss delta|, worst per-tensor ||g - g_ref|| / ||g_ref||, tensor)."""
+def _grad_agreement(tag, name, got, ref, loss_tol, grad_tol):
+    """(|loss delta|, worst per-tensor ||g - g_ref|| / ||g_ref||, tensor)
+    against `loss_tol` and `grad_tol`, printed; True when within both."""
     (loss, grads), (r_loss, r_grads) = got, ref
     rel = {n: (torch.linalg.vector_norm(grads[n] - r_grads[n])
                / torch.linalg.vector_norm(r_grads[n])).item()
            for n in r_grads}
     worst = max(rel, key=rel.get)
-    ok = abs(loss - r_loss) <= LOSS_TOL and rel[worst] <= GRAD_REL_TOL
-    print(f"[5 train] {name} vs plain arm: |dloss| {abs(loss - r_loss):.6g} "
-          f"(bound {LOSS_TOL}), worst per-tensor gradient "
-          f"||dg||/||g|| {rel[worst]:.6g} at {worst} (bound {GRAD_REL_TOL})"
+    ok = abs(loss - r_loss) <= loss_tol and rel[worst] <= grad_tol
+    print(f"[{tag}] {name} vs plain arm: |dloss| {abs(loss - r_loss):.6g} "
+          f"(bound {loss_tol}), worst per-tensor gradient "
+          f"||dg||/||g|| {rel[worst]:.6g} at {worst} (bound {grad_tol})"
           f" -> {'within' if ok else 'outside'} the bounds")
     return ok
 
@@ -815,17 +1057,13 @@ def _with_output_fault(module, name, fault, fn):
     # the wrapper counts its launches on the module's attribute, here the
     # stand-in: control launches are not the main path's
     faulty.launches = 0
-    setattr(module, name, faulty)
-    try:
-        return fn()
-    finally:
-        setattr(module, name, real)
+    return _with_patch(module, name, faulty, fn)
 
 
-def _train_rate(wrapper, cfg, accum, batch):
-    """Train-step img/s and peak device memory (GB) of `cfg` at `accum`
-    on a device batch, after one warm-up step (a copy of the optimizer
-    state moves; the model's weights move too)."""
+def _train_step_fn(wrapper, cfg, accum, batch):
+    """A zero-argument call of one recipe step of `cfg` at `accum` on a
+    device batch (AdamW at lr 1e-9: a copy of the optimizer state moves;
+    the model's weights move too)."""
     from apla_tpu_torch.train.optim import build_optimizer
     from apla_tpu_torch.train.steps import make_train_step
     from apla_tpu_torch.train.train_state import TrainState
@@ -836,8 +1074,15 @@ def _train_rate(wrapper, cfg, accum, batch):
                            accum_steps=accum)
     state = TrainState(0, wrapper.model, opt)
     gen = torch.Generator(device=batch["image"].device).manual_seed(SEED)
+    return lambda: step(state, batch, 1e-9, gen)
+
+
+def _train_rate(wrapper, cfg, accum, batch):
+    """Train-step img/s and peak device memory (GB) of `cfg` at `accum`
+    on a device batch, after one warm-up step."""
+    fn = _train_step_fn(wrapper, cfg, accum, batch)
     torch.cuda.reset_peak_memory_stats()
-    ms = _time_ms(lambda: step(state, batch, 1e-9, gen), iters=4, warmup=1)
+    ms = _time_ms(fn, iters=4, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 1e9
     return batch["image"].shape[0] * 1000.0 / ms, peak
 
@@ -856,18 +1101,41 @@ def _run_params(recipe, cuts, save_dir, device):
 
 
 def phase_train(device):
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
-        return _phase_train(device, tmp)
-
-
-def _phase_train(device, tmp):
-    from apla_tpu_torch.data.device_augs import device_augment
     from apla_tpu_torch.ops import fused_apla_attn as fa
+    controls = {  # on the backward's (dqkv, dW_t)
+        "dW_t zeroed": (fa, "fused_apla_attn_bwd",
+                        lambda out: (out[0], out[1] * 0)),
+        "dqkv halved": (fa, "fused_apla_attn_bwd",
+                        lambda out: (out[0] * 0.5, out[1])),
+    }
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        launches, rates, _ = _train_phase(
+            device, tmp, RECIPE, SMOKE_CUTS, "5 train", "fused",
+            (fa.fused_apla_attn_fwd, fa.fused_apla_attn_bwd), 0, controls,
+            (LOSS_TOL, GRAD_REL_TOL))
+    return launches, rates
+
+
+def _train_phase(device, tmp, recipe, cuts, tag, arm, counters,
+                 blocks_without_bwd, controls, tols, profile=False):
+    """`recipe` with `cuts` through DefaultWrapper -> Trainer.train() ->
+    test(), saving under `tmp`.  Checks: the first step's loss and
+    gradients of the kernel arm (`arm`) against the plain arm (the kernels'
+    paths off) within `tols` = (|dloss|, worst ||dg|| / ||g||), and each of
+    `controls` (name -> (module, wrapper, fault on its outputs)) outside
+    them; the forward and backward kernels that `counters` count launched
+    in every block of every micro-step and eval call (the backward in all
+    but the first `blocks_without_bwd` blocks); finite losses; frozen
+    weights bit for bit; every trainable tensor moved; the checkpoint
+    reloads.  Then train-step img/s and peak memory of both arms at the
+    recipe's accum and at 1, and (`profile`) a profile of the kernel arm's
+    step at each.  Returns (launches, rates, profiles)."""
+    from apla_tpu_torch.data.device_augs import device_augment
     from apla_tpu_torch.train.checkpoint import load_checkpoint
     from apla_tpu_torch.train.trainer import Trainer
     from apla_tpu_torch.wrapper import DefaultWrapper
 
-    params = _run_params(RECIPE, SMOKE_CUTS, tmp, device)
+    params = _run_params(recipe, cuts, tmp, device)
     t0 = time.perf_counter()
     wrapper = DefaultWrapper(params)
     wrapper.instantiate(seed=SEED)
@@ -878,11 +1146,13 @@ def _phase_train(device, tmp):
     steps = len(wrapper.dataloaders.trainloader)
     evals = len(wrapper.dataloaders.valloader) \
         + len(wrapper.dataloaders.testloader)
-    print(f"[5 train] wrapper instantiated on {wrapper.device} in "
+    print(f"[{tag}] wrapper instantiated on {wrapper.device} in "
           f"{time.perf_counter() - t0:.1f} s: {steps} steps of "
-          f"{accum} x b{64 // accum}, {evals} eval batches")
+          f"{accum} x b{64 // accum}, {evals} eval batches; "
+          f"{sum(p.numel() for p in _trainables(model).values()):,} "
+          f"trainable in {len(_trainables(model))} tensors")
 
-    # the fused arm against the plain arm: first step's batch, one set of
+    # the kernel arm against the plain arm: first step's batch, one set of
     # augmentation draws, the same weights
     batch = next(iter(wrapper.dataloaders.trainloader))
     batch = {k: v.to(device) for k, v in batch.items()}
@@ -893,19 +1163,14 @@ def _phase_train(device, tmp):
                                     use_flash=False)
     args = (images, batch["label"], wrapper.criterion, accum)
     ref = _step_grads(model, plain_cfg, *args)
-    fused = _step_grads(model, cfg, *args)
-    ok = _grad_agreement("fused arm", fused, ref)
-    controls = {  # on the backward's (dqkv, dW_t)
-        "dW_t zeroed": lambda out: (out[0], out[1] * 0),
-        "dqkv halved": lambda out: (out[0] * 0.5, out[1]),
-    }
+    ok = _grad_agreement(tag, f"{arm} arm", _step_grads(model, cfg, *args),
+                         ref, *tols)
     caught = all([not _grad_agreement(
-        f"control: {name}", _with_output_fault(
-            fa, "fused_apla_attn_bwd", fault,
-            lambda: _step_grads(model, cfg, *args)), ref)
-        for name, fault in controls.items()])
+        tag, f"control: {name}", _with_output_fault(
+            module, fn_name, fault, lambda: _step_grads(model, cfg, *args)),
+        ref, *tols) for name, (module, fn_name, fault) in controls.items()])
     if not ok:
-        raise SystemExit("fused arm's gradients disagree with the plain arm")
+        raise SystemExit(f"{arm} arm's gradients disagree with the plain arm")
     if not caught:
         raise SystemExit("a broken backward kernel passes the gradient "
                          "bounds")
@@ -915,32 +1180,33 @@ def _phase_train(device, tmp):
     frozen = {n: t.detach().clone() for n, t in trainer.state.frozen().items()}
     trainable = {n: t.detach().clone()
                  for n, t in trainer.state.trainable().items()}
-    fa.fused_apla_attn_fwd.launches = 0
-    fa.fused_apla_attn_bwd.launches = 0
+    for c in counters:
+        c.launches = 0
     trainer.train()
     results = trainer.test()
     _sync(device)
-    launches = (fa.fused_apla_attn_fwd.launches,
-                fa.fused_apla_attn_bwd.launches)
-    expect = (depth * (steps * accum + evals), depth * steps * accum)
-    print(f"[5 train] trained {trainer.iters} steps and tested in "
+    launches = tuple(c.launches for c in counters)
+    bwd_blocks = depth - blocks_without_bwd
+    expect = (depth * (steps * accum + evals), bwd_blocks * steps * accum)
+    print(f"[{tag}] trained {trainer.iters} steps and tested in "
           f"{time.perf_counter() - t0:.1f} s; launches forward "
           f"{launches[0]} (expected {expect[0]} = {depth} x ({steps} x "
           f"{accum} micro-steps + {evals} eval calls)), backward "
-          f"{launches[1]} (expected {expect[1]})")
+          f"{launches[1]} (expected {expect[1]} = {bwd_blocks} x {steps} x "
+          f"{accum})")
     if launches != expect:
         raise SystemExit("the training path did not run both kernels in "
                          "every block of every micro-step")
     losses = [r["train_loss"] for _, r in trainer.history
               if "train_loss" in r]
-    print(f"[5 train] losses {losses}; test {dict(results)}")
+    print(f"[{tag}] losses {losses}; test {dict(results)}")
     if len(losses) != steps or not np.isfinite(losses).all():
         raise SystemExit(f"missing or non-finite training losses {losses}")
     moved = {n: not torch.equal(trainable[n], t)
              for n, t in trainer.state.trainable().items()}
     kept = {n: torch.equal(frozen[n], t)
             for n, t in trainer.state.frozen().items()}
-    print(f"[5 train] {sum(moved.values())}/{len(moved)} trainable tensors "
+    print(f"[{tag}] {sum(moved.values())}/{len(moved)} trainable tensors "
           f"moved, {sum(kept.values())}/{len(kept)} frozen tensors "
           f"unchanged bit for bit")
     if not all(moved.values()) or not all(kept.values()):
@@ -952,26 +1218,30 @@ def _phase_train(device, tmp):
     manifest, _ = load_checkpoint(trainer.checkpoint_path, trainer.state)
     reloaded = all(torch.equal(after[n], t)
                    for n, t in trainer.state.trainable().items())
-    print(f"[5 train] checkpoint {sorted(os.listdir(trainer.checkpoint_path))}"
+    print(f"[{tag}] checkpoint {sorted(os.listdir(trainer.checkpoint_path))}"
           f" reloads at iter {manifest['iters']}: "
           f"{'same weights' if reloaded else 'DIFFERENT weights'}")
     if manifest["iters"] != trainer.iters or not reloaded:
         raise SystemExit("the checkpoint does not reload the trained state")
 
     # train-step throughput of both arms at the recipe's accum and at 1, in
-    # turns (plain, fused, fused, plain), best of two
+    # turns (plain, kernel, kernel, plain), best of two
     rates = {}
-    for name, arm in (("plain", plain_cfg), ("fused", cfg),
-                      ("fused", cfg), ("plain", plain_cfg)):
+    for name, a_cfg in (("plain", plain_cfg), (arm, cfg), (arm, cfg),
+                        ("plain", plain_cfg)):
         for acc in (accum, 1):
-            rate, peak = _train_rate(wrapper, arm, acc, batch)
+            rate, peak = _train_rate(wrapper, a_cfg, acc, batch)
             best = rates.get((name, acc), (0.0, 0.0))
             rates[(name, acc)] = (max(best[0], rate), max(best[1], peak))
     for (name, acc), (rate, peak) in sorted(rates.items()):
-        print(f"[5 train] train step b{batch['image'].shape[0]} accum {acc} "
-              f"{name} arm: "
-              f"{rate:.1f} img/s, peak {peak:.2f} GB")
-    return launches, rates
+        print(f"[{tag}] train step b{batch['image'].shape[0]} accum {acc} "
+              f"{name} arm: {rate:.1f} img/s, peak {peak:.2f} GB")
+    profiles = {}
+    for acc in ((accum, 1) if profile else ()):
+        profiles[acc] = _profile_step(_train_step_fn(wrapper, cfg, acc,
+                                                     batch))
+        _print_profile(tag, f"{arm} arm, accum {acc}", *profiles[acc])
+    return launches, rates, profiles
 
 
 def _proto_inputs(r, k, gen, device):
@@ -1209,8 +1479,9 @@ def _device_kernels(prof) -> dict:
 
 _KERNEL_GROUPS = (
     ("proto-CE kernels", ("proto_ce_", "sum_partials_kernel")),
-    ("fused APLA attention forward kernel", ("fused_apla_attn_fwd_kernel",)),
-    ("fused APLA attention backward kernels",
+    ("attention forward kernels (fused APLA, mha)",
+     ("fused_apla_attn_fwd_kernel", "mha_fwd_kernel")),
+    ("attention backward kernels (fused APLA, mha)",
      ("bwd_query_kernel", "bwd_key_kernel", "gemm_nt_kernel",
       "dw_partial_kernel", "dw_reduce_kernel")),
     ("gathers / index backward", ("index",)),
@@ -1248,6 +1519,19 @@ def _profile_step(fn, steps=2):
                   for e in prof.key_averages() if e.key.startswith("aten::")),
                  key=lambda kv: -kv[1])[:10]
     return wall, busy, groups, [(n, us / 1e3 / steps) for n, us in top], ops
+
+
+def _print_profile(tag, what, wall, busy, groups, top, ops):
+    print(f"[{tag}] profile, {what}: {wall:.2f} ms wall per step "
+          f"(under the profiler), {busy:.2f} ms device busy, idle "
+          f"{max(0.0, 1 - busy / wall):.1%}")
+    print(f"[{tag}] profile by group (device ms per step): " + ", ".join(
+        f"{g} {ms:.2f}" for g, ms in sorted(groups.items(),
+                                            key=lambda kv: -kv[1])))
+    for name, ms in top:
+        print(f"[{tag}] profile top kernel {ms:8.3f} ms  {name[:100]}")
+    print(f"[{tag}] profile top ops (own device ms per step): " + ", ".join(
+        f"{name} {ms:.2f}" for name, ms in ops))
 
 
 def phase_ssl(device):
@@ -1388,18 +1672,8 @@ def _phase_ssl(device, tmp):
         print(f"[6b ssl] train step b{batch['raw_images'].shape[0]} {name} "
               f"arm: {rate:.1f} img/s, peak {peak:.2f} GB")
     step, st, gen = fused_call
-    wall, busy, groups, top, ops = _profile_step(
-        lambda: step(st, batch, 1e-9, 1e-5, 1.0, PROTO_TEMPS[0], gen))
-    print(f"[6b ssl] profile, fused arm: {wall:.2f} ms wall per step "
-          f"(under the profiler), {busy:.2f} ms device busy, idle "
-          f"{max(0.0, 1 - busy / wall):.1%}")
-    print("[6b ssl] profile by group (device ms per step): " + ", ".join(
-        f"{g} {ms:.2f}" for g, ms in sorted(groups.items(),
-                                            key=lambda kv: -kv[1])))
-    for name, ms in top:
-        print(f"[6b ssl] profile top kernel {ms:8.3f} ms  {name[:100]}")
-    print("[6b ssl] profile top ops (own device ms per step): " + ", ".join(
-        f"{name} {ms:.2f}" for name, ms in ops))
+    _print_profile("6b ssl", "fused arm", *_profile_step(
+        lambda: step(st, batch, 1e-9, 1e-5, 1.0, PROTO_TEMPS[0], gen)))
     return launches, rates
 
 
@@ -1413,13 +1687,25 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    build_s = phase_build()
-    max_err, fwd_times = phase_kernel(device)
-    serve_launches, fused_rate, plain_rate = phase_slice(device)
-    bwd_err, bwd_times = phase_bwd(device)
-    (fwd_launches, bwd_launches), rates = phase_train(device)
-    proto_times = phase_proto_ce(device)
-    ssl_launches, ssl_rates = phase_ssl(device)
+    secs = {}
+
+    def timed(name, phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        secs[name] = time.perf_counter() - t
+        return out
+
+    build_s = timed("1", phase_build)
+    max_err, fwd_times = timed("2", phase_kernel, device)
+    serve_launches, fused_rate, plain_rate = timed("3", phase_slice, device)
+    bwd_err, bwd_times = timed("4", phase_bwd, device)
+    (fwd_launches, bwd_launches), rates = timed("5", phase_train, device)
+    proto_times = timed("6a", phase_proto_ce, device)
+    ssl_launches, ssl_rates = timed("6b", phase_ssl, device)
+    mha_times = timed("7a", phase_mha, device)
+    (full_serve_launches, full_rate, full_plain_rate), \
+        ((full_fwd, full_bwd), full_rates, _) = timed("7b", phase_full,
+                                                      device)
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
           f"forward launches); train b64 img/s " + ", ".join(
@@ -1427,7 +1713,12 @@ def main() -> int:
               for (name, acc), (r, _) in sorted(rates.items()))
           + "; SSL train b64 img/s " + ", ".join(
               f"{name} {r:.1f}" for name, (r, _) in sorted(ssl_rates.items()))
-          + f"; whole run {time.perf_counter() - t0:.1f} s")
+          + f"; full-projection serve b64 img/s kernel {full_rate:.1f} "
+          f"plain {full_plain_rate:.1f}, train b64 img/s " + ", ".join(
+              f"{name} accum {acc} {r:.1f}"
+              for (name, acc), (r, _) in sorted(full_rates.items()))
+          + f"; whole run {time.perf_counter() - t0:.1f} s (phases: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + " s)")
     print(_gpu_line())
     main_shape = TIMED_SHAPES[0]
     kernels = [
@@ -1444,9 +1735,15 @@ def main() -> int:
          ssl_launches[3], proto_times["dxs"]),
         ("proto_ce_dws", "proto_ce_bwd.cu", "pallas_proto_ce.py:150",
          ssl_launches[4], proto_times["dws"]),
+        ("mha_fwd", "mha_fwd.cu", "pallas_mha.py:66",
+         full_serve_launches + full_fwd, mha_times["fwd"]),
+        ("mha_bwd", "mha_bwd.cu", "pallas_mha.py:81", full_bwd,
+         mha_times["bwd"]),
     ]
-    # library_ms: no single PyTorch call computes any of these functions;
-    # the attention kernels' two-call yardstick is reported beside it
+    # library_ms: F.scaled_dot_product_attention (autograd through it for
+    # the backward) computes the mha kernels' function; no single PyTorch
+    # call computes the others, and the fused attention kernels' two-call
+    # yardstick (SDPA, then the projection) is reported beside them
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"apla_tpu_torch/csrc/{src}",
@@ -1455,7 +1752,7 @@ def main() -> int:
         "max_abs_err": t["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": None,
+        "library_ms": t.get("library_ms"),
         **({"library_two_calls_ms": t["library_two_calls_ms"]}
            if "library_two_calls_ms" in t else {}),
     } for name, src, tpu, launches, t in kernels]}))

@@ -9,13 +9,15 @@ Each kernel is held against its plain PyTorch version on the same bf16
 tensors.  Bound: 2e-2 of the reference's largest magnitude, per output
 (the two round p, o, dO, ds and the outputs to bf16 after f32 sums taken
 in different orders; the prototype-CE kernels round ds to bf16 as their
-plain versions do).
+plain versions do).  Reruns of the kernels that sum partials are
+bit-equal.
 """
 
 import pytest
 import torch
 
 from apla_tpu_torch.ops import fused_apla_attn as tfa
+from apla_tpu_torch.ops import mha as tmha
 from apla_tpu_torch.ops import proto_ce as tpc
 
 REL_TOL = 2e-2
@@ -252,3 +254,117 @@ def test_proto_ce_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="xs on"):
         tpc.proto_ce_fwd(xs, ws, xt.cpu(), wt, c, 0.04, 0.1)
     assert [f.launches for f in _PROTO_KERNELS] == before
+
+
+def _mha_inputs(device, b, n, c, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((b, n, 3 * c), generator=gen).to(device,
+                                                        torch.bfloat16),
+            torch.randn((b, n, c), generator=gen).to(device, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,seg,c", [
+    (8, 257, 0, 768),     # the training micro-batch of ViT-B/14 at 224
+    (64, 257, 0, 768),    # the served b64 call
+    (512, 50, 0, 768),    # the SSL local crops
+    (2, 1370, 0, 768),    # ViT-B/14 at 518: keys over 22 tiles
+    (8, 200, 50, 768),    # packed segments
+    (2, 100, 64, 768),    # last segment cut by N
+    (3, 17, 0, 768),      # N below one tile
+    (1, 1, 0, 768),
+    (2, 257, 0, 192),     # ViT-Ti: 3 heads
+    (4, 65, 13, 384),     # ViT-S
+])
+def test_mha_kernels_match_plain(cuda_device, b, n, seg, c):
+    qkv, d_o = _mha_inputs(cuda_device, b, n, c, seed=n + seg + c)
+    heads = c // 64
+    before = (tmha.mha_fwd.launches, tmha.mha_bwd.launches)
+    out = tmha.mha_fwd(qkv, heads, 0.125, seg)
+    dqkv = tmha.mha_bwd(qkv, d_o, heads, 0.125, seg)
+    torch.cuda.synchronize()
+    assert (tmha.mha_fwd.launches, tmha.mha_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = tmha.mha_fwd_reference(qkv, heads, 0.125, seg)
+    r_dqkv = tmha.mha_bwd_reference(qkv, d_o, heads, 0.125, seg)
+    assert out.shape == (b, n, c) and out.dtype == torch.bfloat16
+    assert dqkv.shape == qkv.shape and dqkv.dtype == torch.bfloat16
+    pairs = [("o", out, ref)] + [
+        (name, dqkv[..., i * c:(i + 1) * c], r_dqkv[..., i * c:(i + 1) * c])
+        for i, name in enumerate(("dq", "dk", "dv"))]
+    for name, a, r in pairs:
+        assert torch.isfinite(a).all(), name
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= REL_TOL * r.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+def test_mha_kernels_are_deterministic(cuda_device):
+    """No atomics: reruns give the same bits."""
+    qkv, d_o = _mha_inputs(cuda_device, 8, 257, 768, seed=1)
+    assert torch.equal(tmha.mha_fwd(qkv, 12, 0.125),
+                       tmha.mha_fwd(qkv, 12, 0.125))
+    assert torch.equal(tmha.mha_bwd(qkv, d_o, 12, 0.125),
+                       tmha.mha_bwd(qkv, d_o, 12, 0.125))
+
+
+@pytest.mark.cuda
+def test_mha_autograd_and_flash_mha_run_the_kernels(cuda_device):
+    """The autograd Function and flash_mha ([B, N, H, Dh] q, k, v) launch
+    both kernels once per call and agree with each other."""
+    from apla_tpu_torch.ops.flash_attention import flash_mha
+    qkv, d_o = _mha_inputs(cuda_device, 2, 257, 768, seed=2)
+    qkv.requires_grad_()
+    before = (tmha.mha_fwd.launches, tmha.mha_bwd.launches)
+    out = tmha.mha(qkv, 12, 0.125)
+    out.backward(d_o)
+    q, k, v = (t.detach().reshape(2, 257, 12, 64).requires_grad_()
+               for t in qkv.chunk(3, dim=-1))
+    f_out = flash_mha(q, k, v, scale=0.125)
+    f_out.backward(d_o.reshape(2, 257, 12, 64))
+    torch.cuda.synchronize()
+    assert (tmha.mha_fwd.launches, tmha.mha_bwd.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert qkv.grad.dtype == torch.bfloat16
+    assert torch.equal(f_out.reshape(2, 257, 768), out)
+    assert torch.equal(torch.cat([t.grad.reshape(2, 257, 768)
+                                  for t in (q, k, v)], -1), qkv.grad)
+
+
+@pytest.mark.cuda
+def test_full_projection_vit_runs_the_kernels(cuda_device):
+    """A 3-block bf16 ViT at APLA "full" with use_flash: every block's
+    forward launches the forward kernel; the backward kernel runs in every
+    block whose attention input needs a gradient (all but block 0)."""
+    from apla_tpu_torch.apla.core import AplaConfig
+    from apla_tpu_torch.models.classifier import (classifier_forward,
+                                                  init_classifier)
+    from apla_tpu_torch.models.vit import ViTConfig
+    cfg = ViTConfig(img_size=56, patch_size=14, embed_dim=128, depth=3,
+                    num_heads=2, use_flash=True, use_fused_apla=True)
+    model = init_classifier(cfg, 10, AplaConfig(partial_size="full"),
+                            generator=torch.Generator().manual_seed(0),
+                            device=cuda_device)
+    x = torch.randn((4, 56, 56, 3), device=cuda_device)
+    before = (tmha.mha_fwd.launches, tmha.mha_bwd.launches)
+    classifier_forward(model, x, cfg).float().sum().backward()
+    torch.cuda.synchronize()
+    assert (tmha.mha_fwd.launches, tmha.mha_bwd.launches) == \
+        (before[0] + 3, before[1] + 2)
+    for blk in model.backbone.blocks:
+        assert torch.isfinite(blk.attn.proj.kernel.grad).all()
+
+
+@pytest.mark.cuda
+def test_mha_raises_instead_of_falling_back(cuda_device):
+    qkv, d_o = _mha_inputs(cuda_device, 2, 17, 768, seed=0)
+    before = (tmha.mha_fwd.launches, tmha.mha_bwd.launches)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tmha.mha_fwd(qkv.float(), 12, 0.125)
+    with pytest.raises(ValueError, match="head dim 64"):
+        tmha.mha_fwd(qkv, 6, 0.125)
+    with pytest.raises(ValueError, match="d_o must be"):
+        tmha.mha_bwd(qkv, d_o[:, :16], 12, 0.125)
+    with pytest.raises(ValueError, match="d_o on"):
+        tmha.mha_bwd(qkv, d_o.cpu(), 12, 0.125)
+    assert (tmha.mha_fwd.launches, tmha.mha_bwd.launches) == before

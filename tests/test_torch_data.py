@@ -6,7 +6,7 @@
   may normalise in its native helper), and raw-mode uint8 records exactly.
 - `DataLoader`: the same index batches and batch contents as the JAX
   loader for (seed, epoch), shuffle and drop_last, with and without worker
-  processes.
+  processes; its workers stop when it is dropped.
 - `AdvancedAugCollate` (mixup/cutmix) with the same numpy seed: equal.
 - `device_augment` against the JAX one with the same random draws fed in
   (the two draw from different generators): the draws are taken from the
@@ -15,7 +15,10 @@
   resampling summed in a different order).
 """
 
+import gc
 import math
+import multiprocessing
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -125,6 +128,25 @@ def test_loader_batches_match_jax(shuffle, drop_last, workers):
             np.testing.assert_allclose(a["image"].numpy(), b["image"],
                                        rtol=0, atol=1e-6)
             np.testing.assert_array_equal(a["label"].numpy(), b["label"])
+
+
+def test_loader_workers_stop_when_the_loader_is_dropped():
+    """Dropping the loader frees it at once (no reference cycle left for the
+    collector) and its worker processes stop with it."""
+    before = set(multiprocessing.active_children())
+    loader = DataLoader(tdata.Synthetic(PARAMS, "train"), batch_size=6,
+                        num_workers=2)
+    assert len(list(loader)) == len(loader)
+    workers = set(multiprocessing.active_children()) - before
+    assert len(workers) == 2
+    gone = weakref.ref(loader)
+    gc.disable()
+    try:
+        del loader
+        assert gone() is None
+    finally:
+        gc.enable()
+    assert not any(p.is_alive() for p in workers)
 
 
 def test_mixup_collate_matches_jax_with_the_same_seed():

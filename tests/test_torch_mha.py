@@ -1,0 +1,164 @@
+"""The port's memory-efficient attention (`ops/mha.py`) against the JAX
+package's Pallas attention kernel (`pallas_mha.vmem_mha`, run in the Pallas
+interpreter, forward and the gradients of its custom VJP).
+
+The same numpy q, k, v (and cotangent) go to both: the kernels' plain
+versions take them packed `[B, N, 3C]` as the qkv matmul emits them, the
+JAX function as `[B, N, H, Dh]`.  Tolerances: float32 rtol = atol = 1e-4
+(sum order only); bfloat16 max|err| <= 2e-2 * max|ref| (both round p, the
+output and ds to bf16 at the same points; f32 sums in another order can
+move a value across a bf16 rounding boundary).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apla_tpu.ops import pallas_mha
+from apla_tpu_torch.ops import mha as tmha
+from apla_tpu_torch.ops.flash_attention import flash_mha
+
+H, DH = 2, 64
+SCALE = DH ** -0.5
+F32_TOL = 1e-4
+BF16_REL_TOL = 2e-2
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode():
+    pallas_mha.INTERPRET = True
+    yield
+    pallas_mha.INTERPRET = False
+
+
+def _inputs(b, n, seed):
+    """q, k, v, dO [B, N, H, Dh] float32 numpy."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, n, H, DH)).astype(np.float32)
+            for _ in range(4)]
+
+
+def _packed(q, k, v, dtype):
+    b, n = q.shape[:2]
+    qkv = np.concatenate([t.reshape(b, n, H * DH) for t in (q, k, v)], -1)
+    return torch.from_numpy(qkv).to(dtype)
+
+
+def _jax(q, k, v, d_o, dtype, seg):
+    """JAX forward output and (dq, dk, dv) through the custom VJP."""
+    args = [jnp.asarray(t, dtype) for t in (q, k, v)]
+    out, vjp = jax.vjp(lambda a, b, c: pallas_mha.vmem_mha(
+        a, b, c, SCALE, segment_len=seg), *args)
+    grads = vjp(jnp.asarray(d_o, dtype))
+    return [np.asarray(jnp.asarray(t, jnp.float32)) for t in (out, *grads)]
+
+
+def _close(got, ref, dtype):
+    got = np.asarray(got, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=F32_TOL, atol=F32_TOL)
+    else:
+        err = np.abs(got - ref).max()
+        assert err <= BF16_REL_TOL * np.abs(ref).max(), err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,seg", [(64, 0), (100, 0), (257, 0), (100, 30)])
+def test_plain_versions_match_vmem_mha(dtype, n, seg):
+    """mha_fwd_reference / mha_bwd_reference against the TPU kernel's
+    forward and custom-VJP backward: N a tile multiple, ragged (padded to
+    112 on the TPU), the served length, and segments with a partial last
+    one."""
+    q, k, v, d_o = _inputs(2, n, seed=n + seg)
+    j_out, j_dq, j_dk, j_dv = _jax(q, k, v, d_o, getattr(jnp, dtype), seg)
+    tdt = getattr(torch, dtype)
+    qkv = _packed(q, k, v, tdt)
+    out = tmha.mha_fwd_reference(qkv, H, SCALE, seg)
+    assert out.shape == (2, n, H * DH) and out.dtype == tdt
+    _close(out.float().reshape(2, n, H, DH), j_out, dtype)
+    d_o_t = torch.from_numpy(d_o.reshape(2, n, H * DH)).to(tdt)
+    dqkv = tmha.mha_bwd_reference(qkv, d_o_t, H, SCALE, seg)
+    assert dqkv.shape == qkv.shape and dqkv.dtype == tdt
+    for got, ref in zip(dqkv.float().chunk(3, dim=-1), (j_dq, j_dk, j_dv)):
+        _close(got.reshape(2, n, H, DH), ref, dtype)
+
+
+def test_segments_are_block_diagonal():
+    """With segment_len, each segment's output equals attention over that
+    segment alone (the packed DINOv2 local crops)."""
+    q, k, v, _ = _inputs(1, 90, seed=5)
+    qkv = _packed(q, k, v, torch.float32)
+    packed = tmha.mha_fwd_reference(qkv, H, SCALE, 30)
+    for s in range(3):
+        alone = tmha.mha_fwd_reference(qkv[:, 30 * s:30 * (s + 1)], H, SCALE)
+        torch.testing.assert_close(packed[:, 30 * s:30 * (s + 1)], alone,
+                                   rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("n,seg", [(100, 0), (100, 25)])
+def test_flash_mha_and_function_run_plain_versions_on_cpu(n, seg):
+    """flash_mha ([B, N, H, Dh] like the JAX function) and the autograd
+    Function on CPU tensors: the plain versions, no kernel launch, output
+    and gradients as the JAX kernel's in float32."""
+    q, k, v, d_o = _inputs(2, n, seed=11 + seg)
+    j_out, j_dq, j_dk, j_dv = _jax(q, k, v, d_o, jnp.float32, seg)
+    launches = (tmha.mha_fwd.launches, tmha.mha_bwd.launches)
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    out = flash_mha(tq, tk, tv, scale=SCALE, segment_len=seg)
+    assert out.shape == (2, n, H, DH)
+    _close(out.detach(), j_out, "float32")
+    out.backward(torch.from_numpy(d_o))
+    for t, ref in zip((tq, tk, tv), (j_dq, j_dk, j_dv)):
+        _close(t.grad, ref, "float32")
+    qkv = _packed(q, k, v, torch.float32).requires_grad_()
+    o = tmha.mha(qkv, H, SCALE, seg)
+    o.backward(torch.from_numpy(d_o.reshape(2, n, H * DH)))
+    _close(o.detach().reshape(2, n, H, DH), j_out, "float32")
+    for got, ref in zip(qkv.grad.chunk(3, dim=-1), (j_dq, j_dk, j_dv)):
+        _close(got.reshape(2, n, H, DH), ref, "float32")
+    assert (tmha.mha_fwd.launches, tmha.mha_bwd.launches) == launches
+
+
+def test_function_saves_only_qkv():
+    """The custom VJP's contract: qkv is the only tensor kept for the
+    backward (p is recomputed there)."""
+    q, k, v, _ = _inputs(1, 20, seed=3)
+    qkv = _packed(q, k, v, torch.float32).requires_grad_()
+    out = tmha.mha(qkv, H, SCALE)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 1 and saved[0] is qkv
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("float32", "bfloat16"),
+    ("heads", "head dim 64"),
+    ("strided", "contiguous"),
+    ("segment", "segment_len"),
+])
+def test_kernel_contract_is_checked_before_a_launch(bad, match):
+    """What the CUDA kernels do not take raises, naming why; the wrappers
+    check it before any launch (checked here on the CPU tensors' shapes)."""
+    qkv = torch.zeros((2, 17, 3 * H * DH), dtype=torch.bfloat16)
+    heads, seg = H, 0
+    if bad == "float32":
+        qkv = qkv.float()
+    elif bad == "heads":
+        heads = 4
+    elif bad == "strided":
+        qkv = torch.zeros((2, 17, 6 * H * DH), dtype=torch.bfloat16)[..., ::2]
+    else:
+        seg = -1
+    with pytest.raises(ValueError, match=match):
+        tmha._check_qkv(qkv, heads, seg)
+
+
+def test_other_devices_raise():
+    """No device other than the CPU and a card gets an attention: the
+    wrappers raise rather than take another path."""
+    qkv = torch.empty((1, 17, 3 * H * DH), device="meta")
+    with pytest.raises(ValueError, match="no attention kernel"):
+        tmha.mha_fwd(qkv, H, SCALE)
+    with pytest.raises(ValueError, match="no attention kernel"):
+        tmha.mha_bwd(qkv, qkv[..., :H * DH], H, SCALE)

@@ -3,11 +3,12 @@ the card's machine lacks (PIL, sklearn, yaml, pandas).
 
 A fresh interpreter with a `sys.meta_path` blocker on those packages imports
 every module of the port, runs a tiny APLA classifier forward through the
-fused path, round-trips it through a serving artifact, takes one training
-step (device augmentation, mixup targets, accumulation) through
-`make_train_step`, and runs the SSL pieces: device multi-crop with blur and
-solarize, the iBOT mask collate, the DINO head and the prototype CE with
-its backward.
+fused path, round-trips it through a serving artifact, runs a tiny APLA
+"full" classifier forward and backward through the memory-efficient
+attention (`ops.mha`), takes one training step (device augmentation, mixup
+targets, accumulation) through `make_train_step`, and runs the SSL pieces:
+device multi-crop with blur and solarize, the iBOT mask collate, the DINO
+head and the prototype CE with its backward.
 """
 
 import os
@@ -70,6 +71,17 @@ with tempfile.TemporaryDirectory() as tmp:
     export_classifier(tmp, model, cfg, batch_sizes=(1, 2))
     served = load_predictor(tmp, "cpu").predict(x)
 assert np.array_equal(served, logits.float().numpy())
+
+# APLA "full" on the memory-efficient attention path (ops.mha), forward and
+# backward
+full_cfg = ViTConfig(img_size=32, patch_size=8, embed_dim=128, depth=2,
+                     num_heads=2, use_flash=True)
+full = init_classifier(full_cfg, 10, AplaConfig(partial_size="full"),
+                       generator=torch.Generator().manual_seed(0),
+                       device=torch.device("cpu"))
+classifier_forward(full, torch.from_numpy(x), full_cfg).float().sum().backward()
+assert all(torch.isfinite(b.attn.proj.kernel.grad).all()
+           for b in full.backbone.blocks)
 
 from apla_tpu_torch.data.device_augs import DeviceAugConfig
 from apla_tpu_torch.train.losses import cross_entropy

@@ -311,13 +311,14 @@ def test_attn_drop_rate_keeps_fused_path(monkeypatch):
 
 
 def test_unported_paths_raise():
-    """An int8 frozen leaf and use_flash off the CPU raise instead of
-    silently taking another path."""
+    """An int8 frozen leaf (W8A8 is not ported) and use_flash on a device
+    that is neither the CPU nor a card raise instead of silently taking
+    another path."""
     from apla_tpu_torch.ops.flash_attention import flash_mha
     from apla_tpu_torch.ops.quant import maybe_quantized_dot
 
     with pytest.raises(NotImplementedError, match="ROADMAP B6"):
         maybe_quantized_dot(torch.zeros(2, 4), {"w_int8": None, "scale": None})
     q = torch.empty(1, 17, 2, 64, device="meta")
-    with pytest.raises(NotImplementedError, match="B5"):
+    with pytest.raises(ValueError, match="no attention kernel for device"):
         flash_mha(q, q, q, scale=0.125)
