@@ -1,11 +1,12 @@
 // The attention backward shared by the fused APLA backward
-// (fused_apla_attn_bwd.cu, replacing pallas_apla_attn.py:_bwd_kernel) and
-// the plain multi-head attention backward (mha_bwd.cu, replacing
-// pallas_mha.py:_bwd_kernel): FlashAttention-2's split of the work into a
-// query side and a key side, with the TPU kernels' rounding points.
+// (fused_apla_attn_bwd.cu, replacing pallas_apla_attn.py:_bwd_kernel and,
+// for Swin windows, _bwd_kernel_bias) and the plain multi-head attention
+// backward (mha_bwd.cu, replacing pallas_mha.py:_bwd_kernel):
+// FlashAttention-2's split of the work into a query side and a key side,
+// with the TPU kernels' rounding points.
 //
 // Layouts: qkv [B, N, 3C] bf16 packed (q | k | v, head h at columns
-// h*64 .. h*64+63 of each third), dO [B, N, C] bf16, dqkv [B, N, 3C] bf16,
+// h*DH .. h*DH+DH-1 of each third), dO [B, N, C] bf16, dqkv [B, N, 3C] bf16,
 // stats [3, B, H, N] f32 scratch.  Per head, on the recomputed f32 p:
 //
 //   p  = softmax(mask(q k^T * scale))          (f32)
@@ -15,7 +16,9 @@
 // rowsum(dp * p) is taken on the f32 p (not FlashAttention-2's
 // rowsum(dO * o)).  Masked scores are -inf: columns past N and, when
 // seg > 0, columns outside the row's segment of that length; a row with no
-// valid column has p = 0.
+// valid column has p = 0.  With BIAS (Swin windows, DH = 32) the scores are
+// (q k^T * scale + bias[h]) + mask[b mod nW] before the softmax (see
+// mma::scale_bias_mask), and seg is unused.
 //
 //   query side: per (64-row query tile, head, image): softmax statistics,
 //               rowsum(dp * p) (and, with WITH_O, o = bf16(bf16(p) v) into
@@ -36,16 +39,30 @@ using namespace mma;
 
 constexpr int NT = 128;              // 4 warps, 16 rows each
 constexpr int BM = 64;               // rows per tile
-constexpr int DH = 64;               // head dim
 
 constexpr size_t QUERY_SMEM = 6 * TILE * sizeof(bf16);    // q dO k[2] v[2]
 constexpr size_t KEY_SMEM = 6 * TILE * sizeof(bf16)       // k v q[2] dO[2]
                             + 2 * 3 * BM * sizeof(float); // stats[2]
 constexpr size_t BWD_SMEM = KEY_SMEM > QUERY_SMEM ? KEY_SMEM : QUERY_SMEM;
 
+template <int COLS = 64, int ROWS = 64>
 __device__ __forceinline__ void issue(bf16* dst, const bf16* src, long stride,
                                       int row0, int n_rows, int tid) {
-  issue_tile<NT>(dst, src, stride, row0, n_rows, tid);
+  issue_tile<NT, COLS, ROWS>(dst, src, stride, row0, n_rows, tid);
+}
+
+// scores of the tile whose first column is col0 (lane's 2t included) ->
+// log2 units, masked (see the header comment); rows r_lo, r_lo + 8
+template <bool BIAS, bool TRANS>
+__device__ __forceinline__ void mask_tile(float (&s)[8][4], int col0,
+                                          int r_lo, int n, float scale_log2,
+                                          float scale, int lo0, int hi0,
+                                          int lo1, int hi1, const float* bias,
+                                          const float* mask) {
+  if constexpr (BIAS)
+    scale_bias_mask<TRANS>(s, col0, r_lo, n, scale, bias, mask);
+  else
+    scale_mask(s, col0, scale_log2, lo0, hi0, lo1, hi1);
 }
 
 // The segment [lo, hi) of valid columns for row r (all of [0, n) if seg = 0)
@@ -75,12 +92,13 @@ __device__ __forceinline__ void tile_range(int row0, int n, int seg, int& t0,
 // stats [3][B*H*N]: reference point m (log2 units, 0 for an empty row),
 // 1 / rowsum (0 for an empty row), D = rowsum(dp * p).  With WITH_O the
 // head's o = bf16(bf16(p) v) goes to o_cat [B, N, C].
-template <bool WITH_O>
+template <bool WITH_O, int DH, bool BIAS>
 __global__ void __launch_bounds__(NT)
 bwd_query_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
                  bf16* __restrict__ o_cat, bf16* __restrict__ dqkv,
-                 float* __restrict__ stats, int B, int N, int C, int H,
-                 float scale_log2, float scale, int seg) {
+                 float* __restrict__ stats, const float* __restrict__ bias,
+                 const float* __restrict__ mask, int B, int N, int C, int H,
+                 float scale_log2, float scale, int seg, int nW) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ds_ = qs + TILE;                       // the dO tile
@@ -102,17 +120,20 @@ bwd_query_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
   row_range(r_hi, N, seg, lo1, hi1);
   tile_range(row0, N, seg, kt0, kt1);
   const int n_kt = kt1 - kt0;
+  const float* bias_h = BIAS ? bias + (long)h * N * N : nullptr;
+  const float* mask_w = (BIAS && mask != nullptr)
+                            ? mask + (long)(b % nW) * N * N : nullptr;
 
   // ---- pass 1: running max and sum per row (log2 units) ----------------
-  issue(qs, qh, rs, row0, N, tid);
-  issue(ds_, doh, C, row0, N, tid);
-  issue(kbuf[0], kh, rs, kt0 * BM, N, tid);
+  issue<DH>(qs, qh, rs, row0, N, tid);
+  issue<DH>(ds_, doh, C, row0, N, tid);
+  issue<DH>(kbuf[0], kh, rs, kt0 * BM, N, tid);
   cp_async_commit();
-  uint32_t qa[4][4], da[4][4];
+  uint32_t qa[DH / 16][4], da[DH / 16][4];
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
   for (int i = 0; i < n_kt; ++i) {
     if (i + 1 < n_kt) {
-      issue(kbuf[(i + 1) & 1], kh, rs, (kt0 + i + 1) * BM, N, tid);
+      issue<DH>(kbuf[(i + 1) & 1], kh, rs, (kt0 + i + 1) * BM, N, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -125,7 +146,8 @@ bwd_query_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
     }
     float s[8][4];
     warp_scores(qa, kbuf[i & 1], lane, s);
-    scale_mask(s, (kt0 + i) * BM + 2 * t, scale_log2, lo0, hi0, lo1, hi1);
+    mask_tile<BIAS, false>(s, (kt0 + i) * BM + 2 * t, r_lo, N, scale_log2,
+                           scale, lo0, hi0, lo1, hi1, bias_h, mask_w);
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -154,17 +176,17 @@ bwd_query_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
   const float inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
 
   // ---- pass 2: D = rowsum(dp * p) (and o = bf16(pb v)) -----------------
-  float acc[8][4];
+  float acc[DH / 8][4];
   zero_acc(acc);
   float d0 = 0.0f, d1 = 0.0f;
-  issue(kbuf[0], kh, rs, kt0 * BM, N, tid);
-  issue(vbuf[0], vh, rs, kt0 * BM, N, tid);
+  issue<DH>(kbuf[0], kh, rs, kt0 * BM, N, tid);
+  issue<DH>(vbuf[0], vh, rs, kt0 * BM, N, tid);
   cp_async_commit();
   for (int i = 0; i < n_kt; ++i) {
     if (i + 1 < n_kt) {
       const int nb = (i + 1) & 1, r = (kt0 + i + 1) * BM;
-      issue(kbuf[nb], kh, rs, r, N, tid);
-      issue(vbuf[nb], vh, rs, r, N, tid);
+      issue<DH>(kbuf[nb], kh, rs, r, N, tid);
+      issue<DH>(vbuf[nb], vh, rs, r, N, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -173,7 +195,8 @@ bwd_query_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
     __syncthreads();
     float p[8][4], dp[8][4];
     warp_scores(qa, kbuf[i & 1], lane, p);
-    scale_mask(p, (kt0 + i) * BM + 2 * t, scale_log2, lo0, hi0, lo1, hi1);
+    mask_tile<BIAS, false>(p, (kt0 + i) * BM + 2 * t, r_lo, N, scale_log2,
+                           scale, lo0, hi0, lo1, hi1, bias_h, mask_w);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       p[j][0] = exp2f(p[j][0] - ref0) * inv0;
@@ -212,14 +235,14 @@ bwd_query_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
 
   // ---- pass 3: ds = bf16((p * (dp - D)) * scale), dq = ds k -------------
   zero_acc(acc);
-  issue(kbuf[0], kh, rs, kt0 * BM, N, tid);
-  issue(vbuf[0], vh, rs, kt0 * BM, N, tid);
+  issue<DH>(kbuf[0], kh, rs, kt0 * BM, N, tid);
+  issue<DH>(vbuf[0], vh, rs, kt0 * BM, N, tid);
   cp_async_commit();
   for (int i = 0; i < n_kt; ++i) {
     if (i + 1 < n_kt) {
       const int nb = (i + 1) & 1, r = (kt0 + i + 1) * BM;
-      issue(kbuf[nb], kh, rs, r, N, tid);
-      issue(vbuf[nb], vh, rs, r, N, tid);
+      issue<DH>(kbuf[nb], kh, rs, r, N, tid);
+      issue<DH>(vbuf[nb], vh, rs, r, N, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -228,7 +251,8 @@ bwd_query_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
     __syncthreads();
     float p[8][4], dp[8][4];
     warp_scores(qa, kbuf[i & 1], lane, p);
-    scale_mask(p, (kt0 + i) * BM + 2 * t, scale_log2, lo0, hi0, lo1, hi1);
+    mask_tile<BIAS, false>(p, (kt0 + i) * BM + 2 * t, r_lo, N, scale_log2,
+                           scale, lo0, hi0, lo1, hi1, bias_h, mask_w);
     warp_scores(da, vbuf[i & 1], lane, dp);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -247,11 +271,13 @@ bwd_query_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
 // ---- key side --------------------------------------------------------------
 // Per key tile: for every query tile it can see, p^T and ds^T from the
 // statistics of the query side, dv += pb^T dO and dk += ds^T q.
+template <int DH, bool BIAS>
 __global__ void __launch_bounds__(NT)
 bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
                const float* __restrict__ stats, bf16* __restrict__ dqkv,
+               const float* __restrict__ bias, const float* __restrict__ mask,
                int B, int N, int C, int H, float scale_log2, float scale,
-               int seg) {
+               int seg, int nW) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + TILE;
@@ -276,6 +302,9 @@ bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
   row_range(r_hi, N, seg, lo1, hi1);
   tile_range(key0, N, seg, qt0, qt1);
   const int n_qt = qt1 - qt0;
+  const float* bias_h = BIAS ? bias + (long)h * N * N : nullptr;
+  const float* mask_w = (BIAS && mask != nullptr)
+                            ? mask + (long)(b % nW) * N * N : nullptr;
 
   // statistics of query tile `qt` into sbuf[buf]: plain loads, made
   // visible by the barrier that precedes their use
@@ -286,21 +315,21 @@ bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
     }
   };
 
-  issue(ks, kh, rs, key0, N, tid);
-  issue(vs, vh, rs, key0, N, tid);
-  issue(qbuf[0], qh, rs, qt0 * BM, N, tid);
-  issue(dbuf[0], doh, C, qt0 * BM, N, tid);
+  issue<DH>(ks, kh, rs, key0, N, tid);
+  issue<DH>(vs, vh, rs, key0, N, tid);
+  issue<DH>(qbuf[0], qh, rs, qt0 * BM, N, tid);
+  issue<DH>(dbuf[0], doh, C, qt0 * BM, N, tid);
   cp_async_commit();
   load_stats(0, qt0);
-  uint32_t ka[4][4], va[4][4];
-  float dk[8][4], dv[8][4];
+  uint32_t ka[DH / 16][4], va[DH / 16][4];
+  float dk[DH / 8][4], dv[DH / 8][4];
   zero_acc(dk);
   zero_acc(dv);
   for (int i = 0; i < n_qt; ++i) {
     if (i + 1 < n_qt) {
       const int nb = (i + 1) & 1, r = (qt0 + i + 1) * BM;
-      issue(qbuf[nb], qh, rs, r, N, tid);
-      issue(dbuf[nb], doh, C, r, N, tid);
+      issue<DH>(qbuf[nb], qh, rs, r, N, tid);
+      issue<DH>(dbuf[nb], doh, C, r, N, tid);
       cp_async_commit();
       load_stats(nb, qt0 + i + 1);
       cp_async_wait<1>();
@@ -317,7 +346,8 @@ bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
     const float* dd = mref + 2 * BM;
     float p[8][4], dp[8][4];
     warp_scores(ka, qbuf[i & 1], lane, p);         // s^T: keys x queries
-    scale_mask(p, (qt0 + i) * BM + 2 * t, scale_log2, lo0, hi0, lo1, hi1);
+    mask_tile<BIAS, true>(p, (qt0 + i) * BM + 2 * t, r_lo, N, scale_log2,
+                          scale, lo0, hi0, lo1, hi1, bias_h, mask_w);
     warp_scores(va, dbuf[i & 1], lane, dp);        // dp^T = v dO^T
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -346,17 +376,17 @@ bwd_key_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dO,
 
 // Opt the two kernels in to their dynamic shared memory on `device`;
 // returns the device's per-block opt-in limit in bytes, or -1.
-template <bool WITH_O>
+template <bool WITH_O, int DH = 64, bool BIAS = false>
 int attn_bwd_prepare(int device) {
   int v = 0;
   if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess)
     return -1;
   if ((size_t)v < BWD_SMEM) return v;
-  if (cudaFuncSetAttribute(bwd_query_kernel<WITH_O>,
+  if (cudaFuncSetAttribute(bwd_query_kernel<WITH_O, DH, BIAS>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)QUERY_SMEM) != cudaSuccess ||
-      cudaFuncSetAttribute(bwd_key_kernel,
+      cudaFuncSetAttribute(bwd_key_kernel<DH, BIAS>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)KEY_SMEM) != cudaSuccess)
     return -1;
@@ -364,18 +394,22 @@ int attn_bwd_prepare(int device) {
 }
 
 // The query-side and key-side launches on `s`; returns the first nonzero
-// cudaError_t of a launch, or 0 when both are queued.
-template <bool WITH_O>
+// cudaError_t of a launch, or 0 when both are queued.  With BIAS: bias
+// [H, N, N] f32, mask [nW, N, N] f32 or null.
+template <bool WITH_O, int DH = 64, bool BIAS = false>
 int attn_bwd_launch(const bf16* qkv, const bf16* dO, bf16* o_cat, bf16* dqkv,
                     float* stats, int B, int N, int C, int H, float scale,
-                    int seg, cudaStream_t s) {
+                    int seg, cudaStream_t s, const float* bias = nullptr,
+                    const float* mask = nullptr, int nW = 1) {
   const dim3 att((N + BM - 1) / BM, H, B);
-  bwd_query_kernel<WITH_O><<<att, NT, QUERY_SMEM, s>>>(
-      qkv, dO, o_cat, dqkv, stats, B, N, C, H, scale * LOG2E, scale, seg);
+  bwd_query_kernel<WITH_O, DH, BIAS><<<att, NT, QUERY_SMEM, s>>>(
+      qkv, dO, o_cat, dqkv, stats, bias, mask, B, N, C, H, scale * LOG2E,
+      scale, seg, nW);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  bwd_key_kernel<<<att, NT, KEY_SMEM, s>>>(
-      qkv, dO, stats, dqkv, B, N, C, H, scale * LOG2E, scale, seg);
+  bwd_key_kernel<DH, BIAS><<<att, NT, KEY_SMEM, s>>>(
+      qkv, dO, stats, dqkv, bias, mask, B, N, C, H, scale * LOG2E, scale,
+      seg, nW);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,19 @@
 // Fused APLA attention backward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel apla_tpu/ops/pallas_apla_attn.py:_bwd_kernel
-// (called through _call_bwd from the custom VJP's _fused_bwd).  Contract,
-// exactly that kernel's, per image:
+// (called through _call_bwd from the custom VJP's _fused_bwd) and, for Swin
+// windows, its biased variant _bwd_kernel_bias (called through
+// _call_bwd_swin from _fused_swin_bwd): one body, as on the TPU.
+// Contract, exactly those kernels', per image (or window):
 //
 //   qkv [B, N, 3C] bf16, w [C, C] bf16 (assembled projection, [d_in, d_out]),
 //   g   [B, N, C]  bf16 (cotangent of the projected output),
-//   g_t [B, N, Kp] bf16 (g's trainable columns g[..., inds], zero-padded)
+//   g_t [B, N, Kp] bf16 (g's trainable columns g[..., inds], zero-padded;
+//                        Swin trains the whole projection: g_t = g, Kp = C)
 //
 //   dO   = bf16(g w^T)                              [N, C]
-//   per head h: p = softmax(mask(q k^T * scale)) in f32 (recomputed),
+//   per head h: p = softmax(s) in f32 (recomputed), s as in the forward
+//     (masked to the row's segment; Swin: + bias[h] + mask[b mod nW]),
 //     pb = bf16(p),  o = bf16(pb v),  dv = pb^T dO,  dp = dO v^T,
 //     ds = bf16((p * (dp - rowsum(dp * p))) * scale),  dq = ds k,  dk = ds^T q
 //   dqkv [B, N, 3C] bf16 = [dq | dk | dv]
@@ -24,12 +28,15 @@
 // What bounds it on the H100: at the training shape (B=8 micro-batches of
 // N=257, C=768, 12 heads) every product is a bf16 tensor-core product, so it
 // is compute bound like the forward; it recomputes the scores three times
-// (stats, o/rowsum, dq) on the query side and once on the key side.
+// (stats, o/rowsum, dq) on the query side and once on the key side.  Swin
+// windows (N=49, head dim 32) are small: at stage 0 of a b16 batch the
+// bytes bound it, and the dW sum over 1024 x 49 rows is the widest
+// reduction.
 //
 // The TPU grid runs images in order and carries dW_t in VMEM across them;
 // blocks on the card run in parallel, so the work is split in five launches
 // (FlashAttention-2's split of the attention backward, plus two GEMMs):
-//   1. gemm_nt:     dO = g w^T                       (64x64 tiles)
+//   1. gemm_nt:     dO = g w^T                       (64 x TW tiles)
 //   2. query side:  per (64-row query tile, head, image): softmax statistics,
 //                   o (-> o_cat scratch), rowsum(dp * p), then dq
 //   3. key side:    per (64-row key tile, head, image): dk, dv, reading the
@@ -38,6 +45,8 @@
 //   4. dW partials: o_cat^T g_t over chunks of rows, one f32 partial per
 //                   chunk (no atomics)
 //   5. dW reduce:   the partials summed in a fixed order: deterministic.
+// The GEMM tiles are TW = 64 wide, or 32 where C is not a multiple of 64
+// (Swin-T's stage 0, C = 96).
 // Products use mma.sync m16n8k16 with ldmatrix operand loads; tiles arrive
 // by cp.async, double-buffered.  wgmma/TMA are later work.
 
@@ -45,7 +54,9 @@
 
 namespace {
 
-// ---- 1. C[M, N] = bf16(A[M, K] B[N, K]^T), K and N multiples of 64 -------
+// ---- 1. C[M, N] = bf16(A[M, K] B[N, K]^T), K and N multiples of TW -------
+// A block computes 64 rows x TW columns in TW-deep steps.
+template <int TW>
 __global__ void __launch_bounds__(NT)
 gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                bf16* __restrict__ Cm, int M, int N, int K) {
@@ -53,24 +64,24 @@ gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   __shared__ __align__(128) bf16 sb[2][TILE];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, wrow = warp * 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * 64;
-  const int nk = K / 64;
-  float acc[8][4];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * TW;
+  const int nk = K / TW;
+  float acc[TW / 8][4];
   zero_acc(acc);
-  issue(sa[0], A, K, m0, M, tid);
-  issue(sb[0], B, K, n0, N, tid);
+  issue<TW>(sa[0], A, K, m0, M, tid);
+  issue<TW, TW>(sb[0], B, K, n0, N, tid);
   cp_async_commit();
   for (int i = 0; i < nk; ++i) {
     if (i + 1 < nk) {
-      issue(sa[(i + 1) & 1], A + (i + 1) * 64, K, m0, M, tid);
-      issue(sb[(i + 1) & 1], B + (i + 1) * 64, K, n0, N, tid);
+      issue<TW>(sa[(i + 1) & 1], A + (i + 1) * TW, K, m0, M, tid);
+      issue<TW, TW>(sb[(i + 1) & 1], B + (i + 1) * TW, K, n0, N, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    uint32_t a[4][4];
+    uint32_t a[TW / 16][4];
     load_a_rows(a, sa[i & 1], wrow, lane);
     warp_mma_nt(a, sb[i & 1], lane, acc);
     __syncthreads();
@@ -80,30 +91,37 @@ gemm_nt_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 }
 
 // ---- 4. dW_t partials: part[z] = o_cat[rows of chunk z]^T g_t[same rows] --
+// A block sums a TW x TW tile of dW_t over its chunk's rows, 64 per step.
+// The 4 warps split the tile into 16-row strips (TW = 64: one strip each,
+// all 64 columns; TW = 32: two strips, 16 columns each).
+template <int TW>
 __global__ void __launch_bounds__(NT)
 dw_partial_kernel(const bf16* __restrict__ o, const bf16* __restrict__ gt,
                   float* __restrict__ part, int M, int C, int Kp,
                   int chunk_rows) {
+  constexpr int WARPS_I = TW / 16;           // warps along dW_t's rows
+  constexpr int WJ = TW / (4 / WARPS_I);     // columns per warp
   __shared__ __align__(128) bf16 so[2][TILE];
   __shared__ __align__(128) bf16 sg[2][TILE];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3, wrow = warp * 16;
-  const int i0 = blockIdx.x * 64, j0 = blockIdx.y * 64;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = (warp % WARPS_I) * 16, wcol = (warp / WARPS_I) * WJ;
+  const int i0 = blockIdx.x * TW, j0 = blockIdx.y * TW;
   const int m_begin = blockIdx.z * chunk_rows;
   const int m_end = min(M, m_begin + chunk_rows);
   const int n_steps = (m_end - m_begin + BM - 1) / BM;
-  float acc[8][4];
+  float acc[WJ / 8][4];
   zero_acc(acc);
   if (n_steps > 0) {
-    issue(so[0], o + i0, C, m_begin, m_end, tid);
-    issue(sg[0], gt + j0, Kp, m_begin, m_end, tid);
+    issue<TW>(so[0], o + i0, C, m_begin, m_end, tid);
+    issue<TW>(sg[0], gt + j0, Kp, m_begin, m_end, tid);
     cp_async_commit();
   }
   for (int s = 0; s < n_steps; ++s) {
     if (s + 1 < n_steps) {
       const int r = m_begin + (s + 1) * BM;
-      issue(so[(s + 1) & 1], o + i0, C, r, m_end, tid);
-      issue(sg[(s + 1) & 1], gt + j0, Kp, r, m_end, tid);
+      issue<TW>(so[(s + 1) & 1], o + i0, C, r, m_end, tid);
+      issue<TW>(sg[(s + 1) & 1], gt + j0, Kp, r, m_end, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -120,20 +138,21 @@ dw_partial_kernel(const bf16* __restrict__ o, const bf16* __restrict__ gt,
                 ot + (kk * 16 + (lane >> 4) * 8 + (lane & 7)) * LDT + wrow
                    + ((lane >> 3) & 1) * 8);
 #pragma unroll
-      for (int nn = 0; nn < 4; ++nn) {
+      for (int nn = 0; nn < WJ / 16; ++nn) {
         uint32_t b0, b1, b2, b3;
         ldsm_x4_t(b0, b1, b2, b3,
                   gtt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDT
-                      + nn * 16 + (lane >> 4) * 8);
+                      + wcol + nn * 16 + (lane >> 4) * 8);
         mma_bf16(acc[2 * nn], a, b0, b1);
         mma_bf16(acc[2 * nn + 1], a, b2, b3);
       }
     }
     __syncthreads();
   }
-  float* dst = part + ((long)blockIdx.z * C + i0 + wrow + g) * Kp + j0 + 2 * t;
+  float* dst = part + ((long)blockIdx.z * C + i0 + wrow + g) * Kp + j0 + wcol
+               + 2 * t;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < WJ / 8; ++j) {
     *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][0],
                                                           acc[j][1]);
     *reinterpret_cast<float2*>(dst + 8 * Kp + 8 * j) =
@@ -152,6 +171,27 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
+// Steps 1, 4 and 5 around the attention launches `attn` (2 and 3) on `s`:
+// returns the first nonzero cudaError_t of a launch, or 0.
+template <int TW, class Attn>
+int bwd_launches(const bf16* g, const bf16* w, const bf16* gt, bf16* dO,
+                 const bf16* o_cat, float* dwt, float* part, int M, int C,
+                 int Kp, int chunk_rows, int n_chunks, cudaStream_t s,
+                 Attn attn) {
+  gemm_nt_kernel<TW><<<dim3(C / TW, (M + BM - 1) / BM), NT, 0, s>>>(
+      g, w, dO, M, C, C);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  if ((err = attn()) != 0) return err;
+  dw_partial_kernel<TW><<<dim3(C / TW, Kp / TW, n_chunks), NT, 0, s>>>(
+      o_cat, gt, part, M, C, Kp, chunk_rows);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const long n = (long)C * Kp;
+  dw_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(part, dwt, n,
+                                                               n_chunks);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -163,7 +203,13 @@ int fused_apla_attn_bwd_prepare(int device) {
   return attn_bwd_prepare<true>(device);
 }
 
-// Largest dynamic shared memory of the five launches (bytes).
+// The Swin window backward's counterpart of fused_apla_attn_bwd_prepare.
+int fused_swin_attn_bwd_prepare(int device) {
+  return attn_bwd_prepare<true, 32, true>(device);
+}
+
+// Largest dynamic shared memory of the five launches (bytes), either
+// variant.
 long long fused_apla_attn_bwd_smem_bytes() { return (long long)BWD_SMEM; }
 
 // The five launches on `stream`; returns the first nonzero cudaError_t of
@@ -177,31 +223,50 @@ int fused_apla_attn_bwd(const void* qkv, const void* w, const void* g,
                         int C, int H, int Kp, float scale, int seg,
                         int chunk_rows, int n_chunks, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int M = B * N;
   const bf16* qkv_ = static_cast<const bf16*>(qkv);
   bf16* dO_ = static_cast<bf16*>(dO);
   bf16* o_ = static_cast<bf16*>(o_cat);
-  bf16* dqkv_ = static_cast<bf16*>(dqkv);
-  float* stats_ = static_cast<float*>(stats);
-  int err;
+  return bwd_launches<64>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(w),
+      static_cast<const bf16*>(gt), dO_, o_, static_cast<float*>(dwt),
+      static_cast<float*>(part), B * N, C, Kp, chunk_rows, n_chunks, s,
+      [&] {
+        return attn_bwd_launch<true>(qkv_, dO_, o_, static_cast<bf16*>(dqkv),
+                                     static_cast<float*>(stats), B, N, C, H,
+                                     scale, seg, s);
+      });
+}
 
-  gemm_nt_kernel<<<dim3(C / 64, (M + BM - 1) / BM), NT, 0, s>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(w), dO_, M, C, C);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-
-  err = attn_bwd_launch<true>(qkv_, dO_, o_, dqkv_, stats_, B, N, C, H, scale,
-                              seg, s);
-  if (err != 0) return err;
-
+// The Swin window backward (head dim 32, the whole projection trainable):
+// as fused_apla_attn_bwd with g_t = g and Kp = C, bias [H, N, N] f32 and
+// mask [nW, N, N] f32 or null.  The caller checks shapes (C == H*32, C a
+// multiple of 32) and allocates the scratch as above with Kp = C; part
+// holds n_chunks x [C, C].
+int fused_swin_attn_bwd(const void* qkv, const void* w, const void* g,
+                        const void* bias, const void* mask, void* dqkv,
+                        void* dw, void* dO, void* o_cat, void* stats,
+                        void* part, int B, int N, int C, int H, int nW,
+                        float scale, int chunk_rows, int n_chunks,
+                        void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const bf16* qkv_ = static_cast<const bf16*>(qkv);
+  const bf16* g_ = static_cast<const bf16*>(g);
+  const bf16* w_ = static_cast<const bf16*>(w);
+  bf16* dO_ = static_cast<bf16*>(dO);
+  bf16* o_ = static_cast<bf16*>(o_cat);
+  float* dw_ = static_cast<float*>(dw);
   float* part_ = static_cast<float*>(part);
-  dw_partial_kernel<<<dim3(C / 64, Kp / 64, n_chunks), NT, 0, s>>>(
-      o_, static_cast<const bf16*>(gt), part_, M, C, Kp, chunk_rows);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-
-  const long n = (long)C * Kp;
-  dw_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-      part_, static_cast<float*>(dwt), n, n_chunks);
-  return (int)cudaGetLastError();
+  auto attn = [&] {
+    return attn_bwd_launch<true, 32, true>(
+        qkv_, dO_, o_, static_cast<bf16*>(dqkv), static_cast<float*>(stats),
+        B, N, C, H, scale, 0, s, static_cast<const float*>(bias),
+        static_cast<const float*>(mask), nW);
+  };
+  if (C % 64 == 0)
+    return bwd_launches<64>(g_, w_, g_, dO_, o_, dw_, part_, B * N, C, C,
+                            chunk_rows, n_chunks, s, attn);
+  return bwd_launches<32>(g_, w_, g_, dO_, o_, dw_, part_, B * N, C, C,
+                          chunk_rows, n_chunks, s, attn);
 }
 
 }  // extern "C"

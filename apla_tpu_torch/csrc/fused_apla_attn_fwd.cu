@@ -1,34 +1,53 @@
 // Fused APLA attention forward for Hopper (sm_90a): per-head softmax
 // attention followed by the assembled APLA output projection, in one kernel.
+// One template serves two TPU kernels:
 //
-// Replaces the TPU kernel apla_tpu/ops/pallas_apla_attn.py:_fwd_kernel
-// (called through _call_fwd).  Contract, exactly that kernel's:
+//  * the ViT kernel (DH = 64, no bias) replaces
+//    apla_tpu/ops/pallas_apla_attn.py:_fwd_kernel (called through _call_fwd);
+//  * the Swin window kernel (DH = 32, BIAS) replaces
+//    pallas_apla_attn.py:_fwd_kernel_bias (called through _call_fwd_swin),
+//    which is the same body with the relative-position bias and the shift
+//    mask added to the scores.
 //
-//   qkv [B, N, 3C] bf16 (packed as the frozen qkv matmul emits it),
-//   w   [C, C]     bf16 (the frozen projection with the trainable columns
-//                        written in; [d_in, d_out] layout)
-//   out [B, N, C]  bf16 = concat_h(softmax(q_h k_h^T * scale) v_h) @ w
+// Contract, exactly those kernels':
 //
-// with f32 scores, columns masked to the row's segment when seg > 0, p
-// rounded to bf16 before p v, the concatenated head outputs rounded to bf16
-// before the projection, and the projection accumulated in f32 and stored
-// as bf16.  The bias is added by the caller.  The kernel masks the ragged
-// edge of N itself; no padding is needed.
+//   qkv  [B, N, 3C] bf16 (packed as the frozen qkv matmul emits it; for
+//                         Swin, B = images x windows, image outermost)
+//   w    [C, C]     bf16 (the projection, [d_in, d_out] layout: the frozen
+//                         one with the trainable columns written in, or
+//                         Swin's fully trainable attn.proj)
+//   bias [H, N, N]  f32  (Swin: the gathered relative-position bias)
+//   mask [nW, N, N] f32  (Swin, shifted blocks: the shift mask, 0 / -1e9,
+//                         window b's plane at b mod nW; absent otherwise)
+//   out  [B, N, C]  bf16 = concat_h(softmax(s_h) v_h) @ w,
+//   s_h = (q_h k_h^T * scale + bias[h]) + mask[b mod nW]   (Swin)
+//   s_h = q_h k_h^T * scale, masked to the row's segment     (ViT, seg > 0)
 //
-// What bounds it on the H100: at the served shape (B=64, N=257, C=768) the
-// work is 32 GFLOP of bf16 matrix products (39 with pass 2's recomputed
-// scores, below) against ~102 MB of device traffic, far above the card's
-// ~295 FLOP/byte balance point, so it is bound by the tensor cores and by
-// how well their latency is hidden, not by HBM.
+// with f32 scores, p normalised in f32 and rounded to bf16 before p v, the
+// concatenated head outputs rounded to bf16 before the projection, and the
+// projection accumulated in f32 and stored as bf16.  The projection's bias
+// is added by the caller.  The kernel masks the ragged edge of N itself (a
+// Swin window's 49 tokens are one 64-row tile, 15 rows zero-filled, masked
+// and stored nowhere); no padding is needed.
+//
+// What bounds it on the H100: at the served ViT shape (B=64, N=257,
+// C=768) the work is 32 GFLOP of bf16 matrix products (39 with pass 2's
+// recomputed scores, below) against ~102 MB of device traffic, far above
+// the card's ~295 FLOP/byte balance point, so it is bound by the tensor
+// cores and by how well their latency is hidden, not by HBM.  A Swin
+// window is small (N=49): at stage 0 of a b16 batch (1024 windows, C=96)
+// the work is 1.87 GFLOP against 39 MB, so its bound is bytes, and launch
+// and per-block latency weigh more than tile speed.
 // The fusion keeps what the TPU kernel keeps out of device memory: the
 // [B, N, C] attention output lives in shared memory (o_cat, 97 KB at C=768)
 // and feeds the projection from there.
 //
 // Design (right first; wgmma/TMA and warp specialisation are later work):
-//  * one block of 8 warps per (image, tile of 64 query rows).  The warps form
-//    two groups of 4, each group working on every other head with its own
-//    shared-memory tiles and named barrier, so one group's loads overlap the
-//    other's math.  In a group each warp owns 16 query rows.
+//  * one block of 8 warps per (image or window, tile of 64 query rows).
+//    The warps form two groups of 4, each group working on every other head
+//    (an odd head count leaves group 1 one head short) with its own
+//    shared-memory tiles and named barrier, so one group's loads overlap
+//    the other's math.  In a group each warp owns 16 query rows.
 //  * products are mma.sync m16n8k16 bf16 -> f32 with ldmatrix operand loads;
 //    scores, p and the head output stay in registers (FlashAttention-2
 //    layout), tiles arrive by cp.async, double-buffered.
@@ -37,11 +56,15 @@
 //    normalised p, so p is rounded to bf16 where the TPU kernel rounds it
 //    and the p v accumulator never needs rescaling.  Masked scores are -inf;
 //    a row with no valid column keeps max -inf, its reference point is 0 and
-//    its p is 0, so exp(-inf - -inf) never occurs.
+//    its p is 0, so exp(-inf - -inf) never occurs.  The Swin bias and mask
+//    are read from device memory (L1/L2-resident: 28 KB and 614 KB at stage
+//    0) where each score is formed.
 //  * with seg > 0 only the key tiles that meet the block's segments are
 //    visited.
-//  * the projection: the two groups take alternate 64-column tiles of w,
-//    streamed through shared memory, with o_cat as the A operand.
+//  * the projection: the two groups take alternate PW-column tiles of w
+//    (PW = 64, or 32 when C is not a multiple of 64: Swin-T's stage 0 has
+//    C = 96), streamed through shared memory in PW-row steps, with o_cat as
+//    the A operand.
 
 #include "mma_sm90.cuh"
 
@@ -51,7 +74,6 @@ using namespace mma;
 
 constexpr int BM = 64;               // query rows per block
 constexpr int BN = 64;               // key rows per tile
-constexpr int DH = 64;               // head dim (every ViT builder)
 constexpr int NT = 256;              // 8 warps = 2 groups of 4
 constexpr int GT = 128;              // threads per group
 constexpr int TILES_PER_GROUP = 5;   // q, k[2], v[2]
@@ -66,18 +88,28 @@ __device__ __forceinline__ void group_sync(int grp) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(grp + 1), "r"(GT) : "memory");
 }
 
-// a group's 64-row tile copy (see mma::issue_tile)
-__device__ __forceinline__ void issue_tile(bf16* dst, const bf16* src,
+// a group's tile copy (see mma::issue_tile)
+template <int COLS = 64, int ROWS = 64>
+__device__ __forceinline__ void group_tile(bf16* dst, const bf16* src,
                                            long stride, int row0, int n_rows,
                                            int gtid) {
-  mma::issue_tile<GT>(dst, src, stride, row0, n_rows, gtid);
+  mma::issue_tile<GT, COLS, ROWS>(dst, src, stride, row0, n_rows, gtid);
 }
 
-__global__ void __launch_bounds__(NT, 1)
+// DH: head dim (64 for every ViT builder, 32 for every Swin one).  BIAS:
+// the Swin variant (bias, mask, nW read; seg unused).  PW: the projection's
+// tile width.  The Swin blocks are small, so two may share an SM.
+template <int DH, bool BIAS, int PW>
+__global__ void __launch_bounds__(NT, DH == 64 ? 1 : 2)
 fused_apla_attn_fwd_kernel(const bf16* __restrict__ qkv,
                            const bf16* __restrict__ w,
-                           bf16* __restrict__ out,
-                           int N, int C, int H, float scale_log2, int seg) {
+                           const float* __restrict__ bias,
+                           const float* __restrict__ mask,
+                           bf16* __restrict__ out, int N, int C, int H,
+                           float scale_log2, float scale, int seg, int nW) {
+  static_assert(DH == 32 || DH == 64, "head dim 32 or 64");
+  static_assert(PW == 32 || PW == 64, "projection tile 32 or 64");
+  constexpr int KS = DH / 16;                // k-steps over the head dim
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldo = C + 8;
   bf16* o_cat = reinterpret_cast<bf16*>(smem);
@@ -108,22 +140,26 @@ fused_apla_attn_fwd_kernel(const bf16* __restrict__ qkv,
     kt1 = (min(N, (last / seg + 1) * seg) + BN - 1) / BN;
   }
   const int n_kt = kt1 - kt0;
+  const float* mask_w = (BIAS && mask != nullptr)
+                            ? mask + (long)(b % nW) * N * N : nullptr;
 
   for (int h = grp; h < H; h += 2) {
     const bf16* qh = base + h * DH;
     const bf16* kh = base + C + h * DH;
     const bf16* vh = base + 2 * C + h * DH;
+    const float* bias_h = BIAS ? bias + (long)h * N * N : nullptr;
 
     // ---- pass 1: running max and sum per row (log2 units) -------------
     group_sync(grp);                          // last head's tiles are free
-    issue_tile(qs, qh, rs, row0, N, gtid);
-    issue_tile(kbuf[0], kh, rs, kt0 * BN, N, gtid);
+    group_tile<DH>(qs, qh, rs, row0, N, gtid);
+    group_tile<DH>(kbuf[0], kh, rs, kt0 * BN, N, gtid);
     cp_async_commit();
-    uint32_t qa[4][4];
+    uint32_t qa[KS][4];
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
     for (int i = 0; i < n_kt; ++i) {
       if (i + 1 < n_kt) {
-        issue_tile(kbuf[(i + 1) & 1], kh, rs, (kt0 + i + 1) * BN, N, gtid);
+        group_tile<DH>(kbuf[(i + 1) & 1], kh, rs, (kt0 + i + 1) * BN, N,
+                       gtid);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -132,13 +168,17 @@ fused_apla_attn_fwd_kernel(const bf16* __restrict__ qkv,
       group_sync(grp);
       if (i == 0) {
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < KS; ++kk)
           ldsm_x4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3],
                   qs + (wrow + (lane & 15)) * LDT + kk * 16 + (lane >> 4) * 8);
       }
       float s[8][4];
       warp_scores(qa, kbuf[i & 1], lane, s);
-      scale_mask(s, (kt0 + i) * BN + 2 * t, scale_log2, lo0, hi0, lo1, hi1);
+      if constexpr (BIAS)
+        scale_bias_mask<false>(s, (kt0 + i) * BN + 2 * t, r_lo, N, scale,
+                               bias_h, mask_w);
+      else
+        scale_mask(s, (kt0 + i) * BN + 2 * t, scale_log2, lo0, hi0, lo1, hi1);
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -167,17 +207,18 @@ fused_apla_attn_fwd_kernel(const bf16* __restrict__ qkv,
     const float ref1 = (m1 == -INFINITY) ? 0.0f : m1;
     const float inv0 = l0 > 0.0f ? 1.0f / l0 : 0.0f;
     const float inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
-    float o[8][4];
+    float o[DH / 8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-    issue_tile(kbuf[0], kh, rs, kt0 * BN, N, gtid);
-    issue_tile(vbuf[0], vh, rs, kt0 * BN, N, gtid);
+    for (int j = 0; j < DH / 8; ++j)
+      o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+    group_tile<DH>(kbuf[0], kh, rs, kt0 * BN, N, gtid);
+    group_tile<DH>(vbuf[0], vh, rs, kt0 * BN, N, gtid);
     cp_async_commit();
     for (int i = 0; i < n_kt; ++i) {
       if (i + 1 < n_kt) {
         const int nb = (i + 1) & 1, r = (kt0 + i + 1) * BN;
-        issue_tile(kbuf[nb], kh, rs, r, N, gtid);
-        issue_tile(vbuf[nb], vh, rs, r, N, gtid);
+        group_tile<DH>(kbuf[nb], kh, rs, r, N, gtid);
+        group_tile<DH>(vbuf[nb], vh, rs, r, N, gtid);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -186,7 +227,11 @@ fused_apla_attn_fwd_kernel(const bf16* __restrict__ qkv,
       group_sync(grp);
       float s[8][4];
       warp_scores(qa, kbuf[i & 1], lane, s);
-      scale_mask(s, (kt0 + i) * BN + 2 * t, scale_log2, lo0, hi0, lo1, hi1);
+      if constexpr (BIAS)
+        scale_bias_mask<false>(s, (kt0 + i) * BN + 2 * t, r_lo, N, scale,
+                               bias_h, mask_w);
+      else
+        scale_mask(s, (kt0 + i) * BN + 2 * t, scale_log2, lo0, hi0, lo1, hi1);
       const bf16* vs = vbuf[i & 1];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {            // keys 16kk .. 16kk+15
@@ -200,7 +245,7 @@ fused_apla_attn_fwd_kernel(const bf16* __restrict__ qkv,
         pa[3] = pack_bf16(exp2f(s[2 * kk + 1][2] - ref1) * inv1,
                           exp2f(s[2 * kk + 1][3] - ref1) * inv1);
 #pragma unroll
-        for (int nn = 0; nn < 4; ++nn) {          // head dims 16nn .. +15
+        for (int nn = 0; nn < DH / 16; ++nn) {    // head dims 16nn .. +15
           uint32_t b0, b1, b2, b3;
           ldsm_x4_t(b0, b1, b2, b3,
                     vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDT
@@ -215,27 +260,27 @@ fused_apla_attn_fwd_kernel(const bf16* __restrict__ qkv,
     bf16* o_lo = o_cat + (wrow + g) * ldo + h * DH + 2 * t;
     bf16* o_hi = o_lo + 8 * ldo;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       *reinterpret_cast<uint32_t*>(o_lo + 8 * j) = pack_bf16(o[j][0], o[j][1]);
       *reinterpret_cast<uint32_t*>(o_hi + 8 * j) = pack_bf16(o[j][2], o[j][3]);
     }
   }
   __syncthreads();                            // o_cat holds every head
 
-  // ---- projection: out[rows, nt*64 ..] = o_cat @ w[:, nt*64 ..] ----------
-  const int n_k = C / 64;
-  for (int nt = grp; nt < C / 64; nt += 2) {
-    const bf16* wt = w + nt * 64;
-    float acc[8][4];
+  // ---- projection: out[rows, nt*PW ..] = o_cat @ w[:, nt*PW ..] ----------
+  const int n_k = C / PW;
+  for (int nt = grp; nt < C / PW; nt += 2) {
+    const bf16* wt = w + nt * PW;
+    float acc[PW / 8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < PW / 8; ++j)
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
     group_sync(grp);
-    issue_tile(kbuf[0], wt, C, 0, C, gtid);
+    group_tile<PW, PW>(kbuf[0], wt, C, 0, C, gtid);
     cp_async_commit();
     for (int i = 0; i < n_k; ++i) {
       if (i + 1 < n_k) {
-        issue_tile(kbuf[(i + 1) & 1], wt, C, (i + 1) * 64, C, gtid);
+        group_tile<PW, PW>(kbuf[(i + 1) & 1], wt, C, (i + 1) * PW, C, gtid);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
@@ -244,13 +289,13 @@ fused_apla_attn_fwd_kernel(const bf16* __restrict__ qkv,
       group_sync(grp);
       const bf16* ws = kbuf[i & 1];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < PW / 16; ++kk) {
         uint32_t a[4];
         ldsm_x4(a[0], a[1], a[2], a[3],
-                o_cat + (wrow + (lane & 15)) * ldo + i * 64 + kk * 16
+                o_cat + (wrow + (lane & 15)) * ldo + i * PW + kk * 16
                       + (lane >> 4) * 8);
 #pragma unroll
-        for (int nn = 0; nn < 4; ++nn) {
+        for (int nn = 0; nn < PW / 16; ++nn) {
           uint32_t b0, b1, b2, b3;
           ldsm_x4_t(b0, b1, b2, b3,
                     ws + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDT
@@ -261,9 +306,9 @@ fused_apla_attn_fwd_kernel(const bf16* __restrict__ qkv,
       }
       group_sync(grp);
     }
-    bf16* dst = out + (long)b * N * C + nt * 64 + 2 * t;
+    bf16* dst = out + (long)b * N * C + nt * PW + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < PW / 8; ++j) {
       if (r_lo < N)
         *reinterpret_cast<uint32_t*>(dst + (long)r_lo * C + 8 * j) =
             pack_bf16(acc[j][0], acc[j][1]);
@@ -274,28 +319,38 @@ fused_apla_attn_fwd_kernel(const bf16* __restrict__ qkv,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Dynamic shared memory the kernel needs at width C (bytes).
-long long fused_apla_attn_fwd_smem_bytes(int C) {
-  return (long long)smem_bytes_for(C);
+// Opt one instantiation in to `bytes` of dynamic shared memory.
+template <int DH, bool BIAS, int PW>
+bool opt_in(int bytes) {
+  return cudaFuncSetAttribute(fused_apla_attn_fwd_kernel<DH, BIAS, PW>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes) == cudaSuccess;
 }
 
-// Opt the kernel in to the largest dynamic shared memory a block may have
-// on the current device, `device`; returns that size in bytes, or -1.
-// Called once per device, before the first launch there.
-int fused_apla_attn_fwd_prepare(int device) {
+// The device's per-block opt-in limit of dynamic shared memory, or -1.
+int smem_optin(int device) {
   int v = 0;
   if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess)
     return -1;
-  if (cudaFuncSetAttribute(fused_apla_attn_fwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           v) != cudaSuccess)
-    return -1;
   return v;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory the kernel needs at width C (bytes), either variant.
+long long fused_apla_attn_fwd_smem_bytes(int C) {
+  return (long long)smem_bytes_for(C);
+}
+
+// Opt the ViT kernel in to the largest dynamic shared memory a block may
+// have on the current device, `device`; returns that size in bytes, or -1.
+// Called once per device, before the first launch there.
+int fused_apla_attn_fwd_prepare(int device) {
+  const int v = smem_optin(device);
+  return (v >= 0 && opt_in<64, false, 64>(v)) ? v : -1;
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
@@ -307,9 +362,42 @@ int fused_apla_attn_fwd(const void* qkv, const void* w, void* out, int B,
                         void* stream) {
   const size_t smem = smem_bytes_for(C);
   dim3 grid((N + BM - 1) / BM, B);
-  fused_apla_attn_fwd_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(w),
-      static_cast<bf16*>(out), N, C, H, scale * mma::LOG2E, seg);
+  fused_apla_attn_fwd_kernel<64, false, 64>
+      <<<grid, NT, smem, (cudaStream_t)stream>>>(
+          static_cast<const bf16*>(qkv), static_cast<const bf16*>(w),
+          nullptr, nullptr, static_cast<bf16*>(out), N, C, H,
+          scale * mma::LOG2E, scale, seg, 1);
+  return (int)cudaGetLastError();
+}
+
+// The Swin window kernel's counterpart of fused_apla_attn_fwd_prepare.
+int fused_swin_attn_fwd_prepare(int device) {
+  const int v = smem_optin(device);
+  return (v >= 0 && opt_in<32, true, 64>(v) && opt_in<32, true, 32>(v))
+             ? v : -1;
+}
+
+// The Swin window kernel (head dim 32) on `stream`: bias [H, N, N] f32,
+// mask [nW, N, N] f32 or null (a block that is not shifted).  Returns the
+// cudaError_t of the launch.  The caller checks shapes: C == H * 32,
+// 16-byte aligned contiguous tensors, the shared memory.
+int fused_swin_attn_fwd(const void* qkv, const void* w, const void* bias,
+                        const void* mask, void* out, int B, int N, int C,
+                        int H, int nW, float scale, void* stream) {
+  const size_t smem = smem_bytes_for(C);
+  dim3 grid((N + BM - 1) / BM, B);
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16* w_ = static_cast<const bf16*>(w);
+  const float* bias_ = static_cast<const float*>(bias);
+  const float* mask_ = static_cast<const float*>(mask);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (C % 64 == 0)
+    fused_apla_attn_fwd_kernel<32, true, 64><<<grid, NT, smem, s>>>(
+        q, w_, bias_, mask_, o, N, C, H, scale * mma::LOG2E, scale, 0, nW);
+  else
+    fused_apla_attn_fwd_kernel<32, true, 32><<<grid, NT, smem, s>>>(
+        q, w_, bias_, mask_, o, N, C, H, scale * mma::LOG2E, scale, 0, nW);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,14 @@
 // Warp-level building blocks shared by the port's hand-written kernels:
 // ldmatrix operand loads, mma.sync m16n8k16 bf16 -> f32, cp.async copies,
-// and the fragment helpers of a 16-row x 64-column warp tile.
+// and the fragment helpers of a 16-row warp tile whose width (the head dim:
+// 64 for the ViTs, 32 for Swin) follows from the fragment arrays' sizes.
 //
 // Fragment conventions (PTX ISA, mma.m16n8k16 with .bf16):
 //   lane = 4 * g + t;  a C/D fragment acc[j][0..3] of n-tile j holds
 //   (row g, cols 8j + 2t, +1) in [0..1] and (row g + 8, same cols) in [2..3].
-// Shared-memory tiles are 64 rows x 64 bf16 columns with a row stride of
-// LDT = 72 elements, so the eight rows an ldmatrix reads fall on distinct
-// banks.
+// Shared-memory tiles hold up to 64 rows x 64 bf16 columns with a row
+// stride of LDT = 72 elements, so the eight rows an ldmatrix reads fall on
+// distinct banks; a 32-column tile uses the first half of each row.
 
 #pragma once
 
@@ -77,59 +78,67 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Queue the copy of 64 rows x 64 columns (row-major source `src` pointing at
-// column 0 of the tile, row stride `stride` elements) into a [64][LDT] tile;
-// rows at or past n_rows are zero-filled.  `nthreads` threads, id `tid`.
-template <int NTHREADS>
+// Queue the copy of ROWS rows x COLS columns (row-major source `src`
+// pointing at column 0 of the tile, row stride `stride` elements) into a
+// [ROWS][LDT] tile; rows at or past n_rows are zero-filled.  NTHREADS
+// threads, id `tid`.
+template <int NTHREADS, int COLS = 64, int ROWS = 64>
 __device__ __forceinline__ void issue_tile(bf16* dst, const bf16* src,
                                            long stride, int row0, int n_rows,
                                            int tid) {
+  static_assert((COLS == 64 || COLS == 32) && ROWS <= 64, "tile shape");
+  constexpr int SHIFT = COLS == 64 ? 3 : 2;   // log2 of 16-byte chunks a row
 #pragma unroll
-  for (int i = tid; i < 64 * 8; i += NTHREADS) {
-    const int r = i >> 3, c8 = (i & 7) * 8;
+  for (int i = tid; i < (ROWS << SHIFT); i += NTHREADS) {
+    const int r = i >> SHIFT, c8 = (i & ((1 << SHIFT) - 1)) * 8;
     const bool ok = row0 + r < n_rows;
     cp_async16(dst + r * LDT + c8,
                ok ? src + (long)(row0 + r) * stride + c8 : src, ok);
   }
 }
 
-// A fragments of the warp's 16 rows (tile rows wrow..wrow+15, all 64
-// columns) of a row-major [64][LDT] tile.
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[4][4],
+// A fragments of the warp's 16 rows (tile rows wrow..wrow+15, the first
+// 16 * KS columns) of a row-major [64][LDT] tile.
+template <int KS>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[KS][4],
                                             const bf16* tile, int wrow,
                                             int lane) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
     ldsm_x4(a[kk][0], a[kk][1], a[kk][2], a[kk][3],
             tile + (wrow + (lane & 15)) * LDT + kk * 16 + (lane >> 4) * 8);
 }
 
-// acc[j] += A (16 x 64, fragments a) . B^T where B is a [64][LDT] tile whose
-// rows are the 64 output columns (8 n-tiles) and whose columns are the
-// contraction: the "q k^T" product.
-__device__ __forceinline__ void warp_mma_nt(const uint32_t (&a)[4][4],
+// acc[j] += A (16 x 16KS, fragments a) . B^T where B is a [64][LDT] tile
+// whose first 8NJ rows are the output columns (NJ n-tiles) and whose first
+// 16KS columns are the contraction: the "q k^T" product.
+template <int KS, int NJ>
+__device__ __forceinline__ void warp_mma_nt(const uint32_t (&a)[KS][4],
                                             const bf16* bs, int lane,
-                                            float (&acc)[8][4]) {
+                                            float (&acc)[NJ][4]) {
+  static_assert(KS == 2 || KS == 4, "contraction of 32 or 64");
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    uint32_t b[8];
+  for (int j = 0; j < NJ; ++j) {
+    uint32_t b[2 * KS];
     const bf16* row = bs + (8 * j + (lane & 7)) * LDT + (lane >> 3) * 8;
     ldsm_x4(b[0], b[1], b[2], b[3], row);
-    ldsm_x4(b[4], b[5], b[6], b[7], row + 32);
+    if constexpr (KS == 4) ldsm_x4(b[4], b[5], b[6], b[7], row + 32);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < KS; ++kk)
       mma_bf16(acc[j], a[kk], b[2 * kk], b[2 * kk + 1]);
   }
 }
 
-__device__ __forceinline__ void zero_acc(float (&acc)[8][4]) {
+template <int NJ>
+__device__ __forceinline__ void zero_acc(float (&acc)[NJ][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NJ; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 }
 
 // acc = the warp's 16 rows . the tile's 64 rows (zeroed first)
-__device__ __forceinline__ void warp_scores(const uint32_t (&a)[4][4],
+template <int KS>
+__device__ __forceinline__ void warp_scores(const uint32_t (&a)[KS][4],
                                             const bf16* bs, int lane,
                                             float (&acc)[8][4]) {
   zero_acc(acc);
@@ -137,11 +146,13 @@ __device__ __forceinline__ void warp_scores(const uint32_t (&a)[4][4],
 }
 
 // acc[j] += P (16 x 64 as C fragments p, rounded to bf16 here) . V, where
-// V is a row-major [64][LDT] tile: contraction over its rows, output over
-// its 64 columns (the "p v" product).
+// V is a row-major [64][LDT] tile: contraction over its 64 rows, output
+// over its first 8NJ columns (the "p v" product).
+template <int NJ>
 __device__ __forceinline__ void warp_mma_pv(const float (&p)[8][4],
                                             const bf16* vs, int lane,
-                                            float (&acc)[8][4]) {
+                                            float (&acc)[NJ][4]) {
+  static_assert(NJ % 2 == 0, "output width a multiple of 16");
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {            // contraction rows 16kk..+15
     uint32_t pa[4];
@@ -150,7 +161,7 @@ __device__ __forceinline__ void warp_mma_pv(const float (&p)[8][4],
     pa[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
     pa[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
 #pragma unroll
-    for (int nn = 0; nn < 4; ++nn) {          // output columns 16nn..+15
+    for (int nn = 0; nn < NJ / 2; ++nn) {     // output columns 16nn..+15
       uint32_t b0, b1, b2, b3;
       ldsm_x4_t(b0, b1, b2, b3,
                 vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDT
@@ -177,6 +188,35 @@ __device__ __forceinline__ void scale_mask(float (&s)[8][4], int col0,
     }
 }
 
+// Swin window scores -> log2 units: (s * scale + bias) + mask in f32, as
+// the TPU kernel adds them, then times log2(e); -inf at a column or row at
+// or past n.  The fragment's rows are r_lo and r_lo + 8, its columns
+// col0 + 8j + e (col0 includes the lane's 2t).  bias and mask point at the
+// [n, n] f32 planes of this head and this window; mask is null in a block
+// that is not shifted.  TRANS: the fragment holds s^T (rows are keys,
+// columns queries), so both are read at [column][row].
+template <bool TRANS>
+__device__ __forceinline__ void scale_bias_mask(float (&s)[8][4], int col0,
+                                                int r_lo, int n, float scale,
+                                                const float* __restrict__ bias,
+                                                const float* __restrict__ mask) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = col0 + 8 * j + (e & 1);
+      const int row = r_lo + (e >> 1) * 8;
+      float v = -INFINITY;
+      if (col < n && row < n) {
+        const int idx = TRANS ? col * n + row : row * n + col;
+        v = __fadd_rn(__fmul_rn(s[j][e], scale), __ldg(bias + idx));
+        if (mask != nullptr) v = __fadd_rn(v, __ldg(mask + idx));
+        v *= LOG2E;
+      }
+      s[j][e] = v;
+    }
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -187,16 +227,17 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Store the warp's 16 x 64 f32 fragments as bf16 at dst (row 0 of the
+// Store the warp's 16 x 8NJ f32 fragments as bf16 at dst (row 0 of the
 // warp's rows, column 0; row stride ld), rows at or past n_rows skipped.
+template <int NJ>
 __device__ __forceinline__ void store_rows_bf16(bf16* dst, long ld,
-                                                const float (&acc)[8][4],
+                                                const float (&acc)[NJ][4],
                                                 int r_lo, int n_rows, int g,
                                                 int t) {
   bf16* lo = dst + (long)g * ld + 2 * t;
   bf16* hi = lo + 8 * ld;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NJ; ++j) {
     if (r_lo < n_rows)
       *reinterpret_cast<uint32_t*>(lo + 8 * j) = pack_bf16(acc[j][0],
                                                            acc[j][1]);

@@ -187,12 +187,12 @@ def fused_apla_attn_fwd(qkv, w, num_heads: int, scale: float,
 fused_apla_attn_fwd.launches = 0
 
 
-def dw_chunks(m: int, c: int, kp: int, n_sm: int):
+def dw_chunks(m: int, c: int, kp: int, n_sm: int, tile: int = 64):
     """(rows per chunk, number of chunks) for the dW_t partials: chunks of
-    64-row steps, about four blocks per SM over the (C/64) x (Kp/64)
+    64-row steps, about four blocks per SM over the (C/tile) x (Kp/tile)
     output tiles, every chunk non-empty."""
     steps = -(-m // 64)
-    target = max(1, (4 * n_sm) // ((c // 64) * (kp // 64)))
+    target = max(1, (4 * n_sm) // ((c // tile) * (kp // tile)))
     rows = 64 * -(-steps // min(target, steps))
     return rows, -(-m // rows)
 

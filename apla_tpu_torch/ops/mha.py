@@ -53,22 +53,27 @@ def merge_heads(t):
     return t.transpose(1, 2).reshape(B, N, H * dh)
 
 
-def softmax_f32(q, k, scale, segment_len):
+def softmax_f32(q, k, scale, segment_len, terms=()):
     """f32 softmax of the masked scores q k^T * scale ([B, H, N, N]); with
-    `segment_len` > 0 a row sees only the columns of its own segment."""
+    `segment_len` > 0 a row sees only the columns of its own segment.
+    `terms`: f32 tensors broadcastable to the scores, added one after the
+    other before the softmax (the Swin windows' bias, then mask)."""
     N = q.shape[2]
     s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    for term in terms:
+        s = s + term
     if segment_len:
         seg = torch.arange(N, device=q.device) // segment_len
         s = s.masked_fill(seg[:, None] != seg[None, :], float("-inf"))
     return torch.softmax(s, dim=-1)
 
 
-def attention_grads(q, k, v, d_o, scale, segment_len, dt):
+def attention_grads(q, k, v, d_o, scale, segment_len, dt, terms=()):
     """The TPU backward's arithmetic on [B, H, N, Dh] float32 q, k, v, dO:
-    (dq, dk, dv, pb) in float32, with p recomputed, pb = p rounded to `dt`,
-    and ds = p (dp - rowsum(dp p)) scale on the f32 p, rounded to `dt`."""
-    p = softmax_f32(q, k, scale, segment_len)
+    (dq, dk, dv, pb) in float32, with p recomputed (`terms` as in
+    `softmax_f32`), pb = p rounded to `dt`, and ds = p (dp - rowsum(dp p))
+    scale on the f32 p, rounded to `dt`."""
+    p = softmax_f32(q, k, scale, segment_len, terms)
     pb = p.to(dt).float()
     dv = torch.matmul(pb.transpose(-1, -2), d_o)
     dp = torch.matmul(d_o, v.transpose(-1, -2))

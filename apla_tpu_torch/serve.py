@@ -1,22 +1,28 @@
-"""Serving: export a classifier artifact and answer requests from it.
+"""Serving: export a classifier or detector artifact and answer requests
+from it.
 
-Counterpart of `apla_tpu/serve.py` (classifier only).  The JAX artifact holds
-flax msgpack params and `jax.export` programs; neither can be read without
-jax, so this artifact is a directory of
+Counterpart of `apla_tpu/serve.py` (classifier and detector).  The JAX
+artifact holds flax msgpack params and `jax.export` programs; neither can be
+read without jax, so this artifact is a directory of
 
   meta.json    format "apla_tpu_torch.serve/1", img_size, n_classes,
-               embed_dim, batch_sizes and the ViT config echoed
+               batch_sizes and the model's config echoed (the ViT config;
+               for `task: "detector"` the Swin config, the strides and
+               `with_masks`), because the port rebuilds the model at load
   params.npz   the model state as flat `trainable/<name>` and
                `frozen/<name>` arrays (float32 parameters, int64 APLA inds)
 
 `load_predictor` rebuilds the model from `meta.json` on an explicit device
-and runs it eagerly.  `Predictor` keeps the JAX predictor's request policy:
-requests are cut into calls at the exported batch sizes, the tail padded to
-the smallest covering batch when that wastes at most half of it.
+and runs it eagerly (`DetPredictor` for a detector).  `Predictor` keeps the
+JAX predictor's request policy: requests are cut into calls at the exported
+batch sizes, the tail padded to the smallest covering batch when that
+wastes at most half of it.
 
 CLI (run from a checkout):
   python -m apla_tpu_torch.serve export --params_path RECIPE.yml \\
       --n_classes 1000 --out ART [--batch_sizes 1,8,64] [--seed 0]
+  python -m apla_tpu_torch.serve export_det --ckpt det_best.pt --out ART \\
+      [--depths 2,2,6 --num_heads 3,6,12 --batch_sizes 1,8]
   python -m apla_tpu_torch.serve predict ART batch.npy [--device cuda]
   python -m apla_tpu_torch.serve info ART
 """
@@ -157,6 +163,129 @@ class Predictor:
         return self._run_chunks(images)
 
 
+# ------------------------------------------------------------------ #
+# detector
+# ------------------------------------------------------------------ #
+
+def _swin_echo(swin_cfg) -> dict:
+    echo = dataclasses.asdict(swin_cfg)
+    echo["depths"] = list(swin_cfg.depths)
+    echo["num_heads"] = list(swin_cfg.num_heads)
+    echo["compute_dtype"] = str(swin_cfg.compute_dtype).replace("torch.", "")
+    return echo
+
+
+def _swin_from_echo(echo: dict):
+    from .models.swin import SwinConfig
+    echo = dict(echo)
+    echo["compute_dtype"] = getattr(torch, echo["compute_dtype"])
+    echo["depths"] = tuple(echo["depths"])
+    echo["num_heads"] = tuple(echo["num_heads"])
+    return SwinConfig(**echo)
+
+
+def export_detector(path: str, model, swin_cfg, strides,
+                    batch_sizes=(1, 8)) -> dict:
+    """Write a serving artifact for the FCOS detection side-car (`model` a
+    `models.detection.Detector`, served with `swin_cfg`).  Calls compute
+    the raw per-level maps; `DetPredictor.detect` decodes them per image on
+    the host.  Returns the meta dict."""
+    batch_sizes = _check_batch_sizes(batch_sizes)
+    os.makedirs(path, exist_ok=True)
+    arrays = {f"{'trainable' if p.requires_grad else 'frozen'}/{n}":
+              p.detach().cpu().numpy() for n, p in model.named_parameters()}
+    np.savez(os.path.join(path, _PARAMS_FILE), **arrays)
+    meta = {
+        "format": FORMAT,
+        "task": "detector",
+        "img_size": int(swin_cfg.img_size),
+        "n_classes": int(model.head.cls.bias.shape[0]),
+        "strides": [int(s) for s in strides],
+        "with_masks": False,
+        "batch_sizes": batch_sizes,
+        "swin_config": _swin_echo(swin_cfg),
+    }
+    with open(os.path.join(path, _META_FILE), "w") as f:
+        json.dump(meta, f, indent=2)
+    return meta
+
+
+class DetPredictor(Predictor):
+    """Runs a detector artifact: calls return the raw per-level FCOS maps;
+    `detect` decodes them per image on the host (sigmoid, score threshold,
+    greedy NMS)."""
+
+    def __init__(self, meta: dict, model, swin_cfg, device: torch.device):
+        super().__init__(meta, model, None, device)
+        self.swin_cfg = swin_cfg
+
+    @torch.inference_mode()
+    def _call(self, chunk: np.ndarray):
+        from .models.detection import detector_forward
+        x = torch.from_numpy(chunk).to(self.device)
+        return detector_forward(self.model, x, self.swin_cfg)
+
+    def _run_chunks(self, images: np.ndarray):
+        chunks = []
+        for _, m, chunk in self._iter_chunks(images):
+            chunks.append([tuple(o[:m].float().cpu().numpy() for o in lvl)
+                           for lvl in self._call(chunk)])
+        if not chunks:
+            # empty request: one call of the smallest batch on zeros, so
+            # the per-level output shapes are still right (trimmed to 0)
+            img, b = self.meta["img_size"], self.batch_sizes[0]
+            chunks.append([tuple(o[:0].float().cpu().numpy() for o in lvl)
+                           for lvl in self._call(
+                               np.zeros((b, img, img, 3), np.float32))])
+        return [tuple(np.concatenate([c[lvl][j] for c in chunks])
+                      for j in range(len(chunks[0][lvl])))
+                for lvl in range(len(chunks[0]))]
+
+    def predict(self, images: np.ndarray):
+        """[n, H, W, 3] -> per-level raw maps [(cls_logits [n,H_l,W_l,K],
+        box [n,H_l,W_l,4], ctr [n,H_l,W_l,1])]."""
+        return self._run_chunks(images)
+
+    def predict_protos(self, images: np.ndarray):
+        from .models.detection import MASKS_TODO
+        raise NotImplementedError(MASKS_TODO)
+
+    def detect(self, images: np.ndarray, score_thresh=0.05, top_k=100):
+        """[n, H, W, 3] -> list of n (boxes [M,4], scores [M], labels [M])
+        tuples (host-side decode + NMS per image)."""
+        from .models.detection import decode_detections
+        levels = self._run_chunks(images)
+        strides = self.meta["strides"]
+        return [decode_detections([tuple(o[j:j + 1] for o in lvl)
+                                   for lvl in levels], strides,
+                                  score_thresh=score_thresh, top_k=top_k)
+                for j in range(images.shape[0])]
+
+    def embed(self, images):
+        raise NotImplementedError("detection artifacts have no embedding "
+                                  "output")
+
+    def predict_and_embed(self, images):
+        raise NotImplementedError("detection artifacts have no embedding "
+                                  "output")
+
+
+def detector_from_state(swin_cfg, n_classes, trainable: dict, frozen: dict,
+                        device) -> "torch.nn.Module":
+    """A `Detector` holding the state maps, trainable flags as named."""
+    from .models.detection import Detector
+    model = Detector(swin_cfg, n_classes)
+    params = dict(model.named_parameters())
+    if set(params) != set(trainable) | set(frozen):
+        raise ValueError("the state does not name the detector's "
+                         f"parameters: {sorted(set(params) ^ (set(trainable) | set(frozen)))[:5]}")
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(trainable[name] if name in trainable else frozen[name])
+            p.requires_grad_(name in trainable)
+    return model.to(device)
+
+
 def load_predictor(path: str, device) -> Predictor:
     with open(os.path.join(path, _META_FILE)) as f:
         meta = json.load(f)
@@ -168,6 +297,11 @@ def load_predictor(path: str, device) -> Predictor:
             group, name = key.split("/", 1)
             {"trainable": trainable, "frozen": frozen}[group][name] = \
                 torch.from_numpy(z[key])
+    if meta.get("task") == "detector":
+        swin_cfg = _swin_from_echo(meta["swin_config"])
+        model = detector_from_state(swin_cfg, meta["n_classes"], trainable,
+                                    frozen, torch.device(device))
+        return DetPredictor(meta, model, swin_cfg, device)
     vit_cfg = _cfg_from_echo(meta["vit_config"])
     model = classifier_from_state(vit_cfg, trainable, frozen,
                                   torch.device(device))
@@ -199,27 +333,45 @@ def _build_from_params(params_path: str, n_classes: int, seed: int):
 
 
 def _load_inputs(inputs, img, mean, std):
+    """A .npy batch, or PNG files decoded, resized as Pillow's BICUBIC
+    does and normalized (the port reads images without PIL)."""
+    from .data.detection_data import read_png, resize
     npys = [p for p in inputs if p.endswith(".npy")]
     if npys:
         if len(inputs) > 1:
             raise SystemExit("pass ONE .npy batch, or image files — not a "
                              "mix of several")
         return np.load(npys[0]).astype(np.float32)
-    from PIL import Image
     mean = np.asarray([float(v) for v in mean.split(",")], np.float32)
     std = np.asarray([float(v) for v in std.split(",")], np.float32)
-    ims = []
-    for p in inputs:
-        im = Image.open(p).convert("RGB").resize((img, img), Image.BICUBIC)
-        ims.append((np.asarray(im, np.float32) / 255.0 - mean) / std)
-    return np.stack(ims)
+    ims = [resize(read_png(p), img, img, "bicubic") for p in inputs]
+    return np.stack([(np.asarray(im, np.float32) / 255.0 - mean) / std
+                     for im in ims])
+
+
+def _export_det(args) -> dict:
+    """export_det: a segdet checkpoint -> a detector artifact, at f32 on the
+    plain path, as the JAX CLI exports it."""
+    from .segdet import load_checkpoint, swin_config
+    ckpt = load_checkpoint(args.ckpt)
+    depths = tuple(int(x) for x in args.depths.split(","))
+    cfg = swin_config(args.img_size, args.embed_dim, depths,
+                      tuple(int(x) for x in args.num_heads.split(",")),
+                      args.window_size, bf16=False, use_fused=False)
+    n_classes = int(ckpt["trainable"]["head.cls.bias"].shape[0])
+    model = detector_from_state(cfg, n_classes, ckpt["trainable"],
+                                ckpt["frozen"], torch.device("cpu"))
+    strides = tuple(4 * (2 ** i) for i in range(len(depths)))
+    bs = [int(x) for x in str(args.batch_sizes).split(",") if x]
+    return export_detector(args.out, model, cfg, strides, batch_sizes=bs)
 
 
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(
         prog="apla_tpu_torch.serve",
-        description="Export / inspect / run classifier serving artifacts")
+        description="Export / inspect / run classifier and detector "
+                    "serving artifacts")
     sub = ap.add_subparsers(dest="cmd", required=True)
     ex = sub.add_parser("export", help="export a serving artifact")
     ex.add_argument("--params_path", required=True)
@@ -229,23 +381,39 @@ def main(argv=None):
                     help="head width (the dataset registry is not ported)")
     ex.add_argument("--seed", type=int, default=0,
                     help="seed of the weight init")
+    exd = sub.add_parser("export_det",
+                         help="export a detection artifact from a segdet "
+                              "checkpoint (det_best.pt)")
+    exd.add_argument("--ckpt", required=True)
+    exd.add_argument("--img_size", type=int, default=224)
+    exd.add_argument("--embed_dim", type=int, default=96)
+    exd.add_argument("--depths", default="2,2,6")
+    exd.add_argument("--num_heads", default="3,6,12")
+    exd.add_argument("--window_size", type=int, default=7)
+    exd.add_argument("--out", required=True)
+    exd.add_argument("--batch_sizes", default="1,8")
     info = sub.add_parser("info", help="print an artifact's meta")
     info.add_argument("artifact")
     pr = sub.add_parser("predict", help="run an artifact on images")
     pr.add_argument("artifact")
     pr.add_argument("inputs", nargs="+",
                     help="a .npy [n,H,W,3] float batch (already "
-                         "normalized), or image files (decoded, resized, "
+                         "normalized), or PNG files (decoded, resized, "
                          "normalized with --mean/--std)")
     pr.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' to run there)")
     pr.add_argument("--top_k", type=int, default=5)
     pr.add_argument("--embed", action="store_true",
                     help="print/save embeddings instead of logits")
+    pr.add_argument("--score_thresh", type=float, default=0.05,
+                    help="detector decode threshold")
+    pr.add_argument("--max_dets", type=int, default=100,
+                    help="detector NMS cap per image")
     pr.add_argument("--mean", default="0.485,0.456,0.406")
     pr.add_argument("--std", default="0.229,0.224,0.225")
     pr.add_argument("--out", default=None,
-                    help="write the logits/embeddings to this .npy file")
+                    help="write the logits/embeddings (.npy) or the "
+                         "detections (.json) to this file")
     args = ap.parse_args(argv)
 
     if args.cmd == "info":
@@ -253,11 +421,32 @@ def main(argv=None):
             print(json.dumps(json.load(f), indent=2))
         return
 
+    if args.cmd == "export_det":
+        meta = _export_det(args)
+        print(f"Exported detector (img {meta['img_size']}, "
+              f"{meta['n_classes']} classes, strides {meta['strides']}) "
+              f"at batch sizes {meta['batch_sizes']} -> {args.out}")
+        return
+
     if args.cmd == "predict":
         from .wrapper import resolve_device
         pred = load_predictor(args.artifact, resolve_device(args.device))
         x = _load_inputs(args.inputs, pred.meta["img_size"], args.mean,
                          args.std)
+        if pred.meta.get("task") == "detector":
+            recs = [{"image": i, "boxes": np.asarray(boxes).tolist(),
+                     "scores": np.round(np.asarray(scores), 4).tolist(),
+                     "labels": np.asarray(labels).tolist()}
+                    for i, (boxes, scores, labels) in enumerate(
+                        pred.detect(x, score_thresh=args.score_thresh,
+                                    top_k=args.max_dets))]
+            for rec in recs:
+                print(json.dumps(rec))
+            if args.out:
+                with open(args.out, "w") as f:
+                    json.dump(recs, f)
+                print(f"detections -> {args.out}")
+            return
         out = pred.embed(x) if args.embed else pred.predict(x)
         if args.embed:
             print(f"embeddings {out.shape}")

@@ -2,8 +2,9 @@
 """Chip smoke test of the PyTorch/H100 port (`apla_tpu_torch`).
 
 Drives the port's serving path, its supervised training path, its
-DINOv2 self-supervised path and its full-projection path once on one CUDA
-card, in phases that each print a line and raise on failure:
+DINOv2 self-supervised path, its full-projection path and its Swin
+detection side-car once on one CUDA card, in phases that each print a line
+and raise on failure:
 
   1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`
                (six sources), one nvcc per source, all started together.
@@ -53,14 +54,31 @@ card, in phases that each print a line and raise on failure:
                `is_memory_efficient: true`) served as in phase 3 and trained
                as in phase 5, through the memory-efficient attention
                kernels in every block; a profile of the kernel arm's step.
+  8a. swin   — the Swin window kernels (rows 3, 4: attention with the
+               relative-position bias and the shift mask, the whole
+               projection, and its backward) against their plain versions
+               at the four stage shapes of the b16 detector (shifted and
+               not) and at b1, six fault controls; timed at each stage
+               beside the bound and a two-call yardstick.
+  8b. det    — the APLA-Swin-T FCOS detector (`segdet det --use_fused
+               --bf16`, DET_RECIPE) on a synthetic COCO-format set through
+               `segdet.train_detection`: the first step's loss, gradients
+               and pyramid of the kernel arm against the plain arm (two
+               backward faults), one epoch trained, evaluated and
+               checkpointed with the window kernels in every block of every
+               step and eval call, --resume, --eval_only, the plain arm,
+               the best checkpoint exported and served (`DetPredictor.
+               detect`, raw maps against the in-process forward); train and
+               serve img/s, peak memory and a profile.
 
-Phases 2-7 also run negative controls: the kernels made to compute what
+Phases 2-8 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
 heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
 from the wrong columns or zeroed, rowsum(dp * p) dropped from ds; the
 teacher temperature taken as 1, dws zeroed, dxs halved, p_t dropped from
-ds).  Each must fail the phase's bound, so the bounds are shown to catch a
-broken kernel in every run.
+ds; the Swin bias or mask dropped, the mask read at the wrong window, dW
+zeroed).  Each must fail the phase's bound, so the bounds are shown to
+catch a broken kernel in every run.
 
 Then it prints the card's name and power limit, a JSON line describing the
 kernels, and the contract line `{"ok": true, "device": {...}}` last.
@@ -388,6 +406,49 @@ FULL_CUTS = {**copy.deepcopy(SMOKE_CUTS), "dataloader_params": {
 MHA_CASES = ((1, 257, 0), (8, 257, 0), (64, 257, 0), (512, 50, 0),
              (2, 1370, 0), (8, 200, 50), (3, 100, 0))
 MHA_TIMED = (64, 257)
+# Phase 8a: the Swin window kernels (TPU rows 3, 4) at the window batches
+# of the APLA-Swin-T detector below: at b16 and 224, stage s holds
+# (56 >> s)^2 / 49 windows of 49 tokens per image, C = 96 << s and
+# 3 << s heads of 32; every stage but the last has shifted blocks (the
+# classic shift mask), the last one window per image and no shift.  Also
+# stage 0 at b1, a served request.  (images, stage, shifted); the first case
+# is the one timed for the kernels line and the one the controls run at.
+SWIN_CASES = ((16, 0, True), (16, 0, False), (16, 1, True), (16, 1, False),
+              (16, 2, True), (16, 2, False), (16, 3, False), (1, 0, True))
+# Phase 8b: the detection side-car's recipe, `python -m apla_tpu.segdet det
+# --use_fused --bf16` with the four-stage Swin-T passed explicitly
+# (`--depths 2,2,6,2 --num_heads 3,6,12,24`; the SwinConfig defaults,
+# apla_tpu/models/swin.py:30-53: patch 4, embed 96, window 7, MLP 4, exact
+# GELU, patch norm, LayerNorm eps 1e-5; the FCOS head, laterals and level
+# scales, strides 4/8/16/32; AdamW lr 1e-4, weight decay 1e-4,
+# apla_tpu/segdet.py:385-405; batch 16, max_boxes 32, no masks), through
+# `segdet.train_detection`, the function behind the CLI.
+DET_RECIPE = dict(img_size=224, embed_dim=96, depths=(2, 2, 6, 2),
+                  num_heads=(3, 6, 12, 24), window_size=7, batch_size=16,
+                  lr=1e-4, weight_decay=1e-4, max_boxes=32, use_fused=True,
+                  bf16=True)
+# What phase 8b changes, and why: COCO is not in the repository, so the data
+# is a COCO-format set this script writes (DET_IMAGES PNGs, mostly 224^2 and
+# every eighth 256 x 192 so the resize runs; COCO's 80 categories; 1-8
+# filled rectangles per image, one colour per category); the weights are
+# random from SEED (no Swin checkpoint in the repository); one epoch of 4
+# steps, evaluated on the train set (labelled `train`, as the JAX loop does
+# without a validation split); the loaders in-process (spawned workers'
+# start-up would time the host, as in phase 7b).
+DET_CUTS = dict(epochs=1, num_workers=0, log_every=1)
+DET_IMAGES = 64
+DET_CLASSES = 80
+# Phase 8b, kernel arm vs plain arm (bf16 through 12 Swin blocks and the
+# head): the first step's |delta loss| relative to the loss, the worst
+# per-tensor ||g_kernel - g_plain|| / ||g_plain||, the cosine of each
+# pyramid level, and the served raw maps against the in-process forward
+# (max |delta| relative to the largest magnitude).  Readings and the
+# bounds' margins are in PERF.md; the backward faults (dW zeroed, dqkv
+# halved) must fail the gradient bound in every run.
+DET_LOSS_REL_TOL = 1e-2
+DET_GRAD_REL_TOL = 0.05
+DET_MIN_COSINE = 0.99985
+DET_SERVE_REL_TOL = 1e-3
 
 
 def _gpu_line() -> str:
@@ -1004,6 +1065,471 @@ def phase_full(device):
             (tmha.mha_fwd, tmha.mha_bwd), 1, controls,
             (LOSS_TOL, GRAD_REL_TOL), profile=True)
     return serve, train
+
+
+def _swin_case(images, stage, shifted, gen, device):
+    """Phase 8a's inputs at one stage: bf16 qkv [B, 49, 3C], w [C, C],
+    g [B, 49, C]; the f32 relative-position bias [H, 49, 49] (N(0, 1), so
+    that a kernel that drops it shows) and the stage's shift mask or None."""
+    from apla_tpu_torch.models.swin import _shift_mask
+    side = 56 >> stage
+    c, heads = 96 << stage, 3 << stage
+    n_w = (side // 7) ** 2
+    b = images * n_w
+    qkv = torch.randn((b, 49, 3 * c), generator=gen).to(device,
+                                                        torch.bfloat16)
+    w = (torch.randn((c, c), generator=gen) * c ** -0.5).to(device,
+                                                            torch.bfloat16)
+    g = torch.randn((b, 49, c), generator=gen).to(device, torch.bfloat16)
+    bias = torch.randn((heads, 49, 49), generator=gen).to(device)
+    mask = torch.from_numpy(_shift_mask(side, side, 7, 3)).to(device) \
+        if shifted else None
+    return qkv, w, g, bias, mask, heads
+
+
+def _swin_bounds(b, c, heads, n_w):
+    """(forward, backward) bounds of the window kernels on b windows of 49
+    tokens: the forward's q k^T and p v over all heads (2 N^2 C each) and
+    the projection (2 N C^2), reading qkv, w, the bias and the mask (n_w
+    planes, 0 without one) and writing out; the backward's dO (2 N C^2),
+    the scores and o recomputed, dv, dp, dq, dk (six 2 N^2 C products) and
+    dW (2 N C^2), reading qkv, w, g, bias, mask, writing dqkv and dW f32."""
+    n = 49
+    planes = 4 * (heads + n_w) * n * n
+    return (_bound(b * (4 * n * n * c + 2 * n * c * c),
+                   2 * (3 * b * n * c + c * c + b * n * c) + planes),
+            _bound(b * (12 * n * n * c + 4 * n * c * c),
+                   2 * (3 * b * n * c + c * c + b * n * c + 3 * b * n * c)
+                   + planes + 4 * c * c))
+
+
+def _swin_library(qkv, w, heads, scale, attn_mask):
+    """The window kernels' two-call yardstick: F.scaled_dot_product_attention
+    with the additive mask bias + mask, then one torch.matmul (and the head
+    merge between them).  The port never calls these."""
+    b, n, c3 = qkv.shape
+    q, k, v = qkv.unflatten(-1, (3, heads, c3 // (3 * heads))) \
+        .permute(2, 0, 3, 1, 4)
+    o = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn_mask, scale=scale)
+    return torch.matmul(o.transpose(1, 2).reshape(b, n, c3 // 3), w)
+
+
+def _swin_errors(got, ref):
+    """{output: (max|err|, bound)} for out, dqkv and dW."""
+    errs = {}
+    for name, a, r in zip(("out", "dqkv", "dW"), got, ref):
+        a, r = a.float(), r.float()
+        ok = bool(torch.isfinite(a).all())
+        errs[name] = ((a - r).abs().max().item() if ok else float("inf"),
+                      KERNEL_REL_TOL * r.abs().max().item())
+    return errs
+
+
+def phase_swin(device):
+    """8a: the Swin window kernels (rows 3, 4) against their plain versions
+    at SWIN_CASES, six fault controls at the first case, and times at every
+    stage's b16 windows beside the bounds and the two-call yardstick."""
+    from apla_tpu_torch.ops import fused_swin_attn as fs
+    gen = torch.Generator().manual_seed(SEED + 4)
+    scale = 32 ** -0.5
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    times = {}
+
+    def kernels(qkv, w, g, bias, mask, heads, sc=scale):
+        return (fs.fused_swin_attn_fwd(qkv, w, bias, mask, heads, sc),
+                *fs.fused_swin_attn_bwd(qkv, w, g, bias, mask, heads, sc))
+
+    def plain(qkv, w, g, bias, mask, heads, sc=scale):
+        return (fs.fused_swin_attn_fwd_reference(qkv, w, bias, mask, heads,
+                                                 sc),
+                *fs.fused_swin_attn_bwd_reference(qkv, w, g, bias, mask,
+                                                  heads, sc))
+
+    for images, stage, shifted in SWIN_CASES:
+        qkv, w, g, bias, mask, heads = _swin_case(images, stage, shifted,
+                                                  gen, device)
+        b, c = qkv.shape[0], w.shape[0]
+        got = kernels(qkv, w, g, bias, mask, heads)
+        torch.cuda.synchronize()
+        ref = plain(qkv, w, g, bias, mask, heads)
+        errs = _swin_errors(got, ref)
+        ok = all(e <= bd for e, bd in errs.values())
+        tag = (f"b{images} stage {stage} qkv [{b}, 49, {3 * c}] "
+               f"{'shifted' if shifted else 'unshifted'}")
+        print(f"[8a swin] {tag}: " + ", ".join(
+            f"{n} max|err| {e:.6g} (bound {bd:.6g})"
+            for n, (e, bd) in errs.items()) + f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"Swin window kernels disagree with their plain "
+                             f"versions at {tag}")
+        worst["fwd"] = max(worst["fwd"], errs["out"][0])
+        worst["bwd"] = max(worst["bwd"], errs["dqkv"][0], errs["dW"][0])
+        if (images, stage, shifted) == SWIN_CASES[0]:
+            n_w = mask.shape[0]
+            pad = 15
+            # fault controls: the working kernels made to compute what broken
+            # ones would, each against this case's plain versions
+            first_image = torch.cat([mask, torch.zeros(
+                (b - n_w,) + mask.shape[1:], device=device)])
+            controls = {
+                "bias dropped": (
+                    lambda: kernels(qkv, w, g, bias * 0, mask, heads),
+                    ("out", "dqkv", "dW")),
+                "mask dropped (shifted block)": (
+                    lambda: kernels(qkv, w, g, bias, None, heads),
+                    ("out", "dqkv", "dW")),
+                # the mask read at plane b, not b mod nW: the planes past nW
+                # (here zeros) reach every image after the first
+                "mask indexed by b, not b mod nW": (
+                    lambda: kernels(qkv, w, g, bias, first_image, heads),
+                    ("out", "dqkv", "dW")),
+                # the 15 zero-filled rows of the 64-row key tile counted as
+                # keys, as a kernel that forgot the column mask would
+                "padded keys left unmasked (N 49 -> 64)": (
+                    lambda: (fs.fused_swin_attn_fwd(
+                        torch.nn.functional.pad(qkv, (0, 0, 0, pad)), w,
+                        torch.nn.functional.pad(bias, (0, pad, 0, pad)),
+                        torch.nn.functional.pad(mask, (0, pad, 0, pad)),
+                        heads, scale)[:, :49], got[1], got[2]), ("out",)),
+                "dW zeroed": (lambda: (got[0], got[1], got[2] * 0), ("dW",)),
+                "dqkv halved": (lambda: (got[0], got[1] * 0.5, got[2]),
+                                ("dqkv",)),
+            }
+            for name, (fault, broken) in controls.items():
+                c_errs = _swin_errors(fault(), ref)
+                caught = all(c_errs[k][0] > c_errs[k][1] for k in broken)
+                print(f"[8a swin] control {name}: " + ", ".join(
+                    f"{k} {e:.6g}" for k, (e, _) in c_errs.items())
+                    + f" -> {'caught' if caught else 'NOT CAUGHT'} in "
+                    f"{list(broken)}")
+                if not caught:
+                    raise SystemExit(f"the Swin kernel bound misses a broken "
+                                     f"kernel ({name})")
+        if images != 16 or (shifted != (stage < 3)):
+            continue
+        # times at this stage's b16 windows: kernels, plain versions, the
+        # two-call yardstick (autograd through it for the backward)
+        idx = torch.arange(b, device=device) % (mask.shape[0] if shifted
+                                                else 1)
+        attn_mask = (bias[None] + (mask[idx][:, None] if shifted else 0.0)
+                     ).to(torch.bfloat16)
+        lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
+        lout = _swin_library(lq, lw, heads, scale, attn_mask)
+        n_w = mask.shape[0] if shifted else 0
+        bounds = _swin_bounds(b, c, heads, n_w)
+        calls = {
+            "fwd": (lambda: fs.fused_swin_attn_fwd(qkv, w, bias, mask, heads,
+                                                   scale),
+                    lambda: fs.fused_swin_attn_fwd_reference(
+                        qkv, w, bias, mask, heads, scale),
+                    lambda: _swin_library(qkv, w, heads, scale, attn_mask)),
+            "bwd": (lambda: fs.fused_swin_attn_bwd(qkv, w, g, bias, mask,
+                                                   heads, scale),
+                    lambda: fs.fused_swin_attn_bwd_reference(
+                        qkv, w, g, bias, mask, heads, scale),
+                    lambda: torch.autograd.grad(lout, (lq, lw), g,
+                                                retain_graph=True)),
+        }
+        for i, (name, (kernel, plain_fn, library)) in enumerate(
+                calls.items()):
+            t = {"ms": _time_ms(kernel), "plain_ms": _time_ms(plain_fn,
+                                                              iters=5),
+                 "library_two_calls_ms": _time_ms(library)}
+            t["bound_ms"], t["bound_by"] = bounds[i]
+            times[(stage, name)] = t
+            print(f"[8a swin] {name} b16 stage {stage} [{b}, 49, {3 * c}]: "
+                  f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                  f"two library calls (SDPA + matmul"
+                  f"{', autograd' if name == 'bwd' else ''}) "
+                  f"{t['library_two_calls_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                  f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+        del lq, lw, lout
+    for name in ("fwd", "bwd"):
+        times[name] = {**times[(0, name)], "max_abs_err": worst[name]}
+    return times
+
+
+def _write_coco(root):
+    """The synthetic COCO-format set of phase 8b under `root`: DET_IMAGES
+    PNGs (224^2, every eighth 256 x 192) of dark noise with 1-8 filled
+    rectangles, one colour per category of DET_CLASSES, and an
+    instances.json in COCO layout.  -> (image dir, annotation file)."""
+    from apla_tpu_torch.data.detection_data import write_png
+    rng = np.random.default_rng(SEED)
+    colours = rng.integers(64, 256, (DET_CLASSES, 3))
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    images, anns = [], []
+    for i in range(DET_IMAGES):
+        w, h = (256, 192) if i % 8 == 7 else (224, 224)
+        img = rng.integers(0, 48, (h, w, 3)).astype(np.uint8)
+        for _ in range(int(rng.integers(1, 9))):
+            cat = int(rng.integers(DET_CLASSES))
+            bw, bh = int(rng.integers(16, w // 2)), int(rng.integers(16,
+                                                                     h // 2))
+            x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0,
+                                                                    h - bh))
+            img[y0:y0 + bh, x0:x0 + bw] = colours[cat]
+            anns.append({"id": len(anns) + 1, "image_id": i,
+                         "category_id": cat + 1, "bbox": [x0, y0, bw, bh],
+                         "area": bw * bh, "iscrowd": 0})
+        name = f"{i:012d}.png"
+        write_png(os.path.join(img_dir, name), img)
+        images.append({"id": i, "file_name": name, "width": w, "height": h})
+    ann_file = os.path.join(root, "instances.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": c + 1, "name": f"category_{c + 1}"}
+                                  for c in range(DET_CLASSES)]}, f)
+    return img_dir, ann_file
+
+
+def phase_det(device):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_det_") as tmp:
+        return _phase_det(device, tmp)
+
+
+def _det_grads(model, cfg, batch, strides):
+    """Loss and f32 gradients of one detection step (no update)."""
+    from apla_tpu_torch.models.detection import (detector_forward,
+                                                 fcos_loss_batch)
+    params = _trainables(model)
+    for p in params.values():
+        p.grad = None
+    loss = fcos_loss_batch(detector_forward(model, batch["image"], cfg),
+                           strides, batch["boxes"], batch["labels"])["total"]
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in params.items()}
+
+
+def _det_agreement(name, got, ref):
+    """The first step's relative |delta loss| and worst per-tensor gradient
+    deviation against DET_LOSS_REL_TOL and DET_GRAD_REL_TOL."""
+    loss_tol = DET_LOSS_REL_TOL * abs(ref[0])
+    return _grad_agreement("8b det", name, got, ref, loss_tol,
+                           DET_GRAD_REL_TOL)
+
+
+def _phase_det(device, tmp):
+    from apla_tpu_torch import segdet
+    from apla_tpu_torch.data.detection_data import (CocoDetection,
+                                                    detection_collate)
+    from apla_tpu_torch.data.loader import DataLoader
+    from apla_tpu_torch.models.detection import (default_strides,
+                                                 detection_optimizer,
+                                                 detector_forward,
+                                                 init_detector,
+                                                 make_detection_train_step)
+    from apla_tpu_torch.models.swin import swin_features
+    from apla_tpu_torch.ops import fused_swin_attn as fs
+    from apla_tpu_torch.serve import (detector_from_state, export_detector,
+                                      load_predictor)
+
+    t0 = time.perf_counter()
+    img_dir, ann = _write_coco(tmp)
+    r = DET_RECIPE
+    cfg = segdet.swin_config(r["img_size"], r["embed_dim"], r["depths"],
+                             r["num_heads"], r["window_size"], r["bf16"],
+                             r["use_fused"])
+    plain_cfg = dataclasses.replace(cfg, use_fused_apla=False)
+    strides = default_strides(cfg)
+    depth = sum(cfg.depths)
+    bsz = r["batch_size"]
+    steps, evals = DET_IMAGES // bsz, -(-DET_IMAGES // bsz)
+    ds = CocoDetection(img_dir, ann, img_size=r["img_size"],
+                       max_boxes=r["max_boxes"])
+    print(f"[8b det] wrote {DET_IMAGES} PNGs, {ds.n_classes} categories, "
+          f"{sum(len(a) for a in ds.anns_by_image.values())} boxes in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # the kernel arm against the plain arm: the loop's first batch, the same
+    # weights (the loop's init from SEED)
+    loader = DataLoader(ds, batch_size=bsz, shuffle=True, drop_last=True,
+                        num_workers=0, collate_fn=detection_collate,
+                        seed=SEED)
+    batch = {k: v.to(device) for k, v in next(iter(loader)).items()}
+    model = init_detector(cfg, ds.n_classes,
+                          torch.Generator().manual_seed(SEED), device)
+    n_train = sum(p.numel() for p in _trainables(model).values())
+    n_proj = sum(p.numel() for n, p in _trainables(model).items()
+                 if ".attn.proj." in n)
+    print(f"[8b det] APLA-Swin-T FCOS detector: {n_train:,} trainable in "
+          f"{len(_trainables(model))} tensors ({n_proj:,} in the {depth} attn.proj"
+          f"), {sum(p.numel() for p in model.parameters()):,} in all")
+    ref = _det_grads(model, plain_cfg, batch, strides)
+    ok = _det_agreement("kernel arm", _det_grads(model, cfg, batch, strides),
+                        ref)
+    controls = {"dW zeroed": lambda out: (out[0], out[1] * 0),
+                "dqkv halved": lambda out: (out[0] * 0.5, out[1])}
+    caught = all([not _det_agreement(f"control: {name}", _with_output_fault(
+        fs, "fused_swin_attn_bwd", fault,
+        lambda: _det_grads(model, cfg, batch, strides)), ref)
+        for name, fault in controls.items()])
+    with torch.no_grad():
+        feats = [swin_features(model.backbone, batch["image"], c)
+                 for c in (cfg, plain_cfg)]
+    cosines = [torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0).item()
+        for a, b in zip(*feats)]
+    print(f"[8b det] pyramid features kernel vs plain arm, cosine per level "
+          f"{[round(x, 6) for x in cosines]} (bound {DET_MIN_COSINE})")
+    del feats
+    if not ok or min(cosines) < DET_MIN_COSINE:
+        raise SystemExit("the detector's kernel arm disagrees with its "
+                         "plain arm")
+    if not caught:
+        raise SystemExit("a broken window backward passes the gradient "
+                         "bounds")
+    for p in model.parameters():
+        p.grad = None
+
+    # train, evaluate, checkpoint through the loop; then --resume and
+    # --eval_only, and the plain arm
+    init_t, init_f = segdet._state(init_detector(
+        cfg, ds.n_classes, torch.Generator().manual_seed(SEED)))
+    kw = {k: v for k, v in r.items()}
+    kw.update(DET_CUTS, seed=SEED, device=str(device))
+    kdir = os.path.join(tmp, "kernel")
+    counters = (fs.fused_swin_attn_fwd, fs.fused_swin_attn_bwd)
+    launches = [0, 0]
+
+    def run(expect, what, **extra):
+        for c in counters:
+            c.launches = 0
+        t = time.perf_counter()
+        out = segdet.train_detection(img_dir, ann, **{**kw, **extra})
+        _sync(device)
+        got = tuple(c.launches for c in counters)
+        print(f"[8b det] {what}: {out} in {time.perf_counter() - t:.1f} s; "
+              f"window kernel launches forward {got[0]}, backward {got[1]} "
+              f"(expected {expect[0]}, {expect[1]})")
+        if got != expect:
+            raise SystemExit(f"{what} did not run the window kernels in "
+                             "every block of every step and eval call")
+        return out, got
+
+    per_epoch = (depth * (steps + evals), depth * steps)
+    out, got = run(per_epoch, "train 1 epoch (kernel arm)", save_dir=kdir)
+    launches = [a + b for a, b in zip(launches, got)]
+    with open(os.path.join(kdir, "det.metrics.jsonl")) as f:
+        losses = [json.loads(line)["train_loss"] for line in f
+                  if "train_loss" in line]
+    print(f"[8b det] losses {losses}")
+    if (out["iters"] != steps or len(losses) != steps
+            or not np.isfinite(losses).all()):
+        raise SystemExit(f"missing or non-finite detection losses {losses}")
+    if not all(segdet._has_ckpt(kdir, n) for n in ("det_best", "det_last",
+                                                   "det_frozen")):
+        raise SystemExit(f"checkpoints missing: {sorted(os.listdir(kdir))}")
+    best = segdet.load_checkpoint(os.path.join(kdir, "det_best.pt"))
+    last = segdet.load_checkpoint(os.path.join(kdir, "det_last.pt"))
+    kept = all(torch.equal(best["frozen"][n], t) for n, t in init_f.items())
+    moved = {n: not torch.equal(last["trainable"][n], t)
+             for n, t in init_t.items()}
+    print(f"[8b det] {sum(moved.values())}/{len(moved)} trainable tensors "
+          f"moved, {len(init_f)} frozen tensors "
+          f"{'unchanged bit for bit' if kept else 'CHANGED'}; checkpoints "
+          f"{sorted(os.listdir(kdir))}")
+    if not kept or not all(moved.values()):
+        raise SystemExit(f"trainable not moved "
+                         f"{[n for n, m in moved.items() if not m]} or "
+                         "frozen changed")
+    out2, got = run(per_epoch, "--resume to 2 epochs", save_dir=kdir,
+                    epochs=2, resume=True)
+    launches = [a + b for a, b in zip(launches, got)]
+    if out2["iters"] != steps:
+        raise SystemExit("--resume did not continue at the second epoch")
+    with open(os.path.join(kdir, "det_best.json")) as f:
+        best_map = json.load(f)["map50"]
+    out3, got = run((depth * evals, 0), "--eval_only", save_dir=kdir,
+                    eval_only=True)
+    launches = [a + b for a, b in zip(launches, got)]
+    print(f"[8b det] --eval_only mAP@50 {out3['best_map50']!r}, det_best's "
+          f"{best_map!r}")
+    if out3["iters"] != 0 or out3["best_map50"] != best_map:
+        raise SystemExit("--eval_only does not report the best checkpoint's "
+                         "mAP@50")
+    run((0, 0), "train 1 epoch (plain arm)", save_dir=os.path.join(
+        tmp, "plain"), use_fused=False)
+
+    # export the best checkpoint with the fused bf16 config and serve it
+    best = segdet.load_checkpoint(os.path.join(kdir, "det_best.pt"))
+    served = detector_from_state(cfg, ds.n_classes, best["trainable"],
+                                 best["frozen"], device)
+    art = os.path.join(tmp, "artifact")
+    export_detector(art, served, cfg, strides, batch_sizes=(1, 8, 16))
+    pred = load_predictor(art, device)
+    x = np.stack([ds[i]["image"] for i in range(8)])
+    for c in counters:
+        c.launches = 0
+    dets = [pred.detect(x[:1]), pred.detect(x)]
+    _sync(device)
+    got = tuple(c.launches for c in counters)
+    launches = [a + b for a, b in zip(launches, got)]
+    print(f"[8b det] served detect b1 and b8: {[len(d) for d in dets]} "
+          f"images, {sum(len(d[0]) for d in dets[1])} boxes at b8; window "
+          f"kernel launches {got} (expected ({2 * depth}, 0))")
+    if got != (2 * depth, 0) or len(dets[1]) != 8 or not all(
+            np.isfinite(d[0]).all() and np.isfinite(d[1]).all()
+            for d in dets[0] + dets[1]):
+        raise SystemExit("the served detector did not run the window kernel "
+                         "in every block, or returned bad detections")
+    raw = pred.predict(x)
+    with torch.inference_mode():
+        ref_maps = detector_forward(served, torch.from_numpy(x).to(device),
+                                    cfg)
+    dev_max = max(float(np.abs(a - b.float().cpu().numpy()).max()
+                        / max(float(b.abs().max()), 1e-12))
+                  for lvl, r_lvl in zip(raw, ref_maps)
+                  for a, b in zip(lvl, r_lvl))
+    print(f"[8b det] served raw maps vs the in-process forward: worst max|d| "
+          f"/ max|ref| {dev_max:.3g} (bound {DET_SERVE_REL_TOL})")
+    if dev_max > DET_SERVE_REL_TOL:
+        raise SystemExit("the served maps differ from the in-process forward")
+
+    rates = _det_rates(model, pred.model, batch, cfg, plain_cfg, strides)
+    for (what, name), (rate, peak) in sorted(rates.items()):
+        print(f"[8b det] {what} {name} arm: {rate:.1f} img/s"
+              + (f", peak {peak:.2f} GB" if what == "train" else ""))
+    step = make_detection_train_step(cfg, detection_optimizer(
+        model, 1e-9, 1e-4), strides)
+    _print_profile("8b det", f"kernel arm, b{bsz} train step",
+                   *_profile_step(lambda: step(model, batch)))
+    print(f"[8b det] phase took {time.perf_counter() - t0:.1f} s")
+    return tuple(launches), rates
+
+
+def _det_rates(model, served, batch, cfg, plain_cfg, strides):
+    """Train-step img/s and peak device memory (AdamW at lr 1e-9, after a
+    warm-up step) and the served forward's img/s at b8 and b16, of both
+    arms in turns (plain, kernel, kernel, plain), best of two."""
+    from apla_tpu_torch.models.detection import (detection_optimizer,
+                                                 detector_forward,
+                                                 make_detection_train_step)
+    bsz = batch["image"].shape[0]
+    rates = {}
+    for name, c in (("plain", plain_cfg), ("kernel", cfg), ("kernel", cfg),
+                    ("plain", plain_cfg)):
+        step = make_detection_train_step(c, detection_optimizer(
+            model, 1e-9, 1e-4), strides)
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_ms(lambda: step(model, batch), iters=4, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        best = rates.get(("train", name), (0.0, 0.0))
+        rates[("train", name)] = (max(best[0], bsz * 1000.0 / ms),
+                                  max(best[1], peak))
+        for b in (8, 16):
+            xb = batch["image"][:b]
+            with torch.inference_mode():
+                ms = _time_ms(lambda: detector_forward(served, xb, c),
+                              iters=10)
+            key = (f"serve b{b}", name)
+            rates[key] = (max(rates.get(key, (0.0,))[0], b * 1000.0 / ms),
+                          0.0)
+    return rates
 
 
 def _trainables(model):
@@ -1706,6 +2232,8 @@ def main() -> int:
     (full_serve_launches, full_rate, full_plain_rate), \
         ((full_fwd, full_bwd), full_rates, _) = timed("7b", phase_full,
                                                       device)
+    swin_times = timed("8a", phase_swin, device)
+    det_launches, det_rates = timed("8b", phase_det, device)
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
           f"forward launches); train b64 img/s " + ", ".join(
@@ -1717,6 +2245,9 @@ def main() -> int:
           f"plain {full_plain_rate:.1f}, train b64 img/s " + ", ".join(
               f"{name} accum {acc} {r:.1f}"
               for (name, acc), (r, _) in sorted(full_rates.items()))
+          + "; detector b16 img/s " + ", ".join(
+              f"{what} {name} {r:.1f}"
+              for (what, name), (r, _) in sorted(det_rates.items()))
           + f"; whole run {time.perf_counter() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + " s)")
     print(_gpu_line())
@@ -1739,11 +2270,15 @@ def main() -> int:
          full_serve_launches + full_fwd, mha_times["fwd"]),
         ("mha_bwd", "mha_bwd.cu", "pallas_mha.py:81", full_bwd,
          mha_times["bwd"]),
+        ("fused_swin_attn_fwd", "fused_apla_attn_fwd.cu",
+         "pallas_apla_attn.py:197", det_launches[0], swin_times["fwd"]),
+        ("fused_swin_attn_bwd", "fused_apla_attn_bwd.cu",
+         "pallas_apla_attn.py:203", det_launches[1], swin_times["bwd"]),
     ]
     # library_ms: F.scaled_dot_product_attention (autograd through it for
     # the backward) computes the mha kernels' function; no single PyTorch
-    # call computes the others, and the fused attention kernels' two-call
-    # yardstick (SDPA, then the projection) is reported beside them
+    # call computes the others, and the fused attention and window kernels'
+    # two-call yardstick (SDPA, then the projection) is reported beside them
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"apla_tpu_torch/csrc/{src}",

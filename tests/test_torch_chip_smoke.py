@@ -5,9 +5,9 @@ card's machine has no PyYAML); every value in them must be the ImageNet
 ViT-B APLA-128 recipe's and the ISIC2019 DINOv2 recipe's as
 `load_merged_params` reads them, and every change the script makes is in
 its cuts dicts.  Without a CUDA device the script must exit non-zero and
-print no `"ok": true` line.  Its supervised, SSL and full-projection
-phases (5, 6b, 7b) are rehearsed here on tiny models, with the kernels'
-plain versions counted as launches.
+print no `"ok": true` line.  Its supervised, SSL, full-projection and
+detection phases (5, 6b, 7b, 8b) are rehearsed here on tiny models, with
+the kernels' plain versions counted as launches.
 """
 
 import copy
@@ -280,6 +280,7 @@ def _count_plain_versions(monkeypatch):
     """On CPU tensors the wrappers run the plain versions, which count
     here as the kernels' launches."""
     from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.ops import fused_swin_attn as fs
     from apla_tpu_torch.ops import mha
     from apla_tpu_torch.ops import proto_ce as pc
 
@@ -295,8 +296,12 @@ def _count_plain_versions(monkeypatch):
                                 "fused_apla_attn_bwd")),
                           (pc, ("proto_ce_fwd", "proto_ce_dxs",
                                 "proto_ce_dws")),
-                          (mha, ("mha_fwd", "mha_bwd"))):
+                          (mha, ("mha_fwd", "mha_bwd")),
+                          (fs, ("fused_swin_attn_fwd",
+                                "fused_swin_attn_bwd"))):
         for name in names:
+            # the counts go back to what they were when the test ends
+            monkeypatch.setattr(getattr(module, name), "launches", 0)
             counting(module, f"{name}_reference", name)
 
 
@@ -347,6 +352,65 @@ def test_training_phase_rehearsal(monkeypatch):
     assert set(rates) == {("plain", 8), ("plain", 1), ("fused", 8),
                           ("fused", 1)}
     assert np.isfinite([r for r, _ in rates.values()]).all()
+
+
+def test_det_recipe_is_the_segdet_recipe():
+    """DET_RECIPE is `segdet det --use_fused --bf16` with the four-stage
+    Swin-T: the JAX SwinConfig defaults and the JAX loop's optimizer
+    settings; the kernels' window batches follow from it."""
+    import inspect
+
+    from apla_tpu import segdet as jsegdet
+    from apla_tpu.models.swin import SwinConfig
+    smoke = _chip_smoke()
+    r = smoke.DET_RECIPE
+    jcfg = SwinConfig()
+    assert (r["embed_dim"], r["depths"], r["num_heads"], r["window_size"],
+            r["img_size"]) == (jcfg.embed_dim, tuple(jcfg.depths),
+                               tuple(jcfg.num_heads), jcfg.window_size,
+                               jcfg.img_size)
+    defaults = {k: v.default for k, v in inspect.signature(
+        jsegdet.train_detection).parameters.items()}
+    assert (r["lr"], r["weight_decay"], r["max_boxes"]) == (
+        defaults["lr"], defaults["weight_decay"], defaults["max_boxes"])
+    assert r["use_fused"] and r["bf16"] and r["batch_size"] == 16
+    windows = {stage: r["batch_size"] * ((56 >> stage) // 7) ** 2
+               for stage in range(4)}
+    assert windows == {0: 1024, 1: 256, 2: 64, 3: 16}
+    assert [case[:2] for case in smoke.SWIN_CASES[:7:2]] == [
+        (16, 0), (16, 1), (16, 2), (16, 3)]
+
+
+def test_det_phase_rehearsal(monkeypatch):
+    """Phase 8b on a two-stage Swin (embed 32, heads of 32, depths 2 and 4)
+    at 56 px on the CPU, b4 over 8 written PNGs: the window kernels (their
+    plain versions, counted) in every block of every step and eval call,
+    finite losses, frozen kept and every trainable tensor moved, --resume,
+    --eval_only, the plain arm, the export and the served detector, and the
+    kernel-vs-plain bounds with their two backward faults."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke, "DET_RECIPE", {
+        **smoke.DET_RECIPE, "img_size": 56, "embed_dim": 32,
+        "depths": (2, 4), "num_heads": (1, 2), "batch_size": 4,
+        "bf16": False})
+    # the script's bounds are set from Swin-T's bf16 readings on the card;
+    # this float32 model on the CPU reads |dloss| 0 and a worst per-tensor
+    # gradient error of 1e-8, and dqkv halved moves a gradient by less
+    # (0.06 over 4 blocks of a stage, 0.15 over Swin-T's 6) than there
+    monkeypatch.setattr(smoke, "DET_GRAD_REL_TOL", 0.02)
+    monkeypatch.setattr(smoke, "DET_IMAGES", 8)
+    monkeypatch.setattr(smoke, "DET_CLASSES", 3)
+    monkeypatch.setattr(smoke, "_det_rates", lambda *a: {("train", "x"):
+                                                         (1.0, 0.0)})
+    monkeypatch.setattr(smoke, "_profile_step",
+                        lambda fn: (1.0, 1.0, {}, [], []))
+    _count_plain_versions(monkeypatch)
+    launches, rates = smoke.phase_det(torch.device("cpu"))
+    depth, steps, evals = 6, 2, 2
+    # train, resume, eval-only, then detect at b1 and b8 (one call each)
+    assert launches == (depth * (2 * (steps + evals) + evals + 2),
+                        depth * 2 * steps)
+    assert rates == {("train", "x"): (1.0, 0.0)}
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -368,3 +368,102 @@ def test_mha_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="d_o on"):
         tmha.mha_bwd(qkv, d_o.cpu(), 12, 0.125)
     assert (tmha.mha_fwd.launches, tmha.mha_bwd.launches) == before
+
+
+def _swin_inputs(device, b, n, c, n_w, seed):
+    """bf16 qkv [b, n, 3c], w, g; f32 bias [c/32, n, n] and a random
+    symmetric -1e9 mask of n_w planes (None when n_w is 0)."""
+    gen = torch.Generator().manual_seed(seed)
+    qkv, w = _qkv_w(device, b, n, c, seed)
+    g = torch.randn((b, n, c), generator=gen).to(device, torch.bfloat16)
+    bias = torch.randn((c // 32, n, n), generator=gen).to(device)
+    mask = None
+    if n_w:
+        m = torch.rand((n_w, n, n), generator=gen) > 0.6
+        m = m & m.transpose(1, 2) & ~torch.eye(n, dtype=torch.bool)[None]
+        mask = torch.where(m, -1e9, 0.0).to(device)
+    return qkv, w, g, bias, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,n_w", [
+    (1024, 49, 96, 64),    # Swin-T stage 0 at b16, shifted (3 heads)
+    (1024, 49, 96, 0),     # ... unshifted: no mask
+    (256, 49, 192, 16),    # stage 1
+    (64, 49, 384, 4),      # stage 2
+    (16, 49, 768, 0),      # stage 3: one window, no shift
+    (10, 49, 96, 4),       # nW not dividing the windows
+    (6, 9, 96, 2),         # a 3x3 window
+    (3, 100, 64, 1),       # N past one 64-row tile
+])
+def test_fused_swin_attn_matches_plain(cuda_device, b, n, c, n_w):
+    from apla_tpu_torch.ops import fused_swin_attn as tfs
+    qkv, w, g, bias, mask = _swin_inputs(cuda_device, b, n, c, n_w,
+                                         seed=b + n + c)
+    heads, scale = c // 32, 32 ** -0.5
+    before = (tfs.fused_swin_attn_fwd.launches,
+              tfs.fused_swin_attn_bwd.launches)
+    out = tfs.fused_swin_attn_fwd(qkv, w, bias, mask, heads, scale)
+    dqkv, dw = tfs.fused_swin_attn_bwd(qkv, w, g, bias, mask, heads, scale)
+    torch.cuda.synchronize()
+    assert (tfs.fused_swin_attn_fwd.launches,
+            tfs.fused_swin_attn_bwd.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    ref = (tfs.fused_swin_attn_fwd_reference(qkv, w, bias, mask, heads,
+                                             scale),
+           *tfs.fused_swin_attn_bwd_reference(qkv, w, g, bias, mask, heads,
+                                              scale))
+    for name, a, r in zip(("out", "dqkv", "dW"), (out, dqkv, dw), ref):
+        err = (a.float() - r.float()).abs().max().item()
+        assert err <= REL_TOL * r.float().abs().max().item(), (name, err)
+    again = tfs.fused_swin_attn_bwd(qkv, w, g, bias, mask, heads, scale)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], dw)
+
+
+@pytest.mark.cuda
+def test_swin_detector_runs_the_window_kernels(cuda_device):
+    """A bf16 two-stage Swin detector with use_fused_apla: 4 window
+    forwards per pass and 4 backwards per step, block 0 included (its
+    projection is trainable though its qkv input is frozen)."""
+    from apla_tpu_torch.models.detection import (detection_optimizer,
+                                                 init_detector,
+                                                 make_detection_train_step)
+    from apla_tpu_torch.models.swin import SwinConfig
+    from apla_tpu_torch.ops import fused_swin_attn as tfs
+    cfg = SwinConfig(img_size=56, embed_dim=32, depths=(2, 2),
+                     num_heads=(1, 2), use_fused_apla=True)
+    model = init_detector(cfg, 3, torch.Generator().manual_seed(0),
+                          cuda_device)
+    step = make_detection_train_step(cfg, detection_optimizer(model, 1e-4,
+                                                              1e-4))
+    batch = {"image": torch.randn((2, 56, 56, 3), device=cuda_device),
+             "boxes": torch.tensor([[[4.0, 4.0, 30.0, 30.0]]] * 2,
+                                   device=cuda_device),
+             "labels": torch.ones((2, 1), dtype=torch.int32,
+                                  device=cuda_device)}
+    before = (tfs.fused_swin_attn_fwd.launches,
+              tfs.fused_swin_attn_bwd.launches)
+    m = step(model, batch)
+    torch.cuda.synchronize()
+    assert (tfs.fused_swin_attn_fwd.launches,
+            tfs.fused_swin_attn_bwd.launches) == (before[0] + 4,
+                                                  before[1] + 4)
+    assert torch.isfinite(m["total"]) and torch.isfinite(m["grad_norm"])
+
+
+@pytest.mark.cuda
+def test_fused_swin_attn_raises_instead_of_falling_back(cuda_device):
+    from apla_tpu_torch.ops import fused_swin_attn as tfs
+    qkv, w, g, bias, mask = _swin_inputs(cuda_device, 8, 49, 96, 4, seed=0)
+    before = (tfs.fused_swin_attn_fwd.launches,
+              tfs.fused_swin_attn_bwd.launches)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfs.fused_swin_attn_fwd(qkv.float(), w.float(), bias, mask, 3, 0.1)
+    with pytest.raises(ValueError, match="head dim 32"):
+        tfs.fused_swin_attn_fwd(qkv, w, bias[:2], mask, 2, 0.1)
+    with pytest.raises(ValueError, match="mask must be"):
+        tfs.fused_swin_attn_fwd(qkv, w, bias, mask.double(), 3, 0.1)
+    with pytest.raises(ValueError, match="g must be"):
+        tfs.fused_swin_attn_bwd(qkv, w, g[:, :48], bias, mask, 3, 0.1)
+    assert (tfs.fused_swin_attn_fwd.launches,
+            tfs.fused_swin_attn_bwd.launches) == before

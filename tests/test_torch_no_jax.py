@@ -6,9 +6,11 @@ every module of the port, runs a tiny APLA classifier forward through the
 fused path, round-trips it through a serving artifact, runs a tiny APLA
 "full" classifier forward and backward through the memory-efficient
 attention (`ops.mha`), takes one training step (device augmentation, mixup
-targets, accumulation) through `make_train_step`, and runs the SSL pieces:
+targets, accumulation) through `make_train_step`, runs the SSL pieces:
 device multi-crop with blur and solarize, the iBOT mask collate, the DINO
-head and the prototype CE with its backward.
+head and the prototype CE with its backward, and drives the detection
+side-car: PNGs written and read, the APLA-Swin detector trained through
+the fused window path, checkpointed, exported and served.
 """
 
 import os
@@ -131,6 +133,43 @@ ce = proto_ce(xs, dino_head_last_w(head, False), xs.detach(),
               dino_head_last_w(head), torch.zeros(64), 0.05, 0.1)
 ce.sum().backward()
 assert torch.isfinite(emb.grad).all() and head.last_v.grad is not None
+# the detection side-car: a synthetic COCO set written and read without
+# PIL, the APLA-Swin detector trained through the fused window path (plain
+# versions on the CPU), checkpointed, exported and served
+import json, os
+from apla_tpu_torch.data.detection_data import write_png
+from apla_tpu_torch.segdet import load_checkpoint, swin_config, train_detection
+from apla_tpu_torch.serve import (DetPredictor, detector_from_state,
+                                  export_detector)
+
+with tempfile.TemporaryDirectory() as tmp:
+    os.makedirs(os.path.join(tmp, "imgs"))
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        write_png(os.path.join(tmp, "imgs", f"{i}.png"),
+                  rng.integers(0, 256, (60, 70, 3), dtype=np.uint8))
+    with open(os.path.join(tmp, "ann.json"), "w") as f:
+        json.dump({"images": [{"id": i, "file_name": f"{i}.png"}
+                              for i in range(2)],
+                   "annotations": [{"id": 1, "image_id": 0, "category_id": 5,
+                                    "bbox": [5, 5, 30, 20]}],
+                   "categories": [{"id": 5}]}, f)
+    out = train_detection(os.path.join(tmp, "imgs"),
+                          os.path.join(tmp, "ann.json"), epochs=1,
+                          img_size=56, batch_size=2, embed_dim=32,
+                          depths=(2, 2), num_heads=(1, 2), num_workers=0,
+                          save_dir=os.path.join(tmp, "ck"), use_fused=True,
+                          bf16=True, device="cpu")
+    assert out["iters"] == 1
+    ckpt = load_checkpoint(os.path.join(tmp, "ck", "det_best.pt"))
+    cfg = swin_config(56, 32, (2, 2), (1, 2), 7, bf16=True, use_fused=True)
+    det = detector_from_state(cfg, 1, ckpt["trainable"], ckpt["frozen"],
+                              torch.device("cpu"))
+    export_detector(os.path.join(tmp, "art"), det, cfg, (4, 8), (1, 2))
+    pred = load_predictor(os.path.join(tmp, "art"), "cpu")
+    assert isinstance(pred, DetPredictor)
+    assert len(pred.detect(np.zeros((3, 56, 56, 3), np.float32))) == 3
+
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("MODULES", len(names))

@@ -1,0 +1,226 @@
+"""The port's detection side-car loop (`apla_tpu_torch.segdet`), the cases
+of the JAX package's det loop tests (tests/test_segdet_loop.py): the loop,
+`--use_fused --bf16`, resume equal to an uninterrupted run, eval-only,
+multi-scale training, an HF Swin checkpoint, SIGTERM; and the CLI at the
+four-stage Swin-T width (`det --depths 2,2,6,2 --num_heads 3,6,12,24
+--use_fused --bf16 --device cpu`) on a tiny synthetic COCO set.  The
+trajectory itself is held against the JAX step in test_torch_detection.py.
+"""
+
+import json
+import os
+import signal
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from apla_tpu_torch import segdet
+from apla_tpu_torch.data.detection_data import write_png
+
+KW = dict(img_size=56, batch_size=2, lr=1e-3, embed_dim=32, depths=(2, 2),
+          num_heads=(1, 2), num_workers=0, log_every=1, device="cpu")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def make_coco(tmp_path, n_images=4, size=(60, 80)):
+    img_dir = tmp_path / "imgs"
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(0)
+    images, annotations = [], []
+    for i in range(n_images):
+        name = f"im{i}.png"
+        img = rng.integers(0, 64, size + (3,), dtype=np.uint8)
+        img[10:30, 10:40] = (200, 40, 40)
+        write_png(str(img_dir / name), img)
+        images.append({"id": i, "file_name": name, "width": size[1],
+                       "height": size[0]})
+        annotations.append({"id": 10 + i, "image_id": i, "category_id": 7,
+                            "bbox": [10, 10, 30, 20], "iscrowd": 0})
+    ann = {"images": images, "annotations": annotations,
+           "categories": [{"id": 7, "name": "thing"}]}
+    ann_file = tmp_path / "instances.json"
+    ann_file.write_text(json.dumps(ann))
+    return str(img_dir), str(ann_file)
+
+
+def test_detection_loop(tmp_path):
+    img_dir, ann = make_coco(tmp_path)
+    out = segdet.train_detection(img_dir, ann, epochs=2,
+                                 save_dir=str(tmp_path / "ck"), **KW)
+    assert out["iters"] == 4 and out["eval_set"] == "train"
+    assert 0.0 <= out["best_map50"] <= 1.0
+    for name in ("det_best", "det_last", "det_frozen"):
+        assert segdet._has_ckpt(str(tmp_path / "ck"), name)
+    rows = [json.loads(line)
+            for line in open(tmp_path / "ck" / "det.metrics.jsonl")]
+    assert sum("train_loss" in r for r in rows) == 4
+    assert sum("train_map50" in r for r in rows) == 2
+    best = segdet.load_checkpoint(str(tmp_path / "ck" / "det_best.pt"))
+    last = segdet.load_checkpoint(str(tmp_path / "ck" / "det_last.pt"))
+    assert "frozen" in best and "frozen" not in last
+    assert "opt_state" in last and "opt_state" not in best
+    assert all(".attn.proj." in n for n in best["trainable"]
+               if n.startswith("backbone."))
+    meta = json.loads((tmp_path / "ck" / "det_last.json").read_text())
+    assert set(meta) == {"epoch", "map50"} and meta["epoch"] == 1
+
+
+def test_detection_loop_fused_bf16_flags(tmp_path):
+    """`--use_fused --bf16` on the CPU: the window kernels' plain versions
+    in bf16, finite metrics and a checkpoint."""
+    img_dir, ann = make_coco(tmp_path)
+    out = segdet.train_detection(img_dir, ann, epochs=1, use_fused=True,
+                                 bf16=True, save_dir=str(tmp_path / "ck"),
+                                 **KW)
+    assert out["iters"] == 2
+    assert 0.0 <= out["best_map50"] <= 1.0
+    assert segdet._has_ckpt(str(tmp_path / "ck"), "det_best")
+
+
+def test_detection_resume_matches_uninterrupted(tmp_path):
+    """1 epoch + --resume for a 2nd == 2 uninterrupted epochs: det_last
+    carries the trainable tensors, the optimizer state and the epoch; the
+    loader order is seeded by the epoch."""
+    img_dir, ann = make_coco(tmp_path)
+    segdet.train_detection(img_dir, ann, epochs=2,
+                           save_dir=str(tmp_path / "full"), **KW)
+    segdet.train_detection(img_dir, ann, epochs=1,
+                           save_dir=str(tmp_path / "part"), **KW)
+    out = segdet.train_detection(img_dir, ann, epochs=2, resume=True,
+                                 save_dir=str(tmp_path / "part"), **KW)
+    assert out["iters"] == 2            # only the second epoch ran
+    a, b = (segdet.load_checkpoint(str(tmp_path / d / "det_last.pt"))
+            for d in ("full", "part"))
+    assert set(a["trainable"]) == set(b["trainable"])
+    for name, t in a["trainable"].items():
+        np.testing.assert_allclose(b["trainable"][name].numpy(), t.numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+def test_detection_eval_only(tmp_path):
+    img_dir, ann = make_coco(tmp_path)
+    ck = str(tmp_path / "ck")
+    out = segdet.train_detection(img_dir, ann, epochs=1, save_dir=ck, **KW)
+    again = segdet.train_detection(img_dir, ann, epochs=1, save_dir=ck,
+                                   eval_only=True, **KW)
+    assert again["iters"] == 0
+    assert again["best_map50"] == out["best_map50"]
+    with pytest.raises(FileNotFoundError, match="eval_only"):
+        segdet.train_detection(img_dir, ann, epochs=1, eval_only=True,
+                               save_dir=str(tmp_path / "nope"), **KW)
+
+
+def test_detection_multi_scale(tmp_path):
+    """--scales: one scale drawn per epoch, boxes in resized coordinates,
+    evaluation at the base size; scales that break the window alignment
+    are refused."""
+    img_dir, ann = make_coco(tmp_path)
+    out = segdet.train_detection(img_dir, ann, epochs=2, scales=(56, 112),
+                                 save_dir=str(tmp_path / "ck"), **KW)
+    assert out["iters"] == 4
+    assert 0.0 <= out["best_map50"] <= 1.0
+    with pytest.raises(ValueError, match="not divisible"):
+        segdet.train_detection(img_dir, ann, epochs=1, scales=(84,),
+                               save_dir=str(tmp_path / "ck2"), **KW)
+
+
+def test_detection_loop_with_hf_swin_ckpt(tmp_path):
+    """--swin_ckpt: a local HF SwinModel state_dict initialises the
+    backbone; its architecture comes from the checkpoint."""
+    transformers = pytest.importorskip("transformers")
+    hf = transformers.SwinModel(transformers.SwinConfig(
+        image_size=56, patch_size=4, embed_dim=32, depths=[2, 2],
+        num_heads=[1, 2], window_size=7), add_pooling_layer=False)
+    ckpt = tmp_path / "swin_hf.pth"
+    torch.save(hf.state_dict(), ckpt)
+    img_dir, ann = make_coco(tmp_path)
+    kw = {**KW, "embed_dim": 16, "depths": (2,), "num_heads": (4,)}
+    out = segdet.train_detection(img_dir, ann, epochs=1, swin_ckpt=str(ckpt),
+                                 save_dir=str(tmp_path / "ck"), **kw)
+    assert out["iters"] == 2
+    frozen = segdet.load_checkpoint(str(tmp_path / "ck" / "det_best.pt"))[
+        "frozen"]
+    np.testing.assert_array_equal(
+        frozen["backbone.stages.1.blocks.1.attn.rel_bias"].numpy(),
+        hf.state_dict()["encoder.layers.1.blocks.1.attention.self."
+                        "relative_position_bias_table"].numpy())
+
+
+def test_preemption_flag_sets_on_sigterm():
+    old_term = signal.getsignal(signal.SIGTERM)
+    old_int = signal.getsignal(signal.SIGINT)
+    try:
+        flag, restore = segdet._preemption_flag()
+        assert not flag()
+        os.kill(os.getpid(), signal.SIGTERM)
+        time.sleep(0.05)
+        assert flag()
+        restore()
+        assert signal.getsignal(signal.SIGTERM) is old_term
+    finally:
+        signal.signal(signal.SIGTERM, old_term)
+        signal.signal(signal.SIGINT, old_int)
+
+
+def test_preempted_run_saves_a_resumable_last(tmp_path, monkeypatch):
+    """A SIGTERM seen at a step boundary: det_last (marked at epoch - 1,
+    `preempted`) is saved and the loop returns; --resume replays the epoch."""
+    img_dir, ann = make_coco(tmp_path)
+    ck = str(tmp_path / "ck")
+    monkeypatch.setattr(segdet, "_preemption_flag",
+                        lambda: ((lambda: True), (lambda: None)))
+    out = segdet.train_detection(img_dir, ann, epochs=1, save_dir=ck, **KW)
+    assert out["preempted"] and out["iters"] == 1
+    meta = json.loads((tmp_path / "ck" / "det_last.json").read_text())
+    assert meta["preempted"] and meta["epoch"] == -1
+    monkeypatch.undo()
+    out = segdet.train_detection(img_dir, ann, epochs=1, save_dir=ck,
+                                 resume=True, **KW)
+    assert out["iters"] == 2
+
+
+def test_cli_trains_the_four_stage_swin_t(tmp_path, capsys):
+    """`det --depths 2,2,6,2 --num_heads 3,6,12,24 --use_fused --bf16
+    --device cpu` at Swin-T's width (embed 96, 224 px) on two images."""
+    img_dir, ann = make_coco(tmp_path, n_images=2, size=(224, 224))
+    ck = str(tmp_path / "ck")
+    segdet.main(["det", "--img_dir", img_dir, "--ann", ann, "--depths",
+                 "2,2,6,2", "--num_heads", "3,6,12,24", "--use_fused",
+                 "--bf16", "--device", "cpu", "--epochs", "1",
+                 "--batch_size", "2", "--num_workers", "0", "--save_dir",
+                 ck])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["iters"] == 1 and 0.0 <= out["best_map50"] <= 1.0
+    best = segdet.load_checkpoint(os.path.join(ck, "det_best.pt"))
+    projs = [n for n in best["trainable"] if ".attn.proj.kernel" in n]
+    assert len(projs) == 12
+    assert sum(best["trainable"][n].numel() for n in best["trainable"]
+               if ".attn.proj." in n) == 2_160_960
+
+
+def test_unported_options_raise(tmp_path, monkeypatch):
+    img_dir, ann = make_coco(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP A 1"):
+        segdet.main(["seg"])
+    for extra, match in (({"masks": True}, "mask branch"),
+                         ({"n_devices": 2}, "Parallel modes"),
+                         ({"param_sharding": "fsdp"}, "Parallel modes")):
+        with pytest.raises(NotImplementedError, match=match):
+            segdet.train_detection(img_dir, ann, save_dir=str(tmp_path),
+                                   **{**KW, **extra})
+    # on the card, --use_fused takes --bf16: no fall-back to the plain path
+    from apla_tpu_torch import wrapper
+    monkeypatch.setattr(wrapper, "resolve_device",
+                        lambda name: torch.device("cuda"))
+    with pytest.raises(ValueError, match="needs --bf16"):
+        segdet.train_detection(img_dir, ann, use_fused=True,
+                               save_dir=str(tmp_path), **KW)

@@ -151,3 +151,117 @@ def test_cli_export_predict_info(tmp_path, capsys):
     assert printed.count("image ") == 5
     logits = np.load(out)
     assert logits.shape == (5, 10) and np.isfinite(logits).all()
+
+
+# ------------------------------------------------------------------ #
+# detector artifacts
+# ------------------------------------------------------------------ #
+
+def _jax_det_artifact(tmp_path):
+    """A JAX detector (the shape of tests/test_serve.py's) exported by the
+    JAX package, and the same weights in a port artifact."""
+    from apla_tpu.models.detection import _conv_init, init_fcos_head
+    from apla_tpu.models.swin import (SwinConfig, build_apla_swin,
+                                      init_swin_params)
+    from apla_tpu.serve import export_detector as j_export
+    from apla_tpu_torch.models.swin import SwinConfig as TSwinConfig
+    from apla_tpu_torch.utils.pretrained import det_state_from_jax
+
+    kw = dict(img_size=56, patch_size=4, embed_dim=32, depths=(2, 2),
+              num_heads=(1, 2), window_size=7)
+    jcfg = SwinConfig(compute_dtype=jnp.float32, **kw)
+    bb_t, bb_f = build_apla_swin(init_swin_params(jax.random.PRNGKey(0),
+                                                  jcfg))
+    trainable = {
+        "backbone": bb_t,
+        "head": init_fcos_head(jax.random.PRNGKey(1), 32, 3, channels=16,
+                               n_levels=2),
+        "laterals": [_conv_init(jax.random.PRNGKey(5), 1, 32, 32),
+                     _conv_init(jax.random.PRNGKey(6), 1, 64, 32)],
+    }
+    trainable = jax.tree.map(np.asarray, trainable)
+    bb_f = jax.tree.map(np.asarray, bb_f)
+    j_path = str(tmp_path / "jax_det")
+    j_export(j_path, trainable, bb_f, jcfg, (4, 8), batch_sizes=(2,))
+    tcfg = TSwinConfig(compute_dtype=torch.float32, use_fused_apla=True,
+                       **kw)
+    t, f = det_state_from_jax(trainable, bb_f)
+    model = tserve.detector_from_state(tcfg, 3, t, f, torch.device("cpu"))
+    t_path = str(tmp_path / "torch_det")
+    meta = tserve.export_detector(t_path, model, tcfg, (4, 8),
+                                  batch_sizes=(1, 2))
+    return j_path, t_path, meta, tcfg
+
+
+def test_detector_artifact_matches_jax(tmp_path):
+    """export_detector -> load_predictor -> DetPredictor against the JAX
+    artifact's DetPredictor on the same weights: raw maps within float32
+    1e-4, and `detect` with the same boxes, scores and labels."""
+    from apla_tpu.serve import load_predictor as j_load
+    j_path, t_path, meta, tcfg = _jax_det_artifact(tmp_path)
+    assert meta["task"] == "detector" and meta["strides"] == [4, 8]
+    assert meta["n_classes"] == 3 and meta["with_masks"] is False
+    assert meta["swin_config"]["depths"] == [2, 2]
+    assert meta["swin_config"]["use_fused_apla"] is True
+    assert meta["swin_config"]["compute_dtype"] == "float32"
+    pred = tserve.load_predictor(t_path, "cpu")
+    assert isinstance(pred, tserve.DetPredictor) and pred.swin_cfg == tcfg
+    trainable = {n for n, p in pred.model.named_parameters()
+                 if p.requires_grad}
+    assert trainable == {n for n, _ in pred.model.named_parameters()
+                         if ".attn.proj." in n or not n.startswith(
+                             "backbone.")}
+    j_pred = j_load(j_path)
+    x = np.random.default_rng(2).standard_normal((3, 56, 56, 3)).astype(
+        np.float32)
+    got, ref = pred.predict(x), j_pred.predict(x)
+    for g_lvl, r_lvl in zip(got, ref, strict=True):
+        for g, r in zip(g_lvl, r_lvl, strict=True):
+            np.testing.assert_allclose(g, np.asarray(r), rtol=1e-4, atol=1e-4)
+    dets = pred.detect(x, score_thresh=0.0, top_k=5)
+    j_dets = j_pred.detect(x, score_thresh=0.0, top_k=5)
+    assert len(dets) == 3
+    for (b, s, lab), (jb, js, jl) in zip(dets, j_dets):
+        np.testing.assert_allclose(b, jb, rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(s, js, rtol=1e-4, atol=1e-6)
+        np.testing.assert_array_equal(lab, jl)
+    empty = pred.predict(np.zeros((0, 56, 56, 3), np.float32))
+    assert [lvl[0].shape for lvl in empty] == [(0, 14, 14, 3), (0, 7, 7, 3)]
+    with pytest.raises(NotImplementedError):
+        pred.embed(x)
+    with pytest.raises(NotImplementedError, match="mask branch"):
+        pred.predict_protos(x)
+
+
+def test_cli_export_det_and_predict(tmp_path, capsys):
+    """`export_det` from a segdet det_best checkpoint (f32, unfused, as the
+    JAX CLI exports), `info` and `predict` on a detector artifact."""
+    from apla_tpu_torch import segdet
+    from test_torch_segdet import make_coco
+    img_dir, ann = make_coco(tmp_path)
+    ck = str(tmp_path / "ck")
+    segdet.train_detection(img_dir, ann, epochs=1, img_size=56,
+                           batch_size=2, embed_dim=32, depths=(2, 2),
+                           num_heads=(1, 2), num_workers=0, save_dir=ck,
+                           device="cpu")
+    art = str(tmp_path / "art")
+    tserve.main(["export_det", "--ckpt", os.path.join(ck, "det_best.pt"),
+                 "--img_size", "56", "--embed_dim", "32", "--depths", "2,2",
+                 "--num_heads", "1,2", "--out", art, "--batch_sizes", "1,2"])
+    assert "Exported detector" in capsys.readouterr().out
+    tserve.main(["info", art])
+    info = json.loads(capsys.readouterr().out)
+    assert info["task"] == "detector" and info["batch_sizes"] == [1, 2]
+    assert info["swin_config"]["use_fused_apla"] is False
+    assert info["swin_config"]["compute_dtype"] == "float32"
+    x = np.random.default_rng(0).standard_normal((3, 56, 56, 3)).astype(
+        np.float32)
+    np.save(tmp_path / "x.npy", x)
+    out = str(tmp_path / "dets.json")
+    tserve.main(["predict", art, str(tmp_path / "x.npy"), "--device", "cpu",
+                 "--out", out, "--score_thresh", "0.0", "--max_dets", "4"])
+    capsys.readouterr()
+    recs = json.load(open(out))
+    assert [r["image"] for r in recs] == [0, 1, 2]
+    assert all(len(r["boxes"]) == len(r["scores"]) == len(r["labels"]) <= 4
+               for r in recs)
