@@ -3,7 +3,14 @@
 // Replaces the TPU kernel apla_tpu/ops/pallas_apla_attn.py:_bwd_kernel
 // (called through _call_bwd from the custom VJP's _fused_bwd) and, for Swin
 // windows, its biased variant _bwd_kernel_bias (called through
-// _call_bwd_swin from _fused_swin_bwd): one body, as on the TPU.
+// _call_bwd_swin from _fused_swin_bwd): one body, as on the TPU.  It also
+// stands for the q-strip long backward, pallas_apla_attn_long.py:
+// _bwda_kernel (dq, dW_t, delta; through _call_bwda) and _bwdb_kernel (dk,
+// dv; through _call_bwdb): the five launches below cover any N and any
+// Kp <= C (ViT-L/16 at 512 under APLA "full": N = 1025, C = Kp = 1024,
+// dW_t from 16 x 16 tiles of 64 over two chunks of rows).  The long kernel
+// forms delta as sum(dO * o) with o from the bf16 p; this one, as the
+// monolithic kernel, as rowsum(dp * p) on the f32 p.
 // Contract, exactly those kernels', per image (or window):
 //
 //   qkv [B, N, 3C] bf16, w [C, C] bf16 (assembled projection, [d_in, d_out]),

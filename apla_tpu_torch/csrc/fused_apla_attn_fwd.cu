@@ -4,6 +4,12 @@
 //
 //  * the ViT kernel (DH = 64, no bias) replaces
 //    apla_tpu/ops/pallas_apla_attn.py:_fwd_kernel (called through _call_fwd);
+//  * the same ViT kernel also stands for the q-strip long kernel,
+//    apla_tpu/ops/pallas_apla_attn_long.py:_fwd_kernel (called through
+//    _call_fwd), which computes this function for N past the monolithic
+//    kernel's VMEM envelope: the blocks here tile queries and keys at any
+//    N (ViT-L/16 at 512: N = 1025, C = 1024, o_cat 129 KB of shared memory,
+//    224 KB in all against the 227 KB a block may opt in to);
 //  * the Swin window kernel (DH = 32, BIAS) replaces
 //    pallas_apla_attn.py:_fwd_kernel_bias (called through _call_fwd_swin),
 //    which is the same body with the relative-position bias and the shift

@@ -75,9 +75,13 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
+def read_png(path: str, raw: bool = False) -> np.ndarray:
     """An 8-bit PNG file -> [H, W, 3] uint8 RGB (grey replicated, alpha
-    dropped, palette looked up: Pillow's `convert("RGB")`)."""
+    dropped, palette looked up: Pillow's `convert("RGB")`).
+
+    `raw`: the stored samples instead, [H, W, channels] uint8 (a palette
+    image's indices, a grey image's levels), as `np.asarray` of the
+    unconverted Pillow image gives them; label maps are read so."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIG:
@@ -104,6 +108,8 @@ def read_png(path: str) -> np.ndarray:
     ch = _CHANNELS[ctype]
     px = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch)
     px = px.reshape(h, w, ch)
+    if raw:
+        return px
     if ctype == 3:
         return plte[px[..., 0]]
     if ch in (1, 2):
@@ -112,11 +118,14 @@ def read_png(path: str) -> np.ndarray:
 
 
 def write_png(path: str, rgb: np.ndarray) -> None:
-    """[H, W, 3] uint8 -> an 8-bit RGB PNG (filter Sub on every row)."""
+    """[H, W, 3] uint8 -> an 8-bit RGB PNG, or [H, W] uint8 -> an 8-bit
+    grey one (filter Sub on every row)."""
     rgb = np.ascontiguousarray(rgb, np.uint8)
-    h, w, _ = rgb.shape
-    rows = rgb.reshape(h, w * 3).astype(np.int16)
-    sub = np.concatenate([rows[:, :3], rows[:, 3:] - rows[:, :-3]], axis=1)
+    h, w = rgb.shape[:2]
+    ch = 1 if rgb.ndim == 2 else 3
+    rows = rgb.reshape(h, w * ch).astype(np.int16)
+    sub = np.concatenate([rows[:, :ch], rows[:, ch:] - rows[:, :-ch]],
+                         axis=1)
     raw = np.concatenate([np.ones((h, 1), np.uint8),
                           (sub & 0xFF).astype(np.uint8)], axis=1).tobytes()
 
@@ -126,7 +135,8 @@ def write_png(path: str, rgb: np.ndarray) -> None:
 
     with open(path, "wb") as f:
         f.write(_PNG_SIG
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                             2 if ch == 3 else 0, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw, 6))
                 + chunk(b"IEND", b""))
 
@@ -203,6 +213,28 @@ def resize(img: np.ndarray, width: int, height: int,
         out = _resample(out, width, 1, resample)
     if out.shape[0] != height:
         out = _resample(out, height, 0, resample)
+    return out
+
+
+def resize_nearest(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """[H, W, ...] -> [height, width, ...], as Pillow's `Image.resize((width,
+    height), Image.NEAREST)`: output pixel x reads input column
+    int(x0 + x * s) with s = W / width and x0 = s / 2, the position summed
+    step by step in double precision as Pillow's `ImagingScaleAffine`
+    does; rows likewise.  A copy when the size is unchanged."""
+    def taps(n_in, n_out):
+        s = n_in / n_out
+        pos, out = s * 0.5, np.empty(n_out, np.int64)
+        for i in range(n_out):
+            out[i] = min(int(pos), n_in - 1)
+            pos += s
+        return out
+
+    out = np.array(img, copy=True)
+    if out.shape[1] != width:
+        out = out[:, taps(out.shape[1], width)]
+    if out.shape[0] != height:
+        out = out[taps(out.shape[0], height)]
     return out
 
 

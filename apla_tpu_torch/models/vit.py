@@ -373,9 +373,11 @@ def _prepare_tokens(vit: ViT, x, cfg: ViTConfig, generator=None,
 
 def vit_features(vit: ViT, x, cfg: ViTConfig, return_all_tokens=False,
                  deterministic: bool = True, generator=None, masks=None,
-                 pack_segments: int = 0):
+                 pack_segments: int = 0, return_layers: bool = False):
     """Run the ViT trunk on NHWC images [B, H, W, C].  Returns the
-    final-norm cls token [B, d], or all tokens [B, N, d].
+    final-norm cls token [B, d], or all tokens [B, N, d].  `return_layers`:
+    (all final-norm tokens [B, N, d], every block's output before the final
+    norm as a list of `depth` [B, N, d]), the JAX scan's `ys`.
 
     `deterministic=False` with a `torch.Generator` (on the images' device)
     draws dropout and drop-path masks from it.  `masks` [B, npatch] bool:
@@ -385,6 +387,8 @@ def vit_features(vit: ViT, x, cfg: ViTConfig, return_all_tokens=False,
     block-diagonal attention, and come back as [s*B, ...]."""
     x = _prepare_tokens(vit, x, cfg, generator, deterministic, masks)
     if pack_segments > 1:
+        if return_layers:
+            raise ValueError("return_layers is not supported with packing")
         sB, T, D = x.shape
         if sB % pack_segments:
             raise ValueError(f"{sB} crops do not split into {pack_segments} "
@@ -392,9 +396,14 @@ def vit_features(vit: ViT, x, cfg: ViTConfig, return_all_tokens=False,
         x = x.reshape(pack_segments, sB // pack_segments, T, D) \
             .transpose(0, 1).reshape(sB // pack_segments, pack_segments * T, D)
         cfg = dataclasses.replace(cfg, attn_segment_len=T)
+    layers = []
     for blk, dp_rate in zip(vit.blocks, drop_path_rates(cfg)):
         x = _block_forward(x, blk, cfg, dp_rate, generator, deterministic)
+        if return_layers:
+            layers.append(x)
     x = layer_norm(x, vit.norm.scale, vit.norm.bias, cfg.norm_eps)
+    if return_layers:
+        return x, layers
     if pack_segments > 1:
         Bb, _, D = x.shape
         x = x.reshape(Bb, pack_segments, -1, D).transpose(0, 1) \

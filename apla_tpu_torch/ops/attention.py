@@ -92,9 +92,13 @@ def apla_attention(x, attn, num_heads, scale=None, attn_drop=0.0,
     """APLA attention: frozen QKV + attention, partial-trainable projection.
 
     `attn`: an `Attention` module carrying the frozen `qkv`, `proj` and
-    `inds`, and the trainable `proj_wt` [d, k] / `proj_bt` [k].
+    `inds`, and the trainable `proj_wt` [d, k] / `proj_bt` [k]; without
+    them (the segmenter's APLA "full", `models.seg.build_seg_apla`) the
+    projection itself trains, as the columns `inds` = 0..d-1.
     `use_fused`: attention + the partial projection as one kernel (the
     attention output never reaches device memory)."""
+    w_t, b_t = ((attn.proj_wt, attn.proj_bt) if attn.proj_wt is not None
+                else (attn.proj.kernel, attn.proj.bias))
     if use_fused:
         if attn_drop > 0.0 and not deterministic:
             raise ValueError(
@@ -106,8 +110,8 @@ def apla_attention(x, attn, num_heads, scale=None, attn_drop=0.0,
         head_dim = C // num_heads
         qkv = maybe_quantized_dot(x, attn.qkv.kernel, attn.qkv.bias)
         out = fused_apla_attention(
-            qkv, attn.proj_wt, attn.proj_bt, attn.proj.kernel, attn.proj.bias,
-            attn.inds, num_heads,
+            qkv, w_t, b_t, attn.proj.kernel, attn.proj.bias, attn.inds,
+            num_heads,
             float(scale if scale is not None else head_dim ** -0.5),
             int(segment_len))
         return dropout(out, proj_drop, generator, deterministic)
@@ -116,6 +120,6 @@ def apla_attention(x, attn, num_heads, scale=None, attn_drop=0.0,
                          generator=generator, deterministic=deterministic,
                          use_flash=use_flash, logits_f32=logits_f32,
                          segment_len=segment_len)
-    out = apla_proj(out, attn.proj_wt, attn.proj_bt, attn.proj.kernel,
-                    attn.proj.bias, attn.inds)
+    out = apla_proj(out, w_t, b_t, attn.proj.kernel, attn.proj.bias,
+                    attn.inds)
     return dropout(out, proj_drop, generator, deterministic)

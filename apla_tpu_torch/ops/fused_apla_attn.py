@@ -13,6 +13,16 @@ and its custom VJP).  Two hand-written CUDA kernels replace the TPU kernels:
   p recomputed, `dO = g W^T`, `dq/dk/dv` packed `[B, N, 3C]`, and
   `dW_t = o_cat^T g[..., inds]` summed over the batch, in f32.
 
+The same two kernels stand for the TPU's q-strip "long" kernels
+(`apla_tpu/ops/pallas_apla_attn_long.py`: `_fwd_kernel` through `_call_fwd`,
+`_bwda_kernel` through `_call_bwda`, `_bwdb_kernel` through `_call_bwdb`),
+which compute the same function for N past the monolithic kernel's VMEM
+envelope: these kernels tile queries and keys at any N, so no q-strip
+schedule is carried over.  The segmentation side-car runs them there:
+ViT-L/16 at 512 (qkv [8, 1025, 3072]) with APLA "full" as k = C = 1024.
+(The long backward forms delta as sum(dO * o) with o from the bf16 p; the
+kernel here, like the monolithic one, takes rowsum(dp * p) on the f32 p.)
+
 `fused_apla_attn_fwd` / `fused_apla_attn_bwd` are the wrappers: on a CPU
 tensor they run the plain PyTorch versions below (`*_reference`), on a CUDA
 tensor they launch the kernel or raise.  Each wrapper's `launches` counts its

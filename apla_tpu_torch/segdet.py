@@ -1,33 +1,48 @@
-"""The detection side-car's train / evaluate / checkpoint loop.
+"""The segmentation and detection side-cars' train / evaluate / checkpoint
+loops.
 
-Counterpart of `apla_tpu/segdet.py`, `det` half: APLA-Swin + FCOS on a
-COCO-format dataset (the reference recipe mask-rcnn_apla_swin-t ... coco.py:
-a Swin backbone with only each block's attn.proj trainable), box mAP@50 on
-every epoch, the best and the last checkpoint, `--resume`, `--eval_only`,
-multi-scale training (`--scales`), an HF Swin checkpoint (`--swin_ckpt`)
-and a separate validation set.
+Counterpart of `apla_tpu/segdet.py`:
 
+- `seg`: APLA-SETR-PUP on an ADE20K-layout directory (the reference recipe
+  apla_setr_vit-l_pup_8xb2-160k_ade20k-512x512: ViT-L/16 at 512, APLA
+  "full" (every block's whole attention output projection trains), the
+  PUP head, `--aux_heads`, `--head_lr_mult`), dataset-level mIoU on the
+  validation split every epoch, sliding-window evaluation when
+  `--eval_img_size` exceeds the training crop.  With `--use_fused` every
+  block's attention and projection run through the fused APLA kernels at
+  k = C (`models.seg`).
+- `det`: APLA-Swin + FCOS on a COCO-format dataset (the reference recipe
+  mask-rcnn_apla_swin-t ... coco.py: only each block's attn.proj trains),
+  box mAP@50 every epoch, multi-scale training (`--scales`), an HF Swin
+  checkpoint (`--swin_ckpt`) and a separate validation set.
+
+    python -m apla_tpu_torch.segdet seg --root <ade_root> --use_fused \\
+        --aux_heads 3 --head_lr_mult 10 [--eval_img_size 640] [--device cpu]
     python -m apla_tpu_torch.segdet det --img_dir <dir> --ann <instances.json> \\
         --depths 2,2,6,2 --num_heads 3,6,12,24 --use_fused --bf16 [--device cpu]
 
-Checkpoints are the port's own (`torch.save` of name -> tensor maps and the
-optimizer state), written atomically: `det_best.pt` (trainable and frozen,
-self-contained for `serve export_det`), `det_last.pt` (trainable and the
-optimizer state; the frozen backbone is stored once, in `det_frozen.pt`),
-each beside a `.json` meta with the JAX loop's keys (`epoch`, `map50`,
-`preempted`).
+Both keep the best and the last checkpoint, `--resume` (which goes on with
+the best-model race) and `--eval_only`.  Checkpoints are the port's own
+(`torch.save` of name -> tensor maps and the optimizer state), written
+atomically: `<task>_best.pt` (trainable and frozen, self-contained for
+`serve export_seg` / `export_det`), `<task>_last.pt` (trainable and the
+optimizer state; the frozen backbone is stored once, in
+`<task>_frozen.pt`), each beside a `.json` meta with the JAX loop's keys
+(`epoch`, `miou` or `map50`, `preempted`).
 
-Not ported yet, each raising with its ROADMAP item: `seg` (SETR-PUP on
-ViT-L), `--masks`, `--n_devices > 1` and `--param_sharding fsdp`.  The
-entry point runs on the card unless asked for the CPU (`--device cpu`);
-`--use_fused` on the card takes `--bf16` (the window kernel is bf16 only:
-the JAX loop warns and falls back to XLA there, the port does not fall
-back).
+Not ported yet, each raising with its ROADMAP item: `det --masks`,
+`--n_devices > 1` and `--param_sharding fsdp`.  The entry points run on the
+card unless asked for the CPU (`--device cpu`).  `--use_fused` on the card
+takes bfloat16 compute (the kernels are bf16 only: the ViT's default;
+`det` needs `--bf16`), and the JAX loop's process-global
+`APLA_FUSED_VMEM_MB` default has no counterpart: the card has no VMEM
+model to feed.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -41,21 +56,29 @@ from .models.detection import (MASKS_TODO, DetectionAP, decode_detections,
                                default_strides, detection_optimizer,
                                detector_forward, init_detector,
                                make_detection_train_step)
+from .apla.core import AplaConfig
+from .data.segmentation_data import ADE20KSegmentation, segmentation_collate
+from .models.seg import (init_segmenter, iou_counts, make_seg_train_step,
+                         mean_iou_from_counts, seg_optimizer,
+                         segmenter_forward, segmenter_slide_forward)
 from .models.swin import SwinConfig, build_apla_swin
+from .models.vit import VIT_BUILDERS, ViTConfig
 from .utils.logging import RunLogger
 
-SEG_TODO = ("segdet seg (SETR-PUP on ViT-L, models/seg.py, ADE20K reading) "
-            "is not ported yet: ROADMAP A 1")
 PARALLEL_TODO = ("--n_devices > 1 / --param_sharding fsdp are not ported "
                  "yet: ROADMAP A 9 'Parallel modes'")
 
 
 def _state(model):
-    """(trainable, frozen) name -> CPU tensor maps of `model`."""
+    """(trainable, frozen) name -> CPU tensor maps of `model`; the frozen
+    map also holds rank-k APLA's `attn.inds` (APLA "full" stores none)."""
     trainable, frozen = {}, {}
     for name, p in model.named_parameters():
         (trainable if p.requires_grad else frozen)[name] = \
             p.detach().to("cpu", copy=True)
+    for name, b in model.state_dict().items():
+        if name.endswith("attn.inds"):
+            frozen[name] = b.to("cpu", copy=True)
     return trainable, frozen
 
 
@@ -96,7 +119,7 @@ def load_checkpoint(path):
 
 @torch.no_grad()
 def _load_into(model, trainable, frozen):
-    params = dict(model.named_parameters())
+    params = {**dict(model.named_buffers()), **dict(model.named_parameters())}
     for name, t in list(trainable.items()) + list(frozen.items()):
         params[name].copy_(t)
 
@@ -176,6 +199,145 @@ def _load_swin_ckpt(path):
     arch = swin_arch_from_hf_state_dict(sd)
     tree = convert_swin_hf_state_dict(sd, depths=arch["depths"])
     return arch, swin_state_from_tree(tree)
+
+
+def seg_vit_config(backbone="vit_large", img_size=512, patch_size=16,
+                   use_fused=False) -> ViTConfig:
+    """The segmenter's ViT: a `VIT_BUILDERS` width at the crop size, bf16
+    compute (the ViTConfig default, as in JAX)."""
+    return VIT_BUILDERS[backbone](img_size=img_size, patch_size=patch_size,
+                                  use_fused_apla=use_fused)
+
+
+def train_segmentation(root, epochs=8, img_size=512, batch_size=8, lr=1e-4,
+                       weight_decay=1e-4, backbone="vit_large",
+                       patch_size=16, partial_size="full", channels=256,
+                       save_dir="checkpoints/seg", num_workers=8,
+                       log_every=10, eval_batches=None, seed=0,
+                       vit_cfg=None, n_devices=1,
+                       param_sharding="replicated", resume=False,
+                       eval_only=False, eval_img_size=None,
+                       eval_stride=None, aux_heads=0, head_lr_mult=1.0,
+                       use_fused=False, device=None):
+    """APLA-SETR-PUP on an ADE20K-layout directory.  Returns {'best_miou',
+    'iters'} (and 'preempted' after a SIGTERM)."""
+    from .wrapper import resolve_device
+
+    if (n_devices or 1) > 1 or param_sharding != "replicated":
+        raise NotImplementedError(PARALLEL_TODO)
+    device = resolve_device(device)
+    if vit_cfg is not None:
+        # an explicit config still honours --use_fused
+        cfg = (dataclasses.replace(vit_cfg, use_fused_apla=True)
+               if use_fused and not vit_cfg.use_fused_apla else vit_cfg)
+    else:
+        cfg = seg_vit_config(backbone, img_size, patch_size, use_fused)
+    if (cfg.use_fused_apla and device.type == "cuda"
+            and cfg.compute_dtype != torch.bfloat16):
+        raise ValueError("--use_fused on the card needs bfloat16 compute: "
+                         "the fused APLA kernels take bfloat16 only")
+    train_ds = ADE20KSegmentation(root, "training", img_size=img_size)
+    # eval_img_size > img_size: sliding-window evaluation (the reference
+    # recipe's test_cfg mode='slide': train at the crop, evaluate larger)
+    eval_size = int(eval_img_size) if eval_img_size else img_size
+    if eval_size < img_size:
+        raise ValueError(f"eval_img_size {eval_size} < crop {img_size}")
+    val_ds = ADE20KSegmentation(root, "validation", img_size=eval_size)
+    loader = DataLoader(train_ds, batch_size=batch_size, shuffle=True,
+                        drop_last=True, num_workers=num_workers,
+                        collate_fn=segmentation_collate, seed=seed)
+    model = init_segmenter(cfg, train_ds.n_classes,
+                           AplaConfig(partial_size=partial_size),
+                           channels=channels, n_aux_heads=aux_heads,
+                           generator=torch.Generator().manual_seed(seed),
+                           device=device)
+    # the reference recipe: the decoder heads at lr x head_lr_mult
+    optimizer = seg_optimizer(model, lr, weight_decay, head_lr_mult)
+    start_epoch = 0
+    if eval_only:
+        # restore the best (else the last) checkpoint and report val mIoU
+        name = "seg_best" if _has_ckpt(save_dir, "seg_best") else "seg_last"
+        if not _has_ckpt(save_dir, name):
+            raise FileNotFoundError(
+                f"--eval_only: no checkpoint under {save_dir}")
+        _try_resume(save_dir, name, model)
+    elif resume:
+        start_epoch = _try_resume(save_dir, "seg_last", model, optimizer)
+    step = make_seg_train_step(cfg, optimizer)
+
+    @torch.inference_mode()
+    def evaluate():
+        """Dataset-level mIoU over the validation split: pixel counts
+        summed over batches, divided once."""
+        inter = union = 0
+        vloader = DataLoader(val_ds, batch_size=batch_size, shuffle=False,
+                             drop_last=False, num_workers=num_workers,
+                             collate_fn=segmentation_collate)
+        for i, b in enumerate(vloader):
+            if eval_batches is not None and i >= eval_batches:
+                break
+            im = b["image"].to(device)
+            logits = (segmenter_slide_forward(model, im, cfg,
+                                              stride=eval_stride)
+                      if eval_size > img_size
+                      else segmenter_forward(model, im, cfg))
+            bi, bu = iou_counts(logits.argmax(-1).cpu().numpy(),
+                                b["label"].numpy(),
+                                n_classes=train_ds.n_classes)
+            inter, union = inter + bi, union + bu
+        return mean_iou_from_counts(inter, union) if np.ndim(union) else 0.0
+
+    if eval_only:
+        miou = evaluate()
+        print(f"[seg] eval-only: val mIoU {miou:.4f}")
+        return {"best_miou": miou, "iters": 0}
+
+    if not _has_ckpt(save_dir, "seg_frozen"):  # store the backbone once
+        _save(save_dir, "seg_frozen", {}, _state(model)[1], {})
+    preempted, restore_sig = _preemption_flag()
+    logger = RunLogger(save_dir, run_name="seg")
+    it, t0 = 0, time.time()
+    # under --resume the best-model race goes on from the saved best
+    best_miou = _best_metric(save_dir, "seg_best", "miou") if resume \
+        else -1.0
+    for epoch in range(start_epoch, epochs):
+        loader.set_epoch(epoch)
+        for b in loader:
+            m = step(model, {"image": b["image"].to(device),
+                             "label": b["label"].to(device)})
+            it += 1
+            if it % log_every == 0:
+                loss = float(m["loss"])
+                rate = it * batch_size / (time.time() - t0)
+                print(f"[seg] it {it} ep {epoch} loss {loss:.4f} "
+                      f"({rate:.1f} img/s)")
+                logger.log({"epoch": epoch, "train_loss": round(loss, 5),
+                            "grad_norm": round(float(m["grad_norm"]), 4),
+                            "img_s": round(rate, 1)}, it)
+            if preempted():
+                # mid-epoch: save resumable state marked at epoch-1 so
+                # --resume replays this (partial) epoch from its start
+                _save(save_dir, "seg_last", _state(model)[0], None,
+                      {"epoch": epoch - 1, "miou": best_miou,
+                       "preempted": True},
+                      opt_state=optimizer.state_dict())
+                print("[seg] preempted - saved seg_last, exiting")
+                restore_sig()
+                return {"best_miou": best_miou, "iters": it,
+                        "preempted": True}
+        miou = evaluate()
+        print(f"[seg] epoch {epoch}: val mIoU {miou:.4f}")
+        logger.log({"epoch": epoch, "val_miou": round(miou, 5)}, it)
+        trainable, frozen = _state(model)
+        if miou >= best_miou:
+            best_miou = miou
+            _save(save_dir, "seg_best", trainable, frozen,
+                  {"epoch": epoch, "miou": miou})
+        _save(save_dir, "seg_last", trainable, None,
+              {"epoch": epoch, "miou": miou},
+              opt_state=optimizer.state_dict())
+    restore_sig()
+    return {"best_miou": best_miou, "iters": it}
 
 
 def train_detection(img_dir, ann_file, epochs=12, img_size=224,
@@ -347,7 +509,43 @@ def _ints(text):
 def main(argv=None):
     p = argparse.ArgumentParser(prog="apla_tpu_torch.segdet")
     sub = p.add_subparsers(dest="task", required=True)
-    sub.add_parser("seg", help="not ported yet (ROADMAP A 1)")
+    ps = sub.add_parser("seg")
+    ps.add_argument("--root", required=True)
+    ps.add_argument("--epochs", type=int, default=8)
+    ps.add_argument("--img_size", type=int, default=512)
+    ps.add_argument("--batch_size", type=int, default=8)
+    ps.add_argument("--lr", type=float, default=1e-4)
+    ps.add_argument("--backbone", default="vit_large")
+    ps.add_argument("--patch_size", type=int, default=16)
+    ps.add_argument("--save_dir", default="checkpoints/seg")
+    ps.add_argument("--n_devices", type=int, default=1,
+                    help="data-parallel size (only 1 is ported)")
+    ps.add_argument("--param_sharding", default="replicated",
+                    choices=("replicated", "fsdp"),
+                    help="frozen-backbone placement (only replicated)")
+    ps.add_argument("--resume", action="store_true",
+                    help="continue from <save_dir>/seg_last if present")
+    ps.add_argument("--eval_only", action="store_true",
+                    help="restore the best checkpoint and report val mIoU")
+    ps.add_argument("--eval_img_size", type=int, default=None,
+                    help="evaluate at this size with sliding windows of "
+                         "the training crop (reference test_cfg "
+                         "mode='slide')")
+    ps.add_argument("--eval_stride", type=int, default=None,
+                    help="slide stride (default 2/3 of the crop)")
+    ps.add_argument("--aux_heads", type=int, default=0,
+                    help="auxiliary SETR-UP decoders on intermediate "
+                         "layers (reference recipe: 3, loss weight 0.4)")
+    ps.add_argument("--use_fused", action="store_true",
+                    help="route every block's attention and its whole "
+                         "projection through the fused APLA kernels "
+                         "(k = C under APLA 'full')")
+    ps.add_argument("--head_lr_mult", type=float, default=1.0,
+                    help="decoder-head lr multiplier (reference: 10)")
+    ps.add_argument("--num_workers", type=int, default=8,
+                    help="loader worker processes (0: in-process)")
+    ps.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' to run there)")
     pd = sub.add_parser("det")
     pd.add_argument("--img_dir", required=True)
     pd.add_argument("--ann", required=True)
@@ -392,7 +590,17 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' to run there)")
     args = p.parse_args(argv)
     if args.task == "seg":
-        raise NotImplementedError(SEG_TODO)
+        print(json.dumps(train_segmentation(
+            args.root, epochs=args.epochs, img_size=args.img_size,
+            batch_size=args.batch_size, lr=args.lr, backbone=args.backbone,
+            patch_size=args.patch_size, save_dir=args.save_dir,
+            n_devices=args.n_devices, param_sharding=args.param_sharding,
+            resume=args.resume, eval_only=args.eval_only,
+            eval_img_size=args.eval_img_size, eval_stride=args.eval_stride,
+            aux_heads=args.aux_heads, head_lr_mult=args.head_lr_mult,
+            use_fused=args.use_fused, num_workers=args.num_workers,
+            device=args.device)))
+        return
     out = train_detection(
         args.img_dir, args.ann, epochs=args.epochs, img_size=args.img_size,
         batch_size=args.batch_size, lr=args.lr, save_dir=args.save_dir,

@@ -1,26 +1,29 @@
-"""Serving: export a classifier or detector artifact and answer requests
-from it.
+"""Serving: export a classifier, segmenter or detector artifact and answer
+requests from it.
 
-Counterpart of `apla_tpu/serve.py` (classifier and detector).  The JAX
+Counterpart of `apla_tpu/serve.py` (classifier, segmenter, detector).  The JAX
 artifact holds flax msgpack params and `jax.export` programs; neither can be
 read without jax, so this artifact is a directory of
 
   meta.json    format "apla_tpu_torch.serve/1", img_size, n_classes,
-               batch_sizes and the model's config echoed (the ViT config;
-               for `task: "detector"` the Swin config, the strides and
-               `with_masks`), because the port rebuilds the model at load
+               batch_sizes and the model's config echoed (the ViT config,
+               also for `task: "segmenter"`; for `task: "detector"` the
+               Swin config, the strides and `with_masks`), because the
+               port rebuilds the model at load
   params.npz   the model state as flat `trainable/<name>` and
                `frozen/<name>` arrays (float32 parameters, int64 APLA inds)
 
 `load_predictor` rebuilds the model from `meta.json` on an explicit device
-and runs it eagerly (`DetPredictor` for a detector).  `Predictor` keeps the
-JAX predictor's request policy: requests are cut into calls at the exported
-batch sizes, the tail padded to the smallest covering batch when that
-wastes at most half of it.
+and runs it eagerly (`SegPredictor` for a segmenter, `DetPredictor` for a
+detector).  `Predictor` keeps the JAX predictor's request policy: requests
+are cut into calls at the exported batch sizes, the tail padded to the
+smallest covering batch when that wastes at most half of it.
 
 CLI (run from a checkout):
   python -m apla_tpu_torch.serve export --params_path RECIPE.yml \\
       --n_classes 1000 --out ART [--batch_sizes 1,8,64] [--seed 0]
+  python -m apla_tpu_torch.serve export_seg --ckpt seg_best.pt --out ART \\
+      [--backbone vit_large --img_size 512 --patch_size 16 --batch_sizes 1,4]
   python -m apla_tpu_torch.serve export_det --ckpt det_best.pt --out ART \\
       [--depths 2,2,6 --num_heads 3,6,12 --batch_sizes 1,8]
   python -m apla_tpu_torch.serve predict ART batch.npy [--device cuda]
@@ -286,6 +289,146 @@ def detector_from_state(swin_cfg, n_classes, trainable: dict, frozen: dict,
     return model.to(device)
 
 
+# ------------------------------------------------------------------ #
+# segmenter
+# ------------------------------------------------------------------ #
+
+QUANT_TODO = ("--quantize_frozen: W8A8 serving is not ported yet (ROADMAP "
+              "B6, A 2)")
+
+
+def export_segmenter(path: str, model, vit_cfg: ViTConfig,
+                     batch_sizes=(1, 4), quantize_frozen=False) -> dict:
+    """Write a serving artifact for a SETR-PUP segmenter (`model` a
+    `models.seg.Segmenter`, the side-car `segdet seg` trains), served with
+    `vit_cfg`.  Calls compute per-pixel logits [B, H, W, n_classes]
+    (float32); the artifact loads back as a `SegPredictor`.  Returns the
+    meta dict."""
+    if quantize_frozen:
+        raise NotImplementedError(QUANT_TODO)
+    batch_sizes = _check_batch_sizes(batch_sizes)
+    os.makedirs(path, exist_ok=True)
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    arrays = {f"{'trainable' if n in trainable else 'frozen'}/{n}":
+              t.detach().cpu().numpy()
+              for n, t in model.state_dict().items()}
+    np.savez(os.path.join(path, _PARAMS_FILE), **arrays)
+    meta = {
+        "format": FORMAT,
+        "task": "segmenter",
+        "img_size": int(vit_cfg.img_size),
+        "n_classes": int(model.head.cls.bias.shape[0]),
+        "batch_sizes": batch_sizes,
+        "quantized_frozen": False,
+        "vit_config": _cfg_echo(vit_cfg),
+    }
+    with open(os.path.join(path, _META_FILE), "w") as f:
+        json.dump(meta, f, indent=2)
+    return meta
+
+
+def segmenter_from_state(vit_cfg: ViTConfig, trainable: dict, frozen: dict,
+                         device) -> "torch.nn.Module":
+    """A `Segmenter` holding the state maps (a `segdet` checkpoint or a
+    serving artifact), trainable flags as named.  Head widths, the aux
+    heads and the APLA split (trainable projections: "full"; else rank-k
+    `attn.inds`) come from the state."""
+    from .apla.core import AplaConfig
+    from .models.seg import Segmenter, build_seg_apla
+    state = {**frozen, **trainable}
+    n_aux = sum(1 for n in state if n.startswith("aux_heads.")
+                and n.endswith(".cls.bias"))
+    model = Segmenter(
+        vit_cfg, int(state["head.cls.bias"].shape[0]),
+        channels=int(state["head.convs.0.bias"].shape[0]), n_aux_heads=n_aux,
+        aux_channels=(int(state["aux_heads.0.convs.0.bias"].shape[0])
+                      if n_aux else 256))
+    if "backbone.blocks.0.attn.proj.kernel" in trainable:
+        build_seg_apla(model.backbone, AplaConfig(partial_size="full"))
+    for i, blk in enumerate(model.backbone.blocks):
+        inds = state.get(f"backbone.blocks.{i}.attn.inds")
+        if inds is not None:
+            blk.attn.add_apla(torch.zeros(inds.shape, dtype=torch.int64))
+    model.load_state_dict(state, strict=True)
+    for name, p in model.named_parameters():
+        p.requires_grad_(name in trainable)
+    return model.to(device)
+
+
+class SegPredictor(Predictor):
+    """Runs a segmenter artifact: calls return per-pixel logits
+    [B, H, W, n_classes]."""
+
+    @torch.inference_mode()
+    def _call(self, chunk: np.ndarray):
+        from .models.seg import segmenter_forward
+        x = torch.from_numpy(chunk).to(self.device)
+        return segmenter_forward(self.model, x, self.vit_cfg)
+
+    def _run_chunks(self, images: np.ndarray):
+        out = [self._call(chunk)[:m].cpu().numpy()
+               for _, m, chunk in self._iter_chunks(images)]
+        img = self.meta["img_size"]
+        return (np.concatenate(out) if out
+                else np.zeros((0, img, img, self.meta["n_classes"]),
+                              np.float32))
+
+    def predict(self, images: np.ndarray) -> np.ndarray:
+        """[n, H, W, 3] -> [n, H, W, n_classes] per-pixel logits."""
+        return self._run_chunks(images)
+
+    def masks(self, images: np.ndarray) -> np.ndarray:
+        """[n, H, W, 3] -> [n, H, W] int32 argmax class map."""
+        return np.argmax(self._run_chunks(images), axis=-1).astype(np.int32)
+
+    def predict_slide(self, images: np.ndarray,
+                      stride: int | None = None) -> np.ndarray:
+        """Sliding-window inference over images larger than the exported
+        crop (`models.seg.segmenter_slide_forward`'s windows, cut on the
+        host and sent through the calls in groups of the largest exported
+        batch, logits averaged where windows overlap; default stride 2/3
+        of the crop).  [n, H, W, 3], H, W >= crop -> [n, H, W, n_classes]."""
+        from .models.seg import slide_starts, slide_stride
+        crop = self.meta["img_size"]
+        if images.ndim != 4 or images.shape[3] != 3 \
+                or images.shape[1] < crop or images.shape[2] < crop:
+            raise ValueError(
+                f"expected [n, >={crop}, >={crop}, 3], got {images.shape}")
+        n, H, W = images.shape[:3]
+        if H == crop and W == crop:
+            return self._run_chunks(images)
+        stride = slide_stride(crop, stride)
+        images = np.asarray(images, np.float32)
+        positions = [(i, y, x) for i in range(n)
+                     for y in slide_starts(H, crop, stride)
+                     for x in slide_starts(W, crop, stride)]
+        out = np.zeros((n, H, W, self.meta["n_classes"]), np.float32)
+        cnt = np.zeros((n, H, W, 1), np.float32)
+        # one group of window logits on the host at a time
+        group_size = max(self.batch_sizes)
+        for g in range(0, len(positions), group_size):
+            group = positions[g:g + group_size]
+            logits = self._run_chunks(np.stack(
+                [images[i, y:y + crop, x:x + crop] for i, y, x in group]))
+            for (i, y, x), lg in zip(group, logits):
+                out[i, y:y + crop, x:x + crop] += lg
+                cnt[i, y:y + crop, x:x + crop] += 1.0
+        return out / cnt
+
+    def masks_slide(self, images: np.ndarray,
+                    stride: int | None = None) -> np.ndarray:
+        return np.argmax(self.predict_slide(images, stride=stride),
+                         axis=-1).astype(np.int32)
+
+    def embed(self, images):
+        raise NotImplementedError("segmentation artifacts have no "
+                                  "embedding output")
+
+    def predict_and_embed(self, images):
+        raise NotImplementedError("segmentation artifacts have no "
+                                  "embedding output")
+
+
 def load_predictor(path: str, device) -> Predictor:
     with open(os.path.join(path, _META_FILE)) as f:
         meta = json.load(f)
@@ -297,6 +440,11 @@ def load_predictor(path: str, device) -> Predictor:
             group, name = key.split("/", 1)
             {"trainable": trainable, "frozen": frozen}[group][name] = \
                 torch.from_numpy(z[key])
+    if meta.get("task") == "segmenter":
+        vit_cfg = _cfg_from_echo(meta["vit_config"])
+        model = segmenter_from_state(vit_cfg, trainable, frozen,
+                                     torch.device(device))
+        return SegPredictor(meta, model, vit_cfg, device)
     if meta.get("task") == "detector":
         swin_cfg = _swin_from_echo(meta["swin_config"])
         model = detector_from_state(swin_cfg, meta["n_classes"], trainable,
@@ -366,12 +514,28 @@ def _export_det(args) -> dict:
     return export_detector(args.out, model, cfg, strides, batch_sizes=bs)
 
 
+def _export_seg(args) -> dict:
+    """export_seg: a segdet checkpoint -> a segmenter artifact at the ViT's
+    bf16 compute, as the JAX CLI exports it, served through the fused APLA
+    kernels (their plain versions on the CPU)."""
+    from .segdet import load_checkpoint, seg_vit_config
+    if args.quantize_frozen:
+        raise NotImplementedError(QUANT_TODO)
+    ckpt = load_checkpoint(args.ckpt)
+    cfg = seg_vit_config(args.backbone, args.img_size, args.patch_size,
+                         use_fused=True)
+    model = segmenter_from_state(cfg, ckpt["trainable"], ckpt["frozen"],
+                                 torch.device("cpu"))
+    bs = [int(x) for x in str(args.batch_sizes).split(",") if x]
+    return export_segmenter(args.out, model, cfg, batch_sizes=bs)
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(
         prog="apla_tpu_torch.serve",
-        description="Export / inspect / run classifier and detector "
-                    "serving artifacts")
+        description="Export / inspect / run classifier, segmenter and "
+                    "detector serving artifacts")
     sub = ap.add_subparsers(dest="cmd", required=True)
     ex = sub.add_parser("export", help="export a serving artifact")
     ex.add_argument("--params_path", required=True)
@@ -392,6 +556,18 @@ def main(argv=None):
     exd.add_argument("--window_size", type=int, default=7)
     exd.add_argument("--out", required=True)
     exd.add_argument("--batch_sizes", default="1,8")
+    exs = sub.add_parser("export_seg",
+                         help="export a segmentation artifact from a "
+                              "segdet checkpoint (seg_best.pt)")
+    exs.add_argument("--ckpt", required=True,
+                     help="segdet seg_best.pt ({'trainable', 'frozen'})")
+    exs.add_argument("--backbone", default="vit_large")
+    exs.add_argument("--img_size", type=int, default=512)
+    exs.add_argument("--patch_size", type=int, default=16)
+    exs.add_argument("--out", required=True)
+    exs.add_argument("--batch_sizes", default="1,4")
+    exs.add_argument("--quantize_frozen", action="store_true",
+                     help="int8 frozen backbone (not ported yet: B6)")
     info = sub.add_parser("info", help="print an artifact's meta")
     info.add_argument("artifact")
     pr = sub.add_parser("predict", help="run an artifact on images")
@@ -421,6 +597,13 @@ def main(argv=None):
             print(json.dumps(json.load(f), indent=2))
         return
 
+    if args.cmd == "export_seg":
+        meta = _export_seg(args)
+        print(f"Exported segmenter (img {meta['img_size']}, "
+              f"{meta['n_classes']} classes) at batch sizes "
+              f"{meta['batch_sizes']} -> {args.out}")
+        return
+
     if args.cmd == "export_det":
         meta = _export_det(args)
         print(f"Exported detector (img {meta['img_size']}, "
@@ -446,6 +629,19 @@ def main(argv=None):
                 with open(args.out, "w") as f:
                     json.dump(recs, f)
                 print(f"detections -> {args.out}")
+            return
+        if pred.meta.get("task") == "segmenter":
+            img = pred.meta["img_size"]
+            masks = (pred.masks_slide(x) if x.shape[1] > img
+                     or x.shape[2] > img else pred.masks(x))
+            for i, m in enumerate(masks):
+                cls, cnt = np.unique(m, return_counts=True)
+                top = sorted(zip(cnt.tolist(), cls.tolist()), reverse=True)
+                print(f"image {i}: mask {m.shape}, top classes "
+                      + ", ".join(f"{c} ({n}px)" for n, c in top[:5]))
+            if args.out:
+                np.save(args.out, masks)
+                print(f"masks -> {args.out}")
             return
         out = pred.embed(x) if args.embed else pred.predict(x)
         if args.embed:

@@ -7,7 +7,7 @@ names are the port's parameter and buffer names.  Every parity test goes
 through it, and `models.classifier.classifier_from_state` builds a module
 from it.  `dinov2_state_from_jax` carries a JAX DINOv2 train state across:
 student trainable tree, teacher tree, frozen tree (with `mask_token`) and
-both centers.
+both centers; `seg_state_from_jax` a JAX SETR-PUP segmenter.
 
 The Swin side: a Swin tree's flat names are the port's module names
 (`stages.{s}.blocks.{i}.attn.qkv.kernel`, lists indexed), so
@@ -91,6 +91,22 @@ def dinov2_state_from_jax(state, frozen: dict) -> dict:
     return {"trainable": trainable, "teacher": teacher, "frozen": frozen_t,
             "dino_center": _tensor(state.dino_center),
             "ibot_center": _tensor(state.ibot_center)}
+
+
+def seg_state_from_jax(trainable: dict, frozen: dict):
+    """A JAX segmenter's trees (`models/seg.init_segmenter`: {"backbone",
+    "head", "aux_heads"?} trainable, {"backbone"} frozen) -> the port's
+    `(trainable, frozen)` state of `models.seg.Segmenter`: the backbone as
+    `params_from_jax` maps it (under "full" the trainable
+    `blocks.{i}.attn.proj`), the PUP convs with their HWIO kernels under
+    `head.convs.{i}` and `aux_heads.{j}.convs.{i}`."""
+    rest = dict(trainable)
+    t_state, f_state = params_from_jax({"backbone": rest.pop("backbone")},
+                                       frozen)
+    flat = {}
+    _flatten(rest, "", flat)
+    t_state.update({name: _tensor(val) for name, val in flat.items()})
+    return t_state, f_state
 
 
 # --------------------------------------------------------------------------- #

@@ -2,8 +2,9 @@
 """Chip smoke test of the PyTorch/H100 port (`apla_tpu_torch`).
 
 Drives the port's serving path, its supervised training path, its
-DINOv2 self-supervised path, its full-projection path and its Swin
-detection side-car once on one CUDA card, in phases that each print a line
+DINOv2 self-supervised path, its full-projection path, its Swin
+detection side-car and its ViT-L segmentation side-car once on one CUDA
+card, in phases that each print a line
 and raise on failure:
 
   1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`
@@ -71,7 +72,29 @@ and raise on failure:
                detect`, raw maps against the in-process forward); train and
                serve img/s, peak memory and a profile.
 
-Phases 2-8 also run negative controls: the kernels made to compute what
+  9a. seg_kernels — the fused APLA kernels (rows 1, 2) at the shape the
+               segmentation side-car gives them, where JAX names the q-strip
+               long kernels (TPU rows 5-7): ViT-L/16 at 512, qkv
+               [8, 1025, 3072] and [1, 1025, 3072], every one of the 1024
+               projection columns trainable; the forward and backward fault
+               controls, shared memory and registers at C = 1024, times at
+               b8 beside the bound and the two-call yardstick.
+  9b. seg    — the APLA SETR-PUP segmenter on ViT-L/16 at 512 (`segdet seg
+               --use_fused --aux_heads 3 --head_lr_mult 10`, SEG_RECIPE) on
+               a synthetic ADE20K-layout set through
+               `segdet.train_segmentation`: the first step's loss and
+               gradients of the kernel arm against the plain arm (two
+               backward and three forward faults), one epoch trained,
+               evaluated (mIoU) and
+               checkpointed with the fused kernels in all 24 blocks of every
+               step and eval call, --resume, --eval_only, a sliding-window
+               evaluation at 640, the best checkpoint exported and served
+               (`SegPredictor.predict` / `predict_slide` at 1 and 9 images
+               against the in-process module through the same calls);
+               train and serve img/s of
+               both arms, peak memory and a profile.
+
+Phases 2-9 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
 heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
 from the wrong columns or zeroed, rowsum(dp * p) dropped from ds; the
@@ -449,6 +472,52 @@ DET_LOSS_REL_TOL = 1e-2
 DET_GRAD_REL_TOL = 0.05
 DET_MIN_COSINE = 0.99985
 DET_SERVE_REL_TOL = 1e-3
+# Phase 9a: the fused APLA kernels (rows 1, 2) at the shape the
+# segmentation side-car gives them, where JAX's dispatch names the q-strip
+# long kernels (TPU rows 5-7): ViT-L/16 at 512, qkv [b, 1025, 3072], 16
+# heads of 64, APLA "full" as k = C = 1024 trainable columns.  b8 is the
+# recipe's batch (timed, the controls run there), b1 a served request.
+# Same bounds as phases 2 and 4.
+SEG_KERNEL_CASES = ((8, 1025, 1024), (1, 1025, 1024))
+SEG_HEADS = 16
+# Phase 9b: the segmentation side-car's recipe, `python -m apla_tpu.segdet
+# seg --backbone vit_large --patch_size 16 --img_size 512 --use_fused
+# --aux_heads 3 --head_lr_mult 10` (the reference's
+# apla_setr_vit-l_pup_8xb2-160k_ade20k-512x512: ViT-L/16 at 512, 24 blocks
+# of 16 heads, bf16, APLA partial_size "full", the PUP head of 256
+# channels, 3 auxiliary heads at blocks 9, 14, 19 with loss weight 0.4,
+# head lr x10; AdamW lr 1e-4, weight decay 1e-4 and batch 8, the JAX loop's
+# defaults, apla_tpu/segdet.py:145-150, :580-612), through
+# `segdet.train_segmentation`, the function behind the CLI.  A CPU test
+# holds this dict against the JAX CLI's defaults and flags.
+SEG_RECIPE = dict(backbone="vit_large", patch_size=16, img_size=512,
+                  batch_size=8, lr=1e-4, weight_decay=1e-4,
+                  partial_size="full", channels=256, aux_heads=3,
+                  head_lr_mult=10.0, use_fused=True)
+# What phase 9b changes, and why: ADE20K is not in the repository, so the
+# data is an ADE20K-layout set this script writes (SEG_TRAIN + SEG_VAL
+# images, most 512 x 683 or 683 x 512 as ADE20K's are, every fourth
+# 512 x 512; regions filled with one colour per class, with unlabelled (0)
+# and raw-255 pixels; PNG content under ADE20K's `.jpg` names, since JPEG
+# decoding is not ported); the weights are random from SEED (no ViT-L
+# checkpoint in the repository); one epoch of SEG_TRAIN / 8 steps; the
+# loaders in-process (as in phases 7b and 8b).  The sliding-window
+# evaluation runs at SEG_SLIDE_SIZE with the default stride 341 (2 x 2
+# windows of 512).
+SEG_CUTS = dict(epochs=1, num_workers=0, log_every=1)
+SEG_TRAIN = 32
+SEG_VAL = 16
+SEG_SLIDE_SIZE = 640
+# Phase 9b bounds, kernel arm vs plain arm on the first step (bf16 through
+# 24 blocks and the heads): |delta loss| relative to the loss, set about 5x
+# above the kernel arm's reading (1.5e-6 of the loss, PERF.md), and the
+# detector phase's gradient bound.  The two backward faults (dW_t zeroed,
+# dqkv halved) and three forward faults must fail the bounds in every run.  The served logits are held against the in-process module of the
+# same checkpoint served through the same calls (a `SegPredictor` over it:
+# the same batches, padded alike), at 1e-3 of the largest logit.
+SEG_LOSS_REL_TOL = 7.5e-6
+SEG_GRAD_REL_TOL = DET_GRAD_REL_TOL
+SEG_SERVE_REL_TOL = DET_SERVE_REL_TOL
 
 
 def _gpu_line() -> str:
@@ -2012,7 +2081,8 @@ _KERNEL_GROUPS = (
       "dw_partial_kernel", "dw_reduce_kernel")),
     ("gathers / index backward", ("index",)),
     ("GEMMs (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "ampere", "nvjet")),
-    ("resampling / blur (multi-crop)", ("conv", "upsample", "grid")),
+    ("convolutions / resampling (heads, multi-crop blur)",
+     ("conv", "upsample", "grid")),
     ("softmax / log-softmax / reductions", ("softmax", "reduce")),
     ("elementwise (adds, muls, casts, where)",
      ("elementwise", "vectorized", "unrolled")))
@@ -2203,6 +2273,445 @@ def _phase_ssl(device, tmp):
     return launches, rates
 
 
+def phase_seg_kernels(device):
+    """9a: the fused APLA kernels (rows 1, 2; TPU rows 5-7's shape) against
+    their plain versions at SEG_KERNEL_CASES with every column trainable,
+    the forward and backward fault controls at b8, shared memory and
+    registers at C = 1024, and times at b8 (and the forward at b7: one wave
+    of blocks) beside the bounds and the two-call yardstick."""
+    from apla_tpu_torch.ops import cuda_build
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    gen = torch.Generator().manual_seed(SEED + 5)
+    heads, scale = SEG_HEADS, 64 ** -0.5
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for b, n, c in SEG_KERNEL_CASES:
+        qkv = torch.randn((b, n, 3 * c), generator=gen).to(device,
+                                                           torch.bfloat16)
+        w = (torch.randn((c, c), generator=gen) * c ** -0.5).to(
+            device, torch.bfloat16)
+        g = torch.randn((b, n, c), generator=gen).to(device, torch.bfloat16)
+        inds = torch.arange(c, device=device)
+        out = fa.fused_apla_attn_fwd(qkv, w, heads, scale)
+        got = fa.fused_apla_attn_bwd(qkv, w, g, inds, heads, scale)
+        torch.cuda.synchronize()
+        ref_out = fa.fused_apla_attn_fwd_reference(qkv, w, heads, scale)
+        ref = fa.fused_apla_attn_bwd_reference(qkv, w, g, inds, heads,
+                                               scale)
+        f_bound = KERNEL_REL_TOL * ref_out.float().abs().max().item()
+        errs = {"out": ((out.float() - ref_out.float()).abs().max().item()
+                        if torch.isfinite(out).all() else float("inf"),
+                        f_bound), **_bwd_errors(got, ref)}
+        ok = all(e <= bd for e, bd in errs.values())
+        print(f"[9a seg_kernels] qkv [{b}, {n}, {3 * c}] k={c}: " + ", ".join(
+            f"{k} max|err| {e:.6g} (bound {bd:.6g})"
+            for k, (e, bd) in errs.items()) + f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the fused APLA kernels disagree with their "
+                             f"plain versions at [{b}, {n}, {3 * c}]")
+        worst["fwd"] = max(worst["fwd"], errs["out"][0])
+        worst["bwd"] = max(worst["bwd"], *(errs[k][0] for k in
+                                           ("dq", "dk", "dv", "dW_t")))
+        if b != SEG_KERNEL_CASES[0][0]:
+            continue
+        for name, fault in _faults().items():
+            f_qkv, f, f_scale = fault(qkv, scale)
+            e = (fa.fused_apla_attn_fwd(f_qkv, w * f, heads, f_scale).float()
+                 - ref_out.float()).abs().max().item()
+            print(f"[9a seg_kernels] forward control {name}: max|err| "
+                  f"{e:.6g} bound {f_bound:.6g} -> "
+                  f"{'caught' if e > f_bound else 'NOT CAUGHT'}")
+            if e <= f_bound:
+                raise SystemExit(f"the forward bound misses a broken kernel "
+                                 f"({name}) at the seg shape")
+        # the ragged tail: N = 1025 leaves one query row in the last tile,
+        # a fault the step check of phase 9b cannot see
+        e = (out.index_fill(1, torch.tensor([n - 1], device=device), 0)
+             .float() - ref_out.float()).abs().max().item()
+        print(f"[9a seg_kernels] output control last (ragged) query row "
+              f"unwritten: max|err| {e:.6g} bound {f_bound:.6g} -> "
+              f"{'caught' if e > f_bound else 'NOT CAUGHT'}")
+        if e <= f_bound:
+            raise SystemExit("the forward bound misses an unwritten tail row "
+                             "at the seg shape")
+        for name, (change, broken, intact) in _bwd_controls().items():
+            f_qkv, f_w, f_inds, f_scale = change(qkv, w, inds, scale)
+            c_errs = _bwd_errors(fa.fused_apla_attn_bwd(
+                f_qkv, f_w, g, f_inds, heads, f_scale), ref)
+            caught = all(c_errs[k][0] > c_errs[k][1] for k in broken)
+            specific = all(c_errs[k][0] <= c_errs[k][1] for k in intact)
+            print(f"[9a seg_kernels] backward control {name}: " + ", ".join(
+                f"{k} {e:.6g}" for k, (e, _) in c_errs.items())
+                + f" -> {'caught' if caught else 'NOT CAUGHT'} in "
+                f"{list(broken)}")
+            if not caught or not specific:
+                raise SystemExit(f"backward control {name} at the seg shape: "
+                                 f"caught {caught}, specific {specific}")
+        # what the kernels take at C = 1024: dynamic shared memory per block
+        # against the device's opt-in limit, registers and spills
+        dev = device.index or 0
+        fwd_lib, bwd_lib = fa._library(), fa._bwd_library()
+        limit = cuda_build.device_smem(fa._library,
+                                       "fused_apla_attn_fwd_prepare", dev)
+        print(f"[9a seg_kernels] shared memory per block: forward "
+              f"{fwd_lib.fused_apla_attn_fwd_smem_bytes(c)} bytes at C={c} "
+              f"(o_cat [64, {c}] + the tiles), backward "
+              f"{bwd_lib.fused_apla_attn_bwd_smem_bytes()} bytes; the device "
+              f"allows {limit} bytes per block")
+        for src in (fa._SOURCE, fa._BWD_SOURCE):
+            for line in _resources(cuda_build.resource_report(src)):
+                print(f"[9a seg_kernels]   {src}: {line}")
+        # times at b8: kernels, plain versions, the two-call yardstick
+        # (autograd through it for the backward); the forward also at b7
+        lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
+        lout = _library_attn(lq, lw, heads, scale)
+        calls = {
+            "fwd": (lambda: fa.fused_apla_attn_fwd(qkv, w, heads, scale),
+                    lambda: fa.fused_apla_attn_fwd_reference(qkv, w, heads,
+                                                             scale),
+                    lambda: _library_attn(qkv, w, heads, scale),
+                    _attn_fwd_bound(b, n, c)),
+            "bwd": (lambda: fa.fused_apla_attn_bwd(qkv, w, g, inds, heads,
+                                                   scale),
+                    lambda: fa.fused_apla_attn_bwd_reference(
+                        qkv, w, g, inds, heads, scale),
+                    lambda: torch.autograd.grad(lout, (lq, lw), g,
+                                                retain_graph=True),
+                    _attn_bwd_bound(b, n, c, c)),
+        }
+        times = {}
+        for name, (kernel, plain_fn, library, bound) in calls.items():
+            t = {"ms": _time_ms(kernel), "plain_ms": _time_ms(plain_fn,
+                                                              iters=5),
+                 "library_two_calls_ms": _time_ms(library, iters=10)}
+            t["bound_ms"], t["bound_by"] = bound
+            t["max_abs_err"] = None
+            times[name] = t
+            print(f"[9a seg_kernels] {name} b{b} [{b}, {n}, {3 * c}] k={c}: "
+                  f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                  f"two library calls (SDPA + matmul"
+                  f"{', autograd' if name == 'bwd' else ''}) "
+                  f"{t['library_two_calls_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                  f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+        del lq, lw, lout
+        q7 = qkv[:b - 1].contiguous()
+        ms7 = _time_ms(lambda: fa.fused_apla_attn_fwd(q7, w, heads, scale))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = -(-n // 64)
+        print(f"[9a seg_kernels] waves: forward b{b - 1} "
+              f"({(b - 1) * blocks} blocks of one per SM on {sms} SMs) "
+              f"{ms7:.4f} ms, b{b} ({b * blocks} blocks) "
+              f"{times['fwd']['ms']:.4f} ms: {times['fwd']['ms'] / ms7:.3f}x "
+              f"for {b / (b - 1):.3f}x the work")
+    for name in ("fwd", "bwd"):
+        times[name]["max_abs_err"] = worst[name]
+    return times
+
+
+def _write_ade(root):
+    """The synthetic ADE20K-layout set of phase 9b under `root`: SEG_TRAIN
+    training and SEG_VAL validation images, 512 x 683, 683 x 512 or (every
+    fourth) 512 x 512, of dark noise with 2-9 filled rectangles, each one
+    class of 150 in one colour; annotations hold the raw ids (1..150 in the
+    rectangles, 0 (unlabelled) around them, a 255 strip in some).  The
+    images are PNG streams under ADE20K's `.jpg` names (the reader decodes
+    by content, as Pillow does; JPEG decoding is not ported)."""
+    from apla_tpu_torch.data.detection_data import write_png
+    rng = np.random.default_rng(SEED)
+    colours = rng.integers(64, 256, (151, 3))
+    for split, count in (("training", SEG_TRAIN), ("validation", SEG_VAL)):
+        img_dir = os.path.join(root, "images", split)
+        ann_dir = os.path.join(root, "annotations", split)
+        os.makedirs(img_dir)
+        os.makedirs(ann_dir)
+        for i in range(count):
+            h, w = ((512, 512) if i % 4 == 3 else
+                    (512, 683) if i % 2 == 0 else (683, 512))
+            img = rng.integers(0, 48, (h, w, 3)).astype(np.uint8)
+            ann = np.zeros((h, w), np.uint8)
+            for _ in range(int(rng.integers(2, 10))):
+                cls = int(rng.integers(1, 151))
+                bh, bw = int(rng.integers(32, h // 2)), int(rng.integers(
+                    32, w // 2))
+                y0, x0 = int(rng.integers(0, h - bh)), int(rng.integers(
+                    0, w - bw))
+                img[y0:y0 + bh, x0:x0 + bw] = colours[cls]
+                ann[y0:y0 + bh, x0:x0 + bw] = cls
+            if i % 3 == 0:
+                ann[:, :8] = 255
+            write_png(os.path.join(img_dir, f"ADE_{split}_{i:08d}.jpg"), img)
+            write_png(os.path.join(ann_dir, f"ADE_{split}_{i:08d}.png"), ann)
+
+
+def phase_seg(device):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_") as tmp:
+        return _phase_seg(device, tmp)
+
+
+def _seg_grads(model, cfg, batch):
+    """Loss and f32 gradients of one segmentation step (no update): the
+    main and aux losses as `make_seg_train_step` sums them."""
+    from apla_tpu_torch.models.seg import (segmentation_loss,
+                                           segmenter_forward_train)
+    params = _trainables(model)
+    for p in params.values():
+        p.grad = None
+    main, aux = segmenter_forward_train(model, batch["image"], cfg)
+    loss = segmentation_loss(main, batch["label"])
+    for a in aux:
+        loss = loss + 0.4 * segmentation_loss(a, batch["label"])
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in params.items()}
+
+
+def _seg_rates(model, batch, cfg, plain_cfg, head_lr_mult):
+    """Train-step img/s and peak device memory (AdamW at lr 1e-9, after a
+    warm-up step) and the served forward's img/s at b1 and b8, of both arms
+    in turns (plain, kernel, kernel, plain), best of two."""
+    from apla_tpu_torch.models.seg import (make_seg_train_step,
+                                           seg_optimizer, segmenter_forward)
+    bsz = batch["image"].shape[0]
+    rates = {}
+    for name, c in (("plain", plain_cfg), ("kernel", cfg), ("kernel", cfg),
+                    ("plain", plain_cfg)):
+        step = make_seg_train_step(c, seg_optimizer(model, 1e-9, 1e-4,
+                                                    head_lr_mult))
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_ms(lambda: step(model, batch), iters=3, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        old = rates.get(("train", name), (0.0, 0.0))
+        rates[("train", name)] = (max(old[0], bsz * 1000.0 / ms),
+                                  max(old[1], peak))
+        for b in (1, 8):
+            xb = batch["image"][:b]
+            with torch.inference_mode():
+                ms = _time_ms(lambda: segmenter_forward(model, xb, c),
+                              iters=5)
+            key = (f"serve b{b}", name)
+            rates[key] = (max(rates.get(key, (0.0,))[0], b * 1000.0 / ms),
+                          0.0)
+    return rates
+
+
+def _phase_seg(device, tmp):
+    from apla_tpu_torch import segdet
+    from apla_tpu_torch.data.loader import DataLoader
+    from apla_tpu_torch.data.segmentation_data import (ADE20KSegmentation,
+                                                       segmentation_collate)
+    from apla_tpu_torch.apla.core import AplaConfig
+    from apla_tpu_torch.models.seg import (init_segmenter, make_seg_train_step,
+                                           seg_optimizer)
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.serve import (SegPredictor, export_segmenter,
+                                      load_predictor, segmenter_from_state)
+
+    t0 = time.perf_counter()
+    _write_ade(tmp)
+    r = SEG_RECIPE
+    cfg = segdet.seg_vit_config(r["backbone"], r["img_size"],
+                                r["patch_size"], r["use_fused"])
+    plain_cfg = dataclasses.replace(cfg, use_fused_apla=False)
+    depth, bsz = cfg.depth, r["batch_size"]
+    steps, evals = SEG_TRAIN // bsz, -(-SEG_VAL // bsz)
+    ds = ADE20KSegmentation(tmp, "training", img_size=r["img_size"])
+    print(f"[9b seg] wrote {len(ds)} training and "
+          f"{len(ADE20KSegmentation(tmp, 'validation'))} validation images "
+          f"in {time.perf_counter() - t0:.1f} s")
+
+    # the kernel arm against the plain arm: the loop's first batch, the
+    # loop's init from SEED
+    loader = DataLoader(ds, batch_size=bsz, shuffle=True, drop_last=True,
+                        num_workers=0, collate_fn=segmentation_collate,
+                        seed=SEED)
+    batch = {k: v.to(device) for k, v in next(iter(loader)).items()}
+    t = time.perf_counter()
+    model = init_segmenter(cfg, ds.n_classes,
+                           AplaConfig(partial_size=r["partial_size"]),
+                           channels=r["channels"], n_aux_heads=r["aux_heads"],
+                           generator=torch.Generator().manual_seed(SEED),
+                           device=device)
+    init_t, init_f = segdet._state(model)
+    train = _trainables(model)
+    print(f"[9b seg] {r['backbone']}/{r['patch_size']} SETR-PUP segmenter at "
+          f"{r['img_size']} (init {time.perf_counter() - t:.1f} s): "
+          f"{sum(p.numel() for p in train.values()):,} trainable in "
+          f"{len(train)} tensors ({sum(p.numel() for n, p in train.items() if '.attn.proj.' in n):,} "
+          f"in the {depth} projections), "
+          f"{sum(p.numel() for p in model.parameters()):,} in all; labels "
+          f"in the batch {sorted(torch.unique(batch['label']).tolist())[:6]}"
+          f"... ({int((batch['label'] == 255).sum())} ignored pixels)")
+    ref = _seg_grads(model, plain_cfg, batch)
+    loss_tol = SEG_LOSS_REL_TOL * abs(ref[0])
+    ok = _grad_agreement("9b seg", "kernel arm",
+                         _seg_grads(model, cfg, batch), ref, loss_tol,
+                         SEG_GRAD_REL_TOL)
+    controls = {"dW_t zeroed": lambda out: (out[0], out[1] * 0),
+                "dqkv halved": lambda out: (out[0] * 0.5, out[1])}
+    caught = all([not _grad_agreement(
+        "9b seg", f"control: {name}", _with_output_fault(
+            fa, "fused_apla_attn_bwd", fault,
+            lambda: _seg_grads(model, cfg, batch)), ref, loss_tol,
+        SEG_GRAD_REL_TOL) for name, fault in controls.items()])
+    # forward faults (one left unwritten tail row of 1025 passes both
+    # bounds here: phase 9a holds it, PERF.md)
+    fwd_controls = {
+        "output x (1 + 2^-6)": lambda out: out * (1 + 2 ** -6),
+        "output halved": lambda out: out * 0.5,
+        "first head's 64 columns zeroed": lambda out: out.index_fill(
+            2, torch.arange(64, device=out.device), 0)}
+    fwd_caught = [not _grad_agreement(
+        "9b seg", f"control: forward {name}", _with_output_fault(
+            fa, "fused_apla_attn_fwd", fault,
+            lambda: _seg_grads(model, cfg, batch)), ref, loss_tol,
+        SEG_GRAD_REL_TOL) for name, fault in fwd_controls.items()]
+    if not ok:
+        raise SystemExit("the segmenter's kernel arm disagrees with its "
+                         "plain arm")
+    if not caught:
+        raise SystemExit("a broken fused backward passes the gradient bounds")
+    if not all(fwd_caught):
+        raise SystemExit("a broken fused forward passes the bounds")
+    for p in model.parameters():
+        p.grad = None
+
+    # train, evaluate, checkpoint through the loop; --resume, --eval_only,
+    # a sliding-window evaluation (the plain arm's step: above and in the
+    # rates below)
+    kw = {k: v for k, v in r.items()}
+    kw.update(SEG_CUTS, seed=SEED, device=str(device))
+    kdir = os.path.join(tmp, "kernel")
+    counters = (fa.fused_apla_attn_fwd, fa.fused_apla_attn_bwd)
+    launches = [0, 0]
+
+    def run(expect, what, **extra):
+        for c in counters:
+            c.launches = 0
+        t = time.perf_counter()
+        out = segdet.train_segmentation(tmp, **{**kw, **extra})
+        _sync(device)
+        got = tuple(c.launches for c in counters)
+        print(f"[9b seg] {what}: {out} in {time.perf_counter() - t:.1f} s; "
+              f"fused kernel launches forward {got[0]}, backward {got[1]} "
+              f"(expected {expect[0]}, {expect[1]})")
+        if got != expect:
+            raise SystemExit(f"{what} did not run the fused kernels in "
+                             "every block of every step and eval call")
+        for i in range(2):
+            launches[i] += got[i]
+        return out
+
+    # the backward runs in all 24 blocks: every projection is trainable,
+    # so FusedAplaAttention's backward is needed for dW_t even in block 0,
+    # whose qkv needs no gradient
+    per_epoch = (depth * (steps + evals), depth * steps)
+    out = run(per_epoch, "train 1 epoch (kernel arm)", save_dir=kdir)
+    with open(os.path.join(kdir, "seg.metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [x["train_loss"] for x in recs if "train_loss" in x]
+    print(f"[9b seg] losses {losses}, grad norms "
+          f"{[x['grad_norm'] for x in recs if 'grad_norm' in x]}")
+    if (out["iters"] != steps or len(losses) != steps
+            or not np.isfinite(losses).all()):
+        raise SystemExit(f"missing or non-finite segmentation losses "
+                         f"{losses}")
+    if not all(segdet._has_ckpt(kdir, n) for n in ("seg_best", "seg_last",
+                                                   "seg_frozen")):
+        raise SystemExit(f"checkpoints missing: {sorted(os.listdir(kdir))}")
+    best = segdet.load_checkpoint(os.path.join(kdir, "seg_best.pt"))
+    last = segdet.load_checkpoint(os.path.join(kdir, "seg_last.pt"))
+    kept = all(torch.equal(best["frozen"][n], v) for n, v in init_f.items())
+    moved = {n: not torch.equal(last["trainable"][n], v)
+             for n, v in init_t.items()}
+    print(f"[9b seg] {sum(moved.values())}/{len(moved)} trainable tensors "
+          f"moved, {len(init_f)} frozen tensors "
+          f"{'unchanged bit for bit' if kept else 'CHANGED'}; checkpoints "
+          f"{sorted(os.listdir(kdir))}")
+    if not kept or not all(moved.values()):
+        raise SystemExit(f"trainable not moved "
+                         f"{[n for n, m in moved.items() if not m]} or "
+                         "frozen changed")
+    out2 = run(per_epoch, "--resume to 2 epochs", save_dir=kdir, epochs=2,
+               resume=True)
+    if out2["iters"] != steps:
+        raise SystemExit("--resume did not continue at the second epoch")
+    with open(os.path.join(kdir, "seg_best.json")) as f:
+        best_miou = json.load(f)["miou"]
+    out3 = run((depth * evals, 0), "--eval_only", save_dir=kdir,
+               eval_only=True)
+    print(f"[9b seg] --eval_only mIoU {out3['best_miou']!r}, seg_best's "
+          f"{best_miou!r}")
+    if out3["iters"] != 0 or out3["best_miou"] != best_miou:
+        raise SystemExit("--eval_only does not report the best checkpoint's "
+                         "mIoU")
+    crop, stride = r["img_size"], (2 * r["img_size"]) // 3
+    windows = len(range(0, SEG_SLIDE_SIZE - crop + 1, stride)) + (
+        (SEG_SLIDE_SIZE - crop) % stride != 0)
+    out4 = run((depth * evals * windows ** 2, 0),
+               f"--eval_only --eval_img_size {SEG_SLIDE_SIZE} (sliding "
+               f"windows, stride {stride})", save_dir=kdir, eval_only=True,
+               eval_img_size=SEG_SLIDE_SIZE)
+    if not 0.0 <= out4["best_miou"] <= 1.0:
+        raise SystemExit("the sliding-window evaluation gave no mIoU")
+
+    # export the best checkpoint with the fused bf16 config and serve it
+    best = segdet.load_checkpoint(os.path.join(kdir, "seg_best.pt"))
+    served = segmenter_from_state(cfg, best["trainable"], best["frozen"],
+                                  device)
+    art = os.path.join(tmp, "artifact")
+    export_segmenter(art, served, cfg, batch_sizes=(1, 8))
+    pred = load_predictor(art, device)
+    val = ADE20KSegmentation(tmp, "validation", img_size=crop)
+    x = np.stack([val[i]["image"] for i in range(9)])
+    big = ADE20KSegmentation(tmp, "validation", img_size=SEG_SLIDE_SIZE)
+    x_big = np.stack([big[i]["image"] for i in range(9)])
+    for c in counters:
+        c.launches = 0
+    # 1 and 9 images each way: the calls b1, then b8 + b1; the windows of
+    # one image in one padded b8 call, those of 9 images in 5 b8 calls
+    logits = [pred.predict(x[:1]), pred.predict(x)]
+    slid = [pred.predict_slide(x_big[:1]), pred.predict_slide(x_big)]
+    _sync(device)
+    got = tuple(c.launches for c in counters)
+    expect = (depth * (1 + 2 + -(-windows ** 2 // 8)
+                       + -(-9 * windows ** 2 // 8)), 0)
+    for i in range(2):
+        launches[i] += got[i]
+    print(f"[9b seg] served predict and predict_slide (at "
+          f"{SEG_SLIDE_SIZE}) at 1 and 9 images: shapes "
+          f"{[lg.shape for lg in logits + slid]}; fused kernel launches "
+          f"{got} (expected {expect})")
+    if got != expect or not all(np.isfinite(lg).all()
+                                for lg in logits + slid):
+        raise SystemExit("the served segmenter did not run the fused kernel "
+                         "in every block, or returned non-finite logits")
+    # the reference: the in-process module through the same calls
+    inproc = SegPredictor(pred.meta, served, cfg, device)
+    refs = [inproc.predict(x[:1]), inproc.predict(x),
+            inproc.predict_slide(x_big[:1]), inproc.predict_slide(x_big)]
+    devs = [float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-12))
+            for a, b in zip(logits + slid, refs)]
+    print(f"[9b seg] served logits vs the in-process module through the "
+          f"same calls (predict at 1 and 9 images, predict_slide at 1 and "
+          f"9): max|d| / max|ref| {[f'{d:.3g}' for d in devs]} (bound "
+          f"{SEG_SERVE_REL_TOL})")
+    if max(devs) > SEG_SERVE_REL_TOL:
+        raise SystemExit("the served logits differ from the in-process "
+                         "forward")
+    del served, inproc, refs
+
+    rates = _seg_rates(model, batch, cfg, plain_cfg, r["head_lr_mult"])
+    for (what, name), (rate, peak) in sorted(rates.items()):
+        print(f"[9b seg] {what} {name} arm: {rate:.2f} img/s"
+              + (f", peak {peak:.2f} GB" if what == "train" else ""))
+    step = make_seg_train_step(cfg, seg_optimizer(model, 1e-9, 1e-4,
+                                                  r["head_lr_mult"]))
+    _print_profile("9b seg", f"kernel arm, b{bsz} train step",
+                   *_profile_step(lambda: step(model, batch)))
+    print(f"[9b seg] phase took {time.perf_counter() - t0:.1f} s")
+    return tuple(launches), rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2234,6 +2743,8 @@ def main() -> int:
                                                       device)
     swin_times = timed("8a", phase_swin, device)
     det_launches, det_rates = timed("8b", phase_det, device)
+    seg_times = timed("9a", phase_seg_kernels, device)
+    seg_launches, seg_rates = timed("9b", phase_seg, device)
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
           f"forward launches); train b64 img/s " + ", ".join(
@@ -2248,6 +2759,9 @@ def main() -> int:
           + "; detector b16 img/s " + ", ".join(
               f"{what} {name} {r:.1f}"
               for (what, name), (r, _) in sorted(det_rates.items()))
+          + "; segmenter b8 img/s " + ", ".join(
+              f"{what} {name} {r:.2f}"
+              for (what, name), (r, _) in sorted(seg_rates.items()))
           + f"; whole run {time.perf_counter() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + " s)")
     print(_gpu_line())
@@ -2274,6 +2788,12 @@ def main() -> int:
          "pallas_apla_attn.py:197", det_launches[0], swin_times["fwd"]),
         ("fused_swin_attn_bwd", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn.py:203", det_launches[1], swin_times["bwd"]),
+        # rows 1/2's kernels where JAX names the q-strip long kernels (TPU
+        # rows 5-7): ViT-L/16 at 512, k = C = 1024, on the seg path
+        ("fused_apla_attn_fwd_seg", "fused_apla_attn_fwd.cu",
+         "pallas_apla_attn_long.py:110", seg_launches[0], seg_times["fwd"]),
+        ("fused_apla_attn_bwd_seg", "fused_apla_attn_bwd.cu",
+         "pallas_apla_attn_long.py:141", seg_launches[1], seg_times["bwd"]),
     ]
     # library_ms: F.scaled_dot_product_attention (autograd through it for
     # the backward) computes the mha kernels' function; no single PyTorch
@@ -2290,6 +2810,8 @@ def main() -> int:
         "library_ms": t.get("library_ms"),
         **({"library_two_calls_ms": t["library_two_calls_ms"]}
            if "library_two_calls_ms" in t else {}),
+        **({"also_replaces": "apla_tpu/ops/pallas_apla_attn_long.py:191"}
+           if name == "fused_apla_attn_bwd_seg" else {}),
     } for name, src, tpu, launches, t in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

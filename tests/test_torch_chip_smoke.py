@@ -5,12 +5,14 @@ card's machine has no PyYAML); every value in them must be the ImageNet
 ViT-B APLA-128 recipe's and the ISIC2019 DINOv2 recipe's as
 `load_merged_params` reads them, and every change the script makes is in
 its cuts dicts.  Without a CUDA device the script must exit non-zero and
-print no `"ok": true` line.  Its supervised, SSL, full-projection and
-detection phases (5, 6b, 7b, 8b) are rehearsed here on tiny models, with
-the kernels' plain versions counted as launches.
+print no `"ok": true` line.  Its supervised, SSL, full-projection,
+detection and segmentation phases (5, 6b, 7b, 8b, 9b) are rehearsed here
+on tiny models, with the kernels' plain versions counted as launches; the
+segmentation recipe is held against the JAX `segdet seg` CLI.
 """
 
 import copy
+import dataclasses
 import importlib.util
 import os
 import shutil
@@ -409,6 +411,82 @@ def test_det_phase_rehearsal(monkeypatch):
     depth, steps, evals = 6, 2, 2
     # train, resume, eval-only, then detect at b1 and b8 (one call each)
     assert launches == (depth * (2 * (steps + evals) + evals + 2),
+                        depth * 2 * steps)
+    assert rates == {("train", "x"): (1.0, 0.0)}
+
+
+def test_seg_recipe_is_the_segdet_recipe():
+    """SEG_RECIPE is the JAX `segdet seg` at the reference recipe's flags
+    (`--backbone vit_large --patch_size 16 --img_size 512 --use_fused
+    --aux_heads 3 --head_lr_mult 10`) and the JAX loop's defaults for
+    everything else, value by value; the kernels' shape follows from it."""
+    import inspect
+
+    from apla_tpu import segdet as jsegdet
+    from apla_tpu.models.vit import VIT_BUILDERS as JVIT
+    smoke = _chip_smoke()
+    r = smoke.SEG_RECIPE
+    defaults = {k: v.default for k, v in inspect.signature(
+        jsegdet.train_segmentation).parameters.items()}
+    for key in ("backbone", "patch_size", "img_size", "batch_size", "lr",
+                "weight_decay", "partial_size", "channels"):
+        assert r[key] == defaults[key], key
+    # the flags the reference recipe passes, through the JAX CLI's parser
+    seen = {}
+    real = jsegdet.train_segmentation
+    try:
+        jsegdet.train_segmentation = lambda root, **kw: seen.update(kw) or {}
+        jsegdet.main(["seg", "--root", "x", "--backbone", "vit_large",
+                      "--patch_size", "16", "--img_size", "512",
+                      "--use_fused", "--aux_heads", "3", "--head_lr_mult",
+                      "10"])
+    finally:
+        jsegdet.train_segmentation = real
+    for key in ("backbone", "patch_size", "img_size", "batch_size", "lr",
+                "aux_heads", "head_lr_mult", "use_fused"):
+        assert r[key] == seen[key], key
+    jcfg = JVIT[r["backbone"]](img_size=r["img_size"],
+                               patch_size=r["patch_size"])
+    n = (r["img_size"] // r["patch_size"]) ** 2 + 1
+    assert smoke.SEG_KERNEL_CASES[0] == (r["batch_size"], n, jcfg.embed_dim)
+    assert smoke.SEG_HEADS == jcfg.num_heads and jcfg.depth == 24
+
+
+def test_seg_phase_rehearsal(monkeypatch):
+    """Phase 9b on a 12-block ViT-Ti at 32 px (patch 8, PUP channels 16) on
+    the CPU, b2 over 4 + 9 written images: the fused kernels (their plain
+    versions, counted) in every block of every step and eval call, finite
+    losses, frozen kept and every trainable tensor moved, --resume,
+    --eval_only, the sliding-window evaluation, the export and the served
+    segmenter, and the kernel-vs-plain bounds with their two backward and
+    three forward faults."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke, "SEG_RECIPE", {
+        **smoke.SEG_RECIPE, "backbone": "vit_tiny", "patch_size": 8,
+        "img_size": 32, "batch_size": 2, "channels": 16})
+    monkeypatch.setattr(smoke, "SEG_TRAIN", 4)
+    monkeypatch.setattr(smoke, "SEG_VAL", 9)
+    monkeypatch.setattr(smoke, "SEG_SLIDE_SIZE", 48)
+    monkeypatch.setattr(smoke, "_seg_rates", lambda *a: {("train", "x"):
+                                                         (1.0, 0.0)})
+    monkeypatch.setattr(smoke, "_profile_step",
+                        lambda fn: (1.0, 1.0, {}, [], []))
+    # float32 compute: the script's bounds are set for bf16 on the card;
+    # this model in f32 on the CPU reads |dloss| 0 and gradients equal to
+    # 1e-6, and the backward and forward faults still fail them
+    from apla_tpu_torch import segdet
+    bf16_config = segdet.seg_vit_config
+    monkeypatch.setattr(segdet, "seg_vit_config", lambda *a: dataclasses.replace(
+        bf16_config(*a), compute_dtype=torch.float32))
+    _count_plain_versions(monkeypatch)
+    launches, rates = smoke.phase_seg(torch.device("cpu"))
+    depth, steps, evals, windows = 12, 2, 5, 4
+    # train, resume (a step and an eval call per batch each), eval-only,
+    # sliding eval-only (4 windows a batch); then served: b1, 9 images (a
+    # b8 and a b1 call), 1 image slid (4 windows: one b8 call), 9 images
+    # slid (36 windows: 5 b8 calls)
+    assert launches == (depth * (2 * (steps + evals) + evals
+                                 + evals * windows + 9),
                         depth * 2 * steps)
     assert rates == {("train", "x"): (1.0, 0.0)}
 

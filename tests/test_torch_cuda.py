@@ -13,6 +13,8 @@ plain versions do).  Reruns of the kernels that sum partials are
 bit-equal.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -50,6 +52,7 @@ def _qkv_w(device, b, n, c, seed):
     (2, 257, 0, 192),     # ViT-Ti: 3 heads, odd
     (4, 65, 13, 384),     # ViT-S
     (2, 300, 0, 1024),    # ViT-L
+    (8, 1025, 0, 1024),   # ViT-L/16 at 512: the seg recipe's b8
 ])
 def test_fused_apla_attn_matches_plain(cuda_device, b, n, seg, c):
     qkv, w = _qkv_w(cuda_device, b, n, c, seed=n + seg + c)
@@ -102,6 +105,8 @@ def _bwd_errors(got, ref):
     (2, 257, 0, 192, 32),     # ViT-Ti: 3 heads
     (4, 65, 13, 384, 64),     # ViT-S
     (2, 300, 0, 1024, 128),   # ViT-L
+    (8, 1025, 0, 1024, 1024),  # ViT-L/16 at 512, APLA "full" as k = C
+    (1, 1025, 0, 1024, 1024),  # the same, one served image
 ])
 def test_fused_apla_attn_bwd_matches_plain(cuda_device, b, n, seg, c, k):
     qkv, w = _qkv_w(cuda_device, b, n, c, seed=n + seg + c + k)
@@ -149,6 +154,49 @@ def test_autograd_function_runs_both_kernels(cuda_device):
     assert tfa.fused_apla_attn_bwd.launches == bwd + 1
     assert qkv.grad.dtype == torch.bfloat16 and w_t.grad.dtype == torch.float32
     assert torch.isfinite(w_t.grad).all() and torch.isfinite(b_t.grad).all()
+
+
+@pytest.mark.cuda
+def test_fused_apla_attn_smem_limit_names_the_width(cuda_device):
+    """The forward keeps o_cat [64, C] in shared memory: C = 1024 (ViT-L)
+    fits the per-block limit, C = 1280 (ViT-H, 20 heads) does not, and the
+    wrapper raises naming the width before any launch."""
+    lib = tfa._library()
+    assert lib.fused_apla_attn_fwd_smem_bytes(1024) == 224256
+    qkv, w = _qkv_w(cuda_device, 1, 65, 1280, seed=3)
+    before = tfa.fused_apla_attn_fwd.launches
+    with pytest.raises(ValueError, match="C=1280 needs 257024 bytes"):
+        tfa.fused_apla_attn_fwd(qkv, w, 20, 0.125)
+    assert tfa.fused_apla_attn_fwd.launches == before
+
+
+@pytest.mark.cuda
+def test_seg_full_apla_runs_the_fused_kernels(cuda_device):
+    """The SETR-PUP segmenter under APLA "full" with use_fused_apla: every
+    block runs the forward kernel, and the backward too (every block's
+    projection is trainable), at k = C; the logits agree with the plain
+    attention path's."""
+    from apla_tpu_torch.models import seg as tseg
+    from apla_tpu_torch.models.vit import ViTConfig
+    cfg = ViTConfig(img_size=64, patch_size=16, embed_dim=128, depth=3,
+                    num_heads=2, use_fused_apla=True)
+    model = tseg.init_segmenter(cfg, 7, channels=16, n_aux_heads=1,
+                                aux_channels=8, device=cuda_device)
+    x = torch.randn(2, 64, 64, 3, device=cuda_device)
+    fwd, bwd = tfa.fused_apla_attn_fwd.launches, tfa.fused_apla_attn_bwd.launches
+    main, aux = tseg.segmenter_forward_train(model, x, cfg)
+    (main.sum() + aux[0].sum()).backward()
+    torch.cuda.synchronize()
+    assert tfa.fused_apla_attn_fwd.launches == fwd + 3
+    assert tfa.fused_apla_attn_bwd.launches == bwd + 3
+    assert all(torch.isfinite(b.attn.proj.kernel.grad).all()
+               for b in model.backbone.blocks)
+    with torch.no_grad():
+        plain = tseg.segmenter_forward(model, x, dataclasses.replace(
+            cfg, use_fused_apla=False))
+    # bf16 through 3 blocks and the heads: the served-model bound of
+    # chip_smoke (3e-2 of the largest logit)
+    assert (main.detach() - plain).abs().max() <= 3e-2 * plain.abs().max()
 
 
 @pytest.mark.cuda

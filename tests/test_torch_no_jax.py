@@ -10,7 +10,10 @@ targets, accumulation) through `make_train_step`, runs the SSL pieces:
 device multi-crop with blur and solarize, the iBOT mask collate, the DINO
 head and the prototype CE with its backward, and drives the detection
 side-car: PNGs written and read, the APLA-Swin detector trained through
-the fused window path, checkpointed, exported and served.
+the fused window path, checkpointed, exported and served, and the
+segmentation side-car: an ADE20K-layout set written and read, the SETR-PUP
+segmenter trained through the fused APLA path with aux heads, checkpointed,
+exported and served.
 """
 
 import os
@@ -169,6 +172,42 @@ with tempfile.TemporaryDirectory() as tmp:
     pred = load_predictor(os.path.join(tmp, "art"), "cpu")
     assert isinstance(pred, DetPredictor)
     assert len(pred.detect(np.zeros((3, 56, 56, 3), np.float32))) == 3
+
+# the segmentation side-car: an ADE20K-layout set (PNG content under .jpg
+# names) read without PIL, the SETR-PUP segmenter trained through the fused
+# APLA path at k = C (plain versions on the CPU) with aux heads, checkpointed,
+# exported and served, plain and sliding-window
+from apla_tpu_torch.segdet import seg_vit_config, train_segmentation
+from apla_tpu_torch.serve import (SegPredictor, export_segmenter,
+                                  segmenter_from_state)
+
+with tempfile.TemporaryDirectory() as tmp:
+    rng = np.random.default_rng(0)
+    for split in ("training", "validation"):
+        os.makedirs(os.path.join(tmp, "images", split))
+        os.makedirs(os.path.join(tmp, "annotations", split))
+        for i in range(2):
+            write_png(os.path.join(tmp, "images", split, f"{i}.jpg"),
+                      rng.integers(0, 256, (40, 30, 3), dtype=np.uint8))
+            write_png(os.path.join(tmp, "annotations", split, f"{i}.png"),
+                      rng.integers(0, 151, (40, 30), dtype=np.uint8))
+    out = train_segmentation(tmp, epochs=1, img_size=32, patch_size=16,
+                             backbone="vit_tiny", batch_size=2, channels=8,
+                             aux_heads=3, head_lr_mult=10.0, use_fused=True,
+                             num_workers=0, save_dir=os.path.join(tmp, "ck"),
+                             device="cpu")
+    assert out["iters"] == 1
+    ckpt = load_checkpoint(os.path.join(tmp, "ck", "seg_best.pt"))
+    cfg = seg_vit_config("vit_tiny", 32, 16, use_fused=True)
+    seg = segmenter_from_state(cfg, ckpt["trainable"], ckpt["frozen"],
+                               torch.device("cpu"))
+    export_segmenter(os.path.join(tmp, "segart"), seg, cfg, (1, 2))
+    pred = load_predictor(os.path.join(tmp, "segart"), "cpu")
+    assert isinstance(pred, SegPredictor)
+    assert pred.masks(np.zeros((3, 32, 32, 3), np.float32)).shape == (3, 32,
+                                                                      32)
+    assert pred.predict_slide(np.zeros((1, 40, 48, 3), np.float32)).shape \
+        == (1, 40, 48, 150)
 
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked

@@ -1,10 +1,15 @@
-"""The port's detection side-car loop (`apla_tpu_torch.segdet`), the cases
-of the JAX package's det loop tests (tests/test_segdet_loop.py): the loop,
-`--use_fused --bf16`, resume equal to an uninterrupted run, eval-only,
-multi-scale training, an HF Swin checkpoint, SIGTERM; and the CLI at the
-four-stage Swin-T width (`det --depths 2,2,6,2 --num_heads 3,6,12,24
---use_fused --bf16 --device cpu`) on a tiny synthetic COCO set.  The
-trajectory itself is held against the JAX step in test_torch_detection.py.
+"""The port's side-car loops (`apla_tpu_torch.segdet`), the cases of the
+JAX package's loop tests (tests/test_segdet_loop.py) but the mesh ones.
+
+Detection: the loop, `--use_fused --bf16`, resume equal to an uninterrupted
+run, eval-only, multi-scale training, an HF Swin checkpoint, SIGTERM; and
+the CLI at the four-stage Swin-T width (`det --depths 2,2,6,2 --num_heads
+3,6,12,24 --use_fused --bf16 --device cpu`) on a tiny synthetic COCO set.
+Segmentation: the loop (train, mIoU, checkpoints), `--use_fused` with aux
+heads and `head_lr_mult`, resume equal to an uninterrupted run, eval-only,
+sliding-window evaluation, SIGTERM, and the CLI on a tiny ADE20K-layout
+set.  The trajectories themselves are held against the JAX steps in
+test_torch_detection.py and test_torch_seg.py.
 """
 
 import json
@@ -50,6 +55,186 @@ def make_coco(tmp_path, n_images=4, size=(60, 80)):
     ann_file = tmp_path / "instances.json"
     ann_file.write_text(json.dumps(ann))
     return str(img_dir), str(ann_file)
+
+
+def make_ade(root, n=4, size=(40, 50)):
+    """A tiny ADE20K-layout set: PNG content under `.jpg` names, grey
+    annotations with unlabelled (0) and class pixels."""
+    rng = np.random.default_rng(0)
+    for split in ("training", "validation"):
+        os.makedirs(root / "images" / split)
+        os.makedirs(root / "annotations" / split)
+        for i in range(n):
+            img = rng.integers(0, 256, size + (3,), dtype=np.uint8)
+            ann = np.zeros(size, np.uint8)
+            ann[10:30, 10:40] = 2 + i % 3
+            img[10:30, 10:40] = (40 * (i % 3), 200, 90)
+            write_png(str(root / "images" / split / f"a{i}.jpg"), img)
+            write_png(str(root / "annotations" / split / f"a{i}.png"), ann)
+    return str(root)
+
+
+SEG_KW = dict(img_size=32, patch_size=8, backbone="vit_tiny", batch_size=2,
+              lr=1e-3, channels=16, num_workers=0, log_every=1,
+              device="cpu")
+
+
+def test_segmentation_loop(tmp_path):
+    root = make_ade(tmp_path / "ade")
+    ck = str(tmp_path / "ck")
+    out = segdet.train_segmentation(root, epochs=2, save_dir=ck, **SEG_KW)
+    assert out["iters"] == 4 and 0.0 <= out["best_miou"] <= 1.0
+    for name in ("seg_best", "seg_last", "seg_frozen"):
+        assert segdet._has_ckpt(ck, name)
+    rows = [json.loads(line) for line in open(os.path.join(
+        ck, "seg.metrics.jsonl"))]
+    assert sum("train_loss" in r for r in rows) == 4
+    assert all(set(r) == {"iters", "t", "epoch", "train_loss", "grad_norm",
+                          "img_s"} for r in rows if "train_loss" in r)
+    assert sum("val_miou" in r for r in rows) == 2
+    best = segdet.load_checkpoint(os.path.join(ck, "seg_best.pt"))
+    last = segdet.load_checkpoint(os.path.join(ck, "seg_last.pt"))
+    assert "frozen" in best and "frozen" not in last
+    assert "opt_state" in last and "opt_state" not in best
+    # APLA "full": every block's whole projection, held once
+    assert sorted(n for n in best["trainable"] if n.startswith(
+        "backbone.")) == sorted(f"backbone.blocks.{i}.attn.proj.{w}"
+                                for i in range(12) for w in ("kernel", "bias"))
+    assert best["trainable"]["backbone.blocks.0.attn.proj.kernel"].shape == (
+        192, 192)
+    assert not any("attn.proj" in n or "attn.inds" in n
+                   for n in best["frozen"])
+    meta = json.loads(open(os.path.join(ck, "seg_last.json")).read())
+    assert set(meta) == {"epoch", "miou"} and meta["epoch"] == 1
+
+
+def test_segmentation_loop_fused_aux_heads(tmp_path):
+    """`--use_fused --aux_heads 3 --head_lr_mult 10` on the CPU: the fused
+    kernels' plain versions, the aux heads trained and checkpointed."""
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    root = make_ade(tmp_path / "ade")
+    ck = str(tmp_path / "ck")
+    before = (fa.fused_apla_attn_fwd.launches, fa.fused_apla_attn_bwd.launches)
+    out = segdet.train_segmentation(root, epochs=1, save_dir=ck,
+                                    use_fused=True, aux_heads=3,
+                                    head_lr_mult=10.0, **SEG_KW)
+    assert out["iters"] == 2 and 0.0 <= out["best_miou"] <= 1.0
+    # CPU tensors run the plain versions: no kernel launch is counted
+    assert (fa.fused_apla_attn_fwd.launches,
+            fa.fused_apla_attn_bwd.launches) == before
+    best = segdet.load_checkpoint(os.path.join(ck, "seg_best.pt"))
+    assert {n.split(".")[1] for n in best["trainable"]
+            if n.startswith("aux_heads.")} == {"0", "1", "2"}
+
+
+def test_segmentation_resume_matches_uninterrupted(tmp_path):
+    """1 epoch + --resume for a 2nd == 2 uninterrupted epochs (seg_last
+    carries the trainable tensors, both AdamW groups' state and the
+    epoch); the best-mIoU race goes on from seg_best."""
+    root = make_ade(tmp_path / "ade")
+    kw = dict(SEG_KW, head_lr_mult=10.0, aux_heads=1)
+    segdet.train_segmentation(root, epochs=2,
+                              save_dir=str(tmp_path / "full"), **kw)
+    segdet.train_segmentation(root, epochs=1,
+                              save_dir=str(tmp_path / "part"), **kw)
+    out = segdet.train_segmentation(root, epochs=2, resume=True,
+                                    save_dir=str(tmp_path / "part"), **kw)
+    assert out["iters"] == 2
+    a, b = (segdet.load_checkpoint(str(tmp_path / d / "seg_last.pt"))
+            for d in ("full", "part"))
+    assert set(a["trainable"]) == set(b["trainable"])
+    for name, t in a["trainable"].items():
+        np.testing.assert_allclose(b["trainable"][name].numpy(), t.numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
+    full_best = json.loads((tmp_path / "full" / "seg_best.json").read_text())
+    assert out["best_miou"] == pytest.approx(full_best["miou"])
+
+
+def test_segmentation_eval_only(tmp_path):
+    root = make_ade(tmp_path / "ade")
+    ck = str(tmp_path / "ck")
+    segdet.train_segmentation(root, epochs=1, save_dir=ck, **SEG_KW)
+    best = json.loads(open(os.path.join(ck, "seg_best.json")).read())
+    out = segdet.train_segmentation(root, epochs=1, save_dir=ck,
+                                    eval_only=True, **SEG_KW)
+    assert out == {"best_miou": best["miou"], "iters": 0}
+    with pytest.raises(FileNotFoundError, match="eval_only"):
+        segdet.train_segmentation(root, epochs=1, eval_only=True,
+                                  save_dir=str(tmp_path / "nope"), **SEG_KW)
+
+
+def test_segmentation_slide_eval(tmp_path):
+    """--eval_img_size above the crop: the validation set read at that
+    size, logits from sliding windows of the crop; smaller is refused."""
+    from apla_tpu_torch.models import seg as tseg
+    root = make_ade(tmp_path / "ade")
+    calls = []
+    real = tseg.segmenter_slide_forward
+
+    def spy(model, images, cfg, stride=None):
+        calls.append((tuple(images.shape), stride))
+        return real(model, images, cfg, stride=stride)
+
+    segdet_slide = segdet.segmenter_slide_forward
+    segdet.segmenter_slide_forward = spy
+    try:
+        out = segdet.train_segmentation(root, epochs=1, eval_img_size=48,
+                                        eval_stride=16,
+                                        save_dir=str(tmp_path / "ck"),
+                                        **SEG_KW)
+    finally:
+        segdet.segmenter_slide_forward = segdet_slide
+    assert out["iters"] == 2 and 0.0 <= out["best_miou"] <= 1.0
+    assert calls == [((2, 48, 48, 3), 16)] * 2
+    with pytest.raises(ValueError, match="eval_img_size"):
+        segdet.train_segmentation(root, epochs=1, eval_img_size=16,
+                                  save_dir=str(tmp_path / "ck2"), **SEG_KW)
+
+
+def test_segmentation_preempted_run_saves_a_resumable_last(tmp_path,
+                                                           monkeypatch):
+    root = make_ade(tmp_path / "ade")
+    ck = str(tmp_path / "ck")
+    monkeypatch.setattr(segdet, "_preemption_flag",
+                        lambda: ((lambda: True), (lambda: None)))
+    out = segdet.train_segmentation(root, epochs=1, save_dir=ck, **SEG_KW)
+    assert out["preempted"] and out["iters"] == 1
+    meta = json.loads((tmp_path / "ck" / "seg_last.json").read_text())
+    assert meta["preempted"] and meta["epoch"] == -1
+    monkeypatch.undo()
+    out = segdet.train_segmentation(root, epochs=1, save_dir=ck,
+                                    resume=True, **SEG_KW)
+    assert out["iters"] == 2
+
+
+def test_cli_seg(tmp_path, capsys):
+    """`seg --use_fused --aux_heads 3 --head_lr_mult 10 --device cpu` at a
+    small ViT, then `--eval_only`."""
+    root = make_ade(tmp_path / "ade")
+    ck = str(tmp_path / "ck")
+    argv = ["seg", "--root", root, "--backbone", "vit_tiny", "--patch_size",
+            "8", "--img_size", "32", "--batch_size", "2", "--epochs", "1",
+            "--use_fused", "--aux_heads", "3", "--head_lr_mult", "10",
+            "--num_workers", "0", "--device", "cpu", "--save_dir", ck]
+    segdet.main(argv)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["iters"] == 2 and 0.0 <= out["best_miou"] <= 1.0
+    segdet.main(argv + ["--eval_only"])
+    again = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert again == {"best_miou": out["best_miou"], "iters": 0}
+
+
+def test_seg_use_fused_on_the_card_needs_bf16(tmp_path, monkeypatch):
+    from apla_tpu_torch import wrapper
+    from apla_tpu_torch.models.vit import VIT_BUILDERS
+    root = make_ade(tmp_path / "ade")
+    monkeypatch.setattr(wrapper, "resolve_device",
+                        lambda name: torch.device("cuda"))
+    cfg = VIT_BUILDERS["vit_tiny"](img_size=32, patch_size=8,
+                                   compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        segdet.train_segmentation(root, vit_cfg=cfg, use_fused=True,
+                                  save_dir=str(tmp_path), **SEG_KW)
 
 
 def test_detection_loop(tmp_path):
@@ -209,8 +394,10 @@ def test_cli_trains_the_four_stage_swin_t(tmp_path, capsys):
 
 def test_unported_options_raise(tmp_path, monkeypatch):
     img_dir, ann = make_coco(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A 1"):
-        segdet.main(["seg"])
+    root = make_ade(tmp_path / "ade")
+    with pytest.raises(NotImplementedError, match="Parallel modes"):
+        segdet.main(["seg", "--root", root, "--n_devices", "2",
+                     "--device", "cpu"])
     for extra, match in (({"masks": True}, "mask branch"),
                          ({"n_devices": 2}, "Parallel modes"),
                          ({"param_sharding": "fsdp"}, "Parallel modes")):

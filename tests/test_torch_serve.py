@@ -265,3 +265,136 @@ def test_cli_export_det_and_predict(tmp_path, capsys):
     assert [r["image"] for r in recs] == [0, 1, 2]
     assert all(len(r["boxes"]) == len(r["scores"]) == len(r["labels"]) <= 4
                for r in recs)
+
+
+def _jax_seg_artifact(tmp_path, batch_sizes=(1, 2)):
+    """A JAX SETR-PUP segmenter (3 aux heads, weights perturbed) exported
+    by the JAX package, and the same weights in a port artifact served
+    through the fused attention's plain versions."""
+    from apla_tpu.models import seg as jseg
+    from apla_tpu.serve import export_segmenter as j_export
+    from apla_tpu_torch.utils.pretrained import seg_state_from_jax
+
+    kw = dict(img_size=32, patch_size=8, embed_dim=64, depth=3, num_heads=4)
+    jcfg = ViTConfig(compute_dtype=jnp.float32, **kw)
+    t, f = jseg.init_segmenter(jax.random.PRNGKey(0), jcfg, 6, channels=16,
+                               n_aux_heads=3, aux_channels=8)
+    rng = np.random.default_rng(0)
+    t, f = (jax.tree.map(lambda a: np.asarray(a) + (rng.standard_normal(
+        np.shape(a)) * 0.05).astype(np.float32), tree) for tree in (t, f))
+    j_path = str(tmp_path / "jax_seg")
+    j_export(j_path, t, f, jcfg, batch_sizes=batch_sizes)
+    tcfg = TViTConfig(compute_dtype=torch.float32, use_fused_apla=True, **kw)
+    model = tserve.segmenter_from_state(tcfg, *seg_state_from_jax(t, f),
+                                        torch.device("cpu"))
+    t_path = str(tmp_path / "torch_seg")
+    meta = tserve.export_segmenter(t_path, model, tcfg,
+                                   batch_sizes=batch_sizes)
+    return j_path, t_path, meta, tcfg, model
+
+
+def test_segmenter_artifact_matches_jax(tmp_path):
+    """export_segmenter -> load_predictor -> SegPredictor against the JAX
+    artifact's SegPredictor on the same weights: logits (f32, 1e-4), masks,
+    and sliding-window logits over larger images."""
+    from apla_tpu.serve import load_predictor as j_load
+    j_path, t_path, meta, tcfg, _ = _jax_seg_artifact(tmp_path)
+    assert meta["task"] == "segmenter" and meta["n_classes"] == 6
+    assert meta["img_size"] == 32 and meta["batch_sizes"] == [1, 2]
+    assert meta["vit_config"]["use_fused_apla"] is True
+    pred = tserve.load_predictor(t_path, "cpu")
+    assert isinstance(pred, tserve.SegPredictor) and pred.vit_cfg == tcfg
+    # APLA "full": the backbone trains its projections only, and serves
+    # them through the fused path (`attn.inds` = every column)
+    assert {n for n, p in pred.model.named_parameters() if p.requires_grad
+            and n.startswith("backbone.")} == {
+        f"backbone.blocks.{i}.attn.proj.{w}" for i in range(3)
+        for w in ("kernel", "bias")}
+    assert torch.equal(pred.model.backbone.blocks[0].attn.inds,
+                       torch.arange(64))
+    j_pred = j_load(j_path)
+    x = np.random.default_rng(2).standard_normal((3, 32, 32, 3)).astype(
+        np.float32)
+    np.testing.assert_allclose(pred.predict(x), j_pred.predict(x),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(pred.masks(x), j_pred.masks(x))
+    big = np.random.default_rng(3).standard_normal((2, 48, 40, 3)).astype(
+        np.float32)
+    np.testing.assert_allclose(pred.predict_slide(big, stride=10),
+                               j_pred.predict_slide(big, stride=10),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(pred.masks_slide(big), j_pred.masks_slide(
+        big))
+    assert pred.predict(np.zeros((0, 32, 32, 3), np.float32)).shape == (
+        0, 32, 32, 6)
+    with pytest.raises(ValueError, match="expected"):
+        pred.predict_slide(big[:, :16])
+    with pytest.raises(NotImplementedError):
+        pred.embed(x)
+
+
+def test_predict_slide_equals_the_slide_forward(tmp_path):
+    """The served windows (cut on the host, sent in groups of the largest
+    batch) give `segmenter_slide_forward`'s logits."""
+    from apla_tpu_torch.models.seg import segmenter_slide_forward
+    _, t_path, _, tcfg, model = _jax_seg_artifact(tmp_path,
+                                                  batch_sizes=(1, 4))
+    pred = tserve.load_predictor(t_path, "cpu")
+    big = np.random.default_rng(4).standard_normal((3, 50, 64, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        ref = segmenter_slide_forward(model, torch.from_numpy(big), tcfg)
+    np.testing.assert_allclose(pred.predict_slide(big), ref.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(pred.predict_slide(big[:, :32, :32]),
+                               pred.predict(big[:, :32, :32]))
+
+
+def test_cli_export_seg_and_predict(tmp_path, capsys):
+    """`export_seg` from a segdet seg_best checkpoint (bf16 as the JAX CLI
+    exports, served through the fused APLA path), `info`, `predict` (argmax
+    masks, sliding windows for larger inputs); `--quantize_frozen` raises;
+    the artifact gives the checkpoint's unfused logits (bf16 bound: 2e-2 of
+    the largest)."""
+    from apla_tpu_torch import segdet
+    from apla_tpu_torch.models.seg import segmenter_forward
+    from test_torch_segdet import SEG_KW, make_ade
+    root = make_ade(tmp_path / "ade")
+    ck = str(tmp_path / "ck")
+    segdet.train_segmentation(root, epochs=1, save_dir=ck, **SEG_KW)
+    art = str(tmp_path / "art")
+    argv = ["export_seg", "--ckpt", os.path.join(ck, "seg_best.pt"),
+            "--backbone", "vit_tiny", "--patch_size", "8", "--img_size",
+            "32", "--out", art, "--batch_sizes", "1,2"]
+    tserve.main(argv)
+    assert "Exported segmenter" in capsys.readouterr().out
+    tserve.main(["info", art])
+    info = json.loads(capsys.readouterr().out)
+    assert info["task"] == "segmenter" and info["n_classes"] == 150
+    assert info["vit_config"]["use_fused_apla"] is True
+    assert info["vit_config"]["compute_dtype"] == "bfloat16"
+    for shape in ((3, 32, 32, 3), (1, 40, 48, 3)):
+        x = np.random.default_rng(0).standard_normal(shape).astype(
+            np.float32)
+        np.save(tmp_path / "x.npy", x)
+        out = str(tmp_path / "masks.npy")
+        tserve.main(["predict", art, str(tmp_path / "x.npy"), "--device",
+                     "cpu", "--out", out])
+        assert "top classes" in capsys.readouterr().out
+        masks = np.load(out)
+        assert masks.shape == shape[:3] and masks.dtype == np.int32
+    with pytest.raises(NotImplementedError, match="B6"):
+        tserve.main(argv[:-2] + ["--quantize_frozen"])
+    # served through the fused APLA kernels (plain versions here): the
+    # checkpoint's logits on the unfused path
+    ckpt = segdet.load_checkpoint(os.path.join(ck, "seg_best.pt"))
+    cfg = segdet.seg_vit_config("vit_tiny", 32, 8)
+    model = tserve.segmenter_from_state(cfg, ckpt["trainable"],
+                                        ckpt["frozen"], "cpu")
+    x = np.random.default_rng(1).standard_normal((2, 32, 32, 3)).astype(
+        np.float32)
+    with torch.no_grad():
+        plain = segmenter_forward(model, torch.from_numpy(x), cfg).numpy()
+    np.testing.assert_allclose(tserve.load_predictor(art, "cpu").predict(x),
+                               plain, rtol=0,
+                               atol=2e-2 * np.abs(plain).max())
