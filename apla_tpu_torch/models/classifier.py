@@ -53,7 +53,8 @@ def classifier_from_state(vit_cfg: ViTConfig, trainable: dict, frozen: dict,
     """Rebuild a `Classifier` from its state split as (trainable, frozen)
     name -> tensor maps (`utils.pretrained.params_from_jax` or a serving
     artifact).  Shapes come from the state: head width, pos-embed tokens,
-    APLA rank."""
+    APLA rank, int8 kernels."""
+    from ..ops.quant import quantize_like_state
     state = {**frozen, **trainable}
     model = Classifier(vit_cfg, int(state["fc.bias"].shape[0]),
                        num_pos_tokens=int(state["backbone.pos_embed"].shape[1]))
@@ -61,6 +62,7 @@ def classifier_from_state(vit_cfg: ViTConfig, trainable: dict, frozen: dict,
         inds = state.get(f"backbone.blocks.{i}.attn.inds")
         if inds is not None:
             blk.attn.add_apla(torch.zeros(inds.shape, dtype=torch.int64))
+    quantize_like_state(model, state)
     model.load_state_dict(state, strict=True)
     for name, p in model.named_parameters():
         p.requires_grad_(name in trainable)

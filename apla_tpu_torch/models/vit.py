@@ -107,6 +107,9 @@ def _param(*shape, fill=0.0):
 
 
 class Dense(nn.Module):
+    """`kernel` [d_in, d_out] (a parameter, or after W8A8 quantization an
+    `ops.quant.QuantizedKernel` module in its place) and `bias` [d_out]."""
+
     def __init__(self, d_in: int, d_out: int, bias: bool = True):
         super().__init__()
         self.kernel = _param(d_in, d_out)

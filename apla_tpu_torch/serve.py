@@ -6,12 +6,20 @@ artifact holds flax msgpack params and `jax.export` programs; neither can be
 read without jax, so this artifact is a directory of
 
   meta.json    format "apla_tpu_torch.serve/1", img_size, n_classes,
-               batch_sizes and the model's config echoed (the ViT config,
-               also for `task: "segmenter"`; for `task: "detector"` the
-               Swin config, the strides and `with_masks`), because the
-               port rebuilds the model at load
+               batch_sizes, quantized_frozen and the model's config echoed
+               (the ViT config, also for `task: "segmenter"`; for
+               `task: "detector"` the Swin config, the strides and
+               `with_masks`), because the port rebuilds the model at load
   params.npz   the model state as flat `trainable/<name>` and
-               `frozen/<name>` arrays (float32 parameters, int64 APLA inds)
+               `frozen/<name>` arrays (float32 parameters, int64 APLA inds;
+               with `quantize_frozen` the frozen qkv / fc1 / fc2 kernels as
+               int8 `<dense>.kernel.w_int8` and f32 `.scale`)
+
+`quantize_frozen=True` (`--quantize_frozen`) stores the frozen backbone's
+qkv / fc1 / fc2 kernels in int8 (`ops.quant.quantize_frozen_backbone`, the
+projections and heads stay float), and the reloaded model runs each of those
+products through `ops.quant.int8_matmul`: the hand-written int8 kernel on a
+card, its plain version on the CPU.
 
 `load_predictor` rebuilds the model from `meta.json` on an explicit device
 and runs it eagerly (`SegPredictor` for a segmenter, `DetPredictor` for a
@@ -21,17 +29,20 @@ smallest covering batch when that wastes at most half of it.
 
 CLI (run from a checkout):
   python -m apla_tpu_torch.serve export --params_path RECIPE.yml \\
-      --n_classes 1000 --out ART [--batch_sizes 1,8,64] [--seed 0]
+      --n_classes 1000 --out ART [--batch_sizes 1,8,64] [--seed 0] \\
+      [--quantize_frozen]
   python -m apla_tpu_torch.serve export_seg --ckpt seg_best.pt --out ART \\
       [--backbone vit_large --img_size 512 --patch_size 16 --batch_sizes 1,4]
+      [--quantize_frozen]
   python -m apla_tpu_torch.serve export_det --ckpt det_best.pt --out ART \\
-      [--depths 2,2,6 --num_heads 3,6,12 --batch_sizes 1,8]
+      [--depths 2,2,6 --num_heads 3,6,12 --batch_sizes 1,8] [--quantize_frozen]
   python -m apla_tpu_torch.serve predict ART batch.npy [--device cuda]
   python -m apla_tpu_torch.serve info ART
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -42,6 +53,7 @@ import torch
 
 from .models.classifier import classifier_forward, classifier_from_state
 from .models.vit import ViTConfig
+from .ops.quant import is_quantized, quantize_frozen_backbone
 
 FORMAT = "apla_tpu_torch.serve/1"
 _PARAMS_FILE = "params.npz"
@@ -67,23 +79,43 @@ def _cfg_from_echo(echo: dict) -> ViTConfig:
     return ViTConfig(**echo)
 
 
-def export_classifier(path: str, model, vit_cfg: ViTConfig,
-                      batch_sizes=(1, 8, 64)) -> dict:
-    """Write a serving artifact for `model` (a `Classifier`) served with
-    `vit_cfg`.  Returns the meta dict."""
-    batch_sizes = _check_batch_sizes(batch_sizes)
-    os.makedirs(path, exist_ok=True)
+def _maybe_quantize(model, quantize_frozen: bool):
+    """`model` with its frozen backbone kernels in int8 (qkv / fc1 / fc2 ->
+    `QuantizedKernel`, `ops.quant.quantize_frozen_backbone`), made on a copy
+    so the caller's model stays float; `model` itself when not asked, or
+    when it is quantized already (a custom `which`: quantizing again would
+    meet the int8 kernels)."""
+    if not quantize_frozen or is_quantized(model):
+        return model
+    return quantize_frozen_backbone(copy.deepcopy(model))
+
+
+def _write_state(path: str, model) -> None:
+    """params.npz: the state (parameters, persistent buffers) as
+    `trainable/<name>` and `frozen/<name>` arrays."""
     trainable = {n for n, p in model.named_parameters() if p.requires_grad}
     arrays = {f"{'trainable' if n in trainable else 'frozen'}/{n}":
               t.detach().cpu().numpy()
               for n, t in model.state_dict().items()}
     np.savez(os.path.join(path, _PARAMS_FILE), **arrays)
+
+
+def export_classifier(path: str, model, vit_cfg: ViTConfig,
+                      batch_sizes=(1, 8, 64), quantize_frozen=False) -> dict:
+    """Write a serving artifact for `model` (a `Classifier`) served with
+    `vit_cfg`.  `quantize_frozen`: see `_maybe_quantize`.  Returns the meta
+    dict."""
+    model = _maybe_quantize(model, quantize_frozen)
+    batch_sizes = _check_batch_sizes(batch_sizes)
+    os.makedirs(path, exist_ok=True)
+    _write_state(path, model)
     meta = {
         "format": FORMAT,
         "img_size": int(vit_cfg.img_size),
         "n_classes": int(model.fc.bias.shape[0]),
         "embed_dim": int(vit_cfg.embed_dim),
         "batch_sizes": batch_sizes,
+        "quantized_frozen": is_quantized(model),
         "vit_config": _cfg_echo(vit_cfg),
     }
     with open(os.path.join(path, _META_FILE), "w") as f:
@@ -188,16 +220,16 @@ def _swin_from_echo(echo: dict):
 
 
 def export_detector(path: str, model, swin_cfg, strides,
-                    batch_sizes=(1, 8)) -> dict:
+                    batch_sizes=(1, 8), quantize_frozen=False) -> dict:
     """Write a serving artifact for the FCOS detection side-car (`model` a
     `models.detection.Detector`, served with `swin_cfg`).  Calls compute
     the raw per-level maps; `DetPredictor.detect` decodes them per image on
-    the host.  Returns the meta dict."""
+    the host.  `quantize_frozen`: see `_maybe_quantize`.  Returns the meta
+    dict."""
+    model = _maybe_quantize(model, quantize_frozen)
     batch_sizes = _check_batch_sizes(batch_sizes)
     os.makedirs(path, exist_ok=True)
-    arrays = {f"{'trainable' if p.requires_grad else 'frozen'}/{n}":
-              p.detach().cpu().numpy() for n, p in model.named_parameters()}
-    np.savez(os.path.join(path, _PARAMS_FILE), **arrays)
+    _write_state(path, model)
     meta = {
         "format": FORMAT,
         "task": "detector",
@@ -206,6 +238,7 @@ def export_detector(path: str, model, swin_cfg, strides,
         "strides": [int(s) for s in strides],
         "with_masks": False,
         "batch_sizes": batch_sizes,
+        "quantized_frozen": is_quantized(model),
         "swin_config": _swin_echo(swin_cfg),
     }
     with open(os.path.join(path, _META_FILE), "w") as f:
@@ -275,17 +308,19 @@ class DetPredictor(Predictor):
 
 def detector_from_state(swin_cfg, n_classes, trainable: dict, frozen: dict,
                         device) -> "torch.nn.Module":
-    """A `Detector` holding the state maps, trainable flags as named."""
+    """A `Detector` holding the state maps (int8 kernels where the state
+    has them), trainable flags as named."""
     from .models.detection import Detector
-    model = Detector(swin_cfg, n_classes)
-    params = dict(model.named_parameters())
-    if set(params) != set(trainable) | set(frozen):
+    from .ops.quant import quantize_like_state
+    state = {**frozen, **trainable}
+    model = quantize_like_state(Detector(swin_cfg, n_classes), state)
+    names = set(model.state_dict())
+    if names != set(state):
         raise ValueError("the state does not name the detector's "
-                         f"parameters: {sorted(set(params) ^ (set(trainable) | set(frozen)))[:5]}")
-    with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(trainable[name] if name in trainable else frozen[name])
-            p.requires_grad_(name in trainable)
+                         f"parameters: {sorted(names ^ set(state))[:5]}")
+    model.load_state_dict(state, strict=True)
+    for name, p in model.named_parameters():
+        p.requires_grad_(name in trainable)
     return model.to(device)
 
 
@@ -293,33 +328,25 @@ def detector_from_state(swin_cfg, n_classes, trainable: dict, frozen: dict,
 # segmenter
 # ------------------------------------------------------------------ #
 
-QUANT_TODO = ("--quantize_frozen: W8A8 serving is not ported yet (ROADMAP "
-              "B6, A 2)")
-
-
 def export_segmenter(path: str, model, vit_cfg: ViTConfig,
                      batch_sizes=(1, 4), quantize_frozen=False) -> dict:
     """Write a serving artifact for a SETR-PUP segmenter (`model` a
     `models.seg.Segmenter`, the side-car `segdet seg` trains), served with
     `vit_cfg`.  Calls compute per-pixel logits [B, H, W, n_classes]
-    (float32); the artifact loads back as a `SegPredictor`.  Returns the
-    meta dict."""
-    if quantize_frozen:
-        raise NotImplementedError(QUANT_TODO)
+    (float32); the artifact loads back as a `SegPredictor`.
+    `quantize_frozen`: see `_maybe_quantize` (the "full" projections train
+    in place and stay float).  Returns the meta dict."""
+    model = _maybe_quantize(model, quantize_frozen)
     batch_sizes = _check_batch_sizes(batch_sizes)
     os.makedirs(path, exist_ok=True)
-    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
-    arrays = {f"{'trainable' if n in trainable else 'frozen'}/{n}":
-              t.detach().cpu().numpy()
-              for n, t in model.state_dict().items()}
-    np.savez(os.path.join(path, _PARAMS_FILE), **arrays)
+    _write_state(path, model)
     meta = {
         "format": FORMAT,
         "task": "segmenter",
         "img_size": int(vit_cfg.img_size),
         "n_classes": int(model.head.cls.bias.shape[0]),
         "batch_sizes": batch_sizes,
-        "quantized_frozen": False,
+        "quantized_frozen": is_quantized(model),
         "vit_config": _cfg_echo(vit_cfg),
     }
     with open(os.path.join(path, _META_FILE), "w") as f:
@@ -331,10 +358,11 @@ def segmenter_from_state(vit_cfg: ViTConfig, trainable: dict, frozen: dict,
                          device) -> "torch.nn.Module":
     """A `Segmenter` holding the state maps (a `segdet` checkpoint or a
     serving artifact), trainable flags as named.  Head widths, the aux
-    heads and the APLA split (trainable projections: "full"; else rank-k
-    `attn.inds`) come from the state."""
+    heads, the APLA split (trainable projections: "full"; else rank-k
+    `attn.inds`) and the int8 kernels come from the state."""
     from .apla.core import AplaConfig
     from .models.seg import Segmenter, build_seg_apla
+    from .ops.quant import quantize_like_state
     state = {**frozen, **trainable}
     n_aux = sum(1 for n in state if n.startswith("aux_heads.")
                 and n.endswith(".cls.bias"))
@@ -349,6 +377,7 @@ def segmenter_from_state(vit_cfg: ViTConfig, trainable: dict, frozen: dict,
         inds = state.get(f"backbone.blocks.{i}.attn.inds")
         if inds is not None:
             blk.attn.add_apla(torch.zeros(inds.shape, dtype=torch.int64))
+    quantize_like_state(model, state)
     model.load_state_dict(state, strict=True)
     for name, p in model.named_parameters():
         p.requires_grad_(name in trainable)
@@ -499,7 +528,8 @@ def _load_inputs(inputs, img, mean, std):
 
 def _export_det(args) -> dict:
     """export_det: a segdet checkpoint -> a detector artifact, at f32 on the
-    plain path, as the JAX CLI exports it."""
+    plain window attention, as the JAX CLI exports it (with
+    `--quantize_frozen` the int8 kernel takes the f32 activations)."""
     from .segdet import load_checkpoint, swin_config
     ckpt = load_checkpoint(args.ckpt)
     depths = tuple(int(x) for x in args.depths.split(","))
@@ -511,7 +541,8 @@ def _export_det(args) -> dict:
                                 ckpt["frozen"], torch.device("cpu"))
     strides = tuple(4 * (2 ** i) for i in range(len(depths)))
     bs = [int(x) for x in str(args.batch_sizes).split(",") if x]
-    return export_detector(args.out, model, cfg, strides, batch_sizes=bs)
+    return export_detector(args.out, model, cfg, strides, batch_sizes=bs,
+                           quantize_frozen=args.quantize_frozen)
 
 
 def _export_seg(args) -> dict:
@@ -519,15 +550,14 @@ def _export_seg(args) -> dict:
     bf16 compute, as the JAX CLI exports it, served through the fused APLA
     kernels (their plain versions on the CPU)."""
     from .segdet import load_checkpoint, seg_vit_config
-    if args.quantize_frozen:
-        raise NotImplementedError(QUANT_TODO)
     ckpt = load_checkpoint(args.ckpt)
     cfg = seg_vit_config(args.backbone, args.img_size, args.patch_size,
                          use_fused=True)
     model = segmenter_from_state(cfg, ckpt["trainable"], ckpt["frozen"],
                                  torch.device("cpu"))
     bs = [int(x) for x in str(args.batch_sizes).split(",") if x]
-    return export_segmenter(args.out, model, cfg, batch_sizes=bs)
+    return export_segmenter(args.out, model, cfg, batch_sizes=bs,
+                            quantize_frozen=args.quantize_frozen)
 
 
 def main(argv=None):
@@ -545,6 +575,9 @@ def main(argv=None):
                     help="head width (the dataset registry is not ported)")
     ex.add_argument("--seed", type=int, default=0,
                     help="seed of the weight init")
+    ex.add_argument("--quantize_frozen", action="store_true",
+                    help="int8 frozen backbone kernels in the artifact "
+                         "(W8A8 serve path)")
     exd = sub.add_parser("export_det",
                          help="export a detection artifact from a segdet "
                               "checkpoint (det_best.pt)")
@@ -556,6 +589,8 @@ def main(argv=None):
     exd.add_argument("--window_size", type=int, default=7)
     exd.add_argument("--out", required=True)
     exd.add_argument("--batch_sizes", default="1,8")
+    exd.add_argument("--quantize_frozen", action="store_true",
+                     help="int8 frozen Swin kernels in the artifact")
     exs = sub.add_parser("export_seg",
                          help="export a segmentation artifact from a "
                               "segdet checkpoint (seg_best.pt)")
@@ -567,7 +602,7 @@ def main(argv=None):
     exs.add_argument("--out", required=True)
     exs.add_argument("--batch_sizes", default="1,4")
     exs.add_argument("--quantize_frozen", action="store_true",
-                     help="int8 frozen backbone (not ported yet: B6)")
+                     help="int8 frozen backbone kernels in the artifact")
     info = sub.add_parser("info", help="print an artifact's meta")
     info.add_argument("artifact")
     pr = sub.add_parser("predict", help="run an artifact on images")
@@ -660,7 +695,8 @@ def main(argv=None):
     model, vit_cfg = _build_from_params(args.params_path, args.n_classes,
                                         args.seed)
     bs = [int(x) for x in str(args.batch_sizes).split(",") if x]
-    meta = export_classifier(args.out, model, vit_cfg, batch_sizes=bs)
+    meta = export_classifier(args.out, model, vit_cfg, batch_sizes=bs,
+                             quantize_frozen=args.quantize_frozen)
     print(f"Exported {meta['vit_config']['depth']}-block classifier "
           f"(img {meta['img_size']}, {meta['n_classes']} classes) at "
           f"batch sizes {meta['batch_sizes']} -> {args.out}")

@@ -3,7 +3,9 @@
 `params_from_jax` turns the JAX package's `(trainable, frozen)` trees (nested
 dicts and lists of numpy arrays, block leaves stacked `[L, ...]`) into the
 port's module state, split the same way: two flat `name -> tensor` maps whose
-names are the port's parameter and buffer names.  Every parity test goes
+names are the port's parameter and buffer names (a W8A8 tree's
+`{'w_int8', 'scale'}` kernels become `<dense>.kernel.w_int8` / `.scale`, the
+buffers of `ops.quant.QuantizedKernel`).  Every parity test goes
 through it, and `models.classifier.classifier_from_state` builds a module
 from it.  `dinov2_state_from_jax` carries a JAX DINOv2 train state across:
 student trainable tree, teacher tree, frozen tree (with `mask_token`) and
@@ -31,8 +33,10 @@ _APLA_LEAVES = ("proj_wt", "proj_bt")
 
 
 def _tensor(a) -> torch.Tensor:
+    """float32, int64 indices, or int8 (a W8A8 tree's `w_int8` leaves)."""
     a = np.asarray(a)
-    dtype = np.int64 if a.dtype.kind in "iu" else np.float32
+    dtype = np.int8 if a.dtype == np.int8 else \
+        np.int64 if a.dtype.kind in "iu" else np.float32
     return torch.from_numpy(np.array(a, dtype=dtype, copy=True))
 
 

@@ -126,7 +126,9 @@ class DefaultWrapper:
                 "(ROADMAP queue A: rest of serving, importers)")
         if mp.get("quantize_frozen"):
             raise NotImplementedError(
-                "quantize_frozen: W8A8 is not ported yet (ROADMAP B6)")
+                "model_params.quantize_frozen: W8A8 training is not ported "
+                "yet (ROADMAP A 2); W8A8 serving is `serve export "
+                "--quantize_frozen`")
 
     # ------------------------------------------------------------------ #
     def instantiate(self, seed: int = 0):

@@ -3,12 +3,12 @@
 
 Drives the port's serving path, its supervised training path, its
 DINOv2 self-supervised path, its full-projection path, its Swin
-detection side-car and its ViT-L segmentation side-car once on one CUDA
-card, in phases that each print a line
+detection side-car, its ViT-L segmentation side-car and its W8A8 serving
+path once on one CUDA card, in phases that each print a line
 and raise on failure:
 
   1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`
-               (six sources), one nvcc per source, all started together.
+               (seven sources), one nvcc per source, all started together.
   2. kernel  — the fused APLA attention forward kernel against its plain
                PyTorch version on the card, bf16, at the served length
                (N=257), the SSL local crops (N=50), the 518-crop length
@@ -69,8 +69,11 @@ and raise on failure:
                checkpointed with the window kernels in every block of every
                step and eval call, --resume, --eval_only, the plain arm,
                the best checkpoint exported and served (`DetPredictor.
-               detect`, raw maps against the in-process forward); train and
-               serve img/s, peak memory and a profile.
+               detect`, raw maps against the in-process forward), and
+               exported again through `serve export_det --quantize_frozen`
+               (W8A8, f32) and served with the int8 kernel in each qkv, fc1
+               and fc2 of every call; train and serve img/s, peak memory
+               and a profile.
 
   9a. seg_kernels — the fused APLA kernels (rows 1, 2) at the shape the
                segmentation side-car gives them, where JAX names the q-strip
@@ -90,17 +93,37 @@ and raise on failure:
                step and eval call, --resume, --eval_only, a sliding-window
                evaluation at 640, the best checkpoint exported and served
                (`SegPredictor.predict` / `predict_slide` at 1 and 9 images
-               against the in-process module through the same calls);
+               against the in-process module through the same calls), and
+               exported again through `serve export_seg --quantize_frozen`
+               and served with the int8 kernel in each qkv, fc1 and fc2;
                train and serve img/s of
                both arms, peak memory and a profile.
+  10a. int8  — the int8 GEMM (TPU row 13; with one group over K the W8A8
+               path's qkv / fc1 / fc2) against its plain version at the
+               classifier's three products at b64 and b1, the segmenter's
+               fc2 at b8, the Swin-T stage-0 qkv in f32, and row 13's own
+               groups of 256 with a ragged M; five fault controls;
+               registers and spills; times beside the bound, the bf16
+               torch.matmul and torch._int_mm.
+  10b. w8a8  — the phase-3 classifier exported float and with
+               `quantize_frozen=True`, reloaded and asked for 1, 9 and 100
+               images: 36 int8 and 12 attention launches per call, served
+               outputs equal to the in-process quantized module, the kernel
+               arm against the int8 kernel's plain version (codes that
+               differ counted, a fault control) and against the plain arm,
+               the W8A8 artifact's cosine to the float one, params.npz
+               bytes, b64 img/s of the W8A8 kernel, plain and float arms
+               and their memory.
 
-Phases 2-9 also run negative controls: the kernels made to compute what
+Phases 2-10 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
 heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
 from the wrong columns or zeroed, rowsum(dp * p) dropped from ds; the
 teacher temperature taken as 1, dws zeroed, dxs halved, p_t dropped from
 ds; the Swin bias or mask dropped, the mask read at the wrong window, dW
-zeroed).  Each must fail the phase's bound, so the bounds are shown to
+zeroed; the int8 weight scales dropped, one activation scale for the whole
+tensor, codes truncated, the last K group skipped, the ragged tail rows
+unwritten).  Each must fail the phase's bound, so the bounds are shown to
 catch a broken kernel in every run.
 
 Then it prints the card's name and power limit, a JSON line describing the
@@ -371,6 +394,7 @@ TIMED_SHAPES = ((64, 257), (512, 50), (2, 1370))
 # first and its bytes (each input read once, each output written once) over
 # the second.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_S = 3.35e12
 # Kernel vs plain, both bf16 out: they differ by the order of f32 sums and
 # the online max/sum of the softmax, i.e. by a bf16 rounding of p, o or the
@@ -518,6 +542,42 @@ SEG_SLIDE_SIZE = 640
 SEG_LOSS_REL_TOL = 7.5e-6
 SEG_GRAD_REL_TOL = DET_GRAD_REL_TOL
 SEG_SERVE_REL_TOL = DET_SERVE_REL_TOL
+# Phase 10a: the int8 GEMM (TPU row 13; with one group over K, the W8A8
+# serving path's frozen qkv / fc1 / fc2) against its plain version on the
+# same tensors in the working dtype: the classifier's three products at b64
+# (M = 64 x 257) and b1, the segmenter's fc2 at b8 (M = 8 x 1025), the
+# Swin-T detector's stage-0 qkv at b16 (M = 16 x 56^2 tokens, K = 96; f32,
+# the detector serves in f32), and row 13's own function (groups of 256)
+# at the fc2 shape with a ragged M.  (name, M, K, N, group, dtype); every
+# M but b8's leaves a ragged last tile of 128 rows.
+INT8_CASES = (
+    ("qkv b64", 64 * 257, 768, 2304, 768, torch.bfloat16),
+    ("fc1 b64", 64 * 257, 768, 3072, 768, torch.bfloat16),
+    ("fc2 b64", 64 * 257, 3072, 768, 3072, torch.bfloat16),
+    ("qkv b1", 257, 768, 2304, 768, torch.bfloat16),
+    ("fc1 b1", 257, 768, 3072, 768, torch.bfloat16),
+    ("fc2 b1", 257, 3072, 768, 3072, torch.bfloat16),
+    ("seg fc2 b8", 8 * 1025, 4096, 1024, 4096, torch.bfloat16),
+    ("swin stage-0 qkv b16", 16 * 56 * 56, 96, 288, 96, torch.float32),
+    ("row 13 fc2, groups of 256, M ragged", 64 * 257 - 5, 3072, 768, 256,
+     torch.bfloat16),
+)
+INT8_MAIN = "fc1 b64"            # the kernels line's times
+INT8_ROW13 = INT8_CASES[-1][0]
+# Kernel vs plain: the same codes, exact int32 sums and the same f32
+# roundings, so equal.  Bound: 1e-6 of max|ref| (8 f32 ulps), below a bf16
+# output moved by one ulp (2^-8) and far below one flipped code or a scale
+# off by an ulp; each fault control must exceed it.
+INT8_REL_TOL = 1e-6
+# Phase 10b: the ImageNet classifier of phase 3 (RECIPE served at 224, the
+# random weights from SEED) exported with quantize_frozen=True and served.
+# The W8A8 artifact against the float one: per-image embedding cosine at
+# least the bound of tests/test_quant.py; the kernel arm against the plain
+# arm (the attention and int8 kernels' plain versions) within phase 3's
+# bounds; served outputs within SERVE_REL_TOL of the in-process quantized
+# module through the same calls.
+W8A8_MIN_COSINE = 0.99
+W8A8_SERVE_REL_TOL = DET_SERVE_REL_TOL
 
 
 def _gpu_line() -> str:
@@ -576,10 +636,11 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from apla_tpu_torch.ops import cuda_build
-    from apla_tpu_torch.ops import mha, proto_ce
+    from apla_tpu_torch.ops import int8_matmul, mha, proto_ce
     from apla_tpu_torch.ops.fused_apla_attn import _BWD_SOURCE, _SOURCE
     sources = (_SOURCE, _BWD_SOURCE, proto_ce.FWD_SOURCE,
-               proto_ce.BWD_SOURCE, mha.FWD_SOURCE, mha.BWD_SOURCE)
+               proto_ce.BWD_SOURCE, mha.FWD_SOURCE, mha.BWD_SOURCE,
+               int8_matmul.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cuda_build.build_library, sources))
@@ -1394,8 +1455,9 @@ def _phase_det(device, tmp):
                                                  make_detection_train_step)
     from apla_tpu_torch.models.swin import swin_features
     from apla_tpu_torch.ops import fused_swin_attn as fs
-    from apla_tpu_torch.serve import (detector_from_state, export_detector,
-                                      load_predictor)
+    from apla_tpu_torch.ops.quant import quantize_frozen_backbone
+    from apla_tpu_torch.serve import (DetPredictor, detector_from_state,
+                                      export_detector, load_predictor)
 
     t0 = time.perf_counter()
     img_dir, ann = _write_coco(tmp)
@@ -1558,6 +1620,22 @@ def _phase_det(device, tmp):
           f"/ max|ref| {dev_max:.3g} (bound {DET_SERVE_REL_TOL})")
     if dev_max > DET_SERVE_REL_TOL:
         raise SystemExit("the served maps differ from the in-process forward")
+    # W8A8: the best checkpoint through the CLI with --quantize_frozen (f32
+    # on the plain window attention, as export_det exports), served: the
+    # int8 kernel in each qkv, fc1 and fc2 of every block of every call
+    launches.append(_w8a8_served(
+        "8b det", ["export_det", "--ckpt", os.path.join(kdir, "det_best.pt"),
+                   "--img_size", str(r["img_size"]), "--embed_dim",
+                   str(r["embed_dim"]), "--depths",
+                   ",".join(map(str, r["depths"])), "--num_heads",
+                   ",".join(map(str, r["num_heads"])), "--window_size",
+                   str(r["window_size"])],
+        os.path.join(tmp, "w8a8"), device, [x[:1], x],
+        lambda p: DetPredictor(p.meta, quantize_frozen_backbone(
+            detector_from_state(p.swin_cfg, ds.n_classes, best["trainable"],
+                                best["frozen"], device)), p.swin_cfg,
+            device),
+        per_call=(3 * depth, 0))[0])
 
     rates = _det_rates(model, pred.model, batch, cfg, plain_cfg, strides)
     for (what, name), (rate, peak) in sorted(rates.items()):
@@ -2080,6 +2158,7 @@ _KERNEL_GROUPS = (
      ("bwd_query_kernel", "bwd_key_kernel", "gemm_nt_kernel",
       "dw_partial_kernel", "dw_reduce_kernel")),
     ("gathers / index backward", ("index",)),
+    ("int8 kernel (quantize pass + int8 mma GEMM)", ("w8a8_",)),
     ("GEMMs (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "ampere", "nvjet")),
     ("convolutions / resampling (heads, multi-crop blur)",
      ("conv", "upsample", "grid")),
@@ -2503,6 +2582,7 @@ def _phase_seg(device, tmp):
     from apla_tpu_torch.models.seg import (init_segmenter, make_seg_train_step,
                                            seg_optimizer)
     from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.ops.quant import quantize_frozen_backbone
     from apla_tpu_torch.serve import (SegPredictor, export_segmenter,
                                       load_predictor, segmenter_from_state)
 
@@ -2699,6 +2779,20 @@ def _phase_seg(device, tmp):
         raise SystemExit("the served logits differ from the in-process "
                          "forward")
     del served, inproc, refs
+    # W8A8: the best checkpoint through the CLI with --quantize_frozen
+    # (bf16, the fused attention), served: the int8 kernel in each qkv,
+    # fc1 and fc2 and the attention kernel in every block of every call
+    q_int8, q_fwd = _w8a8_served(
+        "9b seg", ["export_seg", "--ckpt", os.path.join(kdir, "seg_best.pt"),
+                   "--backbone", r["backbone"], "--img_size",
+                   str(r["img_size"]), "--patch_size", str(r["patch_size"])],
+        os.path.join(tmp, "w8a8"), device, [x[:1], x[:2]],
+        lambda p: SegPredictor(p.meta, quantize_frozen_backbone(
+            segmenter_from_state(p.vit_cfg, best["trainable"], best["frozen"],
+                                 device)), p.vit_cfg, device),
+        fwd_counter=fa.fused_apla_attn_fwd, per_call=(3 * depth, depth))
+    launches[0] += q_fwd
+    launches.append(q_int8)
 
     rates = _seg_rates(model, batch, cfg, plain_cfg, r["head_lr_mult"])
     for (what, name), (rate, peak) in sorted(rates.items()):
@@ -2710,6 +2804,385 @@ def _phase_seg(device, tmp):
                    *_profile_step(lambda: step(model, batch)))
     print(f"[9b seg] phase took {time.perf_counter() - t0:.1f} s")
     return tuple(launches), rates
+
+
+def _int8_bound(m, k, n, dtype):
+    """The int8 GEMM's least time: 2 m n k int8 tensor-core operations;
+    reads x (m k in its dtype), the int8 weight (k n) and its scales, writes
+    y (m n in x's dtype)."""
+    es = torch.finfo(dtype).bits // 8
+    t_ops = 2 * m * n * k / PEAK_INT8_OPS * 1e3
+    t_bytes = (m * k * es + k * n + 4 * n + m * n * es) / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _int8_operands(device, m, k, n, dtype, gen):
+    """x [m, k] and a `QuantizedKernel` of a [k, n] weight (its int8 codes,
+    scales and K-major copy), on `device`."""
+    from apla_tpu_torch.ops.quant import QuantizedKernel, quantize_weight
+    x = torch.randn((m, k), generator=gen).to(device, dtype)
+    w = (torch.randn((k, n), generator=gen) * k ** -0.5).to(device)
+    return x, QuantizedKernel(*quantize_weight(w))
+
+
+def _int8_faulty(x, w_i8, w_scale, group, tensor_sx=False, trunc=False):
+    """What a broken int8 kernel would compute: the plain version with one
+    activation scale for the whole tensor, or with the codes truncated
+    toward zero instead of rounded half to even."""
+    from apla_tpu_torch.ops.int8_matmul import scale_of
+    m, k = x.shape
+    xf = x.float().reshape(m, k // group, group)
+    amax = xf.abs().amax() if tensor_sx else xf.abs().amax(-1, keepdim=True)
+    sx = scale_of(amax).expand(m, k // group, 1)
+    codes = torch.clamp((torch.trunc if trunc else torch.round)(xf / sx),
+                        -127, 127)
+    acc = torch.zeros((m, w_i8.shape[1]), device=x.device)
+    for g in range(k // group):
+        part = torch.matmul(codes[:, g].double(),
+                            w_i8[g * group:(g + 1) * group].double())
+        acc = acc + (part.float() * sx[:, g]) * w_scale[None, :]
+    return acc.to(x.dtype)
+
+
+def phase_int8(device):
+    from apla_tpu_torch.ops import cuda_build
+    from apla_tpu_torch.ops import int8_matmul as tim
+    from apla_tpu_torch.ops.quant import dequantize_weight
+    for line in _resources(cuda_build.resource_report(tim.SOURCE)):
+        print(f"[10a int8] {line}")
+    gen = torch.Generator().manual_seed(SEED)
+    worst, times = 0.0, {}
+    for name, m, k, n, group, dtype in INT8_CASES:
+        x, qk = _int8_operands(device, m, k, n, dtype, gen)
+
+        def kernel(x=x, w=qk.w_int8, s=qk.scale, group=group,
+                   wk=qk.w_kmajor):
+            return tim.fused_int8_matmul(x, w, s, group, wk)
+
+        y = kernel()
+        torch.cuda.synchronize()
+        ref = tim.fused_int8_matmul_reference(x, qk.w_int8, qk.scale, group)
+        err = (y.float() - ref.float()).abs().max().item()
+        bound = INT8_REL_TOL * ref.float().abs().max().item()
+        ok = (y.shape == ref.shape and y.dtype == dtype
+              and bool(torch.isfinite(y).all()) and err <= bound)
+        print(f"[10a int8] {name}: x [{m}, {k}] {str(dtype)[6:]} @ int8 "
+              f"[{k}, {n}], groups of {group}: max|err| {err:.6g} bound "
+              f"{bound:.6g} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the int8 kernel disagrees with its plain "
+                             f"version at {name}")
+        worst = max(worst, err)
+        controls = {}
+        if name == "fc2 b64":
+            tail = (m // 128) * 128
+            controls = {
+                "sw dropped": lambda: tim.fused_int8_matmul(
+                    x, qk.w_int8, torch.ones_like(qk.scale), group,
+                    qk.w_kmajor),
+                "one tensor-wide sx": lambda: _int8_faulty(
+                    x, qk.w_int8, qk.scale, group, tensor_sx=True),
+                "truncation instead of rint": lambda: _int8_faulty(
+                    x, qk.w_int8, qk.scale, group, trunc=True),
+                f"ragged tail rows {tail}..{m - 1} unwritten":
+                    lambda: torch.cat([y[:tail], torch.zeros_like(y[tail:])]),
+            }
+        elif name == INT8_ROW13:
+            kk = k - group
+            controls = {"the last group skipped": lambda: tim.fused_int8_matmul(
+                x[:, :kk].contiguous(), qk.w_int8[:kk], qk.scale, group,
+                qk.w_kmajor[:, :kk].contiguous())}
+        for c_name, fault in controls.items():
+            c_err = (fault().float() - ref.float()).abs().max().item()
+            print(f"[10a int8] control {c_name} at {name}: max|err| "
+                  f"{c_err:.6g} bound {bound:.6g} -> "
+                  f"{'caught' if c_err > bound else 'NOT CAUGHT'}")
+            if c_err <= bound:
+                raise SystemExit(f"the int8 bound misses a broken kernel "
+                                 f"({c_name})")
+        # yardsticks the port never calls: the bf16 (or f32) product with
+        # the dequantized weight, and torch._int_mm, the int8 product alone
+        w_mm = dequantize_weight(qk.w_int8, qk.scale).to(dtype)
+        codes = torch.randint(-127, 128, (m, k), generator=gen,
+                              dtype=torch.int8).to(device)
+        t = {"ms": _time_ms(kernel),
+             "plain_ms": _time_ms(lambda: tim.fused_int8_matmul_reference(
+                 x, qk.w_int8, qk.scale, group), iters=5, warmup=1),
+             "library_ms": (_time_ms(lambda: torch._int_mm(
+                 codes, qk.w_kmajor.t())) if m > 16 else None),
+             "library_matmul_ms": _time_ms(lambda: torch.matmul(x, w_mm))}
+        t["bound_ms"], t["bound_by"] = _int8_bound(m, k, n, dtype)
+        times[name] = t
+        print(f"[10a int8] {name}: kernel {t['ms']:.4f} ms "
+              f"({2 * m * n * k / t['ms'] / 1e9:.1f} TOPS), plain "
+              f"{t['plain_ms']:.4f} ms, torch._int_mm "
+              + (f"{t['library_ms']:.4f}" if t["library_ms"] else "n/a")
+              + f" ms, {str(dtype)[6:]} torch.matmul "
+              f"{t['library_matmul_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
+              f"ms ({t['bound_by']}); {t['bound_ms'] / t['ms']:.1%} of it")
+        del x, qk, y, ref, w_mm, codes
+    return worst, times
+
+
+def _arrays(out):
+    """The numpy arrays of a predictor's output, flattened in order."""
+    if isinstance(out, np.ndarray):
+        return [out]
+    return [a for part in out for a in _arrays(part)]
+
+
+def _max_rel_dev(outs, refs):
+    return max(float(np.abs(a - b).max() / max(float(np.abs(b).max()),
+                                               1e-12))
+               for a, b in zip(_arrays(outs), _arrays(refs), strict=True))
+
+
+def _w8a8_served(tag, argv, art, device, requests, inproc, fwd_counter=None,
+                 per_call=(0, 0)):
+    """`serve.main(argv + --quantize_frozen)` exports a W8A8 artifact to
+    `art`; it is reloaded on `device` and asked for `requests`: the int8
+    kernel must run per_call[0] times in every call (and `fwd_counter`,
+    the attention kernel, per_call[1] times), the outputs must be finite and
+    within W8A8_SERVE_REL_TOL of `inproc(pred)`, a predictor over the
+    in-process quantized module, through the same calls.  Returns the
+    (int8, attention) launches."""
+    from apla_tpu_torch import serve
+    from apla_tpu_torch.ops import int8_matmul as tim
+    t = time.perf_counter()
+    serve.main(argv + ["--out", art, "--batch_sizes", "1,8",
+                       "--quantize_frozen"])
+    pred = serve.load_predictor(art, device)
+    n_calls = sum(1 for x in requests for _ in pred._iter_chunks(x))
+    counters = [tim.fused_int8_matmul] + ([fwd_counter] if fwd_counter
+                                          else [])
+    for c in counters:
+        c.launches = 0
+    outs = [pred.predict(x) for x in requests]
+    _sync(device)
+    got = tuple(c.launches for c in counters) + (0,) * (2 - len(counters))
+    expect = (per_call[0] * n_calls, per_call[1] * n_calls)
+    dev = _max_rel_dev(outs, [inproc(pred).predict(x) for x in requests])
+    print(f"[{tag}] W8A8 artifact (--quantize_frozen, "
+          f"quantized_frozen={pred.meta['quantized_frozen']}, params.npz "
+          f"{os.path.getsize(os.path.join(art, 'params.npz')):,} bytes) "
+          f"exported and reloaded in {time.perf_counter() - t:.1f} s; "
+          f"{[len(x) for x in requests]} images in {n_calls} calls: "
+          f"int8 / attention kernel launches {got} (expected {expect}); "
+          f"vs the in-process quantized module through the same calls "
+          f"max|d| / max|ref| {dev:.3g} (bound {W8A8_SERVE_REL_TOL})")
+    if not pred.meta["quantized_frozen"] or got != expect or not all(
+            np.isfinite(a).all() for a in _arrays(outs)):
+        raise SystemExit(f"the W8A8 artifact did not run the int8 kernel in "
+                         f"every quantized product of every call")
+    if dev > W8A8_SERVE_REL_TOL:
+        raise SystemExit("the W8A8 artifact's outputs differ from the "
+                         "in-process quantized module's")
+    return got
+
+
+def _peak_above(device, fn) -> float:
+    """GB of device memory fn() takes at its peak above what was allocated
+    before it."""
+    _sync(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    fn()
+    _sync(device)
+    return (torch.cuda.max_memory_allocated(device) - base) / 1e9
+
+
+def phase_w8a8(device):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_w8a8_") as tmp:
+        return _phase_w8a8(device, tmp)
+
+
+def _cosines(outs, refs):
+    """Per-request minimum embedding cosine of (logits, embedding) pairs."""
+    return [float((np.sum(e * r, -1) / (np.linalg.norm(e, axis=-1)
+                                        * np.linalg.norm(r, axis=-1))).min())
+            for (_, e), (_, r) in zip(outs, refs)]
+
+
+def _codes_flipped(runs):
+    """(codes that differ, codes) between the int8 inputs two arms gave the
+    same products: `runs` is two lists of int8 code tensors."""
+    diff = sum(int((a != b).sum()) for a, b in zip(*runs, strict=True))
+    return diff, sum(a.numel() for a in runs[0])
+
+
+def _phase_w8a8(device, tmp):
+    from apla_tpu_torch.models.classifier import (classifier_forward,
+                                                  init_classifier)
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.ops import int8_matmul as tim
+    from apla_tpu_torch.ops import quant
+    from apla_tpu_torch.serve import (Predictor, export_classifier,
+                                      load_predictor)
+    from apla_tpu_torch.wrapper import build_apla_config, build_vit_config
+
+    t0 = time.perf_counter()
+    grid_cfg = build_vit_config(RECIPE)
+    apla_cfg = build_apla_config(RECIPE)
+    if apla_cfg.inds_path:
+        apla_cfg = dataclasses.replace(
+            apla_cfg, inds_path=os.path.join(ROOT, apla_cfg.inds_path))
+    model = init_classifier(grid_cfg, N_CLASSES, apla_cfg,
+                            generator=torch.Generator().manual_seed(SEED),
+                            device=device)
+    serve_cfg = dataclasses.replace(grid_cfg, img_size=SERVE_IMG)
+    depth = serve_cfg.depth
+    arts = {"float": os.path.join(tmp, "float"),
+            "w8a8": os.path.join(tmp, "w8a8")}
+    export_classifier(arts["float"], model, serve_cfg,
+                      batch_sizes=BATCH_SIZES)
+    meta = export_classifier(arts["w8a8"], model, serve_cfg,
+                             batch_sizes=BATCH_SIZES, quantize_frozen=True)
+    inproc_model = quant.quantize_frozen_backbone(copy.deepcopy(model))
+    del model
+    sizes = {k: os.path.getsize(os.path.join(p, "params.npz"))
+             for k, p in arts.items()}
+    print(f"[10b w8a8] ViT-B/14 APLA-128 classifier exported float and W8A8 "
+          f"(quantized_frozen={meta['quantized_frozen']}) in "
+          f"{time.perf_counter() - t0:.1f} s: params.npz {sizes['float']:,} "
+          f"and {sizes['w8a8']:,} bytes ({sizes['w8a8'] / sizes['float']:.3f}"
+          f"x)")
+    if not meta["quantized_frozen"]:
+        raise SystemExit("the W8A8 export did not quantize the backbone")
+    pred, fpred = (load_predictor(arts[k], device) for k in ("w8a8", "float"))
+    rng = np.random.default_rng(SEED)
+    requests = [rng.standard_normal((n, SERVE_IMG, SERVE_IMG, 3),
+                                    dtype=np.float32) for n in REQUESTS]
+    n_calls = sum(1 for x in requests for _ in pred._iter_chunks(x))
+
+    counters = (tim.fused_int8_matmul, fa.fused_apla_attn_fwd)
+    for c in counters:
+        c.launches = 0
+    outs = [pred.predict_and_embed(x) for x in requests]
+    _sync(device)
+    launches = tuple(c.launches for c in counters)
+    expect = (3 * depth * n_calls, depth * n_calls)
+    print(f"[10b w8a8] answered {list(REQUESTS)} images in {n_calls} calls; "
+          f"int8 / attention kernel launches {launches} (expected {expect})")
+    if launches != expect:
+        raise SystemExit("the W8A8 served path did not run the int8 kernel "
+                         "in each qkv, fc1 and fc2 of every call")
+    for x, (logits, emb) in zip(requests, outs):
+        if logits.shape != (len(x), N_CLASSES) \
+                or emb.shape != (len(x), serve_cfg.embed_dim) \
+                or not (np.isfinite(logits).all() and np.isfinite(emb).all()):
+            raise SystemExit(f"bad W8A8 output for a request of {len(x)}")
+    inproc = Predictor(pred.meta, inproc_model.eval(), serve_cfg, device)
+    dev = _max_rel_dev(outs, [inproc.predict_and_embed(x) for x in requests])
+    print(f"[10b w8a8] served vs the in-process quantized module through the "
+          f"same calls: max|d| / max|ref| {dev:.3g} (bound "
+          f"{W8A8_SERVE_REL_TOL})")
+    if dev > W8A8_SERVE_REL_TOL:
+        raise SystemExit("the W8A8 artifact's outputs differ from the "
+                         "in-process quantized module's")
+    del inproc, inproc_model
+
+    # the int8 arm: the same calls with the int8 kernel's plain version in
+    # its place (the attention kernel as before), so any difference is the
+    # int8 kernel's; the plain arm: the attention's plain version as well
+    plain_cfg = dataclasses.replace(serve_cfg, use_fused_apla=False,
+                                    use_flash=False)
+    plain = Predictor(pred.meta, pred.model, plain_cfg, device)
+    real = quant.fused_int8_matmul
+
+    def plain_int8(x, w_i8, w_scale, group, w_kmajor=None):
+        return tim.fused_int8_matmul_reference(x, w_i8, w_scale, group)
+
+    def plain_run(fn, int8=plain_int8):
+        return _with_patch(quant, "fused_int8_matmul", int8, fn)
+
+    def codes_of(pr, int8):
+        """The int8 codes of every quantized product of the 9-image
+        request served by `pr` through `int8`."""
+        codes = []
+
+        def rec(x, *args, **kwargs):
+            codes.append(quant._quantize_rows(x)[0])
+            return int8(x, *args, **kwargs)
+        plain_run(lambda: pr.predict(requests[1]), rec)
+        return codes
+
+    int8_outs = plain_run(lambda: [pred.predict_and_embed(x)
+                                   for x in requests])
+    dev = _max_rel_dev(outs, int8_outs)
+    kernel_codes = codes_of(pred, real)
+    flipped = [_codes_flipped((kernel_codes, codes_of(pr, plain_int8)))
+               for pr in (pred, plain)]
+    print(f"[10b w8a8] kernel arm vs int8 arm (the int8 kernel's plain "
+          f"version in every quantized product): max|d| / max|ref| "
+          f"{dev:.3g} (bound {W8A8_SERVE_REL_TOL}); int8 codes of the "
+          f"9-image request that differ: {flipped[0][0]:,} of "
+          f"{flipped[0][1]:,}")
+    # a fault control: every int8 product without its weight scales
+    c_dev = _max_rel_dev(plain_run(lambda: [pred.predict_and_embed(x)
+                                            for x in requests],
+                                   lambda x, w, s, group, w_kmajor=None: real(
+                                       x, w, torch.ones_like(s), group,
+                                       w_kmajor)), int8_outs)
+    print(f"[10b w8a8] control: sw dropped vs int8 arm: max|d| / max|ref| "
+          f"{c_dev:.3g} -> {'caught' if c_dev > W8A8_SERVE_REL_TOL else 'NOT CAUGHT'}")
+    plain_outs = plain_run(lambda: [plain.predict_and_embed(x)
+                                    for x in requests])
+    p_cos = min(_cosines(outs, plain_outs))
+    print(f"[10b w8a8] kernel arm vs plain arm (both kernels' plain "
+          f"versions): min embedding cosine {p_cos:.6f} (bound "
+          f"{W8A8_MIN_COSINE}); int8 codes of the 9-image request that "
+          f"differ: {flipped[1][0]:,} of {flipped[1][1]:,} "
+          f"({flipped[1][0] / flipped[1][1]:.3g}: bf16 activations one "
+          f"rounding apart upstream)")
+    del kernel_codes
+    if dev > W8A8_SERVE_REL_TOL or p_cos < W8A8_MIN_COSINE:
+        raise SystemExit("the W8A8 kernel arm disagrees with its plain arms")
+    if c_dev <= W8A8_SERVE_REL_TOL:
+        raise SystemExit("a broken int8 kernel passes the W8A8 bound")
+
+    # W8A8 against the float artifact
+    f_outs = [fpred.predict_and_embed(x) for x in requests]
+    cos = min(_cosines(outs, f_outs))
+    dl = max(float(np.abs(lg - r).max() / np.abs(r).max())
+             for (lg, _), (r, _) in zip(outs, f_outs))
+    top1 = np.mean(np.concatenate([lg.argmax(-1) == r.argmax(-1)
+                                   for (lg, _), (r, _) in zip(outs, f_outs)]))
+    print(f"[10b w8a8] W8A8 vs float artifact: min embedding cosine "
+          f"{cos:.6f} (bound {W8A8_MIN_COSINE}), max|dlogits| / max|logits| "
+          f"{dl:.4g}, top-1 agreement {top1:.3f}")
+    if cos < W8A8_MIN_COSINE:
+        raise SystemExit("the W8A8 artifact strays from the float one")
+
+    x64 = torch.from_numpy(requests[-1][:64]).to(device)
+    arms = {"w8a8 kernel": lambda: classifier_forward(pred.model, x64,
+                                                      serve_cfg),
+            "w8a8 plain": lambda: plain_run(lambda: classifier_forward(
+                pred.model, x64, plain_cfg)),
+            "float kernel": lambda: classifier_forward(fpred.model, x64,
+                                                       serve_cfg)}
+    rates, peaks = {}, {}
+    with torch.inference_mode():
+        for name in ("w8a8 plain", "w8a8 kernel", "float kernel",
+                     "float kernel", "w8a8 kernel", "w8a8 plain"):
+            ms = _time_ms(arms[name], iters=10)
+            rates.setdefault(name, []).append(64 * 1000.0 / ms)
+        for name, fn in arms.items():
+            peaks[name] = _peak_above(device, fn)
+    weights = {name: sum(t.numel() * t.element_size() for t in
+                         list(m.parameters()) + list(m.buffers())) / 1e9
+               for name, m in (("w8a8", pred.model), ("float", fpred.model))}
+    best = {name: max(r) for name, r in rates.items()}
+    print(f"[10b w8a8] b64 forward img/s (best of 2 turns): " + ", ".join(
+        f"{name} {best[name]:.1f} {rates[name]}" for name in arms)
+          + "; peak device memory above the resident weights per b64 call: "
+          + ", ".join(f"{name} {peaks[name]:.2f} GB" for name in arms)
+          + f"; resident weights W8A8 {weights['w8a8']:.3f} GB, float "
+          f"{weights['float']:.3f} GB")
+    with torch.inference_mode():
+        _print_profile("10b w8a8", "W8A8 kernel arm, one b64 call",
+                       *_profile_step(arms["w8a8 kernel"]))
+    print(f"[10b w8a8] phase took {time.perf_counter() - t0:.1f} s")
+    return launches, best
 
 
 def main() -> int:
@@ -2745,6 +3218,8 @@ def main() -> int:
     det_launches, det_rates = timed("8b", phase_det, device)
     seg_times = timed("9a", phase_seg_kernels, device)
     seg_launches, seg_rates = timed("9b", phase_seg, device)
+    int8_err, int8_times = timed("10a", phase_int8, device)
+    w8a8_launches, w8a8_rates = timed("10b", phase_w8a8, device)
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
           f"forward launches); train b64 img/s " + ", ".join(
@@ -2762,6 +3237,8 @@ def main() -> int:
           + "; segmenter b8 img/s " + ", ".join(
               f"{what} {name} {r:.2f}"
               for (what, name), (r, _) in sorted(seg_rates.items()))
+          + "; W8A8 classifier b64 img/s " + ", ".join(
+              f"{name} {r:.1f}" for name, r in w8a8_rates.items())
           + f"; whole run {time.perf_counter() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + " s)")
     print(_gpu_line())
@@ -2769,7 +3246,7 @@ def main() -> int:
     kernels = [
         ("fused_apla_attn_fwd", "fused_apla_attn_fwd.cu",
          "pallas_apla_attn.py:105",
-         serve_launches + fwd_launches + ssl_launches[0],
+         serve_launches + fwd_launches + ssl_launches[0] + w8a8_launches[1],
          {**fwd_times[main_shape], "max_abs_err": max_err}),
         ("fused_apla_attn_bwd", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn.py:131", bwd_launches + ssl_launches[1],
@@ -2794,11 +3271,26 @@ def main() -> int:
          "pallas_apla_attn_long.py:110", seg_launches[0], seg_times["fwd"]),
         ("fused_apla_attn_bwd_seg", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn_long.py:141", seg_launches[1], seg_times["bwd"]),
+        # the W8A8 serving path's qkv / fc1 / fc2 (groups = K) in the
+        # classifier (10b), the detector (8b) and the segmenter (9b)
+        ("int8_matmul", "int8_matmul.cu", "pallas_int8_matmul.py:33",
+         w8a8_launches[0] + det_launches[2] + seg_launches[2],
+         {**int8_times[INT8_MAIN], "max_abs_err": int8_err}),
     ]
     # library_ms: F.scaled_dot_product_attention (autograd through it for
     # the backward) computes the mha kernels' function; no single PyTorch
     # call computes the others, and the fused attention and window kernels'
-    # two-call yardstick (SDPA, then the projection) is reported beside them
+    # two-call yardstick (SDPA, then the projection) is reported beside
+    # them.  For the int8 GEMM, library_ms is torch._int_mm, the int8
+    # product alone (no quantization, no scales), and the bf16 torch.matmul
+    # with the dequantized weight is reported beside it
+    extra = {"fused_apla_attn_bwd_seg": {
+                 "also_replaces": "apla_tpu/ops/pallas_apla_attn_long.py:191"},
+             "int8_matmul": {
+                 "also_replaces": "apla_tpu/ops/quant.py:44 (the XLA "
+                                  "dot_general of _int8_forward, at "
+                                  "groups = K)",
+                 "library_is": "torch._int_mm (the int8 product alone)"}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"apla_tpu_torch/csrc/{src}",
@@ -2810,8 +3302,9 @@ def main() -> int:
         "library_ms": t.get("library_ms"),
         **({"library_two_calls_ms": t["library_two_calls_ms"]}
            if "library_two_calls_ms" in t else {}),
-        **({"also_replaces": "apla_tpu/ops/pallas_apla_attn_long.py:191"}
-           if name == "fused_apla_attn_bwd_seg" else {}),
+        **({"library_matmul_ms": t["library_matmul_ms"]}
+           if "library_matmul_ms" in t else {}),
+        **extra.get(name, {}),
     } for name, src, tpu, launches, t in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -283,6 +283,7 @@ def _count_plain_versions(monkeypatch):
     here as the kernels' launches."""
     from apla_tpu_torch.ops import fused_apla_attn as fa
     from apla_tpu_torch.ops import fused_swin_attn as fs
+    from apla_tpu_torch.ops import int8_matmul as im
     from apla_tpu_torch.ops import mha
     from apla_tpu_torch.ops import proto_ce as pc
 
@@ -300,7 +301,8 @@ def _count_plain_versions(monkeypatch):
                                 "proto_ce_dws")),
                           (mha, ("mha_fwd", "mha_bwd")),
                           (fs, ("fused_swin_attn_fwd",
-                                "fused_swin_attn_bwd"))):
+                                "fused_swin_attn_bwd")),
+                          (im, ("fused_int8_matmul",))):
         for name in names:
             # the counts go back to what they were when the test ends
             monkeypatch.setattr(getattr(module, name), "launches", 0)
@@ -388,8 +390,10 @@ def test_det_phase_rehearsal(monkeypatch):
     at 56 px on the CPU, b4 over 8 written PNGs: the window kernels (their
     plain versions, counted) in every block of every step and eval call,
     finite losses, frozen kept and every trainable tensor moved, --resume,
-    --eval_only, the plain arm, the export and the served detector, and the
-    kernel-vs-plain bounds with their two backward faults."""
+    --eval_only, the plain arm, the export and the served detector, the
+    W8A8 export (`export_det --quantize_frozen`) served with the int8
+    kernel in each qkv, fc1 and fc2 of every call, and the kernel-vs-plain
+    bounds with their two backward faults."""
     smoke = _chip_smoke()
     monkeypatch.setattr(smoke, "DET_RECIPE", {
         **smoke.DET_RECIPE, "img_size": 56, "embed_dim": 32,
@@ -409,9 +413,10 @@ def test_det_phase_rehearsal(monkeypatch):
     _count_plain_versions(monkeypatch)
     launches, rates = smoke.phase_det(torch.device("cpu"))
     depth, steps, evals = 6, 2, 2
-    # train, resume, eval-only, then detect at b1 and b8 (one call each)
+    # train, resume, eval-only, then detect at b1 and b8 (one call each);
+    # the W8A8 artifact asked for 1 and 8 images (one call each)
     assert launches == (depth * (2 * (steps + evals) + evals + 2),
-                        depth * 2 * steps)
+                        depth * 2 * steps, 3 * depth * 2)
     assert rates == {("train", "x"): (1.0, 0.0)}
 
 
@@ -458,8 +463,10 @@ def test_seg_phase_rehearsal(monkeypatch):
     versions, counted) in every block of every step and eval call, finite
     losses, frozen kept and every trainable tensor moved, --resume,
     --eval_only, the sliding-window evaluation, the export and the served
-    segmenter, and the kernel-vs-plain bounds with their two backward and
-    three forward faults."""
+    segmenter, the W8A8 export (`export_seg --quantize_frozen`) served with
+    the int8 kernel in each qkv, fc1 and fc2 of every call, and the
+    kernel-vs-plain bounds with their two backward and three forward
+    faults."""
     smoke = _chip_smoke()
     monkeypatch.setattr(smoke, "SEG_RECIPE", {
         **smoke.SEG_RECIPE, "backbone": "vit_tiny", "patch_size": 8,
@@ -476,19 +483,47 @@ def test_seg_phase_rehearsal(monkeypatch):
     # 1e-6, and the backward and forward faults still fail them
     from apla_tpu_torch import segdet
     bf16_config = segdet.seg_vit_config
-    monkeypatch.setattr(segdet, "seg_vit_config", lambda *a: dataclasses.replace(
-        bf16_config(*a), compute_dtype=torch.float32))
+    monkeypatch.setattr(segdet, "seg_vit_config", lambda *a, **kw: (
+        dataclasses.replace(bf16_config(*a, **kw),
+                            compute_dtype=torch.float32)))
     _count_plain_versions(monkeypatch)
     launches, rates = smoke.phase_seg(torch.device("cpu"))
     depth, steps, evals, windows = 12, 2, 5, 4
     # train, resume (a step and an eval call per batch each), eval-only,
     # sliding eval-only (4 windows a batch); then served: b1, 9 images (a
     # b8 and a b1 call), 1 image slid (4 windows: one b8 call), 9 images
-    # slid (36 windows: 5 b8 calls)
+    # slid (36 windows: 5 b8 calls); the W8A8 artifact asked for 1 and 2
+    # images (three b1 calls)
     assert launches == (depth * (2 * (steps + evals) + evals
-                                 + evals * windows + 9),
-                        depth * 2 * steps)
+                                 + evals * windows + 9 + 3),
+                        depth * 2 * steps, 3 * depth * 3)
     assert rates == {("train", "x"): (1.0, 0.0)}
+
+
+def test_w8a8_phase_rehearsal(monkeypatch):
+    """Phase 10b on the tiny recipe (ViT-Ti/8 at 32 px) on the CPU: the
+    float and W8A8 artifacts, the int8 kernel (its plain version, counted)
+    in each qkv, fc1 and fc2 and the attention kernel in every block of
+    every call, the served outputs against the in-process quantized module,
+    the kernel arm within phase 3's bounds of the plain arm and the sw
+    fault outside them, and the W8A8 artifact's cosine to the float one."""
+    smoke = _chip_smoke()
+    tiny = _tiny_recipe(smoke.RECIPE)
+    tiny["model_params"]["adaptation"]["params"] = {"partial_size": 16}
+    monkeypatch.setattr(smoke, "RECIPE", tiny)
+    monkeypatch.setattr(smoke, "SERVE_IMG", 32)
+    monkeypatch.setattr(smoke, "N_CLASSES", 10)
+    monkeypatch.setattr(smoke, "REQUESTS", (1, 9, 20))
+    monkeypatch.setattr(smoke, "BATCH_SIZES", (1, 8))
+    monkeypatch.setattr(smoke, "_time_ms", lambda fn, **kw: (fn(), 1.0)[1])
+    monkeypatch.setattr(smoke, "_peak_above", lambda device, fn: 0.0)
+    monkeypatch.setattr(smoke, "_profile_step",
+                        lambda fn: (1.0, 1.0, {}, [], []))
+    _count_plain_versions(monkeypatch)
+    launches, rates = smoke.phase_w8a8(torch.device("cpu"))
+    n_calls = 1 + 2 + 3               # 1 -> b1; 9 -> b8 + b1; 20 -> 8, 8, 8
+    assert launches == (3 * 12 * n_calls, 12 * n_calls)
+    assert set(rates) == {"w8a8 kernel", "w8a8 plain", "float kernel"}
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

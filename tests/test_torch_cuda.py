@@ -10,7 +10,9 @@ tensors.  Bound: 2e-2 of the reference's largest magnitude, per output
 (the two round p, o, dO, ds and the outputs to bf16 after f32 sums taken
 in different orders; the prototype-CE kernels round ds to bf16 as their
 plain versions do).  Reruns of the kernels that sum partials are
-bit-equal.
+bit-equal.  The int8 GEMM takes bf16 or f32 and computes what its plain
+version does, step for step (the same codes, exact int32 sums, the same
+f32 roundings): bound 2^-23 of max|ref|, and it reads 0.
 """
 
 import dataclasses
@@ -515,3 +517,95 @@ def test_fused_swin_attn_raises_instead_of_falling_back(cuda_device):
         tfs.fused_swin_attn_bwd(qkv, w, g[:, :48], bias, mask, 3, 0.1)
     assert (tfs.fused_swin_attn_fwd.launches,
             tfs.fused_swin_attn_bwd.launches) == before
+
+
+# ------------------------------------------------------------------ #
+# the int8 GEMM (W8A8 serving)
+# ------------------------------------------------------------------ #
+
+def _int8_operands(device, m, k, n, dtype, seed):
+    from apla_tpu_torch.ops.quant import QuantizedKernel, quantize_weight
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=gen).to(device, dtype)
+    w = torch.randn((k, n), generator=gen) * k ** -0.5
+    return x, QuantizedKernel(*quantize_weight(w)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group,dtype", [
+    (16448, 768, 2304, 768, torch.bfloat16),     # ViT-B qkv at b64
+    (257, 768, 3072, 768, torch.bfloat16),       # ViT-B fc1 at b1
+    (257, 3072, 768, 3072, torch.bfloat16),      # ViT-B fc2 at b1
+    (2050, 4096, 1024, 4096, torch.bfloat16),    # ViT-L fc2 at b2
+    (3136, 96, 288, 96, torch.float32),          # Swin-T stage-0 qkv
+    (49, 3072, 768, 3072, torch.float32),        # Swin-T stage-3 fc2
+    (1000, 3072, 768, 256, torch.bfloat16),      # row 13's own groups
+    (1, 64, 8, 32, torch.float32),
+])
+def test_int8_matmul_matches_plain(cuda_device, m, k, n, group, dtype):
+    """The kernel against its plain version on the same tensors: the same
+    codes, the exact int32 sums and the same f32 roundings, so equal (one
+    f32 ulp of max|ref| allowed for the sums' conversion order)."""
+    from apla_tpu_torch.ops import int8_matmul as tim
+    x, qk = _int8_operands(cuda_device, m, k, n, dtype, seed=m + k + n)
+    before = tim.fused_int8_matmul.launches
+    y = tim.fused_int8_matmul(x, qk.w_int8, qk.scale, group, qk.w_kmajor)
+    torch.cuda.synchronize()
+    assert tim.fused_int8_matmul.launches == before + 1
+    ref = tim.fused_int8_matmul_reference(x, qk.w_int8, qk.scale, group)
+    assert y.shape == (m, n) and y.dtype == dtype
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -23 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_int8_matmul_raises_instead_of_falling_back(cuda_device):
+    from apla_tpu_torch.ops import int8_matmul as tim
+    x, qk = _int8_operands(cuda_device, 64, 96, 40, torch.bfloat16, seed=0)
+    before = tim.fused_int8_matmul.launches
+    with pytest.raises(ValueError, match="K-major"):
+        tim.fused_int8_matmul(x, qk.w_int8, qk.scale, 96)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        tim.fused_int8_matmul(x[:, :80], qk.w_int8[:80], qk.scale, 80,
+                              qk.w_kmajor[:, :80].contiguous())
+    with pytest.raises(ValueError, match="multiples of 32"):
+        tim.fused_int8_matmul(x, qk.w_int8, qk.scale, 48, qk.w_kmajor)
+    with pytest.raises(ValueError, match="contiguous"):
+        tim.fused_int8_matmul(x.t().contiguous().t(), qk.w_int8, qk.scale,
+                              96, qk.w_kmajor)
+    assert tim.fused_int8_matmul.launches == before
+
+
+@pytest.mark.cuda
+def test_w8a8_serving_runs_the_int8_kernel(cuda_device, tmp_path):
+    """A quantized classifier artifact served on the card launches the int8
+    kernel in each qkv, fc1 and fc2 of every block of every call, and
+    serves what the in-process quantized module computes."""
+    from apla_tpu_torch import serve
+    from apla_tpu_torch.apla.core import AplaConfig
+    from apla_tpu_torch.models.classifier import (classifier_forward,
+                                                  init_classifier)
+    from apla_tpu_torch.models.vit import ViTConfig
+    from apla_tpu_torch.ops import int8_matmul as tim
+    from apla_tpu_torch.ops.quant import quantize_frozen_backbone
+    cfg = ViTConfig(img_size=56, patch_size=14, embed_dim=128, depth=2,
+                    num_heads=2, use_fused_apla=True)
+    model = init_classifier(cfg, 10, AplaConfig(partial_size=16),
+                            generator=torch.Generator().manual_seed(0),
+                            device=cuda_device)
+    serve.export_classifier(str(tmp_path), model, cfg, batch_sizes=(1, 4),
+                            quantize_frozen=True)
+    pred = serve.load_predictor(str(tmp_path), cuda_device)
+    x = torch.randn((5, 56, 56, 3)).numpy()
+    before = (tim.fused_int8_matmul.launches,
+              tfa.fused_apla_attn_fwd.launches)
+    got = pred.predict(x)
+    torch.cuda.synchronize()
+    assert (tim.fused_int8_matmul.launches,
+            tfa.fused_apla_attn_fwd.launches) == (before[0] + 3 * 2 * 2,
+                                                  before[1] + 2 * 2)
+    with torch.inference_mode():
+        ref = classifier_forward(quantize_frozen_backbone(model),
+                                 torch.from_numpy(x[:4]).to(cuda_device),
+                                 cfg)
+    assert torch.equal(torch.from_numpy(got[:4]), ref.float().cpu())

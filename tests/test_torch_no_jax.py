@@ -3,14 +3,15 @@ the card's machine lacks (PIL, sklearn, yaml, pandas).
 
 A fresh interpreter with a `sys.meta_path` blocker on those packages imports
 every module of the port, runs a tiny APLA classifier forward through the
-fused path, round-trips it through a serving artifact, runs a tiny APLA
+fused path, round-trips it through a serving artifact, float and W8A8, runs a tiny APLA
 "full" classifier forward and backward through the memory-efficient
 attention (`ops.mha`), takes one training step (device augmentation, mixup
 targets, accumulation) through `make_train_step`, runs the SSL pieces:
 device multi-crop with blur and solarize, the iBOT mask collate, the DINO
 head and the prototype CE with its backward, and drives the detection
 side-car: PNGs written and read, the APLA-Swin detector trained through
-the fused window path, checkpointed, exported and served, and the
+the fused window path, checkpointed, exported (float and W8A8) and
+served, and the
 segmentation side-car: an ADE20K-layout set written and read, the SETR-PUP
 segmenter trained through the fused APLA path with aux heads, checkpointed,
 exported and served.
@@ -76,6 +77,12 @@ with tempfile.TemporaryDirectory() as tmp:
     export_classifier(tmp, model, cfg, batch_sizes=(1, 2))
     served = load_predictor(tmp, "cpu").predict(x)
 assert np.array_equal(served, logits.float().numpy())
+# W8A8: int8 frozen qkv / fc1 / fc2 kernels, the int8 kernel's plain version
+with tempfile.TemporaryDirectory() as tmp:
+    export_classifier(tmp, model, cfg, batch_sizes=(1, 2),
+                      quantize_frozen=True)
+    q_served = load_predictor(tmp, "cpu").predict(x)
+assert q_served.shape == (3, 10) and np.isfinite(q_served).all()
 
 # APLA "full" on the memory-efficient attention path (ops.mha), forward and
 # backward
@@ -172,6 +179,11 @@ with tempfile.TemporaryDirectory() as tmp:
     pred = load_predictor(os.path.join(tmp, "art"), "cpu")
     assert isinstance(pred, DetPredictor)
     assert len(pred.detect(np.zeros((3, 56, 56, 3), np.float32))) == 3
+    export_detector(os.path.join(tmp, "qart"), det, cfg, (4, 8), (1, 2),
+                    quantize_frozen=True)
+    pred = load_predictor(os.path.join(tmp, "qart"), "cpu")
+    assert pred.meta["quantized_frozen"] is True
+    assert len(pred.detect(np.zeros((2, 56, 56, 3), np.float32))) == 2
 
 # the segmentation side-car: an ADE20K-layout set (PNG content under .jpg
 # names) read without PIL, the SETR-PUP segmenter trained through the fused

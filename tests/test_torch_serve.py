@@ -23,6 +23,7 @@ from apla_tpu.serve import Predictor as JaxPredictor
 from apla_tpu_torch import serve as tserve
 from apla_tpu_torch.models.classifier import classifier_from_state
 from apla_tpu_torch.models.vit import ViTConfig as TViTConfig
+from apla_tpu_torch.ops import quant as tquant
 from apla_tpu_torch.utils.pretrained import params_from_jax
 
 KW = dict(img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2,
@@ -353,9 +354,11 @@ def test_predict_slide_equals_the_slide_forward(tmp_path):
 def test_cli_export_seg_and_predict(tmp_path, capsys):
     """`export_seg` from a segdet seg_best checkpoint (bf16 as the JAX CLI
     exports, served through the fused APLA path), `info`, `predict` (argmax
-    masks, sliding windows for larger inputs); `--quantize_frozen` raises;
-    the artifact gives the checkpoint's unfused logits (bf16 bound: 2e-2 of
-    the largest)."""
+    masks, sliding windows for larger inputs); the artifact gives the
+    checkpoint's unfused logits (bf16 bound: 2e-2 of the largest).  With
+    `--quantize_frozen` the artifact holds int8 qkv / fc1 / fc2 kernels and
+    `load_predictor` serves exactly what the in-process quantized module
+    computes."""
     from apla_tpu_torch import segdet
     from apla_tpu_torch.models.seg import segmenter_forward
     from test_torch_segdet import SEG_KW, make_ade
@@ -383,8 +386,16 @@ def test_cli_export_seg_and_predict(tmp_path, capsys):
         assert "top classes" in capsys.readouterr().out
         masks = np.load(out)
         assert masks.shape == shape[:3] and masks.dtype == np.int32
-    with pytest.raises(NotImplementedError, match="B6"):
-        tserve.main(argv[:-2] + ["--quantize_frozen"])
+    q_art = str(tmp_path / "q_art")
+    tserve.main(argv[:-3] + [q_art, "--batch_sizes", "1,2",
+                             "--quantize_frozen"])
+    q_pred = tserve.load_predictor(q_art, "cpu")
+    assert q_pred.meta["quantized_frozen"] is True
+    assert isinstance(q_pred.model.backbone.blocks[0].mlp.fc1.kernel,
+                      tquant.QuantizedKernel)
+    with np.load(os.path.join(q_art, "params.npz")) as z:
+        assert z["frozen/backbone.blocks.0.attn.qkv.kernel.w_int8"].dtype \
+            == np.int8
     # served through the fused APLA kernels (plain versions here): the
     # checkpoint's logits on the unfused path
     ckpt = segdet.load_checkpoint(os.path.join(ck, "seg_best.pt"))
@@ -398,3 +409,9 @@ def test_cli_export_seg_and_predict(tmp_path, capsys):
     np.testing.assert_allclose(tserve.load_predictor(art, "cpu").predict(x),
                                plain, rtol=0,
                                atol=2e-2 * np.abs(plain).max())
+    quantized = tquant.quantize_frozen_backbone(model)
+    served_cfg = tserve._cfg_from_echo(q_pred.meta["vit_config"])
+    with torch.no_grad():
+        ref = segmenter_forward(quantized, torch.from_numpy(x),
+                                served_cfg).float().numpy()
+    np.testing.assert_array_equal(q_pred.predict(x), ref)

@@ -310,15 +310,35 @@ def test_attn_drop_rate_keeps_fused_path(monkeypatch):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
-def test_unported_paths_raise():
-    """An int8 frozen leaf (W8A8 is not ported) and use_flash on a device
-    that is neither the CPU nor a card raise instead of silently taking
-    another path."""
+def test_unported_paths_raise(tmp_path):
+    """A quantized classifier round-trips through a W8A8 serving artifact
+    on the CPU (the int8 kernels' plain versions, the served logits those
+    of the in-process quantized module); the int8 product and use_flash on
+    a device that is neither the CPU nor a card raise instead of silently
+    taking another path."""
+    from apla_tpu_torch import serve as tserve
     from apla_tpu_torch.ops.flash_attention import flash_mha
-    from apla_tpu_torch.ops.quant import maybe_quantized_dot
+    from apla_tpu_torch.ops.quant import (maybe_quantized_dot,
+                                          quantize_frozen_backbone)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        maybe_quantized_dot(torch.zeros(2, 4), {"w_int8": None, "scale": None})
+    tcfg = tvit.ViTConfig(img_size=32, patch_size=8, embed_dim=64, depth=2,
+                          num_heads=2, use_fused_apla=True)
+    model = tclf.init_classifier(
+        tcfg, 10, tcore.AplaConfig(partial_size=16),
+        generator=torch.Generator().manual_seed(0),
+        device=torch.device("cpu"))
+    tserve.export_classifier(str(tmp_path), model, tcfg, batch_sizes=(1, 2),
+                             quantize_frozen=True)
+    pred = tserve.load_predictor(str(tmp_path), "cpu")
+    x = _images(seed=7)
+    with torch.no_grad():
+        ref = tclf.classifier_forward(quantize_frozen_backbone(model),
+                                      torch.from_numpy(x), tcfg)
+    np.testing.assert_array_equal(pred.predict(x), ref.float().numpy())
+    qkv = model.backbone.blocks[0].attn.qkv
+    with pytest.raises(ValueError, match="no int8 kernel for device"):
+        maybe_quantized_dot(torch.zeros(2, 64, device="meta"),
+                            qkv.kernel.to("meta"), qkv.bias)
     q = torch.empty(1, 17, 2, 64, device="meta")
     with pytest.raises(ValueError, match="no attention kernel for device"):
         flash_mha(q, q, q, scale=0.125)
