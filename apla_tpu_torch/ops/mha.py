@@ -8,6 +8,8 @@ kernels:
 - `csrc/mha_fwd.cu` replaces `pallas_mha.py:_fwd_kernel`: per head, f32
   scores masked past N and outside the row's segment, p normalised in f32
   and rounded to the input dtype, p v accumulated in f32 and rounded once.
+  Hopper's wgmma and TMA, each head's K/V loaded once per block; its launch
+  plan (`fwd_plan`) is decided here, from the shape alone.
 - `csrc/mha_bwd.cu` replaces `pallas_mha.py:_bwd_kernel`: p recomputed,
   `dv = bf16(p)^T dO`, `dp = dO v^T`, `ds = bf16(p (dp - rowsum(dp p))
   scale)` on the f32 p, `dq = ds k`, `dk = ds^T q`, each rounded once.
@@ -29,7 +31,9 @@ backward recomputes p.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 
@@ -39,6 +43,104 @@ from .cuda_build import check_smem, device_index, device_smem, \
 FWD_SOURCE = "mha_fwd.cu"
 BWD_SOURCE = "mha_bwd.cu"
 HEAD_DIM = 64          # the kernels' head dim (every ViT builder's)
+
+# The forward kernel's launch plan (`fwd_plan`), in the units of
+# `csrc/mha_fwd.cu`: 64-row query and key tiles; a K/V slot holds one key
+# tile of K and one of V (16 KB); a block's warpgroup has two q tiles and an
+# output tile (24 KB); 1 KB aligns the base, 512 bytes hold the barriers.
+SMS = 132                        # streaming multiprocessors of the H100
+SM_SMEM = 233472                 # shared memory of one SM (228 KB)
+BLOCK_SMEM = 232448              # the most one block may use (227 KB)
+BLOCK_RESERVED = 1024            # shared memory the card keeps per block
+TILE = 64
+SLOT_BYTES = 2 * TILE * HEAD_DIM * 2
+FIXED_SMEM = 3 * TILE * HEAD_DIM * 2 + 1024 + 512
+ROW_TILES = 5                    # key tiles the row kernel holds (N <= 320)
+RING_DEPTH = 4                   # the two-pass kernel's streamed K/V ring
+# Blocks of 128 threads that the registers (65536 an SM) let one SM hold,
+# from the compiler's counts (`-Xptxas=-v`, `chip_smoke.py` phase 1): the
+# row kernel over one key tile (at most 74 registers), over two or more
+# (up to 255), the two-pass kernel (138).
+REG_BLOCKS = {"row1": 6, "row": 2, "two_pass": 3}
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """How the forward kernel covers [B, N] x H heads.
+
+    An item is (image, head, a group of `q_tiles` query tiles); a block
+    takes `items_per_block` consecutive items.  `kind` "row" (N <= 320)
+    holds the head's K/V in shared memory and each score row in
+    registers; "two_pass" takes any N, with all key tiles resident when
+    they fit (`resident`), else streamed through a ring of `slots`
+    stages.  `kv_sets`: the row kernel's K/V sets (2 when a block loads
+    the next item's K/V while it computes)."""
+    kind: str
+    n_tiles: int
+    q_tiles: int
+    groups: int
+    items: int
+    items_per_block: int
+    blocks: int
+    kv_sets: int
+    slots: int
+    resident: bool
+    smem_bytes: int
+    blocks_per_sm: int
+
+    def describe(self) -> str:
+        return (f"{self.kind}, {self.q_tiles} query tiles per item, "
+                f"{self.items_per_block} items per block, {self.blocks} "
+                f"blocks ({self.blocks_per_sm} per SM), "
+                f"{'resident' if self.resident else 'streamed'} K/V in "
+                f"{self.slots} slots, {self.smem_bytes} bytes of shared "
+                f"memory")
+
+
+def _smem(slots: int) -> int:
+    return FIXED_SMEM + slots * SLOT_BYTES
+
+
+def _per_sm(regs: str, smem: int) -> int:
+    return min(REG_BLOCKS[regs], SM_SMEM // (smem + BLOCK_RESERVED))
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(B: int, N: int, H: int, segment_len: int = 0) -> FwdPlan:
+    """The forward kernel's launch plan, a pure function of the shape.
+
+    Query tiles are split over blocks until about SMS x (blocks per SM)
+    blocks are in flight, or every block has one tile; the row kernel
+    gives each block a run of items with two K/V sets once there are more
+    items than that and two sets still leave two blocks an SM.
+    (`segment_len` changes which key tiles a block multiplies, not the
+    plan.)"""
+    del segment_len
+    n_t = -(-N // TILE)
+    heads = B * H
+    if n_t <= ROW_TILES:
+        kind, regs = "row", ("row1" if n_t == 1 else "row")
+        resident, slots = True, n_t
+    else:
+        kind = regs = "two_pass"
+        resident = _smem(n_t) <= BLOCK_SMEM
+        slots = n_t if resident else RING_DEPTH
+    per_sm = _per_sm(regs, _smem(slots))
+    target = SMS * per_sm
+    q_tiles = max(1, n_t // min(n_t, -(-target // heads)))
+    groups = -(-n_t // q_tiles)
+    items = heads * groups
+    kv_sets, per_block = 1, 1
+    if kind == "row" and items > target:
+        per_sm2 = _per_sm(regs, _smem(2 * slots))
+        if per_sm2 >= 2:
+            kv_sets, per_sm, slots = 2, per_sm2, 2 * slots
+            per_block = -(-items // (SMS * per_sm))
+    return FwdPlan(kind=kind, n_tiles=n_t, q_tiles=q_tiles, groups=groups,
+                   items=items, items_per_block=per_block,
+                   blocks=-(-items // per_block), kv_sets=kv_sets,
+                   slots=slots, resident=resident, smem_bytes=_smem(slots),
+                   blocks_per_sm=per_sm)
 
 
 def split_heads(t, num_heads):
@@ -134,9 +236,11 @@ def _check_qkv(qkv, num_heads, segment_len):
 def _fwd_library():
     lib = load_library(FWD_SOURCE)
     lib.mha_fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p] \
-        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
     lib.mha_fwd.restype = ctypes.c_int
+    lib.mha_fwd_prepare.argtypes = [ctypes.c_int]
+    lib.mha_fwd_prepare.restype = ctypes.c_int
     return lib
 
 
@@ -155,13 +259,26 @@ def _bwd_library():
 
 def _launch_fwd(qkv, num_heads, scale, segment_len):
     B, N, C = _check_qkv(qkv, num_heads, segment_len)
+    plan = fwd_plan(B, N, num_heads, segment_len)
+    if plan.blocks >= 2 ** 31:
+        raise ValueError(f"batch {B} x length {N} x {num_heads} heads "
+                         "outside the kernel's grid")
     lib = _fwd_library()
     dev = device_index(qkv)
+    check_smem(plan.smem_bytes,
+               device_smem(_fwd_library, "mha_fwd_prepare", dev),
+               "the forward")
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mha_fwd(qkv.data_ptr(), out.data_ptr(), B, N, C, num_heads,
-                          float(scale), int(segment_len), stream)
+                          float(scale), int(segment_len),
+                          int(plan.kind == "two_pass"), plan.q_tiles,
+                          plan.items_per_block, plan.kv_sets, plan.slots,
+                          int(plan.resident), plan.smem_bytes, stream)
+    if err >= 1000:
+        raise RuntimeError(f"mha_fwd: tensor map not encoded: CUresult "
+                           f"{err - 1000}")
     if err != 0:
         raise RuntimeError(f"mha_fwd launch failed: cudaError {err}")
     mha_fwd.launches += 1

@@ -48,8 +48,12 @@ and raise on failure:
                train-step img/s and peak memory of both arms; a profile.
   7a. mha    — the memory-efficient attention kernels (forward, backward)
                against their plain versions at N=257 (b1, b8, b64), N=50
-               (b512), N=1370, a segmented and a ragged case; timed at b64
-               N=257 beside the bound and F.scaled_dot_product_attention.
+               (b512), N=1370, a segmented and two ragged cases, and the
+               forward's launch-plan boundaries (N=320, 321, 768, 769); the
+               forward timed (launched one by one and from a CUDA graph)
+               beside the bound and F.scaled_dot_product_attention at every
+               shape the port's paths give it, with its launch plan; the
+               backward timed at b64 N=257.
   7b. full   — the ImageNet recipe at `partial_size: "full"` (FULL_RECIPE:
                the whole projection of every block trainable, the recipe's
                `is_memory_efficient: true`) served as in phase 3 and trained
@@ -447,12 +451,24 @@ FULL_CUTS = {**copy.deepcopy(SMOKE_CUTS), "dataloader_params": {
 # Phase 7a: (batch, tokens, segment_len) of the memory-efficient attention
 # kernels against their plain versions: b1 and b64 served calls and the b8
 # training micro-batch at N=257, the SSL local crops (N=50), the 518-crop
-# length (keys over 22 tiles), packed segments, and a ragged N.  Bound per
-# output (o; dq, dk, dv): KERNEL_REL_TOL of the reference's largest
-# magnitude.  The controls run at the b8 case.
+# length (keys over 22 tiles), packed segments, a ragged N, N below one
+# tile, and the forward's launch-plan boundaries (ops/mha.py fwd_plan):
+# N=320, the longest the row kernel holds (five whole key tiles), N=321 the
+# two-pass kernel's first with K/V resident, N=768 its longest resident (12
+# whole tiles), N=769 its first streamed.  Bound per output (o; dq, dk,
+# dv): KERNEL_REL_TOL of the reference's largest magnitude.  The controls
+# run at the b8 case, the unmasked-padding control at MHA_PAD_CASES.
 MHA_CASES = ((1, 257, 0), (8, 257, 0), (64, 257, 0), (512, 50, 0),
-             (2, 1370, 0), (8, 200, 50), (3, 100, 0))
-MHA_TIMED = (64, 257)
+             (2, 1370, 0), (8, 200, 50), (3, 100, 0), (3, 17, 0),
+             (2, 320, 0), (2, 321, 0), (2, 768, 0), (2, 769, 0))
+# The forward timed at every shape the port's paths give it (b1, b8, b64 at
+# N=257, the local crops, the 518 crop); the first is the kernels line's.
+MHA_TIMED = ((64, 257), (1, 257), (8, 257), (512, 50), (2, 1370))
+# Where a forward that forgot the column mask would weigh the zero-filled
+# padding of its last key tile: N=17 (the row kernel multiplies 32 keys)
+# and N=321 (the two-pass kernel, 384).  At N=257 the row kernel pads only
+# to 272, and 15 zero keys among 257 move the output by about the bound.
+MHA_PAD_CASES = ((3, 17, 0), (2, 321, 0))
 # Phase 8a: the Swin window kernels (TPU rows 3, 4) at the window batches
 # of the APLA-Swin-T detector below: at b16 and 224, stage s holds
 # (56 >> s)^2 / 49 windows of 49 tokens per image, C = 96 << s and
@@ -1065,6 +1081,31 @@ def _rowsum_dropped(qkv, d_o, dqkv, heads, scale, seg):
     return (dqkv.float() + extra).to(dqkv.dtype)
 
 
+def _fwd_key_extent(n):
+    """The keys the forward kernel multiplies at length n: the row kernel
+    takes its last tile as wide as n needs, rounded up to 16; the two-pass
+    kernel whole 64-row tiles."""
+    from apla_tpu_torch.ops import mha as tmha
+    plan = tmha.fwd_plan(1, n, 12)
+    if plan.kind == "row":
+        return 64 * (plan.n_tiles - 1) + 16 * -(-(n - 64 * (plan.n_tiles - 1))
+                                                // 16)
+    return 64 * plan.n_tiles
+
+
+def _graph_ms(fn, calls=20, iters=10) -> float:
+    """Device ms per call of `fn`, from a CUDA graph of `calls` calls (no
+    host time between launches; the small shapes are host-bound when
+    launched one by one)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return _time_ms(graph.replay, iters=iters, warmup=2) / calls
+
+
 def phase_mha(device):
     """7a: the memory-efficient attention kernels against their plain
     versions at MHA_CASES, five fault controls, and times at MHA_TIMED."""
@@ -1081,6 +1122,18 @@ def phase_mha(device):
 
     def both(fwd, bwd, qkv, d_o, sc, seg):
         return fwd(qkv, heads, sc, seg), bwd(qkv, d_o, heads, sc, seg)
+
+    def run_controls(controls, ref):
+        for name, (fault, broken) in controls.items():
+            c_errs = _mha_errors(fault(), ref)
+            caught = all(c_errs[k][0] > c_errs[k][1] for k in broken)
+            print(f"[7a mha] control {name}: " + ", ".join(
+                f"{k} {e:.6g}" for k, (e, _) in c_errs.items())
+                + f" -> {'caught' if caught else 'NOT CAUGHT'} in "
+                f"{list(broken)}")
+            if not caught:
+                raise SystemExit(f"the mha bound misses a broken kernel "
+                                 f"({name})")
 
     for b, n, seg in MHA_CASES:
         qkv, d_o = inputs(b, n)
@@ -1099,70 +1152,88 @@ def phase_mha(device):
         worst["fwd"] = max(worst["fwd"], errs["o"][0])
         worst["bwd"] = max(worst["bwd"], *(errs[k][0] for k in
                                            ("dq", "dk", "dv")))
+        out, dqkv = got
+        if (b, n, seg) in MHA_PAD_CASES:
+            # the zero-filled keys of the kernel's last tile counted as keys,
+            # as a kernel that forgot the column mask would
+            pad = _fwd_key_extent(n) - n
+            run_controls({
+                f"padding columns left unmasked (N {n} -> {n + pad})": (
+                    lambda: (tmha.mha_fwd(torch.nn.functional.pad(
+                        qkv, (0, 0, 0, pad)), heads, scale, seg)[:, :n],
+                        dqkv), ("o",))}, ref)
         if (b, n, seg) != (8, 257, 0):
             continue
         # Fault controls: the working kernels made to compute what broken
         # ones would, each against this case's plain versions.
-        out, dqkv = got
-        pad = 64 * -(-n // 64) - n
-        controls = {
+        run_controls({
             "output halved": (lambda: (out * 0.5, dqkv), ("o",)),
             "uniform p (scale 0)": (
                 lambda: both(tmha.mha_fwd, tmha.mha_bwd, qkv, d_o, 0.0, seg),
                 ("o", "dq", "dk", "dv")),
-            # the zero-filled rows of the last 64-row key tile counted as
-            # keys, as a kernel that forgot the column mask would
-            f"padding columns left unmasked (N {n} -> {n + pad})": (
-                lambda: (tmha.mha_fwd(torch.nn.functional.pad(
-                    qkv, (0, 0, 0, pad)), heads, scale, seg)[:, :n], dqkv),
-                ("o",)),
             "dq zeroed": (lambda: (out, _zero_third(dqkv, 0)), ("dq",)),
             "rowsum(dp * p) dropped from ds": (
                 lambda: (out, _rowsum_dropped(qkv, d_o, dqkv, heads, scale,
                                               seg)), ("dq", "dk")),
-        }
-        for name, (fault, broken) in controls.items():
-            c_errs = _mha_errors(fault(), ref)
-            caught = all(c_errs[k][0] > c_errs[k][1] for k in broken)
-            print(f"[7a mha] control {name}: " + ", ".join(
-                f"{k} {e:.6g}" for k, (e, _) in c_errs.items())
-                + f" -> {'caught' if caught else 'NOT CAUGHT'} in "
-                f"{list(broken)}")
-            if not caught:
-                raise SystemExit(f"the mha bound misses a broken kernel "
-                                 f"({name})")
+        }, ref)
 
-    # times at the served b64 shape: kernels, plain versions, SDPA (its
-    # backward: autograd through it, into the packed qkv), bounds
-    b, n = MHA_TIMED
-    qkv, d_o = inputs(b, n)
+    # the forward at every timed shape: kernel (launched one by one, from a
+    # CUDA graph, and the host's time per launch: its checks, its launch
+    # plan, the two tensor maps it encodes), SDPA (both ways), bound, launch
+    # plan; the backward,
+    # the plain versions and SDPA's autograd at the served b64 shape
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for b, n in MHA_TIMED:
+        qkv, d_o = inputs(b, n)
+        q, k, v = qkv.unflatten(-1, (3, heads, 64)).permute(2, 0, 3, 1, 4)
+        kernel = lambda: tmha.mha_fwd(qkv, heads, scale)  # noqa: E731
+        library = lambda: sdpa(q, k, v, scale=scale)  # noqa: E731
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            kernel()
+        host_ms = (time.perf_counter() - t0) * 10
+        t = {"ms": _time_ms(kernel), "graph_ms": _graph_ms(kernel),
+             "host_ms": host_ms,
+             "library_ms": _time_ms(library),
+             "library_graph_ms": _graph_ms(library),
+             "max_abs_err": worst["fwd"]}
+        t["bound_ms"], t["bound_by"] = _bound(4 * b * n * n * c,
+                                              2 * 4 * b * n * c)
+        if (b, n) == MHA_TIMED[0]:
+            t["plain_ms"] = _time_ms(
+                lambda: tmha.mha_fwd_reference(qkv, heads, scale), iters=5)
+        times[("fwd", b, n)] = t
+        plan = tmha.fwd_plan(b, n, heads)
+        print(f"[7a mha] fwd b{b} N={n} C={c}: kernel {t['ms']:.4f} ms "
+              f"({t['graph_ms']:.4f} from a CUDA graph; the host takes "
+              f"{t['host_ms']:.4f} to launch one), SDPA "
+              f"{t['library_ms']:.4f} ({t['library_graph_ms']:.4f}), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{t['bound_ms'] / t['graph_ms']:.1%} of it reached); plan: "
+              + plan.describe())
+    b, n = MHA_TIMED[0]
+    qkv, d_o = inputs(b, n)
     lq = qkv.clone().requires_grad_()
     lout = sdpa(*lq.unflatten(-1, (3, heads, 64)).permute(2, 0, 3, 1, 4),
                 scale=scale)
     lg = d_o.unflatten(-1, (heads, 64)).transpose(1, 2)
-    q, k, v = qkv.unflatten(-1, (3, heads, 64)).permute(2, 0, 3, 1, 4)
-    work = {"fwd": (4 * b * n * n * c, 2 * 4 * b * n * c),
-            "bwd": (10 * b * n * n * c, 2 * 7 * b * n * c)}
-    calls = {
-        "fwd": (lambda: tmha.mha_fwd(qkv, heads, scale),
-                lambda: tmha.mha_fwd_reference(qkv, heads, scale),
-                lambda: sdpa(q, k, v, scale=scale)),
-        "bwd": (lambda: tmha.mha_bwd(qkv, d_o, heads, scale),
-                lambda: tmha.mha_bwd_reference(qkv, d_o, heads, scale),
-                lambda: torch.autograd.grad(lout, lq, lg, retain_graph=True)),
-    }
-    times = {}
-    for name, (kernel, plain, library) in calls.items():
-        t = {"ms": _time_ms(kernel), "plain_ms": _time_ms(plain, iters=5),
-             "library_ms": _time_ms(library), "max_abs_err": worst[name]}
-        t["bound_ms"], t["bound_by"] = _bound(*work[name])
-        times[name] = t
-        print(f"[7a mha] {name} b{b} N={n} C={c}: kernel {t['ms']:.4f} ms, "
-              f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
-              f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
-    return times
+    t = {"ms": _time_ms(lambda: tmha.mha_bwd(qkv, d_o, heads, scale)),
+         "plain_ms": _time_ms(lambda: tmha.mha_bwd_reference(
+             qkv, d_o, heads, scale), iters=5),
+         "library_ms": _time_ms(lambda: torch.autograd.grad(
+             lout, lq, lg, retain_graph=True)),
+         "max_abs_err": worst["bwd"]}
+    t["bound_ms"], t["bound_by"] = _bound(10 * b * n * n * c,
+                                          2 * 7 * b * n * c)
+    print(f"[7a mha] bwd b{b} N={n} C={c}: kernel {t['ms']:.4f} ms, "
+          f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+          f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+    fwd = times[("fwd", b, n)]
+    print(f"[7a mha] fwd b{b} N={n}: plain {fwd['plain_ms']:.4f} ms")
+    return {"fwd": fwd, "bwd": t, "fwd_by_shape": times}
 
 
 def phase_full(device):
@@ -3278,13 +3349,25 @@ def main() -> int:
          {**int8_times[INT8_MAIN], "max_abs_err": int8_err}),
     ]
     # library_ms: F.scaled_dot_product_attention (autograd through it for
-    # the backward) computes the mha kernels' function; no single PyTorch
+    # the backward) computes the mha kernels' function (the forward's
+    # graph_ms and library_graph_ms: both from CUDA graphs, and its times
+    # at every MHA_TIMED shape); no single PyTorch
     # call computes the others, and the fused attention and window kernels'
     # two-call yardstick (SDPA, then the projection) is reported beside
     # them.  For the int8 GEMM, library_ms is torch._int_mm, the int8
     # product alone (no quantization, no scales), and the bf16 torch.matmul
     # with the dequantized weight is reported beside it
-    extra = {"fused_apla_attn_bwd_seg": {
+    extra = {"mha_fwd": {
+                 "redesigned": "PR 8",
+                 "graph_ms": mha_times["fwd"]["graph_ms"],
+                 "library_graph_ms": mha_times["fwd"]["library_graph_ms"],
+                 "by_shape": [{
+                     "shape": [b, n, 2304],
+                     **{k: t[k] for k in ("ms", "graph_ms", "host_ms",
+                                          "library_ms", "library_graph_ms",
+                                          "bound_ms")}}
+                     for (_, b, n), t in mha_times["fwd_by_shape"].items()]},
+             "fused_apla_attn_bwd_seg": {
                  "also_replaces": "apla_tpu/ops/pallas_apla_attn_long.py:191"},
              "int8_matmul": {
                  "also_replaces": "apla_tpu/ops/quant.py:44 (the XLA "

@@ -325,6 +325,13 @@ def _mha_inputs(device, b, n, c, seed):
     (1, 1, 0, 768),
     (2, 257, 0, 192),     # ViT-Ti: 3 heads
     (4, 65, 13, 384),     # ViT-S
+    # the forward's launch-plan boundaries (ops/mha.py fwd_plan)
+    (2, 320, 0, 768),     # the row kernel's longest N, five whole key tiles
+    (2, 321, 0, 768),     # the two-pass kernel's first, K/V resident
+    (2, 768, 0, 768),     # its longest resident N, 12 whole key tiles
+    (2, 769, 0, 768),     # its first streamed N
+    (2, 128, 0, 768),     # an exact multiple of the key tile
+    (2, 1370, 100, 768),  # streamed, with segments
 ])
 def test_mha_kernels_match_plain(cuda_device, b, n, seg, c):
     qkv, d_o = _mha_inputs(cuda_device, b, n, c, seed=n + seg + c)
@@ -350,10 +357,16 @@ def test_mha_kernels_match_plain(cuda_device, b, n, seg, c):
 
 @pytest.mark.cuda
 def test_mha_kernels_are_deterministic(cuda_device):
-    """No atomics: reruns give the same bits."""
+    """No atomics: reruns give the same bits (the forward's TMA loads and
+    wgmma products too, at each of its kernels: row, two-pass resident and
+    streamed)."""
     qkv, d_o = _mha_inputs(cuda_device, 8, 257, 768, seed=1)
     assert torch.equal(tmha.mha_fwd(qkv, 12, 0.125),
                        tmha.mha_fwd(qkv, 12, 0.125))
+    for n in (321, 1370):
+        x = _mha_inputs(cuda_device, 2, n, 768, seed=n)[0]
+        assert torch.equal(tmha.mha_fwd(x, 12, 0.125),
+                           tmha.mha_fwd(x, 12, 0.125))
     assert torch.equal(tmha.mha_bwd(qkv, d_o, 12, 0.125),
                        tmha.mha_bwd(qkv, d_o, 12, 0.125))
 

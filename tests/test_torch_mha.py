@@ -162,3 +162,85 @@ def test_other_devices_raise():
         tmha.mha_fwd(qkv, H, SCALE)
     with pytest.raises(ValueError, match="no attention kernel"):
         tmha.mha_bwd(qkv, qkv[..., :H * DH], H, SCALE)
+
+
+# ---- the forward kernel's launch plan (ops/mha.py fwd_plan) ---------------
+# The CUDA forward takes its plan from the wrapper; these hold the plan's
+# promises on the CPU.  Shapes: phase 7a's and tests/test_torch_cuda.py's
+# (batch, N, heads), then sweeps of every N in 1..2048 at the port's batches.
+
+PLAN_SHAPES = [
+    (1, 257, 12), (8, 257, 12), (64, 257, 12), (512, 50, 12), (2, 1370, 12),
+    (8, 200, 12), (3, 100, 12), (3, 17, 12), (1, 1, 12), (2, 100, 12),
+    (2, 257, 3), (4, 65, 6), (2, 320, 12), (2, 321, 12), (2, 768, 12),
+    (2, 769, 12), (2, 128, 12)]
+SWEEP_BATCHES = [(1, 12), (2, 12), (8, 12), (64, 12), (512, 12), (2, 3),
+                 (4, 6), (8, 16)]
+
+
+def _check_plan(B, N, H, seg):
+    plan = tmha.fwd_plan(B, N, H, seg)
+    n_t = -(-N // tmha.TILE)
+    assert plan.n_tiles == n_t
+    # every query tile of every (image, head) exactly once, as the kernel
+    # walks them: block -> its run of items -> (image, head, group) -> tiles
+    assert plan.groups * plan.q_tiles >= n_t > (plan.groups - 1) * plan.q_tiles
+    assert plan.items == B * H * plan.groups
+    assert (plan.blocks * plan.items_per_block >= plan.items
+            > (plan.blocks - 1) * plan.items_per_block)
+    # shared memory: within a block's 227 KB, and the blocks the plan counts
+    # on fit an SM's 228 KB
+    fixed = tmha.FIXED_SMEM
+    assert plan.smem_bytes == fixed + plan.slots * tmha.SLOT_BYTES
+    assert plan.smem_bytes <= 232448
+    assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= 233472
+    # the head is resident exactly when all its key tiles' K and V fit
+    fits = fixed + n_t * tmha.SLOT_BYTES <= 232448
+    assert plan.resident == fits
+    if plan.kind == "row":
+        assert n_t <= tmha.ROW_TILES and plan.slots == plan.kv_sets * n_t
+        # a run of items only with a second K/V set to load the next into
+        assert plan.items_per_block == 1 or plan.kv_sets == 2
+    else:
+        assert n_t > tmha.ROW_TILES and plan.kv_sets == 1
+        assert plan.slots == (n_t if fits else tmha.RING_DEPTH)
+        assert plan.items_per_block == 1
+    # enough blocks to fill the card, wherever the tiles allow it
+    assert plan.blocks >= min(tmha.SMS, B * H * n_t)
+    return plan
+
+
+@pytest.mark.parametrize("B,N,H", PLAN_SHAPES)
+@pytest.mark.parametrize("seg", [0, 50])
+def test_fwd_plan_at_the_kernel_shapes(B, N, H, seg):
+    """Coverage, shared memory, residency and grid size at the shapes the
+    port's paths and the card's tests launch."""
+    _check_plan(B, N, H, seg)
+
+
+@pytest.mark.parametrize("B,H", SWEEP_BATCHES)
+@pytest.mark.parametrize("seg", [0, 7])
+def test_fwd_plan_sweep(B, H, seg):
+    """The same promises for every N in 1..2048; the kernels switch where
+    the records say (row kernel up to N = 320, K/V resident up to 768)."""
+    kinds = {}
+    for n in range(1, 2049):
+        plan = _check_plan(B, n, H, seg)
+        kinds.setdefault((plan.kind, plan.resident), []).append(n)
+    assert kinds[("row", True)] == list(range(1, 321))
+    assert kinds[("two_pass", True)] == list(range(321, 769))
+    assert kinds[("two_pass", False)] == list(range(769, 2049))
+
+
+def test_fwd_plan_served_shapes():
+    """The plans the records quote: one block per (image, head) over all
+    five query tiles at b64, the tiles split at b1 and b8, runs of items
+    with two K/V sets at the local crops, a ring for the 518 crop."""
+    b64 = tmha.fwd_plan(64, 257, 12)
+    assert (b64.kind, b64.q_tiles, b64.blocks) == ("row", 5, 768)
+    assert tmha.fwd_plan(1, 257, 12).q_tiles == 1
+    assert tmha.fwd_plan(8, 257, 12).q_tiles == 1
+    crops = tmha.fwd_plan(512, 50, 12)
+    assert crops.kv_sets == 2 and crops.items_per_block > 1
+    long = tmha.fwd_plan(2, 1370, 12)
+    assert (long.kind, long.resident) == ("two_pass", False)
