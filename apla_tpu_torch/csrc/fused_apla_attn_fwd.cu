@@ -1,19 +1,16 @@
-// Fused APLA attention forward for Hopper (sm_90a): per-head softmax
-// attention followed by the assembled APLA output projection, in one kernel.
-// One template serves two TPU kernels:
+// Fused Swin window attention forward for Hopper (sm_90a): per-head
+// softmax attention followed by the window block's output projection, in
+// one kernel.  The Swin window kernel (DH = 32, BIAS) replaces
+// apla_tpu/ops/pallas_apla_attn.py:_fwd_kernel_bias (called through
+// _call_fwd_swin), the ViT kernel's body with the relative-position bias
+// and the shift mask added to the scores.
 //
-//  * the ViT kernel (DH = 64, no bias) replaces
-//    apla_tpu/ops/pallas_apla_attn.py:_fwd_kernel (called through _call_fwd);
-//  * the same ViT kernel also stands for the q-strip long kernel,
-//    apla_tpu/ops/pallas_apla_attn_long.py:_fwd_kernel (called through
-//    _call_fwd), which computes this function for N past the monolithic
-//    kernel's VMEM envelope: the blocks here tile queries and keys at any
-//    N (ViT-L/16 at 512: N = 1025, C = 1024, o_cat 129 KB of shared memory,
-//    224 KB in all against the 227 KB a block may opt in to);
-//  * the Swin window kernel (DH = 32, BIAS) replaces
-//    pallas_apla_attn.py:_fwd_kernel_bias (called through _call_fwd_swin),
-//    which is the same body with the relative-position bias and the shift
-//    mask added to the scores.
+// The template's ViT instantiation (DH = 64, no bias, the segment mask)
+// served pallas_apla_attn.py:_fwd_kernel and pallas_apla_attn_long.py:
+// _fwd_kernel until their forward became two launches on the card, the
+// attention (mha_fwd.cu) and the projection GEMM (apla_proj_gemm.cu), with
+// this kernel's rounding points and sum orders; its DH = 64 and seg paths
+// are kept so that the window kernels' code is unchanged.
 //
 // Contract, exactly those kernels':
 //
@@ -36,17 +33,12 @@
 // Swin window's 49 tokens are one 64-row tile, 15 rows zero-filled, masked
 // and stored nowhere); no padding is needed.
 //
-// What bounds it on the H100: at the served ViT shape (B=64, N=257,
-// C=768) the work is 32 GFLOP of bf16 matrix products (39 with pass 2's
-// recomputed scores, below) against ~102 MB of device traffic, far above
-// the card's ~295 FLOP/byte balance point, so it is bound by the tensor
-// cores and by how well their latency is hidden, not by HBM.  A Swin
-// window is small (N=49): at stage 0 of a b16 batch (1024 windows, C=96)
-// the work is 1.87 GFLOP against 39 MB, so its bound is bytes, and launch
-// and per-block latency weigh more than tile speed.
-// The fusion keeps what the TPU kernel keeps out of device memory: the
-// [B, N, C] attention output lives in shared memory (o_cat, 97 KB at C=768)
-// and feeds the projection from there.
+// What bounds it on the H100: a Swin window is small (N=49): at stage 0 of
+// a b16 batch (1024 windows, C=96) the work is 1.87 GFLOP against 39 MB,
+// so its bound is bytes, and launch and per-block latency weigh more than
+// tile speed.  The fusion keeps what the TPU kernel keeps out of device
+// memory: the [B, N, C] attention output lives in shared memory (o_cat,
+// 64 x C) and feeds the projection from there.
 //
 // Design (right first; wgmma/TMA and warp specialisation are later work):
 //  * one block of 8 warps per (image or window, tile of 64 query rows).
@@ -346,37 +338,14 @@ int smem_optin(int device) {
 
 extern "C" {
 
-// Dynamic shared memory the kernel needs at width C (bytes), either variant.
-long long fused_apla_attn_fwd_smem_bytes(int C) {
+// Dynamic shared memory the kernel needs at width C (bytes).
+long long fused_swin_attn_fwd_smem_bytes(int C) {
   return (long long)smem_bytes_for(C);
 }
 
-// Opt the ViT kernel in to the largest dynamic shared memory a block may
-// have on the current device, `device`; returns that size in bytes, or -1.
-// Called once per device, before the first launch there.
-int fused_apla_attn_fwd_prepare(int device) {
-  const int v = smem_optin(device);
-  return (v >= 0 && opt_in<64, false, 64>(v)) ? v : -1;
-}
-
-// Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
-// The caller checks shapes: C == H * 64, 16-byte aligned contiguous
-// tensors, and that the shared memory fits what
-// fused_apla_attn_fwd_prepare opted in to.
-int fused_apla_attn_fwd(const void* qkv, const void* w, void* out, int B,
-                        int N, int C, int H, float scale, int seg,
-                        void* stream) {
-  const size_t smem = smem_bytes_for(C);
-  dim3 grid((N + BM - 1) / BM, B);
-  fused_apla_attn_fwd_kernel<64, false, 64>
-      <<<grid, NT, smem, (cudaStream_t)stream>>>(
-          static_cast<const bf16*>(qkv), static_cast<const bf16*>(w),
-          nullptr, nullptr, static_cast<bf16*>(out), N, C, H,
-          scale * mma::LOG2E, scale, seg, 1);
-  return (int)cudaGetLastError();
-}
-
-// The Swin window kernel's counterpart of fused_apla_attn_fwd_prepare.
+// Opt the Swin window kernels in to the largest dynamic shared memory a
+// block may have on the current device, `device`; returns that size in
+// bytes, or -1.  Called once per device, before the first launch there.
 int fused_swin_attn_fwd_prepare(int device) {
   const int v = smem_optin(device);
   return (v >= 0 && opt_in<32, true, 64>(v) && opt_in<32, true, 32>(v))

@@ -11,7 +11,9 @@
 //    address; 8-row groups are 1024 bytes apart (SBO);
 //  * MN-major (rows = the contraction, columns = N) for the B operand of
 //    p v: a k16 step is 16 rows (2048 bytes); 8-row groups are 1024 bytes
-//    apart, and with N = 64 one swizzle row spans all of N.
+//    apart, and with N = 64 one swizzle row spans all of N.  A wider
+//    MN-major B (the projection GEMM's) is N / 64 such tiles side by side,
+//    the descriptor's leading byte offset apart.
 //
 // wgmma accumulator layout (m64nN, f32): warp w of the warpgroup holds rows
 // 16w + g and 16w + g + 8 (lane = 4g + t); d[4j + e] is row 16w + g, column
@@ -51,6 +53,12 @@ __device__ __forceinline__ void mbar_init_fence() {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// One plain arrival (no transaction bytes).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
 }
 
 // Spin until the barrier's phase `parity` has completed.
@@ -160,6 +168,11 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Wait until at most one committed group is still running.
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
 #define SM90_R8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), \
     "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), \
     "+f"(d[i + 7])
@@ -216,6 +229,56 @@ __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a, uint64_t b,
       " %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
       " %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N f32) (+)= A (64 x 16, K-major tile) B (16 x N, MN-major: N / 64
+// tiles of 64 columns side by side, the descriptor's leading byte offset
+// apart), both bf16 from shared memory; accumulate = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tb(float* d, uint64_t a, uint64_t b,
+                                            int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<128>(float* d, uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24), SM90_R8(32),
+        SM90_R8(40), SM90_R8(48), SM90_R8(56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<256>(float* d, uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117,"
+      " %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24), SM90_R8(32),
+        SM90_R8(40), SM90_R8(48), SM90_R8(56), SM90_R8(64), SM90_R8(72),
+        SM90_R8(80), SM90_R8(88), SM90_R8(96), SM90_R8(104),
+        SM90_R8(112), SM90_R8(120)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

@@ -102,6 +102,30 @@ def device_smem(library, prepare: str, dev: int) -> int:
     return have
 
 
+class launch_context:
+    """`with launch_context(t) as stream:` makes CUDA tensor t's device the
+    current one (if it is not) and gives PyTorch's current stream there as
+    a raw handle (a `cudaStream_t` as an int), which a kernel launches on.
+    One device check and one stream lookup per call, however many launches
+    it holds: the small shapes are bound by the host's time per launch."""
+
+    __slots__ = ("dev", "guard")
+
+    def __init__(self, t: torch.Tensor):
+        self.dev = t.device.index
+        self.guard = None if self.dev == torch.cuda.current_device() \
+            else torch.cuda.device(self.dev)
+
+    def __enter__(self) -> int:
+        if self.guard is not None:
+            self.guard.__enter__()
+        return torch._C._cuda_getCurrentRawStream(self.dev)
+
+    def __exit__(self, *exc):
+        if self.guard is not None:
+            self.guard.__exit__(*exc)
+
+
 def check_smem(need: int, have: int, what: str) -> None:
     if need > have:
         raise ValueError(

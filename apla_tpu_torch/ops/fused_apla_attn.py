@@ -2,18 +2,24 @@
 projection in one kernel, and its backward.
 
 Counterpart of `apla_tpu/ops/pallas_apla_attn.py` (`fused_apla_attention`
-and its custom VJP).  Two hand-written CUDA kernels replace the TPU kernels:
+and its custom VJP).  Hand-written CUDA kernels replace the TPU kernels:
 
-- `csrc/fused_apla_attn_fwd.cu` replaces `pallas_apla_attn.py:_fwd_kernel`:
-  per head, f32 scores masked to the row's segment, p rounded to the input
-  dtype, p v, the heads concatenated and multiplied by the assembled
-  `[C, C]` projection without the attention output leaving the chip.  The
-  bias is added outside the kernel.
+- `pallas_apla_attn.py:_fwd_kernel` (per head, f32 scores masked to the
+  row's segment, p rounded to the input dtype, p v, the heads concatenated
+  and multiplied by the assembled `[C, C]` projection) is two launches on
+  the card, split at the head concatenation: the memory-efficient
+  attention forward (`csrc/mha_fwd.cu`, through `ops/mha.launch_fwd`)
+  writes o `[B, N, C]` to a scratch tensor, and `csrc/apla_proj_gemm.cu`
+  (`ops/apla_proj_gemm.launch`) multiplies it by the projection over the
+  B * N rows.  Both keep the TPU kernel's rounding points and this port's
+  earlier single kernel's sum orders, so the output is that kernel's bit
+  for bit; o makes one round trip through the card's L2.  The bias is
+  added outside the kernels.
 - `csrc/fused_apla_attn_bwd.cu` replaces `pallas_apla_attn.py:_bwd_kernel`:
   p recomputed, `dO = g W^T`, `dq/dk/dv` packed `[B, N, 3C]`, and
   `dW_t = o_cat^T g[..., inds]` summed over the batch, in f32.
 
-The same two kernels stand for the TPU's q-strip "long" kernels
+The same kernels stand for the TPU's q-strip "long" kernels
 (`apla_tpu/ops/pallas_apla_attn_long.py`: `_fwd_kernel` through `_call_fwd`,
 `_bwda_kernel` through `_call_bwda`, `_bwdb_kernel` through `_call_bwdb`),
 which compute the same function for N past the monolithic kernel's VMEM
@@ -25,9 +31,12 @@ kernel here, like the monolithic one, takes rowsum(dp * p) on the f32 p.)
 
 `fused_apla_attn_fwd` / `fused_apla_attn_bwd` are the wrappers: on a CPU
 tensor they run the plain PyTorch versions below (`*_reference`), on a CUDA
-tensor they launch the kernel or raise.  Each wrapper's `launches` counts its
-kernel launches (one per call, and nothing else).  `FusedAplaAttention` is
-the autograd `Function` over both, with the JAX custom VJP's contract.
+tensor they launch the kernels or raise.  Each wrapper's `launches` counts
+its calls that launched (one per call, and nothing else: a forward call
+launches the attention kernel and the GEMM once each, and counts neither
+in `mha_fwd.launches` nor in `apla_proj_gemm.launches`).
+`FusedAplaAttention` is the autograd `Function` over both, with the JAX
+custom VJP's contract.
 """
 
 from __future__ import annotations
@@ -37,13 +46,14 @@ import functools
 
 import torch
 
+from . import apla_proj_gemm as proj_gemm
+from . import mha
 from .apla_proj import assemble
 from .cuda_build import check_smem, device_index, device_smem, \
-    load_library
+    launch_context, load_library
 from .mha import (HEAD_DIM, attention_grads, merge_heads, mha_fwd_reference,
                   split_heads)
 
-_SOURCE = "fused_apla_attn_fwd.cu"
 _BWD_SOURCE = "fused_apla_attn_bwd.cu"
 _KP = 64               # the backward pads the trainable columns to this
 
@@ -107,7 +117,7 @@ def _check_cuda_args(qkv, w, num_heads, segment_len):
         raise ValueError("qkv and w must be 16-byte aligned")
     if segment_len < 0:
         raise ValueError(f"segment_len must be >= 0, got {segment_len}")
-    if N == 0 or B == 0 or B > 65535:
+    if N == 0 or B == 0 or B > 65535 or B * N > proj_gemm.MAX_ROWS:
         raise ValueError(f"batch {B} x length {N} outside the kernel's grid")
     return B, N, C
 
@@ -131,21 +141,6 @@ def _check_bwd_args(qkv, w, g, inds, num_heads, segment_len):
 
 
 @functools.cache
-def _library():
-    lib = load_library(_SOURCE)
-    lib.fused_apla_attn_fwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p]
-    lib.fused_apla_attn_fwd.restype = ctypes.c_int
-    lib.fused_apla_attn_fwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.fused_apla_attn_fwd_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_apla_attn_fwd_prepare.argtypes = [ctypes.c_int]
-    lib.fused_apla_attn_fwd_prepare.restype = ctypes.c_int
-    return lib
-
-
-@functools.cache
 def _bwd_library():
     lib = load_library(_BWD_SOURCE)
     lib.fused_apla_attn_bwd.argtypes = (
@@ -161,21 +156,14 @@ def _bwd_library():
 
 
 def _launch(qkv, w, num_heads, scale, segment_len):
+    """The attention kernel into a scratch o [B, N, C], freed on return,
+    then the projection GEMM over its B * N rows, on one stream.  The
+    argument check covers both kernels' contracts."""
     B, N, C = _check_cuda_args(qkv, w, num_heads, segment_len)
-    lib = _library()
-    dev = device_index(qkv)
-    check_smem(lib.fused_apla_attn_fwd_smem_bytes(C),
-               device_smem(_library, "fused_apla_attn_fwd_prepare", dev),
-               f"the forward at C={C}")
-    out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_apla_attn_fwd(qkv.data_ptr(), w.data_ptr(),
-                                      out.data_ptr(), B, N, C, num_heads,
-                                      float(scale), int(segment_len), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_apla_attn_fwd launch failed: "
-                           f"cudaError {err}")
+    with launch_context(qkv) as stream:
+        o = mha.launch_fwd(qkv, num_heads, scale, segment_len, stream,
+                           (B, N, C))
+        out = proj_gemm.launch(o, w, stream, proj_gemm.gemm_plan(B * N, C))
     fused_apla_attn_fwd.launches += 1
     return out
 
@@ -184,8 +172,8 @@ def fused_apla_attn_fwd(qkv, w, num_heads: int, scale: float,
                         segment_len: int = 0):
     """qkv [B, N, 3C], w [C, C] (already assembled) -> [B, N, C], no bias.
 
-    CPU tensor: the plain version.  CUDA tensor: the kernel, or an error
-    naming why it cannot run (dtype, head dim, shared memory)."""
+    CPU tensor: the plain version.  CUDA tensor: the two kernels, or an
+    error naming why they cannot run (dtype, head dim, layout)."""
     if qkv.device.type == "cpu":
         return fused_apla_attn_fwd_reference(qkv, w, num_heads, scale,
                                              segment_len)

@@ -3,10 +3,11 @@ each window and the whole (trainable) output projection in one kernel, and
 its backward.
 
 Counterpart of `apla_tpu/ops/pallas_apla_attn.py:fused_swin_attention` and
-its custom VJP.  The kernels are rows 1 and 2's (`csrc/fused_apla_attn_fwd.cu`,
-`csrc/fused_apla_attn_bwd.cu` with `csrc/attn_bwd.cuh`), instantiated at head
-dim 32 with the bias and mask added to the scores, as the TPU builds its
-Swin kernels from rows 1 and 2's bodies:
+its custom VJP.  The kernels are templates (`csrc/fused_apla_attn_fwd.cu`,
+which also held row 1's ViT forward until that became two launches, and
+row 2's `csrc/fused_apla_attn_bwd.cu` with `csrc/attn_bwd.cuh`),
+instantiated at head dim 32 with the bias and mask added to the scores, as
+the TPU builds its Swin kernels from rows 1 and 2's bodies:
 
 - `fused_swin_attn_fwd` replaces `pallas_apla_attn.py:_fwd_kernel_bias`
   (through `_call_fwd_swin`): per window and head, f32 scores
@@ -42,9 +43,10 @@ import functools
 import torch
 
 from .cuda_build import check_smem, device_index, device_smem, load_library
-from .fused_apla_attn import _BWD_SOURCE, _SOURCE, dw_chunks
+from .fused_apla_attn import _BWD_SOURCE, dw_chunks
 from .mha import attention_grads, merge_heads, softmax_f32, split_heads
 
+_SOURCE = "fused_apla_attn_fwd.cu"
 HEAD_DIM = 32          # the Swin kernels' head dim (every Swin builder's)
 
 
@@ -134,8 +136,8 @@ def _fwd_library():
     lib.fused_swin_attn_fwd.argtypes = [ctypes.c_void_p] * 5 \
         + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     lib.fused_swin_attn_fwd.restype = ctypes.c_int
-    lib.fused_apla_attn_fwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.fused_apla_attn_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_swin_attn_fwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fused_swin_attn_fwd_smem_bytes.restype = ctypes.c_longlong
     lib.fused_swin_attn_fwd_prepare.argtypes = [ctypes.c_int]
     lib.fused_swin_attn_fwd_prepare.restype = ctypes.c_int
     return lib
@@ -163,7 +165,7 @@ def _launch_fwd(qkv, w, bias, mask, num_heads, scale):
     B, N, C = _check(qkv, w, bias, mask, num_heads)
     lib = _fwd_library()
     dev = device_index(qkv)
-    check_smem(lib.fused_apla_attn_fwd_smem_bytes(C),
+    check_smem(lib.fused_swin_attn_fwd_smem_bytes(C),
                device_smem(_fwd_library, "fused_swin_attn_fwd_prepare", dev),
                f"the Swin window forward at C={C}")
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)

@@ -33,12 +33,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import math
 
 import torch
 
 from .cuda_build import check_smem, device_index, device_smem, \
-    load_library
+    launch_context, load_library
 
 FWD_SOURCE = "mha_fwd.cu"
 BWD_SOURCE = "mha_bwd.cu"
@@ -56,7 +55,7 @@ TILE = 64
 SLOT_BYTES = 2 * TILE * HEAD_DIM * 2
 FIXED_SMEM = 3 * TILE * HEAD_DIM * 2 + 1024 + 512
 ROW_TILES = 5                    # key tiles the row kernel holds (N <= 320)
-RING_DEPTH = 4                   # the two-pass kernel's streamed K/V ring
+RING_DEPTH = 3                   # the two-pass kernel's streamed K/V ring
 # Blocks of 128 threads that the registers (65536 an SM) let one SM hold,
 # from the compiler's counts (`-Xptxas=-v`, `chip_smoke.py` phase 1): the
 # row kernel over one key tile (at most 74 registers), over two or more
@@ -105,16 +104,32 @@ def _per_sm(regs: str, smem: int) -> int:
     return min(REG_BLOCKS[regs], SM_SMEM // (smem + BLOCK_RESERVED))
 
 
+def _streamed_q_tiles(heads: int, n_t: int, per_sm: int) -> int:
+    """Query tiles per item of the streamed two-pass kernel, which streams
+    K and V again for every query tile: one when the tiles fill the card
+    twice over (single-tile blocks then even out as they finish), else the
+    most that still leave two blocks an SM: it keeps [2, 1370] x 12 heads
+    at two and gives the segmenter's [8, 1025] x 16 heads one, where an
+    even split of the 17 tiles left a second wave of blocks
+    (`tools/compare_mha_fwd.py`, `PERF.md` §6, PR 9)."""
+    if heads * n_t >= 2 * SMS * per_sm:
+        return 1
+    q = 1
+    while q < n_t and heads * -(-n_t // (q + 1)) >= 2 * SMS:
+        q += 1
+    return q
+
+
 @functools.lru_cache(maxsize=256)
 def fwd_plan(B: int, N: int, H: int, segment_len: int = 0) -> FwdPlan:
     """The forward kernel's launch plan, a pure function of the shape.
 
     Query tiles are split over blocks until about SMS x (blocks per SM)
-    blocks are in flight, or every block has one tile; the row kernel
-    gives each block a run of items with two K/V sets once there are more
-    items than that and two sets still leave two blocks an SM.
-    (`segment_len` changes which key tiles a block multiplies, not the
-    plan.)"""
+    blocks are in flight, or every block has one tile (the streamed
+    two-pass kernel: `_streamed_q_tiles`); the row kernel gives each block
+    a run of items with two K/V sets once there are more items than that
+    and two sets still leave two blocks an SM.  (`segment_len` changes
+    which key tiles a block multiplies, not the plan.)"""
     del segment_len
     n_t = -(-N // TILE)
     heads = B * H
@@ -127,7 +142,10 @@ def fwd_plan(B: int, N: int, H: int, segment_len: int = 0) -> FwdPlan:
         slots = n_t if resident else RING_DEPTH
     per_sm = _per_sm(regs, _smem(slots))
     target = SMS * per_sm
-    q_tiles = max(1, n_t // min(n_t, -(-target // heads)))
+    if kind == "two_pass" and not resident:
+        q_tiles = _streamed_q_tiles(heads, n_t, per_sm)
+    else:
+        q_tiles = max(1, n_t // min(n_t, -(-target // heads)))
     groups = -(-n_t // q_tiles)
     items = heads * groups
     kv_sets, per_block = 1, 1
@@ -257,31 +275,33 @@ def _bwd_library():
     return lib
 
 
-def _launch_fwd(qkv, num_heads, scale, segment_len):
-    B, N, C = _check_qkv(qkv, num_heads, segment_len)
+def launch_fwd(qkv, num_heads, scale, segment_len, stream, shape):
+    """Queues one launch of the forward kernel on `stream` (a raw stream
+    handle of qkv's device, the current device), uncounted: -> the new
+    [B, N, C] output.  `shape` is (B, N, C) from `_check_qkv`, or from a
+    check that covers it.  `mha_fwd` and the fused APLA forward
+    (`ops/fused_apla_attn.py`, whose attention half this kernel computes)
+    call it, each counting its own launches."""
+    B, N, C = shape
     plan = fwd_plan(B, N, num_heads, segment_len)
     if plan.blocks >= 2 ** 31:
         raise ValueError(f"batch {B} x length {N} x {num_heads} heads "
                          "outside the kernel's grid")
     lib = _fwd_library()
-    dev = device_index(qkv)
     check_smem(plan.smem_bytes,
-               device_smem(_fwd_library, "mha_fwd_prepare", dev),
-               "the forward")
-    out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mha_fwd(qkv.data_ptr(), out.data_ptr(), B, N, C, num_heads,
-                          float(scale), int(segment_len),
-                          int(plan.kind == "two_pass"), plan.q_tiles,
-                          plan.items_per_block, plan.kv_sets, plan.slots,
-                          int(plan.resident), plan.smem_bytes, stream)
+               device_smem(_fwd_library, "mha_fwd_prepare",
+                           qkv.device.index), "the forward")
+    out = qkv.new_empty((B, N, C))
+    err = lib.mha_fwd(qkv.data_ptr(), out.data_ptr(), B, N, C, num_heads,
+                      float(scale), int(segment_len),
+                      int(plan.kind == "two_pass"), plan.q_tiles,
+                      plan.items_per_block, plan.kv_sets, plan.slots,
+                      int(plan.resident), plan.smem_bytes, stream)
     if err >= 1000:
         raise RuntimeError(f"mha_fwd: tensor map not encoded: CUresult "
                            f"{err - 1000}")
     if err != 0:
         raise RuntimeError(f"mha_fwd launch failed: cudaError {err}")
-    mha_fwd.launches += 1
     return out
 
 
@@ -294,7 +314,11 @@ def mha_fwd(qkv, num_heads: int, scale: float, segment_len: int = 0):
         return mha_fwd_reference(qkv, num_heads, scale, segment_len)
     if qkv.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {qkv.device}")
-    return _launch_fwd(qkv, num_heads, scale, segment_len)
+    shape = _check_qkv(qkv, num_heads, segment_len)
+    with launch_context(qkv) as stream:
+        out = launch_fwd(qkv, num_heads, scale, segment_len, stream, shape)
+    mha_fwd.launches += 1
+    return out
 
 
 mha_fwd.launches = 0

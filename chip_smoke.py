@@ -8,12 +8,17 @@ path once on one CUDA card, in phases that each print a line
 and raise on failure:
 
   1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`
-               (seven sources), one nvcc per source, all started together.
-  2. kernel  — the fused APLA attention forward kernel against its plain
-               PyTorch version on the card, bf16, at the served length
-               (N=257), the SSL local crops (N=50), the 518-crop length
-               (N=1370) and a segmented case; timed at three of them beside
-               its bound and a two-call library yardstick.
+               (eight sources), one nvcc per source, all started together.
+  2. kernel  — the fused APLA attention forward (two launches: the
+               attention kernel, then the projection GEMM) against its
+               plain PyTorch version on the card, bf16, at the served
+               length (N=257), the SSL local crops (N=50), the 518-crop
+               length (N=1370) and a segmented case; the GEMM alone against
+               its plain version at ragged row counts with three fault
+               controls, and its registers; timed at b64, b1, b8, [512,
+               50] and [2, 1370] (launched one by one, from a CUDA graph,
+               the host's time per call, each launch apart) beside its
+               bound and a two-call library yardstick.
   3. slice   — the ViT-B/14 APLA-128 ImageNet classifier (random weights from
                a seed, the shipped rank-128 index file) exported at batch
                sizes 1/8/64, reloaded, and asked for 1, 9 and 100 images.
@@ -84,8 +89,9 @@ and raise on failure:
                long kernels (TPU rows 5-7): ViT-L/16 at 512, qkv
                [8, 1025, 3072] and [1, 1025, 3072], every one of the 1024
                projection columns trainable; the forward and backward fault
-               controls, shared memory and registers at C = 1024, times at
-               b8 beside the bound and the two-call yardstick.
+               controls, shared memory, registers and the forward's launch
+               plans at C = 1024, times at b8 (the forward's two launches
+               apart too) beside the bound and the two-call yardstick.
   9b. seg    — the APLA SETR-PUP segmenter on ViT-L/16 at 512 (`segdet seg
                --use_fused --aux_heads 3 --head_lr_mult 10`, SEG_RECIPE) on
                a synthetic ADE20K-layout set through
@@ -124,11 +130,12 @@ broken ones would (output zeroed or halved, uniform attention, half the
 heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
 from the wrong columns or zeroed, rowsum(dp * p) dropped from ds; the
 teacher temperature taken as 1, dws zeroed, dxs halved, p_t dropped from
-ds; the Swin bias or mask dropped, the mask read at the wrong window, dW
-zeroed; the int8 weight scales dropped, one activation scale for the whole
-tensor, codes truncated, the last K group skipped, the ragged tail rows
-unwritten).  Each must fail the phase's bound, so the bounds are shown to
-catch a broken kernel in every run.
+ds; the projection GEMM's output halved, its last row unwritten, its last
+contraction step skipped; the Swin bias or mask dropped, the mask read at
+the wrong window, dW zeroed; the int8 weight scales dropped, one
+activation scale for the whole tensor, codes truncated, the last K group
+skipped, the ragged tail rows unwritten).  Each must fail the phase's
+bound, so the bounds are shown to catch a broken kernel in every run.
 
 Then it prints the card's name and power limit, a JSON line describing the
 kernels, and the contract line `{"ok": true, "device": {...}}` last.
@@ -389,10 +396,27 @@ REQUESTS = (1, 9, 100)
 KERNEL_CASES = (((1, 257, 2304), 0), ((8, 257, 2304), 0),
                 ((64, 257, 2304), 0), ((2, 1370, 2304), 0),
                 ((8, 200, 2304), 50), ((512, 50, 2304), 0))
-# (batch, tokens) at which both attention kernels are timed: the served and
-# trained b64 global crops, the SSL step's 8 x 64 local crops (one ragged
-# 64-row tile per image), and the 518-crop length of TPU kernel rows 5-7
+# (batch, tokens) at which the backward is timed: the served and trained
+# b64 global crops, the SSL step's 8 x 64 local crops (one ragged 64-row
+# tile per image), and the 518-crop length of TPU kernel rows 5-7
 TIMED_SHAPES = ((64, 257), (512, 50), (2, 1370))
+# The forward is timed at those and at the b1 and b8 calls (a served
+# request, the accum-8 micro-batch), where it is host-bound when launched
+# one by one; the first is the kernels line's.
+FWD_TIMED = ((64, 257), (1, 257), (8, 257), (512, 50), (2, 1370))
+# Phase 2: the projection GEMM (csrc/apla_proj_gemm.cu) against its plain
+# version on the rows the fused forward gives it: B x N at N = 257 (b1, b8,
+# b64: ragged in its 128-row tiles), the 518 crop, the segmenter's b8 and
+# b1 at C = 1024, and one row.  (rows, C).  Kernel and plain version sum
+# the same exact products in f32 in other orders and round once to bf16,
+# so they differ by a bf16 ulp here and there: 0.0034 of max|ref| at most
+# on an H100 80GB HBM3 at 700 W (this phase).  Bound: GEMM_REL_TOL of
+# max|ref|, about 3x above; the three fault controls (output halved, last
+# row unwritten, the last 64-deep step of the contraction skipped) read
+# 0.3 of max|ref| and more.
+GEMM_CASES = ((257, 768), (8 * 257, 768), (64 * 257, 768), (2 * 1370, 768),
+              (8 * 1025, 1024), (1025, 1024), (1, 768))
+GEMM_REL_TOL = 1e-2
 # Published dense peaks of one H100 SXM (NVIDIA data sheet): the bf16 tensor
 # cores and HBM3.  A kernel's bound is the larger of its operations over the
 # first and its bytes (each input read once, each output written once) over
@@ -635,7 +659,12 @@ def _resources(report: str) -> list[str]:
                 i = m.end() + int(m.group(1))
                 n = re.match(r"\d+", name[i:])
                 if n:
-                    name = name[i + n.end():i + n.end() + int(n.group())]
+                    j = i + n.end() + int(n.group())
+                    args = re.match(r"I((?:L[ib]\d+E)+)E", name[j:])
+                    name = name[i + n.end():j] + (
+                        "<" + ", ".join(re.findall(r"L[ib](\d+)E",
+                                                   args.group(1))) + ">"
+                        if args else "")
         elif "spill stores" in line and name:
             spill = line.split(",")[1].split()[0]
         elif "Used" in line and "registers" in line and name:
@@ -651,12 +680,13 @@ def _resources(report: str) -> list[str]:
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
-    from apla_tpu_torch.ops import cuda_build
-    from apla_tpu_torch.ops import int8_matmul, mha, proto_ce
-    from apla_tpu_torch.ops.fused_apla_attn import _BWD_SOURCE, _SOURCE
-    sources = (_SOURCE, _BWD_SOURCE, proto_ce.FWD_SOURCE,
-               proto_ce.BWD_SOURCE, mha.FWD_SOURCE, mha.BWD_SOURCE,
-               int8_matmul.SOURCE)
+    from apla_tpu_torch.ops import apla_proj_gemm, cuda_build
+    from apla_tpu_torch.ops import fused_swin_attn, int8_matmul, mha, \
+        proto_ce
+    from apla_tpu_torch.ops.fused_apla_attn import _BWD_SOURCE
+    sources = (mha.FWD_SOURCE, apla_proj_gemm.SOURCE, _BWD_SOURCE,
+               fused_swin_attn._SOURCE, proto_ce.FWD_SOURCE,
+               proto_ce.BWD_SOURCE, mha.BWD_SOURCE, int8_matmul.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cuda_build.build_library, sources))
@@ -710,9 +740,138 @@ def _library_attn(qkv, w, heads, scale):
     return torch.matmul(o.transpose(1, 2).reshape(b, n, c3 // 3), w)
 
 
+def _host_ms(fn, calls=100) -> float:
+    """The host's ms to launch one call of `fn`: `calls` calls queued with
+    no wait between them (the wrapper, its checks and plans, the
+    launches), after a few that warm the allocator's cache."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def _fused_fwd_times(qkv, w, heads, scale, plain_iters=5):
+    """The fused forward on (qkv, w), timed: the call by events, from a CUDA
+    graph and as the host's time per call; its two launches apart (the
+    attention kernel, then the GEMM on its output), by events and from
+    graphs; the plain version; torch.matmul on the GEMM's operands (one
+    call that computes the GEMM's function) and the two-call yardstick
+    (SDPA + matmul); the bounds of the call and of the GEMM."""
+    from apla_tpu_torch.ops import apla_proj_gemm as pg
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.ops import mha as tmha
+    from apla_tpu_torch.ops.cuda_build import launch_context
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    fused = lambda: fa.fused_apla_attn_fwd(qkv, w, heads, scale)  # noqa: E731
+    attention = lambda: tmha.mha_fwd(qkv, heads, scale)  # noqa: E731
+    o = attention()
+    gemm = lambda: pg.apla_proj_gemm(o, w)  # noqa: E731
+    library = lambda: _library_attn(qkv, w, heads, scale)  # noqa: E731
+    t = {"host_ms": _host_ms(fused), "ms": _time_ms(fused),
+         "graph_ms": _graph_ms(fused),
+         "attention_ms": _time_ms(attention),
+         "attention_graph_ms": _graph_ms(attention),
+         "gemm_ms": _time_ms(gemm), "gemm_graph_ms": _graph_ms(gemm),
+         "gemm_library_ms": _time_ms(lambda: torch.matmul(o, w)),
+         "plain_ms": _time_ms(lambda: fa.fused_apla_attn_fwd_reference(
+             qkv, w, heads, scale), iters=plain_iters),
+         "library_two_calls_ms": _time_ms(library),
+         "library_two_calls_graph_ms": _graph_ms(library)}
+    t["bound_ms"], t["bound_by"] = _attn_fwd_bound(b, n, c)
+    t["gemm_bound_ms"], t["gemm_bound_by"] = _bound(
+        2 * b * n * c * c, 2 * (2 * b * n * c + c * c))
+    # the GEMM's two tile shapes (gemm_plan picks one from the shape)
+    def gemm_with(plan):
+        with launch_context(o) as stream:   # the graph's stream in capture
+            return pg.launch(o, w, stream, plan)
+
+    t["gemm_plans_graph_ms"] = {
+        f"{bn} x {stages}": _graph_ms(functools.partial(
+            gemm_with, pg.gemm_plan(b * n, c, bn, stages)))
+        for bn, stages in ((128, 3), (256, 4))}
+    return t
+
+
+def _print_fwd_times(tag, b, n, c, t):
+    print(f"[{tag}] fwd b{b} N={n} C={c}: kernels {t['ms']:.4f} ms "
+          f"({t['graph_ms']:.4f} from a CUDA graph; the host takes "
+          f"{t['host_ms']:.4f} to launch one call) = attention "
+          f"{t['attention_ms']:.4f} ({t['attention_graph_ms']:.4f}) + GEMM "
+          f"{t['gemm_ms']:.4f} ({t['gemm_graph_ms']:.4f}; torch.matmul "
+          f"{t['gemm_library_ms']:.4f}; bound {t['gemm_bound_ms']:.4f}, "
+          f"{t['gemm_bound_by']}); plain {t['plain_ms']:.4f}; two library "
+          f"calls (SDPA + matmul) {t['library_two_calls_ms']:.4f} "
+          f"({t['library_two_calls_graph_ms']:.4f}); bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+          f"{t['bound_ms'] / t['graph_ms']:.1%} of it reached); the GEMM "
+          f"from a CUDA graph at 128-row tiles of columns x stages "
+          + ", ".join(f"{k} {v:.4f}"
+                      for k, v in t["gemm_plans_graph_ms"].items()))
+
+
+def _gemm_check(device, gen):
+    """Phase 2's GEMM part: the projection GEMM against its plain version at
+    GEMM_CASES, three fault controls at each, and its resources; returns
+    the worst max|err|."""
+    from apla_tpu_torch.ops import apla_proj_gemm as pg
+    from apla_tpu_torch.ops import cuda_build
+    worst = 0.0
+    for m, c in GEMM_CASES:
+        o = torch.randn((m, c), generator=gen).to(device, torch.bfloat16)
+        w = (torch.randn((c, c), generator=gen) * c ** -0.5).to(
+            device, torch.bfloat16)
+        out = pg.apla_proj_gemm(o, w)
+        torch.cuda.synchronize()
+        ref = pg.apla_proj_gemm_reference(o, w).float()
+        bound = GEMM_REL_TOL * ref.abs().max().item()
+
+        def err(x):
+            return ((x.float() - ref).abs().max().item()
+                    if torch.isfinite(x).all() else float("inf"))
+
+        e = err(out)
+        worst = max(worst, e)
+        w_short = w.clone()
+        w_short[-64:] = 0
+        controls = {
+            "output halved": out * 0.5,
+            "last row unwritten": out.index_fill(
+                0, torch.tensor([m - 1], device=device), 0),
+            "last 64-deep step of the contraction skipped":
+                pg.apla_proj_gemm(o, w_short)}
+        caught = {name: err(x) for name, x in controls.items()}
+        plan = pg.gemm_plan(m, c)
+        print(f"[2 kernel] GEMM [{m}, {c}] @ [{c}, {c}] ({plan.describe()}):"
+              f" max|err| {e:.6g} bound {bound:.6g} -> "
+              f"{'ok' if e <= bound else 'FAIL'}; controls " + ", ".join(
+                  f"{name} {x:.6g}" for name, x in caught.items()) + " -> "
+              + ("caught" if min(caught.values()) > bound else "NOT CAUGHT"))
+        if e > bound:
+            raise SystemExit(f"the GEMM disagrees with its plain version at "
+                             f"[{m}, {c}]")
+        if min(caught.values()) <= bound:
+            raise SystemExit(f"the GEMM bound misses a broken kernel at "
+                             f"[{m}, {c}]")
+    for line in _resources(cuda_build.resource_report(pg.SOURCE)):
+        print(f"[2 kernel]   {pg.SOURCE}: {line}")
+    return worst
+
+
 def phase_kernel(device):
+    """2: the fused forward (the attention kernel, then the projection
+    GEMM) against its plain version at KERNEL_CASES with four fault
+    controls; the GEMM alone at GEMM_CASES with three; times at
+    FWD_TIMED."""
     from apla_tpu_torch.ops.fused_apla_attn import (
         fused_apla_attn_fwd, fused_apla_attn_fwd_reference)
+    from apla_tpu_torch.ops import apla_proj_gemm as pg
+    from apla_tpu_torch.ops import mha as tmha
     gen = torch.Generator().manual_seed(SEED)
     heads, scale = 12, 64 ** -0.5
     worst = 0.0
@@ -745,25 +904,19 @@ def phase_kernel(device):
                 if b_err <= bound:
                     raise SystemExit(f"the kernel bound misses a broken "
                                      f"kernel ({name})")
+    gemm_err = _gemm_check(device, gen)
     times = {}
-    for b, n in TIMED_SHAPES:
+    for b, n in FWD_TIMED:
         qkv = torch.randn((b, n, 2304), generator=gen).to(device,
                                                           torch.bfloat16)
         w = (torch.randn((768, 768), generator=gen) * 768 ** -0.5).to(
             device, torch.bfloat16)
-        t = {"ms": _time_ms(lambda: fused_apla_attn_fwd(qkv, w, heads,
-                                                        scale, 0)),
-             "plain_ms": _time_ms(lambda: fused_apla_attn_fwd_reference(
-                 qkv, w, heads, scale, 0)),
-             "library_two_calls_ms": _time_ms(
-                 lambda: _library_attn(qkv, w, heads, scale))}
-        t["bound_ms"], t["bound_by"] = _attn_fwd_bound(b, n, 768)
-        times[(b, n)] = t
-        print(f"[2 kernel] b{b} N={n} C=768: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, two library calls (SDPA + matmul) "
-              f"{t['library_two_calls_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
-    return worst, times
+        t = times[(b, n)] = _fused_fwd_times(qkv, w, heads, scale)
+        _print_fwd_times("2 kernel", b, n, 768, t)
+        print(f"[2 kernel]   plans: attention "
+              f"{tmha.fwd_plan(b, n, heads).describe()}; GEMM "
+              f"{pg.gemm_plan(b * n, 768).describe()}")
+    return worst, gemm_err, times
 
 
 def _agrees(tag, name, outs, ref_outs) -> bool:
@@ -1189,13 +1342,8 @@ def phase_mha(device):
         q, k, v = qkv.unflatten(-1, (3, heads, 64)).permute(2, 0, 3, 1, 4)
         kernel = lambda: tmha.mha_fwd(qkv, heads, scale)  # noqa: E731
         library = lambda: sdpa(q, k, v, scale=scale)  # noqa: E731
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(100):
-            kernel()
-        host_ms = (time.perf_counter() - t0) * 10
-        t = {"ms": _time_ms(kernel), "graph_ms": _graph_ms(kernel),
-             "host_ms": host_ms,
+        t = {"host_ms": _host_ms(kernel), "ms": _time_ms(kernel),
+             "graph_ms": _graph_ms(kernel),
              "library_ms": _time_ms(library),
              "library_graph_ms": _graph_ms(library),
              "max_abs_err": worst["fwd"]}
@@ -2224,7 +2372,8 @@ def _device_kernels(prof) -> dict:
 _KERNEL_GROUPS = (
     ("proto-CE kernels", ("proto_ce_", "sum_partials_kernel")),
     ("attention forward kernels (fused APLA, mha)",
-     ("fused_apla_attn_fwd_kernel", "mha_fwd_kernel")),
+     ("fused_apla_attn_fwd_kernel", "mha_row_kernel", "mha_two_pass_kernel",
+      "apla_proj_gemm_kernel")),
     ("attention backward kernels (fused APLA, mha)",
      ("bwd_query_kernel", "bwd_key_kernel", "gemm_nt_kernel",
       "dw_partial_kernel", "dw_reduce_kernel")),
@@ -2426,11 +2575,13 @@ def _phase_ssl(device, tmp):
 def phase_seg_kernels(device):
     """9a: the fused APLA kernels (rows 1, 2; TPU rows 5-7's shape) against
     their plain versions at SEG_KERNEL_CASES with every column trainable,
-    the forward and backward fault controls at b8, shared memory and
-    registers at C = 1024, and times at b8 (and the forward at b7: one wave
-    of blocks) beside the bounds and the two-call yardstick."""
+    the forward and backward fault controls at b8, shared memory,
+    registers and the forward's launch plans at C = 1024, and times at b8
+    beside the bounds and the two-call yardstick."""
+    from apla_tpu_torch.ops import apla_proj_gemm as pg
     from apla_tpu_torch.ops import cuda_build
     from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.ops import mha as tmha
     gen = torch.Generator().manual_seed(SEED + 5)
     heads, scale = SEG_HEADS, 64 ** -0.5
     worst = {"fwd": 0.0, "bwd": 0.0}
@@ -2497,62 +2648,48 @@ def phase_seg_kernels(device):
                 raise SystemExit(f"backward control {name} at the seg shape: "
                                  f"caught {caught}, specific {specific}")
         # what the kernels take at C = 1024: dynamic shared memory per block
-        # against the device's opt-in limit, registers and spills
+        # against the device's opt-in limit, registers and spills, and the
+        # forward's launch plans (the attention kernel's, the GEMM's)
         dev = device.index or 0
-        fwd_lib, bwd_lib = fa._library(), fa._bwd_library()
-        limit = cuda_build.device_smem(fa._library,
-                                       "fused_apla_attn_fwd_prepare", dev)
+        bwd_lib = fa._bwd_library()
+        limit = cuda_build.device_smem(fa._bwd_library,
+                                       "fused_apla_attn_bwd_prepare", dev)
         print(f"[9a seg_kernels] shared memory per block: forward "
-              f"{fwd_lib.fused_apla_attn_fwd_smem_bytes(c)} bytes at C={c} "
-              f"(o_cat [64, {c}] + the tiles), backward "
-              f"{bwd_lib.fused_apla_attn_bwd_smem_bytes()} bytes; the device "
-              f"allows {limit} bytes per block")
-        for src in (fa._SOURCE, fa._BWD_SOURCE):
+              f"{tmha.fwd_plan(b, n, heads).smem_bytes} bytes (attention) "
+              f"and {pg.gemm_plan(b * n, c).smem_bytes} (GEMM) at C={c}, "
+              f"backward {bwd_lib.fused_apla_attn_bwd_smem_bytes()} bytes; "
+              f"the device allows {limit} bytes per block")
+        for src, kernel in ((tmha.FWD_SOURCE, "mha_two_pass_kernel"),
+                            (pg.SOURCE, "apla_proj_gemm_kernel"),
+                            (fa._BWD_SOURCE, "")):
             for line in _resources(cuda_build.resource_report(src)):
-                print(f"[9a seg_kernels]   {src}: {line}")
-        # times at b8: kernels, plain versions, the two-call yardstick
-        # (autograd through it for the backward); the forward also at b7
+                if line.startswith(kernel):
+                    print(f"[9a seg_kernels]   {src}: {line}")
+        for bb in (b, 1):
+            print(f"[9a seg_kernels] forward launch plans at b{bb}: "
+                  f"attention {tmha.fwd_plan(bb, n, heads).describe()}; "
+                  f"GEMM {pg.gemm_plan(bb * n, c).describe()}")
+        # times at b8: the forward as phase 2 times it; the backward, its
+        # plain version and autograd through the two-call yardstick
+        times = {"fwd": _fused_fwd_times(qkv, w, heads, scale)}
+        _print_fwd_times("9a seg_kernels", b, n, c, times["fwd"])
         lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
         lout = _library_attn(lq, lw, heads, scale)
-        calls = {
-            "fwd": (lambda: fa.fused_apla_attn_fwd(qkv, w, heads, scale),
-                    lambda: fa.fused_apla_attn_fwd_reference(qkv, w, heads,
-                                                             scale),
-                    lambda: _library_attn(qkv, w, heads, scale),
-                    _attn_fwd_bound(b, n, c)),
-            "bwd": (lambda: fa.fused_apla_attn_bwd(qkv, w, g, inds, heads,
-                                                   scale),
-                    lambda: fa.fused_apla_attn_bwd_reference(
-                        qkv, w, g, inds, heads, scale),
-                    lambda: torch.autograd.grad(lout, (lq, lw), g,
-                                                retain_graph=True),
-                    _attn_bwd_bound(b, n, c, c)),
-        }
-        times = {}
-        for name, (kernel, plain_fn, library, bound) in calls.items():
-            t = {"ms": _time_ms(kernel), "plain_ms": _time_ms(plain_fn,
-                                                              iters=5),
-                 "library_two_calls_ms": _time_ms(library, iters=10)}
-            t["bound_ms"], t["bound_by"] = bound
-            t["max_abs_err"] = None
-            times[name] = t
-            print(f"[9a seg_kernels] {name} b{b} [{b}, {n}, {3 * c}] k={c}: "
-                  f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                  f"two library calls (SDPA + matmul"
-                  f"{', autograd' if name == 'bwd' else ''}) "
-                  f"{t['library_two_calls_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
-                  f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+        t = {"ms": _time_ms(lambda: fa.fused_apla_attn_bwd(
+                 qkv, w, g, inds, heads, scale)),
+             "plain_ms": _time_ms(lambda: fa.fused_apla_attn_bwd_reference(
+                 qkv, w, g, inds, heads, scale), iters=5),
+             "library_two_calls_ms": _time_ms(lambda: torch.autograd.grad(
+                 lout, (lq, lw), g, retain_graph=True), iters=10)}
+        t["bound_ms"], t["bound_by"] = _attn_bwd_bound(b, n, c, c)
+        times["bwd"] = t
+        print(f"[9a seg_kernels] bwd b{b} [{b}, {n}, {3 * c}] k={c}: "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"two library calls (SDPA + matmul, autograd) "
+              f"{t['library_two_calls_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
         del lq, lw, lout
-        q7 = qkv[:b - 1].contiguous()
-        ms7 = _time_ms(lambda: fa.fused_apla_attn_fwd(q7, w, heads, scale))
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        blocks = -(-n // 64)
-        print(f"[9a seg_kernels] waves: forward b{b - 1} "
-              f"({(b - 1) * blocks} blocks of one per SM on {sms} SMs) "
-              f"{ms7:.4f} ms, b{b} ({b * blocks} blocks) "
-              f"{times['fwd']['ms']:.4f} ms: {times['fwd']['ms'] / ms7:.3f}x "
-              f"for {b / (b - 1):.3f}x the work")
     for name in ("fwd", "bwd"):
         times[name]["max_abs_err"] = worst[name]
     return times
@@ -3275,7 +3412,7 @@ def main() -> int:
         return out
 
     build_s = timed("1", phase_build)
-    max_err, fwd_times = timed("2", phase_kernel, device)
+    max_err, gemm_err, fwd_times = timed("2", phase_kernel, device)
     serve_launches, fused_rate, plain_rate = timed("3", phase_slice, device)
     bwd_err, bwd_times = timed("4", phase_bwd, device)
     (fwd_launches, bwd_launches), rates = timed("5", phase_train, device)
@@ -3314,11 +3451,13 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + " s)")
     print(_gpu_line())
     main_shape = TIMED_SHAPES[0]
+    # rows 1 and 5: two launches per call, the attention kernel (mha_fwd.cu)
+    # and the projection GEMM written for them (apla_proj_gemm.cu)
     kernels = [
-        ("fused_apla_attn_fwd", "fused_apla_attn_fwd.cu",
+        ("fused_apla_attn_fwd", "apla_proj_gemm.cu",
          "pallas_apla_attn.py:105",
          serve_launches + fwd_launches + ssl_launches[0] + w8a8_launches[1],
-         {**fwd_times[main_shape], "max_abs_err": max_err}),
+         {**fwd_times[FWD_TIMED[0]], "max_abs_err": max_err}),
         ("fused_apla_attn_bwd", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn.py:131", bwd_launches + ssl_launches[1],
          {**bwd_times[main_shape], "max_abs_err": bwd_err}),
@@ -3338,7 +3477,7 @@ def main() -> int:
          "pallas_apla_attn.py:203", det_launches[1], swin_times["bwd"]),
         # rows 1/2's kernels where JAX names the q-strip long kernels (TPU
         # rows 5-7): ViT-L/16 at 512, k = C = 1024, on the seg path
-        ("fused_apla_attn_fwd_seg", "fused_apla_attn_fwd.cu",
+        ("fused_apla_attn_fwd_seg", "apla_proj_gemm.cu",
          "pallas_apla_attn_long.py:110", seg_launches[0], seg_times["fwd"]),
         ("fused_apla_attn_bwd_seg", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn_long.py:141", seg_launches[1], seg_times["bwd"]),
@@ -3354,10 +3493,34 @@ def main() -> int:
     # at every MHA_TIMED shape); no single PyTorch
     # call computes the others, and the fused attention and window kernels'
     # two-call yardstick (SDPA, then the projection) is reported beside
-    # them.  For the int8 GEMM, library_ms is torch._int_mm, the int8
-    # product alone (no quantization, no scales), and the bf16 torch.matmul
-    # with the dequantized weight is reported beside it
-    extra = {"mha_fwd": {
+    # them; for the fused forward also its two launches apart and
+    # torch.matmul on the GEMM's operands (gemm_library_ms).  For the int8
+    # GEMM, library_ms is torch._int_mm, the int8 product alone (no
+    # quantization, no scales), and the bf16 torch.matmul with the
+    # dequantized weight is reported beside it
+    from apla_tpu_torch.ops import apla_proj_gemm, mha
+
+    def fused_fwd(t):
+        return {"sources": [f"apla_tpu_torch/csrc/{src}" for src in
+                            (mha.FWD_SOURCE, apla_proj_gemm.SOURCE)],
+                "redesigned": "PR 9",
+                **{k: t[k] for k in (
+                    "graph_ms", "host_ms", "attention_ms",
+                    "attention_graph_ms", "gemm_ms", "gemm_graph_ms",
+                    "gemm_library_ms", "gemm_bound_ms",
+                    "library_two_calls_graph_ms")}}
+
+    extra = {"fused_apla_attn_fwd": {
+                 **fused_fwd(fwd_times[FWD_TIMED[0]]),
+                 "gemm_max_abs_err": gemm_err,
+                 "by_shape": [{"shape": [b, n, 2304], **{
+                     k: t[k] for k in ("ms", "graph_ms", "host_ms",
+                                       "attention_graph_ms", "gemm_graph_ms",
+                                       "library_two_calls_graph_ms",
+                                       "bound_ms")}}
+                     for (b, n), t in fwd_times.items()]},
+             "fused_apla_attn_fwd_seg": fused_fwd(seg_times["fwd"]),
+             "mha_fwd": {
                  "redesigned": "PR 8",
                  "graph_ms": mha_times["fwd"]["graph_ms"],
                  "library_graph_ms": mha_times["fwd"]["library_graph_ms"],

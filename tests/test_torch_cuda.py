@@ -9,10 +9,13 @@ Each kernel is held against its plain PyTorch version on the same bf16
 tensors.  Bound: 2e-2 of the reference's largest magnitude, per output
 (the two round p, o, dO, ds and the outputs to bf16 after f32 sums taken
 in different orders; the prototype-CE kernels round ds to bf16 as their
-plain versions do).  Reruns of the kernels that sum partials are
-bit-equal.  The int8 GEMM takes bf16 or f32 and computes what its plain
-version does, step for step (the same codes, exact int32 sums, the same
-f32 roundings): bound 2^-23 of max|ref|, and it reads 0.
+plain versions do); 1e-2 for the projection GEMM alone (exact products,
+f32 sums in another order, one rounding: a bf16 ulp here and there).
+Reruns of the kernels that sum partials are bit-equal.  The fused
+forward is its two kernels bit for bit.  The int8 GEMM takes bf16 or
+f32 and computes what its plain version does, step for step (the same
+codes, exact int32 sums, the same f32 roundings): bound 2^-23 of
+max|ref|, and it reads 0.
 """
 
 import dataclasses
@@ -20,11 +23,13 @@ import dataclasses
 import pytest
 import torch
 
+from apla_tpu_torch.ops import apla_proj_gemm as pg
 from apla_tpu_torch.ops import fused_apla_attn as tfa
 from apla_tpu_torch.ops import mha as tmha
 from apla_tpu_torch.ops import proto_ce as tpc
 
 REL_TOL = 2e-2
+GEMM_REL_TOL = 1e-2
 
 
 @pytest.fixture
@@ -160,16 +165,89 @@ def test_autograd_function_runs_both_kernels(cuda_device):
 
 @pytest.mark.cuda
 def test_fused_apla_attn_smem_limit_names_the_width(cuda_device):
-    """The forward keeps o_cat [64, C] in shared memory: C = 1024 (ViT-L)
-    fits the per-block limit, C = 1280 (ViT-H, 20 heads) does not, and the
-    wrapper raises naming the width before any launch."""
-    lib = tfa._library()
-    assert lib.fused_apla_attn_fwd_smem_bytes(1024) == 224256
-    qkv, w = _qkv_w(cuda_device, 1, 65, 1280, seed=3)
+    """The forward no longer keeps o_cat [64, C] in shared memory (its two
+    launches' shared memory does not grow with C), so C = 1280 (ViT-H, 20
+    heads), which the single kernel refused for want of 257,024 bytes,
+    runs and agrees with the plain version; what limits the width now is
+    the head dim of 64, and a width the kernels cannot take raises naming
+    it before any launch."""
+    qkv, w = _qkv_w(cuda_device, 2, 65, 1280, seed=3)
     before = tfa.fused_apla_attn_fwd.launches
-    with pytest.raises(ValueError, match="C=1280 needs 257024 bytes"):
-        tfa.fused_apla_attn_fwd(qkv, w, 20, 0.125)
-    assert tfa.fused_apla_attn_fwd.launches == before
+    out = tfa.fused_apla_attn_fwd(qkv, w, 20, 0.125)
+    torch.cuda.synchronize()
+    assert tfa.fused_apla_attn_fwd.launches == before + 1
+    ref = tfa.fused_apla_attn_fwd_reference(qkv, w, 20, 0.125)
+    assert (out.float() - ref.float()).abs().max() <= \
+        REL_TOL * ref.float().abs().max()
+    with pytest.raises(ValueError, match="head dim 64"):
+        tfa.fused_apla_attn_fwd(qkv, w, 16, 0.125)
+    assert tfa.fused_apla_attn_fwd.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c", [
+    (257, 768), (8 * 257, 768), (64 * 257, 768),   # b1, b8, b64 at N = 257
+    (2 * 1370, 768), (512 * 50, 768),              # the 518 crop, SSL crops
+    (8 * 1025, 1024), (1025, 1024),                # the segmenter's b8, b1
+    (1, 768), (131, 192), (300, 1280)])            # one row, ViT-Ti, ViT-H
+def test_apla_proj_gemm_matches_plain(cuda_device, m, c):
+    """The projection GEMM against its plain version (the same exact
+    products summed in f32 in another order, one rounding: bound
+    GEMM_REL_TOL of max|ref|, as chip_smoke.py phase 2); every plan the
+    kernel has gives the same bits (one accumulator over all of K in
+    increasing order)."""
+    gen = torch.Generator().manual_seed(m + c)
+    o = torch.randn((m, c), generator=gen).to(cuda_device, torch.bfloat16)
+    w = (torch.randn((c, c), generator=gen) * c ** -0.5).to(cuda_device,
+                                                           torch.bfloat16)
+    before = pg.apla_proj_gemm.launches
+    out = pg.apla_proj_gemm(o, w)
+    torch.cuda.synchronize()
+    assert pg.apla_proj_gemm.launches == before + 1
+    ref = pg.apla_proj_gemm_reference(o, w)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max() <= \
+        GEMM_REL_TOL * ref.float().abs().max()
+    for bn, stages in ((128, 2), (128, 3), (128, 4), (256, 4)):
+        plan = pg.gemm_plan(m, c, bn, stages)
+        with torch.cuda.device(cuda_device):
+            other = pg.launch(o, w, torch.cuda.current_stream().cuda_stream,
+                              plan)
+        torch.cuda.synchronize()
+        assert torch.equal(other.view(torch.int16), out.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,seg,c", [(8, 257, 0, 768), (8, 200, 50, 768),
+                                       (2, 1025, 0, 1024)])
+def test_fused_apla_attn_is_its_two_kernels(cuda_device, b, n, seg, c):
+    """The fused forward is the attention kernel, then the GEMM on its
+    output, bit for bit; one call counts one fused launch and neither
+    kernel's own wrapper."""
+    qkv, w = _qkv_w(cuda_device, b, n, c, seed=n + c)
+    heads = c // 64
+    counts = (tmha.mha_fwd.launches, pg.apla_proj_gemm.launches)
+    before = tfa.fused_apla_attn_fwd.launches
+    out = tfa.fused_apla_attn_fwd(qkv, w, heads, 0.125, seg)
+    torch.cuda.synchronize()
+    assert tfa.fused_apla_attn_fwd.launches == before + 1
+    assert (tmha.mha_fwd.launches, pg.apla_proj_gemm.launches) == counts
+    two = pg.apla_proj_gemm(tmha.mha_fwd(qkv, heads, 0.125, seg), w)
+    assert torch.equal(out.view(torch.int16), two.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_apla_proj_gemm_raises_instead_of_falling_back(cuda_device):
+    o = torch.zeros((17, 768), device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros((768, 768), device=cuda_device, dtype=torch.bfloat16)
+    before = pg.apla_proj_gemm.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        pg.apla_proj_gemm(o.float(), w.float())
+    with pytest.raises(ValueError, match="w must be"):
+        pg.apla_proj_gemm(o, w[:, :640])
+    with pytest.raises(ValueError, match="o on"):
+        pg.apla_proj_gemm(o, w.cpu())
+    assert pg.apla_proj_gemm.launches == before
 
 
 @pytest.mark.cuda
