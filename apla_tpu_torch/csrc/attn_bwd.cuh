@@ -1,9 +1,10 @@
-// The attention backward shared by the fused APLA backward
-// (fused_apla_attn_bwd.cu, replacing pallas_apla_attn.py:_bwd_kernel and,
-// for Swin windows, _bwd_kernel_bias) and the plain multi-head attention
-// backward (mha_bwd.cu, replacing pallas_mha.py:_bwd_kernel):
+// The attention backward of the Swin windows (fused_apla_attn_bwd.cu's
+// fused_swin_attn_bwd, replacing pallas_apla_attn.py:_bwd_kernel_bias):
 // FlashAttention-2's split of the work into a query side and a key side,
-// with the TPU kernels' rounding points.
+// with the TPU kernel's rounding points.  The ViTs at head dim 64 (the
+// fused APLA backward and mha_bwd.cu) run attn_bwd_sm90.cuh, which keeps
+// this body's sum orders; the templates below are instantiated at DH = 32
+// with BIAS only.
 //
 // Layouts: qkv [B, N, 3C] bf16 packed (q | k | v, head h at columns
 // h*DH .. h*DH+DH-1 of each third), dO [B, N, C] bf16, dqkv [B, N, 3C] bf16,
@@ -27,7 +28,12 @@
 //               statistics the query side wrote
 //
 // Products use mma.sync m16n8k16 with ldmatrix operand loads; tiles arrive
-// by cp.async, double-buffered.  wgmma/TMA are later work.
+// by cp.async, double-buffered.  What bounds it on the H100: the bytes (the
+// bound chip_smoke.py phase 8a prints).  A window of 49 tokens fills one
+// ragged 64-row tile, so each block runs one key tile per pass, and the
+// work per byte is small; wgmma's 64-row tiles would not shorten that, so
+// this body stays (the Swin rows, TPU rows 3 and 4, are queued together
+// in ROADMAP B).
 
 #pragma once
 

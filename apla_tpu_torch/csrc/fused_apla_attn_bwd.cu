@@ -32,32 +32,49 @@
 // (fused_apla_attn_fwd.cu): -inf outside the row's segment and past N, a row
 // with no valid column has p = 0.
 //
-// What bounds it on the H100: at the training shape (B=8 micro-batches of
-// N=257, C=768, 12 heads) every product is a bf16 tensor-core product, so it
-// is compute bound like the forward; it recomputes the scores three times
-// (stats, o/rowsum, dq) on the query side and once on the key side.  Swin
-// windows (N=49, head dim 32) are small: at stage 0 of a b16 batch the
-// bytes bound it, and the dW sum over 1024 x 49 rows is the widest
+// What bounds it on the H100: the products.  At the training micro-batch
+// (B=8, N=257, C=768, 12 heads, k=128) and the segmenter's (B=8, N=1025,
+// C=k=1024, 16 heads) every product is a bf16 tensor-core product and the
+// bound counts operations: dO = g w^T and dW_t (2 N C^2 and 2 N C k per
+// image) and six 2 N^2 C attention products.  What the attention kernels
+// execute is larger (11 products per pair of 64-row tiles; the scores are
+// recomputed in each pass rather than kept, see attn_bwd_sm90.cuh), so
+// each product must run at the wgmma rate: every product is a wgmma fed by
+// TMA, and the other side's tiles stay in shared memory where they fit.
+// Swin windows (N=49, head dim 32) are small: at stage 0 of a b16 batch
+// the bytes bound them, and the dW sum over 1024 x 49 rows is the widest
 // reduction.
 //
 // The TPU grid runs images in order and carries dW_t in VMEM across them;
 // blocks on the card run in parallel, so the work is split in five launches
 // (FlashAttention-2's split of the attention backward, plus two GEMMs):
-//   1. gemm_nt:     dO = g w^T                       (64 x TW tiles)
+//   1. dO = g w^T:  gemm_sm90.cuh (g K-major, w read in place as a K-major
+//                   B), bf16 out, one f32 sum over C in k16 order
 //   2. query side:  per (64-row query tile, head, image): softmax statistics,
 //                   o (-> o_cat scratch), rowsum(dp * p), then dq
 //   3. key side:    per (64-row key tile, head, image): dk, dv, reading the
 //                   statistics written by 2
-//                   (2 and 3 live in attn_bwd.cuh, shared with mha_bwd.cu)
-//   4. dW partials: o_cat^T g_t over chunks of rows, one f32 partial per
-//                   chunk (no atomics)
+//                   (2 and 3 live in attn_bwd_sm90.cuh, shared with
+//                   mha_bwd.cu)
+//   4. dW partials: o_cat^T g_t over chunks of rows (gemm_sm90.cuh with
+//                   o_cat an MN-major A and g_t an MN-major B, f32 out), one
+//                   partial per chunk (no atomics)
 //   5. dW reduce:   the partials summed in a fixed order: deterministic.
-// The GEMM tiles are TW = 64 wide, or 32 where C is not a multiple of 64
-// (Swin-T's stage 0, C = 96).
-// Products use mma.sync m16n8k16 with ldmatrix operand loads; tiles arrive
-// by cp.async, double-buffered.  wgmma/TMA are later work.
+// Each launch keeps the sum orders of the mma.sync kernels it replaced
+// (the chunks of 4 too: ops/fused_apla_attn.py:dw_chunks), so dqkv and
+// dW_t are theirs to the last bit (tools/compare_mha_fwd.py --kernel bwd).
+//
+// The Swin windows (fused_swin_attn_bwd, head dim 32, bias and mask) keep
+// the earlier body: attn_bwd.cuh's mma.sync query and key sides (cp.async
+// tiles, double-buffered) and the mma.sync GEMMs below, TW = 64 wide or 32
+// where C is not a multiple of 64 (Swin-T's stage 0, C = 96).  Their
+// windows of 49 tokens fill one ragged 64-row tile, a regime that the
+// bytes bound and that wgmma's 64-row tiles would not shorten; they are
+// queued with TPU row 3 (ROADMAP B).
 
 #include "attn_bwd.cuh"
+#include "attn_bwd_sm90.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -203,11 +220,20 @@ int bwd_launches(const bf16* g, const bf16* w, const bf16* gt, bf16* dO,
 
 extern "C" {
 
-// Opt the two attention kernels in to their dynamic shared memory on the
-// current device, `device`; returns the device's per-block opt-in limit in
-// bytes, or -1.  Called once per device, before the first launch there.
+// Opt the ViT kernels (the two attention sides, the two GEMMs) in to the
+// device's per-block shared memory limit on the current device, `device`;
+// returns that limit in bytes, or -1.  Called once per device, before the
+// first launch there.
 int fused_apla_attn_bwd_prepare(int device) {
-  return attn_bwd_prepare<true>(device);
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  if (attn90::set_smem<true>(v) != 0 ||
+      gemm90::set_smem<0, 0, false>(v) != 0 ||
+      gemm90::set_smem<1, 1, true>(v) != 0)
+    return -1;
+  return v;
 }
 
 // The Swin window backward's counterpart of fused_apla_attn_bwd_prepare.
@@ -215,40 +241,93 @@ int fused_swin_attn_bwd_prepare(int device) {
   return attn_bwd_prepare<true, 32, true>(device);
 }
 
-// Largest dynamic shared memory of the five launches (bytes), either
-// variant.
+// Largest dynamic shared memory of the Swin window backward's launches
+// (bytes).
 long long fused_apla_attn_bwd_smem_bytes() { return (long long)BWD_SMEM; }
 
-// The five launches on `stream`; returns the first nonzero cudaError_t of
-// a launch, or 0 when all are queued.  The caller checks shapes (C == H*64,
-// Kp a multiple of 64, 16-byte aligned contiguous tensors) and allocates
-// the scratch: dO and o_cat [B, N, C] bf16, stats [3, B, H, N] f32, part
-// [n_chunks, C, Kp] f32, with n_chunks * chunk_rows >= B * N.
+// The five launches on `stream`, those that `parts` names (1 the dO GEMM,
+// 2 the query side, 4 the key side, 8 the dW partials and their sum), with
+// the plan `plan[11]`: the attention's (ops/mha.py:bwd_plan: own tiles
+// per block, resident, slots, the query side's and the key side's shared
+// memory), then the dO GEMM's and the dW GEMM's
+// (ops/apla_proj_gemm.py:gemm_plan: tile width, stages, shared memory).
+// Returns 0 when all are queued, a cudaError_t of a launch, 1000 + the
+// CUresult of a tensor map that could not be encoded, or 2000 for a GEMM
+// width with no kernel.  The caller
+// checks shapes (C == H*64, Kp a multiple of 64, 16-byte aligned contiguous
+// tensors, the plan's shared memory within the device's limit) and
+// allocates the scratch: dO and o_cat [B, N, C] bf16, stats [B, H,
+// ceil(N / 64), 3, 64] f32, part [n_chunks, C, Kp] f32, with chunk_rows a
+// multiple of 64 and every chunk non-empty.
 int fused_apla_attn_bwd(const void* qkv, const void* w, const void* g,
                         const void* gt, void* dqkv, void* dwt, void* dO,
                         void* o_cat, void* stats, void* part, int B, int N,
                         int C, int H, int Kp, float scale, int seg,
-                        int chunk_rows, int n_chunks, void* stream) {
+                        int chunk_rows, int n_chunks, const int* plan,
+                        int parts, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const bf16* qkv_ = static_cast<const bf16*>(qkv);
-  bf16* dO_ = static_cast<bf16*>(dO);
-  bf16* o_ = static_cast<bf16*>(o_cat);
-  return bwd_launches<64>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(gt), dO_, o_, static_cast<float*>(dwt),
-      static_cast<float*>(part), B * N, C, Kp, chunk_rows, n_chunks, s,
-      [&] {
-        return attn_bwd_launch<true>(qkv_, dO_, o_, static_cast<bf16*>(dqkv),
-                                     static_cast<float*>(stats), B, N, C, H,
-                                     scale, seg, s);
-      });
+  const int M = B * N;
+  const uint64_t row = 2ull * C;
+  // 1. dO [M, C] = g [M, C] w^T: w [C, C] row-major is w^T's K-major form
+  CUtensorMap amap, bmap, cmap;
+  int err = sm90::encode_bf16_3d(&amap, g, C, M, 1, row, row * M,
+                                 gemm90::BM);
+  if (err == 0)
+    err = sm90::encode_bf16_3d(&bmap, w, C, C, 1, row, row * C, plan[5]);
+  if (err == 0)
+    err = sm90::encode_bf16_3d(&cmap, dO, C, M, 1, row, row * M, 64);
+  if (err != 0) return 1000 + err;
+  gemm90::Args a;
+  a.K = C;
+  a.chunk = C;
+  a.stages = plan[6];
+  a.M = M;
+  a.N = C;
+  a.out = nullptr;
+  if ((parts & attn90::PART_DO) &&
+      (err = gemm90::launch<0, 0, false>(amap, bmap, cmap, a, plan[5], 1,
+                                          plan[7], s)) != 0)
+    return err;
+  // 2, 3. the attention
+  const attn90::LaunchPlan lp = {plan[0], plan[1], plan[2], plan[3],
+                                 plan[4]};
+  if ((err = attn90::launch<true>(
+           static_cast<const bf16*>(qkv), static_cast<const bf16*>(dO),
+           static_cast<bf16*>(o_cat), static_cast<bf16*>(dqkv),
+           static_cast<float*>(stats), B, N, C, H, scale, seg, lp, parts,
+           s)) != 0)
+    return err;
+  if (!(parts & attn90::PART_DW)) return 0;
+  // 4. part[z] [C, Kp] = o_cat[chunk z]^T g_t[chunk z]: both row-major over
+  //    the M rows, so o_cat^T is an MN-major A and g_t an MN-major B
+  err = sm90::encode_bf16_3d(&amap, o_cat, C, M, 1, row, row * M, 64);
+  if (err == 0)
+    err = sm90::encode_bf16_3d(&bmap, gt, Kp, M, 1, 2ull * Kp, 2ull * Kp * M,
+                               64);
+  if (err != 0) return 1000 + err;
+  a.K = M;
+  a.chunk = chunk_rows;
+  a.stages = plan[9];
+  a.M = C;
+  a.N = Kp;
+  a.out = static_cast<float*>(part);
+  if ((err = gemm90::launch<1, 1, true>(amap, bmap, amap, a, plan[8],
+                                         n_chunks, plan[10], s)) != 0)
+    return err;
+  // 5. dW_t = the partials summed, chunk 0 first
+  const long n = (long)C * Kp;
+  dw_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(dwt), n,
+      n_chunks);
+  return (int)cudaGetLastError();
 }
 
 // The Swin window backward (head dim 32, the whole projection trainable):
 // as fused_apla_attn_bwd with g_t = g and Kp = C, bias [H, N, N] f32 and
-// mask [nW, N, N] f32 or null.  The caller checks shapes (C == H*32, C a
-// multiple of 32) and allocates the scratch as above with Kp = C; part
-// holds n_chunks x [C, C].
+// mask [nW, N, N] f32 or null, on the mma.sync body.  The caller checks
+// shapes (C == H*32, C a multiple of 32) and allocates the scratch: dO and
+// o_cat [B, N, C] bf16, stats [3, B, H, N] f32, part [n_chunks, C, C] f32,
+// with n_chunks * chunk_rows >= B * N.
 int fused_swin_attn_bwd(const void* qkv, const void* w, const void* g,
                         const void* bias, const void* mask, void* dqkv,
                         void* dw, void* dO, void* o_cat, void* stats,

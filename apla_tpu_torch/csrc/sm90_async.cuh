@@ -12,8 +12,10 @@
 //  * MN-major (rows = the contraction, columns = N) for the B operand of
 //    p v: a k16 step is 16 rows (2048 bytes); 8-row groups are 1024 bytes
 //    apart, and with N = 64 one swizzle row spans all of N.  A wider
-//    MN-major B (the projection GEMM's) is N / 64 such tiles side by side,
-//    the descriptor's leading byte offset apart.
+//    MN-major B (the GEMMs' of gemm_sm90.cuh) is N / 64 such tiles side by
+//    side, the descriptor's leading byte offset apart.  The same tile read
+//    as the A operand of a product whose rows are its columns (o^T g in
+//    the APLA dW) is an MN-major A.
 //
 // wgmma accumulator layout (m64nN, f32): warp w of the warpgroup holds rows
 // 16w + g and 16w + g + 8 (lane = 4g + t); d[4j + e] is row 16w + g, column
@@ -87,6 +89,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"((uint64_t)map), "r"(smem_addr(bar)),
          "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global memory into shared memory; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"((uint64_t)src), "r"(bytes),
+         "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -232,54 +246,71 @@ __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x N f32) (+)= A (64 x 16, K-major tile) B (16 x N, MN-major: N / 64
-// tiles of 64 columns side by side, the descriptor's leading byte offset
-// apart), both bf16 from shared memory; accumulate = 0 overwrites d.
-template <int N>
-__device__ __forceinline__ void wgmma_ss_tb(float* d, uint64_t a, uint64_t b,
-                                            int accumulate);
+// d (64 x N f32) (+)= A (64 x 16) B (16 x N), both bf16 from shared memory;
+// accumulate = 0 overwrites d.  TA = 0: A K-major (desc_kmajor), 1: A
+// MN-major, one 64-column tile (desc_mnmajor).  TB = 0: B K-major (N rows
+// of 64 along the contraction, desc_kmajor); 1: B MN-major, N / 64 tiles
+// of 64 columns side by side, the descriptor's leading byte offset apart.
+// A k16 step is +32 bytes of a K-major tile, +16 rows of an MN-major one.
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_t(float* d, uint64_t a, uint64_t b,
+                                           int accumulate);
 
-template <>
-__device__ __forceinline__ void wgmma_ss_tb<128>(float* d, uint64_t a,
-                                                 uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      " %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24), SM90_R8(32),
-        SM90_R8(40), SM90_R8(48), SM90_R8(56)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
+template <int TA, int TB>
+struct WgmmaT128 {
+  __device__ __forceinline__ static void run(float* d, uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+        " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+        " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+        " %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24), SM90_R8(32),
+          SM90_R8(40), SM90_R8(48), SM90_R8(56)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
 
-template <>
-__device__ __forceinline__ void wgmma_ss_tb<256>(float* d, uint64_t a,
-                                                 uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
-      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
-      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
-      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
-      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117,"
-      " %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24), SM90_R8(32),
-        SM90_R8(40), SM90_R8(48), SM90_R8(56), SM90_R8(64), SM90_R8(72),
-        SM90_R8(80), SM90_R8(88), SM90_R8(96), SM90_R8(104),
-        SM90_R8(112), SM90_R8(120)
-      : "l"(a), "l"(b), "r"(accumulate));
+template <int TA, int TB>
+struct WgmmaT256 {
+  __device__ __forceinline__ static void run(float* d, uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+        " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+        " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+        " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+        " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+        " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+        " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+        " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+        " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+        " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117,"
+        " %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24), SM90_R8(32),
+          SM90_R8(40), SM90_R8(48), SM90_R8(56), SM90_R8(64), SM90_R8(72),
+          SM90_R8(80), SM90_R8(88), SM90_R8(96), SM90_R8(104),
+          SM90_R8(112), SM90_R8(120)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_t(float* d, uint64_t a, uint64_t b,
+                                           int accumulate) {
+  static_assert(N == 128 || N == 256, "wgmma_ss_t: N of 128 or 256");
+  if constexpr (N == 128)
+    WgmmaT128<TA, TB>::run(d, a, b, accumulate);
+  else
+    WgmmaT256<TA, TB>::run(d, a, b, accumulate);
 }
 
 // d (64 x 64 f32) += A (64 x 16 bf16 from registers, a[4]) B (16 x 64,

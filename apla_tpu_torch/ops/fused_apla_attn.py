@@ -17,7 +17,11 @@ and its custom VJP).  Hand-written CUDA kernels replace the TPU kernels:
   added outside the kernels.
 - `csrc/fused_apla_attn_bwd.cu` replaces `pallas_apla_attn.py:_bwd_kernel`:
   p recomputed, `dO = g W^T`, `dq/dk/dv` packed `[B, N, 3C]`, and
-  `dW_t = o_cat^T g[..., inds]` summed over the batch, in f32.
+  `dW_t = o_cat^T g[..., inds]` summed over the batch, in f32.  Five
+  launches: the two GEMMs on `csrc/gemm_sm90.cuh` (the projection GEMM's
+  body: `gemm_plan`'s plans), the attention's query and key sides on
+  `csrc/attn_bwd_sm90.cuh` (the memory-efficient attention backward's:
+  `mha.bwd_plan`), and the sum of the dW_t partials.
 
 The same kernels stand for the TPU's q-strip "long" kernels
 (`apla_tpu/ops/pallas_apla_attn_long.py`: `_fwd_kernel` through `_call_fwd`,
@@ -135,8 +139,6 @@ def _check_bwd_args(qkv, w, g, inds, num_heads, segment_len):
     if inds.dim() != 1 or not 0 < inds.numel() <= C:
         raise ValueError(f"inds must be [k] with 0 < k <= {C}, got "
                          f"{tuple(inds.shape)}")
-    if B * N > 65535 * 64:
-        raise ValueError(f"batch x length {B * N} outside the kernel's grid")
     return B, N, C
 
 
@@ -146,10 +148,8 @@ def _bwd_library():
     lib.fused_apla_attn_bwd.argtypes = (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p])
+           ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
     lib.fused_apla_attn_bwd.restype = ctypes.c_int
-    lib.fused_apla_attn_bwd_smem_bytes.argtypes = []
-    lib.fused_apla_attn_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.fused_apla_attn_bwd_prepare.argtypes = [ctypes.c_int]
     lib.fused_apla_attn_bwd_prepare.restype = ctypes.c_int
     return lib
@@ -187,47 +187,77 @@ fused_apla_attn_fwd.launches = 0
 
 def dw_chunks(m: int, c: int, kp: int, n_sm: int, tile: int = 64):
     """(rows per chunk, number of chunks) for the dW_t partials: chunks of
-    64-row steps, about four blocks per SM over the (C/tile) x (Kp/tile)
-    output tiles, every chunk non-empty."""
+    64-row steps, about four blocks per SM over (C/tile) x (Kp/tile)
+    output tiles, every chunk non-empty.  The chunks fix the partials' sum
+    order, so they stay those of the 64 x 64 tiles the first kernel used
+    (tile = 64), whatever tiles the GEMM now takes."""
     steps = -(-m // 64)
     target = max(1, (4 * n_sm) // ((c // tile) * (kp // tile)))
     rows = 64 * -(-steps // min(target, steps))
     return rows, -(-m // rows)
 
 
-def _launch_bwd(qkv, w, g, inds, num_heads, scale, segment_len):
+# The dW_t partials' GEMM: 128 x 128 tiles over three stages (two blocks
+# an SM), since Kp (128, or C) gives few column tiles.
+DW_GEMM = (128, 3)
+
+
+def bwd_plans(B: int, N: int, C: int, num_heads: int, kp: int,
+              segment_len: int = 0):
+    """(attention plan, dO GEMM plan, dW GEMM plan) of the backward's
+    launches at this shape."""
+    return (mha.bwd_plan(B, N, num_heads, segment_len),
+            proj_gemm.gemm_plan(B * N, C),
+            proj_gemm.gemm_plan(C, kp, *DW_GEMM))
+
+
+# every launch of the backward (`mha.PART_*` bits)
+PARTS_ALL = mha.PART_DO | mha.PART_QUERY | mha.PART_KEY | mha.PART_DW
+
+
+def _launch_bwd(qkv, w, g, inds, num_heads, scale, segment_len,
+                parts=PARTS_ALL):
     B, N, C = _check_bwd_args(qkv, w, g, inds, num_heads, segment_len)
     lib = _bwd_library()
     dev = device_index(qkv)
-    check_smem(lib.fused_apla_attn_bwd_smem_bytes(),
-               device_smem(_bwd_library, "fused_apla_attn_bwd_prepare",
-                           dev),
-               "the backward")
     k = inds.numel()
     kp = -(-k // _KP) * _KP
-    g_t = torch.nn.functional.pad(g.index_select(-1, inds),
-                                  (0, kp - k)).contiguous()
+    attn, do_gemm, dw_gemm = bwd_plans(B, N, C, num_heads, kp, segment_len)
+    mha.check_bwd_plan(attn, dev, _bwd_library,
+                       "fused_apla_attn_bwd_prepare")
+    check_smem(max(do_gemm.smem_bytes, dw_gemm.smem_bytes),
+               device_smem(_bwd_library, "fused_apla_attn_bwd_prepare", dev),
+               "the backward's GEMMs")
+    g_t = g.index_select(-1, inds)            # contiguous [B, N, k]
+    if kp != k:
+        g_t = torch.nn.functional.pad(g_t, (0, kp - k))
     rows, n_chunks = dw_chunks(B * N, C, kp, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     dqkv = torch.empty_like(qkv)
     dwt = torch.empty((C, kp), dtype=torch.float32, device=qkv.device)
     d_o = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     o_cat = torch.empty_like(d_o)
-    stats = torch.empty((3, B, num_heads, N), dtype=torch.float32,
-                        device=qkv.device)
+    stats = mha.bwd_stats(B, N, num_heads, qkv.device)
     part = torch.empty((n_chunks, C, kp), dtype=torch.float32,
                        device=qkv.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = mha.plan_array(attn.args() + (
+        do_gemm.bn, do_gemm.stages, do_gemm.smem_bytes,
+        dw_gemm.bn, dw_gemm.stages, dw_gemm.smem_bytes))
+    with launch_context(qkv) as stream:
         err = lib.fused_apla_attn_bwd(
             qkv.data_ptr(), w.data_ptr(), g.data_ptr(), g_t.data_ptr(),
             dqkv.data_ptr(), dwt.data_ptr(), d_o.data_ptr(), o_cat.data_ptr(),
             stats.data_ptr(), part.data_ptr(), B, N, C, num_heads, kp,
-            float(scale), int(segment_len), rows, n_chunks, stream)
+            float(scale), int(segment_len), rows, n_chunks, plan, parts,
+            stream)
+    if err == 2000:
+        raise RuntimeError("fused_apla_attn_bwd: no GEMM of that width")
+    if err >= 1000:
+        raise RuntimeError(f"fused_apla_attn_bwd: tensor map not encoded: "
+                           f"CUresult {err - 1000}")
     if err != 0:
         raise RuntimeError(f"fused_apla_attn_bwd launch failed: "
                            f"cudaError {err}")
-    fused_apla_attn_bwd.launches += 1
     return dqkv, dwt[:, :k]
 
 
@@ -243,10 +273,22 @@ def fused_apla_attn_bwd(qkv, w, g, inds, num_heads: int, scale: float,
                                              scale, segment_len)
     if qkv.device.type != "cuda":
         raise ValueError(f"no fused APLA attention for device {qkv.device}")
-    return _launch_bwd(qkv, w, g, inds, num_heads, scale, segment_len)
+    out = _launch_bwd(qkv, w, g, inds, num_heads, scale, segment_len)
+    fused_apla_attn_bwd.launches += 1
+    return out
 
 
 fused_apla_attn_bwd.launches = 0
+
+
+def fused_apla_attn_bwd_part(qkv, w, g, inds, num_heads: int, scale: float,
+                             parts: int, segment_len: int = 0):
+    """Some of the backward's launches alone (`mha.PART_*` bits: the dO
+    GEMM, the query side, the key side, the dW partials and their sum), on
+    CUDA tensors, uncounted: a measurement times them apart.  A launch run
+    without the ones before it reads scratch they did not write, so only
+    its time means anything."""
+    return _launch_bwd(qkv, w, g, inds, num_heads, scale, segment_len, parts)
 
 
 class FusedAplaAttention(torch.autograd.Function):

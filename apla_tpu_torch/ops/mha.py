@@ -13,6 +13,9 @@ kernels:
 - `csrc/mha_bwd.cu` replaces `pallas_mha.py:_bwd_kernel`: p recomputed,
   `dv = bf16(p)^T dO`, `dp = dO v^T`, `ds = bf16(p (dp - rowsum(dp p))
   scale)` on the f32 p, `dq = ds k`, `dk = ds^T q`, each rounded once.
+  Two launches (`csrc/attn_bwd_sm90.cuh`: a query side and a key side),
+  wgmma and TMA, the other side's tiles resident where they fit; its launch
+  plan (`bwd_plan`) is decided here, from the shape alone.
 
 Both take q, k and v packed as the qkv matmul emits them, `[B, N, 3C]` with
 head h at columns `h*64 .. h*64+63` of each third, and mask the ragged edge
@@ -161,6 +164,88 @@ def fwd_plan(B: int, N: int, H: int, segment_len: int = 0) -> FwdPlan:
                    blocks_per_sm=per_sm)
 
 
+# The backward's launch plan (`bwd_plan`), in the units of
+# `csrc/attn_bwd_sm90.cuh`: a block of one warpgroup takes a run of its own
+# side's 64-row tiles (query tiles on the query side, key tiles on the key
+# side) of one (image, head) and holds one own pair (Q and dO, or K and V:
+# 16 KB); the other side's pairs (K and V, or Q and dO with the query
+# tile's statistics, 768 bytes more) sit in `slots`: all of the head's
+# tiles when they fit two blocks an SM, else a ring.  1 KB aligns the base,
+# 256 bytes hold the barriers.
+STAT_BYTES = 3 * TILE * 4
+BWD_RING = 3                     # the streamed ring's stages
+BWD_BLOCKS_PER_SM = 2
+
+
+def bwd_smem(side: str, slots: int) -> int:
+    """Shared memory of a block of the backward's `side` ("query" or
+    "key") holding `slots` of the other side's pairs."""
+    per = SLOT_BYTES + (STAT_BYTES if side == "key" else 0)
+    return 1024 + SLOT_BYTES + slots * per + 256
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How the backward's two kernels cover [B, N] x H heads.
+
+    A block of either side takes `tiles` consecutive own tiles (query tiles
+    on the query side, key tiles on the key side) of one (image, head):
+    `blocks` blocks a side.  The other side's tiles are `resident` (all of
+    the head's in `slots` = `n_tiles` slots) or streamed through a ring of
+    `slots` = BWD_RING stages."""
+    n_tiles: int
+    resident: bool
+    slots: int
+    tiles: int
+    blocks: int
+    q_smem: int
+    k_smem: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return max(self.q_smem, self.k_smem)
+
+    def args(self) -> tuple:
+        """The plan as the C entries take it (five ints)."""
+        return (self.tiles, int(self.resident), self.slots, self.q_smem,
+                self.k_smem)
+
+    def describe(self) -> str:
+        return (f"{self.tiles} own tiles per block, {self.blocks} blocks a "
+                f"side, the other side "
+                f"{'resident' if self.resident else 'streamed'} in "
+                f"{self.slots} slots, {self.q_smem} (query side) and "
+                f"{self.k_smem} (key side) bytes of shared memory")
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(B: int, N: int, H: int, segment_len: int = 0) -> BwdPlan:
+    """The backward kernels' launch plan, a pure function of the shape.
+
+    The other side's tiles stay resident when both sides' blocks, holding
+    all of a head's tiles, still fit two to an SM (N <= 320); longer N
+    streams them through a ring.  Resident, a block takes as many own tiles
+    as leave about SMS x 2 blocks in flight (all of a head's five at b64),
+    so K/V (or Q/dO) cross from L2 once per block; streamed, one own tile a
+    block.  (`segment_len` changes which tiles a block multiplies, not the
+    plan.)"""
+    del segment_len
+    n_t = -(-N // TILE)
+    heads = B * H
+    limit = SM_SMEM // BWD_BLOCKS_PER_SM - BLOCK_RESERVED
+    resident = max(bwd_smem("query", n_t), bwd_smem("key", n_t)) <= limit
+    slots = n_t if resident else BWD_RING
+    if resident:
+        target = SMS * BWD_BLOCKS_PER_SM
+        tiles = max(1, n_t // min(n_t, -(-target // heads)))
+    else:
+        tiles = 1
+    return BwdPlan(n_tiles=n_t, resident=resident, slots=slots, tiles=tiles,
+                   blocks=heads * -(-n_t // tiles),
+                   q_smem=bwd_smem("query", slots),
+                   k_smem=bwd_smem("key", slots))
+
+
 def split_heads(t, num_heads):
     """[B, N, C] -> [B, H, N, Dh] in float32."""
     B, N, C = t.shape
@@ -266,10 +351,9 @@ def _fwd_library():
 def _bwd_library():
     lib = load_library(BWD_SOURCE)
     lib.mha_bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+           ctypes.c_int, ctypes.c_void_p]
     lib.mha_bwd.restype = ctypes.c_int
-    lib.mha_bwd_smem_bytes.argtypes = []
-    lib.mha_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.mha_bwd_prepare.argtypes = [ctypes.c_int]
     lib.mha_bwd_prepare.restype = ctypes.c_int
     return lib
@@ -324,7 +408,32 @@ def mha_fwd(qkv, num_heads: int, scale: float, segment_len: int = 0):
 mha_fwd.launches = 0
 
 
-def _launch_bwd(qkv, d_o, num_heads, scale, segment_len):
+def plan_array(values) -> ctypes.Array:
+    """A launch plan's ints as the C entries' `const int*`."""
+    return (ctypes.c_int * len(values))(*values)
+
+
+def bwd_stats(B, N, num_heads, device):
+    """The backward's statistics scratch: [B, H, ceil(N / 64), 3, 64] f32,
+    written by the query side, read by the key side."""
+    return torch.empty((B, num_heads, -(-N // TILE), 3, TILE),
+                       dtype=torch.float32, device=device)
+
+
+def check_bwd_plan(plan: BwdPlan, dev: int, library, prepare: str) -> None:
+    """Raises unless the device takes the plan's shared memory and grid."""
+    if plan.blocks >= 2 ** 31:
+        raise ValueError("the backward's grid is too large")
+    check_smem(plan.smem_bytes, device_smem(library, prepare, dev),
+               "the backward")
+
+
+# `parts` of the backward's C entries: which launches a call queues
+PART_DO, PART_QUERY, PART_KEY, PART_DW = 1, 2, 4, 8
+
+
+def _launch_bwd(qkv, d_o, num_heads, scale, segment_len,
+                parts=PART_QUERY | PART_KEY):
     B, N, C = _check_qkv(qkv, num_heads, segment_len)
     if d_o.dtype != qkv.dtype or tuple(d_o.shape) != (B, N, C):
         raise ValueError(f"d_o must be [{B}, {N}, {C}] {qkv.dtype}, got "
@@ -335,20 +444,20 @@ def _launch_bwd(qkv, d_o, num_heads, scale, segment_len):
         raise ValueError("d_o must be contiguous and 16-byte aligned")
     lib = _bwd_library()
     dev = device_index(qkv)
-    check_smem(lib.mha_bwd_smem_bytes(),
-               device_smem(_bwd_library, "mha_bwd_prepare", dev),
-               "the backward")
+    plan = bwd_plan(B, N, num_heads, segment_len)
+    check_bwd_plan(plan, dev, _bwd_library, "mha_bwd_prepare")
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((3, B, num_heads, N), dtype=torch.float32,
-                        device=qkv.device)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    stats = bwd_stats(B, N, num_heads, qkv.device)
+    with launch_context(qkv) as stream:
         err = lib.mha_bwd(qkv.data_ptr(), d_o.data_ptr(), dqkv.data_ptr(),
                           stats.data_ptr(), B, N, C, num_heads, float(scale),
-                          int(segment_len), stream)
+                          int(segment_len), plan_array(plan.args()), parts,
+                          stream)
+    if err >= 1000:
+        raise RuntimeError(f"mha_bwd: tensor map not encoded: CUresult "
+                           f"{err - 1000}")
     if err != 0:
         raise RuntimeError(f"mha_bwd launch failed: cudaError {err}")
-    mha_bwd.launches += 1
     return dqkv
 
 
@@ -362,10 +471,21 @@ def mha_bwd(qkv, d_o, num_heads: int, scale: float, segment_len: int = 0):
         return mha_bwd_reference(qkv, d_o, num_heads, scale, segment_len)
     if qkv.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {qkv.device}")
-    return _launch_bwd(qkv, d_o, num_heads, scale, segment_len)
+    dqkv = _launch_bwd(qkv, d_o, num_heads, scale, segment_len)
+    mha_bwd.launches += 1
+    return dqkv
 
 
 mha_bwd.launches = 0
+
+
+def mha_bwd_part(qkv, d_o, num_heads: int, scale: float, part: int,
+                 segment_len: int = 0):
+    """One of the backward's launches alone (`PART_QUERY` or `PART_KEY`),
+    on a CUDA tensor, uncounted: a measurement times the two apart.  The
+    key side alone reads statistics it did not write, so only its time
+    means anything."""
+    return _launch_bwd(qkv, d_o, num_heads, scale, segment_len, part)
 
 
 class MemEffAttention(torch.autograd.Function):

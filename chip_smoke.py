@@ -25,9 +25,15 @@ and raise on failure:
                Every block of every call must have run the kernel; outputs
                must be finite and agree with the same model on the plain
                attention path; b64 throughput of both arms is timed.
-  4. bwd     — the backward kernel against its plain version, dq, dk, dv
-               and dW_t each, at the training shapes, N=1370, a segmented
-               case and the shipped block-0 indices; b64 timed.
+  4. bwd     — the backward kernels against their plain version, dq, dk,
+               dv and dW_t each, at the training shapes, N=1370, a
+               segmented case and the shipped block-0 indices, with five
+               fault controls (two aimed at the tiling: a tile left out of
+               one product, where the other side is resident and where it
+               is streamed); timed at b64, [512, 50] and [2, 1370] (events,
+               a CUDA graph, each of the five launches apart) beside the
+               bound, the launch plans and the two-call yardstick; the
+               kernels' registers, spills and shared memory.
   5. train   — the recipe's supervised fine-tune (ViT-B/14 APLA-128, AdamW,
                warmup + cosine, clip 1.0, accum 8, device augmentation,
                mixup/cutmix) on the hermetic Synthetic dataset through
@@ -54,11 +60,13 @@ and raise on failure:
   7a. mha    — the memory-efficient attention kernels (forward, backward)
                against their plain versions at N=257 (b1, b8, b64), N=50
                (b512), N=1370, a segmented and two ragged cases, and the
-               forward's launch-plan boundaries (N=320, 321, 768, 769); the
-               forward timed (launched one by one and from a CUDA graph)
-               beside the bound and F.scaled_dot_product_attention at every
-               shape the port's paths give it, with its launch plan; the
-               backward timed at b64 N=257.
+               launch-plan boundaries (N=320, 321, 768, 769: the forward's,
+               and the backward's at 320/321); the forward and the backward
+               timed (launched one by one and from a CUDA graph; the
+               backward's two launches apart too) beside the bound and
+               F.scaled_dot_product_attention (its autograd for the
+               backward) at every shape the port's paths give them, with
+               their launch plans.
   7b. full   — the ImageNet recipe at `partial_size: "full"` (FULL_RECIPE:
                the whole projection of every block trainable, the recipe's
                `is_memory_efficient: true`) served as in phase 3 and trained
@@ -89,9 +97,10 @@ and raise on failure:
                long kernels (TPU rows 5-7): ViT-L/16 at 512, qkv
                [8, 1025, 3072] and [1, 1025, 3072], every one of the 1024
                projection columns trainable; the forward and backward fault
-               controls, shared memory, registers and the forward's launch
-               plans at C = 1024, times at b8 (the forward's two launches
-               apart too) beside the bound and the two-call yardstick.
+               controls, shared memory, registers and the launch plans at
+               C = 1024, times at b8 (the forward's two launches and the
+               backward's five apart too, events and CUDA graphs) beside the
+               bound and the two-call yardstick.
   9b. seg    — the APLA SETR-PUP segmenter on ViT-L/16 at 512 (`segdet seg
                --use_fused --aux_heads 3 --head_lr_mult 10`, SEG_RECIPE) on
                a synthetic ADE20K-layout set through
@@ -128,7 +137,8 @@ and raise on failure:
 Phases 2-10 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
 heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
-from the wrong columns or zeroed, rowsum(dp * p) dropped from ds; the
+from the wrong columns or zeroed, rowsum(dp * p) dropped from ds, a key
+tile left out of dq, a query tile left out of dk; the
 teacher temperature taken as 1, dws zeroed, dxs halved, p_t dropped from
 ds; the projection GEMM's output halved, its last row unwritten, its last
 contraction step skipped; the Swin bias or mask dropped, the mask read at
@@ -721,11 +731,67 @@ def _attn_fwd_bound(b, n, c):
 
 def _attn_bwd_bound(b, n, c, k):
     """Its backward: dO = g W^T (2 n c^2), the scores and o recomputed, dv,
-    dp, dq, dk (six 2 n^2 c products) and dW_t = o^T g_t (2 n c k); reads
-    qkv, W and g, writes dqkv bf16 and dW_t f32."""
+    dp, dq, dk (six 2 n^2 c products: the kernels run eleven, as the
+    scores and dp are recomputed on each side and in each pass) and dW_t =
+    o^T g_t (2 n c k); reads qkv, W and g, writes dqkv bf16 and dW_t f32."""
     return _bound(b * (12 * n * n * c + 2 * n * c * c + 2 * n * c * k),
                   2 * (3 * b * n * c + c * c + b * n * c + 3 * b * n * c)
                   + 4 * c * k)
+
+
+def _bwd_launch_bounds(b, n, c, k=None):
+    """(least ms, what bounds it) of each launch of the backward, for the
+    function that launch computes: the dO GEMM (2 n c^2 per image; reads g
+    and W, writes dO), the query side (q k^T, dO v^T, dq = ds k and, fused,
+    o = p v: 2 n^2 c each; reads qkv and dO, writes dq, the statistics and,
+    fused, o_cat), the key side (k q^T, v dO^T, dv, dk; reads qkv, dO and
+    the statistics, writes dk, dv), the dW_t partials and their sum (2 n c k;
+    reads o_cat and g_t, writes dW_t f32).  k None: the memory-efficient
+    attention backward, the two sides alone, without o."""
+    bnc, prod, stat = b * n * c, 2 * b * n * n * c, 3 * b * n * (c // 64) * 4
+    fused = k is not None
+    out = {"query side": _bound((4 if fused else 3) * prod,
+                                2 * (4 + 1 + fused) * bnc + stat),
+           "key side": _bound(4 * prod, 2 * 6 * bnc + stat)}
+    if fused:
+        out["dO GEMM"] = _bound(2 * bnc * c, 2 * (2 * bnc + c * c))
+        out["dW partials + reduce"] = _bound(2 * bnc * k,
+                                             2 * (bnc + b * n * k) + 4 * c * k)
+    return out
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _bwd_parts(call, bounds):
+    """Each launch of a backward call apart: `call(parts)` queues the
+    launches `parts` names (`ops/mha.py` PART_* bits); CUDA events over
+    calls launched one by one and a CUDA graph of 20, beside the launch's
+    bound.  "wrapper alone" (parts = 0): what the fused wrapper does around
+    the launches (the g_t gather, the allocations), inside every time."""
+    from apla_tpu_torch.ops import mha as tmha
+    bits = {"dO GEMM": tmha.PART_DO, "query side": tmha.PART_QUERY,
+            "key side": tmha.PART_KEY,
+            "dW partials + reduce": tmha.PART_DW}
+    names = list(bounds) + (["wrapper alone"] if "dO GEMM" in bounds
+                            else [])
+    out = {}
+    for name in names:
+        fn = functools.partial(call, bits.get(name, 0))
+        out[name] = {"ms": _time_ms(fn), "graph_ms": _graph_ms(fn)}
+        if name in bounds:
+            out[name]["bound_ms"], out[name]["bound_by"] = bounds[name]
+    return out
+
+
+def _print_parts(tag, parts):
+    print(f"[{tag}]   launches apart (events / CUDA graph ms, bound): "
+          + "; ".join(f"{name} {t['ms']:.4f} / {t['graph_ms']:.4f}"
+                      + (f" (bound {t['bound_ms']:.4f}, {t['bound_by']}, "
+                         f"{t['bound_ms'] / t['graph_ms']:.1%})"
+                         if "bound_ms" in t else "")
+                      for name, t in parts.items()))
 
 
 def _library_attn(qkv, w, heads, scale):
@@ -1114,10 +1180,54 @@ def _bwd_controls():
     }
 
 
+def _plain_ds(qkv, d_o, heads, scale, seg):
+    """(q, k, ds) per head in f32, ds = bf16((p * (dp - rowsum(dp * p))) *
+    scale) from the plain pieces, as the kernels round it."""
+    from apla_tpu_torch.ops import mha as tmha
+    q, k, v = (tmha.split_heads(t, heads) for t in qkv.chunk(3, dim=-1))
+    d = tmha.split_heads(d_o, heads)
+    p = tmha.softmax_f32(q, k, scale, seg)
+    dp = torch.matmul(d, v.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))) * scale
+    return q, k, ds.to(torch.bfloat16).float()
+
+
+def _tile_skipped(dqkv, qkv, d_o, heads, scale, seg, tile, side):
+    """dqkv as a backward that skipped one 64-row tile in one product would
+    return it: the working kernel's dqkv less that tile's share, computed in
+    f32 from the plain pieces.  side "query": key tile `tile` left out of
+    the query side's dq = ds k; "key": query tile `tile` left out of the key
+    side's dk = ds^T q."""
+    from apla_tpu_torch.ops import mha as tmha
+    q, k, ds = _plain_ds(qkv, d_o, heads, scale, seg)
+    rows = slice(64 * tile, 64 * (tile + 1))
+    c = d_o.shape[-1]
+    out = dqkv.float()
+    if side == "query":
+        out[..., :c] -= tmha.merge_heads(torch.matmul(ds[..., rows],
+                                                      k[:, :, rows]))
+    else:
+        out[..., c:2 * c] -= tmha.merge_heads(torch.matmul(
+            ds[:, :, rows].transpose(-1, -2), q[:, :, rows]))
+    return out.to(dqkv.dtype)
+
+
+# Phase 4's controls aimed at the redesigned kernels' tiling, each at a
+# case of BWD_CASES: (qkv shape, segment_len, tile, side) -> a 64-row tile
+# left out of one product, where the plan holds the other side's tiles
+# resident (N = 257: key tile 1 of five in dq) and where it streams them
+# through its ring (N = 1370: query tile 11 of 22 in dk).
+TILE_CONTROLS = (((8, 257, 2304), 0, 1, "query"),
+                 ((2, 1370, 2304), 0, 11, "key"))
+
+
 def phase_bwd(device):
     from apla_tpu_torch.apla.core import load_indices
+    from apla_tpu_torch.ops import cuda_build
     from apla_tpu_torch.ops.fused_apla_attn import (
-        fused_apla_attn_bwd, fused_apla_attn_bwd_reference)
+        _BWD_SOURCE, bwd_plans, dw_chunks, fused_apla_attn_bwd,
+        fused_apla_attn_bwd_part, fused_apla_attn_bwd_reference)
+    from apla_tpu_torch.ops.mha import bwd_plan
     gen = torch.Generator().manual_seed(SEED + 1)
     heads, scale = 12, 64 ** -0.5
     worst = 0.0
@@ -1145,6 +1255,26 @@ def phase_bwd(device):
             raise SystemExit(f"backward kernel disagrees with its plain "
                              f"version at {shape} seg={seg} k={k}")
         worst = max(worst, max(e for e, _ in errs.values()))
+        for c_shape, c_seg, tile, side in TILE_CONTROLS:
+            if (c_shape, c_seg) != (shape, seg) or k == "block0":
+                continue
+            d_o = torch.matmul(g.float(), w.float().t()).to(torch.bfloat16)
+            out = _tile_skipped(got[0], qkv, d_o, heads, scale, seg, tile,
+                                side)
+            c_errs = _bwd_errors((out, got[1]), ref)
+            name = "dq" if side == "query" else "dk"
+            caught = c_errs[name][0] > c_errs[name][1]
+            where = ("resident" if bwd_plan(*shape[:2], heads).resident
+                     else "ring")
+            print(f"[4 bwd] control {'key' if side == 'query' else 'query'}"
+                  f" tile {tile} left out of {name} ({where} at "
+                  f"N={shape[1]}): " + ", ".join(
+                      f"{n} {e:.6g}" for n, (e, _) in c_errs.items())
+                  + f" -> {'caught' if caught else 'NOT CAUGHT'} in "
+                  f"['{name}']")
+            if not caught:
+                raise SystemExit(f"the backward bound misses a skipped tile "
+                                 f"at {shape}")
         if k != "block0":
             continue
         for name, (change, broken, intact) in _bwd_controls().items():
@@ -1176,19 +1306,36 @@ def phase_bwd(device):
         # the yardstick's backward: autograd through its two calls
         lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
         lout = _library_attn(lq, lw, heads, scale)
-        t = {"ms": _time_ms(lambda: fused_apla_attn_bwd(qkv, w, g, inds,
-                                                        heads, scale)),
+        kernel = lambda: fused_apla_attn_bwd(qkv, w, g, inds,  # noqa: E731
+                                             heads, scale)
+        t = {"ms": _time_ms(kernel), "graph_ms": _graph_ms(kernel),
              "plain_ms": _time_ms(lambda: fused_apla_attn_bwd_reference(
                  qkv, w, g, inds, heads, scale)),
              "library_two_calls_ms": _time_ms(lambda: torch.autograd.grad(
                  lout, (lq, lw), g, retain_graph=True))}
         del lq, lw, lout
         t["bound_ms"], t["bound_by"] = _attn_bwd_bound(b, n, 768, len(block0))
+        t["parts"] = _bwd_parts(
+            lambda bits: fused_apla_attn_bwd_part(qkv, w, g, inds, heads,
+                                                  scale, bits),
+            _bwd_launch_bounds(b, n, 768, len(block0)))
         times[(b, n)] = t
+        attn, do_gemm, dw_gemm = bwd_plans(b, n, 768, heads, 128)
+        chunks = dw_chunks(b * n, 768, 128, _sm_count(device))[1]
         print(f"[4 bwd] b{b} N={n} C=768 k={len(block0)}: kernel "
-              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, autograd "
-              f"of the two library calls {t['library_two_calls_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+              f"{t['ms']:.4f} ms ({t['graph_ms']:.4f} from a CUDA graph), "
+              f"plain {t['plain_ms']:.4f} ms, autograd of the two library "
+              f"calls {t['library_two_calls_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{t['bound_ms'] / t['graph_ms']:.1%} of it reached); plans: "
+              f"attention {attn.describe()}; dO GEMM {do_gemm.describe()}; "
+              f"dW GEMM {dw_gemm.describe()}, for each of {chunks} chunks "
+              f"of rows")
+        _print_parts("4 bwd", t["parts"])
+    for line in _resources(cuda_build.resource_report(_BWD_SOURCE)):
+        if line.startswith(("bwd_query_kernel<1>", "bwd_key_kernel",
+                            "gemm_kernel")):
+            print(f"[4 bwd]   {_BWD_SOURCE}: {line}")
     return worst, times
 
 
@@ -1361,27 +1508,45 @@ def phase_mha(device):
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
               f"{t['bound_ms'] / t['graph_ms']:.1%} of it reached); plan: "
               + plan.describe())
+    # the backward at every timed shape: kernel (by events and from a CUDA
+    # graph, its two launches apart), SDPA's autograd, bound, launch plan;
+    # the plain version at the first
+    for b, n in MHA_TIMED:
+        qkv, d_o = inputs(b, n)
+        lq = qkv.clone().requires_grad_()
+        lout = sdpa(*lq.unflatten(-1, (3, heads, 64)).permute(2, 0, 3, 1, 4),
+                    scale=scale)
+        lg = d_o.unflatten(-1, (heads, 64)).transpose(1, 2)
+        kernel = lambda: tmha.mha_bwd(qkv, d_o, heads, scale)  # noqa: E731
+        t = {"ms": _time_ms(kernel), "graph_ms": _graph_ms(kernel),
+             "library_ms": _time_ms(lambda: torch.autograd.grad(
+                 lout, lq, lg, retain_graph=True)),
+             "max_abs_err": worst["bwd"]}
+        del lq, lout
+        t["bound_ms"], t["bound_by"] = _bound(10 * b * n * n * c,
+                                              2 * 7 * b * n * c)
+        if (b, n) == MHA_TIMED[0]:
+            t["plain_ms"] = _time_ms(lambda: tmha.mha_bwd_reference(
+                qkv, d_o, heads, scale), iters=5)
+        t["parts"] = _bwd_parts(
+            lambda bits: tmha.mha_bwd_part(qkv, d_o, heads, scale, bits),
+            _bwd_launch_bounds(b, n, c))
+        times[("bwd", b, n)] = t
+        print(f"[7a mha] bwd b{b} N={n} C={c}: kernel {t['ms']:.4f} ms "
+              f"({t['graph_ms']:.4f} from a CUDA graph), SDPA's autograd "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['bound_ms'] / t['graph_ms']:.1%} of it "
+              f"reached); plan: {tmha.bwd_plan(b, n, heads).describe()}")
+        _print_parts("7a mha", t["parts"])
     b, n = MHA_TIMED[0]
-    qkv, d_o = inputs(b, n)
-    lq = qkv.clone().requires_grad_()
-    lout = sdpa(*lq.unflatten(-1, (3, heads, 64)).permute(2, 0, 3, 1, 4),
-                scale=scale)
-    lg = d_o.unflatten(-1, (heads, 64)).transpose(1, 2)
-    t = {"ms": _time_ms(lambda: tmha.mha_bwd(qkv, d_o, heads, scale)),
-         "plain_ms": _time_ms(lambda: tmha.mha_bwd_reference(
-             qkv, d_o, heads, scale), iters=5),
-         "library_ms": _time_ms(lambda: torch.autograd.grad(
-             lout, lq, lg, retain_graph=True)),
-         "max_abs_err": worst["bwd"]}
-    t["bound_ms"], t["bound_by"] = _bound(10 * b * n * n * c,
-                                          2 * 7 * b * n * c)
-    print(f"[7a mha] bwd b{b} N={n} C={c}: kernel {t['ms']:.4f} ms, "
-          f"plain {t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, "
-          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
-          f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+    t = times[("bwd", b, n)]
+    print(f"[7a mha] bwd b{b} N={n}: plain {t['plain_ms']:.4f} ms")
     fwd = times[("fwd", b, n)]
     print(f"[7a mha] fwd b{b} N={n}: plain {fwd['plain_ms']:.4f} ms")
-    return {"fwd": fwd, "bwd": t, "fwd_by_shape": times}
+    return {"fwd": fwd, "bwd": t, "fwd_by_shape": {
+                key: v for key, v in times.items() if key[0] == "fwd"},
+            "bwd_by_shape": {key: v for key, v in times.items()
+                             if key[0] == "bwd"}}
 
 
 def phase_full(device):
@@ -2371,12 +2536,14 @@ def _device_kernels(prof) -> dict:
 
 _KERNEL_GROUPS = (
     ("proto-CE kernels", ("proto_ce_", "sum_partials_kernel")),
+    # gemm90::gemm_kernel<BN, A_MN, B_MN, F32_OUT>: <., 0, 1, false> is the
+    # forward's projection, the others the backward's dO and dW_t GEMMs
     ("attention forward kernels (fused APLA, mha)",
      ("fused_apla_attn_fwd_kernel", "mha_row_kernel", "mha_two_pass_kernel",
-      "apla_proj_gemm_kernel")),
+      "gemm_kernel<128, 0, 1,", "gemm_kernel<256, 0, 1,")),
     ("attention backward kernels (fused APLA, mha)",
      ("bwd_query_kernel", "bwd_key_kernel", "gemm_nt_kernel",
-      "dw_partial_kernel", "dw_reduce_kernel")),
+      "dw_partial_kernel", "dw_reduce_kernel", "gemm90::gemm_kernel")),
     ("gathers / index backward", ("index",)),
     ("int8 kernel (quantize pass + int8 mma GEMM)", ("w8a8_",)),
     ("GEMMs (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "ampere", "nvjet")),
@@ -2651,16 +2818,21 @@ def phase_seg_kernels(device):
         # against the device's opt-in limit, registers and spills, and the
         # forward's launch plans (the attention kernel's, the GEMM's)
         dev = device.index or 0
-        bwd_lib = fa._bwd_library()
         limit = cuda_build.device_smem(fa._bwd_library,
                                        "fused_apla_attn_bwd_prepare", dev)
+        attn, do_gemm, dw_gemm = fa.bwd_plans(b, n, c, heads, c)
+        chunks = fa.dw_chunks(b * n, c, c, _sm_count(device))[1]
         print(f"[9a seg_kernels] shared memory per block: forward "
               f"{tmha.fwd_plan(b, n, heads).smem_bytes} bytes (attention) "
               f"and {pg.gemm_plan(b * n, c).smem_bytes} (GEMM) at C={c}, "
-              f"backward {bwd_lib.fused_apla_attn_bwd_smem_bytes()} bytes; "
-              f"the device allows {limit} bytes per block")
+              f"backward {attn.q_smem} (query side), {attn.k_smem} (key "
+              f"side), {do_gemm.smem_bytes} (dO GEMM), "
+              f"{dw_gemm.smem_bytes} (dW GEMM) bytes; the device allows "
+              f"{limit} bytes per block; backward plans: attention "
+              f"{attn.describe()}; dO GEMM {do_gemm.describe()}; dW GEMM "
+              f"{dw_gemm.describe()}, for each of {chunks} chunks of rows")
         for src, kernel in ((tmha.FWD_SOURCE, "mha_two_pass_kernel"),
-                            (pg.SOURCE, "apla_proj_gemm_kernel"),
+                            (pg.SOURCE, "gemm_kernel"),
                             (fa._BWD_SOURCE, "")):
             for line in _resources(cuda_build.resource_report(src)):
                 if line.startswith(kernel):
@@ -2675,20 +2847,26 @@ def phase_seg_kernels(device):
         _print_fwd_times("9a seg_kernels", b, n, c, times["fwd"])
         lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
         lout = _library_attn(lq, lw, heads, scale)
-        t = {"ms": _time_ms(lambda: fa.fused_apla_attn_bwd(
-                 qkv, w, g, inds, heads, scale)),
+        kernel = lambda: fa.fused_apla_attn_bwd(  # noqa: E731
+            qkv, w, g, inds, heads, scale)
+        t = {"ms": _time_ms(kernel), "graph_ms": _graph_ms(kernel),
              "plain_ms": _time_ms(lambda: fa.fused_apla_attn_bwd_reference(
                  qkv, w, g, inds, heads, scale), iters=5),
              "library_two_calls_ms": _time_ms(lambda: torch.autograd.grad(
                  lout, (lq, lw), g, retain_graph=True), iters=10)}
         t["bound_ms"], t["bound_by"] = _attn_bwd_bound(b, n, c, c)
+        t["parts"] = _bwd_parts(
+            lambda bits: fa.fused_apla_attn_bwd_part(qkv, w, g, inds, heads,
+                                                     scale, bits),
+            _bwd_launch_bounds(b, n, c, c))
         times["bwd"] = t
         print(f"[9a seg_kernels] bwd b{b} [{b}, {n}, {3 * c}] k={c}: "
-              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"two library calls (SDPA + matmul, autograd) "
-              f"{t['library_two_calls_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
-              f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+              f"kernel {t['ms']:.4f} ms ({t['graph_ms']:.4f} from a CUDA "
+              f"graph), plain {t['plain_ms']:.4f} ms, two library calls "
+              f"(SDPA + matmul, autograd) {t['library_two_calls_ms']:.4f} "
+              f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{t['bound_ms'] / t['graph_ms']:.1%} of it reached)")
+        _print_parts("9a seg_kernels", t["parts"])
         del lq, lw, lout
     for name in ("fwd", "bwd"):
         times[name]["max_abs_err"] = worst[name]
@@ -3499,6 +3677,7 @@ def main() -> int:
     # quantization, no scales), and the bf16 torch.matmul with the
     # dequantized weight is reported beside it
     from apla_tpu_torch.ops import apla_proj_gemm, mha
+    from apla_tpu_torch.ops.fused_apla_attn import _BWD_SOURCE
 
     def fused_fwd(t):
         return {"sources": [f"apla_tpu_torch/csrc/{src}" for src in
@@ -3509,6 +3688,20 @@ def main() -> int:
                     "attention_graph_ms", "gemm_ms", "gemm_graph_ms",
                     "gemm_library_ms", "gemm_bound_ms",
                     "library_two_calls_graph_ms")}}
+
+    def _launch_ms(t):
+        return {name: {k: v for k, v in part.items() if k != "bound_by"}
+                for name, part in t["parts"].items()}
+
+    # rows 2, 6-7 and 9: the attention backward's two launches
+    # (attn_bwd_sm90.cuh), and the fused backward's two GEMMs
+    # (gemm_sm90.cuh), each launch timed apart
+    def bwd_extra(t, fused):
+        srcs = ((_BWD_SOURCE, "attn_bwd_sm90.cuh", "gemm_sm90.cuh")
+                if fused else (mha.BWD_SOURCE, "attn_bwd_sm90.cuh"))
+        return {"sources": [f"apla_tpu_torch/csrc/{src}" for src in srcs],
+                "redesigned": "PR 10", "graph_ms": t["graph_ms"],
+                "launches_ms": _launch_ms(t)}
 
     extra = {"fused_apla_attn_fwd": {
                  **fused_fwd(fwd_times[FWD_TIMED[0]]),
@@ -3530,8 +3723,29 @@ def main() -> int:
                                           "library_ms", "library_graph_ms",
                                           "bound_ms")}}
                      for (_, b, n), t in mha_times["fwd_by_shape"].items()]},
+             "fused_apla_attn_bwd": {
+                 **bwd_extra(bwd_times[main_shape], fused=True),
+                 "by_shape": [{"shape": [b, n, 2304], **{
+                     k: t[k] for k in ("ms", "graph_ms", "bound_ms",
+                                       "library_two_calls_ms")},
+                     "launches_ms": _launch_ms(t)}
+                     for (b, n), t in bwd_times.items()]},
              "fused_apla_attn_bwd_seg": {
+                 **bwd_extra(seg_times["bwd"], fused=True),
+                 "by_shape": [{"shape": [SEG_KERNEL_CASES[0][0],
+                                         SEG_KERNEL_CASES[0][1],
+                                         3 * SEG_KERNEL_CASES[0][2]],
+                               **{k: seg_times["bwd"][k] for k in (
+                                   "ms", "graph_ms", "bound_ms",
+                                   "library_two_calls_ms")}}],
                  "also_replaces": "apla_tpu/ops/pallas_apla_attn_long.py:191"},
+             "mha_bwd": {
+                 **bwd_extra(mha_times["bwd"], fused=False),
+                 "by_shape": [{"shape": [b, n, 2304], **{
+                     k: t[k] for k in ("ms", "graph_ms", "library_ms",
+                                       "bound_ms")},
+                     "launches_ms": _launch_ms(t)}
+                     for (_, b, n), t in mha_times["bwd_by_shape"].items()]},
              "int8_matmul": {
                  "also_replaces": "apla_tpu/ops/quant.py:44 (the XLA "
                                   "dot_general of _int8_forward, at "

@@ -114,6 +114,12 @@ def _bwd_errors(got, ref):
     (2, 300, 0, 1024, 128),   # ViT-L
     (8, 1025, 0, 1024, 1024),  # ViT-L/16 at 512, APLA "full" as k = C
     (1, 1025, 0, 1024, 1024),  # the same, one served image
+    # the backward's launch plan (ops/mha.py bwd_plan): the other side's
+    # tiles resident up to N = 320, streamed through a ring from 321
+    (2, 320, 0, 768, 128),    # the longest resident N, five whole tiles
+    (2, 321, 0, 768, 128),    # the first streamed
+    (512, 50, 0, 768, 128),   # the SSL local crops: one ragged tile each
+    (2, 769, 0, 768, 64),     # streamed, 13 tiles
 ])
 def test_fused_apla_attn_bwd_matches_plain(cuda_device, b, n, seg, c, k):
     qkv, w = _qkv_w(cuda_device, b, n, c, seed=n + seg + c + k)
@@ -133,15 +139,25 @@ def test_fused_apla_attn_bwd_matches_plain(cuda_device, b, n, seg, c, k):
         assert err <= bound, (name, err, bound)
 
 
+# (b, n): one variant of the backward's launch plan each: resident with
+# one own tile a block (b8), resident with all five of a head's (b64), one
+# tile (N = 50), streamed through the ring (N = 1370)
+BWD_PLAN_VARIANTS = ((8, 257), (64, 257), (512, 50), (2, 1370))
+
+
 @pytest.mark.cuda
-def test_fused_apla_attn_bwd_is_deterministic(cuda_device):
-    """dW_t sums per-chunk partials in a fixed order: reruns are equal."""
-    qkv, w = _qkv_w(cuda_device, 8, 257, 768, seed=1)
-    g = torch.randn((8, 257, 768), device=cuda_device).to(torch.bfloat16)
+@pytest.mark.parametrize("b,n", BWD_PLAN_VARIANTS)
+def test_fused_apla_attn_bwd_is_deterministic(cuda_device, b, n):
+    """No atomics, and dW_t sums per-chunk partials in a fixed order:
+    reruns are equal, at every variant of the launch plan."""
+    plan = tmha.bwd_plan(b, n, 12)
+    assert plan.resident == (n <= 320)
+    qkv, w = _qkv_w(cuda_device, b, n, 768, seed=1)
+    g = torch.randn((b, n, 768), device=cuda_device).to(torch.bfloat16)
     inds = torch.arange(0, 768, 6, device=cuda_device)
     a = tfa.fused_apla_attn_bwd(qkv, w, g, inds, 12, 0.125)
-    b = tfa.fused_apla_attn_bwd(qkv, w, g, inds, 12, 0.125)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    b_ = tfa.fused_apla_attn_bwd(qkv, w, g, inds, 12, 0.125)
+    assert torch.equal(a[0], b_[0]) and torch.equal(a[1], b_[1])
 
 
 @pytest.mark.cuda
@@ -410,6 +426,7 @@ def _mha_inputs(device, b, n, c, seed):
     (2, 769, 0, 768),     # its first streamed N
     (2, 128, 0, 768),     # an exact multiple of the key tile
     (2, 1370, 100, 768),  # streamed, with segments
+    (8, 1025, 0, 1024),   # ViT-L/16 at 512: 16 heads, 17 tiles, streamed
 ])
 def test_mha_kernels_match_plain(cuda_device, b, n, seg, c):
     qkv, d_o = _mha_inputs(cuda_device, b, n, c, seed=n + seg + c)
@@ -437,7 +454,7 @@ def test_mha_kernels_match_plain(cuda_device, b, n, seg, c):
 def test_mha_kernels_are_deterministic(cuda_device):
     """No atomics: reruns give the same bits (the forward's TMA loads and
     wgmma products too, at each of its kernels: row, two-pass resident and
-    streamed)."""
+    streamed; the backward at each variant of its launch plan)."""
     qkv, d_o = _mha_inputs(cuda_device, 8, 257, 768, seed=1)
     assert torch.equal(tmha.mha_fwd(qkv, 12, 0.125),
                        tmha.mha_fwd(qkv, 12, 0.125))
@@ -445,8 +462,11 @@ def test_mha_kernels_are_deterministic(cuda_device):
         x = _mha_inputs(cuda_device, 2, n, 768, seed=n)[0]
         assert torch.equal(tmha.mha_fwd(x, 12, 0.125),
                            tmha.mha_fwd(x, 12, 0.125))
-    assert torch.equal(tmha.mha_bwd(qkv, d_o, 12, 0.125),
-                       tmha.mha_bwd(qkv, d_o, 12, 0.125))
+    # the backward at every variant of its launch plan
+    for b, n in BWD_PLAN_VARIANTS:
+        x, d = _mha_inputs(cuda_device, b, n, 768, seed=n)
+        assert torch.equal(tmha.mha_bwd(x, d, 12, 0.125),
+                           tmha.mha_bwd(x, d, 12, 0.125))
 
 
 @pytest.mark.cuda

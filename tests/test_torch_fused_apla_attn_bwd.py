@@ -186,3 +186,77 @@ def test_dw_chunk_plan_covers_every_row(m, c, kp, n_sm):
     rows, n = tfa.dw_chunks(m, c, kp, n_sm)
     assert rows % 64 == 0 and n >= 1
     assert (n - 1) * rows < m <= n * rows
+
+
+@pytest.mark.parametrize("m,c,kp,n_sm,want", [
+    (64 * 257, 768, 128, 132, (768, 22)),
+    (8 * 1025, 1024, 1024, 132, (4160, 2)),
+    (8 * 257, 768, 128, 132, (128, 17)),
+    (512 * 50, 768, 128, 132, (1216, 22))])
+def test_dw_chunk_plan_is_the_first_kernels(m, c, kp, n_sm, want):
+    """The chunks fix the dW_t partials' sum order, so they stay those of
+    the 64 x 64 tiles the first kernel summed over (the bits of dW_t are
+    that kernel's), whatever tiles the GEMM now takes."""
+    assert tfa.dw_chunks(m, c, kp, n_sm) == want
+
+
+class _Lib:
+    def __init__(self):
+        self.calls = []
+
+    def fused_apla_attn_bwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("b,n,c,k,seg", [(64, 257, 768, 128, 0),
+                                         (8, 1025, 1024, 1024, 0),
+                                         (8, 200, 768, 100, 50)])
+def test_bwd_routes_through_its_plans(monkeypatch, b, n, c, k, seg):
+    """The CUDA route of the fused backward with the C entry replaced by a
+    recorder: one call queues the five launches (parts 15) with the eleven
+    plan ints (`mha.bwd_plan`'s five, then the dO GEMM's and the dW GEMM's
+    tile width, stages and shared memory), Kp = k rounded up to 64, the
+    dW chunks of `dw_chunks` at the device's SM count, and returns dW_t's
+    first k columns; `fused_apla_attn_bwd_part` queues the launches it
+    names.  Neither counts a launch: `fused_apla_attn_bwd` counts its
+    calls."""
+    import contextlib
+    import types
+    heads = c // 64
+    lib = _Lib()
+    monkeypatch.setattr(tfa, "_bwd_library", lambda: lib)
+    monkeypatch.setattr(tfa, "device_index", lambda t: 0)
+    monkeypatch.setattr(tfa, "device_smem", lambda *a: 232448)
+    monkeypatch.setattr(tfa.mha, "device_smem", lambda *a: 232448)
+    monkeypatch.setattr(tfa, "launch_context",
+                        lambda t: contextlib.nullcontext(7))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132))
+    bf = torch.bfloat16
+    qkv = torch.zeros((b, n, 3 * c), dtype=bf)
+    w = torch.zeros((c, c), dtype=bf)
+    g = torch.zeros((b, n, c), dtype=bf)
+    inds = torch.arange(k)
+    before = tfa.fused_apla_attn_bwd.launches
+    dqkv, dwt = tfa._launch_bwd(qkv, w, g, inds, heads, 0.125, seg)
+    tfa.fused_apla_attn_bwd_part(qkv, w, g, inds, heads, 0.125,
+                                 tfa.mha.PART_DW, seg)
+    assert tfa.fused_apla_attn_bwd.launches == before
+    assert dqkv.shape == qkv.shape and dwt.shape == (c, k)
+    (args, part_args) = lib.calls
+    kp = -(-k // 64) * 64
+    attn, do_gemm, dw_gemm = tfa.bwd_plans(b, n, c, heads, kp, seg)
+    assert args[0] == qkv.data_ptr() and args[1] == w.data_ptr()
+    assert args[2] == g.data_ptr() and args[4] == dqkv.data_ptr()
+    assert args[10:17] == (b, n, c, heads, kp, 0.125, seg)
+    assert args[17:19] == tfa.dw_chunks(b * n, c, kp, 132)
+    assert list(args[19]) == list(attn.args()) + [
+        do_gemm.bn, do_gemm.stages, do_gemm.smem_bytes,
+        dw_gemm.bn, dw_gemm.stages, dw_gemm.smem_bytes]
+    assert args[20] == tfa.PARTS_ALL == 15 and args[21] == 7
+    assert part_args[20] == tfa.mha.PART_DW
+    # the dO GEMM covers the B * N rows at C, the dW GEMM C x Kp
+    assert (do_gemm.rows, do_gemm.width) == (b * n, c)
+    assert (dw_gemm.rows, dw_gemm.width, dw_gemm.bn) == (c, kp, 128)

@@ -244,3 +244,137 @@ def test_fwd_plan_served_shapes():
     assert crops.kv_sets == 2 and crops.items_per_block > 1
     long = tmha.fwd_plan(2, 1370, 12)
     assert (long.kind, long.resident) == ("two_pass", False)
+
+
+def _check_bwd_plan(B, N, H, seg):
+    """The backward's plan (`bwd_plan`): each side's blocks cover every
+    own tile of every (image, head) exactly once, the shared memory is the
+    kernels' layout and fits a block, and the other side is resident
+    exactly when both sides' blocks, holding all of a head's tiles, fit
+    two to an SM."""
+    plan = tmha.bwd_plan(B, N, H, seg)
+    n_t = -(-N // tmha.TILE)
+    assert plan.n_tiles == n_t
+    # either side: block -> (image, head) = block // groups, its tiles
+    # [g * tiles, min(n_t, (g + 1) * tiles)): every own tile once
+    groups = -(-n_t // plan.tiles)
+    assert plan.blocks == B * H * groups
+    covered = [t for g in range(groups)
+               for t in range(g * plan.tiles,
+                              min(n_t, (g + 1) * plan.tiles))]
+    assert covered == list(range(n_t))
+    pair = 2 * tmha.TILE * tmha.HEAD_DIM * 2
+    assert plan.q_smem == 1024 + pair + plan.slots * pair + 256
+    assert plan.k_smem == (1024 + pair + plan.slots * (pair + 3 * 64 * 4)
+                           + 256)
+    assert plan.smem_bytes == max(plan.q_smem, plan.k_smem) <= 232448
+    fits = max(tmha.bwd_smem("query", n_t),
+               tmha.bwd_smem("key", n_t)) + 1024 <= 233472 // 2
+    assert plan.resident == fits
+    assert plan.slots == (n_t if fits else tmha.BWD_RING)
+    if plan.resident:
+        assert 2 * (plan.smem_bytes + 1024) <= 233472
+    else:
+        # streamed: one own tile a block (nothing to reuse across them)
+        assert plan.tiles == 1
+    assert plan.blocks >= min(tmha.SMS, B * H * n_t)
+    return plan
+
+
+@pytest.mark.parametrize("B,N,H", PLAN_SHAPES)
+@pytest.mark.parametrize("seg", [0, 50])
+def test_bwd_plan_at_the_kernel_shapes(B, N, H, seg):
+    """Coverage, shared memory and residency of the backward's plan at the
+    shapes the port's paths and the card's tests launch."""
+    _check_bwd_plan(B, N, H, seg)
+
+
+@pytest.mark.parametrize("B,H", SWEEP_BATCHES)
+@pytest.mark.parametrize("seg", [0, 7])
+def test_bwd_plan_sweep(B, H, seg):
+    """The same promises for every N in 1..2048; the other side's tiles
+    are resident up to N = 320 (five tiles) and streamed beyond."""
+    resident = [n for n in range(1, 2049)
+                if _check_bwd_plan(B, n, H, seg).resident]
+    assert resident == list(range(1, 321))
+
+
+def test_bwd_plan_is_pure_and_cached():
+    """A pure function of the shape, cached: the same plan object for the
+    same arguments, equal plans from a fresh cache, and `segment_len`
+    (which changes the tiles a block multiplies) leaves it alone."""
+    a = tmha.bwd_plan(64, 257, 12)
+    assert tmha.bwd_plan(64, 257, 12) is a
+    tmha.bwd_plan.cache_clear()
+    assert tmha.bwd_plan(64, 257, 12) == a
+    assert tmha.bwd_plan(64, 257, 12, 50) == a
+    assert a.args() == (a.tiles, 1, a.slots, a.q_smem, a.k_smem)
+
+
+def test_bwd_plan_served_shapes():
+    """The plans the records quote: all five tiles of a head per block at
+    b64 (768 blocks a side), one tile per block at b8, one block per
+    (image, head) at the local crops, a ring for the 518 crop and the
+    segmenter's [8, 1025] x 16 heads."""
+    b64 = tmha.bwd_plan(64, 257, 12)
+    assert (b64.resident, b64.tiles, b64.blocks) == (True, 5, 768)
+    assert tmha.bwd_plan(8, 257, 12).tiles == 1
+    crops = tmha.bwd_plan(512, 50, 12)
+    assert (crops.resident, crops.blocks) == (True, 512 * 12)
+    for b, n, h in ((2, 1370, 12), (8, 1025, 16)):
+        plan = tmha.bwd_plan(b, n, h)
+        assert (plan.resident, plan.slots) == (False, tmha.BWD_RING)
+        assert plan.blocks == b * h * -(-n // 64)
+
+
+class _Lib:
+    """A stand-in for a kernel library: records each C entry's arguments
+    and returns 0 (queued)."""
+
+    def __init__(self, *names):
+        self.calls = {name: [] for name in names}
+        for name in names:
+            setattr(self, name, self._entry(name))
+
+    def _entry(self, name):
+        def call(*args):
+            self.calls[name].append(args)
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("b,n,seg", [(64, 257, 0), (2, 1370, 0),
+                                     (8, 200, 50)])
+def test_mha_bwd_routes_through_its_plan(monkeypatch, b, n, seg):
+    """The CUDA route of `mha_bwd` with the C entry replaced by a recorder:
+    one call queues both launches (parts 2 | 4) with `bwd_plan`'s five ints
+    and the statistics scratch [B, H, ceil(N / 64), 3, 64];
+    `mha_bwd_part` queues the launch it names.  Neither counts a launch:
+    `mha_bwd` counts its calls."""
+    import contextlib
+    c, heads = 768, 12
+    lib = _Lib("mha_bwd")
+    monkeypatch.setattr(tmha, "_bwd_library", lambda: lib)
+    monkeypatch.setattr(tmha, "device_index", lambda t: 0)
+    monkeypatch.setattr(tmha, "device_smem", lambda *a: 232448)
+    monkeypatch.setattr(tmha, "launch_context",
+                        lambda t: contextlib.nullcontext(7))
+    stats = []
+    real_stats = tmha.bwd_stats
+    monkeypatch.setattr(tmha, "bwd_stats",
+                        lambda *a: stats.append(real_stats(*a)) or stats[-1])
+    qkv = torch.zeros((b, n, 3 * c), dtype=torch.bfloat16)
+    d_o = torch.zeros((b, n, c), dtype=torch.bfloat16)
+    before = tmha.mha_bwd.launches
+    dqkv = tmha._launch_bwd(qkv, d_o, heads, 0.125, seg)
+    tmha.mha_bwd_part(qkv, d_o, heads, 0.125, tmha.PART_KEY, seg)
+    assert tmha.mha_bwd.launches == before
+    (args, part_args) = lib.calls["mha_bwd"]
+    plan = tmha.bwd_plan(b, n, heads, seg)
+    assert args[0] == qkv.data_ptr() and args[1] == d_o.data_ptr()
+    assert args[2] == dqkv.data_ptr() and args[3] == stats[0].data_ptr()
+    assert stats[0].shape == (b, heads, -(-n // 64), 3, 64)
+    assert args[4:10] == (b, n, c, heads, 0.125, seg)
+    assert list(args[10]) == list(plan.args())
+    assert args[11] == tmha.PART_QUERY | tmha.PART_KEY and args[12] == 7
+    assert part_args[11] == tmha.PART_KEY

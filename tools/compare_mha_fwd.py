@@ -1,35 +1,51 @@
 #!/usr/bin/env python3
-"""Time this checkout's attention forward against an earlier checkout's,
-on one CUDA card, in one call: the memory-efficient attention forward
-(`mha_fwd`, TPU row 8) by default, or with `--kernel fused` the fused APLA
-attention forward (`fused_apla_attn_fwd`, TPU rows 1 and 5).
+"""Time this checkout's attention kernels against an earlier checkout's,
+on one CUDA card, in one call, and count the output values the two give
+bit for bit alike: the memory-efficient attention forward (`mha_fwd`, TPU
+row 8) by default; with `--kernel fused` the fused APLA attention forward
+(`fused_apla_attn_fwd`, TPU rows 1 and 5); with `--kernel bwd` the fused
+APLA backward (`fused_apla_attn_bwd`, TPU rows 2 and 6-7); with `--kernel
+mha_bwd` the memory-efficient attention backward (`mha_bwd`, TPU row 9).
 
-    python3 tools/compare_mha_fwd.py --parent DIR [--kernel fused] [--full]
+    python3 tools/compare_mha_fwd.py --parent DIR [--kernel KIND] [--full]
 
 DIR is a checkout of the earlier commit (e.g. `git archive <commit> | tar
 -x -C DIR`, into a directory `.gitignore` lists).  The checkouts run in
 turns, each in a process of its own (earlier, this, this, earlier), so the
 two are compared on one card under the same conditions.  Each turn builds
-its checkout's kernels and times the forward at the shapes the port's
-paths give it (b1, b8, b64 at N=257, [512, 50], [2, 1370], C = 768, and
-[8, 1025] at C = 1024, the segmenter's, where the fused forward's
-attention half runs `mha_fwd`'s kernel) with CUDA
-events over calls launched one by one and over a CUDA graph of 20 calls
-(device time alone), and the host's time to launch one (the wrapper, its
-checks, the launches; 100 calls with no wait), beside
-F.scaled_dot_product_attention (`fused`: and one torch.matmul, the
-two-call yardstick) on the same inputs, and keeps its outputs so that the
+its checkout's kernels and times the kernel at the shapes the port's paths
+give it with CUDA events over calls launched one by one and over a CUDA
+graph of 20 calls (device time alone), and the host's time to launch one
+(the wrapper, its checks, the launches; 100 calls with no wait), beside a
+PyTorch yardstick on the same inputs, and keeps its outputs so that the
 summary can say how many of this checkout's output values equal the
-earlier checkout's, bit for bit.  With --full a turn also runs its
-checkout's `chip_smoke.py` phase 7b (APLA "full" served at b64 and
-trained at accum 8 and 1; `fused`: phases 3 and 9b, the classifier served
-at b64 and the segmenter trained and served) and reports the rates.
-Prints one JSON line per turn and a summary; exits non-zero without a
-card.
+earlier checkout's, bit for bit (per output: o; dq, dk, dv and dW_t).
+
+  mha, fused   b1, b8, b64 at N=257, [512, 50], [2, 1370] at C = 768, and
+               [8, 1025] at C = 1024 (the segmenter's, where the fused
+               forward's attention half runs `mha_fwd`'s kernel); yardstick
+               F.scaled_dot_product_attention (`fused`: and one
+               torch.matmul).
+  bwd          chip_smoke.py phase 4's timed shapes (b64 at N=257, [512,
+               50], [2, 1370] at C = 768 with the shipped block-0 indices,
+               k = 128) and [8, 1025] at C = k = 1024 (phase 9a's);
+               yardstick autograd through SDPA + torch.matmul.
+  mha_bwd      phase 7a's timed shapes (b64, b1, b8 at N=257, [512, 50],
+               [2, 1370] at C = 768); yardstick SDPA's autograd.
+
+With --full a turn also runs its checkout's `chip_smoke.py` phases and
+reports the rates: phase 7b (`mha`, `mha_bwd`: APLA "full" served at b64
+and trained at accum 8 and 1), phases 3 and 9b (`fused`: the classifier
+served at b64, the segmenter trained and served), phases 5, 7b and 9b
+(`bwd`: the supervised recipe, "full" and the segmenter trained, with
+their first-step |dloss| against the plain arm).  Prints one JSON line per
+turn and a summary; exits non-zero without a card.
 """
 
 import argparse
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import subprocess
@@ -40,8 +56,17 @@ import time
 SHAPES = {"mha": ((1, 257, 768), (8, 257, 768), (64, 257, 768),
                   (512, 50, 768), (2, 1370, 768), (8, 1025, 1024)),
           "fused": ((1, 257, 768), (8, 257, 768), (64, 257, 768),
-                    (512, 50, 768), (2, 1370, 768), (8, 1025, 1024))}
+                    (512, 50, 768), (2, 1370, 768), (8, 1025, 1024)),
+          "bwd": ((64, 257, 768), (512, 50, 768), (2, 1370, 768),
+                  (8, 1025, 1024)),
+          "mha_bwd": ((64, 257, 768), (1, 257, 768), (8, 257, 768),
+                      (512, 50, 768), (2, 1370, 768))}
+OUTPUTS = {"mha": ("o",), "fused": ("o",), "bwd": ("dq", "dk", "dv", "dW_t"),
+           "mha_bwd": ("dq", "dk", "dv")}
 SCALE = 0.125
+# The recipe's rank-128 index file (chip_smoke.py RECIPE): phase 4 times
+# the backward with block 0's columns.
+INDS = "params/finetune/dinov2/ImageNet/vit_b/inds-vit_b-rand_128.json"
 
 
 def _time_ms(torch, fn, iters=50, warmup=5):
@@ -67,55 +92,101 @@ def _graph_ms(torch, fn, calls=20):
     return _time_ms(torch, graph.replay, iters=10, warmup=2) / calls
 
 
+def _split(kernel, got):
+    """A call's outputs as a tuple in OUTPUTS[kernel]'s order."""
+    if kernel in ("mha", "fused"):
+        return (got,)
+    dqkv = got[0] if kernel == "bwd" else got
+    c = dqkv.shape[-1] // 3
+    parts = tuple(dqkv[..., i * c:(i + 1) * c] for i in range(3))
+    return parts + ((got[1],) if kernel == "bwd" else ())
+
+
 def _calls(torch, kernel, b, n, c, gen, dev):
     """(kernel call, library call, plain version) on seeded inputs."""
     heads = c // 64
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qkv = torch.randn((b, n, 3 * c), generator=gen).to(dev, torch.bfloat16)
-    q, k, v = qkv.unflatten(-1, (3, heads, 64)).permute(2, 0, 3, 1, 4)
+
+    def split(x):
+        return x.unflatten(-1, (3, heads, 64)).permute(2, 0, 3, 1, 4)
+
+    q, k, v = split(qkv)
     if kernel == "mha":
         from apla_tpu_torch.ops import mha as tmha
         return (lambda: tmha.mha_fwd(qkv, heads, SCALE),
                 lambda: sdpa(q, k, v, scale=SCALE),
                 lambda: tmha.mha_fwd_reference(qkv, heads, SCALE))
+    if kernel == "mha_bwd":
+        from apla_tpu_torch.ops import mha as tmha
+        d_o = torch.randn((b, n, c), generator=gen).to(dev, torch.bfloat16)
+        lq = qkv.clone().requires_grad_()
+        lout = sdpa(*split(lq), scale=SCALE)
+        lg = d_o.unflatten(-1, (heads, 64)).transpose(1, 2)
+        return (lambda: tmha.mha_bwd(qkv, d_o, heads, SCALE),
+                lambda: torch.autograd.grad(lout, lq, lg, retain_graph=True),
+                lambda: tmha.mha_bwd_reference(qkv, d_o, heads, SCALE))
     from apla_tpu_torch.ops import fused_apla_attn as fa
     w = (torch.randn((c, c), generator=gen) * c ** -0.5).to(dev,
                                                            torch.bfloat16)
-    return (lambda: fa.fused_apla_attn_fwd(qkv, w, heads, SCALE),
-            lambda: torch.matmul(sdpa(q, k, v, scale=SCALE).transpose(1, 2)
-                                 .reshape(b, n, c), w),
-            lambda: fa.fused_apla_attn_fwd_reference(qkv, w, heads, SCALE))
+    if kernel == "fused":
+        return (lambda: fa.fused_apla_attn_fwd(qkv, w, heads, SCALE),
+                lambda: torch.matmul(sdpa(q, k, v, scale=SCALE)
+                                     .transpose(1, 2).reshape(b, n, c), w),
+                lambda: fa.fused_apla_attn_fwd_reference(qkv, w, heads,
+                                                         SCALE))
+    g = torch.randn((b, n, c), generator=gen).to(dev, torch.bfloat16)
+    if c == 768:
+        from apla_tpu_torch.apla.core import load_indices
+        inds = torch.as_tensor(load_indices(INDS, 12, 768)[0],
+                               dtype=torch.int64).to(dev)
+    else:
+        inds = torch.arange(c, device=dev)
+    lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
+    lq_, lk_, lv_ = split(lq)
+    lout = torch.matmul(sdpa(lq_, lk_, lv_, scale=SCALE).transpose(1, 2)
+                        .reshape(b, n, c), lw)
+    return (lambda: fa.fused_apla_attn_bwd(qkv, w, g, inds, heads, SCALE),
+            lambda: torch.autograd.grad(lout, (lq, lw), g,
+                                        retain_graph=True),
+            lambda: fa.fused_apla_attn_bwd_reference(qkv, w, g, inds, heads,
+                                                     SCALE))
 
 
 def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
-    """One turn, inside `tree`: its own package and chip_smoke; the forward's
+    """One turn, inside `tree`: its own package and chip_smoke; the kernel's
     outputs saved as `outputs`."""
     sys.path.insert(0, tree)
     import torch
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
-    out = {"tree": tree, "fwd": []}
+    out = {"tree": tree, "calls": []}
     saved = []
     t0 = time.perf_counter()
     _calls(torch, kernel, 1, 1, 64, torch.Generator(), dev)[0]()
     out["build_s"] = time.perf_counter() - t0
     for b, n, c in SHAPES[kernel]:
         call, library, plain = _calls(torch, kernel, b, n, c, gen, dev)
-        got = call()
-        saved.append(got.cpu())
-        err = (got.float() - plain().float()).abs().max().item()
+        got = _split(kernel, call())
+        saved.append(tuple(x.cpu() for x in got))
+        ref = _split(kernel, plain())
+        err = max((x.float() - r.float()).abs().max().item()
+                  for x, r in zip(got, ref))
+        del ref
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(100):
             call()
         host_ms = (time.perf_counter() - t0) * 10
         torch.cuda.synchronize()
-        out["fwd"].append({
+        out["calls"].append({
             "shape": [b, n, 3 * c], "max_abs_err": err, "host_ms": host_ms,
             "ms": _time_ms(torch, call),
             "graph_ms": _graph_ms(torch, call),
             "library_ms": _time_ms(torch, library),
-            "library_graph_ms": _graph_ms(torch, library)})
+            # autograd does not capture into a CUDA graph
+            "library_graph_ms": (None if kernel in ("bwd", "mha_bwd")
+                                 else _graph_ms(torch, library))})
     torch.save(saved, outputs)
     if full:
         spec = importlib.util.spec_from_file_location(
@@ -124,31 +195,48 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
         spec.loader.exec_module(smoke)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        smoke.phase_build()
-        if kernel == "mha":
-            serve, train = smoke.phase_full(dev)
-            out["full_serve_img_s"] = {"kernel": serve[1], "plain": serve[2]}
-            out["full_train_img_s"] = {f"{name} accum {acc}": r
-                                       for (name, acc), (r, _) in
-                                       sorted(train[1].items())}
-        else:
-            serve = smoke.phase_slice(dev)
-            out["serve_img_s"] = {"fused": serve[1], "plain": serve[2]}
-            _, seg = smoke.phase_seg(dev)
-            out["seg_img_s"] = {f"{what} {name}": r for (what, name), (r, _)
-                                in sorted(seg.items())}
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            _phases(smoke, kernel, dev, out)
+        # the first step's kernel arm against the plain arm, as printed
+        out["first_step"] = [ln for ln in log.getvalue().splitlines()
+                             if "vs plain arm: |dloss|" in ln]
+        print(log.getvalue()[-20000:], file=sys.stderr)
     return out
+
+
+def _phases(smoke, kernel, dev, out):
+    """--full: the turn's chip_smoke phases, rates into `out`."""
+    smoke.phase_build()
+    if kernel in ("mha", "mha_bwd", "bwd"):
+        serve, train = smoke.phase_full(dev)
+        out["full_serve_img_s"] = {"kernel": serve[1], "plain": serve[2]}
+        out["full_train_img_s"] = {f"{name} accum {acc}": r
+                                   for (name, acc), (r, _) in
+                                   sorted(train[1].items())}
+    if kernel == "fused":
+        serve = smoke.phase_slice(dev)
+        out["serve_img_s"] = {"fused": serve[1], "plain": serve[2]}
+    if kernel == "bwd":
+        _, rates = smoke.phase_train(dev)
+        out["train_img_s"] = {f"{name} accum {acc}": r
+                              for (name, acc), (r, _) in
+                              sorted(rates.items())}
+    if kernel in ("fused", "bwd"):
+        _, seg = smoke.phase_seg(dev)
+        out["seg_img_s"] = {f"{what} {name}": r for (what, name), (r, _)
+                            in sorted(seg.items())}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
                     help="checkout of the earlier commit")
-    ap.add_argument("--kernel", choices=("mha", "fused"), default="mha",
-                    help="the forward to compare (default: mha)")
+    ap.add_argument("--kernel", choices=tuple(SHAPES), default="mha",
+                    help="the kernel to compare (default: mha)")
     ap.add_argument("--full", action="store_true",
-                    help="also run each checkout's chip_smoke phase 7b "
-                         "(fused: phases 3 and 9b)")
+                    help="also run each checkout's chip_smoke phases (mha, "
+                         "mha_bwd: 7b; fused: 3 and 9b; bwd: 5, 7b, 9b)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--outputs", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -185,30 +273,39 @@ def main() -> int:
         print(json.dumps(res), flush=True)
     outs = [torch.load(os.path.join(tmp.name, f"{i}.pt")) for i in range(4)]
     tmp.cleanup()
+    yard = {"mha": "SDPA", "fused": "SDPA + matmul",
+            "bwd": "autograd through SDPA + matmul",
+            "mha_bwd": "SDPA's autograd"}[args.kernel]
     for i, (b, n, c) in enumerate(SHAPES[args.kernel]):
-        same = (outs[1][i] == outs[0][i]).float().mean().item()
-        runs = torch.equal(outs[1][i], outs[2][i]) and \
-            torch.equal(outs[0][i], outs[3][i])
-        cells = [f"this == parent for {same:.6%} of the output values "
-                 f"(reruns bit-equal: {runs})"]
+        cells = []
+        for j, name in enumerate(OUTPUTS[args.kernel]):
+            same = (outs[1][i][j] == outs[0][i][j]).float().mean().item()
+            cells.append(f"{name}: this == parent for {same:.6%} of the "
+                         "values")
+        runs = all(torch.equal(outs[1][i][j], outs[2][i][j])
+                   and torch.equal(outs[0][i][j], outs[3][i][j])
+                   for j in range(len(OUTPUTS[args.kernel])))
+        cells.append(f"reruns bit-equal: {runs}")
         for key in ("ms", "graph_ms", "host_ms"):
             for who in ("parent", "this"):
-                vals = [t["fwd"][i][key] for t in turns if t["turn"] == who]
+                vals = [t["calls"][i][key] for t in turns
+                        if t["turn"] == who]
                 cells.append(f"{who} {key} " + "/".join(
                     f"{v:.4f}" for v in vals))
-        lib = [t["fwd"][i]["library_graph_ms"] for t in turns]
+        key = "library_ms" if args.kernel in ("bwd", "mha_bwd") \
+            else "library_graph_ms"
+        lib = [t["calls"][i][key] for t in turns]
         print(f"[{b}, {n}, {3 * c}]: " + ", ".join(cells)
-              + f", {'SDPA' if args.kernel == 'mha' else 'SDPA + matmul'} "
-              f"graph_ms {min(lib):.4f}-{max(lib):.4f}")
+              + f", {yard} {key[8:]} {min(lib):.4f}-{max(lib):.4f}")
     if args.full:
         for t in turns:
-            if args.kernel == "mha":
-                print(f"{t['turn']}: full serve b64 "
-                      f"{t['full_serve_img_s']}, train "
-                      f"{t['full_train_img_s']}")
-            else:
-                print(f"{t['turn']}: serve b64 {t['serve_img_s']}, "
-                      f"segmenter b8 {t['seg_img_s']}")
+            print(f"{t['turn']}: " + ", ".join(
+                f"{k} {t[k]}" for k in ("full_serve_img_s",
+                                        "full_train_img_s", "serve_img_s",
+                                        "train_img_s", "seg_img_s")
+                if k in t))
+            for line in t.get("first_step", []):
+                print(f"  {line}")
     return 0
 
 
