@@ -1,333 +1,322 @@
 // W8A8 GEMM for Hopper (sm_90a): x [M, K] float times an int8 weight with
-// per-output-channel scales, the activations quantized on the fly.
+// per-output-channel scales, the activations quantized on the fly, and an
+// optional bias added in the epilogue.
 //
 // Replaces the TPU kernel apla_tpu/ops/pallas_int8_matmul.py:_kernel
 // (called through fused_int8_matmul) and, with one group spanning all of K,
 // the XLA dot_general of apla_tpu/ops/quant.py:_int8_forward, the W8A8
-// serving path's frozen qkv / fc1 / fc2 products.  Contract:
+// serving path's frozen qkv / fc1 / fc2 products, with the bias add that
+// maybe_quantized_dot makes after them.  Contract:
 //
-//   x   [M, K] bf16 or f32, any M (the ragged edge is masked here)
-//   wk  [N, K] int8, the weight K-major (w_i8 [K, N] transposed once, when
-//       the weight is quantized or loaded: the 8-bit mma's B operand is read
-//       K-major, and ldmatrix has no 8-bit transpose)
-//   sw  [N] f32 per-output-channel weight scales
-//   y   [M, N] in x's dtype; for each group g of G consecutive k:
-//       sx[m, g] = max(max_k |x[m, k]| / 127, 1e-12)          (f32)
-//       q[m, k]  = clamp(rint(x[m, k] / sx[m, g]), -127, 127)  (half to even)
-//       acc     += ((float)(q[m, g-block] . wk[n, g-block]) * sx[m, g])
-//                  * sw[n]                                      (f32)
-//       y = acc rounded once to x's dtype.
+//   x    [M, K] bf16 or f32, any M
+//   wk   [N, K] int8, the weight K-major (w_i8 [K, N] transposed once, when
+//        the weight is quantized or loaded: 8-bit wgmma reads both
+//        operands K-major)
+//   sw   [N] f32 per-output-channel weight scales
+//   bias [N] f32 or bf16, or none
+//   y    [M, N] in x's dtype; for each group g of G consecutive k:
+//        sx[m, g] = max(max_k |x[m, k]| / 127, 1e-12)          (f32)
+//        q[m, k]  = clamp(rint(x[m, k] / sx[m, g]), -127, 127)  (half to even)
+//        acc     += ((float)(q[m, g-block] . wk[n, g-block]) * sx[m, g])
+//                   * sw[n]                                      (f32)
+//        y = acc rounded once to x's dtype; with a bias,
+//        y = round(float(y) + float(round(bias))), the bias rounded to x's
+//        dtype first.
 //
 // Every step rounds as the JAX functions do: the division is IEEE f32 (no
 // reciprocal), rint is half-to-even like jnp.round, the int32 dot is exact,
 // and the two scale products and the sum are issued as __fmul_rn /
 // __fadd_rn so that nvcc cannot contract them into an FMA.  At G = K the
-// result is quant.int8_matmul's forward bit for bit.
+// result is quant.int8_matmul's forward bit for bit, and with the bias
+// maybe_quantized_dot's.
 //
 // What bounds it on the H100: at the classifier's b64 (M = 16448, K = 768)
 // the fc1 product (N = 3072) is 77.6 G int8 operations, 0.039 ms at the
 // card's 1,979 TOPS, against 129 MB of bf16 in and out (0.038 ms at 3.35
-// TB/s); qkv (N = 2304) is bound by its bytes.  The quantize pass adds one
-// read of x and a write and read of its int8 codes (1.5 bytes per element
-// of x) that a prologue fused into the GEMM would save.
+// TB/s); qkv (N = 2304) is bound by its bytes.  The quantize pass adds a
+// write of the int8 codes and their read (1 + 1 bytes per element of x,
+// the read mostly from L2), about a quarter of the bytes.
 //
-// Design (right first; wgmma/TMA are later work):
-//  * quantize pass: one warp per (row, group), four elements a lane per
-//    step: the group's amax by a warp shuffle, then the codes (int8 [M, K])
-//    and the scale (f32 [M, K / G]) to scratch the caller allocates.
-//  * GEMM: 128 x 128 output tiles, 8 warps of 64 x 32, k in steps of 32
-//    bytes (one mma.sync.m16n8k32 s8 per 16 x 8 sub-tile), operand tiles
-//    brought by cp.async through a 4-stage ring with zero-filled rows past
-//    M and N, read by ldmatrix (rows of 32 bytes, the two 16-byte halves
-//    swapped on every other group of four rows so an 8-row read meets no
-//    bank twice).  The int32 partial of a group is scaled into the f32
-//    accumulator when the group's last k-step is done; with one group the
-//    accumulator is skipped and the epilogue scales the int32 sum.
-//  * K must be a multiple of 32, G a multiple of 32 dividing K, N a
-//    multiple of 8; the wrapper checks.
+// Design:
+//  * quantize pass: a team of up to 32 threads per (row, group), each
+//    holding up to 32 16-byte vectors of x, so that x is read once: the
+//    group's amax (shuffles within the team), then the codes (int8 [M, K])
+//    and the scale (f32 [M, K / G]) from the registers, to scratch the
+//    caller allocates.  A grid the SMs hold at once, each warp walking
+//    over items a grid apart; at up to 8 vectors a thread it loads its
+//    next item while it divides this one's values.  The rint and the
+//    conversion to int8 are one exact add (code()).  Folding the quantize
+//    into the GEMM's operand path instead would divide every element once
+//    per column tile (N / BN times), and the division already bounds the
+//    pass with the bytes.
+//  * GEMM: gemm_s8_sm90.cuh, int8 wgmma on TMA tiles of the codes and the
+//    weight, the scales and the bias in the epilogue, y stored by TMA;
+//    launched as a programmatic dependent of the quantize pass, so that
+//    its blocks start while the pass ends.
+//  * K and G multiples of 32, G dividing K, N a multiple of 8; the wrapper
+//    checks.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "gemm_s8_sm90.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int QT = 256;              // quantize pass: 8 warps a block
-constexpr int GT = 256;              // GEMM: 8 warps as 2 (m) x 4 (n)
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 4;
+constexpr int QT = 256;              // quantize pass: threads a block
 
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
-  const uint2 t = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
-  v[0] = __low2float(lo); v[1] = __high2float(lo);
-  v[2] = __low2float(hi); v[3] = __high2float(hi);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(QT)
-w8a8_quantize_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
-                     float* __restrict__ sx, long items, int K, int G) {
-  const long item = (long)blockIdx.x * (QT / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (item >= items) return;
-  const int ng = K / G;
-  const long off = (item / ng) * (long)K + (long)(item % ng) * G;
-  float amax = 0.f;
-  for (int i = 4 * lane; i < G; i += 128) {
-    float v[4];
-    load4(x + off + i, v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) amax = fmaxf(amax, fabsf(v[j]));
-  }
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, s));
-  const float scale = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
-  for (int i = 4 * lane; i < G; i += 128) {
-    float v[4];
-    load4(x + off + i, v);
-    uint32_t packed = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float q = fminf(fmaxf(rintf(__fdiv_rn(v[j], scale)), -127.f),
-                            127.f);
-      packed |= (uint32_t)(uint8_t)(int8_t)__float2int_rn(q) << (8 * j);
-    }
-    *reinterpret_cast<uint32_t*>(xq + off + i) = packed;
-  }
-  if (lane == 0) sx[item] = scale;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// byte offset of 16-byte half `c` of row `r` in a [rows][32] int8 tile
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * BK + ((c ^ ((r >> 2) & 1)) << 4);
-}
-
-// 16-byte async copy; valid = false writes zeros (rows past M or N)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1,
-                                        uint32_t& r2, uint32_t& r3,
-                                        const int8_t* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_u32(p)));
-}
-
-// d += a (16x32 s8, row) * b (32x8 s8, col), exact s32 accumulate
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// ((float)part * sx) * sw, each product rounded on its own
-__device__ __forceinline__ float scaled(int part, float sx, float sw) {
-  return __fmul_rn(__fmul_rn(__int2float_rn(part), sx), sw);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-template <typename OutT, bool ONE_GROUP>
-__global__ void __launch_bounds__(GT)
-w8a8_mma_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wk,
-                const float* __restrict__ sx, const float* __restrict__ sw,
-                OutT* __restrict__ y, int M, int N, int K, int G) {
-  __shared__ __align__(128) int8_t sa[STAGES][BM * BK];
-  __shared__ __align__(128) int8_t sb[STAGES][BN * BK];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int ng = K / G, steps = K / BK, gsteps = G / BK;
-
-  // each thread copies one 16-byte half-row of the A and of the B tile
-  const int lr = tid >> 1, lc = tid & 1;
-  const bool a_ok = m0 + lr < M, b_ok = n0 + lr < N;
-  const int8_t* a_src = xq + (long)(a_ok ? m0 + lr : 0) * K + lc * 16;
-  const int8_t* b_src = wk + (long)(b_ok ? n0 + lr : 0) * K + lc * 16;
-  const int l_off = swz(lr, lc);
-  auto issue = [&](int s) {
-    if (s < steps) {
-      cp_async16(&sa[s % STAGES][l_off], a_src + s * BK, a_ok);
-      cp_async16(&sb[s % STAGES][l_off], b_src + s * BK, b_ok);
-    }
-    cp_async_commit();               // an empty group past the end
-  };
-
-  // ldmatrix row addresses: A, matrix lane / 8 = (rows +8, half) as a0..a3;
-  // B, matrix lane / 8 = (half, n-tile +1) as b[j][0], b[j][1], b[j+1][..]
-  const int a_row = wm * 64 + (lane & 15), a_half = lane >> 4;
-  const int b_row = wn * 32 + ((lane >> 4) << 3) + (lane & 7);
-  const int b_half = (lane >> 3) & 1;
-
-  int part[4][4][4];
-  float acc[ONE_GROUP ? 1 : 4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        part[i][j][e] = 0;
-        if (!ONE_GROUP) acc[ONE_GROUP ? 0 : i][j][e] = 0.f;
-      }
-
-  // the weight scales of this thread's 8 columns (0 past N)
-  float sw_c[4][2];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = n0 + wn * 32 + j * 8 + 2 * t;
-    sw_c[j][0] = c < N ? sw[c] : 0.f;
-    sw_c[j][1] = c + 1 < N ? sw[c + 1] : 0.f;
-  }
-  // rows of this thread: i-th m16 tile, +0 / +8
-  auto row_of = [&](int i, int h) { return m0 + wm * 64 + i * 16 + g + 8 * h; };
-  auto sx_of = [&](int i, int h, int grp) {
-    const int r = row_of(i, h);
-    return r < M ? sx[(long)r * ng + grp] : 0.f;
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) issue(s);
-
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    issue(s + STAGES - 1);
-    const int8_t* ta = sa[s % STAGES];
-    const int8_t* tb = sb[s % STAGES];
-    uint32_t a[4][4], b[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      ldsm_x4(a[i][0], a[i][1], a[i][2], a[i][3],
-              ta + swz(a_row + i * 16, a_half));
-#pragma unroll
-    for (int j = 0; j < 4; j += 2)
-      ldsm_x4(b[j][0], b[j][1], b[j + 1][0], b[j + 1][1],
-              tb + swz(b_row + j * 8, b_half));
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_s8(part[i][j], a[i], b[j][0], b[j][1]);
-
-    if (!ONE_GROUP && (s + 1) % gsteps == 0) {
-      const int grp = (s + 1) / gsteps - 1;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float s0 = sx_of(i, 0, grp), s1 = sx_of(i, 1, grp);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float (&d)[4] = acc[ONE_GROUP ? 0 : i][j];
-          d[0] = __fadd_rn(d[0], scaled(part[i][j][0], s0, sw_c[j][0]));
-          d[1] = __fadd_rn(d[1], scaled(part[i][j][1], s0, sw_c[j][1]));
-          d[2] = __fadd_rn(d[2], scaled(part[i][j][2], s1, sw_c[j][0]));
-          d[3] = __fadd_rn(d[3], scaled(part[i][j][3], s1, sw_c[j][1]));
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[i][j][e] = 0;
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    float s0 = 0.f, s1 = 0.f;
-    if (ONE_GROUP) { s0 = sx_of(i, 0, 0); s1 = sx_of(i, 1, 0); }
+    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    v[2 * i] = __low2float(p);
+    v[2 * i + 1] = __high2float(p);
+  }
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x); v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z); v[3] = __uint_as_float(u.w);
+}
+
+// The code of v, clamp(rint(v / scale), -127, 127), in the low byte of the
+// result.  Clamping before the rounding gives the same integer (the bounds
+// are integers; NaN goes to -127 either way), and adding 1.5 * 2^23 rounds
+// a float of magnitude below 2^22 half to even into the low bits of the
+// mantissa: the rint and the conversion to an integer in one full-rate add
+// instead of two instructions of the quarter-rate conversion pipe, which
+// with the division's reciprocal would otherwise bound the pass.
+__device__ __forceinline__ uint32_t code(float v, float scale) {
+  const float q = fminf(fmaxf(__fdiv_rn(v, scale), -127.f), 127.f);
+  return __float_as_uint(__fadd_rn(q, 12582912.0f));
+}
+
+// The low bytes of a, b, c, d as one word, a's lowest.
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
+                                          uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
+template <int E>
+__device__ __forceinline__ void store_codes(int8_t* p, const float (&v)[E],
+                                            float scale);
+
+template <>
+__device__ __forceinline__ void store_codes<8>(int8_t* p, const float (&v)[8],
+                                               float scale) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      pack4(code(v[0], scale), code(v[1], scale), code(v[2], scale),
+            code(v[3], scale)),
+      pack4(code(v[4], scale), code(v[5], scale), code(v[6], scale),
+            code(v[7], scale)));
+}
+
+template <>
+__device__ __forceinline__ void store_codes<4>(int8_t* p, const float (&v)[4],
+                                               float scale) {
+  *reinterpret_cast<uint32_t*>(p) = pack4(code(v[0], scale),
+                                          code(v[1], scale),
+                                          code(v[2], scale),
+                                          code(v[3], scale));
+}
+
+// One (row, group) item per team of `team` threads (a power of two up to
+// 32), each holding up to QV 16-byte vectors of the group: vector j is
+// thread j % team's (j / team)-th.  The items of a row are contiguous in
+// x, so a warp's 32 / team items are one run of memory.  The grid is
+// what the SMs hold at once; each warp walks over items a grid apart, and
+// with PREFETCH issues the next item's loads before this one's
+// arithmetic (the division per element costs about as long as the bytes
+// take to arrive).
+template <typename T, int QV, bool PREFETCH>
+__global__ void __launch_bounds__(QT, 1)
+w8a8_quantize_kernel(const void* __restrict__ xv, int8_t* __restrict__ xq,
+                     float* __restrict__ sx, long items, int G, int team) {
+  constexpr int EPV = 16 / sizeof(T);        // elements per vector
+  const T* x = static_cast<const T*>(xv);
+  const int nvec = G / EPV, lane = threadIdx.x % 32, tt = lane % team;
+  const int per_warp = 32 / team;
+  const long warps = (long)gridDim.x * (QT / 32);
+  long first = ((long)blockIdx.x * QT + threadIdx.x) / 32 * per_warp;
+  const long stride = warps * per_warp;
+  uint4 u[QV], nxt[PREFETCH ? QV : 1];
+  auto load = [&](long item, uint4 (&buf)[QV]) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + item * G);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + wn * 32 + j * 8 + 2 * t;
-      if (c >= N) continue;          // N % 8 == 0: c + 1 < N as well
-      float v[4];
-      if (ONE_GROUP) {
-        v[0] = scaled(part[i][j][0], s0, sw_c[j][0]);
-        v[1] = scaled(part[i][j][1], s0, sw_c[j][1]);
-        v[2] = scaled(part[i][j][2], s1, sw_c[j][0]);
-        v[3] = scaled(part[i][j][3], s1, sw_c[j][1]);
-      } else {
+    for (int q = 0; q < QV; ++q) {
+      const int j = q * team + tt;
+      if (item < items && j < nvec) buf[q] = __ldg(src + j);
+    }
+  };
+  // the GEMM may start its blocks (they wait for this grid's end before
+  // they read what it writes) as soon as these leave room for them
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  if constexpr (PREFETCH) load(first + lane / team, u);
+  for (; first < items; first += stride) {   // uniform over the warp
+    const long item = first + lane / team;
+    if constexpr (PREFETCH)
+      load(item + stride, nxt);
+    else
+      load(item, u);
+    const bool live = item < items;
+    float amax = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = acc[ONE_GROUP ? 0 : i][j][e];
+    for (int q = 0; q < QV; ++q) {
+      if (live && q * team + tt < nvec) {
+        float v[EPV];
+        unpack(u[q], v);
+#pragma unroll
+        for (int e = 0; e < EPV; ++e) amax = fmaxf(amax, fabsf(v[e]));
       }
-      const int r0 = row_of(i, 0), r1 = row_of(i, 1);
-      if (r0 < M) store2(y + (long)r0 * N + c, v[0], v[1]);
-      if (r1 < M) store2(y + (long)r1 * N + c, v[2], v[3]);
+    }
+    for (int s = team / 2; s > 0; s >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, s));
+    const float scale = fmaxf(__fdiv_rn(amax, 127.0f), 1e-12f);
+#pragma unroll
+    for (int q = 0; q < QV; ++q) {
+      const int j = q * team + tt;
+      if (live && j < nvec) {
+        float v[EPV];
+        unpack(u[q], v);
+        store_codes<EPV>(xq + item * G + (long)j * EPV, v, scale);
+      }
+    }
+    if (live && tt == 0) sx[item] = scale;
+    if constexpr (PREFETCH) {
+#pragma unroll
+      for (int q = 0; q < QV; ++q) u[q] = nxt[q];
     }
   }
 }
 
-template <typename T, bool ONE_GROUP>
-void launch(const void* x, const void* wk, const void* sw, void* xq, void* sx,
-            void* y, int M, int N, int K, int G, cudaStream_t stream) {
+typedef void (*QuantizeKernel)(const void*, int8_t*, float*, long, int,
+                               int);
+
+// The kernel of `qv` vectors a thread (4 and 8 with the prefetch; 16 and
+// 32 without, for the registers: with it, 16 ran slower on the H100), or
+// null.
+template <typename T>
+QuantizeKernel quantize_kernel_for(int qv) {
+  return qv == 4 ? w8a8_quantize_kernel<T, 4, true>
+         : qv == 8 ? w8a8_quantize_kernel<T, 8, true>
+         : qv == 16 ? w8a8_quantize_kernel<T, 16, false>
+         : qv == 32 ? w8a8_quantize_kernel<T, 32, false>
+                    : nullptr;
+}
+
+// The quantize pass over x [M, K] in groups of G with `team` threads, `qv`
+// vectors a thread and `blocks` blocks (ops/int8_matmul.py:int8_plan's).
+template <typename T>
+int quantize(const void* x, void* xq, void* sx, int M, int K, int G,
+             int team, int qv, int blocks, cudaStream_t stream) {
+  const QuantizeKernel k = quantize_kernel_for<T>(qv);
+  if (k == nullptr || team < 1 || team > 32 || 32 % team || blocks < 1
+      || (long)team * qv * 16 < (long)G * (long)sizeof(T))
+    return 2001;
   const long items = (long)M * (K / G);
-  w8a8_quantize_kernel<T><<<(unsigned)((items + QT / 32 - 1) / (QT / 32)),
-                            QT, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<int8_t*>(xq),
-      static_cast<float*>(sx), items, K, G);
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  w8a8_mma_kernel<T, ONE_GROUP><<<grid, GT, 0, stream>>>(
-      static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wk),
-      static_cast<const float*>(sx), static_cast<const float*>(sw),
-      static_cast<T*>(y), M, N, K, G);
+  k<<<(unsigned)blocks, QT, 0, stream>>>(x, static_cast<int8_t*>(xq),
+                                         static_cast<float*>(sx), items, G,
+                                         team);
+  return (int)cudaGetLastError();
+}
+
+template <typename OutT>
+int gemm(const void* xq, const void* wk, void* y, const gemm_s8::Args& a,
+         int bn, int smem_bytes, cudaStream_t stream) {
+  const gemm_s8::Kernel k = gemm_s8::kernel_for<OutT>(bn, a.G == a.K);
+  if (k == nullptr) return 2000;
+  CUtensorMap amap, bmap, cmap;
+  constexpr int ES = sizeof(OutT);
+  const uint64_t yrow = (uint64_t)a.N * ES;
+  int err = sm90::encode_3d(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, a.K,
+                            a.M, 1, a.K, (uint64_t)a.K * a.M, gemm_s8::BK,
+                            gemm_s8::BM);
+  if (err == 0)
+    err = sm90::encode_3d(&bmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, wk, a.K, a.N,
+                          1, a.K, (uint64_t)a.K * a.N, gemm_s8::BK, bn);
+  if (err == 0)
+    err = sm90::encode_3d(&cmap,
+                          ES == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                          y, a.N, a.M, 1, yrow, yrow * a.M, 128 / ES, 64);
+  if (err != 0) return 1000 + err;
+  // a programmatic dependent launch: the blocks start while the quantize
+  // pass ends, and wait for it (griddepcontrol.wait) before they read the
+  // codes and scales
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.N + bn - 1) / bn,
+                     (a.M + gemm_s8::BM - 1) / gemm_s8::BM);
+  cfg.blockDim = dim3(gemm_s8::NT);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, k, amap, bmap, cmap, a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch the quantize pass and the GEMM on `stream`; returns the
-// cudaError_t of the launches (0 = queued).  `xq` [M, K] int8 and `sx`
-// [M, K / G] f32 are scratch.  The caller checks shapes (M >= 1, K % 32,
-// G % 32, K % G, N % 8, M / 128 and N / 128 within the grid), dtypes and
-// 16-byte aligned contiguous tensors.
-int int8_matmul(const void* x, int x_is_bf16, const void* wk, const void* sw,
-                void* xq, void* sx, void* y, int M, int N, int K, int G,
-                void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool one = G == K;
-  if (x_is_bf16) {
-    if (one) launch<bf16, true>(x, wk, sw, xq, sx, y, M, N, K, G, st);
-    else launch<bf16, false>(x, wk, sw, xq, sx, y, M, N, K, G, st);
-  } else {
-    if (one) launch<float, true>(x, wk, sw, xq, sx, y, M, N, K, G, st);
-    else launch<float, false>(x, wk, sw, xq, sx, y, M, N, K, G, st);
+// Opt the GEMM's kernels in to the device's per-block shared memory limit
+// on the current device, `device`, and write to `resident` [8] the blocks
+// of each quantize kernel that all its SMs hold at once (bf16 x, then f32,
+// each at 4, 8, 16 and 32 vectors a thread); returns that limit in bytes,
+// or -1.  Called once per device, before the first launch there.
+int int8_matmul_prepare(int device, int* resident) {
+  int v = 0, sms = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                device) != cudaSuccess)
+    return -1;
+  const int vectors[4] = {4, 8, 16, 32};
+  for (int i = 0; i < 8; ++i) {
+    const QuantizeKernel k = i < 4 ? quantize_kernel_for<bf16>(vectors[i])
+                                   : quantize_kernel_for<float>(vectors[i - 4]);
+    int per_sm = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)k,
+                                                      QT, 0) != cudaSuccess)
+      return -1;
+    resident[i] = per_sm * sms;
   }
-  return (int)cudaGetLastError();
+  return gemm_s8::set_smem(v) == 0 ? v : -1;
+}
+
+// Launch the quantize pass and the GEMM on `stream` (of device `device`)
+// with the plan of ops/int8_matmul.py:int8_plan (bn, stages, smem_bytes;
+// the quantize pass's team, qv and blocks).  `xq` [M, K] int8 and `sx` [M, K / G]
+// f32 are scratch; `bias` may be null.  Returns 0 when both are queued, a
+// cudaError_t of a launch, 1000 + the CUresult of a tensor map that could
+// not be encoded, 2000 for a tile width with no kernel, 2001 for a
+// quantize plan with no kernel.  The caller
+// checks shapes (M >= 1, K % 32, G % 32, K % G, N % 8, the grid), dtypes,
+// 16-byte aligned contiguous tensors and the plan's shared memory.
+int int8_matmul(const void* x, int x_is_bf16, const void* wk, const void* sw,
+                const void* bias, int bias_is_bf16, void* xq, void* sx,
+                void* y, int M, int N, int K, int G, int bn, int stages,
+                int smem_bytes, int team, int qv, int qblocks, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = x_is_bf16
+      ? quantize<bf16>(x, xq, sx, M, K, G, team, qv, qblocks, st)
+      : quantize<float>(x, xq, sx, M, K, G, team, qv, qblocks, st);
+  if (err != 0) return err;
+  gemm_s8::Args a;
+  a.sx = static_cast<const float*>(sx);
+  a.sw = static_cast<const float*>(sw);
+  a.bias = bias;
+  a.bias_bf16 = bias_is_bf16;
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.G = G;
+  a.stages = stages;
+  return x_is_bf16 ? gemm<bf16>(xq, wk, y, a, bn, smem_bytes, st)
+                   : gemm<float>(xq, wk, y, a, bn, smem_bytes, st);
 }
 
 }  // extern "C"

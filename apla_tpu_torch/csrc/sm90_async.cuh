@@ -38,6 +38,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
+// The dynamic shared memory `raw` rounded up to 1 KB (the 128-byte
+// swizzle's atom).
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
+}
+
 // ---- mbarriers -----------------------------------------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -374,24 +381,33 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 3-D map over a row-major bf16 tensor [d2][d1][d0] (d0 innermost,
-// row_bytes and plane_bytes its strides), boxes of {64, box_rows, 1} with
-// the 128-byte swizzle; reads past an edge fill zeros.  Returns 0 or a
-// CUresult.
-inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0,
-                          uint64_t d1, uint64_t d2, uint64_t row_bytes,
-                          uint64_t plane_bytes, uint32_t box_rows) {
+// A 3-D map over a row-major tensor [d2][d1][d0] of `dtype` (d0 innermost,
+// row_bytes and plane_bytes its strides), boxes of {box0, box_rows, 1} with
+// the 128-byte swizzle (box0 elements span at most 128 bytes); reads past
+// an edge fill zeros.  Returns 0 or a CUresult.
+inline int encode_3d(CUtensorMap* map, CUtensorMapDataType dtype,
+                     const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                     uint64_t row_bytes, uint64_t plane_bytes, uint32_t box0,
+                     uint32_t box_rows) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {row_bytes, plane_bytes};
-  const cuuint32_t box[3] = {64, box_rows, 1};
+  const cuuint32_t box[3] = {box0, box_rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                 const_cast<void*>(base), dims, strides, box, estr,
-                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return (int)fn(map, dtype, 3, const_cast<void*>(base), dims, strides, box,
+                 estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The same over bf16 with boxes 64 elements (128 bytes) wide.
+inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0,
+                          uint64_t d1, uint64_t d2, uint64_t row_bytes,
+                          uint64_t plane_bytes, uint32_t box_rows) {
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, d0, d1, d2,
+                   row_bytes, plane_bytes, 64, box_rows);
 }
 
 }  // namespace sm90

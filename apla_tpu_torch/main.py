@@ -167,6 +167,8 @@ def main(parameters, args):
 
 
 def run_cli(argv=None):
+    from .wrapper import set_float32_precision
+    set_float32_precision()
     args = parse_arguments(argv)
     print(f"USING PARAMS FROM PATH: {os.path.abspath(args.params_path)}")
     parameters = update_params_from_args(

@@ -15,8 +15,10 @@ them it keeps `w_kmajor`, the int8 weight transposed to [d_out, d_in] once
 
 `int8_matmul` is the JAX custom VJP as an autograd `Function`: its forward
 is `ops.int8_matmul.fused_int8_matmul` with one group over the whole K (the
-hand-written kernel on a card, its plain version on the CPU); its backward
-is the JAX package's, dx = g @ dequant(W)^T in g's dtype, a plain product.
+hand-written kernel on a card, its plain version on the CPU), which also
+adds a frozen bias after the rounding, as `maybe_quantized_dot` would; its
+backward is the JAX package's, dx = g @ dequant(W)^T in g's dtype, a plain
+product.
 """
 
 from __future__ import annotations
@@ -79,12 +81,12 @@ class Int8Matmul(torch.autograd.Function):
     reaches x only (the weight is frozen by construction)."""
 
     @staticmethod
-    def forward(ctx, x, w_i8, w_scale, w_kmajor):
+    def forward(ctx, x, w_i8, w_scale, w_kmajor, bias):
         ctx.save_for_backward(w_i8, w_scale)
         ctx.x_dtype = x.dtype
         K = x.shape[-1]
         y = fused_int8_matmul(x.reshape(-1, K).contiguous(), w_i8, w_scale,
-                              group=K, w_kmajor=w_kmajor)
+                              group=K, w_kmajor=w_kmajor, bias=bias)
         return y.reshape(*x.shape[:-1], w_i8.shape[1])
 
     @staticmethod
@@ -92,24 +94,32 @@ class Int8Matmul(torch.autograd.Function):
         w_i8, w_scale = ctx.saved_tensors
         # dx = g @ W^T with W dequantized, exact w.r.t. the forward's weights
         w = w_i8.to(g.dtype) * w_scale[None, :].to(g.dtype)
-        return torch.matmul(g, w.t()).to(ctx.x_dtype), None, None, None
+        return torch.matmul(g, w.t()).to(ctx.x_dtype), None, None, None, None
 
 
-def int8_matmul(x, w_i8, w_scale, w_kmajor=None):
+def int8_matmul(x, w_i8, w_scale, w_kmajor=None, bias=None):
     """y = dequant(quant_rows(x)) @ dequant(w): x [..., d_in] bf16/f32,
-    w_i8 [d_in, d_out], w_scale [d_out] -> [..., d_out] in x.dtype.
-    `w_kmajor` ([d_out, d_in], `QuantizedKernel.w_kmajor`) is what the
-    kernel reads on a card."""
-    return Int8Matmul.apply(x, w_i8, w_scale, w_kmajor)
+    w_i8 [d_in, d_out], w_scale [d_out] -> [..., d_out] in x.dtype, plus
+    `bias` [d_out] rounded to x.dtype, if given, after the rounding (a
+    frozen bias: no gradient reaches it).  `w_kmajor` ([d_out, d_in],
+    `QuantizedKernel.w_kmajor`) is what the kernel reads on a card."""
+    if bias is not None and bias.requires_grad:
+        raise ValueError("int8_matmul adds a frozen bias only")
+    return Int8Matmul.apply(x, w_i8, w_scale, w_kmajor, bias)
 
 
 def maybe_quantized_dot(x, kernel_or_quant, bias=None):
     """x [..., d_in] @ kernel [d_in, d_out] in x.dtype: a float kernel
     through `torch.matmul`, a `QuantizedKernel` through `int8_matmul`.  The
-    bias is added in the result's dtype."""
+    bias is added in the result's dtype: by the int8 kernel's epilogue when
+    it is frozen (`requires_grad` False, as in every W8A8 artifact), else
+    after the product."""
     if isinstance(kernel_or_quant, QuantizedKernel):
+        fused = bias is not None and not bias.requires_grad
         y = int8_matmul(x, kernel_or_quant.w_int8, kernel_or_quant.scale,
-                        kernel_or_quant.w_kmajor)
+                        kernel_or_quant.w_kmajor, bias if fused else None)
+        if fused:
+            return y
     else:
         y = torch.matmul(x, kernel_or_quant.to(x.dtype))
     if bias is not None:

@@ -507,6 +507,8 @@ def _ints(text):
 
 
 def main(argv=None):
+    from .wrapper import set_float32_precision
+    set_float32_precision()
     p = argparse.ArgumentParser(prog="apla_tpu_torch.segdet")
     sub = p.add_subparsers(dest="task", required=True)
     ps = sub.add_parser("seg")

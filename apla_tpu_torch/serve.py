@@ -562,6 +562,9 @@ def _export_seg(args) -> dict:
 
 def main(argv=None):
     import argparse
+
+    from .wrapper import set_float32_precision
+    set_float32_precision()
     ap = argparse.ArgumentParser(
         prog="apla_tpu_torch.serve",
         description="Export / inspect / run classifier, segmenter and "

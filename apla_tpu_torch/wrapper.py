@@ -81,6 +81,20 @@ def resolve_device(name) -> torch.device:
     return device
 
 
+# Float32 matrix products and convolutions in IEEE f32, never TF32: the
+# setting chip_smoke.py's card checks run (and the JAX reference's on the
+# CPU).  PyTorch's default runs f32 convolutions through cuDNN in TF32;
+# PERF.md (§6) has the f32 detector's readings with it on and off.
+ALLOW_TF32 = False
+
+
+def set_float32_precision(allow_tf32: bool = ALLOW_TF32) -> None:
+    """Set both TF32 flags (matmul and cuDNN) to `allow_tf32`; the CLI
+    entry points call it before they build anything."""
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow_tf32
+
+
 class DefaultWrapper:
     is_supervised = True
 

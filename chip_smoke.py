@@ -597,23 +597,27 @@ SEG_SERVE_REL_TOL = DET_SERVE_REL_TOL
 # same tensors in the working dtype: the classifier's three products at b64
 # (M = 64 x 257) and b1, the segmenter's fc2 at b8 (M = 8 x 1025), the
 # Swin-T detector's stage-0 qkv at b16 (M = 16 x 56^2 tokens, K = 96; f32,
-# the detector serves in f32), and row 13's own function (groups of 256)
-# at the fc2 shape with a ragged M.  (name, M, K, N, group, dtype); every
-# M but b8's leaves a ragged last tile of 128 rows.
+# the detector serves in f32), row 13's own function (groups of 256) at the
+# fc2 shape with a ragged M, and fc1 b64 with its bias (f32, as the served
+# model keeps it), which the kernel adds after the rounding, as the served
+# path runs every frozen product.  (name, M, K, N, group, dtype, bias);
+# every M but b8's leaves a ragged last tile of 128 rows.
 INT8_CASES = (
-    ("qkv b64", 64 * 257, 768, 2304, 768, torch.bfloat16),
-    ("fc1 b64", 64 * 257, 768, 3072, 768, torch.bfloat16),
-    ("fc2 b64", 64 * 257, 3072, 768, 3072, torch.bfloat16),
-    ("qkv b1", 257, 768, 2304, 768, torch.bfloat16),
-    ("fc1 b1", 257, 768, 3072, 768, torch.bfloat16),
-    ("fc2 b1", 257, 3072, 768, 3072, torch.bfloat16),
-    ("seg fc2 b8", 8 * 1025, 4096, 1024, 4096, torch.bfloat16),
-    ("swin stage-0 qkv b16", 16 * 56 * 56, 96, 288, 96, torch.float32),
+    ("qkv b64", 64 * 257, 768, 2304, 768, torch.bfloat16, False),
+    ("fc1 b64", 64 * 257, 768, 3072, 768, torch.bfloat16, False),
+    ("fc2 b64", 64 * 257, 3072, 768, 3072, torch.bfloat16, False),
+    ("qkv b1", 257, 768, 2304, 768, torch.bfloat16, False),
+    ("fc1 b1", 257, 768, 3072, 768, torch.bfloat16, False),
+    ("fc2 b1", 257, 3072, 768, 3072, torch.bfloat16, False),
+    ("seg fc2 b8", 8 * 1025, 4096, 1024, 4096, torch.bfloat16, False),
+    ("swin stage-0 qkv b16", 16 * 56 * 56, 96, 288, 96, torch.float32,
+     False),
     ("row 13 fc2, groups of 256, M ragged", 64 * 257 - 5, 3072, 768, 256,
-     torch.bfloat16),
+     torch.bfloat16, False),
+    ("fc1 b64 + bias", 64 * 257, 768, 3072, 768, torch.bfloat16, True),
 )
 INT8_MAIN = "fc1 b64"            # the kernels line's times
-INT8_ROW13 = INT8_CASES[-1][0]
+INT8_ROW13 = INT8_CASES[-2][0]
 # Kernel vs plain: the same codes, exact int32 sums and the same f32
 # roundings, so equal.  Bound: 1e-6 of max|ref| (8 f32 ulps), below a bf16
 # output moved by one ulp (2^-8) and far below one flipped code or a scale
@@ -656,13 +660,38 @@ def _time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _template_args(mangled: str) -> str:
+    """'<a, b, ...>' of a mangled template argument list 'I...E' (integer
+    and bool literals, named types, float), or ''."""
+    if not mangled.startswith("I"):
+        return ""
+    args, i = [], 1
+    while i < len(mangled) and mangled[i] != "E":
+        lit = re.match(r"L[ib](\d+)E", mangled[i:])
+        named = re.match(r"(\d+)", mangled[i:])
+        if lit:
+            args.append(lit.group(1))
+            i += lit.end()
+        elif named:
+            j = i + named.end() + int(named.group(1))
+            args.append(mangled[i + named.end():j])
+            i = j
+        elif mangled[i] in "fi":
+            args.append({"f": "float", "i": "int"}[mangled[i]])
+            i += 1
+        else:
+            return ""
+    return "<" + ", ".join(args) + ">"
+
+
 def _resources(report: str) -> list[str]:
     """'kernel: N registers, S bytes spilled, M bytes smem' per kernel of a
     `-Xptxas=-v` report."""
     out, name = [], None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            # _ZN<len><anonymous namespace><len><name>...: the kernel's name
+            # _ZN<len><namespace><len><name>[I<template args>E]...: the
+            # kernel's name
             name = line.split("'")[1]
             m = re.match(r"_ZN(\d+)", name)
             if m:
@@ -670,11 +699,7 @@ def _resources(report: str) -> list[str]:
                 n = re.match(r"\d+", name[i:])
                 if n:
                     j = i + n.end() + int(n.group())
-                    args = re.match(r"I((?:L[ib]\d+E)+)E", name[j:])
-                    name = name[i + n.end():j] + (
-                        "<" + ", ".join(re.findall(r"L[ib](\d+)E",
-                                                   args.group(1))) + ">"
-                        if args else "")
+                    name = name[i + n.end():j] + _template_args(name[j:])
         elif "spill stores" in line and name:
             spill = line.split(",")[1].split()[0]
         elif "Used" in line and "registers" in line and name:
@@ -2020,6 +2045,11 @@ def _phase_det(device, tmp):
                                 best["frozen"], device)), p.swin_cfg,
             device),
         per_call=(3 * depth, 0))[0])
+    cfg32 = segdet.swin_config(r["img_size"], r["embed_dim"], r["depths"],
+                               r["num_heads"], r["window_size"], bf16=False,
+                               use_fused=False)
+    _tf32_readings(model, cfg32, batch, strides,
+                   load_predictor(os.path.join(tmp, "w8a8"), device), x)
 
     rates = _det_rates(model, pred.model, batch, cfg, plain_cfg, strides)
     for (what, name), (rate, peak) in sorted(rates.items()):
@@ -2031,6 +2061,51 @@ def _phase_det(device, tmp):
                    *_profile_step(lambda: step(model, batch)))
     print(f"[8b det] phase took {time.perf_counter() - t0:.1f} s")
     return tuple(launches), rates
+
+
+def _tf32_readings(model, cfg32, batch, strides, w8a8_pred, x):
+    """The f32 detector with TF32 on (PyTorch's default for cuDNN's f32
+    convolutions) against off (what the entry points set and every check
+    runs): one f32 `segdet det` step's loss and gradients and the pyramid
+    features (the plain windows, as the f32 CLI runs them), and the W8A8
+    artifact served in f32, held against phase 8b's bounds.  A reading:
+    it decides nothing but what PERF.md writes down."""
+    from apla_tpu_torch.models.swin import swin_features
+    from apla_tpu_torch.wrapper import set_float32_precision
+    runs = {}
+    try:
+        for on in (False, True):
+            set_float32_precision(on)
+            step = _det_grads(model, cfg32, batch, strides)
+            with torch.no_grad():
+                feats = swin_features(model.backbone, batch["image"], cfg32)
+            runs[on] = (step, feats, w8a8_pred.predict(x))
+    finally:
+        set_float32_precision()
+    for p in model.parameters():
+        p.grad = None
+    (loss, grads), feats, served = runs[True]
+    (r_loss, r_grads), r_feats, r_served = runs[False]
+    rel = {n: (torch.linalg.vector_norm(grads[n] - r_grads[n])
+               / torch.linalg.vector_norm(r_grads[n])).item()
+           for n in r_grads}
+    worst = max(rel, key=rel.get)
+    cos = min(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0).item()
+        for a, b in zip(feats, r_feats))
+    dev = _max_rel_dev(served, r_served)
+    ok = (abs(loss - r_loss) <= DET_LOSS_REL_TOL * abs(r_loss)
+          and rel[worst] <= DET_GRAD_REL_TOL and cos >= DET_MIN_COSINE
+          and dev <= DET_SERVE_REL_TOL)
+    print(f"[8b det] TF32 on vs off, f32 detector: step |dloss| / loss "
+          f"{abs(loss - r_loss) / abs(r_loss):.6g} (bound "
+          f"{DET_LOSS_REL_TOL}), worst per-tensor gradient ||dg||/||g|| "
+          f"{rel[worst]:.6g} at {worst} (bound {DET_GRAD_REL_TOL}), pyramid "
+          f"cosine {cos:.6f} (bound {DET_MIN_COSINE}); W8A8 served in f32 "
+          f"max|d| / max|ref| {dev:.3g} (bound {DET_SERVE_REL_TOL}) -> "
+          f"{'within' if ok else 'outside'} 8b's bounds; the entry points "
+          f"and the checks run TF32 off")
+    return ok
 
 
 def _det_rates(model, served, batch, cfg, plain_cfg, strides):
@@ -2545,7 +2620,7 @@ _KERNEL_GROUPS = (
      ("bwd_query_kernel", "bwd_key_kernel", "gemm_nt_kernel",
       "dw_partial_kernel", "dw_reduce_kernel", "gemm90::gemm_kernel")),
     ("gathers / index backward", ("index",)),
-    ("int8 kernel (quantize pass + int8 mma GEMM)", ("w8a8_",)),
+    ("int8 kernel (quantize pass + int8 wgmma GEMM)", ("w8a8_",)),
     ("GEMMs (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "ampere", "nvjet")),
     ("convolutions / resampling (heads, multi-crop blur)",
      ("conv", "upsample", "grid")),
@@ -3192,29 +3267,35 @@ def _phase_seg(device, tmp):
     return tuple(launches), rates
 
 
-def _int8_bound(m, k, n, dtype):
+def _int8_bound(m, k, n, dtype, bias=False):
     """The int8 GEMM's least time: 2 m n k int8 tensor-core operations;
-    reads x (m k in its dtype), the int8 weight (k n) and its scales, writes
-    y (m n in x's dtype)."""
+    reads x (m k in its dtype), the int8 weight (k n), its scales and the
+    f32 bias if any, writes y (m n in x's dtype)."""
     es = torch.finfo(dtype).bits // 8
     t_ops = 2 * m * n * k / PEAK_INT8_OPS * 1e3
-    t_bytes = (m * k * es + k * n + 4 * n + m * n * es) / PEAK_BYTES_S * 1e3
+    t_bytes = (m * k * es + k * n + 4 * n * (1 + bias) + m * n * es) \
+        / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _int8_operands(device, m, k, n, dtype, gen):
-    """x [m, k] and a `QuantizedKernel` of a [k, n] weight (its int8 codes,
-    scales and K-major copy), on `device`."""
+def _int8_operands(device, m, k, n, dtype, gen, bias=False):
+    """x [m, k], a `QuantizedKernel` of a [k, n] weight (its int8 codes,
+    scales and K-major copy) and, if asked, an f32 bias [n], on
+    `device`."""
     from apla_tpu_torch.ops.quant import QuantizedKernel, quantize_weight
     x = torch.randn((m, k), generator=gen).to(device, dtype)
     w = (torch.randn((k, n), generator=gen) * k ** -0.5).to(device)
-    return x, QuantizedKernel(*quantize_weight(w))
+    b = (torch.randn((n,), generator=gen) * 0.1).to(device) if bias \
+        else None
+    return x, QuantizedKernel(*quantize_weight(w)), b
 
 
-def _int8_faulty(x, w_i8, w_scale, group, tensor_sx=False, trunc=False):
+def _int8_faulty(x, w_i8, w_scale, group, tensor_sx=False, trunc=False,
+                 bias=None):
     """What a broken int8 kernel would compute: the plain version with one
-    activation scale for the whole tensor, or with the codes truncated
-    toward zero instead of rounded half to even."""
+    activation scale for the whole tensor, with the codes truncated toward
+    zero instead of rounded half to even, or with the bias added to the f32
+    sum before the one rounding instead of after it."""
     from apla_tpu_torch.ops.int8_matmul import scale_of
     m, k = x.shape
     xf = x.float().reshape(m, k // group, group)
@@ -3227,10 +3308,19 @@ def _int8_faulty(x, w_i8, w_scale, group, tensor_sx=False, trunc=False):
         part = torch.matmul(codes[:, g].double(),
                             w_i8[g * group:(g + 1) * group].double())
         acc = acc + (part.float() * sx[:, g]) * w_scale[None, :]
+    if bias is not None:
+        acc = acc + bias.to(x.dtype).float()
     return acc.to(x.dtype)
 
 
 def phase_int8(device):
+    """10a: the int8 kernel (quantize pass + int8 wgmma GEMM) against its
+    plain version at INT8_CASES, with seven fault controls; its registers,
+    spills and shared memory; times by events, from a CUDA graph and as the
+    host's ms to launch one, beside the bound, torch._int_mm and
+    torch.matmul (the yardsticks the port never calls).  Its two launches
+    apart: tools/compare_mha_fwd.py --kernel int8 (torch.profiler, in a
+    process of their own: late in this run it lost kernel records)."""
     from apla_tpu_torch.ops import cuda_build
     from apla_tpu_torch.ops import int8_matmul as tim
     from apla_tpu_torch.ops.quant import dequantize_weight
@@ -3238,22 +3328,26 @@ def phase_int8(device):
         print(f"[10a int8] {line}")
     gen = torch.Generator().manual_seed(SEED)
     worst, times = 0.0, {}
-    for name, m, k, n, group, dtype in INT8_CASES:
-        x, qk = _int8_operands(device, m, k, n, dtype, gen)
+    for name, m, k, n, group, dtype, with_bias in INT8_CASES:
+        x, qk, b = _int8_operands(device, m, k, n, dtype, gen, with_bias)
 
         def kernel(x=x, w=qk.w_int8, s=qk.scale, group=group,
-                   wk=qk.w_kmajor):
-            return tim.fused_int8_matmul(x, w, s, group, wk)
+                   wk=qk.w_kmajor, b=b):
+            return tim.fused_int8_matmul(x, w, s, group, wk, bias=b)
 
         y = kernel()
         torch.cuda.synchronize()
-        ref = tim.fused_int8_matmul_reference(x, qk.w_int8, qk.scale, group)
+        ref = tim.fused_int8_matmul_reference(x, qk.w_int8, qk.scale, group,
+                                              b)
         err = (y.float() - ref.float()).abs().max().item()
         bound = INT8_REL_TOL * ref.float().abs().max().item()
         ok = (y.shape == ref.shape and y.dtype == dtype
               and bool(torch.isfinite(y).all()) and err <= bound)
+        plan = tim.int8_plan(m, n, k, group, dtype)
         print(f"[10a int8] {name}: x [{m}, {k}] {str(dtype)[6:]} @ int8 "
-              f"[{k}, {n}], groups of {group}: max|err| {err:.6g} bound "
+              f"[{k}, {n}], groups of {group}"
+              + (", + f32 bias" if with_bias else "")
+              + f" ({plan.describe()}): max|err| {err:.6g} bound "
               f"{bound:.6g} -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"the int8 kernel disagrees with its plain "
@@ -3278,6 +3372,12 @@ def phase_int8(device):
             controls = {"the last group skipped": lambda: tim.fused_int8_matmul(
                 x[:, :kk].contiguous(), qk.w_int8[:kk], qk.scale, group,
                 qk.w_kmajor[:, :kk].contiguous())}
+        elif with_bias:
+            controls = {
+                "bias dropped": lambda: tim.fused_int8_matmul(
+                    x, qk.w_int8, qk.scale, group, qk.w_kmajor),
+                "bias added before the rounding": lambda: _int8_faulty(
+                    x, qk.w_int8, qk.scale, group, bias=b)}
         for c_name, fault in controls.items():
             c_err = (fault().float() - ref.float()).abs().max().item()
             print(f"[10a int8] control {c_name} at {name}: max|err| "
@@ -3287,26 +3387,34 @@ def phase_int8(device):
                 raise SystemExit(f"the int8 bound misses a broken kernel "
                                  f"({c_name})")
         # yardsticks the port never calls: the bf16 (or f32) product with
-        # the dequantized weight, and torch._int_mm, the int8 product alone
+        # the dequantized weight (with the bias, as F.linear adds it), and
+        # torch._int_mm, the int8 product alone
         w_mm = dequantize_weight(qk.w_int8, qk.scale).to(dtype)
         codes = torch.randint(-127, 128, (m, k), generator=gen,
                               dtype=torch.int8).to(device)
-        t = {"ms": _time_ms(kernel),
+        matmul = ((lambda: torch.matmul(x, w_mm)) if b is None else
+                  (lambda: torch.addmm(b.to(dtype), x, w_mm)))
+        t = {"ms": _time_ms(kernel), "graph_ms": _graph_ms(kernel),
+             "host_ms": _host_ms(kernel),
              "plain_ms": _time_ms(lambda: tim.fused_int8_matmul_reference(
-                 x, qk.w_int8, qk.scale, group), iters=5, warmup=1),
+                 x, qk.w_int8, qk.scale, group, b), iters=5, warmup=1),
              "library_ms": (_time_ms(lambda: torch._int_mm(
                  codes, qk.w_kmajor.t())) if m > 16 else None),
-             "library_matmul_ms": _time_ms(lambda: torch.matmul(x, w_mm))}
-        t["bound_ms"], t["bound_by"] = _int8_bound(m, k, n, dtype)
+             "library_matmul_ms": _time_ms(matmul)}
+        t["bound_ms"], t["bound_by"] = _int8_bound(m, k, n, dtype,
+                                                   with_bias)
         times[name] = t
         print(f"[10a int8] {name}: kernel {t['ms']:.4f} ms "
-              f"({2 * m * n * k / t['ms'] / 1e9:.1f} TOPS), plain "
-              f"{t['plain_ms']:.4f} ms, torch._int_mm "
+              f"({2 * m * n * k / t['ms'] / 1e9:.1f} TOPS; graph "
+              f"{t['graph_ms']:.4f}, host {t['host_ms']:.4f} ms to launch "
+              f"one), plain {t['plain_ms']:.4f} ms, torch._int_mm "
               + (f"{t['library_ms']:.4f}" if t["library_ms"] else "n/a")
-              + f" ms, {str(dtype)[6:]} torch.matmul "
-              f"{t['library_matmul_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
-              f"ms ({t['bound_by']}); {t['bound_ms'] / t['ms']:.1%} of it")
-        del x, qk, y, ref, w_mm, codes
+              + f" ms, {str(dtype)[6:]} torch.matmul"
+              + (" + bias" if b is not None else "")
+              + f" {t['library_matmul_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}); "
+              f"{t['bound_ms'] / t['ms']:.1%} of it")
+        del x, qk, b, y, ref, w_mm, codes
     return worst, times
 
 
@@ -3475,8 +3583,9 @@ def _phase_w8a8(device, tmp):
     plain = Predictor(pred.meta, pred.model, plain_cfg, device)
     real = quant.fused_int8_matmul
 
-    def plain_int8(x, w_i8, w_scale, group, w_kmajor=None):
-        return tim.fused_int8_matmul_reference(x, w_i8, w_scale, group)
+    def plain_int8(x, w_i8, w_scale, group, w_kmajor=None, bias=None):
+        return tim.fused_int8_matmul_reference(x, w_i8, w_scale, group,
+                                               bias)
 
     def plain_run(fn, int8=plain_int8):
         return _with_patch(quant, "fused_int8_matmul", int8, fn)
@@ -3506,9 +3615,10 @@ def _phase_w8a8(device, tmp):
     # a fault control: every int8 product without its weight scales
     c_dev = _max_rel_dev(plain_run(lambda: [pred.predict_and_embed(x)
                                             for x in requests],
-                                   lambda x, w, s, group, w_kmajor=None: real(
+                                   lambda x, w, s, group, w_kmajor=None,
+                                   bias=None: real(
                                        x, w, torch.ones_like(s), group,
-                                       w_kmajor)), int8_outs)
+                                       w_kmajor, bias)), int8_outs)
     print(f"[10b w8a8] control: sw dropped vs int8 arm: max|d| / max|ref| "
           f"{c_dev:.3g} -> {'caught' if c_dev > W8A8_SERVE_REL_TOL else 'NOT CAUGHT'}")
     plain_outs = plain_run(lambda: [plain.predict_and_embed(x)
@@ -3575,8 +3685,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from apla_tpu_torch.wrapper import set_float32_precision
+    set_float32_precision()         # the entry points' setting: no TF32
     device = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
@@ -3747,10 +3857,18 @@ def main() -> int:
                      "launches_ms": _launch_ms(t)}
                      for (_, b, n), t in mha_times["bwd_by_shape"].items()]},
              "int8_matmul": {
+                 "sources": [f"apla_tpu_torch/csrc/{src}" for src in (
+                     "int8_matmul.cu", "gemm_s8_sm90.cuh")],
                  "also_replaces": "apla_tpu/ops/quant.py:44 (the XLA "
                                   "dot_general of _int8_forward, at "
-                                  "groups = K)",
-                 "library_is": "torch._int_mm (the int8 product alone)"}}
+                                  "groups = K, and the bias add after it)",
+                 "library_is": "torch._int_mm (the int8 product alone)",
+                 **{k: int8_times[INT8_MAIN][k] for k in (
+                     "graph_ms", "host_ms")},
+                 "by_shape": [{"shape": name, **{k: t[k] for k in (
+                     "ms", "graph_ms", "host_ms", "library_ms",
+                     "library_matmul_ms", "bound_ms")}}
+                     for name, t in int8_times.items()]}}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"apla_tpu_torch/csrc/{src}",

@@ -14,8 +14,8 @@ f32 sums in another order, one rounding: a bf16 ulp here and there).
 Reruns of the kernels that sum partials are bit-equal.  The fused
 forward is its two kernels bit for bit.  The int8 GEMM takes bf16 or
 f32 and computes what its plain version does, step for step (the same
-codes, exact int32 sums, the same f32 roundings): bound 2^-23 of
-max|ref|, and it reads 0.
+codes, exact int32 sums, the same f32 roundings, the bias added after the
+rounding): equal, bit for bit.
 """
 
 import dataclasses
@@ -642,6 +642,11 @@ def _int8_operands(device, m, k, n, dtype, seed):
     return x, QuantizedKernel(*quantize_weight(w)).to(device)
 
 
+def _int8_bias(device, n, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((n,), generator=gen) * 0.5).to(device, dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,group,dtype", [
     (16448, 768, 2304, 768, torch.bfloat16),     # ViT-B qkv at b64
@@ -655,8 +660,8 @@ def _int8_operands(device, m, k, n, dtype, seed):
 ])
 def test_int8_matmul_matches_plain(cuda_device, m, k, n, group, dtype):
     """The kernel against its plain version on the same tensors: the same
-    codes, the exact int32 sums and the same f32 roundings, so equal (one
-    f32 ulp of max|ref| allowed for the sums' conversion order)."""
+    codes, the exact int32 sums and the same f32 roundings, so equal bit
+    for bit."""
     from apla_tpu_torch.ops import int8_matmul as tim
     x, qk = _int8_operands(cuda_device, m, k, n, dtype, seed=m + k + n)
     before = tim.fused_int8_matmul.launches
@@ -665,8 +670,38 @@ def test_int8_matmul_matches_plain(cuda_device, m, k, n, group, dtype):
     assert tim.fused_int8_matmul.launches == before + 1
     ref = tim.fused_int8_matmul_reference(x, qk.w_int8, qk.scale, group)
     assert y.shape == (m, n) and y.dtype == dtype
-    err = (y.float() - ref.float()).abs().max().item()
-    assert err <= 2.0 ** -23 * ref.float().abs().max().item(), err
+    assert torch.equal(y, ref), (y.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,group,dtype,bias_dtype", [
+    (16448, 768, 3072, 768, torch.bfloat16, torch.float32),  # fc1 b64
+    (16443, 768, 3072, 768, torch.bfloat16, torch.bfloat16),  # ragged M
+    (4099, 96, 288, 96, torch.float32, torch.float32),  # K = 96, N = 288
+    (1000, 768, 264, 768, torch.bfloat16, torch.float32),  # N % 128 = 8
+    (2053, 3072, 768, 256, torch.bfloat16, torch.float32),  # groups of 256
+    (333, 3072, 200, 256, torch.float32, torch.bfloat16),
+    (1, 64, 8, 32, torch.bfloat16, torch.float32),
+])
+def test_int8_matmul_with_bias_matches_plain(cuda_device, m, k, n, group,
+                                             dtype, bias_dtype):
+    """The bias added in the kernel's epilogue (after the rounding to x's
+    dtype, then rounded again) equals the plain version's `y + bias.to(
+    y.dtype)` bit for bit, at ragged M, N not a multiple of the tile width,
+    K = 96 and groups of 256; without the bias, the same call's y."""
+    from apla_tpu_torch.ops import int8_matmul as tim
+    x, qk = _int8_operands(cuda_device, m, k, n, dtype, seed=m + n)
+    b = _int8_bias(cuda_device, n, bias_dtype, seed=n)
+    args = (x, qk.w_int8, qk.scale, group, qk.w_kmajor)
+    before = tim.fused_int8_matmul.launches
+    y = tim.fused_int8_matmul(*args, bias=b)
+    y0 = tim.fused_int8_matmul(*args)
+    torch.cuda.synchronize()
+    assert tim.fused_int8_matmul.launches == before + 2
+    ref = tim.fused_int8_matmul_reference(*args[:4], bias=b)
+    assert y.shape == (m, n) and y.dtype == dtype
+    assert torch.equal(y, ref), (y.float() - ref.float()).abs().max().item()
+    assert torch.equal(y, y0 + b.to(dtype))
 
 
 @pytest.mark.cuda
@@ -684,6 +719,16 @@ def test_int8_matmul_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         tim.fused_int8_matmul(x.t().contiguous().t(), qk.w_int8, qk.scale,
                               96, qk.w_kmajor)
+    with pytest.raises(ValueError, match="bias on cpu"):
+        tim.fused_int8_matmul(x, qk.w_int8, qk.scale, 96, qk.w_kmajor,
+                              bias=torch.zeros(40))
+    with pytest.raises(ValueError, match="bias must be"):
+        tim.fused_int8_matmul(x, qk.w_int8, qk.scale, 96, qk.w_kmajor,
+                              bias=torch.zeros(48, device=cuda_device))
+    with pytest.raises(ValueError, match="bias must be"):
+        tim.fused_int8_matmul(x, qk.w_int8, qk.scale, 96, qk.w_kmajor,
+                              bias=torch.zeros(40, dtype=torch.float16,
+                                               device=cuda_device))
     assert tim.fused_int8_matmul.launches == before
 
 

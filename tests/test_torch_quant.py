@@ -15,6 +15,10 @@ The same numpy inputs go to both.  Tolerances, each with its reason:
 - ragged M (the kernel masks it, row 13 cannot take it) against a numpy
   blockwise reference: rtol = atol = 1e-5.
 - `int8_matmul`'s gradient against `jax.grad`: 1e-5.
+- `maybe_quantized_dot` with a `QuantizedKernel` and a bias (a frozen one
+  goes into `int8_matmul`, whose kernel adds it after the rounding; its
+  plain version here) against JAX's on the quant dict: equal, in both
+  dtypes (the same two roundings, then one add in f32 and a rounding).
 - the quantized classifier, segmenter and detector in float32 against
   JAX's: rtol = atol = 1e-4, the bound of the float artifacts.  Upstream
   sums in another order could move an activation across a rounding
@@ -35,7 +39,10 @@ from apla_tpu.ops import pallas_int8_matmul as pim
 from apla_tpu.ops import quant as jquant
 from apla_tpu_torch import serve as tserve
 from apla_tpu_torch.ops import quant as tquant
-from apla_tpu_torch.ops.int8_matmul import fused_int8_matmul
+from apla_tpu_torch.ops import int8_matmul as tim
+from apla_tpu_torch.ops.int8_matmul import (fused_int8_matmul,
+                                            fused_int8_matmul_reference,
+                                            int8_plan)
 
 F32_ULPS = 2
 BF16_REL = 2.0 ** -7
@@ -168,6 +175,139 @@ def test_int8_matmul_gradient_matches_jax():
     (tquant.int8_matmul(tx, tw, ts) ** 2).sum().backward()
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(j_grad),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bias_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bias_matches_jax_maybe_quantized_dot(dtype, bias_dtype):
+    """A frozen bias through `int8_matmul` (the plain version of the
+    kernel's epilogue: y rounded, + bias rounded to y's dtype, rounded)
+    equals JAX's `maybe_quantized_dot`, which adds it after the product;
+    so does `fused_int8_matmul_reference(..., bias=...)`."""
+    x, w = _operands(96, 768, 256, seed=7)
+    b = (np.random.default_rng(8).standard_normal(256) * 0.5).astype(
+        np.float32)
+    (jw, js), (tw, ts) = _quantized(w)
+    ref = _f32(jquant.maybe_quantized_dot(
+        jnp.asarray(x, getattr(jnp, dtype)),
+        {"w_int8": jnp.asarray(jw), "scale": jnp.asarray(js)},
+        jnp.asarray(b, getattr(jnp, bias_dtype))))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    tb = torch.from_numpy(b).to(getattr(torch, bias_dtype))
+    got = tquant.maybe_quantized_dot(tx.reshape(4, 24, 768),
+                                     tquant.QuantizedKernel(tw, ts), tb)
+    assert got.shape == (4, 24, 256) and got.dtype == tx.dtype
+    np.testing.assert_array_equal(_f32(got).reshape(96, 256), ref)
+    np.testing.assert_array_equal(
+        _f32(fused_int8_matmul_reference(tx, tw, ts, 768, tb)), ref)
+    np.testing.assert_array_equal(
+        _f32(fused_int8_matmul(tx, tw, ts, 768, bias=tb)), ref)
+
+
+def test_only_a_frozen_bias_goes_into_the_kernel(monkeypatch):
+    """`maybe_quantized_dot` hands a frozen bias to the int8 product (the
+    kernel adds it in its epilogue) and adds a trainable one after it, so
+    that its gradient flows; both give the same values.  `int8_matmul`
+    refuses a trainable bias."""
+    seen = []
+    real = tquant.fused_int8_matmul
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("bias"))
+        return real(*args, **kwargs)
+    monkeypatch.setattr(tquant, "fused_int8_matmul", spy)
+    x, w = _operands(12, 64, 16, seed=9)
+    _, (tw, ts) = _quantized(w)
+    qk = tquant.QuantizedKernel(tw, ts)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    frozen = torch.linspace(-1, 1, 16)
+    trainable = frozen.clone().requires_grad_(True)
+    y_frozen = tquant.maybe_quantized_dot(tx, qk, frozen)
+    assert seen[-1] is frozen
+    y_trainable = tquant.maybe_quantized_dot(tx, qk, trainable)
+    assert seen[-1] is None
+    assert torch.equal(y_frozen, y_trainable.detach())
+    y_trainable.float().sum().backward()
+    assert torch.equal(trainable.grad, torch.full((16,), 12.0))
+    with pytest.raises(ValueError, match="frozen bias"):
+        tquant.int8_matmul(tx, tw, ts, qk.w_kmajor, trainable)
+
+
+def test_plain_checks_the_bias():
+    x = torch.zeros(4, 96)
+    w, s = tquant.quantize_weight(torch.randn(96, 16))
+    with pytest.raises(ValueError, match="bias must be"):
+        fused_int8_matmul(x, w, s, 96, bias=torch.zeros(15))
+    with pytest.raises(ValueError, match="bias must be"):
+        fused_int8_matmul(x, w, s, 96, bias=torch.zeros(16).half())
+
+
+# (M, N, K, group, x dtype) -> (BN, stages): chip_smoke.py phase 10a's
+# shapes (the plans it measured), the segmenter's fc1 b8, the Swin stage-0
+# fc2 and fc2 b64 in f32 (one group, groups of 256), and the edges: M = 1,
+# K = 96, N = 288 (not a multiple of any tile width), groups of 256 and 32
+PLANS = [
+    ((8 * 1025, 4096, 1024, 1024, torch.bfloat16), (128, 3)),
+    ((16 * 56 * 56, 96, 384, 384, torch.float32), (128, 3)),
+    ((64 * 257, 768, 3072, 3072, torch.float32), (256, 4)),
+    ((64 * 257, 768, 3072, 256, torch.float32), (64, 4)),
+    ((64 * 257, 2304, 768, 768, torch.bfloat16), (128, 3)),
+    ((64 * 257, 3072, 768, 768, torch.bfloat16), (128, 3)),
+    ((64 * 257, 768, 3072, 3072, torch.bfloat16), (256, 4)),
+    ((257, 2304, 768, 768, torch.bfloat16), (128, 3)),
+    ((257, 3072, 768, 768, torch.bfloat16), (128, 3)),
+    ((257, 768, 3072, 3072, torch.bfloat16), (128, 3)),
+    ((8 * 1025, 1024, 4096, 4096, torch.bfloat16), (256, 4)),
+    ((16 * 56 * 56, 288, 96, 96, torch.float32), (128, 3)),
+    ((64 * 257 - 5, 768, 3072, 256, torch.bfloat16), (64, 4)),
+    ((1, 3072, 768, 768, torch.bfloat16), (128, 3)),
+    ((1, 8, 32, 32, torch.float32), (128, 3)),
+    ((49, 768, 3072, 3072, torch.float32), (128, 3)),
+    ((300, 200, 256, 32, torch.bfloat16), (64, 4)),
+]
+
+
+@pytest.mark.parametrize("shape,expect", PLANS)
+def test_int8_plan_fits_the_card(shape, expect):
+    """The launch plan covers y with its tiles, stages the output tile in
+    its ring, fits a block's shared memory, and quantizes a group with a
+    team of at most 32 threads."""
+    m, n, k, g, dtype = shape
+    p = int8_plan(*shape)
+    es = torch.finfo(dtype).bits // 8
+    assert (p.bn, p.stages) == expect
+    assert p.bn == 64 if g < k else p.bn in (128, 256)
+    assert (p.row_tiles - 1) * tim.BM < m <= p.row_tiles * tim.BM
+    assert (p.col_tiles - 1) * p.bn < n <= p.col_tiles * p.bn
+    assert p.grid == (p.col_tiles, p.row_tiles)
+    assert p.blocks == p.row_tiles * p.col_tiles
+    assert p.smem_bytes == tim.smem_bytes(p.bn, p.stages) <= 232448
+    assert p.stages * tim.stage_bytes(p.bn) >= 2 * 64 * p.bn * es
+    assert p.vectors in tim.VECTORS and p.team in (1, 2, 4, 8, 16, 32)
+    assert p.team * p.vectors * 16 >= g * es
+    assert p.team == 1 or (p.team // 2) * p.vectors * 16 < g * es
+    assert p.sx_offset % 256 == 0 and p.sx_offset >= m * k
+    assert p.scratch_bytes == p.sx_offset + 4 * m * (k // g)
+    # the quantize blocks give each (row, group) a team, none to spare
+    teams = lambda blocks: blocks * tim.QUANT_THREADS // p.team
+    assert teams(p.quantize_blocks - 1) < m * (k // g) \
+        <= teams(p.quantize_blocks)
+    assert p.quantize_grid(132) == min(p.quantize_blocks, 132)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((64, 256, 112, 112), "multiples of 32"),
+    ((64, 256, 768, 48), "multiples of 32"),
+    ((64, 256, 768, 512), "multiples of 32"),
+    ((64, 250, 768, 768), "multiples of 8"),
+    ((0, 256, 768, 768), "no int8 plan"),
+    ((64, 256, 768, 768, torch.float16), "bfloat16 or float32"),
+    ((64, 256, 32768, 32768), "too long"),
+    ((65536 * 128, 256, 768, 768), "grid"),
+])
+def test_int8_plan_raises(args, match):
+    with pytest.raises(ValueError, match=match):
+        int8_plan(*args)
 
 
 # ------------------------------------------------------------------ #

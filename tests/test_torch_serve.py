@@ -415,3 +415,22 @@ def test_cli_export_seg_and_predict(tmp_path, capsys):
         ref = segmenter_forward(quantized, torch.from_numpy(x),
                                 served_cfg).float().numpy()
     np.testing.assert_array_equal(q_pred.predict(x), ref)
+
+
+@pytest.mark.parametrize("entry", ["serve", "segdet", "main"])
+def test_entry_points_set_float32_precision(entry, monkeypatch):
+    """Each CLI entry point sets both TF32 flags to the setting the card
+    checks run (off: IEEE f32 products and convolutions) before it parses
+    its arguments, whatever they were."""
+    from apla_tpu_torch import main as tmain
+    from apla_tpu_torch import segdet as tsegdet
+    from apla_tpu_torch.wrapper import ALLOW_TF32
+    run = {"serve": tserve.main, "segdet": tsegdet.main,
+           "main": tmain.run_cli}[entry]
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with pytest.raises(SystemExit):
+        run(["--help"])
+    assert ALLOW_TF32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is ALLOW_TF32
+    assert torch.backends.cudnn.allow_tf32 is ALLOW_TF32

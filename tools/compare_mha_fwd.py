@@ -5,7 +5,8 @@ bit for bit alike: the memory-efficient attention forward (`mha_fwd`, TPU
 row 8) by default; with `--kernel fused` the fused APLA attention forward
 (`fused_apla_attn_fwd`, TPU rows 1 and 5); with `--kernel bwd` the fused
 APLA backward (`fused_apla_attn_bwd`, TPU rows 2 and 6-7); with `--kernel
-mha_bwd` the memory-efficient attention backward (`mha_bwd`, TPU row 9).
+mha_bwd` the memory-efficient attention backward (`mha_bwd`, TPU row 9);
+with `--kernel int8` the W8A8 GEMM (`fused_int8_matmul`, TPU row 13).
 
     python3 tools/compare_mha_fwd.py --parent DIR [--kernel KIND] [--full]
 
@@ -16,10 +17,11 @@ two are compared on one card under the same conditions.  Each turn builds
 its checkout's kernels and times the kernel at the shapes the port's paths
 give it with CUDA events over calls launched one by one and over a CUDA
 graph of 20 calls (device time alone), and the host's time to launch one
-(the wrapper, its checks, the launches; 100 calls with no wait), beside a
-PyTorch yardstick on the same inputs, and keeps its outputs so that the
-summary can say how many of this checkout's output values equal the
-earlier checkout's, bit for bit (per output: o; dq, dk, dv and dW_t).
+(the wrapper, its checks, the launches; the least of 15 rounds of 200 calls
+with no wait), beside a PyTorch yardstick on the same inputs, and keeps its
+outputs so that the summary can say how many of this checkout's output
+values equal the earlier checkout's, bit for bit (per output: o; dq, dk, dv
+and dW_t).
 
   mha, fused   b1, b8, b64 at N=257, [512, 50], [2, 1370] at C = 768, and
                [8, 1025] at C = 1024 (the segmenter's, where the fused
@@ -32,19 +34,32 @@ earlier checkout's, bit for bit (per output: o; dq, dk, dv and dW_t).
                yardstick autograd through SDPA + torch.matmul.
   mha_bwd      phase 7a's timed shapes (b64, b1, b8 at N=257, [512, 50],
                [2, 1370] at C = 768); yardstick SDPA's autograd.
+  int8         phase 10a's shapes (the classifier's qkv, fc1, fc2 at b64
+               and b1, the segmenter's fc2 at b8, the Swin-T stage-0 qkv in
+               f32, groups of 256 with a ragged M) and fc1 b64 with its
+               bias: fused where the checkout's wrapper takes a bias, else
+               the kernel followed by `y + bias.to(y.dtype)`, which the
+               fused epilogue must equal; each call's kernels' device ms
+               apart (torch.profiler: the quantize pass, the GEMM, the bias
+               add); yardsticks torch._int_mm (the int8 product alone) and
+               torch.matmul in x's dtype with the dequantized weight
+               (torch.addmm with the bias).
 
 With --full a turn also runs its checkout's `chip_smoke.py` phases and
 reports the rates: phase 7b (`mha`, `mha_bwd`: APLA "full" served at b64
 and trained at accum 8 and 1), phases 3 and 9b (`fused`: the classifier
 served at b64, the segmenter trained and served), phases 5, 7b and 9b
 (`bwd`: the supervised recipe, "full" and the segmenter trained, with
-their first-step |dloss| against the plain arm).  Prints one JSON line per
-turn and a summary; exits non-zero without a card.
+their first-step |dloss| against the plain arm), phases 10b and 8b
+(`int8`: the classifier served W8A8 and float at b64, with 10b's profile,
+and the detector, whose W8A8 artifact serves in f32).  Prints one JSON line
+per turn and a summary; exits non-zero without a card.
 """
 
 import argparse
 import contextlib
 import importlib.util
+import inspect
 import io
 import json
 import os
@@ -61,8 +76,22 @@ SHAPES = {"mha": ((1, 257, 768), (8, 257, 768), (64, 257, 768),
                   (8, 1025, 1024)),
           "mha_bwd": ((64, 257, 768), (1, 257, 768), (8, 257, 768),
                       (512, 50, 768), (2, 1370, 768))}
+# (name, M, K, N, group, x dtype, with a bias): chip_smoke.py phase 10a's
+INT8_SHAPES = (
+    ("qkv b64", 64 * 257, 768, 2304, 768, "bfloat16", False),
+    ("fc1 b64", 64 * 257, 768, 3072, 768, "bfloat16", False),
+    ("fc2 b64", 64 * 257, 3072, 768, 3072, "bfloat16", False),
+    ("qkv b1", 257, 768, 2304, 768, "bfloat16", False),
+    ("fc1 b1", 257, 768, 3072, 768, "bfloat16", False),
+    ("fc2 b1", 257, 3072, 768, 3072, "bfloat16", False),
+    ("seg fc2 b8", 8 * 1025, 4096, 1024, 4096, "bfloat16", False),
+    ("swin stage-0 qkv b16", 16 * 56 * 56, 96, 288, 96, "float32", False),
+    ("row 13 fc2, groups of 256, M ragged", 64 * 257 - 5, 3072, 768, 256,
+     "bfloat16", False),
+    ("fc1 b64 + bias", 64 * 257, 768, 3072, 768, "bfloat16", True))
+SHAPES["int8"] = tuple(case[0] for case in INT8_SHAPES)
 OUTPUTS = {"mha": ("o",), "fused": ("o",), "bwd": ("dq", "dk", "dv", "dW_t"),
-           "mha_bwd": ("dq", "dk", "dv")}
+           "mha_bwd": ("dq", "dk", "dv"), "int8": ("y",)}
 SCALE = 0.125
 # The recipe's rank-128 index file (chip_smoke.py RECIPE): phase 4 times
 # the backward with block 0's columns.
@@ -82,6 +111,22 @@ def _time_ms(torch, fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def _host_ms(torch, fn, calls=200, rounds=15):
+    """The host's ms to launch one call of `fn`: the least of `rounds`
+    rounds of `calls` calls, each from an idle device (a run of small
+    calls is bound by the host, whose time varies with the machine's
+    other load)."""
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
+    return best
+
+
 def _graph_ms(torch, fn, calls=20):
     fn()
     torch.cuda.synchronize()
@@ -90,6 +135,84 @@ def _graph_ms(torch, fn, calls=20):
         for _ in range(calls):
             fn()
     return _time_ms(torch, graph.replay, iters=10, warmup=2) / calls
+
+
+def _kernel_ms(torch, fn, calls=20):
+    """Device ms per call of `fn` by kernel name (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "") \
+                .split("(")[0]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() \
+                / 1e3 / calls
+    return out
+
+
+def _int8_calls(torch, case, gen, dev):
+    """(kernel call, [_int_mm, matmul] yardsticks, plain version) of a
+    phase 10a case on seeded inputs, in this turn's checkout."""
+    from apla_tpu_torch.ops import int8_matmul as tim
+    from apla_tpu_torch.ops.quant import (QuantizedKernel, dequantize_weight,
+                                          quantize_weight)
+    _, m, k, n, group, dt, with_bias = case
+    dtype = getattr(torch, dt)
+    x = torch.randn((m, k), generator=gen).to(dev, dtype)
+    w = torch.randn((k, n), generator=gen) * k ** -0.5
+    qk = QuantizedKernel(*quantize_weight(w)).to(dev)
+    bias = (torch.randn((n,), generator=gen) * 0.1).to(dev) \
+        if with_bias else None
+    codes = torch.randint(-127, 128, (m, k), generator=gen,
+                          dtype=torch.int8).to(dev)
+    w_mm = dequantize_weight(qk.w_int8, qk.scale).to(dtype)
+    args = (x, qk.w_int8, qk.scale, group, qk.w_kmajor)
+    if bias is None:
+        def call():
+            return tim.fused_int8_matmul(*args)
+
+        def plain():
+            return tim.fused_int8_matmul_reference(*args[:4])
+        matmul = (lambda: torch.matmul(x, w_mm))
+    else:
+        b_x = bias.to(dtype)
+        if "bias" in inspect.signature(tim.fused_int8_matmul).parameters:
+            def call():
+                return tim.fused_int8_matmul(*args, bias=bias)
+        else:
+            def call():
+                y = tim.fused_int8_matmul(*args)
+                return y + bias.to(y.dtype)
+
+        def plain():
+            return tim.fused_int8_matmul_reference(*args[:4]) + b_x
+        matmul = (lambda: torch.addmm(b_x, x, w_mm))
+    return call, [lambda: torch._int_mm(codes, qk.w_kmajor.t()), matmul], \
+        plain
+
+
+def _int8_worker(torch, dev, out, saved):
+    gen = torch.Generator().manual_seed(0)
+    for case in INT8_SHAPES:
+        call, (int_mm, matmul), plain = _int8_calls(torch, case, gen, dev)
+        got = call()
+        saved.append((got.cpu(),))
+        err = (got.float() - plain().float()).abs().max().item()
+        host_ms = _host_ms(torch, call)
+        out["calls"].append({
+            "shape": case[0], "max_abs_err": err, "host_ms": host_ms,
+            "ms": _time_ms(torch, call), "graph_ms": _graph_ms(torch, call),
+            "kernels_ms": _kernel_ms(torch, call),
+            "library_ms": _time_ms(torch, int_mm),
+            "library_graph_ms": _graph_ms(torch, int_mm),
+            "matmul_ms": _time_ms(torch, matmul),
+            "matmul_graph_ms": _graph_ms(torch, matmul)})
 
 
 def _split(kernel, got):
@@ -163,9 +286,13 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
     out = {"tree": tree, "calls": []}
     saved = []
     t0 = time.perf_counter()
-    _calls(torch, kernel, 1, 1, 64, torch.Generator(), dev)[0]()
+    if kernel == "int8":
+        _int8_calls(torch, ("", 64, 64, 64, 64, "bfloat16", False),
+                    torch.Generator(), dev)[0]()
+    else:
+        _calls(torch, kernel, 1, 1, 64, torch.Generator(), dev)[0]()
     out["build_s"] = time.perf_counter() - t0
-    for b, n, c in SHAPES[kernel]:
+    for b, n, c in (() if kernel == "int8" else SHAPES[kernel]):
         call, library, plain = _calls(torch, kernel, b, n, c, gen, dev)
         got = _split(kernel, call())
         saved.append(tuple(x.cpu() for x in got))
@@ -173,12 +300,7 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
         err = max((x.float() - r.float()).abs().max().item()
                   for x, r in zip(got, ref))
         del ref
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(100):
-            call()
-        host_ms = (time.perf_counter() - t0) * 10
-        torch.cuda.synchronize()
+        host_ms = _host_ms(torch, call)
         out["calls"].append({
             "shape": [b, n, 3 * c], "max_abs_err": err, "host_ms": host_ms,
             "ms": _time_ms(torch, call),
@@ -187,6 +309,8 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
             # autograd does not capture into a CUDA graph
             "library_graph_ms": (None if kernel in ("bwd", "mha_bwd")
                                  else _graph_ms(torch, library))})
+    if kernel == "int8":
+        _int8_worker(torch, dev, out, saved)
     torch.save(saved, outputs)
     if full:
         spec = importlib.util.spec_from_file_location(
@@ -198,9 +322,13 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
             _phases(smoke, kernel, dev, out)
-        # the first step's kernel arm against the plain arm, as printed
+        # the first step's kernel arm against the plain arm, as printed;
+        # int8: 10b's and 8b's W8A8 lines
         out["first_step"] = [ln for ln in log.getvalue().splitlines()
-                             if "vs plain arm: |dloss|" in ln]
+                             if "vs plain arm: |dloss|" in ln
+                             or (kernel == "int8" and (
+                                 ln.startswith("[10b w8a8]")
+                                 or "W8A8 artifact" in ln))]
         print(log.getvalue()[-20000:], file=sys.stderr)
     return out
 
@@ -222,6 +350,11 @@ def _phases(smoke, kernel, dev, out):
         out["train_img_s"] = {f"{name} accum {acc}": r
                               for (name, acc), (r, _) in
                               sorted(rates.items())}
+    if kernel == "int8":
+        _, out["w8a8_img_s"] = smoke.phase_w8a8(dev)
+        _, det = smoke.phase_det(dev)
+        out["det_img_s"] = {f"{what} {name}": r for (what, name), (r, _)
+                            in sorted(det.items())}
     if kernel in ("fused", "bwd"):
         _, seg = smoke.phase_seg(dev)
         out["seg_img_s"] = {f"{what} {name}": r for (what, name), (r, _)
@@ -236,7 +369,8 @@ def main() -> int:
                     help="the kernel to compare (default: mha)")
     ap.add_argument("--full", action="store_true",
                     help="also run each checkout's chip_smoke phases (mha, "
-                         "mha_bwd: 7b; fused: 3 and 9b; bwd: 5, 7b, 9b)")
+                         "mha_bwd: 7b; fused: 3 and 9b; bwd: 5, 7b, 9b; "
+                         "int8: 10b and 8b)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--outputs", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -275,8 +409,9 @@ def main() -> int:
     tmp.cleanup()
     yard = {"mha": "SDPA", "fused": "SDPA + matmul",
             "bwd": "autograd through SDPA + matmul",
-            "mha_bwd": "SDPA's autograd"}[args.kernel]
-    for i, (b, n, c) in enumerate(SHAPES[args.kernel]):
+            "mha_bwd": "SDPA's autograd", "int8": "torch._int_mm"}[
+        args.kernel]
+    for i, shape in enumerate(SHAPES[args.kernel]):
         cells = []
         for j, name in enumerate(OUTPUTS[args.kernel]):
             same = (outs[1][i][j] == outs[0][i][j]).float().mean().item()
@@ -292,17 +427,31 @@ def main() -> int:
                         if t["turn"] == who]
                 cells.append(f"{who} {key} " + "/".join(
                     f"{v:.4f}" for v in vals))
-        key = "library_ms" if args.kernel in ("bwd", "mha_bwd") \
-            else "library_graph_ms"
-        lib = [t["calls"][i][key] for t in turns]
-        print(f"[{b}, {n}, {3 * c}]: " + ", ".join(cells)
-              + f", {yard} {key[8:]} {min(lib):.4f}-{max(lib):.4f}")
+        keys = ("library_ms", "library_graph_ms", "matmul_ms",
+                "matmul_graph_ms") if args.kernel == "int8" else (
+            ("library_ms",) if args.kernel in ("bwd", "mha_bwd")
+            else ("library_graph_ms",))
+        for key in keys:
+            lib = [t["calls"][i][key] for t in turns]
+            name = yard if key.startswith("library") else "torch.matmul"
+            cells.append(f"{name} {key.split('_', 1)[1]} "
+                         f"{min(lib):.4f}-{max(lib):.4f}")
+        if args.kernel == "int8":
+            for who in ("parent", "this"):
+                split = [t["calls"][i]["kernels_ms"] for t in turns
+                         if t["turn"] == who][0]
+                cells.append(f"{who} per kernel (profiler ms) " + "; ".join(
+                    f"{k} {v:.4f}" for k, v in split.items()))
+        label = shape if args.kernel == "int8" else \
+            f"[{shape[0]}, {shape[1]}, {3 * shape[2]}]"
+        print(f"{label}: " + ", ".join(cells))
     if args.full:
         for t in turns:
             print(f"{t['turn']}: " + ", ".join(
                 f"{k} {t[k]}" for k in ("full_serve_img_s",
                                         "full_train_img_s", "serve_img_s",
-                                        "train_img_s", "seg_img_s")
+                                        "train_img_s", "seg_img_s",
+                                        "w8a8_img_s", "det_img_s")
                 if k in t))
             for line in t.get("first_step", []):
                 print(f"  {line}")
