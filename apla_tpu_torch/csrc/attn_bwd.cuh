@@ -31,9 +31,10 @@
 // by cp.async, double-buffered.  What bounds it on the H100: the bytes (the
 // bound chip_smoke.py phase 8a prints).  A window of 49 tokens fills one
 // ragged 64-row tile, so each block runs one key tile per pass, and the
-// work per byte is small; wgmma's 64-row tiles would not shorten that, so
-// this body stays (the Swin rows, TPU rows 3 and 4, are queued together
-// in ROADMAP B).
+// work per byte is small.  The forward (TPU row 3) runs the same windows
+// as many (window, head) items a block on wgmma and TMA
+// (swin_attn_fwd.cu); this backward (row 4) is queued for that redesign
+// in ROADMAP B.
 
 #pragma once
 

@@ -28,9 +28,9 @@
 //
 // rounding where the TPU kernel rounds: dO, pb, o and ds are bf16, every
 // product accumulates in f32, rowsum(dp * p) is taken on the f32 p (not
-// FlashAttention-2's rowsum(dO * o)).  Masking as in the forward
-// (fused_apla_attn_fwd.cu): -inf outside the row's segment and past N, a row
-// with no valid column has p = 0.
+// FlashAttention-2's rowsum(dO * o)).  Masking as in the forwards
+// (mha_fwd.cu, swin_attn_fwd.cu): -inf outside the row's segment and past
+// N, a row with no valid column has p = 0.
 //
 // What bounds it on the H100: the products.  At the training micro-batch
 // (B=8, N=257, C=768, 12 heads, k=128) and the segmenter's (B=8, N=1025,
@@ -64,13 +64,13 @@
 // (the chunks of 4 too: ops/fused_apla_attn.py:dw_chunks), so dqkv and
 // dW_t are theirs to the last bit (tools/compare_mha_fwd.py --kernel bwd).
 //
-// The Swin windows (fused_swin_attn_bwd, head dim 32, bias and mask) keep
-// the earlier body: attn_bwd.cuh's mma.sync query and key sides (cp.async
-// tiles, double-buffered) and the mma.sync GEMMs below, TW = 64 wide or 32
-// where C is not a multiple of 64 (Swin-T's stage 0, C = 96).  Their
-// windows of 49 tokens fill one ragged 64-row tile, a regime that the
-// bytes bound and that wgmma's 64-row tiles would not shorten; they are
-// queued with TPU row 3 (ROADMAP B).
+// The Swin windows (fused_swin_attn_bwd, head dim 32, bias and mask, TPU
+// row 4) keep the earlier body: attn_bwd.cuh's mma.sync query and key
+// sides (cp.async tiles, double-buffered) and the mma.sync GEMMs below,
+// TW = 64 wide or 32 where C is not a multiple of 64 (Swin-T's stage 0,
+// C = 96).  Their forward (row 3) became TMA/wgmma launches in
+// swin_attn_fwd.cu; this backward is queued for the same redesign
+// (ROADMAP B).
 
 #include "attn_bwd.cuh"
 #include "attn_bwd_sm90.cuh"

@@ -69,11 +69,6 @@ __host__ __device__ constexpr int stage_bytes() {
   return A_BYTES + (BN / 64) * B_TILE;
 }
 
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
-}
-
 struct Args {
   int K;            // contraction length
   int chunk;        // contraction rows per blockIdx.z (K for one chunk)

@@ -83,21 +83,16 @@
 // change; cuTensorMapEncodeTiled, found through the runtime), a host cost
 // phase 7a times.
 
-#include "sm90_async.cuh"
-
-#include <math.h>
+#include "attn_fwd_sm90.cuh"
 
 namespace {
 
-using namespace sm90;
+using namespace attn90;
 typedef __nv_bfloat16 bf16;
 
-constexpr int NT = 128;                 // one warpgroup
-constexpr int BM = 64;                  // rows per tile (query and key)
 constexpr int DH = 64;                  // head dim
 constexpr int TILE_BYTES = BM * DH * 2; // 8 KB
 constexpr int ROW_KT = 5;               // key tiles of the row kernel
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory (after aligning the base to 1024 bytes): two q tiles, the
 // output tile, `slots` K/V slots (K then V, 16 KB each), then the barriers.
@@ -174,35 +169,6 @@ __device__ __forceinline__ void scale_mask(float (&s)[32], int kt, int t,
     }
 }
 
-// 2^x by the special-function unit, results below 2^-126 flushed to 0 (such
-// a p weighs nothing beside the row maximum's 2^0); on the inputs of
-// tools/compare_mha_fwd.py the outputs equal, bit for bit, those of a
-// kernel that calls exp2f.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// s (+)= q k^T over the 64 head columns, n_cols of the key tile's rows
-template <int NC>
-__device__ __forceinline__ void scores_n(float (&s)[32], uint64_t dq,
-                                         uint64_t dk) {
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk)
-    wgmma_ss<NC>(s, dq + 2 * kk, dk + 2 * kk, kk > 0);   // +32 bytes
-}
-
 // Stage the 64 x 64 output tile (swizzled, bf16) and store it with TMA;
 // `tid` is the thread's index in its warpgroup, `bar` the warpgroup's named
 // barrier.
@@ -227,11 +193,6 @@ __device__ __forceinline__ void store_tile(const float (&o)[32], uint8_t* ob,
     tma_store_3d(omap, ob, h * DH, qt * BM, b);
     tma_store_commit();
   }
-}
-
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
 }
 
 // Walks the query tiles of a run of items in order (thread 0's prefetch).
@@ -259,14 +220,6 @@ struct QCursor {
     }
   }
 };
-
-__device__ __forceinline__ void load_q(uint8_t* sm, uint64_t* qbar,
-                                       const CUtensorMap* qmap,
-                                       const QCursor& c, int buf) {
-  mbar_expect_tx(qbar + buf, TILE_BYTES);
-  tma_load_3d(sm + Q_OFF + buf * TILE_BYTES, qmap, qbar + buf, c.h * DH,
-              c.qt * BM, c.b);
-}
 
 // ---------------------------------------------------------------------------
 // Row kernel: N in (64 (NKT - 1), 64 NKT], the last key tile TAILN wide
@@ -315,11 +268,11 @@ mha_row_kernel(const __grid_constant__ CUtensorMap qmap,
   __syncthreads();
   if (tid == 0) {
     cur.start(p, it0, it1);
-    load_q(sm, qbar, &qmap, cur, 0);
+    load_q<DH>(sm, qbar, &qmap, cur.h, cur.qt, cur.b, 0);
     cur.next(p);
     load_kv(it0, 0);
     if (cur.valid()) {
-      load_q(sm, qbar, &qmap, cur, 1);
+      load_q<DH>(sm, qbar, &qmap, cur.h, cur.qt, cur.b, 1);
       cur.next(p);
     }
     if (p.kv_sets == 2 && it0 + 1 < it1) load_kv(it0 + 1, 1);
@@ -356,13 +309,13 @@ mha_row_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int i = 0; i < NKT; ++i) {
         mbar_wait(kbar + set * NKT + i, kv_parity);
         const uint64_t dk = desc_kmajor(kv + i * SLOT_BYTES);
-        if (i == NKT - 1) scores_n<TAILN>(s[i], dq, dk);
-        else scores_n<64>(s[i], dq, dk);
+        if (i == NKT - 1) scores_n<DH, TAILN>(s[i], dq, dk);
+        else scores_n<DH, 64>(s[i], dq, dk);
       }
       wgmma_commit();
       wgmma_wait0();
       if (tid == 0 && cur.valid()) {          // q buffer free: prefetch
-        load_q(sm, qbar, &qmap, cur, buf);
+        load_q<DH>(sm, qbar, &qmap, cur.h, cur.qt, cur.b, buf);
         cur.next(p);
       }
 
@@ -515,32 +468,6 @@ struct UseCursor {         // thread 0's position in the streamed sequence
   }
 };
 
-// running max and sum of one key tile's scores s (log2 units) into (m, l)
-__device__ __forceinline__ void online_stats(const float (&s)[32], float& m0,
-                                             float& m1, float& l0,
-                                             float& l1) {
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-  }
-  const float mn0 = fmaxf(m0, quad_max(mx0));
-  const float mn1 = fmaxf(m1, quad_max(mx1));
-  const float ref0 = (mn0 == -INFINITY) ? 0.0f : mn0;
-  const float ref1 = (mn1 == -INFINITY) ? 0.0f : mn1;
-  float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    sum0 += ex2(s[4 * j] - ref0) + ex2(s[4 * j + 1] - ref0);
-    sum1 += ex2(s[4 * j + 2] - ref1) + ex2(s[4 * j + 3] - ref1);
-  }
-  l0 = l0 * ex2(m0 - ref0) + quad_sum(sum0);
-  l1 = l1 * ex2(m1 - ref1) + quad_sum(sum1);
-  m0 = mn0;
-  m1 = mn1;
-}
-
 // p = exp2(s - ref) * inv, rounded to bf16 and packed as the A operand
 // (zero when !live)
 __device__ __forceinline__ void p_operand(float (&s)[32], float ref0,
@@ -594,7 +521,7 @@ mha_two_pass_kernel(const __grid_constant__ CUtensorMap qmap,
   if (tid == 0) {
     qc.start(p, blockIdx.x, blockIdx.x + 1);
     for (int buf = 0; buf < 2 && qc.valid(); ++buf) {
-      load_q(sm, qbar, &qmap, qc, buf);
+      load_q<DH>(sm, qbar, &qmap, qc.h, qc.qt, qc.b, buf);
       qc.next(p);
     }
     if (p.resident) {
@@ -653,16 +580,16 @@ mha_two_pass_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint8_t* sb = two ? acquire(kt + 1, 1) : sa;
       float s[2][32];
       wgmma_fence();
-      scores_n<64>(s[0], dq, desc_kmajor(sa));
-      scores_n<64>(s[1], dq, desc_kmajor(sb));
+      scores_n<DH, 64>(s[0], dq, desc_kmajor(sa));
+      scores_n<DH, 64>(s[1], dq, desc_kmajor(sb));
       wgmma_commit();
       wgmma_wait0();
       release(two ? 2 : 1);
       scale_mask(s[0], kt, t, sl2, lo0, hi0, lo1, hi1);
-      online_stats(s[0], m0, m1, l0, l1);
+      online_stats<true>(s[0], m0, m1, l0, l1);
       if (two) {
         scale_mask(s[1], kt + 1, t, sl2, lo0, hi0, lo1, hi1);
-        online_stats(s[1], m0, m1, l0, l1);
+        online_stats<true>(s[1], m0, m1, l0, l1);
       }
     }
 
@@ -680,8 +607,8 @@ mha_two_pass_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint8_t* sb = two ? acquire(kt + 1, 1) : sa;
       float s[2][32];
       wgmma_fence();
-      scores_n<64>(s[0], dq, desc_kmajor(sa));
-      scores_n<64>(s[1], dq, desc_kmajor(sb));
+      scores_n<DH, 64>(s[0], dq, desc_kmajor(sa));
+      scores_n<DH, 64>(s[1], dq, desc_kmajor(sb));
       wgmma_commit();
       wgmma_wait0();
       uint32_t pa[2][4][4];
@@ -707,7 +634,7 @@ mha_two_pass_kernel(const __grid_constant__ CUtensorMap qmap,
       release(two ? 2 : 1);
     }
     if (tid == 0 && qc.valid()) {             // q buffer free: prefetch
-      load_q(sm, qbar, &qmap, qc, buf);
+      load_q<DH>(sm, qbar, &qmap, qc.h, qc.qt, qc.b, buf);
       qc.next(p);
     }
     store_tile(o, sm + O_OFF, &omap, r.h, qt, r.b, tid, 1);
@@ -736,12 +663,6 @@ Kernel row_kernel_for(int N) {
   const int nkt = (N + BM - 1) / BM;
   const int tail = ((N - (nkt - 1) * BM) + 15) / 16;
   return table[nkt - 1][tail - 1];
-}
-
-int set_smem(Kernel kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(
-      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
 }
 
 }  // namespace

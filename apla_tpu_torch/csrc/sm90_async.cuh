@@ -154,6 +154,14 @@ __device__ __forceinline__ uint32_t swz128(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + ((col & 7) << 1);
 }
 
+// The same for a 64-byte-swizzled tile of 32 bf16 columns (a box {32, R}
+// with CU_TENSOR_MAP_SWIZZLE_64B: chunk c of row r sits at c ^ ((r / 2) % 4),
+// the tile on a 512-byte boundary), the head-dim-32 tiles of the Swin
+// window attention.
+__device__ __forceinline__ uint32_t swz64(int row, int col) {
+  return row * 64 + ((((col >> 3) ^ (row >> 1)) & 3) << 4) + ((col & 7) << 1);
+}
+
 // ---- wgmma ---------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile at `p`
@@ -175,6 +183,23 @@ __device__ __forceinline__ uint64_t desc_kmajor(const void* p) {
 // given the same value.
 __device__ __forceinline__ uint64_t desc_mnmajor(const void* p) {
   return desc_sw128(p, 1024, 1024);
+}
+
+// The 64-byte swizzle's tiles (rows of 32 bf16, swz64): K-major, a k16 step
+// is a 32-byte advance and 8-row groups are 512 bytes apart; MN-major with
+// N = 32 (one swizzle row spans all of N), a k16 step is 16 rows (1024
+// bytes) and 8-row groups are 512 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (desc_sw128(p, lbo, sbo) & ~(3ull << 62)) | (2ull << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_kmajor64(const void* p) {
+  return desc_sw64(p, 16, 512);
+}
+
+__device__ __forceinline__ uint64_t desc_mnmajor64(const void* p) {
+  return desc_sw64(p, 512, 512);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -334,6 +359,19 @@ __device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// d (64 x 32 f32) += A (64 x 16 bf16 from registers, a[4]) B (16 x 32,
+// MN-major 64-byte-swizzled tile in shared memory).
+__device__ __forceinline__ void wgmma_rs32(float* d, const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.eq.u32 p, 1, 1;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+      " %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : SM90_R8(0), SM90_R8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
 #undef SM90_R8
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -383,12 +421,14 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 // A 3-D map over a row-major tensor [d2][d1][d0] of `dtype` (d0 innermost,
 // row_bytes and plane_bytes its strides), boxes of {box0, box_rows, 1} with
-// the 128-byte swizzle (box0 elements span at most 128 bytes); reads past
-// an edge fill zeros.  Returns 0 or a CUresult.
+// the 128-byte swizzle (box0 elements span at most 128 bytes; or `swizzle`,
+// whose span bounds them); reads past an edge fill zeros.  Returns 0 or a
+// CUresult.
 inline int encode_3d(CUtensorMap* map, CUtensorMapDataType dtype,
                      const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
                      uint64_t row_bytes, uint64_t plane_bytes, uint32_t box0,
-                     uint32_t box_rows) {
+                     uint32_t box_rows,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[3] = {d0, d1, d2};
@@ -396,8 +436,7 @@ inline int encode_3d(CUtensorMap* map, CUtensorMapDataType dtype,
   const cuuint32_t box[3] = {box0, box_rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   return (int)fn(map, dtype, 3, const_cast<void*>(base), dims, strides, box,
-                 estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                 CU_TENSOR_MAP_SWIZZLE_128B,
+                 estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

@@ -1,24 +1,28 @@
 """Fused Swin window attention: softmax(q k^T * scale + bias + mask) v over
-each window and the whole (trainable) output projection in one kernel, and
-its backward.
+each window and the whole (trainable) output projection, and its backward.
 
 Counterpart of `apla_tpu/ops/pallas_apla_attn.py:fused_swin_attention` and
-its custom VJP.  The kernels are templates (`csrc/fused_apla_attn_fwd.cu`,
-which also held row 1's ViT forward until that became two launches, and
-row 2's `csrc/fused_apla_attn_bwd.cu` with `csrc/attn_bwd.cuh`),
-instantiated at head dim 32 with the bias and mask added to the scores, as
-the TPU builds its Swin kernels from rows 1 and 2's bodies:
+its custom VJP.  Hand-written CUDA kernels replace the TPU kernels:
 
 - `fused_swin_attn_fwd` replaces `pallas_apla_attn.py:_fwd_kernel_bias`
   (through `_call_fwd_swin`): per window and head, f32 scores
   `(q k^T * scale + bias[h]) + mask[b mod nW]`, p normalised in f32 and
   rounded to bf16, p v, the heads concatenated (bf16) and multiplied by the
-  `[C, C]` projection in f32, stored as bf16.  The projection's bias is
-  added outside the kernel, in the output dtype.
+  `[C, C]` projection in f32, stored as bf16.  On the card that is two
+  launches of `csrc/swin_attn_fwd.cu`, queued by one C call and split at
+  the head concatenation: a head-dim-32 TMA/`wgmma` attention writes o
+  `[B, N, C]` to a scratch tensor (launch plan `swin_plan`), and the
+  projection GEMM of `csrc/gemm_sm90.cuh` (the ViT forward's, plan
+  `proj_plan`) multiplies it by w over the B * N rows.  Both keep the
+  rounding points and sum orders of the single kernel they replaced, so
+  the output is its bit for bit.  The projection's bias is added outside
+  the kernels, in the output dtype.
 - `fused_swin_attn_bwd` replaces `pallas_apla_attn.py:_bwd_kernel_bias`
-  (through `_call_bwd_swin`): `dO = bf16(g W^T)`, p recomputed, `dq/dk/dv`
-  packed `[B, N, 3C]`, and `dW = o_cat^T g` summed in f32 over every window
-  and row (fixed-order partials: reruns are bit-equal).
+  (through `_call_bwd_swin`), row 2's kernel file `csrc/fused_apla_attn_bwd.cu`
+  with `csrc/attn_bwd.cuh`'s `mma.sync` sides at head dim 32:
+  `dO = bf16(g W^T)`, p recomputed, `dq/dk/dv` packed `[B, N, 3C]`, and
+  `dW = o_cat^T g` summed in f32 over every window and row (fixed-order
+  partials: reruns are bit-equal).
 
 Windows are `[B, N, 3C]` with B = images x windows, the image outermost
 (`models.swin._window_partition`), so window b's mask plane is `b mod nW`.
@@ -28,26 +32,48 @@ of the function).
 
 `fused_swin_attn_fwd` / `fused_swin_attn_bwd` are the wrappers: on a CPU
 tensor they run the plain PyTorch versions below (`*_reference`), on a
-CUDA tensor they launch the kernel or raise.  Each wrapper's `launches`
-counts its kernel launches (one per call, and nothing else).
-`FusedSwinAttention` is the autograd `Function` over both, with the JAX
-custom VJP's contract: differentiable in qkv, w and b; the bias and mask
-are frozen and get no gradient.
+CUDA tensor they launch the kernels or raise.  Each wrapper's `launches`
+counts its calls that launched (one per call, and nothing else).
+`fused_swin_attn_fwd_part` queues the forward's launches apart, uncounted,
+for a measurement.  `FusedSwinAttention` is the autograd `Function` over
+both, with the JAX custom VJP's contract: differentiable in qkv, w and b;
+the bias and mask are frozen and get no gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
-from .cuda_build import check_smem, device_index, device_smem, load_library
+from .apla_proj_gemm import apla_proj_gemm_reference, gemm_plan
+from .cuda_build import check_smem, device_index, device_smem, \
+    launch_context, load_library
 from .fused_apla_attn import _BWD_SOURCE, dw_chunks
-from .mha import attention_grads, merge_heads, softmax_f32, split_heads
+from .mha import (BLOCK_RESERVED, SM_SMEM, SMS, attention_grads, merge_heads,
+                  plan_array, softmax_f32, split_heads)
 
-_SOURCE = "fused_apla_attn_fwd.cu"
+_SOURCE = "swin_attn_fwd.cu"
 HEAD_DIM = 32          # the Swin kernels' head dim (every Swin builder's)
+
+# The attention launch's plan (`swin_plan`), in the units of
+# `csrc/swin_attn_fwd.cu`: 64-row query and key tiles of 32 columns (4 KB);
+# a K/V slot holds one key tile of K and one of V (8 KB); a block's
+# warpgroup has two q tiles and an output tile (12 KB); 1 KB aligns the
+# base, 512 bytes hold the barriers.
+TILE = 64
+TILE_BYTES = TILE * HEAD_DIM * 2
+SLOT_BYTES = 2 * TILE_BYTES
+FIXED_SMEM = 3 * TILE_BYTES + 1024 + 512
+# Blocks of 128 threads that the registers (65536 an SM) let one SM hold,
+# from the kernels' launch bounds and the compiler's counts (`-Xptxas=-v`,
+# `chip_smoke.py` phase 1): the row kernel (one key tile, N <= 64: every
+# Swin-T window) 153 registers, the two-pass kernel 96.
+REG_BLOCKS = {"row": 3, "two_pass": 2}
+# `parts` of `fused_swin_attn_fwd_part`: which launches a call queues
+PART_ATTN, PART_PROJ = 1, 2
 
 
 def _terms(bias, mask, batch):
@@ -67,11 +93,19 @@ def fused_swin_attn_fwd_reference(qkv, w, bias, mask, num_heads: int,
 
     qkv [B, N, 3C], w [C, C], bias [H, N, N], mask [nW, N, N] or None ->
     [B, N, C] in qkv.dtype, without the projection's bias."""
+    return apla_proj_gemm_reference(
+        swin_attn_reference(qkv, bias, mask, num_heads, scale), w)
+
+
+def swin_attn_reference(qkv, bias, mask, num_heads: int, scale: float):
+    """Plain version of the forward's attention launch: qkv [B, N, 3C],
+    bias [H, N, N], mask [nW, N, N] or None -> o [B, N, C] in qkv.dtype,
+    the heads concatenated (the kernel's scratch o, before the
+    projection)."""
     dt = qkv.dtype
     q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
     p = softmax_f32(q, k, scale, 0, _terms(bias, mask, qkv.shape[0]))
-    o = merge_heads(torch.matmul(p.to(dt).float(), v)).to(dt)
-    return torch.matmul(o.float(), w.to(dt).float()).to(dt)
+    return merge_heads(torch.matmul(p.to(dt).float(), v)).to(dt)
 
 
 def fused_swin_attn_bwd_reference(qkv, w, g, bias, mask, num_heads: int,
@@ -130,16 +164,103 @@ def _check(qkv, w, bias, mask, num_heads):
     return B, N, C
 
 
+@dataclasses.dataclass(frozen=True)
+class SwinPlan:
+    """How the attention launch covers B windows x H heads.
+
+    `kind` "row" (N <= 64, one key tile) runs items (window, head), each
+    one query tile against its window's K/V held in shared memory and the
+    score row in registers; a block takes `items_per_block` consecutive
+    items, a window's heads next to each other, with `kv_sets` K/V sets (2
+    when a block loads the next item's K/V while it computes).
+    "two_pass" (N > 64) runs one item (window, head, query tile) a block,
+    K/V streamed through two slots."""
+    kind: str
+    n_tiles: int
+    items: int
+    items_per_block: int
+    blocks: int
+    kv_sets: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+    def args(self) -> tuple:
+        """The plan as the C entry takes it (four ints)."""
+        return (int(self.kind == "two_pass"), self.items_per_block,
+                self.kv_sets, self.smem_bytes)
+
+    def describe(self) -> str:
+        return (f"{self.kind}, {self.items} items, {self.items_per_block} "
+                f"per block, {self.blocks} blocks ({self.blocks_per_sm} per "
+                f"SM), {self.kv_sets} K/V sets, {self.smem_bytes} bytes of "
+                f"shared memory")
+
+
+def _smem(slots: int) -> int:
+    """Shared memory of a block with `slots` K/V slots."""
+    return FIXED_SMEM + slots * SLOT_BYTES
+
+
+def _per_sm(regs: str, smem: int) -> int:
+    return min(REG_BLOCKS[regs], SM_SMEM // (smem + BLOCK_RESERVED))
+
+
+@functools.lru_cache(maxsize=256)
+def swin_plan(B: int, N: int, H: int) -> SwinPlan:
+    """The attention launch's plan, a pure function of the shape, as
+    `mha.fwd_plan` lays out its row kernel at N <= 64: an item a block
+    while there are no more items than SMS x (blocks per SM), else runs of
+    items with two K/V sets (Swin-T b16: 3072 items at stage 0, 384 at
+    stage 3); past one key tile, one query tile a block."""
+    n_t = -(-N // TILE)
+    items = B * H
+    if n_t > 1:
+        return SwinPlan(kind="two_pass", n_tiles=n_t, items=items * n_t,
+                        items_per_block=1, blocks=items * n_t, kv_sets=1,
+                        smem_bytes=_smem(2),
+                        blocks_per_sm=_per_sm("two_pass", _smem(2)))
+    per_sm = _per_sm("row", _smem(1))
+    kv_sets, per_block = 1, 1
+    if items > SMS * per_sm:
+        per_sm2 = _per_sm("row", _smem(2))
+        if per_sm2 >= 2:
+            kv_sets, per_sm = 2, per_sm2
+            per_block = -(-items // (SMS * per_sm))
+    return SwinPlan(kind="row", n_tiles=1, items=items,
+                    items_per_block=per_block,
+                    blocks=-(-items // per_block), kv_sets=kv_sets,
+                    smem_bytes=_smem(kv_sets), blocks_per_sm=per_sm)
+
+
+def proj_plan(M: int, C: int):
+    """The projection GEMM's plan (`apla_proj_gemm.gemm_plan`) over M rows
+    of width C: 128-column tiles unless C is a multiple of 256, so that a
+    Swin width (96, 192, 384 at Swin-T's stages 0-2) wastes at most 32 or
+    64 columns of its last tile."""
+    return gemm_plan(M, C, None if C % 256 == 0 else 128)
+
+
+@functools.lru_cache(maxsize=256)
+def _plans(B: int, N: int, C: int, H: int, n_w: int):
+    """(attention plan, projection plan, the shape and both plans as the C
+    entry's ints)."""
+    plan, proj = swin_plan(B, N, H), proj_plan(B * N, C)
+    if plan.blocks >= 2 ** 31:
+        raise ValueError(f"{B} windows of {N} tokens x {H} heads outside "
+                         "the kernel's grid")
+    return plan, proj, plan_array((B, N, C, H, n_w) + plan.args()
+                                  + (proj.bn, proj.stages, proj.smem_bytes))
+
+
 @functools.cache
 def _fwd_library():
     lib = load_library(_SOURCE)
-    lib.fused_swin_attn_fwd.argtypes = [ctypes.c_void_p] * 5 \
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    lib.fused_swin_attn_fwd.restype = ctypes.c_int
-    lib.fused_swin_attn_fwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.fused_swin_attn_fwd_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_swin_attn_fwd_prepare.argtypes = [ctypes.c_int]
-    lib.fused_swin_attn_fwd_prepare.restype = ctypes.c_int
+    lib.swin_attn_fwd.argtypes = [ctypes.c_void_p] * 6 \
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p]
+    lib.swin_attn_fwd.restype = ctypes.c_int
+    lib.swin_attn_fwd_prepare.argtypes = [ctypes.c_int]
+    lib.swin_attn_fwd_prepare.restype = ctypes.c_int
     return lib
 
 
@@ -161,25 +282,51 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_fwd(qkv, w, bias, mask, num_heads, scale):
+def _launch_fwd(qkv, w, bias, mask, num_heads, scale,
+                parts=PART_ATTN | PART_PROJ, o=None):
+    """The launches `parts` names, on the current stream: the attention
+    into o (a new scratch [B, N, C], or `o`), the projection of o into a
+    new out.  -> out, or o when the projection is not queued (o given and
+    the attention not queued: the projection alone reads it)."""
     B, N, C = _check(qkv, w, bias, mask, num_heads)
+    plan, proj, shape = _plans(B, N, C, num_heads,
+                               1 if mask is None else mask.shape[0])
     lib = _fwd_library()
-    dev = device_index(qkv)
-    check_smem(lib.fused_swin_attn_fwd_smem_bytes(C),
-               device_smem(_fwd_library, "fused_swin_attn_fwd_prepare", dev),
-               f"the Swin window forward at C={C}")
-    out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
-    n_w = 1 if mask is None else mask.shape[0]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_swin_attn_fwd(
-            qkv.data_ptr(), w.data_ptr(), bias.data_ptr(), _ptr(mask),
-            out.data_ptr(), B, N, C, num_heads, n_w, float(scale), stream)
+    check_smem(max(plan.smem_bytes, proj.smem_bytes),
+               device_smem(_fwd_library, "swin_attn_fwd_prepare",
+                           device_index(qkv)),
+               f"the Swin window forward at N={N}, C={C}")
+    out_ptr = None
+    if o is None:
+        # o and out in one allocation, out its second half (one allocation
+        # less: the smaller stages are bound by the host's time per call)
+        both = torch.empty((2 if parts & PART_PROJ else 1, B, N, C),
+                           dtype=qkv.dtype, device=qkv.device)
+        o_ptr, result = both.data_ptr(), both[-1]
+        if parts & PART_PROJ:
+            out_ptr = result.data_ptr()
+    elif (o.dtype != qkv.dtype or tuple(o.shape) != (B, N, C)
+          or o.device != qkv.device or not o.is_contiguous()
+          or o.data_ptr() % 16):
+        raise ValueError(f"o must be a contiguous, 16-byte aligned [{B}, "
+                         f"{N}, {C}] {qkv.dtype} on qkv's device")
+    else:
+        o_ptr, result = o.data_ptr(), o
+        if parts & PART_PROJ:
+            result = torch.empty_like(o)
+            out_ptr = result.data_ptr()
+    with launch_context(qkv) as stream:
+        err = lib.swin_attn_fwd(
+            qkv.data_ptr(), w.data_ptr(), bias.data_ptr(), _ptr(mask), o_ptr,
+            out_ptr, shape, float(scale), parts, stream)
+    if err == 2000:
+        raise RuntimeError(f"swin_attn_fwd: no GEMM of {proj.bn} columns")
+    if err >= 1000:
+        raise RuntimeError(f"swin_attn_fwd: tensor map not encoded: "
+                           f"CUresult {err - 1000}")
     if err != 0:
-        raise RuntimeError(f"fused_swin_attn_fwd launch failed: cudaError "
-                           f"{err}")
-    fused_swin_attn_fwd.launches += 1
-    return out
+        raise RuntimeError(f"swin_attn_fwd launch failed: cudaError {err}")
+    return result
 
 
 def fused_swin_attn_fwd(qkv, w, bias, mask, num_heads: int, scale: float):
@@ -187,17 +334,39 @@ def fused_swin_attn_fwd(qkv, w, bias, mask, num_heads: int, scale: float):
     mask [nW, N, N] f32 or None (a block that is not shifted) ->
     [B, N, C], without the projection's bias.
 
-    CPU tensor: the plain version.  CUDA tensor: the kernel, or an error
-    naming why it cannot run (dtype, head dim, shapes, shared memory)."""
+    CPU tensor: the plain version.  CUDA tensor: the two kernels, or an
+    error naming why they cannot run (dtype, head dim, shapes, shared
+    memory).  On the card the result is a view of the second half of one
+    [2, B, N, C] allocation whose first half is the scratch o, so it keeps
+    that scratch alive for as long as it is held: twice the output's
+    memory.  `FusedSwinAttention` drops it at once (it returns out + b, a
+    new tensor); a caller that keeps the output itself for long clones it
+    first."""
     if qkv.device.type == "cpu":
         return fused_swin_attn_fwd_reference(qkv, w, bias, mask, num_heads,
                                              scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"no fused Swin attention for device {qkv.device}")
-    return _launch_fwd(qkv, w, bias, mask, num_heads, scale)
+    out = _launch_fwd(qkv, w, bias, mask, num_heads, scale)
+    fused_swin_attn_fwd.launches += 1
+    return out
 
 
 fused_swin_attn_fwd.launches = 0
+
+
+def fused_swin_attn_fwd_part(qkv, w, bias, mask, num_heads: int,
+                             scale: float, parts: int, o=None):
+    """The forward's launches that `parts` names (`PART_ATTN`, `PART_PROJ`
+    or both) on CUDA tensors, uncounted: a measurement times the two apart
+    and feeds the projection an o of its choice.  -> o after the attention
+    alone, out when the projection runs (it reads `o`, which must be given
+    when the attention does not run)."""
+    if qkv.device.type != "cuda":
+        raise ValueError("fused_swin_attn_fwd_part runs on a CUDA tensor")
+    if not parts & PART_ATTN and o is None:
+        raise ValueError("the projection alone needs o")
+    return _launch_fwd(qkv, w, bias, mask, num_heads, scale, parts, o)
 
 
 def _launch_bwd(qkv, w, g, bias, mask, num_heads, scale):

@@ -1642,6 +1642,42 @@ def _swin_bounds(b, c, heads, n_w):
                    + planes + 4 * c * c))
 
 
+def _swin_launch_bounds(b, c, n_w):
+    """(attention, projection) bounds of the forward's two launches on b
+    windows of 49 tokens: q k^T and p v (2 N^2 C each) reading qkv, the
+    bias and the mask and writing o; o @ w (2 N C^2) reading o and w and
+    writing out."""
+    n, heads = 49, c // 32
+    planes = 4 * (heads + n_w) * n * n
+    return (_bound(4 * b * n * n * c, 2 * 4 * b * n * c + planes),
+            _bound(2 * b * n * c * c, 2 * (2 * b * n * c + c * c)))
+
+
+def _swin_fwd_times(qkv, w, bias, mask, heads, scale, library):
+    """The window forward timed: the call by events, from a CUDA graph and
+    as the host's time per call; its two launches apart (the attention
+    into o, the projection of o), by events and from graphs, beside their
+    bounds; the two-call yardstick from a graph."""
+    from apla_tpu_torch.ops import fused_swin_attn as fs
+    call = lambda: fs.fused_swin_attn_fwd(qkv, w, bias, mask,  # noqa: E731
+                                          heads, scale)
+    attention = functools.partial(fs.fused_swin_attn_fwd_part, qkv, w, bias,
+                                  mask, heads, scale, fs.PART_ATTN)
+    o = attention()
+    projection = functools.partial(fs.fused_swin_attn_fwd_part, qkv, w, bias,
+                                   mask, heads, scale, fs.PART_PROJ, o)
+    t = {"host_ms": _host_ms(call), "graph_ms": _graph_ms(call),
+         "attention_ms": _time_ms(attention),
+         "attention_graph_ms": _graph_ms(attention),
+         "projection_ms": _time_ms(projection),
+         "projection_graph_ms": _graph_ms(projection),
+         "library_two_calls_graph_ms": _graph_ms(library)}
+    (t["attention_bound_ms"], _), (t["projection_bound_ms"], _) = \
+        _swin_launch_bounds(qkv.shape[0], w.shape[0],
+                            0 if mask is None else mask.shape[0])
+    return t
+
+
 def _swin_library(qkv, w, heads, scale, attn_mask):
     """The window kernels' two-call yardstick: F.scaled_dot_product_attention
     with the additive mask bias + mask, then one torch.matmul (and the head
@@ -1667,12 +1703,16 @@ def _swin_errors(got, ref):
 
 def phase_swin(device):
     """8a: the Swin window kernels (rows 3, 4) against their plain versions
-    at SWIN_CASES, six fault controls at the first case, and times at every
-    stage's b16 windows beside the bounds and the two-call yardstick."""
+    at SWIN_CASES (and the forward's attention launch alone against its
+    plain version), seven fault controls at the first case, and times at
+    every stage's b16 windows beside the bounds and the two-call yardstick
+    (the forward also from CUDA graphs, host ms per call and each launch
+    apart), and the served b1 windows from a graph."""
+    from apla_tpu_torch.ops import cuda_build
     from apla_tpu_torch.ops import fused_swin_attn as fs
     gen = torch.Generator().manual_seed(SEED + 4)
     scale = 32 ** -0.5
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    worst = {"fwd": 0.0, "attention": 0.0, "bwd": 0.0}
     times = {}
 
     def kernels(qkv, w, g, bias, mask, heads, sc=scale):
@@ -1702,7 +1742,21 @@ def phase_swin(device):
         if not ok:
             raise SystemExit(f"Swin window kernels disagree with their plain "
                              f"versions at {tag}")
+        # the forward's attention launch alone against its plain version
+        o = fs.fused_swin_attn_fwd_part(qkv, w, bias, mask, heads, scale,
+                                        fs.PART_ATTN)
+        o_ref = fs.swin_attn_reference(qkv, bias, mask, heads, scale).float()
+        o_err = (o.float() - o_ref).abs().max().item() \
+            if bool(torch.isfinite(o).all()) else float("inf")
+        o_bound = KERNEL_REL_TOL * o_ref.abs().max().item()
+        print(f"[8a swin] {tag}: the attention launch alone (o) max|err| "
+              f"{o_err:.6g} (bound {o_bound:.6g}) -> "
+              f"{'ok' if o_err <= o_bound else 'FAIL'}")
+        if o_err > o_bound:
+            raise SystemExit(f"the Swin attention launch disagrees with its "
+                             f"plain version at {tag}")
         worst["fwd"] = max(worst["fwd"], errs["out"][0])
+        worst["attention"] = max(worst["attention"], o_err)
         worst["bwd"] = max(worst["bwd"], errs["dqkv"][0], errs["dW"][0])
         if (images, stage, shifted) == SWIN_CASES[0]:
             n_w = mask.shape[0]
@@ -1731,6 +1785,14 @@ def phase_swin(device):
                         torch.nn.functional.pad(bias, (0, pad, 0, pad)),
                         torch.nn.functional.pad(mask, (0, pad, 0, pad)),
                         heads, scale)[:, :49], got[1], got[2]), ("out",)),
+                # the attention launch writing head h at head h+1's
+                # columns (mod H), then the projection reading that o
+                "heads at the wrong columns of o": (
+                    lambda: (fs.fused_swin_attn_fwd_part(
+                        qkv, w, bias, mask, heads, scale, fs.PART_PROJ,
+                        o.unflatten(-1, (heads, 32)).roll(1, dims=2)
+                        .flatten(-2).contiguous()), got[1], got[2]),
+                    ("out",)),
                 "dW zeroed": (lambda: (got[0], got[1], got[2] * 0), ("dW",)),
                 "dqkv halved": (lambda: (got[0], got[1] * 0.5, got[2]),
                                 ("dqkv",)),
@@ -1784,9 +1846,43 @@ def phase_swin(device):
                   f"{t['library_two_calls_ms']:.4f} ms, bound "
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
                   f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+            if name == "fwd":
+                t.update(_swin_fwd_times(qkv, w, bias, mask, heads, scale,
+                                         library))
+                print(f"[8a swin]   fwd from a CUDA graph {t['graph_ms']:.4f}"
+                      f" ms (the host takes {t['host_ms']:.4f} to launch one"
+                      f" call) = attention {t['attention_ms']:.4f} "
+                      f"({t['attention_graph_ms']:.4f}; bound "
+                      f"{t['attention_bound_ms']:.4f}) + projection "
+                      f"{t['projection_ms']:.4f} "
+                      f"({t['projection_graph_ms']:.4f}; bound "
+                      f"{t['projection_bound_ms']:.4f}); two library calls "
+                      f"from a graph {t['library_two_calls_graph_ms']:.4f}; "
+                      f"bound {t['bound_ms'] / t['graph_ms']:.1%} of the "
+                      f"graph time; plans: attention "
+                      f"{fs.swin_plan(b, 49, heads).describe()}; projection "
+                      f"{fs.proj_plan(b * 49, c).describe()}")
         del lq, lw, lout
+    # the served windows (b1, stage 0, shifted) from a graph: the forward
+    # and the two-call yardstick
+    qkv, w, g, bias, mask, heads = _swin_case(1, 0, True, gen, device)
+    idx = torch.arange(qkv.shape[0], device=device) % mask.shape[0]
+    attn_mask = (bias[None] + mask[idx][:, None]).to(torch.bfloat16)
+    call = lambda: fs.fused_swin_attn_fwd(qkv, w, bias, mask,  # noqa: E731
+                                          heads, scale)
+    served = {"graph_ms": _graph_ms(call), "host_ms": _host_ms(call),
+              "library_two_calls_graph_ms": _graph_ms(
+                  lambda: _swin_library(qkv, w, heads, scale, attn_mask))}
+    print(f"[8a swin] fwd b1 stage 0 [{qkv.shape[0]}, 49, 288] (served): "
+          f"from a CUDA graph {served['graph_ms']:.4f} ms (host "
+          f"{served['host_ms']:.4f} ms a call), two library calls from a "
+          f"graph {served['library_two_calls_graph_ms']:.4f} ms")
+    for line in _resources(cuda_build.resource_report(fs._SOURCE)):
+        print(f"[8a swin]   {fs._SOURCE}: {line}")
     for name in ("fwd", "bwd"):
         times[name] = {**times[(0, name)], "max_abs_err": worst[name]}
+    times["fwd"]["attention_max_abs_err"] = worst["attention"]
+    times["fwd_served"] = served
     return times
 
 
@@ -2612,10 +2708,12 @@ def _device_kernels(prof) -> dict:
 _KERNEL_GROUPS = (
     ("proto-CE kernels", ("proto_ce_", "sum_partials_kernel")),
     # gemm90::gemm_kernel<BN, A_MN, B_MN, F32_OUT>: <., 0, 1, false> is the
-    # forward's projection, the others the backward's dO and dW_t GEMMs
-    ("attention forward kernels (fused APLA, mha)",
-     ("fused_apla_attn_fwd_kernel", "mha_row_kernel", "mha_two_pass_kernel",
-      "gemm_kernel<128, 0, 1,", "gemm_kernel<256, 0, 1,")),
+    # forwards' projection (fused APLA and Swin), the others the backward's
+    # dO and dW_t GEMMs
+    ("attention forward kernels (fused APLA, Swin, mha)",
+     ("swin_row_kernel", "swin_two_pass_kernel", "mha_row_kernel",
+      "mha_two_pass_kernel", "gemm_kernel<128, 0, 1,",
+      "gemm_kernel<256, 0, 1,")),
     ("attention backward kernels (fused APLA, mha)",
      ("bwd_query_kernel", "bwd_key_kernel", "gemm_nt_kernel",
       "dw_partial_kernel", "dw_reduce_kernel", "gemm90::gemm_kernel")),
@@ -3759,7 +3857,9 @@ def main() -> int:
          full_serve_launches + full_fwd, mha_times["fwd"]),
         ("mha_bwd", "mha_bwd.cu", "pallas_mha.py:81", full_bwd,
          mha_times["bwd"]),
-        ("fused_swin_attn_fwd", "fused_apla_attn_fwd.cu",
+        # row 3: two launches per call, a head-dim-32 attention and the
+        # projection GEMM (gemm_sm90.cuh), both in swin_attn_fwd.cu
+        ("fused_swin_attn_fwd", "swin_attn_fwd.cu",
          "pallas_apla_attn.py:197", det_launches[0], swin_times["fwd"]),
         ("fused_swin_attn_bwd", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn.py:203", det_launches[1], swin_times["bwd"]),
@@ -3823,6 +3923,26 @@ def main() -> int:
                                        "bound_ms")}}
                      for (b, n), t in fwd_times.items()]},
              "fused_apla_attn_fwd_seg": fused_fwd(seg_times["fwd"]),
+             "fused_swin_attn_fwd": {
+                 "sources": [f"apla_tpu_torch/csrc/{src}" for src in (
+                     "swin_attn_fwd.cu", "attn_fwd_sm90.cuh", "gemm_sm90.cuh",
+                     "sm90_async.cuh")],
+                 "redesigned": "TMA/wgmma attention, then the projection GEMM",
+                 **{k: swin_times["fwd"][k] for k in (
+                     "graph_ms", "host_ms", "attention_ms",
+                     "attention_graph_ms", "attention_bound_ms",
+                     "projection_ms", "projection_graph_ms",
+                     "projection_bound_ms", "library_two_calls_graph_ms",
+                     "attention_max_abs_err")},
+                 "by_shape": [{"stage": stage, **{k: t[k] for k in (
+                     "ms", "graph_ms", "host_ms", "attention_graph_ms",
+                     "projection_graph_ms", "library_two_calls_ms",
+                     "library_two_calls_graph_ms", "bound_ms")}}
+                     for (stage, name), t in (
+                         kv for kv in swin_times.items()
+                         if isinstance(kv[0], tuple))
+                     if name == "fwd"],
+                 "served_b1": swin_times["fwd_served"]},
              "mha_fwd": {
                  "redesigned": "PR 8",
                  "graph_ms": mha_times["fwd"]["graph_ms"],

@@ -11,11 +11,11 @@ tensors.  Bound: 2e-2 of the reference's largest magnitude, per output
 in different orders; the prototype-CE kernels round ds to bf16 as their
 plain versions do); 1e-2 for the projection GEMM alone (exact products,
 f32 sums in another order, one rounding: a bf16 ulp here and there).
-Reruns of the kernels that sum partials are bit-equal.  The fused
-forward is its two kernels bit for bit.  The int8 GEMM takes bf16 or
-f32 and computes what its plain version does, step for step (the same
-codes, exact int32 sums, the same f32 roundings, the bias added after the
-rounding): equal, bit for bit.
+Reruns of the kernels that sum partials are bit-equal.  The fused APLA
+and Swin window forwards are each their two kernels bit for bit.  The
+int8 GEMM takes bf16 or f32 and computes what its plain version does,
+step for step (the same codes, exact int32 sums, the same f32 roundings,
+the bias added after the rounding): equal, bit for bit.
 """
 
 import dataclasses
@@ -582,6 +582,48 @@ def test_fused_swin_attn_matches_plain(cuda_device, b, n, c, n_w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,n_w", [
+    (1024, 49, 96, 64),    # Swin-T stage 0 at b16, shifted
+    (256, 49, 192, 16),    # stage 1
+    (64, 49, 384, 0),      # stage 2, unshifted
+    (16, 49, 768, 0),      # stage 3
+    (64, 49, 96, 64),      # b1 at stage 0: a served request
+    (64, 64, 96, 4),       # N = 64: one full key tile
+    (2, 400, 96, 2),       # N past one key tile: the two-pass kernel
+    (4, 49, 32, 4),        # one head: C = 32, narrower than a GEMM box
+])
+def test_swin_fwd_is_its_two_launches(cuda_device, b, n, c, n_w):
+    """The forward is one counted call of two launches: the attention into
+    o (held against its plain version, `swin_attn_reference`), then the
+    projection of o, whose output the call returns bit for bit; reruns
+    are bit-equal."""
+    from apla_tpu_torch.ops import fused_swin_attn as tfs
+    qkv, w, _, bias, mask = _swin_inputs(cuda_device, b, n, c, n_w,
+                                         seed=b + n + c + 1)
+    heads, scale = c // 32, 32 ** -0.5
+    before = tfs.fused_swin_attn_fwd.launches
+    out = tfs.fused_swin_attn_fwd(qkv, w, bias, mask, heads, scale)
+    torch.cuda.synchronize()
+    assert tfs.fused_swin_attn_fwd.launches == before + 1
+    o = tfs.fused_swin_attn_fwd_part(qkv, w, bias, mask, heads, scale,
+                                     tfs.PART_ATTN)
+    again = tfs.fused_swin_attn_fwd_part(qkv, w, bias, mask, heads, scale,
+                                         tfs.PART_PROJ, o)
+    torch.cuda.synchronize()
+    assert tfs.fused_swin_attn_fwd.launches == before + 1
+    assert torch.equal(again, out)
+    o_ref = tfs.swin_attn_reference(qkv, bias, mask, heads, scale).float()
+    assert torch.isfinite(o).all()
+    err = (o.float() - o_ref).abs().max().item()
+    assert err <= REL_TOL * o_ref.abs().max().item(), err
+    ref = tfs.fused_swin_attn_fwd_reference(qkv, w, bias, mask, heads, scale)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= REL_TOL * ref.float().abs().max().item(), err
+    assert torch.equal(tfs.fused_swin_attn_fwd(qkv, w, bias, mask, heads,
+                                               scale), out)
+
+
+@pytest.mark.cuda
 def test_swin_detector_runs_the_window_kernels(cuda_device):
     """A bf16 two-stage Swin detector with use_fused_apla: 4 window
     forwards per pass and 4 backwards per step, block 0 included (its
@@ -626,6 +668,9 @@ def test_fused_swin_attn_raises_instead_of_falling_back(cuda_device):
         tfs.fused_swin_attn_fwd(qkv, w, bias, mask.double(), 3, 0.1)
     with pytest.raises(ValueError, match="g must be"):
         tfs.fused_swin_attn_bwd(qkv, w, g[:, :48], bias, mask, 3, 0.1)
+    with pytest.raises(ValueError, match="needs o"):
+        tfs.fused_swin_attn_fwd_part(qkv, w, bias, mask, 3, 0.1,
+                                     tfs.PART_PROJ)
     assert (tfs.fused_swin_attn_fwd.launches,
             tfs.fused_swin_attn_bwd.launches) == before
 

@@ -6,7 +6,9 @@ row 8) by default; with `--kernel fused` the fused APLA attention forward
 (`fused_apla_attn_fwd`, TPU rows 1 and 5); with `--kernel bwd` the fused
 APLA backward (`fused_apla_attn_bwd`, TPU rows 2 and 6-7); with `--kernel
 mha_bwd` the memory-efficient attention backward (`mha_bwd`, TPU row 9);
-with `--kernel int8` the W8A8 GEMM (`fused_int8_matmul`, TPU row 13).
+with `--kernel int8` the W8A8 GEMM (`fused_int8_matmul`, TPU row 13); with
+`--kernel swin` the Swin window attention forward (`fused_swin_attn_fwd`,
+TPU row 3).
 
     python3 tools/compare_mha_fwd.py --parent DIR [--kernel KIND] [--full]
 
@@ -44,6 +46,14 @@ and dW_t).
                add); yardsticks torch._int_mm (the int8 product alone) and
                torch.matmul in x's dtype with the dequantized weight
                (torch.addmm with the bias).
+  swin         chip_smoke.py phase 8a's cases (the Swin-T detector's
+               windows at b16, every stage shifted and not where it has
+               shifted blocks, and b1 at stage 0), b8 at stage 0 (a served
+               batch), N = 64 (a window of 8 x 8, one full key tile) and
+               N = 144 (Swin-B at 384: windows of 12 x 12, the two-pass
+               kernel); bias N(0, 1), the stage's shift mask; yardstick
+               F.scaled_dot_product_attention with bias + mask as its
+               additive mask, and one torch.matmul.
 
 With --full a turn also runs its checkout's `chip_smoke.py` phases and
 reports the rates: phase 7b (`mha`, `mha_bwd`: APLA "full" served at b64
@@ -52,7 +62,8 @@ served at b64, the segmenter trained and served), phases 5, 7b and 9b
 (`bwd`: the supervised recipe, "full" and the segmenter trained, with
 their first-step |dloss| against the plain arm), phases 10b and 8b
 (`int8`: the classifier served W8A8 and float at b64, with 10b's profile,
-and the detector, whose W8A8 artifact serves in f32).  Prints one JSON line
+and the detector, whose W8A8 artifact serves in f32), phase 8b (`swin`: the
+detector trained at b16 and served at b8 and b16).  Prints one JSON line
 per turn and a summary; exits non-zero without a card.
 """
 
@@ -90,8 +101,23 @@ INT8_SHAPES = (
      "bfloat16", False),
     ("fc1 b64 + bias", 64 * 257, 768, 3072, 768, "bfloat16", True))
 SHAPES["int8"] = tuple(case[0] for case in INT8_SHAPES)
+# (name, windows, N, C, side of the stage's feature map for the shift mask
+# (0: no mask), random mask planes (N = 64, no Swin-T stage))
+SWIN_SHAPES = (
+    ("b16 stage 0 shifted", 1024, 49, 96, 56, 0),
+    ("b16 stage 0", 1024, 49, 96, 0, 0),
+    ("b16 stage 1 shifted", 256, 49, 192, 28, 0),
+    ("b16 stage 1", 256, 49, 192, 0, 0),
+    ("b16 stage 2 shifted", 64, 49, 384, 14, 0),
+    ("b16 stage 2", 64, 49, 384, 0, 0),
+    ("b16 stage 3", 16, 49, 768, 0, 0),
+    ("b1 stage 0 shifted", 64, 49, 96, 56, 0),
+    ("b8 stage 0 shifted", 512, 49, 96, 56, 0),
+    ("N=64, 4 mask planes", 256, 64, 96, 0, 4),
+    ("b1 window 12 (Swin-B at 384) stage 0 shifted", 64, 144, 128, 96, 0))
+SHAPES["swin"] = tuple(case[0] for case in SWIN_SHAPES)
 OUTPUTS = {"mha": ("o",), "fused": ("o",), "bwd": ("dq", "dk", "dv", "dW_t"),
-           "mha_bwd": ("dq", "dk", "dv"), "int8": ("y",)}
+           "mha_bwd": ("dq", "dk", "dv"), "int8": ("y",), "swin": ("out",)}
 SCALE = 0.125
 # The recipe's rank-128 index file (chip_smoke.py RECIPE): phase 4 times
 # the backward with block 0's columns.
@@ -215,9 +241,44 @@ def _int8_worker(torch, dev, out, saved):
             "matmul_graph_ms": _graph_ms(torch, matmul)})
 
 
+def _swin_calls(torch, case, gen, dev):
+    """(kernel call, SDPA + matmul yardstick, plain version) of a Swin
+    case on seeded inputs, in this turn's checkout."""
+    from apla_tpu_torch.models.swin import _shift_mask
+    from apla_tpu_torch.ops import fused_swin_attn as fs
+    _, b, n, c, side, planes = case
+    heads, scale = c // 32, 32 ** -0.5
+    qkv = torch.randn((b, n, 3 * c), generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn((c, c), generator=gen) * c ** -0.5).to(dev,
+                                                           torch.bfloat16)
+    bias = torch.randn((heads, n, n), generator=gen).to(dev)
+    mask = None
+    if side:
+        win = int(round(n ** 0.5))
+        mask = torch.from_numpy(_shift_mask(side, side, win,
+                                            win // 2)).to(dev)
+    elif planes:
+        m = torch.rand((planes, n, n), generator=gen) > 0.6
+        m = m & m.transpose(1, 2) & ~torch.eye(n, dtype=torch.bool)[None]
+        mask = torch.where(m, -1e9, 0.0).to(dev)
+    terms = bias[None]
+    if mask is not None:
+        terms = terms + mask[torch.arange(b, device=dev)
+                             % mask.shape[0]][:, None]
+    attn_mask = terms.to(torch.bfloat16)
+    q, k, v = qkv.unflatten(-1, (3, heads, 32)).permute(2, 0, 3, 1, 4)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return (lambda: fs.fused_swin_attn_fwd(qkv, w, bias, mask, heads, scale),
+            lambda: torch.matmul(sdpa(q, k, v, attn_mask=attn_mask,
+                                      scale=scale).transpose(1, 2)
+                                 .reshape(b, n, c), w),
+            lambda: fs.fused_swin_attn_fwd_reference(qkv, w, bias, mask,
+                                                     heads, scale))
+
+
 def _split(kernel, got):
     """A call's outputs as a tuple in OUTPUTS[kernel]'s order."""
-    if kernel in ("mha", "fused"):
+    if kernel in ("mha", "fused", "swin"):
         return (got,)
     dqkv = got[0] if kernel == "bwd" else got
     c = dqkv.shape[-1] // 3
@@ -289,11 +350,19 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
     if kernel == "int8":
         _int8_calls(torch, ("", 64, 64, 64, 64, "bfloat16", False),
                     torch.Generator(), dev)[0]()
+    elif kernel == "swin":
+        _swin_calls(torch, ("", 1, 9, 32, 0, 0), torch.Generator(), dev)[0]()
     else:
         _calls(torch, kernel, 1, 1, 64, torch.Generator(), dev)[0]()
     out["build_s"] = time.perf_counter() - t0
-    for b, n, c in (() if kernel == "int8" else SHAPES[kernel]):
-        call, library, plain = _calls(torch, kernel, b, n, c, gen, dev)
+    cases = {"int8": (), "swin": SWIN_SHAPES}.get(kernel, SHAPES[kernel])
+    for case in cases:
+        if kernel == "swin":
+            call, library, plain = _swin_calls(torch, case, gen, dev)
+            b, n, c = case[1:4]
+        else:
+            b, n, c = case
+            call, library, plain = _calls(torch, kernel, b, n, c, gen, dev)
         got = _split(kernel, call())
         saved.append(tuple(x.cpu() for x in got))
         ref = _split(kernel, plain())
@@ -352,6 +421,7 @@ def _phases(smoke, kernel, dev, out):
                               sorted(rates.items())}
     if kernel == "int8":
         _, out["w8a8_img_s"] = smoke.phase_w8a8(dev)
+    if kernel in ("int8", "swin"):
         _, det = smoke.phase_det(dev)
         out["det_img_s"] = {f"{what} {name}": r for (what, name), (r, _)
                             in sorted(det.items())}
@@ -370,7 +440,7 @@ def main() -> int:
     ap.add_argument("--full", action="store_true",
                     help="also run each checkout's chip_smoke phases (mha, "
                          "mha_bwd: 7b; fused: 3 and 9b; bwd: 5, 7b, 9b; "
-                         "int8: 10b and 8b)")
+                         "int8: 10b and 8b; swin: 8b)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--outputs", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -409,8 +479,8 @@ def main() -> int:
     tmp.cleanup()
     yard = {"mha": "SDPA", "fused": "SDPA + matmul",
             "bwd": "autograd through SDPA + matmul",
-            "mha_bwd": "SDPA's autograd", "int8": "torch._int_mm"}[
-        args.kernel]
+            "mha_bwd": "SDPA's autograd", "int8": "torch._int_mm",
+            "swin": "SDPA (bias + mask) + matmul"}[args.kernel]
     for i, shape in enumerate(SHAPES[args.kernel]):
         cells = []
         for j, name in enumerate(OUTPUTS[args.kernel]):
@@ -442,7 +512,7 @@ def main() -> int:
                          if t["turn"] == who][0]
                 cells.append(f"{who} per kernel (profiler ms) " + "; ".join(
                     f"{k} {v:.4f}" for k, v in split.items()))
-        label = shape if args.kernel == "int8" else \
+        label = shape if args.kernel in ("int8", "swin") else \
             f"[{shape[0]}, {shape[1]}, {3 * shape[2]}]"
         print(f"{label}: " + ", ".join(cells))
     if args.full:
