@@ -12,263 +12,612 @@
 //   dws = xs^T ds                                  [D, K] f32
 //
 // with columns at or past K giving p = 0 and rows at or past R nothing.
+// A row whose g / tau_s is 0 gets ds = 0 whatever its exponentials give:
+// past R its lse are placeholders, and 0 * inf would put a NaN into dws.
 // The teacher side (xt, wt, c, tau_t) gets no gradient.  D is 256.
 //
 // What bounds them on the H100: each recomputes both logit blocks (4 R D K
 // FLOP) and takes one more product (2 R D K), so 6 R D K = 1.65e12 FLOP at
 // the iBOT site (R = 16384, K = 65536): >= 1.67 ms each at 989 TFLOP/s;
-// the weights are 2 x 33.5 MB, so the tensor cores bound both.
+// the weights are 2 x 33.5 MB, so the tensor cores bound both.  Each also
+// takes 2 R K exp2f, about a third of that time on the SMs' special
+// function units, which has to overlap the products.  Measured on the H100
+// (PERF.md §6): the 32-wide logit products (wgmma m64n32, A re-read from
+// shared memory for every 32 columns) run well below the tensor cores'
+// rate, and a warpgroup's tile is a chain (products, then its ds), so two
+// warpgroups a block overlap each other's chains; 32 columns are what the
+// registers allow beside the [64, 256] f32 accumulator, and shared memory
+// holds three such stages beside the resident tiles.
 //
-// Design.  The TPU runs dxs with the K blocks in order (accumulating in the
-// output block) and dws with the row tiles in order (the [D, BK] block
-// revisited).  On the card:
-//  * dxs: a block of 8 warps owns 64 rows (xs, xt resident) and loops over
-//    the 64-column prototype tiles (ws, wt streamed, double-buffered): the
-//    warps form ds for the tile in shared memory, then add ds ws_tile^T into
-//    a [64, 256] f32 accumulator held in registers (warp: 16 rows x 128).
-//    When the rows give too few blocks, the K range is split over blocks
-//    with one f32 partial each.
-//  * dws: a block owns one 64-column prototype tile (its ws, wt tiles
-//    resident) and loops over 64-row tiles (xs, xt streamed): ds in shared
-//    memory, then xs_tile^T ds into a [256, 64] f32 accumulator (warp: 32
-//    rows).  When the prototype tiles give too few blocks, the rows are
-//    split into chunks with one f32 partial each.
-//  * partials are summed in a fixed order by a third kernel: no atomics, so
-//    reruns are bit-equal.
-// mma.sync m16n8k16 with ldmatrix operand loads; wgmma/TMA are later work.
+// Design: the attention backward's two sides at "head dim" 256 with two
+// logit sets and no row reduction (the lse are saved).  A block is one
+// producer warpgroup (one thread issues the loads; with two consumers it
+// gives up its registers to them by setmaxnreg) and `groups` (1 or 2)
+// consumer warpgroups; each warpgroup owns a 64-wide tile of its side
+// (warpgroup w of block b: tile b + w * blocks_x, so that the rows with
+// g != 0, which the collate puts first, spread over the blocks), the block
+// streams the other side in 32-wide tiles through a TMA ring of `stages`,
+// and each tile's ds stays in registers as the A operand of the product:
+//  * dxs (the query side): a warpgroup's xs and xt rows stay resident
+//    ([64, 256] each, four 64-column boxes, 128-byte swizzle); ws and wt
+//    stream as [256, 32] boxes (64-byte swizzle).  s = xs ws and t = xt wt
+//    are wgmma m64n32 (A K-major, B MN-major), ds [64, 32] is formed in
+//    registers, dxs += ds ws^T is wgmma m64n256 with ds as the register A
+//    and the same ws box read K-major.  A warpgroup whose 64 rows all have
+//    g = 0 writes zeros and takes no tile.
+//  * dws (the key side), as its transpose: dws^T [64 columns, 256] += ds^T
+//    xs.  A warpgroup's ws and wt columns stay resident ([256, 64] boxes,
+//    read MN-major as the A of s^T = ws^T xs^T); xs and xt stream as four
+//    [32, 64] boxes each (read K-major for the logits, MN-major for the
+//    product).  A row tile whose 32 rows all have g = 0 is skipped by the
+//    producer (no load) and the consumers (no product); its ds are 0, so
+//    the sums are those of the tiles taken, to the bit.
+//  * the producer warp also writes each stage's side data beside it (dxs:
+//    the tile's 32 centers; dws: its rows' lse and g / tau_s), so the
+//    consumers read them from shared memory and not by global loads in
+//    the chain of each tile.
+//  * each warpgroup issues tile i's product and tile i + 1's logits as one
+//    group of wgmmas, then forms tile i + 1's ds while the other
+//    warpgroup's products run; every stage is released once both
+//    warpgroups' products that read it have retired.  (Turns enforced by
+//    named barriers, FlashAttention 3's ping-pong, and the product issued
+//    among the logits instead of before them each ran slower on the H100.)
+//  * when one side gives too few blocks, the other side's range is split
+//    into partials at split_work's 64-wide boundaries (ops/proto_ce.py:
+//    proto_bwd_plan), summed in a fixed order by sum_partials_kernel: no
+//    atomics, so reruns are bit-equal.
+//
+// Bits: the values of the mma.sync kernels these replace.  Each
+// logit is a D = 256 contraction in increasing k16 order, the first step
+// overwriting the accumulator (what adding it to +0 gives, but for the
+// sign of a zero, which no later step reads: s * ks and exp2f see the
+// same value); s * ks, (t - c) * kt and -inf past K behind the same
+// select, then ds = gs * (exp2f(s - ls2) - exp2f(t - lt2)) as the same
+// source expression; dxs sums over K and dws over R in one f32
+// accumulator each with k16 steps in increasing order (a wgmma
+// accumulator gives each thread an mma.sync fragment's rows and columns,
+// sm90_async.cuh), the first step overwriting it and +0 added at the end,
+// as a sum started from +0 gives; partials at the same boundaries.
+// Skipped work contributes +-0 terms only, so a dws or dxs value can
+// differ from the earlier kernel's in the sign of a zero at most.
 
-#include "proto_ce_common.cuh"
+#include "sm90_async.cuh"
+
+#include <math.h>
 
 namespace {
 
-using namespace proto;
+using namespace sm90;
+typedef __nv_bfloat16 bf16;
 
-constexpr size_t DXS_SMEM = (2 * (size_t)X_TILE + 4 * (size_t)W_TILE
-                             + (size_t)BR * LDT) * sizeof(bf16);
-constexpr size_t DWS_SMEM = (4 * (size_t)X_TILE + 2 * (size_t)W_TILE
-                             + (size_t)BR * LDT) * sizeof(bf16);
+constexpr int D = 256;                     // bottleneck width
+constexpr int OWN = 64;                    // own rows / columns a warpgroup
+constexpr int BT = 32;                     // streamed columns / rows a tile
+constexpr int UNIT = 64;                   // the partials' boundaries
+constexpr int WG_THREADS = 128;
+constexpr int OWN_BYTES = OWN * D * 2;     // 32 KB: one x or w own tile
+constexpr int HALF_STAGE = BT * D * 2;     // 16 KB: one streamed tile
+constexpr int STAGE_BYTES = 2 * HALF_STAGE;          // s and t
+constexpr int BOX_X = OWN * 64 * 2;        // dxs: an own box [64, 64]
+constexpr int BOX_XS = BT * 64 * 2;        // dws: a streamed box [32, 64]
+constexpr int STAT_BYTES = BT * 16;        // a stage's side data
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
 
-// ds of the warp's fragment -> the [64][LDT] ds tile.  ls2/lt2 are the rows'
-// lse in log2 units, gs = g / tau_s (0 for rows at or past R).  A row with
-// gs = 0 gets ds = 0 outright: past R its lse are placeholders and its exp
-// may overflow, and 0 * inf would put a NaN into dws.
-__device__ __forceinline__ void store_ds(bf16* ds_s, const float (&s)[4][4],
-                                         const float (&tv)[4][4],
-                                         const float (&ls2)[2],
-                                         const float (&lt2)[2],
-                                         const float (&gs)[2], int wrow,
-                                         int half, int g, int t) {
+// The launch plan of ops/proto_ce.py:proto_bwd_plan, as the C entries take
+// it (one int array).
+struct Plan {
+  int groups, stages, splits, per, smem, blocks_x;
+};
+
+struct Args {
+  const float* c;
+  const float* lse_s;
+  const float* lse_t;
+  const float* g;
+  float* out;                 // [splits][R][D] or [splits][D][K]
+  int R, K;
+  int per;                    // 64-wide units of the loop a split
+  int blocks_x, stages;
+  float ks, kt, inv_ts;       // log2(e) / tau_s, log2(e) / tau_t, 1 / tau_s
+};
+
+// Shared memory after aligning the base to 1024 bytes: the own tiles
+// (x or w: per warpgroup the s tile, then the t tile), the ring's stages,
+// the stages' side data (dxs: the tile's 32 centers; dws: per row {lse_s,
+// lse_t} in log2 units and g / tau_s), then the barriers: resident,
+// full[stages], empty[stages].
+__host__ __device__ constexpr int smem_bytes(int groups, int stages) {
+  return 1024 + groups * 2 * OWN_BYTES + stages * (STAGE_BYTES + STAT_BYTES)
+         + 256;
+}
+
+// A position in the ring: the slot and the parity of its fill.
+struct Ring {
+  int slot, phase;
+  __device__ __forceinline__ void next(int stages) {
+    if (++slot == stages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// gs = g / tau_s of `row` (0 at or past R), as the products read it.
+__device__ __forceinline__ float row_gs(const Args& a, int row) {
+  return row < a.R ? __ldg(a.g + row) * a.inv_ts : 0.f;
+}
+
+// The scaled logits and ds of one fragment value (the expressions of the
+// mma.sync kernels' scale_logits and store_ds): s, t the raw logits, cv
+// the column's center, ok whether the column is inside K, ls2 / lt2 the
+// row's lse in log2 units, gs its g / tau_s.  Both exponentials are taken
+// for every value and the row's gs chooses
+// by a select the compiler cannot turn into a branch: a branch around each
+// value's exponentials serialised the 32 values of a thread (their chains
+// of MUFU latency no longer interleaved).  The select keeps whatever the
+// unused side holds (an overflow or NaN of a placeholder lse) out of ds.
+__device__ __forceinline__ float ds_of(float s, float t, float cv, bool ok,
+                                       float ls2, float lt2, float gs,
+                                       float ks, float kt) {
+  s = ok ? s * ks : -INFINITY;
+  t = ok ? (t - cv) * kt : -INFINITY;
+  const float e = gs * (exp2f(s - ls2) - exp2f(t - lt2));  // 0 past K
+  float d;
+  asm("{\n .reg .pred p;\n setp.neu.f32 p, %2, 0f00000000;\n"
+      " selp.f32 %0, %1, 0f00000000, p;\n}\n"
+      : "=f"(d) : "f"(e), "f"(gs));
+  return d;
+}
+
+// `d` as a value the compiler cannot see through: the resident tiles'
+// descriptors are then formed next to each tile's wgmmas, base + an
+// immediate, instead of 32 loop-invariant 64-bit values held in registers
+// for the whole loop (which spilled).
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
+}
+
+// Hand the producer warpgroup's registers to the consumers: with two
+// consumer warpgroups the launch gives each thread 168 (65536 over 384
+// threads); the producer needs few, the consumers' accumulators many.
+template <int WG>
+__device__ __forceinline__ void producer_regs() {
+  if (WG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+}
+
+template <int WG>
+__device__ __forceinline__ void consumer_regs() {
+  if (WG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+}
+
+// The first k16 step overwrote the accumulator (a zeroed one, written by
+// ordinary instructions, makes ptxas serialise the wgmmas); adding +0 at
+// the end gives what a sum started from +0 gives, -0 included.
+__device__ __forceinline__ void add_zero(float (&acc)[128]) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    bf16* dst = ds_s + (wrow + g + 8 * r) * LDT + half * 32 + 2 * t;
+  for (int e = 0; e < 128; ++e) {
+    asm volatile("" : "+f"(acc[e])::"memory");
+    acc[e] += 0.0f;
+  }
+}
+
+// ---- dxs -------------------------------------------------------------------
+
+// s = xs ws, t = xt wt over the 256 columns of D for the warpgroup's 64
+// rows x the stage's 32 columns (xs, xt: four K-major [64, 64] boxes;
+// the stage: ws then wt, [256, 32] MN-major)
+__device__ __forceinline__ void dxs_logits(float (&s)[16], float (&t)[16],
+                                           const uint8_t* xs,
+                                           const uint8_t* xt,
+                                           const uint8_t* stage) {
+  // descriptor units are 16 bytes
+  const uint64_t ds_ = opaque(desc_kmajor(xs)), dt_ = opaque(desc_kmajor(xt));
+  const uint64_t bs = desc_mnmajor64(stage);
+  const uint64_t bt = desc_mnmajor64(stage + HALF_STAGE);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float d0 = 0.f, d1 = 0.f;
-      if (gs[r] != 0.f) {                 // exp2(-inf) = 0 past K
-        d0 = gs[r] * (exp2f(s[j][2 * r] - ls2[r])
-                      - exp2f(tv[j][2 * r] - lt2[r]));
-        d1 = gs[r] * (exp2f(s[j][2 * r + 1] - ls2[r])
-                      - exp2f(tv[j][2 * r + 1] - lt2[r]));
+  for (int kk = 0; kk < D / 16; ++kk) {   // the two chains interleaved
+    wgmma_ss_t<32, 0, 1>(s, ds_ + (kk >> 2) * (BOX_X >> 4) + 2 * (kk & 3),
+                         bs + kk * (16 * BT * 2 >> 4), kk > 0);
+    wgmma_ss_t<32, 0, 1>(t, dt_ + (kk >> 2) * (BOX_X >> 4) + 2 * (kk & 3),
+                         bt + kk * (16 * BT * 2 >> 4), kk > 0);
+  }
+}
+
+// xsmap, xtmap: [R, 256] bf16, boxes {64, 64}; wsmap, wtmap: [256, K] bf16,
+// boxes {32, 256} with the 64-byte swizzle.  Blocks: x over the row tiles
+// (warpgroup w: tile blockIdx.x + w * blocks_x), y over the splits of K.
+template <int WG>
+__global__ void __launch_bounds__((WG + 1) * WG_THREADS, 1)
+proto_ce_dxs_kernel(const __grid_constant__ CUtensorMap xsmap,
+                    const __grid_constant__ CUtensorMap xtmap,
+                    const __grid_constant__ CUtensorMap wsmap,
+                    const __grid_constant__ CUtensorMap wtmap,
+                    const Args a) {
+  extern __shared__ uint8_t raw_smem[];
+  uint8_t* sm = aligned_smem(raw_smem);
+  uint8_t* ring = sm + WG * 2 * OWN_BYTES;
+  float* cen = reinterpret_cast<float*>(ring + a.stages * STAGE_BYTES);
+  uint64_t* rbar = reinterpret_cast<uint64_t*>(
+      ring + a.stages * (STAGE_BYTES + STAT_BYTES));
+  uint64_t* full = rbar + 1;
+  uint64_t* empty = full + a.stages;
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid / WG_THREADS;
+  const int n_rt = (a.R + OWN - 1) / OWN;
+  const int c_begin = blockIdx.y * a.per * UNIT;
+  const int n = (min(a.K, c_begin + a.per * UNIT) - c_begin + BT - 1) / BT;
+  float* out = a.out + (long)blockIdx.y * a.R * D;
+
+  // warpgroups whose rows exist and have a g != 0
+  int live = 0;
+#pragma unroll
+  for (int w = 0; w < WG; ++w) {
+    const int tile = blockIdx.x + w * a.blocks_x;
+    if (tile >= n_rt) continue;
+    const bool any = row_gs(a, tile * OWN + lane) != 0.f
+                     || row_gs(a, tile * OWN + 32 + lane) != 0.f;
+    if (__any_sync(FULL, any)) live |= 1 << w;
+  }
+  if (wg < WG && !(live >> wg & 1)) {     // all g = 0: dxs = +0
+    const int tile = blockIdx.x + wg * a.blocks_x;
+    if (tile < n_rt)
+      for (int i = tid % WG_THREADS; i < OWN * D / 4; i += WG_THREADS) {
+        const int row = tile * OWN + i / (D / 4);
+        if (row < a.R)
+          reinterpret_cast<float4*>(out + (long)row * D)[i % (D / 4)] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(d0, d1);
-    }
   }
-}
+  if (live == 0) return;
+  const int n_live = __popc(live);
 
-// The fragment rows' saved statistics (log2 units) and scaled cotangent.
-__device__ __forceinline__ void row_stats(const float* __restrict__ lse_s,
-                                          const float* __restrict__ lse_t,
-                                          const float* __restrict__ gr,
-                                          int r_lo, int R, float inv_ts,
-                                          float (&ls2)[2], float (&lt2)[2],
-                                          float (&gs)[2]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r_lo + 8 * r;
-    const bool ok = row < R;
-    ls2[r] = ok ? __ldg(lse_s + row) * LOG2E : 0.f;
-    lt2[r] = ok ? __ldg(lse_t + row) * LOG2E : 0.f;
-    gs[r] = ok ? __ldg(gr + row) * inv_ts : 0.f;
+  if (tid == 0) {
+    mbar_init(rbar, 1);
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, 32);            // the producer warp's lanes
+      mbar_init(empty + s, 4 * n_live);   // one arrival per consumer warp
+    }
+    mbar_init_fence();
   }
-}
+  __syncthreads();
 
-// out [R, D] (or the split's partial): dxs of the block's 64 rows over its
-// range of prototype tiles.
-__global__ void __launch_bounds__(NT, 1)
-proto_ce_dxs_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ ws,
-                    const bf16* __restrict__ xt, const bf16* __restrict__ wt,
-                    const float* __restrict__ c,
-                    const float* __restrict__ lse_s,
-                    const float* __restrict__ lse_t,
-                    const float* __restrict__ gr, float* __restrict__ out,
-                    int R, int K, int tiles_per_split, float ks, float kt,
-                    float inv_ts) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs_s = reinterpret_cast<bf16*>(smem);
-  bf16* xt_s = xs_s + X_TILE;
-  bf16* wbuf = xt_s + X_TILE;            // [stage][s|t] W tiles
-  bf16* ds_s = wbuf + 4 * W_TILE;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wrow = (warp & 3) * 16, half = warp >> 2;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.x * BR, split = blockIdx.y;
-  const int n_kt = (K + BK - 1) / BK;
-  const int kt0 = split * tiles_per_split;
-  const int n = min(n_kt, kt0 + tiles_per_split) - kt0;
-  float ls2[2], lt2[2], gs[2];
-  row_stats(lse_s, lse_t, gr, row0 + wrow + g, R, inv_ts, ls2, lt2, gs);
-
-  issue_x(xs_s, xs, row0, R, tid);
-  issue_x(xt_s, xt, row0, R, tid);
-  issue_w(wbuf, ws, kt0 * BK, K, tid);
-  issue_w(wbuf + W_TILE, wt, kt0 * BK, K, tid);
-  cp_async_commit();
-
-  float acc[2][8][4];                    // rows wrow.., D cols 128*half..
-  zero_acc(acc[0]);
-  zero_acc(acc[1]);
-  for (int i = 0; i < n; ++i) {
-    if (i + 1 < n) {
-      bf16* nb = wbuf + ((i + 1) & 1) * 2 * W_TILE;
-      issue_w(nb, ws, (kt0 + i + 1) * BK, K, tid);
-      issue_w(nb + W_TILE, wt, (kt0 + i + 1) * BK, K, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* wst = wbuf + (i & 1) * 2 * W_TILE;
-    {
-      float s[4][4], tv[4][4];
-      tile_logits(xs_s, wst, wrow, half, lane, s);
-      tile_logits(xt_s, wst + W_TILE, wrow, half, lane, tv);
-      scale_logits(s, tv, c, (kt0 + i) * BK + 32 * half, t, K, ks, kt);
-      store_ds(ds_s, s, tv, ls2, lt2, gs, wrow, half, g, t);
-    }
-    __syncthreads();                      // the ds tile is complete
-    uint32_t a[4][4];
-    load_a_rows(a, ds_s, wrow, lane);
-    // dxs[rows, d] += sum_k ds[rows, k] ws[d, k]: the ws tile's rows are
-    // the output columns, its columns the contraction
-    warp_mma_nt(a, wst + (128 * half) * LDT, lane, acc[0]);
-    warp_mma_nt(a, wst + (128 * half + 64) * LDT, lane, acc[1]);
-    __syncthreads();                      // stage i and ds may be overwritten
-  }
-
-  float* dst = out + (long)split * R * D;
-  const int r_lo = row0 + wrow + g;
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 128 * half + 64 * q + 8 * j + 2 * t;
-      if (r_lo < R)
-        *reinterpret_cast<float2*>(dst + (long)r_lo * D + col) =
-            make_float2(acc[q][j][0], acc[q][j][1]);
-      if (r_lo + 8 < R)
-        *reinterpret_cast<float2*>(dst + (long)(r_lo + 8) * D + col) =
-            make_float2(acc[q][j][2], acc[q][j][3]);
-    }
-}
-
-// out [D, K] (or the chunk's partial): dws of the block's prototype tile
-// over its chunk of row tiles.
-__global__ void __launch_bounds__(NT, 1)
-proto_ce_dws_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ ws,
-                    const bf16* __restrict__ xt, const bf16* __restrict__ wt,
-                    const float* __restrict__ c,
-                    const float* __restrict__ lse_s,
-                    const float* __restrict__ lse_t,
-                    const float* __restrict__ gr, float* __restrict__ out,
-                    int R, int K, int tiles_per_chunk, float ks, float kt,
-                    float inv_ts) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ws_s = reinterpret_cast<bf16*>(smem);
-  bf16* wt_s = ws_s + W_TILE;
-  bf16* xbuf = wt_s + W_TILE;            // [stage][s|t] x tiles
-  bf16* ds_s = xbuf + 4 * X_TILE;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wrow = (warp & 3) * 16, half = warp >> 2;
-  const int g = lane >> 2, t = lane & 3;
-  const int col0 = blockIdx.x * BK, chunk = blockIdx.y;
-  const int n_rt = (R + BR - 1) / BR;
-  const int rt0 = chunk * tiles_per_chunk;
-  const int n = min(n_rt, rt0 + tiles_per_chunk) - rt0;
-
-  issue_w(ws_s, ws, col0, K, tid);
-  issue_w(wt_s, wt, col0, K, tid);
-  issue_x(xbuf, xs, rt0 * BR, R, tid);
-  issue_x(xbuf + X_TILE, xt, rt0 * BR, R, tid);
-  cp_async_commit();
-
-  float acc[2][8][4];                    // d rows 32*warp + 16*m.., 64 cols
-  zero_acc(acc[0]);
-  zero_acc(acc[1]);
-  for (int i = 0; i < n; ++i) {
-    const int row0 = (rt0 + i) * BR;
-    if (i + 1 < n) {
-      bf16* nb = xbuf + ((i + 1) & 1) * 2 * X_TILE;
-      issue_x(nb, xs, row0 + BR, R, tid);
-      issue_x(nb + X_TILE, xt, row0 + BR, R, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* xst = xbuf + (i & 1) * 2 * X_TILE;
-    {
-      float ls2[2], lt2[2], gs[2];
-      row_stats(lse_s, lse_t, gr, row0 + wrow + g, R, inv_ts, ls2, lt2, gs);
-      float s[4][4], tv[4][4];
-      tile_logits(xst, ws_s, wrow, half, lane, s);
-      tile_logits(xst + X_TILE, wt_s, wrow, half, lane, tv);
-      scale_logits(s, tv, c, col0 + 32 * half, t, K, ks, kt);
-      store_ds(ds_s, s, tv, ls2, lt2, gs, wrow, half, g, t);
-    }
-    __syncthreads();                      // the ds tile is complete
-    // dws[d, k] += sum_r xs[r, d] ds[r, k]: A = xs^T by ldmatrix.trans of
-    // the row-major xs tile, B = the ds tile (contraction over its rows)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {      // rows 16kk .. 16kk+15
-      uint32_t b[4][4];
-#pragma unroll
-      for (int nn = 0; nn < 4; ++nn)
-        ldsm_x4_t(b[nn][0], b[nn][1], b[nn][2], b[nn][3],
-                  ds_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDT
-                       + nn * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        uint32_t a[4];
-        ldsm_x4_t(a[0], a[1], a[2], a[3],
-                  xst + (kk * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * LDX
-                      + 32 * warp + 16 * m + ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int nn = 0; nn < 4; ++nn) {
-          mma_bf16(acc[m][2 * nn], a, b[nn][0], b[nn][1]);
-          mma_bf16(acc[m][2 * nn + 1], a, b[nn][2], b[nn][3]);
+  if (wg == WG) {                         // the producer warpgroup
+    producer_regs<WG>();
+    if (tid % WG_THREADS >= 32) return;   // its first warp fills the ring
+    if (lane == 0) {
+      mbar_expect_tx(rbar, n_live * 2 * OWN_BYTES);
+      for (int w = 0; w < WG; ++w) {
+        if (!(live >> w & 1)) continue;
+        const int row0 = (blockIdx.x + w * a.blocks_x) * OWN;
+        uint8_t* own = sm + w * 2 * OWN_BYTES;
+        for (int j = 0; j < D / 64; ++j) {
+          tma_load_3d(own + j * BOX_X, &xsmap, rbar, 64 * j, row0, 0);
+          tma_load_3d(own + OWN_BYTES + j * BOX_X, &xtmap, rbar, 64 * j,
+                      row0, 0);
         }
       }
     }
-    __syncthreads();                      // stage i and ds may be overwritten
-  }
-
-  float* dst = out + (long)chunk * D * K;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int d = 32 * warp + 16 * m + g;
-      const int col = col0 + 8 * j + 2 * t;
-      if (col < K) {                      // K % 8 == 0: col + 1 < K too
-        *reinterpret_cast<float2*>(dst + (long)d * K + col) =
-            make_float2(acc[m][j][0], acc[m][j][1]);
-        *reinterpret_cast<float2*>(dst + (long)(d + 8) * K + col) =
-            make_float2(acc[m][j][2], acc[m][j][3]);
+    Ring r = {0, 0};
+    for (int i = 0; i < n; ++i, r.next(a.stages)) {
+      if (i >= a.stages) mbar_wait(empty + r.slot, r.phase ^ 1);
+      // lane l: the center at column l of the tile, then its arrival
+      const int col0 = c_begin + BT * i, col = col0 + lane;
+      cen[r.slot * BT + lane] = col < a.K ? __ldg(a.c + col) : 0.f;
+      if (lane == 0) {
+        uint8_t* st = ring + r.slot * STAGE_BYTES;
+        mbar_expect_tx(full + r.slot, STAGE_BYTES);
+        tma_load_3d(st, &wsmap, full + r.slot, col0, 0, 0);
+        tma_load_3d(st + HALF_STAGE, &wtmap, full + r.slot, col0, 0, 0);
+      } else {
+        mbar_arrive(full + r.slot);
       }
+    }
+    return;
+  }
+  consumer_regs<WG>();
+  if (!(live >> wg & 1)) return;
+
+  const int warp = (tid % WG_THREADS) >> 5, g = lane >> 2, t = lane & 3;
+  const int r_lo = (blockIdx.x + wg * a.blocks_x) * OWN + warp * 16 + g;
+  float ls2[2], lt2[2], gs[2];            // rows r_lo, r_lo + 8
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    const bool ok = row < a.R;
+    ls2[r] = ok ? __ldg(a.lse_s + row) * LOG2E : 0.f;
+    lt2[r] = ok ? __ldg(a.lse_t + row) * LOG2E : 0.f;
+    gs[r] = row_gs(a, row);
+  }
+  const uint8_t* xs = sm + wg * 2 * OWN_BYTES;
+  const uint8_t* xt = xs + OWN_BYTES;
+
+  float acc[128], s[16], tv[16];
+  mbar_wait(rbar, 0);
+  mbar_wait(full, 0);
+  wgmma_fence();
+  dxs_logits(s, tv, xs, xt, ring);
+  wgmma_commit();
+  wgmma_wait0();
+  Ring r = {0, 0};                        // tile i's slot
+  for (int i = 0; i < n; ++i) {
+    const uint8_t* stage = ring + r.slot * STAGE_BYTES;
+    const float* cs = cen + r.slot * BT;
+    const int st = r.slot;
+    r.next(a.stages);
+    const int col0 = c_begin + BT * i + 2 * t;
+    // ds of tile i in place of s: s[4j + e] is row r_lo (e < 2) or
+    // r_lo + 8, column col0 + 8j + (e & 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 cv = *reinterpret_cast<const float2*>(cs + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        s[4 * j + e] = ds_of(s[4 * j + e], tv[4 * j + e],
+                             (e & 1) ? cv.y : cv.x,
+                             col0 + 8 * j + (e & 1) < a.K, ls2[r], lt2[r],
+                             gs[r], a.ks, a.kt);
+      }
+    }
+    uint32_t dsa[2][4];
+    acc_to_a(s, 0, dsa[0]);
+    acc_to_a(s, 1, dsa[1]);
+    // dxs[rows, d] += sum_k ds[rows, k] ws[d, k]: the ws box read K-major
+    const uint64_t db = desc_kmajor64(stage);
+    auto product = [&](int kk) {
+      wgmma_rs256<0>(acc, dsa[kk], db + 2 * kk, i > 0 || kk > 0);
+    };
+    wgmma_fence();
+    product(0);
+    product(1);
+    if (i + 1 < n) {                      // tile i + 1's logits, same group
+      mbar_wait(full + r.slot, r.phase);
+      dxs_logits(s, tv, xs, xt, ring + r.slot * STAGE_BYTES);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+  }
+  add_zero(acc);
+
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r_lo < a.R)
+      *reinterpret_cast<float2*>(out + (long)r_lo * D + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (r_lo + 8 < a.R)
+      *reinterpret_cast<float2*>(out + (long)(r_lo + 8) * D + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// ---- dws -------------------------------------------------------------------
+
+// Lane l's g / tau_s in row tile i of the chunk (tile i at rows r_begin +
+// 32 i; 0 past the chunk's n tiles).
+__device__ __forceinline__ float peek_gs(const Args& a, int i, int n,
+                                         int r_begin, int lane) {
+  return i < n ? row_gs(a, r_begin + i * BT + lane) : 0.f;
+}
+
+// The first row tile at or after tile i with a row whose g / tau_s is not
+// 0, or n; gi is the lane's peek_gs of tile i, read ahead of the call.
+// Every warp of the block walks the same sequence.  Past a dead tile, 32
+// tiles a step (lane l reads tile i + l's rows).
+__device__ __forceinline__ int next_live(const Args& a, int i, int n,
+                                         int r_begin, int lane, float gi) {
+  if (i >= n) return n;
+  if (__any_sync(FULL, gi != 0.f)) return i;
+  for (i = i + 1; i < n; i += 32) {
+    bool any = false;
+    if (i + lane < n) {
+      const int row0 = r_begin + (i + lane) * BT;
+      const int cnt = min(BT, a.R - row0);
+#pragma unroll 8
+      for (int q = 0; q < cnt; ++q)
+        any |= __ldg(a.g + row0 + q) * a.inv_ts != 0.f;
+    }
+    const unsigned m = __ballot_sync(FULL, any);
+    if (m) return i + __ffs(m) - 1;
+  }
+  return n;
+}
+
+// s^T = ws^T xs^T, t^T = wt^T xt^T for the warpgroup's 64 columns x the
+// stage's 32 rows (ws, wt: [256, 64] MN-major; the stage: xs, then xt,
+// four K-major [32, 64] boxes each)
+__device__ __forceinline__ void dws_logits(float (&s)[16], float (&t)[16],
+                                           const uint8_t* ws,
+                                           const uint8_t* wt,
+                                           const uint8_t* stage) {
+  // descriptor units are 16 bytes
+  const uint64_t as = opaque(desc_mnmajor(ws)), at = opaque(desc_mnmajor(wt));
+  const uint64_t bs = desc_kmajor(stage);
+  const uint64_t bt = desc_kmajor(stage + HALF_STAGE);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {   // the two chains interleaved
+    wgmma_ss_t<32, 1, 0>(s, as + kk * (16 * 128 >> 4),
+                         bs + (kk >> 2) * (BOX_XS >> 4) + 2 * (kk & 3),
+                         kk > 0);
+    wgmma_ss_t<32, 1, 0>(t, at + kk * (16 * 128 >> 4),
+                         bt + (kk >> 2) * (BOX_XS >> 4) + 2 * (kk & 3),
+                         kk > 0);
+  }
+}
+
+// wsmap, wtmap: [256, K] bf16, boxes {64, 256}; xsmap, xtmap: [R, 256]
+// bf16, boxes {64, 32}; 128-byte swizzle.  Blocks: x over the column tiles
+// (warpgroup w: tile blockIdx.x + w * blocks_x), y over the chunks of rows.
+template <int WG>
+__global__ void __launch_bounds__((WG + 1) * WG_THREADS, 1)
+proto_ce_dws_kernel(const __grid_constant__ CUtensorMap xsmap,
+                    const __grid_constant__ CUtensorMap xtmap,
+                    const __grid_constant__ CUtensorMap wsmap,
+                    const __grid_constant__ CUtensorMap wtmap,
+                    const Args a) {
+  extern __shared__ uint8_t raw_smem[];
+  uint8_t* sm = aligned_smem(raw_smem);
+  uint8_t* ring = sm + WG * 2 * OWN_BYTES;
+  float4* stat = reinterpret_cast<float4*>(ring + a.stages * STAGE_BYTES);
+  uint64_t* rbar = reinterpret_cast<uint64_t*>(stat + a.stages * BT);
+  uint64_t* full = rbar + 1;
+  uint64_t* empty = full + a.stages;
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid / WG_THREADS;
+  const int n_kt = (a.K + OWN - 1) / OWN;
+  const int r_begin = blockIdx.y * a.per * UNIT;
+  const int n = (min(a.R, r_begin + a.per * UNIT) - r_begin + BT - 1) / BT;
+  float* out = a.out + (long)blockIdx.y * D * a.K;
+
+  int live = 0;                           // warpgroups whose columns exist
+#pragma unroll
+  for (int w = 0; w < WG; ++w)
+    if (blockIdx.x + w * a.blocks_x < n_kt) live |= 1 << w;
+  const int first = next_live(a, 0, n, r_begin, lane,
+                              peek_gs(a, 0, n, r_begin, lane));
+  if (first == n) {                       // all g = 0: dws = +0
+    if (wg < WG && (live >> wg & 1)) {
+      const int col0 = (blockIdx.x + wg * a.blocks_x) * OWN;
+      for (int i = tid % WG_THREADS; i < D * OWN; i += WG_THREADS) {
+        const int col = col0 + i % OWN;
+        if (col < a.K) out[(long)(i / OWN) * a.K + col] = 0.f;
+      }
+    }
+    return;
+  }
+  const int n_live = __popc(live);
+
+  if (tid == 0) {
+    mbar_init(rbar, 1);
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, 32);            // the producer warp's lanes
+      mbar_init(empty + s, 4 * n_live);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == WG) {                         // the producer warpgroup
+    producer_regs<WG>();
+    if (tid % WG_THREADS >= 32) return;   // its first warp walks the tiles
+    if (lane == 0) {
+      mbar_expect_tx(rbar, n_live * 2 * OWN_BYTES);
+      for (int w = 0; w < WG; ++w) {
+        if (!(live >> w & 1)) continue;
+        const int col0 = (blockIdx.x + w * a.blocks_x) * OWN;
+        uint8_t* own = sm + w * 2 * OWN_BYTES;
+        tma_load_3d(own, &wsmap, rbar, col0, 0, 0);
+        tma_load_3d(own + OWN_BYTES, &wtmap, rbar, col0, 0, 0);
+      }
+    }
+    int u = 0;                            // the whole warp walks the tiles
+    Ring r = {0, 0};
+    for (int i = first; i < n; ++u, r.next(a.stages),
+         i = next_live(a, i + 1, n, r_begin, lane,
+                       peek_gs(a, i + 1, n, r_begin, lane))) {
+      if (u >= a.stages) mbar_wait(empty + r.slot, r.phase ^ 1);
+      // lane l: row l's statistics, then its arrival on the slot
+      const int row0 = r_begin + BT * i, row = row0 + lane;
+      const bool in = row < a.R;
+      stat[r.slot * BT + lane] =
+          make_float4(in ? __ldg(a.lse_s + row) * LOG2E : 0.f,
+                      in ? __ldg(a.lse_t + row) * LOG2E : 0.f,
+                      row_gs(a, row), 0.f);
+      if (lane == 0) {
+        uint8_t* st = ring + r.slot * STAGE_BYTES;
+        mbar_expect_tx(full + r.slot, STAGE_BYTES);
+        for (int j = 0; j < D / 64; ++j) {
+          tma_load_3d(st + j * BOX_XS, &xsmap, full + r.slot, 64 * j, row0,
+                      0);
+          tma_load_3d(st + HALF_STAGE + j * BOX_XS, &xtmap, full + r.slot,
+                      64 * j, row0, 0);
+        }
+      } else {
+        mbar_arrive(full + r.slot);
+      }
+    }
+    return;
+  }
+  consumer_regs<WG>();
+  if (!(live >> wg & 1)) return;
+
+  const int warp = (tid % WG_THREADS) >> 5, g = lane >> 2, t = lane & 3;
+  // the fragment's accumulator rows are the columns k_lo and k_lo + 8
+  const int k_lo = (blockIdx.x + wg * a.blocks_x) * OWN + warp * 16 + g;
+  bool ok[2];
+  float cv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    ok[r] = k_lo + 8 * r < a.K;
+    cv[r] = ok[r] ? __ldg(a.c + k_lo + 8 * r) : 0.f;
+  }
+  const uint8_t* ws = sm + wg * 2 * OWN_BYTES;
+  const uint8_t* wt = ws + OWN_BYTES;
+  float acc[128], s[16], tv[16];
+  float g_ahead = peek_gs(a, first + 1, n, r_begin, lane);
+  mbar_wait(rbar, 0);
+  mbar_wait(full, 0);
+  wgmma_fence();
+  dws_logits(s, tv, ws, wt, ring);
+  wgmma_commit();
+  wgmma_wait0();
+  int u = 0;
+  Ring r = {0, 0};                        // tile i's slot
+  for (int i = first; i < n; ++u) {
+    const uint8_t* stage = ring + r.slot * STAGE_BYTES;
+    const float4* rows = stat + r.slot * BT;
+    const int st = r.slot;
+    r.next(a.stages);
+    // ds^T of tile i in place of s: s[4j + e] is column k_lo (e < 2) or
+    // k_lo + 8, tile row 8j + 2t + (e & 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 q = rows[8 * j + 2 * t + e];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          s[4 * j + 2 * r + e] = ds_of(s[4 * j + 2 * r + e],
+                                       tv[4 * j + 2 * r + e], cv[r], ok[r],
+                                       q.x, q.y, q.z, a.ks, a.kt);
+      }
+    uint32_t dsa[2][4];
+    acc_to_a(s, 0, dsa[0]);
+    acc_to_a(s, 1, dsa[1]);
+    // dws^T[k, d] += sum_r ds[r, k] xs[r, d]: the xs boxes read MN-major
+    const uint64_t db = desc_sw128(stage, BOX_XS, 1024);
+    auto product = [&](int kk) {
+      wgmma_rs256<1>(acc, dsa[kk], db + kk * (16 * 128 >> 4),
+                     u > 0 || kk > 0);
+    };
+    // the next live tile, and the g of the tile after it, read while the
+    // wgmmas run
+    const int nxt = next_live(a, i + 1, n, r_begin, lane, g_ahead);
+    if (nxt < n) g_ahead = peek_gs(a, nxt + 1, n, r_begin, lane);
+    wgmma_fence();
+    product(0);
+    product(1);
+    if (nxt < n) {                        // the next live tile's logits
+      mbar_wait(full + r.slot, r.phase);
+      dws_logits(s, tv, ws, wt, ring + r.slot * STAGE_BYTES);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + st);
+    i = nxt;
+  }
+  add_zero(acc);
+
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k_lo + 8 * (e >> 1);
+      if (ok[e >> 1])
+        out[(long)(8 * j + 2 * t + (e & 1)) * a.K + k] = acc[4 * j + e];
     }
 }
 
@@ -282,10 +631,69 @@ __global__ void sum_partials_kernel(const float* __restrict__ part, int P,
   out[i] = acc;
 }
 
-int sum_partials(const float* part, int P, long n, float* out,
-                 cudaStream_t st) {
-  sum_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, P, n,
-                                                                    out);
+typedef void (*Kernel)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+                       Args);
+
+template <bool DXS>
+Kernel kernel_for(int groups) {
+  if (DXS)
+    return groups == 2 ? proto_ce_dxs_kernel<2> : proto_ce_dxs_kernel<1>;
+  return groups == 2 ? proto_ce_dws_kernel<2> : proto_ce_dws_kernel<1>;
+}
+
+// dxs (DXS) or dws on `stream`: the four tensor maps, the kernel, and with
+// plan.splits > 1 the fixed-order sum of the partials.  0 when queued, a
+// cudaError_t of a launch, 1000 + the CUresult of a map that could not be
+// encoded, or 2000 for a plan the kernels do not take.
+template <bool DXS>
+int launch(const void* xs, const void* ws, const void* xt, const void* wt,
+           const void* c, const void* lse_s, const void* lse_t,
+           const void* g, void* dst, void* part, int R, int K,
+           const int* plan_ints, float inv_ts, float tau_t, void* stream) {
+  const Plan p = {plan_ints[0], plan_ints[1], plan_ints[2], plan_ints[3],
+                  plan_ints[4], plan_ints[5]};
+  if ((p.groups != 1 && p.groups != 2) || p.stages < 1
+      || p.smem < smem_bytes(p.groups, p.stages))
+    return 2000;
+  cudaStream_t st = (cudaStream_t)stream;
+  CUtensorMap maps[4];
+  const bf16* x[2] = {static_cast<const bf16*>(xs),
+                      static_cast<const bf16*>(xt)};
+  const bf16* w[2] = {static_cast<const bf16*>(ws),
+                      static_cast<const bf16*>(wt)};
+  int err = 0;
+  for (int i = 0; i < 2 && err == 0; ++i)
+    err = encode_3d(maps + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x[i], D, R,
+                    1, 2ull * D, 2ull * D * R, 64, DXS ? OWN : BT);
+  for (int i = 0; i < 2 && err == 0; ++i)
+    err = DXS ? encode_3d(maps + 2 + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          w[i], K, D, 1, 2ull * K, 2ull * K * D, BT, D,
+                          CU_TENSOR_MAP_SWIZZLE_64B)
+              : encode_3d(maps + 2 + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                          w[i], K, D, 1, 2ull * K, 2ull * K * D, 64, D);
+  if (err != 0) return 1000 + err;
+  Args a;
+  a.c = static_cast<const float*>(c);
+  a.lse_s = static_cast<const float*>(lse_s);
+  a.lse_t = static_cast<const float*>(lse_t);
+  a.g = static_cast<const float*>(g);
+  a.out = static_cast<float*>(p.splits > 1 ? part : dst);
+  a.R = R;
+  a.K = K;
+  a.per = p.per;
+  a.blocks_x = p.blocks_x;
+  a.stages = p.stages;
+  a.ks = inv_ts * LOG2E;
+  a.kt = LOG2E / tau_t;
+  a.inv_ts = inv_ts;
+  kernel_for<DXS>(p.groups)<<<dim3(p.blocks_x, p.splits),
+                              (p.groups + 1) * WG_THREADS, p.smem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], a);
+  err = (int)cudaGetLastError();
+  if (err != 0 || p.splits == 1) return err;
+  const long total = DXS ? (long)R * D : (long)D * K;
+  sum_partials_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      a.out, p.splits, total, static_cast<float*>(dst));
   return (int)cudaGetLastError();
 }
 
@@ -293,75 +701,47 @@ int sum_partials(const float* part, int P, long n, float* out,
 
 extern "C" {
 
-// Dynamic shared memory of the dxs (which = 0) or the dws (1) kernel.
-long long proto_ce_bwd_smem_bytes(int which) {
-  return (long long)(which == 0 ? DXS_SMEM : DWS_SMEM);
-}
-
-// Opt both kernels in to their dynamic shared memory on the current device,
-// `device`; returns the device's per-block opt-in limit in bytes, or -1.
+// Opt the four kernels in to the device's per-block opt-in limit of
+// dynamic shared memory on the current device, `device`; returns the
+// limit in bytes, or -1.
 int proto_ce_bwd_prepare(int device) {
   int v = 0;
   if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess)
     return -1;
-  if ((size_t)v < DXS_SMEM || (size_t)v < DWS_SMEM) return v;
-  if (cudaFuncSetAttribute(proto_ce_dxs_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)DXS_SMEM) != cudaSuccess ||
-      cudaFuncSetAttribute(proto_ce_dws_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)DWS_SMEM) != cudaSuccess)
-    return -1;
+  for (int groups = 1; groups <= 2; ++groups)
+    if (cudaFuncSetAttribute((const void*)kernel_for<true>(groups),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             v) != cudaSuccess
+        || cudaFuncSetAttribute((const void*)kernel_for<false>(groups),
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                v) != cudaSuccess)
+      return -1;
   return v;
 }
 
-// dxs [R, D] f32 on `stream`.  n_split > 1: the K range is split over
-// blocks, each writing its partial to part [n_split, R, D], summed in order
-// into dxs.  Returns the first nonzero cudaError_t of a launch, or 0.
+// dxs [R, D] f32 on `stream`, by the launch plan `plan` (groups, stages,
+// splits, per, smem, blocks_x).  splits > 1: the K range is split over
+// blocks, each writing its partial to part [splits, R, D], summed in order
+// into dxs.  Returns 0 or an error code (launch above).
 int proto_ce_dxs(const void* xs, const void* ws, const void* xt,
                  const void* wt, const void* c, const void* lse_s,
                  const void* lse_t, const void* g, void* dxs, void* part,
-                 int R, int K, int n_split, int tiles_per_split,
-                 float inv_ts, float tau_t, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  float* out = n_split > 1 ? static_cast<float*>(part)
-                           : static_cast<float*>(dxs);
-  proto_ce_dxs_kernel<<<dim3((R + BR - 1) / BR, n_split), NT, DXS_SMEM,
-                        st>>>(
-      static_cast<const bf16*>(xs), static_cast<const bf16*>(ws),
-      static_cast<const bf16*>(xt), static_cast<const bf16*>(wt),
-      static_cast<const float*>(c), static_cast<const float*>(lse_s),
-      static_cast<const float*>(lse_t), static_cast<const float*>(g), out, R,
-      K, tiles_per_split, inv_ts * LOG2E, LOG2E / tau_t, inv_ts);
-  int err = (int)cudaGetLastError();
-  if (err != 0 || n_split == 1) return err;
-  return sum_partials(out, n_split, (long)R * D, static_cast<float*>(dxs),
-                      st);
+                 int R, int K, const int* plan, float inv_ts, float tau_t,
+                 void* stream) {
+  return launch<true>(xs, ws, xt, wt, c, lse_s, lse_t, g, dxs, part, R, K,
+                      plan, inv_ts, tau_t, stream);
 }
 
-// dws [D, K] f32 on `stream`.  n_chunks > 1: the row tiles are split into
-// chunks, each writing its partial to part [n_chunks, D, K], summed in
-// order into dws.  Returns the first nonzero cudaError_t of a launch, or 0.
+// dws [D, K] f32 on `stream`, likewise; splits > 1: the rows are split
+// into chunks, each writing its partial to part [splits, D, K].
 int proto_ce_dws(const void* xs, const void* ws, const void* xt,
                  const void* wt, const void* c, const void* lse_s,
                  const void* lse_t, const void* g, void* dws, void* part,
-                 int R, int K, int n_chunks, int tiles_per_chunk,
-                 float inv_ts, float tau_t, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  float* out = n_chunks > 1 ? static_cast<float*>(part)
-                            : static_cast<float*>(dws);
-  proto_ce_dws_kernel<<<dim3((K + BK - 1) / BK, n_chunks), NT, DWS_SMEM,
-                        st>>>(
-      static_cast<const bf16*>(xs), static_cast<const bf16*>(ws),
-      static_cast<const bf16*>(xt), static_cast<const bf16*>(wt),
-      static_cast<const float*>(c), static_cast<const float*>(lse_s),
-      static_cast<const float*>(lse_t), static_cast<const float*>(g), out, R,
-      K, tiles_per_chunk, inv_ts * LOG2E, LOG2E / tau_t, inv_ts);
-  int err = (int)cudaGetLastError();
-  if (err != 0 || n_chunks == 1) return err;
-  return sum_partials(out, n_chunks, (long)D * K, static_cast<float*>(dws),
-                      st);
+                 int R, int K, const int* plan, float inv_ts, float tau_t,
+                 void* stream) {
+  return launch<false>(xs, ws, xt, wt, c, lse_s, lse_t, g, dws, part, R, K,
+                       plan, inv_ts, tau_t, stream);
 }
 
 }  // extern "C"

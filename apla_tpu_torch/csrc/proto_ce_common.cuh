@@ -1,5 +1,4 @@
-// Tile helpers shared by the prototype cross-entropy kernels
-// (proto_ce_fwd.cu, proto_ce_bwd.cu).
+// Tile helpers of the prototype cross-entropy forward (proto_ce_fwd.cu).
 //
 // Shapes: x [R, D] bf16 rows (the L2-normalised head bottlenecks), w [D, K]
 // bf16 (the weight-normalised prototype layer, K contiguous), D = 256.  A

@@ -335,11 +335,28 @@ struct WgmmaT256 {
   }
 };
 
+template <int TA, int TB>
+struct WgmmaT32 {
+  __device__ __forceinline__ static void run(float* d, uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16"
+        " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
+        " %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : SM90_R8(0), SM90_R8(8)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
+
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_t(float* d, uint64_t a, uint64_t b,
                                            int accumulate) {
-  static_assert(N == 128 || N == 256, "wgmma_ss_t: N of 128 or 256");
-  if constexpr (N == 128)
+  static_assert(N == 32 || N == 128 || N == 256,
+                "wgmma_ss_t: N of 32, 128 or 256");
+  if constexpr (N == 32)
+    WgmmaT32<TA, TB>::run(d, a, b, accumulate);
+  else if constexpr (N == 128)
     WgmmaT128<TA, TB>::run(d, a, b, accumulate);
   else
     WgmmaT256<TA, TB>::run(d, a, b, accumulate);
@@ -370,6 +387,36 @@ __device__ __forceinline__ void wgmma_rs32(float* d, const uint32_t (&a)[4],
       " %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : SM90_R8(0), SM90_R8(8)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (64 x 256 f32) (+)= A (64 x 16 bf16 from registers, a[4]) B (16 x
+// 256 in shared memory); accumulate = 0 overwrites d.  TB = 0: B K-major
+// (256 rows along N), 1: MN-major (four tiles of 64 columns side by side,
+// the descriptor's leading byte offset apart).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs256(float* d, const uint32_t (&a)[4],
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      " %0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      " %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      " %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      " %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      " %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73,"
+      " %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,"
+      " %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      " %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+      " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117,"
+      " %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : SM90_R8(0), SM90_R8(8), SM90_R8(16), SM90_R8(24), SM90_R8(32),
+        SM90_R8(40), SM90_R8(48), SM90_R8(56), SM90_R8(64), SM90_R8(72),
+        SM90_R8(80), SM90_R8(88), SM90_R8(96), SM90_R8(104),
+        SM90_R8(112), SM90_R8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate), "n"(TB));
 }
 
 #undef SM90_R8

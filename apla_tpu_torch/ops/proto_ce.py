@@ -15,7 +15,11 @@ hand-written CUDA kernels replace the TPU kernels:
   both log-sum-exps, by online softmax over streamed prototype tiles;
 - `csrc/proto_ce_bwd.cu` replaces `_dxs_kernel` (dxs = ds ws^T) and
   `_dws_kernel` (dws = xs^T ds), each recomputing the logits from the saved
-  log-sum-exps, with ds = bf16(g (p_s - p_t) / tau_s).
+  log-sum-exps, with ds = bf16(g (p_s - p_t) / tau_s): TMA and `wgmma`, a
+  producer warp and one or two consumer warpgroups a block, each owning 64
+  rows (dxs) or prototype columns (dws) and streaming the other side in
+  32-wide tiles, ds kept in registers as the product's A operand; a dws
+  row tile whose g are all 0 is skipped.  `proto_bwd_plan` lays them out.
 
 `proto_ce_fwd`, `proto_ce_dxs` and `proto_ce_dws` are the wrappers: on a CPU
 tensor they run the plain PyTorch versions below (`*_reference`), on a CUDA
@@ -29,17 +33,36 @@ autograd `Function` with the JAX custom VJP's contract: gradients flow to
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from .cuda_build import check_smem, device_index, device_smem, \
-    load_library
+    launch_context, load_library
+from .mha import BLOCK_SMEM, SMS, plan_array
 
 FWD_SOURCE = "proto_ce_fwd.cu"
 BWD_SOURCE = "proto_ce_bwd.cu"
 BOTTLENECK = 256        # the kernels' D (every DINOv2 recipe's bottleneck)
 _TILE = 64              # rows / prototype columns per kernel tile
+# The backward's launch plan (`proto_bwd_plan`), in the units of
+# `csrc/proto_ce_bwd.cu`: a consumer warpgroup owns a 64-wide tile (dxs:
+# rows, dws: prototype columns) and holds its s and t operands (64 KB); a
+# ring stage holds one 32-wide streamed tile of each (32 KB) and, for dws,
+# its rows' statistics (512 bytes); 1 KB aligns the base, 256 bytes hold
+# the barriers.
+BWD_STREAM = 32
+BWD_OWN_BYTES = 2 * _TILE * BOTTLENECK * 2
+BWD_STAGE_BYTES = 2 * BWD_STREAM * BOTTLENECK * 2 + BWD_STREAM * 16
+BWD_MAX_STAGES = 5
+# A block of two consumer warpgroups takes this many times the time of a
+# block of one for twice its work (the two share the SM's tensor cores and
+# hide each other's exponentials): set from `chip_smoke.py` phase 6a's
+# one-group and two-group times at the iBOT site, 1.46 (dws) and 1.59
+# (dxs) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
+TWO_GROUP_COST = 1.5
+MAX_SPLITS = 65535      # the grid's y extent
 
 
 # --------------------------------------------------------------------------- #
@@ -113,11 +136,10 @@ def _fwd_library():
 def _bwd_library():
     lib = load_library(BWD_SOURCE)
     for fn in (lib.proto_ce_dxs, lib.proto_ce_dws):
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+                       + [ctypes.POINTER(ctypes.c_int)]
                        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.proto_ce_bwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.proto_ce_bwd_smem_bytes.restype = ctypes.c_longlong
     lib.proto_ce_bwd_prepare.argtypes = [ctypes.c_int]
     lib.proto_ce_bwd_prepare.restype = ctypes.c_int
     return lib
@@ -130,6 +152,84 @@ def split_work(n_own: int, n_loop: int, n_sm: int):
     want = max(1, min(n_loop, -(-n_sm // n_own)))
     per = -(-n_loop // want)
     return per, -(-n_loop // per)
+
+
+def bwd_smem(groups: int, stages: int) -> int:
+    """Dynamic shared memory of a backward block (`smem_bytes` in
+    `csrc/proto_ce_bwd.cu`)."""
+    return 1024 + groups * BWD_OWN_BYTES + stages * BWD_STAGE_BYTES + 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtoBwdPlan:
+    """How a backward kernel covers its work.  The own side (dxs: the row
+    tiles, dws: the prototype column tiles, 64 wide) is dealt to consumer
+    warpgroups, `groups` a block: warpgroup w of block b owns tile b + w *
+    `blocks_x`.  The loop side (dxs: the prototype columns, dws: the rows)
+    is cut into `splits` ranges of `per` 64-wide units (`split_work`'s
+    boundaries, whatever the streamed width), each summed into a partial
+    when there are several.  `stages`: the ring of streamed tiles."""
+    which: str
+    own_tiles: int
+    loop_tiles: int
+    groups: int
+    blocks_x: int
+    splits: int
+    per: int
+    stages: int
+    smem_bytes: int
+
+    def args(self) -> tuple:
+        """The C entries' plan ints."""
+        return (self.groups, self.stages, self.splits, self.per,
+                self.smem_bytes, self.blocks_x)
+
+    def describe(self) -> str:
+        return (f"{self.which}: {self.groups} warpgroup(s) a block, "
+                f"{self.blocks_x} x {self.splits} blocks, {self.per} "
+                f"64-wide units a split, {self.stages} stages, "
+                f"{self.smem_bytes} bytes of shared memory")
+
+
+@functools.lru_cache(maxsize=256)
+def proto_bwd_plan(which: str, R: int, K: int, n_sm: int = SMS,
+                   groups: int | None = None) -> ProtoBwdPlan:
+    """The launch plan of `which` ("dxs" or "dws") at R rows and K
+    prototypes on a card of `n_sm` SMs, a pure function of the shape.  The
+    splits are `split_work`'s over 64-wide tiles.  Two warpgroups a block
+    unless the blocks of one fill the SMs in fewer waves by more than
+    TWO_GROUP_COST (`groups` forces the choice).  Raises ValueError for a
+    shape the kernels do not take."""
+    if which not in ("dxs", "dws"):
+        raise ValueError(f"no backward kernel {which!r}")
+    if R < 1 or K < 8 or K % 8:
+        raise ValueError(f"the kernels take R >= 1 and K a multiple of 8; "
+                         f"got R={R}, K={K}")
+    n_rt, n_kt = -(-R // _TILE), -(-K // _TILE)
+    own, loop = (n_rt, n_kt) if which == "dxs" else (n_kt, n_rt)
+    per, splits = split_work(own, loop, n_sm)
+    if groups is None:
+        def waves(blocks):
+            return -(-blocks // n_sm)
+        groups = 2 if own > 1 and waves(-(-own // 2) * splits) \
+            * TWO_GROUP_COST < waves(own * splits) else 1
+    if groups not in (1, 2):
+        raise ValueError(f"one or two warpgroups a block, not {groups}")
+    stages = min(BWD_MAX_STAGES,
+                 (BLOCK_SMEM - bwd_smem(groups, 0)) // BWD_STAGE_BYTES)
+    blocks_x = -(-own // groups)
+    if splits > MAX_SPLITS or blocks_x >= 2 ** 31:
+        raise ValueError(f"R={R}, K={K} outside the kernels' grid")
+    return ProtoBwdPlan(which=which, own_tiles=own, loop_tiles=loop,
+                        groups=groups, blocks_x=blocks_x, splits=splits,
+                        per=per, stages=stages,
+                        smem_bytes=bwd_smem(groups, stages))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_ints(which: str, R: int, K: int, n_sm: int, groups):
+    plan = proto_bwd_plan(which, R, K, n_sm, groups)
+    return plan, plan_array(plan.args())
 
 
 def _cuda_inputs(xs, ws, xt, wt, center, rows=()):
@@ -200,38 +300,41 @@ def _launch_fwd(xs, ws, xt, wt, center, teacher_temp, student_temp):
     return ce, lse_s, lse_t
 
 
-def _launch_bwd(fn_name, xs, ws, xt, wt, center, teacher_temp, student_temp,
-                lse_s, lse_t, g):
+def _launch_bwd(which, xs, ws, xt, wt, center, teacher_temp, student_temp,
+                lse_s, lse_t, g, groups=None):
     xs, ws, xt, wt, c, lse_s, lse_t, g = _cuda_inputs(
         xs, ws, xt, wt, center, rows=(lse_s, lse_t, g))
     lib = _bwd_library()
     dev = device_index(xs)
-    which = 0 if fn_name == "proto_ce_dxs" else 1
-    check_smem(lib.proto_ce_bwd_smem_bytes(which),
-               device_smem(_bwd_library, "proto_ce_bwd_prepare", dev),
-               fn_name)
     R, D = xs.shape
     K = ws.shape[1]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_rt, n_kt = -(-R // _TILE), -(-K // _TILE)
-    if which == 0:
-        per, n_split = split_work(n_rt, n_kt, n_sm)
-        out = torch.empty((R, D), dtype=torch.float32, device=xs.device)
-        part_shape = (n_split, R, D)
-    else:
-        per, n_split = split_work(n_kt, n_rt, n_sm)
-        out = torch.empty((D, K), dtype=torch.float32, device=xs.device)
-        part_shape = (n_split, D, K)
-    part = torch.empty(part_shape if n_split > 1 else (1,),
+    plan, ints = _plan_ints(which, R, K, n_sm, groups)
+    check_smem(plan.smem_bytes,
+               device_smem(_bwd_library, "proto_ce_bwd_prepare", dev),
+               f"proto_ce_{which}")
+    shape = (R, D) if which == "dxs" else (D, K)
+    out = torch.empty(shape, dtype=torch.float32, device=xs.device)
+    part = torch.empty((plan.splits,) + shape if plan.splits > 1 else (1,),
                        dtype=torch.float32, device=xs.device)
-    with torch.cuda.device(dev):
-        err = getattr(lib, fn_name)(
+    with launch_context(xs) as stream:
+        err = getattr(lib, f"proto_ce_{which}")(
             xs.data_ptr(), ws.data_ptr(), xt.data_ptr(), wt.data_ptr(),
             c.data_ptr(), lse_s.data_ptr(), lse_t.data_ptr(), g.data_ptr(),
-            out.data_ptr(), part.data_ptr(), R, K, n_split, per,
-            1.0 / float(student_temp), float(teacher_temp), _stream(dev))
-    _raise_on(err, fn_name)
+            out.data_ptr(), part.data_ptr(), R, K, ints,
+            1.0 / float(student_temp), float(teacher_temp), stream)
+    _raise_on(err, f"proto_ce_{which}")
     return out
+
+
+def proto_ce_bwd_launch(which, xs, ws, xt, wt, center, teacher_temp: float,
+                        student_temp: float, lse_s, lse_t, g, groups: int):
+    """`proto_ce_dxs` (which = "dxs") or `proto_ce_dws` on CUDA tensors with
+    `groups` consumer warpgroups a block, whatever `proto_bwd_plan` would
+    choose; not counted in the wrappers' launches.  For timing the two
+    block shapes against each other (`chip_smoke.py` phase 6a)."""
+    return _launch_bwd(which, xs, ws, xt, wt, center, teacher_temp,
+                       student_temp, lse_s, lse_t, g, groups)
 
 
 def _on_device(xs, what):
@@ -263,7 +366,7 @@ def proto_ce_dxs(xs, ws, xt, wt, center, teacher_temp: float,
     if not _on_device(xs, "prototype CE"):
         return proto_ce_dxs_reference(xs, ws, xt, wt, center, teacher_temp,
                                       student_temp, lse_s, lse_t, g)
-    out = _launch_bwd("proto_ce_dxs", xs, ws, xt, wt, center, teacher_temp,
+    out = _launch_bwd("dxs", xs, ws, xt, wt, center, teacher_temp,
                       student_temp, lse_s, lse_t, g)
     proto_ce_dxs.launches += 1
     return out
@@ -280,7 +383,7 @@ def proto_ce_dws(xs, ws, xt, wt, center, teacher_temp: float,
     if not _on_device(xs, "prototype CE"):
         return proto_ce_dws_reference(xs, ws, xt, wt, center, teacher_temp,
                                       student_temp, lse_s, lse_t, g)
-    out = _launch_bwd("proto_ce_dws", xs, ws, xt, wt, center, teacher_temp,
+    out = _launch_bwd("dws", xs, ws, xt, wt, center, teacher_temp,
                       student_temp, lse_s, lse_t, g)
     proto_ce_dws.launches += 1
     return out

@@ -46,8 +46,12 @@ and raise on failure:
   6a. proto_ce — the three prototype cross-entropy kernels (forward, dxs,
                dws) against their plain versions at the DINOv2 recipe's
                sites (iBOT R=16384, DINO global R=128, pair-expanded local
-               R=1024; K=65536) and a ragged case, at two teacher
-               temperatures; timed at the iBOT site.
+               R=1024; K=65536), a ragged case, and the iBOT site at the
+               collate's layout (g = 0 past the masked patches), at two
+               teacher temperatures, with five fault controls; timed at
+               the iBOT site (events and a CUDA graph), at both layouts,
+               the backward also with one and two consumer warpgroups a
+               block.
   6b. ssl    — the ISIC2019 DINOv2 recipe (ViT-B/14 APLA-128, DINO + iBOT
                heads over 65536 prototypes, KoLeo, device multi-crop) on
                Synthetic data through DINOv2Wrapper -> Dinov2Trainer.train()
@@ -374,6 +378,11 @@ SSL_CUTS = {
 # H100: 2.4e-7 of max|ref|), where 2e-2 of log K would pass a teacher
 # temperature taken as 1 (4.4e-3 of max|ref| at the iBOT site).
 PROTO_CASES = ((16384, 65536), (128, 65536), (1024, 65536), (1000, 1000))
+# The iBOT site as the collate fills it: the buffer holds 2 x 64 x 128 rows,
+# the masked patches of the 64 masked global crops first (each crop masks
+# U(0.1, 0.5) of its 256 patches, ssl/dinov2.py), zeros after them; drawn
+# from the seed, ~30% of the rows.
+PROTO_COLLATE = (16384, 65536)
 PROTO_FWD_REL_TOL = 1e-3
 PROTO_TEMPS = (0.04, 0.07)
 STUDENT_TEMP = 0.1
@@ -2472,20 +2481,24 @@ def _train_phase(device, tmp, recipe, cuts, tag, arm, counters,
     return launches, rates, profiles
 
 
-def _proto_inputs(r, k, gen, device):
+def _proto_inputs(r, k, gen, device, collate=False):
     """Unit-norm bottleneck rows xs, xt [r, 256], column-normalised
     prototype layers ws, wt [256, k] (bf16, as the head hands them over), a
     center [k] and per-row cotangents g [r] (the iBOT masked-patch
-    weights' scale)."""
+    weights' scale); with `collate`, g is 0 past the rows the collate fills
+    (PROTO_COLLATE)."""
     def unit(shape, dim):
         x = torch.randn(shape, generator=gen)
         return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True)
 
     bf = torch.bfloat16
+    g = torch.rand(r, generator=gen) / 64
+    if collate:
+        ratios = 0.1 + 0.4 * torch.rand(64, generator=gen)
+        g[int((ratios * 256).long().sum()):] = 0
     return (unit((r, 256), -1).to(device, bf), unit((256, k), 0).to(device, bf),
             unit((r, 256), -1).to(device, bf), unit((256, k), 0).to(device, bf),
-            (0.1 * torch.randn(k, generator=gen)).to(device),
-            torch.rand(r, generator=gen).to(device) / 64)
+            (0.1 * torch.randn(k, generator=gen)).to(device), g.to(device))
 
 
 def _proto_errors(got, ref):
@@ -2501,51 +2514,62 @@ def _proto_errors(got, ref):
     return out
 
 
-def _proto_all(pc, args, tt, lse_t=None):
+def _proto_all(pc, args, tt, lse_t=None, g=None):
     """(ce, lse_s, lse_t, dxs, dws) of the kernels (or, through `pc`'s
     references, the plain versions) on one input set; the backward takes
-    the forward's lse unless `lse_t` replaces the teacher's."""
-    xs, ws, xt, wt, c, g = args
+    the forward's lse unless `lse_t` replaces the teacher's, and the
+    input's g unless `g` replaces it."""
+    xs, ws, xt, wt, c, g0 = args
     fwd, dxs, dws = pc
     ce, ls, lt = fwd(xs, ws, xt, wt, c, tt, STUDENT_TEMP)
     bargs = (xs, ws, xt, wt, c, tt, STUDENT_TEMP, ls,
-             lt if lse_t is None else lse_t, g)
+             lt if lse_t is None else lse_t, g0 if g is None else g)
     return ce, ls, lt, dxs(*bargs), dws(*bargs)
 
 
-def phase_proto_ce(device):
+def _dropped_tile_g(args, tt, ref):
+    """g with the 32-row tile zeroed that holds the live row contributing
+    most to the largest dws value of `ref` (the plain outputs at tau_t =
+    tt): the dws kernel then skips that tile's loads and products, as a
+    kernel that lost a live tile would."""
     from apla_tpu_torch.ops import proto_ce as pc
-    kernels = (pc.proto_ce_fwd, pc.proto_ce_dxs, pc.proto_ce_dws)
-    plain = (pc.proto_ce_fwd_reference, pc.proto_ce_dxs_reference,
-             pc.proto_ce_dws_reference)
-    gen = torch.Generator().manual_seed(SEED + 2)
-    worst = {"fwd": 0.0, "dxs": 0.0, "dws": 0.0}
-    for r, k in PROTO_CASES:
-        args = _proto_inputs(r, k, gen, device)
-        for tt in PROTO_TEMPS:
-            got = _proto_all(kernels, args, tt)
-            torch.cuda.synchronize()
-            ref = _proto_all(plain, args, tt)
-            errs = _proto_errors(got, ref)
-            ok = all(e <= b for e, b in errs.values())
-            print(f"[6a proto_ce] R={r} K={k} tau_t={tt}: " + ", ".join(
-                f"{n} max|err| {e:.6g} (bound {b:.6g})"
-                for n, (e, b) in errs.items())
-                + f" -> {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"prototype-CE kernels disagree with their "
-                                 f"plain versions at R={r} K={k} tau_t={tt}")
-            worst["fwd"] = max(worst["fwd"], *(errs[n][0] for n in
-                                               ("ce", "lse_s", "lse_t")))
-            worst["dxs"] = max(worst["dxs"], errs["dxs"][0])
-            worst["dws"] = max(worst["dws"], errs["dws"][0])
-        if (r, k) != PROTO_CASES[0]:
-            del ref
-            continue
-        # Fault controls at the iBOT site, against the reference at the
-        # last tau_t: each changes an input or an output of the working
-        # kernels so that they compute what a broken kernel would.
-        tt = PROTO_TEMPS[-1]
+    xs, ws, xt, wt, c, g = args
+    d, k = divmod(int(ref[4].abs().argmax()), ref[4].shape[1])
+    one = (xs, ws[:, k:k + 1], xt, wt[:, k:k + 1], c[k:k + 1])
+    s, t = pc._logits(*one, tt, STUDENT_TEMP)
+    ds = ((s[:, 0] - ref[1]).exp() - (t[:, 0] - ref[2]).exp()) \
+        * g * (1.0 / STUDENT_TEMP)
+    part = (xs[:, d].float() * ds.to(torch.bfloat16).float()).abs()
+    row = int(torch.where(g != 0, part, torch.zeros_like(part)).argmax())
+    out = g.clone()
+    out[row // 32 * 32:row // 32 * 32 + 32] = 0
+    return out, row // 32
+
+
+def _proto_check(tag, kernels, plain, args, tt):
+    got = _proto_all(kernels, args, tt)
+    torch.cuda.synchronize()
+    ref = _proto_all(plain, args, tt)
+    errs = _proto_errors(got, ref)
+    ok = all(e <= b for e, b in errs.values())
+    print(f"[6a proto_ce] {tag} tau_t={tt}: " + ", ".join(
+        f"{n} max|err| {e:.6g} (bound {b:.6g})"
+        for n, (e, b) in errs.items()) + f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"prototype-CE kernels disagree with their plain "
+                         f"versions at {tag} tau_t={tt}")
+    return got, ref, errs
+
+
+def _proto_controls(kernels, args, tt, got, ref, collate):
+    """Fault controls against the plain outputs `ref` at tau_t = tt: each
+    changes an input or an output of the working kernels so that they
+    compute what a broken kernel would; the bound must catch each."""
+    if collate:
+        g_drop, tile = _dropped_tile_g(args, tt, ref)
+        controls = {f"products of live row tile {tile} dropped": (
+            lambda: _proto_all(kernels, args, tt, g=g_drop), ("dws",))}
+    else:
         huge = torch.full_like(ref[2], 1e30)       # exp(t - 1e30) = 0
         controls = {
             "tau_t taken as 1": (lambda: _proto_all(kernels, args, 1.0),
@@ -2557,47 +2581,114 @@ def phase_proto_ce(device):
                 lambda: _proto_all(kernels, args, tt, lse_t=huge),
                 ("dxs", "dws")),
         }
-        for name, (fault, broken) in controls.items():
-            c_errs = _proto_errors(fault(), ref)
-            caught = all(c_errs[n][0] > c_errs[n][1] for n in broken)
-            print(f"[6a proto_ce] control {name}: " + ", ".join(
-                f"{n} {e:.6g}" for n, (e, _) in c_errs.items())
-                + f" -> {'caught' if caught else 'NOT CAUGHT'} in "
-                f"{list(broken)}")
-            if not caught:
-                raise SystemExit(f"the prototype-CE bound misses a broken "
-                                 f"kernel ({name})")
+    for name, (fault, broken) in controls.items():
+        c_errs = _proto_errors(fault(), ref)
+        caught = all(c_errs[n][0] > c_errs[n][1] for n in broken)
+        print(f"[6a proto_ce] control {name}: " + ", ".join(
+            f"{n} {e:.6g}" for n, (e, _) in c_errs.items())
+            + f" -> {'caught' if caught else 'NOT CAUGHT'} in "
+            f"{list(broken)}")
+        if not caught:
+            raise SystemExit(f"the prototype-CE bound misses a broken "
+                             f"kernel ({name})")
+
+
+def phase_proto_ce(device):
+    from apla_tpu_torch.ops import proto_ce as pc
+    kernels = (pc.proto_ce_fwd, pc.proto_ce_dxs, pc.proto_ce_dws)
+    plain = (pc.proto_ce_fwd_reference, pc.proto_ce_dxs_reference,
+             pc.proto_ce_dws_reference)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    worst = {"fwd": 0.0, "dxs": 0.0, "dws": 0.0}
+    cases = [((r, k), False) for r, k in PROTO_CASES] + [(PROTO_COLLATE,
+                                                          True)]
+    for (r, k), collate in cases:
+        args = _proto_inputs(r, k, gen, device, collate)
+        live = int((args[5] != 0).sum())
+        tag = f"R={r} K={k}" + (f" (collate layout: {live} live rows)"
+                                if collate else "")
+        for tt in PROTO_TEMPS:
+            got, ref, errs = _proto_check(tag, kernels, plain, args, tt)
+            worst["fwd"] = max(worst["fwd"], *(errs[n][0] for n in
+                                               ("ce", "lse_s", "lse_t")))
+            worst["dxs"] = max(worst["dxs"], errs["dxs"][0])
+            worst["dws"] = max(worst["dws"], errs["dws"][0])
+        if (r, k) == PROTO_CASES[0]:
+            # the fault controls at the iBOT site, against the reference
+            # at the last tau_t (the dropped tile: at the collate's layout)
+            _proto_controls(kernels, args, PROTO_TEMPS[-1], got, ref,
+                            collate)
         del ref, got
-    # times at the iBOT site: kernels, plain versions, bounds
+    for which in ("dxs", "dws"):
+        for (r, k), _ in cases[:-1]:
+            print(f"[6a proto_ce] plan R={r} K={k}: "
+                  + pc.proto_bwd_plan(which, r, k, _sm_count(device))
+                  .describe())
+    # times at the iBOT site, g > 0 on every row and at the collate's
+    # layout: kernels (events over calls one by one, and a CUDA graph),
+    # plain versions, bounds; the backward with one and with two consumer
+    # warpgroups a block (uncounted), the choice `proto_bwd_plan` makes
     r, k = PROTO_CASES[0]
-    xs, ws, xt, wt, c, g = _proto_inputs(r, k, gen, device)
-    tt = PROTO_TEMPS[0]
-    _, ls, lt = pc.proto_ce_fwd(xs, ws, xt, wt, c, tt, STUDENT_TEMP)
-    bargs = (xs, ws, xt, wt, c, tt, STUDENT_TEMP, ls, lt, g)
-    rdk = r * 256 * k
-    in_bytes = 2 * (2 * r * 256 + 2 * 256 * k) + 4 * k
-    work = {"fwd": (4 * rdk, in_bytes + 3 * 4 * r),
-            "dxs": (6 * rdk, in_bytes + 3 * 4 * r + 4 * r * 256),
-            "dws": (6 * rdk, in_bytes + 3 * 4 * r + 4 * 256 * k)}
-    calls = {"fwd": (lambda: pc.proto_ce_fwd(xs, ws, xt, wt, c, tt,
-                                             STUDENT_TEMP),
-                     lambda: pc.proto_ce_fwd_reference(xs, ws, xt, wt, c, tt,
-                                                       STUDENT_TEMP)),
-             "dxs": (lambda: pc.proto_ce_dxs(*bargs),
-                     lambda: pc.proto_ce_dxs_reference(*bargs)),
-             "dws": (lambda: pc.proto_ce_dws(*bargs),
-                     lambda: pc.proto_ce_dws_reference(*bargs))}
     times = {}
-    for name, (kernel, ref_fn) in calls.items():
-        t = {"ms": _time_ms(kernel, iters=10, warmup=2),
-             "plain_ms": _time_ms(ref_fn, iters=3, warmup=1),
-             "max_abs_err": worst[name]}
-        t["bound_ms"], t["bound_by"] = _bound(*work[name])
-        times[name] = t
-        print(f"[6a proto_ce] {name} R={r} D=256 K={k}: kernel "
-              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
-              f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+    for collate in (False, True):
+        xs, ws, xt, wt, c, g = _proto_inputs(r, k, gen, device, collate)
+        tt = PROTO_TEMPS[0]
+        _, ls, lt = pc.proto_ce_fwd(xs, ws, xt, wt, c, tt, STUDENT_TEMP)
+        bargs = (xs, ws, xt, wt, c, tt, STUDENT_TEMP, ls, lt, g)
+        live = int((g != 0).sum())
+        rdk = r * 256 * k
+        in_bytes = 2 * (2 * r * 256 + 2 * 256 * k) + 4 * k
+        work = {"fwd": (4 * rdk, in_bytes + 3 * 4 * r),
+                "dxs": (6 * rdk, in_bytes + 3 * 4 * r + 4 * r * 256),
+                "dws": (6 * rdk, in_bytes + 3 * 4 * r + 4 * 256 * k)}
+        if collate:
+            # the work these inputs need: the rows with g != 0 (dxs writes
+            # the others' zeros; the logits of the live rows alone)
+            lk = live * 256 * k
+            work = {"dxs": (6 * lk, in_bytes + 3 * 4 * r + 4 * r * 256),
+                    "dws": (6 * lk, in_bytes + 3 * 4 * r + 4 * 256 * k)}
+        calls = {"fwd": (lambda: pc.proto_ce_fwd(xs, ws, xt, wt, c, tt,
+                                                 STUDENT_TEMP),
+                         lambda: pc.proto_ce_fwd_reference(
+                             xs, ws, xt, wt, c, tt, STUDENT_TEMP)),
+                 "dxs": (lambda: pc.proto_ce_dxs(*bargs),
+                         lambda: pc.proto_ce_dxs_reference(*bargs)),
+                 "dws": (lambda: pc.proto_ce_dws(*bargs),
+                         lambda: pc.proto_ce_dws_reference(*bargs))}
+        for name, (kernel, ref_fn) in calls.items():
+            if name not in work:
+                continue
+            t = {"ms": _time_ms(kernel, iters=10, warmup=2),
+                 "graph_ms": _graph_ms(kernel, calls=5, iters=4)}
+            t["bound_ms"], t["bound_by"] = _bound(*work[name])
+            layout = "collate" if collate else "all rows live"
+            msg = (f"[6a proto_ce] {name} R={r} D=256 K={k}, {layout} "
+                   f"({live} live rows): kernel {t['ms']:.4f} ms (graph "
+                   f"{t['graph_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
+                   f"({t['bound_by']}, {t['bound_ms'] / t['graph_ms']:.1%} "
+                   f"of it reached)")
+            if name != "fwd":
+                for groups in (1, 2):
+                    t[f"groups{groups}_ms"] = _time_ms(
+                        lambda: pc.proto_ce_bwd_launch(name, *bargs,
+                                                       groups=groups),
+                        iters=5, warmup=1)
+                plan = pc.proto_bwd_plan(name, r, k, _sm_count(device))
+                msg += (f"; one warpgroup a block {t['groups1_ms']:.4f} ms, "
+                        f"two {t['groups2_ms']:.4f} ms, the plan takes "
+                        f"{plan.groups}")
+            if collate:
+                times[name]["collate"] = {key: t[key] for key in (
+                    "ms", "graph_ms", "bound_ms", "groups1_ms",
+                    "groups2_ms")}
+                times[name]["collate"]["live_rows"] = live
+            else:
+                t["plain_ms"] = _time_ms(ref_fn, iters=3, warmup=1)
+                t["max_abs_err"] = worst[name]
+                msg += f"; plain {t['plain_ms']:.4f} ms"
+                times[name] = t
+            print(msg)
+        del xs, ws, xt, wt, c, g, ls, lt, bargs, calls
     return times
 
 
@@ -3923,6 +4014,13 @@ def main() -> int:
                                        "bound_ms")}}
                      for (b, n), t in fwd_times.items()]},
              "fused_apla_attn_fwd_seg": fused_fwd(seg_times["fwd"]),
+             "proto_ce_fwd": {"graph_ms": proto_times["fwd"]["graph_ms"]},
+             **{name: {"sources": [f"apla_tpu_torch/csrc/{src}" for src in (
+                 "proto_ce_bwd.cu", "sm90_async.cuh")],
+                 **{k: proto_times[name.removeprefix("proto_ce_")][k]
+                    for k in ("graph_ms", "groups1_ms", "groups2_ms",
+                              "collate")}}
+                for name in ("proto_ce_dxs", "proto_ce_dws")},
              "fused_swin_attn_fwd": {
                  "sources": [f"apla_tpu_torch/csrc/{src}" for src in (
                      "swin_attn_fwd.cu", "attn_fwd_sm90.cuh", "gemm_sm90.cuh",

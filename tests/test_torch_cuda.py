@@ -9,7 +9,9 @@ Each kernel is held against its plain PyTorch version on the same bf16
 tensors.  Bound: 2e-2 of the reference's largest magnitude, per output
 (the two round p, o, dO, ds and the outputs to bf16 after f32 sums taken
 in different orders; the prototype-CE kernels round ds to bf16 as their
-plain versions do); 1e-2 for the projection GEMM alone (exact products,
+plain versions do, and the backward is held at the collate's layout of g,
+on every row of a tile and at ragged edges); 1e-2 for the projection GEMM
+alone (exact products,
 f32 sums in another order, one rounding: a bf16 ulp here and there).
 Reruns of the kernels that sum partials are bit-equal.  The fused APLA
 and Swin window forwards are each their two kernels bit for bit.  The
@@ -371,6 +373,80 @@ def test_proto_ce_kernels_are_deterministic(cuda_device, r, k):
     b = _proto_outputs(_PROTO_KERNELS, args, 0.05)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def _proto_bwd_check(args, tt=0.05):
+    """dxs and dws of the kernels against the plain versions on the
+    forward's lse; one counted launch per call."""
+    xs, ws, xt, wt, c, g = args
+    _, ls, lt = tpc.proto_ce_fwd(xs, ws, xt, wt, c, tt, 0.1)
+    b = (xs, ws, xt, wt, c, tt, 0.1, ls, lt, g)
+    before = (tpc.proto_ce_dxs.launches, tpc.proto_ce_dws.launches)
+    got = (tpc.proto_ce_dxs(*b), tpc.proto_ce_dws(*b))
+    torch.cuda.synchronize()
+    assert (tpc.proto_ce_dxs.launches, tpc.proto_ce_dws.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = (tpc.proto_ce_dxs_reference(*b), tpc.proto_ce_dws_reference(*b))
+    for name, a, r in zip(("dxs", "dws"), got, ref):
+        assert torch.isfinite(a).all(), name
+        err = (a - r).abs().max().item()
+        assert err <= REL_TOL * r.abs().max().item(), (name, err)
+    return got, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k,live", [
+    (16384, 8192, 4915),  # the iBOT buffer as the collate fills it
+    (2048, 65536, 600),   # a tail inside a 32-row tile
+    (1000, 1000, 64),     # the tail on a 64-row boundary, ragged K
+])
+def test_proto_ce_backward_at_the_collate_layout(cuda_device, r, k, live):
+    """g = 0 past the first `live` rows: the dws kernel skips those row
+    tiles, a dxs warpgroup whose 64 rows all have g = 0 writes zeros."""
+    args = list(_proto_inputs(cuda_device, r, k, seed=r + live))
+    args[5][live:] = 0
+    (dxs, dws), b = _proto_bwd_check(args)
+    assert not dxs[live:].any()
+    again = (tpc.proto_ce_dxs(*b), tpc.proto_ce_dws(*b))
+    assert torch.equal(again[0], dxs) and torch.equal(again[1], dws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [32, 64])
+def test_proto_ce_backward_reads_every_row_of_a_tile(cuda_device, tile):
+    """g non-zero only on the last row of each tile: a skip test that read
+    only a tile's first row would drop every product."""
+    args = list(_proto_inputs(cuda_device, 4096, 4096, seed=tile))
+    keep = torch.zeros(4096, dtype=torch.bool, device=cuda_device)
+    keep[tile - 1::tile] = True
+    args[5] = torch.where(keep, args[5], torch.zeros_like(args[5]))
+    (dxs, dws), _ = _proto_bwd_check(args)
+    assert dws.abs().max() > 0
+    assert (dxs.abs().amax(dim=1) > 0).eq(keep).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k", [
+    (33, 40),      # one row past a 32-row tile; K past one 32-column box
+    (65, 1000),    # one row past a 64-row tile; K not a multiple of 32
+    (97, 1032),
+    (129, 8),      # K below one box
+    (4097, 65536), # the iBOT width with one row past the last tile
+])
+def test_proto_ce_backward_at_ragged_edges(cuda_device, r, k):
+    _proto_bwd_check(_proto_inputs(cuda_device, r, k, seed=r * k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["dxs", "dws"])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_proto_ce_backward_block_shapes_agree(cuda_device, which, groups):
+    """One and two consumer warpgroups a block give the same bits (the sum
+    orders do not depend on the block's shape)."""
+    args = _proto_inputs(cuda_device, 2048, 8192, seed=5)
+    (dxs, dws), b = _proto_bwd_check(args)
+    got = tpc.proto_ce_bwd_launch(which, *b, groups=groups)
+    assert torch.equal(got, dxs if which == "dxs" else dws)
 
 
 @pytest.mark.cuda

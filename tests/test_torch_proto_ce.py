@@ -81,6 +81,23 @@ def test_matches_jax_kernel(R, D, K):
         _close(_torch(*args, tt), _jax(*args, tt))
 
 
+@pytest.mark.parametrize("R,D,K,live", [
+    (40, 256, 512, 13),   # the bottleneck width, a zero tail inside a tile
+    (37, 64, 1000, 10),   # ragged R and K
+    (70, 32, 200, 64),    # the tail starts on a 64-row boundary
+])
+def test_matches_jax_with_zero_g_tail(R, D, K, live):
+    """The collate's layout: the iBOT buffer's real rows come first and the
+    rest carry weight 0 (g = 0 exactly), which the CUDA backward skips."""
+    xs, ws, xt, wt, c, w_rows = _inputs(R * K + live, R, D, K)
+    w_rows[live:] = 0
+    args = (xs, ws, xt, wt, c, w_rows)
+    for tt in (0.04, 0.07):
+        got, ref = _torch(*args, tt), _jax(*args, tt)
+        _close(got, ref)
+        assert not got[1][live:].any()            # dxs of a g = 0 row
+
+
 def test_matches_jax_on_a_multi_block_grid(monkeypatch):
     """Rows and prototypes over several of the TPU kernel's tiles (its
     online rescaling and both accumulator revisits)."""
@@ -142,3 +159,69 @@ def test_cuda_contract_is_checked_before_any_launch(bad, match):
     xs, ws, xt, wt, c, _ = (torch.from_numpy(a) for a in _inputs(5, R, D, K))
     with pytest.raises(ValueError, match=match):
         tpc._cuda_inputs(xs, ws, xt, wt, c)
+
+
+# The launch plan of the CUDA backward (`proto_bwd_plan`): chip_smoke.py
+# phase 6a's four cases, the iBOT site, and the wrapper's largest R.
+_PLAN_CASES = [(16384, 65536), (128, 65536), (1024, 65536), (1000, 1000),
+               (65535 * 64, 65536), (70, 136), (1, 8)]
+
+
+@pytest.mark.parametrize("which", ["dxs", "dws"])
+@pytest.mark.parametrize("R,K", _PLAN_CASES)
+def test_backward_plan_covers_every_tile_once(which, R, K):
+    plan = tpc.proto_bwd_plan(which, R, K, 132)
+    n_rt, n_kt = -(-R // 64), -(-K // 64)
+    own, loop = (n_rt, n_kt) if which == "dxs" else (n_kt, n_rt)
+    assert (plan.own_tiles, plan.loop_tiles) == (own, loop)
+    # the own side: warpgroup w of block b owns tile b + w * blocks_x;
+    # every tile once, the rest of the warpgroups idle
+    owned = [b + w * plan.blocks_x for b in range(plan.blocks_x)
+             for w in range(plan.groups)]
+    assert len(set(owned)) == len(owned)
+    assert set(range(own)) <= set(owned)
+    assert max(owned) < own + plan.blocks_x
+    # the loop side: the splits are split_work's, in 64-wide units, and the
+    # kernel's 32-wide tiles of each split cover it once
+    assert (plan.per, plan.splits) == tpc.split_work(own, loop, 132)
+    extent = K if which == "dxs" else R
+    streamed = []
+    for split in range(plan.splits):
+        begin = split * plan.per * 64
+        end = min(extent, begin + plan.per * 64)
+        assert begin < end                        # no split is empty
+        streamed += range(begin, end, tpc.BWD_STREAM)
+    assert streamed == list(range(0, extent, tpc.BWD_STREAM))
+    # what the card takes
+    assert plan.smem_bytes <= 232448
+    assert plan.smem_bytes == tpc.bwd_smem(plan.groups, plan.stages)
+    assert plan.stages >= 3
+    assert plan.blocks_x < 2 ** 31 and plan.splits <= 65535
+    assert plan.args() == (plan.groups, plan.stages, plan.splits, plan.per,
+                           plan.smem_bytes, plan.blocks_x)
+
+
+def test_backward_plan_groups():
+    """Two consumer warpgroups a block where their blocks fill the SMs in
+    fewer waves (the iBOT site), one where one-warpgroup blocks fit in one
+    wave already (the DINO global site); `groups` forces either."""
+    assert tpc.proto_bwd_plan("dxs", 16384, 65536).groups == 2
+    assert tpc.proto_bwd_plan("dws", 16384, 65536).groups == 2
+    assert tpc.proto_bwd_plan("dxs", 128, 65536).groups == 1
+    for groups in (1, 2):
+        plan = tpc.proto_bwd_plan("dxs", 16384, 65536, groups=groups)
+        assert plan.groups == groups
+        assert plan.blocks_x == -(-256 // groups)
+
+
+@pytest.mark.parametrize("which,R,K,groups", [
+    ("dx", 16, 64, None),
+    ("dxs", 0, 64, None),
+    ("dws", 16, 60, None),
+    ("dws", 16, 0, None),
+    ("dxs", 16, 64, 3),
+])
+def test_backward_plan_refuses_what_the_kernels_do_not_take(which, R, K,
+                                                            groups):
+    with pytest.raises(ValueError):
+        tpc.proto_bwd_plan(which, R, K, 132, groups)

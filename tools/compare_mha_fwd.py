@@ -8,7 +8,8 @@ APLA backward (`fused_apla_attn_bwd`, TPU rows 2 and 6-7); with `--kernel
 mha_bwd` the memory-efficient attention backward (`mha_bwd`, TPU row 9);
 with `--kernel int8` the W8A8 GEMM (`fused_int8_matmul`, TPU row 13); with
 `--kernel swin` the Swin window attention forward (`fused_swin_attn_fwd`,
-TPU row 3).
+TPU row 3); with `--kernel proto` the prototype cross-entropy forward and
+backward (`proto_ce_fwd`, `proto_ce_dxs`, `proto_ce_dws`, TPU rows 10-12).
 
     python3 tools/compare_mha_fwd.py --parent DIR [--kernel KIND] [--full]
 
@@ -54,6 +55,14 @@ and dW_t).
                kernel); bias N(0, 1), the stage's shift mask; yardstick
                F.scaled_dot_product_attention with bias + mask as its
                additive mask, and one torch.matmul.
+  proto        chip_smoke.py phase 6a's cases (the iBOT site R=16384, the
+               DINO global R=128, the local pairs R=1024, all at K=65536,
+               and a ragged R=K=1000), each at both teacher temperatures,
+               and the iBOT site at the collate's layout (g = 0 past the
+               masked patches); outputs ce, lse_s, lse_t, dxs, dws (values
+               that differ only in the sign of a zero are counted apart);
+               each of the three kernels timed apart; no yardstick (no
+               single PyTorch call computes them).
 
 With --full a turn also runs its checkout's `chip_smoke.py` phases and
 reports the rates: phase 7b (`mha`, `mha_bwd`: APLA "full" served at b64
@@ -63,7 +72,8 @@ served at b64, the segmenter trained and served), phases 5, 7b and 9b
 their first-step |dloss| against the plain arm), phases 10b and 8b
 (`int8`: the classifier served W8A8 and float at b64, with 10b's profile,
 and the detector, whose W8A8 artifact serves in f32), phase 8b (`swin`: the
-detector trained at b16 and served at b8 and b16).  Prints one JSON line
+detector trained at b16 and served at b8 and b16), phase 6b (`proto`: the
+DINOv2 recipe trained at b64, with its profile's proto-CE kernel ms).  Prints one JSON line
 per turn and a summary; exits non-zero without a card.
 """
 
@@ -116,8 +126,17 @@ SWIN_SHAPES = (
     ("N=64, 4 mask planes", 256, 64, 96, 0, 4),
     ("b1 window 12 (Swin-B at 384) stage 0 shifted", 64, 144, 128, 96, 0))
 SHAPES["swin"] = tuple(case[0] for case in SWIN_SHAPES)
+# (R, K, teacher temperature, g at the collate's layout): phase 6a's
+PROTO_SHAPES = tuple((r, k, tt, False) for r, k in (
+    (16384, 65536), (128, 65536), (1024, 65536), (1000, 1000))
+    for tt in (0.04, 0.07)) + ((16384, 65536, 0.04, True),)
+SHAPES["proto"] = tuple(f"R={r} K={k} tau_t={tt}"
+                        + (" collate layout" if collate else "")
+                        for r, k, tt, collate in PROTO_SHAPES)
+PROTO_KERNELS = ("fwd", "dxs", "dws")
 OUTPUTS = {"mha": ("o",), "fused": ("o",), "bwd": ("dq", "dk", "dv", "dW_t"),
-           "mha_bwd": ("dq", "dk", "dv"), "int8": ("y",), "swin": ("out",)}
+           "mha_bwd": ("dq", "dk", "dv"), "int8": ("y",), "swin": ("out",),
+           "proto": ("ce", "lse_s", "lse_t", "dxs", "dws")}
 SCALE = 0.125
 # The recipe's rank-128 index file (chip_smoke.py RECIPE): phase 4 times
 # the backward with block 0's columns.
@@ -276,6 +295,53 @@ def _swin_calls(torch, case, gen, dev):
                                                      heads, scale))
 
 
+def _proto_inputs(torch, r, k, gen, dev, collate):
+    """chip_smoke.py phase 6a's inputs: unit-norm rows xs, xt [r, 256] and
+    prototype columns ws, wt [256, k] in bf16, a center [k], g [r]; with
+    `collate`, g is 0 past the masked patches of 64 crops that each mask
+    U(0.1, 0.5) of 256."""
+    def unit(shape, dim):
+        x = torch.randn(shape, generator=gen)
+        return (x / torch.linalg.vector_norm(x, dim=dim, keepdim=True)).to(
+            dev, torch.bfloat16)
+
+    g = torch.rand(r, generator=gen) / 64
+    if collate:
+        ratios = 0.1 + 0.4 * torch.rand(64, generator=gen)
+        g[int((ratios * 256).long().sum()):] = 0
+    return (unit((r, 256), -1), unit((256, k), 0), unit((r, 256), -1),
+            unit((256, k), 0), (0.1 * torch.randn(k, generator=gen)).to(dev),
+            g.to(dev))
+
+
+def _proto_worker(torch, dev, out, saved):
+    """Phase 6a's cases in this turn's checkout: outputs saved, each
+    kernel timed apart (the forward's lse feed the backward)."""
+    from apla_tpu_torch.ops import proto_ce as pc
+    gen = torch.Generator().manual_seed(2)
+    inputs = {}
+    for r, k, tt, collate in PROTO_SHAPES:
+        if (r, k, collate) not in inputs:
+            inputs = {(r, k, collate): _proto_inputs(torch, r, k, gen, dev,
+                                                     collate)}
+        xs, ws, xt, wt, c, g = inputs[(r, k, collate)]
+        ce, ls, lt = pc.proto_ce_fwd(xs, ws, xt, wt, c, tt, 0.1)
+        bargs = (xs, ws, xt, wt, c, tt, 0.1, ls, lt, g)
+        dxs, dws = pc.proto_ce_dxs(*bargs), pc.proto_ce_dws(*bargs)
+        saved.append(tuple(x.cpu() for x in (ce, ls, lt, dxs, dws)))
+        calls = {"fwd": lambda: pc.proto_ce_fwd(xs, ws, xt, wt, c, tt, 0.1),
+                 "dxs": lambda: pc.proto_ce_dxs(*bargs),
+                 "dws": lambda: pc.proto_ce_dws(*bargs)}
+        rec = {"shape": [r, k, tt, collate]}
+        for name, call in calls.items():
+            rec[f"{name}_host_ms"] = _host_ms(torch, call, calls=20,
+                                              rounds=5)
+            rec[f"{name}_ms"] = _time_ms(torch, call, iters=10, warmup=2)
+            rec[f"{name}_graph_ms"] = _graph_ms(torch, call, calls=5)
+        out["calls"].append(rec)
+        del ce, ls, lt, dxs, dws, bargs, calls
+
+
 def _split(kernel, got):
     """A call's outputs as a tuple in OUTPUTS[kernel]'s order."""
     if kernel in ("mha", "fused", "swin"):
@@ -352,10 +418,19 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
                     torch.Generator(), dev)[0]()
     elif kernel == "swin":
         _swin_calls(torch, ("", 1, 9, 32, 0, 0), torch.Generator(), dev)[0]()
+    elif kernel == "proto":
+        from apla_tpu_torch.ops import proto_ce as pc
+        one = [torch.ones((8, 256), device=dev), torch.ones((256, 8),
+                                                           device=dev)]
+        ce, ls, lt = pc.proto_ce_fwd(*one, *one, torch.zeros(8, device=dev),
+                                     0.04, 0.1)
+        pc.proto_ce_dxs(*one, *one, torch.zeros(8, device=dev), 0.04, 0.1,
+                        ls, lt, ce)
     else:
         _calls(torch, kernel, 1, 1, 64, torch.Generator(), dev)[0]()
     out["build_s"] = time.perf_counter() - t0
-    cases = {"int8": (), "swin": SWIN_SHAPES}.get(kernel, SHAPES[kernel])
+    cases = {"int8": (), "proto": (), "swin": SWIN_SHAPES}.get(
+        kernel, SHAPES[kernel])
     for case in cases:
         if kernel == "swin":
             call, library, plain = _swin_calls(torch, case, gen, dev)
@@ -380,6 +455,8 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
                                  else _graph_ms(torch, library))})
     if kernel == "int8":
         _int8_worker(torch, dev, out, saved)
+    if kernel == "proto":
+        _proto_worker(torch, dev, out, saved)
     torch.save(saved, outputs)
     if full:
         spec = importlib.util.spec_from_file_location(
@@ -397,7 +474,10 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
                              if "vs plain arm: |dloss|" in ln
                              or (kernel == "int8" and (
                                  ln.startswith("[10b w8a8]")
-                                 or "W8A8 artifact" in ln))]
+                                 or "W8A8 artifact" in ln))
+                             or (kernel == "proto" and (
+                                 "profile by group" in ln
+                                 or "profile, fused arm" in ln))]
         print(log.getvalue()[-20000:], file=sys.stderr)
     return out
 
@@ -425,6 +505,10 @@ def _phases(smoke, kernel, dev, out):
         _, det = smoke.phase_det(dev)
         out["det_img_s"] = {f"{what} {name}": r for (what, name), (r, _)
                             in sorted(det.items())}
+    if kernel == "proto":
+        launches, ssl = smoke.phase_ssl(dev)
+        out["ssl_img_s"] = {name: r for name, (r, _) in sorted(ssl.items())}
+        out["ssl_launches"] = list(launches)
     if kernel in ("fused", "bwd"):
         _, seg = smoke.phase_seg(dev)
         out["seg_img_s"] = {f"{what} {name}": r for (what, name), (r, _)
@@ -440,7 +524,7 @@ def main() -> int:
     ap.add_argument("--full", action="store_true",
                     help="also run each checkout's chip_smoke phases (mha, "
                          "mha_bwd: 7b; fused: 3 and 9b; bwd: 5, 7b, 9b; "
-                         "int8: 10b and 8b; swin: 8b)")
+                         "int8: 10b and 8b; swin: 8b; proto: 6b)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--outputs", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -480,13 +564,33 @@ def main() -> int:
     yard = {"mha": "SDPA", "fused": "SDPA + matmul",
             "bwd": "autograd through SDPA + matmul",
             "mha_bwd": "SDPA's autograd", "int8": "torch._int_mm",
-            "swin": "SDPA (bias + mask) + matmul"}[args.kernel]
+            "swin": "SDPA (bias + mask) + matmul", "proto": None}[args.kernel]
     for i, shape in enumerate(SHAPES[args.kernel]):
         cells = []
         for j, name in enumerate(OUTPUTS[args.kernel]):
-            same = (outs[1][i][j] == outs[0][i][j]).float().mean().item()
-            cells.append(f"{name}: this == parent for {same:.6%} of the "
-                         "values")
+            a, b = outs[1][i][j], outs[0][i][j]
+            bits = (a.view(torch.int32) == b.view(torch.int32)) \
+                if a.dtype == torch.float32 else (a == b)
+            same = bits.float().mean().item()
+            zeros = int(((a == b) & ~bits).sum())
+            cells.append(f"{name}: this == parent bit for bit for "
+                         f"{same:.6%} of the values"
+                         + (f" ({zeros} more equal as values: +0 / -0)"
+                            if zeros else ""))
+        if args.kernel == "proto":
+            runs = all(torch.equal(outs[1][i][j], outs[2][i][j])
+                       and torch.equal(outs[0][i][j], outs[3][i][j])
+                       for j in range(len(OUTPUTS[args.kernel])))
+            cells.append(f"reruns bit-equal: {runs}")
+            for kern in PROTO_KERNELS:
+                for key in ("ms", "graph_ms", "host_ms"):
+                    for who in ("parent", "this"):
+                        vals = [t["calls"][i][f"{kern}_{key}"] for t in turns
+                                if t["turn"] == who]
+                        cells.append(f"{kern} {who} {key} " + "/".join(
+                            f"{v:.4f}" for v in vals))
+            print(f"{shape}: " + ", ".join(cells))
+            continue
         runs = all(torch.equal(outs[1][i][j], outs[2][i][j])
                    and torch.equal(outs[0][i][j], outs[3][i][j])
                    for j in range(len(OUTPUTS[args.kernel])))
@@ -521,7 +625,8 @@ def main() -> int:
                 f"{k} {t[k]}" for k in ("full_serve_img_s",
                                         "full_train_img_s", "serve_img_s",
                                         "train_img_s", "seg_img_s",
-                                        "w8a8_img_s", "det_img_s")
+                                        "w8a8_img_s", "det_img_s",
+                                        "ssl_img_s", "ssl_launches")
                 if k in t))
             for line in t.get("first_step", []):
                 print(f"  {line}")
