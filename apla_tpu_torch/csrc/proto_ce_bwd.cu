@@ -81,34 +81,17 @@
 // Skipped work contributes +-0 terms only, so a dws or dxs value can
 // differ from the earlier kernel's in the sign of a zero at most.
 
-#include "sm90_async.cuh"
-
-#include <math.h>
+#include "proto_ce_sm90.cuh"
 
 namespace {
 
-using namespace sm90;
-typedef __nv_bfloat16 bf16;
+using namespace proto;
 
-constexpr int D = 256;                     // bottleneck width
-constexpr int OWN = 64;                    // own rows / columns a warpgroup
-constexpr int BT = 32;                     // streamed columns / rows a tile
-constexpr int UNIT = 64;                   // the partials' boundaries
-constexpr int WG_THREADS = 128;
 constexpr int OWN_BYTES = OWN * D * 2;     // 32 KB: one x or w own tile
-constexpr int HALF_STAGE = BT * D * 2;     // 16 KB: one streamed tile
-constexpr int STAGE_BYTES = 2 * HALF_STAGE;          // s and t
 constexpr int BOX_X = OWN * 64 * 2;        // dxs: an own box [64, 64]
 constexpr int BOX_XS = BT * 64 * 2;        // dws: a streamed box [32, 64]
 constexpr int STAT_BYTES = BT * 16;        // a stage's side data
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
-
-// The launch plan of ops/proto_ce.py:proto_bwd_plan, as the C entries take
-// it (one int array).
-struct Plan {
-  int groups, stages, splits, per, smem, blocks_x;
-};
 
 struct Args {
   const float* c;
@@ -131,17 +114,6 @@ __host__ __device__ constexpr int smem_bytes(int groups, int stages) {
   return 1024 + groups * 2 * OWN_BYTES + stages * (STAGE_BYTES + STAT_BYTES)
          + 256;
 }
-
-// A position in the ring: the slot and the parity of its fill.
-struct Ring {
-  int slot, phase;
-  __device__ __forceinline__ void next(int stages) {
-    if (++slot == stages) {
-      slot = 0;
-      phase ^= 1;
-    }
-  }
-};
 
 // gs = g / tau_s of `row` (0 at or past R), as the products read it.
 __device__ __forceinline__ float row_gs(const Args& a, int row) {
@@ -177,19 +149,6 @@ __device__ __forceinline__ float ds_of(float s, float t, float cv, bool ok,
 __device__ __forceinline__ uint64_t opaque(uint64_t d) {
   asm volatile("" : "+l"(d));
   return d;
-}
-
-// Hand the producer warpgroup's registers to the consumers: with two
-// consumer warpgroups the launch gives each thread 168 (65536 over 384
-// threads); the producer needs few, the consumers' accumulators many.
-template <int WG>
-__device__ __forceinline__ void producer_regs() {
-  if (WG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-}
-
-template <int WG>
-__device__ __forceinline__ void consumer_regs() {
-  if (WG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
 }
 
 // The first k16 step overwrote the accumulator (a zeroed one, written by
@@ -298,21 +257,8 @@ proto_ce_dxs_kernel(const __grid_constant__ CUtensorMap xsmap,
         }
       }
     }
-    Ring r = {0, 0};
-    for (int i = 0; i < n; ++i, r.next(a.stages)) {
-      if (i >= a.stages) mbar_wait(empty + r.slot, r.phase ^ 1);
-      // lane l: the center at column l of the tile, then its arrival
-      const int col0 = c_begin + BT * i, col = col0 + lane;
-      cen[r.slot * BT + lane] = col < a.K ? __ldg(a.c + col) : 0.f;
-      if (lane == 0) {
-        uint8_t* st = ring + r.slot * STAGE_BYTES;
-        mbar_expect_tx(full + r.slot, STAGE_BYTES);
-        tma_load_3d(st, &wsmap, full + r.slot, col0, 0, 0);
-        tma_load_3d(st + HALF_STAGE, &wtmap, full + r.slot, col0, 0, 0);
-      } else {
-        mbar_arrive(full + r.slot);
-      }
-    }
+    stream_w(ring, cen, full, empty, &wsmap, &wtmap, a.c, a.K, c_begin, n,
+             a.stages, lane);
     return;
   }
   consumer_regs<WG>();
@@ -650,11 +596,8 @@ int launch(const void* xs, const void* ws, const void* xt, const void* wt,
            const void* c, const void* lse_s, const void* lse_t,
            const void* g, void* dst, void* part, int R, int K,
            const int* plan_ints, float inv_ts, float tau_t, void* stream) {
-  const Plan p = {plan_ints[0], plan_ints[1], plan_ints[2], plan_ints[3],
-                  plan_ints[4], plan_ints[5]};
-  if ((p.groups != 1 && p.groups != 2) || p.stages < 1
-      || p.smem < smem_bytes(p.groups, p.stages))
-    return 2000;
+  const Plan p = Plan::from(plan_ints);
+  if (!p.valid(smem_bytes(p.groups, p.stages))) return 2000;
   cudaStream_t st = (cudaStream_t)stream;
   CUtensorMap maps[4];
   const bf16* x[2] = {static_cast<const bf16*>(xs),
@@ -666,9 +609,7 @@ int launch(const void* xs, const void* ws, const void* xt, const void* wt,
     err = encode_3d(maps + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x[i], D, R,
                     1, 2ull * D, 2ull * D * R, 64, DXS ? OWN : BT);
   for (int i = 0; i < 2 && err == 0; ++i)
-    err = DXS ? encode_3d(maps + 2 + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                          w[i], K, D, 1, 2ull * K, 2ull * K * D, BT, D,
-                          CU_TENSOR_MAP_SWIZZLE_64B)
+    err = DXS ? encode_w_stream(maps + 2 + i, w[i], K)
               : encode_3d(maps + 2 + i, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                           w[i], K, D, 1, 2ull * K, 2ull * K * D, 64, D);
   if (err != 0) return 1000 + err;

@@ -99,6 +99,13 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Bring a tensor map (a kernel parameter's address) into the cache that
+// TMA reads it from, ahead of its first load.
+__device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"((uint64_t)map)
+               : "memory");
+}
+
 // Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
 // global memory into shared memory; completion is counted on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -376,17 +383,19 @@ __device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
-// d (64 x 32 f32) += A (64 x 16 bf16 from registers, a[4]) B (16 x 32,
-// MN-major 64-byte-swizzled tile in shared memory).
+// d (64 x 32 f32) (+)= A (64 x 16 bf16 from registers, a[4]) B (16 x 32,
+// MN-major 64-byte-swizzled tile in shared memory); accumulate = 0
+// overwrites d.
 __device__ __forceinline__ void wgmma_rs32(float* d, const uint32_t (&a)[4],
-                                           uint64_t b) {
+                                           uint64_t b, int accumulate = 1) {
   asm volatile(
-      "{\n .reg .pred p;\n setp.eq.u32 p, 1, 1;\n"
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16"
       " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
       " %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : SM90_R8(0), SM90_R8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
 }
 
 // d (64 x 256 f32) (+)= A (64 x 16 bf16 from registers, a[4]) B (16 x

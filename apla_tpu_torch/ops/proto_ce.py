@@ -9,17 +9,20 @@ weight-normalised prototype layers `ws`, `wt` [D, K]:
   ce = lse_s - sum_k softmax(t)_k s_k
 
 with the inputs rounded to bf16 and the products and logits in f32.  Three
-hand-written CUDA kernels replace the TPU kernels:
+hand-written CUDA kernels replace the TPU kernels, all TMA and `wgmma`, a
+producer warp streaming one side through a ring of 32-wide tiles and one or
+two consumer warpgroups a block, each owning 64 rows (forward, dxs) or
+prototype columns (dws):
 
 - `csrc/proto_ce_fwd.cu` replaces `pallas_proto_ce.py:_fwd_kernel`: ce and
-  both log-sum-exps, by online softmax over streamed prototype tiles;
+  both log-sum-exps by online softmax over the streamed prototype tiles,
+  the rows held in registers as the logits' A operand; `proto_fwd_plan`
+  lays it out;
 - `csrc/proto_ce_bwd.cu` replaces `_dxs_kernel` (dxs = ds ws^T) and
   `_dws_kernel` (dws = xs^T ds), each recomputing the logits from the saved
-  log-sum-exps, with ds = bf16(g (p_s - p_t) / tau_s): TMA and `wgmma`, a
-  producer warp and one or two consumer warpgroups a block, each owning 64
-  rows (dxs) or prototype columns (dws) and streaming the other side in
-  32-wide tiles, ds kept in registers as the product's A operand; a dws
-  row tile whose g are all 0 is skipped.  `proto_bwd_plan` lays them out.
+  log-sum-exps, with ds = bf16(g (p_s - p_t) / tau_s) kept in registers as
+  the product's A operand; a dws row tile whose g are all 0 is skipped.
+  `proto_bwd_plan` lays them out.
 
 `proto_ce_fwd`, `proto_ce_dxs` and `proto_ce_dws` are the wrappers: on a CPU
 tensor they run the plain PyTorch versions below (`*_reference`), on a CUDA
@@ -46,21 +49,27 @@ FWD_SOURCE = "proto_ce_fwd.cu"
 BWD_SOURCE = "proto_ce_bwd.cu"
 BOTTLENECK = 256        # the kernels' D (every DINOv2 recipe's bottleneck)
 _TILE = 64              # rows / prototype columns per kernel tile
-# The backward's launch plan (`proto_bwd_plan`), in the units of
-# `csrc/proto_ce_bwd.cu`: a consumer warpgroup owns a 64-wide tile (dxs:
-# rows, dws: prototype columns) and holds its s and t operands (64 KB); a
-# ring stage holds one 32-wide streamed tile of each (32 KB) and, for dws,
-# its rows' statistics (512 bytes); 1 KB aligns the base, 256 bytes hold
-# the barriers.
-BWD_STREAM = 32
+# The launch plans (`proto_fwd_plan`, `proto_bwd_plan`), in the units of
+# `csrc/proto_ce_{fwd,bwd}.cu`: a consumer warpgroup owns a 64-wide tile
+# (forward, dxs: rows, dws: prototype columns); a ring stage holds one
+# 32-wide streamed tile of each of s and t (32 KB).  The backward holds its
+# consumers' s and t operands in shared memory (64 KB each) and beside each
+# stage its side data (512 bytes); the forward holds its rows in registers,
+# and a stage's 32 centers (128 bytes).  1 KB aligns the base, 256 bytes
+# hold the barriers.
+STREAM = 32
+STAGE_BYTES = 2 * STREAM * BOTTLENECK * 2
 BWD_OWN_BYTES = 2 * _TILE * BOTTLENECK * 2
-BWD_STAGE_BYTES = 2 * BWD_STREAM * BOTTLENECK * 2 + BWD_STREAM * 16
+BWD_STAGE_BYTES = STAGE_BYTES + STREAM * 16
+FWD_STAGE_BYTES = STAGE_BYTES + STREAM * 4
 BWD_MAX_STAGES = 5
+FWD_MAX_STAGES = 6
 # A block of two consumer warpgroups takes this many times the time of a
 # block of one for twice its work (the two share the SM's tensor cores and
 # hide each other's exponentials): set from `chip_smoke.py` phase 6a's
 # one-group and two-group times at the iBOT site, 1.46 (dws) and 1.59
-# (dxs) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
+# (dxs) on an NVIDIA H100 80GB HBM3 at 700 W; the forward's read about
+# the same (PERF.md §6).
 TWO_GROUP_COST = 1.5
 MAX_SPLITS = 65535      # the grid's y extent
 
@@ -122,11 +131,10 @@ def proto_ce_dws_reference(xs, ws, xt, wt, center, teacher_temp: float,
 @functools.cache
 def _fwd_library():
     lib = load_library(FWD_SOURCE)
-    lib.proto_ce_fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+    lib.proto_ce_fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+                                 + [ctypes.POINTER(ctypes.c_int)]
                                  + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     lib.proto_ce_fwd.restype = ctypes.c_int
-    lib.proto_ce_fwd_smem_bytes.argtypes = []
-    lib.proto_ce_fwd_smem_bytes.restype = ctypes.c_longlong
     lib.proto_ce_fwd_prepare.argtypes = [ctypes.c_int]
     lib.proto_ce_fwd_prepare.restype = ctypes.c_int
     return lib
@@ -160,15 +168,22 @@ def bwd_smem(groups: int, stages: int) -> int:
     return 1024 + groups * BWD_OWN_BYTES + stages * BWD_STAGE_BYTES + 256
 
 
+def fwd_smem(stages: int) -> int:
+    """Dynamic shared memory of a forward block (`smem_bytes` in
+    `csrc/proto_ce_fwd.cu`), whatever its warpgroups."""
+    return 1024 + stages * FWD_STAGE_BYTES + 256
+
+
 @dataclasses.dataclass(frozen=True)
-class ProtoBwdPlan:
-    """How a backward kernel covers its work.  The own side (dxs: the row
-    tiles, dws: the prototype column tiles, 64 wide) is dealt to consumer
-    warpgroups, `groups` a block: warpgroup w of block b owns tile b + w *
-    `blocks_x`.  The loop side (dxs: the prototype columns, dws: the rows)
-    is cut into `splits` ranges of `per` 64-wide units (`split_work`'s
-    boundaries, whatever the streamed width), each summed into a partial
-    when there are several.  `stages`: the ring of streamed tiles."""
+class ProtoPlan:
+    """How a prototype-CE kernel covers its work.  The own side (forward
+    and dxs: the row tiles, dws: the prototype column tiles, 64 wide) is
+    dealt to consumer warpgroups, `groups` a block: warpgroup w of block b
+    owns tile b + w * `blocks_x`.  The loop side (forward and dxs: the
+    prototype columns, dws: the rows) is cut into `splits` ranges of `per`
+    64-wide units (`split_work`'s boundaries, whatever the streamed width),
+    each summed into a partial when there are several.  `stages`: the ring
+    of streamed tiles."""
     which: str
     own_tiles: int
     loop_tiles: int
@@ -191,22 +206,12 @@ class ProtoBwdPlan:
                 f"{self.smem_bytes} bytes of shared memory")
 
 
-@functools.lru_cache(maxsize=256)
-def proto_bwd_plan(which: str, R: int, K: int, n_sm: int = SMS,
-                   groups: int | None = None) -> ProtoBwdPlan:
-    """The launch plan of `which` ("dxs" or "dws") at R rows and K
-    prototypes on a card of `n_sm` SMs, a pure function of the shape.  The
-    splits are `split_work`'s over 64-wide tiles.  Two warpgroups a block
-    unless the blocks of one fill the SMs in fewer waves by more than
-    TWO_GROUP_COST (`groups` forces the choice).  Raises ValueError for a
-    shape the kernels do not take."""
-    if which not in ("dxs", "dws"):
-        raise ValueError(f"no backward kernel {which!r}")
-    if R < 1 or K < 8 or K % 8:
-        raise ValueError(f"the kernels take R >= 1 and K a multiple of 8; "
-                         f"got R={R}, K={K}")
-    n_rt, n_kt = -(-R // _TILE), -(-K // _TILE)
-    own, loop = (n_rt, n_kt) if which == "dxs" else (n_kt, n_rt)
+def _plan(which, own, loop, n_sm, groups, smem, max_stages, stage_bytes):
+    """The plan of a kernel whose own side has `own` 64-wide tiles and loop
+    side `loop`: splits by `split_work`; two warpgroups a block unless the
+    blocks of one fill the SMs in fewer waves by more than TWO_GROUP_COST
+    (`groups` forces the choice); as many stages as fit, up to
+    `max_stages`; `smem(groups, stages)` the block's shared memory."""
     per, splits = split_work(own, loop, n_sm)
     if groups is None:
         def waves(blocks):
@@ -215,20 +220,56 @@ def proto_bwd_plan(which: str, R: int, K: int, n_sm: int = SMS,
             * TWO_GROUP_COST < waves(own * splits) else 1
     if groups not in (1, 2):
         raise ValueError(f"one or two warpgroups a block, not {groups}")
-    stages = min(BWD_MAX_STAGES,
-                 (BLOCK_SMEM - bwd_smem(groups, 0)) // BWD_STAGE_BYTES)
+    stages = min(max_stages,
+                 (BLOCK_SMEM - smem(groups, 0)) // stage_bytes)
     blocks_x = -(-own // groups)
     if splits > MAX_SPLITS or blocks_x >= 2 ** 31:
-        raise ValueError(f"R={R}, K={K} outside the kernels' grid")
-    return ProtoBwdPlan(which=which, own_tiles=own, loop_tiles=loop,
-                        groups=groups, blocks_x=blocks_x, splits=splits,
-                        per=per, stages=stages,
-                        smem_bytes=bwd_smem(groups, stages))
+        raise ValueError(f"{own} x {loop} tiles outside the kernels' grid")
+    return ProtoPlan(which=which, own_tiles=own, loop_tiles=loop,
+                     groups=groups, blocks_x=blocks_x, splits=splits,
+                     per=per, stages=stages,
+                     smem_bytes=smem(groups, stages))
+
+
+def _check_shape(R, K):
+    if R < 1 or K < 8 or K % 8:
+        raise ValueError(f"the kernels take R >= 1 and K a multiple of 8; "
+                         f"got R={R}, K={K}")
+    return -(-R // _TILE), -(-K // _TILE)
+
+
+@functools.lru_cache(maxsize=256)
+def proto_fwd_plan(R: int, K: int, n_sm: int = SMS,
+                   groups: int | None = None) -> ProtoPlan:
+    """The forward's launch plan at R rows and K prototypes on a card of
+    `n_sm` SMs, a pure function of the shape: warpgroups own the row tiles,
+    the blocks split K at `split_work`'s 64-wide boundaries.  Raises
+    ValueError for a shape the kernel does not take."""
+    n_rt, n_kt = _check_shape(R, K)
+    return _plan("fwd", n_rt, n_kt, n_sm, groups,
+                 lambda g, stages: fwd_smem(stages), FWD_MAX_STAGES,
+                 FWD_STAGE_BYTES)
+
+
+@functools.lru_cache(maxsize=256)
+def proto_bwd_plan(which: str, R: int, K: int, n_sm: int = SMS,
+                   groups: int | None = None) -> ProtoPlan:
+    """The launch plan of `which` ("dxs" or "dws") at R rows and K
+    prototypes on a card of `n_sm` SMs, a pure function of the shape.  The
+    splits are `split_work`'s over 64-wide tiles.  Raises ValueError for a
+    shape the kernels do not take."""
+    if which not in ("dxs", "dws"):
+        raise ValueError(f"no backward kernel {which!r}")
+    n_rt, n_kt = _check_shape(R, K)
+    own, loop = (n_rt, n_kt) if which == "dxs" else (n_kt, n_rt)
+    return _plan(which, own, loop, n_sm, groups, bwd_smem, BWD_MAX_STAGES,
+                 BWD_STAGE_BYTES)
 
 
 @functools.lru_cache(maxsize=256)
 def _plan_ints(which: str, R: int, K: int, n_sm: int, groups):
-    plan = proto_bwd_plan(which, R, K, n_sm, groups)
+    plan = proto_fwd_plan(R, K, n_sm, groups) if which == "fwd" \
+        else proto_bwd_plan(which, R, K, n_sm, groups)
     return plan, plan_array(plan.args())
 
 
@@ -266,38 +307,44 @@ def _cuda_inputs(xs, ws, xt, wt, center, rows=()):
     return out
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _raise_on(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
-def _launch_fwd(xs, ws, xt, wt, center, teacher_temp, student_temp):
+def _launch_fwd(xs, ws, xt, wt, center, teacher_temp, student_temp,
+                groups=None):
     xs, ws, xt, wt, c = _cuda_inputs(xs, ws, xt, wt, center)
     lib = _fwd_library()
     dev = device_index(xs)
-    check_smem(lib.proto_ce_fwd_smem_bytes(),
-               device_smem(_fwd_library, "proto_ce_fwd_prepare", dev),
-               "the forward")
     R, K = xs.shape[0], ws.shape[1]
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    per, n_split = split_work(-(-R // _TILE), -(-K // _TILE), n_sm)
-    part = torch.empty((5, 2 * n_split, R), dtype=torch.float32,
-                       device=xs.device)
+    plan, ints = _plan_ints("fwd", R, K, n_sm, groups)
+    check_smem(plan.smem_bytes,
+               device_smem(_fwd_library, "proto_ce_fwd_prepare", dev),
+               "the forward")
+    part = torch.empty((5, 2 * plan.splits, R) if plan.splits > 1 else (1,),
+                       dtype=torch.float32, device=xs.device)
     ce, lse_s, lse_t = (torch.empty(R, dtype=torch.float32, device=xs.device)
                         for _ in range(3))
-    with torch.cuda.device(dev):
+    with launch_context(xs) as stream:
         err = lib.proto_ce_fwd(
             xs.data_ptr(), ws.data_ptr(), xt.data_ptr(), wt.data_ptr(),
             c.data_ptr(), part.data_ptr(), ce.data_ptr(), lse_s.data_ptr(),
-            lse_t.data_ptr(), R, K, n_split, per, 1.0 / float(student_temp),
-            float(teacher_temp), _stream(dev))
+            lse_t.data_ptr(), R, K, ints, 1.0 / float(student_temp),
+            float(teacher_temp), stream)
     _raise_on(err, "proto_ce_fwd")
-    proto_ce_fwd.launches += 1
     return ce, lse_s, lse_t
+
+
+def proto_ce_fwd_launch(xs, ws, xt, wt, center, teacher_temp: float,
+                        student_temp: float, groups: int):
+    """`proto_ce_fwd` on CUDA tensors with `groups` consumer warpgroups a
+    block, whatever `proto_fwd_plan` would choose; not counted in the
+    wrapper's launches.  For timing the two block shapes against each
+    other (`chip_smoke.py` phase 6a)."""
+    return _launch_fwd(xs, ws, xt, wt, center, teacher_temp, student_temp,
+                       groups)
 
 
 def _launch_bwd(which, xs, ws, xt, wt, center, teacher_temp, student_temp,
@@ -352,7 +399,9 @@ def proto_ce_fwd(xs, ws, xt, wt, center, teacher_temp: float,
     if not _on_device(xs, "prototype CE"):
         return proto_ce_fwd_reference(xs, ws, xt, wt, center, teacher_temp,
                                       student_temp)
-    return _launch_fwd(xs, ws, xt, wt, center, teacher_temp, student_temp)
+    out = _launch_fwd(xs, ws, xt, wt, center, teacher_temp, student_temp)
+    proto_ce_fwd.launches += 1
+    return out
 
 
 proto_ce_fwd.launches = 0

@@ -48,10 +48,14 @@ and raise on failure:
                sites (iBOT R=16384, DINO global R=128, pair-expanded local
                R=1024; K=65536), a ragged case, and the iBOT site at the
                collate's layout (g = 0 past the masked patches), at two
-               teacher temperatures, with five fault controls; timed at
+               teacher temperatures, with six fault controls (one drops a
+               streamed tile from the forward); the launch plans; timed at
                the iBOT site (events and a CUDA graph), at both layouts,
-               the backward also with one and two consumer warpgroups a
-               block.
+               each kernel also with one and two consumer warpgroups a
+               block (the forward's L2 -> SM rate from its bytes), beside
+               the bound and, for the forward, a multi-call PyTorch
+               yardstick (two bf16 matmuls, logsumexp and the
+               softmax-weighted sum in f32).
   6b. ssl    — the ISIC2019 DINOv2 recipe (ViT-B/14 APLA-128, DINO + iBOT
                heads over 65536 prototypes, KoLeo, device multi-crop) on
                Synthetic data through DINOv2Wrapper -> Dinov2Trainer.train()
@@ -383,6 +387,10 @@ PROTO_CASES = ((16384, 65536), (128, 65536), (1024, 65536), (1000, 1000))
 # U(0.1, 0.5) of its 256 patches, ssl/dinov2.py), zeros after them; drawn
 # from the seed, ~30% of the rows.
 PROTO_COLLATE = (16384, 65536)
+# The forward's own fault control (a streamed tile of 32 prototype columns
+# left out of the statistics) runs at the ragged case, where one tile holds
+# ~3% of a row's softmax mass: lse moves by ~3e-2 against a bound of ~7e-3.
+PROTO_FWD_CONTROL = (1000, 1000)
 PROTO_FWD_REL_TOL = 1e-3
 PROTO_TEMPS = (0.04, 0.07)
 STUDENT_TEMP = 0.1
@@ -2593,6 +2601,49 @@ def _proto_controls(kernels, args, tt, got, ref, collate):
                              f"kernel ({name})")
 
 
+def _fwd_tile_control(args, tt):
+    """The forward's outputs when one streamed tile of 32 prototype columns
+    is left out of its statistics, against the plain outputs of all K: the
+    kernel on ws, wt, c without that tile (the one holding the most of the
+    rows' student softmax mass), as a kernel that skipped a tile would
+    compute.  The bound must catch it in both log-sum-exps."""
+    from apla_tpu_torch.ops import proto_ce as pc
+    xs, ws, xt, wt, c, _ = args
+    ref = pc.proto_ce_fwd_reference(xs, ws, xt, wt, c, tt, STUDENT_TEMP)
+    s, _ = pc._logits(xs, ws, xt, wt, c, tt, STUDENT_TEMP)
+    mass = torch.softmax(s, dim=-1).sum(dim=0)
+    k = mass.shape[0]
+    tile = int(torch.nn.functional.pad(mass, (0, -k % 32)).reshape(-1, 32)
+               .sum(dim=1).argmax())
+    keep = torch.ones(k, dtype=torch.bool, device=ws.device)
+    keep[32 * tile:32 * tile + 32] = False
+    got = pc.proto_ce_fwd(xs, ws[:, keep].contiguous(), xt,
+                          wt[:, keep].contiguous(), c[keep], tt,
+                          STUDENT_TEMP)
+    errs = _proto_errors(got, ref)
+    caught = all(errs[n][0] > errs[n][1] for n in ("lse_s", "lse_t"))
+    print(f"[6a proto_ce] control forward tile {tile} (columns {32 * tile}"
+          f"-{32 * tile + 31}) dropped, R={xs.shape[0]} K={k} tau_t={tt}: "
+          + ", ".join(f"{n} {e:.6g} (bound {b:.6g})"
+                      for n, (e, b) in errs.items())
+          + f" -> {'caught' if caught else 'NOT CAUGHT'} in "
+          f"['lse_s', 'lse_t']")
+    if not caught:
+        raise SystemExit("the prototype-CE forward bound misses a dropped "
+                         "tile")
+
+
+def _proto_library(xs, ws, xt, wt, c, tt):
+    """The forward's function by PyTorch calls (not one call, and not the
+    kernel's bits: the products are rounded to bf16): two bf16 matmuls,
+    then logsumexp and the softmax-weighted sum in f32."""
+    s = torch.matmul(xs, ws).float().mul_(1.0 / STUDENT_TEMP)
+    t = torch.matmul(xt, wt).float().sub_(c).div_(tt)
+    lse_s = torch.logsumexp(s, dim=-1)
+    ce = lse_s - (torch.softmax(t, dim=-1) * s).sum(dim=-1)
+    return ce, lse_s, torch.logsumexp(t, dim=-1)
+
+
 def phase_proto_ce(device):
     from apla_tpu_torch.ops import proto_ce as pc
     kernels = (pc.proto_ce_fwd, pc.proto_ce_dxs, pc.proto_ce_dws)
@@ -2619,15 +2670,19 @@ def phase_proto_ce(device):
             _proto_controls(kernels, args, PROTO_TEMPS[-1], got, ref,
                             collate)
         del ref, got
-    for which in ("dxs", "dws"):
-        for (r, k), _ in cases[:-1]:
-            print(f"[6a proto_ce] plan R={r} K={k}: "
-                  + pc.proto_bwd_plan(which, r, k, _sm_count(device))
-                  .describe())
+        if (r, k) == PROTO_FWD_CONTROL and not collate:
+            _fwd_tile_control(args, PROTO_TEMPS[-1])
+    n_sm = _sm_count(device)
+    for (r, k), _ in cases[:-1]:
+        for plan in (pc.proto_fwd_plan(r, k, n_sm),
+                     pc.proto_bwd_plan("dxs", r, k, n_sm),
+                     pc.proto_bwd_plan("dws", r, k, n_sm)):
+            print(f"[6a proto_ce] plan R={r} K={k}: {plan.describe()}")
     # times at the iBOT site, g > 0 on every row and at the collate's
     # layout: kernels (events over calls one by one, and a CUDA graph),
-    # plain versions, bounds; the backward with one and with two consumer
-    # warpgroups a block (uncounted), the choice `proto_bwd_plan` makes
+    # plain versions, bounds; each kernel with one and with two consumer
+    # warpgroups a block (uncounted), the choice its plan makes; the
+    # forward beside its multi-call yardstick
     r, k = PROTO_CASES[0]
     times = {}
     for collate in (False, True):
@@ -2673,10 +2728,28 @@ def phase_proto_ce(device):
                         lambda: pc.proto_ce_bwd_launch(name, *bargs,
                                                        groups=groups),
                         iters=5, warmup=1)
-                plan = pc.proto_bwd_plan(name, r, k, _sm_count(device))
+                plan = pc.proto_bwd_plan(name, r, k, n_sm)
                 msg += (f"; one warpgroup a block {t['groups1_ms']:.4f} ms, "
                         f"two {t['groups2_ms']:.4f} ms, the plan takes "
                         f"{plan.groups}")
+            else:
+                # each block streams its split's ws and wt from L2: the
+                # bytes over the time, the L2 -> SM rate each block shape
+                # reached (the one-warpgroup blocks read twice the bytes)
+                msg += "; "
+                for groups in (1, 2):
+                    ms = _graph_ms(lambda: pc.proto_ce_fwd_launch(
+                        xs, ws, xt, wt, c, tt, STUDENT_TEMP, groups=groups),
+                        calls=5, iters=4)
+                    plan = pc.proto_fwd_plan(r, k, n_sm, groups)
+                    l2 = plan.blocks_x * -(-k // 32) * 32 * 256 * 2 * 2
+                    t[f"groups{groups}_graph_ms"] = ms
+                    t[f"groups{groups}_l2_tb_s"] = l2 / ms / 1e9
+                    msg += (f"{groups} warpgroup(s) a block: graph {ms:.4f}"
+                            f" ms, {l2 / 1e9:.2f} GB from L2 at "
+                            f"{l2 / ms / 1e9:.2f} TB/s; ")
+                msg += (f"the plan takes "
+                        f"{pc.proto_fwd_plan(r, k, n_sm).groups}")
             if collate:
                 times[name]["collate"] = {key: t[key] for key in (
                     "ms", "graph_ms", "bound_ms", "groups1_ms",
@@ -2686,6 +2759,17 @@ def phase_proto_ce(device):
                 t["plain_ms"] = _time_ms(ref_fn, iters=3, warmup=1)
                 t["max_abs_err"] = worst[name]
                 msg += f"; plain {t['plain_ms']:.4f} ms"
+                if name == "fwd":
+                    def lib():
+                        return _proto_library(xs, ws, xt, wt, c, tt)
+                    t["library_calls_graph_ms"] = _graph_ms(lib, calls=2,
+                                                            iters=3)
+                    lib_err = max((a - b).abs().max().item() for a, b in
+                                  zip(lib(), kernel()))
+                    msg += (f"; PyTorch calls (two bf16 matmuls, logsumexp, "
+                            f"softmax-weighted sum; not the same bits: "
+                            f"max|diff| {lib_err:.3g}) graph "
+                            f"{t['library_calls_graph_ms']:.4f} ms")
                 times[name] = t
             print(msg)
         del xs, ws, xt, wt, c, g, ls, lt, bargs, calls
@@ -4014,9 +4098,21 @@ def main() -> int:
                                        "bound_ms")}}
                      for (b, n), t in fwd_times.items()]},
              "fused_apla_attn_fwd_seg": fused_fwd(seg_times["fwd"]),
-             "proto_ce_fwd": {"graph_ms": proto_times["fwd"]["graph_ms"]},
+             "proto_ce_fwd": {
+                 "sources": [f"apla_tpu_torch/csrc/{src}" for src in (
+                     "proto_ce_fwd.cu", "proto_ce_sm90.cuh",
+                     "sm90_async.cuh", "mma_sm90.cuh")],
+                 "redesigned": "TMA/wgmma, the rows in registers as the "
+                               "logits' A operand",
+                 "library_calls_is": "two bf16 torch.matmul, logsumexp and "
+                                     "the softmax-weighted sum in f32 (not "
+                                     "the kernel's bits)",
+                 **{k: proto_times["fwd"][k] for k in (
+                     "graph_ms", "groups1_graph_ms", "groups2_graph_ms",
+                     "groups1_l2_tb_s", "groups2_l2_tb_s",
+                     "library_calls_graph_ms")}},
              **{name: {"sources": [f"apla_tpu_torch/csrc/{src}" for src in (
-                 "proto_ce_bwd.cu", "sm90_async.cuh")],
+                 "proto_ce_bwd.cu", "proto_ce_sm90.cuh", "sm90_async.cuh")],
                  **{k: proto_times[name.removeprefix("proto_ce_")][k]
                     for k in ("graph_ms", "groups1_ms", "groups2_ms",
                               "collate")}}

@@ -450,6 +450,65 @@ def test_proto_ce_backward_block_shapes_agree(cuda_device, which, groups):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r,k", [
+    (1000, 1000),     # ragged R and K, K split over blocks
+    (4097, 8200),     # one row past a tile, K past a 64-wide unit
+    (70, 136),        # one row tile
+    (16385, 65528),   # the iBOT width, ragged, one split
+])
+def test_proto_ce_forward_is_deterministic(cuda_device, r, k):
+    """No atomics: reruns of the forward are equal, at ragged edges too."""
+    args = _proto_inputs(cuda_device, r, k, seed=r + 3 * k)[:5]
+    a = tpc.proto_ce_fwd(*args, 0.04, 0.1)
+    b = tpc.proto_ce_fwd(*args, 0.04, 0.1)
+    for x, y in zip(a, b):
+        assert torch.isfinite(x).all()
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [300, 16384])
+def test_proto_ce_forward_reads_every_tile(cuda_device, r):
+    """A spike planted in one column of ws moves lse_s of exactly the rows
+    that see it, whichever 32-column tile holds the column: the rows with
+    xs[:, 0] = 0 get the same s there, bit for bit, the others a logit of
+    40 more.  K = 1000 ends in a tile of 8 columns; at R = 300 K is split
+    over blocks (partials merged by the second launch), at 16384 not (two
+    warpgroups a block, merged in the kernel)."""
+    k = 1000
+    xs, ws, xt, wt, c, _ = _proto_inputs(cuda_device, r, k, seed=r)
+    seen = torch.arange(r, device=cuda_device) % 3 == 0
+    xs = xs.float()
+    xs[:, 0] = torch.where(seen, 0.5, 0.0)
+    xs = xs.to(torch.bfloat16)
+    _, base, _ = tpc.proto_ce_fwd(xs, ws, xt, wt, c, 0.05, 0.1)
+    for tile in range(-(-k // 32)):
+        col = min(32 * tile + (7 * tile) % 32, k - 1)
+        spiked = ws.clone()
+        spiked[0, col] += 8.0
+        _, ls, _ = tpc.proto_ce_fwd(xs, spiked, xt, wt, c, 0.05, 0.1)
+        moved = ls != base
+        assert moved.eq(seen).all(), (tile, col)
+        assert (ls[seen] - base[seen]).min() > 20.0, (tile, col)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k", [(2048, 8192), (1000, 1000)])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_proto_ce_forward_block_shapes_agree(cuda_device, r, k, groups):
+    """One and two consumer warpgroups a block give the same bits (the
+    sum orders do not depend on the block's shape); the uncounted launch
+    leaves the wrapper's count alone."""
+    args = _proto_inputs(cuda_device, r, k, seed=11)[:5]
+    ref = tpc.proto_ce_fwd(*args, 0.04, 0.1)
+    before = tpc.proto_ce_fwd.launches
+    got = tpc.proto_ce_fwd_launch(*args, 0.04, 0.1, groups=groups)
+    assert tpc.proto_ce_fwd.launches == before
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
 def test_proto_ce_autograd_runs_the_kernels(cuda_device):
     xs, ws, xt, wt, c, g = _proto_inputs(cuda_device, 300, 2048, seed=2)
     xs, ws = xs.float().requires_grad_(), ws.float().requires_grad_()

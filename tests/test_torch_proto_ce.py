@@ -190,8 +190,8 @@ def test_backward_plan_covers_every_tile_once(which, R, K):
         begin = split * plan.per * 64
         end = min(extent, begin + plan.per * 64)
         assert begin < end                        # no split is empty
-        streamed += range(begin, end, tpc.BWD_STREAM)
-    assert streamed == list(range(0, extent, tpc.BWD_STREAM))
+        streamed += range(begin, end, tpc.STREAM)
+    assert streamed == list(range(0, extent, tpc.STREAM))
     # what the card takes
     assert plan.smem_bytes <= 232448
     assert plan.smem_bytes == tpc.bwd_smem(plan.groups, plan.stages)
@@ -225,3 +225,71 @@ def test_backward_plan_refuses_what_the_kernels_do_not_take(which, R, K,
                                                             groups):
     with pytest.raises(ValueError):
         tpc.proto_bwd_plan(which, R, K, 132, groups)
+
+
+# The forward's launch plan (`proto_fwd_plan`): warpgroups own the row
+# tiles, the blocks split K.
+@pytest.mark.parametrize("R,K", _PLAN_CASES)
+def test_forward_plan_covers_every_row_tile_once(R, K):
+    plan = tpc.proto_fwd_plan(R, K, 132)
+    n_rt, n_kt = -(-R // 64), -(-K // 64)
+    assert (plan.which, plan.own_tiles, plan.loop_tiles) == ("fwd", n_rt,
+                                                             n_kt)
+    # warpgroup w of block b owns row tile b + w * blocks_x: every tile
+    # once, the rest of the warpgroups idle
+    owned = [b + w * plan.blocks_x for b in range(plan.blocks_x)
+             for w in range(plan.groups)]
+    assert len(set(owned)) == len(owned)
+    assert set(range(n_rt)) <= set(owned)
+    assert max(owned) < n_rt + plan.blocks_x
+    # K: split_work's 64-wide units, each split streamed once in 32-wide
+    # tiles, so the partials keep the 64-wide boundaries
+    assert (plan.per, plan.splits) == tpc.split_work(n_rt, n_kt, 132)
+    streamed = []
+    for split in range(plan.splits):
+        begin = split * plan.per * 64
+        end = min(K, begin + plan.per * 64)
+        assert begin < end                        # no split is empty
+        streamed += range(begin, end, tpc.STREAM)
+    assert streamed == list(range(0, K, tpc.STREAM))
+    # what the card takes
+    assert plan.smem_bytes <= 232448
+    assert plan.smem_bytes == tpc.fwd_smem(plan.stages)
+    assert plan.stages >= 3
+    assert plan.blocks_x < 2 ** 31 and plan.splits <= 65535
+    assert plan.args() == (plan.groups, plan.stages, plan.splits, plan.per,
+                           plan.smem_bytes, plan.blocks_x)
+
+
+@pytest.mark.parametrize("R,K,groups", [
+    (16384, 65536, 2),    # iBOT: 256 one-warpgroup blocks are two waves
+    (1024, 65536, 2),     # the local pairs: 144 blocks against 72
+    (128, 65536, 1),      # the DINO global site: one wave either way
+    (1000, 1000, 1),
+    (1, 8, 1),            # one row tile
+])
+def test_forward_plan_groups_follow_the_waves(R, K, groups):
+    """Two consumer warpgroups a block where their blocks fill the SMs in
+    fewer waves by more than TWO_GROUP_COST, else one; `groups` forces
+    either, and the plan's shared memory does not depend on it."""
+    plan = tpc.proto_fwd_plan(R, K, 132)
+    assert plan.groups == groups
+    for forced in (1, 2):
+        other = tpc.proto_fwd_plan(R, K, 132, forced)
+        assert other.groups == forced
+        assert other.blocks_x == -(-plan.own_tiles // forced)
+        assert (other.splits, other.per, other.smem_bytes) == (
+            plan.splits, plan.per, plan.smem_bytes)
+
+
+@pytest.mark.parametrize("R,K,groups", [
+    (0, 64, None),
+    (16, 60, None),
+    (16, 0, None),
+    (16, 4, None),
+    (16, 64, 3),
+    (16, 64, 0),
+])
+def test_forward_plan_refuses_what_the_kernel_does_not_take(R, K, groups):
+    with pytest.raises(ValueError):
+        tpc.proto_fwd_plan(R, K, 132, groups)

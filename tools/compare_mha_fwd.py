@@ -61,8 +61,11 @@ and dW_t).
                and the iBOT site at the collate's layout (g = 0 past the
                masked patches); outputs ce, lse_s, lse_t, dxs, dws (values
                that differ only in the sign of a zero are counted apart);
-               each of the three kernels timed apart; no yardstick (no
-               single PyTorch call computes them).
+               each of the three kernels timed apart; no single PyTorch
+               call computes them: the forward's yardstick at the iBOT site
+               is several (two bf16 torch.matmul, then logsumexp and the
+               softmax-weighted sum in f32; not the kernel's bits), from a
+               CUDA graph.
 
 With --full a turn also runs its checkout's `chip_smoke.py` phases and
 reports the rates: phase 7b (`mha`, `mha_bwd`: APLA "full" served at b64
@@ -338,6 +341,14 @@ def _proto_worker(torch, dev, out, saved):
                                               rounds=5)
             rec[f"{name}_ms"] = _time_ms(torch, call, iters=10, warmup=2)
             rec[f"{name}_graph_ms"] = _graph_ms(torch, call, calls=5)
+        if (r, k, collate) == PROTO_SHAPES[0][:2] + (False,):
+            def library():
+                s = torch.matmul(xs, ws).float().div_(0.1)
+                t = torch.matmul(xt, wt).float().sub_(c).div_(tt)
+                lse_s = torch.logsumexp(s, dim=-1)
+                return (lse_s - (torch.softmax(t, dim=-1) * s).sum(dim=-1),
+                        lse_s, torch.logsumexp(t, dim=-1))
+            rec["library_graph_ms"] = _graph_ms(torch, library, calls=2)
         out["calls"].append(rec)
         del ce, ls, lt, dxs, dws, bargs, calls
 
@@ -564,7 +575,9 @@ def main() -> int:
     yard = {"mha": "SDPA", "fused": "SDPA + matmul",
             "bwd": "autograd through SDPA + matmul",
             "mha_bwd": "SDPA's autograd", "int8": "torch._int_mm",
-            "swin": "SDPA (bias + mask) + matmul", "proto": None}[args.kernel]
+            "swin": "SDPA (bias + mask) + matmul",
+            "proto": "fwd: two bf16 matmuls, logsumexp, softmax-weighted "
+                     "sum (several calls, not the same bits)"}[args.kernel]
     for i, shape in enumerate(SHAPES[args.kernel]):
         cells = []
         for j, name in enumerate(OUTPUTS[args.kernel]):
@@ -589,6 +602,11 @@ def main() -> int:
                                 if t["turn"] == who]
                         cells.append(f"{kern} {who} {key} " + "/".join(
                             f"{v:.4f}" for v in vals))
+            lib = [t["calls"][i]["library_graph_ms"] for t in turns
+                   if "library_graph_ms" in t["calls"][i]]
+            if lib:
+                cells.append(f"{yard} graph_ms {min(lib):.4f}-"
+                             f"{max(lib):.4f}")
             print(f"{shape}: " + ", ".join(cells))
             continue
         runs = all(torch.equal(outs[1][i][j], outs[2][i][j])
