@@ -5,7 +5,7 @@
 // (mha_bwd.cu, replacing pallas_mha.py:_bwd_kernel): FlashAttention-2's
 // split of the work into a query side and a key side, with the TPU
 // kernels' rounding points.  (The Swin windows, head dim 32 with bias and
-// mask, keep attn_bwd.cuh.)
+// mask, have their own kernel: swin_attn_bwd.cu.)
 //
 // Layouts: qkv [B, N, 3C] bf16 packed (q | k | v, head h at columns
 // h*64 .. h*64+63 of each third), dO [B, N, C] bf16, dqkv [B, N, 3C] bf16,
@@ -28,14 +28,14 @@
 //   key side:   per (64-row key tile, head, image), one pass over the query
 //               tiles: dk and dv from the statistics.
 //
-// Bits: every sum is the order of the mma.sync kernels these replace
-// (attn_bwd.cuh at head dim 64): the statistics online over the key tiles
-// in order, each thread's columns in j order, then quad_max / quad_sum; D
-// as `d += dp0 * p0 + dp1 * p1` in (tile, j) order, then quad_sum; p =
-// exp2f(s - ref) * inv and ds = bf16((p * (dp - D)) * scale) as the same
-// source expressions; dq over the key tiles in order, dk and dv over the
-// query tiles in order, each in one f32 accumulator with k16 steps in
-// increasing order from +0.  A wgmma accumulator gives each thread the
+// Bits: every sum is the order of the mma.sync kernels these replace (the
+// first port's attn_bwd.cuh at head dim 64): the statistics online over
+// the key tiles in order, each thread's columns in j order, then quad_max /
+// quad_sum; D as `d += dp0 * p0 + dp1 * p1` in (tile, j) order, then
+// quad_sum; p = exp2f(s - ref) * inv and ds = bf16((p * (dp - D)) *
+// scale) as the same source expressions; dq over the key tiles in order,
+// dk and dv over the query tiles in order, each in one f32 accumulator
+// with k16 steps in increasing order from +0.  A wgmma accumulator gives each thread the
 // rows and columns of an mma.sync m16n8 fragment (sm90_async.cuh), so each
 // per-thread order carries over; dq, dk, dv equal the earlier kernels' bit
 // for bit (tools/compare_mha_fwd.py --kernel bwd / mha_bwd).
@@ -173,16 +173,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // s = a b^T over the 64 head columns: a and b K-major 64 x 64 tiles

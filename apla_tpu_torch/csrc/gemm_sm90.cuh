@@ -1,8 +1,9 @@
 // A bf16 GEMM for Hopper (sm_90a) with f32 sums: TMA loads into a ring of
 // stages fed by a producer warp, two consumer warpgroups running wgmma.
-// Shared by the fused forward's projection (apla_proj_gemm.cu: out = o w)
-// and the fused backward's two GEMMs (fused_apla_attn_bwd.cu: dO = g w^T
-// and the dW_t partials o_cat^T g_t over chunks of rows).
+// Shared by the forwards' projections (apla_proj_gemm.cu, swin_attn_fwd.cu:
+// out = o w) and the backwards' two GEMMs (fused_apla_attn_bwd.cu,
+// swin_attn_bwd.cu: dO = g w^T and the dW_t partials o_cat^T g_t over
+// chunks of rows, then their fixed-order sum, dw_reduce_kernel).
 //
 //   C [M, N] = A [M, K] B [K, N] over k in [k_begin, k_end) of the block's
 //   chunk (blockIdx.z; one chunk of all K for a plain product), one f32
@@ -240,6 +241,29 @@ int launch(const CUtensorMap& amap, const CUtensorMap& bmap,
   if (k == nullptr) return 2000;
   const dim3 grid((a.N + bn - 1) / bn, (a.M + BM - 1) / BM, chunks);
   k<<<grid, NT, smem_bytes, s>>>(amap, bmap, cmap, a);
+  return (int)cudaGetLastError();
+}
+
+// out[i] = the f32 partials of a chunked launch (F32_OUT: `n_chunks`
+// slices of n values) summed in chunk order from +0: a fixed order, so
+// reruns are bit-equal.  A template only so that a file that never sums
+// partials compiles no kernel for it.
+template <int = 0>
+__global__ void dw_reduce_kernel(const float* __restrict__ part,
+                                 float* __restrict__ out, long n,
+                                 int n_chunks) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) s += part[(long)c * n + i];
+  out[i] = s;
+}
+
+// dw_reduce_kernel on `s`: 0 when queued, or a cudaError_t
+inline int reduce_chunks(const float* part, float* out, long n, int n_chunks,
+                         cudaStream_t s) {
+  dw_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(part, out, n,
+                                                               n_chunks);
   return (int)cudaGetLastError();
 }
 

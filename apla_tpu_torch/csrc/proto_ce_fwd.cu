@@ -67,13 +67,10 @@
 // launch; reruns are bit-equal.
 
 #include "proto_ce_sm90.cuh"
-#include "mma_sm90.cuh"
 
 namespace {
 
 using namespace proto;
-using mma::quad_max;
-using mma::quad_sum;
 
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int KSTEPS = D / 16;             // k16 steps of a logit

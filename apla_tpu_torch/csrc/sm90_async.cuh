@@ -169,6 +169,19 @@ __device__ __forceinline__ uint32_t swz64(int row, int col) {
   return row * 64 + ((((col >> 3) ^ (row >> 1)) & 3) << 4) + ((col & 7) << 1);
 }
 
+// The max and the sum over the quad of threads that share a row of a
+// wgmma (or mma.sync) accumulator (lanes 4g .. 4g + 3), each lane's own
+// value first.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // ---- wgmma ---------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile at `p`

@@ -47,7 +47,9 @@
 //     the 64-byte swizzle (sm90_async.cuh: swz64, desc_kmajor64,
 //     desc_mnmajor64), counted on mbarriers, rows past N zero-filled (the
 //     3-D map never reaches the next window); the pieces both attention
-//     forwards share are in attn_fwd_sm90.cuh.
+//     forwards share are in attn_fwd_sm90.cuh, those the Swin backward
+//     (swin_attn_bwd.cu) shares too, the tiles and the score terms, in
+//     swin_sm90.cuh.
 //     - "row" kernel, N <= 64 (one tile: every Swin-T window, 7 x 7 or
 //       8 x 8): mha_fwd.cu's row kernel at head dim 32 over one key tile:
 //       the item's K and V resident (two K/V sets when a block runs
@@ -78,16 +80,13 @@
 // (`parts`: the attention, the projection, or both), so a forward is one
 // call from Python.
 
-#include "attn_fwd_sm90.cuh"
+#include "swin_sm90.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
 
-using namespace attn90;
+using namespace swin90;
 typedef __nv_bfloat16 bf16;
-
-constexpr int DH = 32;                  // head dim (every Swin builder's)
-constexpr int TILE_BYTES = BM * DH * 2; // 4 KB
 
 // Shared memory (after aligning the base to 1024 bytes): two q tiles, the
 // output tile, `slots` K/V slots (K then V, 8 KB each), then the barriers.
@@ -110,82 +109,13 @@ struct Plan {
   const float* mask;    // [nW, N, N] or null
 };
 
-// The bias and mask terms of the first WD columns of key tile kt at the
-// thread's rows r_lo and r_lo + 8 (0 where a column or row lies at or past
-// N, or where there is no mask), read into registers.
-template <int WD>
-__device__ __forceinline__ void fetch_terms(float (&bt)[32], float (&mt)[32],
-                                            int kt, int r_lo, int t,
-                                            const Plan& p,
-                                            const float* __restrict__ bias_h,
-                                            const float* __restrict__ mask_w) {
-#pragma unroll
-  for (int j = 0; j < WD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = kt * BM + 8 * j + 2 * t + (e & 1);
-      const int row = r_lo + (e >> 1) * 8;
-      bt[4 * j + e] = mt[4 * j + e] = 0.0f;
-      if (col < p.N && row < p.N) {
-        const int idx = row * p.N + col;
-        bt[4 * j + e] = __ldg(bias_h + idx);
-        if (mask_w != nullptr) mt[4 * j + e] = __ldg(mask_w + idx);
-      }
-    }
-}
-
-// The first WD columns of key tile kt's scores to log2 units, exactly as
-// mma_sm90.cuh:scale_bias_mask forms them: (s * scale + bias) + mask in
-// f32 (the mask added only when there is one), then times log2(e); -inf
-// at a column or row at or past N.
-template <int WD>
-__device__ __forceinline__ void add_terms(float (&s)[32],
-                                          const float (&bt)[32],
-                                          const float (&mt)[32], int kt,
-                                          int r_lo, int t, const Plan& p,
-                                          bool masked) {
-#pragma unroll
-  for (int j = 0; j < WD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = kt * BM + 8 * j + 2 * t + (e & 1);
-      const int row = r_lo + (e >> 1) * 8;
-      float v = -INFINITY;
-      if (col < p.N && row < p.N) {
-        v = __fadd_rn(__fmul_rn(s[4 * j + e], p.scale), bt[4 * j + e]);
-        if (masked) v = __fadd_rn(v, mt[4 * j + e]);
-        v *= LOG2E;
-      }
-      s[4 * j + e] = v;
-    }
-}
-
-template <int WD>
-__device__ __forceinline__ void bias_mask(float (&s)[32], int kt, int r_lo,
-                                          int t, const Plan& p,
-                                          const float* __restrict__ bias_h,
-                                          const float* __restrict__ mask_w) {
-  float bt[32], mt[32];
-  fetch_terms<WD>(bt, mt, kt, r_lo, t, p, bias_h, mask_w);
-  add_terms<WD>(s, bt, mt, kt, r_lo, t, p, mask_w != nullptr);
-}
-
 // Stage the 64 x 32 output tile (swizzled, bf16) and store it with TMA.
 __device__ __forceinline__ void store_tile(const float (&o)[16], uint8_t* ob,
                                            const CUtensorMap* omap, int h,
                                            int qt, int b, int tid) {
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;
   if (tid == 0) tma_store_wait_read();        // the previous tile's store
   named_sync(1, NT);
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j) {
-    const int col = 8 * j + 2 * t;
-    *reinterpret_cast<uint32_t*>(ob + swz64(r0, col)) =
-        pack_bf16x2(o[4 * j], o[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(ob + swz64(r0 + 8, col)) =
-        pack_bf16x2(o[4 * j + 2], o[4 * j + 3]);
-  }
+  stage_tile(o, ob, tid);
   fence_proxy_async();
   named_sync(1, NT);
   if (tid == 0) {
@@ -273,7 +203,7 @@ swin_row_kernel(const __grid_constant__ CUtensorMap qmap,
                         desc_kmajor64(kv));
     wgmma_commit();
     float bt[32], mt[32];
-    fetch_terms<TAILN>(bt, mt, 0, r_lo, t, p, bias_h, mask_w);
+    fetch_terms<TAILN>(bt, mt, 0, r_lo, t, p.N, bias_h, mask_w);
     wgmma_wait0();
     if (tid == 0 && it + 2 < it1) load_q_of(it + 2, buf);  // buffer free
 
@@ -284,7 +214,8 @@ swin_row_kernel(const __grid_constant__ CUtensorMap qmap,
     // nothing
     uint32_t pa[4][4];
     if (warp * 16 < p.N) {
-      add_terms<TAILN>(s, bt, mt, 0, r_lo, t, p, mask_w != nullptr);
+      add_terms<TAILN>(s, bt, mt, 0, r_lo, t, p.N, p.scale,
+                       mask_w != nullptr);
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
       for (int j2 = 0; j2 < TAILN / 8; ++j2) {
@@ -402,7 +333,7 @@ swin_two_pass_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_commit();
     wgmma_wait0();
     release(kt);
-    bias_mask<64>(s, kt, r_lo, t, p, bias_h, mask_w);
+    bias_mask<64>(s, kt, r_lo, t, p.N, p.scale, bias_h, mask_w);
     online_stats<false>(s, m0, m1, l0, l1);
   }
 
@@ -421,7 +352,7 @@ swin_two_pass_kernel(const __grid_constant__ CUtensorMap qmap,
     scores_n<DH, 64>(s, dq, desc_kmajor64(slot));
     wgmma_commit();
     wgmma_wait0();
-    bias_mask<64>(s, kt, r_lo, t, p, bias_h, mask_w);
+    bias_mask<64>(s, kt, r_lo, t, p.N, p.scale, bias_h, mask_w);
     uint32_t pa[4][4];
 #pragma unroll
     for (int e = 0; e < 32; ++e)
@@ -450,14 +381,6 @@ Kernel row_kernel_for(int N) {
          : tail == 2 ? swin_row_kernel<32>
          : tail == 3 ? swin_row_kernel<48>
                      : swin_row_kernel<64>;
-}
-
-// A 3-D map of bf16 [d2][d1][d0] (row-major) with boxes of 32 elements x 64
-// rows and the 64-byte swizzle
-int encode_dh32(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
-                uint64_t d2) {
-  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, d0, d1, d2,
-                   2 * d0, 2 * d0 * d1, DH, BM, CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 }  // namespace

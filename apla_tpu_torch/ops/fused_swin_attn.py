@@ -18,11 +18,15 @@ its custom VJP.  Hand-written CUDA kernels replace the TPU kernels:
   the output is its bit for bit.  The projection's bias is added outside
   the kernels, in the output dtype.
 - `fused_swin_attn_bwd` replaces `pallas_apla_attn.py:_bwd_kernel_bias`
-  (through `_call_bwd_swin`), row 2's kernel file `csrc/fused_apla_attn_bwd.cu`
-  with `csrc/attn_bwd.cuh`'s `mma.sync` sides at head dim 32:
-  `dO = bf16(g W^T)`, p recomputed, `dq/dk/dv` packed `[B, N, 3C]`, and
-  `dW = o_cat^T g` summed in f32 over every window and row (fixed-order
-  partials: reruns are bit-equal).
+  (through `_call_bwd_swin`): `dO = bf16(g W^T)`, p recomputed, `dq/dk/dv`
+  packed `[B, N, 3C]`, and `dW = o_cat^T g` summed in f32 over every window
+  and row.  On the card that is `csrc/swin_attn_bwd.cu`'s three launches,
+  queued by one C call: the dO GEMM (`csrc/gemm_sm90.cuh`), a head-dim-32
+  TMA/`wgmma` attention over items (window, head) that reads each tile and
+  each bias and mask term once (launch plan `swin_bwd_plan`) and writes
+  dqkv and the scratch o_cat, then the dW GEMM over fixed chunks of rows
+  and the partials' fixed-order sum (reruns are bit-equal).  dqkv and dW
+  are, bit for bit, those of the first port's `mma.sync` kernel.
 
 Windows are `[B, N, 3C]` with B = images x windows, the image outermost
 (`models.swin._window_partition`), so window b's mask plane is `b mod nW`.
@@ -34,10 +38,11 @@ of the function).
 tensor they run the plain PyTorch versions below (`*_reference`), on a
 CUDA tensor they launch the kernels or raise.  Each wrapper's `launches`
 counts its calls that launched (one per call, and nothing else).
-`fused_swin_attn_fwd_part` queues the forward's launches apart, uncounted,
-for a measurement.  `FusedSwinAttention` is the autograd `Function` over
-both, with the JAX custom VJP's contract: differentiable in qkv, w and b;
-the bias and mask are frozen and get no gradient.
+`fused_swin_attn_fwd_part` and `fused_swin_attn_bwd_part` queue some of a
+call's launches, uncounted, for a measurement.  `FusedSwinAttention` is the
+autograd `Function` over both, with the JAX custom VJP's contract:
+differentiable in qkv, w and b; the bias and mask are frozen and get no
+gradient.
 """
 
 from __future__ import annotations
@@ -51,11 +56,12 @@ import torch
 from .apla_proj_gemm import apla_proj_gemm_reference, gemm_plan
 from .cuda_build import check_smem, device_index, device_smem, \
     launch_context, load_library
-from .fused_apla_attn import _BWD_SOURCE, dw_chunks
-from .mha import (BLOCK_RESERVED, SM_SMEM, SMS, attention_grads, merge_heads,
-                  plan_array, softmax_f32, split_heads)
+from .fused_apla_attn import DW_GEMM, dw_chunks
+from .mha import (BLOCK_RESERVED, BLOCK_SMEM, SM_SMEM, SMS, attention_grads,
+                  merge_heads, plan_array, softmax_f32, split_heads)
 
 _SOURCE = "swin_attn_fwd.cu"
+_BWD_SOURCE = "swin_attn_bwd.cu"
 HEAD_DIM = 32          # the Swin kernels' head dim (every Swin builder's)
 
 # The attention launch's plan (`swin_plan`), in the units of
@@ -74,6 +80,26 @@ FIXED_SMEM = 3 * TILE_BYTES + 1024 + 512
 REG_BLOCKS = {"row": 3, "two_pass": 2}
 # `parts` of `fused_swin_attn_fwd_part`: which launches a call queues
 PART_ATTN, PART_PROJ = 1, 2
+
+# The backward's attention launch (`swin_bwd_plan`), in the units of
+# `csrc/swin_attn_bwd.cu`: an input set is an item's q, k, v and dO tiles
+# (16 KB); the staged pb and ds are 8 KB each.  The row kernel (N <= 64)
+# has `sets` sets, pb and ds (where its four output tiles are staged
+# next); the tiles kernel (N > 64) an item's 4 n_t tiles, pb, ds, one
+# output tile and the statistics (three f32 per query row).  1 KB aligns
+# the base, 64 bytes hold the barriers.
+BWD_SET_BYTES = 4 * TILE_BYTES
+BWD_STAGED_BYTES = 2 * TILE_BYTES
+BWD_ROW_FIXED = 2 * BWD_STAGED_BYTES + 1024 + 64
+BWD_STAT_BYTES = 3 * TILE * 4
+# Blocks of 128 threads that the registers let one SM hold, from the
+# kernels' launch bounds (`-Xptxas=-v`, `chip_smoke.py` phase 8a): the row
+# kernel at most 128 registers, the tiles kernel 255.
+BWD_REG_BLOCKS = {"row": 4, "tiles": 2}
+# `parts` of `fused_swin_attn_bwd_part`: the dO GEMM, the attention, the
+# dW partials and their sum
+BWD_DO, BWD_ATTN, BWD_DW = 1, 2, 4
+BWD_PARTS_ALL = BWD_DO | BWD_ATTN | BWD_DW
 
 
 def _terms(bias, mask, batch):
@@ -252,6 +278,109 @@ def _plans(B: int, N: int, C: int, H: int, n_w: int):
                                   + (proj.bn, proj.stages, proj.smem_bytes))
 
 
+@dataclasses.dataclass(frozen=True)
+class SwinBwdPlan:
+    """How the backward's attention launch covers B windows x H heads.
+
+    `kind` "row" (N <= 64, one tile) runs items (window, head) in one pass
+    each, a block taking `items_per_block` consecutive items (a window's
+    heads next to each other) with `sets` input sets (2 when a block loads
+    the next item's tiles while it computes).  "tiles" (N > 64) runs one
+    item a block with all of its tiles resident in shared memory, which
+    bounds N (`BWD_MAX_TILES` tiles of 64 rows)."""
+    kind: str
+    n_tiles: int
+    items: int
+    items_per_block: int
+    blocks: int
+    sets: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+    def args(self) -> tuple:
+        """The plan as the C entry takes it (four ints)."""
+        return (int(self.kind == "tiles"), self.items_per_block, self.sets,
+                self.smem_bytes)
+
+    def describe(self) -> str:
+        return (f"{self.kind}, {self.n_tiles} tile(s) a window, "
+                f"{self.items} items, {self.items_per_block} per block, "
+                f"{self.blocks} blocks ({self.blocks_per_sm} per SM), "
+                f"{self.sets} input set(s), {self.smem_bytes} bytes of "
+                f"shared memory")
+
+
+def _bwd_smem(kind: str, n: int) -> int:
+    """Shared memory of a backward block: the row kernel with n sets, the
+    tiles kernel with n tiles a window."""
+    if kind == "row":
+        return BWD_ROW_FIXED + n * BWD_SET_BYTES
+    return (n * (BWD_SET_BYTES + BWD_STAT_BYTES) + 2 * BWD_STAGED_BYTES
+            + TILE_BYTES + 1024 + 64)
+
+
+# The most 64-row tiles a window may have on the backward's tiles kernel:
+# 12 (N <= 768; Swin-B's 12 x 12 windows at 384 have 3)
+BWD_MAX_TILES = max(n for n in range(1, 64)
+                    if _bwd_smem("tiles", n) <= BLOCK_SMEM)
+
+
+@functools.lru_cache(maxsize=256)
+def swin_bwd_plan(B: int, N: int, H: int) -> SwinBwdPlan:
+    """The backward's attention plan, a pure function of the shape, laid
+    out as `swin_plan` lays out the forward's row kernel: an item a block
+    while there are no more items than SMS x (blocks per SM), else runs of
+    items with two input sets (Swin-T b16: 3072 items at stage 0, 384 at
+    stage 3); past one tile, an item a block on the tiles kernel, up to
+    `BWD_MAX_TILES` tiles."""
+    n_t = -(-N // TILE)
+    items = B * H
+    if n_t > BWD_MAX_TILES:
+        raise ValueError(
+            f"the Swin window backward keeps a window's q, k, v and dO in "
+            f"shared memory: N={N} is {n_t} tiles of {TILE} rows, at most "
+            f"{BWD_MAX_TILES} fit (N <= {BWD_MAX_TILES * TILE})")
+    if n_t > 1:
+        smem = _bwd_smem("tiles", n_t)
+        return SwinBwdPlan(kind="tiles", n_tiles=n_t, items=items,
+                           items_per_block=1, blocks=items, sets=1,
+                           smem_bytes=smem, blocks_per_sm=min(
+                               BWD_REG_BLOCKS["tiles"],
+                               SM_SMEM // (smem + BLOCK_RESERVED)))
+
+    def per_sm(sets):
+        return min(BWD_REG_BLOCKS["row"],
+                   SM_SMEM // (_bwd_smem("row", sets) + BLOCK_RESERVED))
+
+    sets, per_block, fit = 1, 1, per_sm(1)
+    if items > SMS * fit:
+        sets, fit = 2, per_sm(2)
+        per_block = -(-items // (SMS * fit))
+    return SwinBwdPlan(kind="row", n_tiles=1, items=items,
+                       items_per_block=per_block,
+                       blocks=-(-items // per_block), sets=sets,
+                       smem_bytes=_bwd_smem("row", sets), blocks_per_sm=fit)
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_plans(B: int, N: int, C: int, H: int, n_w: int, n_sm: int):
+    """(attention plan, dO GEMM plan, dW GEMM plan, dW chunks, the shape
+    and plans as the C entry's ints).  The dW chunks are those of the
+    first port's 64 x 64 (C a multiple of 64) or 32 x 32 tiles: they fix
+    the partials' sum order."""
+    plan = swin_bwd_plan(B, N, H)
+    do_gemm, dw_gemm = proj_plan(B * N, C), gemm_plan(C, C, *DW_GEMM)
+    rows, n_chunks = dw_chunks(B * N, C, C, n_sm, 64 if C % 64 == 0 else 32)
+    if plan.blocks >= 2 ** 31:
+        raise ValueError(f"{B} windows of {N} tokens x {H} heads outside "
+                         "the kernel's grid")
+    return plan, do_gemm, dw_gemm, n_chunks, plan_array(
+        (B, N, C, H, n_w) + plan.args()
+        + (do_gemm.bn, do_gemm.stages, do_gemm.smem_bytes)
+        + (dw_gemm.bn, dw_gemm.stages, dw_gemm.smem_bytes)
+        + (rows, n_chunks))
+
+
 @functools.cache
 def _fwd_library():
     lib = load_library(_SOURCE)
@@ -267,14 +396,12 @@ def _fwd_library():
 @functools.cache
 def _bwd_library():
     lib = load_library(_BWD_SOURCE)
-    lib.fused_swin_attn_bwd.argtypes = [ctypes.c_void_p] * 11 \
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_void_p]
-    lib.fused_swin_attn_bwd.restype = ctypes.c_int
-    lib.fused_apla_attn_bwd_smem_bytes.argtypes = []
-    lib.fused_apla_attn_bwd_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_swin_attn_bwd_prepare.argtypes = [ctypes.c_int]
-    lib.fused_swin_attn_bwd_prepare.restype = ctypes.c_int
+    lib.swin_attn_bwd.argtypes = [ctypes.c_void_p] * 10 \
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p]
+    lib.swin_attn_bwd.restype = ctypes.c_int
+    lib.swin_attn_bwd_prepare.argtypes = [ctypes.c_int]
+    lib.swin_attn_bwd_prepare.restype = ctypes.c_int
     return lib
 
 
@@ -369,7 +496,11 @@ def fused_swin_attn_fwd_part(qkv, w, bias, mask, num_heads: int,
     return _launch_fwd(qkv, w, bias, mask, num_heads, scale, parts, o)
 
 
-def _launch_bwd(qkv, w, g, bias, mask, num_heads, scale):
+def _launch_bwd(qkv, w, g, bias, mask, num_heads, scale,
+                parts=BWD_PARTS_ALL, bufs=None):
+    """The backward's launches that `parts` names, on the current stream,
+    into `bufs` (dqkv, dW, the dO and o_cat scratch [2, B, N, C], the dW
+    partials), new ones when None.  -> bufs."""
     B, N, C = _check(qkv, w, bias, mask, num_heads)
     if g.dtype != qkv.dtype or tuple(g.shape) != (B, N, C):
         raise ValueError(f"g must be [{B}, {N}, {C}] {qkv.dtype}, got "
@@ -377,35 +508,41 @@ def _launch_bwd(qkv, w, g, bias, mask, num_heads, scale):
     if g.device != qkv.device or not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("g must be contiguous, 16-byte aligned and on "
                          "qkv's device")
-    lib = _bwd_library()
     dev = device_index(qkv)
-    check_smem(lib.fused_apla_attn_bwd_smem_bytes(),
-               device_smem(_bwd_library, "fused_swin_attn_bwd_prepare", dev),
-               "the Swin window backward")
-    tile = 64 if C % 64 == 0 else 32
-    rows, n_chunks = dw_chunks(B * N, C, C, torch.cuda.get_device_properties(
-        dev).multi_processor_count, tile)
-    dqkv = torch.empty_like(qkv)
-    dw = torch.empty((C, C), dtype=torch.float32, device=qkv.device)
-    d_o = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
-    o_cat = torch.empty_like(d_o)
-    stats = torch.empty((3, B, num_heads, N), dtype=torch.float32,
-                        device=qkv.device)
-    part = torch.empty((n_chunks, C, C), dtype=torch.float32,
-                       device=qkv.device)
-    n_w = 1 if mask is None else mask.shape[0]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_swin_attn_bwd(
+    plan, do_gemm, dw_gemm, n_chunks, shape = _bwd_plans(
+        B, N, C, num_heads, 1 if mask is None else mask.shape[0],
+        _sm_count(dev))
+    lib = _bwd_library()
+    check_smem(max(plan.smem_bytes, do_gemm.smem_bytes, dw_gemm.smem_bytes),
+               device_smem(_bwd_library, "swin_attn_bwd_prepare", dev),
+               f"the Swin window backward at N={N}, C={C}")
+    if bufs is None:
+        bufs = (torch.empty_like(qkv),
+                torch.empty((C, C), dtype=torch.float32, device=qkv.device),
+                torch.empty((2, B, N, C), dtype=qkv.dtype,
+                            device=qkv.device),
+                torch.empty((n_chunks, C, C), dtype=torch.float32,
+                            device=qkv.device))
+    dqkv, dw, scratch, part = bufs
+    with launch_context(qkv) as stream:
+        err = lib.swin_attn_bwd(
             qkv.data_ptr(), w.data_ptr(), g.data_ptr(), bias.data_ptr(),
-            _ptr(mask), dqkv.data_ptr(), dw.data_ptr(), d_o.data_ptr(),
-            o_cat.data_ptr(), stats.data_ptr(), part.data_ptr(), B, N, C,
-            num_heads, n_w, float(scale), rows, n_chunks, stream)
+            _ptr(mask), dqkv.data_ptr(), dw.data_ptr(), scratch[0].data_ptr(),
+            scratch[1].data_ptr(), part.data_ptr(), shape, float(scale),
+            parts, stream)
+    if err == 2000:
+        raise RuntimeError("swin_attn_bwd: no GEMM of that width")
+    if err >= 1000:
+        raise RuntimeError(f"swin_attn_bwd: tensor map not encoded: "
+                           f"CUresult {err - 1000}")
     if err != 0:
-        raise RuntimeError(f"fused_swin_attn_bwd launch failed: cudaError "
-                           f"{err}")
-    fused_swin_attn_bwd.launches += 1
-    return dqkv, dw
+        raise RuntimeError(f"swin_attn_bwd launch failed: cudaError {err}")
+    return bufs
+
+
+@functools.cache
+def _sm_count(dev: int) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def fused_swin_attn_bwd(qkv, w, g, bias, mask, num_heads: int,
@@ -413,17 +550,34 @@ def fused_swin_attn_bwd(qkv, w, g, bias, mask, num_heads: int,
     """Backward of `fused_swin_attn_fwd`: -> (dqkv [B, N, 3C] in
     qkv.dtype, dW [C, C] float32).
 
-    CPU tensor: the plain version.  CUDA tensor: the kernel, or an error
-    naming why it cannot run (dtype, head dim, shapes, shared memory)."""
+    CPU tensor: the plain version.  CUDA tensor: the kernels, or an error
+    naming why they cannot run (dtype, head dim, shapes, a window past
+    `BWD_MAX_TILES` tiles, shared memory)."""
     if qkv.device.type == "cpu":
         return fused_swin_attn_bwd_reference(qkv, w, g, bias, mask,
                                              num_heads, scale)
     if qkv.device.type != "cuda":
         raise ValueError(f"no fused Swin attention for device {qkv.device}")
-    return _launch_bwd(qkv, w, g, bias, mask, num_heads, scale)
+    dqkv, dw, _, _ = _launch_bwd(qkv, w, g, bias, mask, num_heads, scale)
+    fused_swin_attn_bwd.launches += 1
+    return dqkv, dw
 
 
 fused_swin_attn_bwd.launches = 0
+
+
+def fused_swin_attn_bwd_part(qkv, w, g, bias, mask, num_heads: int,
+                             scale: float, parts: int, bufs=None):
+    """The backward's launches that `parts` names (`BWD_DO`, `BWD_ATTN`,
+    `BWD_DW`, or several) on CUDA tensors, uncounted: a measurement times
+    them apart.  `bufs`: the buffers an earlier part call returned (dqkv,
+    dW, the dO and o_cat scratch, the dW partials), so that the parts run
+    in turn compute what one call does; new ones when None (a launch then
+    reads scratch that no earlier launch wrote, and only its time means
+    anything).  -> bufs."""
+    if qkv.device.type != "cuda":
+        raise ValueError("fused_swin_attn_bwd_part runs on a CUDA tensor")
+    return _launch_bwd(qkv, w, g, bias, mask, num_heads, scale, parts, bufs)
 
 
 class FusedSwinAttention(torch.autograd.Function):

@@ -529,6 +529,11 @@ MHA_PAD_CASES = ((3, 17, 0), (2, 321, 0))
 # is the one timed for the kernels line and the one the controls run at.
 SWIN_CASES = ((16, 0, True), (16, 0, False), (16, 1, True), (16, 1, False),
               (16, 2, True), (16, 2, False), (16, 3, False), (1, 0, True))
+# Also Swin-B's windows at 384 (window 12: N = 144 tokens, C = 128, 4
+# heads; a 96 x 96 feature map, 64 windows an image, shifted by 6), one
+# image: past one 64-row tile, the forward's two-pass kernel and the
+# backward's tiles kernel.  (images, side, window, C)
+SWIN_WIDE_CASE = (1, 96, 12, 128)
 # Phase 8b: the detection side-car's recipe, `python -m apla_tpu.segdet det
 # --use_fused --bf16` with the four-stage Swin-T passed explicitly
 # (`--depths 2,2,6,2 --num_heads 3,6,12,24`; the SwinConfig defaults,
@@ -737,8 +742,9 @@ def phase_build():
         proto_ce
     from apla_tpu_torch.ops.fused_apla_attn import _BWD_SOURCE
     sources = (mha.FWD_SOURCE, apla_proj_gemm.SOURCE, _BWD_SOURCE,
-               fused_swin_attn._SOURCE, proto_ce.FWD_SOURCE,
-               proto_ce.BWD_SOURCE, mha.BWD_SOURCE, int8_matmul.SOURCE)
+               fused_swin_attn._SOURCE, fused_swin_attn._BWD_SOURCE,
+               proto_ce.FWD_SOURCE, proto_ce.BWD_SOURCE, mha.BWD_SOURCE,
+               int8_matmul.SOURCE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cuda_build.build_library, sources))
@@ -1670,6 +1676,44 @@ def _swin_launch_bounds(b, c, n_w):
             _bound(2 * b * n * c * c, 2 * (2 * b * n * c + c * c)))
 
 
+def _swin_bwd_launch_bounds(b, c, n_w):
+    """Bounds of the backward's three launches on b windows of 49 tokens:
+    the dO GEMM (2 N C^2; reads g and w, writes dO), the attention (s, dp,
+    o, dq, dk, dv: six 2 N^2 C products; reads qkv, dO, the bias and the
+    mask, writes dqkv and o_cat), the dW partials and their sum (2 N C^2;
+    reads o_cat and g, writes dW f32)."""
+    n, heads = 49, c // 32
+    bnc, planes = b * n * c, 4 * (heads + n_w) * n * n
+    return {"dO GEMM": _bound(2 * bnc * c, 2 * (2 * bnc + c * c)),
+            "attention": _bound(12 * b * n * n * c,
+                                2 * (4 * bnc + 4 * bnc) + planes),
+            "dW partials + reduce": _bound(2 * bnc * c,
+                                           2 * 2 * bnc + 4 * c * c)}
+
+
+def _swin_bwd_times(qkv, w, g, bias, mask, heads, scale):
+    """The window backward timed: the call from a CUDA graph and as the
+    host's time per call; its three launches apart
+    (`fused_swin_attn_bwd_part`, each on the buffers of a whole call), by
+    events and from graphs, beside their bounds."""
+    from apla_tpu_torch.ops import fused_swin_attn as fs
+    call = lambda: fs.fused_swin_attn_bwd(qkv, w, g, bias,  # noqa: E731
+                                          mask, heads, scale)
+    bufs = fs.fused_swin_attn_bwd_part(qkv, w, g, bias, mask, heads, scale,
+                                       fs.BWD_PARTS_ALL)
+    bounds = _swin_bwd_launch_bounds(qkv.shape[0], w.shape[0],
+                                     0 if mask is None else mask.shape[0])
+    parts = {}
+    for name, bit in (("dO GEMM", fs.BWD_DO), ("attention", fs.BWD_ATTN),
+                      ("dW partials + reduce", fs.BWD_DW)):
+        fn = functools.partial(fs.fused_swin_attn_bwd_part, qkv, w, g, bias,
+                               mask, heads, scale, bit, bufs)
+        parts[name] = {"ms": _time_ms(fn), "graph_ms": _graph_ms(fn)}
+        parts[name]["bound_ms"], parts[name]["bound_by"] = bounds[name]
+    return {"host_ms": _host_ms(call), "graph_ms": _graph_ms(call),
+            "parts": parts}
+
+
 def _swin_fwd_times(qkv, w, bias, mask, heads, scale, library):
     """The window forward timed: the call by events, from a CUDA graph and
     as the host's time per call; its two launches apart (the attention
@@ -1810,6 +1854,13 @@ def phase_swin(device):
                         o.unflatten(-1, (heads, 32)).roll(1, dims=2)
                         .flatten(-2).contiguous()), got[1], got[2]),
                     ("out",)),
+                # the backward writing head h's dk and dv at head h+1's
+                # columns (mod H): its items' outputs stored one head over
+                "dk, dv at the next head's columns": (
+                    lambda: (got[0], torch.cat(
+                        [got[1][..., :c], got[1][..., c:].unflatten(
+                            -1, (2, heads, 32)).roll(1, dims=-2).flatten(-3)],
+                        dim=-1), got[2]), ("dqkv",)),
                 "dW zeroed": (lambda: (got[0], got[1], got[2] * 0), ("dW",)),
                 "dqkv halved": (lambda: (got[0], got[1] * 0.5, got[2]),
                                 ("dqkv",)),
@@ -1863,6 +1914,15 @@ def phase_swin(device):
                   f"{t['library_two_calls_ms']:.4f} ms, bound "
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
                   f"{t['bound_ms'] / t['ms']:.1%} of it reached)")
+            if name == "bwd":
+                t.update(_swin_bwd_times(qkv, w, g, bias, mask, heads,
+                                         scale))
+                _print_parts("8a swin", t["parts"])
+                print(f"[8a swin]   bwd from a CUDA graph {t['graph_ms']:.4f}"
+                      f" ms (the host takes {t['host_ms']:.4f} to launch one"
+                      f" call), bound {t['bound_ms'] / t['graph_ms']:.1%} of "
+                      f"the graph time; attention plan "
+                      f"{fs.swin_bwd_plan(b, 49, heads).describe()}")
             if name == "fwd":
                 t.update(_swin_fwd_times(qkv, w, bias, mask, heads, scale,
                                          library))
@@ -1880,6 +1940,34 @@ def phase_swin(device):
                       f"{fs.swin_plan(b, 49, heads).describe()}; projection "
                       f"{fs.proj_plan(b * 49, c).describe()}")
         del lq, lw, lout
+    # Swin-B's windows at 384, past one tile: both kernels against their
+    # plain versions
+    images, side, win, c = SWIN_WIDE_CASE
+    from apla_tpu_torch.models.swin import _shift_mask
+    n, heads = win * win, c // 32
+    b = images * (side // win) ** 2
+    qkv = torch.randn((b, n, 3 * c), generator=gen).to(device,
+                                                      torch.bfloat16)
+    w = (torch.randn((c, c), generator=gen) * c ** -0.5).to(device,
+                                                            torch.bfloat16)
+    g = torch.randn((b, n, c), generator=gen).to(device, torch.bfloat16)
+    bias = torch.randn((heads, n, n), generator=gen).to(device)
+    mask = torch.from_numpy(_shift_mask(side, side, win, win // 2)).to(device)
+    got = kernels(qkv, w, g, bias, mask, heads)
+    torch.cuda.synchronize()
+    errs = _swin_errors(got, plain(qkv, w, g, bias, mask, heads))
+    ok = all(e <= bd for e, bd in errs.values())
+    print(f"[8a swin] b{images} Swin-B window {win} (N = {n}) qkv [{b}, {n}, "
+          f"{3 * c}] shifted: " + ", ".join(
+              f"{k} max|err| {e:.6g} (bound {bd:.6g})"
+              for k, (e, bd) in errs.items())
+          + f" -> {'ok' if ok else 'FAIL'}; backward plan "
+          f"{fs.swin_bwd_plan(b, n, heads).describe()}")
+    if not ok:
+        raise SystemExit(f"Swin window kernels disagree with their plain "
+                         f"versions at N = {n}")
+    worst["fwd"] = max(worst["fwd"], errs["out"][0])
+    worst["bwd"] = max(worst["bwd"], errs["dqkv"][0], errs["dW"][0])
     # the served windows (b1, stage 0, shifted) from a graph: the forward
     # and the two-call yardstick
     qkv, w, g, bias, mask, heads = _swin_case(1, 0, True, gen, device)
@@ -1894,8 +1982,9 @@ def phase_swin(device):
           f"from a CUDA graph {served['graph_ms']:.4f} ms (host "
           f"{served['host_ms']:.4f} ms a call), two library calls from a "
           f"graph {served['library_two_calls_graph_ms']:.4f} ms")
-    for line in _resources(cuda_build.resource_report(fs._SOURCE)):
-        print(f"[8a swin]   {fs._SOURCE}: {line}")
+    for src in (fs._SOURCE, fs._BWD_SOURCE):
+        for line in _resources(cuda_build.resource_report(src)):
+            print(f"[8a swin]   {src}: {line}")
     for name in ("fwd", "bwd"):
         times[name] = {**times[(0, name)], "max_abs_err": worst[name]}
     times["fwd"]["attention_max_abs_err"] = worst["attention"]
@@ -2889,9 +2978,9 @@ _KERNEL_GROUPS = (
      ("swin_row_kernel", "swin_two_pass_kernel", "mha_row_kernel",
       "mha_two_pass_kernel", "gemm_kernel<128, 0, 1,",
       "gemm_kernel<256, 0, 1,")),
-    ("attention backward kernels (fused APLA, mha)",
-     ("bwd_query_kernel", "bwd_key_kernel", "gemm_nt_kernel",
-      "dw_partial_kernel", "dw_reduce_kernel", "gemm90::gemm_kernel")),
+    ("attention backward kernels (fused APLA, Swin, mha)",
+     ("bwd_query_kernel", "bwd_key_kernel", "swin_bwd_", "dw_reduce_kernel",
+      "gemm90::gemm_kernel")),
     ("gathers / index backward", ("index",)),
     ("int8 kernel (quantize pass + int8 wgmma GEMM)", ("w8a8_",)),
     ("GEMMs (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "ampere", "nvjet")),
@@ -4036,7 +4125,9 @@ def main() -> int:
         # projection GEMM (gemm_sm90.cuh), both in swin_attn_fwd.cu
         ("fused_swin_attn_fwd", "swin_attn_fwd.cu",
          "pallas_apla_attn.py:197", det_launches[0], swin_times["fwd"]),
-        ("fused_swin_attn_bwd", "fused_apla_attn_bwd.cu",
+        # row 4: three launches per call, the dO GEMM, a head-dim-32
+        # attention and the dW GEMM with its reduce, all in swin_attn_bwd.cu
+        ("fused_swin_attn_bwd", "swin_attn_bwd.cu",
          "pallas_apla_attn.py:203", det_launches[1], swin_times["bwd"]),
         # rows 1/2's kernels where JAX names the q-strip long kernels (TPU
         # rows 5-7): ViT-L/16 at 512, k = C = 1024, on the seg path
@@ -4101,7 +4192,7 @@ def main() -> int:
              "proto_ce_fwd": {
                  "sources": [f"apla_tpu_torch/csrc/{src}" for src in (
                      "proto_ce_fwd.cu", "proto_ce_sm90.cuh",
-                     "sm90_async.cuh", "mma_sm90.cuh")],
+                     "sm90_async.cuh")],
                  "redesigned": "TMA/wgmma, the rows in registers as the "
                                "logits' A operand",
                  "library_calls_is": "two bf16 torch.matmul, logsumexp and "
@@ -4119,8 +4210,8 @@ def main() -> int:
                 for name in ("proto_ce_dxs", "proto_ce_dws")},
              "fused_swin_attn_fwd": {
                  "sources": [f"apla_tpu_torch/csrc/{src}" for src in (
-                     "swin_attn_fwd.cu", "attn_fwd_sm90.cuh", "gemm_sm90.cuh",
-                     "sm90_async.cuh")],
+                     "swin_attn_fwd.cu", "swin_sm90.cuh", "attn_fwd_sm90.cuh",
+                     "gemm_sm90.cuh", "sm90_async.cuh")],
                  "redesigned": "TMA/wgmma attention, then the projection GEMM",
                  **{k: swin_times["fwd"][k] for k in (
                      "graph_ms", "host_ms", "attention_ms",
@@ -4137,6 +4228,21 @@ def main() -> int:
                          if isinstance(kv[0], tuple))
                      if name == "fwd"],
                  "served_b1": swin_times["fwd_served"]},
+             "fused_swin_attn_bwd": {
+                 "sources": [f"apla_tpu_torch/csrc/{src}" for src in (
+                     "swin_attn_bwd.cu", "swin_sm90.cuh", "gemm_sm90.cuh",
+                     "sm90_async.cuh")],
+                 "redesigned": "PR 15",
+                 "graph_ms": swin_times["bwd"]["graph_ms"],
+                 "host_ms": swin_times["bwd"]["host_ms"],
+                 "launches_ms": _launch_ms(swin_times["bwd"]),
+                 "by_shape": [{"stage": stage, **{k: t[k] for k in (
+                     "ms", "graph_ms", "host_ms", "library_two_calls_ms",
+                     "bound_ms")}, "launches_ms": _launch_ms(t)}
+                     for (stage, name), t in (
+                         kv for kv in swin_times.items()
+                         if isinstance(kv[0], tuple))
+                     if name == "bwd"]},
              "mha_fwd": {
                  "redesigned": "PR 8",
                  "graph_ms": mha_times["fwd"]["graph_ms"],

@@ -758,6 +758,90 @@ def test_swin_fwd_is_its_two_launches(cuda_device, b, n, c, n_w):
                                                scale), out)
 
 
+_SWIN_BWD_CASES = [
+    (1024, 49, 96, 64),    # Swin-T stage 0 at b16, shifted (3 heads)
+    (1024, 49, 96, 0),     # ... unshifted: no mask
+    (256, 49, 192, 16),    # stage 1
+    (64, 49, 384, 4),      # stage 2
+    (16, 49, 768, 0),      # stage 3: one window, no shift
+    (10, 49, 96, 4),       # nW not dividing the windows
+    (6, 9, 96, 2),         # a 3x3 window
+    (3, 100, 64, 1),       # N past one 64-row tile: the tiles kernel
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,n_w", _SWIN_BWD_CASES)
+def test_swin_bwd_reruns_bit_equal(cuda_device, b, n, c, n_w):
+    """The backward sums without atomics (the dW partials in a fixed
+    order), so three calls give the same bits."""
+    from apla_tpu_torch.ops import fused_swin_attn as tfs
+    qkv, w, g, bias, mask = _swin_inputs(cuda_device, b, n, c, n_w,
+                                         seed=b + n + c + 2)
+    heads, scale = c // 32, 32 ** -0.5
+    first = tfs.fused_swin_attn_bwd(qkv, w, g, bias, mask, heads, scale)
+    for _ in range(2):
+        again = tfs.fused_swin_attn_bwd(qkv, w, g, bias, mask, heads, scale)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1].view(torch.int32),
+                           first[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,n_w,win,head", [
+    (64, 49, 96, 4, 37, 1),      # stage 0's width, the row kernel
+    (16, 49, 768, 0, 5, 23),     # stage 3's 24 heads, the last one
+    (4, 144, 128, 2, 2, 3),      # N = 144: the tiles kernel
+])
+def test_swin_bwd_keeps_items_apart(cuda_device, b, n, c, n_w, win, head):
+    """A spike in one window's q at one head's columns changes dqkv only
+    in that window's rows and that head's columns of its q, k and v
+    thirds; dW changes (it sums every window)."""
+    from apla_tpu_torch.ops import fused_swin_attn as tfs
+    qkv, w, g, bias, mask = _swin_inputs(cuda_device, b, n, c, n_w,
+                                         seed=b + n + c + 3)
+    heads, scale = c // 32, 32 ** -0.5
+    base = tfs.fused_swin_attn_bwd(qkv, w, g, bias, mask, heads, scale)
+    spiked = qkv.clone()
+    spiked[win, :, head * 32:(head + 1) * 32] *= 4
+    got = tfs.fused_swin_attn_bwd(spiked, w, g, bias, mask, heads, scale)
+    changed = got[0] != base[0]
+    cols = torch.zeros(3 * c, dtype=torch.bool, device=cuda_device)
+    for third in range(3):
+        cols[third * c + head * 32:third * c + (head + 1) * 32] = True
+    inside = torch.zeros_like(changed)
+    inside[win][:, cols] = True
+    assert not changed[~inside].any()
+    assert changed[win][:, cols].any()
+    for third in range(3):
+        lo = third * c + head * 32
+        assert changed[win, :, lo:lo + 32].any(), third
+    assert not torch.equal(got[1], base[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,n_w", [(1024, 49, 96, 64), (16, 49, 768, 0),
+                                       (4, 144, 128, 2), (4, 49, 32, 4)])
+def test_swin_bwd_is_its_three_launches(cuda_device, b, n, c, n_w):
+    """`fused_swin_attn_bwd_part`'s three launches run in turn on one set
+    of buffers (the dO GEMM, the attention, the dW partials and their
+    sum) give the whole call's dqkv and dW bit for bit, uncounted."""
+    from apla_tpu_torch.ops import fused_swin_attn as tfs
+    qkv, w, g, bias, mask = _swin_inputs(cuda_device, b, n, c, n_w,
+                                         seed=b + n + c + 4)
+    heads, scale = c // 32, 32 ** -0.5
+    whole = tfs.fused_swin_attn_bwd(qkv, w, g, bias, mask, heads, scale)
+    before = tfs.fused_swin_attn_bwd.launches
+    bufs = None
+    for bit in (tfs.BWD_DO, tfs.BWD_ATTN, tfs.BWD_DW):
+        bufs = tfs.fused_swin_attn_bwd_part(qkv, w, g, bias, mask, heads,
+                                            scale, bit, bufs)
+    torch.cuda.synchronize()
+    assert tfs.fused_swin_attn_bwd.launches == before
+    assert torch.equal(bufs[0], whole[0])
+    assert torch.equal(bufs[1].view(torch.int32), whole[1].view(torch.int32))
+
+
 @pytest.mark.cuda
 def test_swin_detector_runs_the_window_kernels(cuda_device):
     """A bf16 two-stage Swin detector with use_fused_apla: 4 window
@@ -806,6 +890,12 @@ def test_fused_swin_attn_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="needs o"):
         tfs.fused_swin_attn_fwd_part(qkv, w, bias, mask, 3, 0.1,
                                      tfs.PART_PROJ)
+    # a window past the tiles the backward keeps resident
+    big = torch.zeros((1, 800, 96), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 12 fit"):
+        tfs.fused_swin_attn_bwd(
+            big, w[:32, :32].contiguous(), big[..., :32].contiguous(),
+            torch.zeros((1, 800, 800), device=cuda_device), None, 1, 0.1)
     assert (tfs.fused_swin_attn_fwd.launches,
             tfs.fused_swin_attn_bwd.launches) == before
 

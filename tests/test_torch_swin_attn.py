@@ -21,7 +21,11 @@ identity projection, which gives its o_cat; that plain attention followed
 by the GEMM's plain version equal bit for bit to the fused plain version;
 the attention's launch plan (`swin_plan`: every (window, head, query tile)
 once, within the card's limits) at the Swin-T stages and other windows;
-the CUDA route with the C entry replaced by a recorder.  The kernels
+the CUDA route with the C entry replaced by a recorder.  The backward's
+launch plan (`swin_bwd_plan`: every (window, head) item once, a window's
+heads adjacent, the tile counts, the resident limit) and its CUDA route
+(three launches through one C call, or apart with shared buffers) the
+same way.  The kernels
 themselves are held against the plain versions by tests/test_torch_cuda.py
 on the card.
 """
@@ -313,6 +317,78 @@ def test_swin_plan_other_windows(b, n, h):
     assert tfs.swin_plan(b, n, h) is plan            # pure and cached
 
 
+def _bwd_covered(plan):
+    """The items (window b, head h at b H + h) the backward plan's blocks
+    visit, in block order, as `csrc/swin_attn_bwd.cu` walks them."""
+    seen = []
+    for blk in range(plan.blocks):
+        it0 = blk * plan.items_per_block
+        seen.extend(range(it0, min(plan.items, it0 + plan.items_per_block)))
+    return seen
+
+
+@pytest.mark.parametrize("images, stage", [(16, 0), (16, 1), (16, 2),
+                                           (16, 3), (1, 0), (8, 0), (1, 3),
+                                           (8, 3)])
+def test_swin_bwd_plan_covers_every_item_once(images, stage):
+    """Every (window, head) item once, a block's items consecutive, so a
+    window's heads are next to each other (they share its mask plane);
+    within the card's limits."""
+    heads = 3 << stage
+    b = images * ((56 >> stage) // 7) ** 2
+    plan = tfs.swin_bwd_plan(b, 49, heads)
+    assert _bwd_covered(plan) == list(range(b * heads))
+    assert plan.kind == "row" and plan.n_tiles == 1
+    assert plan.items == b * heads
+    assert 0 < plan.blocks < 2 ** 31 and plan.blocks_per_sm >= 1
+    assert plan.smem_bytes <= BLOCK_SMEM
+    # two input sets exactly when a block runs several items
+    assert (plan.sets == 2) == (plan.items_per_block > 1)
+    assert plan.smem_bytes == (tfs.BWD_ROW_FIXED
+                               + plan.sets * tfs.BWD_SET_BYTES)
+
+
+@pytest.mark.parametrize("b, heads, shape", [
+    (1024, 3, (3072, 6, 2, 512)),      # stage 0
+    (256, 6, (1536, 3, 2, 512)),       # stage 1
+    (64, 12, (768, 2, 2, 384)),        # stage 2
+    (16, 24, (384, 1, 1, 384)),        # stage 3
+])
+def test_swin_bwd_plan_at_the_b16_stages(b, heads, shape):
+    """Swin-T's b16 stages: four blocks an SM over 132 SMs, runs of 6, 3
+    and 2 items with two input sets at stages 0-2, an item a block at
+    stage 3."""
+    plan = tfs.swin_bwd_plan(b, 49, heads)
+    assert (plan.items, plan.items_per_block, plan.sets,
+            plan.blocks) == shape
+    assert plan.blocks_per_sm == 4
+
+
+@pytest.mark.parametrize("n, tiles", [(9, 1), (49, 1), (64, 1), (65, 2),
+                                      (100, 2), (144, 3), (768, 12)])
+def test_swin_bwd_plan_tiles(n, tiles):
+    """The row kernel up to one tile (64 tokens), the tiles kernel past it:
+    an item a block, its 4 n_t tiles and statistics resident."""
+    plan = tfs.swin_bwd_plan(4, n, 2)
+    assert plan.n_tiles == tiles
+    assert plan.kind == ("row" if tiles == 1 else "tiles")
+    assert plan.smem_bytes <= BLOCK_SMEM
+    if tiles > 1:
+        assert (plan.items_per_block, plan.blocks, plan.sets) == (1, 8, 1)
+        assert plan.smem_bytes == tfs._bwd_smem("tiles", tiles)
+    assert tfs.swin_bwd_plan(4, n, 2) is plan            # pure and cached
+    assert str(tiles) in plan.describe()
+
+
+@pytest.mark.parametrize("n", [769, 1024])
+def test_swin_bwd_plan_refuses_past_the_resident_limit(n):
+    """A window whose q, k, v and dO tiles do not fit one block's shared
+    memory is refused by name, not run."""
+    assert tfs.BWD_MAX_TILES == 12
+    with pytest.raises(ValueError, match="at most 12 fit"):
+        tfs.swin_bwd_plan(2, n, 1)
+
+
 class _Recorder:
     """Stands for the loaded library: records the C entry's calls."""
 
@@ -371,6 +447,78 @@ def test_forward_routes_through_one_call_of_both_launches(monkeypatch, b, n,
                         o[:, :1].contiguous())
 
 
+class _BwdRecorder:
+    """Stands for the loaded backward library: records the C entry's
+    calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def swin_attn_bwd(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("b, n, c, n_w", [(1024, 49, 96, 64),
+                                          (16, 49, 768, 0), (64, 144, 128, 4),
+                                          (4, 49, 32, 4)])
+def test_backward_routes_through_one_call_of_three_launches(monkeypatch, b,
+                                                             n, c, n_w):
+    """The CUDA route with the C entry replaced by a recorder: one call
+    queues the dO GEMM, the attention and the dW launches (`parts` = 7)
+    with `swin_bwd_plan`'s, the GEMMs' and `dw_chunks`' ints, writing dqkv
+    and dW through a dO / o_cat scratch, and counts one launch; the parts
+    apart queue one launch each into the buffers they are given,
+    uncounted."""
+    from apla_tpu_torch.ops.apla_proj_gemm import gemm_plan
+    from apla_tpu_torch.ops.fused_apla_attn import DW_GEMM, dw_chunks
+    lib = _BwdRecorder()
+    monkeypatch.setattr(tfs, "_bwd_library", lambda: lib)
+    monkeypatch.setattr(tfs, "device_smem", lambda *a: 232448)
+    monkeypatch.setattr(tfs, "device_index", lambda t: 0)
+    monkeypatch.setattr(tfs, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(tfs, "launch_context",
+                        lambda t: contextlib.nullcontext(7))
+    heads = c // 32
+    qkv = torch.zeros((b, n, 3 * c), dtype=torch.bfloat16)
+    w = torch.zeros((c, c), dtype=torch.bfloat16)
+    g = torch.zeros((b, n, c), dtype=torch.bfloat16)
+    bias = torch.zeros((heads, n, n))
+    mask = torch.zeros((n_w, n, n)) if n_w else None
+    before = tfs.fused_swin_attn_bwd.launches
+    dqkv, dw, scratch, part = tfs._launch_bwd(qkv, w, g, bias, mask, heads,
+                                              0.125)
+    assert dqkv.shape == qkv.shape and dqkv.dtype == torch.bfloat16
+    assert dw.shape == (c, c) and dw.dtype == torch.float32
+    assert scratch.shape == (2, b, n, c)
+    (args,) = lib.calls
+    plan = tfs.swin_bwd_plan(b, n, heads)
+    do_gemm, dw_gemm = tfs.proj_plan(b * n, c), gemm_plan(c, c, *DW_GEMM)
+    rows, chunks = dw_chunks(b * n, c, c, 132, 64 if c % 64 == 0 else 32)
+    assert part.shape == (chunks, c, c)
+    assert args[:10] == (qkv.data_ptr(), w.data_ptr(), g.data_ptr(),
+                         bias.data_ptr(),
+                         None if mask is None else mask.data_ptr(),
+                         dqkv.data_ptr(), dw.data_ptr(),
+                         scratch[0].data_ptr(), scratch[1].data_ptr(),
+                         part.data_ptr())
+    assert list(args[10]) == [
+        b, n, c, heads, n_w or 1, *plan.args(), do_gemm.bn, do_gemm.stages,
+        do_gemm.smem_bytes, dw_gemm.bn, dw_gemm.stages, dw_gemm.smem_bytes,
+        rows, chunks]
+    assert args[11:] == (0.125, tfs.BWD_PARTS_ALL, 7)
+    assert tfs.fused_swin_attn_bwd.launches == before
+    lib.calls.clear()
+    bufs = tfs._launch_bwd(qkv, w, g, bias, mask, heads, 0.125, tfs.BWD_DO)
+    for part_bit in (tfs.BWD_ATTN, tfs.BWD_DW):
+        assert tfs._launch_bwd(qkv, w, g, bias, mask, heads, 0.125, part_bit,
+                               bufs) is bufs
+    assert [a[12] for a in lib.calls] == [tfs.BWD_DO, tfs.BWD_ATTN,
+                                          tfs.BWD_DW]
+    assert len({a[5:10] for a in lib.calls}) == 1     # the same buffers
+    assert tfs.fused_swin_attn_bwd.launches == before
+
+
 def test_forward_cpu_path_never_builds(monkeypatch):
     def no_build(*a, **k):
         raise AssertionError("a CPU call tried to build the CUDA kernel")
@@ -383,6 +531,10 @@ def test_forward_cpu_path_never_builds(monkeypatch):
         torch.tensor(x["qkv"]).bfloat16(), torch.tensor(x["w"]).bfloat16(),
         torch.tensor(x["bias"]), torch.tensor(x["mask"]), H, SCALE)
     assert out.shape == (6, 49, C)
+    with pytest.raises(ValueError, match="runs on a CUDA tensor"):
+        tfs.fused_swin_attn_bwd_part(
+            torch.tensor(x["qkv"]).bfloat16(), torch.tensor(x["w"]).bfloat16(),
+            out, torch.tensor(x["bias"]), None, H, SCALE, tfs.BWD_ATTN)
     with pytest.raises(ValueError, match="runs on a CUDA tensor"):
         tfs.fused_swin_attn_fwd_part(
             torch.tensor(x["qkv"]).bfloat16(), torch.tensor(x["w"]).bfloat16(),

@@ -8,7 +8,8 @@ APLA backward (`fused_apla_attn_bwd`, TPU rows 2 and 6-7); with `--kernel
 mha_bwd` the memory-efficient attention backward (`mha_bwd`, TPU row 9);
 with `--kernel int8` the W8A8 GEMM (`fused_int8_matmul`, TPU row 13); with
 `--kernel swin` the Swin window attention forward (`fused_swin_attn_fwd`,
-TPU row 3); with `--kernel proto` the prototype cross-entropy forward and
+TPU row 3); with `--kernel swin_bwd` its backward (`fused_swin_attn_bwd`,
+TPU row 4); with `--kernel proto` the prototype cross-entropy forward and
 backward (`proto_ce_fwd`, `proto_ce_dxs`, `proto_ce_dws`, TPU rows 10-12).
 
     python3 tools/compare_mha_fwd.py --parent DIR [--kernel KIND] [--full]
@@ -55,6 +56,10 @@ and dW_t).
                kernel); bias N(0, 1), the stage's shift mask; yardstick
                F.scaled_dot_product_attention with bias + mask as its
                additive mask, and one torch.matmul.
+  swin_bwd     the same cases and inputs, with g N(0, 1); outputs dq, dk,
+               dv (the thirds of dqkv) and dW; each call's kernels' device
+               ms apart (torch.profiler); yardstick autograd through the
+               forward's two calls, from a CUDA graph of the backward.
   proto        chip_smoke.py phase 6a's cases (the iBOT site R=16384, the
                DINO global R=128, the local pairs R=1024, all at K=65536,
                and a ragged R=K=1000), each at both teacher temperatures,
@@ -74,10 +79,12 @@ served at b64, the segmenter trained and served), phases 5, 7b and 9b
 (`bwd`: the supervised recipe, "full" and the segmenter trained, with
 their first-step |dloss| against the plain arm), phases 10b and 8b
 (`int8`: the classifier served W8A8 and float at b64, with 10b's profile,
-and the detector, whose W8A8 artifact serves in f32), phase 8b (`swin`: the
-detector trained at b16 and served at b8 and b16), phase 6b (`proto`: the
-DINOv2 recipe trained at b64, with its profile's proto-CE kernel ms).  Prints one JSON line
-per turn and a summary; exits non-zero without a card.
+and the detector, whose W8A8 artifact serves in f32), phase 8b (`swin`,
+`swin_bwd`: the detector trained at b16 and served at b8 and b16, with
+its first-step readings and, for `swin_bwd`, its profile's groups),
+phase 6b (`proto`: the DINOv2 recipe trained at b64, with its profile's
+proto-CE kernel ms).  Prints one JSON line per turn and a summary; exits
+non-zero without a card.
 """
 
 import argparse
@@ -129,6 +136,7 @@ SWIN_SHAPES = (
     ("N=64, 4 mask planes", 256, 64, 96, 0, 4),
     ("b1 window 12 (Swin-B at 384) stage 0 shifted", 64, 144, 128, 96, 0))
 SHAPES["swin"] = tuple(case[0] for case in SWIN_SHAPES)
+SHAPES["swin_bwd"] = SHAPES["swin"]
 # (R, K, teacher temperature, g at the collate's layout): phase 6a's
 PROTO_SHAPES = tuple((r, k, tt, False) for r, k in (
     (16384, 65536), (128, 65536), (1024, 65536), (1000, 1000))
@@ -139,6 +147,7 @@ SHAPES["proto"] = tuple(f"R={r} K={k} tau_t={tt}"
 PROTO_KERNELS = ("fwd", "dxs", "dws")
 OUTPUTS = {"mha": ("o",), "fused": ("o",), "bwd": ("dq", "dk", "dv", "dW_t"),
            "mha_bwd": ("dq", "dk", "dv"), "int8": ("y",), "swin": ("out",),
+           "swin_bwd": ("dq", "dk", "dv", "dW"),
            "proto": ("ce", "lse_s", "lse_t", "dxs", "dws")}
 SCALE = 0.125
 # The recipe's rank-128 index file (chip_smoke.py RECIPE): phase 4 times
@@ -182,6 +191,29 @@ def _graph_ms(torch, fn, calls=20):
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
+    return _time_ms(torch, graph.replay, iters=10, warmup=2) / calls
+
+
+def _grad_graph_ms(torch, forward, inputs, g, calls=5):
+    """Device ms of one autograd backward of `forward(*inputs)` against the
+    cotangent g, from a CUDA graph: the forward runs on the capture stream,
+    so that autograd queues the backward's kernels there; None where the
+    capture fails."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.stream(stream):
+            out = forward(*inputs)
+            for _ in range(2):
+                torch.autograd.grad(out, inputs, g, retain_graph=True)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                torch.autograd.grad(out, inputs, g, retain_graph=True)
+    except RuntimeError as err:
+        print(f"autograd graph not captured: {err}", file=sys.stderr)
+        return None
     return _time_ms(torch, graph.replay, iters=10, warmup=2) / calls
 
 
@@ -263,9 +295,11 @@ def _int8_worker(torch, dev, out, saved):
             "matmul_graph_ms": _graph_ms(torch, matmul)})
 
 
-def _swin_calls(torch, case, gen, dev):
+def _swin_calls(torch, case, gen, dev, backward=False):
     """(kernel call, SDPA + matmul yardstick, plain version) of a Swin
-    case on seeded inputs, in this turn's checkout."""
+    case on seeded inputs, in this turn's checkout; `backward`: the
+    backward's, its yardstick as (forward, inputs, cotangent) for
+    _grad_graph_ms."""
     from apla_tpu_torch.models.swin import _shift_mask
     from apla_tpu_torch.ops import fused_swin_attn as fs
     _, b, n, c, side, planes = case
@@ -288,13 +322,25 @@ def _swin_calls(torch, case, gen, dev):
         terms = terms + mask[torch.arange(b, device=dev)
                              % mask.shape[0]][:, None]
     attn_mask = terms.to(torch.bfloat16)
-    q, k, v = qkv.unflatten(-1, (3, heads, 32)).permute(2, 0, 3, 1, 4)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    return (lambda: fs.fused_swin_attn_fwd(qkv, w, bias, mask, heads, scale),
-            lambda: torch.matmul(sdpa(q, k, v, attn_mask=attn_mask,
-                                      scale=scale).transpose(1, 2)
-                                 .reshape(b, n, c), w),
-            lambda: fs.fused_swin_attn_fwd_reference(qkv, w, bias, mask,
+
+    def library(x, wx):
+        q, k, v = x.unflatten(-1, (3, heads, 32)).permute(2, 0, 3, 1, 4)
+        return torch.matmul(sdpa(q, k, v, attn_mask=attn_mask, scale=scale)
+                            .transpose(1, 2).reshape(b, n, c), wx)
+
+    if not backward:
+        return (lambda: fs.fused_swin_attn_fwd(qkv, w, bias, mask, heads,
+                                               scale),
+                lambda: library(qkv, w),
+                lambda: fs.fused_swin_attn_fwd_reference(qkv, w, bias, mask,
+                                                         heads, scale))
+    g = torch.randn((b, n, c), generator=gen).to(dev, torch.bfloat16)
+    lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
+    return (lambda: fs.fused_swin_attn_bwd(qkv, w, g, bias, mask, heads,
+                                           scale),
+            (library, (lq, lw), g),
+            lambda: fs.fused_swin_attn_bwd_reference(qkv, w, g, bias, mask,
                                                      heads, scale))
 
 
@@ -357,10 +403,11 @@ def _split(kernel, got):
     """A call's outputs as a tuple in OUTPUTS[kernel]'s order."""
     if kernel in ("mha", "fused", "swin"):
         return (got,)
-    dqkv = got[0] if kernel == "bwd" else got
+    with_dw = kernel in ("bwd", "swin_bwd")
+    dqkv = got[0] if with_dw else got
     c = dqkv.shape[-1] // 3
     parts = tuple(dqkv[..., i * c:(i + 1) * c] for i in range(3))
-    return parts + ((got[1],) if kernel == "bwd" else ())
+    return parts + ((got[1],) if with_dw else ())
 
 
 def _calls(torch, kernel, b, n, c, gen, dev):
@@ -427,8 +474,9 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
     if kernel == "int8":
         _int8_calls(torch, ("", 64, 64, 64, 64, "bfloat16", False),
                     torch.Generator(), dev)[0]()
-    elif kernel == "swin":
-        _swin_calls(torch, ("", 1, 9, 32, 0, 0), torch.Generator(), dev)[0]()
+    elif kernel in ("swin", "swin_bwd"):
+        _swin_calls(torch, ("", 1, 9, 32, 0, 0), torch.Generator(), dev,
+                    kernel == "swin_bwd")[0]()
     elif kernel == "proto":
         from apla_tpu_torch.ops import proto_ce as pc
         one = [torch.ones((8, 256), device=dev), torch.ones((256, 8),
@@ -440,11 +488,12 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
     else:
         _calls(torch, kernel, 1, 1, 64, torch.Generator(), dev)[0]()
     out["build_s"] = time.perf_counter() - t0
-    cases = {"int8": (), "proto": (), "swin": SWIN_SHAPES}.get(
-        kernel, SHAPES[kernel])
+    cases = {"int8": (), "proto": (), "swin": SWIN_SHAPES,
+             "swin_bwd": SWIN_SHAPES}.get(kernel, SHAPES[kernel])
     for case in cases:
-        if kernel == "swin":
-            call, library, plain = _swin_calls(torch, case, gen, dev)
+        if kernel in ("swin", "swin_bwd"):
+            call, library, plain = _swin_calls(torch, case, gen, dev,
+                                               kernel == "swin_bwd")
             b, n, c = case[1:4]
         else:
             b, n, c = case
@@ -456,14 +505,24 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
                   for x, r in zip(got, ref))
         del ref
         host_ms = _host_ms(torch, call)
-        out["calls"].append({
-            "shape": [b, n, 3 * c], "max_abs_err": err, "host_ms": host_ms,
-            "ms": _time_ms(torch, call),
-            "graph_ms": _graph_ms(torch, call),
-            "library_ms": _time_ms(torch, library),
-            # autograd does not capture into a CUDA graph
-            "library_graph_ms": (None if kernel in ("bwd", "mha_bwd")
-                                 else _graph_ms(torch, library))})
+        rec = {"shape": [b, n, 3 * c], "max_abs_err": err, "host_ms": host_ms,
+               "ms": _time_ms(torch, call),
+               "graph_ms": _graph_ms(torch, call)}
+        if kernel == "swin_bwd":
+            rec["kernels_ms"] = _kernel_ms(torch, call)
+            rec["library_graph_ms"] = _grad_graph_ms(torch, *library)
+            forward, inputs, g = library
+            lout = forward(*inputs)
+            rec["library_ms"] = _time_ms(torch, lambda: torch.autograd.grad(
+                lout, inputs, g, retain_graph=True))
+            del lout
+        else:
+            rec["library_ms"] = _time_ms(torch, library)
+            # autograd does not capture into a CUDA graph as it is called
+            rec["library_graph_ms"] = (
+                None if kernel in ("bwd", "mha_bwd")
+                else _graph_ms(torch, library))
+        out["calls"].append(rec)
     if kernel == "int8":
         _int8_worker(torch, dev, out, saved)
     if kernel == "proto":
@@ -480,7 +539,7 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
         with contextlib.redirect_stdout(log):
             _phases(smoke, kernel, dev, out)
         # the first step's kernel arm against the plain arm, as printed;
-        # int8: 10b's and 8b's W8A8 lines
+        # int8: 10b's and 8b's W8A8 lines; proto, swin_bwd: the profiles
         out["first_step"] = [ln for ln in log.getvalue().splitlines()
                              if "vs plain arm: |dloss|" in ln
                              or (kernel == "int8" and (
@@ -488,7 +547,10 @@ def worker(tree: str, kernel: str, full: bool, outputs: str) -> dict:
                                  or "W8A8 artifact" in ln))
                              or (kernel == "proto" and (
                                  "profile by group" in ln
-                                 or "profile, fused arm" in ln))]
+                                 or "profile, fused arm" in ln))
+                             or (kernel == "swin_bwd"
+                                 and "[8b det] profile" in ln
+                                 and "top kernel" not in ln)]
         print(log.getvalue()[-20000:], file=sys.stderr)
     return out
 
@@ -512,7 +574,7 @@ def _phases(smoke, kernel, dev, out):
                               sorted(rates.items())}
     if kernel == "int8":
         _, out["w8a8_img_s"] = smoke.phase_w8a8(dev)
-    if kernel in ("int8", "swin"):
+    if kernel in ("int8", "swin", "swin_bwd"):
         _, det = smoke.phase_det(dev)
         out["det_img_s"] = {f"{what} {name}": r for (what, name), (r, _)
                             in sorted(det.items())}
@@ -535,7 +597,8 @@ def main() -> int:
     ap.add_argument("--full", action="store_true",
                     help="also run each checkout's chip_smoke phases (mha, "
                          "mha_bwd: 7b; fused: 3 and 9b; bwd: 5, 7b, 9b; "
-                         "int8: 10b and 8b; swin: 8b; proto: 6b)")
+                         "int8: 10b and 8b; swin, swin_bwd: 8b; proto: "
+                         "6b)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--outputs", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -576,6 +639,7 @@ def main() -> int:
             "bwd": "autograd through SDPA + matmul",
             "mha_bwd": "SDPA's autograd", "int8": "torch._int_mm",
             "swin": "SDPA (bias + mask) + matmul",
+            "swin_bwd": "autograd through SDPA (bias + mask) + matmul",
             "proto": "fwd: two bf16 matmuls, logsumexp, softmax-weighted "
                      "sum (several calls, not the same bits)"}[args.kernel]
     for i, shape in enumerate(SHAPES[args.kernel]):
@@ -622,19 +686,24 @@ def main() -> int:
         keys = ("library_ms", "library_graph_ms", "matmul_ms",
                 "matmul_graph_ms") if args.kernel == "int8" else (
             ("library_ms",) if args.kernel in ("bwd", "mha_bwd")
-            else ("library_graph_ms",))
+            else ("library_ms", "library_graph_ms")
+            if args.kernel == "swin_bwd" else ("library_graph_ms",))
         for key in keys:
-            lib = [t["calls"][i][key] for t in turns]
+            lib = [t["calls"][i][key] for t in turns
+                   if t["calls"][i][key] is not None]
+            if not lib:
+                cells.append(f"{yard} {key.split('_', 1)[1]} not measured")
+                continue
             name = yard if key.startswith("library") else "torch.matmul"
             cells.append(f"{name} {key.split('_', 1)[1]} "
                          f"{min(lib):.4f}-{max(lib):.4f}")
-        if args.kernel == "int8":
+        if args.kernel in ("int8", "swin_bwd"):
             for who in ("parent", "this"):
                 split = [t["calls"][i]["kernels_ms"] for t in turns
                          if t["turn"] == who][0]
                 cells.append(f"{who} per kernel (profiler ms) " + "; ".join(
                     f"{k} {v:.4f}" for k, v in split.items()))
-        label = shape if args.kernel in ("int8", "swin") else \
+        label = shape if args.kernel in ("int8", "swin", "swin_bwd") else \
             f"[{shape[0]}, {shape[1]}, {3 * shape[2]}]"
         print(f"{label}: " + ", ".join(cells))
     if args.full:
