@@ -1,16 +1,18 @@
 """Command line: train and test a recipe with the port.
 
   python -m apla_tpu_torch.main --params_path params/.../apla.yml [--test]
-         [--knn] [--dinov2] [--device cpu] [--epochs N] [--batch_size N] ...
+         [--knn] [--byol | --simsiam | --dino | --dinov2] [--device cpu]
+         [--epochs N] [--batch_size N] ...
 
 Mirrors the JAX package's `main.py:144-170`, with copies of its
 `parse_arguments` and `update_params_from_args` (that file lives outside
 both packages).  The run is on the CUDA card; `--device cpu` (or
-`system_params.device`) is the only way to the CPU.  `--dinov2` trains the
-DINOv2 objective (`ssl/dinov2.py`); `--test` then runs its kNN test table
+`system_params.device`) is the only way to the CPU.  `--byol`, `--simsiam`
+(`ssl/byol.py`), `--dino` (`ssl/dino.py`) and `--dinov2` (`ssl/dinov2.py`)
+train a self-supervised objective; `--test` then runs its kNN test table
 on a checkpoint.  Flags for paths the port does not have yet raise
-`NotImplementedError` naming their ROADMAP item: `--byol`, `--simsiam`,
-`--dino`, and the mesh flags (`--n_devices`/`--gpu` above one device,
+`NotImplementedError` naming their ROADMAP item: the mesh flags
+(`--n_devices`/`--gpu` above one device,
 `--param_sharding` other than replicated, `--tensor_parallel`,
 `--pipeline_parallel`, `--sequence_parallel`, through `DefaultWrapper`).
 """

@@ -1,44 +1,248 @@
-"""Shared SSL plumbing: the wrapper's multi-crop set-up and the run loop.
+"""BYOL / SimSiam self-supervised training, and the SSL run loop the other
+objectives share.
 
-Counterpart of the parts of `apla_tpu/ssl/byol.py` that the DINOv2
-objective inherits: `BYOLWrapper.update_augmentation_strategy` and
-`_setup_device_multicrop` (`:84-115`), and the `BYOLTrainer` run loop
-(`:352-602`): train, validation by kNN on the feature branch's backbone,
-best-model tracking, checkpoints with the auxiliary state (teacher,
-centers), resume and the kNN test table.  The trainer keeps its records in
-`history`, as `Trainer` does.
+Counterpart of `apla_tpu/ssl/byol.py`:
 
-The BYOL/SimSiam objective itself (heads with BatchNorm, the train step)
-is not ported yet: `make_byol_train_step`, `BYOLWrapper.init_model` and
-`BYOLTrainer.train_one` raise naming ROADMAP queue A.  Only the on-device
-multi-crop path exists (the JAX package's `dataset_params.device_augment`
-one): the host multi-crop transforms need the PIL-free transforms (ROADMAP
-queue A).
+- the objective: `SSLTrainState`, `byol_loss`, `simsiam_loss`,
+  `BYOLWrapper.init_model` / `init_optimization` (BatchNorm heads at the
+  JAX defaults: BYOL projection 256, hidden 4096, 2 layers, predictor
+  4096; SimSiam 2048, 2048, 3 layers, predictor 512; the EMA momentum
+  from `cosine_with_warmup_table(0.99, 1.0, ...)`) and
+  `make_byol_train_step` with `accum_steps`;
+- the plumbing: the multi-crop set-up (`update_augmentation_strategy`,
+  `_setup_device_multicrop`) and the `BYOLTrainer` run loop: train,
+  validation by kNN on the feature branch's backbone, best-model tracking,
+  checkpoints with the auxiliary state (the teacher, the BN running stats,
+  the centers), resume and the kNN test table.  The trainer keeps its
+  records in `history`, as `Trainer` does.
+
+The student is one `BYOLModel` (backbone + head + predictor).  The teacher
+(BYOL) is the EMA twin of the trainable backbone and head tensors only:
+the frozen weights are shared, and the target branch runs on the student's
+modules with the teacher's tensors swapped in (`weights_swapped`).  SimSiam
+takes the student's own weights as the target, without gradients, and its
+teacher is never updated.  The BN running stats are a nested dict in the
+state ({'student': {'head', 'predictor'}, 'teacher': {'head'}}), threaded
+through every forward in the JAX order: student view 0's head then
+predictor, then view 1's, the target head on the views reversed, and under
+accumulation through the micro-batches in turn.
+
+Only the on-device multi-crop path exists (the JAX package's
+`dataset_params.device_augment` one): the host multi-crop transforms need
+the PIL-free transforms (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
 import numpy as np
 import torch
+from torch import nn
 
-from ..models.vit import vit_features
+from ..apla.core import build_apla
+from ..data.device_augs import device_augment
+from ..models.vit import ViT, init_vit_, vit_features
 from ..train.checkpoint import load_aux_state, load_checkpoint, \
     save_checkpoint
 from ..train.knn import knn_evaluate
-from ..train.train_state import weights_swapped
-from ..wrapper import DefaultWrapper
+from ..train.optim import global_norm
+from ..train.schedules import cosine_with_warmup_table
+from ..train.train_state import TrainState, weights_swapped
+from ..wrapper import DefaultWrapper, build_apla_config, build_vit_config
+from .heads import (BYOLHead, PredictionMLP, byol_head_forward,
+                    init_byol_head, init_prediction_mlp,
+                    prediction_mlp_forward)
 from .multicrop import apply_augmentation_strategy, resolve_strategy_spec
 
-ROADMAP_OBJECTIVES = "ROADMAP queue A: BYOL/SimSiam/DINO v1 objectives"
+
+# --------------------------------------------------------------------------- #
+# model, state and losses
+# --------------------------------------------------------------------------- #
+
+class BYOLModel(nn.Module):
+    """The student: ViT backbone (APLA-split) + projection head +
+    predictor."""
+
+    def __init__(self, backbone: ViT, head: BYOLHead,
+                 predictor: PredictionMLP):
+        super().__init__()
+        self.backbone = backbone
+        self.head = head
+        self.predictor = predictor
 
 
-def make_byol_train_step(*args, **kwargs):
-    raise NotImplementedError(f"the BYOL/SimSiam train step is not ported "
-                              f"yet ({ROADMAP_OBJECTIVES})")
+def _tree_items(tree: dict, prefix: str = ""):
+    """(dotted name, leaf) of a nested dict of tensors."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _tree_items(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
 
+
+def _tree_map(fn, tree: dict) -> dict:
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+@dataclasses.dataclass
+class SSLTrainState(TrainState):
+    """`TrainState` plus the EMA teacher (name -> tensor: the trainable
+    `backbone.*` and `head.*`) and the BN running stats (`model_state`)."""
+    teacher: dict
+    model_state: dict
+
+    def aux(self) -> dict:
+        """What a checkpoint keeps beside the trainable tensors."""
+        out = {f"teacher.{n}": t for n, t in self.teacher.items()}
+        out.update((f"model_state.{n}", t)
+                   for n, t in _tree_items(self.model_state))
+        return out
+
+    @torch.no_grad()
+    def load_aux(self, aux: dict) -> None:
+        for n, t in self.teacher.items():
+            t.copy_(aux[f"teacher.{n}"])
+        for n, t in _tree_items(self.model_state):
+            t.copy_(aux[f"model_state.{n}"])
+
+
+def _cosines(preds, targets):
+    """Per pair, the rowwise cosine of f32 L2-normalised rows [B]."""
+    out = []
+    for p, t in zip(preds, targets):
+        p, t = p.float(), t.float()
+        p = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
+        t = t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-12)
+        out.append(torch.sum(p * t, dim=-1))
+    return out
+
+
+def byol_loss(preds, targets):
+    """2 - 2 cos per view pair, summed over pairs, averaged over the
+    batch."""
+    return torch.mean(sum(2.0 - 2.0 * c for c in _cosines(preds, targets)))
+
+
+def simsiam_loss(preds, targets):
+    """-cos / 2 per view pair, summed over pairs, averaged over the
+    batch."""
+    return torch.mean(sum(-c / 2.0 for c in _cosines(preds, targets)))
+
+
+def fill_missing_grads(params) -> list:
+    """The gradients of `params`, zeros where autograd left none (a
+    parameter the loss does not reach, as JAX's gradient of it is 0)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return [p.grad for p in params]
+
+
+@torch.no_grad()
+def ema_update(teacher: dict, student: dict, momentum: float) -> None:
+    """teacher <- teacher * m + student * (1 - m), over the teacher's
+    names."""
+    names = list(teacher)
+    t = [teacher[n] for n in names]
+    torch._foreach_mul_(t, float(momentum))
+    torch._foreach_add_(t, [student[n].detach() for n in names],
+                        alpha=1.0 - float(momentum))
+
+
+# --------------------------------------------------------------------------- #
+# train step
+# --------------------------------------------------------------------------- #
+
+def make_byol_train_step(vit_cfg, optimizer, use_momentum: bool,
+                         device_crop_cfgs=None, accum_steps: int = 1):
+    """Returns train_step(state, views, lr, momentum, generator) -> (state,
+    metrics) (`apla_tpu/ssl/byol.py:228-349`).
+
+    `views`: the raw uint8 batch [B, H, W, C] with `device_crop_cfgs` (one
+    view per config, made on the device from `generator`), else the list
+    of ready views.  With `accum_steps` > 1 the whole per-batch computation
+    (target branch, student, BN updates) runs per micro-batch and the
+    gradients are averaged before one update; BN statistics are then
+    per-micro-batch, as in the JAX scan."""
+    loss_pair = byol_loss if use_momentum else simsiam_loss
+
+    def target_branch(state, views, t_head_s):
+        """No gradients, deterministic: the target projections of the views
+        reversed (teacher for BYOL, the student's own weights for SimSiam)
+        and the teacher head's new running stats."""
+        model = state.model
+        weights = state.teacher if use_momentum else None
+        targets = []
+        with torch.no_grad(), weights_swapped(state.trainable(), weights):
+            for view in views[::-1]:
+                emb = vit_features(model.backbone, view, vit_cfg)
+                proj, t_head_s = byol_head_forward(emb, model.head, t_head_s,
+                                                   train=True)
+                targets.append(proj)
+        return targets, t_head_s
+
+    def student_loss(state, views, targets, stats, generator):
+        model = state.model
+        head_s, pred_s = stats["head"], stats["predictor"]
+        preds = []
+        for view in views:
+            emb = vit_features(model.backbone, view, vit_cfg,
+                               deterministic=False, generator=generator)
+            proj, head_s = byol_head_forward(emb, model.head, head_s,
+                                             train=True)
+            pred, pred_s = prediction_mlp_forward(proj, model.predictor,
+                                                  pred_s, train=True)
+            preds.append(pred)
+        return loss_pair(preds, targets), {"head": head_s,
+                                           "predictor": pred_s}
+
+    def train_step(state: SSLTrainState, views, lr, momentum, generator):
+        params = optimizer.params
+        for p in params:
+            p.grad = None
+        if device_crop_cfgs is not None:
+            views = [device_augment(views, generator, cfg,
+                                    compute_dtype=vit_cfg.compute_dtype)
+                     for cfg in device_crop_cfgs]
+        B = views[0].shape[0]
+        if B % accum_steps:
+            raise ValueError(f"batch {B} does not split into {accum_steps} "
+                             "micro-batches")
+        mb = B // accum_steps
+        ms = state.model_state
+        loss = 0.0
+        for m in range(accum_steps):
+            mviews = [v[m * mb:(m + 1) * mb] for v in views]
+            targets, t_head_s = target_branch(state, mviews,
+                                              ms["teacher"]["head"])
+            loss_m, s_stats = student_loss(state, mviews, targets,
+                                           ms["student"], generator)
+            loss_m.backward()
+            loss = loss + loss_m.detach()
+            ms = {"student": s_stats, "teacher": {"head": t_head_s}}
+        grads = fill_missing_grads(params)
+        if accum_steps > 1:
+            loss = loss / accum_steps
+            torch._foreach_div_(grads, float(accum_steps))
+        gnorm = global_norm(grads)
+        optimizer.set_lr(lr)
+        optimizer.step(gnorm)
+        if use_momentum:
+            ema_update(state.teacher, state.trainable(), momentum)
+        state.model_state = ms
+        state.step += 1
+        return state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
+# --------------------------------------------------------------------------- #
+# wrapper + trainer
+# --------------------------------------------------------------------------- #
 
 class BYOLWrapper(DefaultWrapper):
     is_supervised = False
@@ -81,13 +285,65 @@ class BYOLWrapper(DefaultWrapper):
         self.ssl_device_crop_cfgs = crop_cfgs_from_strategy(
             spec, trainset.mean, trainset.std, g_size=g, l_size=loc)
 
+    def build_vit_config(self):
+        return build_vit_config(self.parameters)
+
+    def _init_backbone(self, generator: torch.Generator) -> ViT:
+        """A seeded ViT, APLA-split per the recipe (else frozen for a
+        linear probe with `freeze_backbone`, else all trainable)."""
+        self.vit_cfg = self.build_vit_config()
+        vit = init_vit_(ViT(self.vit_cfg), generator)
+        apla_cfg = build_apla_config(self.parameters)
+        if apla_cfg is not None:
+            build_apla(vit, apla_cfg)
+        elif self.model_params.get("freeze_backbone"):
+            vit.requires_grad_(False)
+        return vit
+
+    def _print_model(self, what: str):
+        n_train = sum(p.numel() for p in self.model.parameters()
+                      if p.requires_grad)
+        n_total = sum(p.numel() for p in self.model.parameters())
+        print(f"Model: {self.model_params.backbone_type} + {what} "
+              f"trainable={n_train:,} / total={n_total:,}")
+
     def init_model(self, seed: int = 0):
-        raise NotImplementedError(f"the BYOL/SimSiam heads are not ported "
-                                  f"yet ({ROADMAP_OBJECTIVES})")
+        gen = torch.Generator().manual_seed(seed)
+        vit = self._init_backbone(gen)
+        d = self.vit_cfg.embed_dim
+        if self.use_momentum:   # BYOL defaults
+            proj_size, proj_hidden, pred_hidden, nlayers = 256, 4096, 4096, 2
+        else:                   # SimSiam defaults
+            proj_size, proj_hidden, pred_hidden, nlayers = 2048, 2048, 512, 3
+        head, head_s = init_byol_head(d, proj_size, proj_hidden, nlayers,
+                                      generator=gen)
+        pred, pred_s = init_prediction_mlp(proj_size, proj_size, pred_hidden,
+                                           generator=gen)
+        self.model = BYOLModel(vit, head, pred).to(self.device)
+        # the teacher head's stats start as copies of the student's
+        model_state = {"student": {"head": head_s, "predictor": pred_s},
+                       "teacher": {"head": _tree_map(torch.clone, head_s)}}
+        self.model_state = _tree_map(lambda t: t.to(self.device),
+                                     model_state)
+        self._print_model("BYOL heads" if self.use_momentum
+                          else "SimSiam heads")
+
+    def total_iters(self) -> int:
+        return max(len(self.dataloaders.trainloader)
+                   * int(self.training_params.epochs), 1)
 
     def init_optimization(self):
-        raise NotImplementedError(f"the BYOL/SimSiam optimisation is not "
-                                  f"ported yet ({ROADMAP_OBJECTIVES})")
+        # the optimizer over the trainables and the lr schedule
+        super().init_optimization()
+        self.momentum_schedule = cosine_with_warmup_table(
+            0.99, 1.0, self.total_iters())
+        # the teacher starts equal to the student's backbone and head
+        self.state = SSLTrainState(
+            step=0, model=self.model, optimizer=self.optimizer,
+            teacher={n: p.detach().clone()
+                     for n, p in self.state.trainable().items()
+                     if n.startswith(("backbone.", "head."))},
+            model_state=self.model_state)
 
 
 class BYOLTrainer:
@@ -132,6 +388,7 @@ class BYOLTrainer:
         self.generator = torch.Generator(device=self.device)
         self.history = []          # (iteration, record) for every log call
         self._last_val_iter = -1
+        self._train_step = None
 
     # ------------------------------------------------------------------ #
     @property
@@ -140,6 +397,11 @@ class BYOLTrainer:
 
     def log(self, record: dict, it: int):
         self.history.append((it, dict(record)))
+
+    def momentum_at(self, it: int) -> float:
+        """The EMA momentum of iteration `it` from the wrapper's table."""
+        table = self.wrapper.momentum_schedule
+        return float(table[min(it, len(table) - 1)])
 
     def _feature_weights(self):
         """The feature extractor's backbone weights (name -> tensor): the
@@ -164,8 +426,21 @@ class BYOLTrainer:
     def train_one(self, batch, epoch: int):
         """One optimisation step on a host batch -> (metrics of device
         scalars, extra floats to log)."""
-        raise NotImplementedError(f"the BYOL/SimSiam train step is not "
-                                  f"ported yet ({ROADMAP_OBJECTIVES})")
+        if self._train_step is None:
+            self._train_step = make_byol_train_step(
+                self.vit_cfg, self.wrapper.optimizer, self.use_momentum,
+                device_crop_cfgs=self.wrapper.ssl_device_crop_cfgs,
+                accum_steps=int(self.wrapper.training_params.get(
+                    "accum_steps", 1)))
+        lr = self.wrapper.scheduler.lr(self.iters)
+        mom = self.momentum_at(self.iters)
+        # per-step draws (crops, dropout): a resumed run draws what the
+        # original would
+        self.generator.manual_seed((self.seed << 32) + self.iters)
+        images = batch["image"].to(self.device, non_blocking=True)
+        self.state, m = self._train_step(self.state, images, lr, mom,
+                                         self.generator)
+        return m, {"lr": lr, "ema_momentum": mom}
 
     # ------------------------------------------------------------------ #
     def train(self):

@@ -30,17 +30,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..apla.core import build_apla
 from ..data.device_augs import device_multicrop
-from ..models.vit import VIT_BUILDERS, ViT, init_vit_, trunc_normal, \
+from ..models.vit import VIT_BUILDERS, ViT, trunc_normal, \
     vit_features
 from ..ops.proto_ce import proto_ce
 from ..train.optim import build_optimizer, global_norm
 from ..train.train_state import TrainState, weights_swapped
 from ..utils.config import EDict
-from ..wrapper import build_apla_config
-from .byol import BYOLTrainer
-from .dino import DINOWrapper
+from .byol import BYOLTrainer, ema_update
+from .dino import DINOWrapper, zero_grads_of
 from .heads import (DINOHead, dino_head_bottleneck, dino_head_forward,
                     dino_head_last_w, init_dino_head)
 from .multicrop import resolve_strategy_spec
@@ -629,19 +627,11 @@ def make_dinov2_train_step(vit_cfg, optimizer, cfg: EDict, n_global: int,
                 p.grad.div_(accum_steps)
         if freeze_last_layer:
             # both weight-norm leaves of the prototype layer(s)
-            for name, p in state.trainable().items():
-                if name.rsplit(".", 1)[-1] in ("last_v", "last_g"):
-                    p.grad.zero_()
+            zero_grads_of(state.trainable(), ("last_v", "last_g"))
         gnorm = global_norm([p.grad for p in params])
         optimizer.set_lr(lr, wd)
         optimizer.step(gnorm)
-        with torch.no_grad():
-            student = state.trainable()
-            names = list(state.teacher)
-            teacher = [state.teacher[n] for n in names]
-            torch._foreach_mul_(teacher, float(momentum))
-            torch._foreach_add_(teacher, [student[n].detach() for n in names],
-                                alpha=1.0 - float(momentum))
+        ema_update(state.teacher, state.trainable(), momentum)
         state.dino_center = new_dino_center.detach()
         state.ibot_center = new_ibot_center.detach()
         state.step += 1
@@ -712,15 +702,9 @@ class DINOv2Wrapper(DINOWrapper):
             gelu_tanh=bool(sp.get("gelu_tanh", False)))
 
     def init_model(self, seed: int = 0):
-        self.vit_cfg = self.build_vit_config()
         d2 = self.model_params.dinov2
         gen = torch.Generator().manual_seed(seed)
-        vit = init_vit_(ViT(self.vit_cfg), gen)
-        apla_cfg = build_apla_config(self.parameters)
-        if apla_cfg is not None:
-            build_apla(vit, apla_cfg)
-        elif self.model_params.get("freeze_backbone"):
-            vit.requires_grad_(False)
+        vit = self._init_backbone(gen)
         if any(not p.requires_grad for p in vit.parameters()):
             # the iBOT mask token lives with the frozen backbone weights
             vit.mask_token = nn.Parameter(
@@ -740,11 +724,7 @@ class DINOv2Wrapper(DINOWrapper):
         self.n_prototypes = int(d2.dino.head_n_prototypes)
         self.ibot_prototypes = int(d2.ibot.head_n_prototypes) if separate \
             else self.n_prototypes
-        n_train = sum(p.numel() for p in self.model.parameters()
-                      if p.requires_grad)
-        n_total = sum(p.numel() for p in self.model.parameters())
-        print(f"Model: {self.model_params.backbone_type} + DINOv2 heads "
-              f"trainable={n_train:,} / total={n_total:,}")
+        self._print_model("DINOv2 heads")
 
     def init_optimization(self):
         opt = self.optimization_params.default

@@ -9,7 +9,9 @@ buffers of `ops.quant.QuantizedKernel`).  Every parity test goes
 through it, and `models.classifier.classifier_from_state` builds a module
 from it.  `dinov2_state_from_jax` carries a JAX DINOv2 train state across:
 student trainable tree, teacher tree, frozen tree (with `mask_token`) and
-both centers; `seg_state_from_jax` a JAX SETR-PUP segmenter.
+both centers; `byol_state_from_jax` a BYOL/SimSiam one (with the BN running
+stats) and `dino_state_from_jax` a DINO v1 one (with its center);
+`seg_state_from_jax` a JAX SETR-PUP segmenter.
 
 The Swin side: a Swin tree's flat names are the port's module names
 (`stages.{s}.blocks.{i}.attn.qkv.kernel`, lists indexed), so
@@ -95,6 +97,32 @@ def dinov2_state_from_jax(state, frozen: dict) -> dict:
     return {"trainable": trainable, "teacher": teacher, "frozen": frozen_t,
             "dino_center": _tensor(state.dino_center),
             "ibot_center": _tensor(state.ibot_center)}
+
+
+def byol_state_from_jax(state, frozen: dict) -> dict:
+    """A JAX `SSLTrainState` (BYOL/SimSiam; numpy leaves) and its frozen
+    tree -> {'trainable', 'teacher', 'frozen', 'model_state'} name -> tensor
+    maps: `BYOLModel` names (`backbone.*`, `head.fc{i}.*`, `head.bn{i}.*`,
+    `predictor.*`) and the BN running stats under their dotted paths
+    (`student.head.bn0.mean`, `student.predictor.bn0.var`,
+    `teacher.head.bn1.mean`, ...)."""
+    trainable, frozen_t = params_from_jax(dict(state.trainable), frozen)
+    teacher, _ = params_from_jax(dict(state.teacher), {})
+    stats = {}
+    _flatten(dict(state.model_state), "", stats)
+    return {"trainable": trainable, "teacher": teacher, "frozen": frozen_t,
+            "model_state": {n: _tensor(v) for n, v in stats.items()}}
+
+
+def dino_state_from_jax(state, frozen: dict) -> dict:
+    """A JAX `DINOTrainState` (numpy leaves) and its frozen tree ->
+    {'trainable', 'teacher', 'frozen'} name -> tensor maps (`DINOModel`
+    names: `backbone.*`, `head.mlp.{i}.*`, `head.last_v`, `head.last_g`)
+    and the 'center' tensor [1, K]."""
+    trainable, frozen_t = params_from_jax(dict(state.trainable), frozen)
+    teacher, _ = params_from_jax(dict(state.teacher), {})
+    return {"trainable": trainable, "teacher": teacher, "frozen": frozen_t,
+            "center": _tensor(state.center)}
 
 
 def seg_state_from_jax(trainable: dict, frozen: dict):

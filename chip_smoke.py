@@ -2,10 +2,10 @@
 """Chip smoke test of the PyTorch/H100 port (`apla_tpu_torch`).
 
 Drives the port's serving path, its supervised training path, its
-DINOv2 self-supervised path, its full-projection path, its Swin
-detection side-car, its ViT-L segmentation side-car and its W8A8 serving
-path once on one CUDA card, in phases that each print a line
-and raise on failure:
+DINOv2, BYOL, SimSiam and DINO v1 self-supervised paths, its
+full-projection path, its Swin detection side-car, its ViT-L segmentation
+side-car and its W8A8 serving path once on one CUDA card, in phases that
+each print a line and raise on failure:
 
   1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`
                (eight sources), one nvcc per source, all started together.
@@ -141,14 +141,34 @@ and raise on failure:
                the W8A8 artifact's cosine to the float one, params.npz
                bytes, b64 img/s of the W8A8 kernel, plain and float arms
                and their memory.
+  11. ssl_v1 — rows 1, 2 against their plain versions at DINO v1's local
+               crops ([512, 37, 2304]: 37 of a 64-key tile live), timed
+               beside the bound and the two-call yardstick; then phase
+               6b's ViT-B/14 APLA-128 backbone under BYOL and SimSiam
+               (BYOL_RECIPE, 2 x 224 crops) and DINO v1 (DINO_RECIPE, 2 x
+               224 + 8 x 96) on Synthetic data through the wrappers ->
+               trainer.train() -> test(checkpoint): the first step's
+               loss, every backbone call's embeddings and the backbone's
+               gradients under the plain arm's head cotangent, kernel arm
+               against plain arm, with three faults per objective (the
+               target branch's or teacher's forward halved; dW_t zeroed,
+               or DINO's local-crop backward zeroed; dW_t scaled by
+               0.95), the fused kernels in every block of every call (4
+               forwards and 2 backwards a step, 3 and 2 for DINO, 12
+               forwards per kNN embed call), finite losses, frozen weights
+               kept, the trainables, the teacher (not SimSiam's) and the BN
+               running stats or the center moved, the checkpoint reloaded
+               by test() with the kNN table; train-step img/s and peak
+               memory of both arms, a profile of DINO's step.
 
-Phases 2-10 also run negative controls: the kernels made to compute what
+Phases 2-11 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
 heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
 from the wrong columns or zeroed, rowsum(dp * p) dropped from ds, a key
 tile left out of dq, a query tile left out of dk; the
 teacher temperature taken as 1, dws zeroed, dxs halved, p_t dropped from
-ds; the projection GEMM's output halved, its last row unwritten, its last
+ds; the SSL target branch's forward halved, a local-crop backward
+zeroed; the projection GEMM's output halved, its last row unwritten, its last
 contraction step skipped; the Swin bias or mask dropped, the mask read at
 the wrong window, dW zeroed; the int8 weight scales dropped, one
 activation scale for the whole tensor, codes truncated, the last K group
@@ -413,6 +433,75 @@ SSL_LOSS_TERMS = ("dino_local_crops_loss", "dino_global_crops_loss",
                   "koleo_loss", "ibot_loss")
 SSL_AGREE_TERMS = ("dino_local_crops_loss", "dino_global_crops_loss",
                    "ibot_loss")
+
+def _v1_recipe(**model_params):
+    """SSL_RECIPE's backbone, data, loaders, optimizer and training fields
+    in the schema BYOL, SimSiam and DINO v1 read (the supervised
+    `transformers_params`, not DINOv2's `student` / `teacher`), with
+    `model_params` added; the DINOv2 heads and knobs left out."""
+    recipe = copy.deepcopy(SSL_RECIPE)
+    mp = recipe["model_params"]
+    student = mp["transformers_params"]["student"]
+    mp["transformers_params"] = {
+        "img_size": [student["pre_img_size"]],
+        "patch_size": student["patch_size"],
+        "drop_path_rate": student["drop_path_rate"],
+        "gelu_tanh": student["gelu_tanh"],
+        "use_fused_apla": student["use_fused_apla"],
+        "num_register_tokens": student["num_register_tokens"],
+        "block_conf": {"has_layerscale": True,
+                       "layerscale_init_values": student["layerscale"]}}
+    del mp["dinov2"]
+    del recipe["training_params"]["freeze_last_layer_epochs"]
+    mp.update(copy.deepcopy(model_params))
+    return recipe
+
+
+# Phase 11: the ViT-B/14 APLA-128 backbone of phase 6b under BYOL and
+# SimSiam (`--byol`, `--simsiam`: BYOL_RECIPE; the heads at the JAX
+# package's defaults, 256 / 4096 / 2 layers / predictor 4096 and 2048 /
+# 2048 / 3 / 512) and DINO v1 (`--dino`: DINO_RECIPE, the JAX DINOWrapper's
+# defaults written out).  Crops follow the strategies: 2 x 224 (257
+# tokens), and for DINO 8 x 96 more (37 tokens).
+BYOL_RECIPE = _v1_recipe()
+DINO_RECIPE = _v1_recipe(DINO={"projection_size": 4096,
+                               "moving_average_decay": 0.99,
+                               "warmup_teacher_temp": 0.04,
+                               "teacher_temp": 0.07})
+# What phase 11 changes, and why: SSL_CUTS's data, weights and rank, at 128
+# images (two steps of b64, one epoch, every step logged); the loaders run
+# in-process (three objectives would each start 32 spawned workers).
+V1_CUTS = {**copy.deepcopy(SSL_CUTS), "dataloader_params": {
+    name: {"num_workers": 0}
+    for name in ("trainloader", "valloader", "testloader")}}
+V1_CUTS["dataset_params"]["synthetic_size"] = 128
+V1_OBJECTIVES = ("byol", "simsiam", "dino")
+# Rows 1 and 2 at DINO v1's local crops: 8 x 64 crops of 96 px.
+V1_KERNEL_SHAPE = (512, 37, 2304)
+# Phase 11, kernel arm vs plain arm on the first step (b64, bf16 through
+# 12 blocks forward and back, crops from one seed, the recipe's LayerScale
+# 1e-5): |delta loss|, the worst ||e_kernel - e_plain|| / ||e_plain|| over
+# the cls embeddings of every backbone call of the step, and the worst
+# per-tensor ||g_kernel - g_plain|| / ||g_plain|| over the backbone's
+# trainables (the APLA columns) with the heads' cotangent at the
+# backbone's output pinned to the plain arm's in the kernel arm.  The
+# kernels are in the backbone; the heads are plain PyTorch in both arms
+# and are printed, not held: BYOL and SimSiam's BatchNorm over b64
+# near-equal embeddings of a random ViT-B divides by their spread, so the
+# heads turn the arms' bf16 rounding into a cotangent 33-41% apart, and
+# backbone gradients taken under each arm's own cotangent read 1.4-1.6
+# apart at LayerScale 1e-5 (0.20-0.26 at 1.0, against 0.84-0.90 with the
+# target's forward halved): no bound there tells a broken kernel.  With
+# the cotangent pinned, on an H100 80GB HBM3 at 700 W, the kernel arm
+# reads |dloss| 0.00795 / 2.49e-4 / 2.38e-6 (each arm's loss comes from
+# its own heads), the embeddings 2.01e-6 / 2.01e-6 / 3.46e-6 and the
+# backbone's gradients 0.00193 / 0.00242 / 6.6e-5 (BYOL / SimSiam /
+# DINO).  The bounds sit 2.4-4.2x above those.  The controls:
+# the target's or teacher's forward halved reads 5.4e-5 / 5.4e-5 / 5.3e-5
+# in the embeddings; dW_t zeroed 1.0, DINO's local-crop backward zeroed
+# 0.89, and dW_t scaled by 0.95 0.050 in the gradients.
+V1_TOLS = {"byol": (2e-2, 5e-6, 5e-3), "simsiam": (6e-4, 5e-6, 6e-3),
+           "dino": (1e-5, 1e-5, 2e-4)}
 SERVE_IMG = 224
 N_CLASSES = 1000
 SEED = 0
@@ -1269,12 +1358,51 @@ TILE_CONTROLS = (((8, 257, 2304), 0, 1, "query"),
                  ((2, 1370, 2304), 0, 11, "key"))
 
 
+def _bwd_times(tag, qkv, w, g, inds, heads, scale):
+    """The fused backward on (qkv, w, g, inds), timed: by events, from a
+    CUDA graph, each launch apart; the plain version; autograd through the
+    two-call yardstick; the bound; printed with the launch plans."""
+    from apla_tpu_torch.ops.fused_apla_attn import (
+        bwd_plans, dw_chunks, fused_apla_attn_bwd, fused_apla_attn_bwd_part,
+        fused_apla_attn_bwd_reference)
+    b, n, c3 = qkv.shape
+    c, k = c3 // 3, len(inds)
+    # the yardstick's backward: autograd through its two calls
+    lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
+    lout = _library_attn(lq, lw, heads, scale)
+    kernel = lambda: fused_apla_attn_bwd(qkv, w, g, inds,  # noqa: E731
+                                         heads, scale)
+    t = {"ms": _time_ms(kernel), "graph_ms": _graph_ms(kernel),
+         "plain_ms": _time_ms(lambda: fused_apla_attn_bwd_reference(
+             qkv, w, g, inds, heads, scale)),
+         "library_two_calls_ms": _time_ms(lambda: torch.autograd.grad(
+             lout, (lq, lw), g, retain_graph=True))}
+    del lq, lw, lout
+    t["bound_ms"], t["bound_by"] = _attn_bwd_bound(b, n, c, k)
+    t["parts"] = _bwd_parts(
+        lambda bits: fused_apla_attn_bwd_part(qkv, w, g, inds, heads, scale,
+                                              bits),
+        _bwd_launch_bounds(b, n, c, k))
+    attn, do_gemm, dw_gemm = bwd_plans(b, n, c, heads, k)
+    chunks = dw_chunks(b * n, c, k, _sm_count(qkv.device))[1]
+    print(f"[{tag}] b{b} N={n} C={c} k={k}: kernel "
+          f"{t['ms']:.4f} ms ({t['graph_ms']:.4f} from a CUDA graph), "
+          f"plain {t['plain_ms']:.4f} ms, autograd of the two library "
+          f"calls {t['library_two_calls_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+          f"{t['bound_ms'] / t['graph_ms']:.1%} of it reached); plans: "
+          f"attention {attn.describe()}; dO GEMM {do_gemm.describe()}; "
+          f"dW GEMM {dw_gemm.describe()}, for each of {chunks} chunks "
+          f"of rows")
+    _print_parts(tag, t["parts"])
+    return t
+
+
 def phase_bwd(device):
     from apla_tpu_torch.apla.core import load_indices
     from apla_tpu_torch.ops import cuda_build
     from apla_tpu_torch.ops.fused_apla_attn import (
-        _BWD_SOURCE, bwd_plans, dw_chunks, fused_apla_attn_bwd,
-        fused_apla_attn_bwd_part, fused_apla_attn_bwd_reference)
+        _BWD_SOURCE, fused_apla_attn_bwd, fused_apla_attn_bwd_reference)
     from apla_tpu_torch.ops.mha import bwd_plan
     gen = torch.Generator().manual_seed(SEED + 1)
     heads, scale = 12, 64 ** -0.5
@@ -1351,35 +1479,7 @@ def phase_bwd(device):
         w = (torch.randn((768, 768), generator=gen) * 768 ** -0.5).to(
             device, torch.bfloat16)
         g = torch.randn((b, n, 768), generator=gen).to(device, torch.bfloat16)
-        # the yardstick's backward: autograd through its two calls
-        lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
-        lout = _library_attn(lq, lw, heads, scale)
-        kernel = lambda: fused_apla_attn_bwd(qkv, w, g, inds,  # noqa: E731
-                                             heads, scale)
-        t = {"ms": _time_ms(kernel), "graph_ms": _graph_ms(kernel),
-             "plain_ms": _time_ms(lambda: fused_apla_attn_bwd_reference(
-                 qkv, w, g, inds, heads, scale)),
-             "library_two_calls_ms": _time_ms(lambda: torch.autograd.grad(
-                 lout, (lq, lw), g, retain_graph=True))}
-        del lq, lw, lout
-        t["bound_ms"], t["bound_by"] = _attn_bwd_bound(b, n, 768, len(block0))
-        t["parts"] = _bwd_parts(
-            lambda bits: fused_apla_attn_bwd_part(qkv, w, g, inds, heads,
-                                                  scale, bits),
-            _bwd_launch_bounds(b, n, 768, len(block0)))
-        times[(b, n)] = t
-        attn, do_gemm, dw_gemm = bwd_plans(b, n, 768, heads, 128)
-        chunks = dw_chunks(b * n, 768, 128, _sm_count(device))[1]
-        print(f"[4 bwd] b{b} N={n} C=768 k={len(block0)}: kernel "
-              f"{t['ms']:.4f} ms ({t['graph_ms']:.4f} from a CUDA graph), "
-              f"plain {t['plain_ms']:.4f} ms, autograd of the two library "
-              f"calls {t['library_two_calls_ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
-              f"{t['bound_ms'] / t['graph_ms']:.1%} of it reached); plans: "
-              f"attention {attn.describe()}; dO GEMM {do_gemm.describe()}; "
-              f"dW GEMM {dw_gemm.describe()}, for each of {chunks} chunks "
-              f"of rows")
-        _print_parts("4 bwd", t["parts"])
+        times[(b, n)] = _bwd_times("4 bwd", qkv, w, g, inds, heads, scale)
     for line in _resources(cuda_build.resource_report(_BWD_SOURCE)):
         if line.startswith(("bwd_query_kernel<1>", "bwd_key_kernel",
                             "gemm_kernel")):
@@ -1649,14 +1749,13 @@ def _swin_case(images, stage, shifted, gen, device):
     return qkv, w, g, bias, mask, heads
 
 
-def _swin_bounds(b, c, heads, n_w):
-    """(forward, backward) bounds of the window kernels on b windows of 49
+def _swin_bounds(b, c, heads, n_w, n=49):
+    """(forward, backward) bounds of the window kernels on b windows of n
     tokens: the forward's q k^T and p v over all heads (2 N^2 C each) and
     the projection (2 N C^2), reading qkv, w, the bias and the mask (n_w
     planes, 0 without one) and writing out; the backward's dO (2 N C^2),
     the scores and o recomputed, dv, dp, dq, dk (six 2 N^2 C products) and
     dW (2 N C^2), reading qkv, w, g, bias, mask, writing dqkv and dW f32."""
-    n = 49
     planes = 4 * (heads + n_w) * n * n
     return (_bound(b * (4 * n * n * c + 2 * n * c * c),
                    2 * (3 * b * n * c + c * c + b * n * c) + planes),
@@ -1963,6 +2062,16 @@ def phase_swin(device):
               for k, (e, bd) in errs.items())
           + f" -> {'ok' if ok else 'FAIL'}; backward plan "
           f"{fs.swin_bwd_plan(b, n, heads).describe()}")
+    # the bounds there and at the other windows `tools/compare_mha_fwd.py
+    # --kernel swin` times: (windows, N, C, mask planes)
+    for wb, wn, wc, planes in ((b, n, c, (side // win) ** 2),
+                               (1024, 49, 96, 0), (64, 49, 96, 64),
+                               (512, 49, 96, 64), (256, 64, 96, 4)):
+        (f_ms, f_by), (b_ms, b_by) = _swin_bounds(wb, wc, wc // 32, planes,
+                                                  wn)
+        print(f"[8a swin] bounds at [{wb}, {wn}, {3 * wc}], {planes} mask "
+              f"planes: forward {f_ms:.4f} ms ({f_by}), backward "
+              f"{b_ms:.4f} ms ({b_by})")
     if not ok:
         raise SystemExit(f"Swin window kernels disagree with their plain "
                          f"versions at N = {n}")
@@ -3176,6 +3285,407 @@ def _phase_ssl(device, tmp):
     return launches, rates
 
 
+# --------------------------------------------------------------------------- #
+# 11: BYOL, SimSiam and DINO v1
+# --------------------------------------------------------------------------- #
+
+def _v1_kernels(device):
+    """Rows 1 and 2 at V1_KERNEL_SHAPE (DINO v1's local crops: 37 of a
+    64-key tile live) against their plain versions, each output within
+    KERNEL_REL_TOL of max|ref| and the rows of the tile's ragged end apart;
+    timed beside the bound and the two-call yardstick.  Returns {"fwd":
+    times, "bwd": times}."""
+    from apla_tpu_torch.apla.core import load_indices
+    from apla_tpu_torch.ops import mha as tmha
+    from apla_tpu_torch.ops.fused_apla_attn import (
+        fused_apla_attn_bwd, fused_apla_attn_bwd_reference,
+        fused_apla_attn_fwd, fused_apla_attn_fwd_reference)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    heads, scale = 12, 64 ** -0.5
+    b, n, c3 = V1_KERNEL_SHAPE
+    c = c3 // 3
+    qkv = torch.randn(V1_KERNEL_SHAPE, generator=gen).to(device,
+                                                         torch.bfloat16)
+    w = (torch.randn((c, c), generator=gen) * c ** -0.5).to(device,
+                                                            torch.bfloat16)
+    g = torch.randn((b, n, c), generator=gen).to(device, torch.bfloat16)
+    inds = torch.as_tensor(load_indices(os.path.join(ROOT, BYOL_RECIPE[
+        "model_params"]["adaptation"]["params"]["inds_path"]), 12, c)[0],
+        dtype=torch.int64).to(device)
+    out = fused_apla_attn_fwd(qkv, w, heads, scale)
+    _sync(device)
+    ref = fused_apla_attn_fwd_reference(qkv, w, heads, scale)
+    err = (out.float() - ref.float()).abs()
+    bound = KERNEL_REL_TOL * ref.float().abs().max().item()
+    tail = err[:, 32:].max().item()
+    ok = bool(torch.isfinite(out).all()) and err.max().item() <= bound
+    print(f"[11 kernels] fwd qkv {list(V1_KERNEL_SHAPE)} (plan "
+          f"{tmha.fwd_plan(b, n, heads).describe()}): max|err| "
+          f"{err.max().item():.6g}, rows 32-36 {tail:.6g}, bound "
+          f"{bound:.6g} -> {'ok' if ok else 'FAIL'}")
+    errs = _bwd_errors(fused_apla_attn_bwd(qkv, w, g, inds, heads, scale),
+                       fused_apla_attn_bwd_reference(qkv, w, g, inds, heads,
+                                                     scale))
+    bwd_ok = all(e <= bd for e, bd in errs.values())
+    print(f"[11 kernels] bwd k={len(inds)}: " + ", ".join(
+        f"{name} max|err| {e:.6g} (bound {bd:.6g})"
+        for name, (e, bd) in errs.items())
+        + f" -> {'ok' if bwd_ok else 'FAIL'}")
+    if not ok or not bwd_ok:
+        raise SystemExit(f"rows 1, 2 disagree with their plain versions at "
+                         f"{list(V1_KERNEL_SHAPE)}")
+    fwd = _fused_fwd_times(qkv, w, heads, scale)
+    fwd["max_abs_err"] = err.max().item()
+    _print_fwd_times("11 kernels", b, n, c, fwd)
+    bwd = _bwd_times("11 kernels", qkv, w, g, inds, heads, scale)
+    bwd["max_abs_err"] = max(e for e, _ in errs.values())
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _v1_wrapper(objective, params):
+    """(wrapper, trainer class) of `objective` on `params`."""
+    from apla_tpu_torch.ssl.byol import BYOLTrainer, BYOLWrapper
+    from apla_tpu_torch.ssl.dino import DINOTrainer, DINOWrapper
+    if objective == "dino":
+        return DINOWrapper(params), DINOTrainer
+    return BYOLWrapper(params, use_momentum=objective == "byol"), BYOLTrainer
+
+
+def _v1_state(wrapper, optimizer):
+    """A state of its own around the wrapper's model: the teacher and the
+    BN running stats or the center copied, so a measurement moves none of
+    the trainer's."""
+    from apla_tpu_torch.ssl.byol import SSLTrainState, _tree_map
+    from apla_tpu_torch.ssl.dino import DINOTrainState
+    s = wrapper.state
+    teacher = {n: t.clone() for n, t in s.teacher.items()}
+    if isinstance(s, DINOTrainState):
+        return DINOTrainState(step=0, model=s.model, optimizer=optimizer,
+                              teacher=teacher, center=s.center.clone())
+    return SSLTrainState(step=0, model=s.model, optimizer=optimizer,
+                         teacher=teacher,
+                         model_state=_tree_map(torch.clone, s.model_state))
+
+
+def _v1_step(wrapper, objective, cfg, optimizer):
+    """A zero-argument call of one step of `objective` with `cfg` on a
+    state of its own (`_v1_state`), at lr `lr`, momentum 1: run(images,
+    lr) -> metrics; crops from a fixed seed."""
+    from apla_tpu_torch.ssl.byol import make_byol_train_step
+    from apla_tpu_torch.ssl.dino import make_dino_train_step
+    state = _v1_state(wrapper, optimizer)
+    crops = wrapper.ssl_device_crop_cfgs
+    gen = torch.Generator(device=wrapper.device)
+    if objective == "dino":
+        step = make_dino_train_step(cfg, optimizer, 2, len(crops) - 2,
+                                    device_crop_cfgs=crops)
+
+        def run(images, lr):
+            gen.manual_seed(SEED)
+            return step(state, images, None, lr, 1e-5, 1.0,
+                        float(wrapper.teacher_temp_schedule[0]), gen)[1]
+    else:
+        step = make_byol_train_step(cfg, optimizer, objective == "byol",
+                                    device_crop_cfgs=crops)
+
+        def run(images, lr):
+            gen.manual_seed(SEED)
+            return step(state, images, lr, 1.0, gen)[1]
+    return run
+
+
+def _v1_grads(wrapper, objective, cfg, images, pinned=None):
+    """One step on `images` (no update) -> {"loss", "grads": f32 gradients
+    of the trainables, "embs": the cls embeddings of every backbone call
+    in order, "cots": the cotangent the heads send into each call made
+    with gradients}.  With `pinned` (another run's "cots") those calls
+    take that cotangent in place of their own."""
+    from apla_tpu_torch.ssl import byol, dino
+    module = dino if objective == "dino" else byol
+    real = module.vit_features
+    embs, cots = [], []
+
+    def recorded(*args, **kwargs):
+        out = real(*args, **kwargs)
+        embs.append(out.detach().float().clone())
+        if out.requires_grad:
+            i = len(cots)
+            cots.append(None)
+
+            def hook(g):
+                cots[i] = g.detach().clone()
+                return None if pinned is None else pinned[i].to(g.dtype)
+
+            out.register_hook(hook)
+        return out
+
+    params = _trainables(wrapper.model)
+    m = _with_patch(module, "vit_features", recorded, lambda: _v1_step(
+        wrapper, objective, cfg, _NoUpdate(params.values()))(images, 0.0))
+    grads = {n: p.grad.detach().float().clone() for n, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    return {"loss": float(m["loss"]), "grads": grads, "embs": embs,
+            "cots": cots}
+
+
+def _v1_rel(a, b) -> float:
+    return (torch.linalg.vector_norm(a - b)
+            / torch.linalg.vector_norm(b)).item()
+
+
+def _v1_agreement(tag, objective, name, got, ref):
+    """`got` against the plain arm's `ref` (`_v1_grads`) within V1_TOLS:
+    |dloss|, the worst ||de||/||e|| over the backbone's calls and the
+    worst per-tensor ||dg||/||g|| over the backbone's trainables; the
+    heads' tensors printed, not held."""
+    loss_tol, emb_tol, grad_tol = V1_TOLS[objective]
+    d_loss = abs(got["loss"] - ref["loss"])
+    embs = [_v1_rel(e, r) for e, r in zip(got["embs"], ref["embs"])]
+    grads = {n: _v1_rel(got["grads"][n], r) for n, r in ref["grads"].items()
+             if torch.linalg.vector_norm(r) > 0}
+    backbone = {n: v for n, v in grads.items() if n.startswith("backbone.")}
+    heads = {n: v for n, v in grads.items() if n not in backbone}
+    worst = max(backbone, key=backbone.get)
+    ok = d_loss <= loss_tol and max(embs) <= emb_tol \
+        and backbone[worst] <= grad_tol
+    print(f"[{tag}] {name} vs plain arm: loss {got['loss']:.6g}, |dloss| "
+          f"{d_loss:.6g} (bound {loss_tol}); ||de||/||e|| per backbone call "
+          + " ".join(f"{e:.4g}" for e in embs) + f" (bound {emb_tol}); "
+          f"worst backbone ||dg||/||g|| {backbone[worst]:.6g} at {worst} "
+          f"(bound {grad_tol}; median "
+          f"{float(np.median(list(backbone.values()))):.4g}); heads, not "
+          f"held: worst {max(heads.values()):.4g} at "
+          f"{max(heads, key=heads.get)} -> "
+          f"{'within' if ok else 'outside'} the bounds")
+    return ok
+
+
+def _with_target_fwd_halved(fn):
+    """fn() with the fused forward's output halved in every call made
+    without gradients: the target branch (BYOL, SimSiam) or the teacher
+    (DINO)."""
+    from apla_tpu_torch.ops import attention
+    real = attention.fused_apla_attention
+
+    def faulty(*args, **kwargs):
+        out = real(*args, **kwargs)
+        return out if torch.is_grad_enabled() else out * 0.5
+
+    return _with_patch(attention, "fused_apla_attention", faulty, fn)
+
+
+def _with_bwd_fault(tokens, fault, fn):
+    """fn() with `fault` on the fused backward's outputs in the calls at
+    `tokens` tokens (every call where `tokens` is None)."""
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    real = fa.fused_apla_attn_bwd
+
+    def faulty(qkv, *args, **kwargs):
+        out = real(qkv, *args, **kwargs)
+        return fault(out) if tokens in (None, qkv.shape[1]) else out
+
+    faulty.launches = 0       # control launches are not the main path's
+    return _with_patch(fa, "fused_apla_attn_bwd", faulty, fn)
+
+
+def _v1_controls(wrapper, objective):
+    """name -> fn -> fn() with a fault the bounds must catch."""
+    controls = {("teacher" if objective == "dino" else "target")
+                + " branch's forward halved": _with_target_fwd_halved}
+    if objective == "dino":
+        local = wrapper.ssl_device_crop_cfgs[-1].out_size
+        n_local = (local // wrapper.vit_cfg.patch_size) ** 2 + 1
+        controls["local-crop backward zeroed"] = functools.partial(
+            _with_bwd_fault, n_local, lambda out: (out[0] * 0, out[1] * 0))
+    else:
+        controls["dW_t zeroed"] = functools.partial(
+            _with_bwd_fault, None, lambda out: (out[0], out[1] * 0))
+    controls["dW_t scaled by 0.95"] = functools.partial(
+        _with_bwd_fault, None, lambda out: (out[0], out[1] * 0.95))
+    return controls
+
+
+def _v1_readings(tag, wrapper, objective, cfg, plain_cfg, images):
+    """The kernel arm and each control against the plain arm on `images`,
+    the heads' cotangent pinned to the plain arm's -> (kernel arm within
+    the bounds, every control outside them)."""
+    ref = _v1_grads(wrapper, objective, plain_cfg, images)
+    free = _v1_grads(wrapper, objective, cfg, images)
+    print(f"[{tag}] kernel arm under its own heads' cotangent (not held): "
+          f"||dc||/||c|| per call " + " ".join(
+              f"{_v1_rel(c, r):.4g}" for c, r in zip(free["cots"],
+                                                     ref["cots"]))
+          + ", worst backbone ||dg||/||g|| " + format(max(
+              _v1_rel(free["grads"][n], r) for n, r in ref["grads"].items()
+              if n.startswith("backbone.")), ".4g"))
+
+    def kernel_arm():
+        return _v1_grads(wrapper, objective, cfg, images, ref["cots"])
+
+    ok = _v1_agreement(tag, objective, "kernel arm", kernel_arm(), ref)
+    caught = all([not _v1_agreement(
+        tag, objective, f"control: {name}", control(kernel_arm), ref)
+        for name, control in _v1_controls(wrapper, objective).items()])
+    return ok, caught
+
+
+def _v1_rate(wrapper, objective, cfg, images):
+    """Train-step img/s and peak device memory (GB) of one arm (AdamW at
+    lr 1e-9, clip 3.0, momentum 1) after a warm-up step, and the call."""
+    from apla_tpu_torch.train.optim import build_optimizer
+    opt = build_optimizer("AdamW", {"lr": 1e-9, "weight_decay": 1e-5},
+                          _trainables(wrapper.model).items(), grad_clip=3.0)
+    run = _v1_step(wrapper, objective, cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(lambda: run(images, 1e-9), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return images.shape[0] * 1000.0 / ms, peak, lambda: run(images, 1e-9)
+
+
+def _v1_aux(state) -> dict:
+    """name -> copy of the teacher and the BN running stats or center."""
+    return {n: t.detach().clone() for n, t in state.aux().items()}
+
+
+def _v1_objective(device, tmp, objective):
+    """`objective` on BYOL_RECIPE / DINO_RECIPE with V1_CUTS through its
+    wrapper -> trainer.train() -> test(checkpoint).  Returns (launches,
+    rates)."""
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    tag = f"11 {objective}"
+    recipe = DINO_RECIPE if objective == "dino" else BYOL_RECIPE
+    params = _run_params(recipe, V1_CUTS, os.path.join(tmp, objective),
+                         device)
+    t0 = time.perf_counter()
+    wrapper, trainer_cls = _v1_wrapper(objective, params)
+    wrapper.instantiate(seed=SEED)
+    trainer = trainer_cls(wrapper)
+    cfg, depth = wrapper.vit_cfg, wrapper.vit_cfg.depth
+    loaders = wrapper.dataloaders
+    steps = len(loaders.trainloader)
+    embed_calls = 2 * len(loaders.fbank_loader) + len(loaders.valloader) \
+        + len(loaders.testloader)
+    crops = [c.out_size for c in wrapper.ssl_device_crop_cfgs]
+    print(f"[{tag}] wrapper instantiated on {wrapper.device} in "
+          f"{time.perf_counter() - t0:.1f} s: {steps} steps of b"
+          f"{loaders.trainloader.batch_size}, crops {crops}, "
+          f"{sum(p.numel() for p in _trainables(wrapper.model).values()):,}"
+          f" trainable in {len(_trainables(wrapper.model))} tensors, "
+          f"{embed_calls} kNN embed calls")
+
+    # kernel arm against plain arm on the first step's batch, same crops
+    images = next(iter(loaders.trainloader))["image"].to(device)
+    plain_cfg = dataclasses.replace(cfg, use_fused_apla=False,
+                                    use_flash=False)
+    ok, caught = _v1_readings(tag, wrapper, objective, cfg, plain_cfg,
+                              images)
+    if not ok:
+        raise SystemExit(f"{objective}: the kernel arm disagrees with the "
+                         "plain arm")
+    if not caught:
+        raise SystemExit(f"{objective}: a fault passes the bounds")
+
+    state = trainer.state
+    frozen = {n: t.detach().clone() for n, t in state.frozen().items()}
+    trainable = {n: t.detach().clone() for n, t in state.trainable().items()}
+    aux = _v1_aux(state)
+    counters = (fa.fused_apla_attn_fwd, fa.fused_apla_attn_bwd)
+    for c in counters:
+        c.launches = 0
+    trainer.train()
+    after = ({n: t.detach().clone() for n, t in state.trainable().items()},
+             _v1_aux(state))
+    # the checkpoint through the --test path, on a state moved away first
+    with torch.no_grad():
+        for t in list(state.trainable().values()) + list(state.aux().values()):
+            t.add_(1.0)
+    results = trainer.test(chpt_path=trainer.checkpoint_path)
+    _sync(device)
+    launches = tuple(c.launches for c in counters)
+    fwd_per_step = 3 if objective == "dino" else 4
+    expect = (depth * (fwd_per_step * steps + embed_calls),
+              depth * 2 * steps)
+    print(f"[{tag}] trained {trainer.iters} steps and tested in "
+          f"{time.perf_counter() - t0:.1f} s; launches: fused forward "
+          f"{launches[0]} (expected {expect[0]} = {depth} x ({fwd_per_step}"
+          f" x {steps} steps + {embed_calls} embed calls)), fused backward "
+          f"{launches[1]} (expected {expect[1]} = {depth} x 2 x {steps})")
+    if launches != expect:
+        raise SystemExit(f"{objective}: the path did not run both kernels "
+                         "in every block of every call")
+    records = [r for _, r in trainer.history if "train_loss" in r]
+    losses = [r["train_loss"] for r in records]
+    print(f"[{tag}] losses {losses}; kNN test {dict(results)}")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise SystemExit(f"{objective}: missing or non-finite losses")
+    kept = all(torch.equal(frozen[n], t) for n, t in state.frozen().items())
+    moved = {n: not torch.equal(trainable[n], t)
+             for n, t in after[0].items()}
+    must_move = [n for n in moved if ".attn.proj_" in n
+                 or n.endswith("kernel")]
+    teacher = [n for n in aux if n.startswith("teacher.")
+               and not n.endswith("last_g")]
+    stats = [n for n in aux if not n.startswith("teacher.")]
+    t_moved = sum(not torch.equal(aux[n], after[1][n]) for n in teacher)
+    s_moved = sum(not torch.equal(aux[n], after[1][n]) for n in stats)
+    print(f"[{tag}] frozen ({len(frozen)} tensors) "
+          f"{'unchanged bit for bit' if kept else 'CHANGED'}; "
+          f"{sum(moved.values())}/{len(moved)} trainable tensors moved "
+          f"({sum(moved[n] for n in must_move)}/{len(must_move)} APLA "
+          f"columns and head kernels); {t_moved}/{len(teacher)} teacher "
+          f"tensors moved; {s_moved}/{len(stats)} "
+          f"{'center' if objective == 'dino' else 'BN running stats'} moved")
+    if not kept or not all(moved[n] for n in must_move) \
+            or (t_moved > 0) != (objective != "simsiam") \
+            or s_moved != len(stats):
+        raise SystemExit(f"{objective}: training left the weights, the "
+                         "teacher or the running state where they should "
+                         "not be")
+    reloaded = all(torch.equal(after[0][n], t)
+                   for n, t in state.trainable().items()) \
+        and all(torch.equal(after[1][n], t) for n, t in state.aux().items())
+    print(f"[{tag}] checkpoint {sorted(os.listdir(trainer.checkpoint_path))}"
+          f" reloaded by test(): "
+          f"{'same trainables, teacher and ' if reloaded else 'DIFFERENT '}"
+          f"{'center' if objective == 'dino' else 'BN running stats'}")
+    if not reloaded or not 0.0 <= results["knn_test_accuracy"] <= 1.0:
+        raise SystemExit(f"{objective}: the checkpoint does not reload the "
+                         "trained state, or no kNN table")
+
+    # train-step img/s and peak memory in turns (plain, kernel, kernel,
+    # plain), best of two; a profile of DINO's kernel arm
+    rates = {}
+    for name, arm in (("plain", plain_cfg), ("kernel", cfg),
+                      ("kernel", cfg), ("plain", plain_cfg)):
+        rate, peak, call = _v1_rate(wrapper, objective, arm, images)
+        best = rates.get(name, (0.0, 0.0))
+        rates[name] = (max(best[0], rate), max(best[1], peak))
+        if name == "kernel":
+            kernel_call = call
+    for name, (rate, peak) in sorted(rates.items()):
+        print(f"[{tag}] train step b{images.shape[0]} {name} arm: "
+              f"{rate:.1f} img/s, peak {peak:.2f} GB")
+    if objective == "dino":
+        _print_profile(tag, "kernel arm", *_profile_step(kernel_call))
+    return launches, rates
+
+
+def phase_ssl_v1(device):
+    """11: rows 1, 2 at DINO v1's local-crop shape, then BYOL, SimSiam and
+    DINO v1 in turn.  Returns (kernel times, {objective: launches},
+    {objective: rates})."""
+    kernels = _v1_kernels(device)
+    launches, rates = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssl_v1_") as tmp:
+        for objective in V1_OBJECTIVES:
+            launches[objective], rates[objective] = _v1_objective(
+                device, tmp, objective)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+    return kernels, launches, rates
+
+
 def phase_seg_kernels(device):
     """9a: the fused APLA kernels (rows 1, 2; TPU rows 5-7's shape) against
     their plain versions at SEG_KERNEL_CASES with every column trainable,
@@ -4078,6 +4588,7 @@ def main() -> int:
     seg_launches, seg_rates = timed("9b", phase_seg, device)
     int8_err, int8_times = timed("10a", phase_int8, device)
     w8a8_launches, w8a8_rates = timed("10b", phase_w8a8, device)
+    v1_times, v1_launches, v1_rates = timed("11", phase_ssl_v1, device)
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
           f"forward launches); train b64 img/s " + ", ".join(
@@ -4097,6 +4608,9 @@ def main() -> int:
               for (what, name), (r, _) in sorted(seg_rates.items()))
           + "; W8A8 classifier b64 img/s " + ", ".join(
               f"{name} {r:.1f}" for name, r in w8a8_rates.items())
+          + "; BYOL / SimSiam / DINO v1 train b64 img/s " + ", ".join(
+              f"{obj} {name} {r:.1f}" for obj, arms in v1_rates.items()
+              for name, (r, _) in sorted(arms.items()))
           + f"; whole run {time.perf_counter() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + " s)")
     print(_gpu_line())
@@ -4106,11 +4620,16 @@ def main() -> int:
     kernels = [
         ("fused_apla_attn_fwd", "apla_proj_gemm.cu",
          "pallas_apla_attn.py:105",
-         serve_launches + fwd_launches + ssl_launches[0] + w8a8_launches[1],
-         {**fwd_times[FWD_TIMED[0]], "max_abs_err": max_err}),
+         serve_launches + fwd_launches + ssl_launches[0] + w8a8_launches[1]
+         + sum(n[0] for n in v1_launches.values()),
+         {**fwd_times[FWD_TIMED[0]],
+          "max_abs_err": max(max_err, v1_times["fwd"]["max_abs_err"])}),
         ("fused_apla_attn_bwd", "fused_apla_attn_bwd.cu",
-         "pallas_apla_attn.py:131", bwd_launches + ssl_launches[1],
-         {**bwd_times[main_shape], "max_abs_err": bwd_err}),
+         "pallas_apla_attn.py:131",
+         bwd_launches + ssl_launches[1]
+         + sum(n[1] for n in v1_launches.values()),
+         {**bwd_times[main_shape],
+          "max_abs_err": max(bwd_err, v1_times["bwd"]["max_abs_err"])}),
         ("proto_ce_fwd", "proto_ce_fwd.cu", "pallas_proto_ce.py:73",
          ssl_launches[2], proto_times["fwd"]),
         ("proto_ce_dxs", "proto_ce_bwd.cu", "pallas_proto_ce.py:130",
@@ -4187,7 +4706,10 @@ def main() -> int:
                                        "attention_graph_ms", "gemm_graph_ms",
                                        "library_two_calls_graph_ms",
                                        "bound_ms")}}
-                     for (b, n), t in fwd_times.items()]},
+                     for (b, n), t in list(fwd_times.items())
+                     + [(V1_KERNEL_SHAPE[:2], v1_times["fwd"])]],
+                 "launches_by_objective": {
+                     obj: n[0] for obj, n in v1_launches.items()}},
              "fused_apla_attn_fwd_seg": fused_fwd(seg_times["fwd"]),
              "proto_ce_fwd": {
                  "sources": [f"apla_tpu_torch/csrc/{src}" for src in (
@@ -4259,7 +4781,10 @@ def main() -> int:
                      k: t[k] for k in ("ms", "graph_ms", "bound_ms",
                                        "library_two_calls_ms")},
                      "launches_ms": _launch_ms(t)}
-                     for (b, n), t in bwd_times.items()]},
+                     for (b, n), t in list(bwd_times.items())
+                     + [(V1_KERNEL_SHAPE[:2], v1_times["bwd"])]],
+                 "launches_by_objective": {
+                     obj: n[1] for obj, n in v1_launches.items()}},
              "fused_apla_attn_bwd_seg": {
                  **bwd_extra(seg_times["bwd"], fused=True),
                  "by_shape": [{"shape": [SEG_KERNEL_CASES[0][0],

@@ -29,7 +29,16 @@ from apla_tpu_torch.wrapper import build_apla_config, build_vit_config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPE_YML = "params/finetune/dinov2/ImageNet/vit_b/apla.yml"
 SSL_YML = "params/pretrain/dinov2/ISIC2019/vit_b/apla.yml"
-
+# Phase 11's bounds for the tiny model on the CPU (|dloss|, worst
+# ||de||/||e|| over the backbone's calls, worst backbone ||dg||/||g||
+# under the plain arm's head cotangent), at the recipe's LayerScale 1e-5:
+# it reads |dloss| 0, embeddings 0 and a worst gradient error of 0.0022
+# (BYOL), 0.0026 (SimSiam) and 7.5e-5 (DINO), so the rehearsal holds the
+# gradients about 5x above those; the controls read 8.7e-6-9.0e-6 in the
+# embeddings (forward halved), 0.050 and 0.89-1.0 in the gradients, and
+# must still fail them.
+V1_CPU_TOLS = {"byol": (1e-4, 1e-6, 0.011), "simsiam": (1e-4, 1e-6, 0.013),
+               "dino": (1e-4, 1e-6, 3.75e-4)}
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
@@ -332,6 +341,140 @@ def test_ssl_phase_rehearsal(monkeypatch):
     embed_calls = 2 * 4 + 4 + 4
     assert launches == (12 * (3 * 4 + embed_calls), 12 * 2 * 4, 4, 4, 4)
     assert set(rates) == {"plain", "fused"}
+
+
+def _jax_vit_fields(jcfg, tcfg):
+    """The fields a JAX ViTConfig and the port's share, as (JAX, port)
+    pairs that differ; dtypes compared by name."""
+    out = {}
+    for f in dataclasses.fields(tcfg):
+        if not hasattr(jcfg, f.name):
+            continue
+        j, t = getattr(jcfg, f.name), getattr(tcfg, f.name)
+        if f.name == "compute_dtype":
+            j, t = np.dtype(j).name, str(t).removeprefix("torch.")
+        if j != t:
+            out[f.name] = (j, t)
+    return out
+
+
+@pytest.mark.parametrize("objective", ["byol", "simsiam", "dino"])
+def test_v1_recipes_are_what_the_jax_wrappers_build(objective):
+    """BYOL_RECIPE and DINO_RECIPE with V1_CUTS: the JAX wrappers build
+    from the same dicts the ViT config, APLA config, crops and DINO
+    arguments the port's wrappers do; the backbone is phase 6b's (ViT-B/14
+    at the 518 grid, LayerScale 1e-5, tanh GELU, bf16, fused APLA-128 from
+    the ISIC2019 index file, AdamW, clip 3.0, b64, device crops), the crops
+    are 2 x 224 (+ 8 x 96 for DINO: 37 tokens)."""
+    from apla_tpu.ssl import byol as jb
+    from apla_tpu.ssl import dino as jd
+    from apla_tpu_torch.ssl.byol import BYOLWrapper
+    from apla_tpu_torch.ssl.dino import DINOWrapper
+    from apla_tpu_torch.ssl.multicrop import resolve_strategy_spec
+    smoke = _chip_smoke()
+    recipe = smoke.DINO_RECIPE if objective == "dino" else smoke.BYOL_RECIPE
+    params = smoke._run_params(recipe, smoke.V1_CUTS, "/nonexistent",
+                               torch.device("cpu"))
+    if objective == "dino":
+        jw, tw = jd.DINOWrapper(params), DINOWrapper(params)
+    else:
+        momentum = objective == "byol"
+        jw = jb.BYOLWrapper(params, use_momentum=momentum)
+        tw = BYOLWrapper(params, use_momentum=momentum)
+    tcfg = build_vit_config(tw.parameters)
+    assert _jax_vit_fields(jw.build_vit_config(), tcfg) == {}
+    assert (tcfg.embed_dim, tcfg.depth, tcfg.num_heads, tcfg.patch_size,
+            tcfg.img_size) == (768, 12, 12, 14, 518)
+    assert tcfg.gelu_tanh and tcfg.use_fused_apla and not tcfg.use_flash
+    assert (tcfg.has_layerscale, tcfg.layerscale_init) == (True, 1e-5)
+    assert str(tcfg.compute_dtype) == "torch.bfloat16"
+    japla, tapla = jw.build_apla_config(), build_apla_config(tw.parameters)
+    assert (japla.partial_size, japla.inds_path) == \
+        (tapla.partial_size, tapla.inds_path) == (
+            128, os.path.join(ROOT, "params/pretrain/dinov2/ISIC2019/vit_b/"
+                                    "inds-vit_b-rand_128.json"))
+    spec = resolve_strategy_spec(tw.parameters, tw.strategy_name)
+    assert [kind for kind, _ in spec["crops"]] == ["global"] * 2 + (
+        ["local"] * 8 if objective == "dino" else [])
+    assert (spec["global_size"], spec["local_size"]) == (
+        (224, 96) if objective == "dino" else (224, None))
+    assert (224 // 14) ** 2 + 1 == 257 and (96 // 14) ** 2 + 1 == 37
+    assert smoke.V1_KERNEL_SHAPE == (8 * 64, 37, 3 * 768)
+    tp = tw.training_params
+    assert (tp.grad_clipping, tp.epochs, tp.log_every) == (3.0, 1, 1)
+    opt = tw.optimization_params.default.optimizer
+    assert (opt.type, opt.params.lr) == ("AdamW", 0.001)
+    dp = tw.dataset_params
+    assert (dp.dataset, dp.synthetic_size, dp.synthetic_img_size,
+            dp.device_augment) == ("Synthetic", 128, 256, True)
+    assert {ld.batch_size for ld in tw.dataloader_params.values()} == {64}
+    if objective == "dino":
+        assert tw.model_params.DINO == jw.model_params.DINO == {
+            "projection_size": 4096, "moving_average_decay": 0.99,
+            "warmup_teacher_temp": 0.04, "teacher_temp": 0.07}
+    # the rest is SSL_RECIPE's: everything but the backbone's schema, the
+    # DINOv2 knobs and DINO's arguments
+    ssl = smoke.SSL_RECIPE
+    for key in ("dataset_params", "dataloader_params", "optimization_params",
+                "system_params"):
+        assert recipe[key] == ssl[key], key
+    assert {k: v for k, v in recipe["training_params"].items()} == {
+        k: v for k, v in ssl["training_params"].items()
+        if k != "freeze_last_layer_epochs"}
+
+
+def _tiny_v1(smoke, monkeypatch):
+    """BYOL_RECIPE and DINO_RECIPE cut to the tiny synthetic model
+    (ViT-Ti/8 at 32 px: 32-px global and 16-px local crops, APLA-16), b16,
+    4 steps, in-process loaders."""
+    for name in ("BYOL_RECIPE", "DINO_RECIPE"):
+        tiny = copy.deepcopy(getattr(smoke, name))
+        mp = tiny["model_params"]
+        mp["backbone_type"] = "vit_tiny"
+        mp["transformers_params"].update(img_size=[32], patch_size=8)
+        del mp["adaptation"]["params"]["inds_path"]
+        dp = tiny["dataset_params"]
+        dp.update(ssl_global_size=32, ssl_local_size=16)
+        resize = {"apply": True, "height": 32, "width": 32}
+        dp["train_transforms"]["Resize"] = resize
+        dp["val_transforms"] = dp["test_transforms"] = {
+            "Resize": resize, "CenterCrop": {"apply": True, "height": 32,
+                                             "width": 32}, "Normalize": True}
+        for ld in tiny["dataloader_params"].values():
+            ld.update(batch_size=16)
+        monkeypatch.setattr(smoke, name, tiny)
+    cuts = copy.deepcopy(smoke.V1_CUTS)
+    cuts["dataset_params"].update(synthetic_size=64, synthetic_img_size=32)
+    cuts["model_params"]["adaptation"]["params"] = {"partial_size": 16}
+    monkeypatch.setattr(smoke, "V1_CUTS", cuts)
+
+
+def test_ssl_v1_phase_rehearsal(monkeypatch):
+    """Phase 11 on the tiny model on the CPU, for BYOL, SimSiam and DINO
+    v1: the launch counts (per step 4 forwards and 2 backwards in every
+    block for BYOL and SimSiam, 3 and 2 for DINO; every block of every kNN
+    embed call), finite losses, frozen weights kept, the trainables, the
+    teacher (not SimSiam's) and the BN running stats or the center moved,
+    the checkpoint reloaded through test(), and the kernel-vs-plain bounds
+    with each objective's three faults."""
+    smoke = _chip_smoke()
+    _tiny_v1(smoke, monkeypatch)
+    _count_plain_versions(monkeypatch)
+    monkeypatch.setattr(smoke, "_v1_kernels", lambda device: {})
+    monkeypatch.setattr(smoke, "_v1_rate",
+                        lambda *a: (1.0, 0.0, lambda: None))
+    monkeypatch.setattr(smoke, "_profile_step",
+                        lambda fn: (1.0, 1.0, {}, [], []))
+    # the script's bounds are set from ViT-B's readings on the card
+    monkeypatch.setattr(smoke, "V1_TOLS", V1_CPU_TOLS)
+    kernels, launches, rates = smoke.phase_ssl_v1(torch.device("cpu"))
+    depth, steps, embed_calls = 12, 4, 2 * 4 + 4 + 4
+    assert launches == {
+        "byol": (depth * (4 * steps + embed_calls), depth * 2 * steps),
+        "simsiam": (depth * (4 * steps + embed_calls), depth * 2 * steps),
+        "dino": (depth * (3 * steps + embed_calls), depth * 2 * steps)}
+    assert set(rates) == {"byol", "simsiam", "dino"}
+    assert all(set(r) == {"plain", "kernel"} for r in rates.values())
 
 
 def test_training_phase_rehearsal(monkeypatch):

@@ -7,12 +7,12 @@ moves, the checkpoint reloads, the test table prints.  Then: a run stopped
 by SIGTERM mid-epoch leaves a checkpoint, and resuming from it finishes
 with exactly the weights of an uninterrupted run (the shuffle and the
 per-step draws are deterministic, so the skipped batches replay); the
-`python -m apla_tpu_torch.main` entry; the kNN rows of the test table
+`python -m apla_tpu_torch.main` entry, for the supervised recipe and for
+`--byol`, `--simsiam` and `--dino`; the kNN rows of the test table
 (`knn_eval`); the CPU only when asked for; and every knob the port does not
 have yet raises naming its ROADMAP item.
 """
 
-import copy
 import os
 import signal
 
@@ -179,11 +179,50 @@ def test_unported_knobs_raise(tmp_path, where, key, value):
         DefaultWrapper(params).instantiate()
 
 
+SSL_RECIPES = {"--byol": ("byol.yml", "BYOL heads"),
+               "--simsiam": ("byol.yml", "SimSiam heads"),
+               "--dino": ("dino.yml", "DINO head")}
+
+
 @pytest.mark.parametrize("flag", ["--byol", "--simsiam", "--dino"])
-def test_cli_ssl_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmain.main(copy.deepcopy(load_merged_params(PARAMS)),
-                   tmain.parse_arguments(["--params_path", PARAMS, flag]))
+def test_cli_ssl_flags_run(flag, tmp_path, monkeypatch, capsys):
+    """Each SSL flag's synthetic recipe: without a card and without
+    `--device cpu` it raises; with `--device cpu` it trains one epoch,
+    checkpoints, and `--test --pretrained_path` prints the kNN table of the
+    checkpoint.  SimSiam's choice stays with its own wrapper: the BYOL
+    wrapper class keeps `use_momentum`."""
+    from apla_tpu_torch.ssl import get_ssl_wrapper_and_trainer
+    from apla_tpu_torch.ssl.byol import BYOLWrapper
+    yml, heads = SSL_RECIPES[flag]
+    path = os.path.join(os.path.dirname(PARAMS), yml)
+
+    def load(p):
+        params = load_merged_params(p)
+        params.dataset_params.synthetic_size = 64
+        for ld in params.dataloader_params.values():
+            ld.update(batch_size=16, num_workers=0)
+        params.training_params.update(log_every=1, save_dir=str(tmp_path))
+        return params
+
+    monkeypatch.setattr(tmain, "load_merged_params", load)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    flags = [flag, "--params_path", path]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tmain.run_cli(flags + ["--epochs", "1"])
+    flags += ["--device", "cpu"]
+    assert tmain.run_cli(flags + ["--epochs", "1", "--model_name", "cli"]) \
+        is None
+    ckpt = os.path.join(str(tmp_path), "cli")
+    assert os.path.isfile(os.path.join(ckpt, "state.pt"))
+    out = capsys.readouterr().out
+    assert f"vit_tiny + {heads}" in out and "[knn val @ it 4]" in out
+    results = tmain.run_cli(flags + ["--test", "--pretrained_path", ckpt])
+    assert "SSL TEST RESULTS (kNN)" in capsys.readouterr().out
+    assert 0.0 <= results["knn_test_accuracy"] <= 1.0
+    wrapper_cls, _ = get_ssl_wrapper_and_trainer(
+        tmain.parse_arguments(["--params_path", path, "--byol"]))
+    assert wrapper_cls.keywords == {"use_momentum": True}
+    assert BYOLWrapper.use_momentum is True
 
 
 def test_a_missing_card_raises_unless_the_cpu_is_asked_for(tmp_path,
