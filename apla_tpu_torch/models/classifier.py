@@ -13,7 +13,8 @@ import torch
 from torch import nn
 
 from ..apla.core import AplaConfig, build_apla
-from .vit import Dense, ViT, ViTConfig, init_vit_, trunc_normal, vit_features
+from .vit import (Dense, ViT, ViTConfig, fit_optional_leaves, init_vit_,
+                  trunc_normal, vit_features)
 
 
 class Classifier(nn.Module):
@@ -53,11 +54,16 @@ def classifier_from_state(vit_cfg: ViTConfig, trainable: dict, frozen: dict,
     """Rebuild a `Classifier` from its state split as (trainable, frozen)
     name -> tensor maps (`utils.pretrained.params_from_jax` or a serving
     artifact).  Shapes come from the state: head width, pos-embed tokens,
-    APLA rank, int8 kernels."""
+    APLA rank, int8 kernels; so does the presence of the leaves an imported
+    backbone may hold or lack (mask and register tokens, LayerScale, qkv
+    biases)."""
     from ..ops.quant import quantize_like_state
     state = {**frozen, **trainable}
     model = Classifier(vit_cfg, int(state["fc.bias"].shape[0]),
                        num_pos_tokens=int(state["backbone.pos_embed"].shape[1]))
+    fit_optional_leaves(model.backbone, {
+        n[len("backbone."):]: t for n, t in state.items()
+        if n.startswith("backbone.")})
     for i, blk in enumerate(model.backbone.blocks):
         inds = state.get(f"backbone.blocks.{i}.attn.inds")
         if inds is not None:

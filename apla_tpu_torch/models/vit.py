@@ -202,6 +202,35 @@ class ViT(nn.Module):
         self.norm = Norm(d)
 
 
+def fit_optional_leaves(vit: ViT, state: dict, keep_mask_token=False,
+                        requires_grad=False) -> None:
+    """Give `vit` exactly the optional leaves that `state` (names of the
+    `ViT` module) holds: register and mask tokens, each block's LayerScale
+    pair and qkv bias.  A leaf the state holds and `vit` lacks is added
+    (zeros, `requires_grad` as given, on `vit`'s device); one it lacks goes,
+    as the JAX forward reads what its tree holds (`keep_mask_token`: the
+    mask token stays, as DINOv2 keeps its own over an import without
+    one)."""
+    device = vit.cls_token.device
+    for leaf in ("mask_token", "register_tokens"):
+        t = state.get(leaf)
+        if t is None:
+            if not (keep_mask_token and leaf == "mask_token"):
+                setattr(vit, leaf, None)
+        elif getattr(vit, leaf) is None:
+            setattr(vit, leaf, nn.Parameter(torch.zeros(
+                t.shape, device=device), requires_grad=requires_grad))
+    for i, blk in enumerate(vit.blocks):
+        if f"blocks.{i}.ls1.gamma" not in state:
+            blk.ls1 = blk.ls2 = None
+        elif blk.ls1 is None:
+            blk.ls1, blk.ls2 = (
+                LayerScale(vit.cfg.embed_dim, 0.0).to(device).requires_grad_(
+                    requires_grad) for _ in range(2))
+        if f"blocks.{i}.attn.qkv.bias" not in state:
+            blk.attn.qkv.bias = None
+
+
 def trunc_normal(shape, generator: torch.Generator, std: float = 0.02):
     """Normal(0, std) truncated to [-2 std, 2 std] (inverse-CDF sampling,
     as `jax.random.truncated_normal`; the draws differ from JAX's)."""

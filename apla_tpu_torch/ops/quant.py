@@ -182,12 +182,15 @@ def quantize_frozen_backbone(model, which=QUANTIZABLE):
 
 
 def quantize_like_state(model, state: dict):
-    """Give `model` a `QuantizedKernel` at every kernel whose int8 weight
-    the state names (`<dense>.kernel.w_int8`), so that the state loads.  In
-    place; returns `model`."""
+    """Give `model` a `QuantizedKernel` at every float kernel whose int8
+    weight the state names (`<dense>.kernel.w_int8`), on the device of the
+    kernel it replaces, so that the state loads (a W8A8 checkpoint into a
+    float model).  In place; returns `model`."""
     suffix = ".kernel.w_int8"
     for name, w in state.items():
         if name.endswith(suffix):
-            _set_kernel(model.get_submodule(name[:-len(suffix)]),
-                        QuantizedKernel.empty(*w.shape))
+            dense = model.get_submodule(name[:-len(suffix)])
+            if not isinstance(dense.kernel, QuantizedKernel):
+                _set_kernel(dense, QuantizedKernel.empty(*w.shape).to(
+                    dense.kernel.device))
     return model

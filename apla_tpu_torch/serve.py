@@ -29,8 +29,8 @@ smallest covering batch when that wastes at most half of it.
 
 CLI (run from a checkout):
   python -m apla_tpu_torch.serve export --params_path RECIPE.yml \\
-      --n_classes 1000 --out ART [--batch_sizes 1,8,64] [--seed 0] \\
-      [--quantize_frozen]
+      --out ART [--pretrained_path CKPT_DIR] [--n_classes 1000] \\
+      [--batch_sizes 1,8,64] [--seed 0] [--quantize_frozen]
   python -m apla_tpu_torch.serve export_seg --ckpt seg_best.pt --out ART \\
       [--backbone vit_large --img_size 512 --patch_size 16 --batch_sizes 1,4]
       [--quantize_frozen]
@@ -38,6 +38,19 @@ CLI (run from a checkout):
       [--depths 2,2,6 --num_heads 3,6,12 --batch_sizes 1,8] [--quantize_frozen]
   python -m apla_tpu_torch.serve predict ART batch.npy [--device cuda]
   python -m apla_tpu_torch.serve info ART
+  python -m apla_tpu_torch.serve eval ART --params_path RECIPE.yml [--knn]
+  python -m apla_tpu_torch.serve eval ART --det_img_dir DIR --det_ann ANN
+  python -m apla_tpu_torch.serve eval ART --seg_root ADE \\
+      [--eval_img_size 640 --eval_stride S]
+
+`export` builds the recipe's classifier as the wrapper does: the seeded
+init, the recipe's pretrained DINOv2 `.pth`, then `--pretrained_path` (or
+the recipe's `transfer_learning_params.pretrained_path`), a checkpoint
+directory of the port adopted by `train.checkpoint.transfer_into`.  `eval`
+scores an artifact as `apla_tpu/serve.py`'s does: a classifier's `--test`
+table on a recipe's split (with `--knn` the kNN vote over its served
+embeddings), a detector's box mAP@50 over a COCO set, a segmenter's mIoU
+over an ADE20K-layout validation split (sliding windows past the crop).
 """
 
 from __future__ import annotations
@@ -46,7 +59,6 @@ import copy
 import dataclasses
 import json
 import os
-import sys
 
 import numpy as np
 import torch
@@ -489,23 +501,37 @@ def load_predictor(path: str, device) -> Predictor:
 # CLI
 # ------------------------------------------------------------------ #
 
-def _build_from_params(params_path: str, n_classes: int, seed: int):
+def _build_from_params(params_path: str, pretrained_path: str | None,
+                       n_classes: int | None, seed: int):
+    """The recipe's classifier on the CPU, as `apla_tpu/serve.py:523-557`
+    builds it: the seeded init (`--seed`), then the recipe's pretrained
+    backbone (`model_params.pretrained`), then `pretrained_path` or the
+    recipe's `transfer_learning_params.pretrained_path`, adopted through
+    `transfer_into`.  `n_classes` None: the dataset class's."""
+    from .data.datasets import get_dataset_class
     from .models.classifier import init_classifier
+    from .train.checkpoint import transfer_into
     from .utils.config import load_merged_params
+    from .utils.pretrained import maybe_load_pretrained_backbone
     from .wrapper import build_apla_config, build_vit_config
 
     params = load_merged_params(params_path)
+    mp = params["model_params"]
+    if n_classes is None:
+        n_classes = int(get_dataset_class(
+            params["dataset_params"]["dataset"]).n_classes)
     vit_cfg = build_vit_config(params)
-    if params["model_params"].get("pretrained"):
-        print("note: the recipe names a pretrained checkpoint; the port has "
-              "no checkpoint importer yet, weights come from --seed",
-              file=sys.stderr)
     model = init_classifier(
         vit_cfg, n_classes, apla_cfg=build_apla_config(params),
-        freeze_backbone=bool(params["model_params"].get("freeze_backbone",
-                                                        False)),
+        freeze_backbone=bool(mp.get("freeze_backbone", False)),
         generator=torch.Generator().manual_seed(seed),
         device=torch.device("cpu"))
+    if mp.get("pretrained"):
+        maybe_load_pretrained_backbone(model.backbone, mp, vit_cfg)
+    ckpt = pretrained_path or (params.get("transfer_learning_params")
+                               or {}).get("pretrained_path")
+    if ckpt:
+        transfer_into(model, ckpt, where="serve-export")
     return model, vit_cfg
 
 
@@ -560,6 +586,173 @@ def _export_seg(args) -> dict:
                             quantize_frozen=args.quantize_frozen)
 
 
+def _print_results(title: str, results: dict) -> dict:
+    print(title)
+    width = max(len(k) for k in results)
+    for k, v in results.items():
+        print(f"  {k:<{width}} : {v}")
+    return results
+
+
+def _eval_detector(pred, args) -> dict:
+    """Box mAP@50 of a detector artifact over a COCO set, decoded as
+    `DetPredictor.detect` (and the detection loop) decodes."""
+    from .data.detection_data import CocoDetection, detection_collate
+    from .data.loader import DataLoader
+    from .models.detection import DetectionAP
+    ds = CocoDetection(args.det_img_dir, args.det_ann,
+                       img_size=pred.meta["img_size"],
+                       with_masks=bool(pred.meta.get("with_masks")),
+                       mask_stride=pred.meta.get("strides", [4])[0])
+    bsz = max(pred.batch_sizes)
+    loader = DataLoader(ds, batch_size=bsz, shuffle=False, drop_last=False,
+                        num_workers=args.num_workers,
+                        collate_fn=detection_collate)
+    metric = DetectionAP(ds.n_classes)
+    n_seen = 0
+    for bi, b in enumerate(loader):
+        dets = pred.detect(np.asarray(b["image"], np.float32))
+        labels, boxes = np.asarray(b["labels"]), np.asarray(b["boxes"])
+        for j, (p_boxes, p_scores, p_labels) in enumerate(dets):
+            keep = labels[j] >= 0
+            metric.add_image(bi * bsz + j, p_boxes, p_scores, p_labels,
+                             boxes[j][keep], labels[j][keep])
+            n_seen += 1
+    return _print_results(
+        f"EVAL RESULTS (val, {n_seen} samples, artifact {args.artifact})",
+        {"val_map50": round(metric.mean_ap(), 4)})
+
+
+def _eval_segmenter(pred, args, error) -> dict:
+    """Dataset-level mIoU of a segmenter artifact over an ADE20K-layout
+    'validation' split: at the exported crop, or with `--eval_img_size`
+    through sliding windows of it (`SegPredictor.masks_slide`)."""
+    from .data.loader import DataLoader
+    from .data.segmentation_data import (ADE20KSegmentation,
+                                         segmentation_collate)
+    from .models.seg import iou_counts, mean_iou_from_counts
+    img = pred.meta["img_size"]
+    eval_size = int(args.eval_img_size) if args.eval_img_size else img
+    if eval_size < img:
+        error(f"--eval_img_size {eval_size} < exported crop {img}")
+    if args.eval_stride and eval_size == img:
+        error("--eval_stride needs --eval_img_size > the exported crop (no "
+              "sliding at the crop size)")
+    val = ADE20KSegmentation(args.seg_root, "validation",
+                             img_size=eval_size)
+    loader = DataLoader(val, batch_size=max(pred.batch_sizes),
+                        shuffle=False, drop_last=False,
+                        num_workers=args.num_workers,
+                        collate_fn=segmentation_collate)
+    inter = union = 0
+    n_seen = 0
+    for b in loader:
+        im = np.asarray(b["image"], np.float32)
+        masks = (pred.masks_slide(im, stride=args.eval_stride)
+                 if eval_size > img else pred.masks(im))
+        bi, bu = iou_counts(masks, np.asarray(b["label"]),
+                            n_classes=val.n_classes)
+        inter, union = inter + bi, union + bu
+        n_seen += masks.shape[0]
+    miou = mean_iou_from_counts(inter, union) if np.ndim(union) else 0.0
+    return _print_results(
+        f"EVAL RESULTS (val, {n_seen} samples, artifact {args.artifact})",
+        {"val_miou": round(miou, 4)})
+
+
+def _eval_classifier(pred, args) -> dict:
+    """The `--test` table of a classifier artifact on a recipe's split,
+    with `--knn` also the kNN vote over the served embeddings (feature
+    bank: the train split through the eval transforms; k = the dataset's
+    `knn_nhood`, temperature 0.07)."""
+    from .train.knn import build_feature_bank, knn_predict
+    from .train.metrics import ClassificationMetrics
+    from .utils.config import load_merged_params
+    from .wrapper import DefaultWrapper
+    params = load_merged_params(args.params_path)
+    params.setdefault("system_params", {})["device"] = str(pred.device)
+    if args.num_workers is not None:
+        for ld in params["dataloader_params"].values():
+            ld["num_workers"] = args.num_workers
+    wrapper = DefaultWrapper(params)
+    if args.knn:        # init_dataloaders builds the bank's loader on it
+        wrapper.training_params.knn_eval = True
+    loaders = wrapper.init_dataloaders()
+    split = args.split or "test"
+    loader = loaders.testloader if split == "test" else loaders.valloader
+    n_classes = pred.meta["n_classes"]
+    metric = ClassificationMetrics(n_classes, mode=split)
+
+    def embed_norm(e):
+        """Served embeddings L2-normalised on the predictor's device, as
+        the trainer's embed step normalises its own."""
+        e = torch.from_numpy(e).to(pred.device)
+        return e / (torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+                    + 1e-12)
+
+    kmetric = None
+    if args.knn:
+        feats, bank = build_feature_bank(
+            lambda im: embed_norm(pred.embed(
+                im.cpu().numpy().astype(np.float32))),
+            loaders.fbank_loader, pred.device)
+        bank_labels = torch.as_tensor(bank, device=pred.device)
+        knn_k = min(int(getattr(loader.dataset, "knn_nhood", 20)),
+                    len(bank))
+        kmetric = ClassificationMetrics(n_classes, mode=f"knn_{split}",
+                                        raw=False)
+    n_seen = 0
+    for batch in loader:
+        labels = np.asarray(batch["label"])
+        logits, emb = pred.predict_and_embed(
+            np.asarray(batch["image"], np.float32))
+        metric.add_preds(logits, labels)
+        n_seen += labels.shape[0]
+        if kmetric is not None:
+            scores = knn_predict(embed_norm(emb), feats, bank_labels, knn_k,
+                                 0.07, n_classes)
+            kmetric.add_preds(scores.cpu().numpy(), labels)
+    results = metric.get_values()
+    if kmetric is not None:
+        results.update(kmetric.get_values())
+    return _print_results(f"EVAL RESULTS ({split}, {n_seen} samples, "
+                          f"artifact {args.artifact})", results)
+
+
+def run_eval(args, error) -> dict:
+    """`serve eval`: an artifact scored as the JAX CLI scores it
+    (`apla_tpu/serve.py:660-825`); `error` reports a bad flag mix."""
+    from .wrapper import resolve_device
+    if args.det_img_dir or args.det_ann:
+        if not (args.det_img_dir and args.det_ann):
+            error("--det_img_dir and --det_ann go together")
+        if args.split or args.knn or args.params_path or args.seg_root \
+                or args.eval_img_size or args.eval_stride:
+            error("--det_img_dir/--det_ann take no other eval flags")
+        pred = load_predictor(args.artifact, resolve_device(args.device))
+        if pred.meta.get("task") != "detector":
+            error("--det_img_dir requires a detector artifact")
+        return _eval_detector(pred, args)
+    if args.seg_root:
+        if args.split or args.knn or args.params_path:
+            error("--seg_root evaluates the ADE validation split; "
+                  "--split/--knn/--params_path do not apply")
+        pred = load_predictor(args.artifact, resolve_device(args.device))
+        if pred.meta.get("task") != "segmenter":
+            error("--seg_root requires a segmenter artifact")
+        return _eval_segmenter(pred, args, error)
+    if not args.params_path:
+        error("eval needs --params_path (or --seg_root for segmenter "
+              "artifacts)")
+    if args.eval_img_size or args.eval_stride:
+        error("--eval_img_size/--eval_stride apply only with --seg_root")
+    pred = load_predictor(args.artifact, resolve_device(args.device))
+    if pred.meta.get("task", "classifier") != "classifier":
+        error("eval supports classifier artifacts (segmenter: pass "
+              "--seg_root)")
+    return _eval_classifier(pred, args)
+
+
 def main(argv=None):
     import argparse
 
@@ -572,10 +765,12 @@ def main(argv=None):
     sub = ap.add_subparsers(dest="cmd", required=True)
     ex = sub.add_parser("export", help="export a serving artifact")
     ex.add_argument("--params_path", required=True)
+    ex.add_argument("--pretrained_path", default=None,
+                    help="checkpoint dir to adopt weights from")
     ex.add_argument("--out", required=True)
     ex.add_argument("--batch_sizes", default="1,8,64")
-    ex.add_argument("--n_classes", type=int, required=True,
-                    help="head width (the dataset registry is not ported)")
+    ex.add_argument("--n_classes", type=int, default=None,
+                    help="head width (default: the recipe's dataset's)")
     ex.add_argument("--seed", type=int, default=0,
                     help="seed of the weight init")
     ex.add_argument("--quantize_frozen", action="store_true",
@@ -608,6 +803,39 @@ def main(argv=None):
                      help="int8 frozen backbone kernels in the artifact")
     info = sub.add_parser("info", help="print an artifact's meta")
     info.add_argument("artifact")
+    ev = sub.add_parser("eval",
+                        help="evaluate an artifact: a classifier on a "
+                             "recipe's split (the --test table, served), a "
+                             "detector's mAP@50, a segmenter's mIoU")
+    ev.add_argument("artifact")
+    ev.add_argument("--params_path",
+                    help="recipe naming the dataset + transforms "
+                         "(classifier artifacts)")
+    ev.add_argument("--split", default=None, choices=("test", "val"),
+                    help="classifier artifacts (default test); a "
+                         "--seg_root eval always scores the ADE "
+                         "'validation' split")
+    ev.add_argument("--knn", action="store_true",
+                    help="also kNN-classify via the served embeddings "
+                         "(feature bank = train split, val transforms)")
+    ev.add_argument("--seg_root", default=None,
+                    help="segmenter artifacts: ADE20K-layout root to "
+                         "compute val mIoU over (instead of --params_path)")
+    ev.add_argument("--eval_img_size", type=int, default=None,
+                    help="with --seg_root: evaluate at this size via "
+                         "sliding windows of the exported crop")
+    ev.add_argument("--eval_stride", type=int, default=None,
+                    help="slide stride (default 2/3 of the crop)")
+    ev.add_argument("--det_img_dir", default=None,
+                    help="detector artifacts: COCO image dir (with "
+                         "--det_ann) to compute mAP@50 over")
+    ev.add_argument("--det_ann", default=None,
+                    help="detector artifacts: COCO instances .json")
+    ev.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' to run there)")
+    ev.add_argument("--num_workers", type=int, default=None,
+                    help="loader workers (default: 2 for --det_img_dir / "
+                         "--seg_root, the recipe's for a classifier)")
     pr = sub.add_parser("predict", help="run an artifact on images")
     pr.add_argument("artifact")
     pr.add_argument("inputs", nargs="+",
@@ -634,6 +862,11 @@ def main(argv=None):
         with open(os.path.join(args.artifact, _META_FILE)) as f:
             print(json.dumps(json.load(f), indent=2))
         return
+
+    if args.cmd == "eval":
+        if args.num_workers is None and (args.det_img_dir or args.seg_root):
+            args.num_workers = 2
+        return run_eval(args, ap.error)
 
     if args.cmd == "export_seg":
         meta = _export_seg(args)
@@ -695,7 +928,8 @@ def main(argv=None):
             print(f"output -> {args.out}")
         return
 
-    model, vit_cfg = _build_from_params(args.params_path, args.n_classes,
+    model, vit_cfg = _build_from_params(args.params_path,
+                                        args.pretrained_path, args.n_classes,
                                         args.seed)
     bs = [int(x) for x in str(args.batch_sizes).split(",") if x]
     meta = export_classifier(args.out, model, vit_cfg, batch_sizes=bs,

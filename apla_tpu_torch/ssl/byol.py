@@ -320,6 +320,9 @@ class BYOLWrapper(DefaultWrapper):
         pred, pred_s = init_prediction_mlp(proj_size, proj_size, pred_hidden,
                                            generator=gen)
         self.model = BYOLModel(vit, head, pred).to(self.device)
+        # the pretrained backbone, then the transfer checkpoint, before
+        # the teacher copy (init_optimization)
+        self.load_weights("byol")
         # the teacher head's stats start as copies of the student's
         model_state = {"student": {"head": head_s, "predictor": pred_s},
                        "teacher": {"head": _tree_map(torch.clone, head_s)}}

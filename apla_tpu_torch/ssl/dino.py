@@ -212,6 +212,9 @@ class DINOWrapper(BYOLWrapper):
         head = init_dino_head(self.vit_cfg.embed_dim, self.proj_size,
                               generator=gen)
         self.model = DINOModel(vit, head).to(self.device)
+        # the pretrained backbone, then the transfer checkpoint, before
+        # the teacher copy (init_optimization)
+        self.load_weights("dino")
         self._print_model("DINO head")
 
     def init_optimization(self):

@@ -721,6 +721,9 @@ class DINOv2Wrapper(DINOWrapper):
         self.model = DINOv2Model(vit, head(d2.dino),
                                  head(d2.ibot) if separate else None
                                  ).to(self.device)
+        # the pretrained backbone, then the transfer checkpoint, before
+        # the teacher copy (init_optimization)
+        self.load_weights("dinov2")
         self.n_prototypes = int(d2.dino.head_n_prototypes)
         self.ibot_prototypes = int(d2.ibot.head_n_prototypes) if separate \
             else self.n_prototypes

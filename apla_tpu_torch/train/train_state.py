@@ -28,11 +28,17 @@ class TrainState:
                 if p.requires_grad}
 
     def frozen(self) -> dict:
-        """name -> frozen parameter or buffer (`inds`)."""
-        out = {n: p for n, p in self.model.named_parameters()
-               if not p.requires_grad}
-        out.update(self.model.named_buffers())
-        return out
+        """name -> frozen parameter or persistent buffer (`inds`, a W8A8
+        kernel's `w_int8` / `scale`)."""
+        return frozen_state(self.model)
+
+
+def frozen_state(model: torch.nn.Module) -> dict:
+    """The entries of `model.state_dict()` that take no gradient: frozen
+    parameters and persistent buffers (not `QuantizedKernel.w_kmajor`,
+    which every load makes anew)."""
+    return {n: t for n, t in model.state_dict(keep_vars=True).items()
+            if not (isinstance(t, torch.nn.Parameter) and t.requires_grad)}
 
 
 @contextlib.contextmanager

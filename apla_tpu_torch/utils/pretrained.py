@@ -13,6 +13,15 @@ both centers; `byol_state_from_jax` a BYOL/SimSiam one (with the BN running
 stats) and `dino_state_from_jax` a DINO v1 one (with its center);
 `seg_state_from_jax` a JAX SETR-PUP segmenter.
 
+The DINO / DINOv2 ViT checkpoints: `convert_torch_vit_state_dict` (the
+torch.hub layout, chunked blocks too) and `convert_vit_hf_dinov2_state_dict`
+(HF `Dinov2Model`) map a `.pth` state dict straight onto the port's ViT
+parameter names; `export_torch_vit_state_dict` is the inverse of the first;
+`load_torch_checkpoint` unwraps a training checkpoint and
+`maybe_load_pretrained_backbone` imports `model_params.
+pretrained_checkpoint` into a ViT module in place, as
+`apla_tpu/utils/pretrained.py` imports it into the JAX trees.
+
 The Swin side: a Swin tree's flat names are the port's module names
 (`stages.{s}.blocks.{i}.attn.qkv.kernel`, lists indexed), so
 `swin_state_from_tree` flattens one, `swin_tree_from_state` nests a state
@@ -26,9 +35,14 @@ trees, over a state dict read with a local `torch.load`.
 from __future__ import annotations
 
 import math
+import os
+import re
+import warnings
 
 import numpy as np
 import torch
+
+from ..models.vit import fit_optional_leaves
 
 # Leaves of the APLA trainable block tree, placed under the block's attn.
 _APLA_LEAVES = ("proj_wt", "proj_bt")
@@ -341,3 +355,226 @@ def export_swin_hf_state_dict(params: dict) -> dict:
             put_ln(f"{base}.downsample.norm", stage["downsample"]["norm"])
     put_ln("layernorm", params["norms"][-1])
     return sd
+
+
+# --------------------------------------------------------------------------- #
+# DINO / DINOv2 ViT checkpoints (torch.hub and Hugging Face layouts)
+# --------------------------------------------------------------------------- #
+
+def _f32(t) -> torch.Tensor:
+    """A state-dict value as a float32 CPU tensor of its own."""
+    t = t.detach() if isinstance(t, torch.Tensor) else torch.as_tensor(
+        np.asarray(t))
+    return t.to(device="cpu", dtype=torch.float32).clone()
+
+
+def _lin_t(t) -> torch.Tensor:
+    """A torch Linear weight [out, in] -> the port's kernel [in, out]."""
+    return _f32(t).t().contiguous()
+
+
+def _conv_t(t) -> torch.Tensor:
+    """A Conv2d weight OIHW -> the port's patch kernel HWIO."""
+    return _f32(t).permute(2, 3, 1, 0).contiguous()
+
+
+def convert_torch_vit_state_dict(sd: dict, depth: int, use_swiglu=False,
+                                 has_layerscale=False) -> dict:
+    """A DINO / DINOv2 `VisionTransformer` state dict (torch.hub layout)
+    -> the port's ViT state: `name -> float32 tensor` under the `ViT`
+    module's names (`blocks.{i}.attn.qkv.kernel`, ...), as
+    `apla_tpu/utils/pretrained.py:convert_torch_vit_state_dict` builds its
+    tree.  Read: the `module.` and `backbone.` prefixes, the chunked
+    `blocks.<chunk>.<i>.` layout, separate q / k / v (packed into qkv),
+    SwiGLU `w12` / `w3`, `ls1.gamma` or the older `gamma_1` (only with
+    `has_layerscale`), `register_tokens` and `mask_token` ([1, 1, d])."""
+    sd = {k.removeprefix("module.").removeprefix("backbone."): v
+          for k, v in sd.items()}
+    if any(k.startswith("blocks.0.0.") for k in sd):
+        sd = {re.sub(r"^blocks\.\d+\.(\d+\.)", r"blocks.\1", k): v
+              for k, v in sd.items()}
+    out = {"cls_token": _f32(sd["cls_token"]),
+           "pos_embed": _f32(sd["pos_embed"]),
+           "patch_embed.kernel": _conv_t(sd["patch_embed.proj.weight"]),
+           "patch_embed.bias": _f32(sd["patch_embed.proj.bias"]),
+           "norm.scale": _f32(sd["norm.weight"]),
+           "norm.bias": _f32(sd["norm.bias"])}
+    if "register_tokens" in sd:
+        out["register_tokens"] = _f32(sd["register_tokens"])
+    if "mask_token" in sd:
+        out["mask_token"] = _f32(sd["mask_token"]).reshape(1, 1, -1)
+    mlp = ("w12", "w3") if use_swiglu else ("fc1", "fc2")
+    for i in range(depth):
+        p = f"blocks.{i}."
+        if p + "attn.qkv.weight" in sd:
+            out[p + "attn.qkv.kernel"] = _lin_t(sd[p + "attn.qkv.weight"])
+            if p + "attn.qkv.bias" in sd:
+                out[p + "attn.qkv.bias"] = _f32(sd[p + "attn.qkv.bias"])
+        else:       # separate q / k / v, packed into the qkv layout
+            out[p + "attn.qkv.kernel"] = torch.cat(
+                [_lin_t(sd[f"{p}attn.{n}.weight"]) for n in "qkv"], dim=1)
+            if p + "attn.q.bias" in sd:
+                out[p + "attn.qkv.bias"] = torch.cat(
+                    [_f32(sd[f"{p}attn.{n}.bias"]) for n in "qkv"])
+        out[p + "attn.proj.kernel"] = _lin_t(sd[p + "attn.proj.weight"])
+        out[p + "attn.proj.bias"] = _f32(sd[p + "attn.proj.bias"])
+        for norm in ("norm1", "norm2"):
+            out[f"{p}{norm}.scale"] = _f32(sd[f"{p}{norm}.weight"])
+            out[f"{p}{norm}.bias"] = _f32(sd[f"{p}{norm}.bias"])
+        for name in mlp:
+            out[f"{p}mlp.{name}.kernel"] = _lin_t(sd[f"{p}mlp.{name}.weight"])
+            out[f"{p}mlp.{name}.bias"] = _f32(sd[f"{p}mlp.{name}.bias"])
+        if has_layerscale:
+            for ls, old in (("ls1", "gamma_1"), ("ls2", "gamma_2")):
+                key = p + f"{ls}.gamma" if p + "ls1.gamma" in sd else p + old
+                if key in sd:
+                    out[f"{p}{ls}.gamma"] = _f32(sd[key])
+    return out
+
+
+def export_torch_vit_state_dict(state: dict, use_swiglu=False) -> dict:
+    """The inverse of `convert_torch_vit_state_dict`: a port ViT state
+    (the `ViT` module's names, e.g. `vit.state_dict()`) -> a torch.hub
+    DINO / DINOv2 state dict of float32 tensors (`torch.save` it).  An
+    APLA-split state is merged first (`apla.core.merge_apla_params`)."""
+    if any(n.endswith(("proj_wt", "proj_bt", "attn.inds")) for n in state):
+        raise ValueError("merge the APLA columns first "
+                         "(apla.core.merge_apla_params)")
+    sd = {"cls_token": _f32(state["cls_token"]),
+          "pos_embed": _f32(state["pos_embed"])}
+    for name in ("register_tokens", "mask_token"):
+        if state.get(name) is not None:
+            sd[name] = _f32(state[name])
+    if "mask_token" in sd:
+        sd["mask_token"] = sd["mask_token"].reshape(1, -1)
+    sd["patch_embed.proj.weight"] = _f32(state["patch_embed.kernel"]
+                                         ).permute(3, 2, 0, 1).contiguous()
+    sd["patch_embed.proj.bias"] = _f32(state["patch_embed.bias"])
+    sd["norm.weight"] = _f32(state["norm.scale"])
+    sd["norm.bias"] = _f32(state["norm.bias"])
+    depth = sum(1 for n in state
+                if re.fullmatch(r"blocks\.\d+\.norm1\.scale", n))
+    mlp = ("w12", "w3") if use_swiglu else ("fc1", "fc2")
+    for i in range(depth):
+        p = f"blocks.{i}."
+        for norm in ("norm1", "norm2"):
+            sd[f"{p}{norm}.weight"] = _f32(state[f"{p}{norm}.scale"])
+            sd[f"{p}{norm}.bias"] = _f32(state[f"{p}{norm}.bias"])
+        for dense in ["attn.qkv", "attn.proj"] + [f"mlp.{n}" for n in mlp]:
+            sd[f"{p}{dense}.weight"] = _lin_t(state[f"{p}{dense}.kernel"])
+            if state.get(f"{p}{dense}.bias") is not None:
+                sd[f"{p}{dense}.bias"] = _f32(state[f"{p}{dense}.bias"])
+        for ls in ("ls1", "ls2"):
+            if state.get(f"{p}{ls}.gamma") is not None:
+                sd[f"{p}{ls}.gamma"] = _f32(state[f"{p}{ls}.gamma"])
+    return sd
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A `.pth` read on the CPU, unwrapped from the first of its
+    `teacher` / `student` / `model` / `state_dict` entries that holds a
+    dict (DINO and DINOv2 training checkpoints)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    for key in ("teacher", "student", "model", "state_dict"):
+        if isinstance(ckpt, dict) and isinstance(ckpt.get(key), dict):
+            return ckpt[key]
+    return ckpt
+
+
+def convert_vit_hf_dinov2_state_dict(sd: dict, depth: int) -> dict:
+    """A Hugging Face `Dinov2Model` state dict (the hub mirror of the
+    dinov2 checkpoints) -> the port's ViT state, as
+    `apla_tpu/utils/pretrained.py:convert_vit_hf_dinov2_state_dict`
+    maps it: query / key / value packed into qkv, `layer_scale{1,2}.
+    lambda1` as LayerScale when present, `mlp.weights_in` / `weights_out`
+    as SwiGLU `w12` / `w3` when there is no `fc1`."""
+    def lin(ours, theirs):
+        out[ours + ".kernel"] = _lin_t(sd[theirs + ".weight"])
+        if theirs + ".bias" in sd:
+            out[ours + ".bias"] = _f32(sd[theirs + ".bias"])
+
+    def ln(ours, theirs):
+        out[ours + ".scale"] = _f32(sd[theirs + ".weight"])
+        out[ours + ".bias"] = _f32(sd[theirs + ".bias"])
+
+    emb = "embeddings."
+    out = {"patch_embed.kernel": _conv_t(
+               sd[emb + "patch_embeddings.projection.weight"]),
+           "patch_embed.bias": _f32(
+               sd[emb + "patch_embeddings.projection.bias"]),
+           "cls_token": _f32(sd[emb + "cls_token"]),
+           "pos_embed": _f32(sd[emb + "position_embeddings"])}
+    ln("norm", "layernorm")
+    if emb + "mask_token" in sd:
+        out["mask_token"] = _f32(sd[emb + "mask_token"]).reshape(1, 1, -1)
+    if emb + "register_tokens" in sd:
+        out["register_tokens"] = _f32(sd[emb + "register_tokens"])
+    for i in range(depth):
+        b, p = f"encoder.layer.{i}.", f"blocks.{i}."
+        qkv = [f"{b}attention.attention.{n}" for n in ("query", "key",
+                                                       "value")]
+        out[p + "attn.qkv.kernel"] = torch.cat(
+            [_lin_t(sd[n + ".weight"]) for n in qkv], dim=1)
+        out[p + "attn.qkv.bias"] = torch.cat([_f32(sd[n + ".bias"])
+                                              for n in qkv])
+        lin(p + "attn.proj", b + "attention.output.dense")
+        ln(p + "norm1", b + "norm1")
+        ln(p + "norm2", b + "norm2")
+        if b + "mlp.fc1.weight" in sd:
+            lin(p + "mlp.fc1", b + "mlp.fc1")
+            lin(p + "mlp.fc2", b + "mlp.fc2")
+        else:
+            lin(p + "mlp.w12", b + "mlp.weights_in")
+            lin(p + "mlp.w3", b + "mlp.weights_out")
+        if b + "layer_scale1.lambda1" in sd:
+            out[p + "ls1.gamma"] = _f32(sd[b + "layer_scale1.lambda1"])
+            out[p + "ls2.gamma"] = _f32(sd[b + "layer_scale2.lambda1"])
+    return out
+
+
+@torch.no_grad()
+def load_vit_state(vit, state: dict) -> None:
+    """Put a converted ViT state (`convert_*` above) into the `ViT` module
+    `vit` in place, so that its weights are the state's, as the JAX package
+    replaces the backbone tree by the imported one: every tensor of the
+    state replaces its parameter (`pos_embed` may change length); the
+    optional leaves follow the state (`models.vit.fit_optional_leaves`;
+    those added train only when the backbone does, a full fine-tune; the
+    mask token stays when the state has none); APLA-k blocks take their
+    trainable columns `inds` from the imported projection, and under APLA
+    "full" the projection is the trainable parameter itself."""
+    fit_optional_leaves(vit, state, keep_mask_token=True,
+                        requires_grad=vit.cls_token.requires_grad)
+    for name, value in state.items():
+        vit.get_parameter(name).data = value.to(vit.cls_token.device)
+    for blk in vit.blocks:
+        attn = blk.attn
+        if attn.inds is not None:
+            attn.proj_wt.data = attn.proj.kernel.index_select(
+                1, attn.inds).clone()
+            attn.proj_bt.data = attn.proj.bias.index_select(
+                0, attn.inds).clone()
+
+
+def maybe_load_pretrained_backbone(vit, model_params, vit_cfg) -> bool:
+    """`model_params.pretrained_checkpoint`, a local `.pth` (torch.hub or
+    Hugging Face `Dinov2Model` layout), imported into the `ViT` module
+    `vit` in place (`load_vit_state`).  Without such a file: the JAX
+    package's warning, and the seeded init stays.  Returns whether weights
+    were imported."""
+    path = model_params.get("pretrained_checkpoint", "")
+    if not path or not os.path.exists(path):
+        warnings.warn(
+            "model_params.pretrained=true but no local checkpoint found "
+            f"(pretrained_checkpoint={path!r}); zero-egress environment "
+            "cannot download dinov2 weights — continuing from random init.")
+        return False
+    sd = load_torch_checkpoint(path)
+    if any(k.startswith("embeddings.patch_embeddings") for k in sd):
+        state = convert_vit_hf_dinov2_state_dict(sd, vit_cfg.depth)
+    else:
+        state = convert_torch_vit_state_dict(
+            sd, vit_cfg.depth, use_swiglu=vit_cfg.use_swiglu,
+            has_layerscale=vit_cfg.has_layerscale)
+    load_vit_state(vit, state)
+    return True

@@ -7,10 +7,18 @@ card; without one the wrapper raises unless the caller asked for "cpu").
 `build_vit_config` / `build_apla_config` are plain
 functions of the merged params dict (what `utils.config.load_merged_params`
 returns, or an equivalent plain dict).  TPU-only knobs (`fused_vmem_mb`,
-`remat`) have no meaning here and are not read.  What the port does not
-have yet raises `NotImplementedError` naming its ROADMAP item: the mesh and
-parallel knobs, `pretrained` import, `transfer_learning_params.
-pretrained_path`, `quantize_frozen`, and multi-label data.
+`remat`) have no meaning here and are not read.
+
+`init_model` follows the JAX order (`apla_tpu/wrapper.py:269-287`): the
+seeded model, then `model_params.pretrained` (a local DINOv2 `.pth`,
+`utils.pretrained.maybe_load_pretrained_backbone`), then
+`transfer_learning_params.pretrained_path` (a checkpoint directory of the
+port, `train.checkpoint.transfer_into`), then `quantize_frozen` (W8A8: the
+frozen qkv / fc1 / fc2 kernels in int8, before the optimizer is built).
+The SSL wrappers take the first two at the same points and refuse
+`quantize_frozen`, which the JAX SSL wrappers never read.  What the port
+does not have yet raises `NotImplementedError` naming its ROADMAP item: the
+mesh and parallel knobs and multi-label data.
 """
 
 from __future__ import annotations
@@ -24,12 +32,15 @@ from .data import datasets as datasets_mod
 from .data.loader import DataLoader
 from .models.classifier import init_classifier
 from .models.vit import VIT_BUILDERS, ViTConfig
+from .ops.quant import quantize_frozen_backbone
+from .train.checkpoint import transfer_into
 from .train.losses import get_criterion
 from .train.metrics import ClassificationMetrics
 from .train.optim import build_optimizer
 from .train.schedules import LRScheduler
 from .train.train_state import TrainState
 from .utils.config import EDict
+from .utils.pretrained import maybe_load_pretrained_backbone
 
 _ROADMAP_PARALLEL = "ROADMAP queue A: parallel modes"
 
@@ -130,19 +141,11 @@ class DefaultWrapper:
             raise NotImplementedError(
                 f"param_sharding {sp['param_sharding']!r} "
                 f"({_ROADMAP_PARALLEL})")
-        if mp.get("pretrained"):
+        if mp.get("quantize_frozen") and not self.is_supervised:
             raise NotImplementedError(
-                "model_params.pretrained: the dinov2 .pth / HF importers are "
-                "not ported yet (ROADMAP queue A: rest of serving, importers)")
-        if self.transfer_learning_params.get("pretrained_path"):
-            raise NotImplementedError(
-                "transfer_learning_params.pretrained_path is not ported yet "
-                "(ROADMAP queue A: rest of serving, importers)")
-        if mp.get("quantize_frozen"):
-            raise NotImplementedError(
-                "model_params.quantize_frozen: W8A8 training is not ported "
-                "yet (ROADMAP A 2); W8A8 serving is `serve export "
-                "--quantize_frozen`")
+                "model_params.quantize_frozen: W8A8 training runs in the "
+                "supervised wrapper (DefaultWrapper) only; the SSL wrappers "
+                "do not read it, in the JAX package either (ROADMAP A 2)")
 
     # ------------------------------------------------------------------ #
     def instantiate(self, seed: int = 0):
@@ -233,6 +236,13 @@ class DefaultWrapper:
             freeze_backbone=bool(self.model_params.get("freeze_backbone",
                                                        False)),
             generator=torch.Generator().manual_seed(seed), device=self.device)
+        self.load_weights("supervised")
+        # W8A8: the frozen large kernels in int8 before the optimizer sees
+        # the model (a full fine-tune has no frozen backbone to quantize)
+        if self.model_params.get("quantize_frozen") and any(
+                not p.requires_grad for p in self.model.backbone.parameters()):
+            quantize_frozen_backbone(self.model)
+            print("Quantized frozen backbone kernels to int8 (W8A8)")
         n_train = sum(p.numel() for p in self.model.parameters()
                       if p.requires_grad)
         n_total = sum(p.numel() for p in self.model.parameters()) \
@@ -240,6 +250,18 @@ class DefaultWrapper:
         print(f"Model: {self.model_params.backbone_type} "
               f"trainable={n_train:,} / total={n_total:,} "
               f"({100.0 * n_train / max(n_total, 1):.2f}%)")
+
+    def load_weights(self, where: str) -> None:
+        """The recipe's weights into `self.model` in the JAX order: the
+        pretrained backbone (`model_params.pretrained`), then the transfer
+        checkpoint (`transfer_learning_params.pretrained_path`); `where`
+        names the wrapper in the transfer's messages."""
+        if self.model_params.get("pretrained"):
+            maybe_load_pretrained_backbone(self.model.backbone,
+                                           self.model_params, self.vit_cfg)
+        tl_path = self.transfer_learning_params.get("pretrained_path")
+        if tl_path:
+            transfer_into(self.model, tl_path, where=where)
 
     def init_optimization(self):
         opt = self.optimization_params.default

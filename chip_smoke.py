@@ -4,7 +4,8 @@
 Drives the port's serving path, its supervised training path, its
 DINOv2, BYOL, SimSiam and DINO v1 self-supervised paths, its
 full-projection path, its Swin detection side-car, its ViT-L segmentation
-side-car and its W8A8 serving path once on one CUDA card, in phases that
+side-car, its W8A8 serving and training paths, and the checkpoint import,
+transfer, export and evaluation paths once on one CUDA card, in phases that
 each print a line and raise on failure:
 
   1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`
@@ -160,8 +161,29 @@ each print a line and raise on failure:
                running stats or the center moved, the checkpoint reloaded
                by test() with the kNN table; train-step img/s and peak
                memory of both arms, a profile of DINO's step.
+  12. import — the shipped recipes from real weights: a seeded ViT-B/14
+               state dict (518 grid, LayerScale, a mask token) written in
+               the torch.hub, chunked and HF `Dinov2Model` layouts.  12a:
+               the ImageNet recipe as shipped (`pretrained: true`, the
+               checkpoint path pointed at the file) through `python -m
+               apla_tpu_torch.main`: every imported tensor bit-equal to the
+               file's, the APLA-128 columns the projection's, the three
+               layouts giving bit-equal models, two accum-8 updates
+               through rows 1 and 2.  12b: phase 6b's DINOv2 checkpoint
+               adopted by a supervised fine-tune (`--pretrained_path`,
+               backbone-only, bit-equal), one update, `serve export
+               --pretrained_path`, b64 served at 518 against the in-process
+               module.  12c: W8A8 training (`quantize_frozen`) through
+               DefaultWrapper -> Trainer: row 13 in every frozen qkv, fc1
+               and fc2 of every micro-step and eval call, rows 1 and 2 in
+               every block, the kernel arm against the plain arm with
+               three faults, the int8 codes kept, the checkpoint, img/s and
+               peak memory beside phase 5's float step.  12d: `serve eval`
+               of 12b's classifier (with `--knn`), 8b's detector (mAP@50)
+               and 9b's segmenter (mIoU, plain and sliding), each reading
+               what its loop's own evaluation of the same weights reads.
 
-Phases 2-11 also run negative controls: the kernels made to compute what
+Phases 2-12 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
 heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
 from the wrong columns or zeroed, rowsum(dp * p) dropped from ds, a key
@@ -172,8 +194,10 @@ zeroed; the projection GEMM's output halved, its last row unwritten, its last
 contraction step skipped; the Swin bias or mask dropped, the mask read at
 the wrong window, dW zeroed; the int8 weight scales dropped, one
 activation scale for the whole tensor, codes truncated, the last K group
-skipped, the ragged tail rows unwritten).  Each must fail the phase's
-bound, so the bounds are shown to catch a broken kernel in every run.
+skipped, the ragged tail rows unwritten; in W8A8 training the codes
+truncated, the int8 product scaled by 0.9, dW_t zeroed).  Each must fail
+the phase's bound, so the bounds are shown to catch a broken kernel in
+every run.
 
 Then it prints the card's name and power limit, a JSON line describing the
 kernels, and the contract line `{"ok": true, "device": {...}}` last.
@@ -711,8 +735,9 @@ SEG_SERVE_REL_TOL = DET_SERVE_REL_TOL
 # the detector serves in f32), row 13's own function (groups of 256) at the
 # fc2 shape with a ragged M, and fc1 b64 with its bias (f32, as the served
 # model keeps it), which the kernel adds after the rounding, as the served
-# path runs every frozen product.  (name, M, K, N, group, dtype, bias);
-# every M but b8's leaves a ragged last tile of 128 rows.
+# path runs every frozen product.  W8A8 training (phase 12c) runs the b64
+# products at accum 1 and the b8 micro-batch's (M = 8 x 257) at the
+# recipe's accum 8.  (name, M, K, N, group, dtype, bias).
 INT8_CASES = (
     ("qkv b64", 64 * 257, 768, 2304, 768, torch.bfloat16, False),
     ("fc1 b64", 64 * 257, 768, 3072, 768, torch.bfloat16, False),
@@ -720,6 +745,9 @@ INT8_CASES = (
     ("qkv b1", 257, 768, 2304, 768, torch.bfloat16, False),
     ("fc1 b1", 257, 768, 3072, 768, torch.bfloat16, False),
     ("fc2 b1", 257, 3072, 768, 3072, torch.bfloat16, False),
+    ("qkv b8", 8 * 257, 768, 2304, 768, torch.bfloat16, False),
+    ("fc1 b8", 8 * 257, 768, 3072, 768, torch.bfloat16, False),
+    ("fc2 b8", 8 * 257, 3072, 768, 3072, torch.bfloat16, False),
     ("seg fc2 b8", 8 * 1025, 4096, 1024, 4096, torch.bfloat16, False),
     ("swin stage-0 qkv b16", 16 * 56 * 56, 96, 288, 96, torch.float32,
      False),
@@ -743,6 +771,52 @@ INT8_REL_TOL = 1e-6
 # module through the same calls.
 W8A8_MIN_COSINE = 0.99
 W8A8_SERVE_REL_TOL = DET_SERVE_REL_TOL
+
+# Phase 12: the shipped recipes from real weights.  IMPORT_RECIPE is
+# params/finetune/dinov2/ImageNet/vit_b/apla.yml as shipped: RECIPE with the
+# fields RECIPE leaves out, `pretrained: true`, the checkpoint path and the
+# empty transfer path (a CPU test holds it against the YAML).  No
+# checkpoint is in the repository and none may be fetched: the phase
+# writes a seeded ViT-B/14 state dict in the public DINOv2 layouts
+# (torch.hub, chunked blocks, HF `Dinov2Model`) and points the path at it.
+# W8A8_RECIPE adds W8A8 training (`quantize_frozen`, a knob no shipped
+# recipe sets).
+IMPORT_RECIPE = copy.deepcopy(RECIPE)
+IMPORT_RECIPE["model_params"].update(
+    pretrained=True,
+    pretrained_checkpoint="/data/checkpoints/dinov2_vitb14_pretrain.pth")
+IMPORT_RECIPE["transfer_learning_params"] = {"pretrained_path": ""}
+W8A8_RECIPE = copy.deepcopy(IMPORT_RECIPE)
+W8A8_RECIPE["model_params"]["quantize_frozen"] = True
+# What phase 12 changes, and why: phase 5's data (the Synthetic set at the
+# recipe's raw 256 and 1000 classes) at 128 images, two accum-8 updates of
+# b64 (12b's fine-tune takes 64, one update); the loaders in-process.
+IMPORT_CUTS = {**copy.deepcopy(SMOKE_CUTS), "dataloader_params": {
+    name: {"num_workers": 0}
+    for name in ("trainloader", "valloader", "testloader")}}
+IMPORT_CUTS["dataset_params"]["synthetic_size"] = 128
+# 12d's classifier split: `serve export` builds the recipe's config, so the
+# artifact answers at the 518 grid; the split is stored at 518 and read
+# through an identity resize (64 test images, and 64 train images for the
+# kNN bank).
+EVAL_CUTS = copy.deepcopy(IMPORT_CUTS)
+EVAL_CUTS["dataset_params"].update(synthetic_size=64, synthetic_img_size=518)
+EVAL_CUTS["dataset_params"].update({split: {
+    "Resize": {"apply": True, "height": 518, "width": 518},
+    "CenterCrop": {"apply": False}, "Normalize": True}
+    for split in ("val_transforms", "test_transforms")})
+# 12c, W8A8 kernel arm (row 13 and rows 1, 2) against the plain arm (the
+# int8 product's and the attention's plain versions) on the first step:
+# |dloss| and the worst per-tensor ||dg|| / ||g||.  The int8 kernel is
+# its plain version bit for bit on the same x (10a), but the arms' bf16
+# attention outputs part by a rounding, and each activation code that a
+# rounding moves moves an output by ~1% of a typical one: on an H100 80GB
+# HBM3 at 700 W the kernel arm reads |dloss| 5.52e-4 and 0.0196 (at
+# fc.kernel), against phase 5's float 8.3e-6 and 0.0103.  The bounds sit
+# 2.7x and 2.5x above; the controls read: codes truncated 3.05e-3 and
+# 0.083, the product scaled by 0.9 3.38e-3 and 0.77, dW_t zeroed 1.0.
+W8A8_LOSS_TOL = 1.5e-3
+W8A8_GRAD_REL_TOL = 0.05
 
 
 def _gpu_line() -> str:
@@ -2136,7 +2210,11 @@ def _write_coco(root):
     return img_dir, ann_file
 
 
-def phase_det(device):
+def phase_det(device, keep=None):
+    """8b; with `keep` (as phase 6b's), its artifact, data and
+    `--eval_only` mAP@50 stay for phase 12d: `keep["det"]`."""
+    if keep is not None:
+        return _phase_det(device, _subdir(keep["dir"], "det"), keep)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_det_") as tmp:
         return _phase_det(device, tmp)
 
@@ -2163,7 +2241,7 @@ def _det_agreement(name, got, ref):
                            DET_GRAD_REL_TOL)
 
 
-def _phase_det(device, tmp):
+def _phase_det(device, tmp, keep=None):
     from apla_tpu_torch import segdet
     from apla_tpu_torch.data.detection_data import (CocoDetection,
                                                     detection_collate)
@@ -2312,6 +2390,9 @@ def _phase_det(device, tmp):
                                  best["frozen"], device)
     art = os.path.join(tmp, "artifact")
     export_detector(art, served, cfg, strides, batch_sizes=(1, 8, 16))
+    if keep is not None:
+        keep["det"] = {"artifact": art, "img_dir": img_dir, "ann": ann,
+                       "map50": best_map, "depth": depth}
     pred = load_predictor(art, device)
     x = np.stack([ds[i]["image"] for i in range(8)])
     for c in counters:
@@ -2503,7 +2584,7 @@ def _with_output_fault(module, name, fault, fn):
     return _with_patch(module, name, faulty, fn)
 
 
-def _train_step_fn(wrapper, cfg, accum, batch):
+def _train_step_fn(wrapper, cfg, accum, batch, run=None):
     """A zero-argument call of one recipe step of `cfg` at `accum` on a
     device batch (AdamW at lr 1e-9: a copy of the optimizer state moves;
     the model's weights move too)."""
@@ -2517,13 +2598,15 @@ def _train_step_fn(wrapper, cfg, accum, batch):
                            accum_steps=accum)
     state = TrainState(0, wrapper.model, opt)
     gen = torch.Generator(device=batch["image"].device).manual_seed(SEED)
+    if run is not None:             # the step inside `run` (an arm's patch)
+        return lambda: run(lambda: step(state, batch, 1e-9, gen))
     return lambda: step(state, batch, 1e-9, gen)
 
 
-def _train_rate(wrapper, cfg, accum, batch):
+def _train_rate(wrapper, cfg, accum, batch, run=None):
     """Train-step img/s and peak device memory (GB) of `cfg` at `accum`
-    on a device batch, after one warm-up step."""
-    fn = _train_step_fn(wrapper, cfg, accum, batch)
+    on a device batch, after one warm-up step (inside `run`, if given)."""
+    fn = _train_step_fn(wrapper, cfg, accum, batch, run)
     torch.cuda.reset_peak_memory_stats()
     ms = _time_ms(fn, iters=4, warmup=1)
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2560,19 +2643,25 @@ def phase_train(device):
 
 
 def _train_phase(device, tmp, recipe, cuts, tag, arm, counters,
-                 blocks_without_bwd, controls, tols, profile=False):
+                 blocks_without_bwd, controls, tols, profile=False,
+                 int8=None):
     """`recipe` with `cuts` through DefaultWrapper -> Trainer.train() ->
     test(), saving under `tmp`.  Checks: the first step's loss and
     gradients of the kernel arm (`arm`) against the plain arm (the kernels'
     paths off) within `tols` = (|dloss|, worst ||dg|| / ||g||), and each of
-    `controls` (name -> (module, wrapper, fault on its outputs)) outside
-    them; the forward and backward kernels that `counters` count launched
-    in every block of every micro-step and eval call (the backward in all
-    but the first `blocks_without_bwd` blocks); finite losses; frozen
-    weights bit for bit; every trainable tensor moved; the checkpoint
-    reloads.  Then train-step img/s and peak memory of both arms at the
-    recipe's accum and at 1, and (`profile`) a profile of the kernel arm's
-    step at each.  Returns (launches, rates, profiles)."""
+    `controls` (name -> (module, wrapper, fault on its outputs), or a
+    function running a zero-argument call under its fault) outside them;
+    the forward and backward kernels that `counters` count launched in
+    every block of every micro-step and eval call (the backward in all but
+    the first `blocks_without_bwd` blocks); finite losses; frozen weights
+    bit for bit; every trainable tensor moved; the checkpoint reloads.
+    `int8` (W8A8 training): (the int8 kernel's wrapper, a function running
+    a call with the int8 product's plain version): the kernel in each
+    frozen qkv, fc1 and fc2 of every micro-step and eval call, and the
+    plain arm on the plain int8 product.  Then train-step img/s and peak
+    memory of both arms at the recipe's accum and at 1, and (`profile`) a
+    profile of the kernel arm's step at each.  Returns (launches, rates,
+    profiles)."""
     from apla_tpu_torch.data.device_augs import device_augment
     from apla_tpu_torch.train.checkpoint import load_checkpoint
     from apla_tpu_torch.train.trainer import Trainer
@@ -2605,13 +2694,21 @@ def _train_phase(device, tmp, recipe, cuts, tag, arm, counters,
     plain_cfg = dataclasses.replace(cfg, use_fused_apla=False,
                                     use_flash=False)
     args = (images, batch["label"], wrapper.criterion, accum)
-    ref = _step_grads(model, plain_cfg, *args)
+    plain_run = int8[1] if int8 else None
+    ref = (plain_run or (lambda fn: fn()))(
+        lambda: _step_grads(model, plain_cfg, *args))
     ok = _grad_agreement(tag, f"{arm} arm", _step_grads(model, cfg, *args),
                          ref, *tols)
+
+    def faulty(control, fn):
+        if callable(control):
+            return control(fn)
+        module, fn_name, fault = control
+        return _with_output_fault(module, fn_name, fault, fn)
     caught = all([not _grad_agreement(
-        tag, f"control: {name}", _with_output_fault(
-            module, fn_name, fault, lambda: _step_grads(model, cfg, *args)),
-        ref, *tols) for name, (module, fn_name, fault) in controls.items()])
+        tag, f"control: {name}", faulty(
+            control, lambda: _step_grads(model, cfg, *args)),
+        ref, *tols) for name, control in controls.items()])
     if not ok:
         raise SystemExit(f"{arm} arm's gradients disagree with the plain arm")
     if not caught:
@@ -2623,6 +2720,7 @@ def _train_phase(device, tmp, recipe, cuts, tag, arm, counters,
     frozen = {n: t.detach().clone() for n, t in trainer.state.frozen().items()}
     trainable = {n: t.detach().clone()
                  for n, t in trainer.state.trainable().items()}
+    counters = tuple(counters) + ((int8[0],) if int8 else ())
     for c in counters:
         c.launches = 0
     trainer.train()
@@ -2631,12 +2729,15 @@ def _train_phase(device, tmp, recipe, cuts, tag, arm, counters,
     launches = tuple(c.launches for c in counters)
     bwd_blocks = depth - blocks_without_bwd
     expect = (depth * (steps * accum + evals), bwd_blocks * steps * accum)
+    expect += (3 * expect[0],) if int8 else ()
     print(f"[{tag}] trained {trainer.iters} steps and tested in "
           f"{time.perf_counter() - t0:.1f} s; launches forward "
           f"{launches[0]} (expected {expect[0]} = {depth} x ({steps} x "
           f"{accum} micro-steps + {evals} eval calls)), backward "
           f"{launches[1]} (expected {expect[1]} = {bwd_blocks} x {steps} x "
-          f"{accum})")
+          f"{accum})" + (f", int8 {launches[2]} (expected {expect[2]} = 3 x "
+                         f"{expect[0]}: each frozen qkv, fc1, fc2)"
+                         if int8 else ""))
     if launches != expect:
         raise SystemExit("the training path did not run both kernels in "
                          "every block of every micro-step")
@@ -2673,7 +2774,8 @@ def _train_phase(device, tmp, recipe, cuts, tag, arm, counters,
     for name, a_cfg in (("plain", plain_cfg), (arm, cfg), (arm, cfg),
                         ("plain", plain_cfg)):
         for acc in (accum, 1):
-            rate, peak = _train_rate(wrapper, a_cfg, acc, batch)
+            rate, peak = _train_rate(wrapper, a_cfg, acc, batch,
+                                     plain_run if name == "plain" else None)
             best = rates.get((name, acc), (0.0, 0.0))
             rates[(name, acc)] = (max(best[0], rate), max(best[1], peak))
     for (name, acc), (rate, peak) in sorted(rates.items()):
@@ -3142,12 +3244,16 @@ def _print_profile(tag, what, wall, busy, groups, top, ops):
         f"{name} {ms:.2f}" for name, ms in ops))
 
 
-def phase_ssl(device):
+def phase_ssl(device, keep=None):
+    """6b; with `keep` (phase 12's dict, `keep["dir"]` a directory that
+    outlives the phase), its checkpoint stays for 12b: `keep["ssl_ckpt"]`."""
+    if keep is not None:
+        return _phase_ssl(device, _subdir(keep["dir"], "ssl"), keep)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ssl_") as tmp:
         return _phase_ssl(device, tmp)
 
 
-def _phase_ssl(device, tmp):
+def _phase_ssl(device, tmp, keep=None):
     from apla_tpu_torch.ops import fused_apla_attn as fa
     from apla_tpu_torch.ops import proto_ce as pc
     from apla_tpu_torch.ssl.dinov2 import DINOv2Wrapper, Dinov2Trainer
@@ -3264,6 +3370,8 @@ def _phase_ssl(device, tmp):
     if manifest["iters"] != trainer.iters or not reloaded:
         raise SystemExit("the SSL checkpoint does not reload the trained "
                          "state")
+    if keep is not None:
+        keep["ssl_ckpt"] = trainer.checkpoint_path
 
     # train-step img/s and peak memory, in turns (plain, fused, fused,
     # plain), best of two; then a profile of the fused arm's step
@@ -3855,7 +3963,12 @@ def _write_ade(root):
             write_png(os.path.join(ann_dir, f"ADE_{split}_{i:08d}.png"), ann)
 
 
-def phase_seg(device):
+def phase_seg(device, keep=None):
+    """9b; with `keep` (as phase 6b's), its artifact, data and
+    `--eval_only` mIoU (plain and sliding) stay for phase 12d:
+    `keep["seg"]`."""
+    if keep is not None:
+        return _phase_seg(device, _subdir(keep["dir"], "seg"), keep)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_") as tmp:
         return _phase_seg(device, tmp)
 
@@ -3906,7 +4019,7 @@ def _seg_rates(model, batch, cfg, plain_cfg, head_lr_mult):
     return rates
 
 
-def _phase_seg(device, tmp):
+def _phase_seg(device, tmp, keep=None):
     from apla_tpu_torch import segdet
     from apla_tpu_torch.data.loader import DataLoader
     from apla_tpu_torch.data.segmentation_data import (ADE20KSegmentation,
@@ -4073,6 +4186,11 @@ def _phase_seg(device, tmp):
                                   device)
     art = os.path.join(tmp, "artifact")
     export_segmenter(art, served, cfg, batch_sizes=(1, 8))
+    if keep is not None:
+        keep["seg"] = {"artifact": art, "root": tmp,
+                       "miou": out3["best_miou"],
+                       "slide_miou": out4["best_miou"], "stride": stride,
+                       "windows": windows, "depth": depth}
     pred = load_predictor(art, device)
     val = ADE20KSegmentation(tmp, "validation", img_size=crop)
     x = np.stack([val[i]["image"] for i in range(9)])
@@ -4553,6 +4671,400 @@ def _phase_w8a8(device, tmp):
     return launches, best
 
 
+# --------------------------------------------------------------------------- #
+# 12: the shipped recipes from real weights
+# --------------------------------------------------------------------------- #
+
+def _subdir(root, name):
+    path = os.path.join(root, name)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _dinov2_state(cfg, seed) -> dict:
+    """A seeded DINOv2 ViT state dict in the torch.hub layout at `cfg`'s
+    widths: LayerScale, a mask token, `pos_embed` on `cfg`'s grid."""
+    g = torch.Generator().manual_seed(seed)
+    d, h, p = cfg.embed_dim, cfg.mlp_hidden, cfg.patch_size
+
+    def w(*shape, mean=0.0):
+        return mean + 0.02 * torch.randn(shape, generator=g)
+    sd = {"cls_token": w(1, 1, d), "pos_embed": w(1, cfg.num_patches + 1, d),
+          "mask_token": w(1, d), "patch_embed.proj.weight": w(d, 3, p, p),
+          "patch_embed.proj.bias": w(d), "norm.weight": w(d, mean=1.0),
+          "norm.bias": w(d)}
+    for i in range(cfg.depth):
+        b = f"blocks.{i}."
+        for name, shape in (("attn.qkv", (3 * d, d)), ("attn.proj", (d, d)),
+                            ("mlp.fc1", (h, d)), ("mlp.fc2", (d, h))):
+            sd[f"{b}{name}.weight"] = w(*shape)
+            sd[f"{b}{name}.bias"] = w(shape[0])
+        for name in ("norm1", "norm2"):
+            sd[f"{b}{name}.weight"] = w(d, mean=1.0)
+            sd[f"{b}{name}.bias"] = w(d)
+        for name in ("ls1", "ls2"):
+            sd[f"{b}{name}.gamma"] = 0.1 + 0.9 * torch.rand(d, generator=g)
+    return sd
+
+
+def _chunked(sd, chunks=4):
+    """DINOv2's BlockChunk layout: block i of chunk c as `blocks.c.i.`."""
+    depth = 1 + max(int(k.split(".")[1]) for k in sd if
+                    k.startswith("blocks."))
+    per = -(-depth // chunks)
+    return {(f"blocks.{int(k.split('.')[1]) // per}.{k[len('blocks.'):]}"
+             if k.startswith("blocks.") else k): v for k, v in sd.items()}
+
+
+def _hf(sd):
+    """The same tensors under Hugging Face `Dinov2Model` names."""
+    emb = "embeddings."
+    out = {emb + "patch_embeddings.projection.weight":
+           sd["patch_embed.proj.weight"],
+           emb + "patch_embeddings.projection.bias":
+           sd["patch_embed.proj.bias"],
+           emb + "cls_token": sd["cls_token"], emb + "mask_token":
+           sd["mask_token"], emb + "position_embeddings": sd["pos_embed"],
+           "layernorm.weight": sd["norm.weight"],
+           "layernorm.bias": sd["norm.bias"]}
+    i = 0
+    while f"blocks.{i}.norm1.weight" in sd:
+        b, p = f"blocks.{i}.", f"encoder.layer.{i}."
+        for n, wt, bias in zip(("query", "key", "value"),
+                               sd[b + "attn.qkv.weight"].chunk(3),
+                               sd[b + "attn.qkv.bias"].chunk(3)):
+            out[f"{p}attention.attention.{n}.weight"] = wt.clone()
+            out[f"{p}attention.attention.{n}.bias"] = bias.clone()
+        for ours, theirs in (("attn.proj", "attention.output.dense"),
+                             ("norm1", "norm1"), ("norm2", "norm2"),
+                             ("mlp.fc1", "mlp.fc1"), ("mlp.fc2", "mlp.fc2")):
+            for leaf in ("weight", "bias"):
+                out[f"{p}{theirs}.{leaf}"] = sd[f"{b}{ours}.{leaf}"]
+        out[p + "layer_scale1.lambda1"] = sd[b + "ls1.gamma"]
+        out[p + "layer_scale2.lambda1"] = sd[b + "ls2.gamma"]
+        i += 1
+    return out
+
+
+def _recipe_file(tmp, name, recipe, cuts, device, pth):
+    """`recipe` with `cuts` on `device`, its checkpoint path at `pth`,
+    written as JSON for the CLIs' `--params_path` (the card's machine has no
+    PyYAML)."""
+    params = _run_params(recipe, cuts, tmp, device)
+    params["model_params"]["pretrained_checkpoint"] = pth
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(params, f)
+    return path, params
+
+
+def _run_main(argv):
+    """`apla_tpu_torch.main.run_cli(argv)` -> (its result, the `Trainer`
+    it built, that trainer's model state when it was built: the wrapper's
+    weights before any step)."""
+    from apla_tpu_torch import main as tmain
+    from apla_tpu_torch.train import trainer as tr
+    seen = []
+
+    class Recorded(tr.Trainer):
+        def __init__(self, wrapper):
+            super().__init__(wrapper)
+            seen.append((self, {n: t.detach().clone() for n, t in
+                                self.state.model.state_dict().items()}))
+    result = _with_patch(tr, "Trainer", Recorded,
+                         lambda: tmain.run_cli(argv))
+    return result, seen[0][0], seen[0][1]
+
+
+def _same(got: dict, want: dict, names=None) -> list:
+    """The names (of `names`, default all of `want`) whose tensors differ
+    bit for bit (or are missing) in `got`."""
+    return [n for n in (names if names is not None else want)
+            if n not in got or not torch.equal(got[n].cpu(), want[n].cpu())]
+
+
+def _main_run_checks(tag, trainer, accum, counters):
+    """The launches (rows 1, 2 in every block of every micro-step and eval
+    call) and finite losses of a `run_cli` training run."""
+    loaders = trainer.wrapper.dataloaders
+    steps = len(loaders.trainloader)
+    evals = len(loaders.valloader) + len(loaders.testloader)
+    depth = trainer.vit_cfg.depth
+    got = tuple(c.launches for c in counters)
+    expect = (depth * (steps * accum + evals), depth * steps * accum)
+    losses = [r["train_loss"] for _, r in trainer.history
+              if "train_loss" in r]
+    print(f"[{tag}] {steps} update(s) of {accum} x b"
+          f"{loaders.trainloader.batch_size // accum}, losses {losses}; "
+          f"fused kernel launches forward {got[0]} (expected {expect[0]}), "
+          f"backward {got[1]} (expected {expect[1]})")
+    if got != expect:
+        raise SystemExit(f"[{tag}] the run did not launch rows 1 and 2 in "
+                         "every block of every micro-step and eval call")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise SystemExit(f"[{tag}] missing or non-finite losses {losses}")
+    return got
+
+
+def phase_import(device, float_rates, keep):
+    """12: the shipped recipes from real weights (12a import, 12b transfer
+    and serve export, 12c W8A8 training, 12d serve eval); `float_rates`:
+    phase 5's train-step rates, printed beside W8A8's; `keep`: what phases
+    6b, 8b and 9b left (the DINOv2 checkpoint, the detector's and the
+    segmenter's artifacts with their data and the loops' readings)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as tmp:
+        return _phase_import(device, tmp, float_rates, keep)
+
+
+def _phase_import(device, tmp, float_rates, keep):
+    from apla_tpu_torch import serve
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.ops import fused_swin_attn as fs
+    from apla_tpu_torch.ops import int8_matmul as tim
+    from apla_tpu_torch.ops import quant
+    from apla_tpu_torch.train.checkpoint import load_transfer_checkpoint
+    from apla_tpu_torch.utils.pretrained import convert_torch_vit_state_dict
+    from apla_tpu_torch.wrapper import DefaultWrapper, build_vit_config
+
+    t0 = time.perf_counter()
+    launches = {"fwd": 0, "bwd": 0, "int8": 0, "swin_fwd": 0, "seg_fwd": 0}
+    counters = (fa.fused_apla_attn_fwd, fa.fused_apla_attn_bwd)
+    cfg = build_vit_config(IMPORT_RECIPE)
+    accum = int(IMPORT_RECIPE["training_params"]["accum_steps"])
+
+    # 12a: the seeded ViT-B/14 in three layouts, imported by the shipped
+    # recipe through `python -m apla_tpu_torch.main`
+    sd = _dinov2_state(cfg, SEED)
+    paths = {}
+    for name, layout in (("hub", sd), ("chunked", _chunked(sd)),
+                         ("hf", _hf(sd))):
+        paths[name] = os.path.join(tmp, f"dinov2_vitb14_{name}.pth")
+        torch.save(layout, paths[name])
+    want = {f"backbone.{n}": t for n, t in
+            convert_torch_vit_state_dict(sd, cfg.depth,
+                                         has_layerscale=True).items()}
+    print(f"[12a import] ViT-B/14 state dict ({len(sd)} tensors, "
+          f"{sum(t.numel() for t in sd.values()):,} values, pos_embed "
+          f"{tuple(sd['pos_embed'].shape)}, LayerScale, mask token) written "
+          f"in the hub, chunked and HF layouts in "
+          f"{time.perf_counter() - t0:.1f} s")
+    recipe, params = _recipe_file(tmp, "imagenet", IMPORT_RECIPE,
+                                  IMPORT_CUTS, device, paths["hub"])
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    _, trainer, before = _run_main(["--params_path", recipe, "--device",
+                                    str(device), "--model_name", "import"])
+    _sync(device)
+    got = _main_run_checks("12a import", trainer, accum, counters)
+    launches["fwd"] += got[0]
+    launches["bwd"] += got[1]
+    frozen_names = [n for n in want if not n.endswith(("proj_wt",
+                                                       "proj_bt"))]
+    bad = _same(before, want, frozen_names)
+    model = trainer.state.model
+    inds_ok = all(torch.equal(
+        before[f"backbone.blocks.{i}.attn.proj_wt"],
+        before[f"backbone.blocks.{i}.attn.proj.kernel"][
+            :, before[f"backbone.blocks.{i}.attn.inds"]]) and torch.equal(
+        before[f"backbone.blocks.{i}.attn.proj_bt"],
+        before[f"backbone.blocks.{i}.attn.proj.bias"][
+            before[f"backbone.blocks.{i}.attn.inds"]])
+        for i in range(cfg.depth))
+    trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"[12a import] `main --params_path` (pretrained: true, "
+          f"pretrained_checkpoint -> the hub file) in "
+          f"{time.perf_counter() - t:.1f} s: {len(frozen_names) - len(bad)}"
+          f"/{len(frozen_names)} imported tensors bit-equal to the file's "
+          f"as the converter maps them; APLA-128 columns = the projection's "
+          f"`inds` columns in every block: {inds_ok}; {trainable:,} "
+          f"trainable")
+    if bad or not inds_ok:
+        raise SystemExit(f"the import differs from the file at {bad[:5]}")
+    others = {}
+    for name in ("chunked", "hf"):
+        p = copy.deepcopy(params)
+        p["model_params"]["pretrained_checkpoint"] = paths[name]
+        p["model_params"]["n_classes"] = N_CLASSES
+        w = DefaultWrapper(p)
+        w.init_model(SEED)
+        others[name] = _same(w.model.state_dict(), before)
+        del w
+    print(f"[12a import] the chunked and HF layouts give models bit-equal "
+          f"to the hub layout's: tensors that differ "
+          f"{ {k: len(v) for k, v in others.items()} }")
+    if any(others.values()):
+        raise SystemExit(f"the layouts import differently: {others}")
+    del trainer, model, before
+
+    # 12b: phase 6b's DINOv2 checkpoint adopted by a supervised fine-tune
+    # (backbone-only), one update, checkpointed, then `serve export
+    # --pretrained_path` and served b64 at the recipe's 518 grid
+    ssl_ckpt = keep["ssl_ckpt"]
+    t_ck, f_ck = load_transfer_checkpoint(ssl_ckpt)
+    ft_cuts = copy.deepcopy(IMPORT_CUTS)
+    ft_cuts["dataset_params"]["synthetic_size"] = 64
+    recipe_ft, _ = _recipe_file(tmp, "finetune", IMPORT_RECIPE, ft_cuts,
+                                device, paths["hub"])
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    _, trainer, before = _run_main([
+        "--params_path", recipe_ft, "--pretrained_path", ssl_ckpt,
+        "--device", str(device), "--model_name", "finetune"])
+    _sync(device)
+    got = _main_run_checks("12b transfer", trainer, accum, counters)
+    launches["fwd"] += got[0]
+    launches["bwd"] += got[1]
+    adopted_t = [n for n in before if n in t_ck]
+    adopted_f = [n for n in before if n in f_ck]
+    bad = _same(before, t_ck, adopted_t) + _same(before, f_ck, adopted_f)
+    head_kept = not any(n.startswith("fc.") for n in t_ck)
+    print(f"[12b transfer] `main --pretrained_path` (6b's DINOv2 checkpoint)"
+          f" in {time.perf_counter() - t:.1f} s: backbone-only scope "
+          f"(head not in the checkpoint: {head_kept}); {len(adopted_t)} "
+          f"trainable (the teacher's best snapshot) and {len(adopted_f)} "
+          f"frozen tensors adopted, bit-equal to the checkpoint's: "
+          f"{not bad}")
+    if bad or not head_kept or not adopted_t or not adopted_f:
+        raise SystemExit(f"the transfer differs from the checkpoint at "
+                         f"{bad[:5]}")
+    art = os.path.join(tmp, "classifier")
+    t = time.perf_counter()
+    serve.main(["export", "--params_path", recipe_ft, "--pretrained_path",
+                trainer.checkpoint_path, "--out", art, "--n_classes",
+                str(N_CLASSES), "--batch_sizes", "64"])
+    pred = serve.load_predictor(art, device)
+    img = pred.meta["img_size"]
+    x = np.random.default_rng(SEED).standard_normal(
+        (64, img, img, 3), dtype=np.float32)
+    fa.fused_apla_attn_fwd.launches = 0
+    out = pred.predict_and_embed(x)
+    _sync(device)
+    served_launches = fa.fused_apla_attn_fwd.launches
+    launches["fwd"] += served_launches
+    inproc = serve.Predictor(pred.meta, trainer.state.model, pred.vit_cfg,
+                             device)
+    with trainer._trainable_swapped(trainer.best_trainable):
+        ref = inproc.predict_and_embed(x)
+    dev = _max_rel_dev(out, ref)
+    print(f"[12b transfer] `serve export --pretrained_path` (the fine-tune's "
+          f"checkpoint) and reload in {time.perf_counter() - t:.1f} s; b64 "
+          f"at {img} px: row-1 launches {served_launches} (expected "
+          f"{cfg.depth}); vs the in-process module max|d| / max|ref| "
+          f"{dev:.3g} (bound {W8A8_SERVE_REL_TOL})")
+    if served_launches != cfg.depth or dev > W8A8_SERVE_REL_TOL or not all(
+            np.isfinite(a).all() for a in out):
+        raise SystemExit("the exported classifier does not answer as the "
+                         "fine-tuned module")
+    ft_ckpt = trainer.checkpoint_path
+    del trainer, before, inproc, pred
+
+    # 12c: W8A8 training, row 13 in every frozen qkv, fc1 and fc2
+    def plain_int8(x, w_i8, w_scale, group, w_kmajor=None, bias=None):
+        return tim.fused_int8_matmul_reference(x, w_i8, w_scale, group,
+                                               bias)
+
+    def int8_fault(**kw):
+        def faulty(x, w_i8, w_scale, group, w_kmajor=None, bias=None):
+            y = _int8_faulty(x, w_i8, w_scale, group, **kw)
+            return y if bias is None else y + bias.to(y.dtype)
+        return lambda fn: _with_patch(quant, "fused_int8_matmul", faulty, fn)
+    controls = {
+        "int8 codes truncated": int8_fault(trunc=True),
+        "int8 product scaled by 0.9": (quant, "fused_int8_matmul",
+                                       lambda y: y * 0.9),
+        "dW_t zeroed": (fa, "fused_apla_attn_bwd",
+                        lambda out: (out[0], out[1] * 0)),
+    }
+    w8_cuts = copy.deepcopy(IMPORT_CUTS)
+    w8_cuts["model_params"] = {"pretrained_checkpoint": paths["hub"]}
+    w8_launches, w8_rates, _ = _train_phase(
+        device, _subdir(tmp, "w8a8"), W8A8_RECIPE, w8_cuts, "12c w8a8 train",
+        "kernel", counters, 0, controls,
+        (W8A8_LOSS_TOL, W8A8_GRAD_REL_TOL), profile=True, int8=(
+            tim.fused_int8_matmul,
+            lambda fn: _with_patch(quant, "fused_int8_matmul", plain_int8,
+                                   fn)))
+    launches["fwd"] += w8_launches[0]
+    launches["bwd"] += w8_launches[1]
+    launches["int8"] += w8_launches[2]
+    bsz = IMPORT_RECIPE["dataloader_params"]["trainloader"]["batch_size"]
+    for acc in (accum, 1):
+        w8, fl = w8_rates[("kernel", acc)], float_rates[("fused", acc)]
+        print(f"[12c w8a8 train] b{bsz} accum {acc}: W8A8 kernel arm "
+              f"{w8[0]:.1f} img/s, peak {w8[1]:.2f} GB; phase 5's float "
+              f"fused arm {fl[0]:.1f} img/s, peak {fl[1]:.2f} GB")
+
+    # 12d: serve eval on the classifier (12b), the detector (8b) and the
+    # segmenter (9b), each against its loop's own evaluation of the same
+    # weights
+    eval_recipe, eval_params = _recipe_file(tmp, "eval", IMPORT_RECIPE,
+                                            EVAL_CUTS, device, paths["hub"])
+    t = time.perf_counter()
+    fa.fused_apla_attn_fwd.launches = 0
+    served = serve.main(["eval", art, "--params_path", eval_recipe, "--knn",
+                         "--device", str(device)])
+    _sync(device)
+    cls_launches = fa.fused_apla_attn_fwd.launches
+    launches["fwd"] += cls_launches
+    trained, _, _ = _run_main(["--params_path", eval_recipe, "--test",
+                               "--knn", "--pretrained_path", ft_ckpt,
+                               "--device", str(device)])
+    differ = {k: (v, trained.get(k)) for k, v in served.items()
+              if trained.get(k) != v}
+    # one call per loader batch (the bank's, the test split's): the
+    # artifact answers at b64
+    dl, n_eval = eval_params["dataloader_params"], \
+        eval_params["dataset_params"]["synthetic_size"]
+    cls_expect = cfg.depth * sum(-(-n_eval // dl[name]["batch_size"])
+                                 for name in ("valloader", "testloader"))
+    print(f"[12d serve eval] classifier: `serve eval --knn` in "
+          f"{time.perf_counter() - t:.1f} s, row-1 launches {cls_launches} "
+          f"(expected {cls_expect}): {served}; the trainer's `--test --knn` "
+          f"of the checkpoint reads the same: {not differ} {differ}")
+    if cls_launches != cls_expect or differ:
+        raise SystemExit(f"served classifier metrics differ from the "
+                         f"trainer's: {differ}")
+    det = keep["det"]
+    fs.fused_swin_attn_fwd.launches = 0
+    served = serve.main(["eval", det["artifact"], "--det_img_dir",
+                         det["img_dir"], "--det_ann", det["ann"],
+                         "--device", str(device), "--num_workers", "0"])
+    _sync(device)
+    det_launches = fs.fused_swin_attn_fwd.launches
+    launches["swin_fwd"] += det_launches
+    det_calls = -(-DET_IMAGES // 16)
+    print(f"[12d serve eval] detector: val_map50 {served['val_map50']} "
+          f"(8b's --eval_only {det['map50']!r}), window-kernel launches "
+          f"{det_launches} (expected {det['depth'] * det_calls})")
+    if served["val_map50"] != round(det["map50"], 4) \
+            or det_launches != det["depth"] * det_calls:
+        raise SystemExit("the served detector's mAP@50 is not the loop's")
+    seg = keep["seg"]
+    for what, extra, want_miou, windows in (
+            ("plain", [], seg["miou"], 1),
+            (f"sliding at {SEG_SLIDE_SIZE}",
+             ["--eval_img_size", str(SEG_SLIDE_SIZE), "--eval_stride",
+              str(seg["stride"])], seg["slide_miou"], seg["windows"] ** 2)):
+        fa.fused_apla_attn_fwd.launches = 0
+        served = serve.main(["eval", seg["artifact"], "--seg_root",
+                             seg["root"], "--device", str(device),
+                             "--num_workers", "0", *extra])
+        _sync(device)
+        got = fa.fused_apla_attn_fwd.launches
+        launches["seg_fwd"] += got
+        expect = seg["depth"] * -(-SEG_VAL * windows // 8)
+        print(f"[12d serve eval] segmenter {what}: val_miou "
+              f"{served['val_miou']} (9b's --eval_only {want_miou!r}), "
+              f"fused launches {got} (expected {expect})")
+        if served["val_miou"] != round(want_miou, 4) or got != expect:
+            raise SystemExit("the served segmenter's mIoU is not the "
+                             "loop's")
+    print(f"[12 import] phase took {time.perf_counter() - t0:.1f} s")
+    return launches, w8_rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4571,24 +5083,29 @@ def main() -> int:
         secs[name] = time.perf_counter() - t
         return out
 
+    # 6b, 8b and 9b leave a checkpoint and two artifacts for phase 12
+    keep_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_keep_")
+    keep = {"dir": keep_dir.name}
     build_s = timed("1", phase_build)
     max_err, gemm_err, fwd_times = timed("2", phase_kernel, device)
     serve_launches, fused_rate, plain_rate = timed("3", phase_slice, device)
     bwd_err, bwd_times = timed("4", phase_bwd, device)
     (fwd_launches, bwd_launches), rates = timed("5", phase_train, device)
     proto_times = timed("6a", phase_proto_ce, device)
-    ssl_launches, ssl_rates = timed("6b", phase_ssl, device)
+    ssl_launches, ssl_rates = timed("6b", phase_ssl, device, keep)
     mha_times = timed("7a", phase_mha, device)
     (full_serve_launches, full_rate, full_plain_rate), \
         ((full_fwd, full_bwd), full_rates, _) = timed("7b", phase_full,
                                                       device)
     swin_times = timed("8a", phase_swin, device)
-    det_launches, det_rates = timed("8b", phase_det, device)
+    det_launches, det_rates = timed("8b", phase_det, device, keep)
     seg_times = timed("9a", phase_seg_kernels, device)
-    seg_launches, seg_rates = timed("9b", phase_seg, device)
+    seg_launches, seg_rates = timed("9b", phase_seg, device, keep)
     int8_err, int8_times = timed("10a", phase_int8, device)
     w8a8_launches, w8a8_rates = timed("10b", phase_w8a8, device)
     v1_times, v1_launches, v1_rates = timed("11", phase_ssl_v1, device)
+    p12, w8_rates = timed("12", phase_import, device, rates, keep)
+    keep_dir.cleanup()
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
           f"forward launches); train b64 img/s " + ", ".join(
@@ -4611,6 +5128,9 @@ def main() -> int:
           + "; BYOL / SimSiam / DINO v1 train b64 img/s " + ", ".join(
               f"{obj} {name} {r:.1f}" for obj, arms in v1_rates.items()
               for name, (r, _) in sorted(arms.items()))
+          + "; W8A8 train b64 img/s " + ", ".join(
+              f"{name} accum {acc} {r:.1f}"
+              for (name, acc), (r, _) in sorted(w8_rates.items()))
           + f"; whole run {time.perf_counter() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + " s)")
     print(_gpu_line())
@@ -4621,13 +5141,13 @@ def main() -> int:
         ("fused_apla_attn_fwd", "apla_proj_gemm.cu",
          "pallas_apla_attn.py:105",
          serve_launches + fwd_launches + ssl_launches[0] + w8a8_launches[1]
-         + sum(n[0] for n in v1_launches.values()),
+         + sum(n[0] for n in v1_launches.values()) + p12["fwd"],
          {**fwd_times[FWD_TIMED[0]],
           "max_abs_err": max(max_err, v1_times["fwd"]["max_abs_err"])}),
         ("fused_apla_attn_bwd", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn.py:131",
          bwd_launches + ssl_launches[1]
-         + sum(n[1] for n in v1_launches.values()),
+         + sum(n[1] for n in v1_launches.values()) + p12["bwd"],
          {**bwd_times[main_shape],
           "max_abs_err": max(bwd_err, v1_times["bwd"]["max_abs_err"])}),
         ("proto_ce_fwd", "proto_ce_fwd.cu", "pallas_proto_ce.py:73",
@@ -4643,7 +5163,8 @@ def main() -> int:
         # row 3: two launches per call, a head-dim-32 attention and the
         # projection GEMM (gemm_sm90.cuh), both in swin_attn_fwd.cu
         ("fused_swin_attn_fwd", "swin_attn_fwd.cu",
-         "pallas_apla_attn.py:197", det_launches[0], swin_times["fwd"]),
+         "pallas_apla_attn.py:197", det_launches[0] + p12["swin_fwd"],
+         swin_times["fwd"]),
         # row 4: three launches per call, the dO GEMM, a head-dim-32
         # attention and the dW GEMM with its reduce, all in swin_attn_bwd.cu
         ("fused_swin_attn_bwd", "swin_attn_bwd.cu",
@@ -4651,13 +5172,15 @@ def main() -> int:
         # rows 1/2's kernels where JAX names the q-strip long kernels (TPU
         # rows 5-7): ViT-L/16 at 512, k = C = 1024, on the seg path
         ("fused_apla_attn_fwd_seg", "apla_proj_gemm.cu",
-         "pallas_apla_attn_long.py:110", seg_launches[0], seg_times["fwd"]),
+         "pallas_apla_attn_long.py:110", seg_launches[0] + p12["seg_fwd"],
+         seg_times["fwd"]),
         ("fused_apla_attn_bwd_seg", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn_long.py:141", seg_launches[1], seg_times["bwd"]),
         # the W8A8 serving path's qkv / fc1 / fc2 (groups = K) in the
-        # classifier (10b), the detector (8b) and the segmenter (9b)
+        # classifier (10b), the detector (8b) and the segmenter (9b), and
+        # W8A8 training's (12c)
         ("int8_matmul", "int8_matmul.cu", "pallas_int8_matmul.py:33",
-         w8a8_launches[0] + det_launches[2] + seg_launches[2],
+         w8a8_launches[0] + det_launches[2] + seg_launches[2] + p12["int8"],
          {**int8_times[INT8_MAIN], "max_abs_err": int8_err}),
     ]
     # library_ms: F.scaled_dot_product_attention (autograd through it for

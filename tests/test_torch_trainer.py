@@ -163,20 +163,26 @@ def test_cli_tests_a_checkpoint(trained, capsys):
     ("system_params", "sequence_parallel", True),
     ("system_params", "n_devices", 4),
     ("system_params", "param_sharding", "fsdp"),
-    ("model_params", "pretrained", True),
-    ("model_params", "quantize_frozen", True),
-    ("transfer_learning_params", "pretrained_path", "/some/ckpt"),
     ("dataset_params", "dataset", "ImageNet"),
     ("optimization_params", "LAMB", None),
+    ("ssl", "quantize_frozen", True),
 ])
 def test_unported_knobs_raise(tmp_path, where, key, value):
+    """What the port refuses.  W8A8 training (`quantize_frozen`) runs in
+    the supervised wrapper only: the SSL wrappers refuse it, as the JAX SSL
+    wrappers never read it."""
+    from apla_tpu_torch.ssl.byol import BYOLWrapper
     params = _params(tmp_path)
+    wrapper_cls = DefaultWrapper
     if where == "optimization_params":
         params.optimization_params.default.optimizer.type = "LAMB"
+    elif where == "ssl":
+        params.model_params[key] = value
+        wrapper_cls = BYOLWrapper
     else:
         params[where][key] = value
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DefaultWrapper(params).instantiate()
+        wrapper_cls(params).instantiate()
 
 
 SSL_RECIPES = {"--byol": ("byol.yml", "BYOL heads"),
