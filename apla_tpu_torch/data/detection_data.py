@@ -4,16 +4,18 @@ path), without PIL.
 Counterpart of `apla_tpu/data/detection_data.py` (boxes): a COCO
 `instances_*.json` reader that emits fixed-size padded ground truth, boxes
 [M, 4] xyxy in resized coordinates and labels [M] with -1 padding.  The
-card's machine has no Pillow, so images are decoded here: PNG (8-bit grey,
-grey + alpha, RGB, RGBA or palette; the five scanline filters; no
-interlacing) with `zlib` and numpy, converted to RGB as Pillow's
-`convert("RGB")` does, and resized as Pillow's `Image.resize(size,
-BILINEAR)` does (`resize`; BICUBIC too, for `serve predict`'s image
-files): the filter's support grows with the reduction factor, in Pillow's
-fixed-point arithmetic.
+card's machine has no Pillow, so images are decoded here, by their content
+whatever the file's name (`read_image`, as Pillow's `Image.open` goes by
+the content): PNG (8-bit grey, grey + alpha, RGB, RGBA or palette; the
+five scanline filters; no interlacing) with `zlib` and numpy, JPEG through
+the port's own decoder (`apla_tpu_torch.native`), each converted to RGB as
+Pillow's `convert("RGB")` does, and resized as Pillow's `Image.resize(size,
+BILINEAR)` does (`resize`; BICUBIC too, for `serve predict`'s image files
+and the classification transforms): the filter's support grows with the
+reduction factor, in Pillow's fixed-point arithmetic.
 `write_png` is the matching encoder (used to write synthetic sets).
 
-Not ported yet: JPEG and the other formats, and the instance masks
+Not ported yet: the other image formats, and the instance masks
 (`rle_to_mask`, `polygons_to_mask`, `with_masks=True`); asking for either
 raises, naming its ROADMAP item.
 """
@@ -28,7 +30,9 @@ import zlib
 
 import numpy as np
 
-FORMATS_TODO = ("only PNG images are decoded without PIL: ROADMAP A "
+from .. import native
+
+FORMATS_TODO = ("only PNG and JPEG images are decoded without PIL: ROADMAP A "
                 "'PIL-free transforms and real datasets'")
 MASKS_TODO = ("instance masks (RLE and polygon rasterising without PIL) are "
               "not ported yet: ROADMAP A 'Detection mask branch'")
@@ -84,6 +88,29 @@ def read_png(path: str, raw: bool = False) -> np.ndarray:
     unconverted Pillow image gives them; label maps are read so."""
     with open(path, "rb") as f:
         data = f.read()
+    return decode_png(data, path, raw)
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file -> [H, W, 3] uint8 RGB, decoded by its content as
+    Pillow's `Image.open(path).convert("RGB")` decodes it: a PNG stream
+    (`decode_png`) or a JPEG stream (`native.decode_jpeg`: grey expanded,
+    CMYK and YCCK converted as Pillow converts them), whatever the name.
+    Any other content, or a stream the decoder refuses, raises naming the
+    file."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        try:
+            return native.decode_jpeg(data)
+        except native.JpegError as e:
+            raise ValueError(f"{path}: JPEG stream not decoded: {e}") \
+                from None
+    return decode_png(data, path)
+
+
+def decode_png(data: bytes, path: str, raw: bool = False) -> np.ndarray:
+    """`read_png` on the bytes of `path` (named in the errors)."""
     if data[:8] != _PNG_SIG:
         raise NotImplementedError(f"{path}: {FORMATS_TODO}")
     pos, idat, plte = 8, [], None
@@ -205,9 +232,16 @@ def _resample(img: np.ndarray, out_size: int, axis: int,
 def resize(img: np.ndarray, width: int, height: int,
            resample: str = "bilinear") -> np.ndarray:
     """[H, W, C] uint8 -> [height, width, C] uint8, as Pillow's
-    `Image.resize((width, height), Image.BILINEAR or BICUBIC)`: a copy
-    when the size is unchanged, otherwise a horizontal then a vertical
-    pass, each only where that side changes."""
+    `Image.resize((width, height), Image.BILINEAR or BICUBIC)`, in the
+    host C++ library (`native.resample`; `resize_reference` is its plain
+    numpy version)."""
+    return native.resample(img, height, width, resample)
+
+
+def resize_reference(img: np.ndarray, width: int, height: int,
+                     resample: str = "bilinear") -> np.ndarray:
+    """`resize` in numpy: a copy when the size is unchanged, otherwise a
+    horizontal then a vertical pass, each only where that side changes."""
     out = np.array(img, np.uint8, copy=True)
     if out.shape[1] != width:
         out = _resample(out, width, 1, resample)
@@ -274,7 +308,7 @@ class CocoDetection:
     def __getitem__(self, idx, rng=None):
         img_id = self.ids[idx]
         info = self.images[img_id]
-        img = read_png(os.path.join(self.img_dir, info["file_name"]))
+        img = read_image(os.path.join(self.img_dir, info["file_name"]))
         h0, w0 = img.shape[:2]
         img = resize(img, self.img_size, self.img_size)
         arr = np.asarray(img, np.float32) / 255.0

@@ -9,10 +9,10 @@ emitting fixed-size (image [S, S, 3] float32 normalised, label [S, S] int32)
 pairs, with mmseg's ADE20K `reduce_zero_label` (ids shift down by one; 0,
 the unlabelled id, and a raw 255 become the ignore label 255).
 
-Files are decoded by their content, as Pillow opens them: a PNG stream
-through `detection_data.read_png` whatever the file's name, so a set that
-stores PNG-encoded images under ADE20K's `.jpg` names reads the same here
-and in the JAX reader.  A JPEG stream raises (`FORMATS_TODO`).  The image is
+Files are decoded by their content, as Pillow opens them
+(`detection_data.read_image`: a JPEG or a PNG stream, whatever the file's
+name), so a set that stores PNG-encoded images under ADE20K's `.jpg` names
+reads the same here and in the JAX reader.  The image is
 converted to RGB and resized as Pillow's BILINEAR does; the label map is
 read as its stored samples (a palette PNG's indices, a grey PNG's levels,
 an RGB PNG's first channel) and resized as Pillow's NEAREST does.
@@ -25,7 +25,7 @@ import os
 
 import numpy as np
 
-from .detection_data import read_png, resize, resize_nearest
+from .detection_data import read_image, read_png, resize, resize_nearest
 
 
 class ADE20KSegmentation:
@@ -53,7 +53,7 @@ class ADE20KSegmentation:
     def __getitem__(self, idx, rng=None):
         img_path, ann_path = self.samples[idx]
         s = self.img_size
-        img = resize(read_png(img_path), s, s)
+        img = resize(read_image(img_path), s, s)
         label = resize_nearest(read_png(ann_path, raw=True)[..., 0], s, s)
         # float64 in between, as numpy promotes the JAX reader's float32
         # image against the tuples

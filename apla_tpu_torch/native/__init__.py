@@ -1,0 +1,296 @@
+"""Host image ops of the input pipeline, in C++ built at first use.
+
+The port's own copies of the JAX package's host kernels
+(`apla_tpu/native/`): `image_ops.cpp` (bilinear resize, the fused crop ->
+resize -> normalise, normalise, horizontal flip; and, where the JAX
+package calls Pillow, Pillow's BILINEAR / BICUBIC resample and its RGB ->
+HSV -> RGB round trip) and `jpeg_dec.cpp`, a
+JPEG decoder of its own that gives libjpeg-turbo's bits (the card's machine
+has no libjpeg): the full-size decode that Pillow's `Image.open(...)
+.convert("RGB")` gives, and the DCT-scaled decode + bilinear resize of the
+JAX package's `decode_jpeg(data, out_size)`.
+
+A library is built with `g++ -O3 -shared -fPIC` at its first call, never at
+import, into `apla_tpu_torch/_build/<hash>/` (gitignored), keyed by a hash
+of the source, the shared header and the flags.  A failed build or load
+raises, and so does a file the decoder refuses: nothing falls back to
+another implementation.  The ctypes calls release the GIL.
+
+Each image op has its plain numpy version beside it (`*_reference`), the
+same float32 arithmetic in the same order, for the tests.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+_HERE = Path(__file__).resolve().parent
+BUILD_ROOT = _HERE.parent / "_build"
+CXX_FLAGS = ("-O3", "-shared", "-fPIC")
+HEADERS = ("bilinear_u8.h",)
+
+# jpeg_probe's colour kinds; the first three are what libjpeg's RGB output
+# takes (the JAX package's native decode), the last two go through Pillow
+# there and through Pillow's conversion here
+GRAY, YCBCR, RGB, CMYK, YCCK = range(5)
+
+
+def library_path(source: str) -> Path:
+    """Where the library for `native/<source>` lives once built."""
+    h = hashlib.sha256((_HERE / source).read_bytes())
+    for header in HEADERS:
+        h.update((_HERE / header).read_bytes())
+    h.update(" ".join(CXX_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16] / (Path(source).stem + ".so")
+
+
+def build_library(source: str) -> Path:
+    """Compile `native/<source>` unless a build of this exact source
+    exists; raises if there is no g++ or the compile fails."""
+    out = library_path(source)
+    if out.exists():
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found on PATH: cannot build the host "
+                           f"image library {source}")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run([cxx, *CXX_FLAGS, str(_HERE / source), "-o",
+                           str(tmp)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed ({proc.returncode}) on {source}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)      # atomic: a concurrent builder never sees half
+    return out
+
+
+_U8P = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_F32P = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
+
+
+@functools.cache
+def image_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library("image_ops.cpp")))
+    lib.resize_bilinear_u8.argtypes = [_U8P, _I, _I, _I, _U8P, _I, _I]
+    lib.crop_resize_normalize.argtypes = [_U8P, _I, _I, _I, _I, _I, _I, _I,
+                                          _F32P, _I, _I, _F32P, _F32P]
+    lib.normalize_u8.argtypes = [_U8P, _I, _I, _F32P, _F32P, _F32P]
+    lib.hflip_u8.argtypes = [_U8P, _I, _I, _I]
+    lib.resample_u8.argtypes = [_U8P, _I, _I, _I, _U8P, _I, _I, _I]
+    lib.hue_shift_u8.argtypes = [_U8P, ctypes.c_long, _I]
+    return lib
+
+
+@functools.cache
+def jpeg_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library("jpeg_dec.cpp")))
+    lib.jpeg_error_message.restype = ctypes.c_char_p
+    lib.jpeg_probe.argtypes = [_U8P, ctypes.c_long, _IP, _IP, _IP, _IP, _IP]
+    lib.jpeg_decode.argtypes = [_U8P, ctypes.c_long, _I, _U8P, ctypes.c_long,
+                                _IP, _IP]
+    lib.jpeg_decode_resize.argtypes = [_U8P, ctypes.c_long, _I, _I, _U8P,
+                                       ctypes.c_long, _IP, _IP]
+    for fn in (lib.jpeg_probe, lib.jpeg_decode, lib.jpeg_decode_resize):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _f32(v) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(v, np.float32))
+
+
+# --------------------------------------------------------------------------- #
+# image ops
+# --------------------------------------------------------------------------- #
+
+def resize_bilinear(img: np.ndarray, dh: int, dw: int) -> np.ndarray:
+    """uint8 HWC -> uint8 [dh, dw, C] (half-pixel centres, edge clamp)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, c = img.shape
+    out = np.empty((dh, dw, c), np.uint8)
+    image_lib().resize_bilinear_u8(img, h, w, c, out, dh, dw)
+    return out
+
+
+def crop_resize_normalize(img: np.ndarray, box, dh: int, dw: int, mean,
+                          std) -> np.ndarray:
+    """Crop box (y, x, h, w) of uint8 HWC, bilinear to [dh, dw], then
+    (v / 255 - mean) / std -> float32 HWC, in one pass."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, c = img.shape
+    cy, cx, ch, cw = (int(v) for v in box)
+    out = np.empty((dh, dw, c), np.float32)
+    image_lib().crop_resize_normalize(img, h, w, c, cy, cx, ch, cw, out, dh,
+                                      dw, _f32(mean), _f32(std))
+    return out
+
+
+def normalize(img: np.ndarray, mean, std) -> np.ndarray:
+    """uint8 HWC -> float32 HWC, (v / 255 - mean) / std."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, c = img.shape
+    out = np.empty((h, w, c), np.float32)
+    image_lib().normalize_u8(img, h * w, c, _f32(mean), _f32(std), out)
+    return out
+
+
+def hflip(img: np.ndarray) -> np.ndarray:
+    """uint8 HWC mirrored left-right (a new array)."""
+    img = np.array(img, np.uint8, order="C", copy=True)
+    h, w, c = img.shape
+    image_lib().hflip_u8(img, h, w, c)
+    return img
+
+
+def resample(img: np.ndarray, dh: int, dw: int,
+             filter: str = "bilinear") -> np.ndarray:
+    """Pillow's `Image.resize((dw, dh), BILINEAR | BICUBIC)` on uint8 HWC
+    (`filter` "bilinear" or "bicubic"); its plain numpy version is
+    `data.detection_data.resize_reference`."""
+    if filter not in ("bilinear", "bicubic"):
+        raise ValueError(f"filter {filter!r}: 'bilinear' or 'bicubic'")
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, c = img.shape
+    out = np.empty((dh, dw, c), np.uint8)
+    image_lib().resample_u8(img, h, w, c, out, dh, dw,
+                            int(filter == "bicubic"))
+    return out
+
+
+def hue_shift(img: np.ndarray, shift: int) -> np.ndarray:
+    """uint8 RGB HWC through Pillow's HSV, the hue byte moved by `shift`
+    modulo 256, and back to RGB (a new array); its plain numpy version is
+    `data.transforms.hue_shift_reference`."""
+    out = np.array(img, np.uint8, order="C", copy=True)
+    image_lib().hue_shift_u8(out, out.size // 3, int(shift))
+    return out
+
+
+# The plain numpy versions: the C++'s float32 operations, one at a time
+# and in its order (g++ -O3 without -march contracts no multiply-add).
+
+def _bilinear_taps(n_in: int, n_out: int, scale, offset: int = 0):
+    f = np.float32
+    pos = (np.arange(n_out, dtype=f) + f(0.5)) * f(scale) - f(0.5) + f(offset)
+    i0 = np.floor(pos).astype(np.int64)
+    wgt = (pos - i0.astype(f)).astype(f)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    return np.clip(i0, 0, n_in - 1), i1, wgt
+
+
+def _bilinear_f32(img, ys, xs):
+    y0, y1, wy = ys
+    x0, x1, wx = xs
+    f = np.float32
+    src = img.astype(f)
+    wx, wy = wx[None, :, None], wy[:, None, None]
+    top = src[y0][:, x0] * (f(1) - wx) + src[y0][:, x1] * wx
+    bot = src[y1][:, x0] * (f(1) - wx) + src[y1][:, x1] * wx
+    return top * (f(1) - wy) + bot * wy
+
+
+def resize_bilinear_reference(img: np.ndarray, dh: int, dw: int):
+    h, w = img.shape[:2]
+    f = np.float32
+    v = _bilinear_f32(img, _bilinear_taps(h, dh, f(h) / f(dh)),
+                      _bilinear_taps(w, dw, f(w) / f(dw)))
+    return np.minimum(np.maximum(v + f(0.5), f(0)), f(255)).astype(np.uint8)
+
+
+def _norm_consts(mean, std):
+    f = np.float32
+    return _f32(mean) * f(255), f(1) / (f(255) * _f32(std))
+
+
+def crop_resize_normalize_reference(img, box, dh, dw, mean, std):
+    h, w = img.shape[:2]
+    cy, cx, ch, cw = (int(v) for v in box)
+    f = np.float32
+    v = _bilinear_f32(img, _bilinear_taps(h, dh, f(ch) / f(dh), cy),
+                      _bilinear_taps(w, dw, f(cw) / f(dw), cx))
+    m255, inv = _norm_consts(mean, std)
+    return (v - m255) * inv
+
+
+def normalize_reference(img, mean, std):
+    m255, inv = _norm_consts(mean, std)
+    return (img.astype(np.float32) - m255) * inv
+
+
+def hflip_reference(img):
+    return np.ascontiguousarray(img[:, ::-1])
+
+
+# --------------------------------------------------------------------------- #
+# JPEG
+# --------------------------------------------------------------------------- #
+
+class JpegError(ValueError):
+    """A stream the decoder refuses or cannot read."""
+
+
+class CmykJpeg(JpegError):
+    """A CMYK or YCCK stream given to `decode_jpeg_resize`: libjpeg's RGB
+    output refuses those, so the JAX package's DCT-scaled decode does not
+    take them (it reads them with Pillow); `decode_jpeg` does."""
+
+
+def _buf(data: bytes) -> np.ndarray:
+    return np.frombuffer(data, np.uint8)
+
+
+def _check(rc: int) -> None:
+    if rc != 0:
+        msg = jpeg_lib().jpeg_error_message().decode()
+        raise (CmykJpeg if rc == 2 else JpegError)(msg)
+
+
+def jpeg_info(data: bytes) -> dict:
+    """The frame header: height, width, components, the colour kind
+    (`GRAY` .. `YCCK`) and whether the frame is progressive."""
+    v = [ctypes.c_int() for _ in range(5)]
+    buf = _buf(data)
+    _check(jpeg_lib().jpeg_probe(buf, buf.size, *(ctypes.byref(x) for x in v)))
+    h, w, comps, kind, prog = (x.value for x in v)
+    return {"height": h, "width": w, "components": comps, "kind": kind,
+            "progressive": bool(prog)}
+
+
+def decode_jpeg(data: bytes, scale_num: int = 8) -> np.ndarray:
+    """A JPEG stream -> RGB uint8 HWC at scale `scale_num`/8 (8: full
+    size, Pillow's `Image.open(...).convert("RGB")` bits)."""
+    info = jpeg_info(data)
+    oh = -(-info["height"] * scale_num // 8)
+    ow = -(-info["width"] * scale_num // 8)
+    out = np.empty((oh, ow, 3), np.uint8)
+    gh, gw = ctypes.c_int(), ctypes.c_int()
+    buf = _buf(data)
+    _check(jpeg_lib().jpeg_decode(buf, buf.size, int(scale_num), out,
+                                  out.size, ctypes.byref(gh),
+                                  ctypes.byref(gw)))
+    return out
+
+
+def decode_jpeg_resize(data: bytes, height: int, width: int) -> np.ndarray:
+    """A JPEG stream -> RGB uint8 [height, width, 3]: the JAX package's
+    `decode_jpeg(data, out_size)` (the smallest DCT scale that covers the
+    target, then the bilinear resize); raises `CmykJpeg` for the CMYK and
+    YCCK streams that it leaves to Pillow."""
+    out = np.empty((height, width, 3), np.uint8)
+    gh, gw = ctypes.c_int(), ctypes.c_int()
+    buf = _buf(data)
+    _check(jpeg_lib().jpeg_decode_resize(buf, buf.size, int(height),
+                                         int(width), out, out.size,
+                                         ctypes.byref(gh), ctypes.byref(gw)))
+    return out

@@ -536,9 +536,10 @@ def _build_from_params(params_path: str, pretrained_path: str | None,
 
 
 def _load_inputs(inputs, img, mean, std):
-    """A .npy batch, or PNG files decoded, resized as Pillow's BICUBIC
-    does and normalized (the port reads images without PIL)."""
-    from .data.detection_data import read_png, resize
+    """A .npy batch, or image files (PNG or JPEG, by content) decoded,
+    resized as Pillow's BICUBIC does and normalized (the port reads images
+    without PIL)."""
+    from .data.detection_data import read_image, resize
     npys = [p for p in inputs if p.endswith(".npy")]
     if npys:
         if len(inputs) > 1:
@@ -547,7 +548,7 @@ def _load_inputs(inputs, img, mean, std):
         return np.load(npys[0]).astype(np.float32)
     mean = np.asarray([float(v) for v in mean.split(",")], np.float32)
     std = np.asarray([float(v) for v in std.split(",")], np.float32)
-    ims = [resize(read_png(p), img, img, "bicubic") for p in inputs]
+    ims = [resize(read_image(p), img, img, "bicubic") for p in inputs]
     return np.stack([(np.asarray(im, np.float32) / 255.0 - mean) / std
                      for im in ims])
 
@@ -840,8 +841,8 @@ def main(argv=None):
     pr.add_argument("artifact")
     pr.add_argument("inputs", nargs="+",
                     help="a .npy [n,H,W,3] float batch (already "
-                         "normalized), or PNG files (decoded, resized, "
-                         "normalized with --mean/--std)")
+                         "normalized), or PNG or JPEG files (decoded by "
+                         "content, resized, normalized with --mean/--std)")
     pr.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' to run there)")
     pr.add_argument("--top_k", type=int, default=5)

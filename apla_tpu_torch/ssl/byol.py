@@ -28,8 +28,8 @@ predictor, then view 1's, the target head on the views reversed, and under
 accumulation through the micro-batches in turn.
 
 Only the on-device multi-crop path exists (the JAX package's
-`dataset_params.device_augment` one): the host multi-crop transforms need
-the PIL-free transforms (ROADMAP queue A).
+`dataset_params.device_augment` one): the host multi-crop transforms
+(blur, solarize, grayscale) are not ported yet (ROADMAP A 5).
 """
 
 from __future__ import annotations
@@ -266,22 +266,24 @@ class BYOLWrapper(DefaultWrapper):
         """The JAX package's `dataset_params.device_augment` path, the
         port's only one: the host ships one uint8 image per sample and every
         crop of the strategy is made on the device inside the step
-        (`data.device_augs.device_multicrop`).  Host multi-crop waits for
-        the PIL-free transforms (ROADMAP queue A), so a recipe with
-        `device_augment` off runs this path too.  The host cannot resize
-        yet, so the image ships at its stored size, where the JAX package
-        resizes it to `int(global_size * 8 / 7)`; a recipe held against the
-        JAX package stores its images at that size."""
+        (`data.device_augs.device_multicrop`).  Host multi-crop needs
+        transforms not ported yet (ROADMAP A 5), so a recipe with
+        `device_augment` off runs this path too.  The host decodes each
+        image at `raw_size` = max(`device_raw_size` or int(global_size *
+        8 / 7), global_size), as the JAX package does."""
         from ..data.device_augs import crop_cfgs_from_strategy
         if not self.dataset_params.get("device_augment"):
             print("note: SSL crops are made on the device (the port has no "
-                  "host multi-crop yet, ROADMAP queue A)")
+                  "host multi-crop yet, ROADMAP A 5)")
         spec = resolve_strategy_spec(self.parameters, self.strategy_name)
         trainset = loaders.trainloader.dataset
         g = int(self.dataset_params.get("ssl_global_size")
                 or spec["global_size"])
         loc = self.dataset_params.get("ssl_local_size") or spec["local_size"]
         trainset.raw_mode = True
+        trainset.raw_size = max(
+            int(self.dataset_params.get("device_raw_size", 0))
+            or int(g * 8 / 7), g)
         self.ssl_device_crop_cfgs = crop_cfgs_from_strategy(
             spec, trainset.mean, trainset.std, g_size=g, l_size=loc)
 

@@ -68,6 +68,12 @@ def load_json(path: str) -> dict:
         return json.load(f)
 
 
+def save_json(data: Any, path: str) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(data, f, indent=4)
+
+
 def update_nested_values(base: dict, target: dict) -> dict:
     """Merge `target` into `base` in place: leaves of `target` override,
     missing subtrees are added whole.  Returns `base`."""

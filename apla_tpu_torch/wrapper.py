@@ -172,7 +172,8 @@ class DefaultWrapper:
         fbank_set = None
         if self.training_params.get("knn_eval") or not self.is_supervised:
             fbank_set = DataSet(self.dataset_params, mode="train")
-            fbank_set.train_transforms = fbank_set.val_transforms
+            fbank_set.transform = valset.transform
+            fbank_set.resizing = valset.resizing
 
         # device-side augmentation: the host ships resized uint8 images; the
         # geometric/photometric tail runs on the device inside the step

@@ -4,9 +4,10 @@
 Drives the port's serving path, its supervised training path, its
 DINOv2, BYOL, SimSiam and DINO v1 self-supervised paths, its
 full-projection path, its Swin detection side-car, its ViT-L segmentation
-side-car, its W8A8 serving and training paths, and the checkpoint import,
-transfer, export and evaluation paths once on one CUDA card, in phases that
-each print a line and raise on failure:
+side-car, its W8A8 serving and training paths, the checkpoint import,
+transfer, export and evaluation paths, and the ImageNet recipe reading a
+JPEG tree once on one CUDA card, in phases that each print a line and
+raise on failure:
 
   1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`
                (eight sources), one nvcc per source, all started together.
@@ -182,6 +183,26 @@ each print a line and raise on failure:
                of 12b's classifier (with `--knn`), 8b's detector (mAP@50)
                and 9b's segmenter (mIoU, plain and sliding), each reading
                what its loop's own evaluation of the same weights reads.
+  13. data   — the shipped ImageNet recipe on its own dataset, JPEGs
+               decoded by the port's own decoder (the card's machine has no
+               libjpeg).  13a: every committed fixture (tests/data/jpeg:
+               4:4:4, 4:2:2, 4:2:0, progressive, restart markers, grey,
+               CMYK, odd and ImageNet sizes, one past 1024 px, a PNG under
+               a .JPEG name) decoded at full size and at 256, sha256 equal
+               to the manifest's (the JAX package's bits).  13b: an
+               ILSVRC-layout tree of fixture copies (256 train, 64 val,
+               8 classes).  13c: IMPORT_RECIPE with `data_location` at the
+               tree through `python -m apla_tpu_torch.main`, the recipe's
+               loaders (8 spawned workers): rows 1 and 2 in every block of
+               every micro-step and eval call, finite losses, the first
+               batch again from the run's train loader (its spawned
+               workers decode it and the recipe's mixup / cutmix collate
+               makes it) bit-equal to the same batch made in the main
+               process from decodes equal to the manifest's.  13g: the loader's decode + resize rate alone
+               and the recipe's train img/s beside 12a's Synthetic rate
+               and phase 5's step on a device-resident batch.
+               13d: one update with `device_augment` off, through the host
+               RandomResizedCrop and ColorJitter.
 
 Phases 2-12 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
@@ -817,6 +838,44 @@ EVAL_CUTS["dataset_params"].update({split: {
 # 0.083, the product scaled by 0.9 3.38e-3 and 0.77, dW_t zeroed 1.0.
 W8A8_LOSS_TOL = 1.5e-3
 W8A8_GRAD_REL_TOL = 0.05
+
+# Phase 13: the shipped ImageNet recipe on its own dataset.  The card's
+# machine has no libjpeg, so the port decodes JPEG with its own decoder
+# (`apla_tpu_torch/native/jpeg_dec.cpp`); no dataset is in the repository
+# and none is fetched: the phase checks the decoder on the committed
+# fixtures (tests/data/jpeg, their manifest holding the JAX package's
+# decodes) and writes ILSVRC-layout trees of copies of them.  NABirds and
+# ISIC2019 are not read yet (ROADMAP A 5).
+DATA_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
+DATA_CLASSES = 8
+DATA_TRAIN, DATA_VAL = 256, 64
+DATA_LOADER_WORKERS = 8
+# What 13c changes in IMPORT_RECIPE: `data_location` (set to the tree the
+# phase writes; the dataset stays ImageNet), one epoch of the tree's 256
+# images (4 accum-8 updates of b64) with one validation, every step
+# logged; the val and test loaders in-process (one batch each: spawning
+# their 8 workers would cost more than the batch).  The train loader is
+# the recipe's (8 spawned workers).
+DATA_CUTS = {"training_params": {"epochs": 1, "val_every": 1.0,
+                                 "log_every": 1},
+             "dataloader_params": {"valloader": {"num_workers": 0},
+                                   "testloader": {"num_workers": 0}}}
+# 13g: the loader alone over the train split repeated 4 times (16 batches
+# of 64, so that each of the 8 workers makes two), timed on its second pass
+DATA_RATE_REPEAT = 4
+# 13d, the host path: `device_augment` off, so the recipe's own train
+# transforms run on the host (Resize 256, RandomResizedCrop 224,
+# HorizontalFlip, Normalize) with __common__.yml's ColorJitter switched on
+# (apla.yml switches it off; the TrivialAugment and RandomErasing that
+# apla.yml adds are not ported yet, ROADMAP A 5, and RECIPE leaves them
+# out); one update of b64 over a 64-image tree, the loaders in-process.
+HOST_CUTS = {
+    "dataset_params": {"device_augment": False,
+                       "train_transforms": {"ColorJitter": {"apply": True}}},
+    "training_params": {"epochs": 1, "val_every": 1.0, "log_every": 1},
+    "dataloader_params": {name: {"num_workers": 0} for name in (
+        "trainloader", "valloader", "testloader")}}
+HOST_TRAIN, HOST_VAL = 64, 16
 
 
 def _gpu_line() -> str:
@@ -4783,6 +4842,20 @@ def _same(got: dict, want: dict, names=None) -> list:
             if n not in got or not torch.equal(got[n].cpu(), want[n].cpu())]
 
 
+def _steady_img_s(trainer):
+    """Train img/s over the updates after the first (the Trainer's
+    cumulative images_per_sec at each logged update gives its time), data
+    loading included; None with one update."""
+    rows = [(it, r["images_per_sec"]) for it, r in trainer.history
+            if "images_per_sec" in r]
+    if len(rows) < 2:
+        return None
+    batch = trainer.wrapper.dataloaders.trainloader.batch_size
+    (i0, r0), (i1, r1) = rows[0], rows[-1]
+    t0, t1 = batch * i0 / r0, batch * i1 / r1
+    return batch * (i1 - i0) / (t1 - t0)
+
+
 def _main_run_checks(tag, trainer, accum, counters):
     """The launches (rows 1, 2 in every block of every micro-step and eval
     call) and finite losses of a `run_cli` training run."""
@@ -4838,8 +4911,11 @@ def _phase_import(device, tmp, float_rates, keep):
     paths = {}
     for name, layout in (("hub", sd), ("chunked", _chunked(sd)),
                          ("hf", _hf(sd))):
-        paths[name] = os.path.join(tmp, f"dinov2_vitb14_{name}.pth")
+        # the hub file stays for phase 13, which runs the recipe from it
+        paths[name] = os.path.join(keep["dir"] if name == "hub" else tmp,
+                                   f"dinov2_vitb14_{name}.pth")
         torch.save(layout, paths[name])
+    keep["hub_pth"] = paths["hub"]
     want = {f"backbone.{n}": t for n, t in
             convert_torch_vit_state_dict(sd, cfg.depth,
                                          has_layerscale=True).items()}
@@ -4859,6 +4935,7 @@ def _phase_import(device, tmp, float_rates, keep):
     got = _main_run_checks("12a import", trainer, accum, counters)
     launches["fwd"] += got[0]
     launches["bwd"] += got[1]
+    keep["rate_12a"] = _steady_img_s(trainer)
     frozen_names = [n for n in want if not n.endswith(("proj_wt",
                                                        "proj_bt"))]
     bad = _same(before, want, frozen_names)
@@ -5065,6 +5142,230 @@ def _phase_import(device, tmp, float_rates, keep):
     return launches, w8_rates
 
 
+# --------------------------------------------------------------------------- #
+# 13. data: the shipped ImageNet recipe on its own dataset
+# --------------------------------------------------------------------------- #
+
+def _sha256(arr) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _fixture_manifest() -> dict:
+    with open(os.path.join(DATA_FIXTURES, "manifest.json")) as f:
+        return json.load(f)
+
+
+def _write_imagenet_tree(root, n_train, n_val) -> dict:
+    """<root>/ImageNet/{train,val}/<wnid>/ of fixture copies under new
+    names (`.JPEG` and `.jpg` in turn), round-robin over the fixtures;
+    -> {path: fixture name}."""
+    import shutil
+    names = sorted(_fixture_manifest()["files"])
+    source, k = {}, 0
+    for split, n in (("train", n_train), ("val", n_val)):
+        for c in range(DATA_CLASSES):
+            wnid = f"n{c:08d}"
+            d = os.path.join(root, "ImageNet", split, wnid)
+            os.makedirs(d)
+            for i in range(n // DATA_CLASSES):
+                path = os.path.join(
+                    d, f"{wnid}_{i}{'.JPEG' if i % 2 == 0 else '.jpg'}")
+                shutil.copy(os.path.join(DATA_FIXTURES,
+                                         names[k % len(names)]), path)
+                source[os.path.abspath(path)] = names[k % len(names)]
+                k += 1
+    return source
+
+
+def _data_decode_check():
+    """13a: every fixture decoded by the port, at full size and at the raw
+    size, against the manifest (the JAX package's bits)."""
+    from apla_tpu_torch import native
+    from apla_tpu_torch.data.datasets import BaseSet
+    from apla_tpu_torch.data.detection_data import read_image
+    t = time.perf_counter()
+    native.jpeg_lib()
+    native.image_lib()
+    build_s = time.perf_counter() - t
+    manifest = _fixture_manifest()
+    ds = BaseSet.__new__(BaseSet)
+    ds.raw_size = manifest["raw_size"]
+    bad, kinds = [], {}
+    t = time.perf_counter()
+    for name, want in sorted(manifest["files"].items()):
+        path = os.path.join(DATA_FIXTURES, name)
+        if _sha256(read_image(path)) != want["full"]:
+            bad.append(f"{name} full")
+        if _sha256(ds.load_raw({"img_path": path})) != want["raw256"]:
+            bad.append(f"{name} raw{ds.raw_size}")
+        kinds[want["path"]] = kinds.get(want["path"], 0) + 1
+    n = len(manifest["files"])
+    print(f"[13a decode] g++ build of the host image and JPEG libraries "
+          f"{build_s:.1f} s; {n} fixtures (the JAX package's raw path: "
+          f"{kinds}) decoded at full size and at {ds.raw_size} in "
+          f"{time.perf_counter() - t:.2f} s: sha256 equal to the manifest "
+          f"{2 * n - len(bad)}/{2 * n}")
+    if bad:
+        raise SystemExit(f"the port's decode differs from the JAX "
+                         f"package's at {bad}")
+    return manifest
+
+
+def _loader_rate(dataset, workers) -> float:
+    """Decode + resize img/s of the loader alone (b64, `workers` spawned
+    workers, each loading whole batches), over the second pass (the
+    workers started in the first)."""
+    from apla_tpu_torch.data.loader import DataLoader
+    loader = DataLoader(dataset, batch_size=64, shuffle=True, drop_last=True,
+                        num_workers=workers, prefetch_factor=4)
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        t = time.perf_counter()
+        n = sum(int(b["label"].shape[0]) for b in loader)
+        secs = time.perf_counter() - t
+    del loader
+    return n / secs
+
+
+def phase_data(device, keep, float_rates=None):
+    """13: the shipped ImageNet recipe reading an ImageNet tree of JPEGs;
+    `keep`: phase 12's hub-layout checkpoint (`hub_pth`) and 12a's steady
+    Synthetic img/s (`rate_12a`), when phase 12 ran; `float_rates`: phase
+    5's train-step rates on a device-resident batch."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        return _phase_data(device, tmp, keep, float_rates or {})
+
+
+def _phase_data(device, tmp, keep, float_rates):
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.wrapper import build_vit_config
+
+    manifest = _data_decode_check()
+    counters = (fa.fused_apla_attn_fwd, fa.fused_apla_attn_bwd)
+    accum = int(IMPORT_RECIPE["training_params"]["accum_steps"])
+    pth = keep.get("hub_pth")
+    if pth is None:
+        pth = os.path.join(tmp, "dinov2_vitb14_hub.pth")
+        torch.save(_dinov2_state(build_vit_config(IMPORT_RECIPE), SEED), pth)
+    launches = [0, 0]
+
+    # 13b, 13c: the recipe through `main`, its loaders decoding the tree
+    t = time.perf_counter()
+    data_root = _subdir(tmp, "data")
+    source = _write_imagenet_tree(data_root, DATA_TRAIN, DATA_VAL)
+    cuts = copy.deepcopy(DATA_CUTS)
+    cuts["dataset_params"] = {"data_location": data_root}
+    recipe, params = _recipe_file(tmp, "imagenet_data", IMPORT_RECIPE, cuts,
+                                  device, pth)
+    print(f"[13b trees] ImageNet tree ({DATA_TRAIN} train, {DATA_VAL} val "
+          f"over {DATA_CLASSES} classes, fixture copies) written in "
+          f"{time.perf_counter() - t:.2f} s")
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    _, trainer, _ = _run_main(["--params_path", recipe, "--device",
+                               str(device), "--model_name", "imagenet_data"])
+    _sync(device)
+    run_s = time.perf_counter() - t
+    got = _main_run_checks("13c imagenet", trainer, accum, counters)
+    launches[0] += got[0]
+    launches[1] += got[1]
+    # the first batch of epoch 0 once more from the run's own train loader:
+    # its spawned workers decode, resize and collate it (the recipe's
+    # mixup / cutmix collate) as they did for the first update; held bit
+    # for bit against the same batch made here from decodes that are
+    # held against the manifest
+    from apla_tpu_torch.data.loader import _Batches
+    loader = trainer.wrapper.dataloaders.trainloader
+    ds = loader.dataset
+    loader.set_epoch(0)
+    idxs = next(iter(loader._index_batches()))
+    batches = iter(loader)
+    batch = next(batches)
+    del batches
+    raw = manifest["raw_size"]
+    bad = [ds.data[i]["img_path"] for i in idxs
+           if _sha256(ds[int(i)]["image"]) != manifest["files"][
+               source[ds.data[i]["img_path"]]]["raw256"]]
+    want = _Batches(ds, loader.collate_fn, loader.seed)[(0, 0, idxs)]
+    same = sorted(want) == sorted(batch) and all(
+        torch.equal(batch[k], want[k]) for k in want)
+    images = batch["image"]
+    rate = _steady_img_s(trainer)
+    updates = len(loader)
+    print(f"[13c imagenet] the shipped recipe (dataset ImageNet, "
+          f"data_location -> the tree, raw_mode at {ds.raw_size}, "
+          f"{loader.num_workers} spawned loader workers) through `main` in "
+          f"{run_s:.1f} s; the first batch from the workers "
+          f"({type(loader.collate_fn).__name__}), {images.dtype} "
+          f"{tuple(images.shape)}, bit-equal to the same batch made here "
+          f"{same}; its images' decodes bit-equal to the JAX package's "
+          f"{len(idxs) - len(bad)}/{len(idxs)}")
+    if ds.raw_size != raw or images.shape != (len(idxs), raw, raw, 3) \
+            or not same or bad:
+        raise SystemExit(f"the loader's batch differs from the decode of "
+                         f"its files: {tuple(images.shape)}, same {same}, "
+                         f"{bad[:3]}")
+    del trainer, loader
+
+    # 13g: the loader's decode + resize rate alone, beside the step rates
+    from apla_tpu_torch.data.datasets import ImageNet
+    alone = ImageNet(params["dataset_params"], "train")
+    alone.raw_mode, alone.raw_size = True, raw
+    alone.data = alone.data * DATA_RATE_REPEAT
+    loader_rate = _loader_rate(alone, DATA_LOADER_WORKERS)
+    synth = keep.get("rate_12a")
+    resident = float_rates.get(("fused", accum), (None,))[0]
+
+    def fmt(v):
+        return f"{v:.1f}" if v else "not measured"
+    print(f"[13g rates] loader alone (decode + resize to {raw}, "
+          f"{len(alone)} images in b64, {DATA_LOADER_WORKERS} spawned "
+          f"workers): {loader_rate:.1f} img/s; recipe train img/s over "
+          f"updates 2-{updates} with the tree's JPEGs {fmt(rate)} beside "
+          f"phase 12a's Synthetic {fmt(synth)} (update 2, loaders "
+          f"in-process) and phase 5's step on a device-resident batch "
+          f"{fmt(resident)} (accum {accum}); {_gpu_line()}")
+
+    # 13d: the host path, one update through RandomResizedCrop, ColorJitter
+    host_root = _subdir(tmp, "host")
+    _write_imagenet_tree(host_root, HOST_TRAIN, HOST_VAL)
+    cuts = copy.deepcopy(HOST_CUTS)
+    cuts["dataset_params"]["data_location"] = host_root
+    recipe, _ = _recipe_file(tmp, "imagenet_host", IMPORT_RECIPE, cuts,
+                             device, pth)
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    _, trainer, _ = _run_main(["--params_path", recipe, "--device",
+                               str(device), "--model_name", "imagenet_host"])
+    _sync(device)
+    got = _main_run_checks("13d host path", trainer, accum, counters)
+    launches[0] += got[0]
+    launches[1] += got[1]
+    ds = trainer.wrapper.dataloaders.trainloader.dataset
+    sample = ds.__getitem__(0, rng=np.random.default_rng(0))["image"]
+    size = int(IMPORT_RECIPE["dataset_params"]["train_transforms"][
+        "RandomResizedCrop"]["size"])
+    steps = [type(x).__name__ for x in ds.transform.transforms]
+    print(f"[13d host path] device_augment off: the host pipeline "
+          f"{type(ds.resizing).__name__} -> {' -> '.join(steps)} gives "
+          f"{sample.dtype} {tuple(sample.shape)} finite "
+          f"{bool(np.isfinite(sample).all())}; one update in "
+          f"{time.perf_counter() - t:.1f} s")
+    if ds.raw_mode or sample.shape != (size, size, 3) \
+            or not np.isfinite(sample).all() \
+            or "ColorJitter" not in repr(ds.transform) \
+            or "RandomResizedCrop" not in steps:
+        raise SystemExit("the host path did not run the recipe's "
+                         "transforms")
+    del trainer
+    return tuple(launches), {"loader_img_s": loader_rate,
+                             "train_img_s": rate, "synthetic_img_s": synth,
+                             "resident_img_s": resident}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5105,6 +5406,7 @@ def main() -> int:
     w8a8_launches, w8a8_rates = timed("10b", phase_w8a8, device)
     v1_times, v1_launches, v1_rates = timed("11", phase_ssl_v1, device)
     p12, w8_rates = timed("12", phase_import, device, rates, keep)
+    data_launches, data_rates = timed("13", phase_data, device, keep, rates)
     keep_dir.cleanup()
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
@@ -5131,6 +5433,14 @@ def main() -> int:
           + "; W8A8 train b64 img/s " + ", ".join(
               f"{name} accum {acc} {r:.1f}"
               for (name, acc), (r, _) in sorted(w8_rates.items()))
+          + "; ImageNet JPEG tree: loader alone img/s "
+          + f"{data_rates['loader_img_s']:.1f}, recipe train img/s "
+          + ", ".join(f"{k} {v:.1f}" if v else f"{k} not measured"
+                      for k, v in (("JPEG", data_rates["train_img_s"]),
+                                   ("Synthetic",
+                                    data_rates["synthetic_img_s"]),
+                                   ("device-resident",
+                                    data_rates["resident_img_s"])))
           + f"; whole run {time.perf_counter() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + " s)")
     print(_gpu_line())
@@ -5141,13 +5451,15 @@ def main() -> int:
         ("fused_apla_attn_fwd", "apla_proj_gemm.cu",
          "pallas_apla_attn.py:105",
          serve_launches + fwd_launches + ssl_launches[0] + w8a8_launches[1]
-         + sum(n[0] for n in v1_launches.values()) + p12["fwd"],
+         + sum(n[0] for n in v1_launches.values()) + p12["fwd"]
+         + data_launches[0],
          {**fwd_times[FWD_TIMED[0]],
           "max_abs_err": max(max_err, v1_times["fwd"]["max_abs_err"])}),
         ("fused_apla_attn_bwd", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn.py:131",
          bwd_launches + ssl_launches[1]
-         + sum(n[1] for n in v1_launches.values()) + p12["bwd"],
+         + sum(n[1] for n in v1_launches.values()) + p12["bwd"]
+         + data_launches[1],
          {**bwd_times[main_shape],
           "max_abs_err": max(bwd_err, v1_times["bwd"]["max_abs_err"])}),
         ("proto_ce_fwd", "proto_ce_fwd.cu", "pallas_proto_ce.py:73",

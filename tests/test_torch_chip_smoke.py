@@ -447,7 +447,9 @@ def _tiny_v1(smoke, monkeypatch):
             ld.update(batch_size=16)
         monkeypatch.setattr(smoke, name, tiny)
     cuts = copy.deepcopy(smoke.V1_CUTS)
-    cuts["dataset_params"].update(synthetic_size=64, synthetic_img_size=32)
+    # stored at the raw size the wrappers decode to, int(32 * 8 / 7), as
+    # phase 11 stores its images at 256 for its 224 crops
+    cuts["dataset_params"].update(synthetic_size=64, synthetic_img_size=36)
     cuts["model_params"]["adaptation"]["params"] = {"partial_size": 16}
     monkeypatch.setattr(smoke, "V1_CUTS", cuts)
 
@@ -478,6 +480,54 @@ def test_ssl_v1_phase_rehearsal(monkeypatch):
         "dino": (depth * (3 * steps + embed_calls), depth * 2 * steps)}
     assert set(rates) == {"byol", "simsiam", "dino"}
     assert all(set(r) == {"plain", "kernel"} for r in rates.values())
+
+
+def test_ssl_v1_rehearsal_resized_images(monkeypatch):
+    """Phase 11 on the tiny model with its images stored at 32 px, so that
+    the SSL wrappers resize them (BICUBIC) to the raw size they decode at,
+    int(32 * 8 / 7) = 36.  There the kernel arm reads a |dloss| past the
+    rehearsal's 1e-4 (BYOL 0.0167), which is why `_tiny_v1` stores 36 px.
+    This shows where that gap comes from: two runs of the plain arm on
+    the resized batch agree exactly (the resize hands every arm the same
+    images), and the kernel arm's backbone embeddings agree with the plain
+    arm's within the rehearsal's 1e-6, so the loss gap arises in the
+    random heads (BatchNorm over near-equal embeddings), after the
+    backbone.  The phase's other checks run on the resized images."""
+    smoke = _chip_smoke()
+    _tiny_v1(smoke, monkeypatch)
+    smoke.V1_CUTS["dataset_params"]["synthetic_img_size"] = 32
+    _count_plain_versions(monkeypatch)
+    monkeypatch.setattr(smoke, "_v1_kernels", lambda device: {})
+    monkeypatch.setattr(smoke, "_v1_rate",
+                        lambda *a: (1.0, 0.0, lambda: None))
+    monkeypatch.setattr(smoke, "_profile_step",
+                        lambda fn: (1.0, 1.0, {}, [], []))
+    readings = {}
+
+    def readings_only(tag, wrapper, objective, cfg, plain_cfg, images):
+        assert tuple(images.shape[1:3]) == (36, 36)
+        ref = smoke._v1_grads(wrapper, objective, plain_cfg, images)
+        again = smoke._v1_grads(wrapper, objective, plain_cfg, images)
+        kernel = smoke._v1_grads(wrapper, objective, cfg, images,
+                                 ref["cots"])
+        assert again["loss"] == ref["loss"], objective
+        for a, b in zip(again["embs"], ref["embs"]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for n, g in ref["grads"].items():
+            torch.testing.assert_close(again["grads"][n], g, rtol=0, atol=0)
+        readings[objective] = (
+            abs(kernel["loss"] - ref["loss"]),
+            max(smoke._v1_rel(e, r)
+                for e, r in zip(kernel["embs"], ref["embs"])))
+        return True, True
+
+    monkeypatch.setattr(smoke, "_v1_readings", readings_only)
+    _, launches, _ = smoke.phase_ssl_v1(torch.device("cpu"))
+    assert set(readings) == set(launches) == {"byol", "simsiam", "dino"}
+    print("kernel arm vs plain arm at 32 px stored (|dloss|, worst "
+          "||de||/||e||):", readings)
+    for objective, (_, emb) in readings.items():
+        assert emb <= V1_CPU_TOLS[objective][1], (objective, emb)
 
 
 def test_training_phase_rehearsal(monkeypatch):
@@ -798,3 +848,122 @@ def test_import_phase_rehearsal(monkeypatch, tmp_path):
     assert launches["seg_fwd"] == 12 * (2 + 5)
     assert set(rates) == {("plain", 8), ("plain", 1), ("kernel", 8),
                           ("kernel", 1)}
+
+
+def test_data_recipes_are_the_yaml():
+    """Phase 13's recipes: 13c runs IMPORT_RECIPE (the YAML as shipped, see
+    above) with only the data location and one epoch changed; 13d's host
+    path turns `device_augment` off and ColorJitter on with
+    __common__.yml's values, and every other train transform it names has
+    the YAML's value; the ones it leaves out are switched off in the YAML
+    or not ported yet."""
+    smoke = _chip_smoke()
+    yml = load_merged_params(os.path.join(ROOT, RECIPE_YML))
+    common = load_merged_params(os.path.join(
+        ROOT, os.path.dirname(RECIPE_YML), "__common__.yml"))
+    assert smoke.DATA_CUTS == {
+        "training_params": {"epochs": 1, "val_every": 1.0, "log_every": 1},
+        "dataloader_params": {"valloader": {"num_workers": 0},
+                              "testloader": {"num_workers": 0}}}
+    params = smoke._run_params(smoke.IMPORT_RECIPE, smoke.DATA_CUTS, "/x",
+                               "cpu")
+    assert params["dataloader_params"]["trainloader"] == \
+        yml.dataloader_params.trainloader
+    assert params["dataloader_params"]["trainloader"]["num_workers"] == 8
+    params = smoke._run_params(smoke.IMPORT_RECIPE, smoke.HOST_CUTS, "/x",
+                               "cpu")
+    dp = params["dataset_params"]
+    assert dp["dataset"] == yml.dataset_params.dataset == "ImageNet"
+    assert dp["device_augment"] is False
+    assert yml.dataset_params.device_augment is True
+    tt, ytt = dp["train_transforms"], yml.dataset_params.train_transforms
+    assert tt["ColorJitter"] == common.dataset_params.train_transforms[
+        "ColorJitter"]
+    assert tt["ColorJitter"]["apply"] is True and \
+        ytt["ColorJitter"]["apply"] is False
+    for name, value in tt.items():
+        if name != "ColorJitter":
+            assert value == ytt[name], name
+    from apla_tpu_torch.data.transforms import UNPORTED
+    for name, value in ytt.items():
+        if name not in tt:
+            assert name in UNPORTED + ("SimpleMultiCrop",) or \
+                not value.get("apply"), name
+    for split in ("val_transforms", "test_transforms"):
+        assert dp[split] == yml.dataset_params[split]
+    assert {k: v["num_workers"] for k, v in
+            params["dataloader_params"].items()} == {
+        "trainloader": 0, "valloader": 0, "testloader": 0}
+    assert params["model_params"]["pretrained"] is True
+    assert (smoke.DATA_TRAIN, smoke.DATA_VAL, smoke.DATA_CLASSES) == \
+        (256, 64, 8)
+
+
+def _imports(path):
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return names
+
+
+def test_chip_smoke_and_native_import_no_jax_package():
+    """chip_smoke.py and the native host library's bindings import nothing
+    of the JAX package, JAX or Pillow."""
+    native = os.path.join(ROOT, "apla_tpu_torch", "native")
+    for path in [os.path.join(ROOT, "chip_smoke.py")] + [
+            os.path.join(native, n) for n in os.listdir(native)
+            if n.endswith(".py")]:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("apla_tpu", "jax", "jaxlib", "flax", "PIL"), \
+                (path, name)
+
+
+def test_jpeg_fixtures_stay_small():
+    d = os.path.join(ROOT, "tests", "data", "jpeg")
+    names = os.listdir(d)
+    assert len([n for n in names if n != "manifest.json"]) <= 12
+    assert sum(os.path.getsize(os.path.join(d, n)) for n in names) \
+        < 400 * 1024
+
+
+def test_data_phase_rehearsal(monkeypatch, tmp_path):
+    """Phase 13 on the CPU on the tiny supervised model (its raw size the
+    manifest's 256): the fixtures against the manifest, the ImageNet tree
+    through `main` with rows 1 and 2 counted in every block of every
+    micro-step and eval call, the first batch against the manifest, the
+    loader's rate, the host path's one update."""
+    smoke = _chip_smoke()
+    _tiny_import(smoke, monkeypatch)
+    tiny = copy.deepcopy(smoke.IMPORT_RECIPE)
+    tiny["dataset_params"]["train_transforms"]["Resize"] = {
+        "apply": True, "height": 256, "width": 256}
+    monkeypatch.setattr(smoke, "IMPORT_RECIPE", tiny)
+    monkeypatch.setattr(smoke, "DATA_TRAIN", 64)
+    monkeypatch.setattr(smoke, "DATA_VAL", 16)
+    monkeypatch.setattr(smoke, "HOST_TRAIN", 16)
+    monkeypatch.setattr(smoke, "HOST_VAL", 8)
+    monkeypatch.setattr(smoke, "DATA_LOADER_WORKERS", 0)
+    monkeypatch.setattr(smoke, "DATA_RATE_REPEAT", 1)
+    monkeypatch.setattr(smoke, "_gpu_line", lambda: "no card (CPU)")
+    _count_plain_versions(monkeypatch)
+    launches, rates = smoke.phase_data(torch.device("cpu"),
+                                       {"dir": str(tmp_path)},
+                                       {("fused", 8): (1.0, 0.0)})
+    depth, accum = 12, 8
+    # 13c: 64 images = 4 updates of b16 (8 micro-steps of 2 each), val
+    # and test 1 batch each; 13d: 16 images = 1 update, val and test 1
+    # batch each
+    steps = 64 // 16 + 16 // 16
+    evals = 2 + 2
+    assert launches == (depth * (steps * accum + evals),
+                        depth * steps * accum)
+    assert rates["loader_img_s"] > 0 and rates["train_img_s"] > 0
+    assert rates["synthetic_img_s"] is None
+    assert rates["resident_img_s"] == 1.0

@@ -90,6 +90,10 @@ def test_raw_mode_matches_jax():
 
 
 def test_unported_transforms_and_datasets_raise():
+    """A transform not ported yet builds and raises when it runs (raw mode
+    never runs it); a raw size or a Resize that changes the size, raised
+    on before the transforms were ported, now gives the JAX package's
+    uint8 image and float32 sample; an unported dataset raises."""
     params = dict(PARAMS, train_transforms={"Resize": _RESIZE,
                                             "TrivialAugment": {"apply": True},
                                             "Normalize": True})
@@ -98,14 +102,19 @@ def test_unported_transforms_and_datasets_raise():
         ds[0]
     ds.raw_mode, ds.raw_size = True, 40     # raw mode never runs them
     assert ds[0]["image"].shape == (40, 40, 3)
-    ds.raw_size = 32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ds[0]
+    ref = jdata.Synthetic(PARAMS, "train")
+    ds.raw_size = ref.raw_size = 32
+    ref.raw_mode = True
+    np.testing.assert_array_equal(ds[0]["image"], ref[0]["image"])
     resize = dict(PARAMS, val_transforms={"Resize": {
         "apply": True, "height": 48, "width": 48}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdata.Synthetic(resize, "val")[0]
-    for name in ("ImageNet", "SyntheticMultiLabel"):
+    got = tdata.Synthetic(resize, "val").__getitem__(
+        0, rng=np.random.default_rng(0))["image"]
+    want = jdata.Synthetic(resize, "val").__getitem__(
+        0, rng=np.random.default_rng(0))["image"]
+    assert got.shape == (48, 48, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    for name in ("NABirds", "ISIC2019", "SyntheticMultiLabel"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdata.get_dataset_class(name)
 

@@ -7,7 +7,8 @@ colour types (written here with Pillow, which picks its scanline filters
 adaptively), boxes and labels must be identical and pixels within 1/255
 before normalisation; the resize repeats Pillow's fixed-point arithmetic,
 and reads the same pixels as Pillow here.  Also: the PNG
-writer round-trips through Pillow, a JPEG raises naming its ROADMAP item.
+writer round-trips through Pillow, and `read_png` refuses a JPEG stream
+naming its ROADMAP item (`read_image` decodes it, by content).
 """
 
 import json

@@ -14,7 +14,9 @@ the fused window path, checkpointed, exported (float and W8A8) and
 served, and the
 segmentation side-car: an ADE20K-layout set written and read, the SETR-PUP
 segmenter trained through the fused APLA path with aux heads, checkpointed,
-exported and served.
+exported and served; and decodes the committed JPEG fixtures with the
+port's own decoder and reads an ImageNet tree of them through the recipe's
+host transforms and the raw path.
 """
 
 import os
@@ -220,6 +222,38 @@ with tempfile.TemporaryDirectory() as tmp:
                                                                       32)
     assert pred.predict_slide(np.zeros((1, 40, 48, 3), np.float32)).shape \
         == (1, 40, 48, 150)
+
+# the JPEG fixtures through the port's own decoder, and an ImageNet tree of
+# them through the recipe's host transforms and the raw path
+import json
+import shutil
+from apla_tpu_torch.data.datasets import ImageNet
+from apla_tpu_torch.data.detection_data import read_image
+
+fixtures = os.path.join("tests", "data", "jpeg")
+with open(os.path.join(fixtures, "manifest.json")) as f:
+    manifest = json.load(f)["files"]
+for name, entry in manifest.items():
+    img = read_image(os.path.join(fixtures, name))
+    assert img.shape == (entry["height"], entry["width"], 3), name
+with tempfile.TemporaryDirectory() as tmp:
+    for split in ("train", "val"):
+        d = os.path.join(tmp, "ImageNet", split, "n0")
+        os.makedirs(d)
+        for name in sorted(manifest)[:3]:
+            shutil.copy(os.path.join(fixtures, name),
+                        os.path.join(d, name.split(".")[0] + ".JPEG"))
+    tt = {"Resize": {"apply": True, "height": 40, "width": 40},
+          "RandomResizedCrop": {"apply": True, "size": 32,
+                                "scale": [0.8, 1.2]},
+          "ColorJitter": {"apply": True, "brightness": 0.2, "contrast": 0.2,
+                          "saturation": 0.1, "hue": 0.1, "p": 1.0},
+          "Normalize": True}
+    ds = ImageNet({"data_location": tmp, "train_transforms": tt}, "train")
+    sample = ds.__getitem__(0, rng=np.random.default_rng(0))["image"]
+    assert sample.shape == (32, 32, 3) and np.isfinite(sample).all()
+    ds.raw_mode, ds.raw_size = True, 48
+    assert ds[1]["image"].shape == (48, 48, 3)
 
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked

@@ -6,8 +6,9 @@ names (both readers decode by content), annotations as grey, palette and
 RGB PNGs holding labels 0 (unlabelled) and 255, images not square, resized
 up and down.  Images agree within 1e-6 (both normalise through float64),
 labels exactly; the port's NEAREST resize equals Pillow's on odd sizes up
-and down; a JPEG stream raises `FORMATS_TODO`.  Also the JAX package's own
-cases (tests/test_segmentation_data.py) on the port.
+and down; a JPEG stream decodes as the JAX reader decodes it, and one the
+decoder refuses raises naming the file.  Also the JAX package's own cases
+(tests/test_segmentation_data.py) on the port.
 """
 
 import os
@@ -123,15 +124,28 @@ def test_grey_png_round_trip(tmp_path):
 
 
 def test_jpeg_stream_raises(tmp_path):
-    root = make_ade(tmp_path, n=1)
-    img_path = os.path.join(root, "images", "training", "a0.jpg")
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(img_path,
-                                                          format="JPEG")
-    with open(img_path, "rb") as f:
-        assert f.read(2) == b"\xff\xd8"
-    ds = ADE20KSegmentation(root, img_size=16)
-    with pytest.raises(NotImplementedError, match="only PNG"):
-        ds[0]
+    """A JPEG stream that the decoder refuses (a frame header cut short)
+    raises naming the file; JPEG streams read as the JAX reader reads
+    them."""
+    root = make_ade(tmp_path, n=2)
+    rng = np.random.default_rng(5)
+    for i, sub in enumerate((2, 0)):
+        img_path = os.path.join(root, "images", "training", f"a{i}.jpg")
+        Image.fromarray(rng.integers(0, 256, (45, 61, 3), np.uint8)).save(
+            img_path, format="JPEG", quality=85, subsampling=sub)
+        with open(img_path, "rb") as f:
+            assert f.read(2) == b"\xff\xd8"
+    ours, ref = ADE20KSegmentation(root, img_size=24), \
+        JaxADE20KSegmentation(root, img_size=24)
+    for i in range(2):
+        got, want = ours[i], ref[i]
+        np.testing.assert_allclose(got["image"], want["image"], rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(got["label"], want["label"])
+    with open(img_path, "wb") as f:
+        f.write(b"\xff\xd8\xff\xc0\x00\x11\x08")
+    with pytest.raises(ValueError, match="a1.jpg"):
+        ours[1]
     assert "PIL-free transforms" in FORMATS_TODO
 
 
