@@ -6,9 +6,10 @@ Counterpart of `apla_tpu/data/detection_data.py` (boxes): a COCO
 [M, 4] xyxy in resized coordinates and labels [M] with -1 padding.  The
 card's machine has no Pillow, so images are decoded here, by their content
 whatever the file's name (`read_image`, as Pillow's `Image.open` goes by
-the content): PNG (8-bit grey, grey + alpha, RGB, RGBA or palette; the
-five scanline filters; no interlacing) with `zlib` and numpy, JPEG through
-the port's own decoder (`apla_tpu_torch.native`), each converted to RGB as
+the content): PNG (every colour type and bit depth, Adam7, the five
+scanline filters) and JPEG through the port's own decoders
+(`apla_tpu_torch.native`; `decode_png` is the PNG decoder's plain numpy
+version), each converted to RGB as
 Pillow's `convert("RGB")` does, and resized as Pillow's `Image.resize(size,
 BILINEAR)` does (`resize`; BICUBIC too, for `serve predict`'s image files
 and the classification transforms): the filter's support grows with the
@@ -37,67 +38,90 @@ FORMATS_TODO = ("only PNG and JPEG images are decoded without PIL: ROADMAP A "
 MASKS_TODO = ("instance masks (RLE and polygon rasterising without PIL) are "
               "not ported yet: ROADMAP A 'Detection mask branch'")
 
-_PNG_SIG = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}      # PNG colour type -> samples
+_PNG_SIG = native.PNG_SIGNATURE
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    """Undo the per-scanline PNG filters (None, Sub, Up, Average, Paeth)."""
-    stride = w * bpp
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
+def _unfilter(raw: bytes, rows: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline PNG filters (None, Sub, Up, Average, Paeth) of
+    `rows` rows of `stride` bytes, each after its filter byte; `bpp`: the
+    bytes of a pixel, at least 1."""
+    data = np.frombuffer(raw, np.uint8, rows * (stride + 1)).reshape(
+        rows, stride + 1)
+    out = np.zeros((rows, stride), np.uint8)
     prev = np.zeros(stride, np.int32)
-    for y in range(h):
-        f, line = rows[y, 0], rows[y, 1:].astype(np.int32)
+    for y in range(rows):
+        f, line = data[y, 0], data[y, 1:].astype(np.int32)
         if f == 0:
             cur = line
         elif f == 1:            # Sub: running sum per byte of a pixel
-            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1) & 0xFF
+            pad = np.zeros(-stride % bpp, np.int32)
+            cur = (np.cumsum(np.concatenate([line, pad]).reshape(-1, bpp),
+                             axis=0).reshape(-1)[:stride]) & 0xFF
         elif f == 2:            # Up
             cur = (line + prev) & 0xFF
         elif f in (3, 4):       # Average, Paeth: left to right
-            cur = np.zeros(stride, np.int32)
-            left = np.zeros(bpp, np.int32)
-            up_left = np.zeros(bpp, np.int32)
-            for x in range(0, stride, bpp):
-                up = prev[x:x + bpp]
+            vals, up = line.tolist(), prev.tolist()
+            for x in range(stride):
+                left = vals[x - bpp] if x >= bpp else 0
                 if f == 3:
-                    pred = (left + up) >> 1
+                    pred = (left + up[x]) >> 1
                 else:
-                    p = left + up - up_left
-                    pa, pb, pc = np.abs(p - left), np.abs(p - up), \
-                        np.abs(p - up_left)
-                    pred = np.where((pa <= pb) & (pa <= pc), left,
-                                    np.where(pb <= pc, up, up_left))
-                left = (line[x:x + bpp] + pred) & 0xFF
-                cur[x:x + bpp] = left
-                up_left = up
+                    up_left = up[x - bpp] if x >= bpp else 0
+                    p = left + up[x] - up_left
+                    pa, pb, pc = abs(p - left), abs(p - up[x]), \
+                        abs(p - up_left)
+                    pred = left if pa <= pb and pa <= pc else \
+                        (up[x] if pb <= pc else up_left)
+                vals[x] = (vals[x] + pred) & 0xFF
+            cur = np.asarray(vals, np.int32)
         else:
-            raise ValueError(f"PNG filter type {f} is not one of 0-4")
+            raise native.PngError(f"PNG filter type {f} is not one of 0-4")
         out[y] = cur
         prev = cur
     return out
 
 
-def read_png(path: str, raw: bool = False) -> np.ndarray:
-    """An 8-bit PNG file -> [H, W, 3] uint8 RGB (grey replicated, alpha
-    dropped, palette looked up: Pillow's `convert("RGB")`).
+def _unpack(rows: np.ndarray, width: int, channels: int,
+            depth: int) -> np.ndarray:
+    """Unfiltered rows [h, stride] -> samples [h, width, channels] int64
+    (MSB first below 8 bits, big-endian at 16)."""
+    h = rows.shape[0]
+    if depth == 16:
+        pairs = rows[:, :2 * width * channels].astype(np.int64).reshape(
+            h, -1, 2)
+        flat = pairs[..., 0] << 8 | pairs[..., 1]
+    elif depth == 8:
+        flat = rows[:, :width * channels].astype(np.int64)
+    else:
+        bits = np.unpackbits(rows, axis=1)[:, :width * channels * depth]
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        flat = (bits.reshape(h, -1, depth).astype(np.int64) * weights).sum(
+            -1)
+    return flat.reshape(h, width, channels)
 
-    `raw`: the stored samples instead, [H, W, channels] uint8 (a palette
-    image's indices, a grey image's levels), as `np.asarray` of the
-    unconverted Pillow image gives them; label maps are read so."""
+
+def read_png(path: str, raw: bool = False) -> np.ndarray:
+    """A PNG file -> [H, W, 3] uint8 RGB, as Pillow's `Image.open(path)
+    .convert("RGB")` (`native.decode_png`).
+
+    `raw`: the samples of the mode Pillow opens the file in instead, [H, W,
+    bands] (a palette image's indices, a grey image's levels; bool for
+    1-bit grey, uint16 for 16-bit grey), as `np.asarray` of the unconverted
+    Pillow image gives them; label maps are read so.  A stream that is not
+    a PNG raises NotImplementedError, one the decoder refuses ValueError,
+    each naming the file."""
     with open(path, "rb") as f:
         data = f.read()
-    return decode_png(data, path, raw)
+    return _decode_png_native(data, path, raw)
 
 
 def read_image(path: str) -> np.ndarray:
     """An image file -> [H, W, 3] uint8 RGB, decoded by its content as
     Pillow's `Image.open(path).convert("RGB")` decodes it: a PNG stream
-    (`decode_png`) or a JPEG stream (`native.decode_jpeg`: grey expanded,
-    CMYK and YCCK converted as Pillow converts them), whatever the name.
-    Any other content, or a stream the decoder refuses, raises naming the
-    file."""
+    (`native.decode_png`) or a JPEG stream (`native.decode_jpeg`: grey
+    expanded, CMYK and YCCK converted as Pillow converts them), whatever
+    the name.  Any other content, or a stream the decoder refuses, raises
+    naming the file."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\xff\xd8":
@@ -106,42 +130,64 @@ def read_image(path: str) -> np.ndarray:
         except native.JpegError as e:
             raise ValueError(f"{path}: JPEG stream not decoded: {e}") \
                 from None
-    return decode_png(data, path)
+    return _decode_png_native(data, path)
+
+
+def _decode_png_native(data: bytes, path: str, raw: bool = False):
+    if data[:8] != _PNG_SIG:
+        raise NotImplementedError(f"{path}: {FORMATS_TODO}")
+    try:
+        return native.decode_png(data, raw)
+    except native.PngError as e:
+        raise ValueError(f"{path}: PNG stream not decoded: {e}") from None
 
 
 def decode_png(data: bytes, path: str, raw: bool = False) -> np.ndarray:
-    """`read_png` on the bytes of `path` (named in the errors)."""
+    """`read_png` on the bytes of `path` (named in the errors) in numpy:
+    the plain version that the tests hold `native.decode_png` to.  The
+    chunks are read and inflated by `native.png_stream`; the passes are
+    unfiltered, unpacked, put in place and converted here."""
     if data[:8] != _PNG_SIG:
         raise NotImplementedError(f"{path}: {FORMATS_TODO}")
-    pos, idat, plte = 8, [], None
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB",
-                                                                body)
-        elif kind == b"PLTE":
-            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if depth != 8 or interlace or ctype not in _CHANNELS:
-        raise NotImplementedError(
-            f"{path}: PNG of bit depth {depth}, colour type {ctype}, "
-            f"interlace {interlace}; only 8-bit non-interlaced PNGs are "
-            f"decoded ({FORMATS_TODO})")
-    ch = _CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch)
-    px = px.reshape(h, w, ch)
+    try:
+        s = native.png_stream(data)
+        h, w, depth, ctype = s["height"], s["width"], s["depth"], s["ctype"]
+        ch = native.PNG_CHANNELS[ctype]
+        bits = ch * depth
+        px = np.zeros((h, w, ch), np.int64)
+        pos = 0
+        for x0, y0, dx, dy, pw, ph in native.png_passes(w, h,
+                                                        s["interlace"]):
+            stride = (pw * bits + 7) // 8
+            rows = _unfilter(s["data"][pos:], ph, stride, max(1, bits // 8))
+            pos += ph * (stride + 1)
+            px[y0::dy, x0::dx] = _unpack(rows, pw, ch, depth)
+    except native.PngError as e:
+        raise ValueError(f"{path}: PNG stream not decoded: {e}") from None
+    # the samples of Pillow's mode
+    mode = s["mode"]
+    if ctype == 0 and depth in (2, 4):
+        px = px * (0x55 if depth == 2 else 0x11)
+    elif depth == 16 and ctype == 4:            # "RGBA" from LA;16B
+        px = (px >> 8)[..., [0, 0, 0, 1]]
+    elif depth == 16 and ctype != 0:
+        px = px >> 8
     if raw:
-        return px
-    if ctype == 3:
-        return plte[px[..., 0]]
-    if ch in (1, 2):
-        return np.repeat(px[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(px[..., :3])
+        dtype = {"1": bool, "I;16": np.uint16}.get(mode, np.uint8)
+        return px.astype(dtype)
+    if mode == "1":
+        grey = px[..., 0] * 255
+    elif mode == "I;16":
+        grey = np.minimum(px[..., 0], 255)
+    elif mode == "P":
+        pal = np.zeros((256, 3), np.uint8)       # black past the entries
+        pal[:len(s["palette"])] = s["palette"]
+        return pal[px[..., 0]]
+    elif mode in ("L", "LA"):
+        grey = px[..., 0]
+    else:
+        return px[..., :3].astype(np.uint8)
+    return np.repeat(grey[..., None], 3, axis=-1).astype(np.uint8)
 
 
 def write_png(path: str, rgb: np.ndarray) -> None:

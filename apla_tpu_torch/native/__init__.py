@@ -8,7 +8,10 @@ HSV -> RGB round trip) and `jpeg_dec.cpp`, a
 JPEG decoder of its own that gives libjpeg-turbo's bits (the card's machine
 has no libjpeg): the full-size decode that Pillow's `Image.open(...)
 .convert("RGB")` gives, and the DCT-scaled decode + bilinear resize of the
-JAX package's `decode_jpeg(data, out_size)`.
+JAX package's `decode_jpeg(data, out_size)`; and `png_dec.cpp`, the
+scanline half of a PNG decoder (filters, Adam7, every depth and colour
+type, Pillow's conversions) behind `png_stream`'s chunk reading and
+Python's zlib.
 
 A library is built with `g++ -O3 -shared -fPIC` at its first call, never at
 import, into `apla_tpu_torch/_build/<hash>/` (gitignored), keyed by a hash
@@ -27,7 +30,9 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -89,6 +94,16 @@ def image_lib() -> ctypes.CDLL:
     lib.hflip_u8.argtypes = [_U8P, _I, _I, _I]
     lib.resample_u8.argtypes = [_U8P, _I, _I, _I, _U8P, _I, _I, _I]
     lib.hue_shift_u8.argtypes = [_U8P, ctypes.c_long, _I]
+    return lib
+
+
+@functools.cache
+def png_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library("png_dec.cpp")))
+    lib.png_error_message.restype = ctypes.c_char_p
+    lib.png_decode.argtypes = [_U8P, ctypes.c_long, _I, _I, _I, _I, _I,
+                               _U8P, _I, _I, ctypes.c_void_p, ctypes.c_long]
+    lib.png_decode.restype = ctypes.c_int
     return lib
 
 
@@ -294,3 +309,134 @@ def decode_jpeg_resize(data: bytes, height: int, width: int) -> np.ndarray:
                                          int(width), out, out.size,
                                          ctypes.byref(gh), ctypes.byref(gw)))
     return out
+
+
+# --------------------------------------------------------------------------- #
+# PNG
+# --------------------------------------------------------------------------- #
+
+class PngError(ValueError):
+    """A PNG stream the decoder refuses or cannot read."""
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# (bit depth, colour type) -> the mode Pillow opens the file in
+PNG_MODES = {(1, 0): "1", (2, 0): "L", (4, 0): "L", (8, 0): "L",
+             (16, 0): "I;16", (8, 2): "RGB", (16, 2): "RGB", (1, 3): "P",
+             (2, 3): "P", (4, 3): "P", (8, 3): "P", (8, 4): "LA",
+             (16, 4): "RGBA", (8, 6): "RGBA", (16, 6): "RGBA"}
+PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+MODE_BANDS = {"1": 1, "L": 1, "I;16": 1, "P": 1, "LA": 2, "RGB": 3,
+              "RGBA": 4}
+# (x0, y0, dx, dy) of the seven Adam7 passes
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# Pillow's decompression-bomb limit (2 x `Image.MAX_IMAGE_PIXELS`): past
+# it `Image.open` raises, and so does this reader
+PNG_MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+
+
+def png_passes(width: int, height: int, interlace: bool):
+    """[(x0, y0, dx, dy, pass width, pass height)] of the image's passes
+    that hold pixels (one pass when not interlaced)."""
+    out = []
+    for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw = max(0, -(-(width - x0) // dx))
+        ph = max(0, -(-(height - y0) // dy))
+        if pw and ph:
+            out.append((x0, y0, dx, dy, pw, ph))
+    return out
+
+
+def png_stream(data: bytes) -> dict:
+    """Read a PNG stream's chunks and inflate its image data (Python's
+    zlib): -> {'width', 'height', 'depth', 'ctype', 'interlace', 'mode'
+    (Pillow's), 'palette' ([n, 3] uint8 or None), 'data' (the scanlines,
+    each with its filter byte, as many bytes as the image needs)}.
+
+    Raises PngError for a stream that is not a PNG, a chunk cut short or
+    with a wrong CRC, an IHDR that is not first or not valid (a bit depth
+    the colour type does not allow, a method past 0, an interlace past 1,
+    an empty or a larger image than Pillow opens), a palette image without
+    a PLTE of 1-256 entries, no IDAT, image data that does not inflate or
+    ends early."""
+    if data[:8] != PNG_SIGNATURE:
+        raise PngError("not a PNG stream")
+    pos, idat, plte, head = 8, [], None, None
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        end = pos + 8 + n
+        if n > 0x7FFFFFFF or end + 4 > len(data):
+            raise PngError(f"chunk {kind!r} cut short")
+        body = data[pos + 8:end]
+        if zlib.crc32(data[pos + 4:end]) != int.from_bytes(
+                data[end:end + 4], "big"):
+            raise PngError(f"chunk {kind!r} with a wrong CRC")
+        pos = end + 4
+        if head is None and kind != b"IHDR":
+            raise PngError("the first chunk is not IHDR")
+        if kind == b"IHDR":
+            if head is not None or n != 13:
+                raise PngError("IHDR repeated or not 13 bytes")
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if head is None:
+        raise PngError("no IHDR chunk")
+    w, h, depth, ctype, method, filt, interlace = head
+    if (depth, ctype) not in PNG_MODES:
+        raise PngError(f"bit depth {depth} with colour type {ctype}")
+    if method or filt or interlace > 1:
+        raise PngError(f"compression method {method}, filter method {filt}"
+                       f", interlace method {interlace}")
+    if not w or not h or w * h > PNG_MAX_PIXELS:
+        raise PngError(f"image of {w} x {h} pixels")
+    palette = None
+    if ctype == 3:
+        if plte is None or not 1 <= len(plte) // 3 <= 256 or len(plte) % 3:
+            raise PngError("a palette image without a PLTE of 1-256 entries")
+        palette = np.frombuffer(plte, np.uint8).reshape(-1, 3)
+    if not idat:
+        raise PngError("no IDAT chunk")
+    bits = PNG_CHANNELS[ctype] * depth
+    need = sum(ph * (1 + (pw * bits + 7) // 8)
+               for *_, pw, ph in png_passes(w, h, interlace))
+    try:
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
+    except zlib.error as e:
+        raise PngError(f"image data does not inflate: {e}") from None
+    if len(raw) < need:
+        raise PngError(f"image data ends early ({len(raw)} of {need} bytes)")
+    return {"width": w, "height": h, "depth": depth, "ctype": ctype,
+            "interlace": bool(interlace), "mode": PNG_MODES[(depth, ctype)],
+            "palette": palette, "data": raw}
+
+
+def decode_png(data: bytes, raw: bool = False) -> np.ndarray:
+    """A PNG stream -> RGB uint8 [H, W, 3], Pillow 12.1's `Image.open(...)
+    .convert("RGB")` bits; `raw`: the samples of the mode Pillow opens it
+    in, [H, W, bands] as `np.asarray` of that image gives them (bool for
+    "1", uint16 for "I;16", else uint8).  The chunks are read and inflated
+    by `png_stream`, the scanlines decoded by `png_dec.cpp`; its plain
+    numpy version is `data.detection_data.decode_png`."""
+    s = png_stream(data)
+    h, w, mode = s["height"], s["width"], s["mode"]
+    if raw:
+        out = np.empty((h, w, MODE_BANDS[mode]),
+                       np.uint16 if mode == "I;16" else np.uint8)
+    else:
+        out = np.empty((h, w, 3), np.uint8)
+    plte = s["palette"] if s["palette"] is not None else np.zeros((1, 3),
+                                                                 np.uint8)
+    buf = _buf(s["data"])
+    rc = png_lib().png_decode(
+        buf, buf.size, w, h, s["depth"], s["ctype"], int(s["interlace"]),
+        np.ascontiguousarray(plte), 0 if s["palette"] is None else len(plte),
+        int(raw), out.ctypes.data, out.nbytes)
+    if rc != 0:
+        raise PngError(png_lib().png_error_message().decode())
+    return out.view(bool) if raw and mode == "1" else out

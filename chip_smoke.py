@@ -342,6 +342,20 @@ SMOKE_CUTS = {
                        "synthetic_img_size": 256},
     "training_params": {"epochs": 1, "val_every": 1.0, "log_every": 1},
 }
+# Phases 5 and 6b run their val and test loaders (and 6b's kNN feature
+# bank, built from the val loader's settings) in the trainer's process,
+# as 13c does: spawning 8 workers for each of their few eval batches
+# times the host's process start-up, not the path the kernels see; the
+# train loader keeps the recipe's 8 spawned workers.
+EVAL_IN_PROCESS = {"dataloader_params": {
+    "valloader": {"num_workers": 0}, "testloader": {"num_workers": 0}}}
+
+
+def _eval_in_process(cuts):
+    """`cuts` with EVAL_IN_PROCESS added."""
+    from apla_tpu_torch.utils.config import update_nested_values
+    return update_nested_values(copy.deepcopy(cuts),
+                                copy.deepcopy(EVAL_IN_PROCESS))
 
 # params/pretrain/dinov2/ISIC2019/vit_b/apla.yml merged over its
 # __common__.yml, every field the port reads (a CPU test holds it against
@@ -839,13 +853,13 @@ EVAL_CUTS["dataset_params"].update({split: {
 W8A8_LOSS_TOL = 1.5e-3
 W8A8_GRAD_REL_TOL = 0.05
 
-# Phase 13: the shipped ImageNet recipe on its own dataset.  The card's
-# machine has no libjpeg, so the port decodes JPEG with its own decoder
-# (`apla_tpu_torch/native/jpeg_dec.cpp`); no dataset is in the repository
-# and none is fetched: the phase checks the decoder on the committed
-# fixtures (tests/data/jpeg, their manifest holding the JAX package's
-# decodes) and writes ILSVRC-layout trees of copies of them.  NABirds and
-# ISIC2019 are not read yet (ROADMAP A 5).
+# Phase 13: the shipped recipes on their own datasets.  The card's machine
+# has no libjpeg, Pillow or pandas, so the port decodes JPEG and PNG with
+# its own decoders (`apla_tpu_torch/native/`) and reads CSV tables with its
+# own reader; no dataset is in the repository and none is fetched: the
+# phase checks the decoders on the committed fixtures (tests/data/jpeg and
+# tests/data/png, their manifests holding the JAX package's decodes) and
+# writes ImageNet, NABirds, ISIC2019 and VTAB trees of copies of them.
 DATA_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
 DATA_CLASSES = 8
 DATA_TRAIN, DATA_VAL = 256, 64
@@ -876,6 +890,62 @@ HOST_CUTS = {
     "dataloader_params": {name: {"num_workers": 0} for name in (
         "trainloader", "valloader", "testloader")}}
 HOST_TRAIN, HOST_VAL = 64, 16
+
+# 13h-13j: the other two shipped recipes on trees of their own layout, and
+# PNG.  NABIRDS_RECIPE is params/finetune/dinov2/NABirds/vit_b/apla.yml
+# merged over its __common__.yml (a CPU test holds it against the YAML):
+# IMPORT_RECIPE's model, schedule and loaders at APLA rank 8 (no index
+# file: the columns come from the seed), ColorJitter on, no mixup, lr 3e-5.
+NABIRDS_RECIPE = copy.deepcopy(IMPORT_RECIPE)
+_NAB_TT = NABIRDS_RECIPE["dataset_params"]["train_transforms"]
+NABIRDS_RECIPE["dataset_params"]["dataset"] = "NABirds"
+for _name in ("RandomGrayscale", "advanced_aug", "advanced_aug_params"):
+    del _NAB_TT[_name]
+_NAB_TT["ColorJitter"]["apply"] = True
+NABIRDS_RECIPE["model_params"]["adaptation"]["params"] = {"partial_size": 8}
+NABIRDS_RECIPE["optimization_params"]["default"]["optimizer"]["params"][
+    "lr"] = 3e-5
+NABIRDS_RECIPE["training_params"].update(model_name="nabirds_vitb_apla",
+                                         val_every=0.5)
+# 13h's tree: data_info.csv, the three id files and images/<class>/ of
+# JPEG fixture copies; one update of b64 (8 micro-batches of 8), 16 val and
+# 16 test images, 8 of the 555 classes.  What 13h changes in the recipe is
+# 13c's: DATA_CUTS (one epoch, one validation, every step logged, val and
+# test loaders in-process), the tree's data_location and the seeded .pth.
+NABIRDS_TRAIN, NABIRDS_EVAL, NABIRDS_CLASSES = 64, 16, 8
+# 13h's first step, kernel arm against plain arm: phase 5's gradient bound
+# (GRAD_REL_TOL) and a loss bound of its own.  Phase 5's LOSS_TOL was set
+# at its random init, where the arms' losses part by 8.3e-6; from the
+# seeded .pth (LayerScale 0.1-1.0) they part by 5.2e-4 on an H100 80GB
+# HBM3 at 700 W, whatever k is: the loss is the forward's, and the
+# forward's bf16 roundings (fused: p rounded before p v, the projection
+# in one GEMM; plain: the attention and the projection apart) do not
+# depend on the trainable columns.  12c's W8A8 arm reads 5.52e-4 from the
+# same weights.  The bound sits 2.9x above; the f32 plain arm's loss is
+# printed beside both arms.
+NABIRDS_LOSS_TOL = 1.5e-3
+# 13i: SSL_RECIPE (the ISIC2019 DINOv2 recipe as shipped: APLA "full",
+# 65536 prototypes, the iBOT site through rows 10-12) on a tree of 80 JPEG
+# fixture copies: the 20% held out gives 8 val and 8 test images and 64
+# train, one update of b64.  Cuts: one epoch, every step logged, the val
+# and test loaders in-process, the val loader (and so the kNN feature bank
+# built from its settings) keeping its last, short batch: with the
+# recipe's drop_last the 8 val images would make no batch and the
+# validation would read nothing.
+ISIC_IMAGES = 80
+ISIC_CUTS = {"training_params": {"epochs": 1, "log_every": 1},
+             "dataloader_params": {
+                 "valloader": {"num_workers": 0, "drop_last": False},
+                 "testloader": {"num_workers": 0}}}
+# 13j: the PNG fixtures (tests/data/png, their manifest holding Pillow's
+# and the JAX package's decodes) and a VTAB tree of copies of them, read by
+# the recipes' loader (b64, 8 spawned workers) in raw mode at the
+# manifest's raw size and in host mode through NABIRDS_RECIPE's train
+# transforms; raw mode timed over the train split x DATA_RATE_REPEAT like
+# 13g, host mode (~200 img/s) over the split once.
+PNG_FIXTURES = os.path.join(ROOT, "tests", "data", "png")
+PNG_DATASET = "VTAB_flowers"
+PNG_TRAIN, PNG_EVAL = 256, 8
 
 
 def _gpu_line() -> str:
@@ -1496,10 +1566,11 @@ def _bwd_times(tag, qkv, w, g, inds, heads, scale):
     CUDA graph, each launch apart; the plain version; autograd through the
     two-call yardstick; the bound; printed with the launch plans."""
     from apla_tpu_torch.ops.fused_apla_attn import (
-        bwd_plans, dw_chunks, fused_apla_attn_bwd, fused_apla_attn_bwd_part,
-        fused_apla_attn_bwd_reference)
+        _KP, bwd_plans, dw_chunks, fused_apla_attn_bwd,
+        fused_apla_attn_bwd_part, fused_apla_attn_bwd_reference)
     b, n, c3 = qkv.shape
     c, k = c3 // 3, len(inds)
+    kp = -(-k // _KP) * _KP         # the columns the launches run: k padded
     # the yardstick's backward: autograd through its two calls
     lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
     lout = _library_attn(lq, lw, heads, scale)
@@ -1516,8 +1587,8 @@ def _bwd_times(tag, qkv, w, g, inds, heads, scale):
         lambda bits: fused_apla_attn_bwd_part(qkv, w, g, inds, heads, scale,
                                               bits),
         _bwd_launch_bounds(b, n, c, k))
-    attn, do_gemm, dw_gemm = bwd_plans(b, n, c, heads, k)
-    chunks = dw_chunks(b * n, c, k, _sm_count(qkv.device))[1]
+    attn, do_gemm, dw_gemm = bwd_plans(b, n, c, heads, kp)
+    chunks = dw_chunks(b * n, c, kp, _sm_count(qkv.device))[1]
     print(f"[{tag}] b{b} N={n} C={c} k={k}: kernel "
           f"{t['ms']:.4f} ms ({t['graph_ms']:.4f} from a CUDA graph), "
           f"plain {t['plain_ms']:.4f} ms, autograd of the two library "
@@ -2695,7 +2766,8 @@ def phase_train(device):
     }
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         launches, rates, _ = _train_phase(
-            device, tmp, RECIPE, SMOKE_CUTS, "5 train", "fused",
+            device, tmp, RECIPE, _eval_in_process(SMOKE_CUTS), "5 train",
+            "fused",
             (fa.fused_apla_attn_fwd, fa.fused_apla_attn_bwd), 0, controls,
             (LOSS_TOL, GRAD_REL_TOL))
     return launches, rates
@@ -3319,7 +3391,8 @@ def _phase_ssl(device, tmp, keep=None):
     from apla_tpu_torch.train.checkpoint import load_aux_state, \
         load_checkpoint
 
-    params = _run_params(SSL_RECIPE, SSL_CUTS, tmp, device)
+    params = _run_params(SSL_RECIPE, _eval_in_process(SSL_CUTS), tmp,
+                         device)
     t0 = time.perf_counter()
     wrapper = DINOv2Wrapper(params)
     wrapper.instantiate(seed=SEED)
@@ -4817,20 +4890,22 @@ def _recipe_file(tmp, name, recipe, cuts, device, pth):
     return path, params
 
 
-def _run_main(argv):
-    """`apla_tpu_torch.main.run_cli(argv)` -> (its result, the `Trainer`
-    it built, that trainer's model state when it was built: the wrapper's
-    weights before any step)."""
+def _run_main(argv, module=None, name="Trainer"):
+    """`apla_tpu_torch.main.run_cli(argv)` -> (its result, the trainer it
+    built, that trainer's model state when it was built: the wrapper's
+    weights before any step); the trainer class is `module.name`
+    (default: `train.trainer.Trainer`)."""
     from apla_tpu_torch import main as tmain
     from apla_tpu_torch.train import trainer as tr
+    module = module or tr
     seen = []
 
-    class Recorded(tr.Trainer):
+    class Recorded(getattr(module, name)):
         def __init__(self, wrapper):
             super().__init__(wrapper)
             seen.append((self, {n: t.detach().clone() for n, t in
                                 self.state.model.state_dict().items()}))
-    result = _with_patch(tr, "Trainer", Recorded,
+    result = _with_patch(module, name, Recorded,
                          lambda: tmain.run_cli(argv))
     return result, seen[0][0], seen[0][1]
 
@@ -5212,20 +5287,64 @@ def _data_decode_check():
     return manifest
 
 
-def _loader_rate(dataset, workers) -> float:
+def _loader_rate(dataset, workers, check=None) -> float:
     """Decode + resize img/s of the loader alone (b64, `workers` spawned
     workers, each loading whole batches), over the second pass (the
-    workers started in the first)."""
+    workers started in the first); `check(indices, batch)` sees the first
+    pass's first batch."""
     from apla_tpu_torch.data.loader import DataLoader
     loader = DataLoader(dataset, batch_size=64, shuffle=True, drop_last=True,
                         num_workers=workers, prefetch_factor=4)
     for epoch in (0, 1):
         loader.set_epoch(epoch)
+        first = next(iter(loader._index_batches()))
         t = time.perf_counter()
-        n = sum(int(b["label"].shape[0]) for b in loader)
+        n = 0
+        for b in loader:
+            if check is not None and epoch == 0 and n == 0:
+                check(first, b)
+            n += int(b["label"].shape[0])
         secs = time.perf_counter() - t
     del loader
     return n / secs
+
+
+def _first_batch_check(tag, trainer, manifest, source, run_s):
+    """The first batch of epoch 0 once more from a `main` run's own train
+    loader: its spawned workers decode, resize and collate it as they did
+    for the first update; held bit for bit against the same batch made here
+    from decodes that are held against the JPEG `manifest` (`source`: the
+    tree's path -> fixture name).  Printed; raises on a difference; -> the
+    batch."""
+    from apla_tpu_torch.data.loader import _Batches
+    loader = trainer.wrapper.dataloaders.trainloader
+    ds = loader.dataset
+    loader.set_epoch(0)
+    idxs = next(iter(loader._index_batches()))
+    batches = iter(loader)
+    batch = next(batches)
+    del batches
+    raw = manifest["raw_size"]
+    bad = [ds.data[i]["img_path"] for i in idxs
+           if _sha256(ds[int(i)]["image"]) != manifest["files"][
+               source[ds.data[i]["img_path"]]]["raw256"]]
+    want = _Batches(ds, loader.collate_fn, loader.seed)[(0, 0, idxs)]
+    same = sorted(want) == sorted(batch) and all(
+        torch.equal(batch[k], want[k]) for k in want)
+    images = batch["image"]
+    print(f"[{tag}] the shipped recipe (dataset {ds.name}, data_location "
+          f"-> the tree, raw_mode at {ds.raw_size}, {loader.num_workers} "
+          f"spawned loader workers) through `main` in {run_s:.1f} s; the "
+          f"first batch from the workers ({type(loader.collate_fn).__name__}"
+          f"), {images.dtype} {tuple(images.shape)}, bit-equal to the same "
+          f"batch made here {same}; its images' decodes bit-equal to the "
+          f"JAX package's {len(idxs) - len(bad)}/{len(idxs)}")
+    if ds.raw_size != raw or images.shape != (len(idxs), raw, raw, 3) \
+            or not same or bad:
+        raise SystemExit(f"the loader's batch differs from the decode of "
+                         f"its files: {tuple(images.shape)}, same {same}, "
+                         f"{bad[:3]}")
+    return batch
 
 
 def phase_data(device, keep, float_rates=None):
@@ -5271,42 +5390,12 @@ def _phase_data(device, tmp, keep, float_rates):
     got = _main_run_checks("13c imagenet", trainer, accum, counters)
     launches[0] += got[0]
     launches[1] += got[1]
-    # the first batch of epoch 0 once more from the run's own train loader:
-    # its spawned workers decode, resize and collate it (the recipe's
-    # mixup / cutmix collate) as they did for the first update; held bit
-    # for bit against the same batch made here from decodes that are
-    # held against the manifest
-    from apla_tpu_torch.data.loader import _Batches
     loader = trainer.wrapper.dataloaders.trainloader
     ds = loader.dataset
-    loader.set_epoch(0)
-    idxs = next(iter(loader._index_batches()))
-    batches = iter(loader)
-    batch = next(batches)
-    del batches
     raw = manifest["raw_size"]
-    bad = [ds.data[i]["img_path"] for i in idxs
-           if _sha256(ds[int(i)]["image"]) != manifest["files"][
-               source[ds.data[i]["img_path"]]]["raw256"]]
-    want = _Batches(ds, loader.collate_fn, loader.seed)[(0, 0, idxs)]
-    same = sorted(want) == sorted(batch) and all(
-        torch.equal(batch[k], want[k]) for k in want)
-    images = batch["image"]
+    _first_batch_check("13c imagenet", trainer, manifest, source, run_s)
     rate = _steady_img_s(trainer)
     updates = len(loader)
-    print(f"[13c imagenet] the shipped recipe (dataset ImageNet, "
-          f"data_location -> the tree, raw_mode at {ds.raw_size}, "
-          f"{loader.num_workers} spawned loader workers) through `main` in "
-          f"{run_s:.1f} s; the first batch from the workers "
-          f"({type(loader.collate_fn).__name__}), {images.dtype} "
-          f"{tuple(images.shape)}, bit-equal to the same batch made here "
-          f"{same}; its images' decodes bit-equal to the JAX package's "
-          f"{len(idxs) - len(bad)}/{len(idxs)}")
-    if ds.raw_size != raw or images.shape != (len(idxs), raw, raw, 3) \
-            or not same or bad:
-        raise SystemExit(f"the loader's batch differs from the decode of "
-                         f"its files: {tuple(images.shape)}, same {same}, "
-                         f"{bad[:3]}")
     del trainer, loader
 
     # 13g: the loader's decode + resize rate alone, beside the step rates
@@ -5366,6 +5455,392 @@ def _phase_data(device, tmp, keep, float_rates):
                              "resident_img_s": resident}
 
 
+# --------------------------------------------------------------------------- #
+# 13h-13j. the NABirds and ISIC2019 recipes on their own layouts; PNG
+# --------------------------------------------------------------------------- #
+
+def _write_nabirds_tree(root) -> dict:
+    """<root>/NABirds: data_info.csv (image_id, imagepath, class_id), the
+    split files {train,val,test}_image_ids.txt and images/<class>/<id>.jpg
+    of JPEG fixture copies, round-robin; class ids 5 .. 1405 (sorted as
+    strings by the reader); -> {path: fixture name}."""
+    import shutil
+    names = sorted(_fixture_manifest()["files"])
+    base = os.path.join(root, "NABirds")
+    rows, ids, source = [], {}, {}
+    k = 0
+    for split, n in (("train", NABIRDS_TRAIN), ("val", NABIRDS_EVAL),
+                     ("test", NABIRDS_EVAL)):
+        ids[split] = []
+        for i in range(n):
+            image_id = f"{k:08x}-0c3a-4d55-9a00-{7919 * k:012x}"
+            class_id = 5 + 200 * (k % NABIRDS_CLASSES)
+            path = f"{class_id:04d}/{image_id}.jpg"
+            dest = os.path.join(base, "images", path)
+            os.makedirs(os.path.dirname(dest), exist_ok=True)
+            shutil.copy(os.path.join(DATA_FIXTURES, names[k % len(names)]),
+                        dest)
+            source[os.path.abspath(dest)] = names[k % len(names)]
+            rows.append(f"{image_id},{path},{class_id}")
+            ids[split].append(image_id)
+            k += 1
+    with open(os.path.join(base, "data_info.csv"), "w") as f:
+        f.write("image_id,imagepath,class_id\n" + "\n".join(rows) + "\n")
+    for split, part in ids.items():
+        with open(os.path.join(base, f"{split}_image_ids.txt"), "w") as f:
+            f.write("\n".join(part) + "\n")
+    return source
+
+
+def _write_isic_tree(root, n) -> None:
+    """<root>/ISIC2019: ISIC_2019_Training_GroundTruth.csv (image, then the
+    nine one-hot columns MEL .. UNK as floats; UNK never set) and
+    train/<image>.jpg of JPEG fixture copies."""
+    import shutil
+    names = sorted(_fixture_manifest()["files"])
+    base = os.path.join(root, "ISIC2019")
+    os.makedirs(os.path.join(base, "train"))
+    rows = []
+    for i in range(n):
+        image = f"ISIC_{i:07d}"
+        shutil.copy(os.path.join(DATA_FIXTURES, names[i % len(names)]),
+                    os.path.join(base, "train", image + ".jpg"))
+        hot = ["0.0"] * 9
+        hot[i % 8] = "1.0"
+        rows.append(",".join([image] + hot))
+    with open(os.path.join(base, "ISIC_2019_Training_GroundTruth.csv"),
+              "w") as f:
+        f.write("image,MEL,NV,BCC,AK,BKL,DF,VASC,SCC,UNK\n"
+                + "\n".join(rows) + "\n")
+
+
+def phase_recipes(device, keep, jpeg_loader_rate=None):
+    """13h, 13i, 13j: the NABirds recipe (APLA-8, rows 1 and 2) and the
+    ISIC2019 DINOv2 recipe ("full", rows 10-12) through `main` on trees of
+    their datasets' layouts, and the PNG fixtures and a VTAB tree of them;
+    `keep`: phase 12's hub-layout checkpoint (`hub_pth`) when it ran;
+    `jpeg_loader_rate`: 13g's, printed beside 13j's.  -> (rows 1, 2
+    launches, rows 10-12 launches, readings)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipes_") as tmp:
+        from apla_tpu_torch.wrapper import build_vit_config
+        pth = keep.get("hub_pth")
+        if pth is None:
+            pth = os.path.join(tmp, "dinov2_vitb14_hub.pth")
+            torch.save(_dinov2_state(build_vit_config(IMPORT_RECIPE), SEED),
+                       pth)
+        out = {}
+        for name, run in (("13h", lambda: _phase_nabirds(device, tmp, pth)),
+                          ("13i", lambda: _phase_isic(device, tmp, pth)),
+                          ("13j", lambda: _phase_png(jpeg_loader_rate))):
+            t = time.perf_counter()
+            out[name] = run()
+            print(f"[{name}] took {time.perf_counter() - t:.1f} s")
+    (apla, nab), (proto, isic), png = out["13h"], out["13i"], out["13j"]
+    return apla, proto, {"nabirds": nab, "isic": isic, "png": png}
+
+
+def _phase_nabirds(device, tmp, pth):
+    from apla_tpu_torch.data.device_augs import device_augment
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.wrapper import build_apla_config
+    manifest = _fixture_manifest()
+    counters = (fa.fused_apla_attn_fwd, fa.fused_apla_attn_bwd)
+    accum = int(NABIRDS_RECIPE["training_params"]["accum_steps"])
+    t = time.perf_counter()
+    root = _subdir(tmp, "nabirds")
+    source = _write_nabirds_tree(root)
+    cuts = copy.deepcopy(DATA_CUTS)
+    cuts["dataset_params"] = {"data_location": root}
+    recipe, _ = _recipe_file(tmp, "nabirds", NABIRDS_RECIPE, cuts, device,
+                             pth)
+    print(f"[13h nabirds] NABirds tree ({NABIRDS_TRAIN} train, "
+          f"{NABIRDS_EVAL} val, {NABIRDS_EVAL} test image ids over "
+          f"{NABIRDS_CLASSES} class ids, JPEG fixture copies) written in "
+          f"{time.perf_counter() - t:.2f} s")
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    _, trainer, init = _run_main(["--params_path", recipe, "--device",
+                                  str(device), "--model_name", "nabirds"])
+    _sync(device)
+    run_s = time.perf_counter() - t
+    launches = _main_run_checks("13h nabirds", trainer, accum, counters)
+    batch = _first_batch_check("13h nabirds", trainer, manifest, source,
+                               run_s)
+    wrapper = trainer.wrapper
+    ds = wrapper.dataloaders.trainloader.dataset
+    k = build_apla_config(wrapper.parameters).partial_size
+    labels = sorted({r["label"] for r in ds.data})
+    first = [(it, r) for it, r in trainer.history if "images_per_sec" in r]
+    update_s = NABIRDS_TRAIN / first[0][1]["images_per_sec"]
+    print(f"[13h nabirds] {ds.n_classes} classes in the head, labels "
+          f"{labels} from the tree's class ids; APLA k = {k}; the update "
+          f"took {update_s:.2f} s from the start of training, its batch's "
+          f"decodes included")
+    if k != 8 or labels != list(range(NABIRDS_CLASSES)):
+        raise SystemExit("the NABirds run is not the recipe's APLA-8 on the "
+                         "tree's classes")
+
+    # the first step's kernel arm against the plain arm from the weights
+    # the run started from, under phase 5's bounds and controls
+    model, cfg = trainer.state.model, wrapper.vit_cfg
+    model.load_state_dict(init)
+    batch = {key: v.to(device) for key, v in batch.items()}
+    images = device_augment(batch["image"], torch.Generator(
+        device=device).manual_seed(SEED), wrapper.device_aug_cfg,
+        compute_dtype=cfg.compute_dtype)
+    plain_cfg = dataclasses.replace(cfg, use_fused_apla=False,
+                                    use_flash=False)
+    args = (images, batch["label"], wrapper.criterion, accum)
+    ref = _step_grads(model, plain_cfg, *args)
+    tag = "13h nabirds"
+    got = _step_grads(model, cfg, *args)
+    tols = (NABIRDS_LOSS_TOL, GRAD_REL_TOL)
+    ok = _grad_agreement(tag, "kernel arm (k = 8)", got, ref, *tols)
+    f32 = _step_grads(model, dataclasses.replace(
+        plain_cfg, compute_dtype=torch.float32), *args)[0]
+    print(f"[{tag}] the f32 plain arm's loss {f32:.7f}: the kernel arm "
+          f"{got[0] - f32:+.3g} from it, the bf16 plain arm "
+          f"{ref[0] - f32:+.3g}")
+    controls = {"dW_t zeroed": lambda out: (out[0], out[1] * 0),
+                "dqkv halved": lambda out: (out[0] * 0.5, out[1])}
+    caught = all([not _grad_agreement(
+        tag, f"control: {name}", _with_output_fault(
+            fa, "fused_apla_attn_bwd", fault,
+            lambda: _step_grads(model, cfg, *args)), ref, *tols)
+        for name, fault in controls.items()])
+    for p in model.parameters():
+        p.grad = None
+    if not ok:
+        raise SystemExit("13h: the kernel arm's gradients at k = 8 disagree "
+                         "with the plain arm")
+    if not caught:
+        raise SystemExit("13h: a broken backward kernel passes the gradient "
+                         "bounds")
+    step_img_s, peak = _train_rate(wrapper, cfg, accum, batch)
+    print(f"[13h nabirds] train step b{NABIRDS_TRAIN} accum {accum} kernel "
+          f"arm on the run's first batch: {step_img_s:.1f} img/s, peak "
+          f"{peak:.2f} GB; {_gpu_line()}")
+
+    # rows 1 and 2 alone at the recipe's micro-batch and k = 8
+    gen = torch.Generator().manual_seed(SEED + 8)
+    heads, scale, c = 12, 64 ** -0.5, 768
+    qkv = torch.randn((accum, 257, 3 * c), generator=gen).to(
+        device, torch.bfloat16)
+    w = (torch.randn((c, c), generator=gen) * c ** -0.5).to(device,
+                                                            torch.bfloat16)
+    g = torch.randn((accum, 257, c), generator=gen).to(device,
+                                                       torch.bfloat16)
+    inds = torch.randperm(c, generator=gen)[:k].to(device)
+    errs = _bwd_errors(fa.fused_apla_attn_bwd(qkv, w, g, inds, heads, scale),
+                       fa.fused_apla_attn_bwd_reference(qkv, w, g, inds,
+                                                        heads, scale))
+    ok = all(e <= bound for e, bound in errs.values())
+    print(f"[13h nabirds] row 2 at [{accum}, 257, {3 * c}] k={k}: "
+          + ", ".join(f"{n} max|err| {e:.6g} (bound {bound:.6g})"
+                      for n, (e, bound) in errs.items())
+          + f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the backward kernel disagrees with its plain "
+                         "version at k = 8")
+    bwd = _bwd_times(tag, qkv, w, g, inds, heads, scale)
+    bwd["max_abs_err"] = max(e for e, _ in errs.values())
+    fwd = _fused_fwd_times(qkv, w, heads, scale)
+    _print_fwd_times(tag, accum, 257, c, fwd)
+    return launches, {"update_s": update_s, "run_s": run_s,
+                      "step_img_s": step_img_s, "bwd_k8": bwd,
+                      "fwd_b8": fwd}
+
+
+def _phase_isic(device, tmp, pth):
+    from apla_tpu_torch.ops import proto_ce as pc
+    from apla_tpu_torch.ssl import dinov2 as d2
+    counters = (pc.proto_ce_fwd, pc.proto_ce_dxs, pc.proto_ce_dws)
+    t = time.perf_counter()
+    root = _subdir(tmp, "isic")
+    _write_isic_tree(root, ISIC_IMAGES)
+    cuts = copy.deepcopy(ISIC_CUTS)
+    cuts["dataset_params"] = {"data_location": root}
+    recipe, _ = _recipe_file(tmp, "isic", SSL_RECIPE, cuts, device, pth)
+    print(f"[13i isic2019] ISIC2019 tree ({ISIC_IMAGES} JPEG fixture "
+          f"copies, the ground-truth table's nine one-hot columns) written "
+          f"in {time.perf_counter() - t:.2f} s")
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    _, trainer, _ = _run_main(["--dinov2", "--params_path", recipe,
+                               "--device", str(device), "--model_name",
+                               "isic"], d2, "Dinov2Trainer")
+    _sync(device)
+    run_s = time.perf_counter() - t
+    launches = tuple(c.launches for c in counters)
+    wrapper = trainer.wrapper
+    loaders = wrapper.dataloaders
+    steps = len(loaders.trainloader)
+    with open(os.path.join(root, "ISIC2019", "val_ids.json")) as f:
+        split = json.load(f)
+    sizes = {name: len(loaders[name].dataset)
+             for name in ("trainloader", "valloader", "testloader")}
+    records = [r for _, r in trainer.history if "train_loss" in r]
+    knn = [r for _, r in trainer.history
+           if any(key.startswith("knn_val_") for key in r)]
+    update_s = loaders.trainloader.batch_size / records[0]["images_per_sec"]
+    full = wrapper.model_params.adaptation.params.partial_size
+    print(f"[13i isic2019] the shipped recipe (`main --dinov2`, APLA "
+          f"{full!r}, {wrapper.n_prototypes} prototypes, fused_proto_ce "
+          f"{wrapper.model_params.dinov2.fused_proto_ce}, "
+          f"{loaders.trainloader.num_workers} spawned train loader workers) "
+          f"in {run_s:.1f} s: {steps} update(s) of b"
+          f"{loaders.trainloader.batch_size}, the first {update_s:.2f} s "
+          f"from the start of training; val_ids.json: "
+          f"{len(split['train_split'])} train, {len(split['val_split'])} "
+          f"held out; loaders {sizes}; proto_ce fwd/dxs/dws launches "
+          f"{launches} (expected {(steps,) * 3})")
+    print("[13i isic2019] loss terms: " + "; ".join(
+        ", ".join(f"{key} {r[key]:.5g}" for key in ("train_loss",)
+                  + SSL_LOSS_TERMS) for r in records))
+    print(f"[13i isic2019] kNN validation on the teacher: "
+          f"{knn[-1] if knn else 'none'}")
+    n_val = int(ISIC_IMAGES * 0.2)
+    if launches != (steps,) * 3 or steps != 1 or full != "full":
+        raise SystemExit("13i did not run rows 10-12 once in its one update")
+    if (len(split["train_split"]), len(split["val_split"])) != (
+            ISIC_IMAGES - n_val, n_val) or sizes != {
+            "trainloader": ISIC_IMAGES - n_val, "valloader": n_val // 2,
+            "testloader": n_val - n_val // 2}:
+        raise SystemExit(f"ISIC2019's seeded split is not the JAX "
+                         f"package's sizes: {sizes}")
+    if len(records) != steps or not all(
+            np.isfinite([r[key] for key in ("train_loss",)
+                         + SSL_LOSS_TERMS]).all() for r in records):
+        raise SystemExit("missing or non-finite SSL loss terms")
+    if not knn or not all(np.isfinite(v) for key, v in knn[-1].items()
+                          if key.startswith("knn_val_")):
+        raise SystemExit("no finite kNN validation on the teacher")
+    return launches, {"update_s": update_s, "run_s": run_s,
+                      "knn": {key: v for key, v in knn[-1].items()
+                              if key.startswith("knn_val_")}}
+
+
+def _png_decode_check(manifest):
+    """13j's first half: every PNG fixture through the native decoder (RGB,
+    the raw samples, the raw-mode image at the manifest's raw size) against
+    the manifest; the native and the numpy plain decoders timed on the
+    224 x 224 RGB fixture.  -> (native ms, numpy ms)."""
+    from apla_tpu_torch import native
+    from apla_tpu_torch.data.datasets import BaseSet
+    from apla_tpu_torch.data.detection_data import (decode_png, read_image,
+                                                    read_png)
+    t = time.perf_counter()
+    native.png_lib()
+    build_s = time.perf_counter() - t
+    ds = BaseSet.__new__(BaseSet)
+    ds.raw_size = manifest["raw_size"]
+    bad = []
+    t = time.perf_counter()
+    for name, want in sorted(manifest["files"].items()):
+        path = os.path.join(PNG_FIXTURES, name)
+        raw = read_png(path, raw=True)
+        if raw.dtype.str != want["raw_dtype"] or _sha256(
+                raw.astype(np.uint8) if raw.dtype == bool else raw) \
+                != want["raw"]:
+            bad.append(f"{name} raw")
+        if _sha256(read_image(path)) != want["full"]:
+            bad.append(f"{name} rgb")
+        if _sha256(ds.load_raw({"img_path": path})) != want["raw224"]:
+            bad.append(f"{name} raw{ds.raw_size}")
+    decode_s = time.perf_counter() - t
+    n = len(manifest["files"])
+    with open(os.path.join(PNG_FIXTURES, "rgb_224.png"), "rb") as f:
+        data = f.read()
+    native_ms = min(_wall_ms(lambda: native.decode_png(data))
+                    for _ in range(20))
+    numpy_ms = _wall_ms(lambda: decode_png(data, "rgb_224.png"))
+    print(f"[13j png] g++ build of the PNG library {build_s:.1f} s; {n} "
+          f"fixtures (every colour type and depth, Adam7, the five filters) "
+          f"decoded natively in {decode_s:.2f} s: sha256 equal to the "
+          f"manifest {3 * n - len(bad)}/{3 * n} (RGB, raw samples, raw "
+          f"mode at {ds.raw_size}); rgb_224.png native {native_ms:.3f} ms "
+          f"(best of 20), the numpy plain decoder {numpy_ms:.1f} ms (once)")
+    if bad:
+        raise SystemExit(f"the port's PNG decode differs from Pillow's at "
+                         f"{bad}")
+    return native_ms, numpy_ms
+
+
+def _wall_ms(fn) -> float:
+    t = time.perf_counter()
+    fn()
+    return 1000.0 * (time.perf_counter() - t)
+
+
+def _phase_png(jpeg_loader_rate):
+    """13j: the PNG fixtures against their manifest, then a VTAB tree of
+    them read by the recipes' loader (8 spawned workers, b64) in raw mode,
+    its first batch held to the manifest, and in host mode."""
+    import shutil
+    from apla_tpu_torch.data.datasets import _VTAB_LOCATIONS, \
+        get_dataset_class
+    with open(os.path.join(PNG_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    native_ms, numpy_ms = _png_decode_check(manifest)
+    names = sorted(manifest["files"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_png_") as tmp:
+        loc = _VTAB_LOCATIONS.get(PNG_DATASET, PNG_DATASET)
+        cls = get_dataset_class(PNG_DATASET)
+        source, k = {}, 0
+        for split, n in (("train", PNG_TRAIN), ("val", PNG_EVAL),
+                         ("test", PNG_EVAL)):
+            d = os.path.join(tmp, loc, split)
+            os.makedirs(d)
+            for i in range(n):
+                path = os.path.join(d, f"img_{i}-label_{i % cls.n_classes}"
+                                       f".png")
+                shutil.copy(os.path.join(PNG_FIXTURES,
+                                         names[k % len(names)]), path)
+                source[os.path.abspath(path)] = names[k % len(names)]
+                k += 1
+        params = {**copy.deepcopy(NABIRDS_RECIPE["dataset_params"]),
+                  "dataset": PNG_DATASET, "data_location": tmp}
+        raw_set = cls(params, "train")
+        raw_set.raw_mode, raw_set.raw_size = True, manifest["raw_size"]
+        raw_set.data = raw_set.data * DATA_RATE_REPEAT
+        checked = []
+
+        def check(idxs, batch):
+            images = batch["image"]
+            checked.append(images.shape == (len(idxs), raw_set.raw_size,
+                                            raw_set.raw_size, 3) and all(
+                _sha256(images[j].numpy()) == manifest["files"][source[
+                    raw_set.data[int(i)]["img_path"]]]["raw224"]
+                for j, i in enumerate(idxs)))
+        raw_rate = _loader_rate(raw_set, DATA_LOADER_WORKERS, check)
+        host_set = cls(params, "train")       # the split once: ~200 img/s
+        shapes = []
+        host_rate = _loader_rate(host_set, DATA_LOADER_WORKERS,
+                                 lambda idxs, batch: shapes.append(
+                                     (tuple(batch["image"].shape),
+                                      bool(torch.isfinite(
+                                          batch["image"]).all()))))
+    size = int(params["train_transforms"]["RandomResizedCrop"]["size"])
+    steps = " -> ".join(type(x).__name__
+                        for x in host_set.transform.transforms)
+    jpeg = f"{jpeg_loader_rate:.1f}" if jpeg_loader_rate else "not measured"
+    print(f"[13j png] {PNG_DATASET} tree ({PNG_TRAIN} train PNG fixture "
+          f"copies, x {DATA_RATE_REPEAT}) through the loader (b64, "
+          f"{DATA_LOADER_WORKERS} spawned workers): raw mode at "
+          f"{raw_set.raw_size} {raw_rate:.1f} img/s, the first batch's "
+          f"decodes equal to the manifest {checked}; host mode (the NABirds "
+          f"recipe's train transforms: {steps}, {len(host_set)} images) "
+          f"{host_rate:.1f} img/s, first batch {shapes}; 13g's JPEG loader "
+          f"{jpeg} img/s; {_gpu_line()}")
+    if checked != [True] or shapes != [((64, size, size, 3), True)]:
+        raise SystemExit("the PNG tree's batches are not the decodes of its "
+                         "files")
+    return {"native_ms": native_ms, "numpy_ms": numpy_ms,
+            "raw_img_s": raw_rate, "host_img_s": host_rate}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5407,6 +5882,8 @@ def main() -> int:
     v1_times, v1_launches, v1_rates = timed("11", phase_ssl_v1, device)
     p12, w8_rates = timed("12", phase_import, device, rates, keep)
     data_launches, data_rates = timed("13", phase_data, device, keep, rates)
+    recipe_launches, proto_launches, recipe_rates = timed(
+        "13h-j", phase_recipes, device, keep, data_rates["loader_img_s"])
     keep_dir.cleanup()
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
@@ -5441,6 +5918,12 @@ def main() -> int:
                                     data_rates["synthetic_img_s"]),
                                    ("device-resident",
                                     data_rates["resident_img_s"])))
+          + "; NABirds APLA-8 update "
+          + f"{recipe_rates['nabirds']['update_s']:.2f} s, step b64 img/s "
+          + f"{recipe_rates['nabirds']['step_img_s']:.1f}; ISIC2019 DINOv2 "
+          + f"\"full\" update {recipe_rates['isic']['update_s']:.2f} s; PNG "
+          + f"loader img/s raw {recipe_rates['png']['raw_img_s']:.1f} host "
+          + f"{recipe_rates['png']['host_img_s']:.1f}"
           + f"; whole run {time.perf_counter() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + " s)")
     print(_gpu_line())
@@ -5452,22 +5935,24 @@ def main() -> int:
          "pallas_apla_attn.py:105",
          serve_launches + fwd_launches + ssl_launches[0] + w8a8_launches[1]
          + sum(n[0] for n in v1_launches.values()) + p12["fwd"]
-         + data_launches[0],
+         + data_launches[0] + recipe_launches[0],
          {**fwd_times[FWD_TIMED[0]],
           "max_abs_err": max(max_err, v1_times["fwd"]["max_abs_err"])}),
         ("fused_apla_attn_bwd", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn.py:131",
          bwd_launches + ssl_launches[1]
          + sum(n[1] for n in v1_launches.values()) + p12["bwd"]
-         + data_launches[1],
+         + data_launches[1] + recipe_launches[1],
          {**bwd_times[main_shape],
-          "max_abs_err": max(bwd_err, v1_times["bwd"]["max_abs_err"])}),
+          "max_abs_err": max(bwd_err, v1_times["bwd"]["max_abs_err"],
+                             recipe_rates["nabirds"]["bwd_k8"][
+                                 "max_abs_err"])}),
         ("proto_ce_fwd", "proto_ce_fwd.cu", "pallas_proto_ce.py:73",
-         ssl_launches[2], proto_times["fwd"]),
+         ssl_launches[2] + proto_launches[0], proto_times["fwd"]),
         ("proto_ce_dxs", "proto_ce_bwd.cu", "pallas_proto_ce.py:130",
-         ssl_launches[3], proto_times["dxs"]),
+         ssl_launches[3] + proto_launches[1], proto_times["dxs"]),
         ("proto_ce_dws", "proto_ce_bwd.cu", "pallas_proto_ce.py:150",
-         ssl_launches[4], proto_times["dws"]),
+         ssl_launches[4] + proto_launches[2], proto_times["dws"]),
         ("mha_fwd", "mha_fwd.cu", "pallas_mha.py:66",
          full_serve_launches + full_fwd, mha_times["fwd"]),
         ("mha_bwd", "mha_bwd.cu", "pallas_mha.py:81", full_bwd,
@@ -5544,7 +6029,11 @@ def main() -> int:
                      for (b, n), t in list(fwd_times.items())
                      + [(V1_KERNEL_SHAPE[:2], v1_times["fwd"])]],
                  "launches_by_objective": {
-                     obj: n[0] for obj, n in v1_launches.items()}},
+                     obj: n[0] for obj, n in v1_launches.items()},
+                 "nabirds_b8": {k: recipe_rates["nabirds"]["fwd_b8"][k]
+                                for k in ("ms", "graph_ms", "host_ms",
+                                          "plain_ms", "library_two_calls_ms",
+                                          "bound_ms", "bound_by")}},
              "fused_apla_attn_fwd_seg": fused_fwd(seg_times["fwd"]),
              "proto_ce_fwd": {
                  "sources": [f"apla_tpu_torch/csrc/{src}" for src in (
@@ -5619,7 +6108,11 @@ def main() -> int:
                      for (b, n), t in list(bwd_times.items())
                      + [(V1_KERNEL_SHAPE[:2], v1_times["bwd"])]],
                  "launches_by_objective": {
-                     obj: n[1] for obj, n in v1_launches.items()}},
+                     obj: n[1] for obj, n in v1_launches.items()},
+                 "nabirds_k8": {k: recipe_rates["nabirds"]["bwd_k8"][k]
+                                for k in ("ms", "graph_ms", "plain_ms",
+                                          "library_two_calls_ms", "bound_ms",
+                                          "bound_by", "max_abs_err")}},
              "fused_apla_attn_bwd_seg": {
                  **bwd_extra(seg_times["bwd"], fused=True),
                  "by_shape": [{"shape": [SEG_KERNEL_CASES[0][0],

@@ -967,3 +967,84 @@ def test_data_phase_rehearsal(monkeypatch, tmp_path):
     assert rates["loader_img_s"] > 0 and rates["train_img_s"] > 0
     assert rates["synthetic_img_s"] is None
     assert rates["resident_img_s"] == 1.0
+
+
+NABIRDS_YML = "params/finetune/dinov2/NABirds/vit_b/apla.yml"
+
+
+def test_nabirds_recipe_dict_is_the_yaml():
+    """Every field of NABIRDS_RECIPE has the NABirds recipe's value (APLA
+    rank 8 without an index file, ColorJitter on, no mixup, lr 3e-5), and
+    the YAML's train transforms are all in it; 13h's cuts are 13c's; 13i's
+    are one epoch and in-process val / test loaders, the val loader keeping
+    its short batch."""
+    smoke = _chip_smoke()
+    yml = load_merged_params(os.path.join(ROOT, NABIRDS_YML))
+    assert _subdict_mismatches(smoke.NABIRDS_RECIPE, yml) == []
+    assert smoke.NABIRDS_RECIPE["dataset_params"]["train_transforms"] == \
+        yml.dataset_params.train_transforms
+    assert build_apla_config(yml).partial_size == 8
+    assert yml.model_params.adaptation.params == {"partial_size": 8}
+    params = smoke._run_params(smoke.NABIRDS_RECIPE, smoke.DATA_CUTS, "/x",
+                               "cpu")
+    assert params["dataloader_params"]["trainloader"] == \
+        yml.dataloader_params.trainloader
+    cfg = build_vit_config(params)
+    assert (cfg.embed_dim, cfg.depth, cfg.img_size, cfg.use_fused_apla) == \
+        (768, 12, 518, True)
+    assert smoke.ISIC_CUTS == {
+        "training_params": {"epochs": 1, "log_every": 1},
+        "dataloader_params": {
+            "valloader": {"num_workers": 0, "drop_last": False},
+            "testloader": {"num_workers": 0}}}
+    yml = load_merged_params(os.path.join(ROOT, SSL_YML))
+    assert yml.model_params.adaptation.params.partial_size == "full"
+    assert smoke.SSL_RECIPE["model_params"]["adaptation"]["params"][
+        "partial_size"] == "full"
+    # 80 images: 64 train (one update of b64), 8 val, 8 test
+    assert smoke.ISIC_IMAGES - int(0.2 * smoke.ISIC_IMAGES) == 64
+
+
+def test_recipes_phase_rehearsal(monkeypatch, tmp_path):
+    """Phases 13h-13j on the CPU at tiny sizes: the NABirds recipe (APLA-8)
+    through `main` on its tree with rows 1 and 2 counted in every block of
+    every micro-step and eval call, the first batch against the manifest,
+    the kernel arm against the plain arm and the two backward faults; the
+    ISIC2019 DINOv2 recipe ("full") through `main --dinov2` with rows 10-12
+    counted once each, the split sizes and finite loss terms and kNN
+    validation; the PNG fixtures against their manifest and a VTAB tree
+    through the loader, raw and host."""
+    smoke = _chip_smoke()
+    _tiny_import(smoke, monkeypatch)
+    _tiny_ssl(smoke, monkeypatch)
+    tiny = _tiny_recipe(smoke.NABIRDS_RECIPE)
+    tiny["dataset_params"]["train_transforms"]["Resize"] = {
+        "apply": True, "height": 256, "width": 256}
+    monkeypatch.setattr(smoke, "NABIRDS_RECIPE", tiny)
+    assert smoke.SSL_RECIPE["model_params"]["adaptation"]["params"] == {
+        "partial_size": "full"} and smoke.SSL_RECIPE["model_params"][
+            "pretrained"]
+    monkeypatch.setattr(smoke, "NABIRDS_TRAIN", 16)
+    monkeypatch.setattr(smoke, "NABIRDS_EVAL", 8)
+    monkeypatch.setattr(smoke, "ISIC_IMAGES", 20)
+    monkeypatch.setattr(smoke, "PNG_TRAIN", 64)
+    monkeypatch.setattr(smoke, "DATA_LOADER_WORKERS", 0)
+    monkeypatch.setattr(smoke, "DATA_RATE_REPEAT", 1)
+    monkeypatch.setattr(smoke, "_gpu_line", lambda: "no card (CPU)")
+    timed = {"ms": 1.0, "graph_ms": 1.0, "host_ms": 1.0, "plain_ms": 1.0,
+             "library_two_calls_ms": 1.0, "bound_ms": 1.0,
+             "bound_by": "ops"}
+    monkeypatch.setattr(smoke, "_bwd_times", lambda *a: dict(timed))
+    monkeypatch.setattr(smoke, "_fused_fwd_times", lambda *a: dict(timed))
+    monkeypatch.setattr(smoke, "_print_fwd_times", lambda *a: None)
+    monkeypatch.setattr(smoke, "LOSS_TOL", 3e-3)
+    monkeypatch.setattr(smoke, "GRAD_REL_TOL", 0.08)
+    _count_plain_versions(monkeypatch)
+    apla, proto, rates = smoke.phase_recipes(torch.device("cpu"),
+                                             {"dir": str(tmp_path)}, 100.0)
+    # 13h: 16 images = 1 update of b16 (8 micro-steps of 2), val and test 1
+    # batch each
+    assert apla == (12 * (8 + 2), 12 * 8)
+    assert proto == (1, 1, 1)
+    assert rates["nabirds"]["bwd_k8"]["max_abs_err"] == 0.0
+    assert rates["isic"]["knn"] and rates["png"]["raw_img_s"] > 0

@@ -105,6 +105,7 @@ def _bwd_errors(got, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,seg,c,k", [
     (8, 257, 0, 768, 128),    # the recipe's training micro-batch
+    (8, 257, 0, 768, 8),      # the NABirds recipe's APLA-8: 8 live columns
     (64, 257, 0, 768, 128),   # a b64 step without accumulation
     (2, 1370, 0, 768, 128),   # ViT-B/14 at 518
     (8, 200, 50, 768, 128),   # packed segments

@@ -114,7 +114,7 @@ def test_unported_transforms_and_datasets_raise():
         0, rng=np.random.default_rng(0))["image"]
     assert got.shape == (48, 48, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    for name in ("NABirds", "ISIC2019", "SyntheticMultiLabel"):
+    for name in ("SyntheticMultiLabel",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdata.get_dataset_class(name)
 

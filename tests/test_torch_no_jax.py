@@ -16,7 +16,9 @@ segmentation side-car: an ADE20K-layout set written and read, the SETR-PUP
 segmenter trained through the fused APLA path with aux heads, checkpointed,
 exported and served; and decodes the committed JPEG fixtures with the
 port's own decoder and reads an ImageNet tree of them through the recipe's
-host transforms and the raw path.
+host transforms and the raw path; decodes the committed PNG fixtures with
+the native PNG decoder against their manifest; reads NABirds and ISIC2019
+trees (CSV tables, no pandas) and a VTAB tree of PNGs.
 """
 
 import os
@@ -254,6 +256,76 @@ with tempfile.TemporaryDirectory() as tmp:
     assert sample.shape == (32, 32, 3) and np.isfinite(sample).all()
     ds.raw_mode, ds.raw_size = True, 48
     assert ds[1]["image"].shape == (48, 48, 3)
+
+# the PNG fixtures through the native decoder against their manifest, and
+# the shipped recipes' datasets (NABirds, ISIC2019: CSV tables) and a VTAB
+# task (PNGs) read from trees of the fixtures
+import hashlib
+from apla_tpu_torch.data.datasets import get_dataset_class
+from apla_tpu_torch.data.detection_data import read_png
+
+
+def sha(a):
+    if a.dtype == bool:
+        a = a.astype(np.uint8)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+pngs = os.path.join("tests", "data", "png")
+with open(os.path.join(pngs, "manifest.json")) as f:
+    png_manifest = json.load(f)["files"]
+for name, entry in png_manifest.items():
+    path = os.path.join(pngs, name)
+    assert sha(read_image(path)) == entry["full"], name
+    assert sha(read_png(path, raw=True)) == entry["raw"], name
+jpegs = sorted(manifest)[:4]
+with tempfile.TemporaryDirectory() as tmp:
+    nab = os.path.join(tmp, "NABirds")
+    os.makedirs(os.path.join(nab, "images", "0010"))
+    ids = [f"id-{i}" for i in range(4)]
+    with open(os.path.join(nab, "data_info.csv"), "w") as f:
+        f.write("image_id,imagepath,class_id\n")
+        for i, name in enumerate(jpegs):
+            shutil.copy(os.path.join(fixtures, name),
+                        os.path.join(nab, "images", "0010", f"{i}.jpg"))
+            f.write(f"{ids[i]},0010/{i}.jpg,{(10, 2)[i % 2]}\n")
+    for split, part in (("train", ids[:2]), ("val", ids[2:3]),
+                        ("test", ids[3:])):
+        with open(os.path.join(nab, f"{split}_image_ids.txt"), "w") as f:
+            f.write("\n".join(part) + "\n")
+    isic = os.path.join(tmp, "ISIC2019")
+    os.makedirs(os.path.join(isic, "train"))
+    with open(os.path.join(isic, "ISIC_2019_Training_GroundTruth.csv"),
+              "w") as f:
+        f.write("image,MEL,NV,BCC,AK,BKL,DF,VASC,SCC,UNK\n")
+        for i in range(10):
+            shutil.copy(os.path.join(fixtures, jpegs[i % 4]),
+                        os.path.join(isic, "train", f"ISIC_{i:07d}.jpg"))
+            hot = ["0.0"] * 9
+            hot[i % 8] = "1.0"
+            f.write(f"ISIC_{i:07d}," + ",".join(hot) + "\n")
+    for split in ("train", "val", "test"):
+        d = os.path.join(tmp, "VTAB_oxford_flowers102", split)
+        os.makedirs(d)
+        for i, name in enumerate(sorted(png_manifest)[:3]):
+            shutil.copy(os.path.join(pngs, name),
+                        os.path.join(d, f"img_{i}-label_{i}.png"))
+    tt = {"Resize": {"apply": True, "height": 40, "width": 40},
+          "CenterCrop": {"apply": True, "height": 32, "width": 32},
+          "Normalize": True}
+    params = {"data_location": tmp, "train_transforms": tt,
+              "val_transforms": tt, "test_transforms": tt}
+    nabirds = get_dataset_class("NABirds")(params, "train")
+    assert [r["label"] for r in nabirds.data] == [0, 1]   # "10" < "2"
+    isic_sets = [get_dataset_class("ISIC2019")(params, m)
+                 for m in ("train", "val", "test")]
+    assert [len(d) for d in isic_sets] == [8, 1, 1]
+    vtab = get_dataset_class("VTAB_flowers")(params, "test")
+    for ds in (nabirds, isic_sets[0], vtab):
+        sample = ds.__getitem__(0, rng=np.random.default_rng(0))["image"]
+        assert sample.shape == (32, 32, 3) and np.isfinite(sample).all()
+        ds.raw_mode, ds.raw_size = True, 24
+        assert ds[len(ds) - 1]["image"].shape == (24, 24, 3)
 
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked

@@ -163,7 +163,7 @@ def test_cli_tests_a_checkpoint(trained, capsys):
     ("system_params", "sequence_parallel", True),
     ("system_params", "n_devices", 4),
     ("system_params", "param_sharding", "fsdp"),
-    ("dataset_params", "dataset", "NABirds"),
+    ("dataset_params", "dataset", "SyntheticMultiLabel"),
     ("optimization_params", "LAMB", None),
     ("ssl", "quantize_frozen", True),
 ])
