@@ -27,8 +27,7 @@ turn them into float32.
 - Otherwise the mode's transforms run, with a Resize that every pipeline
   shares hoisted out and run once (`disentangle_resizes_from_transforms`).
 
-`get_dataset_class` resolves every name the JAX one resolves but
-`SyntheticMultiLabel`, which raises (ROADMAP A 6: multi-label metrics).
+`get_dataset_class` resolves every name the JAX one resolves.
 """
 
 from __future__ import annotations
@@ -257,6 +256,23 @@ class Synthetic(BaseSet):
         return data
 
 
+class SyntheticMultiLabel(Synthetic):
+    """Multi-label variant of `Synthetic`: record i carries labels i % C
+    and (i + 1) % C as a float vector (the BCE and multi-label metrics
+    path)."""
+
+    is_multiclass = False
+    target_metric = "mAP"
+
+    def get_data_as_list(self):
+        data = super().get_data_as_list()
+        for rec in data:
+            c = rec["label"]
+            vec = np.zeros(self.n_classes, np.float32)
+            vec[c] = 1.0
+            vec[(c + 1) % self.n_classes] = 1.0
+            rec["label"] = vec
+        return data
 
 
 # --------------------------------------------------------------------------- #
@@ -911,12 +927,7 @@ def compute_stats(loader):
 
 def get_dataset_class(name: str):
     """The `BaseSet` class of this module called `name` (as the JAX
-    package's lookup); `SyntheticMultiLabel` raises, an unknown name
-    raises KeyError."""
-    if name == "SyntheticMultiLabel":
-        raise NotImplementedError(
-            "multi-label datasets are not ported yet (ROADMAP A 6: "
-            "multi-label metrics)")
+    package's lookup); an unknown name raises KeyError."""
     cls = globals().get(name)
     if cls is None or not (isinstance(cls, type) and issubclass(cls, BaseSet)):
         raise KeyError(f"Unknown dataset: {name}")

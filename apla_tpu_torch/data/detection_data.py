@@ -16,9 +16,17 @@ and the classification transforms): the filter's support grows with the
 reduction factor, in Pillow's fixed-point arithmetic.
 `write_png` is the matching encoder (used to write synthetic sets).
 
-Not ported yet: the other image formats, and the instance masks
-(`rle_to_mask`, `polygons_to_mask`, `with_masks=True`); asking for either
-raises, naming its ROADMAP item.
+Instance masks (`with_masks=True`, the mask branch of `segdet det
+--masks`): each annotation's segmentation rasterised onto the mask grid
+(img_size / mask_stride) as the JAX reader does it: COCO RLE, uncompressed
+or compressed (`rle_to_mask`, column-major runs) sampled at the nearest
+source pixel, polygons through `polygons_to_mask`, which gives Pillow's
+`ImageDraw.polygon(pts, fill=1, outline=1)` pixels without Pillow (the
+vertices truncated to ints, then Pillow's scanline fill of `Draw.c`), and
+the filled box where the segmentation is missing or empty.
+
+Not ported yet: the other image formats; asking for one raises, naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,8 +43,6 @@ from .. import native
 
 FORMATS_TODO = ("only PNG and JPEG images are decoded without PIL: ROADMAP A "
                 "'PIL-free transforms and real datasets'")
-MASKS_TODO = ("instance masks (RLE and polygon rasterising without PIL) are "
-              "not ported yet: ROADMAP A 'Detection mask branch'")
 
 _PNG_SIG = native.PNG_SIGNATURE
 
@@ -329,11 +335,10 @@ class CocoDetection:
     def __init__(self, img_dir: str, ann_file: str, img_size: int = 224,
                  max_boxes: int = 32, with_masks: bool = False,
                  mask_stride: int = 4):
-        if with_masks:
-            raise NotImplementedError(MASKS_TODO)
         self.img_dir = img_dir
         self.img_size = img_size
         self.max_boxes = max_boxes
+        self.with_masks = with_masks
         self.mask_stride = mask_stride
         with open(ann_file) as f:
             coco = json.load(f)
@@ -369,14 +374,226 @@ class CocoDetection:
             x, y, bw, bh = ann["bbox"]  # COCO xywh
             boxes[i] = [x * sx, y * sy, (x + bw) * sx, (y + bh) * sy]
             labels[i] = self.cat_to_label[ann["category_id"]]
-        return {"image": arr.astype(np.float32), "boxes": boxes,
-                "labels": labels, "n_boxes": len(anns)}
+        out = {"image": arr.astype(np.float32), "boxes": boxes,
+               "labels": labels, "n_boxes": len(anns)}
+        if self.with_masks:
+            hm = self.img_size // self.mask_stride
+            masks = np.zeros((self.max_boxes, hm, hm), np.uint8)
+            for i, ann in enumerate(anns):
+                masks[i] = self._gt_mask(ann, (h0, w0), hm)
+            out["masks"] = masks
+        return out
+
+    def _gt_mask(self, ann, src_hw, hm):
+        """One annotation's segmentation on the [hm, hm] mask grid; a
+        missing or empty segmentation falls back to the filled box."""
+        h0, w0 = src_hw
+        seg = ann.get("segmentation")
+        if isinstance(seg, dict):  # RLE (uncompressed list or compressed str)
+            full = rle_to_mask(seg)
+            ys = (np.arange(hm) + 0.5) * full.shape[0] / hm
+            xs = (np.arange(hm) + 0.5) * full.shape[1] / hm
+            return full[ys.astype(int)[:, None], xs.astype(int)[None, :]]
+        if isinstance(seg, list) and seg and isinstance(seg[0], (list, tuple)):
+            return polygons_to_mask(seg, hm, hm, sx=hm / w0, sy=hm / h0)
+        # box fallback (also what mmdet does for degenerate segmentations)
+        x, y, bw, bh = ann["bbox"]
+        m = np.zeros((hm, hm), np.uint8)
+        x0 = int(np.floor(x / w0 * hm))
+        y0 = int(np.floor(y / h0 * hm))
+        x1 = int(np.ceil((x + bw) / w0 * hm))
+        y1 = int(np.ceil((y + bh) / h0 * hm))
+        m[max(y0, 0):y1, max(x0, 0):x1] = 1
+        return m
 
 
 def detection_collate(samples, rng=None, batch_key=None):
     del rng, batch_key
-    return {
+    out = {
         "image": np.stack([s["image"] for s in samples]),
         "boxes": np.stack([s["boxes"] for s in samples]),
         "labels": np.stack([s["labels"] for s in samples]),
     }
+    if "masks" in samples[0]:
+        out["masks"] = np.stack([s["masks"] for s in samples])
+    return out
+
+
+# ------------------------------------------------------------------ #
+# instance masks: COCO RLE and polygons
+# ------------------------------------------------------------------ #
+
+def _rle_counts_from_string(s: str):
+    """COCO's compressed-RLE characters -> the counts list (pycocotools'
+    rleFrString: 5-bit groups, 0x20 = more, sign-extended on 0x10 in the
+    last group, each count past the second a delta on counts[-2])."""
+    counts = []
+    p = 0
+    while p < len(s):
+        x, k, more = 0, 0, True
+        while more:
+            c = ord(s[p]) - 48
+            x |= (c & 0x1F) << (5 * k)
+            more = bool(c & 0x20)
+            p += 1
+            k += 1
+            if not more and (c & 0x10):
+                x |= -1 << (5 * k)
+        if len(counts) > 2:
+            x += counts[-2]
+        counts.append(x)
+    return counts
+
+
+def rle_to_mask(rle) -> np.ndarray:
+    """COCO RLE ({'counts': list|str, 'size': [h, w]}) -> [h, w] uint8.
+    Counts are column-major (Fortran) runs alternating 0/1, starting at 0."""
+    h, w = rle["size"]
+    counts = rle["counts"]
+    if isinstance(counts, str):
+        counts = _rle_counts_from_string(counts)
+    flat = np.zeros(h * w, np.uint8)
+    pos, val = 0, 0
+    for c in counts:
+        flat[pos:pos + c] = val
+        pos += c
+        val = 1 - val
+    return flat.reshape((w, h)).T
+
+
+_F32 = np.float32
+
+
+def _c_int(v: float) -> int:
+    """C's (int) cast of a double on x86-64 (`cvttpd2dq`): toward zero,
+    INT_MIN for what int32 cannot hold."""
+    if not math.isfinite(v) or not -2 ** 31 < v < 2 ** 31:
+        return -2 ** 31
+    return int(v)
+
+
+def _roundf(v) -> float:
+    """C's roundf: halves away from zero."""
+    v = float(v)
+    return math.floor(v + 0.5) if v >= 0 else -math.floor(-v + 0.5)
+
+
+def _round_up(v) -> int:        # Draw.c ROUND_UP: floor(v + 0.5), mirrored
+    return int(_roundf(v))
+
+
+def _round_down(v) -> int:      # Draw.c ROUND_DOWN: ceil(v - 0.5), mirrored
+    v = float(v)
+    return int(math.ceil(v - 0.5)) if v >= 0 else -int(math.ceil(-v - 0.5))
+
+
+class _Edge:
+    """Draw.c's Edge: the int end points, their bounds and the float32
+    slope dx/dy."""
+
+    __slots__ = ("x0", "y0", "xmin", "xmax", "ymin", "ymax", "dx")
+
+    def __init__(self, x0, y0, x1, y1):
+        self.x0, self.y0 = x0, y0
+        self.xmin, self.xmax = min(x0, x1), max(x0, x1)
+        self.ymin, self.ymax = min(y0, y1), max(y0, y1)
+        self.dx = _F32(0) if y0 == y1 else _F32(_F32(x1 - x0)
+                                                / _F32(y1 - y0))
+
+    def x_at(self, y: int):
+        """The edge's x on row y, in float32 as Draw.c computes it."""
+        return _F32(_F32(_F32(y - self.y0) * self.dx) + _F32(self.x0))
+
+
+def _hline(img, x0: int, y: int, x1: int) -> None:
+    """Draw.c's hline8: row y from x0 to x1 inclusive, clipped."""
+    h, w = img.shape
+    if not 0 <= y < h or x0 >= w or x1 < 0:
+        return
+    x0, x1 = max(x0, 0), min(x1, w - 1)
+    if x0 <= x1:
+        img[y, x0:x1 + 1] = 1
+
+
+def _polygon_edges(xy):
+    """ImagingDrawPolygon's edge list of int vertices `xy`: a horizontal
+    edge that continues the previous horizontal edge in the same direction
+    extends it, and the ring closes unless its ends coincide."""
+    edges = []
+    for i in range(len(xy) - 1):
+        (x0, y0), (x1, y1) = xy[i], xy[i + 1]
+        if y0 == y1 and i and y0 == xy[i - 1][1]:
+            px = xy[i - 1][0]
+            if x1 > x0 > px:
+                edges[-1].xmax = x1
+                continue
+            if x1 < x0 < px:
+                edges[-1].xmin = x1
+                continue
+        edges.append(_Edge(x0, y0, x1, y1))
+    if xy[-1] != xy[0]:
+        edges.append(_Edge(*xy[-1], *xy[0]))
+    return edges
+
+
+def _fill_polygon(img, edges) -> None:
+    """Pillow 12's scanline fill (`polygon_generic` of Draw.c, 8-bit
+    images): horizontal edges are drawn as lines first; on each row the
+    crossings of the other edges are sorted and filled in pairs from
+    ROUND_UP to ROUND_DOWN.  An edge ending on the row counts twice unless
+    the row is the last one; at an edge's end point a second edge meeting
+    it there (rounded x equal, both sloped) may move the crossing next to
+    where the two edges are on the neighbouring row, so that thin corners
+    stay connected."""
+    h = img.shape[0]
+    ymin, ymax = h - 1, 0
+    table = []
+    for e in edges:
+        ymin, ymax = min(ymin, e.ymin), max(ymax, e.ymax)
+        if e.ymin == e.ymax:
+            _hline(img, e.xmin, e.ymin, e.xmax)
+        else:
+            table.append(e)
+    last = min(ymax, h)
+    for y in range(max(ymin, 0), last + 1):
+        xx = []
+        for i, cur in enumerate(table):
+            if not cur.ymin <= y <= cur.ymax:
+                continue
+            x = cur.x_at(y)
+            xx.append(x)
+            if y == cur.ymax and y < last:
+                xx.append(x)
+                continue
+            if y not in (cur.ymin, cur.ymax) or cur.dx == 0:
+                continue
+            y_adj = y - 1 if y == cur.ymax else y + 1
+            for other in table[:i]:
+                if y not in (other.ymin, other.ymax) or other.dx == 0 \
+                        or _roundf(other.x_at(y)) != _roundf(x) \
+                        or not other.ymin <= y_adj <= other.ymax:
+                    continue
+                a, b = cur.x_at(y_adj), other.x_at(y_adj)
+                if x > a + 1 and x > b + 1:
+                    xx[-1] = _F32(_roundf(max(a, b)) + 1)
+                elif a - 1 > x and b - 1 > x:
+                    xx[-1] = _F32(_roundf(min(a, b)) - 1)
+                break
+        xx.sort()
+        for j in range(1, len(xx), 2):
+            _hline(img, _round_up(xx[j - 1]), y, _round_down(xx[j]))
+
+
+def polygons_to_mask(polys, out_h: int, out_w: int, sx: float = 1.0,
+                     sy: float = 1.0) -> np.ndarray:
+    """COCO polygons ([[x0, y0, x1, y1, ...], ...], source-image coords,
+    scaled by (sx, sy)) -> [out_h, out_w] uint8, each ring filled as
+    Pillow's `ImageDraw.polygon(pts, outline=1, fill=1)` fills it; rings of
+    fewer than 3 points are skipped."""
+    img = np.zeros((out_h, out_w), np.uint8)
+    for poly in polys:
+        xy = [(_c_int(poly[i] * sx), _c_int(poly[i + 1] * sy))
+              for i in range(0, len(poly) - 1, 2)]
+        if len(xy) >= 3:
+            _fill_polygon(img, _polygon_edges(xy))
+    return img

@@ -14,7 +14,10 @@ Counterpart of `apla_tpu/segdet.py`:
 - `det`: APLA-Swin + FCOS on a COCO-format dataset (the reference recipe
   mask-rcnn_apla_swin-t ... coco.py: only each block's attn.proj trains),
   box mAP@50 every epoch, multi-scale training (`--scales`), an HF Swin
-  checkpoint (`--swin_ckpt`) and a separate validation set.
+  checkpoint (`--swin_ckpt`) and a separate validation set.  `--masks`
+  (the recipe's `with_mask=True`) trains the prototype-mask branch too
+  (`--n_protos` prototypes) and reports mask mAP@50 beside box mAP@50; the
+  best-model race then runs on mask mAP.
 
     python -m apla_tpu_torch.segdet seg --root <ade_root> --use_fused \\
         --aux_heads 3 --head_lr_mult 10 [--eval_img_size 640] [--device cpu]
@@ -30,8 +33,8 @@ optimizer state; the frozen backbone is stored once, in
 `<task>_frozen.pt`), each beside a `.json` meta with the JAX loop's keys
 (`epoch`, `miou` or `map50`, `preempted`).
 
-Not ported yet, each raising with its ROADMAP item: `det --masks`,
-`--n_devices > 1` and `--param_sharding fsdp`.  The entry points run on the
+Not ported yet, each raising with its ROADMAP item: `--n_devices > 1` and
+`--param_sharding fsdp`.  The entry points run on the
 card unless asked for the CPU (`--device cpu`).  `--use_fused` on the card
 takes bfloat16 compute (the kernels are bf16 only: the ViT's default;
 `det` needs `--bf16`), and the JAX loop's process-global
@@ -52,10 +55,10 @@ import torch
 
 from .data.detection_data import CocoDetection, detection_collate
 from .data.loader import DataLoader
-from .models.detection import (MASKS_TODO, DetectionAP, decode_detections,
+from .models.detection import (DetectionAP, decode_detections,
                                default_strides, detection_optimizer,
-                               detector_forward, init_detector,
-                               make_detection_train_step)
+                               detector_outputs, init_detector,
+                               make_detection_train_step, mask_generator)
 from .apla.core import AplaConfig
 from .data.segmentation_data import ADE20KSegmentation, segmentation_collate
 from .models.seg import (init_segmenter, iou_counts, make_seg_train_step,
@@ -352,12 +355,11 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
                     masks=False, n_protos=32, use_fused=False, bf16=False,
                     device=None):
     """APLA-Swin + FCOS on a COCO-format dataset.  Returns {'best_map50',
-    'iters', 'eval_set'} (and 'preempted' after a SIGTERM)."""
+    'iters', 'eval_set'} (and 'preempted' after a SIGTERM); `masks=True`
+    trains the instance-mask branch (`n_protos` prototypes) and adds
+    'best_mask_map50'."""
     from .wrapper import resolve_device
 
-    del n_protos
-    if masks:
-        raise NotImplementedError(MASKS_TODO)
     if (n_devices or 1) > 1 or param_sharding != "replicated":
         raise NotImplementedError(PARALLEL_TODO)
     device = resolve_device(device)
@@ -365,7 +367,7 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
         raise ValueError("--use_fused on the card needs --bf16: the window "
                          "kernel takes bfloat16 only")
     ds = CocoDetection(img_dir, ann_file, img_size=img_size,
-                       max_boxes=max_boxes)
+                       max_boxes=max_boxes, with_masks=masks)
     # multi-scale training (reference recipe name: mstrain_480-800): one
     # scale drawn per epoch
     scales = tuple(int(s) for s in scales) if scales else None
@@ -390,7 +392,9 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
                         drop_last=True, num_workers=num_workers,
                         collate_fn=detection_collate, seed=seed)
     model = init_detector(cfg, ds.n_classes,
-                          torch.Generator().manual_seed(seed))
+                          torch.Generator().manual_seed(seed),
+                          n_protos=n_protos if masks else 0,
+                          mask_generator=mask_generator(seed))
     if swin_state is not None:
         model.backbone.load_state_dict(swin_state)
         build_apla_swin(model.backbone)
@@ -407,19 +411,24 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
         _try_resume(save_dir, name, model)
     elif resume:
         start_epoch = _try_resume(save_dir, "det_last", model, optimizer)
-    step = make_detection_train_step(cfg, optimizer, strides=strides)
+    step = make_detection_train_step(cfg, optimizer, strides=strides,
+                                     with_mask=masks)
 
     # a real validation split when provided; otherwise eval reuses the
     # train set and is labelled as such
     val_ds = (CocoDetection(val_img_dir, val_ann, img_size=img_size,
-                            max_boxes=max_boxes)
+                            max_boxes=max_boxes, with_masks=masks)
               if val_img_dir and val_ann else ds)
     eval_name = "val" if val_ds is not ds else "train"
 
     @torch.inference_mode()
     def evaluate():
-        """Box mAP@50 over the evaluation set, at the base size."""
+        """(box mAP@50, mask mAP@50 or None) over the evaluation set, at
+        the base size: the metric pair of the reference's Mask R-CNN
+        recipe."""
         metric = DetectionAP(ds.n_classes)
+        mask_metric = DetectionAP(ds.n_classes, use_masks=True) \
+            if masks else None
         prev_size = val_ds.img_size
         val_ds.img_size = img_size
         vloader = DataLoader(val_ds, batch_size=batch_size, shuffle=False,
@@ -428,34 +437,64 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
         for i, b in enumerate(vloader):
             if eval_batches is not None and i >= eval_batches:
                 break
-            outs = detector_forward(model, b["image"].to(device), cfg)
+            outs, protos = detector_outputs(model, b["image"].to(device),
+                                            cfg)
             outs = [tuple(o.float().cpu().numpy() for o in lvl)
                     for lvl in outs]
             labels = b["labels"].numpy()
             gt_boxes = b["boxes"].numpy()
+            gt_masks = b["masks"].numpy() if masks else None
             for j in range(labels.shape[0]):
                 per_img = [tuple(o[j:j + 1] for o in lvl) for lvl in outs]
                 keep = labels[j] >= 0
-                boxes, scores, pred_labels = decode_detections(per_img,
-                                                               strides)
+                if masks:
+                    boxes, scores, pred_labels, pmasks = decode_detections(
+                        per_img, strides, protos=protos[j:j + 1],
+                        mask_stride=strides[0])
+                    mask_metric.add_image(
+                        i * batch_size + j, boxes, scores, pred_labels,
+                        gt_boxes[j][keep], labels[j][keep],
+                        pred_masks=pmasks, gt_masks=gt_masks[j][keep])
+                else:
+                    boxes, scores, pred_labels = decode_detections(per_img,
+                                                                   strides)
                 metric.add_image(i * batch_size + j, boxes, scores,
                                  pred_labels, gt_boxes[j][keep],
                                  labels[j][keep])
         val_ds.img_size = prev_size
-        return metric.mean_ap()
+        return metric.mean_ap(), (mask_metric.mean_ap() if masks else None)
 
     if eval_only:
-        ap = evaluate()
-        print(f"[det] eval-only: {eval_name} mAP@50 {ap:.4f}")
-        return {"best_map50": ap, "iters": 0, "eval_set": eval_name}
+        ap, mask_ap = evaluate()
+        msg = f"[det] eval-only: {eval_name} mAP@50 {ap:.4f}"
+        out = {"best_map50": ap, "iters": 0, "eval_set": eval_name}
+        if masks:
+            msg += f" mask mAP@50 {mask_ap:.4f}"
+            out["best_mask_map50"] = mask_ap
+        print(msg)
+        return out
 
     if not _has_ckpt(save_dir, "det_frozen"):  # store the backbone once
         _save(save_dir, "det_frozen", {}, _state(model)[1], {})
     preempted, restore_sig = _preemption_flag()
     logger = RunLogger(save_dir, run_name="det")
     it, t0 = 0, time.time()
-    best_map = _best_metric(save_dir, "det_best", "map50") if resume \
+    # with masks on, the best-model race runs on mask mAP (the recipe's
+    # instance-segmentation target); box mAP is reported beside it, on
+    # resume from the best checkpoint's meta
+    best_key = "mask_map50" if masks else "map50"
+    best_map = _best_metric(save_dir, "det_best", best_key) if resume \
         else -1.0
+    best_box = _best_metric(save_dir, "det_best", "map50") if resume \
+        else -1.0
+
+    def result(**extra):
+        out = {"best_map50": best_box if masks else best_map, "iters": it,
+               **extra, "eval_set": eval_name}
+        if masks:
+            out["best_mask_map50"] = best_map
+        return out
+
     for epoch in range(start_epoch, epochs):
         if scales:
             # per-epoch seed: the scale sequence is a pure function of
@@ -465,41 +504,52 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
             print(f"[det] epoch {epoch}: train scale {ds.img_size}")
         loader.set_epoch(epoch)
         for b in loader:
-            batch = {k: b[k].to(device) for k in ("image", "boxes",
-                                                  "labels")}
-            m = step(model, batch)
+            keys = ("image", "boxes", "labels") + (("masks",) if masks
+                                                   else ())
+            m = step(model, {k: b[k].to(device) for k in keys})
             it += 1
             if it % log_every == 0:
                 loss = float(m["total"])
                 rate = it * batch_size / (time.time() - t0)
-                print(f"[det] it {it} ep {epoch} loss {loss:.4f} "
+                extra = (f" mask {float(m['mask_loss']):.4f}"
+                         if masks else "")
+                print(f"[det] it {it} ep {epoch} loss {loss:.4f}{extra} "
                       f"({rate:.1f} img/s)")
-                logger.log({"epoch": epoch, "train_loss": round(loss, 5),
-                            "cls_loss": round(float(m["cls_loss"]), 5),
-                            "img_s": round(rate, 1)}, it)
+                rec = {"epoch": epoch, "train_loss": round(loss, 5),
+                       "cls_loss": round(float(m["cls_loss"]), 5),
+                       "img_s": round(rate, 1)}
+                if masks:
+                    rec["mask_loss"] = round(float(m["mask_loss"]), 5)
+                logger.log(rec, it)
             if preempted():
                 # mid-epoch: save resumable state marked at epoch-1 so
                 # --resume replays this (partial) epoch from its start
                 _save(save_dir, "det_last", _state(model)[0], None,
-                      {"epoch": epoch - 1, "map50": best_map,
+                      {"epoch": epoch - 1, best_key: best_map,
                        "preempted": True},
                       opt_state=optimizer.state_dict())
                 print("[det] preempted - saved det_last, exiting")
                 restore_sig()
-                return {"best_map50": best_map, "iters": it,
-                        "preempted": True, "eval_set": eval_name}
-        ap = evaluate()
-        print(f"[det] epoch {epoch}: {eval_name} mAP@50 {ap:.4f}")
-        logger.log({"epoch": epoch, f"{eval_name}_map50": round(ap, 5)}, it)
+                return result(preempted=True)
+        ap, mask_ap = evaluate()
+        msg = f"[det] epoch {epoch}: {eval_name} mAP@50 {ap:.4f}"
+        rec = {"epoch": epoch, f"{eval_name}_map50": round(ap, 5)}
         meta = {"epoch": epoch, "map50": ap}
+        if masks:
+            msg += f" mask mAP@50 {mask_ap:.4f}"
+            rec[f"{eval_name}_mask_map50"] = round(mask_ap, 5)
+            meta["mask_map50"] = mask_ap
+        print(msg)
+        logger.log(rec, it)
         trainable, frozen = _state(model)
-        if ap >= best_map:
-            best_map = ap
+        sel = mask_ap if masks else ap
+        if sel >= best_map:
+            best_map, best_box = sel, ap
             _save(save_dir, "det_best", trainable, frozen, meta)
         _save(save_dir, "det_last", trainable, None, meta,
               opt_state=optimizer.state_dict())
     restore_sig()
-    return {"best_map50": best_map, "iters": it, "eval_set": eval_name}
+    return result()
 
 
 def _ints(text):
@@ -578,8 +628,10 @@ def main(argv=None):
                          "patch*window*2^(stages-1), e.g. 224/448 for the "
                          "4-stage w7 recipe")
     pd.add_argument("--masks", action="store_true",
-                    help="instance-mask branch (not ported yet)")
-    pd.add_argument("--n_protos", type=int, default=32)
+                    help="train the instance-mask branch and report mask "
+                         "mAP@50 (reference recipe with_mask=True)")
+    pd.add_argument("--n_protos", type=int, default=32,
+                    help="prototype-mask channels for --masks")
     pd.add_argument("--use_fused", action="store_true",
                     help="route Swin window attention + the APLA proj "
                          "through the fused window kernels (with --bf16 "

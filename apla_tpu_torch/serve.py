@@ -235,9 +235,11 @@ def export_detector(path: str, model, swin_cfg, strides,
                     batch_sizes=(1, 8), quantize_frozen=False) -> dict:
     """Write a serving artifact for the FCOS detection side-car (`model` a
     `models.detection.Detector`, served with `swin_cfg`).  Calls compute
-    the raw per-level maps; `DetPredictor.detect` decodes them per image on
-    the host.  `quantize_frozen`: see `_maybe_quantize`.  Returns the meta
-    dict."""
+    the raw per-level maps (a detector trained with the mask branch, `segdet
+    det --masks`, also its coefficient maps and prototype masks:
+    `with_masks` in the meta); `DetPredictor.detect` decodes them per image
+    on the host.  `quantize_frozen`: see `_maybe_quantize`.  Returns the
+    meta dict."""
     model = _maybe_quantize(model, quantize_frozen)
     batch_sizes = _check_batch_sizes(batch_sizes)
     os.makedirs(path, exist_ok=True)
@@ -248,7 +250,7 @@ def export_detector(path: str, model, swin_cfg, strides,
         "img_size": int(swin_cfg.img_size),
         "n_classes": int(model.head.cls.bias.shape[0]),
         "strides": [int(s) for s in strides],
-        "with_masks": False,
+        "with_masks": model.protonet is not None,
         "batch_sizes": batch_sizes,
         "quantized_frozen": is_quantized(model),
         "swin_config": _swin_echo(swin_cfg),
@@ -259,55 +261,68 @@ def export_detector(path: str, model, swin_cfg, strides,
 
 
 class DetPredictor(Predictor):
-    """Runs a detector artifact: calls return the raw per-level FCOS maps;
-    `detect` decodes them per image on the host (sigmoid, score threshold,
-    greedy NMS)."""
+    """Runs a detector artifact: calls return the raw per-level FCOS maps
+    (and the prototype masks of a mask export); `detect` decodes them per
+    image on the host (sigmoid, score threshold, greedy NMS, and the
+    prototype-mask assembly when present)."""
 
     def __init__(self, meta: dict, model, swin_cfg, device: torch.device):
         super().__init__(meta, model, None, device)
         self.swin_cfg = swin_cfg
 
     @torch.inference_mode()
-    def _call(self, chunk: np.ndarray):
-        from .models.detection import detector_forward
+    def _call(self, chunk: np.ndarray, m: int):
+        """One call -> (levels, protos or None) as numpy, its first m
+        images."""
+        from .models.detection import detector_outputs
         x = torch.from_numpy(chunk).to(self.device)
-        return detector_forward(self.model, x, self.swin_cfg)
+        levels, protos = detector_outputs(self.model, x, self.swin_cfg)
+        levels = [tuple(o[:m].float().cpu().numpy() for o in lvl)
+                  for lvl in levels]
+        return levels, (None if protos is None
+                        else protos[:m].float().cpu().numpy())
 
     def _run_chunks(self, images: np.ndarray):
-        chunks = []
-        for _, m, chunk in self._iter_chunks(images):
-            chunks.append([tuple(o[:m].float().cpu().numpy() for o in lvl)
-                           for lvl in self._call(chunk)])
-        if not chunks:
+        outs = [self._call(chunk, m)
+                for _, m, chunk in self._iter_chunks(images)]
+        if not outs:
             # empty request: one call of the smallest batch on zeros, so
             # the per-level output shapes are still right (trimmed to 0)
             img, b = self.meta["img_size"], self.batch_sizes[0]
-            chunks.append([tuple(o[:0].float().cpu().numpy() for o in lvl)
-                           for lvl in self._call(
-                               np.zeros((b, img, img, 3), np.float32))])
-        return [tuple(np.concatenate([c[lvl][j] for c in chunks])
-                      for j in range(len(chunks[0][lvl])))
-                for lvl in range(len(chunks[0]))]
+            outs = [self._call(np.zeros((b, img, img, 3), np.float32), 0)]
+        levels = [tuple(np.concatenate([c[0][lvl][j] for c in outs])
+                        for j in range(len(outs[0][0][lvl])))
+                  for lvl in range(len(outs[0][0]))]
+        protos = None if outs[0][1] is None \
+            else np.concatenate([c[1] for c in outs])
+        return levels, protos
 
     def predict(self, images: np.ndarray):
         """[n, H, W, 3] -> per-level raw maps [(cls_logits [n,H_l,W_l,K],
-        box [n,H_l,W_l,4], ctr [n,H_l,W_l,1])]."""
-        return self._run_chunks(images)
+        box [n,H_l,W_l,4], ctr [n,H_l,W_l,1])] (+ a coefficient map per
+        level for mask exports; `predict_protos` gives the prototypes)."""
+        return self._run_chunks(images)[0]
 
     def predict_protos(self, images: np.ndarray):
-        from .models.detection import MASKS_TODO
-        raise NotImplementedError(MASKS_TODO)
+        """[n, H, W, 3] -> prototype masks [n, Hm, Wm, P] (mask exports;
+        None otherwise)."""
+        return self._run_chunks(images)[1]
 
     def detect(self, images: np.ndarray, score_thresh=0.05, top_k=100):
         """[n, H, W, 3] -> list of n (boxes [M,4], scores [M], labels [M])
-        tuples (host-side decode + NMS per image)."""
+        tuples, (boxes, scores, labels, masks [M,Hm,Wm] bool) for mask
+        exports (host-side decode + NMS per image)."""
         from .models.detection import decode_detections
-        levels = self._run_chunks(images)
+        levels, protos = self._run_chunks(images)
         strides = self.meta["strides"]
-        return [decode_detections([tuple(o[j:j + 1] for o in lvl)
-                                   for lvl in levels], strides,
-                                  score_thresh=score_thresh, top_k=top_k)
-                for j in range(images.shape[0])]
+        out = []
+        for j in range(images.shape[0]):
+            kw = {} if protos is None else {"protos": protos[j:j + 1],
+                                            "mask_stride": strides[0]}
+            out.append(decode_detections(
+                [tuple(o[j:j + 1] for o in lvl) for lvl in levels], strides,
+                score_thresh=score_thresh, top_k=top_k, **kw))
+        return out
 
     def embed(self, images):
         raise NotImplementedError("detection artifacts have no embedding "
@@ -321,11 +336,15 @@ class DetPredictor(Predictor):
 def detector_from_state(swin_cfg, n_classes, trainable: dict, frozen: dict,
                         device) -> "torch.nn.Module":
     """A `Detector` holding the state maps (int8 kernels where the state
-    has them), trainable flags as named."""
+    has them; the mask branch where it has `head.coef`), trainable flags
+    as named."""
     from .models.detection import Detector
     from .ops.quant import quantize_like_state
     state = {**frozen, **trainable}
-    model = quantize_like_state(Detector(swin_cfg, n_classes), state)
+    n_protos = int(state["head.coef.bias"].shape[0]) \
+        if "head.coef.bias" in state else 0
+    model = quantize_like_state(Detector(swin_cfg, n_classes, n_protos),
+                                state)
     names = set(model.state_dict())
     if names != set(state):
         raise ValueError("the state does not name the detector's "
@@ -597,7 +616,8 @@ def _print_results(title: str, results: dict) -> dict:
 
 def _eval_detector(pred, args) -> dict:
     """Box mAP@50 of a detector artifact over a COCO set, decoded as
-    `DetPredictor.detect` (and the detection loop) decodes."""
+    `DetPredictor.detect` (and the detection loop) decodes; a mask export's
+    mask mAP@50 beside it."""
     from .data.detection_data import CocoDetection, detection_collate
     from .data.loader import DataLoader
     from .models.detection import DetectionAP
@@ -610,18 +630,28 @@ def _eval_detector(pred, args) -> dict:
                         num_workers=args.num_workers,
                         collate_fn=detection_collate)
     metric = DetectionAP(ds.n_classes)
+    mask_metric = DetectionAP(ds.n_classes, use_masks=True) \
+        if ds.with_masks else None
     n_seen = 0
     for bi, b in enumerate(loader):
         dets = pred.detect(np.asarray(b["image"], np.float32))
         labels, boxes = np.asarray(b["labels"]), np.asarray(b["boxes"])
-        for j, (p_boxes, p_scores, p_labels) in enumerate(dets):
+        for j, det in enumerate(dets):
             keep = labels[j] >= 0
-            metric.add_image(bi * bsz + j, p_boxes, p_scores, p_labels,
-                             boxes[j][keep], labels[j][keep])
+            metric.add_image(bi * bsz + j, *det[:3], boxes[j][keep],
+                             labels[j][keep])
+            if mask_metric is not None:
+                mask_metric.add_image(
+                    bi * bsz + j, *det[:3], boxes[j][keep], labels[j][keep],
+                    pred_masks=det[3],
+                    gt_masks=np.asarray(b["masks"])[j][keep])
             n_seen += 1
+    results = {"val_map50": round(metric.mean_ap(), 4)}
+    if mask_metric is not None:
+        results["val_mask_map50"] = round(mask_metric.mean_ap(), 4)
     return _print_results(
         f"EVAL RESULTS (val, {n_seen} samples, artifact {args.artifact})",
-        {"val_map50": round(metric.mean_ap(), 4)})
+        results)
 
 
 def _eval_segmenter(pred, args, error) -> dict:
@@ -889,12 +919,16 @@ def main(argv=None):
         x = _load_inputs(args.inputs, pred.meta["img_size"], args.mean,
                          args.std)
         if pred.meta.get("task") == "detector":
-            recs = [{"image": i, "boxes": np.asarray(boxes).tolist(),
-                     "scores": np.round(np.asarray(scores), 4).tolist(),
-                     "labels": np.asarray(labels).tolist()}
-                    for i, (boxes, scores, labels) in enumerate(
-                        pred.detect(x, score_thresh=args.score_thresh,
-                                    top_k=args.max_dets))]
+            recs = []
+            for i, det in enumerate(pred.detect(
+                    x, score_thresh=args.score_thresh, top_k=args.max_dets)):
+                boxes, scores, labels = det[:3]
+                rec = {"image": i, "boxes": np.asarray(boxes).tolist(),
+                       "scores": np.round(np.asarray(scores), 4).tolist(),
+                       "labels": np.asarray(labels).tolist()}
+                if len(det) == 4:  # mask export: [M, Hm, Wm] 0/1 grids
+                    rec["masks"] = np.asarray(det[3], np.uint8).tolist()
+                recs.append(rec)
             for rec in recs:
                 print(json.dumps(rec))
             if args.out:

@@ -506,17 +506,13 @@ class BYOLTrainer:
     def evaluate(self, loader=None, prefix="val", weights=None):
         """kNN metrics (temperature 0.1) of `loader` (default: the val
         loader) against the feature bank, with the feature branch's backbone
-        or `weights`."""
-        if not self.wrapper.is_multiclass:
-            raise NotImplementedError(
-                "multi-label kNN evaluation is not ported yet (ROADMAP "
-                "queue A: multi-label kNN)")
+        or `weights`; a multi-label set votes with the neighbours' label
+        vectors."""
         return knn_evaluate(
             lambda x: self._embed(x, weights),
             self.wrapper.dataloaders.fbank_loader,
             loader or self.wrapper.dataloaders.valloader,
-            self.wrapper.metric_class(self.n_classes, mode=f"knn_{prefix}",
-                                      raw=False),
+            self.wrapper.metric_class(self.n_classes, mode=f"knn_{prefix}"),
             self.n_classes, self.knn_nhood, 0.1, self.device)
 
     # ------------------------------------------------------------------ #

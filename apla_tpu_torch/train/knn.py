@@ -52,13 +52,26 @@ def knn_evaluate(embed_fn, fbank_loader, loader, metric, n_classes: int,
                  knn_nhood: int, knn_t: float, device) -> dict:
     """kNN metrics of `loader` against the feature bank of `fbank_loader`:
     `embed_fn` maps device images to L2-normalised embeddings, `metric` is
-    a fresh multi-class metric taking probabilities (`raw=False`); the vote
-    uses the min(knn_nhood, bank size) nearest neighbours."""
+    a fresh metric of the set's kind; the vote uses the min(knn_nhood,
+    bank size) nearest neighbours.  Integer labels vote for classes (the
+    metric then takes probabilities, `raw = False`); label vectors (a
+    multi-label set) give each image the weighted mean of its neighbours'
+    vectors (`add_preds(..., using_knn=True)`)."""
     feats, labels = build_feature_bank(embed_fn, fbank_loader, device)
     bank_labels = torch.as_tensor(labels, device=device)
     knn_k = min(knn_nhood, len(labels))
+    multilabel = labels.ndim == 2
+    if not multilabel:
+        metric.raw = False
     for batch in loader:
-        scores = knn_predict(embed_fn(batch["image"].to(device)), feats,
-                             bank_labels, knn_k, knn_t, n_classes)
-        metric.add_preds(scores.cpu().numpy(), np.asarray(batch["label"]))
+        emb = embed_fn(batch["image"].to(device))
+        truth = np.asarray(batch["label"])
+        if multilabel:
+            scores = knn_predict_multilabel(emb, feats, bank_labels, knn_k,
+                                            knn_t)
+            metric.add_preds(scores.cpu().numpy(), truth, using_knn=True)
+        else:
+            scores = knn_predict(emb, feats, bank_labels, knn_k, knn_t,
+                                 n_classes)
+            metric.add_preds(scores.cpu().numpy(), truth)
     return metric.get_values()

@@ -11,7 +11,13 @@ chain:
 - SGD: coupled decay, momentum as a trace, optional Nesterov;
 - RMSprop: coupled decay, eps outside the sqrt, the momentum buffer taking
   the unscaled updates and lr applied last (torch's RMSprop is exactly that
-  chain).
+  chain);
+- LAMB (`Lamb`, written here: torch has none): optax.lamb's chain, Adam
+  moments with eps outside the sqrt, decoupled decay under the mask, then
+  each JAX leaf's trust ratio |p| / |u| (1 where either norm is 0), then
+  lr.  The JAX ViT stacks its blocks into one leaf per parameter
+  ([depth, ...]); the port keeps a tensor per block, so the ratio is taken
+  over the blocks' tensors together (`jax_leaves`).
 
 Clipping is optax's `clip_by_global_norm` (`(g / norm) * max` once the norm
 reaches `max`, no epsilon; `torch.nn.utils.clip_grad_norm_` adds 1e-6 to the
@@ -20,6 +26,8 @@ before each step, as the JAX package injects them as hyperparameters.
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 
@@ -44,6 +52,73 @@ def clip_by_global_norm_(grads, max_norm: float, g_norm: torch.Tensor):
     keep = g_norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / g_norm.to(g.dtype)) * max_norm))
+
+
+_BLOCK = re.compile(r"(^|\.)blocks\.\d+\.")
+
+
+def jax_leaves(named_params):
+    """The parameters grouped as the JAX trees' leaves: a ViT block's
+    tensors join their block-stacked leaf (`blocks.{i}.attn.proj_wt` of
+    every i: one leaf `blocks.proj_wt`), any other tensor is its own leaf
+    (the Swin's blocks are lists in JAX, so `stages.*` tensors stay
+    apart)."""
+    leaves: dict = {}
+    for name, p in named_params:
+        key = name if ".stages." in f".{name}" else _BLOCK.sub(r"\1blocks.",
+                                                              name)
+        leaves.setdefault(key, []).append(p)
+    return list(leaves.values())
+
+
+class Lamb(torch.optim.Optimizer):
+    """optax.lamb(lr, b1, b2, eps, weight_decay, mask) over param groups
+    carrying `weight_decay` (0 for the not-decayed group): per tensor the
+    bias-corrected Adam direction m_hat / (sqrt(v_hat) + eps), plus wd * p;
+    then per leaf of `leaves` (lists of parameters) the update is scaled by
+    |p| / |u| over the leaf's tensors, 1 where either norm is 0, and
+    p -= lr * u."""
+
+    def __init__(self, params, lr, betas, eps, leaves):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=0.0))
+        self.leaves = leaves
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        del closure
+        updates, lrs = {}, {}
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["mu"] = torch.zeros_like(p)
+                    state["nu"] = torch.zeros_like(p)
+                state["step"] += 1
+                t = state["step"]
+                g = p.grad
+                mu = state["mu"].mul_(b1).add_(g, alpha=1 - b1)
+                nu = state["nu"].mul_(b2).addcmul_(g, g, value=1 - b2)
+                u = (mu / (1 - b1 ** t)) / (
+                    (nu / (1 - b2 ** t)).sqrt() + group["eps"])
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                updates[p], lrs[p] = u, group["lr"]
+        for leaf in self.leaves:
+            leaf = [p for p in leaf if p in updates]
+            if not leaf:
+                continue
+            p_norm = torch.sqrt(sum((p.float() ** 2).sum() for p in leaf))
+            u_norm = torch.sqrt(sum((updates[p].float() ** 2).sum()
+                                    for p in leaf))
+            ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                                torch.ones_like(p_norm), p_norm / u_norm)
+            for p in leaf:
+                p.sub_(lrs[p] * (updates[p] * ratio.to(p.dtype)))
 
 
 class Optimizer:
@@ -84,9 +159,10 @@ class Optimizer:
 
 def build_optimizer(opt_type: str, opt_params: dict, named_params,
                     grad_clip: float | None = None) -> Optimizer:
-    """`opt_type` in 'AdamW', 'Adam', 'SGD', 'RMSprop' over `named_params`
-    ((name, parameter) pairs, the trainable ones); `opt_params` follows the
-    YAML schema ({'lr', 'weight_decay', betas/eps/momentum/alpha/nesterov})."""
+    """`opt_type` in 'AdamW', 'Adam', 'SGD', 'RMSprop', 'LAMB' over
+    `named_params` ((name, parameter) pairs, the trainable ones);
+    `opt_params` follows the YAML schema ({'lr', 'weight_decay',
+    betas/eps/momentum/alpha/nesterov})."""
     opt_params = dict(opt_params)
     lr = float(opt_params.pop("lr", 1e-3))
     wd = float(opt_params.pop("weight_decay", 0.0))
@@ -114,8 +190,8 @@ def build_optimizer(opt_type: str, opt_params: dict, named_params,
         opt = torch.optim.RMSprop(groups, lr=lr, alpha=alpha, eps=eps,
                                   momentum=momentum)
     elif opt_type == "LAMB":
-        raise NotImplementedError(
-            "LAMB is not ported yet (ROADMAP queue A: LAMB)")
+        opt = Lamb(groups, lr=lr, betas=betas, eps=eps,
+                   leaves=jax_leaves(named_params))
     else:
         raise NotImplementedError(f"optimizer {opt_type}")
     return Optimizer(opt, grad_clip)

@@ -22,6 +22,7 @@ import time
 import numpy as np
 import torch
 
+from ..utils.profiling import StepTimer, device_memory_stats
 from .checkpoint import load_checkpoint, save_checkpoint
 from .knn import knn_evaluate
 from .steps import make_embed_step, make_eval_step, make_train_step
@@ -174,6 +175,7 @@ class Trainer:
         t_start = time.time()
         images_seen = 0
         skip_first = self.iters % steps_per_epoch if self.iters else 0
+        timer = StepTimer(sync_every=self.log_every)
         prof = None
         with self._preemption_handler():
             for epoch in range(self.epoch0, self.epochs):
@@ -191,15 +193,18 @@ class Trainer:
                         self.generator)
                     images_seen += batch["label"].shape[0]
                     self.iters += 1
+                    timer.tick(sync_value=m["loss"])
                     prof = self._profile_step(prof)
 
                     if self.iters % self.log_every == 0:
                         loss = float(m["loss"])
                         gnorm = float(m["grad_norm"])
                         ips = images_seen / max(time.time() - t_start, 1e-9)
-                        self.log({"train_loss": loss, "lr": lr,
-                                  "grad_norm": gnorm,
-                                  "images_per_sec": ips}, self.iters)
+                        rec = {"train_loss": loss, "lr": lr,
+                               "grad_norm": gnorm, "images_per_sec": ips}
+                        rec.update(timer.summary())
+                        rec.update(device_memory_stats(self.device))
+                        self.log(rec, self.iters)
                         print(f"it {self.iters:6d} ep {epoch:3d} "
                               f"loss {loss:.4f} lr {lr:.2e} "
                               f"gnorm {gnorm:.2f} img/s {ips:.1f}")
@@ -300,16 +305,13 @@ class Trainer:
     def knn_evaluate(self, loader, trainable=None, prefix="val"):
         """kNN metrics of `loader` against the feature bank (the training
         images through the eval transforms), temperature 0.07, with the
-        weights `trainable` (name -> tensor) or the live ones."""
-        if not self.wrapper.is_multiclass:
-            raise NotImplementedError(
-                "multi-label kNN evaluation is not ported yet (ROADMAP "
-                "queue A: multi-label kNN)")
+        weights `trainable` (name -> tensor) or the live ones; a
+        multi-label set votes with the neighbours' label vectors."""
         model = self.state.model
         with self._trainable_swapped(trainable):
             return knn_evaluate(
                 lambda x: self.embed_step(model, x),
                 self.wrapper.dataloaders.fbank_loader, loader,
                 self.wrapper.metric_class(self.n_classes,
-                                          mode=f"knn_{prefix}", raw=False),
+                                          mode=f"knn_{prefix}"),
                 self.n_classes, self.knn_nhood, 0.07, self.device)

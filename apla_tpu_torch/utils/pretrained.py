@@ -192,8 +192,11 @@ def swin_tree_from_state(state: dict) -> dict:
 def det_state_from_jax(trainable: dict, frozen: dict):
     """A JAX detector's trees -> the port's `(trainable, frozen)` state of
     `models.detection.Detector`.  `trainable` = {"backbone": the
-    `build_apla_swin` trainable tree, "head": ..., "laterals": [...]};
-    `frozen` = the Swin tree without its `attn.proj`s."""
+    `build_apla_swin` trainable tree, "head": ... (with "coef" under the
+    mask branch), "laterals": [...], and "protonet": {"convs": [...],
+    "out": ...} under the mask branch}; `frozen` = the Swin tree without
+    its `attn.proj`s.  Every name but the backbone's maps as it is nested
+    (`protonet.convs.0.kernel`, `head.coef.bias`)."""
     t = swin_state_from_tree(trainable)
     out = {}
     for name, val in t.items():

@@ -18,7 +18,7 @@ frozen qkv / fc1 / fc2 kernels in int8, before the optimizer is built).
 The SSL wrappers take the first two at the same points and refuse
 `quantize_frozen`, which the JAX SSL wrappers never read.  What the port
 does not have yet raises `NotImplementedError` naming its ROADMAP item: the
-mesh and parallel knobs and multi-label data.
+mesh and parallel knobs.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ from .models.vit import VIT_BUILDERS, ViTConfig
 from .ops.quant import quantize_frozen_backbone
 from .train.checkpoint import transfer_into
 from .train.losses import get_criterion
-from .train.metrics import ClassificationMetrics
+from .train.metrics import (ClassificationMetrics,
+                            MultiLabelClassificationMetrics)
 from .train.optim import build_optimizer
 from .train.schedules import LRScheduler
 from .train.train_state import TrainState
@@ -153,13 +154,17 @@ class DefaultWrapper:
         trainset = self.dataloaders.trainloader.dataset
         self.task = trainset.task
         self.is_multiclass = trainset.is_multiclass
-        self.model_params.n_classes = trainset.n_classes
+        n_classes = trainset.n_classes
+        if not self.is_multiclass and n_classes <= 2:
+            n_classes = 1  # a binary multi-label task: one logit
+        self.model_params.n_classes = n_classes
         self.model_params.knn_nhood = trainset.knn_nhood
         self.model_params.target_metric = trainset.target_metric
         self.init_model(seed)
         self.init_optimization()
         self.criterion = get_criterion(self.task, self.is_multiclass)
-        self.metric_class = ClassificationMetrics
+        self.metric_class = (ClassificationMetrics if self.is_multiclass
+                             else MultiLabelClassificationMetrics)
 
     # ------------------------------------------------------------------ #
     def init_dataloaders(self) -> EDict:

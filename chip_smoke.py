@@ -101,6 +101,22 @@ raise on failure:
                (W8A8, f32) and served with the int8 kernel in each qkv, fc1
                and fc2 of every call; train and serve img/s, peak memory
                and a profile.
+  8c. det_masks — the detector's instance-mask branch (`segdet det
+               --masks --use_fused --bf16 --n_protos 32` at DET_RECIPE's
+               width) on a COCO-format set of ellipses and triangles this
+               script writes, annotated as polygons, uncompressed and
+               compressed RLE and (every tenth) nothing: the first step's
+               total and mask loss and every gradient (the protonet's and
+               the coefficient conv's among them) of the kernel arm
+               against the plain arm, a dW fault; the loop trained until
+               box and mask mAP@50 both read above 0 (the steps it took
+               reported), rows 3 and 4 in every block of every step and
+               eval call; --resume; --eval_only equal to the best
+               checkpoint; on those weights `DetPredictor.detect` masks
+               bit-equal to `decode_detections` of the in-process
+               forward, `serve eval`'s box and mask mAP@50 equal to the
+               loop's, the f32 `export_det` artifact likewise, and the
+               W8A8 one (`--quantize_frozen`) through row 13.
 
   9a. seg_kernels — the fused APLA kernels (rows 1, 2) at the shape the
                segmentation side-car gives them, where JAX names the q-strip
@@ -203,6 +219,14 @@ raise on failure:
                and phase 5's step on a device-resident batch.
                13d: one update with `device_augment` off, through the host
                RandomResizedCrop and ColorJitter.
+  14. multilabel — the ImageNet recipe (ViT-B/14 APLA-128) on the
+               multi-label SyntheticMultiLabel set through `main`: one
+               update with BCE, the multi-label metrics on val and test,
+               rows 1 and 2 counted in every block of every micro-step and
+               eval call; the first step's kernel arm against the plain
+               arm (phase 5's bounds, a dW_t fault); `--test --knn` on the
+               checkpoint (the multi-label kNN vote); the same update
+               under `optimizer.type: LAMB`, every trainable tensor moved.
 
 Phases 2-12 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
@@ -716,6 +740,30 @@ DET_LOSS_REL_TOL = 1e-2
 DET_GRAD_REL_TOL = 0.05
 DET_MIN_COSINE = 0.99985
 DET_SERVE_REL_TOL = 1e-3
+# Phase 8c: the detector's instance-mask branch, `segdet det --masks
+# --use_fused --bf16` at DET_RECIPE's width with the JAX loop's default
+# `--n_protos 32` (the prototype + coefficient branch: the coefficient conv
+# on the box tower, the protonet on the finest lateral-projected level,
+# the prototype-mask loss with weight 2.0, mask mAP@50 beside box mAP@50;
+# the best-model race on mask mAP).  What it changes, and why: COCO is not
+# in the repository, so the set is one this script writes (DET_MASK_IMAGES
+# PNGs of ellipses and triangles, a colour per category, so that masks
+# differ from boxes; the annotations' segmentations in turn polygons,
+# uncompressed RLE and compressed RLE, every tenth none: the box
+# fallback); DET_MASK_CLASSES categories, not 80, and objects of 48-144
+# px, so that random weights learn enough in the phase's time to find
+# some; the convergence run takes DET_MASK_LR (the recipe's 1e-4 x 10)
+# and DET_MASK_EPOCHS epochs of DET_MASK_IMAGES / 16 steps at a time,
+# evaluated on the train set each epoch, until box and mask mAP@50 both
+# read above 0 (at most DET_MASK_ROUNDS such runs, the later ones
+# `--resume`d); the first-step agreement runs at the recipe's lr.  The
+# bounds are phase 8b's, on the total loss and on the mask loss apart.
+DET_MASK_PROTOS = 32
+DET_MASK_IMAGES = 32
+DET_MASK_CLASSES = 3
+DET_MASK_LR = 1e-3
+DET_MASK_EPOCHS = 6
+DET_MASK_ROUNDS = 4
 # Phase 9a: the fused APLA kernels (rows 1, 2) at the shape the
 # segmentation side-car gives them, where JAX's dispatch names the q-strip
 # long kernels (TPU rows 5-7): ViT-L/16 at 512, qkv [b, 1025, 3072], 16
@@ -946,6 +994,31 @@ ISIC_CUTS = {"training_params": {"epochs": 1, "log_every": 1},
 PNG_FIXTURES = os.path.join(ROOT, "tests", "data", "png")
 PNG_DATASET = "VTAB_flowers"
 PNG_TRAIN, PNG_EVAL = 256, 8
+
+
+# Phase 14: the ImageNet recipe (RECIPE: ViT-B/14 APLA-128 from the
+# shipped index file, bf16, 257 tokens, b64 at accum 8, AdamW, clip 1.0)
+# on the multi-label SyntheticMultiLabel set through `main`: BCE, the
+# multi-label metrics (mAP, ROC-AUC, precision / recall / F1, subset
+# accuracy) on val and test, then `--test --knn` on the checkpoint (the
+# multi-label kNN vote), then the same update under `optimizer.type:
+# LAMB`.  What it changes, and why: the dataset (ImageNet is multi-class;
+# SyntheticMultiLabel gives every image two of 1000 labels), one update of
+# ML_IMAGES images with one validation, every step logged, the loaders
+# in-process; mixup / cutmix off (their collate builds one-hot targets from
+# one integer label, in the JAX package too, so multi-label sets do not
+# take them).  Bounds: phase 5's.
+ML_IMAGES = 64
+ML_CUTS = {
+    "dataset_params": {"dataset": "SyntheticMultiLabel",
+                       "synthetic_classes": 1000,
+                       "synthetic_size": ML_IMAGES,
+                       "synthetic_img_size": 256,
+                       "train_transforms": {"advanced_aug": False}},
+    "dataloader_params": {name: {"num_workers": 0} for name in (
+        "trainloader", "valloader", "testloader")},
+    "training_params": {"epochs": 1, "val_every": 1.0, "log_every": 1},
+}
 
 
 def _gpu_line() -> str:
@@ -2583,6 +2656,402 @@ def _phase_det(device, tmp, keep=None):
                    *_profile_step(lambda: step(model, batch)))
     print(f"[8b det] phase took {time.perf_counter() - t0:.1f} s")
     return tuple(launches), rates
+
+
+def _rle_counts(mask):
+    """Column-major runs of a 0/1 mask, starting with a run of zeros
+    (COCO's uncompressed RLE counts)."""
+    flat = np.asarray(mask, np.uint8).T.reshape(-1)
+    edges = np.flatnonzero(np.diff(flat)) + 1
+    counts = np.diff(np.concatenate([[0], edges, [flat.size]])).tolist()
+    return ([0] + counts) if flat[0] else counts
+
+
+def _rle_string(counts):
+    """COCO's compressed RLE characters of `counts` (pycocotools'
+    rleToString)."""
+    out = []
+    for i, x in enumerate(counts):
+        x -= counts[i - 2] if i > 2 else 0
+        more = True
+        while more:
+            c, x = x & 0x1F, x >> 5
+            more = x != -1 if c & 0x10 else x != 0
+            out.append(chr((c | 0x20 if more else c) + 48))
+    return "".join(out)
+
+
+def _write_coco_masks(root):
+    """Phase 8c's COCO-format set under `root`: DET_MASK_IMAGES PNGs (224^2,
+    every eighth 256 x 192) of dark noise with 1-3 ellipses or triangles,
+    a colour per category of DET_MASK_CLASSES; the annotations'
+    segmentations in turn a polygon, an uncompressed and a compressed RLE
+    of the drawn shape, every tenth none.  -> (image dir, annotation file,
+    {segmentation kind: count})."""
+    from apla_tpu_torch.data.detection_data import write_png
+    rng = np.random.default_rng(SEED + 3)
+    colours = rng.integers(96, 256, (DET_MASK_CLASSES, 3))
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    images, anns, kinds = [], [], {}
+    for i in range(DET_MASK_IMAGES):
+        w, h = (256, 192) if i % 8 == 7 else (224, 224)
+        img = rng.integers(0, 48, (h, w, 3)).astype(np.uint8)
+        yy, xx = np.mgrid[:h, :w] + 0.5
+        for _ in range(int(rng.integers(1, 4))):
+            cat = int(rng.integers(DET_MASK_CLASSES))
+            bw, bh = (int(v) for v in rng.integers(48, 145, 2))
+            bw, bh = min(bw, w - 2), min(bh, h - 2)
+            x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0,
+                                                                    h - bh))
+            if cat % 2 == 0:                    # an ellipse
+                cx, cy = x0 + bw / 2, y0 + bh / 2
+                inside = ((xx - cx) / (bw / 2)) ** 2 \
+                    + ((yy - cy) / (bh / 2)) ** 2 <= 1
+                t = np.linspace(0, 2 * np.pi, 24, endpoint=False)
+                poly = np.stack([cx + bw / 2 * np.cos(t),
+                                 cy + bh / 2 * np.sin(t)], 1)
+            else:                               # a triangle
+                poly = np.array([[x0 + bw / 2, y0], [x0 + bw, y0 + bh],
+                                 [x0, y0 + bh]], float)
+                inside = np.ones((h, w), bool)
+                for (ax, ay), (bx, by) in zip(poly, np.roll(poly, -1, 0)):
+                    inside &= (bx - ax) * (yy - ay) - (by - ay) * (xx - ax) \
+                        >= 0
+            img[inside] = colours[cat]
+            ann = {"id": len(anns) + 1, "image_id": i,
+                   "category_id": cat + 1, "bbox": [x0, y0, bw, bh],
+                   "area": int(inside.sum()), "iscrowd": 0}
+            k = len(anns)
+            kind = ("none" if k % 10 == 9 else
+                    ("polygon", "rle", "compressed rle")[k % 3])
+            if kind == "polygon":
+                ann["segmentation"] = [poly.reshape(-1).round(2).tolist()]
+            elif kind != "none":
+                counts = _rle_counts(inside)
+                ann["segmentation"] = {"size": [h, w], "counts": (
+                    counts if kind == "rle" else _rle_string(counts))}
+            kinds[kind] = kinds.get(kind, 0) + 1
+            anns.append(ann)
+        name = f"{i:012d}.png"
+        write_png(os.path.join(img_dir, name), img)
+        images.append({"id": i, "file_name": name, "width": w, "height": h})
+    ann_file = os.path.join(root, "instances.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": c + 1, "name": f"category_{c + 1}"}
+                                  for c in range(DET_MASK_CLASSES)]}, f)
+    return img_dir, ann_file, kinds
+
+
+def _det_mask_grads(model, cfg, batch, strides):
+    """(total loss, mask loss) and f32 gradients of one `--masks` step (no
+    update)."""
+    from apla_tpu_torch.models.detection import (detector_outputs,
+                                                 fcos_loss_batch)
+    params = _trainables(model)
+    for p in params.values():
+        p.grad = None
+    outs, protos = detector_outputs(model, batch["image"], cfg)
+    losses = fcos_loss_batch(outs, strides, batch["boxes"], batch["labels"],
+                             protos=protos, gt_masks=batch["masks"],
+                             mask_stride=strides[0])
+    losses["total"].backward()
+    return ((float(losses["total"].detach()),
+             float(losses["mask_loss"].detach())),
+            {n: p.grad.detach().clone() for n, p in params.items()})
+
+
+def _det_mask_agreement(name, got, ref):
+    """Phase 8b's bounds on the total loss, the mask loss apart, and every
+    trainable tensor's gradient (the protonet's and the coefficient
+    conv's among them)."""
+    (loss, mask), grads = got
+    (r_loss, r_mask), r_grads = ref
+    ok = _grad_agreement("8c det masks", name, (loss, grads),
+                         (r_loss, r_grads), DET_LOSS_REL_TOL * abs(r_loss),
+                         DET_GRAD_REL_TOL)
+    branch = {n: (torch.linalg.vector_norm(grads[n] - r_grads[n])
+                  / torch.linalg.vector_norm(r_grads[n])).item()
+              for n in r_grads if n.startswith(("protonet.", "head.coef."))}
+    mask_ok = abs(mask - r_mask) <= DET_LOSS_REL_TOL * abs(r_mask)
+    print(f"[8c det masks] {name}: mask loss {mask:.6g} vs plain {r_mask:.6g}"
+          f" (|d| {abs(mask - r_mask):.3g}, bound "
+          f"{DET_LOSS_REL_TOL * abs(r_mask):.3g}); mask-branch gradients "
+          f"worst ||dg||/||g|| {max(branch.values()):.3g} at "
+          f"{max(branch, key=branch.get)} over {len(branch)} tensors")
+    return ok and mask_ok
+
+
+def phase_det_masks(device):
+    """8c: the mask branch at DET_RECIPE's width."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_detm_") as tmp:
+        return _phase_det_masks(device, tmp)
+
+
+def _phase_det_masks(device, tmp):
+    from apla_tpu_torch import segdet, serve
+    from apla_tpu_torch.data.detection_data import (CocoDetection,
+                                                    detection_collate)
+    from apla_tpu_torch.data.loader import DataLoader
+    from apla_tpu_torch.models.detection import (decode_detections,
+                                                 default_strides,
+                                                 detector_outputs,
+                                                 init_detector,
+                                                 mask_generator)
+    from apla_tpu_torch.ops import fused_swin_attn as fs
+    from apla_tpu_torch.ops.quant import quantize_frozen_backbone
+    from apla_tpu_torch.serve import (DetPredictor, detector_from_state,
+                                      export_detector, load_predictor)
+
+    t0 = time.perf_counter()
+    img_dir, ann, kinds = _write_coco_masks(tmp)
+    r = DET_RECIPE
+    cfg = segdet.swin_config(r["img_size"], r["embed_dim"], r["depths"],
+                             r["num_heads"], r["window_size"], r["bf16"],
+                             r["use_fused"])
+    plain_cfg = dataclasses.replace(cfg, use_fused_apla=False)
+    strides = default_strides(cfg)
+    depth = sum(cfg.depths)
+    bsz = r["batch_size"]
+    steps, evals = DET_MASK_IMAGES // bsz, -(-DET_MASK_IMAGES // bsz)
+    ds = CocoDetection(img_dir, ann, img_size=r["img_size"],
+                       max_boxes=r["max_boxes"], with_masks=True,
+                       mask_stride=strides[0])
+    sample = ds[0]["masks"]
+    print(f"[8c det masks] wrote {DET_MASK_IMAGES} PNGs, {ds.n_classes} "
+          f"categories, segmentations {kinds}; mask grid {sample.shape[1:]}"
+          f" in {time.perf_counter() - t0:.1f} s")
+
+    # the kernel arm against the plain arm at the loop's init and first
+    # batch, the mask loss and the mask branch's gradients included
+    loader = DataLoader(ds, batch_size=bsz, shuffle=True, drop_last=True,
+                        num_workers=0, collate_fn=detection_collate,
+                        seed=SEED)
+    batch = {k: v.to(device) for k, v in next(iter(loader)).items()}
+    model = init_detector(cfg, ds.n_classes,
+                          torch.Generator().manual_seed(SEED), device,
+                          n_protos=DET_MASK_PROTOS,
+                          mask_generator=mask_generator(SEED))
+    n_branch = sum(p.numel() for n, p in _trainables(model).items()
+                   if n.startswith(("protonet.", "head.coef.")))
+    print(f"[8c det masks] detector with the mask branch: "
+          f"{sum(p.numel() for p in _trainables(model).values()):,} "
+          f"trainable ({n_branch:,} in the protonet and the coefficient "
+          f"conv, {DET_MASK_PROTOS} prototypes)")
+    ref = _det_mask_grads(model, plain_cfg, batch, strides)
+    ok = _det_mask_agreement("kernel arm at init", _det_mask_grads(
+        model, cfg, batch, strides), ref)
+    caught = not _det_mask_agreement(
+        "control: dW zeroed", _with_output_fault(
+            fs, "fused_swin_attn_bwd", lambda out: (out[0], out[1] * 0),
+            lambda: _det_mask_grads(model, cfg, batch, strides)), ref)
+    for p in model.parameters():
+        p.grad = None
+    if not ok:
+        raise SystemExit("8c: the mask detector's kernel arm disagrees with "
+                         "its plain arm")
+    if not caught:
+        raise SystemExit("8c: a broken window backward passes the bounds")
+    del model
+
+    # train until box and mask mAP@50 both read above 0; --resume,
+    # --eval_only
+    kdir = os.path.join(tmp, "kernel")
+    kw = {**r, **DET_CUTS, "seed": SEED, "device": str(device),
+          "masks": True, "n_protos": DET_MASK_PROTOS, "lr": DET_MASK_LR,
+          "save_dir": kdir}
+    counters = (fs.fused_swin_attn_fwd, fs.fused_swin_attn_bwd)
+    launches = [0, 0]
+
+    def run(expect, what, **extra):
+        for c in counters:
+            c.launches = 0
+        t = time.perf_counter()
+        out = segdet.train_detection(img_dir, ann, **{**kw, **extra})
+        _sync(device)
+        got = tuple(c.launches for c in counters)
+        for i in range(2):
+            launches[i] += got[i]
+        print(f"[8c det masks] {what}: {out} in "
+              f"{time.perf_counter() - t:.1f} s; window kernel launches "
+              f"forward {got[0]}, backward {got[1]} (expected {expect[0]}, "
+              f"{expect[1]})")
+        if got != expect:
+            raise SystemExit(f"8c: {what} did not run the window kernels in "
+                             "every block of every step and eval call")
+        return out
+
+    per_epoch = (depth * (steps + evals), depth * steps)
+    t = time.perf_counter()
+    epochs, reached = 0, None
+    for rnd in range(DET_MASK_ROUNDS):
+        epochs += DET_MASK_EPOCHS
+        run(tuple(DET_MASK_EPOCHS * n for n in per_epoch),
+            f"train to epoch {epochs} (lr {DET_MASK_LR})", epochs=epochs,
+            resume=rnd > 0)
+        with open(os.path.join(kdir, "det.metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        maps = [(row["epoch"], row["train_map50"], row["train_mask_map50"])
+                for row in rows if "train_mask_map50" in row]
+        losses = [row["train_loss"] for row in rows if "train_loss" in row]
+        mask_losses = [row["mask_loss"] for row in rows
+                       if "mask_loss" in row]
+        if len(losses) != epochs * steps or not np.isfinite(
+                losses + mask_losses).all():
+            raise SystemExit(f"8c: missing or non-finite losses {losses}")
+        reached = next((e for e, box, mask in maps if box > 0 and mask > 0),
+                       None)
+        if reached is not None:
+            break
+    print(f"[8c det masks] per-epoch train (box, mask) mAP@50 "
+          f"{[(round(b, 4), round(m, 4)) for _, b, m in maps]}; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, mask loss "
+          f"{mask_losses[0]:.4f} -> {mask_losses[-1]:.4f}")
+    if reached is None:
+        raise SystemExit(f"8c: box and mask mAP@50 did not both read above "
+                         f"0 in {epochs} epochs")
+    steps_to_map = (int(reached) + 1) * steps
+    print(f"[8c det masks] box and mask mAP@50 both above 0 after "
+          f"{steps_to_map} steps (epoch {int(reached)}); training took "
+          f"{time.perf_counter() - t:.1f} s; {_gpu_line()}")
+    out = run(per_epoch, f"--resume to epoch {epochs + 1}",
+              epochs=epochs + 1, resume=True)
+    if out["iters"] != steps:
+        raise SystemExit("8c: --resume did not continue at the next epoch")
+    with open(os.path.join(kdir, "det_best.json")) as f:
+        best_meta = json.load(f)
+    ev = run((depth * evals, 0), "--eval_only", eval_only=True)
+    print(f"[8c det masks] --eval_only (box, mask) mAP@50 "
+          f"({ev['best_map50']!r}, {ev['best_mask_map50']!r}), det_best's "
+          f"({best_meta['map50']!r}, {best_meta['mask_map50']!r})")
+    if ev["iters"] != 0 or ev["best_map50"] != best_meta["map50"] \
+            or ev["best_mask_map50"] != best_meta["mask_map50"]:
+        raise SystemExit("8c: --eval_only does not report the best "
+                         "checkpoint's box and mask mAP@50")
+    if not (ev["best_map50"] > 0 and ev["best_mask_map50"] > 0):
+        raise SystemExit("8c: the best checkpoint's mAPs are not above 0")
+
+    # the kernel arm against the plain arm again, on the trained weights
+    best = segdet.load_checkpoint(os.path.join(kdir, "det_best.pt"))
+    trained = detector_from_state(cfg, ds.n_classes, best["trainable"],
+                                  best["frozen"], device)
+    ref = _det_mask_grads(trained, plain_cfg, batch, strides)
+    ok = _det_mask_agreement("kernel arm at the trained weights",
+                             _det_mask_grads(trained, cfg, batch, strides),
+                             ref)
+    del trained
+    if not ok:
+        raise SystemExit("8c: the kernel arm disagrees with the plain arm "
+                         "on the trained weights")
+
+    # serve the best (learned) weights: the loop's config, then the CLI's
+    # float export and its W8A8 export
+    served = detector_from_state(cfg, ds.n_classes, best["trainable"],
+                                 best["frozen"], device)
+    art = os.path.join(tmp, "artifact")
+    meta = export_detector(art, served, cfg, strides, batch_sizes=(1, 8, 16))
+    pred = load_predictor(art, device)
+    x = np.stack([ds[i]["image"] for i in range(8)])
+    for c in counters:
+        c.launches = 0
+    dets = pred.detect(x)
+    _sync(device)
+    got = tuple(c.launches for c in counters)
+    with torch.inference_mode():
+        levels, protos = detector_outputs(served, torch.from_numpy(x).to(
+            device), cfg)
+    levels = [tuple(o.float().cpu().numpy() for o in lvl) for lvl in levels]
+    protos = protos.float().cpu().numpy()
+    same = all(
+        all(np.array_equal(a, b) for a, b in zip(det, decode_detections(
+            [tuple(o[j:j + 1] for o in lvl) for lvl in levels], strides,
+            protos=protos[j:j + 1], mask_stride=strides[0])))
+        for j, det in enumerate(dets))
+    n_masks = sum(len(d[3]) for d in dets)
+    print(f"[8c det masks] artifact with_masks={meta['with_masks']}: detect "
+          f"b8 -> {n_masks} boxes with masks {dets[0][3].shape[1:]}, "
+          f"{sum(int(d[3].any(axis=(1, 2)).sum()) for d in dets)} masks "
+          f"non-empty; equal to decode_detections of the in-process forward "
+          f"bit for bit: {same}; window kernel launches {got} (expected "
+          f"({depth}, 0))")
+    if not meta["with_masks"] or not same or got != (depth, 0) \
+            or not n_masks:
+        raise SystemExit("8c: the served masks differ from the in-process "
+                         "decode, or the window kernel did not run")
+    launches[0] += got[0]
+    for c in counters:
+        c.launches = 0
+    res = serve.main(["eval", art, "--det_img_dir", img_dir, "--det_ann",
+                      ann, "--device", str(device), "--num_workers", "0"])
+    _sync(device)
+    got = tuple(c.launches for c in counters)
+    launches[0] += got[0]
+    want = {"val_map50": round(ev["best_map50"], 4),
+            "val_mask_map50": round(ev["best_mask_map50"], 4)}
+    calls = -(-DET_MASK_IMAGES // max(pred.batch_sizes))
+    print(f"[8c det masks] serve eval {res}, the loop's {want}; window "
+          f"kernel launches {got} (expected ({depth * calls}, 0))")
+    if res != want or got != (depth * calls, 0):
+        raise SystemExit("8c: serve eval's box and mask mAP@50 are not the "
+                         "loop's")
+    cli = ["export_det", "--ckpt", os.path.join(kdir, "det_best.pt"),
+           "--img_size", str(r["img_size"]), "--embed_dim",
+           str(r["embed_dim"]), "--depths", ",".join(map(str, r["depths"])),
+           "--num_heads", ",".join(map(str, r["num_heads"])),
+           "--window_size", str(r["window_size"])]
+    f32_art = os.path.join(tmp, "f32")
+    serve.main(cli + ["--out", f32_art, "--batch_sizes", "1,8"])
+    f32 = load_predictor(f32_art, device)
+    twin = detector_from_state(f32.swin_cfg, ds.n_classes, best["trainable"],
+                               best["frozen"], device)
+    f32_dets = f32.detect(x)
+    with torch.inference_mode():
+        levels, protos = detector_outputs(twin, torch.from_numpy(x).to(
+            device), f32.swin_cfg)
+    levels = [tuple(o.float().cpu().numpy() for o in lvl) for lvl in levels]
+    protos = protos.float().cpu().numpy()
+    same = all(
+        all(np.array_equal(a, b) for a, b in zip(det, decode_detections(
+            [tuple(o[j:j + 1] for o in lvl) for lvl in levels], strides,
+            protos=protos[j:j + 1], mask_stride=strides[0])))
+        for j, det in enumerate(f32_dets))
+    print(f"[8c det masks] export_det f32 artifact: with_masks="
+          f"{f32.meta['with_masks']}, detect b8 masks equal to the "
+          f"in-process decode: {same}")
+    if not f32.meta["with_masks"] or not same:
+        raise SystemExit("8c: the f32 export's masks differ from the "
+                         "in-process decode")
+    int8 = _w8a8_served(
+        "8c det masks", cli, os.path.join(tmp, "w8a8"), device, [x[:1], x],
+        lambda p: DetPredictor(p.meta, quantize_frozen_backbone(
+            detector_from_state(p.swin_cfg, ds.n_classes, best["trainable"],
+                                best["frozen"], device)), p.swin_cfg,
+            device),
+        per_call=(3 * depth, 0))[0]
+    w8_pred = load_predictor(os.path.join(tmp, "w8a8"), device)
+    w8 = w8_pred.detect(x[:2])
+    if not all(d[3].shape[1:] == dets[0][3].shape[1:] for d in w8):
+        raise SystemExit("8c: the W8A8 export serves no masks")
+    # W8A8 against float (the f32 export) on the trained weights: read,
+    # not bounded (10b bounds the classifier's)
+    cos = [torch.nn.functional.cosine_similarity(
+        torch.from_numpy(a).flatten().double(),
+        torch.from_numpy(b).flatten().double(), dim=0).item()
+        for a, b in zip(_arrays([w8_pred.predict(x)]),
+                        _arrays([f32.predict(x)]))]
+    protos = [w8_pred.predict_protos(x), f32.predict_protos(x)]
+    cos.append(torch.nn.functional.cosine_similarity(
+        *(torch.from_numpy(p).flatten().double() for p in protos),
+        dim=0).item())
+    print(f"[8c det masks] W8A8 vs float (f32 export) on the trained "
+          f"weights, b8: cosine of each level's maps and the prototypes "
+          f"{[round(c, 6) for c in cos]}")
+    print(f"[8c det masks] phase took {time.perf_counter() - t0:.1f} s")
+    return tuple(launches) + (int8,), {"steps_to_map": steps_to_map,
+                                       "epochs": epochs,
+                                       "best": (ev["best_map50"],
+                                                ev["best_mask_map50"])}
 
 
 def _tf32_readings(model, cfg32, batch, strides, w8a8_pred, x):
@@ -5841,6 +6310,146 @@ def _phase_png(jpeg_loader_rate):
             "raw_img_s": raw_rate, "host_img_s": host_rate}
 
 
+def phase_multilabel(device):
+    """14: RECIPE on SyntheticMultiLabel through `main`: one update, the
+    multi-label validation and test, `--test --knn` on the checkpoint, the
+    first step's kernel arm against the plain arm, and the same update
+    under LAMB.  -> (rows 1, 2 launches), readings."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ml_") as tmp:
+        return _phase_multilabel(device, tmp)
+
+
+def _phase_multilabel(device, tmp):
+    from apla_tpu_torch.data.device_augs import device_augment
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.train.losses import bce_with_logits
+    from apla_tpu_torch.train.metrics import MultiLabelClassificationMetrics
+    from apla_tpu_torch.train.optim import Lamb
+    counters = (fa.fused_apla_attn_fwd, fa.fused_apla_attn_bwd)
+    accum = int(RECIPE["training_params"]["accum_steps"])
+    t0 = time.perf_counter()
+    launches = [0, 0]
+    readings = {}
+
+    def count(got):
+        for i in range(2):
+            launches[i] += got[i]
+
+    def recipe_file(name, optimizer):
+        recipe = copy.deepcopy(RECIPE)
+        recipe["optimization_params"]["default"]["optimizer"]["type"] = \
+            optimizer
+        params = _run_params(recipe, ML_CUTS, tmp, device)
+        # the YAML's empty transfer source, which RECIPE leaves out and
+        # `main --test` clears
+        params.setdefault("transfer_learning_params", {"pretrained_path": ""})
+        path = os.path.join(tmp, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(params, f)
+        return path
+
+    for optimizer in ("AdamW", "LAMB"):
+        tag = f"14 multilabel {optimizer}"
+        path = recipe_file(optimizer.lower(), optimizer)
+        for c in counters:
+            c.launches = 0
+        t = time.perf_counter()
+        result, trainer, init = _run_main(
+            ["--params_path", path, "--device", str(device), "--model_name",
+             f"ml_{optimizer.lower()}"])
+        _sync(device)
+        count(_main_run_checks(tag, trainer, accum, counters))
+        wrapper = trainer.wrapper
+        val = [r for _, r in trainer.history if "val_mAP" in r]
+        keys = ("mAP", "roc_auc", "precision", "recall", "f1", "accuracy")
+        print(f"[{tag}] {time.perf_counter() - t:.1f} s: criterion "
+              f"{wrapper.criterion.__name__}, metric "
+              f"{wrapper.metric_class.__name__}, head "
+              f"{wrapper.model_params.n_classes}; val "
+              f"{ {k: val[-1][f'val_{k}'] for k in keys} if val else None}; "
+              f"test { {k: result[f'test_{k}'] for k in keys} }")
+        if (wrapper.is_multiclass or wrapper.criterion is not bce_with_logits
+                or wrapper.metric_class is not MultiLabelClassificationMetrics
+                or not val or not all(np.isfinite(result[f"test_{k}"])
+                                      for k in keys)):
+            raise SystemExit(f"[{tag}] the run is not the multi-label path "
+                             "or its metrics are missing")
+        if optimizer == "LAMB":
+            if not isinstance(wrapper.optimizer.opt, Lamb):
+                raise SystemExit("14: the LAMB run built another optimizer")
+            live = {n: p.detach() for n, p in
+                    trainer.state.model.named_parameters()
+                    if p.requires_grad}
+            moved = [n for n, p in live.items()
+                     if not torch.equal(p, init[n].to(p.device))]
+            print(f"[{tag}] {len(moved)}/{len(live)} trainable tensors "
+                  f"moved in {len(wrapper.optimizer.opt.leaves)} leaves")
+            if len(moved) != len(live):
+                raise SystemExit("14: a trainable tensor did not move under "
+                                 "LAMB")
+            readings["lamb_loss"] = [r["train_loss"] for _, r in
+                                     trainer.history if "train_loss" in r]
+            continue
+        readings["val"] = {k: val[-1][f"val_{k}"] for k in keys}
+
+        # the first step's kernel arm against the plain arm from the
+        # weights the run started from (phase 5's bounds and control)
+        model, cfg = trainer.state.model, wrapper.vit_cfg
+        model.load_state_dict(init)
+        loader = wrapper.dataloaders.trainloader
+        loader.set_epoch(0)
+        batch = {k: v.to(device) for k, v in next(iter(loader)).items()}
+        images = device_augment(batch["image"], torch.Generator(
+            device=device).manual_seed(SEED), wrapper.device_aug_cfg,
+            compute_dtype=cfg.compute_dtype)
+        plain_cfg = dataclasses.replace(cfg, use_fused_apla=False,
+                                        use_flash=False)
+        args = (images, batch["label"], wrapper.criterion, accum)
+        ref = _step_grads(model, plain_cfg, *args)
+        ok = _grad_agreement(tag, "kernel arm", _step_grads(model, cfg,
+                                                            *args), ref,
+                             LOSS_TOL, GRAD_REL_TOL)
+        caught = not _grad_agreement(tag, "control: dW_t zeroed",
+                                     _with_output_fault(
+                                         fa, "fused_apla_attn_bwd",
+                                         lambda out: (out[0], out[1] * 0),
+                                         lambda: _step_grads(model, cfg,
+                                                             *args)), ref,
+                                     LOSS_TOL, GRAD_REL_TOL)
+        for p in model.parameters():
+            p.grad = None
+        if not ok:
+            raise SystemExit("14: the multi-label step's kernel arm "
+                             "disagrees with the plain arm")
+        if not caught:
+            raise SystemExit("14: a broken backward kernel passes the "
+                             "gradient bounds")
+
+        # --test --knn on the run's checkpoint: the multi-label vote
+        for c in counters:
+            c.launches = 0
+        t = time.perf_counter()
+        knn, tester, _ = _run_main(
+            ["--params_path", path, "--device", str(device), "--test",
+             "--knn", "--pretrained_path", trainer.checkpoint_path])
+        _sync(device)
+        got = tuple(c.launches for c in counters)
+        ld = tester.wrapper.dataloaders
+        expect = (tester.vit_cfg.depth * (2 * len(ld.testloader)
+                                          + len(ld.fbank_loader)), 0)
+        print(f"[{tag}] --test --knn in {time.perf_counter() - t:.1f} s: "
+              f"{ {k: v for k, v in knn.items() if k.startswith('knn_')} }; "
+              f"fused kernel launches {got} (expected {expect})")
+        if got != expect or not np.isfinite(knn["knn_test_mAP"]):
+            raise SystemExit("14: --test --knn did not run the multi-label "
+                             "kNN through the fused kernels")
+        count(got)
+        readings["knn"] = {k: v for k, v in knn.items()
+                           if k.startswith("knn_")}
+    print(f"[14 multilabel] phase took {time.perf_counter() - t0:.1f} s")
+    return tuple(launches), readings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5875,6 +6484,7 @@ def main() -> int:
                                                       device)
     swin_times = timed("8a", phase_swin, device)
     det_launches, det_rates = timed("8b", phase_det, device, keep)
+    mask_launches, mask_readings = timed("8c", phase_det_masks, device)
     seg_times = timed("9a", phase_seg_kernels, device)
     seg_launches, seg_rates = timed("9b", phase_seg, device, keep)
     int8_err, int8_times = timed("10a", phase_int8, device)
@@ -5884,6 +6494,7 @@ def main() -> int:
     data_launches, data_rates = timed("13", phase_data, device, keep, rates)
     recipe_launches, proto_launches, recipe_rates = timed(
         "13h-j", phase_recipes, device, keep, data_rates["loader_img_s"])
+    ml_launches, ml_readings = timed("14", phase_multilabel, device)
     keep_dir.cleanup()
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
@@ -5924,6 +6535,10 @@ def main() -> int:
           + f"\"full\" update {recipe_rates['isic']['update_s']:.2f} s; PNG "
           + f"loader img/s raw {recipe_rates['png']['raw_img_s']:.1f} host "
           + f"{recipe_rates['png']['host_img_s']:.1f}"
+          + f"; detector --masks: box and mask mAP@50 above 0 after "
+          + f"{mask_readings['steps_to_map']} steps, best "
+          + f"{mask_readings['best']}; multi-label val "
+          + f"{ml_readings['val']}, kNN {ml_readings['knn']}"
           + f"; whole run {time.perf_counter() - t0:.1f} s (phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + " s)")
     print(_gpu_line())
@@ -5935,14 +6550,14 @@ def main() -> int:
          "pallas_apla_attn.py:105",
          serve_launches + fwd_launches + ssl_launches[0] + w8a8_launches[1]
          + sum(n[0] for n in v1_launches.values()) + p12["fwd"]
-         + data_launches[0] + recipe_launches[0],
+         + data_launches[0] + recipe_launches[0] + ml_launches[0],
          {**fwd_times[FWD_TIMED[0]],
           "max_abs_err": max(max_err, v1_times["fwd"]["max_abs_err"])}),
         ("fused_apla_attn_bwd", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn.py:131",
          bwd_launches + ssl_launches[1]
          + sum(n[1] for n in v1_launches.values()) + p12["bwd"]
-         + data_launches[1] + recipe_launches[1],
+         + data_launches[1] + recipe_launches[1] + ml_launches[1],
          {**bwd_times[main_shape],
           "max_abs_err": max(bwd_err, v1_times["bwd"]["max_abs_err"],
                              recipe_rates["nabirds"]["bwd_k8"][
@@ -5960,12 +6575,14 @@ def main() -> int:
         # row 3: two launches per call, a head-dim-32 attention and the
         # projection GEMM (gemm_sm90.cuh), both in swin_attn_fwd.cu
         ("fused_swin_attn_fwd", "swin_attn_fwd.cu",
-         "pallas_apla_attn.py:197", det_launches[0] + p12["swin_fwd"],
+         "pallas_apla_attn.py:197",
+         det_launches[0] + p12["swin_fwd"] + mask_launches[0],
          swin_times["fwd"]),
         # row 4: three launches per call, the dO GEMM, a head-dim-32
         # attention and the dW GEMM with its reduce, all in swin_attn_bwd.cu
         ("fused_swin_attn_bwd", "swin_attn_bwd.cu",
-         "pallas_apla_attn.py:203", det_launches[1], swin_times["bwd"]),
+         "pallas_apla_attn.py:203", det_launches[1] + mask_launches[1],
+         swin_times["bwd"]),
         # rows 1/2's kernels where JAX names the q-strip long kernels (TPU
         # rows 5-7): ViT-L/16 at 512, k = C = 1024, on the seg path
         ("fused_apla_attn_fwd_seg", "apla_proj_gemm.cu",
@@ -5977,7 +6594,8 @@ def main() -> int:
         # classifier (10b), the detector (8b) and the segmenter (9b), and
         # W8A8 training's (12c)
         ("int8_matmul", "int8_matmul.cu", "pallas_int8_matmul.py:33",
-         w8a8_launches[0] + det_launches[2] + seg_launches[2] + p12["int8"],
+         w8a8_launches[0] + det_launches[2] + seg_launches[2] + p12["int8"]
+         + mask_launches[2],
          {**int8_times[INT8_MAIN], "max_abs_err": int8_err}),
     ]
     # library_ms: F.scaled_dot_product_attention (autograd through it for
@@ -6142,6 +6760,15 @@ def main() -> int:
                      "ms", "graph_ms", "host_ms", "library_ms",
                      "library_matmul_ms", "bound_ms")}}
                      for name, t in int8_times.items()]}}
+    # the launches of phases 8c (the mask branch) and 14 (multi-label and
+    # LAMB) within the counts above
+    for name, n in (("fused_swin_attn_fwd", mask_launches[0]),
+                    ("fused_swin_attn_bwd", mask_launches[1])):
+        extra[name]["launches_det_masks"] = n
+    extra["int8_matmul"]["launches_det_masks"] = mask_launches[2]
+    for name, n in (("fused_apla_attn_fwd", ml_launches[0]),
+                    ("fused_apla_attn_bwd", ml_launches[1])):
+        extra[name]["launches_multilabel"] = n
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"apla_tpu_torch/csrc/{src}",

@@ -622,6 +622,64 @@ def test_det_phase_rehearsal(monkeypatch):
     assert rates == {("train", "x"): (1.0, 0.0)}
 
 
+def test_det_masks_phase_rehearsal(monkeypatch):
+    """Phase 8c on phase 8b's two-stage Swin at 56 px on the CPU, b4 over
+    8 written PNGs (polygon, RLE, compressed RLE and no segmentation): the
+    first step's kernel arm against the plain arm (the mask loss and the
+    mask branch's gradients) with its control, the `--masks` loop trained
+    until box and mask mAP@50 read above 0 with the window kernels (their
+    plain versions, counted) in every block of every step and eval call,
+    --resume, --eval_only equal to the best checkpoint, the served masks
+    equal to the in-process decode, `serve eval` equal to the loop, the
+    f32 and W8A8 exports."""
+    smoke = _chip_smoke()
+    _tiny_det(smoke, monkeypatch)
+    monkeypatch.setattr(smoke, "DET_MASK_IMAGES", 8)
+    monkeypatch.setattr(smoke, "DET_MASK_PROTOS", 8)
+    monkeypatch.setattr(smoke, "_gpu_line", lambda: "no card (CPU)")
+    _count_plain_versions(monkeypatch)
+    (fwd, bwd, int8), readings = smoke.phase_det_masks(torch.device("cpu"))
+    depth, steps, evals = 6, 2, 2
+    epochs = readings["epochs"]
+    assert epochs % smoke.DET_MASK_EPOCHS == 0
+    assert readings["steps_to_map"] <= epochs * steps
+    assert min(readings["best"]) > 0
+    # training, --resume, --eval_only, detect b8, serve eval (one call of
+    # the artifact's largest batch, 16)
+    assert fwd == depth * ((epochs + 1) * (steps + evals) + evals + 1 + 1)
+    assert bwd == depth * (epochs + 1) * steps
+    assert int8 == 3 * depth * 2
+
+
+def test_multilabel_phase_rehearsal(monkeypatch, tmp_path):
+    """Phase 14 on the 12-block ViT-Ti at 32 px (b16, accum 8) on the CPU:
+    `main` on SyntheticMultiLabel (BCE, the multi-label metrics), rows 1
+    and 2 counted in every block of every micro-step and eval call, the
+    kernel arm against the plain arm and its control, `--test --knn` on
+    the checkpoint, the LAMB run moving every trainable tensor."""
+    smoke = _chip_smoke()
+    tiny = _tiny_recipe(smoke.RECIPE)
+    tiny["model_params"]["adaptation"]["params"] = {"partial_size": 16}
+    monkeypatch.setattr(smoke, "RECIPE", tiny)
+    cuts = copy.deepcopy(smoke.ML_CUTS)
+    assert cuts["dataset_params"]["dataset"] == "SyntheticMultiLabel"
+    cuts["dataset_params"].update(synthetic_classes=10, synthetic_size=16,
+                                  synthetic_img_size=40)
+    monkeypatch.setattr(smoke, "ML_CUTS", cuts)
+    monkeypatch.setattr(smoke, "LOSS_TOL", 3e-3)
+    monkeypatch.setattr(smoke, "GRAD_REL_TOL", 0.08)
+    _count_plain_versions(monkeypatch)
+    launches, readings = smoke.phase_multilabel(torch.device("cpu"))
+    # per run: 1 update of 8 micro-steps, val and test 1 batch each; the
+    # kNN test: the test set evaluated, the bank (1 batch) and the test
+    # set embedded
+    assert launches == (12 * (2 * (8 + 2) + 3), 12 * 2 * 8)
+    assert set(readings["val"]) == {"mAP", "roc_auc", "precision", "recall",
+                                    "f1", "accuracy"}
+    assert "knn_test_mAP" in readings["knn"]
+    assert len(readings["lamb_loss"]) == 1
+
+
 def test_seg_recipe_is_the_segdet_recipe():
     """SEG_RECIPE is the JAX `segdet seg` at the reference recipe's flags
     (`--backbone vit_large --patch_size 16 --img_size 512 --use_fused

@@ -114,9 +114,12 @@ def test_unported_transforms_and_datasets_raise():
         0, rng=np.random.default_rng(0))["image"]
     assert got.shape == (48, 48, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    for name in ("SyntheticMultiLabel",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdata.get_dataset_class(name)
+    # the multi-label variant: the same images, two labels a record
+    ml = tdata.get_dataset_class("SyntheticMultiLabel")(PARAMS, "val")
+    ref_ml = jdata.get_dataset_class("SyntheticMultiLabel")(PARAMS, "val")
+    for a, b in zip(ml.data, ref_ml.data):
+        np.testing.assert_array_equal(a["img_arr"], b["img_arr"])
+        np.testing.assert_array_equal(a["label"], b["label"])
 
 
 @pytest.mark.parametrize("shuffle,drop_last,workers", [

@@ -496,7 +496,7 @@ def test_get_dataset_class_resolves_jax_names():
                  if isinstance(v, type) and issubclass(v, jdata.BaseSet)}
     ours = {n for n, v in vars(tdata).items()
             if isinstance(v, type) and issubclass(v, tdata.BaseSet)}
-    assert ours == jax_names - {"SyntheticMultiLabel"}
+    assert ours == jax_names
     for name in sorted(ours):
         cls = tdata.get_dataset_class(name)
         assert cls.__name__ == name
@@ -506,10 +506,11 @@ def test_get_dataset_class_resolves_jax_names():
                 (name, key)
     # every concrete reader has a layout above
     concrete = ours - {"BaseSet", "VTABDataset", "_SimpleCsvSet",
-                       "_CsvWithSeededSplit", "Synthetic"}
+                       "_CsvWithSeededSplit", "Synthetic",
+                       "SyntheticMultiLabel"}
     assert concrete == set(CASES)
-    with pytest.raises(NotImplementedError, match="A 6"):
-        tdata.get_dataset_class("SyntheticMultiLabel")
+    assert tdata.get_dataset_class("SyntheticMultiLabel").is_multiclass \
+        is False
     for name in ("NoSuchSet", "np", "read_csv"):
         with pytest.raises(KeyError, match="Unknown dataset"):
             tdata.get_dataset_class(name)

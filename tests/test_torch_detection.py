@@ -199,8 +199,25 @@ def test_train_step_trajectory_matches_jax(fused):
 
 
 def test_masks_raise_naming_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        tdet.make_detection_train_step(tswin.SwinConfig(), None,
-                                       with_mask=True)
-    with pytest.raises(NotImplementedError, match="mask branch"):
-        tdet.DetectionAP(3, use_masks=True)
+    """The mask branch is ported (tests/test_torch_detection_masks.py
+    holds it against JAX): a box-only detector has no mask parameters and
+    decodes three outputs, a mask detector adds the coefficient conv and
+    the protonet, and the mask metric takes masks."""
+    cfg = tswin.SwinConfig(compute_dtype=torch.float32, **KW)
+    box, mask = tdet.Detector(cfg, N_CLASSES), tdet.Detector(cfg, N_CLASSES,
+                                                             n_protos=4)
+    assert box.protonet is None and not hasattr(box.head, "coef")
+    extra = set(dict(mask.named_parameters())) - set(
+        dict(box.named_parameters()))
+    assert extra == {"head.coef.kernel", "head.coef.bias",
+                     "protonet.convs.0.kernel", "protonet.convs.0.bias",
+                     "protonet.convs.1.kernel", "protonet.convs.1.bias",
+                     "protonet.out.kernel", "protonet.out.bias"}
+    assert tuple(mask.head.coef.kernel.shape) == (3, 3, 16, 4)
+    assert tuple(mask.protonet.out.kernel.shape) == (1, 1, 64, 4)
+    ap = tdet.DetectionAP(N_CLASSES, use_masks=True)
+    m = np.zeros((1, 14, 14), bool)
+    m[0, 2:6, 3:9] = True
+    ap.add_image(0, np.zeros((1, 4)), [0.9], [1], np.zeros((1, 4)), [1],
+                 pred_masks=m, gt_masks=m)
+    assert ap.mean_ap() == pytest.approx(1.0)

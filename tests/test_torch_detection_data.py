@@ -112,10 +112,20 @@ def test_png_writer_and_reader_round_trip(tmp_path):
 
 
 def test_other_formats_and_masks_raise(tmp_path):
+    """Other image formats still raise naming their ROADMAP item; the
+    instance masks are ported: `with_masks=True` samples carry the JAX
+    reader's masks (here each annotation's box fallback: the set has no
+    segmentations; tests/test_torch_detection_masks.py holds RLE and
+    polygons)."""
+    from apla_tpu.data.detection_data import CocoDetection as JCoco
     path = tmp_path / "x.jpg"
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(path)
     with pytest.raises(NotImplementedError, match="PIL-free transforms"):
         tdd.read_png(str(path))
     img_dir, ann = _write_set(tmp_path)
-    with pytest.raises(NotImplementedError, match="mask"):
-        tdd.CocoDetection(img_dir, ann, with_masks=True)
+    got = tdd.CocoDetection(img_dir, ann, with_masks=True, img_size=56)
+    want = JCoco(img_dir, ann, with_masks=True, img_size=56)
+    for i in range(len(got)):
+        assert got[i]["masks"].shape == (32, 14, 14)
+        np.testing.assert_array_equal(got[i]["masks"], want[i]["masks"])
+    assert got[0]["masks"].any()

@@ -18,7 +18,12 @@ exported and served; and decodes the committed JPEG fixtures with the
 port's own decoder and reads an ImageNet tree of them through the recipe's
 host transforms and the raw path; decodes the committed PNG fixtures with
 the native PNG decoder against their manifest; reads NABirds and ISIC2019
-trees (CSV tables, no pandas) and a VTAB tree of PNGs.
+trees (CSV tables, no pandas) and a VTAB tree of PNGs.  A second
+interpreter, under the same blocker, drives the detector's mask branch
+(polygon and RLE masks, the loop with `masks=True`, a mask export served
+float and W8A8, `serve eval`'s mask mAP) and the multi-label and LAMB
+pieces (`SyntheticMultiLabel`, the multi-label metrics, multi-label kNN,
+LAMB steps, the step timer).
 """
 
 import os
@@ -53,6 +58,7 @@ class Blocker:
 
 
 sys.meta_path.insert(0, Blocker())
+# -- end of the blocker --
 
 import numpy as np
 import torch
@@ -331,6 +337,117 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("MODULES", len(names))
 """
+
+
+_HEADER = _SCRIPT.split("# -- end of the blocker --")[0]
+
+_SCRIPT_MASKS_MULTILABEL = _HEADER + r"""
+import json, os, tempfile
+import numpy as np
+import torch
+from apla_tpu_torch import serve
+from apla_tpu_torch.data.detection_data import (polygons_to_mask,
+                                                rle_to_mask, write_png)
+from apla_tpu_torch.segdet import train_detection
+
+m = polygons_to_mask([[1.5, 1.5, 9.2, 2.0, 5.0, 8.7]], 12, 12)
+assert m.dtype == np.uint8 and 0 < m.sum() < 60
+assert rle_to_mask({"size": [3, 4], "counts": "12:0"}).shape == (3, 4)
+with tempfile.TemporaryDirectory() as tmp:
+    os.makedirs(os.path.join(tmp, "imgs"))
+    rng = np.random.default_rng(0)
+    segs = [[[5, 5, 35, 5, 20, 25]], {"size": [60, 70], "counts": [400, 300]},
+            {"size": [60, 70], "counts": "n71Qc0"}, None]
+    anns = []
+    for i in range(4):
+        write_png(os.path.join(tmp, "imgs", f"{i}.png"),
+                  rng.integers(0, 256, (60, 70, 3), dtype=np.uint8))
+        ann = {"id": i + 1, "image_id": i, "category_id": 5,
+               "bbox": [5, 5, 30, 20]}
+        if segs[i] is not None:
+            ann["segmentation"] = segs[i]
+        anns.append(ann)
+    ann_file = os.path.join(tmp, "ann.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": [{"id": i, "file_name": f"{i}.png"}
+                              for i in range(4)],
+                   "annotations": anns, "categories": [{"id": 5}]}, f)
+    ck = os.path.join(tmp, "ck")
+    out = train_detection(os.path.join(tmp, "imgs"), ann_file, epochs=1,
+                          img_size=56, batch_size=2, embed_dim=32,
+                          depths=(2, 2), num_heads=(1, 2), num_workers=0,
+                          save_dir=ck, use_fused=True, bf16=True,
+                          masks=True, n_protos=4, device="cpu")
+    assert out["iters"] == 2 and "best_mask_map50" in out
+    for extra in ([], ["--quantize_frozen"]):
+        art = os.path.join(tmp, "art" + "".join(extra))
+        serve.main(["export_det", "--ckpt", os.path.join(ck, "det_best.pt"),
+                    "--img_size", "56", "--embed_dim", "32", "--depths",
+                    "2,2", "--num_heads", "1,2", "--out", art] + extra)
+        pred = serve.load_predictor(art, "cpu")
+        dets = pred.detect(np.zeros((2, 56, 56, 3), np.float32),
+                           score_thresh=0.0, top_k=3)
+        assert [d[3].shape for d in dets] == [(3, 14, 14)] * 2
+        res = serve.main(["eval", art, "--det_img_dir",
+                          os.path.join(tmp, "imgs"), "--det_ann", ann_file,
+                          "--device", "cpu", "--num_workers", "0"])
+        assert set(res) == {"val_map50", "val_mask_map50"}
+
+# multi-label: the dataset, the metrics, the kNN vote; LAMB; the step timer
+from apla_tpu_torch.data.datasets import get_dataset_class
+from apla_tpu_torch.train.knn import knn_evaluate
+from apla_tpu_torch.train.metrics import MultiLabelClassificationMetrics
+from apla_tpu_torch.train.optim import build_optimizer, global_norm
+from apla_tpu_torch.utils.profiling import StepTimer, device_memory_stats
+
+ds = get_dataset_class("SyntheticMultiLabel")(
+    {"data_location": "/nonexistent", "synthetic_size": 16,
+     "synthetic_classes": 4, "val_transforms": {"Normalize": True}}, "val")
+labels = np.stack([r["label"] for r in ds.data])
+assert labels.shape == (16, 4) and (labels.sum(1) == 2).all()
+metric = MultiLabelClassificationMetrics(4, mode="val")
+metric.add_preds(rng.standard_normal((16, 4)), labels)
+values = metric.get_values()
+assert set(values) == {"val_accuracy", "val_mAP", "val_precision",
+                       "val_recall", "val_f1", "val_roc_auc"}
+batches = [{"image": torch.tensor(rng.standard_normal((8, 6)),
+                                  dtype=torch.float32),
+            "label": torch.tensor(labels[i:i + 8])} for i in (0, 8)]
+knn = knn_evaluate(lambda x: torch.nn.functional.normalize(x, dim=-1),
+                   batches, batches,
+                   MultiLabelClassificationMetrics(4, mode="knn_val"), 4, 5,
+                   0.1, torch.device("cpu"))
+assert knn["knn_val_mAP"] == 1.0
+named = [("backbone.blocks.0.attn.proj_wt", torch.nn.Parameter(
+             torch.randn(6, 2))),
+         ("backbone.blocks.1.attn.proj_wt", torch.nn.Parameter(
+             torch.randn(6, 2))),
+         ("fc.bias", torch.nn.Parameter(torch.zeros(4)))]
+opt = build_optimizer("LAMB", {"lr": 1e-2, "weight_decay": 0.1}, named,
+                      grad_clip=1.0)
+assert len(opt.opt.leaves) == 2
+timer = StepTimer(sync_every=2, skip_first=0)
+for _ in range(3):
+    for _, p in named:
+        p.grad = torch.randn_like(p)
+    opt.step(global_norm([p.grad for _, p in named]))
+    timer.tick(sync_value=torch.tensor(1.0))
+assert named[2][1].abs().sum() > 0 and len(timer.summary()) == 4
+assert device_memory_stats("cpu") == {}
+
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_mask_branch_multilabel_and_lamb_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT_MASKS_MULTILABEL],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK"), proc.stdout[-2000:]
 
 
 def test_port_imports_and_runs_without_jax():

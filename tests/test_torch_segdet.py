@@ -259,6 +259,139 @@ def test_detection_loop(tmp_path):
     assert set(meta) == {"epoch", "map50"} and meta["epoch"] == 1
 
 
+def make_coco_masks(tmp_path, n_images=4, size=(60, 80)):
+    """`make_coco`'s layout with non-rectangular objects: an ellipse per
+    image, annotated in turn as a polygon, an uncompressed RLE, a
+    compressed RLE (pycocotools' string code) and with no segmentation."""
+    img_dir = tmp_path / "imgs"
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:size[0], :size[1]]
+    images, annotations = [], []
+    for i in range(n_images):
+        name = f"im{i}.png"
+        img = rng.integers(0, 64, size + (3,), dtype=np.uint8)
+        x, y, w, h = 8 + 4 * i, 6 + 2 * i, 36, 28
+        inside = ((xx + 0.5 - x - w / 2) / (w / 2)) ** 2 \
+            + ((yy + 0.5 - y - h / 2) / (h / 2)) ** 2 <= 1
+        img[inside] = (200, 40, 40)
+        write_png(str(img_dir / name), img)
+        images.append({"id": i, "file_name": name, "width": size[1],
+                       "height": size[0]})
+        ann = {"id": 10 + i, "image_id": i, "category_id": 7,
+               "bbox": [x, y, w, h], "iscrowd": 0}
+        flat = inside.T.reshape(-1).astype(int)
+        edges = np.flatnonzero(np.diff(flat)) + 1
+        counts = np.diff(np.concatenate([[0], edges, [flat.size]])).tolist()
+        if i % 4 == 0:
+            t = np.linspace(0, 2 * np.pi, 16, endpoint=False)
+            ann["segmentation"] = [np.stack(
+                [x + w / 2 + w / 2 * np.cos(t),
+                 y + h / 2 + h / 2 * np.sin(t)], 1).reshape(-1).tolist()]
+        elif i % 4 in (1, 2):
+            if i % 4 == 2:                 # compressed: rleToString
+                chars = []
+                for k, v in enumerate(counts):
+                    v -= counts[k - 2] if k > 2 else 0
+                    more = True
+                    while more:
+                        c, v = v & 0x1F, v >> 5
+                        more = v != -1 if c & 0x10 else v != 0
+                        chars.append(chr((c | 0x20 if more else c) + 48))
+                counts = "".join(chars)
+            ann["segmentation"] = {"size": list(size), "counts": counts}
+        annotations.append(ann)
+    ann = {"images": images, "annotations": annotations,
+           "categories": [{"id": 7, "name": "thing"}]}
+    ann_file = tmp_path / "instances.json"
+    ann_file.write_text(json.dumps(ann))
+    return str(img_dir), str(ann_file)
+
+
+def test_detection_masks_loop_resume_eval_export_serve(tmp_path, capsys):
+    """`det --masks` end to end: the loop trains the mask branch and
+    reports box and mask mAP@50 (meta, log, result), `--eval_only` gives
+    the best checkpoint's pair again, `--resume` keeps the saved bests
+    when its epochs cannot beat them (as the JAX loop's test), then
+    `export_det` (float and `--quantize_frozen`) writes `with_masks`
+    artifacts whose `detect` masks equal `decode_detections` of the
+    in-process forward, `serve eval` gives the loop's pair, and `serve
+    predict` prints masks."""
+    from apla_tpu_torch import serve
+    from apla_tpu_torch.models.detection import (decode_detections,
+                                                 detector_outputs)
+    img_dir, ann = make_coco_masks(tmp_path)
+    ck = str(tmp_path / "ck")
+    kw = {**KW, "lr": 1e-2, "masks": True, "n_protos": 8}
+    out = segdet.train_detection(img_dir, ann, epochs=3, save_dir=ck, **kw)
+    assert out["iters"] == 6 and set(out) == {
+        "best_map50", "best_mask_map50", "iters", "eval_set"}
+    assert 0.0 <= out["best_mask_map50"] <= 1.0
+    meta = json.loads((tmp_path / "ck" / "det_best.json").read_text())
+    assert set(meta) == {"epoch", "map50", "mask_map50"}
+    assert meta["mask_map50"] == out["best_mask_map50"]
+    rows = [json.loads(line)
+            for line in open(tmp_path / "ck" / "det.metrics.jsonl")]
+    assert sum("mask_loss" in r for r in rows) == 6
+    assert sum("train_mask_map50" in r for r in rows) == 3
+    best = segdet.load_checkpoint(os.path.join(ck, "det_best.pt"))
+    assert {"head.coef.kernel", "protonet.out.kernel"} <= set(
+        best["trainable"])
+    again = segdet.train_detection(img_dir, ann, epochs=1, save_dir=ck,
+                                   eval_only=True, **kw)
+    assert again["iters"] == 0
+    assert again["best_map50"] == meta["map50"]
+    assert again["best_mask_map50"] == meta["mask_map50"]
+    # serve the best checkpoint: float and W8A8
+    for extra in ([], ["--quantize_frozen"]):
+        art = str(tmp_path / ("art" + "".join(extra)))
+        serve.main(["export_det", "--ckpt", os.path.join(ck, "det_best.pt"),
+                    "--img_size", "56", "--embed_dim", "32", "--depths",
+                    "2,2", "--num_heads", "1,2", "--out", art,
+                    "--batch_sizes", "1,2"] + extra)
+        pred = serve.load_predictor(art, "cpu")
+        assert pred.meta["with_masks"] is True
+        assert pred.meta["quantized_frozen"] is bool(extra)
+        # two images: one call at the exported batch size 2, so that the
+        # W8A8 artifact's activation scales are those of the same batch
+        x = np.random.default_rng(1).standard_normal(
+            (2, 56, 56, 3)).astype(np.float32)
+        dets = pred.detect(x, score_thresh=0.0, top_k=4)
+        with torch.no_grad():
+            levels, protos = detector_outputs(pred.model, torch.tensor(x),
+                                              pred.swin_cfg)
+        for j, det in enumerate(dets):
+            want = decode_detections(
+                [tuple(o[j:j + 1] for o in lvl) for lvl in levels],
+                pred.meta["strides"], score_thresh=0.0, top_k=4,
+                protos=protos[j:j + 1], mask_stride=4)
+            assert len(det) == 4 and det[3].shape == (4, 14, 14)
+            for g, w in zip(det, want):
+                np.testing.assert_array_equal(g, w)
+        capsys.readouterr()
+        got = serve.main(["eval", art, "--det_img_dir", img_dir,
+                          "--det_ann", ann, "--device", "cpu",
+                          "--num_workers", "0"])
+        if not extra:
+            assert got == {"val_map50": round(meta["map50"], 4),
+                           "val_mask_map50": round(meta["mask_map50"], 4)}
+        np.save(tmp_path / "x.npy", x)
+        serve.main(["predict", art, str(tmp_path / "x.npy"), "--device",
+                    "cpu", "--score_thresh", "0", "--max_dets", "3"])
+        recs = [json.loads(line) for line in
+                capsys.readouterr().out.strip().splitlines()
+                if line.startswith("{")]
+        assert len(recs) == 2 and all(
+            np.asarray(r["masks"]).shape == (3, 14, 14) for r in recs)
+    # an unbeatable saved best: the resumed epoch keeps the meta's bests
+    meta["mask_map50"], meta["map50"] = 2.0, 0.75
+    (tmp_path / "ck" / "det_best.json").write_text(json.dumps(meta))
+    out = segdet.train_detection(img_dir, ann, epochs=4, resume=True,
+                                 save_dir=ck, **kw)
+    assert out["iters"] == 2
+    assert out["best_mask_map50"] == 2.0 and out["best_map50"] == 0.75
+
+
 def test_detection_loop_fused_bf16_flags(tmp_path):
     """`--use_fused --bf16` on the CPU: the window kernels' plain versions
     in bf16, finite metrics and a checkpoint."""
@@ -398,8 +531,7 @@ def test_unported_options_raise(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="Parallel modes"):
         segdet.main(["seg", "--root", root, "--n_devices", "2",
                      "--device", "cpu"])
-    for extra, match in (({"masks": True}, "mask branch"),
-                         ({"n_devices": 2}, "Parallel modes"),
+    for extra, match in (({"n_devices": 2}, "Parallel modes"),
                          ({"param_sharding": "fsdp"}, "Parallel modes")):
         with pytest.raises(NotImplementedError, match=match):
             segdet.train_detection(img_dir, ann, save_dir=str(tmp_path),

@@ -158,10 +158,12 @@ def test_cli_export_predict_info(tmp_path, capsys):
 # detector artifacts
 # ------------------------------------------------------------------ #
 
-def _jax_det_artifact(tmp_path):
-    """A JAX detector (the shape of tests/test_serve.py's) exported by the
-    JAX package, and the same weights in a port artifact."""
-    from apla_tpu.models.detection import _conv_init, init_fcos_head
+def _jax_det_artifact(tmp_path, n_protos=0):
+    """A JAX detector (the shape of tests/test_serve.py's; with `n_protos`
+    the mask branch) exported by the JAX package, and the same weights in
+    a port artifact."""
+    from apla_tpu.models.detection import (_conv_init, init_fcos_head,
+                                           init_protonet)
     from apla_tpu.models.swin import (SwinConfig, build_apla_swin,
                                       init_swin_params)
     from apla_tpu.serve import export_detector as j_export
@@ -176,10 +178,16 @@ def _jax_det_artifact(tmp_path):
     trainable = {
         "backbone": bb_t,
         "head": init_fcos_head(jax.random.PRNGKey(1), 32, 3, channels=16,
-                               n_levels=2),
+                               n_levels=2, n_protos=n_protos),
         "laterals": [_conv_init(jax.random.PRNGKey(5), 1, 32, 32),
                      _conv_init(jax.random.PRNGKey(6), 1, 64, 32)],
     }
+    if n_protos:
+        trainable["protonet"] = init_protonet(jax.random.PRNGKey(7), 32,
+                                              n_protos=n_protos)
+        # coefficients and prototypes large enough that masks show
+        trainable["head"]["coef"]["kernel"] *= 30
+        trainable["protonet"]["out"]["kernel"] *= 30
     trainable = jax.tree.map(np.asarray, trainable)
     bb_f = jax.tree.map(np.asarray, bb_f)
     j_path = str(tmp_path / "jax_det")
@@ -230,8 +238,41 @@ def test_detector_artifact_matches_jax(tmp_path):
     assert [lvl[0].shape for lvl in empty] == [(0, 14, 14, 3), (0, 7, 7, 3)]
     with pytest.raises(NotImplementedError):
         pred.embed(x)
-    with pytest.raises(NotImplementedError, match="mask branch"):
-        pred.predict_protos(x)
+    assert pred.predict_protos(x) is None          # a box-only export
+
+
+def test_mask_detector_artifact_matches_jax(tmp_path):
+    """A detector with the mask branch: `with_masks` in the meta, the
+    coefficient maps and `predict_protos` against the JAX artifact's
+    within float32 1e-4, and `detect`'s masks against JAX's decode (all
+    but pixels whose logit sits within the f32 noise of the threshold)."""
+    from apla_tpu.serve import load_predictor as j_load
+    j_path, t_path, meta, _ = _jax_det_artifact(tmp_path, n_protos=4)
+    assert meta["with_masks"] is True
+    pred, j_pred = tserve.load_predictor(t_path, "cpu"), j_load(j_path)
+    x = np.random.default_rng(3).standard_normal((3, 56, 56, 3)).astype(
+        np.float32)
+    got, ref = pred.predict(x), j_pred.predict(x)
+    assert [len(lvl) for lvl in got] == [4, 4]
+    for g_lvl, r_lvl in zip(got, ref, strict=True):
+        for g, r in zip(g_lvl, r_lvl, strict=True):
+            np.testing.assert_allclose(g, np.asarray(r), rtol=1e-4, atol=1e-4)
+    protos = pred.predict_protos(x)
+    assert protos.shape == (3, 14, 14, 4) and protos.max() > 0
+    np.testing.assert_allclose(protos, np.asarray(j_pred.predict_protos(x)),
+                               rtol=1e-4, atol=1e-4)
+    dets = pred.detect(x, score_thresh=0.0, top_k=5)
+    j_dets = j_pred.detect(x, score_thresh=0.0, top_k=5)
+    n_pix = n_diff = 0
+    for det, j_det in zip(dets, j_dets, strict=True):
+        assert len(det) == len(j_det) == 4 and det[3].shape == (5, 14, 14)
+        np.testing.assert_allclose(det[0], j_det[0], rtol=1e-4, atol=1e-3)
+        np.testing.assert_array_equal(det[2], j_det[2])
+        n_pix += det[3].size
+        n_diff += int((det[3] != j_det[3]).sum())
+    assert any(d[3].any() for d in dets) and n_diff <= n_pix // 1000
+    empty = pred.detect(np.zeros((0, 56, 56, 3), np.float32))
+    assert empty == [] and pred.predict_protos(x[:0]).shape == (0, 14, 14, 4)
 
 
 def test_cli_export_det_and_predict(tmp_path, capsys):

@@ -163,8 +163,6 @@ def test_cli_tests_a_checkpoint(trained, capsys):
     ("system_params", "sequence_parallel", True),
     ("system_params", "n_devices", 4),
     ("system_params", "param_sharding", "fsdp"),
-    ("dataset_params", "dataset", "SyntheticMultiLabel"),
-    ("optimization_params", "LAMB", None),
     ("ssl", "quantize_frozen", True),
 ])
 def test_unported_knobs_raise(tmp_path, where, key, value):
@@ -174,15 +172,39 @@ def test_unported_knobs_raise(tmp_path, where, key, value):
     from apla_tpu_torch.ssl.byol import BYOLWrapper
     params = _params(tmp_path)
     wrapper_cls = DefaultWrapper
-    if where == "optimization_params":
-        params.optimization_params.default.optimizer.type = "LAMB"
-    elif where == "ssl":
+    if where == "ssl":
         params.model_params[key] = value
         wrapper_cls = BYOLWrapper
     else:
         params[where][key] = value
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         wrapper_cls(params).instantiate()
+
+
+@pytest.mark.parametrize("where,key,value", [
+    ("dataset_params", "dataset", "SyntheticMultiLabel"),
+    ("optimization_params", "LAMB", None),
+])
+def test_multilabel_and_lamb_train(tmp_path, where, key, value):
+    """Once refused, now ported: a multi-label set (BCE, the multi-label
+    metrics and their kNN rows) and the LAMB optimizer each train an epoch
+    and test.  tests/test_torch_multilabel.py holds both against JAX."""
+    params = _params(tmp_path, epochs=1, size=128, knn_eval=True)
+    if where == "optimization_params":
+        params.optimization_params.default.optimizer.type = "LAMB"
+    else:
+        params[where][key] = value
+    wrapper = DefaultWrapper(params)
+    wrapper.instantiate()
+    trainer = Trainer(wrapper)
+    trainer.train()
+    results = trainer.test()
+    metric = "test_mAP" if key == "dataset" else "test_accuracy"
+    assert np.isfinite(results[metric])
+    assert f"knn_{metric}" in results
+    losses = [r["train_loss"] for _, r in trainer.history
+              if "train_loss" in r]
+    assert len(losses) == 2 and np.isfinite(losses).all()
 
 
 SSL_RECIPES = {"--byol": ("byol.yml", "BYOL heads"),
