@@ -11,8 +11,8 @@ epoch, batch index) and `batch_key=(epoch, batch index)` (the iBOT mask
 collate seeds its masks from the key; the others ignore it).  The workers start at the first pass and serve every
 later one (the epoch travels in the batch keys), so each is spawned once.
 Batches come out as dicts of CPU tensors: 'image' NHWC (uint8 when the
-dataset is in raw mode, else float32) and 'label' (int64, or float32 soft
-targets).
+dataset is in raw mode, else float32; a list of them, one per crop, for a
+multi-crop pipeline) and 'label' (int64, or float32 soft targets).
 """
 
 from __future__ import annotations
@@ -25,13 +25,24 @@ import numpy as np
 import torch
 
 
+def _stack(arrays):
+    stacked = np.stack(arrays)
+    # uint8 passes through untouched (the on-device augmentation path)
+    return stacked if stacked.dtype == np.uint8 else stacked.astype(
+        np.float32)
+
+
 def default_collate(samples, rng=None, batch_key=None):
-    """Stack {'image', 'label'} records into numpy batch arrays (uint8
-    images pass through untouched)."""
+    """Stack {'image', 'label'} records into numpy batch arrays; records
+    whose 'image' is a list of crops (SSL multi-crop) give a list of
+    per-crop batches."""
     del rng, batch_key
-    images = np.stack([s["image"] for s in samples])
-    if images.dtype != np.uint8:
-        images = images.astype(np.float32)
+    first = samples[0]["image"]
+    if isinstance(first, list):
+        images = [_stack([s["image"][c] for s in samples])
+                  for c in range(len(first))]
+    else:
+        images = _stack([s["image"] for s in samples])
     lab0 = np.asarray(samples[0]["label"])
     if lab0.ndim > 0:
         labels = np.stack([np.asarray(s["label"]) for s in samples]).astype(
@@ -39,6 +50,12 @@ def default_collate(samples, rng=None, batch_key=None):
     else:
         labels = np.asarray([s["label"] for s in samples], dtype=np.int64)
     return {"image": images, "label": labels}
+
+
+def _tensor(v):
+    if isinstance(v, list):
+        return [_tensor(x) for x in v]
+    return torch.from_numpy(np.ascontiguousarray(v))
 
 
 class _Batches(torch.utils.data.Dataset):
@@ -56,8 +73,7 @@ class _Batches(torch.utils.data.Dataset):
         batch = self.collate_fn(
             samples, rng=np.random.default_rng((self.seed, epoch, bi, 1)),
             batch_key=(epoch, bi))
-        return {k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in batch.items() if v is not None}
+        return {k: _tensor(v) for k, v in batch.items() if v is not None}
 
 
 class _BatchKeys:

@@ -13,7 +13,9 @@ scanline half of a PNG decoder (filters, Adam7, every depth and colour
 type, Pillow's conversions) behind `png_stream`'s chunk reading and
 Python's zlib.
 
-A library is built with `g++ -O3 -shared -fPIC` at its first call, never at
+A library is built with `g++ -O3 -shared -fPIC -ffp-contract=off` (no
+fused multiply-add on any host: the plain versions' arithmetic, operation
+for operation) at its first call, never at
 import, into `apla_tpu_torch/_build/<hash>/` (gitignored), keyed by a hash
 of the source, the shared header and the flags.  A failed build or load
 raises, and so does a file the decoder refuses: nothing falls back to
@@ -39,7 +41,7 @@ import numpy as np
 
 _HERE = Path(__file__).resolve().parent
 BUILD_ROOT = _HERE.parent / "_build"
-CXX_FLAGS = ("-O3", "-shared", "-fPIC")
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
 HEADERS = ("bilinear_u8.h",)
 
 # jpeg_probe's colour kinds; the first three are what libjpeg's RGB output
@@ -94,6 +96,11 @@ def image_lib() -> ctypes.CDLL:
     lib.hflip_u8.argtypes = [_U8P, _I, _I, _I]
     lib.resample_u8.argtypes = [_U8P, _I, _I, _I, _U8P, _I, _I, _I]
     lib.hue_shift_u8.argtypes = [_U8P, ctypes.c_long, _I]
+    lib.gaussian_blur_u8.argtypes = [_U8P, _I, _I, _I, ctypes.c_float]
+    lib.enhance_u8.argtypes = [_U8P, _U8P, ctypes.c_long, _I, ctypes.c_float]
+    lib.transform_bilinear_u8.argtypes = [
+        _U8P, _I, _I, _I, _U8P,
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"), _I]
     return lib
 
 
@@ -192,8 +199,53 @@ def hue_shift(img: np.ndarray, shift: int) -> np.ndarray:
     return out
 
 
+ENHANCE_KINDS = ("brightness", "contrast", "color")
+
+
+def enhance(img: np.ndarray, kind: str, factor: float) -> np.ndarray:
+    """Pillow's `ImageEnhance.Brightness | Contrast | Color(img)
+    .enhance(factor)` on uint8 RGB HWC (`kind` "brightness", "contrast"
+    or "color"); its plain numpy version is
+    `data.transforms.enhance_reference`."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
+        raise ValueError(f"enhance takes uint8 RGB HWC, not {img.dtype} "
+                         f"{img.shape}")
+    img = np.ascontiguousarray(img)
+    out = np.empty_like(img)
+    image_lib().enhance_u8(img, out, img.size // 3, ENHANCE_KINDS.index(kind),
+                           float(np.float32(factor)))
+    return out
+
+
+def gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
+    """Pillow's `img.filter(ImageFilter.GaussianBlur(radius))` on uint8 HWC
+    (a new array); its plain numpy version is
+    `data.transforms.gaussian_blur_reference`."""
+    out = np.array(img, np.uint8, order="C", copy=True)
+    h, w, c = out.shape
+    image_lib().gaussian_blur_u8(out, h, w, c, float(radius))
+    return out
+
+
+def transform_bilinear(img: np.ndarray, coeffs,
+                       perspective: bool = False) -> np.ndarray:
+    """Pillow's `img.transform(img.size, AFFINE | PERSPECTIVE, coeffs,
+    BILINEAR)` on uint8 HWC: `coeffs` the 6 (affine) or 8 (perspective)
+    output -> input coefficients; its plain numpy version is
+    `data.transforms.transform_bilinear_reference`."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, c = img.shape
+    a = np.zeros(8, np.float64)
+    n = 8 if perspective else 6
+    a[:n] = [float(v) for v in list(coeffs)[:n]]
+    out = np.empty_like(img)
+    image_lib().transform_bilinear_u8(img, h, w, c, out, a, int(perspective))
+    return out
+
+
 # The plain numpy versions: the C++'s float32 operations, one at a time
-# and in its order (g++ -O3 without -march contracts no multiply-add).
+# and in its order (built with -ffp-contract=off: no multiply-add is
+# fused).
 
 def _bilinear_taps(n_in: int, n_out: int, scale, offset: int = 0):
     f = np.float32

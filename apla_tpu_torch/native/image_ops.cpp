@@ -4,8 +4,12 @@
 // `apla_tpu/native/image_ops.cpp`, so the two give the same bits); and
 // Pillow's own arithmetic where the JAX package calls Pillow: its
 // BILINEAR / BICUBIC resample (`Image.resize`) and its RGB -> HSV -> RGB
-// round trip (`convert("HSV")`, `convert("RGB")`).  Called through ctypes
-// (`apla_tpu_torch/native/__init__.py`), which releases the GIL.
+// round trip (`convert("HSV")`, `convert("RGB")`), ImageEnhance's blends
+// (Brightness, Contrast, Color), its GaussianBlur
+// (`ImageFilter.GaussianBlur`: extended box passes) and its BILINEAR
+// generic transform (`Image.transform` with AFFINE or PERSPECTIVE, which
+// `rotate`, the shears and the translations go through).  Called through
+// ctypes (`apla_tpu_torch/native/__init__.py`), which releases the GIL.
 //
 // Build: g++ -O3 -shared -fPIC image_ops.cpp -o image_ops.so
 
@@ -223,6 +227,13 @@ static inline uint8_t clip8i(int v) {
     return (uint8_t)(v <= 0 ? 0 : v >= 255 ? 255 : v);
 }
 
+// C's `round` on a non-negative double below 2^31, inline: the floor by
+// truncation, then up where the rest is at least a half (both exact).
+static inline int round_nonneg(double x) {
+    int i = (int)x;
+    return x - i >= 0.5 ? i + 1 : i;
+}
+
 void hue_shift_u8(uint8_t* img, long n, int shift) {
     for (long i = 0; i < n; ++i) {
         uint8_t* px = img + 3 * i;
@@ -247,7 +258,10 @@ void hue_shift_u8(uint8_t* img, long n, int shift) {
             } else {
                 h = 4.0 + gc - rc;
             }
-            h = std::fmod((h / 6.0 + 1.0), 1.0);
+            // fmod(t, 1.0) for t = h / 6 + 1 in [5/6, 11/6]: t - 1 is
+            // exact there (Sterbenz), and fmod's call is the op's cost
+            double t = h / 6.0 + 1.0;
+            h = t >= 1.0 ? t - 1.0 : t;
             uh = clip8i((int)(h * 255.0));
             us = clip8i((int)(s * 255.0));
         }
@@ -256,12 +270,12 @@ void hue_shift_u8(uint8_t* img, long n, int shift) {
             px[0] = px[1] = px[2] = uv;
             continue;
         }
-        int ii = (int)std::floor((float)hh * 6.0 / 255.0);
+        int ii = (int)((float)hh * 6.0 / 255.0);    // floor: >= 0
         float f = (float)hh * 6.0 / 255.0 - (float)ii;
         float fs = ((float)us) / 255.0;
-        int p = (int)std::round((float)uv * (1.0 - fs));
-        int q = (int)std::round((float)uv * (1.0 - fs * f));
-        int t = (int)std::round((float)uv * (1.0 - fs * (1.0 - f)));
+        int p = round_nonneg((float)uv * (1.0 - fs));
+        int q = round_nonneg((float)uv * (1.0 - fs * f));
+        int t = round_nonneg((float)uv * (1.0 - fs * (1.0 - f)));
         uint8_t up = clip8i(p), uq = clip8i(q), ut = clip8i(t);
         switch (ii % 6) {
             case 0: px[0] = uv; px[1] = ut; px[2] = up; break;
@@ -270,6 +284,172 @@ void hue_shift_u8(uint8_t* img, long n, int shift) {
             case 3: px[0] = up; px[1] = uq; px[2] = uv; break;
             case 4: px[0] = ut; px[1] = up; px[2] = uv; break;
             case 5: px[0] = uv; px[1] = up; px[2] = uq; break;
+        }
+    }
+}
+
+// ------------------------------------------------------------------------ //
+// Pillow's ImageEnhance on RGB: `Image.blend(degenerate, img, alpha)`,
+// d + alpha * (v - d) in float, truncated to a byte, clipped first when
+// alpha is outside [0, 1].  The degenerate d: 0 (Brightness), the grey
+// mean int(sum(L) / n + 0.5) (Contrast), or each pixel's own L (Color),
+// L = (19595 R + 38470 G + 7471 B + 2^15) >> 16 (`convert("L")`).
+// ------------------------------------------------------------------------ //
+
+static inline int luma(const uint8_t* p) {
+    return (p[0] * 19595 + p[1] * 38470 + p[2] * 7471 + 0x8000) >> 16;
+}
+
+// kind: 0 Brightness, 1 Contrast, 2 Color.
+void enhance_u8(const uint8_t* img, uint8_t* out, long n, int kind,
+                float alpha) {
+    int d = 0;
+    if (kind == 1) {
+        long long sum = 0;
+        for (long i = 0; i < n; ++i) sum += luma(img + 3 * i);
+        d = (int)((double)sum / n + 0.5);
+    }
+    const bool inside = alpha >= 0 && alpha <= 1.0;
+    for (long i = 0; i < n; ++i) {
+        const uint8_t* p = img + 3 * i;
+        if (kind == 2) d = luma(p);
+        for (int ch = 0; ch < 3; ++ch) {
+            float v = (float)d + alpha * (float)(p[ch] - d);
+            if (!inside) v = v <= 0.0f ? 0.0f : v >= 255.0f ? 255.0f : v;
+            out[3 * i + ch] = (uint8_t)v;
+        }
+    }
+}
+
+// ------------------------------------------------------------------------ //
+// Pillow's GaussianBlur (BoxBlur.c): `passes` extended box blurs along each
+// row, then `passes` along each column.  The box radius comes from the
+// Gaussian's in float (its sqrt and floor in double); a pass gives
+// out[x] = (ww * sum(in[x - r .. x + r]) + fw * (in[x - r - 1] +
+// in[x + r + 1]) + 2^23) >> 24 in 32-bit unsigned arithmetic, indices
+// clamped to the line, with ww = 2^24 / (2 * radius + 1) truncated and fw
+// the rest of 2^24 shared by the two far taps.
+// ------------------------------------------------------------------------ //
+
+static float gaussian_box_radius(float radius, int passes) {
+    float sigma2 = radius * radius / passes;
+    float L = std::sqrt(12.0 * sigma2 + 1.0);
+    float l = std::floor((L - 1.0) / 2.0);
+    float a = (2 * l + 1) * (l * (l + 1) - 3 * sigma2);
+    a /= 6 * (sigma2 - (l + 1) * (l + 1));
+    return l + a;
+}
+
+// One pass down the n rows of an [n, m] array: every column is a line
+// (the accumulators run across the row, which the compiler vectorises).
+static void box_pass_rows(const uint8_t* in, uint8_t* out, int n, long m,
+                          float fradius, std::vector<uint32_t>& acc) {
+    const int radius = (int)fradius;
+    const uint32_t ww = (uint32_t)((float)(1 << 24) / (fradius * 2 + 1));
+    const uint32_t fw = ((1 << 24) - (radius * 2 + 1) * ww) / 2;
+    const int last = n - 1;
+    auto row = [&](int i) {
+        return in + (long)(i < 0 ? 0 : i > last ? last : i) * m;
+    };
+    acc.assign(m, 0);
+    uint32_t* a = acc.data();
+    for (int i = -radius - 1; i < radius; ++i) {
+        const uint8_t* r = row(i);
+        for (long j = 0; j < m; ++j) a[j] += r[j];
+    }
+    for (int y = 0; y < n; ++y) {
+        const uint8_t* add = row(y + radius);
+        const uint8_t* sub = row(y - radius - 1);
+        const uint8_t* far = row(y + radius + 1);
+        uint8_t* o = out + (long)y * m;
+        for (long j = 0; j < m; ++j) {
+            a[j] += (uint32_t)add[j] - (uint32_t)sub[j];
+            uint32_t bulk = a[j] * ww + ((uint32_t)sub[j] + far[j]) * fw;
+            o[j] = (uint8_t)((bulk + (1u << 23)) >> 24);
+        }
+    }
+}
+
+// [h, w, c] -> [w, h, c]
+static void transpose_hwc(const uint8_t* in, uint8_t* out, int h, int w,
+                          int c) {
+    for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x)
+            std::memcpy(out + ((long)x * h + y) * c,
+                        in + ((long)y * w + x) * c, c);
+}
+
+// `ImageFilter.GaussianBlur(radius)` in place on uint8 HWC: the passes
+// along the rows run down the columns of the transposed image, as
+// Pillow's own vertical passes run along the rows of its transpose.
+void gaussian_blur_u8(uint8_t* img, int h, int w, int c, float radius) {
+    const int passes = 3;
+    float r = gaussian_box_radius(radius, passes);
+    if (r == 0) return;
+    const long n = (long)h * w * c;
+    std::vector<uint8_t> t0(n), t1(n);
+    std::vector<uint32_t> acc;
+    transpose_hwc(img, t0.data(), h, w, c);
+    for (int p = 0; p < passes; ++p) {     // along each row
+        box_pass_rows(t0.data(), t1.data(), w, (long)h * c, r, acc);
+        t0.swap(t1);
+    }
+    transpose_hwc(t0.data(), t1.data(), w, h, c);
+    for (int p = 0; p < passes; ++p) {     // along each column
+        box_pass_rows(t1.data(), p + 1 < passes ? t0.data() : img, h,
+                      (long)w * c, r, acc);
+        t1.swap(t0);
+    }
+}
+
+// ------------------------------------------------------------------------ //
+// Pillow's `Image.transform(img.size, AFFINE | PERSPECTIVE, a, BILINEAR)` on
+// an RGB image (Geometry.c: ImagingGenericTransform with affine_transform or
+// perspective_transform and bilinear_filter32RGB): each output pixel's
+// centre (x + 0.5, y + 0.5) mapped through `a` in double; a source point
+// outside [0, w) x [0, h) gives 0; else the four neighbours of the point
+// less 0.5, columns clamped, the row below replaced by the row itself past
+// the last, interpolated in double and truncated.
+// ------------------------------------------------------------------------ //
+
+void transform_bilinear_u8(const uint8_t* src, int h, int w, int c,
+                           uint8_t* dst, const double* a, int perspective) {
+    for (int y = 0; y < h; ++y) {
+        for (int x = 0; x < w; ++x) {
+            uint8_t* out = dst + ((long)y * w + x) * c;
+            double xin = x + 0.5, yin = y + 0.5, xs, ys;
+            if (perspective) {
+                xs = (a[0] * xin + a[1] * yin + a[2])
+                     / (a[6] * xin + a[7] * yin + 1);
+                ys = (a[3] * xin + a[4] * yin + a[5])
+                     / (a[6] * xin + a[7] * yin + 1);
+            } else {
+                xs = a[0] * xin + a[1] * yin + a[2];
+                ys = a[3] * xin + a[4] * yin + a[5];
+            }
+            if (xs < 0.0 || xs >= w || ys < 0.0 || ys >= h) {
+                std::memset(out, 0, c);
+                continue;
+            }
+            xs -= 0.5;
+            ys -= 0.5;
+            int xi = (int)std::floor(xs), yi = (int)std::floor(ys);
+            double dx = xs - xi, dy = ys - yi;
+            int x0 = std::min(std::max(xi, 0), w - 1);
+            int x1 = std::min(std::max(xi + 1, 0), w - 1);
+            const uint8_t* r0 = src + (long)std::min(std::max(yi, 0), h - 1)
+                                      * w * c;
+            const bool below = yi + 1 >= 0 && yi + 1 < h;
+            const uint8_t* r1 = src + (long)(below ? yi + 1 : 0) * w * c;
+            for (int ch = 0; ch < c; ++ch) {
+                int p0 = r0[x0 * c + ch], p1 = r0[x1 * c + ch];
+                double v1 = p0 + (p1 - p0) * dx, v2 = v1;
+                if (below) {
+                    int q0 = r1[x0 * c + ch], q1 = r1[x1 * c + ch];
+                    v2 = q0 + (q1 - q0) * dx;
+                }
+                out[ch] = (uint8_t)(v1 + (v2 - v1) * dy);
+            }
         }
     }
 }

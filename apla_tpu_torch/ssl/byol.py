@@ -27,9 +27,11 @@ through every forward in the JAX order: student view 0's head then
 predictor, then view 1's, the target head on the views reversed, and under
 accumulation through the micro-batches in turn.
 
-Only the on-device multi-crop path exists (the JAX package's
-`dataset_params.device_augment` one): the host multi-crop transforms
-(blur, solarize, grayscale) are not ported yet (ROADMAP A 5).
+The crops come from the host or the device, as in the JAX package: with
+`dataset_params.device_augment` off, the loader runs the strategy's
+per-crop host pipelines (`data/transforms.py`) and ships one float32 batch
+per crop; with it on, the host ships one uint8 image per sample and every
+crop is made on the device inside the step.
 """
 
 from __future__ import annotations
@@ -263,18 +265,17 @@ class BYOLWrapper(DefaultWrapper):
         return loaders
 
     def _setup_device_multicrop(self, loaders):
-        """The JAX package's `dataset_params.device_augment` path, the
-        port's only one: the host ships one uint8 image per sample and every
-        crop of the strategy is made on the device inside the step
-        (`data.device_augs.device_multicrop`).  Host multi-crop needs
-        transforms not ported yet (ROADMAP A 5), so a recipe with
-        `device_augment` off runs this path too.  The host decodes each
-        image at `raw_size` = max(`device_raw_size` or int(global_size *
-        8 / 7), global_size), as the JAX package does."""
+        """`dataset_params.device_augment`: the host ships one uint8 image
+        per sample, decoded at `raw_size` = max(`device_raw_size` or
+        int(global_size * 8 / 7), global_size) as the JAX package decodes
+        it, and every crop of the strategy is made on the device inside
+        the step (`data.device_augs.device_multicrop`).  Off, the loader
+        runs the strategy's host pipelines and `ssl_device_crop_cfgs`
+        stays None."""
         from ..data.device_augs import crop_cfgs_from_strategy
+        self.ssl_device_crop_cfgs = None
         if not self.dataset_params.get("device_augment"):
-            print("note: SSL crops are made on the device (the port has no "
-                  "host multi-crop yet, ROADMAP A 5)")
+            return
         spec = resolve_strategy_spec(self.parameters, self.strategy_name)
         trainset = loaders.trainloader.dataset
         g = int(self.dataset_params.get("ssl_global_size")
@@ -442,7 +443,11 @@ class BYOLTrainer:
         # per-step draws (crops, dropout): a resumed run draws what the
         # original would
         self.generator.manual_seed((self.seed << 32) + self.iters)
-        images = batch["image"].to(self.device, non_blocking=True)
+        images = batch["image"]
+        if isinstance(images, list):        # the host crops, one per view
+            images = [v.to(self.device, non_blocking=True) for v in images]
+        else:
+            images = images.to(self.device, non_blocking=True)
         self.state, m = self._train_step(self.state, images, lr, mom,
                                          self.generator)
         return m, {"lr": lr, "ema_momentum": mom}

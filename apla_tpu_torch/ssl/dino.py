@@ -267,6 +267,17 @@ class DINOTrainer(BYOLTrainer):
                     "accum_steps", 1)))
         return self._steps[freeze]
 
+    def stack_views(self, views):
+        """-> (global stack, local stack or None) on the device: the host
+        crops concatenated crop-major, the globals first; a raw uint8
+        batch (device multi-crop) as it is, with no local stack."""
+        if not isinstance(views, list):
+            return views.to(self.device, non_blocking=True), None
+        views = [v.to(self.device, non_blocking=True) for v in views]
+        local = views[self.n_global:]
+        return (torch.cat(views[:self.n_global]),
+                torch.cat(local) if local else None)
+
     def train_one(self, batch, epoch: int):
         w = self.wrapper
         freeze = epoch + 1 <= self.freeze_last_for
@@ -276,8 +287,8 @@ class DINOTrainer(BYOLTrainer):
         wd = float(w.wd_schedule[min(self.iters, len(w.wd_schedule) - 1)])
         mom = self.momentum_at(self.iters)
         self.generator.manual_seed((self.seed << 32) + self.iters)
-        images = batch["image"].to(self.device, non_blocking=True)
+        g, loc = self.stack_views(batch["image"])
         self.state, m = self.get_step(freeze)(
-            self.state, images, None, lr, wd, mom, t_temp, self.generator)
+            self.state, g, loc, lr, wd, mom, t_temp, self.generator)
         return m, {"lr": lr, "wd": wd, "teacher_temp": t_temp,
                    "ema_momentum": mom}

@@ -677,7 +677,8 @@ class DINOv2Wrapper(DINOWrapper):
             float(ibot.mask_sample_probability), n_tokens,
             MaskingGenerator((grid, grid),
                              max_num_patches=int(0.5 * n_tokens)),
-            raw_mode=True, seed=int(self.training_params.get("seed", 0)),
+            raw_mode=self.ssl_device_crop_cfgs is not None,
+            seed=int(self.training_params.get("seed", 0)),
             batches_per_epoch=len(loaders.trainloader))
         return loaders
 

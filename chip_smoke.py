@@ -217,8 +217,25 @@ raise on failure:
                process from decodes equal to the manifest's.  13g: the loader's decode + resize rate alone
                and the recipe's train img/s beside 12a's Synthetic rate
                and phase 5's step on a device-resident batch.
-               13d: one update with `device_augment` off, through the host
-               RandomResizedCrop and ColorJitter.
+               13d: the recipe's host path as shipped (`device_augment`
+               off): Resize, RandomResizedCrop, HorizontalFlip,
+               TrivialAugment, Normalize and RandomErasing p 0.25 (its
+               `value` 0 for the "random" on which the JAX package raises,
+               HOST_CUTS) in the loader, one update through rows 1 and 2,
+               the host path's loader img/s (8 spawned workers) beside
+               13g's.
+               13h: the NABirds recipe (APLA-8) on a NABirds tree.  13i: the
+               ISIC2019 DINOv2 recipe as shipped (`main --dinov2`, no
+               `device_augment`): the host multi-crop (2 x 224 + 8 x 98
+               crops, blur, solarize, grayscale) in 8 spawned workers, one
+               update through rows 10-12, the host-crop loader img/s.  13j:
+               the PNG fixtures and a VTAB tree of them.  13k: every host
+               transform and auto-augment op on the JPEG fixtures, through
+               the native ops and their plain versions, against the
+               committed manifest (tests/data/transforms, the JAX package's
+               bytes); then `main --byol` and `main --dino` with
+               `device_augment` off, one update each on 13i's tree at phase
+               11's configuration, rows 1 and 2 in every block.
   14. multilabel — the ImageNet recipe (ViT-B/14 APLA-128) on the
                multi-label SyntheticMultiLabel set through `main`: one
                update with BCE, the multi-label metrics on val and test,
@@ -274,7 +291,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # PyYAML; a CPU test holds this dict against the YAML: every value here is
 # the YAML's).  Left out: the dinov2 checkpoint (`pretrained`, not in the
 # repository; the weights are random from a seed) and the host-side
-# transforms that raw mode never runs.  The pos-embed grid is the recipe's
+# transforms that raw mode never runs (13d adds them back, HOST_CUTS).  The pos-embed grid is the recipe's
 # 518; the model is served and trained at the 224 crop.  `SMOKE_CUTS` below
 # says what the training phase changes.
 _EVAL_TRANSFORMS = {"Resize": {"apply": True, "height": 256, "width": 256},
@@ -923,17 +940,23 @@ DATA_CUTS = {"training_params": {"epochs": 1, "val_every": 1.0,
              "dataloader_params": {"valloader": {"num_workers": 0},
                                    "testloader": {"num_workers": 0}}}
 # 13g: the loader alone over the train split repeated 4 times (16 batches
-# of 64, so that each of the 8 workers makes two), timed on its second pass
+# of 64, so that each of the 8 workers makes two), timed on its second pass;
+# `_rate_set` repeats a smaller split more, to the same 16 batches
 DATA_RATE_REPEAT = 4
-# 13d, the host path: `device_augment` off, so the recipe's own train
-# transforms run on the host (Resize 256, RandomResizedCrop 224,
-# HorizontalFlip, Normalize) with __common__.yml's ColorJitter switched on
-# (apla.yml switches it off; the TrivialAugment and RandomErasing that
-# apla.yml adds are not ported yet, ROADMAP A 5, and RECIPE leaves them
-# out); one update of b64 over a 64-image tree, the loaders in-process.
+# 13d, the host path as shipped: `device_augment` off, so the recipe's own
+# train transforms run in the loader (Resize 256, RandomResizedCrop 224,
+# HorizontalFlip, TrivialAugment, Normalize, RandomErasing p 0.25; the
+# last two are apla.yml's, which RECIPE leaves out).  The one cut:
+# RandomErasing's `value` 0 for apla.yml's "random", on which the JAX
+# package raises at every erase it draws (it writes the string into the
+# float array; the port keeps that reading).  One update of b64 over a
+# 64-image tree, the loaders in-process; then the host path's loader alone
+# (8 spawned workers) over the split repeated to 16 batches (`_rate_set`).
 HOST_CUTS = {
-    "dataset_params": {"device_augment": False,
-                       "train_transforms": {"ColorJitter": {"apply": True}}},
+    "dataset_params": {"device_augment": False, "train_transforms": {
+        "TrivialAugment": {"apply": True, "num_magnitude_bins": 31},
+        "RandomErasing": {"apply": True, "scale": [0.02, 0.33],
+                          "ratio": [0.3, 3.3], "value": 0, "p": 0.25}}},
     "training_params": {"epochs": 1, "val_every": 1.0, "log_every": 1},
     "dataloader_params": {name: {"num_workers": 0} for name in (
         "trainloader", "valloader", "testloader")}}
@@ -989,8 +1012,8 @@ ISIC_CUTS = {"training_params": {"epochs": 1, "log_every": 1},
 # and the JAX package's decodes) and a VTAB tree of copies of them, read by
 # the recipes' loader (b64, 8 spawned workers) in raw mode at the
 # manifest's raw size and in host mode through NABIRDS_RECIPE's train
-# transforms; raw mode timed over the train split x DATA_RATE_REPEAT like
-# 13g, host mode (~200 img/s) over the split once.
+# transforms; both timed over the train split x DATA_RATE_REPEAT (16
+# batches, `_rate_set`) like 13g.
 PNG_FIXTURES = os.path.join(ROOT, "tests", "data", "png")
 PNG_DATASET = "VTAB_flowers"
 PNG_TRAIN, PNG_EVAL = 256, 8
@@ -5778,6 +5801,18 @@ def _loader_rate(dataset, workers, check=None) -> float:
     return n / secs
 
 
+def _rate_set(dataset, workers=None):
+    """`dataset` with its records repeated DATA_RATE_REPEAT times, or more
+    where that would give `_loader_rate`'s `workers` (DATA_LOADER_WORKERS)
+    fewer than two batches of 64 each (one batch with no workers): a pass
+    over fewer batches than workers times the slowest worker's batch, not
+    the loader's rate."""
+    workers = DATA_LOADER_WORKERS if workers is None else workers
+    dataset.data = dataset.data * max(DATA_RATE_REPEAT, -(
+        -max(2 * workers, 1) * 64 // len(dataset.data)))
+    return dataset
+
+
 def _first_batch_check(tag, trainer, manifest, source, run_s):
     """The first batch of epoch 0 once more from a `main` run's own train
     loader: its spawned workers decode, resize and collate it as they did
@@ -5871,7 +5906,7 @@ def _phase_data(device, tmp, keep, float_rates):
     from apla_tpu_torch.data.datasets import ImageNet
     alone = ImageNet(params["dataset_params"], "train")
     alone.raw_mode, alone.raw_size = True, raw
-    alone.data = alone.data * DATA_RATE_REPEAT
+    _rate_set(alone)
     loader_rate = _loader_rate(alone, DATA_LOADER_WORKERS)
     synth = keep.get("rate_12a")
     resident = float_rates.get(("fused", accum), (None,))[0]
@@ -5886,19 +5921,20 @@ def _phase_data(device, tmp, keep, float_rates):
           f"in-process) and phase 5's step on a device-resident batch "
           f"{fmt(resident)} (accum {accum}); {_gpu_line()}")
 
-    # 13d: the host path, one update through RandomResizedCrop, ColorJitter
+    # 13d: the host path as shipped, one update, then its loader alone
     host_root = _subdir(tmp, "host")
     _write_imagenet_tree(host_root, HOST_TRAIN, HOST_VAL)
     cuts = copy.deepcopy(HOST_CUTS)
     cuts["dataset_params"]["data_location"] = host_root
-    recipe, _ = _recipe_file(tmp, "imagenet_host", IMPORT_RECIPE, cuts,
-                             device, pth)
+    recipe, params = _recipe_file(tmp, "imagenet_host", IMPORT_RECIPE, cuts,
+                                  device, pth)
     for c in counters:
         c.launches = 0
     t = time.perf_counter()
     _, trainer, _ = _run_main(["--params_path", recipe, "--device",
                                str(device), "--model_name", "imagenet_host"])
     _sync(device)
+    host_s = time.perf_counter() - t
     got = _main_run_checks("13d host path", trainer, accum, counters)
     launches[0] += got[0]
     launches[1] += got[1]
@@ -5907,21 +5943,33 @@ def _phase_data(device, tmp, keep, float_rates):
     size = int(IMPORT_RECIPE["dataset_params"]["train_transforms"][
         "RandomResizedCrop"]["size"])
     steps = [type(x).__name__ for x in ds.transform.transforms]
+    first = [r for _, r in trainer.history if "images_per_sec" in r]
+    update_img_s = first[0]["images_per_sec"]
+    del trainer
+    alone = _rate_set(ImageNet(params["dataset_params"], "train"))
+    host_rate = _loader_rate(alone, DATA_LOADER_WORKERS)
     print(f"[13d host path] device_augment off: the host pipeline "
           f"{type(ds.resizing).__name__} -> {' -> '.join(steps)} gives "
           f"{sample.dtype} {tuple(sample.shape)} finite "
-          f"{bool(np.isfinite(sample).all())}; one update in "
-          f"{time.perf_counter() - t:.1f} s")
+          f"{bool(np.isfinite(sample).all())}; `main` in {host_s:.1f} s, "
+          f"the update at {update_img_s:.1f} img/s from the start of "
+          f"training (loaders in-process); the host path's loader alone "
+          f"({len(alone)} images in b64, {DATA_LOADER_WORKERS} spawned "
+          f"workers) {host_rate:.1f} img/s beside 13g's raw loader "
+          f"{loader_rate:.1f}, its JPEG train {fmt(rate)} and phase 5's "
+          f"device-resident {fmt(resident)} img/s; {_gpu_line()}")
+    want = ["RandomResizedCrop", "RandomHorizontalFlip", "TrivialAugmentWide",
+            "NativeToArrayNormalize", "RandomErasing"]
     if ds.raw_mode or sample.shape != (size, size, 3) \
-            or not np.isfinite(sample).all() \
-            or "ColorJitter" not in repr(ds.transform) \
-            or "RandomResizedCrop" not in steps:
+            or not np.isfinite(sample).all() or steps != want \
+            or type(ds.resizing).__name__ != "Resize":
         raise SystemExit("the host path did not run the recipe's "
                          "transforms")
-    del trainer
     return tuple(launches), {"loader_img_s": loader_rate,
                              "train_img_s": rate, "synthetic_img_s": synth,
-                             "resident_img_s": resident}
+                             "resident_img_s": resident,
+                             "host_loader_img_s": host_rate,
+                             "host_update_img_s": update_img_s}
 
 
 # --------------------------------------------------------------------------- #
@@ -5984,9 +6032,11 @@ def _write_isic_tree(root, n) -> None:
 
 
 def phase_recipes(device, keep, jpeg_loader_rate=None):
-    """13h, 13i, 13j: the NABirds recipe (APLA-8, rows 1 and 2) and the
-    ISIC2019 DINOv2 recipe ("full", rows 10-12) through `main` on trees of
-    their datasets' layouts, and the PNG fixtures and a VTAB tree of them;
+    """13h-13k: the NABirds recipe (APLA-8, rows 1 and 2) and the
+    ISIC2019 DINOv2 recipe ("full", rows 10-12, the host multi-crop)
+    through `main` on trees of their datasets' layouts, the PNG fixtures
+    and a VTAB tree of them, the host transforms against their manifest
+    and BYOL and DINO v1 on the host multi-crop (rows 1 and 2);
     `keep`: phase 12's hub-layout checkpoint (`hub_pth`) when it ran;
     `jpeg_loader_rate`: 13g's, printed beside 13j's.  -> (rows 1, 2
     launches, rows 10-12 launches, readings)."""
@@ -5998,14 +6048,21 @@ def phase_recipes(device, keep, jpeg_loader_rate=None):
             torch.save(_dinov2_state(build_vit_config(IMPORT_RECIPE), SEED),
                        pth)
         out = {}
+        isic_root = os.path.join(tmp, "isic")
         for name, run in (("13h", lambda: _phase_nabirds(device, tmp, pth)),
                           ("13i", lambda: _phase_isic(device, tmp, pth)),
-                          ("13j", lambda: _phase_png(jpeg_loader_rate))):
+                          ("13j", lambda: _phase_png(jpeg_loader_rate)),
+                          ("13k", lambda: (_transform_manifest_check(),
+                                           _host_v1(device, tmp,
+                                                    isic_root)))):
             t = time.perf_counter()
             out[name] = run()
             print(f"[{name}] took {time.perf_counter() - t:.1f} s")
     (apla, nab), (proto, isic), png = out["13h"], out["13i"], out["13j"]
-    return apla, proto, {"nabirds": nab, "isic": isic, "png": png}
+    manifest_s, (host_launches, host_v1) = out["13k"]
+    apla = (apla[0] + host_launches[0], apla[1] + host_launches[1])
+    return apla, proto, {"nabirds": nab, "isic": isic, "png": png,
+                         "transforms_s": manifest_s, "host_v1": host_v1}
 
 
 def _phase_nabirds(device, tmp, pth):
@@ -6186,9 +6243,186 @@ def _phase_isic(device, tmp, pth):
     if not knn or not all(np.isfinite(v) for key, v in knn[-1].items()
                           if key.startswith("knn_val_")):
         raise SystemExit("no finite kNN validation on the teacher")
+
+    # the host multi-crop: the strategy's ten pipelines, and their loader
+    trainset = loaders.trainloader.dataset
+    crops = [(type(t.transforms[0]).__name__, t.transforms[0].size[0],
+              [type(x).__name__ for x in t.transforms[1:]])
+             for t in trainset.transform]
+    alone = _rate_set(type(trainset)(wrapper.dataset_params, "train"))
+    host_rate = _loader_rate(alone, DATA_LOADER_WORKERS)
+    sizes = [size for _, size, _ in crops]
+    print(f"[13i isic2019] host multi-crop (device_augment "
+          f"{wrapper.dataset_params.get('device_augment')!r}): "
+          f"{len(crops)} pipelines after {type(trainset.resizing).__name__}"
+          f", crop sizes {sizes}; crop 0 {crops[0][2]}, crop 1 "
+          f"{crops[1][2]}, the locals {crops[2][2]}; the loader alone "
+          f"({len(alone)} images in b64, {DATA_LOADER_WORKERS} spawned "
+          f"workers, every crop of every image) {host_rate:.1f} img/s; the "
+          f"update {update_s:.2f} s from the start of training (the "
+          f"device crops' update: PERF.md); {_gpu_line()}")
+    if wrapper.ssl_device_crop_cfgs is not None or trainset.raw_mode \
+            or sizes != _strategy_sizes(wrapper) or len(sizes) != 10 \
+            or "RandomSolarize" not in crops[1][2] \
+            or "RandomGaussianBlur" not in crops[2][2]:
+        raise SystemExit("13i did not take the host multi-crop of the "
+                         "dinov2 strategy")
     return launches, {"update_s": update_s, "run_s": run_s,
+                      "host_crop_img_s": host_rate,
                       "knn": {key: v for key, v in knn[-1].items()
                               if key.startswith("knn_val_")}}
+
+
+# 13k: the transforms' manifest (tools/make_transform_manifest.py writes
+# it from the JAX package; a CPU test holds it current) and BYOL and DINO
+# v1 on the host multi-crop.  What 13k(b) changes in BYOL_RECIPE and
+# DINO_RECIPE: phase 11's (V1_CUTS: the weights from the seed, APLA-128
+# from the shipped index file, one epoch, every step logged, the loaders
+# in-process), with the data 13i's ISIC2019 tree (64 train images: one
+# update of b64) and `device_augment` unset, and the val loader keeping its
+# short batch as in 13i.
+TRANSFORM_MANIFEST = os.path.join(ROOT, "tests", "data", "transforms",
+                                  "manifest.json")
+HOST_V1_OBJECTIVES = ("byol", "dino")
+
+
+def _strategy_sizes(wrapper):
+    """The crop sizes of the wrapper's multi-crop strategy, globals first
+    (`ssl_global_size` / `ssl_local_size` where the recipe sets them)."""
+    from apla_tpu_torch.ssl.multicrop import resolve_strategy_spec
+    spec = resolve_strategy_spec(wrapper.parameters, wrapper.strategy_name)
+    dp = wrapper.dataset_params
+    return ([int(dp.get("ssl_global_size") or spec["global_size"])]
+            * spec["n_global"]
+            + [int(dp.get("ssl_local_size") or spec["local_size"] or 0)]
+            * spec["n_local"])
+
+
+def _host_v1_cuts(root):
+    cuts = copy.deepcopy(V1_CUTS)
+    cuts["dataset_params"] = {"data_location": root}
+    cuts["dataloader_params"]["valloader"]["drop_last"] = False
+    return cuts
+
+
+def _transform_manifest_cases(arms=("native", "plain"), every=1):
+    """The manifest's cases (every `every`-th) on the port's decodes of its
+    fixture regions, through the native ops ("native") and their plain
+    numpy versions ("plain").  -> (manifest, ids that differ as
+    "<arm> <id>", {arm: seconds})."""
+    import contextlib
+    from apla_tpu_torch.data import transforms as tt
+    from apla_tpu_torch.data.detection_data import read_image
+    with open(TRANSFORM_MANIFEST) as f:
+        m = json.load(f)
+    imgs = {name: np.ascontiguousarray(read_image(os.path.join(
+        DATA_FIXTURES, r["file"]))[:r["height"], :r["width"]])
+        for name, r in m["regions"].items()}
+    ctxs = {"native": contextlib.nullcontext, "plain": tt.plain_ops}
+    secs, bad = {}, []
+    for arm in arms:
+        t = time.perf_counter()
+        for c in m["cases"][::every]:
+            img = imgs[c["image"]]
+            with ctxs[arm]():
+                if "op" in c:
+                    out = tt.apply_op(img, c["op"], c["magnitude"])
+                else:
+                    out = tt.build_transform(c["transform"], m["mean"],
+                                             m["std"])(
+                        img, np.random.default_rng(c["seed"]))
+            if _sha256(out) != c["sha256"] or list(out.shape) != \
+                    c["shape"] or out.dtype.str != c["dtype"]:
+                bad.append(f"{arm} {c['id']}")
+        secs[arm] = time.perf_counter() - t
+    return m, bad, secs
+
+
+def _transform_manifest_check():
+    """13k(a): every case of the manifest through both arms.
+    -> {arm: seconds}."""
+    m, bad, secs = _transform_manifest_cases()
+    n = len(m["cases"])
+    ops = sorted({c["op"] for c in m["cases"] if "op" in c})
+    names = sorted({k for c in m["cases"] if "transform" in c
+                    for k in c["transform"]} - {"Normalize"})
+    print(f"[13k transforms] {n} cases ({len(ops)} ops at their bins, "
+          f"{len(names)} transform names alone and in the shipped "
+          f"pipelines, seeds 0-3, on a square and a wide region of two "
+          f"JPEG fixtures) against the JAX package's sha256: native arm "
+          f"{n - sum(b.startswith('native') for b in bad)}/{n} equal in "
+          f"{secs['native']:.2f} s, plain arm "
+          f"{n - sum(b.startswith('plain') for b in bad)}/{n} equal in "
+          f"{secs['plain']:.2f} s")
+    if bad:
+        raise SystemExit(f"the port's host transforms differ from the JAX "
+                         f"package's at {bad[:10]}")
+    return secs
+
+
+def _host_v1(device, tmp, root):
+    """13k(b): `main --byol` and `main --dino` with `device_augment` off on
+    13i's tree.  -> ((rows 1, 2 launches), {objective: readings})."""
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.ssl import byol as tb
+    from apla_tpu_torch.ssl import dino as tdino
+    counters = (fa.fused_apla_attn_fwd, fa.fused_apla_attn_bwd)
+    launches, readings = [0, 0], {}
+    for objective in HOST_V1_OBJECTIVES:
+        tag = f"13k {objective}"
+        recipe = DINO_RECIPE if objective == "dino" else BYOL_RECIPE
+        path, _ = _recipe_file(tmp, f"host_{objective}", recipe,
+                               _host_v1_cuts(root), device, "")
+        for c in counters:
+            c.launches = 0
+        t = time.perf_counter()
+        module, name = (tdino, "DINOTrainer") if objective == "dino" \
+            else (tb, "BYOLTrainer")
+        _, trainer, _ = _run_main([f"--{objective}", "--params_path", path,
+                                   "--device", str(device), "--model_name",
+                                   f"host_{objective}"], module, name)
+        _sync(device)
+        run_s = time.perf_counter() - t
+        got = tuple(c.launches for c in counters)
+        wrapper = trainer.wrapper
+        loaders = wrapper.dataloaders
+        steps = len(loaders.trainloader)
+        depth = trainer.vit_cfg.depth
+        vals = sum(1 for _, r in trainer.history
+                   if any(k.startswith("knn_val_") for k in r))
+        per_step = 3 if objective == "dino" else 4
+        expect = (depth * (per_step * steps + vals * (
+            len(loaders.fbank_loader) + len(loaders.valloader))),
+            depth * 2 * steps)
+        records = [r for _, r in trainer.history if "train_loss" in r]
+        losses = [r["train_loss"] for r in records]
+        update_s = loaders.trainloader.batch_size / records[0][
+            "images_per_sec"]
+        trainset = loaders.trainloader.dataset
+        sizes = [t.transforms[0].size[0] for t in trainset.transform]
+        print(f"[{tag}] `main --{objective}` with device_augment off in "
+              f"{run_s:.1f} s: host crops {sizes} (loaders in-process), "
+              f"{steps} update(s) of b{loaders.trainloader.batch_size}, "
+              f"the first {update_s:.2f} s from the start of training, "
+              f"losses {losses}, {vals} kNN validation(s); fused launches "
+              f"forward {got[0]} (expected {expect[0]}), backward {got[1]} "
+              f"(expected {expect[1]})")
+        if wrapper.ssl_device_crop_cfgs is not None or trainset.raw_mode \
+                or sizes != _strategy_sizes(wrapper):
+            raise SystemExit(f"{tag}: the run did not take the host "
+                             f"multi-crop")
+        if got != expect:
+            raise SystemExit(f"{tag}: the run did not launch rows 1 and 2 "
+                             f"in every block of every call")
+        if len(losses) != steps or not np.isfinite(losses).all():
+            raise SystemExit(f"{tag}: missing or non-finite losses")
+        launches[0] += got[0]
+        launches[1] += got[1]
+        readings[objective] = {"update_s": update_s, "run_s": run_s}
+        del trainer, wrapper, loaders
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return tuple(launches), readings
 
 
 def _png_decode_check(manifest):
@@ -6273,7 +6507,7 @@ def _phase_png(jpeg_loader_rate):
                   "dataset": PNG_DATASET, "data_location": tmp}
         raw_set = cls(params, "train")
         raw_set.raw_mode, raw_set.raw_size = True, manifest["raw_size"]
-        raw_set.data = raw_set.data * DATA_RATE_REPEAT
+        _rate_set(raw_set)
         checked = []
 
         def check(idxs, batch):
@@ -6284,7 +6518,7 @@ def _phase_png(jpeg_loader_rate):
                     raw_set.data[int(i)]["img_path"]]]["raw224"]
                 for j, i in enumerate(idxs)))
         raw_rate = _loader_rate(raw_set, DATA_LOADER_WORKERS, check)
-        host_set = cls(params, "train")       # the split once: ~200 img/s
+        host_set = _rate_set(cls(params, "train"))
         shapes = []
         host_rate = _loader_rate(host_set, DATA_LOADER_WORKERS,
                                  lambda idxs, batch: shapes.append(
@@ -6296,7 +6530,7 @@ def _phase_png(jpeg_loader_rate):
                         for x in host_set.transform.transforms)
     jpeg = f"{jpeg_loader_rate:.1f}" if jpeg_loader_rate else "not measured"
     print(f"[13j png] {PNG_DATASET} tree ({PNG_TRAIN} train PNG fixture "
-          f"copies, x {DATA_RATE_REPEAT}) through the loader (b64, "
+          f"copies, x {len(raw_set) // PNG_TRAIN}) through the loader (b64, "
           f"{DATA_LOADER_WORKERS} spawned workers): raw mode at "
           f"{raw_set.raw_size} {raw_rate:.1f} img/s, the first batch's "
           f"decodes equal to the manifest {checked}; host mode (the NABirds "
@@ -6493,7 +6727,7 @@ def main() -> int:
     p12, w8_rates = timed("12", phase_import, device, rates, keep)
     data_launches, data_rates = timed("13", phase_data, device, keep, rates)
     recipe_launches, proto_launches, recipe_rates = timed(
-        "13h-j", phase_recipes, device, keep, data_rates["loader_img_s"])
+        "13h-k", phase_recipes, device, keep, data_rates["loader_img_s"])
     ml_launches, ml_readings = timed("14", phase_multilabel, device)
     keep_dir.cleanup()
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
@@ -6532,7 +6766,16 @@ def main() -> int:
           + "; NABirds APLA-8 update "
           + f"{recipe_rates['nabirds']['update_s']:.2f} s, step b64 img/s "
           + f"{recipe_rates['nabirds']['step_img_s']:.1f}; ISIC2019 DINOv2 "
-          + f"\"full\" update {recipe_rates['isic']['update_s']:.2f} s; PNG "
+          + f"\"full\" update {recipe_rates['isic']['update_s']:.2f} s, "
+          + f"its host-crop loader img/s "
+          + f"{recipe_rates['isic']['host_crop_img_s']:.1f}; ImageNet host "
+          + f"path loader img/s {data_rates['host_loader_img_s']:.1f}; "
+          + "host multi-crop updates " + ", ".join(
+              f"{obj} {r['update_s']:.2f} s"
+              for obj, r in recipe_rates["host_v1"].items())
+          + "; transforms manifest native "
+          + f"{recipe_rates['transforms_s']['native']:.2f} s plain "
+          + f"{recipe_rates['transforms_s']['plain']:.2f} s; PNG "
           + f"loader img/s raw {recipe_rates['png']['raw_img_s']:.1f} host "
           + f"{recipe_rates['png']['host_img_s']:.1f}"
           + f"; detector --masks: box and mask mAP@50 above 0 after "

@@ -23,6 +23,10 @@
   `test_torch_dinov2_step.py` gives: AdamW moves an element whose gradient
   is at rounding level by +-lr either way, SGD's update is linear in the
   gradient.
+- One BYOL and one SimSiam step on the host multi-crop
+  (`test_host_crop_step_matches_jax`): the byol strategy's two global
+  crops from each package's loader, held bit-equal
+  (`test_torch_multicrop.host_batch`), at the trajectories' tolerances.
 - The slice end to end: `BYOLWrapper` -> `BYOLTrainer.train()` with a
   checkpoint that reloads the trainables, the teacher and the BN running
   stats, and a resumed run that continues `iters`.  (The CLI runs of
@@ -69,6 +73,7 @@ from apla_tpu.utils.config import load_merged_params
 from apla_tpu_torch.ssl import byol as tb
 from apla_tpu_torch.ssl import heads as th
 from apla_tpu_torch.utils.pretrained import byol_state_from_jax
+from tests.test_torch_multicrop import host_batch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YML = os.path.join(ROOT, "params", "synthetic", "vit_tiny", "byol.yml")
@@ -375,6 +380,26 @@ def test_three_steps_match_jax(use_momentum, accum, fused):
     batches = _views(3)
     init, jax_states = _jax_run(params, use_momentum, batches)
     st, port = _port_run(params, use_momentum, init, batches)
+    _check_steps(use_momentum, st, port, jax_states)
+
+
+@pytest.mark.parametrize("use_momentum", [True, False],
+                         ids=["byol", "simsiam"])
+def test_host_crop_step_matches_jax(use_momentum):
+    """One step on the host multi-crop's first batch (the byol strategy's
+    two global crops, made by each package's loader and held bit-equal),
+    the fused path on, at the trajectories' tolerances."""
+    params = _params(1, True)
+    views = host_batch("byol", params)["image"]
+    assert len(views) == 2 and views[0].shape == (B, 32, 32, 3)
+    init, jax_states = _jax_run(params, use_momentum, [views])
+    st, port = _port_run(params, use_momentum, init, [views])
+    _check_steps(use_momentum, st, port, jax_states)
+
+
+def _check_steps(use_momentum, st, port, jax_states):
+    """The port's steps (`_port_run`) against JAX's (`_jax_run`) from the
+    same start `st`, under the tolerances of the module docstring."""
     names = list(st["trainable"])
     residues = [n for n in names if _residue(n, names)]
     assert len(residues) == (4 if use_momentum else 5), residues

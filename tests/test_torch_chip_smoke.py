@@ -911,14 +911,13 @@ def test_import_phase_rehearsal(monkeypatch, tmp_path):
 def test_data_recipes_are_the_yaml():
     """Phase 13's recipes: 13c runs IMPORT_RECIPE (the YAML as shipped, see
     above) with only the data location and one epoch changed; 13d's host
-    path turns `device_augment` off and ColorJitter on with
-    __common__.yml's values, and every other train transform it names has
-    the YAML's value; the ones it leaves out are switched off in the YAML
-    or not ported yet."""
+    path turns `device_augment` off and runs apla.yml's train transforms as
+    shipped, TrivialAugment and RandomErasing among them, with one cut:
+    RandomErasing's `value` 0 for the YAML's "random" (on which the JAX
+    package raises); every transform the YAML switches on is there, and
+    nothing else is."""
     smoke = _chip_smoke()
     yml = load_merged_params(os.path.join(ROOT, RECIPE_YML))
-    common = load_merged_params(os.path.join(
-        ROOT, os.path.dirname(RECIPE_YML), "__common__.yml"))
     assert smoke.DATA_CUTS == {
         "training_params": {"epochs": 1, "val_every": 1.0, "log_every": 1},
         "dataloader_params": {"valloader": {"num_workers": 0},
@@ -935,18 +934,26 @@ def test_data_recipes_are_the_yaml():
     assert dp["device_augment"] is False
     assert yml.dataset_params.device_augment is True
     tt, ytt = dp["train_transforms"], yml.dataset_params.train_transforms
-    assert tt["ColorJitter"] == common.dataset_params.train_transforms[
-        "ColorJitter"]
-    assert tt["ColorJitter"]["apply"] is True and \
-        ytt["ColorJitter"]["apply"] is False
+    erasing = dict(ytt["RandomErasing"])
+    assert erasing.pop("value") == "random"
+    assert tt["RandomErasing"] == {**erasing, "value": 0}
+    assert tt["TrivialAugment"] == ytt["TrivialAugment"]
     for name, value in tt.items():
-        if name != "ColorJitter":
+        if name != "RandomErasing":
             assert value == ytt[name], name
-    from apla_tpu_torch.data.transforms import UNPORTED
     for name, value in ytt.items():
         if name not in tt:
-            assert name in UNPORTED + ("SimpleMultiCrop",) or \
-                not value.get("apply"), name
+            assert name == "SimpleMultiCrop" or not value.get("apply"), name
+    on = [n for n, v in ytt.items()
+          if v is True or isinstance(v, dict) and v.get("apply")]
+    assert set(on) <= set(tt) and {"TrivialAugment", "RandomErasing"} <= \
+        set(on)
+    from apla_tpu_torch.data.transforms import build_transform
+    steps = [type(x).__name__ for x in build_transform(
+        tt, (0.5,) * 3, (0.25,) * 3).transforms]
+    assert steps == ["Resize", "RandomResizedCrop", "RandomHorizontalFlip",
+                     "TrivialAugmentWide", "NativeToArrayNormalize",
+                     "RandomErasing"]
     for split in ("val_transforms", "test_transforms"):
         assert dp[split] == yml.dataset_params[split]
     assert {k: v["num_workers"] for k, v in
@@ -955,6 +962,42 @@ def test_data_recipes_are_the_yaml():
     assert params["model_params"]["pretrained"] is True
     assert (smoke.DATA_TRAIN, smoke.DATA_VAL, smoke.DATA_CLASSES) == \
         (256, 64, 8)
+
+
+def test_host_crop_phases_are_phase_11_and_the_jax_strategies():
+    """13k(b) runs BYOL_RECIPE and DINO_RECIPE with phase 11's cuts, but for
+    the data: 13i's ISIC2019 tree, `device_augment` unset (so the host
+    multi-crop), the val loader keeping its short batch as 13i's; 13i's
+    recipe sets no `device_augment` either.  The strategies those runs
+    take (dinov2 for 13i, byol and dino for 13k) are the JAX package's, and
+    13k(a)'s manifest is the one the CPU tests hold."""
+    from apla_tpu.ssl import multicrop as jmc
+    from apla_tpu_torch.ssl import multicrop as tmc
+    smoke = _chip_smoke()
+    cuts = smoke._host_v1_cuts("/tree")
+    v1 = copy.deepcopy(smoke.V1_CUTS)
+    assert v1["dataset_params"]["device_augment"] is True
+    assert cuts["dataset_params"] == {"data_location": "/tree"}
+    assert {k: v for k, v in cuts.items() if k != "dataset_params"} == {
+        **{k: v for k, v in v1.items() if k != "dataset_params"},
+        "dataloader_params": {**v1["dataloader_params"], "valloader": {
+            "num_workers": 0, "drop_last": False}}}
+    for recipe in (smoke.BYOL_RECIPE, smoke.DINO_RECIPE):
+        params = smoke._run_params(recipe, cuts, "/x", "cpu")
+        assert "device_augment" not in params["dataset_params"]
+        assert params["dataset_params"]["dataset"] == "ISIC2019"
+        assert build_vit_config(params).embed_dim == 768
+        assert build_apla_config(params).partial_size == 128
+    params = smoke._run_params(smoke.SSL_RECIPE, smoke.ISIC_CUTS, "/x", "cpu")
+    assert "device_augment" not in params["dataset_params"]
+    assert smoke.HOST_V1_OBJECTIVES == ("byol", "dino")
+    for name in ("byol", "dino", "dinov2"):
+        assert tmc.STRATEGIES[name] == jmc.STRATEGIES[name], name
+    spec = tmc.STRATEGIES["dinov2"]
+    assert [c["RandomResizedCrop"]["size"] for _, c in spec["crops"]] == \
+        [224] * 2 + [98] * 8
+    assert smoke.TRANSFORM_MANIFEST == os.path.join(
+        ROOT, "tests", "data", "transforms", "manifest.json")
 
 
 def _imports(path):
@@ -996,7 +1039,8 @@ def test_data_phase_rehearsal(monkeypatch, tmp_path):
     manifest's 256): the fixtures against the manifest, the ImageNet tree
     through `main` with rows 1 and 2 counted in every block of every
     micro-step and eval call, the first batch against the manifest, the
-    loader's rate, the host path's one update."""
+    loader's rate, the host path as shipped (TrivialAugment, RandomErasing)
+    through `main` and its loader's rate."""
     smoke = _chip_smoke()
     _tiny_import(smoke, monkeypatch)
     tiny = copy.deepcopy(smoke.IMPORT_RECIPE)
@@ -1017,12 +1061,13 @@ def test_data_phase_rehearsal(monkeypatch, tmp_path):
     depth, accum = 12, 8
     # 13c: 64 images = 4 updates of b16 (8 micro-steps of 2 each), val
     # and test 1 batch each; 13d: 16 images = 1 update, val and test 1
-    # batch each
+    # batch each (its loader alone: the 16 four times, one batch of 64)
     steps = 64 // 16 + 16 // 16
     evals = 2 + 2
     assert launches == (depth * (steps * accum + evals),
                         depth * steps * accum)
     assert rates["loader_img_s"] > 0 and rates["train_img_s"] > 0
+    assert rates["host_loader_img_s"] > 0 and rates["host_update_img_s"] > 0
     assert rates["synthetic_img_s"] is None
     assert rates["resident_img_s"] == 1.0
 
@@ -1064,14 +1109,16 @@ def test_nabirds_recipe_dict_is_the_yaml():
 
 
 def test_recipes_phase_rehearsal(monkeypatch, tmp_path):
-    """Phases 13h-13j on the CPU at tiny sizes: the NABirds recipe (APLA-8)
+    """Phases 13h-13k on the CPU at tiny sizes: the NABirds recipe (APLA-8)
     through `main` on its tree with rows 1 and 2 counted in every block of
     every micro-step and eval call, the first batch against the manifest,
     the kernel arm against the plain arm and the two backward faults; the
     ISIC2019 DINOv2 recipe ("full") through `main --dinov2` with rows 10-12
     counted once each, the split sizes and finite loss terms and kNN
-    validation; the PNG fixtures against their manifest and a VTAB tree
-    through the loader, raw and host."""
+    validation on the host multi-crop; the PNG fixtures against their
+    manifest and a VTAB tree through the loader, raw and host; the
+    transforms against their manifest and `main --byol` and `main --dino`
+    on the host multi-crop, rows 1 and 2 counted."""
     smoke = _chip_smoke()
     _tiny_import(smoke, monkeypatch)
     _tiny_ssl(smoke, monkeypatch)
@@ -1097,12 +1144,18 @@ def test_recipes_phase_rehearsal(monkeypatch, tmp_path):
     monkeypatch.setattr(smoke, "_print_fwd_times", lambda *a: None)
     monkeypatch.setattr(smoke, "LOSS_TOL", 3e-3)
     monkeypatch.setattr(smoke, "GRAD_REL_TOL", 0.08)
+    _tiny_v1(smoke, monkeypatch)
     _count_plain_versions(monkeypatch)
     apla, proto, rates = smoke.phase_recipes(torch.device("cpu"),
                                              {"dir": str(tmp_path)}, 100.0)
     # 13h: 16 images = 1 update of b16 (8 micro-steps of 2), val and test 1
-    # batch each
-    assert apla == (12 * (8 + 2), 12 * 8)
+    # batch each; 13k: BYOL and DINO one update of b16 each (4 and 3
+    # forwards, 2 backwards), one validation (the feature bank's batch and
+    # the val loader's)
+    assert apla == (12 * (8 + 2) + 12 * (4 + 2) + 12 * (3 + 2),
+                    12 * 8 + 2 * 12 * 2)
     assert proto == (1, 1, 1)
+    assert set(rates["host_v1"]) == {"byol", "dino"}
+    assert set(rates["transforms_s"]) == {"native", "plain"}
     assert rates["nabirds"]["bwd_k8"]["max_abs_err"] == 0.0
     assert rates["isic"]["knn"] and rates["png"]["raw_img_s"] > 0

@@ -90,16 +90,21 @@ def test_raw_mode_matches_jax():
 
 
 def test_unported_transforms_and_datasets_raise():
-    """A transform not ported yet builds and raises when it runs (raw mode
-    never runs it); a raw size or a Resize that changes the size, raised
-    on before the transforms were ported, now gives the JAX package's
-    uint8 image and float32 sample; an unported dataset raises."""
+    """A transform once not ported (TrivialAugment, which raised here until
+    every transform was ported) now runs and gives the JAX package's
+    sample, and raw mode never runs it; a raw size or a Resize that
+    changes the size, raised on before the transforms were ported, gives
+    the JAX package's uint8 image and float32 sample; the multi-label
+    variant, once an unported dataset, has the JAX records."""
     params = dict(PARAMS, train_transforms={"Resize": _RESIZE,
                                             "TrivialAugment": {"apply": True},
                                             "Normalize": True})
     ds = tdata.Synthetic(params, "train")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ds[0]
+    jds = jdata.Synthetic(params, "train")
+    for seed in range(6):
+        got = ds.__getitem__(0, rng=np.random.default_rng(seed))["image"]
+        want = jds.__getitem__(0, rng=np.random.default_rng(seed))["image"]
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     ds.raw_mode, ds.raw_size = True, 40     # raw mode never runs them
     assert ds[0]["image"].shape == (40, 40, 3)
     ref = jdata.Synthetic(PARAMS, "train")

@@ -13,6 +13,10 @@
   (the JAX kernel in interpret mode, the port's plain version on CPU
   tensors) and off.  They step with SGD, for the reason
   `test_torch_dinov2_step.py` gives.
+- One step on the host multi-crop (`test_host_crop_step_matches_jax`):
+  the dino strategy's crops from each package's loader, held bit-equal
+  (`test_torch_multicrop.host_batch`), stacked by `DINOTrainer.
+  stack_views`, at the same tolerances.
 - The slice end to end: `DINOWrapper` -> `DINOTrainer.train()`, a
   checkpoint that reloads the trainables, the teacher and the center, and
   a resumed second epoch that continues `iters` with the last layer
@@ -29,6 +33,7 @@ own norm; the gradient norm 1e-3 relative.
 
 import copy
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +47,7 @@ from apla_tpu.ssl import dino as jd
 from apla_tpu.utils.config import load_merged_params
 from apla_tpu_torch.ssl import dino as td
 from apla_tpu_torch.utils.pretrained import dino_state_from_jax
+from tests.test_torch_multicrop import host_batch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YML = os.path.join(ROOT, "params", "synthetic", "vit_tiny", "dino.yml")
@@ -219,6 +225,44 @@ def test_three_steps_match_jax(accum, fused):
     batches = _crops(3)
     init, jax_states = _jax_run(params, batches)
     st, port = _port_run(params, init, batches)
+    _check_steps(st, port, jax_states)
+    # the first step froze the last layer: its gradient was zeroed, so only
+    # SGD's coupled weight decay moved `last_v`; the later steps trained it
+    v0 = st["trainable"]["head.last_v"]
+    wd0 = SCHEDULE[0][1]
+    torch.testing.assert_close(port[0][0]["head.last_v"], v0 * (1 - LR * wd0),
+                               rtol=1e-6, atol=1e-9)
+    moved = port[1][0]["head.last_v"] \
+        - port[0][0]["head.last_v"] * (1 - LR * SCHEDULE[1][1])
+    assert float(moved.abs().max()) > 1e-6
+    # norm_last_layer: the magnitude g gets no gradient and no decay
+    assert torch.equal(port[-1][0]["head.last_g"],
+                       st["trainable"]["head.last_g"])
+
+
+def test_host_crop_step_matches_jax():
+    """One step on the host multi-crop's first batch (the dino strategy's
+    2 global and 8 local crops, made by each package's loader and held
+    bit-equal; the port's through `DINOTrainer.stack_views`), at the
+    trajectories' tolerances; the fused path on."""
+    params = _params(1, True)
+    views = host_batch("dino", params)["image"]
+    assert [v.shape[1] for v in views] == [32] * 2 + [16] * 8
+    g = np.concatenate(views[:2])
+    loc = np.concatenate(views[2:])
+    trainer = types.SimpleNamespace(device=torch.device("cpu"), n_global=2)
+    tg, tl = td.DINOTrainer.stack_views(
+        trainer, [torch.from_numpy(v) for v in views])
+    assert np.array_equal(tg.numpy(), g) and np.array_equal(tl.numpy(), loc)
+    init, jax_states = _jax_run(params, [(g, loc)])
+    st, port = _port_run(params, init, [(g, loc)])
+    _check_steps(st, port, jax_states)
+
+
+def _check_steps(st, port, jax_states):
+    """The port's steps (`_port_run`) against JAX's (`_jax_run`) from the
+    same start `st`: the metrics, every trainable, teacher tensor and the
+    center, under the module docstring's tolerances."""
     for i, ((jstate, jm), (tr, te, center, tm)) in enumerate(
             zip(jax_states, port)):
         assert set(tm) == set(jm), i
@@ -234,18 +278,6 @@ def test_three_steps_match_jax(accum, fused):
             _check(f"step {i} teacher {n}", t, jst["teacher"][n],
                    st["teacher"][n], update_norm=False)
         _check(f"step {i} center", center, jst["center"])
-    # the first step froze the last layer: its gradient was zeroed, so only
-    # SGD's coupled weight decay moved `last_v`; the later steps trained it
-    v0 = st["trainable"]["head.last_v"]
-    wd0 = SCHEDULE[0][1]
-    torch.testing.assert_close(port[0][0]["head.last_v"], v0 * (1 - LR * wd0),
-                               rtol=1e-6, atol=1e-9)
-    moved = port[1][0]["head.last_v"] \
-        - port[0][0]["head.last_v"] * (1 - LR * SCHEDULE[1][1])
-    assert float(moved.abs().max()) > 1e-6
-    # norm_last_layer: the magnitude g gets no gradient and no decay
-    assert torch.equal(port[-1][0]["head.last_g"],
-                       st["trainable"]["head.last_g"])
 
 
 # --------------------------------------------------------------------------- #

@@ -16,7 +16,10 @@ both sides, at boundaries that f32 sums in another order can cross) moves
 by +-lr either way; SGD's update is linear in the gradient.  AdamW's own
 parity is held by `test_torch_schedules_optim.py`.  Every `fused_proto_ce` mode at accumulation 1 and
 2, and APLA "full" mode.  The JAX prototype-CE kernel runs in interpret
-mode.
+mode.  One more step on the host multi-crop (`test_host_crop_step_
+matches_jax`): the dinov2 strategy's crops through each package's loader
+and iBOT collate, held bit-equal (`test_torch_multicrop.host_batch`), at
+the same tolerances.
 
 Tolerance: float32 on both sides, differing in the order of sums; the
 prototype CE rounds its inputs and ds to bf16 on both.  Loss terms and the
@@ -48,6 +51,7 @@ from apla_tpu.ssl import dinov2 as jd
 from apla_tpu.utils.config import load_merged_params
 from apla_tpu_torch.ssl import dinov2 as td
 from apla_tpu_torch.utils.pretrained import dinov2_state_from_jax
+from tests.test_torch_multicrop import host_batch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YML = os.path.join(ROOT, "params", "synthetic", "vit_tiny", "dinov2.yml")
@@ -188,6 +192,36 @@ def test_three_steps_match_jax(fused, accum, partial):
     batches = _batches(3)
     init, jax_states = _jax_run(params, batches)
     st, port = _port_run(params, init, batches)
+    _check_steps(st, port, jax_states)
+    # the first step froze the prototype layer: its gradient was zeroed, so
+    # only SGD's coupled weight decay moved it; the later steps trained it
+    v0 = st["trainable"]["dino_head.last_v"]
+    torch.testing.assert_close(port[0][0]["dino_head.last_v"],
+                               v0 * (1 - LR * WD),
+                               rtol=1e-6, atol=1e-9)
+    moved = port[1][0]["dino_head.last_v"] - port[0][0][
+        "dino_head.last_v"] * (1 - LR * WD)
+    assert float(moved.abs().max()) > 1e-6
+
+
+def test_host_crop_step_matches_jax():
+    """One step on the host multi-crop's first batch (the dinov2 strategy's
+    2 global and 8 local crops through each package's iBOT collate, crop
+    stacks and mask buffers held bit-equal), the iBOT site fused, at the
+    trajectories' tolerances."""
+    params = _params("ibot", 1, 16)
+    batch = host_batch("dinov2", params)
+    assert batch["collated_global_crops"].shape == (2 * B, 32, 32, 3)
+    assert batch["collated_local_crops"].shape == (8 * B, 16, 16, 3)
+    init, jax_states = _jax_run(params, [batch])
+    st, port = _port_run(params, init, [batch])
+    _check_steps(st, port, jax_states)
+
+
+def _check_steps(st, port, jax_states):
+    """The port's steps (`_port_run`) against JAX's (`_jax_run`) from the
+    same start `st`: the metrics, every trainable and teacher tensor and
+    both centers, under the module docstring's tolerances."""
     for i, ((jstate, jm), (tr, te, dc, ic, tm)) in enumerate(
             zip(jax_states, port)):
         assert set(tm) == set(jm), i
@@ -204,15 +238,6 @@ def test_three_steps_match_jax(fused, accum, partial):
                    st["teacher"][n], update_norm=False)
         _check(f"step {i} dino_center", dc, jst["dino_center"])
         _check(f"step {i} ibot_center", ic, jst["ibot_center"])
-    # the first step froze the prototype layer: its gradient was zeroed, so
-    # only SGD's coupled weight decay moved it; the later steps trained it
-    v0 = st["trainable"]["dino_head.last_v"]
-    torch.testing.assert_close(port[0][0]["dino_head.last_v"],
-                               v0 * (1 - LR * WD),
-                               rtol=1e-6, atol=1e-9)
-    moved = port[1][0]["dino_head.last_v"] - port[0][0][
-        "dino_head.last_v"] * (1 - LR * WD)
-    assert float(moved.abs().max()) > 1e-6
 
 
 def test_fused_mode_typo_rejected():

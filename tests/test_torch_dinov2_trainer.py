@@ -37,11 +37,14 @@ def one_torch_thread():
 
 
 def _params(save_dir, path=YML, cli=False):
-    """The tiny recipe, cut for the CPU (its synthetic images are stored at
-    32 px, the size the device multi-crop cuts its 32- and 16-px crops
-    from); with `cli` the device is left to the command line's flag."""
+    """The tiny recipe, cut for the CPU, on the device multi-crop
+    (`device_augment`: its synthetic images are stored at 32 px, the size
+    the device multi-crop cuts its 32- and 16-px crops from; the host
+    multi-crop is `test_torch_multicrop.py`'s); with `cli` the device is
+    left to the command line's flag."""
     params = load_merged_params(path)
     params.dataset_params.synthetic_size = 64
+    params.dataset_params.device_augment = True
     if not cli:
         params.system_params.device = "cpu"
     for ld in params.dataloader_params.values():

@@ -21,9 +21,12 @@ the native PNG decoder against their manifest; reads NABirds and ISIC2019
 trees (CSV tables, no pandas) and a VTAB tree of PNGs.  A second
 interpreter, under the same blocker, drives the detector's mask branch
 (polygon and RLE masks, the loop with `masks=True`, a mask export served
-float and W8A8, `serve eval`'s mask mAP) and the multi-label and LAMB
+float and W8A8, `serve eval`'s mask mAP), the multi-label and LAMB
 pieces (`SyntheticMultiLabel`, the multi-label metrics, multi-label kNN,
-LAMB steps, the step timer).
+LAMB steps, the step timer), and the host transforms (a seventh of the
+transform manifest's cases through the native ops and their plain
+versions, by `chip_smoke.py`'s own loop) and the host multi-crop (the dino strategy through the loader's
+collate).
 """
 
 import os
@@ -434,6 +437,28 @@ for _ in range(3):
     timer.tick(sync_value=torch.tensor(1.0))
 assert named[2][1].abs().sum() > 0 and len(timer.summary()) == 4
 assert device_memory_stats("cpu") == {}
+
+# the host transforms against their manifest, through the native ops and
+# their plain versions; the host multi-crop (the dino strategy) through the
+# loader's collate into one batch per crop
+import chip_smoke
+from apla_tpu_torch.data.loader import DataLoader
+from apla_tpu_torch.ssl.multicrop import apply_augmentation_strategy
+from apla_tpu_torch.utils.config import EDict
+
+_, bad, _ = chip_smoke._transform_manifest_cases(every=7)
+assert not bad, bad
+params = EDict({"dataset_params": {
+    "dataset": "Synthetic", "synthetic_size": 4, "synthetic_img_size": 32,
+    "ssl_global_size": 32, "ssl_local_size": 16,
+    "train_transforms": {"Resize": {"apply": True, "height": 32,
+                                    "width": 32}, "Normalize": True}}})
+params = apply_augmentation_strategy(params, "dino")
+crops = get_dataset_class("Synthetic")(params.dataset_params, "train")
+views = next(iter(DataLoader(crops, batch_size=2, num_workers=0)))["image"]
+assert [tuple(v.shape) for v in views] == \
+    [(2, 32, 32, 3)] * 2 + [(2, 16, 16, 3)] * 8
+assert all(v.dtype == torch.float32 for v in views)
 
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
