@@ -26,6 +26,8 @@ from typing import Sequence
 
 import torch
 
+from ..parallel.mesh import rand_rows
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceAugConfig:
@@ -55,8 +57,8 @@ def sample_aug_params(batch: int, cfg: DeviceAugConfig,
     factors, hue angle (radians), grayscale; blur sigma and apply, and
     solarize apply, where the config has them."""
     def u(lo=0.0, hi=1.0):
-        return lo + (hi - lo) * torch.rand(batch, generator=generator,
-                                           device=device)
+        return lo + (hi - lo) * rand_rows((batch,), generator=generator,
+                                          device=device)
     p = {
         "area": u(*cfg.crop_scale),
         "log_ratio": u(math.log(cfg.crop_ratio[0]),

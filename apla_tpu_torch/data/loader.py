@@ -13,6 +13,16 @@ later one (the epoch travels in the batch keys), so each is spawned once.
 Batches come out as dicts of CPU tensors: 'image' NHWC (uint8 when the
 dataset is in raw mode, else float32; a list of them, one per crop, for a
 multi-crop pipeline) and 'label' (int64, or float32 soft targets).
+
+Data parallel (`shard(mesh, accum)`): the loader keeps the global batch's
+indices and loads this rank's rows of it only (`parallel.mesh.rank_rows`
+after padding to a multiple of W by repeating the last row, as JAX's
+`pad_to_multiple` does), so every rank gets the 1-device run's samples
+without decoding the others'.  A collate with a `collate_rows` method
+(mixup's flip partners, the iBOT masks) is handed the rows' positions and
+a loader of any other row of the batch; every other collate sees the
+rank's samples.  Such batches carry 'valid' (bool [rows]: false on the
+padding).
 """
 
 from __future__ import annotations
@@ -62,17 +72,37 @@ class _Batches(torch.utils.data.Dataset):
     """Map-style view whose items are whole batches, keyed by (epoch, batch
     index, sample indices)."""
 
-    def __init__(self, dataset, collate_fn, seed):
+    def __init__(self, dataset, collate_fn, seed, shard=None):
         self.dataset, self.collate_fn, self.seed = dataset, collate_fn, seed
+        self.shard = shard
 
     def __getitem__(self, key):
         epoch, bi, idxs = key
-        samples = [self.dataset.__getitem__(
-            int(i), rng=np.random.default_rng((self.seed, epoch, int(i))))
-            for i in idxs]
-        batch = self.collate_fn(
-            samples, rng=np.random.default_rng((self.seed, epoch, bi, 1)),
-            batch_key=(epoch, bi))
+
+        def load(pos):
+            i = int(idxs[pos])
+            return self.dataset.__getitem__(
+                i, rng=np.random.default_rng((self.seed, epoch, i)))
+
+        rng = np.random.default_rng((self.seed, epoch, bi, 1))
+        if self.shard is None:
+            batch = self.collate_fn([load(p) for p in range(len(idxs))],
+                                    rng=rng, batch_key=(epoch, bi))
+        else:
+            from ..parallel.mesh import padded_rows, rank_rows
+            mesh, accum = self.shard
+            n = len(idxs)
+            rows = rank_rows(padded_rows(n, mesh.world), mesh, accum)
+            src = np.minimum(rows, n - 1)
+            samples = [load(p) for p in src]
+            rows_collate = getattr(self.collate_fn, "collate_rows", None)
+            if rows_collate is None:
+                batch = self.collate_fn(samples, rng=rng,
+                                        batch_key=(epoch, bi))
+            else:
+                batch = rows_collate(samples, src, n, load, rng=rng,
+                                     batch_key=(epoch, bi))
+            batch["valid"] = rows < n
         return {k: _tensor(v) for k, v in batch.items() if v is not None}
 
 
@@ -112,7 +142,17 @@ class DataLoader:
         self.epoch = 0
         self.collate_fn = collate_fn or default_collate
         self.pin_memory = bool(pin_memory)
+        self._shard = None
         self._loader = None
+
+    def shard(self, mesh, accum: int = 1):
+        """Load this rank's rows of each global batch (`mesh` a
+        `parallel.mesh.Mesh`; `accum` micro-batches a batch); a no-op with
+        one rank.  Before the first pass."""
+        if self._loader is not None:
+            raise RuntimeError("shard() after the loader started")
+        self._shard = (mesh, int(accum)) if mesh.world > 1 else None
+        return self
 
     def set_epoch(self, epoch: int):
         """Reseeds the shuffle."""
@@ -139,7 +179,8 @@ class DataLoader:
         if self._loader is None:
             workers = min(self.num_workers, len(self))
             self._loader = torch.utils.data.DataLoader(
-                _Batches(self.dataset, self.collate_fn, self.seed),
+                _Batches(self.dataset, self.collate_fn, self.seed,
+                         self._shard),
                 batch_size=None, sampler=_BatchKeys(self),
                 num_workers=workers,
                 prefetch_factor=self.prefetch if workers else None,

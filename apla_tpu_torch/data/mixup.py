@@ -5,7 +5,8 @@ semantics), enabled by `dataset_params.train_transforms.advanced_aug`.
 `__call__` draws from the collate's own generator, seeded from the params,
 unless the loader hands it one (`rng`): the port's loader passes one keyed
 by (seed, epoch, batch index), so batches do not depend on which worker
-process collates them.
+process collates them.  `collate_rows` gives a data-parallel rank its rows
+of the batch's mix (`data/loader.py`).
 """
 
 from __future__ import annotations
@@ -44,6 +45,19 @@ class AdvancedAugCollate:
     def __call__(self, samples, rng: np.random.Generator | None = None,
                  batch_key=None):
         del batch_key
+        return self._mix(samples, samples[::-1], rng)
+
+    def collate_rows(self, samples, positions, n, load, rng=None,
+                     batch_key=None):
+        """A rank's rows (`samples` at `positions` of a batch of `n`):
+        each pairs with the batch's row n - 1 - position (timm's flip), so
+        the rank loads those partners (`load(position)`), at most as many
+        again, and mixes with the batch's one lambda / box."""
+        del batch_key
+        partners = [load(n - 1 - p) for p in positions]
+        return self._mix(samples, partners, rng)
+
+    def _mix(self, samples, partners, rng):
         rng = self.rng if rng is None else rng
         images = np.stack([s["image"] for s in samples]).astype(np.float32)
         labels = np.asarray([s["label"] for s in samples], dtype=np.int64)
@@ -56,8 +70,11 @@ class AdvancedAugCollate:
             use_cutmix = (self.cutmix_alpha > 0
                           and rng.random() < self.switch_prob) \
                 or self.mixup_alpha <= 0
-            perm = images[::-1]          # timm batch mode: flip pairing
-            t_perm = targets[::-1]
+            # timm batch mode: row i pairs with row B - 1 - i
+            perm = np.stack([s["image"] for s in partners]).astype(
+                np.float32)
+            t_perm = one_hot(np.asarray([s["label"] for s in partners],
+                                        dtype=np.int64), n, on, off)
             if use_cutmix:
                 lam = float(rng.beta(self.cutmix_alpha, self.cutmix_alpha))
                 h, w = images.shape[1:3]

@@ -10,17 +10,22 @@ both packages).  The run is on the CUDA card; `--device cpu` (or
 `system_params.device`) is the only way to the CPU.  `--byol`, `--simsiam`
 (`ssl/byol.py`), `--dino` (`ssl/dino.py`) and `--dinov2` (`ssl/dinov2.py`)
 train a self-supervised objective; `--test` then runs its kNN test table
-on a checkpoint.  Flags for paths the port does not have yet raise
-`NotImplementedError` naming their ROADMAP item: the mesh flags
-(`--n_devices`/`--gpu` above one device,
-`--param_sharding` other than replicated, `--tensor_parallel`,
-`--pipeline_parallel`, `--sequence_parallel`, through `DefaultWrapper`).
+on a checkpoint.  `--n_devices N` (or `--gpu 0,1`; unset: every visible
+card, one on the CPU) above one runs N ranks, data parallel, through
+`parallel.launch` (spawned, or the ranks `torchrun` started; on the CPU
+and for ranks that share a card the backend is gloo, else NCCL), and
+`--param_sharding fsdp` shards the frozen backbone over them.  Flags for
+paths the port does not have yet raise `NotImplementedError` naming their
+ROADMAP item (A 9): `--param_sharding tp|pp`, `--tensor_parallel`,
+`--pipeline_parallel`, `--pp_microbatches`, `--sequence_parallel`, and
+W8A8 training on more than one rank, through `DefaultWrapper`.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 from .utils.config import load_merged_params
 
@@ -168,16 +173,38 @@ def main(parameters, args):
     return trainer.test() if wrapper.is_supervised else None
 
 
-def run_cli(argv=None):
-    from .wrapper import set_float32_precision
-    set_float32_precision()
+def _cli_params(argv):
     args = parse_arguments(argv)
-    print(f"USING PARAMS FROM PATH: {os.path.abspath(args.params_path)}")
     parameters = update_params_from_args(
         load_merged_params(args.params_path), args)
     if args.test and args.pretrained_path:
         # --test reads the checkpoint, not a transfer source
         parameters.transfer_learning_params.pretrained_path = ""
+    return parameters, args
+
+
+def run_rank(argv):
+    """One rank of a data-parallel CLI run (`parallel.launch` calls it
+    on every rank)."""
+    from .wrapper import set_float32_precision
+    set_float32_precision()
+    parameters, args = _cli_params(argv)
+    return main(parameters, args)
+
+
+def run_cli(argv=None):
+    from .parallel.launch import launch, torchrun_env, visible_ranks
+    from .wrapper import set_float32_precision
+    set_float32_precision()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parameters, args = _cli_params(argv)
+    print(f"USING PARAMS FROM PATH: {os.path.abspath(args.params_path)}")
+    sp = parameters.system_params
+    device = sp.get("device") or "cuda"
+    n = int(sp["n_devices"]) if sp.get("n_devices") else None
+    ranks = visible_ranks(device) if n is None else n
+    if torchrun_env() or ranks > 1:
+        return launch(run_rank, n, args=(argv,), device=device)
     return main(parameters, args)
 
 

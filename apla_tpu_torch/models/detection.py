@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import (loss_normaliser, pmean,
+                                    reduce_gradients)
 from ..train.optim import Optimizer, global_norm
 from .swin import Swin, SwinConfig, build_apla_swin, init_swin_params, \
     swin_features
@@ -138,10 +140,13 @@ def init_detector(swin_cfg: SwinConfig, n_classes: int,
 
 
 def _conv(x, p: Conv):
-    """NHWC x, "SAME" stride-1 convolution in x.dtype, bias added in it."""
+    """NHWC x, "SAME" stride-1 convolution in x.dtype, bias added in it.
+    The OIHW kernel is made contiguous: the CPU's convolution backward at
+    one image a batch (a rank's share of b2) refuses a permuted one."""
     k = p.kernel.shape[0]
     y = F.conv2d(x.permute(0, 3, 1, 2),
-                 p.kernel.to(x.dtype).permute(3, 2, 0, 1), padding=k // 2)
+                 p.kernel.to(x.dtype).permute(3, 2, 0, 1).contiguous(),
+                 padding=k // 2)
     return y.permute(0, 2, 3, 1) + p.bias.to(x.dtype)
 
 
@@ -343,7 +348,8 @@ def fcos_loss_batch(level_outs, strides, gt_boxes, gt_labels, protos=None,
                     gt_masks=None, mask_stride=4, mask_weight=2.0):
     """Batched FCOS loss: level_outs [B, H, W, *] per level; gt_boxes
     [B, M, 4]; gt_labels [B, M].  Positives normalised over the whole batch
-    (FCOS convention).  With coefficient maps in `level_outs` plus `protos`
+    (FCOS convention; with more than one rank, over the global batch).
+    With coefficient maps in `level_outs` plus `protos`
     [B,Hm,Wm,P] and `gt_masks` [B,M,Hm,Wm], adds `mask_loss` =
     mask_weight * the instances' sum / max(their number, 1)."""
     with_mask = protos is not None and len(level_outs[0]) == 4
@@ -352,7 +358,8 @@ def fcos_loss_batch(level_outs, strides, gt_boxes, gt_labels, protos=None,
         **(dict(protos=protos, gt_masks=gt_masks, mask_stride=mask_stride)
            if with_mask else {}))
     cls_l, box_l, ctr_l, n_pos = terms[:4]
-    n_pos = n_pos.sum().clamp(min=1.0)
+    # over ranks: the global count's share (`loss_normaliser`)
+    n_pos = loss_normaliser(n_pos.sum())
     out = {"cls_loss": cls_l.sum() / n_pos,
            "box_loss": box_l.sum() / n_pos,
            "ctr_loss": ctr_l.sum() / n_pos}
@@ -360,7 +367,7 @@ def fcos_loss_batch(level_outs, strides, gt_boxes, gt_labels, protos=None,
     if with_mask:
         mask_l, n_mask = terms[4:]
         out["mask_loss"] = (mask_weight * mask_l.sum()
-                            / n_mask.sum().clamp(min=1.0))
+                            / loss_normaliser(n_mask.sum()))
         out["total"] = out["total"] + out["mask_loss"]
     return out
 
@@ -596,9 +603,10 @@ def make_detection_train_step(swin_cfg: SwinConfig, optimizer: Optimizer,
             mask_stride=strides[0])
         optimizer.opt.zero_grad(set_to_none=True)
         losses["total"].backward()
+        reduce_gradients(optimizer.params)
         g_norm = global_norm([p.grad for p in optimizer.params])
         optimizer.step(g_norm)
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = {k: pmean(v.detach()) for k, v in losses.items()}
         metrics["grad_norm"] = g_norm.detach()
         return metrics
 

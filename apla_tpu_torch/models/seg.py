@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..apla.core import AplaConfig, build_apla
+from ..parallel.collectives import loss_normaliser, pmean, reduce_gradients
 from ..train.optim import Optimizer, global_norm
 from .detection import Conv, _conv
 from .vit import ViT, ViTConfig, init_vit_, trunc_normal, vit_features
@@ -233,9 +234,11 @@ def segmenter_slide_forward(model: Segmenter, images, vit_cfg: ViTConfig,
 def segmentation_loss(logits, labels, ignore_index: int = 255):
     """Per-pixel cross-entropy over the pixels whose label is not
     `ignore_index`, divided by max(their count, 1): a batch with every
-    pixel ignored gives 0 (mean-reduced `F.cross_entropy` gives NaN)."""
+    pixel ignored gives 0 (mean-reduced `F.cross_entropy` gives NaN).
+    With more than one rank the count is the global batch's
+    (`parallel.collectives.loss_normaliser`)."""
     labels = labels.reshape(-1).long()
-    n_valid = (labels != ignore_index).sum().clamp(min=1)
+    n_valid = loss_normaliser((labels != ignore_index).sum())
     ce = F.cross_entropy(logits.float().reshape(labels.numel(), -1), labels,
                          ignore_index=ignore_index, reduction="sum")
     return ce / n_valid
@@ -308,8 +311,9 @@ def make_seg_train_step(vit_cfg: ViTConfig, optimizer: Optimizer,
             loss = loss + aux_weight * segmentation_loss(a, labels)
         optimizer.opt.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_gradients(optimizer.params)
         g_norm = global_norm([p.grad for p in optimizer.params])
         optimizer.step(g_norm)
-        return {"loss": loss.detach(), "grad_norm": g_norm.detach()}
+        return {"loss": pmean(loss.detach()), "grad_norm": g_norm.detach()}
 
     return step

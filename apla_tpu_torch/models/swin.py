@@ -32,6 +32,7 @@ from torch import nn
 from ..ops.attention import dropout
 from ..ops.fused_swin_attn import fused_swin_attention
 from ..ops.quant import maybe_quantized_dot
+from ..parallel.mesh import gathered
 from .vit import Dense, Norm, _param, layer_norm, trunc_normal
 
 
@@ -273,7 +274,15 @@ def _swin_block(x, H, W, blk: SwinBlock, num_heads, window, shift,
 def swin_features(model: Swin, x, cfg: SwinConfig, generator=None,
                   deterministic=True):
     """x: [B, H, W, C] -> list of per-stage feature maps [B, Hs, Ws, Cs]
-    (the mmdet-style pyramid), in `cfg.compute_dtype`."""
+    (the mmdet-style pyramid), in `cfg.compute_dtype`.  Under FSDP
+    (`parallel.mesh.shard_params`) each block's and each patch merging's
+    frozen tensors are gathered for its span, the stem's and the norms'
+    for the whole forward."""
+    with gathered(model, exclude=tuple(model.stages)):
+        return _stages(model, x, cfg, generator, deterministic)
+
+
+def _stages(model: Swin, x, cfg: SwinConfig, generator, deterministic):
     dt = cfg.compute_dtype
     pe = model.patch_embed
     x = F.conv2d(x.to(dt).permute(0, 3, 1, 2),
@@ -291,8 +300,9 @@ def swin_features(model: Swin, x, cfg: SwinConfig, generator=None,
         for i, blk in enumerate(stage.blocks):
             # odd blocks shift by window//2 unless one window covers the map
             shift = win // 2 if (i % 2 == 1 and min(H, W) > win) else 0
-            x = _swin_block(x, H, W, blk, cfg.num_heads[s], win, shift, cfg,
-                            generator, deterministic)
+            with gathered(blk):
+                x = _swin_block(x, H, W, blk, cfg.num_heads[s], win, shift,
+                                cfg, generator, deterministic)
         norm = model.norms[s]
         outs.append(layer_norm(x, norm.scale, norm.bias,
                                cfg.norm_eps).reshape(B, H, W, -1))
@@ -304,6 +314,8 @@ def swin_features(model: Swin, x, cfg: SwinConfig, generator=None,
             H, W = H // 2, W // 2
             xm = xm.reshape(B, H * W, -1)
             dsp = stage.downsample
-            xm = layer_norm(xm, dsp.norm.scale, dsp.norm.bias, cfg.norm_eps)
-            x = torch.matmul(xm, dsp.reduction.kernel.to(dt))
+            with gathered(dsp):
+                xm = layer_norm(xm, dsp.norm.scale, dsp.norm.bias,
+                                cfg.norm_eps)
+                x = torch.matmul(xm, dsp.reduction.kernel.to(dt))
     return outs

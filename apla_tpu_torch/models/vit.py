@@ -14,8 +14,11 @@ JAX package's token, attention, projection and MLP dropout (`drop_rate`,
 `linspace(0, drop_path_rate, depth)`.  `masks` puts the iBOT mask token
 (`mask_token`, a frozen parameter that only the DINOv2 model sets) in place
 of masked patch embeddings; `pack_segments` runs the crops of each image as
-one block-diagonal sequence.  Not ported yet: `pipeline`, `token_sharding`,
-remat, `vit_intermediate_layers`.
+one block-diagonal sequence.  Under FSDP (`parallel.mesh.shard_params`)
+each block's frozen tensors are gathered for its forward and the trunk's
+for the trunk; dropout and drop-path draw for the global batch
+(`parallel.mesh.rand_rows`).  Not ported yet: `pipeline`,
+`token_sharding` (ROADMAP A 9), remat, `vit_intermediate_layers`.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from torch import nn
 
 from ..ops.attention import apla_attention, dropout, multi_head_attention
 from ..ops.quant import maybe_quantized_dot
+from ..parallel.mesh import gathered, rand_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,12 +292,12 @@ def drop_path(x, rate: float, generator, deterministic: bool,
     keep = 1.0 - rate
     if segment_len:
         n_seg = x.shape[1] // segment_len
-        mask = torch.rand((x.shape[0], n_seg), generator=generator,
-                          device=x.device) < keep
+        mask = rand_rows((x.shape[0], n_seg), generator=generator,
+                         device=x.device) < keep
         mask = mask.repeat_interleave(segment_len, dim=1)[..., None]
     else:
-        mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
-                          generator=generator, device=x.device) < keep
+        mask = rand_rows((x.shape[0],) + (1,) * (x.ndim - 1),
+                         generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -417,6 +421,15 @@ def vit_features(vit: ViT, x, cfg: ViTConfig, return_all_tokens=False,
     = s > 1: `x` holds s crops stacked crop-major ([s*B, h, w, C]); after
     token prep the s crops of each image run as one [B, s*T] sequence with
     block-diagonal attention, and come back as [s*B, ...]."""
+    # FSDP: the trunk's own tensors whole for the trunk, each block's for
+    # its block (`parallel.mesh.gathered`; a no-op when unsharded)
+    with gathered(vit, exclude=(vit.blocks,)):
+        return _trunk(vit, x, cfg, return_all_tokens, deterministic,
+                      generator, masks, pack_segments, return_layers)
+
+
+def _trunk(vit, x, cfg, return_all_tokens, deterministic, generator, masks,
+           pack_segments, return_layers):
     x = _prepare_tokens(vit, x, cfg, generator, deterministic, masks)
     if pack_segments > 1:
         if return_layers:
@@ -430,7 +443,9 @@ def vit_features(vit: ViT, x, cfg: ViTConfig, return_all_tokens=False,
         cfg = dataclasses.replace(cfg, attn_segment_len=T)
     layers = []
     for blk, dp_rate in zip(vit.blocks, drop_path_rates(cfg)):
-        x = _block_forward(x, blk, cfg, dp_rate, generator, deterministic)
+        with gathered(blk):
+            x = _block_forward(x, blk, cfg, dp_rate, generator,
+                               deterministic)
         if return_layers:
             layers.append(x)
     x = layer_norm(x, vit.norm.scale, vit.norm.bias, cfg.norm_eps)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import rand_rows
 from .apla_proj import apla_proj
 from .flash_attention import plain_mha
 from .fused_apla_attn import fused_apla_attention
@@ -37,7 +38,7 @@ def dropout(x, rate: float, generator, deterministic: bool):
     if deterministic or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = rand_rows(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -33,10 +33,15 @@ optimizer state; the frozen backbone is stored once, in
 `<task>_frozen.pt`), each beside a `.json` meta with the JAX loop's keys
 (`epoch`, `miou` or `map50`, `preempted`).
 
-Not ported yet, each raising with its ROADMAP item: `--n_devices > 1` and
-`--param_sharding fsdp`.  The entry points run on the
-card unless asked for the CPU (`--device cpu`).  `--use_fused` on the card
-takes bfloat16 compute (the kernels are bf16 only: the ViT's default;
+`--n_devices N` above one trains data parallel on N ranks
+(`apla_tpu/segdet.py:30-45`): the loops start them through
+`parallel.launch` (or run as the ranks `torchrun` started), each rank
+loads its rows of every batch (the batch size must divide by N, as in
+JAX), the losses' normalisers and the metrics' counts run over the global
+batch, and only rank 0 writes; `--param_sharding fsdp` shards the frozen
+backbone over the ranks (`parallel.mesh.shard_params`).  The entry
+points run on the card unless asked for the CPU (`--device cpu`).
+`--use_fused` on the card takes bfloat16 compute (the kernels are bf16 only: the ViT's default;
 `det` needs `--bf16`), and the JAX loop's process-global
 `APLA_FUSED_VMEM_MB` default has no counterpart: the card has no VMEM
 model to feed.
@@ -66,23 +71,52 @@ from .models.seg import (init_segmenter, iou_counts, make_seg_train_step,
                          segmenter_forward, segmenter_slide_forward)
 from .models.swin import SwinConfig, build_apla_swin
 from .models.vit import VIT_BUILDERS, ViTConfig
+from .parallel import collectives
+from .parallel.launch import launch, torchrun_env
+from .parallel.mesh import local_state, make_mesh, shard_params, whole_state
 from .utils.logging import RunLogger
 
-PARALLEL_TODO = ("--n_devices > 1 / --param_sharding fsdp are not ported "
-                 "yet: ROADMAP A 9 'Parallel modes'")
+PARALLEL_TODO = ("--param_sharding tp|pp, tensor, sequence and pipeline "
+                 "parallelism are not ported yet: ROADMAP A 9, second half")
 
 
 def _state(model):
     """(trainable, frozen) name -> CPU tensor maps of `model`; the frozen
-    map also holds rank-k APLA's `attn.inds` (APLA "full" stores none)."""
+    map also holds rank-k APLA's `attn.inds` (APLA "full" stores none).
+    FSDP's frozen shards are gathered whole: every rank calls it."""
     trainable, frozen = {}, {}
     for name, p in model.named_parameters():
-        (trainable if p.requires_grad else frozen)[name] = \
-            p.detach().to("cpu", copy=True)
+        (trainable if p.requires_grad else frozen)[name] = p.detach()
+    frozen = whole_state(model, frozen)
     for name, b in model.state_dict().items():
         if name.endswith("attn.inds"):
-            frozen[name] = b.to("cpu", copy=True)
-    return trainable, frozen
+            frozen[name] = b
+    return ({n: t.to("cpu", copy=True) for n, t in trainable.items()},
+            {n: t.to("cpu", copy=True) for n, t in frozen.items()})
+
+
+def _place(model, mesh, policy, task):
+    """The frozen backbone placed by `policy` over the mesh's ranks."""
+    plan = shard_params(model, mesh, policy)
+    if mesh.distributed:
+        print(f"[{task}] {mesh.world} ranks ({mesh.backend}); frozen params "
+              f"placed with policy '{policy}': {len(plan)} tensors sharded")
+
+
+def _parallel_setup(n_devices, param_sharding, batch_size, device):
+    """The data axis of a loop (`apla_tpu/segdet.py:_mesh_setup`): None
+    when this process must first start the ranks (`n_devices` > 1 or
+    torchrun, no group yet), else the mesh."""
+    if param_sharding not in ("replicated", "fsdp"):
+        raise NotImplementedError(f"--param_sharding {param_sharding}: "
+                                  f"{PARALLEL_TODO}")
+    n = int(n_devices or 1)
+    if batch_size % n:
+        raise ValueError(f"batch_size {batch_size} not divisible by "
+                         f"n_devices {n}")
+    if not collectives.initialized() and (n > 1 or torchrun_env()):
+        return None
+    return make_mesh(n)
 
 
 def _atomic(path, write):
@@ -94,6 +128,8 @@ def _save(save_dir, name, trainable, frozen, meta, opt_state=None):
     """Atomic checkpoint write (tmp + os.replace: a preemption mid-write
     must not corrupt the file).  `frozen=None` omits the backbone (the
     per-epoch 'last' checkpoints store it once in <task>_frozen.pt)."""
+    if not collectives.is_rank0():
+        return
     os.makedirs(save_dir, exist_ok=True)
     host = {"trainable": trainable}
     if frozen is not None:
@@ -139,7 +175,7 @@ def _try_resume(save_dir, name, model, optimizer=None):
     if frozen is None:
         frozen = load_checkpoint(os.path.join(
             save_dir, name.split("_")[0] + "_frozen.pt"))["frozen"]
-    _load_into(model, host["trainable"], frozen)
+    _load_into(model, host["trainable"], local_state(model, frozen))
     if optimizer is not None and "opt_state" in host:
         optimizer.load_state_dict(host["opt_state"])
     with open(os.path.join(save_dir, name + ".json")) as f:
@@ -224,10 +260,13 @@ def train_segmentation(root, epochs=8, img_size=512, batch_size=8, lr=1e-4,
                        use_fused=False, device=None):
     """APLA-SETR-PUP on an ADE20K-layout directory.  Returns {'best_miou',
     'iters'} (and 'preempted' after a SIGTERM)."""
+    call = dict(locals())
     from .wrapper import resolve_device
 
-    if (n_devices or 1) > 1 or param_sharding != "replicated":
-        raise NotImplementedError(PARALLEL_TODO)
+    mesh = _parallel_setup(n_devices, param_sharding, batch_size, device)
+    if mesh is None:
+        return launch(train_segmentation, n_devices, kwargs=call,
+                      device=device or "cuda")
     device = resolve_device(device)
     if vit_cfg is not None:
         # an explicit config still honours --use_fused
@@ -248,12 +287,14 @@ def train_segmentation(root, epochs=8, img_size=512, batch_size=8, lr=1e-4,
     val_ds = ADE20KSegmentation(root, "validation", img_size=eval_size)
     loader = DataLoader(train_ds, batch_size=batch_size, shuffle=True,
                         drop_last=True, num_workers=num_workers,
-                        collate_fn=segmentation_collate, seed=seed)
+                        collate_fn=segmentation_collate, seed=seed
+                        ).shard(mesh)
     model = init_segmenter(cfg, train_ds.n_classes,
                            AplaConfig(partial_size=partial_size),
                            channels=channels, n_aux_heads=aux_heads,
                            generator=torch.Generator().manual_seed(seed),
                            device=device)
+    _place(model, mesh, param_sharding, "seg")
     # the reference recipe: the decoder heads at lr x head_lr_mult
     optimizer = seg_optimizer(model, lr, weight_decay, head_lr_mult)
     start_epoch = 0
@@ -275,7 +316,7 @@ def train_segmentation(root, epochs=8, img_size=512, batch_size=8, lr=1e-4,
         inter = union = 0
         vloader = DataLoader(val_ds, batch_size=batch_size, shuffle=False,
                              drop_last=False, num_workers=num_workers,
-                             collate_fn=segmentation_collate)
+                             collate_fn=segmentation_collate).shard(mesh)
         for i, b in enumerate(vloader):
             if eval_batches is not None and i >= eval_batches:
                 break
@@ -284,10 +325,15 @@ def train_segmentation(root, epochs=8, img_size=512, batch_size=8, lr=1e-4,
                                               stride=eval_stride)
                       if eval_size > img_size
                       else segmenter_forward(model, im, cfg))
-            bi, bu = iou_counts(logits.argmax(-1).cpu().numpy(),
-                                b["label"].numpy(),
+            keep = b["valid"].numpy() if "valid" in b else slice(None)
+            bi, bu = iou_counts(logits.argmax(-1).cpu().numpy()[keep],
+                                b["label"].numpy()[keep],
                                 n_classes=train_ds.n_classes)
             inter, union = inter + bi, union + bu
+        if mesh.distributed:      # the counts of every rank's rows
+            inter, union = (collectives.psum(torch.as_tensor(
+                np.asarray(c), device=device)).cpu().numpy()
+                for c in (inter, union))
         return mean_iou_from_counts(inter, union) if np.ndim(union) else 0.0
 
     if eval_only:
@@ -295,10 +341,12 @@ def train_segmentation(root, epochs=8, img_size=512, batch_size=8, lr=1e-4,
         print(f"[seg] eval-only: val mIoU {miou:.4f}")
         return {"best_miou": miou, "iters": 0}
 
-    if not _has_ckpt(save_dir, "seg_frozen"):  # store the backbone once
+    # store the backbone once
+    if not collectives.broadcast_object(_has_ckpt(save_dir, "seg_frozen")):
         _save(save_dir, "seg_frozen", {}, _state(model)[1], {})
     preempted, restore_sig = _preemption_flag()
-    logger = RunLogger(save_dir, run_name="seg")
+    logger = RunLogger(save_dir, run_name="seg") \
+        if collectives.is_rank0() else None
     it, t0 = 0, time.time()
     # under --resume the best-model race goes on from the saved best
     best_miou = _best_metric(save_dir, "seg_best", "miou") if resume \
@@ -314,10 +362,11 @@ def train_segmentation(root, epochs=8, img_size=512, batch_size=8, lr=1e-4,
                 rate = it * batch_size / (time.time() - t0)
                 print(f"[seg] it {it} ep {epoch} loss {loss:.4f} "
                       f"({rate:.1f} img/s)")
-                logger.log({"epoch": epoch, "train_loss": round(loss, 5),
-                            "grad_norm": round(float(m["grad_norm"]), 4),
-                            "img_s": round(rate, 1)}, it)
-            if preempted():
+                if logger:
+                    logger.log({"epoch": epoch, "train_loss": round(loss, 5),
+                                "grad_norm": round(float(m["grad_norm"]), 4),
+                                "img_s": round(rate, 1)}, it)
+            if collectives.any_rank(preempted(), device):
                 # mid-epoch: save resumable state marked at epoch-1 so
                 # --resume replays this (partial) epoch from its start
                 _save(save_dir, "seg_last", _state(model)[0], None,
@@ -330,7 +379,8 @@ def train_segmentation(root, epochs=8, img_size=512, batch_size=8, lr=1e-4,
                         "preempted": True}
         miou = evaluate()
         print(f"[seg] epoch {epoch}: val mIoU {miou:.4f}")
-        logger.log({"epoch": epoch, "val_miou": round(miou, 5)}, it)
+        if logger:
+            logger.log({"epoch": epoch, "val_miou": round(miou, 5)}, it)
         trainable, frozen = _state(model)
         if miou >= best_miou:
             best_miou = miou
@@ -358,10 +408,13 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
     'iters', 'eval_set'} (and 'preempted' after a SIGTERM); `masks=True`
     trains the instance-mask branch (`n_protos` prototypes) and adds
     'best_mask_map50'."""
+    call = dict(locals())
     from .wrapper import resolve_device
 
-    if (n_devices or 1) > 1 or param_sharding != "replicated":
-        raise NotImplementedError(PARALLEL_TODO)
+    mesh = _parallel_setup(n_devices, param_sharding, batch_size, device)
+    if mesh is None:
+        return launch(train_detection, n_devices, kwargs=call,
+                      device=device or "cuda")
     device = resolve_device(device)
     if use_fused and not bf16 and device.type == "cuda":
         raise ValueError("--use_fused on the card needs --bf16: the window "
@@ -390,7 +443,7 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
                              f"patch*window*2^(stages-1) = {align}")
     loader = DataLoader(ds, batch_size=batch_size, shuffle=True,
                         drop_last=True, num_workers=num_workers,
-                        collate_fn=detection_collate, seed=seed)
+                        collate_fn=detection_collate, seed=seed).shard(mesh)
     model = init_detector(cfg, ds.n_classes,
                           torch.Generator().manual_seed(seed),
                           n_protos=n_protos if masks else 0,
@@ -400,6 +453,7 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
         build_apla_swin(model.backbone)
         print(f"Imported HF Swin weights from {swin_ckpt}")
     model = model.to(device)
+    _place(model, mesh, param_sharding, "det")
     strides = default_strides(cfg)
     optimizer = detection_optimizer(model, lr, weight_decay)
     start_epoch = 0
@@ -433,17 +487,30 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
         val_ds.img_size = img_size
         vloader = DataLoader(val_ds, batch_size=batch_size, shuffle=False,
                              drop_last=False, num_workers=num_workers,
-                             collate_fn=detection_collate)
+                             collate_fn=detection_collate).shard(mesh)
         for i, b in enumerate(vloader):
             if eval_batches is not None and i >= eval_batches:
                 break
             outs, protos = detector_outputs(model, b["image"].to(device),
                                             cfg)
-            outs = [tuple(o.float().cpu().numpy() for o in lvl)
-                    for lvl in outs]
-            labels = b["labels"].numpy()
-            gt_boxes = b["boxes"].numpy()
-            gt_masks = b["masks"].numpy() if masks else None
+            outs = [tuple(o.float() for o in lvl) for lvl in outs]
+            truth = [b["labels"], b["boxes"]] + ([b["masks"]] if masks
+                                                 else [])
+            if "valid" in b:     # the global batch, in order, unpadded
+                flat = collectives.gather_rows(
+                    b["valid"], *[o for lvl in outs for o in lvl],
+                    *([protos] if masks else []), *truth)
+                k = len(outs[0])
+                outs = [tuple(flat[j * k:(j + 1) * k])
+                        for j in range(len(outs))]
+                rest = flat[len(outs) * k:]
+                if masks:
+                    protos, rest = rest[0], rest[1:]
+                truth = rest
+            outs = [tuple(o.cpu().numpy() for o in lvl) for lvl in outs]
+            labels = truth[0].numpy()
+            gt_boxes = truth[1].numpy()
+            gt_masks = truth[2].numpy() if masks else None
             for j in range(labels.shape[0]):
                 per_img = [tuple(o[j:j + 1] for o in lvl) for lvl in outs]
                 keep = labels[j] >= 0
@@ -474,10 +541,12 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
         print(msg)
         return out
 
-    if not _has_ckpt(save_dir, "det_frozen"):  # store the backbone once
+    # store the backbone once
+    if not collectives.broadcast_object(_has_ckpt(save_dir, "det_frozen")):
         _save(save_dir, "det_frozen", {}, _state(model)[1], {})
     preempted, restore_sig = _preemption_flag()
-    logger = RunLogger(save_dir, run_name="det")
+    logger = RunLogger(save_dir, run_name="det") \
+        if collectives.is_rank0() else None
     it, t0 = 0, time.time()
     # with masks on, the best-model race runs on mask mAP (the recipe's
     # instance-segmentation target); box mAP is reported beside it, on
@@ -520,8 +589,9 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
                        "img_s": round(rate, 1)}
                 if masks:
                     rec["mask_loss"] = round(float(m["mask_loss"]), 5)
-                logger.log(rec, it)
-            if preempted():
+                if logger:
+                    logger.log(rec, it)
+            if collectives.any_rank(preempted(), device):
                 # mid-epoch: save resumable state marked at epoch-1 so
                 # --resume replays this (partial) epoch from its start
                 _save(save_dir, "det_last", _state(model)[0], None,
@@ -540,7 +610,8 @@ def train_detection(img_dir, ann_file, epochs=12, img_size=224,
             rec[f"{eval_name}_mask_map50"] = round(mask_ap, 5)
             meta["mask_map50"] = mask_ap
         print(msg)
-        logger.log(rec, it)
+        if logger:
+            logger.log(rec, it)
         trainable, frozen = _state(model)
         sel = mask_ap if masks else ap
         if sel >= best_map:
@@ -571,10 +642,10 @@ def main(argv=None):
     ps.add_argument("--patch_size", type=int, default=16)
     ps.add_argument("--save_dir", default="checkpoints/seg")
     ps.add_argument("--n_devices", type=int, default=1,
-                    help="data-parallel size (only 1 is ported)")
+                    help="data-parallel ranks (the batch size divides)")
     ps.add_argument("--param_sharding", default="replicated",
                     choices=("replicated", "fsdp"),
-                    help="frozen-backbone placement (only replicated)")
+                    help="frozen-backbone placement over the ranks")
     ps.add_argument("--resume", action="store_true",
                     help="continue from <save_dir>/seg_last if present")
     ps.add_argument("--eval_only", action="store_true",
@@ -610,10 +681,10 @@ def main(argv=None):
     pd.add_argument("--val_img_dir")
     pd.add_argument("--val_ann")
     pd.add_argument("--n_devices", type=int, default=1,
-                    help="data-parallel size (only 1 is ported)")
+                    help="data-parallel ranks (the batch size divides)")
     pd.add_argument("--param_sharding", default="replicated",
                     choices=("replicated", "fsdp"),
-                    help="frozen-backbone placement (only replicated)")
+                    help="frozen-backbone placement over the ranks")
     pd.add_argument("--resume", action="store_true",
                     help="continue from <save_dir>/det_last if present")
     pd.add_argument("--eval_only", action="store_true",

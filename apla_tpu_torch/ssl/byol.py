@@ -47,6 +47,8 @@ from torch import nn
 from ..apla.core import build_apla
 from ..data.device_augs import device_augment
 from ..models.vit import ViT, init_vit_, vit_features
+from ..parallel.collectives import pmean, reduce_gradients, world_size
+from ..parallel.mesh import batch_rows
 from ..train.checkpoint import load_aux_state, load_checkpoint, \
     save_checkpoint
 from ..train.knn import knn_evaluate
@@ -169,7 +171,11 @@ def make_byol_train_step(vit_cfg, optimizer, use_momentum: bool,
     of ready views.  With `accum_steps` > 1 the whole per-batch computation
     (target branch, student, BN updates) runs per micro-batch and the
     gradients are averaged before one update; BN statistics are then
-    per-micro-batch, as in the JAX scan."""
+    per-micro-batch, as in the JAX scan.  With more than one rank `views`
+    hold this rank's rows: the draws are the global batch's, the BN
+    statistics run over the global micro-batch (`heads.batch_norm`), the
+    gradients are all-reduced once before the clip and the loss is the
+    mean over ranks."""
     loss_pair = byol_loss if use_momentum else simsiam_loss
 
     def target_branch(state, views, t_head_s):
@@ -206,30 +212,33 @@ def make_byol_train_step(vit_cfg, optimizer, use_momentum: bool,
         params = optimizer.params
         for p in params:
             p.grad = None
-        if device_crop_cfgs is not None:
-            views = [device_augment(views, generator, cfg,
-                                    compute_dtype=vit_cfg.compute_dtype)
-                     for cfg in device_crop_cfgs]
-        B = views[0].shape[0]
+        B = (views if device_crop_cfgs is not None else views[0]).shape[0]
         if B % accum_steps:
             raise ValueError(f"batch {B} does not split into {accum_steps} "
                              "micro-batches")
         mb = B // accum_steps
-        ms = state.model_state
-        loss = 0.0
-        for m in range(accum_steps):
-            mviews = [v[m * mb:(m + 1) * mb] for v in views]
-            targets, t_head_s = target_branch(state, mviews,
-                                              ms["teacher"]["head"])
-            loss_m, s_stats = student_loss(state, mviews, targets,
-                                           ms["student"], generator)
-            loss_m.backward()
-            loss = loss + loss_m.detach()
-            ms = {"student": s_stats, "teacher": {"head": t_head_s}}
+        with batch_rows(mb):
+            if device_crop_cfgs is not None:
+                views = [device_augment(views, generator, cfg,
+                                        compute_dtype=vit_cfg.compute_dtype)
+                         for cfg in device_crop_cfgs]
+            ms = state.model_state
+            loss = 0.0
+            for m in range(accum_steps):
+                mviews = [v[m * mb:(m + 1) * mb] for v in views]
+                targets, t_head_s = target_branch(state, mviews,
+                                                  ms["teacher"]["head"])
+                loss_m, s_stats = student_loss(state, mviews, targets,
+                                               ms["student"], generator)
+                loss_m.backward()
+                loss = loss + loss_m.detach()
+                ms = {"student": s_stats, "teacher": {"head": t_head_s}}
         grads = fill_missing_grads(params)
         if accum_steps > 1:
             loss = loss / accum_steps
             torch._foreach_div_(grads, float(accum_steps))
+        reduce_gradients(params)
+        loss = pmean(loss)
         gnorm = global_norm(grads)
         optimizer.set_lr(lr)
         optimizer.step(gnorm)
@@ -472,7 +481,7 @@ class BYOLTrainer:
                 if bi < skip:
                     continue
                 m, extra = self.train_one(batch, epoch)
-                images_seen += batch["label"].shape[0]
+                images_seen += batch["label"].shape[0] * world_size()
                 self.iters += 1
                 if self.iters % self.log_every == 0 or self.iters == 1:
                     rec = {("train_" + k if k == "loss" else k): float(v)

@@ -27,6 +27,8 @@ from torch import nn
 
 from ..data.device_augs import device_multicrop
 from ..models.vit import ViT, vit_features
+from ..parallel.collectives import mesh_average, pmean, reduce_gradients
+from ..parallel.mesh import batch_rows
 from ..train.optim import global_norm
 from ..train.schedules import cosine_with_warmup_table
 from ..train.train_state import TrainState, weights_swapped
@@ -100,7 +102,7 @@ def dino_loss(student_out, teacher_out, center, teacher_temp,
     t_sm = [torch.softmax((t - center) / teacher_temp, dim=-1)
             for t in teacher_out]
     loss = dino_pair_ce(student_out, t_sm, student_temp=student_temp)
-    batch_center = torch.cat(teacher_out, dim=0).mean(dim=0, keepdim=True)
+    batch_center = mesh_average(torch.cat(teacher_out, dim=0), keepdim=True)
     new_center = center * center_momentum \
         + batch_center * (1 - center_momentum)
     return loss, new_center.detach()
@@ -127,7 +129,10 @@ def make_dino_train_step(vit_cfg, optimizer, n_global: int, n_local: int,
     batch and every crop is made on the device from `generator`.  The
     teacher (no gradients) runs on the full batch; with `accum_steps` > 1
     the student runs over micro-batches and the gradients are averaged
-    before one update."""
+    before one update.  With more than one rank the stacks hold this
+    rank's rows: the draws are the global batch's, the center moves by the
+    global mean of the teacher outputs, the gradients are all-reduced once
+    before the clip and the loss is the mean over ranks."""
 
     def micro_split(x, n_crops):
         mb = x.shape[0] // (n_crops * accum_steps)
@@ -152,6 +157,18 @@ def make_dino_train_step(vit_cfg, optimizer, n_global: int, n_local: int,
         params = optimizer.params
         for p in params:
             p.grad = None
+        B = global_stack.shape[0] // (1 if device_crop_cfgs is not None
+                                      else n_global)
+        if B % accum_steps:
+            raise ValueError(f"batch {B} does not split into "
+                             f"{accum_steps} micro-batches")
+        with batch_rows(B // accum_steps):
+            return step_body(state, global_stack, local_stack, lr, wd,
+                             momentum, teacher_temp, generator)
+
+    def step_body(state, global_stack, local_stack, lr, wd, momentum,
+                  teacher_temp, generator):
+        params = optimizer.params
         if device_crop_cfgs is not None:
             global_stack, local_stack = device_multicrop(
                 global_stack, generator, device_crop_cfgs, n_global,
@@ -165,13 +182,10 @@ def make_dino_train_step(vit_cfg, optimizer, n_global: int, n_local: int,
                 model.head)
             t_sm = [torch.softmax((t - state.center) / float(teacher_temp),
                                   dim=-1) for t in t_out.chunk(n_global)]
+            # the center moves by the global batch's mean
             new_center = state.center * center_momentum \
-                + t_out.mean(dim=0, keepdim=True) * (1 - center_momentum)
+                + mesh_average(t_out, keepdim=True) * (1 - center_momentum)
 
-        B = global_stack.shape[0] // n_global
-        if B % accum_steps:
-            raise ValueError(f"batch {B} does not split into "
-                             f"{accum_steps} micro-batches")
         g_m = micro_split(global_stack, n_global)
         l_m = (micro_split(local_stack, n_local)
                if local_stack is not None else [None] * accum_steps)
@@ -188,6 +202,8 @@ def make_dino_train_step(vit_cfg, optimizer, n_global: int, n_local: int,
             torch._foreach_div_(grads, float(accum_steps))
         if freeze_last_layer:
             zero_grads_of(state.trainable(), ("last_v",))
+        reduce_gradients(params)
+        loss = pmean(loss)
         gnorm = global_norm(grads)
         optimizer.set_lr(lr, wd)
         optimizer.step(gnorm)

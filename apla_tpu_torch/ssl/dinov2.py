@@ -34,6 +34,10 @@ from ..data.device_augs import device_multicrop
 from ..models.vit import VIT_BUILDERS, ViT, trunc_normal, \
     vit_features
 from ..ops.proto_ce import proto_ce
+from ..parallel.collectives import (mesh_all_gather, mesh_average, pmean,
+                                    psum, rank, reduce_gradients,
+                                    world_size)
+from ..parallel.mesh import batch_rows
 from ..train.optim import build_optimizer, global_norm
 from ..train.train_state import TrainState, weights_swapped
 from ..utils.config import EDict
@@ -180,12 +184,34 @@ class IBotCollate:
         self.seed = seed
         self.batches_per_epoch = batches_per_epoch
 
+    def collate_rows(self, samples, positions, n, load, rng=None,
+                     batch_key=(0, 0)):
+        """A rank's rows (`samples` at `positions` of a batch of `n`): the
+        crops of its samples, and the global batch's masks drawn for all
+        `n` images, cut to the rank's rows with their flat patch indices
+        rebased into the rank's patch space (the global order kept, the
+        buffers sized for the rank's rows)."""
+        del load, rng
+        positions = np.asarray(positions)
+        if len(np.unique(positions)) != len(positions):
+            raise ValueError(f"a batch of {n} does not split evenly over "
+                             "the ranks: the iBOT collate takes no padding")
+        out = self._collate(samples, batch_key, n_masks=n)
+        out.update(ibot_mask_rows(out, positions, n, self.n_global,
+                                  self.n_masked_max))
+        return out
+
     def __call__(self, samples_list, rng=None, batch_key=(0, 0)):
         del rng
+        return self._collate(samples_list, batch_key)
+
+    def _collate(self, samples_list, batch_key, n_masks=None):
+        """The collate of `samples_list`, with the masks drawn for a batch
+        of `n_masks` images (default: the samples')."""
         epoch, bi = batch_key
         rng = np.random.default_rng(
             (self.seed, epoch * self.batches_per_epoch + bi))
-        B = len(samples_list)
+        B = len(samples_list) if n_masks is None else n_masks
         ng, nl, n_tokens = self.n_global, self.n_local, self.n_tokens
         out = {}
         if self.raw_mode:
@@ -234,6 +260,36 @@ class IBotCollate:
         return out
 
 
+def ibot_mask_rows(batch, positions, n, n_global, n_masked_max) -> dict:
+    """The iBOT mask buffers of a global batch of `n` images cut to the
+    images at `positions`: their mask rows (crop-major), the masked patches
+    among them in the global order with the flat indices rebased into
+    their own patch space, buffers of `n_global * len(positions) *
+    n_masked_max` rows, padding weighted 0."""
+    masks = np.asarray(batch["collated_masks"])
+    n_tok = masks.shape[1]
+    positions = np.asarray(positions)
+    rows = (np.arange(n_global)[:, None] * n + positions[None]).reshape(-1)
+    local = np.full(n_global * n, -1, np.int64)
+    local[rows] = np.arange(len(rows))
+    kept = int(np.asarray(batch["n_masked_patches"])[0])
+    flat = np.asarray(batch["mask_indices_list"])[:kept].astype(np.int64)
+    weight = np.asarray(batch["masks_weight"])[:kept]
+    own = local[flat // n_tok]
+    sel = own >= 0
+    upper = len(rows) * n_masked_max
+    m = min(int(sel.sum()), upper)
+    idx = np.zeros(upper, np.int32)
+    idx[:m] = (own[sel] * n_tok + flat[sel] % n_tok)[:m]
+    w = np.zeros(upper, np.float32)
+    w[:m] = weight[sel][:m]
+    valid = np.zeros(upper, np.float32)
+    valid[:m] = 1.0
+    return {"collated_masks": masks[rows], "mask_indices_list": idx,
+            "masks_weight": w, "mask_valid": valid,
+            "n_masked_patches": np.asarray([m], np.int32)}
+
+
 # --------------------------------------------------------------------------- #
 # losses
 # --------------------------------------------------------------------------- #
@@ -249,18 +305,19 @@ def sinkhorn_knopp_teacher(t_out, teacher_temp, n_iterations=3,
     Q = torch.exp(t_out.float() / teacher_temp).t()            # [K, B]
     if sample_mask is not None:
         Q = Q * sample_mask[None, :]
-        B = torch.clamp(sample_mask.sum(), min=1.0)
+        B = torch.clamp(psum(sample_mask.sum()), min=1.0)
     else:
-        B = Q.shape[1]
+        B = Q.shape[1] * world_size()
     K = Q.shape[0]
 
     def safe_div(q, s):
         # guard exact zeros only (padded rows/cols)
         return q / torch.where(s == 0.0, torch.ones_like(s), s)
 
-    Q = Q / Q.sum()
+    # the sums over samples run over the global batch (psum over ranks)
+    Q = Q / psum(Q.sum())
     for _ in range(n_iterations):
-        Q = safe_div(Q, Q.sum(dim=1, keepdim=True)) / K
+        Q = safe_div(Q, psum(Q.sum(dim=1, keepdim=True))) / K
         Q = safe_div(Q, Q.sum(dim=0, keepdim=True)) / B
         if sample_mask is not None:
             Q = Q * sample_mask[None, :]
@@ -288,14 +345,20 @@ def ibot_patch_loss(student_masked, teacher_softmaxed_masked, masks_weight,
 
 
 def koleo_loss(x, eps=1e-8):
-    """Kozachenko-Leonenko regulariser."""
+    """Kozachenko-Leonenko regulariser.  With more than one rank `x` holds
+    this rank's rows: each row's nearest neighbour is searched over the
+    global batch (gathered with a gradient), and the mean over the rank's
+    rows, averaged over ranks, is the global batch's."""
     x = x.float()
     x = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + eps)
-    dots = torch.matmul(x, x.t())
+    xa = mesh_all_gather(x)
+    dots = torch.matmul(x, xa.t())
     n = x.shape[0]
-    dots = dots - 2.0 * torch.eye(n, device=x.device)
+    own = torch.zeros((n, xa.shape[0]), device=x.device)
+    own[torch.arange(n), rank() * n + torch.arange(n)] = 1.0    # self
+    dots = dots - 2.0 * own
     nn_idx = torch.argmax(dots, dim=1)
-    diff = x - x[nn_idx]
+    diff = x - xa[nn_idx]
     dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + eps * eps)
     return -torch.mean(torch.log(dist + eps))
 
@@ -355,7 +418,13 @@ def make_dinov2_train_step(vit_cfg, optimizer, cfg: EDict, n_global: int,
     and the collate's mask buffers.  The teacher runs on the full batch;
     with `accum_steps` > 1 the student runs over micro-batches with the
     iBOT indices rebased into each micro-batch's patch space, and the
-    gradients are averaged before one update."""
+    gradients are averaged before one update.  With more than one rank the
+    batch holds this rank's rows (and their iBOT masks, rebased into the
+    rank's patch space by `IBotCollate.collate_rows`): the draws are the
+    global batch's; KoLeo's neighbours, Sinkhorn's sums over samples and
+    the centers' means run over the global batch; the per-rank losses
+    (means over the rank's rows, the iBOT sum over its images) average to
+    the global ones; the gradients are all-reduced once before the clip."""
     dino_w = float(cfg.dino.loss_weight)
     koleo_w = float(cfg.dino.koleo_loss_weight)
     ibot_w = float(cfg.ibot.loss_weight)
@@ -409,7 +478,7 @@ def make_dinov2_train_step(vit_cfg, optimizer, cfg: EDict, n_global: int,
                                                   model.dino_head)
                     wt_dino = dino_head_last_w(model.dino_head)
                     new_dino_center = dino_c * center_momentum + torch.matmul(
-                        t_dino.mean(dim=0, keepdim=True), wt_dino) \
+                        mesh_average(t_dino, keepdim=True), wt_dino) \
                         * (1 - center_momentum)
                 else:
                     t_cls_out = dino_head_forward(t_cls_swapped,
@@ -418,24 +487,25 @@ def make_dinov2_train_step(vit_cfg, optimizer, cfg: EDict, n_global: int,
                     t_dino = softmax_center_teacher(t_cls_out, dino_c,
                                                     teacher_temp)
                     new_dino_center = dino_c * center_momentum + \
-                        t_cls_out.mean(dim=0, keepdim=True) \
+                        mesh_average(t_cls_out, keepdim=True) \
                         * (1 - center_momentum)
-                denom = torch.clamp(mask_valid.sum(), min=1.0)
+                # the centers move by global means (sums over ranks)
+                denom = torch.clamp(psum(mask_valid.sum()), min=1.0)
                 if fused_ibot:
                     t_ibot = dino_head_bottleneck(t_masked, ihead)
                     wt_ibot = dino_head_last_w(ihead)
                     new_ibot_center = ibot_c * center_momentum + torch.matmul(
-                        (t_ibot * mask_valid[:, None]).sum(dim=0,
-                                                           keepdim=True)
-                        / denom, wt_ibot) * (1 - center_momentum)
+                        psum((t_ibot * mask_valid[:, None]).sum(
+                            dim=0, keepdim=True)) / denom, wt_ibot) \
+                        * (1 - center_momentum)
                 else:
                     t_masked_out = dino_head_forward(t_masked, ihead,
                                                      matmul_bf16=head_mm_bf16)
                     t_ibot = softmax_center_teacher(t_masked_out, ibot_c,
                                                     teacher_temp)
                     new_ibot_center = ibot_c * center_momentum + (
-                        (t_masked_out * mask_valid[:, None]).sum(
-                            dim=0, keepdim=True) / denom) \
+                        psum((t_masked_out * mask_valid[:, None]).sum(
+                            dim=0, keepdim=True)) / denom) \
                         * (1 - center_momentum)
             else:                                   # sinkhorn_knopp
                 t_cls_out = dino_head_forward(t_cls_swapped, model.dino_head,
@@ -584,6 +654,13 @@ def make_dinov2_train_step(vit_cfg, optimizer, cfg: EDict, n_global: int,
 
     def train_step(state: DINOv2TrainState, batch, lr, wd, momentum,
                    teacher_temp, generator):
+        rows = batch["raw_images"].shape[0] if device_crop_cfgs is not None \
+            else batch["collated_global_crops"].shape[0] // n_global
+        with batch_rows(rows // accum_steps):
+            return step_body(state, batch, lr, wd, momentum, teacher_temp,
+                             generator)
+
+    def step_body(state, batch, lr, wd, momentum, teacher_temp, generator):
         params = optimizer.params
         for p in params:
             p.grad = None
@@ -628,6 +705,9 @@ def make_dinov2_train_step(vit_cfg, optimizer, cfg: EDict, n_global: int,
         if freeze_last_layer:
             # both weight-norm leaves of the prototype layer(s)
             zero_grads_of(state.trainable(), ("last_v", "last_g"))
+        reduce_gradients(params)
+        loss = pmean(loss)
+        losses = {k: pmean(v) for k, v in losses.items()}
         gnorm = global_norm([p.grad for p in params])
         optimizer.set_lr(lr, wd)
         optimizer.step(gnorm)

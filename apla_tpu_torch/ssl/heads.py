@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.vit import Dense, trunc_normal
+from ..parallel.collectives import psum_grad, world_size
 
 
 # --------------------------------------------------------------------------- #
@@ -62,11 +63,23 @@ def batch_norm(x, bn: BatchNorm, state: dict, train: bool,
     """(y, new_state) for x [B, D].  In f32, cast back to x's dtype.  In
     training the batch statistics normalise (gradients flow through them)
     and the running stats become momentum * old + (1 - momentum) * batch,
-    with the biased variance; in eval the running stats normalise."""
+    with the biased variance; in eval the running stats normalise.  With
+    more than one rank the batch is the global one: the ranks' counts,
+    means and M2 combine through all-reduces that gradients flow through
+    (`parallel.collectives.psum_grad`), as JAX's statistics run over the
+    data-sharded batch."""
     xf = x.float()
     if train:
-        mean = xf.mean(dim=0)
-        var = xf.var(dim=0, unbiased=False)
+        w = world_size()
+        if w > 1:
+            m_r = xf.mean(dim=0)
+            mean = psum_grad(m_r) / w       # every rank holds as many rows
+            m2 = psum_grad(((xf - m_r) ** 2).sum(dim=0)
+                           + xf.shape[0] * (m_r - mean) ** 2)
+            var = m2 / (xf.shape[0] * w)
+        else:
+            mean = xf.mean(dim=0)
+            var = xf.var(dim=0, unbiased=False)
         new_state = {
             "mean": (momentum * state["mean"]
                      + (1 - momentum) * mean).detach(),

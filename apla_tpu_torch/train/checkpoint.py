@@ -12,7 +12,11 @@ Counterpart of `apla_tpu/train/checkpoint.py`: a directory holding
   fields (the trainer adds `scheduler`);
 - `parameters.pkl`: the run's full config.
 
-The format is the port's own; the JAX package does not read it.
+The format is the port's own; the JAX package does not read it.  With
+more than one rank every rank calls `save_checkpoint` (FSDP's frozen
+shards are gathered whole for `frozen.pt`) and rank 0 alone writes;
+`load_checkpoint` on every rank cuts the frozen tensors to the rank's
+placement.
 
 Transfer learning (`transfer_learning_params.pretrained_path`, and `serve
 export --pretrained_path`) reads such a directory with
@@ -31,6 +35,8 @@ import pickle
 import torch
 
 from ..ops.quant import quantize_like_state
+from ..parallel.collectives import broadcast_object, is_rank0, synchronize
+from ..parallel.mesh import local_state, whole_state
 from .train_state import TrainState, frozen_state
 
 
@@ -47,6 +53,16 @@ def save_checkpoint(path: str, *, state: TrainState, epoch: int = 0,
     """`state`: anything with `step`, `optimizer`, `trainable()` and
     `frozen()` (a `TrainState` or the SSL states).  `aux_state`: name ->
     tensor saved beside the trainable tensors (`load_aux_state`)."""
+    frozen_path = os.path.join(path, "frozen.pt")
+    frozen = None
+    if broadcast_object(not os.path.exists(frozen_path)):
+        frozen = state.frozen()
+        if hasattr(state, "model"):     # FSDP shards are the model's
+            frozen = whole_state(state.model, frozen)
+        frozen = _cpu(frozen)
+    if not is_rank0():
+        synchronize()
+        return
     os.makedirs(path, exist_ok=True)
     payload = {"trainable": _cpu(state.trainable()),
                "optimizer": state.optimizer.state_dict()}
@@ -55,9 +71,8 @@ def save_checkpoint(path: str, *, state: TrainState, epoch: int = 0,
     if aux_state is not None:
         payload["aux"] = _cpu(aux_state)
     torch.save(payload, os.path.join(path, "state.pt"))
-    frozen_path = os.path.join(path, "frozen.pt")
-    if not os.path.exists(frozen_path):
-        torch.save(_cpu(state.frozen()), frozen_path)
+    if frozen is not None:
+        torch.save(frozen, frozen_path)
     manifest = {"iters": int(state.step), "epoch": int(epoch),
                 "best_val_target": (None if best_val_target is None
                                     else float(best_val_target))}
@@ -67,6 +82,7 @@ def save_checkpoint(path: str, *, state: TrainState, epoch: int = 0,
     if parameters is not None:
         with open(os.path.join(path, "parameters.pkl"), "wb") as f:
             pickle.dump(dict(parameters), f)
+    synchronize()
 
 
 def load_aux_state(path: str) -> dict | None:
@@ -88,7 +104,8 @@ def load_checkpoint(path: str, state: TrainState, weights_only: bool = False):
     if os.path.exists(frozen_path):
         weights.update(torch.load(frozen_path, map_location="cpu"))
     quantize_like_state(state.model, weights)
-    state.model.load_state_dict(weights, strict=True)
+    state.model.load_state_dict(local_state(state.model, weights),
+                                strict=True)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     if not weights_only:

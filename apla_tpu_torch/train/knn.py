@@ -4,13 +4,19 @@ vote.
 Counterpart of `apla_tpu/train/knn.py`: similarities to the bank, the top
 `knn_k` neighbours (`torch.topk`), weights exp(sim / T), and a one-hot
 weighted vote (multi-class) or a weighted mean of the neighbours' label
-vectors (multi-label).  Features come L2-normalised.
+vectors (multi-label).  Features come L2-normalised.  Data parallel (a
+loader sharded over ranks, whose batches carry 'valid'): the feature bank
+and its labels, and each query batch's scores and labels, are gathered in
+global order on every rank, so every rank holds the 1-device run's bank
+and metrics.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import gather_rows
 
 
 def knn_predict(feature, feature_bank, feature_labels, knn_k: int,
@@ -42,8 +48,12 @@ def build_feature_bank(embed_fn, loader, device):
     loader: (features [N, D] f32 on `device`, labels [N] numpy)."""
     feats, labels = [], []
     for batch in loader:
-        feats.append(embed_fn(batch["image"].to(device)).float())
-        labels.append(np.asarray(batch["label"]))
+        f = embed_fn(batch["image"].to(device)).float()
+        lab = batch["label"]
+        if "valid" in batch:
+            f, lab = gather_rows(batch["valid"], f, lab)
+        feats.append(f)
+        labels.append(np.asarray(lab))
     return torch.cat(feats), np.concatenate(labels)
 
 
@@ -65,13 +75,15 @@ def knn_evaluate(embed_fn, fbank_loader, loader, metric, n_classes: int,
         metric.raw = False
     for batch in loader:
         emb = embed_fn(batch["image"].to(device))
-        truth = np.asarray(batch["label"])
+        truth = batch["label"]
         if multilabel:
             scores = knn_predict_multilabel(emb, feats, bank_labels, knn_k,
                                             knn_t)
-            metric.add_preds(scores.cpu().numpy(), truth, using_knn=True)
         else:
             scores = knn_predict(emb, feats, bank_labels, knn_k, knn_t,
                                  n_classes)
-            metric.add_preds(scores.cpu().numpy(), truth)
+        if "valid" in batch:
+            scores, truth = gather_rows(batch["valid"], scores, truth)
+        metric.add_preds(scores.cpu().numpy(), np.asarray(truth),
+                         **({"using_knn": True} if multilabel else {}))
     return metric.get_values()

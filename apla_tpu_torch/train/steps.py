@@ -15,6 +15,13 @@ waits on the host unless `skip_nonfinite` asks for it.
 - `skip_nonfinite`: when the loss or the norm is not finite the update is
   skipped (params and optimizer state keep their values), the step counter
   still advances, and `metrics['nonfinite']` is 1.
+- Data parallel (a process group of W ranks, `parallel.launch`): `batch`
+  holds this rank's rows, micro-batch by micro-batch
+  (`parallel.mesh.rank_rows`); the random draws are the global batch's
+  (`parallel.mesh.batch_rows`); the averaged gradients are all-reduced
+  once per update, before the norm and the clip
+  (`parallel.collectives.reduce_gradients`), and the loss is the mean over
+  ranks, so every rank takes the same update as the 1-device run.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch
 
 from ..data.device_augs import device_augment
 from ..models.classifier import classifier_forward
+from ..parallel.collectives import pmean, reduce_gradients
+from ..parallel.mesh import batch_rows
 from .optim import Optimizer, global_norm
 from .train_state import TrainState
 
@@ -52,25 +61,29 @@ def make_train_step(vit_cfg, optimizer: Optimizer, criterion: Callable,
         for p in params:
             p.grad = None
         images, labels = batch["image"], batch["label"]
-        if accum_steps == 1:
-            loss, logits = fwd_bwd(state.model, images, labels, generator)
-        else:
-            B = images.shape[0]
-            if B % accum_steps:
-                raise ValueError(f"batch {B} does not split into "
-                                 f"{accum_steps} micro-batches")
-            mb = B // accum_steps
-            loss, logits = 0.0, []
-            for i in range(accum_steps):
-                sl = slice(i * mb, (i + 1) * mb)
-                loss_i, logits_i = fwd_bwd(state.model, images[sl],
-                                           labels[sl], generator)
-                loss = loss + loss_i
-                logits.append(logits_i)
-            loss = loss / accum_steps
-            logits = torch.cat(logits)
-            for p in params:
-                p.grad.div_(accum_steps)
+        B = images.shape[0]
+        if B % accum_steps:
+            raise ValueError(f"batch {B} does not split into "
+                             f"{accum_steps} micro-batches")
+        mb = B // accum_steps
+        with batch_rows(mb):
+            if accum_steps == 1:
+                loss, logits = fwd_bwd(state.model, images, labels,
+                                       generator)
+            else:
+                loss, logits = 0.0, []
+                for i in range(accum_steps):
+                    sl = slice(i * mb, (i + 1) * mb)
+                    loss_i, logits_i = fwd_bwd(state.model, images[sl],
+                                               labels[sl], generator)
+                    loss = loss + loss_i
+                    logits.append(logits_i)
+                loss = loss / accum_steps
+                logits = torch.cat(logits)
+                for p in params:
+                    p.grad.div_(accum_steps)
+        reduce_gradients(params)
+        loss = pmean(loss)
         gnorm = global_norm([p.grad for p in params])
         metrics = {"loss": loss, "grad_norm": gnorm, "logits": logits}
         update = True

@@ -10,6 +10,15 @@ table, with the kNN rows when `training_params.knn_eval` is set (`--knn`).
 `training_params.profile_dir` traces steps 10..20 with `torch.profiler` (a
 chrome trace plus the by-kernel table).  Logged records are kept in
 `history` and printed; JSONL/wandb logging is ROADMAP queue A (logging).
+
+Data parallel (`apla_tpu/train/trainer.py:134-148`, `:280-300`): each rank
+trains on its rows of the global batch (the loaders are sharded by the
+wrapper; the last batch padded to a multiple of W by repeating its last
+row, whose copies enter the loss as JAX's do); `evaluate` and the kNN
+gather the per-row outputs in global order and drop the padding, so every
+rank's metrics are the 1-device run's; every rank saves (the checkpoint
+writer writes on rank 0 only) and reads; a preemption signal on any rank
+stops every rank at the same step boundary.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.collectives import any_rank, gather_rows, world_size
 from ..utils.profiling import StepTimer, device_memory_stats
 from .checkpoint import load_checkpoint, save_checkpoint
 from .knn import knn_evaluate
@@ -117,7 +127,7 @@ class Trainer:
     # ------------------------------------------------------------------ #
     def _device_batch(self, batch):
         return {k: v.to(self.device, non_blocking=True)
-                for k, v in batch.items()}
+                for k, v in batch.items() if k != "valid"}
 
     @contextlib.contextmanager
     def _preemption_handler(self):
@@ -191,7 +201,7 @@ class Trainer:
                     self.state, m = self.train_step(
                         self.state, self._device_batch(batch), lr,
                         self.generator)
-                    images_seen += batch["label"].shape[0]
+                    images_seen += batch["label"].shape[0] * world_size()
                     self.iters += 1
                     timer.tick(sync_value=m["loss"])
                     prof = self._profile_step(prof)
@@ -213,6 +223,8 @@ class Trainer:
                         self.epoch_step(epoch)
                         self._last_val_iter = self.iters
 
+                    self._preempted = any_rank(self._preempted,
+                                               self.device)
                     if self._preempted:
                         print(f"Preemption signal received: saving "
                               f"checkpoint at iter {self.iters}")
@@ -273,10 +285,14 @@ class Trainer:
             for batch in loader:
                 losses, logits = self.eval_step(self.state.model,
                                                 self._device_batch(batch))
+                labels = batch["label"]
+                if "valid" in batch:
+                    losses, logits, labels = gather_rows(
+                        batch["valid"], losses, logits, labels)
                 loss_sum += float(losses.sum())
                 loss_count += int(losses.shape[0])
                 metric.add_preds(logits.float().cpu().numpy(),
-                                 batch["label"].numpy())
+                                 labels.numpy())
         results = metric.get_values()
         results[f"{prefix}_loss"] = round(loss_sum / max(loss_count, 1), 4)
         return results

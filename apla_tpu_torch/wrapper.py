@@ -1,9 +1,15 @@
 """DefaultWrapper: builds data, model, optimizer, schedule, loss and metric
 class from a recipe's params; the trainer consumes them.
 
-Counterpart of `apla_tpu/wrapper.py:31-334`, without the mesh: the port
-trains on one device, `system_params.device` (default "cuda": the first
-card; without one the wrapper raises unless the caller asked for "cpu").
+Counterpart of `apla_tpu/wrapper.py:31-334`.  The device is
+`system_params.device` (default "cuda": the rank's card; without one the
+wrapper raises unless the caller asked for "cpu").  The data axis is the
+process group this process is a rank of (`parallel.launch`; none: one
+device): `system_params.n_devices` must match it, the loaders load this
+rank's rows of each global batch, the trainable tensors stay whole on
+every rank and the frozen ones are placed by `param_sharding`
+("replicated" or "fsdp", `parallel.mesh.shard_params`) after the weights
+are loaded.  The model line counts parameters whole, not per shard.
 `build_vit_config` / `build_apla_config` are plain
 functions of the merged params dict (what `utils.config.load_merged_params`
 returns, or an equivalent plain dict).  TPU-only knobs (`fused_vmem_mb`,
@@ -17,8 +23,9 @@ port, `train.checkpoint.transfer_into`), then `quantize_frozen` (W8A8: the
 frozen qkv / fc1 / fc2 kernels in int8, before the optimizer is built).
 The SSL wrappers take the first two at the same points and refuse
 `quantize_frozen`, which the JAX SSL wrappers never read.  What the port
-does not have yet raises `NotImplementedError` naming its ROADMAP item: the
-mesh and parallel knobs.
+does not have yet raises `NotImplementedError` naming its ROADMAP item:
+tensor, sequence and pipeline parallelism, `param_sharding` "tp" / "pp",
+and W8A8 training on more than one rank (ROADMAP A 9).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from .data.loader import DataLoader
 from .models.classifier import init_classifier
 from .models.vit import VIT_BUILDERS, ViTConfig
 from .ops.quant import quantize_frozen_backbone
+from .parallel.mesh import make_mesh, shard_params
 from .train.checkpoint import transfer_into
 from .train.losses import get_criterion
 from .train.metrics import (ClassificationMetrics,
@@ -43,7 +51,8 @@ from .train.train_state import TrainState
 from .utils.config import EDict
 from .utils.pretrained import maybe_load_pretrained_backbone
 
-_ROADMAP_PARALLEL = "ROADMAP queue A: parallel modes"
+_ROADMAP_PARALLEL = ("ROADMAP A 9, second half: tensor, sequence and "
+                     "pipeline parallelism, W8A8 training at W > 1")
 
 
 def build_vit_config(params: dict) -> ViTConfig:
@@ -124,6 +133,12 @@ class DefaultWrapper:
             "transfer_learning_params") or EDict()
         self.device = resolve_device(self.system_params.get("device"))
         self._check_unported()
+        n_devices = self.system_params.get("n_devices")
+        self.mesh = make_mesh(int(n_devices) if n_devices else None)
+        if self.mesh.world > 1 and self.model_params.get("quantize_frozen"):
+            raise NotImplementedError(
+                "model_params.quantize_frozen with more than one rank "
+                f"({_ROADMAP_PARALLEL})")
 
     # overridden by the SSL wrappers (the multi-crop strategy)
     def update_augmentation_strategy(self, parameters):
@@ -131,17 +146,21 @@ class DefaultWrapper:
 
     def _check_unported(self):
         sp, mp = self.system_params, self.model_params
-        for knob in ("tensor_parallel", "pipeline_parallel", "n_devices"):
+        for knob in ("tensor_parallel", "pipeline_parallel",
+                     "pp_microbatches"):
             if int(sp.get(knob) or 1) > 1:
                 raise NotImplementedError(
                     f"system_params.{knob}={sp[knob]} ({_ROADMAP_PARALLEL})")
         if sp.get("sequence_parallel"):
             raise NotImplementedError(
                 f"system_params.sequence_parallel ({_ROADMAP_PARALLEL})")
-        if sp.get("param_sharding") not in (None, "replicated"):
+        if sp.get("param_sharding") in ("tp", "pp"):
             raise NotImplementedError(
                 f"param_sharding {sp['param_sharding']!r} "
                 f"({_ROADMAP_PARALLEL})")
+        if sp.get("param_sharding") not in (None, "replicated", "fsdp"):
+            raise ValueError(f"unknown param_sharding policy: "
+                             f"{sp['param_sharding']!r}")
         if mp.get("quantize_frozen") and not self.is_supervised:
             raise NotImplementedError(
                 "model_params.quantize_frozen: W8A8 training runs in the "
@@ -160,11 +179,32 @@ class DefaultWrapper:
         self.model_params.n_classes = n_classes
         self.model_params.knn_nhood = trainset.knn_nhood
         self.model_params.target_metric = trainset.target_metric
+        self.shard_loaders()
         self.init_model(seed)
+        self.place_frozen()
         self.init_optimization()
         self.criterion = get_criterion(self.task, self.is_multiclass)
         self.metric_class = (ClassificationMetrics if self.is_multiclass
                              else MultiLabelClassificationMetrics)
+
+    def shard_loaders(self):
+        """Each loader loads this rank's rows of its global batches (the
+        train loader micro-batch by micro-batch); nothing with one rank."""
+        accum = int(self.training_params.get("accum_steps", 1))
+        for name, loader in self.dataloaders.items():
+            if loader is not None:
+                loader.shard(self.mesh, accum if name == "trainloader"
+                             else 1)
+
+    def place_frozen(self):
+        """The frozen tensors placed by `system_params.param_sharding`
+        (`apla_tpu/wrapper.py:290-306`)."""
+        policy = self.system_params.get("param_sharding") or "replicated"
+        self.fsdp_plan = shard_params(self.model, self.mesh, policy)
+        if policy != "replicated":
+            print(f"Frozen params placed with policy '{policy}' over "
+                  f"mesh {self.mesh.shape}: {len(self.fsdp_plan)} tensors "
+                  "sharded")
 
     # ------------------------------------------------------------------ #
     def init_dataloaders(self) -> EDict:
@@ -251,6 +291,7 @@ class DefaultWrapper:
             print("Quantized frozen backbone kernels to int8 (W8A8)")
         n_train = sum(p.numel() for p in self.model.parameters()
                       if p.requires_grad)
+        # counted before `place_frozen`: whole, as JAX counts them
         n_total = sum(p.numel() for p in self.model.parameters()) \
             + sum(b.numel() for b in self.model.buffers())
         print(f"Model: {self.model_params.backbone_type} "

@@ -244,8 +244,21 @@ raise on failure:
                arm (phase 5's bounds, a dW_t fault); `--test --knn` on the
                checkpoint (the multi-label kNN vote); the same update
                under `optimizer.type: LAMB`, every trainable tensor moved.
+  15. parallel — data parallelism and FSDP (`apla_tpu_torch/parallel`):
+               15a the launcher's NCCL path at one rank (every collective
+               on CUDA tensors), two accum-8 updates of the ImageNet recipe
+               in that group bit-equal to the same updates without one;
+               15b the same updates on two ranks sharing the card (gloo),
+               replicated and fsdp, against the one-rank run (losses, the
+               first update's gradients), a rank keeping its own gradients
+               (must fail), each rank's resident frozen bytes, the bytes
+               all-reduced per update; 15c one DINOv2 update (6b's
+               configuration, LayerScale 1.0 so KoLeo is well conditioned)
+               at two ranks against one; 15d `segdet det --n_devices 2
+               --param_sharding fsdp` for an epoch of 8b's set against one
+               rank.
 
-Phases 2-12 also run negative controls: the kernels made to compute what
+Phases 2-12 and 15 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
 heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
 from the wrong columns or zeroed, rowsum(dp * p) dropped from ds, a key
@@ -6684,6 +6697,223 @@ def _phase_multilabel(device, tmp):
     return tuple(launches), readings
 
 
+# Phase 15 (parallel): data parallelism and FSDP of the frozen backbone
+# (apla_tpu_torch/parallel).  15a: the launcher's NCCL path at W = 1 on
+# the card (every collective of parallel/collectives.py on CUDA tensors),
+# then PAR_UPDATES accum-8 updates of RECIPE (phase 5's recipe and seed,
+# PAR_CUTS) inside that one-rank group, bit-equal to the same updates with
+# no group.  15b: the same updates as 2 ranks x 32 rows on the one H100
+# (gloo: NCCL refuses two ranks on one device), replicated and fsdp,
+# against the one-rank run: per update |delta loss| / loss, and the first
+# update's per-tensor ||delta g|| / ||g||; a rank that keeps its own
+# gradients must fail the bound; each rank's resident frozen bytes
+# (memory_allocated around the placement) and the bytes all-reduced per
+# update.  15c: one update of phase 6b's DINOv2 recipe at W = 2 against
+# W = 1 (every loss term, the gradients).  15d: `segdet det --n_devices 2
+# --param_sharding fsdp` for one epoch on phase 8b's set against
+# `--n_devices 1` (per-step losses, mAP@50).  The bounds sit 3-5x above
+# the readings PERF.md records (an H100 80GB HBM3 at 700 W: 15b |dloss|/loss
+# 6.805e-8, ||dg||/||g|| 1.859e-3 at fc.bias, the fault 0.359; 15c 3.513e-5
+# at koleo_loss, 1.626e-2 at block 0's APLA columns; 15d 5.580e-7): bf16,
+# the ranks' micro-batches of 4 rows against 8, sums in another order.
+PAR_UPDATES = 2
+# phase 5's cuts with as many images as the updates read (the sets are
+# made anew in every wrapper: 2 x 5 of them in this phase), in-process
+PAR_CUTS = {
+    "dataset_params": {**SMOKE_CUTS["dataset_params"],
+                       "synthetic_size": 64 * PAR_UPDATES},
+    "training_params": SMOKE_CUTS["training_params"],
+    "dataloader_params": {ld: {"num_workers": 0} for ld in (
+        "trainloader", "valloader", "testloader")}}
+PAR_LOSS_REL_TOL = 2.5e-7
+PAR_GRAD_REL_TOL = 7.5e-3
+PAR_SSL_LOSS_REL_TOL = 1.5e-4
+PAR_SSL_GRAD_REL_TOL = 0.05
+PAR_DET_LOSS_REL_TOL = 2.5e-6
+# 15c's DINOv2 at 6b's configuration but with LayerScale 1.0: at the
+# recipe's 1e-5 the random-init cls tokens are nearly equal and KoLeo's
+# nearest-neighbour distances cancel to rounding (6b compares its arms with
+# KoLeo off for that reason); 1.0 keeps KoLeo in the comparison
+PAR_SSL_LAYERSCALE = 1.0
+
+
+def _par_rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def _par_agreement(tag, got, ref, loss_tol, grad_tol, keys=("loss",)):
+    """Every update's loss terms and the first update's gradients of a
+    W-rank run against the one-rank run; prints the readings."""
+    loss, term = max((_par_rel(g[k], r[k]), k)
+                     for g, r in zip(got["losses"], ref["losses"])
+                     for k in keys)
+    grad, name = max((float((got["grads"][n] - g).norm()
+                            / g.norm().clamp(min=1e-30)), n)
+                     for n, g in ref["grads"].items() if float(g.norm()) > 0)
+    ok = loss <= loss_tol and grad <= grad_tol
+    print(f"[15 parallel] {tag}: worst |dloss|/loss {loss:.3e} ({term}; "
+          f"bound {loss_tol:g}), worst ||dg||/||g|| {grad:.3e} ({name}; "
+          f"bound {grad_tol:g}): {'within' if ok else 'OUTSIDE'}")
+    return ok
+
+
+def phase_parallel(device):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        return _phase_parallel(device, tmp)
+
+
+def _phase_parallel(device, tmp):
+    from apla_tpu_torch.parallel import launch as plaunch, runs
+    from apla_tpu_torch.ssl.dinov2 import DINOv2Wrapper
+
+    t0 = time.perf_counter()
+    # 15a: NCCL at W = 1
+    probe = plaunch.launch(runs.collectives_probe, 1, args=("cuda",),
+                           device="cuda", backend="nccl",
+                           store_dir=os.path.join(tmp, "nccl"))
+    want = {"psum": [0.0, 1.0], "pmean": [0.0, 1.0],
+            "all_gather": [0.0, 1.0],
+            "mesh_average": [0.5], "mesh_all_gather": [0.0, 1.0],
+            "mesh_all_gather_grad": [1.0, 2.0], "psum_grad_grad": [0.0, 2.0],
+            "gather_rows": [0.0]}
+    bad = {k: probe[k].tolist() for k, v in want.items()
+           if probe[k].tolist() != v}
+    print(f"[15a parallel] NCCL, one rank: every collective on CUDA "
+          f"tensors, bytes by kind {probe['counts']}; "
+          f"{'values as expected' if not bad else f'WRONG {bad}'}")
+    if bad or probe["world"] != 1 or probe["host_allgather"] != [0]:
+        raise SystemExit("a collective of parallel/collectives.py is wrong "
+                         "under NCCL")
+    params = _run_params(RECIPE, PAR_CUTS, os.path.join(tmp, "r"), device)
+    one = runs.recipe_updates(copy.deepcopy(params), updates=PAR_UPDATES,
+                              seed=SEED)
+    nccl = plaunch.launch(runs.recipe_updates, 1,
+                          args=(copy.deepcopy(params),),
+                          kwargs=dict(updates=PAR_UPDATES, seed=SEED),
+                          device="cuda", backend="nccl",
+                          store_dir=os.path.join(tmp, "nccl"))
+    same = nccl["losses"] == one["losses"] and all(
+        torch.equal(nccl["trainable"][n], t)
+        for n, t in one["trainable"].items())
+    apla = [n for n in one["trainable"] if ".attn.proj_" in n]
+    print(f"[15a parallel] {PAR_UPDATES} accum-8 updates of b64 in a "
+          f"one-rank NCCL group: losses {[m['loss'] for m in nccl['losses']]}"
+          f"; loss and the {len(apla)} APLA column tensors (and every "
+          f"trainable) {'bit-equal' if same else 'DIFFERENT'} to the same "
+          f"updates without a group; gradients all-reduced "
+          f"{nccl['counts'][0].get('gradients', 0)} bytes per update "
+          f"(trainable {nccl['trainable_bytes']})")
+    if not same:
+        raise SystemExit("the one-rank DP update is not bit-equal to the "
+                         "update without a group")
+
+    # 15b, 15c, 15d: two ranks on the one card, gloo, in one group
+    p2 = {pol: copy.deepcopy(params) for pol in ("replicated", "fsdp",
+                                                  "fault")}
+    for pol, p in p2.items():
+        p["system_params"].update(
+            n_devices=2, param_sharding="replicated" if pol == "fault"
+            else pol)
+        p["training_params"]["save_dir"] = os.path.join(tmp, f"r2{pol}")
+    ssl = _run_params(SSL_RECIPE, _eval_in_process(SSL_CUTS),
+                      os.path.join(tmp, "s1"), device)
+    for ld in ssl["dataloader_params"].values():
+        ld["num_workers"] = 0
+    ssl["model_params"]["transformers_params"]["student"]["layerscale"] = \
+        PAR_SSL_LAYERSCALE
+    ssl2 = copy.deepcopy(ssl)
+    ssl2["system_params"]["n_devices"] = 2
+    ssl2["training_params"]["save_dir"] = os.path.join(tmp, "s2")
+    img_dir, ann = _write_coco(os.path.join(tmp, "coco"))
+    det = {k: v for k, v in DET_RECIPE.items()}
+    det.update(DET_CUTS)
+    det1 = dict(det, save_dir=os.path.join(tmp, "d1"), device="cuda")
+    det2 = dict(det1, save_dir=os.path.join(tmp, "d2"), n_devices=2,
+                param_sharding="fsdp")
+    ssl_one = runs.recipe_updates(copy.deepcopy(ssl), "dinov2", seed=SEED)
+    det_one = runs.sidecar_run("det", (img_dir, ann), det1)
+    calls = [("recipe_updates", (p2["replicated"],),
+              dict(updates=PAR_UPDATES, seed=SEED)),
+             ("recipe_updates", (p2["fsdp"],),
+              dict(updates=PAR_UPDATES, seed=SEED)),
+             ("recipe_updates", (p2["fault"],),
+              dict(updates=1, seed=SEED, fault="skip_reduction")),
+             ("recipe_updates", (ssl2, "dinov2"), dict(seed=SEED)),
+             ("sidecar_run", ("det", (img_dir, ann), det2), {})]
+    t2 = time.perf_counter()
+    rep, fsdp, fault, ssl_two, det_two = plaunch.launch(
+        runs.sequence, 2, args=(calls,), device="cuda", backend="gloo",
+        store_dir=os.path.join(tmp, "gloo"))
+    print(f"[15b parallel] two ranks on one card (gloo): five runs in "
+          f"{time.perf_counter() - t2:.1f} s")
+    ok = all([_par_agreement(f"15b W=2 {name} vs W=1", run, one,
+                             PAR_LOSS_REL_TOL, PAR_GRAD_REL_TOL)
+              for name, run in (("replicated", rep), ("fsdp", fsdp))])
+    caught = not _par_agreement(
+        "15b control: rank 0 keeps its own gradients", fault, one,
+        PAR_LOSS_REL_TOL, PAR_GRAD_REL_TOL)
+    for name, run in (("replicated", rep), ("fsdp", fsdp)):
+        alloc = [f"{(after - before) / 2**20:+.1f}" for before, after
+                 in run["allocated"]]
+        print(f"[15b parallel] {name}: resident frozen bytes by rank "
+              f"{run['frozen_bytes']} ({[b / 2**20 for b in run['frozen_bytes']]}"
+              f" MiB; memory_allocated change at placement {alloc} MiB), "
+              f"{len(run['plan'])} tensors sharded; bytes all-reduced per "
+              f"update {[c.get('gradients', 0) for c in run['counts']]} "
+              f"(trainable {run['trainable_bytes']}), other collectives "
+              f"{[{k: v for k, v in c.items() if k != 'gradients'} for c in run['counts']]}")
+    half = all(abs(b - rep["frozen_bytes"][0] / 2) <= 0.05
+               * rep["frozen_bytes"][0] for b in fsdp["frozen_bytes"])
+    grads_only = all(c.get("gradients") == run["trainable_bytes"]
+                     for run in (rep, fsdp) for c in run["counts"])
+    if not (ok and caught and half and grads_only):
+        raise SystemExit(f"15b: agreement {ok}, fault caught {caught}, "
+                         f"fsdp holds half {half}, reduced bytes = "
+                         f"trainable bytes {grads_only}")
+    terms = tuple(k for k in ssl_one["losses"][0]
+                  if k not in ("grad_norm",))
+    if not _par_agreement("15c DINOv2 W=2 vs W=1", ssl_two, ssl_one,
+                          PAR_SSL_LOSS_REL_TOL, PAR_SSL_GRAD_REL_TOL,
+                          keys=terms):
+        raise SystemExit("15c: DINOv2 at two ranks disagrees with one")
+    l1 = _det_losses(det1["save_dir"])
+    l2 = _det_losses(det2["save_dir"])
+    worst = max(_par_rel(a, b) for a, b in zip(l2, l1))
+    print(f"[15d parallel] segdet det, {len(l1)} steps: losses W=1 {l1}, "
+          f"W=2 fsdp {l2}; worst |dloss|/loss {worst:.3e} (bound "
+          f"{PAR_DET_LOSS_REL_TOL:g}); mAP@50 W=1 "
+          f"{det_one['result']['best_map50']} W=2 "
+          f"{det_two['result']['best_map50']}")
+    if len(l1) != len(l2) or not l1 or worst > PAR_DET_LOSS_REL_TOL:
+        raise SystemExit("15d: the detector at two ranks disagrees")
+    launches = {}
+    for run in (one, nccl, rep, fsdp, ssl_one, ssl_two, det_one, det_two):
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    # every update ran rows 1 and 2 in each block of each micro-step
+    depth, accum = 12, 8
+    for name, run, ranks in (("one", one, 1), ("nccl", nccl, 1),
+                             ("replicated", rep, 2), ("fsdp", fsdp, 2)):
+        fwd = run["launches"]["fused_apla_attn_fwd"]
+        bwd = run["launches"]["fused_apla_attn_bwd"]
+        expect = depth * accum * PAR_UPDATES * ranks
+        if (fwd, bwd) != (expect, expect):
+            raise SystemExit(f"15 {name}: rows 1/2 launched {fwd}/{bwd}, "
+                             f"expected {expect} each")
+    if not (ssl_two["launches"]["proto_ce_fwd"]
+            and det_two["launches"]["fused_swin_attn_bwd"]):
+        raise SystemExit("15c/15d: the kernels did not run at two ranks")
+    print(f"[15 parallel] done in {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+    return launches
+
+
+def _det_losses(save_dir):
+    with open(os.path.join(save_dir, "det.metrics.jsonl")) as f:
+        return [r["train_loss"] for r in map(json.loads, f)
+                if "train_loss" in r]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6729,6 +6959,7 @@ def main() -> int:
     recipe_launches, proto_launches, recipe_rates = timed(
         "13h-k", phase_recipes, device, keep, data_rates["loader_img_s"])
     ml_launches, ml_readings = timed("14", phase_multilabel, device)
+    par_launches = timed("15", phase_parallel, device)
     keep_dir.cleanup()
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
@@ -6793,39 +7024,45 @@ def main() -> int:
          "pallas_apla_attn.py:105",
          serve_launches + fwd_launches + ssl_launches[0] + w8a8_launches[1]
          + sum(n[0] for n in v1_launches.values()) + p12["fwd"]
-         + data_launches[0] + recipe_launches[0] + ml_launches[0],
+         + data_launches[0] + recipe_launches[0] + ml_launches[0]
+         + par_launches["fused_apla_attn_fwd"],
          {**fwd_times[FWD_TIMED[0]],
           "max_abs_err": max(max_err, v1_times["fwd"]["max_abs_err"])}),
         ("fused_apla_attn_bwd", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn.py:131",
          bwd_launches + ssl_launches[1]
          + sum(n[1] for n in v1_launches.values()) + p12["bwd"]
-         + data_launches[1] + recipe_launches[1] + ml_launches[1],
+         + data_launches[1] + recipe_launches[1] + ml_launches[1]
+         + par_launches["fused_apla_attn_bwd"],
          {**bwd_times[main_shape],
           "max_abs_err": max(bwd_err, v1_times["bwd"]["max_abs_err"],
                              recipe_rates["nabirds"]["bwd_k8"][
                                  "max_abs_err"])}),
         ("proto_ce_fwd", "proto_ce_fwd.cu", "pallas_proto_ce.py:73",
-         ssl_launches[2] + proto_launches[0], proto_times["fwd"]),
+         ssl_launches[2] + proto_launches[0] + par_launches["proto_ce_fwd"],
+         proto_times["fwd"]),
         ("proto_ce_dxs", "proto_ce_bwd.cu", "pallas_proto_ce.py:130",
-         ssl_launches[3] + proto_launches[1], proto_times["dxs"]),
+         ssl_launches[3] + proto_launches[1] + par_launches["proto_ce_dxs"],
+         proto_times["dxs"]),
         ("proto_ce_dws", "proto_ce_bwd.cu", "pallas_proto_ce.py:150",
-         ssl_launches[4] + proto_launches[2], proto_times["dws"]),
+         ssl_launches[4] + proto_launches[2] + par_launches["proto_ce_dws"],
+         proto_times["dws"]),
         ("mha_fwd", "mha_fwd.cu", "pallas_mha.py:66",
-         full_serve_launches + full_fwd, mha_times["fwd"]),
-        ("mha_bwd", "mha_bwd.cu", "pallas_mha.py:81", full_bwd,
-         mha_times["bwd"]),
+         full_serve_launches + full_fwd + par_launches["mha_fwd"],
+         mha_times["fwd"]),
+        ("mha_bwd", "mha_bwd.cu", "pallas_mha.py:81",
+         full_bwd + par_launches["mha_bwd"], mha_times["bwd"]),
         # row 3: two launches per call, a head-dim-32 attention and the
         # projection GEMM (gemm_sm90.cuh), both in swin_attn_fwd.cu
         ("fused_swin_attn_fwd", "swin_attn_fwd.cu",
          "pallas_apla_attn.py:197",
-         det_launches[0] + p12["swin_fwd"] + mask_launches[0],
-         swin_times["fwd"]),
+         det_launches[0] + p12["swin_fwd"] + mask_launches[0]
+         + par_launches["fused_swin_attn_fwd"], swin_times["fwd"]),
         # row 4: three launches per call, the dO GEMM, a head-dim-32
         # attention and the dW GEMM with its reduce, all in swin_attn_bwd.cu
         ("fused_swin_attn_bwd", "swin_attn_bwd.cu",
-         "pallas_apla_attn.py:203", det_launches[1] + mask_launches[1],
-         swin_times["bwd"]),
+         "pallas_apla_attn.py:203", det_launches[1] + mask_launches[1]
+         + par_launches["fused_swin_attn_bwd"], swin_times["bwd"]),
         # rows 1/2's kernels where JAX names the q-strip long kernels (TPU
         # rows 5-7): ViT-L/16 at 512, k = C = 1024, on the seg path
         ("fused_apla_attn_fwd_seg", "apla_proj_gemm.cu",
@@ -7012,6 +7249,10 @@ def main() -> int:
     for name, n in (("fused_apla_attn_fwd", ml_launches[0]),
                     ("fused_apla_attn_bwd", ml_launches[1])):
         extra[name]["launches_multilabel"] = n
+    # phase 15's (data parallel, W = 1 and 2) within the counts above
+    for name, n in par_launches.items():
+        if n and name in extra:
+            extra[name]["launches_parallel"] = n
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"apla_tpu_torch/csrc/{src}",

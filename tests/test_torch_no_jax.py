@@ -26,7 +26,9 @@ pieces (`SyntheticMultiLabel`, the multi-label metrics, multi-label kNN,
 LAMB steps, the step timer), and the host transforms (a seventh of the
 transform manifest's cases through the native ops and their plain
 versions, by `chip_smoke.py`'s own loop) and the host multi-crop (the dino strategy through the loader's
-collate).
+collate), and a classifier under FSDP on two ranks spawned by the port's
+launcher, whose rank imports none of the blocked packages and nothing of
+the JAX package either.
 """
 
 import os
@@ -459,6 +461,23 @@ views = next(iter(DataLoader(crops, batch_size=2, num_workers=0)))["image"]
 assert [tuple(v.shape) for v in views] == \
     [(2, 32, 32, 3)] * 2 + [(2, 16, 16, 3)] * 8
 assert all(v.dtype == torch.float32 for v in views)
+
+# data parallel: a classifier under fsdp on two gloo ranks spawned by the
+# launcher; a spawned rank imports none of the blocked packages either, nor
+# the JAX package
+import numpy as np
+from apla_tpu_torch.parallel import launch, runs
+
+names = launch.launch(runs.loaded_modules, 2, device="cpu")
+assert "apla_tpu_torch.parallel.runs" in names
+assert not [m for m in names if m.split(".")[0] in BLOCKED + ("apla_tpu",)]
+spec = dict(vit=dict(img_size=32, patch_size=8, embed_dim=32, depth=2,
+                     num_heads=2), n_classes=10, partial_size=4,
+            device="cpu", policy="fsdp", min_size=1024,
+            batches=[{"image": np.zeros((4, 32, 32, 3), np.float32),
+                      "label": np.arange(4)}])
+run = launch.launch(runs.classifier_run, 2, args=(spec,), device="cpu")
+assert run["world"] == 2 and run["plan"] and np.isfinite(run["losses"]).all()
 
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked

@@ -526,16 +526,25 @@ def test_cli_trains_the_four_stage_swin_t(tmp_path, capsys):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
+    """The placements of the rest of ROADMAP A 9 raise; `--n_devices 2`
+    and `--param_sharding fsdp` run (tests/test_torch_parallel_ssl.py), and
+    a batch that does not split over the ranks raises, as in JAX."""
     img_dir, ann = make_coco(tmp_path)
     root = make_ade(tmp_path / "ade")
-    with pytest.raises(NotImplementedError, match="Parallel modes"):
-        segdet.main(["seg", "--root", root, "--n_devices", "2",
-                     "--device", "cpu"])
-    for extra, match in (({"n_devices": 2}, "Parallel modes"),
-                         ({"param_sharding": "fsdp"}, "Parallel modes")):
-        with pytest.raises(NotImplementedError, match=match):
+    for policy in ("tp", "pp"):
+        with pytest.raises(NotImplementedError, match="A 9"):
+            segdet.train_segmentation(root, save_dir=str(tmp_path),
+                                      **{**SEG_KW,
+                                         "param_sharding": policy})
+        with pytest.raises(NotImplementedError, match="A 9"):
             segdet.train_detection(img_dir, ann, save_dir=str(tmp_path),
-                                   **{**KW, **extra})
+                                   **{**KW, "param_sharding": policy})
+    with pytest.raises(ValueError, match="not divisible by n_devices 3"):
+        segdet.train_detection(img_dir, ann, save_dir=str(tmp_path),
+                               **{**KW, "n_devices": 3})
+    with pytest.raises(SystemExit):       # not a CLI choice
+        segdet.main(["seg", "--root", root, "--param_sharding", "tp",
+                     "--device", "cpu"])
     # on the card, --use_fused takes --bf16: no fall-back to the plain path
     from apla_tpu_torch import wrapper
     monkeypatch.setattr(wrapper, "resolve_device",

@@ -161,14 +161,19 @@ def test_cli_tests_a_checkpoint(trained, capsys):
     ("system_params", "tensor_parallel", 2),
     ("system_params", "pipeline_parallel", 2),
     ("system_params", "sequence_parallel", True),
-    ("system_params", "n_devices", 4),
-    ("system_params", "param_sharding", "fsdp"),
+    ("system_params", "param_sharding", "tp"),
+    ("system_params", "param_sharding", "pp"),
+    ("system_params", "pp_microbatches", 2),
     ("ssl", "quantize_frozen", True),
 ])
 def test_unported_knobs_raise(tmp_path, where, key, value):
-    """What the port refuses.  W8A8 training (`quantize_frozen`) runs in
-    the supervised wrapper only: the SSL wrappers refuse it, as the JAX SSL
-    wrappers never read it."""
+    """What the port refuses: the rest of ROADMAP A 9 (tensor, pipeline
+    and sequence parallelism and their placements).  W8A8 training
+    (`quantize_frozen`) runs in the supervised wrapper only: the SSL
+    wrappers refuse it, as the JAX SSL wrappers never read it.  Data
+    parallelism (`n_devices` > 1) and `param_sharding: fsdp` run:
+    `test_data_parallel_knobs_need_ranks` here and
+    tests/test_torch_parallel.py."""
     from apla_tpu_torch.ssl.byol import BYOLWrapper
     params = _params(tmp_path)
     wrapper_cls = DefaultWrapper
@@ -179,6 +184,25 @@ def test_unported_knobs_raise(tmp_path, where, key, value):
         params[where][key] = value
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         wrapper_cls(params).instantiate()
+
+
+@pytest.mark.parametrize("key,value", [("n_devices", 4),
+                                       ("param_sharding", "fsdp")])
+def test_data_parallel_knobs_need_ranks(tmp_path, key, value):
+    """Once refused, now ported: `n_devices` > 1 needs this process to be
+    a rank of a group of that size (a run never shrinks to one process:
+    `main` and `segdet` start the ranks); `fsdp` on one rank places
+    nothing and trains."""
+    params = _params(tmp_path, epochs=1, size=32)
+    params.system_params[key] = value
+    if key == "n_devices":
+        with pytest.raises(RuntimeError, match="process group"):
+            DefaultWrapper(params)
+        return
+    wrapper = DefaultWrapper(params)
+    wrapper.instantiate()
+    assert wrapper.fsdp_plan == {}
+    Trainer(wrapper).train()
 
 
 @pytest.mark.parametrize("where,key,value", [
