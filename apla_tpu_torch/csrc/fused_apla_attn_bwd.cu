@@ -12,9 +12,14 @@
 // biased variant for Swin windows, _bwd_kernel_bias, is swin_attn_bwd.cu.)
 // Contract, exactly those kernels', per image:
 //
-//   qkv [B, N, 3C] bf16, w [C, C] bf16 (assembled projection, [d_in, d_out]),
-//   g   [B, N, C]  bf16 (cotangent of the projected output),
+//   qkv [B, N, 3C] bf16, w [C, W] bf16 (assembled projection, [d_in, d_out]),
+//   g   [B, N, W]  bf16 (cotangent of the projected output),
 //   g_t [B, N, Kp] bf16 (g's trainable columns g[..., inds], zero-padded)
+//
+// with W = C on one rank.  Under tensor parallelism (parallel/tensor.py)
+// a rank holds H/T heads: C is their width (H/T) * 64, w its rows [C, W]
+// of the projection (W the model width), and dW_t below is the rows [C, Kp]
+// of the whole dW_t that those heads give.
 //
 //   dO   = bf16(g w^T)                              [N, C]
 //   per head h: p = softmax(s) in f32 (recomputed), s as in the forward
@@ -96,28 +101,30 @@ int fused_apla_attn_bwd_prepare(int device) {
 // tensors, the plan's shared memory within the device's limit) and
 // allocates the scratch: dO and o_cat [B, N, C] bf16, stats [B, H,
 // ceil(N / 64), 3, 64] f32, part [n_chunks, C, Kp] f32, with chunk_rows a
-// multiple of 64 and every chunk non-empty.
+// multiple of 64 and every chunk non-empty.  W (`width`): w's and g's
+// columns, a multiple of 64 (C on one rank).
 int fused_apla_attn_bwd(const void* qkv, const void* w, const void* g,
                         const void* gt, void* dqkv, void* dwt, void* dO,
                         void* o_cat, void* stats, void* part, int B, int N,
-                        int C, int H, int Kp, float scale, int seg,
+                        int C, int width, int H, int Kp, float scale, int seg,
                         int chunk_rows, int n_chunks, const int* plan,
                         int parts, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int M = B * N;
-  const uint64_t row = 2ull * C;
-  // 1. dO [M, C] = g [M, C] w^T: w [C, C] row-major is w^T's K-major form
+  const uint64_t row = 2ull * C, g_row = 2ull * width;
+  // 1. dO [M, C] = g [M, W] w^T: w [C, W] row-major is w^T's K-major form
   CUtensorMap amap, bmap, cmap;
-  int err = sm90::encode_bf16_3d(&amap, g, C, M, 1, row, row * M,
+  int err = sm90::encode_bf16_3d(&amap, g, width, M, 1, g_row, g_row * M,
                                  gemm90::BM);
   if (err == 0)
-    err = sm90::encode_bf16_3d(&bmap, w, C, C, 1, row, row * C, plan[5]);
+    err = sm90::encode_bf16_3d(&bmap, w, width, C, 1, g_row, g_row * C,
+                               plan[5]);
   if (err == 0)
     err = sm90::encode_bf16_3d(&cmap, dO, C, M, 1, row, row * M, 64);
   if (err != 0) return 1000 + err;
   gemm90::Args a;
-  a.K = C;
-  a.chunk = C;
+  a.K = width;
+  a.chunk = width;
   a.stages = plan[6];
   a.M = M;
   a.N = C;

@@ -11,14 +11,16 @@ both packages).  The run is on the CUDA card; `--device cpu` (or
 (`ssl/byol.py`), `--dino` (`ssl/dino.py`) and `--dinov2` (`ssl/dinov2.py`)
 train a self-supervised objective; `--test` then runs its kNN test table
 on a checkpoint.  `--n_devices N` (or `--gpu 0,1`; unset: every visible
-card, one on the CPU) above one runs N ranks, data parallel, through
+card, one on the CPU) above one runs N ranks in all through
 `parallel.launch` (spawned, or the ranks `torchrun` started; on the CPU
-and for ranks that share a card the backend is gloo, else NCCL), and
-`--param_sharding fsdp` shards the frozen backbone over them.  Flags for
-paths the port does not have yet raise `NotImplementedError` naming their
-ROADMAP item (A 9): `--param_sharding tp|pp`, `--tensor_parallel`,
-`--pipeline_parallel`, `--pp_microbatches`, `--sequence_parallel`, and
-W8A8 training on more than one rank, through `DefaultWrapper`.
+and for ranks that share a card the backend is gloo, else NCCL):
+`--tensor_parallel T` (T divides N) makes them an N/T x T (data x model)
+mesh, tensor-parallel under `--param_sharding tp` (its default there),
+`--sequence_parallel` splits the token stream over the model axis too,
+and `--param_sharding fsdp` shards the frozen backbone over the data
+axis.  The pipeline's flags (`--pipeline_parallel`, `--pp_microbatches`,
+`--param_sharding pp`) raise `NotImplementedError` naming ROADMAP A 9,
+through `DefaultWrapper`.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from .utils.config import load_merged_params
 def parse_arguments(argv=None):
     p = argparse.ArgumentParser(allow_abbrev=False)
     p.add_argument("--params_path", type=str, required=True)
-    p.add_argument("--n_devices", type=int, help="devices to train on")
+    p.add_argument("--n_devices", type=int,
+                   help="ranks to train on, in all (data x model)")
     p.add_argument("--gpu", type=str,
                    help="comma list of device ids ('0,1') -> device count")
     p.add_argument("--param_sharding", type=str,

@@ -17,8 +17,13 @@ of masked patch embeddings; `pack_segments` runs the crops of each image as
 one block-diagonal sequence.  Under FSDP (`parallel.mesh.shard_params`)
 each block's frozen tensors are gathered for its forward and the trunk's
 for the trunk; dropout and drop-path draw for the global batch
-(`parallel.mesh.rand_rows`).  Not ported yet: `pipeline`,
-`token_sharding` (ROADMAP A 9), remat, `vit_intermediate_layers`.
+(`parallel.mesh.rand_rows`).  On a model axis (`ViT.placement`, set by
+`shard_params`: JAX's `tp_sharding_tree` placement and `token_sharding`)
+the blocks run tensor-parallel, and sequence-parallel between them
+(`parallel.tensor`): token prep runs whole, the stream is split over the
+model group, and the trunk's end gathers it back before the final norm.
+Not ported yet: `pipeline` (ROADMAP A 9), remat,
+`vit_intermediate_layers`.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from torch import nn
 
 from ..ops.attention import apla_attention, dropout, multi_head_attention
 from ..ops.quant import maybe_quantized_dot
+from ..parallel import collectives, tensor as tp
 from ..parallel.mesh import gathered, rand_rows
 
 
@@ -190,11 +196,14 @@ class PatchEmbed(nn.Module):
 class ViT(nn.Module):
     """ViT parameters.  `num_pos_tokens` sizes `pos_embed` when it was
     trained on another grid than `cfg.img_size` (the dinov2 518 grid served
-    at 224); the forward interpolates it to the input's grid."""
+    at 224); the forward interpolates it to the input's grid.
+    `placement`: the model axis it runs on (a `parallel.tensor.Placement`;
+    None: whole on this rank)."""
 
     def __init__(self, cfg: ViTConfig, num_pos_tokens: int | None = None):
         super().__init__()
         self.cfg = cfg
+        self.placement = None
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg)
         self.cls_token = _param(1, 1, d)
@@ -270,31 +279,45 @@ def layer_norm(x, scale, bias, eps=1e-6):
     return y.to(x.dtype)
 
 
-def _mlp(x, p: Mlp, cfg: ViTConfig, generator, deterministic):
+def _dense(x, layer):
+    return maybe_quantized_dot(x, layer.kernel, layer.bias)
+
+
+def _mlp(x, p: Mlp, cfg: ViTConfig, generator, deterministic, drop=None,
+         up=_dense, down=_dense, drop_hidden=None):
+    """`drop(h)`: the output's dropout, `drop_hidden(h)` the hidden
+    activations' (default both `dropout` at `cfg.drop_rate`; a model rank
+    slices the whole tensor's draw); `up(x, layer)` / `down(h, layer)`:
+    the first and second products (a model rank's column- and
+    row-parallel ones, `parallel.tensor.mlp`)."""
     if cfg.use_swiglu:
-        x12 = maybe_quantized_dot(x, p.w12.kernel, p.w12.bias)
-        x1, x2 = x12.chunk(2, dim=-1)
-        return maybe_quantized_dot(F.silu(x1) * x2, p.w3.kernel, p.w3.bias)
-    h = maybe_quantized_dot(x, p.fc1.kernel, p.fc1.bias)
+        x1, x2 = up(x, p.w12).chunk(2, dim=-1)
+        return down(F.silu(x1) * x2, p.w3)
+    drop = drop or (lambda h: dropout(h, cfg.drop_rate, generator,
+                                      deterministic))
+    h = up(x, p.fc1)
     h = F.gelu(h, approximate="tanh" if cfg.gelu_tanh else "none")
-    h = dropout(h, cfg.drop_rate, generator, deterministic)
-    h = maybe_quantized_dot(h, p.fc2.kernel, p.fc2.bias)
-    return dropout(h, cfg.drop_rate, generator, deterministic)
+    h = (drop_hidden or drop)(h)
+    return drop(down(h, p.fc2))
 
 
 def drop_path(x, rate: float, generator, deterministic: bool,
-              segment_len: int = 0):
+              segment_len: int = 0, tokens: tuple | None = None):
     """Stochastic depth on a residual branch: each sample (each packed
     segment when `segment_len` > 0) is kept with probability 1 - rate and
-    scaled by 1 / (1 - rate) (`apla_tpu/models/vit.py:_drop_path`)."""
+    scaled by 1 / (1 - rate) (`apla_tpu/models/vit.py:_drop_path`).
+    `tokens` (n, start): x holds tokens [start, start + x.shape[1]) of a
+    stream of n (sequence parallelism)."""
     if deterministic or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
     if segment_len:
-        n_seg = x.shape[1] // segment_len
+        n, start = tokens or (x.shape[1], 0)
+        n_seg = n // segment_len
         mask = rand_rows((x.shape[0], n_seg), generator=generator,
                          device=x.device) < keep
-        mask = mask.repeat_interleave(segment_len, dim=1)[..., None]
+        mask = mask.repeat_interleave(segment_len, dim=1)[
+            :, start:start + x.shape[1], None]
     else:
         mask = rand_rows((x.shape[0],) + (1,) * (x.ndim - 1),
                          generator=generator, device=x.device) < keep
@@ -306,6 +329,25 @@ def drop_path_rates(cfg: ViTConfig) -> list[float]:
     """Per-block drop-path rates, rising linearly from 0 to
     `drop_path_rate` over the depth (`apla_tpu/models/vit.py:378`)."""
     return torch.linspace(0.0, cfg.drop_path_rate, cfg.depth).tolist()
+
+
+def _block_forward_placed(x, blk: Block, cfg: ViTConfig, dp_rate, generator,
+                          deterministic, pl, n: int):
+    """`_block_forward` on a model axis (`parallel.tensor`): x holds the
+    whole stream (TP) or the rank's tokens of a stream of n (SP)."""
+    tokens = (n, collectives.own_tokens(n)[0]) if pl.sequence_parallel \
+        else None
+    seg = cfg.attn_segment_len
+    y = layer_norm(x, blk.norm1.scale, blk.norm1.bias, cfg.norm_eps)
+    y = tp.attention(y, blk.attn, cfg, generator, deterministic, pl, n, seg)
+    if blk.ls1 is not None:
+        y = y * blk.ls1.gamma.to(y.dtype)
+    x = x + drop_path(y, dp_rate, generator, deterministic, seg, tokens)
+    y = layer_norm(x, blk.norm2.scale, blk.norm2.bias, cfg.norm_eps)
+    y = tp.mlp(y, blk.mlp, cfg, generator, deterministic, pl, n)
+    if blk.ls2 is not None:
+        y = y * blk.ls2.gamma.to(y.dtype)
+    return x + drop_path(y, dp_rate, generator, deterministic, seg, tokens)
 
 
 def _block_forward(x, blk: Block, cfg: ViTConfig, dp_rate: float = 0.0,
@@ -441,13 +483,23 @@ def _trunk(vit, x, cfg, return_all_tokens, deterministic, generator, masks,
         x = x.reshape(pack_segments, sB // pack_segments, T, D) \
             .transpose(0, 1).reshape(sB // pack_segments, pack_segments * T, D)
         cfg = dataclasses.replace(cfg, attn_segment_len=T)
+    pl, n = vit.placement, x.shape[1]
+    sp = pl is not None and pl.sequence_parallel
+    if sp:
+        x = collectives.split_tokens(x)
     layers = []
     for blk, dp_rate in zip(vit.blocks, drop_path_rates(cfg)):
         with gathered(blk):
-            x = _block_forward(x, blk, cfg, dp_rate, generator,
-                               deterministic)
+            if pl is None:
+                x = _block_forward(x, blk, cfg, dp_rate, generator,
+                                   deterministic)
+            else:
+                x = _block_forward_placed(x, blk, cfg, dp_rate, generator,
+                                          deterministic, pl, n)
         if return_layers:
-            layers.append(x)
+            layers.append(collectives.gather_trunk(x, n) if sp else x)
+    if sp:
+        x = collectives.gather_trunk(x, n)
     x = layer_norm(x, vit.norm.scale, vit.norm.bias, cfg.norm_eps)
     if return_layers:
         return x, layers

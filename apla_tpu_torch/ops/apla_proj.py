@@ -25,28 +25,36 @@ def assemble(w_t: torch.Tensor, b_t: torch.Tensor, w_frozen: torch.Tensor,
 
 
 class AplaProj(torch.autograd.Function):
-    """`apla_tpu/ops/apla_proj.py:56-80` as an autograd `Function`."""
+    """`apla_tpu/ops/apla_proj.py:56-80` as an autograd `Function`.
+    `partial`: a row-parallel share (`parallel.tensor`): x [..., K] by the
+    rows [K, d_out] of the projection, the product in f32 without the
+    bias (the caller sums the ranks' partials, rounds once and adds the
+    assembled bias); dx and dW_t as above, no db_t."""
 
     @staticmethod
-    def forward(ctx, x, w_t, b_t, w_frozen, b_frozen, inds):
+    def forward(ctx, x, w_t, b_t, w_frozen, b_frozen, inds, partial=False):
         w, b = assemble(w_t, b_t, w_frozen, b_frozen, inds)
         ctx.save_for_backward(x, w, inds)
         ctx.dtypes = (w_t.dtype, b_t.dtype)
+        ctx.partial = partial
+        if partial:
+            return torch.matmul(x.float(), w.to(x.dtype).float())
         return torch.matmul(x, w.to(x.dtype)) + b.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, w, inds = ctx.saved_tensors
         wt_dtype, bt_dtype = ctx.dtypes
+        g = g.to(x.dtype)
         dx = torch.matmul(g, w.to(g.dtype).t())
         g2 = g.index_select(-1, inds).reshape(-1, inds.numel()).float()
         x2 = x.reshape(-1, x.shape[-1]).float()
         dw_t = torch.matmul(x2.t(), g2).to(wt_dtype)
-        db_t = g2.sum(dim=0).to(bt_dtype)
-        return dx, dw_t, db_t, None, None, None
+        db_t = None if ctx.partial else g2.sum(dim=0).to(bt_dtype)
+        return dx, dw_t, db_t, None, None, None, None
 
 
-def apla_proj(x, w_t, b_t, w_frozen, b_frozen, inds):
+def apla_proj(x, w_t, b_t, w_frozen, b_frozen, inds, partial=False):
     """[..., d_in] -> [..., d_out] in x.dtype (bias added in x.dtype).
-    Differentiable in (x, w_t, b_t)."""
-    return AplaProj.apply(x, w_t, b_t, w_frozen, b_frozen, inds)
+    Differentiable in (x, w_t, b_t).  `partial`: see `AplaProj`."""
+    return AplaProj.apply(x, w_t, b_t, w_frozen, b_frozen, inds, partial)

@@ -1,5 +1,9 @@
 """The APLA output projection GEMM of the fused attention forward:
-out[M, C] = o[M, C] @ w[C, C], bf16 in, f32 accumulated, bf16 out.
+out[M, N] = o[M, K] @ w[K, N], bf16 in, f32 accumulated, bf16 out, or the
+f32 sums themselves (`out_f32`).  K = N = C on one rank; under tensor
+parallelism (`parallel.tensor`) a rank multiplies its heads' o [M, C/T]
+by its rows of the projection [C/T, C] and writes the f32 partial, which
+the model group sums.
 
 The projection inside the TPU kernels `apla_tpu/ops/pallas_apla_attn.py:
 _fwd_kernel` (its f32 `dot_general` of `o_cat` and `w` at :124-129, rounded
@@ -105,60 +109,64 @@ def gemm_plan(M: int, C: int, bn: int | None = None,
                                       SM_SMEM // (smem + BLOCK_RESERVED)))
 
 
-def apla_proj_gemm_reference(o, w):
-    """Plain version: o [..., C] @ w [C, C] with products in f32 on the
+def apla_proj_gemm_reference(o, w, out_f32: bool = False):
+    """Plain version: o [..., K] @ w [K, N] with products in f32 on the
     upcast inputs (as `preferred_element_type=f32` does), rounded to
-    o.dtype."""
-    return torch.matmul(o.float(), w.to(o.dtype).float()).to(o.dtype)
+    o.dtype (`out_f32`: the f32 sums)."""
+    out = torch.matmul(o.float(), w.to(o.dtype).float())
+    return out if out_f32 else out.to(o.dtype)
 
 
 def check_args(o, w):
-    """The kernel's contract, checked before a launch: -> (M, C)."""
+    """The kernel's contract, checked before a launch: -> (M, K, N)."""
     if o.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise ValueError(f"the projection GEMM takes bfloat16 o and w, got "
                          f"{o.dtype} and {w.dtype}")
-    C = o.shape[-1]
-    if w.dim() != 2 or tuple(w.shape) != (C, C):
-        raise ValueError(f"w must be [{C}, {C}], got {tuple(w.shape)}")
-    if C == 0 or C % 64:
-        raise ValueError(f"the projection GEMM takes C a multiple of 64, "
-                         f"got {C}")
+    K = o.shape[-1]
+    if w.dim() != 2 or w.shape[0] != K:
+        raise ValueError(f"w must be [{K}, N], got {tuple(w.shape)}")
+    N = w.shape[1]
+    if K == 0 or K % 64 or N == 0 or N % 64:
+        raise ValueError(f"the projection GEMM takes K and N each a "
+                         f"multiple of 64, got {K} and {N}")
     if w.device != o.device:
         raise ValueError(f"o on {o.device}, w on {w.device}")
     if not (o.is_contiguous() and w.is_contiguous()) or \
             o.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("o and w must be contiguous and 16-byte aligned")
-    M = o.numel() // C
+    M = o.numel() // K
     if not 0 < M <= MAX_ROWS:
         raise ValueError(f"{M} rows outside the kernel's grid")
-    return M, C
+    return M, K, N
 
 
 @functools.cache
 def _library():
     lib = load_library(SOURCE)
     lib.apla_proj_gemm.argtypes = [ctypes.c_void_p] * 3 \
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.apla_proj_gemm.restype = ctypes.c_int
     lib.apla_proj_gemm_prepare.argtypes = [ctypes.c_int]
     lib.apla_proj_gemm_prepare.restype = ctypes.c_int
     return lib
 
 
-def launch(o, w, stream, plan: GemmPlan):
+def launch(o, w, stream, plan: GemmPlan, out_f32: bool = False):
     """Queues one launch of the kernel on `stream` (a raw stream handle of
-    o's device, the current device), uncounted: -> out, shaped as o.  o and
-    w are checked by the caller (`check_args`, or a check that covers it);
-    `plan` is `gemm_plan`'s for their shape (a measurement may pass
-    another)."""
+    o's device, the current device), uncounted: -> out [..., N] (bf16, or
+    f32 with `out_f32`).  o and w are checked by the caller (`check_args`,
+    or a check that covers it); `plan` is `gemm_plan`'s for their shape
+    (a measurement may pass another)."""
     lib = _library()
     check_smem(plan.smem_bytes,
                device_smem(_library, "apla_proj_gemm_prepare",
                            o.device.index), "the projection GEMM")
-    out = torch.empty_like(o)
+    K = w.shape[0]
+    out = torch.empty(o.shape[:-1] + (plan.width,), device=o.device,
+                      dtype=torch.float32 if out_f32 else o.dtype)
     err = lib.apla_proj_gemm(o.data_ptr(), w.data_ptr(), out.data_ptr(),
-                             plan.rows, plan.width, plan.bn, plan.stages,
-                             plan.smem_bytes, stream)
+                             plan.rows, K, plan.width, plan.bn, plan.stages,
+                             plan.smem_bytes, int(out_f32), stream)
     if err == 2000:
         raise RuntimeError(f"apla_proj_gemm: no kernel of {plan.bn} columns")
     if err >= 1000:
@@ -169,18 +177,20 @@ def launch(o, w, stream, plan: GemmPlan):
     return out
 
 
-def apla_proj_gemm(o, w):
-    """o [..., C] @ w [C, C] -> [..., C] in bf16, f32 accumulated.
+def apla_proj_gemm(o, w, out_f32: bool = False):
+    """o [..., K] @ w [K, N] -> [..., N] in bf16 (`out_f32`: the f32
+    sums), f32 accumulated.
 
     CPU tensor: the plain version.  CUDA tensor: the kernel, or an error
     naming why it cannot run (dtype, width, layout)."""
     if o.device.type == "cpu":
-        return apla_proj_gemm_reference(o, w)
+        return apla_proj_gemm_reference(o, w, out_f32)
     if o.device.type != "cuda":
         raise ValueError(f"no projection GEMM for device {o.device}")
-    plan = gemm_plan(*check_args(o, w))
+    M, _, N = check_args(o, w)
+    plan = gemm_plan(M, N)
     with launch_context(o) as stream:
-        out = launch(o, w, stream, plan)
+        out = launch(o, w, stream, plan, out_f32)
     apla_proj_gemm.launches += 1
     return out
 

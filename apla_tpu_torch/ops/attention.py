@@ -43,30 +43,50 @@ def dropout(x, rate: float, generator, deterministic: bool):
                                                    device=x.device))
 
 
-def qkv_and_attend(x, qkv_kernel, qkv_bias, num_heads, scale=None,
-                   attn_drop=0.0, generator=None, deterministic=True,
-                   use_flash=False, logits_f32=True, segment_len=0):
-    """QKV projection + scaled dot-product attention.  Returns [B, N, C].
+def check_fused_dropout(attn_drop: float, deterministic: bool) -> None:
+    """Training with `attn_drop` > 0 on the fused APLA path raises: the
+    kernel applies no dropout to the attention weights."""
+    if attn_drop > 0.0 and not deterministic:
+        raise ValueError(
+            f"attn_drop_rate={attn_drop} while training on the fused APLA "
+            "path: the kernel applies no dropout to the attention "
+            "weights (neither does the TPU kernel); set attn_drop_rate 0 "
+            "or use_fused_apla false")
+
+
+def attend(qkv, num_heads, scale, attn_drop=0.0, attn_dropout=None,
+           use_flash=False, logits_f32=True, segment_len=0):
+    """Scaled dot-product attention of the packed qkv [B, N, 3 H Dh] over
+    its `num_heads` heads -> [B, N, H Dh]: the memory-efficient kernels
+    when `use_flash` and no attention dropout, else `plain_mha` with
+    `attn_dropout(a)` on the softmaxed weights.
 
     `segment_len` > 0: block-diagonal attention (tokens attend only inside
     their own segment of that length)."""
-    B, N, C = x.shape
-    head_dim = C // num_heads
-    if scale is None:
-        scale = head_dim ** -0.5
-    qkv = maybe_quantized_dot(x, qkv_kernel, qkv_bias)
     if use_flash and attn_drop == 0.0:
         # the packed [B, N, 3C] qkv as the kernels take it (flash_mha's
         # function without its packing copy); dqkv comes back packed
         return mha(qkv, num_heads, scale, segment_len)
-
+    B, N, C3 = qkv.shape
+    head_dim = C3 // (3 * num_heads)
     qkv = qkv.reshape(B, N, 3, num_heads, head_dim)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [B,H,N,Dh]
-    out = plain_mha(
-        q, k, v, scale, segment_len=segment_len, logits_f32=logits_f32,
-        attn_dropout=lambda a: dropout(a, attn_drop, generator,
-                                       deterministic))
-    return out.transpose(1, 2).reshape(B, N, C)
+    out = plain_mha(q, k, v, scale, segment_len=segment_len,
+                    logits_f32=logits_f32, attn_dropout=attn_dropout)
+    return out.transpose(1, 2).reshape(B, N, num_heads * head_dim)
+
+
+def qkv_and_attend(x, qkv_kernel, qkv_bias, num_heads, scale=None,
+                   attn_drop=0.0, generator=None, deterministic=True,
+                   use_flash=False, logits_f32=True, segment_len=0):
+    """QKV projection + scaled dot-product attention (`attend`).  Returns
+    [B, N, C]."""
+    if scale is None:
+        scale = (x.shape[-1] // num_heads) ** -0.5
+    qkv = maybe_quantized_dot(x, qkv_kernel, qkv_bias)
+    return attend(qkv, num_heads, scale, attn_drop,
+                  lambda a: dropout(a, attn_drop, generator, deterministic),
+                  use_flash, logits_f32, segment_len)
 
 
 def multi_head_attention(x, params, num_heads, scale=None, attn_drop=0.0,
@@ -101,12 +121,7 @@ def apla_attention(x, attn, num_heads, scale=None, attn_drop=0.0,
     w_t, b_t = ((attn.proj_wt, attn.proj_bt) if attn.proj_wt is not None
                 else (attn.proj.kernel, attn.proj.bias))
     if use_fused:
-        if attn_drop > 0.0 and not deterministic:
-            raise ValueError(
-                f"attn_drop_rate={attn_drop} while training on the fused APLA "
-                "path: the kernel applies no dropout to the attention "
-                "weights (neither does the TPU kernel); set attn_drop_rate 0 "
-                "or use_fused_apla false")
+        check_fused_dropout(attn_drop, deterministic)
         C = x.shape[-1]
         head_dim = C // num_heads
         qkv = maybe_quantized_dot(x, attn.qkv.kernel, attn.qkv.bias)

@@ -33,6 +33,14 @@ ViT-L/16 at 512 (qkv [8, 1025, 3072]) with APLA "full" as k = C = 1024.
 (The long backward forms delta as sum(dO * o) with o from the bf16 p; the
 kernel here, like the monolithic one, takes rowsum(dp * p) on the f32 p.)
 
+Under tensor parallelism (`parallel.tensor`) a rank runs both on its
+H/T heads: qkv [B, N, 3K] with K = (H/T) * 64 and the rows of the
+projection that those heads meet, W [K, C].  The forward's GEMM then
+writes the f32 partial (`out_f32`), which the model group sums before the
+bias and one rounding; the backward reads the whole cotangent g [B, N, C]
+and gives dqkv [B, N, 3K] and the rows [K, k] of dW_t.  At K = C both are
+the square kernels, bit for bit.
+
 `fused_apla_attn_fwd` / `fused_apla_attn_bwd` are the wrappers: on a CPU
 tensor they run the plain PyTorch versions below (`*_reference`), on a CUDA
 tensor they launch the kernels or raise.  Each wrapper's `launches` counts
@@ -63,17 +71,19 @@ _KP = 64               # the backward pads the trainable columns to this
 
 
 def fused_apla_attn_fwd_reference(qkv, w, num_heads: int, scale: float,
-                                  segment_len: int = 0):
+                                  segment_len: int = 0,
+                                  out_f32: bool = False):
     """Plain version of the forward kernel, rounding where the TPU kernel
     rounds.
 
-    qkv [B, N, 3C], w [C, C] -> [B, N, C] in qkv.dtype: the attention of
-    `mha_fwd_reference` (rounded to qkv.dtype), then the projection with
-    products in f32 on the upcast inputs (as `preferred_element_type=f32`
-    does)."""
+    qkv [B, N, 3K], w [K, C] -> [B, N, C] in qkv.dtype (`out_f32`: the f32
+    sums): the attention of `mha_fwd_reference` (rounded to qkv.dtype),
+    then the projection with products in f32 on the upcast inputs (as
+    `preferred_element_type=f32` does)."""
     dt = qkv.dtype
     o = mha_fwd_reference(qkv, num_heads, scale, segment_len)
-    return torch.matmul(o.float(), w.to(dt).float()).to(dt)
+    out = torch.matmul(o.float(), w.to(dt).float())
+    return out if out_f32 else out.to(dt)
 
 
 def fused_apla_attn_bwd_reference(qkv, w, g, inds, num_heads: int,
@@ -81,9 +91,9 @@ def fused_apla_attn_bwd_reference(qkv, w, g, inds, num_heads: int,
     """Plain version of the backward kernel, rounding where the TPU kernel
     rounds (`pallas_apla_attn.py:_bwd_kernel`).
 
-    qkv [B, N, 3C], w [C, C] (assembled), g [B, N, C] (cotangent of the
-    projected output), inds [k] -> (dqkv [B, N, 3C] in qkv.dtype,
-    dW_t [C, k] float32 summed over the batch)."""
+    qkv [B, N, 3K], w [K, C] (assembled), g [B, N, C] (cotangent of the
+    projected output), inds [k] -> (dqkv [B, N, 3K] in qkv.dtype,
+    dW_t [K, k] float32 summed over the batch)."""
     dt = qkv.dtype
     C = qkv.shape[-1] // 3
     g = g.to(dt)
@@ -111,8 +121,10 @@ def _check_cuda_args(qkv, w, num_heads, segment_len):
     if C % num_heads or C // num_heads != HEAD_DIM:
         raise ValueError(f"kernel supports head dim {HEAD_DIM} only, got "
                          f"C={C} over {num_heads} heads")
-    if tuple(w.shape) != (C, C):
-        raise ValueError(f"w must be [{C}, {C}], got {tuple(w.shape)}")
+    if w.dim() != 2 or w.shape[0] != C or w.shape[1] % 64 \
+            or w.shape[1] < C:
+        raise ValueError(f"w must be [{C}, N] with N >= {C} a multiple of "
+                         f"64, got {tuple(w.shape)}")
     if w.device != qkv.device:
         raise ValueError(f"qkv on {qkv.device}, w on {w.device}")
     if not (qkv.is_contiguous() and w.is_contiguous()):
@@ -128,16 +140,17 @@ def _check_cuda_args(qkv, w, num_heads, segment_len):
 
 def _check_bwd_args(qkv, w, g, inds, num_heads, segment_len):
     B, N, C = _check_cuda_args(qkv, w, num_heads, segment_len)
-    if g.dtype != qkv.dtype or tuple(g.shape) != (B, N, C):
-        raise ValueError(f"g must be [{B}, {N}, {C}] {qkv.dtype}, got "
+    width = w.shape[1]
+    if g.dtype != qkv.dtype or tuple(g.shape) != (B, N, width):
+        raise ValueError(f"g must be [{B}, {N}, {width}] {qkv.dtype}, got "
                          f"{tuple(g.shape)} {g.dtype}")
     if g.device != qkv.device or inds.device != qkv.device:
         raise ValueError(f"qkv on {qkv.device}, g on {g.device}, inds on "
                          f"{inds.device}")
     if not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("g must be contiguous and 16-byte aligned")
-    if inds.dim() != 1 or not 0 < inds.numel() <= C:
-        raise ValueError(f"inds must be [k] with 0 < k <= {C}, got "
+    if inds.dim() != 1 or not 0 < inds.numel() <= width:
+        raise ValueError(f"inds must be [k] with 0 < k <= {width}, got "
                          f"{tuple(inds.shape)}")
     return B, N, C
 
@@ -146,7 +159,7 @@ def _check_bwd_args(qkv, w, g, inds, num_heads, segment_len):
 def _bwd_library():
     lib = load_library(_BWD_SOURCE)
     lib.fused_apla_attn_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
     lib.fused_apla_attn_bwd.restype = ctypes.c_int
@@ -155,31 +168,35 @@ def _bwd_library():
     return lib
 
 
-def _launch(qkv, w, num_heads, scale, segment_len):
-    """The attention kernel into a scratch o [B, N, C], freed on return,
+def _launch(qkv, w, num_heads, scale, segment_len, out_f32=False):
+    """The attention kernel into a scratch o [B, N, K], freed on return,
     then the projection GEMM over its B * N rows, on one stream.  The
     argument check covers both kernels' contracts."""
-    B, N, C = _check_cuda_args(qkv, w, num_heads, segment_len)
+    B, N, K = _check_cuda_args(qkv, w, num_heads, segment_len)
     with launch_context(qkv) as stream:
         o = mha.launch_fwd(qkv, num_heads, scale, segment_len, stream,
-                           (B, N, C))
-        out = proj_gemm.launch(o, w, stream, proj_gemm.gemm_plan(B * N, C))
+                           (B, N, K))
+        out = proj_gemm.launch(o, w, stream,
+                               proj_gemm.gemm_plan(B * N, w.shape[1]),
+                               out_f32)
     fused_apla_attn_fwd.launches += 1
     return out
 
 
 def fused_apla_attn_fwd(qkv, w, num_heads: int, scale: float,
-                        segment_len: int = 0):
-    """qkv [B, N, 3C], w [C, C] (already assembled) -> [B, N, C], no bias.
+                        segment_len: int = 0, out_f32: bool = False):
+    """qkv [B, N, 3K], w [K, C] (already assembled) -> [B, N, C], no bias
+    (K = C on one rank, a rank's heads' rows under tensor parallelism);
+    bf16, or with `out_f32` the f32 sums.
 
     CPU tensor: the plain version.  CUDA tensor: the two kernels, or an
     error naming why they cannot run (dtype, head dim, layout)."""
     if qkv.device.type == "cpu":
         return fused_apla_attn_fwd_reference(qkv, w, num_heads, scale,
-                                             segment_len)
+                                             segment_len, out_f32)
     if qkv.device.type != "cuda":
         raise ValueError(f"no fused APLA attention for device {qkv.device}")
-    return _launch(qkv, w, num_heads, scale, segment_len)
+    return _launch(qkv, w, num_heads, scale, segment_len, out_f32)
 
 
 fused_apla_attn_fwd.launches = 0
@@ -205,7 +222,8 @@ DW_GEMM = (128, 3)
 def bwd_plans(B: int, N: int, C: int, num_heads: int, kp: int,
               segment_len: int = 0):
     """(attention plan, dO GEMM plan, dW GEMM plan) of the backward's
-    launches at this shape."""
+    launches at this shape (C: the heads' width, K under tensor
+    parallelism)."""
     return (mha.bwd_plan(B, N, num_heads, segment_len),
             proj_gemm.gemm_plan(B * N, C),
             proj_gemm.gemm_plan(C, kp, *DW_GEMM))
@@ -218,6 +236,7 @@ PARTS_ALL = mha.PART_DO | mha.PART_QUERY | mha.PART_KEY | mha.PART_DW
 def _launch_bwd(qkv, w, g, inds, num_heads, scale, segment_len,
                 parts=PARTS_ALL):
     B, N, C = _check_bwd_args(qkv, w, g, inds, num_heads, segment_len)
+    width = w.shape[1]
     lib = _bwd_library()
     dev = device_index(qkv)
     k = inds.numel()
@@ -247,7 +266,8 @@ def _launch_bwd(qkv, w, g, inds, num_heads, scale, segment_len,
         err = lib.fused_apla_attn_bwd(
             qkv.data_ptr(), w.data_ptr(), g.data_ptr(), g_t.data_ptr(),
             dqkv.data_ptr(), dwt.data_ptr(), d_o.data_ptr(), o_cat.data_ptr(),
-            stats.data_ptr(), part.data_ptr(), B, N, C, num_heads, kp,
+            stats.data_ptr(), part.data_ptr(), B, N, C, width, num_heads,
+            kp,
             float(scale), int(segment_len), rows, n_chunks, plan, parts,
             stream)
     if err == 2000:
@@ -264,7 +284,8 @@ def _launch_bwd(qkv, w, g, inds, num_heads, scale, segment_len,
 def fused_apla_attn_bwd(qkv, w, g, inds, num_heads: int, scale: float,
                         segment_len: int = 0):
     """Backward of `fused_apla_attn_fwd` with the trainable columns `inds`:
-    -> (dqkv [B, N, 3C] in qkv.dtype, dW_t [C, k] float32).
+    qkv [B, N, 3K], w [K, C], g [B, N, C] -> (dqkv [B, N, 3K] in
+    qkv.dtype, dW_t [K, k] float32).
 
     CPU tensor: the plain version.  CUDA tensor: the kernel, or an error
     naming why it cannot run (dtype, head dim, shapes, shared memory)."""
@@ -297,36 +318,46 @@ class FusedAplaAttention(torch.autograd.Function):
     W (in qkv.dtype) and `inds`, and nothing else: the backward recomputes
     p.  Backward: dqkv and dW_t from the backward kernel, db_t = sum of
     g[..., inds] in float32 outside it; no gradient for the frozen matrix,
-    bias or `inds`."""
+    bias or `inds`.  `partial` (a tensor-parallel rank: qkv of its heads,
+    the projection's rows [K, C]): the forward returns the f32 sums without
+    the bias, which the caller adds after the model group's sum; no
+    db_t."""
 
     @staticmethod
     def forward(ctx, qkv, w_t, b_t, w_frozen, b_frozen, inds, num_heads,
-                scale, segment_len):
+                scale, segment_len, partial=False):
         w, b = assemble(w_t, b_t, w_frozen, b_frozen, inds)
         w = w.to(qkv.dtype)
-        out = fused_apla_attn_fwd(qkv, w, num_heads, scale, segment_len)
+        out = fused_apla_attn_fwd(qkv, w, num_heads, scale, segment_len,
+                                  out_f32=partial)
         ctx.save_for_backward(qkv, w, inds)
-        ctx.args = (num_heads, scale, segment_len, w_t.dtype, b_t.dtype)
-        return out + b.to(out.dtype)
+        ctx.args = (num_heads, scale, segment_len, w_t.dtype, b_t.dtype,
+                    partial)
+        return out if partial else out + b.to(out.dtype)
 
     @staticmethod
     def backward(ctx, g):
         qkv, w, inds = ctx.saved_tensors
-        num_heads, scale, segment_len, wt_dtype, bt_dtype = ctx.args
+        num_heads, scale, segment_len, wt_dtype, bt_dtype, partial = ctx.args
         dqkv, dw_t = fused_apla_attn_bwd(
             qkv, w, g.to(qkv.dtype).contiguous(), inds, num_heads, scale,
             segment_len)
-        db_t = g.index_select(-1, inds).float().sum(dim=(0, 1))
-        return (dqkv, dw_t.to(wt_dtype), db_t.to(bt_dtype), None, None, None,
-                None, None, None)
+        db_t = None if partial else \
+            g.index_select(-1, inds).float().sum(dim=(0, 1)).to(bt_dtype)
+        return (dqkv, dw_t.to(wt_dtype), db_t, None, None, None,
+                None, None, None, None)
 
 
 def fused_apla_attention(qkv, w_t, b_t, w_frozen, b_frozen, inds,
-                         num_heads: int, scale: float, segment_len: int = 0):
+                         num_heads: int, scale: float, segment_len: int = 0,
+                         partial: bool = False):
     """qkv [B, N, 3C] packed activations -> [B, N, C] projected output.
 
     `w_t` [C, k] / `b_t` [k] are the trainable columns written into the
     frozen `w_frozen` [C, C] / `b_frozen` [C] at `inds` [k].
-    Differentiable in (qkv, w_t, b_t)."""
+    Differentiable in (qkv, w_t, b_t).  `partial`: a tensor-parallel
+    rank's share, qkv [B, N, 3K] of its heads and the rows `w_t` [K, k],
+    `w_frozen` [K, C] -> the f32 partial [B, N, C] without the bias."""
     return FusedAplaAttention.apply(qkv, w_t, b_t, w_frozen, b_frozen, inds,
-                                    num_heads, float(scale), int(segment_len))
+                                    num_heads, float(scale), int(segment_len),
+                                    bool(partial))

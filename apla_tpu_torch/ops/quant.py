@@ -56,7 +56,10 @@ def _quantize_rows(x):
 class QuantizedKernel(nn.Module):
     """An int8 frozen kernel: buffers `w_int8` [d_in, d_out], `scale`
     [d_out] f32 (saved) and `w_kmajor` [d_out, d_in] (made here and after
-    every state load, never per call)."""
+    every state load, never per call).  Under FSDP `w_int8` and `scale`
+    are leaves sharded by JAX's rule and `w_kmajor` follows `w_int8` on
+    the transposed dim (`parallel.mesh.fsdp_plan`); on a model axis all
+    three stay whole (`parallel.tensor`)."""
 
     def __init__(self, w_int8: torch.Tensor, scale: torch.Tensor):
         super().__init__()

@@ -1,24 +1,35 @@
-"""The data axis, FSDP placement of the frozen backbone, and the rank's rows
-of a batch.
+"""The (data x model) mesh, the placement of the parameters on it, and the
+rank's rows of a batch.
 
-Counterpart of `apla_tpu/parallel/mesh.py`'s data-parallel half.  JAX
-builds one `Mesh` over every device; here each rank is a process and
-`make_mesh` is a record of the default group: world size, rank, device,
-backend.  The model axis (tensor and pipeline parallelism) is ROADMAP
-A 9's second half.
+Counterpart of `apla_tpu/parallel/mesh.py`.  JAX builds one `Mesh` over
+every device, `devices.reshape(n_data, n_model)` with axes ("data",
+"model"); here each rank is a process and `make_mesh(n_data, n_model)`
+records its place: global rank r is data index r // T and model index
+r % T (a model group is T consecutive ranks, on one node the NVLink
+neighbours), and the two sets of groups are made with `dist.new_group`
+(`collectives.set_axes`).  The pipeline (`pp`) waits: ROADMAP A 9.
 
-- `shard_params(model, mesh, "replicated" | "fsdp")`: the trainable tensors
-  stay whole on every rank; under "fsdp" each large frozen parameter keeps
-  only this rank's slice (`fsdp_plan`, JAX's `fsdp_sharding_tree` rule).
-  `gathered(module)` puts the whole tensors back for the span of a forward
-  (a ViT or Swin block, the patch embedding) and drops the module's
-  reference after it: what an op saved for its backward (the frozen
-  projection that row 2's dO = g W^T reads) lives until that backward,
-  as the replicated run's does.
+- `shard_params(model, mesh, "replicated" | "fsdp" | "tp")`: the
+  trainable tensors stay whole on every rank; under "fsdp" each large
+  frozen tensor (W8A8's int8 buffers among them) keeps only this rank's
+  slice over the data group (`fsdp_plan`, JAX's `fsdp_sharding_tree`
+  rule on the data axis); under "tp" (`tp_plan`, JAX's `tp_sharding_tree`
+  made head-aligned) the column- and row-parallel frozen tensors keep the
+  rank's share over the model group and the ViT runs on its placement
+  (`parallel.tensor`).  `gathered(module)` puts FSDP's whole tensors back
+  for the span of a forward (a ViT or Swin block, the patch embedding) and
+  drops the module's reference after it: what an op saved for its
+  backward (the frozen projection that row 2's dO = g W^T reads) lives
+  until that backward, as the replicated run's does.
+- Each trainable tensor's model-axis gradient rule is recorded once, by
+  `tp_plan`, on the parameter (`model_grad`): "sum" where the rank's use
+  was a share, "keep" where every rank of the group computed the same;
+  `collectives.reduce_gradients` reads it.
 - `rank_rows(n, mesh, accum)`: the positions of the global batch this
-  rank holds.  JAX's micro-batch i is rows [i B/accum, (i+1) B/accum) of
+  rank holds, by its data index (the T ranks of a model group hold the
+  same rows).  JAX's micro-batch i is rows [i B/accum, (i+1) B/accum) of
   the global batch, sharded over the data axis, so the rank's micro-batch
-  i is its W-th share of those rows.
+  i is its D-th share of those rows.
 - `rand_rows`: a random draw for the rank's rows, drawn for the global
   batch and sliced, so every rank's generator moves alike and the rank
   gets the 1-device run's values (JAX's draws under sharding are the
@@ -36,46 +47,75 @@ import torch
 from torch import nn
 
 from . import collectives
+from .tensor import Placement, shard_index, unshard
 
-ROADMAP_A9 = ("ROADMAP A 9, second half: tensor, sequence and pipeline "
-              "parallelism")
+ROADMAP_A9 = "ROADMAP A 9: pipeline parallelism"
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data axis as one rank sees it."""
+    """The mesh as one rank sees it.  `world` and `rank` are the data
+    axis (its size D and this rank's index on it: the batch's shares);
+    `n_model` and `model_index` the model axis; `sequence_parallel`: the
+    token stream is split over the model axis too."""
     world: int = 1
     rank: int = 0
     backend: str | None = None
+    n_model: int = 1
+    model_index: int = 0
+    sequence_parallel: bool = False
 
     @property
     def shape(self) -> dict:
-        return {"data": self.world}
+        out = {"data": self.world}
+        if self.n_model > 1:
+            out["model"] = self.n_model
+        return out
 
     @property
     def distributed(self) -> bool:
-        return self.world > 1
+        return self.world * self.n_model > 1
 
 
-def make_mesh(n_data: int | None = None, n_model: int = 1) -> Mesh:
-    """The default group as a data axis.  `n_data` None: the group's size
-    (one device without a group); a size that differs from the group's,
-    or > 1 without a group, raises: a run never shrinks to one process
-    quietly."""
-    if int(n_model or 1) != 1:
-        raise NotImplementedError(f"a model axis of {n_model} ({ROADMAP_A9})")
+def make_mesh(n_data: int | None = None, n_model: int = 1,
+              sequence_parallel: bool = False) -> Mesh:
+    """The default group as a (data x model) mesh.  `n_data` None: the
+    group's size over `n_model` (one device without a group); a size that
+    differs from the group's, or > 1 without a group, raises: a run never
+    shrinks to one process quietly."""
+    n_model = int(n_model or 1)
     world = collectives.world_size()
-    if n_data is not None and int(n_data) != world:
+    if sequence_parallel and n_model == 1:
+        raise ValueError("sequence_parallel needs a model axis: set "
+                         "tensor_parallel N")
+    want = None if n_data is None else int(n_data) * n_model
+    if (want is not None and want != world) or (world % n_model):
         if not collectives.initialized():
             raise RuntimeError(
-                f"n_devices={n_data} asked for, but this process is not a "
-                "rank of a process group: start it through "
+                f"n_devices={want or n_model} asked for, but this process "
+                "is not a rank of a process group: start it through "
                 "apla_tpu_torch.parallel.launch (the CLIs do) or torchrun")
-        raise ValueError(f"n_devices={n_data}, but the process group has "
-                         f"{world} ranks")
+        raise ValueError(f"a mesh of {want or n_model} ranks ({n_data} x "
+                         f"{n_model}), but the process group has {world}")
+    axes = collectives.Axes()
+    if n_model > 1:
+        import torch.distributed as dist
+        D, r = world // n_model, collectives.rank()
+        model_groups = [dist.new_group(list(range(d * n_model,
+                                                  (d + 1) * n_model)))
+                        for d in range(D)]
+        data_groups = [dist.new_group(list(range(m, world, n_model)))
+                       for m in range(n_model)]
+        axes = collectives.Axes(n_model=n_model,
+                                data_group=data_groups[r % n_model],
+                                model_group=model_groups[r // n_model])
+    collectives.set_axes(axes)
     backend = torch.distributed.get_backend() \
         if collectives.initialized() else None
-    return Mesh(world=world, rank=collectives.rank(), backend=backend)
+    return Mesh(world=world // n_model, rank=collectives.data_rank(),
+                backend=backend, n_model=n_model,
+                model_index=collectives.model_rank(),
+                sequence_parallel=bool(sequence_parallel))
 
 
 # --------------------------------------------------------------------------- #
@@ -126,17 +166,18 @@ def pad_to_multiple(batch, multiple: int):
     return {k: pad(v) for k, v in batch.items()}, n
 
 
-_ROWS: tuple | None = None      # (world, rank, micro-batch rows a rank)
+_ROWS: tuple | None = None      # (D, data index, micro-batch rows a rank)
 
 
 @contextlib.contextmanager
 def batch_rows(rows: int):
     """Within the block, `rand_rows` draws for `rows` rows a rank per
-    micro-batch (a data-parallel step's); nothing changes with one rank."""
+    micro-batch (a data-parallel step's); nothing changes on one data
+    rank."""
     global _ROWS
     saved = _ROWS
-    w = collectives.world_size()
-    _ROWS = (w, collectives.rank(), int(rows)) if w > 1 else None
+    w = collectives.data_size()
+    _ROWS = (w, collectives.data_rank(), int(rows)) if w > 1 else None
     try:
         yield
     finally:
@@ -145,9 +186,9 @@ def batch_rows(rows: int):
 
 def rand_rows(shape, generator, device) -> torch.Tensor:
     """`torch.rand(shape)` for this rank's rows.  Inside `batch_rows(m)`
-    with W > 1 and a leading dim of k * m (k micro-batches or stacked
-    crops of m rows each), the draw is [k, W, m, ...] (the 1-device run's
-    [k * W * m, ...]) and the rank takes [:, rank]."""
+    with D > 1 and a leading dim of k * m (k micro-batches or stacked
+    crops of m rows each), the draw is [k, D, m, ...] (the 1-device run's
+    [k * D * m, ...]) and the rank takes [:, data index]."""
     shape = tuple(shape)
     kw = dict(generator=generator, device=device)
     if _ROWS is None or not shape or shape[0] % _ROWS[2]:
@@ -158,8 +199,10 @@ def rand_rows(shape, generator, device) -> torch.Tensor:
     return full[:, r].reshape(shape)
 
 
+
+
 # --------------------------------------------------------------------------- #
-# FSDP of the frozen parameters
+# FSDP of the frozen tensors (over the data group)
 # --------------------------------------------------------------------------- #
 
 def fsdp_dim(shape, n: int, min_size: int = 2 ** 16):
@@ -188,16 +231,30 @@ def _stacked_blocks(model: nn.Module) -> dict:
     return out
 
 
+def _frozen_leaves(model: nn.Module):
+    """(name, tensor) of the frozen parameters and of W8A8's int8 leaves
+    (`QuantizedKernel`'s `w_int8` and `scale`: the JAX quant dict's)."""
+    from ..ops.quant import QuantizedKernel
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            yield name, p
+    for name, m in model.named_modules():
+        if isinstance(m, QuantizedKernel):
+            yield name + ".w_int8", m.w_int8
+            yield name + ".scale", m.scale
+
+
 def fsdp_plan(model: nn.Module, n: int, min_size: int = 2 ** 16) -> dict:
-    """{frozen parameter name: port dim it is sharded on} by JAX's rule on
+    """{frozen tensor name: port dim it is sharded on} by JAX's rule on
     the leaf JAX holds: a ViT block's tensor is decided as the stacked
     [L, ...] leaf, and JAX dim d is the port's dim d - 1; every other
-    tensor (the Swin's blocks are a list in JAX too) as it is."""
+    tensor (the Swin's blocks are a list in JAX too) as it is.  A W8A8
+    kernel's `w_int8` and `scale` are leaves like any other; its
+    `w_kmajor` (the codes transposed) follows `w_int8` on the transposed
+    dim."""
     stacked = _stacked_blocks(model)
     plan = {}
-    for name, p in model.named_parameters():
-        if p.requires_grad:
-            continue
+    for name, p in _frozen_leaves(model):
         depth = next((L for pre, L in stacked.items()
                       if name.startswith(pre)
                       and re.match(r"\d+\.", name[len(pre):])), None)
@@ -208,6 +265,77 @@ def fsdp_plan(model: nn.Module, n: int, min_size: int = 2 ** 16) -> dict:
             d = fsdp_dim(p.shape, n, min_size)
         if d is not None:
             plan[name] = d
+            if name.endswith(".w_int8"):
+                plan[name[:-len("w_int8")] + "w_kmajor"] = 1 - d
+    return plan
+
+
+# --------------------------------------------------------------------------- #
+# TP: the model axis
+# --------------------------------------------------------------------------- #
+
+# JAX's `tp_sharding_tree`: column-parallel qkv / fc1 / w12 (kernel and
+# bias), row-parallel proj / fc2 / w3 (kernel); the port's qkv and w12
+# shares are head-aligned and half-paired (`tensor.shard_index`)
+_TP_SHARDS = {"attn.qkv.kernel": ("qkv", 1), "attn.qkv.bias": ("qkv", 0),
+              "mlp.fc1.kernel": ("col", 1), "mlp.fc1.bias": ("col", 0),
+              "mlp.w12.kernel": ("w12", 1), "mlp.w12.bias": ("w12", 0),
+              "attn.proj.kernel": ("row", 0), "mlp.fc2.kernel": ("row", 0),
+              "mlp.w3.kernel": ("row", 0)}
+# trainable tensors the rank uses by its rows (APLA's columns)
+_TP_USED_BY_ROWS = ("attn.proj_wt",)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPEntry:
+    """One tensor's place under "tp": `kind` / `dim` of its share (None:
+    whole) and its gradient's model-axis rule ("sum" or "keep")."""
+    kind: str | None
+    dim: int | None
+    grad: str
+
+
+def tp_plan(model: nn.Module, n_model: int,
+            sequence_parallel: bool = False) -> dict:
+    """{parameter name: TPEntry} for every parameter of `model` and the
+    int8 leaves.  In a ViT block: the column- and row-parallel tensors are
+    shares, except where W8A8 keeps them whole (an int8 qkv with its bias;
+    an MLP with an int8 kernel, all of it); a tensor the rank uses by a
+    share, or (SP) applies to its token shard, has its gradient summed
+    over the model group; every other tensor (token prep, the final norm,
+    the heads: run replicated) keeps its gradient."""
+    from ..ops.quant import QuantizedKernel
+    quantized = {n for n, m in model.named_modules()
+                 if isinstance(m, QuantizedKernel)}
+    blocks = tuple(_stacked_blocks(model))
+    token_rule = "sum" if sequence_parallel else "keep"
+    plan = {}
+    for name in [n for n, _ in model.named_parameters()] + [
+            q + leaf for q in sorted(quantized)
+            for leaf in (".w_int8", ".scale")]:
+        pre = next((b for b in blocks if name.startswith(b)
+                    and re.match(r"\d+\.", name[len(b):])), None)
+        if pre is None:
+            plan[name] = TPEntry(None, None, "keep")
+            continue
+        idx, rest = name[len(pre):].split(".", 1)
+        blk = f"{pre}{idx}."
+        int8_qkv = blk + "attn.qkv.kernel" in quantized
+        int8_mlp = any(f"{blk}mlp.{d}.kernel" in quantized
+                       for d in ("fc1", "fc2", "w12", "w3"))
+        if any(name.startswith(q + ".") for q in quantized):
+            entry = TPEntry(None, None, "keep")
+        elif rest.startswith("attn.qkv.") and int8_qkv:
+            entry = TPEntry(None, None, "sum")        # used by its columns
+        elif rest.startswith("mlp.") and int8_mlp:
+            entry = TPEntry(None, None, token_rule)   # the MLP runs whole
+        elif rest in _TP_SHARDS:
+            entry = TPEntry(*_TP_SHARDS[rest], "sum")
+        elif rest in _TP_USED_BY_ROWS:
+            entry = TPEntry(None, None, "sum")
+        else:
+            entry = TPEntry(None, None, token_rule)
+        plan[name] = entry
     return plan
 
 
@@ -216,37 +344,83 @@ def _owner(model: nn.Module, name: str):
     return (model.get_submodule(mod_name) if mod_name else model), attr
 
 
+def _set(module: nn.Module, attr: str, t: torch.Tensor) -> None:
+    """`module.attr` = t, a buffer's or a (frozen) parameter's data."""
+    if attr in module._buffers:
+        module._buffers[attr] = t
+    else:
+        setattr(module, attr, nn.Parameter(t, requires_grad=False))
+
+
 @torch.no_grad()
 def shard_params(model: nn.Module, mesh: Mesh, policy: str = "replicated",
                  min_size: int = 2 ** 16) -> dict:
-    """Place `model`'s frozen parameters by `policy`: "replicated" leaves
+    """Place `model`'s frozen tensors by `policy`: "replicated" leaves
     them whole; "fsdp" keeps this rank's slice of each tensor of
-    `fsdp_plan` (the slice's own storage: the whole tensor is freed).
-    Returns the plan (name -> dim)."""
-    if policy in ("tp", "pp"):
-        raise NotImplementedError(f"param_sharding {policy!r} ({ROADMAP_A9})")
-    if policy not in ("replicated", "fsdp"):
+    `fsdp_plan` over the data group; "tp" this rank's share of each
+    column- and row-parallel frozen tensor of `tp_plan` over the model
+    group (the slice's own storage: the whole tensor is freed).  With a
+    model axis under "tp", or under any policy with `sequence_parallel`,
+    the model's ViTs run on the placement and each trainable tensor gets
+    its gradient rule.  Returns the sharded tensors (name -> dim)."""
+    from ..models.vit import ViT
+    if policy == "pp":
+        raise NotImplementedError(f"param_sharding 'pp' ({ROADMAP_A9})")
+    if policy not in ("replicated", "fsdp", "tp"):
         raise ValueError(f"unknown param_sharding policy: {policy!r}")
-    if policy == "replicated" or mesh.world == 1:
-        return {}
-    plan = fsdp_plan(model, mesh.world, min_size)
-    for name, dim in plan.items():
+    placed = mesh.n_model > 1 and (policy == "tp"
+                                   or mesh.sequence_parallel)
+    pl = Placement(mesh.n_model, mesh.model_index,
+                   mesh.sequence_parallel) if placed else None
+    for m in model.modules():
+        if isinstance(m, ViT):
+            m.placement = pl
+    out = {}
+    if placed:
+        for name, e in tp_plan(model, mesh.n_model,
+                               mesh.sequence_parallel).items():
+            owner, attr = _owner(model, name)
+            t = getattr(owner, attr)
+            if isinstance(t, nn.Parameter) and t.requires_grad:
+                t.model_grad = e.grad
+            elif policy == "tp" and e.kind is not None:
+                full_shape = tuple(t.shape)
+                idx = shard_index(e.kind, full_shape[e.dim], mesh.n_model,
+                                  mesh.model_index).to(t.device)
+                _set(owner, attr, t.data.index_select(e.dim, idx).clone())
+                owner.__dict__.setdefault("_tp_shards", {})[attr] = (
+                    e.kind, e.dim, full_shape)
+                out[name] = e.dim
+    if policy != "fsdp" or mesh.world == 1:
+        return out
+    for name, dim in fsdp_plan(model, mesh.world, min_size).items():
         owner, attr = _owner(model, name)
-        p = getattr(owner, attr)
-        full_shape = tuple(p.shape)
-        p.data = p.data.chunk(mesh.world, dim=dim)[mesh.rank].clone()
-        shards = owner.__dict__.setdefault("_fsdp_shards", {})
-        shards[attr] = (dim, full_shape)
-    return plan
+        t = getattr(owner, attr)
+        full_shape = tuple(t.shape)
+        _set(owner, attr,
+             t.data.chunk(mesh.world, dim=dim)[mesh.rank].clone())
+        owner.__dict__.setdefault("_fsdp_shards", {})[attr] = (dim,
+                                                               full_shape)
+        out[name] = dim
+    return out
 
 
 def is_sharded(model: nn.Module) -> bool:
-    return any(getattr(m, "_fsdp_shards", None) for m in model.modules())
+    return any(getattr(m, "_fsdp_shards", None)
+               or getattr(m, "_tp_shards", None) for m in model.modules())
 
 
 def _gather_dim(shard: torch.Tensor, dim: int) -> torch.Tensor:
     x = shard.movedim(dim, 0).contiguous()
     return collectives.all_gather(x).movedim(0, dim).contiguous()
+
+
+def _gather_share(shard: torch.Tensor, kind: str, dim: int) -> torch.Tensor:
+    """A TP share gathered whole over the model group."""
+    x = shard.movedim(dim, 0).contiguous()
+    parts = collectives.all_gather(x, collectives.MODEL).chunk(
+        collectives.model_size())
+    return unshard(list(parts), kind, 0).movedim(0, dim).contiguous()
 
 
 def _sharded_in(module: nn.Module, exclude=()):
@@ -263,10 +437,10 @@ def _sharded_in(module: nn.Module, exclude=()):
 
 @contextlib.contextmanager
 def gathered(module: nn.Module, exclude=()):
-    """The sharded frozen parameters under `module` (but not under the
-    modules of `exclude`) whole for the block: each is all-gathered into a
-    new tensor that the module holds until the block ends.  A no-op for an
-    unsharded module."""
+    """The FSDP-sharded frozen tensors under `module` (but not under the
+    modules of `exclude`) whole for the block: each is all-gathered over
+    the data group into a new tensor that the module holds until the block
+    ends.  A no-op for an unsharded module."""
     items = list(_sharded_in(module, exclude))
     if not items:
         yield
@@ -275,49 +449,71 @@ def gathered(module: nn.Module, exclude=()):
     for m, attr, dim in items:
         shard = getattr(m, attr)
         saved.append((m, attr, shard))
-        setattr(m, attr, nn.Parameter(_gather_dim(shard.detach(), dim),
-                                      requires_grad=False))
+        _set(m, attr, _gather_dim(shard.detach(), dim))
     try:
         yield
     finally:
         for m, attr, shard in saved:
-            setattr(m, attr, shard)
+            if attr in m._buffers:
+                m._buffers[attr] = shard
+            else:
+                setattr(m, attr, shard)
+
+
+def _shard_info(model: nn.Module, name: str):
+    """(FSDP (dim, full shape) or None, TP (kind, dim, full shape) or None)
+    of the tensor `name`."""
+    mod_name, _, attr = name.rpartition(".")
+    try:
+        owner = model.get_submodule(mod_name) if mod_name else model
+    except AttributeError:
+        return None, None
+    return ((getattr(owner, "_fsdp_shards", None) or {}).get(attr),
+            (getattr(owner, "_tp_shards", None) or {}).get(attr))
 
 
 def whole_state(model: nn.Module, state: dict) -> dict:
     """`state` (name -> tensor of `model`) with each tensor that `model`
-    holds sharded gathered whole; every rank must call it."""
+    holds sharded gathered whole (FSDP's over the data group, TP's over
+    the model group); every rank must call it."""
     if not is_sharded(model):
         return state
     out = {}
     for name, t in state.items():
-        owner, attr = _owner(model, name)
-        info = (getattr(owner, "_fsdp_shards", None) or {}).get(attr)
-        out[name] = _gather_dim(t.detach(), info[0]) if info else t
+        fsdp, tp = _shard_info(model, name)
+        t = t.detach()
+        if fsdp:
+            t = _gather_dim(t, fsdp[0])
+        if tp:
+            t = _gather_share(t, tp[0], tp[1])
+        out[name] = t
     return out
 
 
 def local_state(model: nn.Module, state: dict) -> dict:
     """`state` (name -> whole tensor) with the tensors that `model` holds
-    sharded cut to this rank's slice, so that it loads into the placed
-    model (`load_session` re-applies the placement)."""
+    sharded cut to this rank's share (TP's, then FSDP's slice of it), so
+    that it loads into the placed model (`load_session` re-applies the
+    placement)."""
     if not is_sharded(model):
         return state
-    w, r = collectives.world_size(), collectives.rank()
     out = dict(state)
     for name, t in state.items():
-        mod_name, _, attr = name.rpartition(".")
-        try:
-            owner = model.get_submodule(mod_name) if mod_name else model
-        except AttributeError:
-            continue
-        info = (getattr(owner, "_fsdp_shards", None) or {}).get(attr)
-        if info and tuple(t.shape) == info[1]:
-            out[name] = t.chunk(w, dim=info[0])[r].clone()
+        fsdp, tp = _shard_info(model, name)
+        if tp and tuple(t.shape) == tp[2]:
+            idx = shard_index(tp[0], tp[2][tp[1]], collectives.model_size(),
+                              collectives.model_rank()).to(t.device)
+            t = t.index_select(tp[1], idx)
+        if fsdp and tuple(t.shape) == fsdp[1]:
+            t = t.chunk(collectives.data_size(), dim=fsdp[0])[
+                collectives.data_rank()]
+        out[name] = t.clone() if t is not state[name] else t
     return out
 
 
 def resident_bytes(model: nn.Module, frozen_only: bool = True) -> int:
-    """Bytes of the (frozen) parameters this rank holds."""
+    """Bytes of the (frozen) parameters and the buffers (W8A8's int8
+    codes and scales, APLA's indices) this rank holds."""
     return sum(p.numel() * p.element_size() for p in model.parameters()
-               if not (frozen_only and p.requires_grad))
+               if not (frozen_only and p.requires_grad)) \
+        + sum(b.numel() * b.element_size() for b in model.buffers())

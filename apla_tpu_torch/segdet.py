@@ -76,8 +76,8 @@ from .parallel.launch import launch, torchrun_env
 from .parallel.mesh import local_state, make_mesh, shard_params, whole_state
 from .utils.logging import RunLogger
 
-PARALLEL_TODO = ("--param_sharding tp|pp, tensor, sequence and pipeline "
-                 "parallelism are not ported yet: ROADMAP A 9, second half")
+PARALLEL_TODO = ("--param_sharding pp, pipeline parallelism, is not "
+                 "ported yet: ROADMAP A 9")
 
 
 def _state(model):
@@ -96,8 +96,11 @@ def _state(model):
 
 
 def _place(model, mesh, policy, task):
-    """The frozen backbone placed by `policy` over the mesh's ranks."""
-    plan = shard_params(model, mesh, policy)
+    """The frozen backbone placed by `policy` over the mesh's ranks ("tp"
+    over this data-only mesh is "replicated", as JAX's `shard_params`
+    gives it: the model axis has one rank)."""
+    plan = shard_params(model, mesh, "replicated" if policy == "tp"
+                        else policy)
     if mesh.distributed:
         print(f"[{task}] {mesh.world} ranks ({mesh.backend}); frozen params "
               f"placed with policy '{policy}': {len(plan)} tensors sharded")
@@ -107,9 +110,12 @@ def _parallel_setup(n_devices, param_sharding, batch_size, device):
     """The data axis of a loop (`apla_tpu/segdet.py:_mesh_setup`): None
     when this process must first start the ranks (`n_devices` > 1 or
     torchrun, no group yet), else the mesh."""
-    if param_sharding not in ("replicated", "fsdp"):
+    if param_sharding == "pp":
         raise NotImplementedError(f"--param_sharding {param_sharding}: "
                                   f"{PARALLEL_TODO}")
+    if param_sharding not in ("replicated", "fsdp", "tp"):
+        raise ValueError(f"unknown param_sharding policy: "
+                         f"{param_sharding!r}")
     n = int(n_devices or 1)
     if batch_size % n:
         raise ValueError(f"batch_size {batch_size} not divisible by "

@@ -47,7 +47,7 @@ from torch import nn
 from ..apla.core import build_apla
 from ..data.device_augs import device_augment
 from ..models.vit import ViT, init_vit_, vit_features
-from ..parallel.collectives import pmean, reduce_gradients, world_size
+from ..parallel.collectives import data_size, pmean, reduce_gradients
 from ..parallel.mesh import batch_rows
 from ..train.checkpoint import load_aux_state, load_checkpoint, \
     save_checkpoint
@@ -481,7 +481,7 @@ class BYOLTrainer:
                 if bi < skip:
                     continue
                 m, extra = self.train_one(batch, epoch)
-                images_seen += batch["label"].shape[0] * world_size()
+                images_seen += batch["label"].shape[0] * data_size()
                 self.iters += 1
                 if self.iters % self.log_every == 0 or self.iters == 1:
                     rec = {("train_" + k if k == "loss" else k): float(v)

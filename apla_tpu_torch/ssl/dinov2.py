@@ -34,9 +34,9 @@ from ..data.device_augs import device_multicrop
 from ..models.vit import VIT_BUILDERS, ViT, trunc_normal, \
     vit_features
 from ..ops.proto_ce import proto_ce
-from ..parallel.collectives import (mesh_all_gather, mesh_average, pmean,
-                                    psum, rank, reduce_gradients,
-                                    world_size)
+from ..parallel.collectives import (data_rank, data_size, mesh_all_gather,
+                                    mesh_average, pmean, psum,
+                                    reduce_gradients)
 from ..parallel.mesh import batch_rows
 from ..train.optim import build_optimizer, global_norm
 from ..train.train_state import TrainState, weights_swapped
@@ -307,7 +307,7 @@ def sinkhorn_knopp_teacher(t_out, teacher_temp, n_iterations=3,
         Q = Q * sample_mask[None, :]
         B = torch.clamp(psum(sample_mask.sum()), min=1.0)
     else:
-        B = Q.shape[1] * world_size()
+        B = Q.shape[1] * data_size()
     K = Q.shape[0]
 
     def safe_div(q, s):
@@ -355,7 +355,7 @@ def koleo_loss(x, eps=1e-8):
     dots = torch.matmul(x, xa.t())
     n = x.shape[0]
     own = torch.zeros((n, xa.shape[0]), device=x.device)
-    own[torch.arange(n), rank() * n + torch.arange(n)] = 1.0    # self
+    own[torch.arange(n), data_rank() * n + torch.arange(n)] = 1.0    # self
     dots = dots - 2.0 * own
     nn_idx = torch.argmax(dots, dim=1)
     diff = x - xa[nn_idx]

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.vit import Dense, trunc_normal
-from ..parallel.collectives import psum_grad, world_size
+from ..parallel.collectives import data_size, psum_grad
 
 
 # --------------------------------------------------------------------------- #
@@ -64,13 +64,14 @@ def batch_norm(x, bn: BatchNorm, state: dict, train: bool,
     training the batch statistics normalise (gradients flow through them)
     and the running stats become momentum * old + (1 - momentum) * batch,
     with the biased variance; in eval the running stats normalise.  With
-    more than one rank the batch is the global one: the ranks' counts,
-    means and M2 combine through all-reduces that gradients flow through
-    (`parallel.collectives.psum_grad`), as JAX's statistics run over the
-    data-sharded batch."""
+    more than one data rank the batch is the global one: the data group's
+    counts, means and M2 combine through all-reduces that gradients flow
+    through (`parallel.collectives.psum_grad`), as JAX's statistics run
+    over the data-sharded batch (the ranks of a model group hold the same
+    rows, so the world group would count each row T times)."""
     xf = x.float()
     if train:
-        w = world_size()
+        w = data_size()
         if w > 1:
             m_r = xf.mean(dim=0)
             mean = psum_grad(m_r) / w       # every rank holds as many rows

@@ -22,6 +22,12 @@ waits on the host unless `skip_nonfinite` asks for it.
   once per update, before the norm and the clip
   (`parallel.collectives.reduce_gradients`), and the loss is the mean over
   ranks, so every rank takes the same update as the 1-device run.
+- On a model axis (`parallel.tensor`) the placement rides on the model
+  (`ViT.placement`, set by `parallel.mesh.shard_params`), so the train,
+  eval and embed steps run it as they are; the ranks of a model group
+  hold the same rows, the loss is averaged over the data group, and
+  `reduce_gradients` first sums over the model group each gradient the
+  rank took as a share (`parallel.mesh.tp_plan`).
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from ..parallel.collectives import any_rank, gather_rows, world_size
+from ..parallel.collectives import any_rank, data_size, gather_rows
 from ..utils.profiling import StepTimer, device_memory_stats
 from .checkpoint import load_checkpoint, save_checkpoint
 from .knn import knn_evaluate
@@ -201,7 +201,7 @@ class Trainer:
                     self.state, m = self.train_step(
                         self.state, self._device_batch(batch), lr,
                         self.generator)
-                    images_seen += batch["label"].shape[0] * world_size()
+                    images_seen += batch["label"].shape[0] * data_size()
                     self.iters += 1
                     timer.tick(sync_value=m["loss"])
                     prof = self._profile_step(prof)

@@ -15,6 +15,15 @@ functions of the merged params dict (what `utils.config.load_merged_params`
 returns, or an equivalent plain dict).  TPU-only knobs (`fused_vmem_mb`,
 `remat`) have no meaning here and are not read.
 
+The mesh (`init_mesh`, as `apla_tpu/wrapper.py:141-214` reads the knobs):
+`n_devices` is the total number of ranks; `tensor_parallel` T > 1 makes
+a (n_devices / T) x T mesh, defaults `param_sharding` to "tp" when it is
+unset (JAX's note), and with an explicit "replicated" or "fsdp" prints
+JAX's warning and runs them (the compute replicated over the model axis;
+"fsdp" shards over the data group); `sequence_parallel` needs a model
+axis.  The pipeline knobs (`pipeline_parallel`, `pp_microbatches > 1`,
+`param_sharding: pp`) raise, citing ROADMAP A 9.
+
 `init_model` follows the JAX order (`apla_tpu/wrapper.py:269-287`): the
 seeded model, then `model_params.pretrained` (a local DINOv2 `.pth`,
 `utils.pretrained.maybe_load_pretrained_backbone`), then
@@ -22,10 +31,7 @@ seeded model, then `model_params.pretrained` (a local DINOv2 `.pth`,
 port, `train.checkpoint.transfer_into`), then `quantize_frozen` (W8A8: the
 frozen qkv / fc1 / fc2 kernels in int8, before the optimizer is built).
 The SSL wrappers take the first two at the same points and refuse
-`quantize_frozen`, which the JAX SSL wrappers never read.  What the port
-does not have yet raises `NotImplementedError` naming its ROADMAP item:
-tensor, sequence and pipeline parallelism, `param_sharding` "tp" / "pp",
-and W8A8 training on more than one rank (ROADMAP A 9).
+`quantize_frozen`, which the JAX SSL wrappers never read.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from .data.loader import DataLoader
 from .models.classifier import init_classifier
 from .models.vit import VIT_BUILDERS, ViTConfig
 from .ops.quant import quantize_frozen_backbone
-from .parallel.mesh import make_mesh, shard_params
+from .parallel.mesh import ROADMAP_A9, make_mesh, shard_params
 from .train.checkpoint import transfer_into
 from .train.losses import get_criterion
 from .train.metrics import (ClassificationMetrics,
@@ -50,9 +56,6 @@ from .train.schedules import LRScheduler
 from .train.train_state import TrainState
 from .utils.config import EDict
 from .utils.pretrained import maybe_load_pretrained_backbone
-
-_ROADMAP_PARALLEL = ("ROADMAP A 9, second half: tensor, sequence and "
-                     "pipeline parallelism, W8A8 training at W > 1")
 
 
 def build_vit_config(params: dict) -> ViTConfig:
@@ -133,32 +136,65 @@ class DefaultWrapper:
             "transfer_learning_params") or EDict()
         self.device = resolve_device(self.system_params.get("device"))
         self._check_unported()
-        n_devices = self.system_params.get("n_devices")
-        self.mesh = make_mesh(int(n_devices) if n_devices else None)
-        if self.mesh.world > 1 and self.model_params.get("quantize_frozen"):
-            raise NotImplementedError(
-                "model_params.quantize_frozen with more than one rank "
-                f"({_ROADMAP_PARALLEL})")
+        self.mesh = self.init_mesh()
 
     # overridden by the SSL wrappers (the multi-crop strategy)
     def update_augmentation_strategy(self, parameters):
         return parameters
 
+    def init_mesh(self):
+        """The (data x model) mesh of `system_params`
+        (`apla_tpu/wrapper.py:141-214`): `n_devices` is the total number of
+        ranks, `tensor_parallel` the model axis."""
+        sp = self.system_params
+        n_devices = sp.get("n_devices")
+        n_model = int(sp.get("tensor_parallel") or 1)
+        seq = bool(sp.get("sequence_parallel"))
+        if n_model > 1:
+            policy = sp.get("param_sharding")
+            if policy is None:
+                sp["param_sharding"] = "tp"
+                print("tensor_parallel > 1: defaulting param_sharding "
+                      "to 'tp'")
+            elif policy != "tp":
+                print(f"WARNING: tensor_parallel={n_model} with "
+                      f"param_sharding '{policy}' replicates all compute "
+                      "across the model axis (use 'tp' unless this is a "
+                      "numerics A/B)")
+            total = int(n_devices) if n_devices else None
+            if total is not None and total % n_model:
+                raise ValueError(f"n_devices={total} does not split into a "
+                                 f"model axis of {n_model}")
+            mesh = make_mesh(None if total is None else total // n_model,
+                             n_model, seq)
+            if seq:
+                print("sequence_parallel: token stream sharded over the "
+                      "model axis")
+            return mesh
+        if seq:
+            raise ValueError("sequence_parallel needs a model axis: set "
+                             "tensor_parallel N")
+        return make_mesh(int(n_devices) if n_devices else None)
+
     def _check_unported(self):
         sp, mp = self.system_params, self.model_params
-        for knob in ("tensor_parallel", "pipeline_parallel",
-                     "pp_microbatches"):
+        if int(sp.get("pipeline_parallel") or 1) > 1:
+            if int(sp.get("tensor_parallel") or 1) > 1:
+                raise ValueError("pipeline_parallel and tensor_parallel both "
+                                 "use the mesh model axis: pick one")
+            if sp.get("sequence_parallel"):
+                raise ValueError(
+                    "sequence_parallel composes with tensor_parallel, not "
+                    "pipeline_parallel: pick one of PP or TP(+SP)")
+        for knob in ("pipeline_parallel", "pp_microbatches"):
             if int(sp.get(knob) or 1) > 1:
                 raise NotImplementedError(
-                    f"system_params.{knob}={sp[knob]} ({_ROADMAP_PARALLEL})")
-        if sp.get("sequence_parallel"):
+                    f"system_params.{knob}={sp[knob]} ({ROADMAP_A9})")
+        if sp.get("param_sharding") == "pp":
             raise NotImplementedError(
-                f"system_params.sequence_parallel ({_ROADMAP_PARALLEL})")
-        if sp.get("param_sharding") in ("tp", "pp"):
-            raise NotImplementedError(
-                f"param_sharding {sp['param_sharding']!r} "
-                f"({_ROADMAP_PARALLEL})")
-        if sp.get("param_sharding") not in (None, "replicated", "fsdp"):
+                f"param_sharding 'pp' ({ROADMAP_A9})")
+        if sp.get("param_sharding") not in (None, "replicated", "fsdp",
+                                            "tp"):
             raise ValueError(f"unknown param_sharding policy: "
                              f"{sp['param_sharding']!r}")
         if mp.get("quantize_frozen") and not self.is_supervised:
@@ -201,7 +237,7 @@ class DefaultWrapper:
         (`apla_tpu/wrapper.py:290-306`)."""
         policy = self.system_params.get("param_sharding") or "replicated"
         self.fsdp_plan = shard_params(self.model, self.mesh, policy)
-        if policy != "replicated":
+        if policy != "replicated" or self.mesh.n_model > 1:
             print(f"Frozen params placed with policy '{policy}' over "
                   f"mesh {self.mesh.shape}: {len(self.fsdp_plan)} tensors "
                   "sharded")

@@ -10,7 +10,7 @@ JPEG tree once on one CUDA card, in phases that each print a line and
 raise on failure:
 
   1. build   — compile the hand-written kernels from `apla_tpu_torch/csrc`
-               (eight sources), one nvcc per source, all started together.
+               (every source), one nvcc per source, all started together.
   2. kernel  — the fused APLA attention forward (two launches: the
                attention kernel, then the projection GEMM) against its
                plain PyTorch version on the card, bf16, at the served
@@ -257,8 +257,21 @@ raise on failure:
                at two ranks against one; 15d `segdet det --n_devices 2
                --param_sharding fsdp` for an epoch of 8b's set against one
                rank.
+  16. model axis — tensor and sequence parallelism and W8A8 at two ranks
+               (`apla_tpu_torch/parallel/tensor.py`), the ranks sharing
+               the card under gloo: rows 1 and 2 at a rank's share (qkv
+               [8, 257, 1152] of 6 heads, W [384, 768], the f32 partial)
+               against their plain versions with a control each, timed;
+               16a two accum-8 updates of the ImageNet recipe at
+               tensor_parallel 2 against phase 15's one-rank run (losses,
+               gradients, rows 1 and 2 in every block, resident frozen
+               bytes, model-axis bytes; rank 0 reading its own projection
+               partials must fail); 16b the same with sequence_parallel;
+               16c 15c's DINOv2 update at tensor_parallel 2 with
+               sequence_parallel; 16d W8A8 training at two data ranks
+               under fsdp (the int8 buffers sharded) against one rank.
 
-Phases 2-12 and 15 also run negative controls: the kernels made to compute what
+Phases 2-12, 15 and 16 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
 heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
 from the wrong columns or zeroed, rowsum(dp * p) dropped from ds, a key
@@ -283,6 +296,7 @@ Exits non-zero, printing no result, without a CUDA device.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import functools
@@ -296,6 +310,8 @@ import time
 
 import numpy as np
 import torch
+
+_T_IMPORTED = time.time()       # the script's own time, from here
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -1136,7 +1152,6 @@ def _resources(report: str) -> list[str]:
 
 
 def phase_build():
-    from concurrent.futures import ThreadPoolExecutor
 
     from apla_tpu_torch.ops import apla_proj_gemm, cuda_build
     from apla_tpu_torch.ops import fused_swin_attn, int8_matmul, mha, \
@@ -1147,7 +1162,7 @@ def phase_build():
                proto_ce.FWD_SOURCE, proto_ce.BWD_SOURCE, mha.BWD_SOURCE,
                int8_matmul.SOURCE)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(cuda_build.build_library, sources))
     for src in sources:
         cuda_build.load_library(src)
@@ -6741,7 +6756,8 @@ def _par_rel(a, b) -> float:
     return abs(a - b) / max(abs(b), 1e-12)
 
 
-def _par_agreement(tag, got, ref, loss_tol, grad_tol, keys=("loss",)):
+def _par_agreement(tag, got, ref, loss_tol, grad_tol, keys=("loss",),
+                   phase="15 parallel"):
     """Every update's loss terms and the first update's gradients of a
     W-rank run against the one-rank run; prints the readings."""
     loss, term = max((_par_rel(g[k], r[k]), k)
@@ -6751,20 +6767,21 @@ def _par_agreement(tag, got, ref, loss_tol, grad_tol, keys=("loss",)):
                             / g.norm().clamp(min=1e-30)), n)
                      for n, g in ref["grads"].items() if float(g.norm()) > 0)
     ok = loss <= loss_tol and grad <= grad_tol
-    print(f"[15 parallel] {tag}: worst |dloss|/loss {loss:.3e} ({term}; "
+    print(f"[{phase}] {tag}: worst |dloss|/loss {loss:.3e} ({term}; "
           f"bound {loss_tol:g}), worst ||dg||/||g|| {grad:.3e} ({name}; "
           f"bound {grad_tol:g}): {'within' if ok else 'OUTSIDE'}")
     return ok
 
 
 def phase_parallel(device):
+    """Phase 15; returns its launches and the one-rank runs (and 15b's
+    replicated rank) that phase 16 holds its model-axis runs to."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
         return _phase_parallel(device, tmp)
 
 
 def _phase_parallel(device, tmp):
     from apla_tpu_torch.parallel import launch as plaunch, runs
-    from apla_tpu_torch.ssl.dinov2 import DINOv2Wrapper
 
     t0 = time.perf_counter()
     # 15a: NCCL at W = 1
@@ -6842,8 +6859,8 @@ def _phase_parallel(device, tmp):
              ("sidecar_run", ("det", (img_dir, ann), det2), {})]
     t2 = time.perf_counter()
     rep, fsdp, fault, ssl_two, det_two = plaunch.launch(
-        runs.sequence, 2, args=(calls,), device="cuda", backend="gloo",
-        store_dir=os.path.join(tmp, "gloo"))
+        runs.sequence, 2, args=(calls, "15 ranks"), device="cuda",
+        backend="gloo", store_dir=os.path.join(tmp, "gloo"))
     print(f"[15b parallel] two ranks on one card (gloo): five runs in "
           f"{time.perf_counter() - t2:.1f} s")
     ok = all([_par_agreement(f"15b W=2 {name} vs W=1", run, one,
@@ -6905,7 +6922,281 @@ def _phase_parallel(device, tmp):
         raise SystemExit("15c/15d: the kernels did not run at two ranks")
     print(f"[15 parallel] done in {time.perf_counter() - t0:.1f} s; "
           f"launches {launches}")
-    return launches
+    # phase 16 holds its model-axis runs to these one-rank runs
+    return launches, {"one": one, "ssl_one": ssl_one, "rep": rep}
+
+
+# Phase 16 (model axis): tensor and sequence parallelism and W8A8 at two
+# ranks (apla_tpu_torch/parallel/tensor.py).  The card's machine has one
+# H100 and NCCL refuses two ranks on one card, so the ranks share it under
+# gloo, as 15b's do, on 15's PAR_CUTS.  First rows 1 and 2 alone at a
+# rank's shape under tensor parallelism (TP_SHAPE: ViT-B's 6 of 12 heads at
+# the b8 micro-batch; W its rows [384, 768]; k = 128) against their plain
+# versions, with a fault control each, timed.  16a: RECIPE at
+# tensor_parallel 2 (1 x 2 mesh), PAR_UPDATES accum-8 updates, against
+# phase 15's one-rank run: |dloss|/loss, the worst ||dg||/||g||, rows 1 and
+# 2 launched in every block of every micro-step, each rank's resident
+# frozen bytes against 15b's replicated rank, the model-axis bytes an
+# update, and rank 0 reading its own projection partials (a fault) must
+# fail the bound.  16b: 16a with sequence_parallel (TP_SP_UPDATES
+# updates).  16c: phase 6b's DINOv2
+# update at LayerScale 1.0 (as 15c) at tensor_parallel 2 with
+# sequence_parallel, against 15c's one-rank update: every loss term, the
+# gradients; rows 1, 2 and 10-12 launched.  16d: W8A8 training (RECIPE with
+# quantize_frozen: 12c's recipe on seeded weights instead of the import) at
+# two data ranks under fsdp against one rank: row 13 launched, the int8
+# buffers sharded.  The two-rank runs run in a group of their own that
+# `main` starts before phase 15 (`start_model_axis`), beside 15's (both
+# spend most of their time on the host: building the models, gloo's
+# staging through host memory); phase 16 reads them.  Bounds sit 2.5-5x
+# above the first readings (PERF.md §2, phase 16's first chip runs), none
+# loosened later.
+TP_SHAPE = (8, 257, 1152)
+TP_W = (384, 768)
+TP_K = 128
+# the first readings (PERF.md §6, phase 16): 16a/b 1.000e-4 and 8.559e-3
+# (the head's kernel; 1.014e-4 / 9.420e-3 before the qkv / fc1 backward
+# summed f32 partials), the fault 2.076e-4 / 0.699; 16c 7.731e-4
+# (koleo_loss) / 2.425e-2; 16d 6.818e-8 / 2.007e-3.  A bf16 rank of a
+# model group rounds its products at other points than one rank does, so
+# 16a/b read above 15b
+TP_LOSS_REL_TOL = 3e-4
+TP_GRAD_REL_TOL = 0.03
+TP_SSL_LOSS_REL_TOL = 2.5e-3
+TP_SSL_GRAD_REL_TOL = 0.075
+TP_W8A8_LOSS_REL_TOL = 2.5e-7
+TP_W8A8_GRAD_REL_TOL = 7.5e-3
+# 16b's updates: one (the sequence-parallel path is 16a's forward and
+# backward with other collectives; a second update buys ~10 s of gloo
+# staging and no path)
+TP_SP_UPDATES = 1
+
+
+def _rect_bounds(b, n, kk, width, k):
+    """(forward, backward) bounds of rows 1 and 2 at a rank's share: qkv
+    [b, n, 3K], W [K, width], the f32 partial out; the backward's g [b, n,
+    width], dqkv bf16 and dW_t [K, k] f32 (as `_attn_fwd_bound` and
+    `_attn_bwd_bound` count the square call)."""
+    fwd = _bound(b * (4 * n * n * kk + 2 * n * kk * width),
+                 2 * (3 * b * n * kk + kk * width) + 4 * b * n * width)
+    bwd = _bound(b * (12 * n * n * kk + 2 * n * kk * width
+                      + 2 * n * kk * k),
+                 2 * (3 * b * n * kk + kk * width + b * n * width
+                      + 3 * b * n * kk) + 4 * kk * k)
+    return fwd, bwd
+
+
+def _rect_kernels(device):
+    """Rows 1 and 2 at TP_SHAPE against their plain versions (one fault
+    control each), timed beside their bounds and the two-call yardstick;
+    the wrappers' launches made here are the checks', not the path's."""
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    gen = torch.Generator().manual_seed(SEED)
+    b, n, c3 = TP_SHAPE
+    kk, width = TP_W
+    heads, scale = kk // 64, 64 ** -0.5
+    qkv = torch.randn(TP_SHAPE, generator=gen).to(device, torch.bfloat16)
+    w = (torch.randn(TP_W, generator=gen) * width ** -0.5).to(
+        device, torch.bfloat16)
+    g = torch.randn((b, n, width), generator=gen).to(device, torch.bfloat16)
+    inds = torch.randperm(width, generator=gen)[:TP_K].to(device)
+    out = fa.fused_apla_attn_fwd(qkv, w, heads, scale, out_f32=True)
+    torch.cuda.synchronize()
+    ref = fa.fused_apla_attn_fwd_reference(qkv, w, heads, scale,
+                                           out_f32=True)
+    bound = KERNEL_REL_TOL * ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    w_short = w.clone()
+    w_short[-64:] = 0
+    control = (fa.fused_apla_attn_fwd(qkv, w_short, heads, scale,
+                                      out_f32=True) - ref).abs().max().item()
+    got = fa.fused_apla_attn_bwd(qkv, w, g, inds, heads, scale)
+    torch.cuda.synchronize()
+    want = fa.fused_apla_attn_bwd_reference(qkv, w, g, inds, heads, scale)
+    errs = _bwd_errors(got, want)
+    bad = _bwd_errors(fa.fused_apla_attn_bwd(qkv, w * 0.5, g, inds, heads,
+                                             scale), want)
+    b_err = max(e for e, _ in errs.values())
+    ok = err <= bound and all(e <= bd for e, bd in errs.values())
+    caught = control > bound and all(bad[o][0] > bad[o][1]
+                                     for o in ("dq", "dk", "dv"))
+    fwd_b, bwd_b = _rect_bounds(b, n, kk, width, TP_K)
+    lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
+    lout = _library_attn(lq, lw, heads, scale)
+    fwd = lambda: fa.fused_apla_attn_fwd(  # noqa: E731
+        qkv, w, heads, scale, out_f32=True)
+    bwd = lambda: fa.fused_apla_attn_bwd(qkv, w, g, inds,  # noqa: E731
+                                         heads, scale)
+    t = {"fwd": {"ms": _time_ms(fwd), "graph_ms": _graph_ms(fwd),
+                 "plain_ms": _time_ms(
+                     lambda: fa.fused_apla_attn_fwd_reference(
+                         qkv, w, heads, scale, out_f32=True), iters=5),
+                 "library_ms": None,
+                 "library_two_calls_ms": _time_ms(
+                     lambda: _library_attn(qkv, w, heads, scale)),
+                 "bound_ms": fwd_b[0], "bound_by": fwd_b[1],
+                 "max_abs_err": err},
+         "bwd": {"ms": _time_ms(bwd), "graph_ms": _graph_ms(bwd),
+                 "plain_ms": _time_ms(
+                     lambda: fa.fused_apla_attn_bwd_reference(
+                         qkv, w, g, inds, heads, scale), iters=5),
+                 "library_ms": None,
+                 "library_two_calls_ms": _time_ms(
+                     lambda: torch.autograd.grad(lout, (lq, lw), g,
+                                                 retain_graph=True)),
+                 "bound_ms": bwd_b[0], "bound_by": bwd_b[1],
+                 "max_abs_err": b_err}}
+    for name, x in t.items():
+        print(f"[16 model axis] row {1 if name == 'fwd' else 2} at a rank's "
+              f"share, qkv {list(TP_SHAPE)}, W {list(TP_W)}, k {TP_K}: "
+              f"{x['ms']:.4f} ms ({x['graph_ms']:.4f} from a CUDA graph), "
+              f"plain {x['plain_ms']:.4f}, two library calls "
+              f"{x['library_two_calls_ms']:.4f}, bound {x['bound_ms']:.4f} "
+              f"({x['bound_by']}, {x['bound_ms'] / x['graph_ms']:.1%} of it "
+              f"reached); max|err| {x['max_abs_err']:.6g}")
+    print(f"[16 model axis] forward f32 partial max|err| {err:.6g} (bound "
+          f"{bound:.6g}; control: last 64 rows of W skipped {control:.6g}); "
+          "backward " + ", ".join(f"{o} {e:.6g} (bound {bd:.6g})"
+                                  for o, (e, bd) in errs.items())
+          + "; control W x 0.5: " + ", ".join(
+              f"{o} {bad[o][0]:.6g}" for o in ("dq", "dk", "dv"))
+          + f" -> {'ok' if ok else 'FAIL'}, "
+          f"{'caught' if caught else 'NOT CAUGHT'}")
+    if not (ok and caught):
+        raise SystemExit("16: rows 1/2 at the rectangular shape disagree "
+                         "with their plain versions, or a control passed")
+    return t
+
+
+def start_model_axis(pool, device, tmp):
+    """Phase 16's recipes, and its five two-rank calls (16a, its fault,
+    16b, 16c, 16d) submitted to `pool` in a group of their own: the
+    future gives (their results, the group's seconds)."""
+    from apla_tpu_torch.parallel import launch as plaunch, runs
+    params = _run_params(RECIPE, PAR_CUTS, os.path.join(tmp, "r"), device)
+    ssl = _run_params(SSL_RECIPE, _eval_in_process(SSL_CUTS),
+                      os.path.join(tmp, "s1"), device)
+    for ld in ssl["dataloader_params"].values():
+        ld["num_workers"] = 0
+    ssl["model_params"]["transformers_params"]["student"]["layerscale"] = \
+        PAR_SSL_LAYERSCALE
+    w8 = copy.deepcopy(params)
+    w8["model_params"]["quantize_frozen"] = True
+    w8["training_params"]["save_dir"] = os.path.join(tmp, "w8")
+
+    def two(p, sp=False, **system):
+        p = copy.deepcopy(p)
+        p["system_params"].update(n_devices=2, **system)
+        if "tensor_parallel" in system:
+            p["system_params"]["sequence_parallel"] = sp
+        return p
+
+    calls = [("recipe_updates", (two(params, tensor_parallel=2),),
+              dict(updates=PAR_UPDATES, seed=SEED)),
+             ("recipe_updates", (two(params, tensor_parallel=2),),
+              dict(updates=1, seed=SEED, fault="own_projection")),
+             ("recipe_updates", (two(params, True, tensor_parallel=2),),
+              dict(updates=TP_SP_UPDATES, seed=SEED)),
+             ("recipe_updates", (two(ssl, True, tensor_parallel=2),
+                                 "dinov2"), dict(seed=SEED)),
+             ("recipe_updates", (two(w8, param_sharding="fsdp"),),
+              dict(updates=PAR_UPDATES, seed=SEED))]
+
+    def group():
+        t = time.perf_counter()
+        out = plaunch.launch(runs.sequence, 2, args=(calls, "16 ranks"),
+                             device="cuda", backend="gloo",
+                             store_dir=os.path.join(tmp, "gloo"))
+        return out, time.perf_counter() - t
+
+    return {"w8": w8, "tmp": tmp, "group": pool.submit(group)}
+
+
+def phase_model_axis(device, started, refs):
+    """Phase 16: `started` from `start_model_axis`, `refs` phase 15's
+    one-rank runs and its replicated rank."""
+    from apla_tpu_torch.parallel import runs
+    t0 = time.perf_counter()
+    times = _rect_kernels(device)
+    # beside the group's runs: a save_dir of its own
+    w8 = copy.deepcopy(started["w8"])
+    w8["training_params"]["save_dir"] = os.path.join(started["tmp"], "w8_1")
+    w8_one = runs.recipe_updates(w8, updates=PAR_UPDATES, seed=SEED)
+    t2 = time.perf_counter()
+    (tp, fault, sp, ssl_two, w8_two), group_s = started["group"].result()
+    print(f"[16 model axis] two ranks on one card (gloo): five runs in "
+          f"{group_s:.1f} s, started before phase 15 and run beside it "
+          f"(waited {time.perf_counter() - t2:.1f} s for them here)")
+    one = refs["one"]
+    ok = all([_par_agreement(f"16{tag} T=2 {name} vs one rank", run, one,
+                             TP_LOSS_REL_TOL, TP_GRAD_REL_TOL,
+                             phase="16 model axis")
+              for tag, name, run in (("a", "tp", tp), ("b", "tp + sp", sp))])
+    caught = not _par_agreement(
+        "16a control: rank 0 reads its own projection partials", fault, one,
+        TP_LOSS_REL_TOL, TP_GRAD_REL_TOL, phase="16 model axis")
+    depth, accum = 12, 8
+    expects = {"16a": depth * accum * PAR_UPDATES * 2,
+               "16b": depth * accum * TP_SP_UPDATES * 2}
+    launched = all((run["launches"]["fused_apla_attn_fwd"],
+                    run["launches"]["fused_apla_attn_bwd"])
+                   == (expects[tag], expects[tag])
+                   for tag, run in (("16a", tp), ("16b", sp)))
+    rep_bytes = refs["rep"]["frozen_bytes"][0]
+    for tag, run in (("16a", tp), ("16b", sp)):
+        alloc = [f"{(after - before) / 2**20:+.1f}" for before, after
+                 in run["allocated"]]
+        model = [c.get("model", 0) + c.get("model_gradients", 0)
+                 for c in run["counts"]]
+        print(f"[16 model axis] {tag}: resident frozen bytes by rank "
+              f"{run['frozen_bytes']} "
+              f"({[round(x / 2**20, 1) for x in run['frozen_bytes']]} MiB;"
+              f" 15b's replicated rank {round(rep_bytes / 2**20, 1)}"
+              f" MiB; memory_allocated change at placement {alloc} MiB), "
+              f"{len(run['plan'])} tensors sharded; model-axis bytes an "
+              f"update {model} (activations "
+              f"{[c.get('model', 0) for c in run['counts']]}, gradients "
+              f"{[c.get('model_gradients', 0) for c in run['counts']]}); "
+              f"rows 1/2 launched {run['launches']['fused_apla_attn_fwd']}/"
+              f"{run['launches']['fused_apla_attn_bwd']} (expected "
+              f"{expects[tag]} each); update s "
+              f"{[round(t, 3) for t in run['update_s']]} (15's one rank "
+              f"{[round(t, 3) for t in one['update_s']]}; both beside the "
+              f"other phase's runs on the one card)")
+    if not (ok and caught and launched):
+        raise SystemExit(f"16a/b: agreement {ok}, fault caught {caught}, "
+                         f"rows 1/2 in every block {launched}")
+    terms = tuple(k for k in refs["ssl_one"]["losses"][0]
+                  if k not in ("grad_norm",))
+    if not _par_agreement("16c DINOv2 T=2 + SP vs one rank", ssl_two,
+                          refs["ssl_one"], TP_SSL_LOSS_REL_TOL,
+                          TP_SSL_GRAD_REL_TOL, keys=terms,
+                          phase="16 model axis"):
+        raise SystemExit("16c: DINOv2 on a model axis disagrees with one "
+                         "rank")
+    if not (ssl_two["launches"]["proto_ce_fwd"]
+            and ssl_two["launches"]["fused_apla_attn_bwd"]):
+        raise SystemExit("16c: the kernels did not run on the model axis")
+    int8 = [n for n in w8_two["plan"] if n.endswith(".w_int8")]
+    print(f"[16 model axis] 16d W8A8 fsdp W=2: {len(int8)} int8 weights "
+          f"sharded, resident frozen bytes by rank {w8_two['frozen_bytes']}"
+          f" (one rank {w8_one['frozen_bytes']}); row 13 launched "
+          f"{w8_two['launches']['fused_int8_matmul']} times over the ranks")
+    if not (_par_agreement("16d W8A8 fsdp W=2 vs one rank", w8_two, w8_one,
+                           TP_W8A8_LOSS_REL_TOL, TP_W8A8_GRAD_REL_TOL,
+                           phase="16 model axis")
+            and int8 and w8_two["launches"]["fused_int8_matmul"]):
+        raise SystemExit("16d: W8A8 at two ranks disagrees with one rank, "
+                         "or its int8 buffers were not sharded")
+    # the model-axis runs' launches (rows 1 and 2 at the rank's share),
+    # and 16d's (W = 2: the square rows 1 and 2, row 13)
+    launches = {"model_axis": {}, "w8a8": dict(w8_two["launches"])}
+    for run in (tp, sp, ssl_two):
+        for k, v in run["launches"].items():
+            launches["model_axis"][k] = launches["model_axis"].get(k, 0) + v
+    print(f"[16 model axis] done in {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+    return launches, times
 
 
 def _det_losses(save_dir):
@@ -6959,7 +7250,18 @@ def main() -> int:
     recipe_launches, proto_launches, recipe_rates = timed(
         "13h-k", phase_recipes, device, keep, data_rates["loader_img_s"])
     ml_launches, ml_readings = timed("14", phase_multilabel, device)
-    par_launches = timed("15", phase_parallel, device)
+    # phase 16's two ranks start first and run beside phase 15; the pool
+    # is closed (its group waited for) whatever phase 15 does
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tp_tmp:
+        pool = concurrent.futures.ThreadPoolExecutor(1)
+        try:
+            started = start_model_axis(pool, device, tp_tmp)
+            par_launches, par_refs = timed("15", phase_parallel, device)
+            tp_launches, tp_times = timed("16", phase_model_axis, device,
+                                          started, par_refs)
+            secs["16 ranks, beside 15"] = started["group"].result()[1]
+        finally:
+            pool.shutdown()
     keep_dir.cleanup()
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
@@ -7025,7 +7327,8 @@ def main() -> int:
          serve_launches + fwd_launches + ssl_launches[0] + w8a8_launches[1]
          + sum(n[0] for n in v1_launches.values()) + p12["fwd"]
          + data_launches[0] + recipe_launches[0] + ml_launches[0]
-         + par_launches["fused_apla_attn_fwd"],
+         + par_launches["fused_apla_attn_fwd"]
+         + tp_launches["w8a8"]["fused_apla_attn_fwd"],
          {**fwd_times[FWD_TIMED[0]],
           "max_abs_err": max(max_err, v1_times["fwd"]["max_abs_err"])}),
         ("fused_apla_attn_bwd", "fused_apla_attn_bwd.cu",
@@ -7033,20 +7336,21 @@ def main() -> int:
          bwd_launches + ssl_launches[1]
          + sum(n[1] for n in v1_launches.values()) + p12["bwd"]
          + data_launches[1] + recipe_launches[1] + ml_launches[1]
-         + par_launches["fused_apla_attn_bwd"],
+         + par_launches["fused_apla_attn_bwd"]
+         + tp_launches["w8a8"]["fused_apla_attn_bwd"],
          {**bwd_times[main_shape],
           "max_abs_err": max(bwd_err, v1_times["bwd"]["max_abs_err"],
                              recipe_rates["nabirds"]["bwd_k8"][
                                  "max_abs_err"])}),
         ("proto_ce_fwd", "proto_ce_fwd.cu", "pallas_proto_ce.py:73",
-         ssl_launches[2] + proto_launches[0] + par_launches["proto_ce_fwd"],
-         proto_times["fwd"]),
+         ssl_launches[2] + proto_launches[0] + par_launches["proto_ce_fwd"]
+         + tp_launches["model_axis"]["proto_ce_fwd"], proto_times["fwd"]),
         ("proto_ce_dxs", "proto_ce_bwd.cu", "pallas_proto_ce.py:130",
-         ssl_launches[3] + proto_launches[1] + par_launches["proto_ce_dxs"],
-         proto_times["dxs"]),
+         ssl_launches[3] + proto_launches[1] + par_launches["proto_ce_dxs"]
+         + tp_launches["model_axis"]["proto_ce_dxs"], proto_times["dxs"]),
         ("proto_ce_dws", "proto_ce_bwd.cu", "pallas_proto_ce.py:150",
-         ssl_launches[4] + proto_launches[2] + par_launches["proto_ce_dws"],
-         proto_times["dws"]),
+         ssl_launches[4] + proto_launches[2] + par_launches["proto_ce_dws"]
+         + tp_launches["model_axis"]["proto_ce_dws"], proto_times["dws"]),
         ("mha_fwd", "mha_fwd.cu", "pallas_mha.py:66",
          full_serve_launches + full_fwd + par_launches["mha_fwd"],
          mha_times["fwd"]),
@@ -7075,8 +7379,16 @@ def main() -> int:
         # W8A8 training's (12c)
         ("int8_matmul", "int8_matmul.cu", "pallas_int8_matmul.py:33",
          w8a8_launches[0] + det_launches[2] + seg_launches[2] + p12["int8"]
-         + mask_launches[2],
+         + mask_launches[2] + tp_launches["w8a8"]["fused_int8_matmul"],
          {**int8_times[INT8_MAIN], "max_abs_err": int8_err}),
+        # rows 1 and 2 at a tensor-parallel rank's share (phase 16): qkv
+        # [8, 257, 1152] of 6 heads, W [384, 768], the f32 partial out
+        ("fused_apla_attn_fwd_tp", "apla_proj_gemm.cu",
+         "pallas_apla_attn.py:105",
+         tp_launches["model_axis"]["fused_apla_attn_fwd"], tp_times["fwd"]),
+        ("fused_apla_attn_bwd_tp", "fused_apla_attn_bwd.cu",
+         "pallas_apla_attn.py:131",
+         tp_launches["model_axis"]["fused_apla_attn_bwd"], tp_times["bwd"]),
     ]
     # library_ms: F.scaled_dot_product_attention (autograd through it for
     # the backward) computes the mha kernels' function (the forward's
@@ -7253,6 +7565,21 @@ def main() -> int:
     for name, n in par_launches.items():
         if n and name in extra:
             extra[name]["launches_parallel"] = n
+    # phase 16's: the model axis (rows 1 and 2 at the rank's share, whose
+    # entries follow; the prototype CE) and W8A8 at two data ranks
+    for name in ("proto_ce_fwd", "proto_ce_dxs", "proto_ce_dws"):
+        extra[name]["launches_model_axis"] = \
+            tp_launches["model_axis"][name]
+    extra["int8_matmul"]["launches_w8a8_two_ranks"] = \
+        tp_launches["w8a8"]["fused_int8_matmul"]
+    for name in ("fused_apla_attn_fwd_tp", "fused_apla_attn_bwd_tp"):
+        extra[name] = {"shape": {"qkv": list(TP_SHAPE), "w": list(TP_W),
+                                 "k": TP_K},
+                       "graph_ms": tp_times[name.split("_")[-2]]
+                       ["graph_ms"],
+                       "square_kernel_bits": "kept at K = C "
+                                             "(tools/compare_mha_fwd.py "
+                                             "--kernel fused, bwd)"}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"apla_tpu_torch/csrc/{src}",
@@ -7271,6 +7598,9 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    # on stderr: what the interpreter's start and exit add to the limit
+    print(f"chip_smoke: {time.time() - _T_IMPORTED:.1f} s from its imports "
+          "to the last line", file=sys.stderr)
     return 0
 
 

@@ -144,7 +144,9 @@ def test_gemm_argument_checks(case, match):
     if case == "f32":
         o = o.float()
     elif case == "w_shape":
-        w = torch.zeros(128, 64, dtype=bf)
+        # w [K, N] must meet o's K (a rectangular w of o's K is the
+        # tensor-parallel share: tests/test_torch_tensor_parallel.py)
+        w = torch.zeros(64, 128, dtype=bf)
     elif case == "width":
         o, w = torch.zeros(17, 96, dtype=bf), torch.zeros(96, 96, dtype=bf)
     elif case == "strided":
@@ -221,8 +223,10 @@ def test_fused_forward_routes_through_both_kernels(monkeypatch, b, n, c,
     # the GEMM reads the attention's output and writes the call's result
     assert g_args[0] == m_args[1] and g_args[1] == w.data_ptr()
     assert g_args[2] == out.data_ptr() != m_args[1]
-    assert g_args[3:8] == (b * n, c, g_plan.bn, g_plan.stages,
-                           g_plan.smem_bytes)
+    # M, K (the heads' width), N (the projection's), the plan, and bf16
+    # out (a tensor-parallel rank's call asks for its f32 partial)
+    assert g_args[3:10] == (b * n, c, c, g_plan.bn, g_plan.stages,
+                            g_plan.smem_bytes, 0)
     assert m_args[-1] == g_args[-1] == 7          # the current stream
     assert (tfa.fused_apla_attn_fwd.launches, tmha.mha_fwd.launches,
             pg.apla_proj_gemm.launches) == (before[0] + 1, *before[1:])

@@ -250,13 +250,15 @@ def test_bwd_routes_through_its_plans(monkeypatch, b, n, c, k, seg):
     attn, do_gemm, dw_gemm = tfa.bwd_plans(b, n, c, heads, kp, seg)
     assert args[0] == qkv.data_ptr() and args[1] == w.data_ptr()
     assert args[2] == g.data_ptr() and args[4] == dqkv.data_ptr()
-    assert args[10:17] == (b, n, c, heads, kp, 0.125, seg)
-    assert args[17:19] == tfa.dw_chunks(b * n, c, kp, 132)
-    assert list(args[19]) == list(attn.args()) + [
+    # the heads' width C, then the projection's width (C here: the
+    # square w; a tensor-parallel rank's w [C/T, C] passes C/T, then C)
+    assert args[10:18] == (b, n, c, c, heads, kp, 0.125, seg)
+    assert args[18:20] == tfa.dw_chunks(b * n, c, kp, 132)
+    assert list(args[20]) == list(attn.args()) + [
         do_gemm.bn, do_gemm.stages, do_gemm.smem_bytes,
         dw_gemm.bn, dw_gemm.stages, dw_gemm.smem_bytes]
-    assert args[20] == tfa.PARTS_ALL == 15 and args[21] == 7
-    assert part_args[20] == tfa.mha.PART_DW
+    assert args[21] == tfa.PARTS_ALL == 15 and args[22] == 7
+    assert part_args[21] == tfa.mha.PART_DW
     # the dO GEMM covers the B * N rows at C, the dW GEMM C x Kp
     assert (do_gemm.rows, do_gemm.width) == (b * n, c)
     assert (dw_gemm.rows, dw_gemm.width, dw_gemm.bn) == (c, kp, 128)

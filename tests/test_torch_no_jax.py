@@ -478,6 +478,14 @@ spec = dict(vit=dict(img_size=32, patch_size=8, embed_dim=32, depth=2,
                       "label": np.arange(4)}])
 run = launch.launch(runs.classifier_run, 2, args=(spec,), device="cpu")
 assert run["world"] == 2 and run["plan"] and np.isfinite(run["losses"]).all()
+# the model axis: tensor and sequence parallelism, W8A8 at T = 2
+from apla_tpu_torch.parallel import tensor  # noqa: F401
+for extra in (dict(tensor_parallel=2, sequence_parallel=True),
+              dict(tensor_parallel=2, quantize=True)):
+    run = launch.launch(runs.classifier_run, 2, args=(
+        dict(spec, policy="tp", **extra),), device="cpu")
+    assert run["n_model"] == 2 and run["counts"][0]["model"] > 0
+    assert np.isfinite(run["losses"]).all()
 
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked

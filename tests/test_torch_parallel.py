@@ -320,24 +320,33 @@ def test_rank_rows_follow_the_micro_batches():
 
 
 def test_refusals():
-    """What stays refused cites ROADMAP A 9; no path shrinks to one
-    process or moves to the CPU."""
-    with pytest.raises(NotImplementedError, match="A 9"):
+    """What stays refused, the pipeline, cites ROADMAP A 9; no path
+    shrinks to one process or moves to the CPU: a model axis or a data
+    axis without a process group raises.  "tp" on a one-rank mesh is
+    JAX's replicated placement (a model axis of one)."""
+    with pytest.raises(RuntimeError, match="process group"):
         make_mesh(n_model=2)
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(2)
+    with pytest.raises(ValueError, match="model axis"):
+        make_mesh(sequence_parallel=True)
     from apla_tpu_torch.models.vit import ViT, ViTConfig
-    for policy in ("tp", "pp"):
-        with pytest.raises(NotImplementedError, match="A 9"):
-            shard_params(ViT(ViTConfig(**VIT)), make_mesh(), policy)
+    with pytest.raises(NotImplementedError, match="A 9"):
+        shard_params(ViT(ViTConfig(**VIT)), make_mesh(), "pp")
+    vit = ViT(ViTConfig(**VIT))
+    assert shard_params(vit, make_mesh(), "tp") == {}
+    assert vit.placement is None
     with pytest.raises(ValueError, match="unknown"):
         shard_params(ViT(ViTConfig(**VIT)), make_mesh(), "zero")
 
 
 def test_w8a8_training_on_two_ranks_is_refused(monkeypatch):
-    """JAX trains W8A8 through the same placement; the port refuses it at
-    W > 1 until it has a test (ROADMAP A 9's next item)."""
+    """No longer refused: JAX trains W8A8 through the same placement, and
+    so does the port at W > 1 (the runs against JAX's step are
+    tests/test_torch_tensor_parallel.py's W8A8 cases).  The wrapper at
+    W = 2 takes `quantize_frozen` and quantizes the frozen kernels."""
     from apla_tpu_torch import wrapper as twrapper
+    from apla_tpu_torch.ops.quant import QuantizedKernel
     from apla_tpu_torch.parallel.mesh import Mesh
     from apla_tpu_torch.utils.config import load_merged_params
     params = load_merged_params(os.path.join(
@@ -346,8 +355,12 @@ def test_w8a8_training_on_two_ranks_is_refused(monkeypatch):
     params.model_params.quantize_frozen = True
     monkeypatch.setattr(twrapper, "make_mesh",
                         lambda n=None: Mesh(world=2, rank=0))
-    with pytest.raises(NotImplementedError, match="A 9"):
-        twrapper.DefaultWrapper(params)
+    w = twrapper.DefaultWrapper(params)
+    assert w.mesh.world == 2
+    w.model_params.n_classes = 10
+    w.init_model()
+    assert isinstance(w.model.backbone.blocks[0].mlp.fc1.kernel,
+                      QuantizedKernel)
 
 
 def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):

@@ -526,19 +526,27 @@ def test_cli_trains_the_four_stage_swin_t(tmp_path, capsys):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    """The placements of the rest of ROADMAP A 9 raise; `--n_devices 2`
-    and `--param_sharding fsdp` run (tests/test_torch_parallel_ssl.py), and
-    a batch that does not split over the ranks raises, as in JAX."""
+    """The pipeline's placement (ROADMAP A 9) raises; "tp" over the
+    side-cars' data-only mesh is the replicated placement, as JAX's
+    `shard_params` gives it (a model axis of one), and stays off the
+    CLI's choices, as in JAX; `--n_devices 2` and `--param_sharding fsdp`
+    run (tests/test_torch_parallel_ssl.py), and a batch that does not
+    split over the ranks raises, as in JAX."""
     img_dir, ann = make_coco(tmp_path)
     root = make_ade(tmp_path / "ade")
-    for policy in ("tp", "pp"):
-        with pytest.raises(NotImplementedError, match="A 9"):
-            segdet.train_segmentation(root, save_dir=str(tmp_path),
-                                      **{**SEG_KW,
-                                         "param_sharding": policy})
-        with pytest.raises(NotImplementedError, match="A 9"):
-            segdet.train_detection(img_dir, ann, save_dir=str(tmp_path),
-                                   **{**KW, "param_sharding": policy})
+    with pytest.raises(NotImplementedError, match="A 9"):
+        segdet.train_segmentation(root, save_dir=str(tmp_path),
+                                  **{**SEG_KW, "param_sharding": "pp"})
+    with pytest.raises(NotImplementedError, match="A 9"):
+        segdet.train_detection(img_dir, ann, save_dir=str(tmp_path),
+                               **{**KW, "param_sharding": "pp"})
+    mesh = segdet._parallel_setup(1, "tp", 2, "cpu")
+    assert mesh.world == 1 and mesh.n_model == 1
+    from apla_tpu_torch.models.vit import ViT, ViTConfig
+    vit = ViT(ViTConfig(img_size=32, patch_size=8, embed_dim=64, depth=2,
+                        num_heads=4))
+    segdet._place(vit, mesh, "tp", "seg")
+    assert vit.placement is None
     with pytest.raises(ValueError, match="not divisible by n_devices 3"):
         segdet.train_detection(img_dir, ann, save_dir=str(tmp_path),
                                **{**KW, "n_devices": 3})
