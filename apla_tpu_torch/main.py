@@ -18,9 +18,11 @@ and for ranks that share a card the backend is gloo, else NCCL):
 mesh, tensor-parallel under `--param_sharding tp` (its default there),
 `--sequence_parallel` splits the token stream over the model axis too,
 and `--param_sharding fsdp` shards the frozen backbone over the data
-axis.  The pipeline's flags (`--pipeline_parallel`, `--pp_microbatches`,
-`--param_sharding pp`) raise `NotImplementedError` naming ROADMAP A 9,
-through `DefaultWrapper`.
+axis.  `--pipeline_parallel S` (S divides N) makes the model axis a
+GPipe pipeline of S stages (`parallel.pipeline`) with
+`--pp_microbatches M` microbatches (default S) a rank's micro-step, each
+rank keeping its stage's blocks under `--param_sharding pp` (its default
+there); every objective and wrapper takes it.
 """
 
 from __future__ import annotations

@@ -22,12 +22,18 @@ for the trunk; dropout and drop-path draw for the global batch
 the blocks run tensor-parallel, and sequence-parallel between them
 (`parallel.tensor`): token prep runs whole, the stream is split over the
 model group, and the trunk's end gathers it back before the final norm.
-Not ported yet: `pipeline` (ROADMAP A 9), remat,
-`vit_intermediate_layers`.
+With a pipeline (`ViT.pipeline`, set by `shard_params` with a
+`parallel.pipeline.PipelineSpec`: JAX's `pipeline=`) the blocks run as
+its stages (`parallel.pipeline.pipeline_blocks`); token prep and the final
+norm stay outside it, on every stage.  Each block draws its dropout and
+drop-path from a generator of its own (`parallel.mesh.block_seeds`), so a
+pipeline stage draws what the one-rank trunk draws.  Not ported yet:
+remat, `vit_intermediate_layers`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -39,7 +45,8 @@ from torch import nn
 from ..ops.attention import apla_attention, dropout, multi_head_attention
 from ..ops.quant import maybe_quantized_dot
 from ..parallel import collectives, tensor as tp
-from ..parallel.mesh import gathered, rand_rows
+from ..parallel.mesh import block_seeds, gathered, rand_rows, seeded
+from ..parallel.pipeline import pipeline_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,12 +205,14 @@ class ViT(nn.Module):
     trained on another grid than `cfg.img_size` (the dinov2 518 grid served
     at 224); the forward interpolates it to the input's grid.
     `placement`: the model axis it runs on (a `parallel.tensor.Placement`;
-    None: whole on this rank)."""
+    None: whole on this rank); `pipeline`: the pipeline its trunk runs
+    through (a `parallel.pipeline.PipelineSpec`; None: none)."""
 
     def __init__(self, cfg: ViTConfig, num_pos_tokens: int | None = None):
         super().__init__()
         self.cfg = cfg
         self.placement = None
+        self.pipeline = None
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg)
         self.cls_token = _param(1, 1, d)
@@ -485,24 +494,63 @@ def _trunk(vit, x, cfg, return_all_tokens, deterministic, generator, masks,
         cfg = dataclasses.replace(cfg, attn_segment_len=T)
     pl, n = vit.placement, x.shape[1]
     sp = pl is not None and pl.sequence_parallel
+    draws = not deterministic and generator is not None and (
+        cfg.drop_rate > 0 or cfg.attn_drop_rate > 0 or cfg.drop_path_rate > 0)
+    seeds = block_seeds(generator, len(vit.blocks)) if draws \
+        else [None] * len(vit.blocks)
+    rates = drop_path_rates(cfg)
+    dev = generator.device if draws else None
+    spec = vit.pipeline
+    if spec is not None and spec.n_stages > 1:
+        if return_layers:
+            raise ValueError("return_layers is not supported with the "
+                             "pipeline")
+        if pack_segments > 1:
+            raise ValueError("crop packing + pipeline unsupported (the "
+                             "packed block-diagonal sequence conflicts "
+                             "with the pipeline's batch split)")
+        if pl is not None:
+            raise ValueError("sequence parallel + pipeline unsupported")
+
+        def run_block(h, i, m):
+            return _block_forward(h, vit.blocks[i], cfg, rates[i],
+                                  seeded(seeds[i], dev), deterministic)
+
+        stage = spec.stage_blocks(len(vit.blocks))
+        params = [p for i in stage for p in vit.blocks[i].parameters()
+                  if p.requires_grad]
+        trainable = any(p.requires_grad for p in vit.blocks.parameters())
+        with contextlib.ExitStack() as stack:
+            for i in stage:          # FSDP: the stage's blocks whole
+                stack.enter_context(gathered(vit.blocks[i]))
+            x = pipeline_blocks(x, spec, len(vit.blocks), run_block, params,
+                                deterministic, trainable)
+        return _trunk_end(vit, x, cfg, return_all_tokens, pack_segments)
     if sp:
         x = collectives.split_tokens(x)
     layers = []
-    for blk, dp_rate in zip(vit.blocks, drop_path_rates(cfg)):
+    for i, blk in enumerate(vit.blocks):
+        gen = seeded(seeds[i], dev) if draws else generator
         with gathered(blk):
             if pl is None:
-                x = _block_forward(x, blk, cfg, dp_rate, generator,
+                x = _block_forward(x, blk, cfg, rates[i], gen,
                                    deterministic)
             else:
-                x = _block_forward_placed(x, blk, cfg, dp_rate, generator,
+                x = _block_forward_placed(x, blk, cfg, rates[i], gen,
                                           deterministic, pl, n)
         if return_layers:
             layers.append(collectives.gather_trunk(x, n) if sp else x)
     if sp:
         x = collectives.gather_trunk(x, n)
-    x = layer_norm(x, vit.norm.scale, vit.norm.bias, cfg.norm_eps)
     if return_layers:
+        x = layer_norm(x, vit.norm.scale, vit.norm.bias, cfg.norm_eps)
         return x, layers
+    return _trunk_end(vit, x, cfg, return_all_tokens, pack_segments)
+
+
+def _trunk_end(vit, x, cfg, return_all_tokens, pack_segments):
+    """The final norm, the crops unpacked, the cls token or every token."""
+    x = layer_norm(x, vit.norm.scale, vit.norm.bias, cfg.norm_eps)
     if pack_segments > 1:
         Bb, _, D = x.shape
         x = x.reshape(Bb, pack_segments, -1, D).transpose(0, 1) \

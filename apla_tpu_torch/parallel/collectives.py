@@ -24,6 +24,12 @@ process per rank (`parallel.launch`) and issues them itself:
                               operators below); gather_dim1 and
                               reduce_scatter_dim1, which
                               `parallel.tensor`'s column products call
+  ppermute over 'model'       stage_send / stage_recv (point to point
+  (the pipeline)              between neighbouring stages of the model
+                              group)
+  psum of the last stage's    stage_broadcast (from the last stage to
+  outputs (the pipeline)      the model group; `parallel.pipeline`'s
+                              backward keeps the last stage's cotangent)
 
 The groups.  `parallel.mesh.make_mesh(n_data, n_model)` records the mesh
 here (`set_axes`): global rank r is data index r // T and model index
@@ -72,11 +78,20 @@ reduce-scatter, so `scatter_tokens` there is an all-reduce and a slice.
 That is the design for gloo (ranks sharing one card, where NCCL refuses),
 decided from the backend, and printed once per kind.
 
+Point to point (the pipeline's): gloo sends and receives host tensors
+only, so a CUDA tensor is copied to host memory for its send and a
+received one copied back; under NCCL they stay on the card.  Half
+precision tensors travel as their bytes.  Every message of a
+pipelined trunk call carries the same tag (`PIPE_TAG`): messages between
+two ranks arrive in the order they were sent, and every rank sends and
+receives in the same order (`parallel.pipeline`).
+
 `COUNTS` holds the bytes passed to each collective, by kind:
 "gradients" (the once-per-update data-axis reduction of the trainable
 gradients), "model_gradients" (its model-axis sum), "model" (the
-operators' activations and cotangents), "all_reduce" and "all_gather"
-(FSDP's gathers among them).
+operators' activations and cotangents), "pipeline" (what a stage sends
+and receives, and the broadcast of the trunk's output), "all_reduce"
+and "all_gather" (FSDP's gathers among them).
 """
 
 from __future__ import annotations
@@ -447,6 +462,86 @@ def gather_trunk(x, n: int):
 
 
 # --------------------------------------------------------------------------- #
+# the model axis: the pipeline's stages
+# --------------------------------------------------------------------------- #
+
+PIPE_TAG = 24
+
+
+def _stage_rank(stage: int) -> int:
+    """The global rank of `stage` in this rank's model group."""
+    return data_rank() * model_size() + int(stage)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A half-precision tensor as its bytes (a view: gloo has no int16,
+    and not every build's gloo takes bfloat16)."""
+    return t.view(torch.uint8) if t.dtype in (torch.bfloat16,
+                                              torch.float16) else t
+
+
+def _wire_device(device) -> torch.device:
+    """Where the backend sends and receives: host memory under gloo, the
+    tensor's card under NCCL."""
+    return torch.device("cpu") if dist.get_backend() == "gloo" \
+        else torch.device(device)
+
+
+class _Sent:
+    """A send in flight: the work and the tensor it reads, kept alive
+    until `wait`."""
+
+    def __init__(self, work, buf):
+        self.work, self.buf = work, buf
+
+    def wait(self) -> None:
+        self.work.wait()
+        self.buf = None
+
+
+def stage_send(t: torch.Tensor, stage: int) -> _Sent:
+    """Send `t` to `stage` of this rank's model group without waiting
+    for it to be received; `.wait()` the result before the step ends."""
+    t = t.detach().contiguous()
+    _count("pipeline", t)
+    buf = _bits(t.to(_wire_device(t.device)))
+    work = dist.isend(buf, dst=_stage_rank(stage), group=_AXES.model_group,
+                      tag=PIPE_TAG)
+    return _Sent(work, buf)
+
+
+def stage_recv(shape, dtype, device, stage: int) -> torch.Tensor:
+    """The next tensor (`shape`, `dtype`) that `stage` of this rank's
+    model group sent here, on `device`."""
+    buf = torch.empty(tuple(shape), dtype=dtype,
+                      device=_wire_device(device))
+    dist.recv(_bits(buf), src=_stage_rank(stage), group=_AXES.model_group,
+              tag=PIPE_TAG)
+    _count("pipeline", buf)
+    return buf.to(device)
+
+
+def stage_broadcast(t: torch.Tensor, stage: int) -> torch.Tensor:
+    """`stage`'s `t` on every rank of the model group, in place (gloo
+    takes CUDA tensors for broadcast)."""
+    _count("pipeline", t)
+    dist.broadcast(_bits(t), src=_stage_rank(stage), group=_AXES.model_group)
+    return t
+
+
+def gather_objects(obj, group=MODEL) -> list:
+    """Every rank's picklable `obj` over `group`, in rank order."""
+    if not initialized():
+        return [obj]
+    g, n, _ = _resolve(group)
+    if _idle(group, g, n):
+        return [obj]
+    out = [None] * n
+    dist.all_gather_object(out, obj, group=g)
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # the gradients
 # --------------------------------------------------------------------------- #
 
@@ -465,9 +560,17 @@ def _flat_reduce(grads, kind, group, divide) -> None:
             off += g.numel()
 
 
-# a trainable tensor's model-axis rule (`parallel.mesh.tp_plan` sets it on
-# the parameter as `model_grad`): "sum" where the rank's use was a share
-MODEL_SUM = "sum"
+# a trainable tensor's model-axis rule (`parallel.mesh.tp_plan` and
+# `pp_plan` set it on the parameter as `model_grad`): "sum" where the
+# rank's use was a share (or, in a pipeline, where only some stages' use
+# reaches it); "stage" where the tensor is a pipeline stage's own, held by
+# that stage alone: never reduced over the model group, its norms summed
+# over it; anything else ("keep") where every rank computed the same
+MODEL_SUM, MODEL_STAGE = "sum", "stage"
+
+
+def is_stage_owned(p) -> bool:
+    return getattr(p, "model_grad", None) == MODEL_STAGE
 
 
 @torch.no_grad()
@@ -475,17 +578,21 @@ def reduce_gradients(params) -> None:
     """The `.grad` of `params` reduced in place, once per update after
     accumulation and before the clip: first summed over the model group
     where the parameter's `model_grad` rule is "sum" (the rank used a
-    slice of it, or applied it to its token shard), then averaged over the
-    data group (one all-reduce of the flattened gradients a dtype, then
-    / D)."""
+    slice of it, or applied it to its token shard; a rank whose use did
+    not reach it adds zeros), then averaged over the data group (one
+    all-reduce of the flattened gradients a dtype, then / D)."""
     if not initialized():
         return
-    grads = [p.grad for p in params if p.grad is not None]
     if model_size() > 1:
+        for p in params:
+            if p.grad is None and getattr(p, "model_grad", None) == \
+                    MODEL_SUM:
+                p.grad = torch.zeros_like(p)
         shares = [p.grad for p in params if p.grad is not None
                   and getattr(p, "model_grad", None) == MODEL_SUM]
         if shares:
             _flat_reduce(shares, "model_gradients", MODEL, 1)
+    grads = [p.grad for p in params if p.grad is not None]
     g, n, _ = _resolve(DATA)
     if not _idle(DATA, g, n):
         _flat_reduce(grads, "gradients", DATA, n)

@@ -7,9 +7,10 @@ every device, `devices.reshape(n_data, n_model)` with axes ("data",
 records its place: global rank r is data index r // T and model index
 r % T (a model group is T consecutive ranks, on one node the NVLink
 neighbours), and the two sets of groups are made with `dist.new_group`
-(`collectives.set_axes`).  The pipeline (`pp`) waits: ROADMAP A 9.
+(`collectives.set_axes`).  A pipeline's stages are the model axis too:
+stage s is model index s.
 
-- `shard_params(model, mesh, "replicated" | "fsdp" | "tp")`: the
+- `shard_params(model, mesh, "replicated" | "fsdp" | "tp" | "pp")`: the
   trainable tensors stay whole on every rank; under "fsdp" each large
   frozen tensor (W8A8's int8 buffers among them) keeps only this rank's
   slice over the data group (`fsdp_plan`, JAX's `fsdp_sharding_tree`
@@ -21,10 +22,20 @@ neighbours), and the two sets of groups are made with `dist.new_group`
   drops the module's reference after it: what an op saved for its
   backward (the frozen projection that row 2's dO = g W^T reads) lives
   until that backward, as the replicated run's does.
+- With a `pipeline` (`parallel.pipeline.PipelineSpec`) every ViT of the
+  model runs its trunk through it (`ViT.pipeline`).  Under "pp"
+  (`pp_plan`, JAX's `pp_sharding_tree`) a rank keeps only its stage's
+  blocks, frozen and trainable: every tensor of another stage's block is
+  an empty placeholder of its rank, so names and the optimizer's order
+  stay those of the whole model; under "replicated" and "fsdp" it keeps
+  every block as those policies do, and runs its stage's.
 - Each trainable tensor's model-axis gradient rule is recorded once, by
-  `tp_plan`, on the parameter (`model_grad`): "sum" where the rank's use
-  was a share, "keep" where every rank of the group computed the same;
-  `collectives.reduce_gradients` reads it.
+  `tp_plan` or `pp_plan`, on the parameter (`model_grad`): "sum" where
+  the rank's use was a share (in a pipeline: token prep, whose cotangent
+  stage 0 alone receives, and under "replicated" / "fsdp" the blocks,
+  each stage's gradients those of its own), "stage" where a stage alone
+  holds the tensor, "keep" where every rank of the group computed the
+  same; `collectives.reduce_gradients` reads it.
 - `rank_rows(n, mesh, accum)`: the positions of the global batch this
   rank holds, by its data index (the T ranks of a model group hold the
   same rows).  JAX's micro-batch i is rows [i B/accum, (i+1) B/accum) of
@@ -33,13 +44,17 @@ neighbours), and the two sets of groups are made with `dist.new_group`
 - `rand_rows`: a random draw for the rank's rows, drawn for the global
   batch and sliced, so every rank's generator moves alike and the rank
   gets the 1-device run's values (JAX's draws under sharding are the
-  unsharded ones).
+  unsharded ones); inside `micro_rows` (a pipeline microbatch) the draw
+  is the rank's whole micro-step's, and the microbatch takes its rows.
+  `block_seeds` gives each ViT block a generator of its own, so a
+  pipeline stage draws what its blocks draw in the one-rank trunk.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import re
 
 import numpy as np
@@ -48,8 +63,6 @@ from torch import nn
 
 from . import collectives
 from .tensor import Placement, shard_index, unshard
-
-ROADMAP_A9 = "ROADMAP A 9: pipeline parallelism"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,12 +197,37 @@ def batch_rows(rows: int):
         _ROWS = saved
 
 
+_MICRO: tuple | None = None     # (start, stop, rows) of a microbatch
+
+
+@contextlib.contextmanager
+def micro_rows(start: int, stop: int, rows: int):
+    """Within the block, a draw whose leading dim is stop - start (a
+    pipeline microbatch) is the draw for the rank's `rows` rows, of which
+    it takes [start, stop)."""
+    global _MICRO
+    saved = _MICRO
+    _MICRO = (int(start), int(stop), int(rows))
+    try:
+        yield
+    finally:
+        _MICRO = saved
+
+
 def rand_rows(shape, generator, device) -> torch.Tensor:
     """`torch.rand(shape)` for this rank's rows.  Inside `batch_rows(m)`
     with D > 1 and a leading dim of k * m (k micro-batches or stacked
     crops of m rows each), the draw is [k, D, m, ...] (the 1-device run's
-    [k * D * m, ...]) and the rank takes [:, data index]."""
+    [k * D * m, ...]) and the rank takes [:, data index].  Inside
+    `micro_rows`, that draw is made for the rank's rows and sliced."""
     shape = tuple(shape)
+    if _MICRO is not None and shape and shape[0] == _MICRO[1] - _MICRO[0]:
+        start, stop, rows = _MICRO
+        return _rank_rand((rows,) + shape[1:], generator, device)[start:stop]
+    return _rank_rand(shape, generator, device)
+
+
+def _rank_rand(shape, generator, device) -> torch.Tensor:
     kw = dict(generator=generator, device=device)
     if _ROWS is None or not shape or shape[0] % _ROWS[2]:
         return torch.rand(shape, **kw)
@@ -197,6 +235,25 @@ def rand_rows(shape, generator, device) -> torch.Tensor:
     k = shape[0] // m
     full = torch.rand((k, w, m) + shape[1:], **kw)
     return full[:, r].reshape(shape)
+
+
+def block_seeds(generator: torch.Generator, n: int) -> list:
+    """`n` seeds, one per ViT block, from `generator`'s state (read on the
+    host: no wait on the device), which then moves on by one draw so that
+    the next trunk call gets others."""
+    state = generator.get_state().numpy().tobytes()
+    seeds = [int.from_bytes(hashlib.blake2b(
+        state + i.to_bytes(4, "little"), digest_size=8).digest(),
+        "little") >> 1 for i in range(n)]
+    torch.rand((1,), generator=generator, device=generator.device)
+    return seeds
+
+
+def seeded(seed: int | None, device) -> torch.Generator | None:
+    """A generator on `device` seeded with `seed` (None: None)."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 
@@ -339,6 +396,93 @@ def tp_plan(model: nn.Module, n_model: int,
     return plan
 
 
+# --------------------------------------------------------------------------- #
+# PP: the pipeline's stages on the model axis
+# --------------------------------------------------------------------------- #
+
+# a ViT's token prep (what the trunk runs before its blocks)
+_TOKEN_PREP = ("patch_embed.", "cls_token", "pos_embed", "register_tokens",
+               "mask_token")
+
+
+@dataclasses.dataclass(frozen=True)
+class PPEntry:
+    """One tensor's place under a pipeline: `stage` that holds it under
+    "pp" (None: every rank) and its gradient's model-axis rule."""
+    stage: int | None
+    grad: str
+
+
+def pp_plan(model: nn.Module, n_stages: int, stage_owned: bool = True
+            ) -> dict:
+    """{parameter or buffer name: PPEntry} for every tensor of `model`,
+    by JAX's `pp_sharding_tree`: each tensor of a ViT block (JAX's stacked
+    [L, ...] leaf) belongs to stage i // (L / S) when S divides the depth
+    L, every other tensor to every rank.  Gradient rules: a block's
+    trainable tensor is "stage" (`stage_owned`, the "pp" policy) or "sum"
+    (the other policies keep every block, and a stage's gradient reaches
+    only its own); a ViT's token prep is "sum" (stage 0 alone receives
+    the stream's cotangent); anything else (the final norm, the heads:
+    every stage runs them on the broadcast output) "keep"."""
+    from ..models.vit import ViT
+    n = int(n_stages)
+    stacked = _stacked_blocks(model)
+    preps = tuple((name + "." if name else "") + leaf
+                  for name, m in model.named_modules() if isinstance(m, ViT)
+                  for leaf in _TOKEN_PREP)
+    plan = {}
+    for name, _ in list(model.named_parameters()) + list(
+            model.named_buffers()):
+        pre = next((b for b in stacked if name.startswith(b)
+                    and re.match(r"\d+\.", name[len(b):])), None)
+        if pre is not None:
+            depth = stacked[pre]
+            i = int(name[len(pre):].split(".", 1)[0])
+            stage = i // (depth // n) if n > 1 and depth % n == 0 else None
+            rule = "stage" if stage is not None and stage_owned else "sum"
+            plan[name] = PPEntry(stage, rule)
+        else:
+            plan[name] = PPEntry(None, "sum" if name.startswith(preps)
+                                 else "keep")
+    return plan
+
+
+def _to_placeholder(owner: nn.Module, attr: str, t: torch.Tensor) -> None:
+    """`owner.attr` becomes an empty tensor of `t`'s rank, dtype and
+    device (a parameter stays one, trainable as it was)."""
+    empty = t.data.new_empty((0,) * t.dim())
+    if attr in owner._buffers:
+        owner._buffers[attr] = empty
+    else:
+        setattr(owner, attr, nn.Parameter(empty,
+                                          requires_grad=t.requires_grad))
+
+
+def _place_pipeline(model: nn.Module, mesh: Mesh, policy: str,
+                    pipeline) -> dict:
+    """The pipeline's placement (see `shard_params`); returns the
+    stage-placed tensors (name -> stage) under "pp", else {}."""
+    from ..models.vit import ViT
+    for m in model.modules():
+        if isinstance(m, ViT):
+            m.pipeline, m.placement = pipeline, None
+    pp = policy == "pp"
+    out = {}
+    for name, e in pp_plan(model, pipeline.n_stages, pp).items():
+        owner, attr = _owner(model, name)
+        t = getattr(owner, attr)
+        if pp and e.stage is not None:
+            owner.__dict__.setdefault("_pp_stages", {})[attr] = (
+                e.stage, tuple(t.shape))
+            if e.stage != mesh.model_index:
+                _to_placeholder(owner, attr, t)
+                t = getattr(owner, attr)
+            out[name] = e.stage
+        if isinstance(t, nn.Parameter) and t.requires_grad:
+            t.model_grad = e.grad
+    return out
+
+
 def _owner(model: nn.Module, name: str):
     mod_name, _, attr = name.rpartition(".")
     return (model.get_submodule(mod_name) if mod_name else model), attr
@@ -354,7 +498,7 @@ def _set(module: nn.Module, attr: str, t: torch.Tensor) -> None:
 
 @torch.no_grad()
 def shard_params(model: nn.Module, mesh: Mesh, policy: str = "replicated",
-                 min_size: int = 2 ** 16) -> dict:
+                 min_size: int = 2 ** 16, pipeline=None) -> dict:
     """Place `model`'s frozen tensors by `policy`: "replicated" leaves
     them whole; "fsdp" keeps this rank's slice of each tensor of
     `fsdp_plan` over the data group; "tp" this rank's share of each
@@ -362,12 +506,24 @@ def shard_params(model: nn.Module, mesh: Mesh, policy: str = "replicated",
     group (the slice's own storage: the whole tensor is freed).  With a
     model axis under "tp", or under any policy with `sequence_parallel`,
     the model's ViTs run on the placement and each trainable tensor gets
-    its gradient rule.  Returns the sharded tensors (name -> dim)."""
+    its gradient rule.  With a `pipeline` (`parallel.pipeline.
+    PipelineSpec` over the mesh's model axis) the model's ViTs run their
+    trunks through it and each trainable tensor gets its `pp_plan` rule;
+    under "pp" the rank keeps its stage's block tensors, trainable ones
+    included, and every other block tensor becomes an empty placeholder;
+    "tp" is then the replicated placement (the model axis holds the
+    stages).  "pp" without a pipeline, and "tp" without a model axis, are
+    the replicated placement, as JAX's rules give them on a model axis of
+    one.  Returns the sharded tensors (name -> dim; under "pp" name ->
+    stage)."""
     from ..models.vit import ViT
-    if policy == "pp":
-        raise NotImplementedError(f"param_sharding 'pp' ({ROADMAP_A9})")
-    if policy not in ("replicated", "fsdp", "tp"):
+    if policy not in ("replicated", "fsdp", "tp", "pp"):
         raise ValueError(f"unknown param_sharding policy: {policy!r}")
+    if pipeline is not None:
+        out = _place_pipeline(model, mesh, policy, pipeline)
+        if policy != "fsdp" or mesh.world == 1:
+            return out
+        return _place_fsdp(model, mesh, min_size)
     placed = mesh.n_model > 1 and (policy == "tp"
                                    or mesh.sequence_parallel)
     pl = Placement(mesh.n_model, mesh.model_index,
@@ -393,6 +549,12 @@ def shard_params(model: nn.Module, mesh: Mesh, policy: str = "replicated",
                 out[name] = e.dim
     if policy != "fsdp" or mesh.world == 1:
         return out
+    out.update(_place_fsdp(model, mesh, min_size))
+    return out
+
+
+def _place_fsdp(model: nn.Module, mesh: Mesh, min_size: int) -> dict:
+    out = {}
     for name, dim in fsdp_plan(model, mesh.world, min_size).items():
         owner, attr = _owner(model, name)
         t = getattr(owner, attr)
@@ -407,7 +569,12 @@ def shard_params(model: nn.Module, mesh: Mesh, policy: str = "replicated",
 
 def is_sharded(model: nn.Module) -> bool:
     return any(getattr(m, "_fsdp_shards", None)
-               or getattr(m, "_tp_shards", None) for m in model.modules())
+               or getattr(m, "_tp_shards", None)
+               or getattr(m, "_pp_stages", None) for m in model.modules())
+
+
+def _stage_placed(model: nn.Module) -> bool:
+    return any(getattr(m, "_pp_stages", None) for m in model.modules())
 
 
 def _gather_dim(shard: torch.Tensor, dim: int) -> torch.Tensor:
@@ -461,45 +628,65 @@ def gathered(module: nn.Module, exclude=()):
 
 
 def _shard_info(model: nn.Module, name: str):
-    """(FSDP (dim, full shape) or None, TP (kind, dim, full shape) or None)
-    of the tensor `name`."""
-    mod_name, _, attr = name.rpartition(".")
-    try:
-        owner = model.get_submodule(mod_name) if mod_name else model
-    except AttributeError:
-        return None, None
-    return ((getattr(owner, "_fsdp_shards", None) or {}).get(attr),
-            (getattr(owner, "_tp_shards", None) or {}).get(attr))
+    """(FSDP (dim, full shape) or None, TP (kind, dim, full shape) or None,
+    PP (stage, full shape) or None) of the tensor `name`; an SSL state's
+    `teacher.<name>` is the EMA twin of the model's `<name>`."""
+    for cand in (name, name.removeprefix("teacher.")):
+        mod_name, _, attr = cand.rpartition(".")
+        try:
+            owner = model.get_submodule(mod_name) if mod_name else model
+        except AttributeError:
+            continue
+        if not hasattr(owner, attr):
+            continue
+        return ((getattr(owner, "_fsdp_shards", None) or {}).get(attr),
+                (getattr(owner, "_tp_shards", None) or {}).get(attr),
+                (getattr(owner, "_pp_stages", None) or {}).get(attr))
+    return None, None, None
 
 
 def whole_state(model: nn.Module, state: dict) -> dict:
     """`state` (name -> tensor of `model`) with each tensor that `model`
     holds sharded gathered whole (FSDP's over the data group, TP's over
-    the model group); every rank must call it."""
+    the model group, and under "pp" every stage's block tensors from the
+    stage that holds them: a name that only its stage's `state` has, a
+    gradient, is added); every rank must call it."""
     if not is_sharded(model):
         return state
-    out = {}
+    out, own = {}, {}
+    device = next((t.device for t in state.values()), torch.device("cpu"))
     for name, t in state.items():
-        fsdp, tp = _shard_info(model, name)
+        fsdp, tp, pp = _shard_info(model, name)
         t = t.detach()
+        if pp:
+            if pp[0] == collectives.model_rank():
+                own[name] = t.cpu()
+            continue
         if fsdp:
             t = _gather_dim(t, fsdp[0])
         if tp:
             t = _gather_share(t, tp[0], tp[1])
         out[name] = t
+    if _stage_placed(model):
+        for part in collectives.gather_objects(own):
+            out.update((n, t.to(device)) for n, t in part.items())
     return out
 
 
 def local_state(model: nn.Module, state: dict) -> dict:
     """`state` (name -> whole tensor) with the tensors that `model` holds
-    sharded cut to this rank's share (TP's, then FSDP's slice of it), so
+    sharded cut to this rank's share (TP's, then FSDP's slice of it; under
+    "pp" another stage's block tensor becomes the empty placeholder), so
     that it loads into the placed model (`load_session` re-applies the
     placement)."""
     if not is_sharded(model):
         return state
     out = dict(state)
     for name, t in state.items():
-        fsdp, tp = _shard_info(model, name)
+        fsdp, tp, pp = _shard_info(model, name)
+        if pp and pp[0] != collectives.model_rank():
+            out[name] = t.new_empty((0,) * t.dim())
+            continue
         if tp and tuple(t.shape) == tp[2]:
             idx = shard_index(tp[0], tp[2][tp[1]], collectives.model_size(),
                               collectives.model_rank()).to(t.device)
@@ -509,6 +696,46 @@ def local_state(model: nn.Module, state: dict) -> dict:
                 collectives.data_rank()]
         out[name] = t.clone() if t is not state[name] else t
     return out
+
+
+def _param_stages(model: nn.Module) -> dict:
+    """{id of a parameter: the stage that holds it} under "pp"."""
+    return {id(getattr(m, attr)): stage for m in model.modules()
+            for attr, (stage, _) in (getattr(m, "_pp_stages", None)
+                                     or {}).items()}
+
+
+def whole_optimizer_state(model: nn.Module, state: dict, params) -> dict:
+    """A `torch.optim` state dict over `params` (the optimizer's order)
+    with, under "pp", each stage-held parameter's entry from the stage
+    that holds it (a placeholder's entry is dropped); every rank must call
+    it."""
+    if not _stage_placed(model):
+        return state
+    stages, mine = _param_stages(model), collectives.model_rank()
+    where = [stages.get(id(p)) for p in params]
+    cpu = lambda v: v.detach().cpu() if isinstance(  # noqa: E731
+        v, torch.Tensor) else v
+    own = {i: {k: cpu(v) for k, v in st.items()}
+           for i, st in state["state"].items() if where[i] == mine}
+    merged = {i: st for i, st in state["state"].items() if where[i] is None}
+    for part in collectives.gather_objects(own):
+        merged.update(part)
+    return {"state": dict(sorted(merged.items())),
+            "param_groups": state["param_groups"]}
+
+
+def local_optimizer_state(model: nn.Module, state: dict, params) -> dict:
+    """A whole optimizer state dict (`whole_optimizer_state`'s) without
+    the entries of the parameters another stage holds."""
+    if not _stage_placed(model):
+        return state
+    stages, mine = _param_stages(model), collectives.model_rank()
+    keep = {i for i, p in enumerate(params)
+            if stages.get(id(p), mine) == mine}
+    return {"state": {i: st for i, st in state["state"].items()
+                      if i in keep},
+            "param_groups": state["param_groups"]}
 
 
 def resident_bytes(model: nn.Module, frozen_only: bool = True) -> int:

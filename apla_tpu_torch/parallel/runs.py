@@ -16,7 +16,7 @@ import torch
 
 from . import collectives
 from .mesh import make_mesh, pad_to_multiple, resident_bytes, shard_batch, \
-    shard_params
+    shard_params, whole_state
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -30,13 +30,18 @@ def _by_rank(x) -> list:
 def _gradient_rule_fault(model, fault: str) -> None:
     """The deliberate faults of the model-axis gradient rule: "skip_wt_sum"
     keeps APLA's columns' gradients unsummed (each rank's rows only),
-    "sum_head" sums the head's over the model group (T times the one-rank
-    gradient)."""
+    "sum_head" sums the head's over the model group (T or S times the
+    one-rank gradient), "skip_prep_sum" keeps a pipeline's token-prep
+    gradients unsummed (the stages after the first hold zeros)."""
+    prep = ("backbone.patch_embed.", "backbone.cls_token",
+            "backbone.pos_embed")
     for name, p in model.named_parameters():
         if fault == "skip_wt_sum" and name.endswith("attn.proj_wt"):
             p.model_grad = "keep"
         elif fault == "sum_head" and name.startswith("fc."):
             p.model_grad = "sum"
+        elif fault == "skip_prep_sum" and name.startswith(prep):
+            p.model_grad = "keep"
 
 
 @contextlib.contextmanager
@@ -87,17 +92,24 @@ def classifier_run(spec: dict) -> dict | None:
     ((trainable, frozen) name -> tensor maps) or "seed" with "n_classes"
     and "partial_size", "optimizer" (type, params), "grad_clip", "lr",
     "batches" (global {"image", "label"} numpy batches), "accum",
-    "policy" ("replicated" | "fsdp" | "tp"), "min_size" (the FSDP
+    "policy" ("replicated" | "fsdp" | "tp" | "pp"), "min_size" (the FSDP
     threshold), "tensor_parallel" (T, the model axis) and
-    "sequence_parallel", "quantize" (W8A8: the frozen qkv / fc1 / fc2 in
-    int8 before the placement), "device" (default: the rank's card, or
-    the CPU), "seed" of the step draws, "fault": "skip_reduction": rank 0
-    (whose record comes back) keeps its own gradients; "skip_wt_sum" /
-    "sum_head": the gradient rule broken on APLA's columns / the head.  Returns {"losses", "grad_norms", "trainable" (CPU
-    tensors), "frozen_bytes" (a rank's resident frozen bytes, by rank),
-    "trainable_bytes", "counts" (bytes by collective kind, per update),
-    "plan" (the sharded tensors), "world", "n_model", "embed" (the embed
-    step's output on the first batch's images after training)}."""
+    "sequence_parallel", or "pipeline_parallel" (S, the model axis as a
+    pipeline's stages) and "pp_microbatches" (M, default S), "quantize"
+    (W8A8: the frozen qkv / fc1 / fc2 in int8 before the placement),
+    "device" (default: the rank's card, or the CPU), "seed" of the step
+    draws, "fault": "skip_reduction": rank 0 (whose record comes back)
+    keeps its own gradients; "skip_wt_sum" / "sum_head" /
+    "skip_prep_sum": the gradient rule broken on APLA's columns / the
+    head / a pipeline's token prep.  Returns {"losses", "grad_norms",
+    "grads" (the first update's reduced gradients, before the clip, and
+    with a pipeline "stage_grads": each stage's of the tensors every stage
+    holds, in stage order),
+    "trainable" (CPU tensors, whole), "frozen_bytes" (a rank's resident
+    frozen bytes, by rank), "trainable_bytes", "counts" (bytes by
+    collective kind, per update), "plan" (the sharded tensors), "world",
+    "n_model", "embed" (the embed step's output on the first batch's
+    images after training, its first "embed_rows" when given)}."""
     from ..apla.core import AplaConfig
     from ..models.classifier import classifier_from_state, init_classifier
     from ..models.vit import ViTConfig
@@ -106,9 +118,14 @@ def classifier_run(spec: dict) -> dict | None:
     from ..train.optim import build_optimizer
     from ..train.train_state import TrainState
 
+    from .pipeline import PipelineSpec
+
     device = torch.device(spec.get("device") or "cuda")
     T = int(spec.get("tensor_parallel", 1))
-    mesh = make_mesh(None, T, bool(spec.get("sequence_parallel")))
+    S = int(spec.get("pipeline_parallel", 1))
+    mesh = make_mesh(None, max(T, S), bool(spec.get("sequence_parallel")))
+    pipeline = PipelineSpec(mesh, S, int(spec.get("pp_microbatches", S))) \
+        if S > 1 else None
     vit_kw = dict(spec["vit"])
     vit_kw["compute_dtype"] = _DTYPES[vit_kw.get("compute_dtype",
                                                  "float32")]
@@ -130,8 +147,9 @@ def classifier_run(spec: dict) -> dict | None:
     before = torch.cuda.memory_allocated(device) \
         if device.type == "cuda" else 0
     plan = shard_params(model, mesh, spec.get("policy", "replicated"),
-                        min_size=int(spec.get("min_size", 2 ** 16)))
-    if spec.get("fault") in ("skip_wt_sum", "sum_head"):
+                        min_size=int(spec.get("min_size", 2 ** 16)),
+                        pipeline=pipeline)
+    if spec.get("fault") in ("skip_wt_sum", "sum_head", "skip_prep_sum"):
         _gradient_rule_fault(model, spec["fault"])
     after = torch.cuda.memory_allocated(device) \
         if device.type == "cuda" else 0
@@ -144,8 +162,17 @@ def classifier_run(spec: dict) -> dict | None:
     state = TrainState(0, model, opt)
     accum = int(spec.get("accum", 1))
     saved = steps_mod.reduce_gradients
-    if spec.get("fault") == "skip_reduction" and mesh.rank == 0:
-        steps_mod.reduce_gradients = _skip_own_reduction
+    reduce = _skip_own_reduction if (spec.get("fault") == "skip_reduction"
+                                     and mesh.rank == 0) else saved
+    first = {}
+
+    def reduce_and_keep(params):
+        reduce(params)
+        if not first:
+            first.update((n, p.grad.detach().clone()) for n, p in named
+                         if p.grad is not None)
+
+    steps_mod.reduce_gradients = reduce_and_keep
     try:
         step = steps_mod.make_train_step(cfg, opt, cross_entropy,
                                          accum_steps=accum)
@@ -166,15 +193,24 @@ def classifier_run(spec: dict) -> dict | None:
         steps_mod.reduce_gradients = saved
     # the embed step (kNN's) on the first global batch's images, whole
     from ..train.steps import make_embed_step
+    rows = int(spec.get("embed_rows") or len(spec["batches"][0]["image"]))
     embed = make_embed_step(cfg)(model, torch.as_tensor(
-        np.asarray(spec["batches"][0]["image"])).to(device)).cpu()
+        np.asarray(spec["batches"][0]["image"][:rows])).to(device)).cpu()
     frozen_bytes = _by_rank(resident_bytes(model))
     mem = _by_rank((before, after))
     t_bytes = sum(p.numel() * p.element_size() for _, p in named)
+    grads = {n: g.cpu() for n, g in whole_state(model, first).items()}
+    # a pipeline: each stage's gradients of the tensors every stage holds
+    stage_grads = collectives.gather_objects(
+        {n: g.cpu() for n, g in first.items() if n not in plan},
+        collectives.MODEL) if pipeline is not None else None
+    trainable = {n: t.cpu().clone() for n, t in whole_state(
+        model, {n: p.detach() for n, p in named}).items()}
     if not collectives.is_rank0():
         return None
     return {"losses": losses, "grad_norms": norms, "embed": embed,
-            "trainable": {n: p.detach().cpu().clone() for n, p in named},
+            "grads": grads, "stage_grads": stage_grads,
+            "trainable": trainable,
             "frozen_bytes": frozen_bytes, "allocated": mem,
             "trainable_bytes": t_bytes, "counts": counts, "plan": plan,
             "world": mesh.world, "n_model": mesh.n_model}
@@ -457,7 +493,7 @@ def ssl_steps_run(objective: str, params: dict, payload: dict, batches,
         w.model.load_state_dict(local_state(w.model, payload["model"]),
                                 strict=True)
     state = w.state
-    state.load_aux(payload["aux"])
+    state.load_aux(local_state(w.model, payload["aux"]))
     accum = int(params["training_params"].get("accum_steps", 1))
     if objective in ("byol", "simsiam"):
         from ..ssl.byol import make_byol_train_step
@@ -509,10 +545,10 @@ def ssl_steps_run(objective: str, params: dict, payload: dict, batches,
             state, m = steps[c["freeze"]](state, tb, c["lr"], c["wd"],
                                           c["momentum"], c["teacher_temp"],
                                           gen)
-        out.append(({k: p.detach().cpu().clone()
-                     for k, p in state.trainable().items()},
-                    {k: t.detach().cpu().clone()
-                     for k, t in state.aux().items()},
+        out.append(({k: p.detach().cpu().clone() for k, p in whole_state(
+                        w.model, state.trainable()).items()},
+                    {k: t.detach().cpu().clone() for k, t in whole_state(
+                        w.model, state.aux()).items()},
                     {k: float(v) for k, v in m.items()}))
     return out if collectives.is_rank0() else None
 
@@ -547,9 +583,13 @@ def recipe_updates(params: dict, objective: str = "supervised",
     of the first global batches, the step draws seeded as the trainer
     seeds them.  `fault` "skip_reduction": rank 0 keeps its own
     gradients; "own_projection": rank 0 reads its own partial of every
-    projection on the model axis (`_own_projection_partial`).
+    projection on the model axis (`_own_projection_partial`); "sum_head"
+    / "skip_prep_sum": the gradient rule broken on the head / token prep
+    (`_gradient_rule_fault`).
     Rank 0 returns {"losses" (per update: the metrics), "grads" (the
-    reduced gradients of the first update), "trainable" (after the last),
+    reduced gradients of the first update, whole; with a pipeline also
+    "stage_grads": each stage's of the tensors every stage holds),
+    "trainable" (after the last),
     "frozen_bytes" and "allocated" (the frozen parameters' bytes and
     `torch.cuda.memory_allocated` before and after the placement, by
     rank), "counts" (bytes by collective kind, per update), "launches"
@@ -579,7 +619,13 @@ def recipe_updates(params: dict, objective: str = "supervised",
         torch.cuda.synchronize(device)
     before = torch.cuda.memory_allocated(device) \
         if device.type == "cuda" else 0
-    wrapper.fsdp_plan = shard_params(wrapper.model, wrapper.mesh, policy)
+    wrapper.fsdp_plan = shard_params(wrapper.model, wrapper.mesh, policy,
+                                     pipeline=wrapper.pipeline_spec)
+    if policy == "pp" and wrapper.pipeline_spec is not None:
+        # the optimizer (and an SSL teacher) over the stage's tensors
+        wrapper.init_optimization()
+    if fault in ("sum_head", "skip_prep_sum"):
+        _gradient_rule_fault(wrapper.model, fault)
     after = torch.cuda.memory_allocated(device) \
         if device.type == "cuda" else 0
     trainer = trainer_cls(wrapper)
@@ -589,13 +635,14 @@ def recipe_updates(params: dict, objective: str = "supervised",
         for m in mods:
             m.reduce_gradients = _skip_own_reduction
     losses, counts, grads, update_s = [], [], None, []
+    stage_grads = None
     _reset_launches()
     loader = wrapper.dataloaders.trainloader
     loader.set_epoch(0)
     own = fault == "own_projection" and collectives.rank() == 0
 
     def one_update(i, batch):
-        nonlocal grads
+        nonlocal grads, stage_grads
         collectives.reset_counts()
         t0 = time.perf_counter()
         if objective == "supervised":
@@ -613,9 +660,18 @@ def recipe_updates(params: dict, objective: str = "supervised",
         counts.append(dict(collectives.COUNTS))
         losses.append({k: float(v) for k, v in m.items()})
         if grads is None:
+            named = [(n, p) for n, p in wrapper.model.named_parameters()
+                     if p.requires_grad]
             grads = {n: p.grad.detach().float().cpu().clone()
-                     for n, p in wrapper.model.named_parameters()
-                     if p.requires_grad and p.grad is not None}
+                     for n, p in named if p.grad is not None}
+            if wrapper.pipeline_spec is not None:
+                # every stage's copy of what every stage holds (0 where
+                # a stage has no gradient)
+                stage_grads = {n: (p.grad.detach().float().cpu().clone()
+                                   if p.grad is not None else
+                                   torch.zeros(p.shape))
+                               for n, p in named
+                               if n not in wrapper.fsdp_plan}
     try:
         with _own_projection_partial() if own else \
                 contextlib.nullcontext():
@@ -627,12 +683,17 @@ def recipe_updates(params: dict, objective: str = "supervised",
     launches = _by_rank(kernel_launches())
     frozen_bytes = _by_rank(resident_bytes(wrapper.model))
     mem = _by_rank((before, after))
+    grads = whole_state(wrapper.model, grads)
+    if stage_grads is not None:
+        stage_grads = collectives.gather_objects(stage_grads,
+                                                 collectives.MODEL)
+    trainable = whole_state(wrapper.model, {
+        n: p.detach().float().cpu() for n, p in
+        wrapper.model.named_parameters() if p.requires_grad})
     if not collectives.is_rank0():
         return None
-    return {"losses": losses, "grads": grads,
-            "trainable": {n: p.detach().float().cpu().clone()
-                          for n, p in wrapper.model.named_parameters()
-                          if p.requires_grad},
+    return {"losses": losses, "grads": grads, "stage_grads": stage_grads,
+            "trainable": {n: t.clone() for n, t in trainable.items()},
             "frozen_bytes": frozen_bytes, "allocated": mem,
             "trainable_bytes": sum(p.numel() * p.element_size()
                                    for p in wrapper.model.parameters()

@@ -76,10 +76,6 @@ from .parallel.launch import launch, torchrun_env
 from .parallel.mesh import local_state, make_mesh, shard_params, whole_state
 from .utils.logging import RunLogger
 
-PARALLEL_TODO = ("--param_sharding pp, pipeline parallelism, is not "
-                 "ported yet: ROADMAP A 9")
-
-
 def _state(model):
     """(trainable, frozen) name -> CPU tensor maps of `model`; the frozen
     map also holds rank-k APLA's `attn.inds` (APLA "full" stores none).
@@ -97,9 +93,9 @@ def _state(model):
 
 def _place(model, mesh, policy, task):
     """The frozen backbone placed by `policy` over the mesh's ranks ("tp"
-    over this data-only mesh is "replicated", as JAX's `shard_params`
-    gives it: the model axis has one rank)."""
-    plan = shard_params(model, mesh, "replicated" if policy == "tp"
+    and "pp" over this data-only mesh are "replicated", as JAX's
+    `shard_params` gives them: the model axis has one rank)."""
+    plan = shard_params(model, mesh, "replicated" if policy in ("tp", "pp")
                         else policy)
     if mesh.distributed:
         print(f"[{task}] {mesh.world} ranks ({mesh.backend}); frozen params "
@@ -110,10 +106,7 @@ def _parallel_setup(n_devices, param_sharding, batch_size, device):
     """The data axis of a loop (`apla_tpu/segdet.py:_mesh_setup`): None
     when this process must first start the ranks (`n_devices` > 1 or
     torchrun, no group yet), else the mesh."""
-    if param_sharding == "pp":
-        raise NotImplementedError(f"--param_sharding {param_sharding}: "
-                                  f"{PARALLEL_TODO}")
-    if param_sharding not in ("replicated", "fsdp", "tp"):
+    if param_sharding not in ("replicated", "fsdp", "tp", "pp"):
         raise ValueError(f"unknown param_sharding policy: "
                          f"{param_sharding!r}")
     n = int(n_devices or 1)

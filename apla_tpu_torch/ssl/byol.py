@@ -52,7 +52,7 @@ from ..parallel.mesh import batch_rows
 from ..train.checkpoint import load_aux_state, load_checkpoint, \
     save_checkpoint
 from ..train.knn import knn_evaluate
-from ..train.optim import global_norm
+from ..train.optim import grad_norm
 from ..train.schedules import cosine_with_warmup_table
 from ..train.train_state import TrainState, weights_swapped
 from ..wrapper import DefaultWrapper, build_apla_config, build_vit_config
@@ -239,7 +239,7 @@ def make_byol_train_step(vit_cfg, optimizer, use_momentum: bool,
             torch._foreach_div_(grads, float(accum_steps))
         reduce_gradients(params)
         loss = pmean(loss)
-        gnorm = global_norm(grads)
+        gnorm = grad_norm(params)
         optimizer.set_lr(lr)
         optimizer.step(gnorm)
         if use_momentum:
@@ -544,7 +544,7 @@ class BYOLTrainer:
     def _restore(self, path, weights_only=False):
         manifest, best = load_checkpoint(path, self.state,
                                          weights_only=weights_only)
-        aux = load_aux_state(path)
+        aux = load_aux_state(path, self.state.model)
         if aux is not None:
             self.state.load_aux(aux)
         if best is not None:

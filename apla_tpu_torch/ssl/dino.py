@@ -29,7 +29,7 @@ from ..data.device_augs import device_multicrop
 from ..models.vit import ViT, vit_features
 from ..parallel.collectives import mesh_average, pmean, reduce_gradients
 from ..parallel.mesh import batch_rows
-from ..train.optim import global_norm
+from ..train.optim import grad_norm
 from ..train.schedules import cosine_with_warmup_table
 from ..train.train_state import TrainState, weights_swapped
 from ..wrapper import DefaultWrapper
@@ -204,7 +204,7 @@ def make_dino_train_step(vit_cfg, optimizer, n_global: int, n_local: int,
             zero_grads_of(state.trainable(), ("last_v",))
         reduce_gradients(params)
         loss = pmean(loss)
-        gnorm = global_norm(grads)
+        gnorm = grad_norm(params)
         optimizer.set_lr(lr, wd)
         optimizer.step(gnorm)
         ema_update(state.teacher, state.trainable(), momentum)

@@ -38,7 +38,7 @@ from ..parallel.collectives import (data_rank, data_size, mesh_all_gather,
                                     mesh_average, pmean, psum,
                                     reduce_gradients)
 from ..parallel.mesh import batch_rows
-from ..train.optim import build_optimizer, global_norm
+from ..train.optim import build_optimizer, grad_norm
 from ..train.train_state import TrainState, weights_swapped
 from ..utils.config import EDict
 from .byol import BYOLTrainer, ema_update
@@ -701,14 +701,15 @@ def make_dinov2_train_step(vit_cfg, optimizer, cfg: EDict, n_global: int,
             loss = loss / accum_steps
             losses = {k: v / accum_steps for k, v in losses.items()}
             for p in params:
-                p.grad.div_(accum_steps)
+                if p.grad is not None:
+                    p.grad.div_(accum_steps)
         if freeze_last_layer:
             # both weight-norm leaves of the prototype layer(s)
             zero_grads_of(state.trainable(), ("last_v", "last_g"))
         reduce_gradients(params)
         loss = pmean(loss)
         losses = {k: pmean(v) for k, v in losses.items()}
-        gnorm = global_norm([p.grad for p in params])
+        gnorm = grad_norm(params)
         optimizer.set_lr(lr, wd)
         optimizer.step(gnorm)
         ema_update(state.teacher, state.trainable(), momentum)
@@ -854,6 +855,12 @@ class Dinov2Trainer(BYOLTrainer):
         return bool(tp.get("student", tp).get("pack_local_crops", False))
 
     def get_step(self, freeze: bool):
+        if self._pack_local_crops() and self.wrapper.pipeline_spec:
+            # `apla_tpu/ssl/dinov2.py:391-393`
+            raise ValueError(
+                "pack_local_crops + pipeline_parallel unsupported (the "
+                "packed block-diagonal sequence conflicts with the "
+                "pipeline's batch split)")
         if freeze not in self._steps:
             self._steps[freeze] = make_dinov2_train_step(
                 self.vit_cfg, self.wrapper.optimizer,

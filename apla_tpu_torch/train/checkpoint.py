@@ -13,10 +13,12 @@ Counterpart of `apla_tpu/train/checkpoint.py`: a directory holding
 - `parameters.pkl`: the run's full config.
 
 The format is the port's own; the JAX package does not read it.  With
-more than one rank every rank calls `save_checkpoint` (FSDP's frozen
-shards are gathered whole for `frozen.pt`) and rank 0 alone writes;
-`load_checkpoint` on every rank cuts the frozen tensors to the rank's
-placement.
+more than one rank every rank calls `save_checkpoint` (FSDP's and TP's
+frozen shards are gathered whole for `frozen.pt`; under a pipeline's "pp"
+placement every stage's block tensors, trainable ones, their optimizer
+state and an SSL teacher's among them, from the stage that holds them)
+and rank 0 alone writes whole tensors, which a one-rank run loads;
+`load_checkpoint` on every rank cuts them to the rank's placement.
 
 Transfer learning (`transfer_learning_params.pretrained_path`, and `serve
 export --pretrained_path`) reads such a directory with
@@ -36,7 +38,8 @@ import torch
 
 from ..ops.quant import quantize_like_state
 from ..parallel.collectives import broadcast_object, is_rank0, synchronize
-from ..parallel.mesh import local_state, whole_state
+from ..parallel.mesh import (local_optimizer_state, local_state,
+                             whole_optimizer_state, whole_state)
 from .train_state import TrainState, frozen_state
 
 
@@ -55,21 +58,29 @@ def save_checkpoint(path: str, *, state: TrainState, epoch: int = 0,
     tensor saved beside the trainable tensors (`load_aux_state`)."""
     frozen_path = os.path.join(path, "frozen.pt")
     frozen = None
+    # the sharded tensors are the model's (every rank gathers)
+    whole = (lambda t: whole_state(state.model, t)) \
+        if hasattr(state, "model") else (lambda t: t)
     if broadcast_object(not os.path.exists(frozen_path)):
-        frozen = state.frozen()
-        if hasattr(state, "model"):     # FSDP shards are the model's
-            frozen = whole_state(state.model, frozen)
-        frozen = _cpu(frozen)
+        frozen = _cpu(whole(state.frozen()))
+    trainable = _cpu(whole(state.trainable()))
+    optimizer = state.optimizer.state_dict()
+    if hasattr(state, "model"):
+        optimizer = whole_optimizer_state(state.model, optimizer,
+                                          state.optimizer.params)
+    if best_trainable is not None:
+        best_trainable = _cpu(whole(best_trainable))
+    if aux_state is not None:
+        aux_state = _cpu(whole(aux_state))
     if not is_rank0():
         synchronize()
         return
     os.makedirs(path, exist_ok=True)
-    payload = {"trainable": _cpu(state.trainable()),
-               "optimizer": state.optimizer.state_dict()}
+    payload = {"trainable": trainable, "optimizer": optimizer}
     if best_trainable is not None:
         payload["best_trainable"] = best_trainable
     if aux_state is not None:
-        payload["aux"] = _cpu(aux_state)
+        payload["aux"] = aux_state
     torch.save(payload, os.path.join(path, "state.pt"))
     if frozen is not None:
         torch.save(frozen, frozen_path)
@@ -85,12 +96,13 @@ def save_checkpoint(path: str, *, state: TrainState, epoch: int = 0,
     synchronize()
 
 
-def load_aux_state(path: str) -> dict | None:
+def load_aux_state(path: str, model=None) -> dict | None:
     """The `aux_state` a checkpoint was saved with (CPU tensors), or
-    None."""
+    None; cut to `model`'s placement when given."""
     payload = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
                          weights_only=False)
-    return payload.get("aux")
+    aux = payload.get("aux")
+    return aux if aux is None or model is None else local_state(model, aux)
 
 
 def load_checkpoint(path: str, state: TrainState, weights_only: bool = False):
@@ -109,9 +121,12 @@ def load_checkpoint(path: str, state: TrainState, weights_only: bool = False):
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     if not weights_only:
-        state.optimizer.load_state_dict(payload["optimizer"])
+        state.optimizer.load_state_dict(local_optimizer_state(
+            state.model, payload["optimizer"], state.optimizer.params))
         state.step = int(manifest["iters"])
-    return manifest, payload.get("best_trainable")
+    best = payload.get("best_trainable")
+    return manifest, (None if best is None
+                      else local_state(state.model, best))
 
 
 def load_parameters(path: str) -> dict | None:

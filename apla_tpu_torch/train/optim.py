@@ -17,11 +17,15 @@ chain:
   each JAX leaf's trust ratio |p| / |u| (1 where either norm is 0), then
   lr.  The JAX ViT stacks its blocks into one leaf per parameter
   ([depth, ...]); the port keeps a tensor per block, so the ratio is taken
-  over the blocks' tensors together (`jax_leaves`).
+  over the blocks' tensors together (`jax_leaves`).  Under a pipeline's
+  "pp" placement a stage holds its blocks' tensors only, so a
+  block-stacked leaf's norms are sums of squares over the model group.
 
-Clipping is optax's `clip_by_global_norm` (`(g / norm) * max` once the norm
-reaches `max`, no epsilon; `torch.nn.utils.clip_grad_norm_` adds 1e-6 to the
-norm).  `set_lr` writes the lr (and optionally wd) into the param groups
+`grad_norm` is optax's global norm of the trainable gradients: a tensor
+that a pipeline stage alone holds counts once over the model group, every
+other one once in total.  Clipping is optax's `clip_by_global_norm`
+(`(g / norm) * max` once the norm reaches `max`, no epsilon;
+`torch.nn.utils.clip_grad_norm_` adds 1e-6 to the norm).  `set_lr` writes the lr (and optionally wd) into the param groups
 before each step, as the JAX package injects them as hyperparameters.
 """
 
@@ -30,6 +34,8 @@ from __future__ import annotations
 import re
 
 import torch
+
+from ..parallel import collectives
 
 _NO_WD_NAMES = frozenset({"bias", "proj_bt", "scale", "gamma"})
 
@@ -41,9 +47,25 @@ def decays(name: str, p: torch.Tensor) -> bool:
     return p.dim() >= 2
 
 
+def _sq(tensors) -> torch.Tensor:
+    return sum(torch.sum(t.float() * t.float()) for t in tensors)
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    return torch.sqrt(_sq(grads))
+
+
+def grad_norm(params) -> torch.Tensor:
+    """The global norm of the gradients of `params` (those that have
+    one): the squares of the stage-held ones (`collectives.
+    is_stage_owned`) summed over the model group."""
+    grads = [p for p in params if p.grad is not None]
+    own = [p.grad for p in grads if collectives.is_stage_owned(p)]
+    sq = _sq([p.grad for p in grads if not collectives.is_stage_owned(p)])
+    if own:
+        sq = sq + collectives.psum(_sq(own), collectives.MODEL)
+    return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
 
 
 def clip_by_global_norm_(grads, max_norm: float, g_norm: torch.Tensor):
@@ -108,13 +130,20 @@ class Lamb(torch.optim.Optimizer):
                 if group["weight_decay"]:
                     u = u + group["weight_decay"] * p
                 updates[p], lrs[p] = u, group["lr"]
-        for leaf in self.leaves:
-            leaf = [p for p in leaf if p in updates]
-            if not leaf:
-                continue
-            p_norm = torch.sqrt(sum((p.float() ** 2).sum() for p in leaf))
-            u_norm = torch.sqrt(sum((updates[p].float() ** 2).sum()
-                                    for p in leaf))
+        leaves = [[p for p in leaf if p in updates] for leaf in self.leaves]
+        leaves = [leaf for leaf in leaves if leaf]
+        sq = [torch.stack([_sq(leaf), _sq(updates[p] for p in leaf)])
+              for leaf in leaves]
+        # a stage-held leaf spans the model group's stages
+        staged = [i for i, leaf in enumerate(leaves)
+                  if collectives.is_stage_owned(leaf[0])]
+        if staged:
+            summed = collectives.psum(torch.stack([sq[i] for i in staged]),
+                                      collectives.MODEL)
+            for j, i in enumerate(staged):
+                sq[i] = summed[j]
+        for leaf, (p_sq, u_sq) in zip(leaves, sq):
+            p_norm, u_norm = torch.sqrt(p_sq), torch.sqrt(u_sq)
             ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                 torch.ones_like(p_norm), p_norm / u_norm)
             for p in leaf:
@@ -146,7 +175,8 @@ class Optimizer:
         """Clip the gradients held in `.grad` (by `g_norm`, their global
         norm) and apply one update."""
         if self.grad_clip:
-            clip_by_global_norm_([p.grad for p in self.params],
+            clip_by_global_norm_([p.grad for p in self.params
+                                  if p.grad is not None],
                                  self.grad_clip, g_norm)
         self.opt.step()
 

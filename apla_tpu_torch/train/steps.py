@@ -40,7 +40,7 @@ from ..data.device_augs import device_augment
 from ..models.classifier import classifier_forward
 from ..parallel.collectives import pmean, reduce_gradients
 from ..parallel.mesh import batch_rows
-from .optim import Optimizer, global_norm
+from .optim import Optimizer, grad_norm
 from .train_state import TrainState
 
 
@@ -87,10 +87,11 @@ def make_train_step(vit_cfg, optimizer: Optimizer, criterion: Callable,
                 loss = loss / accum_steps
                 logits = torch.cat(logits)
                 for p in params:
-                    p.grad.div_(accum_steps)
+                    if p.grad is not None:
+                        p.grad.div_(accum_steps)
         reduce_gradients(params)
         loss = pmean(loss)
-        gnorm = global_norm([p.grad for p in params])
+        gnorm = grad_norm(params)
         metrics = {"loss": loss, "grad_norm": gnorm, "logits": logits}
         update = True
         if skip_nonfinite:

@@ -21,8 +21,15 @@ a (n_devices / T) x T mesh, defaults `param_sharding` to "tp" when it is
 unset (JAX's note), and with an explicit "replicated" or "fsdp" prints
 JAX's warning and runs them (the compute replicated over the model axis;
 "fsdp" shards over the data group); `sequence_parallel` needs a model
-axis.  The pipeline knobs (`pipeline_parallel`, `pp_microbatches > 1`,
-`param_sharding: pp`) raise, citing ROADMAP A 9.
+axis.  `pipeline_parallel` S > 1 makes a (n_devices / S) x S mesh whose
+model axis holds the pipeline's stages (`parallel.pipeline`), with
+`pp_microbatches` M (default S) microbatches a rank's micro-step; it
+defaults `param_sharding` to "pp" (each rank keeps its stage's blocks,
+trainable ones and their optimizer state included) and with another
+policy prints a warning and runs it ("replicated" and "fsdp" keep every
+block, "tp" is "replicated" there).  PP with TP, and PP with SP,
+are refused in JAX's words.  "pp" without a pipeline is the replicated
+placement, as JAX's rule gives it on a model axis of one.
 
 `init_model` follows the JAX order (`apla_tpu/wrapper.py:269-287`): the
 seeded model, then `model_params.pretrained` (a local DINOv2 `.pth`,
@@ -46,7 +53,8 @@ from .data.loader import DataLoader
 from .models.classifier import init_classifier
 from .models.vit import VIT_BUILDERS, ViTConfig
 from .ops.quant import quantize_frozen_backbone
-from .parallel.mesh import ROADMAP_A9, make_mesh, shard_params
+from .parallel.mesh import make_mesh, shard_params
+from .parallel.pipeline import PipelineSpec
 from .train.checkpoint import transfer_into
 from .train.losses import get_criterion
 from .train.metrics import (ClassificationMetrics,
@@ -136,6 +144,7 @@ class DefaultWrapper:
             "transfer_learning_params") or EDict()
         self.device = resolve_device(self.system_params.get("device"))
         self._check_unported()
+        self.pipeline_spec = None
         self.mesh = self.init_mesh()
 
     # overridden by the SSL wrappers (the multi-crop strategy)
@@ -145,11 +154,30 @@ class DefaultWrapper:
     def init_mesh(self):
         """The (data x model) mesh of `system_params`
         (`apla_tpu/wrapper.py:141-214`): `n_devices` is the total number of
-        ranks, `tensor_parallel` the model axis."""
+        ranks, `tensor_parallel` or `pipeline_parallel` the model axis."""
         sp = self.system_params
         n_devices = sp.get("n_devices")
         n_model = int(sp.get("tensor_parallel") or 1)
+        n_pp = int(sp.get("pipeline_parallel") or 1)
         seq = bool(sp.get("sequence_parallel"))
+        if n_pp > 1:
+            policy = sp.get("param_sharding")
+            if policy is None:
+                sp["param_sharding"] = "pp"
+                print("pipeline_parallel > 1: defaulting param_sharding "
+                      "to 'pp'")
+            elif policy != "pp":
+                print(f"WARNING: pipeline_parallel={n_pp} with "
+                      f"param_sharding '{policy}': every rank keeps every "
+                      "block and runs its stage's (use 'pp')")
+            total = int(n_devices) if n_devices else None
+            if total is not None and total % n_pp:
+                raise ValueError(f"n_devices={total} does not split into "
+                                 f"{n_pp} pipeline stages")
+            mesh = make_mesh(None if total is None else total // n_pp, n_pp)
+            n_micro = int(sp.get("pp_microbatches") or n_pp)
+            self.pipeline_spec = PipelineSpec(mesh, n_pp, n_micro)
+            return mesh
         if n_model > 1:
             policy = sp.get("param_sharding")
             if policy is None:
@@ -186,15 +214,8 @@ class DefaultWrapper:
                 raise ValueError(
                     "sequence_parallel composes with tensor_parallel, not "
                     "pipeline_parallel: pick one of PP or TP(+SP)")
-        for knob in ("pipeline_parallel", "pp_microbatches"):
-            if int(sp.get(knob) or 1) > 1:
-                raise NotImplementedError(
-                    f"system_params.{knob}={sp[knob]} ({ROADMAP_A9})")
-        if sp.get("param_sharding") == "pp":
-            raise NotImplementedError(
-                f"param_sharding 'pp' ({ROADMAP_A9})")
         if sp.get("param_sharding") not in (None, "replicated", "fsdp",
-                                            "tp"):
+                                            "tp", "pp"):
             raise ValueError(f"unknown param_sharding policy: "
                              f"{sp['param_sharding']!r}")
         if mp.get("quantize_frozen") and not self.is_supervised:
@@ -234,9 +255,12 @@ class DefaultWrapper:
 
     def place_frozen(self):
         """The frozen tensors placed by `system_params.param_sharding`
-        (`apla_tpu/wrapper.py:290-306`)."""
+        (`apla_tpu/wrapper.py:290-306`); under "pp" the trainable block
+        tensors too, each rank keeping its stage's, before the optimizer
+        (`init_optimization`) is built over them."""
         policy = self.system_params.get("param_sharding") or "replicated"
-        self.fsdp_plan = shard_params(self.model, self.mesh, policy)
+        self.fsdp_plan = shard_params(self.model, self.mesh, policy,
+                                      pipeline=self.pipeline_spec)
         if policy != "replicated" or self.mesh.n_model > 1:
             print(f"Frozen params placed with policy '{policy}' over "
                   f"mesh {self.mesh.shape}: {len(self.fsdp_plan)} tensors "

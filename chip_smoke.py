@@ -270,8 +270,20 @@ raise on failure:
                16c 15c's DINOv2 update at tensor_parallel 2 with
                sequence_parallel; 16d W8A8 training at two data ranks
                under fsdp (the int8 buffers sharded) against one rank.
+  17. pipeline — pipeline parallelism (`apla_tpu_torch/parallel/
+               pipeline.py`) on phase 16's two ranks: rows 1 and 2 at a
+               stage's microbatch ([4, 257, 2304]) against their plain
+               versions with a control each, timed; 17a two accum-8
+               updates of the ImageNet recipe at pipeline_parallel 2,
+               pp_microbatches 2 against phase 15's one-rank run (losses,
+               every stage's copy of the gradients, rows 1 and 2 in every
+               block of every microbatch, resident frozen bytes, pipeline
+               bytes, update seconds; the head's gradient summed over the
+               stages and a full fine-tune's token-prep gradient left
+               unsummed must fail); 17b 15c's DINOv2 update and 17c 16d's
+               W8A8 recipe through the pipeline against one rank.
 
-Phases 2-12, 15 and 16 also run negative controls: the kernels made to compute what
+Phases 2-12 and 15-17 also run negative controls: the kernels made to compute what
 broken ones would (output zeroed or halved, uniform attention, half the
 heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
 from the wrong columns or zeroed, rowsum(dp * p) dropped from ds, a key
@@ -6972,13 +6984,15 @@ TP_W8A8_GRAD_REL_TOL = 7.5e-3
 TP_SP_UPDATES = 1
 
 
-def _rect_bounds(b, n, kk, width, k):
+def _rect_bounds(b, n, kk, width, k, out_bytes=4):
     """(forward, backward) bounds of rows 1 and 2 at a rank's share: qkv
-    [b, n, 3K], W [K, width], the f32 partial out; the backward's g [b, n,
-    width], dqkv bf16 and dW_t [K, k] f32 (as `_attn_fwd_bound` and
-    `_attn_bwd_bound` count the square call)."""
+    [b, n, 3K], W [K, width], the f32 partial out (`out_bytes` 2: the
+    bf16 output of the square call); the backward's g [b, n, width], dqkv
+    bf16 and dW_t [K, k] f32 (as `_attn_fwd_bound` and `_attn_bwd_bound`
+    count the square call)."""
     fwd = _bound(b * (4 * n * n * kk + 2 * n * kk * width),
-                 2 * (3 * b * n * kk + kk * width) + 4 * b * n * width)
+                 2 * (3 * b * n * kk + kk * width)
+                 + out_bytes * b * n * width)
     bwd = _bound(b * (12 * n * n * kk + 2 * n * kk * width
                       + 2 * n * kk * k),
                  2 * (3 * b * n * kk + kk * width + b * n * width
@@ -6986,30 +7000,33 @@ def _rect_bounds(b, n, kk, width, k):
     return fwd, bwd
 
 
-def _rect_kernels(device):
-    """Rows 1 and 2 at TP_SHAPE against their plain versions (one fault
+def _rect_kernels(device, shape=TP_SHAPE, w_shape=TP_W, k=TP_K,
+                  out_f32=True, tag="16 model axis", where="a rank's share"):
+    """Rows 1 and 2 at `shape` (qkv) and `w_shape` (W; default TP_SHAPE
+    and TP_W, the f32 partial out) against their plain versions (one fault
     control each), timed beside their bounds and the two-call yardstick;
     the wrappers' launches made here are the checks', not the path's."""
     from apla_tpu_torch.ops import fused_apla_attn as fa
     gen = torch.Generator().manual_seed(SEED)
-    b, n, c3 = TP_SHAPE
-    kk, width = TP_W
+    b, n, c3 = shape
+    kk, width = w_shape
     heads, scale = kk // 64, 64 ** -0.5
-    qkv = torch.randn(TP_SHAPE, generator=gen).to(device, torch.bfloat16)
-    w = (torch.randn(TP_W, generator=gen) * width ** -0.5).to(
+    qkv = torch.randn(shape, generator=gen).to(device, torch.bfloat16)
+    w = (torch.randn(w_shape, generator=gen) * width ** -0.5).to(
         device, torch.bfloat16)
     g = torch.randn((b, n, width), generator=gen).to(device, torch.bfloat16)
-    inds = torch.randperm(width, generator=gen)[:TP_K].to(device)
-    out = fa.fused_apla_attn_fwd(qkv, w, heads, scale, out_f32=True)
+    inds = torch.randperm(width, generator=gen)[:k].to(device)
+    out = fa.fused_apla_attn_fwd(qkv, w, heads, scale, out_f32=out_f32)
     torch.cuda.synchronize()
     ref = fa.fused_apla_attn_fwd_reference(qkv, w, heads, scale,
-                                           out_f32=True)
+                                           out_f32=out_f32)
     bound = KERNEL_REL_TOL * ref.abs().max().item()
-    err = (out - ref).abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
     w_short = w.clone()
     w_short[-64:] = 0
     control = (fa.fused_apla_attn_fwd(qkv, w_short, heads, scale,
-                                      out_f32=True) - ref).abs().max().item()
+                                      out_f32=out_f32).float()
+               - ref.float()).abs().max().item()
     got = fa.fused_apla_attn_bwd(qkv, w, g, inds, heads, scale)
     torch.cuda.synchronize()
     want = fa.fused_apla_attn_bwd_reference(qkv, w, g, inds, heads, scale)
@@ -7020,17 +7037,17 @@ def _rect_kernels(device):
     ok = err <= bound and all(e <= bd for e, bd in errs.values())
     caught = control > bound and all(bad[o][0] > bad[o][1]
                                      for o in ("dq", "dk", "dv"))
-    fwd_b, bwd_b = _rect_bounds(b, n, kk, width, TP_K)
+    fwd_b, bwd_b = _rect_bounds(b, n, kk, width, k, 4 if out_f32 else 2)
     lq, lw = qkv.clone().requires_grad_(), w.clone().requires_grad_()
     lout = _library_attn(lq, lw, heads, scale)
     fwd = lambda: fa.fused_apla_attn_fwd(  # noqa: E731
-        qkv, w, heads, scale, out_f32=True)
+        qkv, w, heads, scale, out_f32=out_f32)
     bwd = lambda: fa.fused_apla_attn_bwd(qkv, w, g, inds,  # noqa: E731
                                          heads, scale)
     t = {"fwd": {"ms": _time_ms(fwd), "graph_ms": _graph_ms(fwd),
                  "plain_ms": _time_ms(
                      lambda: fa.fused_apla_attn_fwd_reference(
-                         qkv, w, heads, scale, out_f32=True), iters=5),
+                         qkv, w, heads, scale, out_f32=out_f32), iters=5),
                  "library_ms": None,
                  "library_two_calls_ms": _time_ms(
                      lambda: _library_attn(qkv, w, heads, scale)),
@@ -7047,14 +7064,15 @@ def _rect_kernels(device):
                  "bound_ms": bwd_b[0], "bound_by": bwd_b[1],
                  "max_abs_err": b_err}}
     for name, x in t.items():
-        print(f"[16 model axis] row {1 if name == 'fwd' else 2} at a rank's "
-              f"share, qkv {list(TP_SHAPE)}, W {list(TP_W)}, k {TP_K}: "
+        print(f"[{tag}] row {1 if name == 'fwd' else 2} at {where}, "
+              f"qkv {list(shape)}, W {list(w_shape)}, k {k}: "
               f"{x['ms']:.4f} ms ({x['graph_ms']:.4f} from a CUDA graph), "
               f"plain {x['plain_ms']:.4f}, two library calls "
               f"{x['library_two_calls_ms']:.4f}, bound {x['bound_ms']:.4f} "
               f"({x['bound_by']}, {x['bound_ms'] / x['graph_ms']:.1%} of it "
               f"reached); max|err| {x['max_abs_err']:.6g}")
-    print(f"[16 model axis] forward f32 partial max|err| {err:.6g} (bound "
+    print(f"[{tag}] forward {'f32 partial' if out_f32 else 'bf16'} "
+          f"max|err| {err:.6g} (bound "
           f"{bound:.6g}; control: last 64 rows of W skipped {control:.6g}); "
           "backward " + ", ".join(f"{o} {e:.6g} (bound {bd:.6g})"
                                   for o, (e, bd) in errs.items())
@@ -7063,15 +7081,61 @@ def _rect_kernels(device):
           + f" -> {'ok' if ok else 'FAIL'}, "
           f"{'caught' if caught else 'NOT CAUGHT'}")
     if not (ok and caught):
-        raise SystemExit("16: rows 1/2 at the rectangular shape disagree "
-                         "with their plain versions, or a control passed")
+        raise SystemExit(f"{tag}: rows 1/2 at {where} disagree with their "
+                         "plain versions, or a control passed")
     return t
+
+
+# Phase 17 (PR 24): the pipeline.  RECIPE, 15c's DINOv2 and 16d's W8A8
+# recipe at `pipeline_parallel: 2`, `pp_microbatches: 2` on the two gloo
+# ranks of phase 16's group (D = 1: each stage holds the micro-step's 8
+# rows, 6 of the 12 blocks, and runs them on two microbatches of 4): rows
+# 1 and 2 at the microbatch's [4, 257, 2304]; the trainable token prep of
+# a full fine-tune (RECIPE without APLA) carries the token-prep fault.
+# Bounds ~4x above the first readings (an H100 80GB HBM3 at 700 W, PERF.md
+# PR 24): every stage's loss equal to one rank's to the bit (17a-c: a
+# row's forward does not depend on its batch), worst ||dg||/||g|| 3.766e-7
+# (17a), 3.605e-6 (17b), 3.102e-7 (17c): the stage's microbatch gradients
+# summed in another order; the losses' bound lets a rounding through.
+# The faults read 0.465 (the head summed) and 1.0 (token prep unsummed).
+PP_STAGES, PP_MICRO = 2, 2
+PP_SHAPE = (8 // PP_MICRO, 257, 2304)
+PP_W = (768, 768)
+PP_K = 128
+PP_FULL_FT_CUTS = {"model_params": {"adaptation": {"mode": "none"}}}
+PP_LOSS_REL_TOL = 1e-6
+PP_GRAD_REL_TOL = 1.5e-6
+PP_SSL_LOSS_REL_TOL = 1e-6
+PP_SSL_GRAD_REL_TOL = 1.5e-5
+PP_W8A8_LOSS_REL_TOL = 1e-6
+PP_W8A8_GRAD_REL_TOL = 1.5e-6
+
+
+def pipeline_recipes(params, ssl, w8, tmp):
+    """Phase 17's recipes: 17a `params` (RECIPE with PAR_CUTS), 17b `ssl`
+    (15c's DINOv2), 17c `w8` (16d's W8A8) and the full fine-tune of 17a's
+    token-prep control, each at `pipeline_parallel` 2 over 2 ranks."""
+    from apla_tpu_torch.utils.config import update_nested_values
+    full = update_nested_values(copy.deepcopy(params),
+                                copy.deepcopy(PP_FULL_FT_CUTS))
+    out = {}
+    for tag, p in (("17a", params), ("17b", ssl), ("17c", w8),
+                   ("17a full", full)):
+        p = copy.deepcopy(p)
+        p["system_params"].update(n_devices=PP_STAGES,
+                                  pipeline_parallel=PP_STAGES,
+                                  pp_microbatches=PP_MICRO)
+        p["training_params"]["save_dir"] = os.path.join(
+            tmp, "pp " + tag)
+        out[tag] = p
+    return out
 
 
 def start_model_axis(pool, device, tmp):
     """Phase 16's recipes, and its five two-rank calls (16a, its fault,
-    16b, 16c, 16d) submitted to `pool` in a group of their own: the
-    future gives (their results, the group's seconds)."""
+    16b, 16c, 16d) then phase 17's five (17a, its two faults, 17b, 17c)
+    submitted to `pool` in a group of their own: the future gives (their
+    results, the group's seconds)."""
     from apla_tpu_torch.parallel import launch as plaunch, runs
     params = _run_params(RECIPE, PAR_CUTS, os.path.join(tmp, "r"), device)
     ssl = _run_params(SSL_RECIPE, _eval_in_process(SSL_CUTS),
@@ -7083,6 +7147,7 @@ def start_model_axis(pool, device, tmp):
     w8 = copy.deepcopy(params)
     w8["model_params"]["quantize_frozen"] = True
     w8["training_params"]["save_dir"] = os.path.join(tmp, "w8")
+    pp = pipeline_recipes(params, ssl, w8, tmp)
 
     def two(p, sp=False, **system):
         p = copy.deepcopy(p)
@@ -7100,7 +7165,16 @@ def start_model_axis(pool, device, tmp):
              ("recipe_updates", (two(ssl, True, tensor_parallel=2),
                                  "dinov2"), dict(seed=SEED)),
              ("recipe_updates", (two(w8, param_sharding="fsdp"),),
-              dict(updates=PAR_UPDATES, seed=SEED))]
+              dict(updates=PAR_UPDATES, seed=SEED)),
+             # phase 17's, after 16's: 17a, its two faults, 17b, 17c
+             ("recipe_updates", (pp["17a"],),
+              dict(updates=PAR_UPDATES, seed=SEED)),
+             ("recipe_updates", (pp["17a"],),
+              dict(updates=1, seed=SEED, fault="sum_head")),
+             ("recipe_updates", (pp["17a full"],),
+              dict(updates=1, seed=SEED, fault="skip_prep_sum")),
+             ("recipe_updates", (pp["17b"], "dinov2"), dict(seed=SEED)),
+             ("recipe_updates", (pp["17c"],), dict(updates=1, seed=SEED))]
 
     def group():
         t = time.perf_counter()
@@ -7109,7 +7183,7 @@ def start_model_axis(pool, device, tmp):
                              store_dir=os.path.join(tmp, "gloo"))
         return out, time.perf_counter() - t
 
-    return {"w8": w8, "tmp": tmp, "group": pool.submit(group)}
+    return {"w8": w8, "pp": pp, "tmp": tmp, "group": pool.submit(group)}
 
 
 def phase_model_axis(device, started, refs):
@@ -7123,10 +7197,13 @@ def phase_model_axis(device, started, refs):
     w8["training_params"]["save_dir"] = os.path.join(started["tmp"], "w8_1")
     w8_one = runs.recipe_updates(w8, updates=PAR_UPDATES, seed=SEED)
     t2 = time.perf_counter()
-    (tp, fault, sp, ssl_two, w8_two), group_s = started["group"].result()
-    print(f"[16 model axis] two ranks on one card (gloo): five runs in "
-          f"{group_s:.1f} s, started before phase 15 and run beside it "
-          f"(waited {time.perf_counter() - t2:.1f} s for them here)")
+    out, group_s = started["group"].result()
+    tp, fault, sp, ssl_two, w8_two = out[:5]
+    refs["w8_one"] = w8_one
+    print(f"[16 model axis] two ranks on one card (gloo): 16's five and "
+          f"17's five runs in {group_s:.1f} s, started before phase 15 and "
+          f"run beside it (waited {time.perf_counter() - t2:.1f} s for them "
+          "here)")
     one = refs["one"]
     ok = all([_par_agreement(f"16{tag} T=2 {name} vs one rank", run, one,
                              TP_LOSS_REL_TOL, TP_GRAD_REL_TOL,
@@ -7199,6 +7276,110 @@ def phase_model_axis(device, started, refs):
     return launches, times
 
 
+def _pp_agreement(tag, run, ref, loss_tol, grad_tol, keys=("loss",)):
+    """`_par_agreement` on each stage's copy of the gradients that every
+    stage holds (the stage-held ones are gathered whole); within only if
+    every stage's is."""
+    return all([_par_agreement(
+        f"{tag} (stage {s}'s copy)",
+        {**run, "grads": {**run["grads"], **copies}}, ref, loss_tol,
+        grad_tol, keys=keys, phase="17 pipeline")
+        for s, copies in enumerate(run["stage_grads"])])
+
+
+def phase_pipeline(device, started, refs):
+    """Phase 17: rows 1 and 2 at a stage's microbatch against plain, then
+    the pipeline's five runs from `started`'s group against `refs`' one-rank
+    runs (phase 15's RECIPE and DINOv2, 16's W8A8) and a one-rank full
+    fine-tune made here; returns its launches and rows 1 and 2's times."""
+    from apla_tpu_torch.parallel import runs
+    from apla_tpu_torch.utils.config import update_nested_values
+    t0 = time.perf_counter()
+    times = _rect_kernels(device, PP_SHAPE, PP_W, PP_K, out_f32=False,
+                          tag="17 pipeline", where="a stage's microbatch")
+    full_one = runs.recipe_updates(
+        update_nested_values(
+            copy.deepcopy(started["pp"]["17a full"]),
+            {"system_params": {"n_devices": None, "pipeline_parallel": None,
+                               "pp_microbatches": None}}),
+        updates=1, seed=SEED)
+    out, _ = started["group"].result()
+    pp, head_fault, prep_fault, ssl_pp, w8_pp = out[5:]
+    one = refs["one"]
+    ok = _pp_agreement("17a S=2 M=2 vs one rank", pp, one, PP_LOSS_REL_TOL,
+                       PP_GRAD_REL_TOL)
+    caught = {
+        "head summed over the stages": not _pp_agreement(
+            "17a control: the head's gradient summed over the stages",
+            head_fault, one, PP_LOSS_REL_TOL, PP_GRAD_REL_TOL),
+        "token prep left unsummed": not _pp_agreement(
+            "17a control: a full fine-tune's token-prep gradient left "
+            "unsummed", prep_fault, full_one, PP_LOSS_REL_TOL,
+            PP_GRAD_REL_TOL)}
+    depth, accum = 12, 8
+    expect = depth * accum * PP_MICRO * PAR_UPDATES
+    launched = (pp["launches"]["fused_apla_attn_fwd"],
+                pp["launches"]["fused_apla_attn_bwd"]) == (expect, expect)
+    rep_bytes = refs["rep"]["frozen_bytes"][0]
+    tag_runs = (("17a", pp, one), ("17b", ssl_pp, refs["ssl_one"]),
+                ("17c", w8_pp, refs["w8_one"]))
+    for tag, run, ref in tag_runs:
+        first = [c.get("pipeline", 0) for c in run["counts"]]
+        ratio = [round(t / r, 1) for t, r in zip(run["update_s"],
+                                                 ref["update_s"])]
+        print(f"[17 pipeline] {tag}: resident frozen bytes by rank "
+              f"{run['frozen_bytes']} "
+              f"({[round(x / 2**20, 1) for x in run['frozen_bytes']]} MiB;"
+              f" the one-rank run's {ref['frozen_bytes']}, 15b's "
+              f"replicated rank {round(rep_bytes / 2**20, 1)} MiB), "
+              f"{len(run['plan'])} tensors stage-placed; pipeline bytes an "
+              f"update {first}; update s "
+              f"{[round(t, 3) for t in run['update_s']]} (one rank "
+              f"{[round(t, 3) for t in ref['update_s']]}: {ratio}x; both "
+              "beside the other phases' runs on the one card); launches "
+              f"{ {k: v for k, v in run['launches'].items() if v} }")
+    print(f"[17 pipeline] rows 1/2 launched "
+          f"{pp['launches']['fused_apla_attn_fwd']}/"
+          f"{pp['launches']['fused_apla_attn_bwd']} in 17a (expected "
+          f"{expect} each: {depth} blocks x {accum} micro-steps x "
+          f"{PP_MICRO} microbatches x {PAR_UPDATES} updates, over the "
+          f"stages); faults caught {caught}")
+    if not (ok and all(caught.values()) and launched):
+        raise SystemExit(f"17a: agreement {ok}, faults caught {caught}, "
+                         f"rows 1/2 in every block of every microbatch "
+                         f"{launched}")
+    terms = tuple(k for k in refs["ssl_one"]["losses"][0]
+                  if k not in ("grad_norm",))
+    if not _pp_agreement("17b DINOv2 S=2 M=2 vs one rank", ssl_pp,
+                         refs["ssl_one"], PP_SSL_LOSS_REL_TOL,
+                         PP_SSL_GRAD_REL_TOL, keys=terms):
+        raise SystemExit("17b: DINOv2 through the pipeline disagrees with "
+                         "one rank")
+    if not all(ssl_pp["launches"][k] for k in (
+            "fused_apla_attn_fwd", "fused_apla_attn_bwd", "proto_ce_fwd",
+            "proto_ce_dxs", "proto_ce_dws")):
+        raise SystemExit("17b: the kernels did not run through the "
+                         "pipeline")
+    int8 = w8_pp["launches"]["fused_int8_matmul"]
+    if not (_pp_agreement("17c W8A8 S=2 M=2 vs one rank", w8_pp,
+                          refs["w8_one"], PP_W8A8_LOSS_REL_TOL,
+                          PP_W8A8_GRAD_REL_TOL) and int8):
+        raise SystemExit("17c: W8A8 through the pipeline disagrees with "
+                         "one rank, or row 13 did not run")
+    held = [min(run["frozen_bytes"]) < 0.6 * ref["frozen_bytes"][0]
+            for _, run, ref in tag_runs]
+    if not all(held):
+        raise SystemExit(f"17: a rank holds more than its stage's blocks "
+                         f"({held})")
+    launches = {}
+    for _, run, _ in tag_runs:
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"[17 pipeline] done in {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+    return launches, times
+
+
 def _det_losses(save_dir):
     with open(os.path.join(save_dir, "det.metrics.jsonl")) as f:
         return [r["train_loss"] for r in map(json.loads, f)
@@ -7250,8 +7431,8 @@ def main() -> int:
     recipe_launches, proto_launches, recipe_rates = timed(
         "13h-k", phase_recipes, device, keep, data_rates["loader_img_s"])
     ml_launches, ml_readings = timed("14", phase_multilabel, device)
-    # phase 16's two ranks start first and run beside phase 15; the pool
-    # is closed (its group waited for) whatever phase 15 does
+    # phases 16 and 17's two ranks start first and run beside phase 15;
+    # the pool is closed (its group waited for) whatever phase 15 does
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tp_tmp:
         pool = concurrent.futures.ThreadPoolExecutor(1)
         try:
@@ -7259,7 +7440,9 @@ def main() -> int:
             par_launches, par_refs = timed("15", phase_parallel, device)
             tp_launches, tp_times = timed("16", phase_model_axis, device,
                                           started, par_refs)
-            secs["16 ranks, beside 15"] = started["group"].result()[1]
+            pp_launches, pp_times = timed("17", phase_pipeline, device,
+                                          started, par_refs)
+            secs["16 + 17 ranks, beside 15"] = started["group"].result()[1]
         finally:
             pool.shutdown()
     keep_dir.cleanup()
@@ -7344,13 +7527,16 @@ def main() -> int:
                                  "max_abs_err"])}),
         ("proto_ce_fwd", "proto_ce_fwd.cu", "pallas_proto_ce.py:73",
          ssl_launches[2] + proto_launches[0] + par_launches["proto_ce_fwd"]
-         + tp_launches["model_axis"]["proto_ce_fwd"], proto_times["fwd"]),
+         + tp_launches["model_axis"]["proto_ce_fwd"]
+         + pp_launches["proto_ce_fwd"], proto_times["fwd"]),
         ("proto_ce_dxs", "proto_ce_bwd.cu", "pallas_proto_ce.py:130",
          ssl_launches[3] + proto_launches[1] + par_launches["proto_ce_dxs"]
-         + tp_launches["model_axis"]["proto_ce_dxs"], proto_times["dxs"]),
+         + tp_launches["model_axis"]["proto_ce_dxs"]
+         + pp_launches["proto_ce_dxs"], proto_times["dxs"]),
         ("proto_ce_dws", "proto_ce_bwd.cu", "pallas_proto_ce.py:150",
          ssl_launches[4] + proto_launches[2] + par_launches["proto_ce_dws"]
-         + tp_launches["model_axis"]["proto_ce_dws"], proto_times["dws"]),
+         + tp_launches["model_axis"]["proto_ce_dws"]
+         + pp_launches["proto_ce_dws"], proto_times["dws"]),
         ("mha_fwd", "mha_fwd.cu", "pallas_mha.py:66",
          full_serve_launches + full_fwd + par_launches["mha_fwd"],
          mha_times["fwd"]),
@@ -7379,7 +7565,8 @@ def main() -> int:
         # W8A8 training's (12c)
         ("int8_matmul", "int8_matmul.cu", "pallas_int8_matmul.py:33",
          w8a8_launches[0] + det_launches[2] + seg_launches[2] + p12["int8"]
-         + mask_launches[2] + tp_launches["w8a8"]["fused_int8_matmul"],
+         + mask_launches[2] + tp_launches["w8a8"]["fused_int8_matmul"]
+         + pp_launches["fused_int8_matmul"],
          {**int8_times[INT8_MAIN], "max_abs_err": int8_err}),
         # rows 1 and 2 at a tensor-parallel rank's share (phase 16): qkv
         # [8, 257, 1152] of 6 heads, W [384, 768], the f32 partial out
@@ -7389,6 +7576,14 @@ def main() -> int:
         ("fused_apla_attn_bwd_tp", "fused_apla_attn_bwd.cu",
          "pallas_apla_attn.py:131",
          tp_launches["model_axis"]["fused_apla_attn_bwd"], tp_times["bwd"]),
+        # rows 1 and 2 at a pipeline stage's microbatch (phase 17): qkv
+        # [4, 257, 2304], W [768, 768], the bf16 output
+        ("fused_apla_attn_fwd_pp", "apla_proj_gemm.cu",
+         "pallas_apla_attn.py:105", pp_launches["fused_apla_attn_fwd"],
+         pp_times["fwd"]),
+        ("fused_apla_attn_bwd_pp", "fused_apla_attn_bwd.cu",
+         "pallas_apla_attn.py:131", pp_launches["fused_apla_attn_bwd"],
+         pp_times["bwd"]),
     ]
     # library_ms: F.scaled_dot_product_attention (autograd through it for
     # the backward) computes the mha kernels' function (the forward's
@@ -7572,6 +7767,19 @@ def main() -> int:
             tp_launches["model_axis"][name]
     extra["int8_matmul"]["launches_w8a8_two_ranks"] = \
         tp_launches["w8a8"]["fused_int8_matmul"]
+    # phase 17's: the pipeline (rows 1 and 2 at a stage's microbatch, in
+    # every block of every microbatch; rows 10-12 in 17b; row 13 in 17c)
+    for name in ("proto_ce_fwd", "proto_ce_dxs", "proto_ce_dws"):
+        extra[name]["launches_pipeline"] = pp_launches[name]
+    extra["int8_matmul"]["launches_pipeline"] = \
+        pp_launches["fused_int8_matmul"]
+    for name in ("fused_apla_attn_fwd_pp", "fused_apla_attn_bwd_pp"):
+        extra[name] = {"shape": {"qkv": list(PP_SHAPE), "w": list(PP_W),
+                                 "k": PP_K},
+                       "graph_ms": pp_times[name.split("_")[-2]]
+                       ["graph_ms"],
+                       "launches_are": "17a-c's, a launch a block and "
+                                       "microbatch"}
     for name in ("fused_apla_attn_fwd_tp", "fused_apla_attn_bwd_tp"):
         extra[name] = {"shape": {"qkv": list(TP_SHAPE), "w": list(TP_W),
                                  "k": TP_K},

@@ -1159,3 +1159,67 @@ def test_recipes_phase_rehearsal(monkeypatch, tmp_path):
     assert set(rates["transforms_s"]) == {"native", "plain"}
     assert rates["nabirds"]["bwd_k8"]["max_abs_err"] == 0.0
     assert rates["isic"]["knn"] and rates["png"]["raw_img_s"] > 0
+
+
+@pytest.mark.parametrize("tag", ["17a", "17b", "17c", "17a full"])
+def test_pipeline_recipes_are_what_the_jax_wrapper_builds(monkeypatch,
+                                                          tmp_path, tag):
+    """Phase 17's recipes (RECIPE, 15c's DINOv2, 16d's W8A8 and the full
+    fine-tune of 17a's token-prep control, at `pipeline_parallel` 2 and
+    `pp_microbatches` 2 on 2 ranks): JAX's wrapper reads their knobs as a
+    1 x 2 mesh with a pipeline of 2 stages and 2 microbatches under
+    "pp", and so does the port's; the objective, the adaptation and W8A8
+    are the recipes' (no packed local crops: JAX refuses them with a
+    pipeline)."""
+    from apla_tpu.utils.config import EDict
+    from apla_tpu.wrapper import DefaultWrapper as JWrapper
+    from apla_tpu_torch import wrapper as twrapper
+    from apla_tpu_torch.parallel.mesh import Mesh
+    smoke = _chip_smoke()
+    dev = torch.device("cpu")
+    params = smoke._run_params(smoke.RECIPE, smoke.PAR_CUTS,
+                               str(tmp_path / "r"), dev)
+    ssl = smoke._run_params(smoke.SSL_RECIPE,
+                            smoke._eval_in_process(smoke.SSL_CUTS),
+                            str(tmp_path / "s"), dev)
+    w8 = copy.deepcopy(params)
+    w8["model_params"]["quantize_frozen"] = True
+    recipe = smoke.pipeline_recipes(params, ssl, w8, str(tmp_path))[tag]
+    sp = recipe["system_params"]
+    assert (sp["n_devices"], sp["pipeline_parallel"],
+            sp["pp_microbatches"]) == (2, 2, 2)
+    # JAX's wrapper on its 8 CPU devices
+    jw = JWrapper.__new__(JWrapper)
+    jw.system_params = EDict({k: v for k, v in sp.items()
+                              if k != "device"})
+    mesh = jw.init_mesh()
+    assert dict(mesh.shape) == {"data": 1, "model": 2}
+    assert (jw.pipeline_spec.n_stages, jw.pipeline_spec.n_micro) == (2, 2)
+    assert jw.system_params["param_sharding"] == "pp"
+    # the port's, against a stand-in mesh (no group)
+    monkeypatch.setattr(twrapper, "make_mesh",
+                        lambda n_data=None, n_model=1, sequence_parallel=False:
+                        Mesh(world=n_data or 1, n_model=n_model))
+    tw = twrapper.DefaultWrapper.__new__(twrapper.DefaultWrapper)
+    tw.system_params = copy.deepcopy(sp)
+    tw.pipeline_spec = None
+    tmesh = tw.init_mesh()
+    assert tmesh.shape == dict(mesh.shape)
+    assert (tw.pipeline_spec.n_stages, tw.pipeline_spec.n_micro) == (2, 2)
+    assert tw.system_params["param_sharding"] == "pp"
+    # what the recipe trains
+    mp = recipe["model_params"]
+    if tag == "17a full":
+        assert build_apla_config(recipe) is None
+        assert mp["adaptation"]["mode"] != "apla"
+    else:
+        assert build_apla_config(recipe).partial_size == 128
+    assert bool(mp.get("quantize_frozen")) == (tag == "17c")
+    if tag == "17b":
+        assert not mp["transformers_params"]["student"].get(
+            "pack_local_crops", False)
+        assert recipe["dataset_params"]["dataset"] == "Synthetic"
+    else:
+        assert recipe["training_params"]["accum_steps"] == 8
+        assert recipe["dataloader_params"]["trainloader"][
+            "batch_size"] == 64

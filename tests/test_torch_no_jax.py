@@ -26,7 +26,8 @@ pieces (`SyntheticMultiLabel`, the multi-label metrics, multi-label kNN,
 LAMB steps, the step timer), and the host transforms (a seventh of the
 transform manifest's cases through the native ops and their plain
 versions, by `chip_smoke.py`'s own loop) and the host multi-crop (the dino strategy through the loader's
-collate), and a classifier under FSDP on two ranks spawned by the port's
+collate), and a classifier under FSDP, on a model axis and through a
+pipeline of two stages, on two ranks spawned by the port's
 launcher, whose rank imports none of the blocked packages and nothing of
 the JAX package either.
 """
@@ -486,6 +487,14 @@ for extra in (dict(tensor_parallel=2, sequence_parallel=True),
         dict(spec, policy="tp", **extra),), device="cpu")
     assert run["n_model"] == 2 and run["counts"][0]["model"] > 0
     assert np.isfinite(run["losses"]).all()
+# the pipeline: two stages of one block each, two microbatches
+from apla_tpu_torch.parallel import pipeline  # noqa: F401
+run = launch.launch(runs.classifier_run, 2, args=(
+    dict(spec, policy="pp", pipeline_parallel=2, pp_microbatches=2),),
+    device="cpu")
+assert run["n_model"] == 2 and run["counts"][0]["pipeline"] > 0
+assert set(run["plan"].values()) == {0, 1}
+assert np.isfinite(run["losses"]).all()
 
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked

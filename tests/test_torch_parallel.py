@@ -320,10 +320,10 @@ def test_rank_rows_follow_the_micro_batches():
 
 
 def test_refusals():
-    """What stays refused, the pipeline, cites ROADMAP A 9; no path
-    shrinks to one process or moves to the CPU: a model axis or a data
-    axis without a process group raises.  "tp" on a one-rank mesh is
-    JAX's replicated placement (a model axis of one)."""
+    """No path shrinks to one process or moves to the CPU: a model axis
+    or a data axis without a process group raises.  "tp" and "pp" on a
+    one-rank mesh are JAX's replicated placement (a model axis of
+    one)."""
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(n_model=2)
     with pytest.raises(RuntimeError, match="process group"):
@@ -331,8 +331,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="model axis"):
         make_mesh(sequence_parallel=True)
     from apla_tpu_torch.models.vit import ViT, ViTConfig
-    with pytest.raises(NotImplementedError, match="A 9"):
-        shard_params(ViT(ViTConfig(**VIT)), make_mesh(), "pp")
+    vit = ViT(ViTConfig(**VIT))
+    assert shard_params(vit, make_mesh(), "pp") == {}
+    assert vit.pipeline is None and vit.placement is None
     vit = ViT(ViTConfig(**VIT))
     assert shard_params(vit, make_mesh(), "tp") == {}
     assert vit.placement is None

@@ -526,27 +526,26 @@ def test_cli_trains_the_four_stage_swin_t(tmp_path, capsys):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch):
-    """The pipeline's placement (ROADMAP A 9) raises; "tp" over the
-    side-cars' data-only mesh is the replicated placement, as JAX's
-    `shard_params` gives it (a model axis of one), and stays off the
-    CLI's choices, as in JAX; `--n_devices 2` and `--param_sharding fsdp`
-    run (tests/test_torch_parallel_ssl.py), and a batch that does not
-    split over the ranks raises, as in JAX."""
+    """"tp" and "pp" over the side-cars' data-only mesh are the
+    replicated placement, as JAX's `shard_params` gives them (a model
+    axis of one: JAX's `_mesh_setup` places `param_sharding="pp"` over
+    it), and stay off the CLI's choices, as in JAX; `--n_devices 2` and
+    `--param_sharding fsdp` run (tests/test_torch_parallel_ssl.py), an
+    unknown policy raises, and a batch that does not split over the ranks
+    raises, as in JAX."""
     img_dir, ann = make_coco(tmp_path)
     root = make_ade(tmp_path / "ade")
-    with pytest.raises(NotImplementedError, match="A 9"):
-        segdet.train_segmentation(root, save_dir=str(tmp_path),
-                                  **{**SEG_KW, "param_sharding": "pp"})
-    with pytest.raises(NotImplementedError, match="A 9"):
-        segdet.train_detection(img_dir, ann, save_dir=str(tmp_path),
-                               **{**KW, "param_sharding": "pp"})
-    mesh = segdet._parallel_setup(1, "tp", 2, "cpu")
-    assert mesh.world == 1 and mesh.n_model == 1
     from apla_tpu_torch.models.vit import ViT, ViTConfig
-    vit = ViT(ViTConfig(img_size=32, patch_size=8, embed_dim=64, depth=2,
-                        num_heads=4))
-    segdet._place(vit, mesh, "tp", "seg")
-    assert vit.placement is None
+    for policy in ("tp", "pp"):
+        mesh = segdet._parallel_setup(1, policy, 2, "cpu")
+        assert mesh.world == 1 and mesh.n_model == 1
+        vit = ViT(ViTConfig(img_size=32, patch_size=8, embed_dim=64,
+                            depth=2, num_heads=4))
+        segdet._place(vit, mesh, policy, "seg")
+        assert vit.placement is None and vit.pipeline is None
+        assert all(p.numel() for p in vit.parameters())
+    with pytest.raises(ValueError, match="unknown param_sharding"):
+        segdet._parallel_setup(1, "zero", 2, "cpu")
     with pytest.raises(ValueError, match="not divisible by n_devices 3"):
         segdet.train_detection(img_dir, ann, save_dir=str(tmp_path),
                                **{**KW, "n_devices": 3})

@@ -167,17 +167,17 @@ def test_cli_tests_a_checkpoint(trained, capsys):
     ("ssl", "quantize_frozen", True),
 ])
 def test_unported_knobs_raise(tmp_path, where, key, value):
-    """What the port refuses: ROADMAP A 9's pipeline (`pipeline_parallel`,
-    `pp_microbatches`, `param_sharding: pp`).  W8A8 training
-    (`quantize_frozen`) runs in the supervised wrapper only: the SSL
-    wrappers refuse it, as the JAX SSL wrappers never read it.  The model
-    axis reads as JAX reads it (`apla_tpu/wrapper.py:141-214`):
-    `tensor_parallel: 2` on one process has no ranks to split (JAX's
+    """What the port refuses: W8A8 training (`quantize_frozen`) runs in
+    the supervised wrapper only: the SSL wrappers refuse it, as the JAX
+    SSL wrappers never read it.  The model axis reads as JAX reads it
+    (`apla_tpu/wrapper.py:141-214`): `tensor_parallel: 2` and
+    `pipeline_parallel: 2` on one process have no ranks to split (JAX's
     `total % n_model` assertion; the launcher's error here),
-    `sequence_parallel` without a model axis raises (JAX's assertion), and
-    `param_sharding: tp` on one device is the replicated placement and
-    runs.  The model axis at 2 and 4 ranks: tests/test_torch_tensor_
-    parallel.py."""
+    `sequence_parallel` without a model axis raises (JAX's assertion),
+    `param_sharding: tp` or `pp` on one device is the replicated
+    placement and runs, and `pp_microbatches` without a pipeline is not
+    read.  The model axis at 2 and 4 ranks: tests/test_torch_tensor_
+    parallel.py and tests/test_torch_pipeline.py."""
     from apla_tpu_torch.ssl.byol import BYOLWrapper
     params = _params(tmp_path)
     wrapper_cls = DefaultWrapper
@@ -186,16 +186,17 @@ def test_unported_knobs_raise(tmp_path, where, key, value):
         wrapper_cls = BYOLWrapper
     else:
         params[where][key] = value
-    if key == "tensor_parallel":
+    if key in ("tensor_parallel", "pipeline_parallel"):
         with pytest.raises(RuntimeError, match="process group"):
             wrapper_cls(params).instantiate()
     elif key == "sequence_parallel":
         with pytest.raises(ValueError, match="needs a model axis"):
             wrapper_cls(params).instantiate()
-    elif value == "tp":
+    elif value in ("tp", "pp") or key == "pp_microbatches":
         w = wrapper_cls(params)
         w.instantiate()
         assert w.fsdp_plan == {} and w.model.backbone.placement is None
+        assert w.pipeline_spec is None and w.model.backbone.pipeline is None
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             wrapper_cls(params).instantiate()
