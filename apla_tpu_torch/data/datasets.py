@@ -14,16 +14,20 @@ turn them into float32.
   the medical sets, CIFAR, ImageNet; CSV files through `data/csv.py`
   (pandas' readings: an all-digit column is int), `.mat` files through
   scipy, imported when read.
-- Files are decoded by their content (`detection_data.read_image`: JPEG
-  and PNG through the port's own decoders), a `.png` twin preferred as the
-  JAX package prefers it; a file that cannot be decoded raises, naming it.
+- Files are decoded by their content (`detection_data.read_image`: PNG,
+  JPEG, BMP, GIF and TIFF through the port's own decoders) into Pillow's
+  `convert("RGB")`, `"L"` ([H, W]) or `"RGBA"` for `img_channels` 3, 1
+  or 4, a `.png` twin preferred as the JAX package prefers it; a file
+  that cannot be decoded raises, naming it.
 - `raw_mode` (set by the wrapper for `device_augment`): the image as uint8
   HWC at `raw_size`, for the on-device augmentation tail.  A JPEG that
   libjpeg's RGB output takes is decoded at the smallest DCT scale that
   covers `raw_size` and resized bilinearly (the JAX package's native fast
   path); anything else (CMYK, a PNG, an array record) is decoded at full
   size and resized as Pillow's BICUBIC (the JAX package's Pillow path), so
-  the bits are the JAX package's either way.
+  the bits are the JAX package's either way.  At `img_channels` 1 and 4
+  every file takes the full decode, resized in its mode (L per band; RGBA
+  per band, not Pillow's premultiplied resample: no RGBA batch trains).
 - Otherwise the mode's transforms run, with a Resize that every pipeline
   shares hoisted out and run once (`disentangle_resizes_from_transforms`).
 
@@ -44,8 +48,7 @@ from ..native import CmykJpeg, JpegError, decode_jpeg_resize
 from ..utils.config import load_json, save_json
 from .csv import read_csv
 from .detection_data import read_image
-from .transforms import ROADMAP_DATA, Compose, Resize, build_transform, \
-    resize_bicubic
+from .transforms import Compose, Resize, build_transform, resize_bicubic
 
 
 def files_with_suffix(directory, suffix):
@@ -98,18 +101,18 @@ class BaseSet:
 
     # ------------------------------------------------------------------ #
     def load_image(self, record) -> np.ndarray:
-        """The record's image as uint8 RGB HWC (its array, or its file
-        decoded by content, a `.png` twin first)."""
+        """The record's image: its array as it is, or its file decoded by
+        content (a `.png` twin first) as Pillow's `convert("RGB")` ([H, W,
+        3]), `convert("L")` ([H, W]) or `convert("RGBA")` for
+        `img_channels` 3, 1 or anything else, as the JAX package reads
+        it."""
         if "img_arr" in record:
             return record["img_arr"]
-        if self.img_channels != 3:
-            raise NotImplementedError(
-                f"img_channels={self.img_channels}: only RGB images are "
-                f"read ({ROADMAP_DATA})")
         path = record["img_path"]
         if os.path.exists(_png_twin(path)):
             path = _png_twin(path)
-        return read_image(path)
+        mode = {3: "RGB", 1: "L"}.get(self.img_channels, "RGBA")
+        return read_image(path, mode)
 
     def load_raw(self, record) -> np.ndarray:
         """raw_mode: the image at [raw_size, raw_size] uint8 (at its stored
@@ -136,7 +139,8 @@ class BaseSet:
 
     def __getitem__(self, idx, rng=None):
         """{'image': float32 HWC (a list for multi-crop pipelines; uint8 HWC
-        in raw_mode), 'label': int}."""
+        in raw_mode; the image / 255 when `transform` is None), 'label':
+        int}."""
         if rng is None:
             rng = np.random.default_rng()
         record = self.data[idx]
@@ -147,10 +151,12 @@ class BaseSet:
             img = self.resizing(img, rng)
         if isinstance(self.transform, list):
             image = [tr(img, rng) for tr in self.transform]
-        else:
+        elif self.transform is not None:
             image = [self.transform(img, rng)
                      for _ in range(self.num_augmentations)]
             image = image[0] if len(image) == 1 else image
+        else:                       # no pipeline: the image in [0, 1]
+            image = np.asarray(img, dtype=np.float32) / 255.0
         return {"image": image, "label": record["label"]}
 
     # ------------------------------------------------------------------ #

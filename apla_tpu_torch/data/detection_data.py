@@ -9,8 +9,9 @@ whatever the file's name (`read_image`, as Pillow's `Image.open` goes by
 the content): PNG (every colour type and bit depth, Adam7, the five
 scanline filters) and JPEG through the port's own decoders
 (`apla_tpu_torch.native`; `decode_png` is the PNG decoder's plain numpy
-version), each converted to RGB as
-Pillow's `convert("RGB")` does, and resized as Pillow's `Image.resize(size,
+version), BMP, GIF and TIFF through `data.image_formats`, each converted
+as Pillow's `convert("RGB")` (or "L", "RGBA") does, and resized as
+Pillow's `Image.resize(size,
 BILINEAR)` does (`resize`; BICUBIC too, for `serve predict`'s image files
 and the classification transforms): the filter's support grows with the
 reduction factor, in Pillow's fixed-point arithmetic.
@@ -25,8 +26,8 @@ source pixel, polygons through `polygons_to_mask`, which gives Pillow's
 vertices truncated to ints, then Pillow's scanline fill of `Draw.c`), and
 the filled box where the segmentation is missing or empty.
 
-Not ported yet: the other image formats; asking for one raises, naming its
-ROADMAP item.
+Not ported yet: the image formats past these five (`FORMATS_TODO`);
+asking for one raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,9 +41,12 @@ import zlib
 import numpy as np
 
 from .. import native
+from ..native import formats as nf
+from . import image_formats
 
-FORMATS_TODO = ("only PNG and JPEG images are decoded without PIL: ROADMAP A "
-                "'PIL-free transforms and real datasets'")
+FORMATS_TODO = ("images other than PNG, JPEG, BMP, GIF and TIFF (WebP, PPM, "
+                "TGA, ICO, JPEG 2000 ...) are not decoded without PIL: "
+                "ROADMAP A 5 'PIL-free transforms and real datasets'")
 
 _PNG_SIG = native.PNG_SIGNATURE
 
@@ -121,22 +125,25 @@ def read_png(path: str, raw: bool = False) -> np.ndarray:
     return _decode_png_native(data, path, raw)
 
 
-def read_image(path: str) -> np.ndarray:
-    """An image file -> [H, W, 3] uint8 RGB, decoded by its content as
-    Pillow's `Image.open(path).convert("RGB")` decodes it: a PNG stream
-    (`native.decode_png`) or a JPEG stream (`native.decode_jpeg`: grey
-    expanded, CMYK and YCCK converted as Pillow converts them), whatever
-    the name.  Any other content, or a stream the decoder refuses, raises
-    naming the file."""
+def read_image(path: str, mode: str = "RGB") -> np.ndarray:
+    """An image file -> uint8 [H, W, 3] RGB (`mode` "L": [H, W], "RGBA":
+    [H, W, 4]), decoded by its content as Pillow's `Image.open(path)
+    .convert(mode)` decodes it, whatever the name: PNG
+    (`native.decode_png`), JPEG (`native.decode_jpeg`: grey expanded, CMYK
+    and YCCK converted as Pillow converts them), BMP, GIF and TIFF
+    (`data.image_formats`).  Other content raises NotImplementedError
+    citing ROADMAP A 5; a stream a decoder refuses ValueError; each names
+    the file."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:2] == b"\xff\xd8":
-        try:
-            return native.decode_jpeg(data)
-        except native.JpegError as e:
-            raise ValueError(f"{path}: JPEG stream not decoded: {e}") \
-                from None
-    return _decode_png_native(data, path)
+    kind = nf.sniff(data)
+    try:
+        return image_formats.decode_image(data, mode)
+    except nf.Unsupported as e:
+        raise NotImplementedError(f"{path}: {e}") from None
+    except (native.JpegError, native.PngError, nf.ImageFormatError) as e:
+        raise ValueError(f"{path}: {(kind or '').upper()} stream not "
+                         f"decoded: {e}") from None
 
 
 def _decode_png_native(data: bytes, path: str, raw: bool = False):

@@ -151,7 +151,14 @@ def gaussian_blur(imgs, sigma):
 def apply_device_augment(images, p: dict, cfg: DeviceAugConfig,
                          compute_dtype=torch.bfloat16):
     """images [B, H, W, C] (0..255) and the draws `p` of `sample_aug_params`
-    -> augmented, normalised [B, out, out, C] in compute_dtype."""
+    -> augmented, normalised [B, out, out, C] in compute_dtype.  Other
+    shapes raise, as the JAX package's step does when it traces them: a
+    raw L batch [B, H, W] (`img_channels: 1`), or bands that the mean does
+    not match (RGBA)."""
+    if images.ndim != 4 or images.shape[-1] != len(cfg.mean):
+        raise ValueError(
+            f"device augmentation takes [B, H, W, {len(cfg.mean)}] images "
+            f"(the mean's entries), not {tuple(images.shape)}")
     imgs = images.float() / 255.0
     _, H, W, _ = imgs.shape
     area = H * W * p["area"]

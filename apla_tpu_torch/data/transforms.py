@@ -36,6 +36,20 @@ writes it), and Pillow 12's arithmetic bit for bit:
 
 `plain_ops()` runs every transform on the plain numpy versions of the host
 C++ ops instead (the tests and the chip check hold the two arms equal).
+
+Images are uint8 [H, W, 3] (RGB), [H, W] (L: `img_channels: 1`) or
+[H, W, 4] (RGBA: `img_channels: 4`), as `np.asarray` of the Pillow image
+in that mode.  L takes Pillow's arithmetic for one band: the resamples,
+blur and transforms per band; Brightness and Contrast against black and
+the image's mean; Color and the grayscale its identity; the hue shift
+skipped (the JAX package shifts RGB only); ToArray gives [H, W, 1] and
+Normalize broadcasts that against the three-entry mean to [H, W, 3], as
+numpy does in the JAX package.  RGBA raises where the JAX package raises:
+`ImageOps`' ops with Pillow's OSError, Normalize with numpy's ValueError
+(four bands against three entries); before that its bands go through the
+per-band ops (not Pillow's premultiplied resample and transform; no RGBA
+output of the JAX transforms reaches a model), ImageEnhance with the
+alpha kept.
 """
 
 from __future__ import annotations
@@ -49,8 +63,6 @@ import numpy as np
 from .. import native
 from .detection_data import resize as _pil_resize
 from .detection_data import resize_reference as _pil_resize_reference
-
-ROADMAP_DATA = "ROADMAP A 5: PIL-free transforms and real datasets"
 
 # The names `build_transform` reads before Normalize, in its order
 # (RandomErasing comes after Normalize).
@@ -261,6 +273,9 @@ def transform_bilinear_reference(img: np.ndarray, coeffs,
                                  perspective: bool = False) -> np.ndarray:
     """`transform_bilinear` in numpy: Geometry.c's generic transform with
     its bilinear filter, in double, truncated to bytes."""
+    if img.ndim == 2:
+        return transform_bilinear_reference(img[..., None], coeffs,
+                                            perspective)[..., 0]
     h, w = img.shape[:2]
     a = [float(v) for v in coeffs]
     yy, xx = np.mgrid[0:h, 0:w]
@@ -397,8 +412,20 @@ def rgb_to_l(img: np.ndarray) -> np.ndarray:
 
 
 def grayscale(img: np.ndarray) -> np.ndarray:
-    """`ImageOps.grayscale(img).convert("RGB")`."""
-    return np.repeat(rgb_to_l(img)[..., None], 3, axis=-1)
+    """`ImageOps.grayscale(img).convert(img.mode)`: L unchanged, RGBA's
+    grey with alpha 255."""
+    if img.ndim == 2:
+        return img.copy()
+    grey = np.repeat(rgb_to_l(img)[..., None], 3, axis=-1)
+    if img.shape[-1] == 4:
+        return np.concatenate([grey, np.full_like(grey[..., :1], 255)], -1)
+    return grey
+
+
+def _rgba_refused(img: np.ndarray) -> None:
+    """`ImageOps`' lookup-table ops on RGBA raise, as Pillow's do."""
+    if img.ndim == 3 and img.shape[-1] == 4:
+        raise OSError("not supported for mode RGBA")
 
 
 def blend(im1: np.ndarray, im2: np.ndarray, alpha: float) -> np.ndarray:
@@ -415,7 +442,16 @@ def blend(im1: np.ndarray, im2: np.ndarray, alpha: float) -> np.ndarray:
 
 def enhance(img: np.ndarray, kind: str, factor: float) -> np.ndarray:
     """`ImageEnhance.Brightness | Contrast | Color(img).enhance(factor)`
-    (`kind` "brightness", "contrast", "color"; `native.enhance`)."""
+    (`kind` "brightness", "contrast", "color"; `native.enhance`).  L goes
+    through its grey RGB (whose luma is the level itself: the same mean,
+    and Color's blend of the image with itself); RGBA blends its colour
+    and keeps its alpha, as ImageEnhance puts the alpha back."""
+    if img.ndim == 2:
+        rgb = np.repeat(img[..., None], 3, axis=-1)
+        return np.ascontiguousarray(enhance(rgb, kind, factor)[..., 0])
+    if img.shape[-1] == 4:
+        return np.concatenate([enhance(np.ascontiguousarray(img[..., :3]),
+                                       kind, factor), img[..., 3:]], -1)
     if _NATIVE[0]:
         return native.enhance(img, kind, factor)
     return enhance_reference(img, kind, factor)
@@ -475,8 +511,12 @@ def smooth(img: np.ndarray) -> np.ndarray:
 
 
 def sharpness(img, factor):
-    """`ImageEnhance.Sharpness(img).enhance(factor)`: against SMOOTH."""
-    return blend(smooth(img), img, factor)
+    """`ImageEnhance.Sharpness(img).enhance(factor)`: against SMOOTH (the
+    alpha of RGBA kept)."""
+    out = blend(smooth(img), img, factor)
+    if img.ndim == 3 and img.shape[-1] == 4:
+        out[..., 3] = img[..., 3]
+    return out
 
 
 def _lut(img: np.ndarray, lut) -> np.ndarray:
@@ -487,17 +527,20 @@ def _lut(img: np.ndarray, lut) -> np.ndarray:
 
 def solarize(img: np.ndarray, threshold: int = 128) -> np.ndarray:
     """`ImageOps.solarize`: i below `threshold` kept, else 255 - i."""
+    _rgba_refused(img)
     i = np.arange(256)
     return _lut(img, np.where(i < threshold, i, 255 - i))
 
 
 def posterize(img: np.ndarray, bits: int) -> np.ndarray:
     """`ImageOps.posterize`: the top `bits` bits of each value."""
+    _rgba_refused(img)
     return _lut(img, np.arange(256) & ~(2 ** (8 - bits) - 1))
 
 
 def invert(img: np.ndarray) -> np.ndarray:
     """`ImageOps.invert`."""
+    _rgba_refused(img)
     return 255 - img
 
 
@@ -505,6 +548,9 @@ def autocontrast(img: np.ndarray) -> np.ndarray:
     """`ImageOps.autocontrast` (no cutoff): each channel's lowest and
     highest value stretched to 0 and 255, int(ix * scale + offset)
     clamped; a channel of one value kept."""
+    _rgba_refused(img)
+    if img.ndim == 2:
+        return autocontrast(img[..., None])[..., 0]
     out = np.empty_like(img)
     for b in range(img.shape[-1]):
         h = np.bincount(img[..., b].ravel(), minlength=256)
@@ -524,6 +570,9 @@ def equalize(img: np.ndarray) -> np.ndarray:
     """`ImageOps.equalize`: per channel, `step` = (pixels less the last
     value's count) // 255 and the table (step // 2 + the count below i) //
     step; a channel with one value or a step of 0 kept."""
+    _rgba_refused(img)
+    if img.ndim == 2:
+        return equalize(img[..., None])[..., 0]
     out = np.empty_like(img)
     for b in range(img.shape[-1]):
         h = np.bincount(img[..., b].ravel(), minlength=256).astype(np.int64)
@@ -600,7 +649,10 @@ def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
 
 def hue_shift(img: np.ndarray, shift: float) -> np.ndarray:
     """The JAX package's `_hue_shift`: the HSV hue byte moved by
-    int(shift * 255), modulo 256, in the host C++ library."""
+    int(shift * 255), modulo 256, in the host C++ library; an image that
+    is not RGB unchanged."""
+    if img.ndim != 3 or img.shape[-1] != 3:
+        return img
     if _NATIVE[0]:
         return native.hue_shift(img, int(shift * 255))
     return hue_shift_reference(img, shift)
@@ -656,6 +708,8 @@ def gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
 def gaussian_blur_reference(img: np.ndarray, radius: float) -> np.ndarray:
     """`gaussian_blur` in numpy: three box passes along the rows, then
     three along the columns."""
+    if img.ndim == 2:
+        return gaussian_blur_reference(img[..., None], radius)[..., 0]
     fr = _blur_box_radius(radius)
     if fr == 0:
         return img.copy()

@@ -42,7 +42,7 @@ import numpy as np
 _HERE = Path(__file__).resolve().parent
 BUILD_ROOT = _HERE.parent / "_build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
-HEADERS = ("bilinear_u8.h",)
+HEADERS = ("bilinear_u8.h", "formats_common.h")
 
 # jpeg_probe's colour kinds; the first three are what libjpeg's RGB output
 # takes (the JAX package's native decode), the last two go through Pillow
@@ -132,6 +132,17 @@ def _f32(v) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(v, np.float32))
 
 
+def _hwc(img) -> tuple[np.ndarray, bool]:
+    """uint8 HWC, or [H, W] (one band, Pillow's L) viewed as [H, W, 1]:
+    -> (contiguous HWC, whether the input was 2-D)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    return (img[..., None], True) if img.ndim == 2 else (img, False)
+
+
+def _band(out: np.ndarray, flat: bool) -> np.ndarray:
+    return out[..., 0] if flat else out
+
+
 # --------------------------------------------------------------------------- #
 # image ops
 # --------------------------------------------------------------------------- #
@@ -178,16 +189,16 @@ def hflip(img: np.ndarray) -> np.ndarray:
 def resample(img: np.ndarray, dh: int, dw: int,
              filter: str = "bilinear") -> np.ndarray:
     """Pillow's `Image.resize((dw, dh), BILINEAR | BICUBIC)` on uint8 HWC
-    (`filter` "bilinear" or "bicubic"); its plain numpy version is
+    or [H, W] (`filter` "bilinear" or "bicubic"); its plain numpy version is
     `data.detection_data.resize_reference`."""
     if filter not in ("bilinear", "bicubic"):
         raise ValueError(f"filter {filter!r}: 'bilinear' or 'bicubic'")
-    img = np.ascontiguousarray(img, np.uint8)
+    img, flat = _hwc(img)
     h, w, c = img.shape
     out = np.empty((dh, dw, c), np.uint8)
     image_lib().resample_u8(img, h, w, c, out, dh, dw,
                             int(filter == "bicubic"))
-    return out
+    return _band(out, flat)
 
 
 def hue_shift(img: np.ndarray, shift: int) -> np.ndarray:
@@ -219,28 +230,30 @@ def enhance(img: np.ndarray, kind: str, factor: float) -> np.ndarray:
 
 def gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
     """Pillow's `img.filter(ImageFilter.GaussianBlur(radius))` on uint8 HWC
-    (a new array); its plain numpy version is
+    or [H, W] (a new array); its plain numpy version is
     `data.transforms.gaussian_blur_reference`."""
-    out = np.array(img, np.uint8, order="C", copy=True)
+    img, flat = _hwc(img)
+    out = img.copy()
     h, w, c = out.shape
     image_lib().gaussian_blur_u8(out, h, w, c, float(radius))
-    return out
+    return _band(out, flat)
 
 
 def transform_bilinear(img: np.ndarray, coeffs,
                        perspective: bool = False) -> np.ndarray:
     """Pillow's `img.transform(img.size, AFFINE | PERSPECTIVE, coeffs,
-    BILINEAR)` on uint8 HWC: `coeffs` the 6 (affine) or 8 (perspective)
+    BILINEAR)` on uint8 HWC or [H, W]: `coeffs` the 6 (affine) or 8
+    (perspective)
     output -> input coefficients; its plain numpy version is
     `data.transforms.transform_bilinear_reference`."""
-    img = np.ascontiguousarray(img, np.uint8)
+    img, flat = _hwc(img)
     h, w, c = img.shape
     a = np.zeros(8, np.float64)
     n = 8 if perspective else 6
     a[:n] = [float(v) for v in list(coeffs)[:n]]
     out = np.empty_like(img)
     image_lib().transform_bilinear_u8(img, h, w, c, out, a, int(perspective))
-    return out
+    return _band(out, flat)
 
 
 # The plain numpy versions: the C++'s float32 operations, one at a time
@@ -403,8 +416,9 @@ def png_passes(width: int, height: int, interlace: bool):
 def png_stream(data: bytes) -> dict:
     """Read a PNG stream's chunks and inflate its image data (Python's
     zlib): -> {'width', 'height', 'depth', 'ctype', 'interlace', 'mode'
-    (Pillow's), 'palette' ([n, 3] uint8 or None), 'data' (the scanlines,
-    each with its filter byte, as many bytes as the image needs)}.
+    (Pillow's), 'palette' ([n, 3] uint8 or None), 'transparency' (tRNS as
+    Pillow reads it, or None), 'data' (the scanlines, each with its filter
+    byte, as many bytes as the image needs)}.
 
     Raises PngError for a stream that is not a PNG, a chunk cut short or
     with a wrong CRC, an IHDR that is not first or not valid (a bit depth
@@ -414,7 +428,7 @@ def png_stream(data: bytes) -> dict:
     ends early."""
     if data[:8] != PNG_SIGNATURE:
         raise PngError("not a PNG stream")
-    pos, idat, plte, head = 8, [], None, None
+    pos, idat, plte, head, trns = 8, [], None, None, None
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         end = pos + 8 + n
@@ -433,6 +447,8 @@ def png_stream(data: bytes) -> dict:
             head = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
             plte = body
+        elif kind == b"tRNS":
+            trns = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -463,9 +479,27 @@ def png_stream(data: bytes) -> dict:
         raise PngError(f"image data does not inflate: {e}") from None
     if len(raw) < need:
         raise PngError(f"image data ends early ({len(raw)} of {need} bytes)")
+    mode = PNG_MODES[(depth, ctype)]
     return {"width": w, "height": h, "depth": depth, "ctype": ctype,
-            "interlace": bool(interlace), "mode": PNG_MODES[(depth, ctype)],
-            "palette": palette, "data": raw}
+            "interlace": bool(interlace), "mode": mode,
+            "palette": palette, "transparency": _png_transparency(mode,
+                                                                  trns),
+            "data": raw}
+
+
+def _png_transparency(mode: str, trns: bytes | None):
+    """A tRNS chunk as Pillow keeps it in `info["transparency"]`: a
+    palette's alphas, a grey level, an (r, g, b) colour; None for the
+    modes with an alpha band."""
+    if trns is None:
+        return None
+    if mode == "P":
+        return bytes(trns)
+    if mode in ("1", "L", "I;16") and len(trns) >= 2:
+        return struct.unpack(">H", trns[:2])[0]
+    if mode == "RGB" and len(trns) >= 6:
+        return struct.unpack(">3H", trns[:6])
+    return None
 
 
 def decode_png(data: bytes, raw: bool = False) -> np.ndarray:

@@ -13,8 +13,10 @@ Counterpart of `apla_tpu/ssl/byol.py`:
   `_setup_device_multicrop`) and the `BYOLTrainer` run loop: train,
   validation by kNN on the feature branch's backbone, best-model tracking,
   checkpoints with the auxiliary state (the teacher, the BN running stats,
-  the centers), resume and the kNN test table.  The trainer keeps its
-  records in `history`, as `Trainer` does.
+  the centers), resume and the kNN test table.  Each record goes to the
+  run logger (`utils/logging.make_run_logger`) and to `history`, as in
+  `Trainer`; the training records hold each objective's keys of the JAX
+  package (`train_record`).
 
 The student is one `BYOLModel` (backbone + head + predictor).  The teacher
 (BYOL) is the EMA twin of the trainable backbone and head tensors only:
@@ -55,6 +57,7 @@ from ..train.knn import knn_evaluate
 from ..train.optim import grad_norm
 from ..train.schedules import cosine_with_warmup_table
 from ..train.train_state import TrainState, weights_swapped
+from ..utils.logging import make_run_logger
 from ..wrapper import DefaultWrapper, build_apla_config, build_vit_config
 from .heads import (BYOLHead, PredictionMLP, byol_head_forward,
                     init_byol_head, init_prediction_mlp,
@@ -404,6 +407,9 @@ class BYOLTrainer:
         self.history = []          # (iteration, record) for every log call
         self._last_val_iter = -1
         self._train_step = None
+        # seconds from the start of `train` to the end of its first step
+        self.first_step_s = None
+        self.logger = make_run_logger(wrapper, self)
 
     # ------------------------------------------------------------------ #
     @property
@@ -412,6 +418,13 @@ class BYOLTrainer:
 
     def log(self, record: dict, it: int):
         self.history.append((it, dict(record)))
+        self.logger.log(record, it)
+
+    def train_record(self, m, extra, images_per_sec):
+        """The record of a logged step: BYOL's and SimSiam's keys."""
+        return {"train_loss": float(m["loss"]), "lr": extra["lr"],
+                "ema_momentum": extra["ema_momentum"],
+                "images_per_sec": images_per_sec}
 
     def momentum_at(self, it: int) -> float:
         """The EMA momentum of iteration `it` from the wrapper's table."""
@@ -484,21 +497,21 @@ class BYOLTrainer:
                 images_seen += batch["label"].shape[0] * data_size()
                 self.iters += 1
                 if self.iters % self.log_every == 0 or self.iters == 1:
-                    rec = {("train_" + k if k == "loss" else k): float(v)
-                           for k, v in m.items()}
-                    rec.update(extra)
-                    rec["images_per_sec"] = images_seen / max(
-                        time.time() - t0, 1e-9)
+                    elapsed = max(time.time() - t0, 1e-9)
+                    if self.first_step_s is None:
+                        self.first_step_s = elapsed
+                    rec = self.train_record(m, extra, images_seen / elapsed)
                     self.log(rec, self.iters)
                     print(f"it {self.iters:6d} ep {epoch:3d} loss "
-                          f"{rec['train_loss']:.4f} lr {extra.get('lr', 0):.2e}"
-                          f" img/s {rec['images_per_sec']:.1f}")
+                          f"{rec['train_loss']:.4f} lr {extra['lr']:.2e}"
+                          f" img/s {images_seen / elapsed:.1f}")
                 if self.iters % val_interval == 0:
                     self.epoch_step(epoch)
                     self._last_val_iter = self.iters
         if self._last_val_iter != self.iters:
             self.epoch_step(self.epochs - 1)
         self.save_session(self.epochs - 1)
+        self.logger.finish()
 
     def epoch_step(self, epoch):
         results = self.evaluate()
@@ -567,7 +580,8 @@ class BYOLTrainer:
     def test(self, chpt_path=None):
         """kNN evaluation of the test set with the best feature-branch
         snapshot (of the checkpoint at `chpt_path` when given), else the
-        current weights."""
+        current weights; printed and returned, not logged (as in the JAX
+        package)."""
         if chpt_path and os.path.isdir(chpt_path):
             self._restore(chpt_path, weights_only=True)
         results = self.evaluate(self.wrapper.dataloaders.testloader,
@@ -575,5 +589,4 @@ class BYOLTrainer:
         print("SSL TEST RESULTS (kNN)")
         for k, v in results.items():
             print(f"  {k} : {v}")
-        self.log(results, self.iters)
         return results

@@ -308,3 +308,8 @@ class DINOTrainer(BYOLTrainer):
             self.state, g, loc, lr, wd, mom, t_temp, self.generator)
         return m, {"lr": lr, "wd": wd, "teacher_temp": t_temp,
                    "ema_momentum": mom}
+
+    def train_record(self, m, extra, images_per_sec):
+        """The record of a logged step: DINO's keys."""
+        return {"train_loss": float(m["loss"]), "lr": extra["lr"],
+                "wd": extra["wd"], "teacher_temp": extra["teacher_temp"]}

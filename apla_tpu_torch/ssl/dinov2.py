@@ -890,3 +890,11 @@ class Dinov2Trainer(BYOLTrainer):
                                                mom, t_temp, self.generator)
         return m, {"lr": lr, "wd": wd, "teacher_temp": t_temp,
                    "momentum": mom}
+
+    def train_record(self, m, extra, images_per_sec):
+        """The record of a logged step: every metric of the step (the
+        loss as `train_loss`), the schedules' values."""
+        rec = {("train_" + k if k == "loss" else k): float(v)
+               for k, v in m.items()}
+        rec.update(extra)
+        return rec

@@ -8,8 +8,10 @@ batches already trained: the shuffle is deterministic in (seed, epoch)),
 a checkpoint on SIGTERM/SIGINT at the next step boundary, and the test
 table, with the kNN rows when `training_params.knn_eval` is set (`--knn`).
 `training_params.profile_dir` traces steps 10..20 with `torch.profiler` (a
-chrome trace plus the by-kernel table).  Logged records are kept in
-`history` and printed; JSONL/wandb logging is ROADMAP queue A (logging).
+chrome trace plus the by-kernel table).  Each record goes to the run
+logger (`utils/logging.make_run_logger`: on rank 0,
+`<save_dir>/<run_name>.metrics.jsonl` and the optional wandb run), is kept
+in `history` and printed.
 
 Data parallel (`apla_tpu/train/trainer.py:134-148`, `:280-300`): each rank
 trains on its rows of the global batch (the loaders are sharded by the
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from ..parallel.collectives import any_rank, data_size, gather_rows
+from ..utils.logging import make_run_logger
 from ..utils.profiling import StepTimer, device_memory_stats
 from .checkpoint import load_checkpoint, save_checkpoint
 from .knn import knn_evaluate
@@ -82,6 +85,7 @@ class Trainer:
         self._preempted = False
         self._last_val_iter = -1
         self._plateau_fed_epoch = -1
+        self.logger = make_run_logger(wrapper, self)
 
     # ------------------------------------------------------------------ #
     @property
@@ -90,6 +94,7 @@ class Trainer:
 
     def log(self, record: dict, it: int):
         self.history.append((it, dict(record)))
+        self.logger.log(record, it)
 
     def load_session(self):
         """Resume from the last checkpoint."""
@@ -229,12 +234,14 @@ class Trainer:
                         print(f"Preemption signal received: saving "
                               f"checkpoint at iter {self.iters}")
                         self.save_session(epoch, verbose=True)
+                        self.logger.finish()
                         return
         if prof is not None:
             prof.__exit__(None, None, None)
         if self._last_val_iter != self.iters:
             self.epoch_step(self.epochs - 1)
         self.save_session(self.epochs - 1, verbose=True)
+        self.logger.finish()
 
     # ------------------------------------------------------------------ #
     def epoch_step(self, epoch):

@@ -282,10 +282,25 @@ raise on failure:
                stages and a full fine-tune's token-prep gradient left
                unsummed must fail); 17b 15c's DINOv2 update and 17c 16d's
                W8A8 recipe through the pipeline against one rank.
+  18. formats — 18a the BMP, GIF and TIFF fixtures (tests/data/{bmp,gif,
+               tiff}) through the native decoders and their plain
+               versions, in RGB, L and RGBA against the manifests' sha256
+               of Pillow 12.1's decodes, the refused TIFFs raising with
+               ROADMAP A 5, the 224^2 decode rate of each format beside
+               13g's JPEG and 13j's PNG loader rates; 18b the ImageNet
+               recipe's host path as 13d runs it at `img_channels: 1`
+               through `main` on a tree of JPEG, PNG, BMP, GIF and TIFF
+               content under `.JPEG` names: one update, rows 1 and 2 in
+               every block of every micro-step and eval call, the first
+               step's kernel arm against the plain arm (13h's bounds for
+               a run from the seeded .pth, two backward faults, the f32
+               arm's loss beside), the metrics file
+               (`<save_dir>/<model_name>.metrics.jsonl`) holding the JAX
+               trainer's records once each, no wandb run.
 
-Phases 2-12 and 15-17 also run negative controls: the kernels made to compute what
-broken ones would (output zeroed or halved, uniform attention, half the
-heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
+Phases 2-12, 15-17 and 18b also run negative controls: the kernels made
+to compute what broken ones would (output zeroed or halved, uniform
+attention, half the heads dropped, padding columns left unmasked; dqkv halved, dq zeroed, dW_t
 from the wrong columns or zeroed, rowsum(dp * p) dropped from ds, a key
 tile left out of dq, a query tile left out of dk; the
 teacher temperature taken as 1, dws zeroed, dxs halved, p_t dropped from
@@ -6250,7 +6265,7 @@ def _phase_isic(device, tmp, pth):
     records = [r for _, r in trainer.history if "train_loss" in r]
     knn = [r for _, r in trainer.history
            if any(key.startswith("knn_val_") for key in r)]
-    update_s = loaders.trainloader.batch_size / records[0]["images_per_sec"]
+    update_s = trainer.first_step_s
     full = wrapper.model_params.adaptation.params.partial_size
     print(f"[13i isic2019] the shipped recipe (`main --dinov2`, APLA "
           f"{full!r}, {wrapper.n_prototypes} prototypes, fused_proto_ce "
@@ -6356,7 +6371,8 @@ def _transform_manifest_cases(arms=("native", "plain"), every=1):
     with open(TRANSFORM_MANIFEST) as f:
         m = json.load(f)
     imgs = {name: np.ascontiguousarray(read_image(os.path.join(
-        DATA_FIXTURES, r["file"]))[:r["height"], :r["width"]])
+        DATA_FIXTURES, r["file"]), r.get("mode", "RGB"))[:r["height"],
+                                                         :r["width"]])
         for name, r in m["regions"].items()}
     ctxs = {"native": contextlib.nullcontext, "plain": tt.plain_ops}
     secs, bad = {}, []
@@ -6389,7 +6405,8 @@ def _transform_manifest_check():
     print(f"[13k transforms] {n} cases ({len(ops)} ops at their bins, "
           f"{len(names)} transform names alone and in the shipped "
           f"pipelines, seeds 0-3, on a square and a wide region of two "
-          f"JPEG fixtures) against the JAX package's sha256: native arm "
+          f"JPEG fixtures and the square one as L) against the JAX "
+          f"package's sha256: native arm "
           f"{n - sum(b.startswith('native') for b in bad)}/{n} equal in "
           f"{secs['native']:.2f} s, plain arm "
           f"{n - sum(b.startswith('plain') for b in bad)}/{n} equal in "
@@ -6436,8 +6453,7 @@ def _host_v1(device, tmp, root):
             depth * 2 * steps)
         records = [r for _, r in trainer.history if "train_loss" in r]
         losses = [r["train_loss"] for r in records]
-        update_s = loaders.trainloader.batch_size / records[0][
-            "images_per_sec"]
+        update_s = trainer.first_step_s
         trainset = loaders.trainloader.dataset
         sizes = [t.transforms[0].size[0] for t in trainset.transform]
         print(f"[{tag}] `main --{objective}` with device_augment off in "
@@ -7380,6 +7396,273 @@ def phase_pipeline(device, started, refs):
     return launches, times
 
 
+# --------------------------------------------------------------------------- #
+# 18. BMP, GIF and TIFF by content (18a), the grey ImageNet recipe (18b)
+# --------------------------------------------------------------------------- #
+
+FORMAT_KINDS = ("bmp", "gif", "tiff")
+# 18a's rate files: a 224 x 224 image of each format (RLE8, LZW, Deflate
+# with predictor 2)
+FORMAT_RATE_FILES = {"bmp": "rle8_224.bmp", "gif": "p_224.gif",
+                     "tiff": "rgb8_deflate_pred_224.tif"}
+FORMAT_RATE_REPEAT = 20
+# 18b: 13d's host path as shipped (HOST_CUTS) with `img_channels: 1`, on
+# a tree of every fixture format (`.JPEG` names over JPEG, PNG, BMP, GIF
+# and TIFF content), read as L and broadcast to three bands by Normalize;
+# the YAML's log_params (wandb asked for unless the package is installed:
+# it is absent on the card's machine, and an installed one would reach for
+# the network)
+GREY_SOURCES = ("jpeg", "png", "bmp", "gif", "tiff")
+GREY_CUTS = copy.deepcopy(HOST_CUTS)
+GREY_CUTS["dataset_params"]["img_channels"] = 1
+GREY_CUTS["log_params"] = {"project_name": "APLA",
+                           "run_name": "DEFINED_BY_MODEL_NAME"}
+GREY_TRAIN, GREY_VAL = HOST_TRAIN, HOST_VAL
+# the supervised trainer's record of a logged step in the JAX package
+# (`apla_tpu/train/trainer.py:219-229`): these, the step timer's and the
+# device memory's keys
+GREY_TRAIN_KEYS = {"iters", "t", "train_loss", "lr", "grad_norm",
+                   "images_per_sec"}
+
+
+def phase_formats(device, keep, loader_rates):
+    """18: the BMP, GIF and TIFF decoders against their manifests (18a),
+    then the shipped ImageNet recipe on grey images of every format
+    through `main` (18b); `keep`: phase 12's hub checkpoint; `loader_rates`:
+    13g's JPEG and 13j's PNG loader rates, printed beside 18a's."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as tmp:
+        rates = _formats_decode_check(loader_rates)
+        launches, grey = _phase_grey(device, tmp, keep)
+    return launches, {"decode": rates, "grey": grey}
+
+
+def _formats_decode_check(loader_rates):
+    """18a: every fixture through the native decoders and their plain
+    versions, in RGB, L and RGBA against the manifest's sha256 (Pillow
+    12.1's bits); the refused streams raise citing ROADMAP A 5; the 224^2
+    decode rates.  -> {kind: readings}."""
+    from apla_tpu_torch.data import image_formats as imf
+    from apla_tpu_torch.native import formats as nf
+    counts, bad = {}, []
+    for kind in FORMAT_KINDS:
+        d = os.path.join(ROOT, "tests", "data", kind)
+        with open(os.path.join(d, "manifest.json")) as f:
+            files = json.load(f)["files"]
+        n = refused = 0
+        for name, rec in sorted(files.items()):
+            with open(os.path.join(d, name), "rb") as f:
+                data = f.read()
+            if "refused" in rec:
+                for native_ops in (True, False):
+                    try:
+                        imf.open_image(data, native_ops)
+                        bad.append(f"{name}: decoded, not refused")
+                    except nf.Unsupported as e:
+                        if "ROADMAP A 5" not in str(e):
+                            bad.append(f"{name}: {e}")
+                refused += 1
+                continue
+            got = imf.open_image(data)
+            ref = imf.open_image(data, native_ops=False)
+            if got.mode != rec["mode"] or got.px.shape != ref.px.shape \
+                    or not np.array_equal(got.px, ref.px):
+                bad.append(f"{name}: native {got.mode} vs plain {ref.mode}")
+            for key, mode in (("rgb", "RGB"), ("l", "L"), ("rgba", "RGBA")):
+                if _sha256(imf.convert(got, mode)) != rec[key]:
+                    bad.append(f"{name} {mode}")
+            n += 1
+        counts[kind] = (n, refused)
+    rates = {}
+    for kind, name in FORMAT_RATE_FILES.items():
+        with open(os.path.join(ROOT, "tests", "data", kind, name), "rb") as f:
+            data = f.read()
+        imf.decode_image(data)            # the library's build and load
+        native_ms = min(_wall_ms(lambda: imf.decode_image(data))
+                        for _ in range(FORMAT_RATE_REPEAT))
+        plain_ms = min(_wall_ms(lambda: imf.decode_image(
+            data, native_ops=False)) for _ in range(3))
+        rates[kind] = {"file": name, "bytes": len(data),
+                       "native_ms": native_ms, "plain_ms": plain_ms,
+                       "native_img_s": 1000.0 / native_ms}
+    jpeg, png = loader_rates
+
+    def fmt(v):
+        return f"{v:.1f}" if v else "not measured"
+    print("[18a formats] " + "; ".join(
+        f"{kind}: {n} fixtures in RGB, L and RGBA against Pillow 12.1's "
+        f"sha256, native = plain, {r} refused citing A 5"
+        for kind, (n, r) in counts.items())
+        + f"; {len(bad)} differ")
+    print("[18a formats] 224^2 decode to RGB, one process, best of "
+          f"{FORMAT_RATE_REPEAT}: " + ", ".join(
+              f"{kind} ({r['file']}, {r['bytes']} B) {r['native_ms']:.3f} ms "
+              f"= {r['native_img_s']:.1f} img/s (plain numpy "
+              f"{r['plain_ms']:.1f} ms)" for kind, r in rates.items())
+          + f"; beside 13g's JPEG loader {fmt(jpeg)} img/s and 13j's PNG "
+          f"loader {fmt(png)} img/s (8 workers, decode + resize); "
+          f"{_gpu_line()}")
+    if bad:
+        raise SystemExit(f"the BMP, GIF or TIFF decoders differ from "
+                         f"Pillow or their plain versions: {bad[:10]}")
+    return rates
+
+
+def _write_grey_tree(root, n_train, n_val) -> dict:
+    """<root>/ImageNet/{train,val}/<wnid>/ of fixture copies of every
+    format under `.JPEG` names, round-robin over the formats and then
+    their files; -> {path: fixture}."""
+    import shutil
+    files = [os.path.join(ROOT, "tests", "data", kind, name)
+             for kind in GREY_SOURCES
+             for name in sorted(os.listdir(os.path.join(ROOT, "tests",
+                                                        "data", kind)))
+             if name != "manifest.json" and not name.startswith("refused_")]
+    by_kind = [[f for f in files if f"/{kind}/" in f]
+               for kind in GREY_SOURCES]
+    order = [k[i % len(k)] for i in range(max(map(len, by_kind)))
+             for k in by_kind]
+    source, k = {}, 0
+    for split, n in (("train", n_train), ("val", n_val)):
+        for c in range(DATA_CLASSES):
+            wnid = f"n{c:08d}"
+            d = os.path.join(root, "ImageNet", split, wnid)
+            os.makedirs(d)
+            for i in range(n // DATA_CLASSES):
+                path = os.path.join(d, f"{wnid}_{i}.JPEG")
+                shutil.copy(order[k % len(order)], path)
+                source[os.path.abspath(path)] = order[k % len(order)]
+                k += 1
+    return source
+
+
+def _phase_grey(device, tmp, keep):
+    """18b: the recipe at `img_channels: 1` through `main`: one update
+    through rows 1 and 2, the first step's kernel arm against its plain
+    arm, the metrics file.  -> ((rows 1, 2 launches), readings)."""
+    import importlib.util
+    from apla_tpu_torch.ops import fused_apla_attn as fa
+    from apla_tpu_torch.wrapper import build_vit_config
+    counters = (fa.fused_apla_attn_fwd, fa.fused_apla_attn_bwd)
+    accum = int(IMPORT_RECIPE["training_params"]["accum_steps"])
+    pth = keep.get("hub_pth")
+    if pth is None:
+        pth = os.path.join(tmp, "dinov2_vitb14_hub.pth")
+        torch.save(_dinov2_state(build_vit_config(IMPORT_RECIPE), SEED), pth)
+    root = _subdir(tmp, "grey")
+    source = _write_grey_tree(root, GREY_TRAIN, GREY_VAL)
+    kinds = sorted({os.path.basename(os.path.dirname(p))
+                    for p in source.values()})
+    cuts = copy.deepcopy(GREY_CUTS)
+    cuts["dataset_params"]["data_location"] = root
+    wandb_found = importlib.util.find_spec("wandb") is not None
+    cuts["log_params"]["use_wandb"] = not wandb_found
+    recipe, params = _recipe_file(tmp, "grey", IMPORT_RECIPE, cuts, device,
+                                  pth)
+    for c in counters:
+        c.launches = 0
+    t = time.perf_counter()
+    _, trainer, init = _run_main(["--params_path", recipe, "--device",
+                                  str(device), "--model_name", "grey"])
+    _sync(device)
+    run_s = time.perf_counter() - t
+    tag = "18b grey"
+    launches = _main_run_checks(tag, trainer, accum, counters)
+    wrapper = trainer.wrapper
+    loader = wrapper.dataloaders.trainloader
+    ds = loader.dataset
+    size = int(IMPORT_RECIPE["dataset_params"]["train_transforms"][
+        "RandomResizedCrop"]["size"])
+    grey = ds.load_image(ds.data[0])
+    sample = ds.__getitem__(0, rng=np.random.default_rng(0))["image"]
+    steps = [type(x).__name__ for x in ds.transform.transforms]
+    first = [r for _, r in trainer.history if "images_per_sec" in r]
+    update_s = loader.batch_size / first[0]["images_per_sec"]
+    print(f"[{tag}] `main` with img_channels 1 on {len(source)} images "
+          f"({', '.join(kinds)} content under .JPEG names) in {run_s:.1f} "
+          f"s: a file reads as {grey.dtype} {tuple(grey.shape)}, the host "
+          f"pipeline {' -> '.join(steps)} gives {sample.dtype} "
+          f"{tuple(sample.shape)}; the update took {update_s:.2f} s from "
+          f"the start of training (loaders in-process); {_gpu_line()}")
+    if ds.img_channels != 1 or grey.ndim != 2 or ds.raw_mode \
+            or sample.shape != (size, size, 3) \
+            or not np.isfinite(sample).all() or len(kinds) != 5:
+        raise SystemExit("the grey run did not read L images of every "
+                         "format through the recipe's transforms")
+
+    # the metrics file: written once by the run (rank 0), JAX's records
+    path = trainer.logger.path
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    hist = trainer.history
+    train = [r for r in recs if "train_loss" in r]
+    val = [r for r in recs if "val_loss" in r]
+    test = [r for r in recs if "test_loss" in r]
+    same = len(recs) == len(hist) and all(
+        r["iters"] == it and {k: v for k, v in r.items()
+                              if k not in ("iters", "t")}.keys() == h.keys()
+        for r, (it, h) in zip(recs, hist))
+    timer_mem = {k for r in train for k in r} - GREY_TRAIN_KEYS
+    print(f"[{tag}] {os.path.basename(path)}: {len(recs)} records "
+          f"({len(train)} log_every, {len(val)} validation, {len(test)} "
+          f"test), equal to the trainer's history: {same}; the step "
+          f"record's keys {sorted(GREY_TRAIN_KEYS - {'iters', 't'})} and "
+          f"{sorted(timer_mem)}; validation {sorted(val[0]) if val else []}"
+          f"; wandb run {trainer.logger.wandb_run} (wandb "
+          f"{'installed: not asked for' if wandb_found else 'absent'})")
+    steps_run = len(loader)
+    if not same or len(train) != steps_run or len(val) != 1 \
+            or len(test) != 1 or not all(GREY_TRAIN_KEYS <= set(r)
+                                         for r in train) \
+            or timer_mem - {"peak_hbm_gb", "hbm_in_use_gb", "hbm_limit_gb",
+                            "step_time_mean_ms", "step_time_p50_ms",
+                            "step_time_p95_ms", "steps_per_sec"} \
+            or "val_loss" not in val[0] or "test_loss" not in test[0] \
+            or trainer.logger.wandb_run is not None:
+        raise SystemExit("18b: the metrics file does not hold the JAX "
+                         "trainer's records once each")
+
+    # the first step's kernel arm against the plain arm from the weights
+    # the run started from (the seeded .pth, as 13h), under 13h's bounds
+    # (phase 5's gradient bound; the loss bound of a run from the .pth,
+    # whose forward's bf16 roundings part the arms' losses: NABIRDS_LOSS_TOL)
+    # and phase 5's two backward faults
+    model, cfg = trainer.state.model, wrapper.vit_cfg
+    model.load_state_dict(init)
+    loader.set_epoch(0)
+    batch = next(iter(loader))
+    images = batch["image"].to(device)
+    labels = batch["label"].to(device)
+    plain_cfg = dataclasses.replace(cfg, use_fused_apla=False,
+                                    use_flash=False)
+    args = (images, labels, wrapper.criterion, accum)
+    ref = _step_grads(model, plain_cfg, *args)
+    got = _step_grads(model, cfg, *args)
+    tols = (NABIRDS_LOSS_TOL, GRAD_REL_TOL)
+    ok = _grad_agreement(tag, "kernel arm", got, ref, *tols)
+    f32 = _step_grads(model, dataclasses.replace(
+        plain_cfg, compute_dtype=torch.float32), *args)[0]
+    print(f"[{tag}] the f32 plain arm's loss {f32:.7f}: the kernel arm "
+          f"{got[0] - f32:+.3g} from it, the bf16 plain arm "
+          f"{ref[0] - f32:+.3g}")
+    controls = {"dW_t zeroed": lambda out: (out[0], out[1] * 0),
+                "dqkv halved": lambda out: (out[0] * 0.5, out[1])}
+    caught = all([not _grad_agreement(
+        tag, f"control: {name}", _with_output_fault(
+            fa, "fused_apla_attn_bwd", fault,
+            lambda: _step_grads(model, cfg, *args)), ref, *tols)
+        for name, fault in controls.items()])
+    for p in model.parameters():
+        p.grad = None
+    if not ok:
+        raise SystemExit("18b: the kernel arm's gradients on grey images "
+                         "disagree with the plain arm")
+    if not caught:
+        raise SystemExit("18b: a broken backward kernel passes the gradient "
+                         "bounds")
+    return launches, {"update_s": update_s, "run_s": run_s,
+                      "records": len(recs), "images": len(source)}
+
+
 def _det_losses(save_dir):
     with open(os.path.join(save_dir, "det.metrics.jsonl")) as f:
         return [r["train_loss"] for r in map(json.loads, f)
@@ -7445,6 +7728,9 @@ def main() -> int:
             secs["16 + 17 ranks, beside 15"] = started["group"].result()[1]
         finally:
             pool.shutdown()
+    fmt_launches, fmt_readings = timed(
+        "18", phase_formats, device, keep,
+        (data_rates["loader_img_s"], recipe_rates["png"]["raw_img_s"]))
     keep_dir.cleanup()
     print(f"summary: build {build_s:.2f} s; serve b64 img/s fused "
           f"{fused_rate:.1f} plain {plain_rate:.1f} ({serve_launches} "
@@ -7494,6 +7780,10 @@ def main() -> int:
           + f"{recipe_rates['transforms_s']['plain']:.2f} s; PNG "
           + f"loader img/s raw {recipe_rates['png']['raw_img_s']:.1f} host "
           + f"{recipe_rates['png']['host_img_s']:.1f}"
+          + "; BMP / GIF / TIFF 224^2 decode img/s " + ", ".join(
+              f"{kind} {r['native_img_s']:.1f}"
+              for kind, r in fmt_readings["decode"].items())
+          + f"; grey ImageNet update {fmt_readings['grey']['update_s']:.2f} s"
           + f"; detector --masks: box and mask mAP@50 above 0 after "
           + f"{mask_readings['steps_to_map']} steps, best "
           + f"{mask_readings['best']}; multi-label val "
@@ -7510,7 +7800,7 @@ def main() -> int:
          serve_launches + fwd_launches + ssl_launches[0] + w8a8_launches[1]
          + sum(n[0] for n in v1_launches.values()) + p12["fwd"]
          + data_launches[0] + recipe_launches[0] + ml_launches[0]
-         + par_launches["fused_apla_attn_fwd"]
+         + fmt_launches[0] + par_launches["fused_apla_attn_fwd"]
          + tp_launches["w8a8"]["fused_apla_attn_fwd"],
          {**fwd_times[FWD_TIMED[0]],
           "max_abs_err": max(max_err, v1_times["fwd"]["max_abs_err"])}),
@@ -7519,7 +7809,7 @@ def main() -> int:
          bwd_launches + ssl_launches[1]
          + sum(n[1] for n in v1_launches.values()) + p12["bwd"]
          + data_launches[1] + recipe_launches[1] + ml_launches[1]
-         + par_launches["fused_apla_attn_bwd"]
+         + fmt_launches[1] + par_launches["fused_apla_attn_bwd"]
          + tp_launches["w8a8"]["fused_apla_attn_bwd"],
          {**bwd_times[main_shape],
           "max_abs_err": max(bwd_err, v1_times["bwd"]["max_abs_err"],
@@ -7756,6 +8046,10 @@ def main() -> int:
     for name, n in (("fused_apla_attn_fwd", ml_launches[0]),
                     ("fused_apla_attn_bwd", ml_launches[1])):
         extra[name]["launches_multilabel"] = n
+    # phase 18b's (the recipe on grey images) within the counts above
+    for name, n in (("fused_apla_attn_fwd", fmt_launches[0]),
+                    ("fused_apla_attn_bwd", fmt_launches[1])):
+        extra[name]["launches_grey"] = n
     # phase 15's (data parallel, W = 1 and 2) within the counts above
     for name, n in par_launches.items():
         if n and name in extra:

@@ -17,6 +17,7 @@ import copy
 import dataclasses
 import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1014,15 +1015,17 @@ def _imports(path):
 
 
 def test_chip_smoke_and_native_import_no_jax_package():
-    """chip_smoke.py and the native host library's bindings import nothing
-    of the JAX package, JAX or Pillow."""
+    """chip_smoke.py and the native host library's bindings (the BMP, GIF
+    and TIFF parsers among them) import nothing of the JAX package, JAX,
+    Pillow, PyYAML, pandas, sklearn or wandb."""
     native = os.path.join(ROOT, "apla_tpu_torch", "native")
     for path in [os.path.join(ROOT, "chip_smoke.py")] + [
             os.path.join(native, n) for n in os.listdir(native)
             if n.endswith(".py")]:
         for name in _imports(path):
             top = name.split(".")[0]
-            assert top not in ("apla_tpu", "jax", "jaxlib", "flax", "PIL"), \
+            assert top not in ("apla_tpu", "jax", "jaxlib", "flax", "PIL",
+                               "yaml", "pandas", "sklearn", "wandb"), \
                 (path, name)
 
 
@@ -1223,3 +1226,55 @@ def test_pipeline_recipes_are_what_the_jax_wrapper_builds(monkeypatch,
         assert recipe["training_params"]["accum_steps"] == 8
         assert recipe["dataloader_params"]["trainloader"][
             "batch_size"] == 64
+
+
+def test_formats_phase_rehearsal(monkeypatch, tmp_path):
+    """Phase 18 on the CPU: 18a the BMP, GIF and TIFF fixtures against
+    their manifests through both arms, the refused streams, the decode
+    rates; 18b the host path at `img_channels: 1` on the tiny supervised
+    model through `main` on a tree of every format: rows 1 and 2 counted
+    in every block of every micro-step and eval call, the kernel arm
+    against the plain arm with its two faults, the metrics file."""
+    smoke = _chip_smoke()
+    _tiny_import(smoke, monkeypatch)
+    monkeypatch.setattr(smoke, "GREY_TRAIN", 16)
+    monkeypatch.setattr(smoke, "GREY_VAL", 8)
+    monkeypatch.setattr(smoke, "FORMAT_RATE_REPEAT", 2)
+    monkeypatch.setattr(smoke, "GRAD_REL_TOL", 0.08)
+    monkeypatch.setattr(smoke, "_gpu_line", lambda: "no card (CPU)")
+    _count_plain_versions(monkeypatch)
+    launches, readings = smoke.phase_formats(torch.device("cpu"),
+                                             {"dir": str(tmp_path)},
+                                             (None, None))
+    # 16 images: one update of b16 (8 micro-steps of 2); val and test one
+    # batch each
+    assert launches == (12 * (8 + 2), 12 * 8)
+    assert set(readings["decode"]) == {"bmp", "gif", "tiff"}
+    assert all(r["native_img_s"] > 0 for r in readings["decode"].values())
+    assert readings["grey"]["records"] == 3      # a step, val, test
+    assert readings["grey"]["images"] == 24
+
+
+def test_phase_list_and_kernels_line_name_every_row():
+    """The script's docstring lists phases 1-18, main runs each, and the
+    kernels line counts phase 18's launches in rows 1 and 2 beside every
+    TPU row's entry."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    doc = src.split('"""')[1]
+    for n in range(1, 19):
+        assert re.search(rf"^  {n}[a-z]?\. ", doc, re.M), n
+    main = src[src.index("def main() -> int:"):]
+    for tag in ["1", "2", "3", "4", "5", "6a", "6b", "7a", "7b", "8a", "8b",
+                "8c", "9a", "9b", "10a", "10b", "11", "12", "13", "13h-k",
+                "14", "15", "16", "17", "18"]:
+        assert f'timed("{tag}"' in main or f'"{tag}", phase' in main, tag
+    for row in ("pallas_apla_attn.py:105", "pallas_apla_attn.py:131",
+                "pallas_apla_attn.py:197", "pallas_apla_attn.py:203",
+                "pallas_apla_attn_long.py:110", "pallas_apla_attn_long.py:141",
+                "pallas_mha.py:66", "pallas_mha.py:81",
+                "pallas_proto_ce.py:73", "pallas_proto_ce.py:130",
+                "pallas_proto_ce.py:150", "pallas_int8_matmul.py:33"):
+        assert f'"{row}"' in main, row
+    assert main.count("fmt_launches[0]") == 2 \
+        and main.count("fmt_launches[1]") == 2

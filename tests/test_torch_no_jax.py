@@ -1,5 +1,7 @@
 """`apla_tpu_torch` imports no jax, flax or optax, and none of the packages
-the card's machine lacks (PIL, sklearn, yaml, pandas).
+the card's machine lacks (PIL, sklearn, yaml, pandas, wandb: the run
+logger imports wandb inside `RunLogger.__init__` alone, when `log_params`
+asks for a wandb run, and a failed import means no wandb run).
 
 A fresh interpreter with a `sys.meta_path` blocker on those packages imports
 every module of the port, runs a tiny APLA classifier forward through the
@@ -42,7 +44,7 @@ _SCRIPT = r"""
 import importlib, importlib.abc, importlib.machinery, pkgutil, sys, tempfile
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "PIL", "sklearn", "yaml",
-           "pandas")
+           "pandas", "wandb")
 
 
 # Fails every import of a blocked package, as if it were not there (a
@@ -500,6 +502,82 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("OK")
 """
+
+
+_SCRIPT_FORMATS = _HEADER + r"""
+import json, os, shutil, tempfile
+import numpy as np
+import torch
+from apla_tpu_torch.data import image_formats as imf
+from apla_tpu_torch.data.datasets import ImageNet
+from apla_tpu_torch.models.vit import VIT_BUILDERS
+from apla_tpu_torch.utils import flops
+from apla_tpu_torch.utils.logging import RunLogger
+
+# the BMP, GIF and TIFF fixtures through the native decoders, RGB, L and
+# RGBA against their manifests
+import hashlib
+def sha(a):
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+n = 0
+for kind in ("bmp", "gif", "tiff"):
+    d = os.path.join("tests", "data", kind)
+    files = json.load(open(os.path.join(d, "manifest.json")))["files"]
+    for name, rec in files.items():
+        if "refused" in rec:
+            continue
+        data = open(os.path.join(d, name), "rb").read()
+        for key, mode in (("rgb", "RGB"), ("l", "L"), ("rgba", "RGBA")):
+            assert sha(imf.decode_image(data, mode)) == rec[key], name
+        n += 1
+assert n > 50, n
+
+# a grey ImageNet tree of every format through the recipe's host
+# transforms (L broadcast to three bands) and the raw path (2-D)
+with tempfile.TemporaryDirectory() as tmp:
+    d = os.path.join(tmp, "ImageNet", "train", "n0")
+    os.makedirs(d)
+    for i, kind in enumerate(("jpeg", "png", "bmp", "gif", "tiff")):
+        src = os.path.join("tests", "data", kind)
+        name = sorted(f for f in os.listdir(src) if f != "manifest.json")[0]
+        shutil.copy(os.path.join(src, name), os.path.join(d, f"{i}.JPEG"))
+    tt = {"Resize": {"apply": True, "height": 40, "width": 40},
+          "RandomResizedCrop": {"apply": True, "size": 32,
+                                "scale": [0.8, 1.2]},
+          "TrivialAugment": {"apply": True}, "Normalize": True}
+    ds = ImageNet({"data_location": tmp, "train_transforms": tt,
+                   "img_channels": 1}, "train")
+    for i in range(len(ds)):
+        sample = ds.__getitem__(i, rng=np.random.default_rng(i))["image"]
+        assert sample.shape == (32, 32, 3) and np.isfinite(sample).all()
+    ds.raw_mode, ds.raw_size = True, 24
+    assert ds[0]["image"].shape == (24, 24)
+
+# the FLOP model, and a run logger asking for wandb: the import is blocked,
+# so the JSONL alone
+cfg = VIT_BUILDERS["vit_base"](img_size=224, patch_size=14)
+assert flops.vit_train_step_flops(cfg, 1000, 64)["total_flops"] > 0
+assert flops.peak_tflops("NVIDIA H100 80GB HBM3") == 989.4
+with tempfile.TemporaryDirectory() as tmp:
+    logger = RunLogger(tmp, "m", use_wandb=True)
+    logger.log({"train_loss": 1.0}, 1)
+    logger.finish()
+    assert logger.wandb_run is None
+    assert os.listdir(tmp) == ["m.metrics.jsonl"]
+
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_formats_grey_flops_and_logger_run_without_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT_FORMATS],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("OK"), proc.stdout[-2000:]
 
 
 def test_mask_branch_multilabel_and_lamb_run_without_jax():

@@ -173,11 +173,17 @@ def test_pixel_arithmetic_enhance_matches_pillow(factor):
                                          ((9, 7, 3), np.float32)],
                          ids=["l", "rgba", "float"])
 def test_native_enhance_takes_only_rgb_uint8(shape, dtype):
-    """The host path is RGB uint8: other input raises in the native op
-    rather than passing to another arm."""
+    """The native op is RGB uint8: other input raises there rather than
+    passing to another arm.  The transforms bring L and RGBA to it as RGB
+    (held against Pillow in `test_torch_img_channels.py`); float input
+    still raises through them."""
+    from apla_tpu_torch import native
     img = np.zeros(shape, dtype)
     with pytest.raises(ValueError, match="uint8 RGB HWC"):
-        tt.brightness(img, 1.2)
+        native.enhance(img, "brightness", 1.2)
+    if dtype != np.uint8:
+        with pytest.raises(ValueError, match="uint8 RGB HWC"):
+            tt.brightness(img, 1.2)
 
 
 def _recipe_dicts():
@@ -454,7 +460,7 @@ def test_transform_manifest_is_what_jax_computes_now():
              for n in c["transform"]}
     assert set(tt.ORDER) | {"RandomErasing"} <= names
     assert {c["op"] for c in got["cases"] if "op" in c} == set(tt.OPS)
-    assert {"square", "wide"} == {c["image"] for c in got["cases"]}
+    assert {"square", "wide", "grey"} == {c["image"] for c in got["cases"]}
 
 
 @pytest.mark.parametrize("plain", [False, True], ids=["native", "plain"])

@@ -4,9 +4,10 @@
     python3 tools/make_transform_manifest.py [--out tests/data/transforms]
                                              [--check]
 
-`manifest.json` names two regions of two committed JPEG fixtures
+`manifest.json` names three regions of two committed JPEG fixtures
 (`tests/data/jpeg`: a square one, where `Image.rotate` by 90 / 270 is a
-transpose, and a wider one) and a list of cases, each with the sha256,
+transpose, a wider one, and the square one decoded as L, the grey image
+of `img_channels: 1`) and a list of cases, each with the sha256,
 shape and dtype of its output as the JAX package computes it (Pillow):
 
 - `op`: `_apply_op(img, op, magnitude)` on a region, uint8 out, for every
@@ -45,8 +46,11 @@ FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 # name -> the fixture and the [height, width] region at its top left
+# (and the mode it is decoded in: "L" for `img_channels: 1`)
 REGIONS = {"square": {"file": "odd_257x255.jpg", "height": 56, "width": 56},
-           "wide": {"file": "n01_500x375.JPEG", "height": 48, "width": 64}}
+           "wide": {"file": "n01_500x375.JPEG", "height": 48, "width": 64},
+           "grey": {"file": "odd_257x255.jpg", "height": 56, "width": 56,
+                    "mode": "L"}}
 SEEDS = range(4)
 OP_BINS = (0, 7, 13, 20, 30)
 # every transform alone, at parameters that make each of its draws matter
@@ -148,7 +152,7 @@ def regions() -> dict:
     out = {}
     for name, r in REGIONS.items():
         with open(os.path.join(FIXTURES, r["file"]), "rb") as f:
-            img = np.asarray(Image.open(f).convert("RGB"))
+            img = np.asarray(Image.open(f).convert(r.get("mode", "RGB")))
         out[name] = np.ascontiguousarray(img[:r["height"], :r["width"]])
     return out
 
